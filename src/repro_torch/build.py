@@ -1,0 +1,139 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by its own ``nvcc`` process, all started
+together, for ``sm_90a``; the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The library
+lives in ``build/`` at the repository root, named by a hash of the
+sources and flags, so a checkout builds it on first use and reuses it
+after. Nothing here runs at import time.
+
+Flags keep IEEE division and rounding (no ``--use_fast_math``): the
+quantize and gather kernels are held bitwise against their plain
+versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                       "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# every C entry point returns cudaGetLastError() after its launch
+SIGNATURES = {
+    # x, codes, scale, out, M, K, N, code_bits, k_x, x_bf16, w_bf16,
+    # cast_bf16, out_bf16, stream
+    "rt_dequant_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _P],
+    # pool, ptab, out, B, npag, page_bytes, stream
+    "rt_gather_pages": [_P, _P, _P, _I, _I, _L, _P],
+    # x, out_bits, rows, n, stream
+    "rt_amax_rows": [_P, _P, _I, _L, _P],
+    # x, scale, codes, rows, n, k_x, code_bytes, stream
+    "rt_uniform_quantize_rows": [_P, _P, _P, _I, _L, _I, _I, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+build_log = ""   # nvcc's output of the last build in this process
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    cus, hdrs = _sources()
+    h = hashlib.sha256(" ".join(CFLAGS).encode())
+    for p in cus + hdrs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
+
+
+def _compile(out: Path) -> str:
+    nvcc = nvcc_path()
+    cus, _ = _sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    logs = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in cus:
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *CFLAGS, "-I", str(CSRC), "-c", str(src),
+                   "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for src, obj, proc in procs:
+            text, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{text}")
+            if proc.returncode:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        tmp_so = Path(tmp) / out.name
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_so),
+                *(str(obj) for _, obj, _ in procs), "-lcudart"]
+        res = subprocess.run(link, capture_output=True, text=True)
+        logs.append(f"== link\n{res.stdout}{res.stderr}")
+        if res.returncode:
+            raise RuntimeError("nvcc link failed:\n" + "\n".join(logs))
+        os.replace(tmp_so, out)
+    return "\n".join(logs)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if this checkout lacks it."""
+    global _lib, build_log
+    if _lib is None:
+        path = library_path()
+        if not path.exists():
+            build_log = _compile(path)
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
+    if err:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

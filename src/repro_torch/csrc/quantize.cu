@@ -1,0 +1,137 @@
+// K3 per-row amax and K4 per-row uniform quantize (the Q_x residency
+// passes behind quantize_params).
+//
+// Replaces repro/comm/kernels.py amax_pallas and uniform_quantize_pallas.
+// The TPU amax carried a running max through SMEM scratch across a grid
+// that runs in order; CUDA blocks run in no order, so each block reduces
+// its share of a row and folds it into the row's result with atomicMax
+// on the bits of the nonnegative float (|x| bits order like the values,
+// NaN above +inf, so max is exact and the scale stays bitwise).
+//
+// Both passes are bound by bytes: amax reads the leaf once; quantize
+// reads it once more and writes 1 or 2 bytes per element. Design: 16-byte
+// float4 loads where the row length allows, one grid row of blocks per
+// tensor row (a stacked (L, ...) leaf gets its L scales in one launch),
+// enough blocks per row to fill the 132 SMs.
+//
+// Arithmetic of K4 follows repro/opt/grids.py uniform_quantize exactly:
+// y = clip(x / max(s, 1e-30), -1, 1); code = round_half_even(y * 2^k).
+// The division is IEEE (no fast math) and y * 2^k is exact.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ unsigned int abs_bits(float v) {
+  return __float_as_uint(v) & 0x7fffffffu;
+}
+
+__global__ void amax_rows_kernel(const float* __restrict__ x,
+                                 unsigned int* __restrict__ out,
+                                 long long n, int vec4) {
+  const int r = blockIdx.y;
+  const float* row = x + (long long)r * n;
+  unsigned int m = 0u;
+  const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  if (vec4) {
+    const float4* row4 = reinterpret_cast<const float4*>(row);
+    const long long n4 = n / 4;
+    for (long long i = start; i < n4; i += stride) {
+      float4 v = row4[i];
+      m = max(m, max(max(abs_bits(v.x), abs_bits(v.y)),
+                     max(abs_bits(v.z), abs_bits(v.w))));
+    }
+  } else {
+    for (long long i = start; i < n; i += stride) m = max(m, abs_bits(row[i]));
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  __shared__ unsigned int warp_max[kThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_max[warp] = m;
+  __syncthreads();
+  if (warp == 0) {
+    m = lane < (int)(blockDim.x >> 5) ? warp_max[lane] : 0u;
+    for (int off = 16; off > 0; off >>= 1)
+      m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (lane == 0) atomicMax(out + r, m);
+  }
+}
+
+__device__ __forceinline__ float quant1(float x, float s, float n) {
+  float y = fminf(fmaxf(x / s, -1.0f), 1.0f);
+  return rintf(y * n);
+}
+
+template <typename CT>
+__global__ void uniform_quantize_kernel(const float* __restrict__ x,
+                                        const float* __restrict__ scale,
+                                        CT* __restrict__ codes, long long n,
+                                        float pow2, int vec4) {
+  const int r = blockIdx.y;
+  const float s = fmaxf(scale[r], 1e-30f);
+  const float* row = x + (long long)r * n;
+  CT* crow = codes + (long long)r * n;
+  const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  if (vec4) {
+    const float4* row4 = reinterpret_cast<const float4*>(row);
+    const long long n4 = n / 4;
+    for (long long i = start; i < n4; i += stride) {
+      float4 v = row4[i];
+      CT c[4] = {(CT)quant1(v.x, s, pow2), (CT)quant1(v.y, s, pow2),
+                 (CT)quant1(v.z, s, pow2), (CT)quant1(v.w, s, pow2)};
+      if (sizeof(CT) == 1) {
+        char4 o = make_char4(c[0], c[1], c[2], c[3]);
+        reinterpret_cast<char4*>(crow)[i] = o;
+      } else {
+        short4 o = make_short4(c[0], c[1], c[2], c[3]);
+        reinterpret_cast<short4*>(crow)[i] = o;
+      }
+    }
+  } else {
+    for (long long i = start; i < n; i += stride)
+      crow[i] = (CT)quant1(row[i], s, pow2);
+  }
+}
+
+unsigned int blocks_per_row(long long work, int rows) {
+  long long want = (work + kThreads - 1) / kThreads;
+  long long fill = (2048 + rows - 1) / rows;  // ~16 blocks per SM overall
+  if (want > fill) want = fill;
+  return (unsigned int)(want < 1 ? 1 : want);
+}
+
+}  // namespace
+
+extern "C" int rt_amax_rows(const void* x, void* out_bits, int rows,
+                            long long n, void* stream) {
+  const int vec4 = (n % 4 == 0) && ((uintptr_t)x % 16 == 0);
+  dim3 grid(blocks_per_row(vec4 ? n / 4 : n, rows), rows);
+  amax_rows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (unsigned int*)out_bits, n, vec4);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rt_uniform_quantize_rows(const void* x, const void* scale,
+                                        void* codes, int rows, long long n,
+                                        int k_x, int code_bytes,
+                                        void* stream) {
+  const int vec4 = (n % 4 == 0) && ((uintptr_t)x % 16 == 0) &&
+                   ((uintptr_t)codes % (4 * code_bytes) == 0);
+  dim3 grid(blocks_per_row(vec4 ? n / 4 : n, rows), rows);
+  const float pow2 = (float)(1 << k_x);
+  if (code_bytes == 1) {
+    uniform_quantize_kernel<int8_t><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)x, (const float*)scale, (int8_t*)codes, n, pow2, vec4);
+  } else if (code_bytes == 2) {
+    uniform_quantize_kernel<int16_t><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)x, (const float*)scale, (int16_t*)codes, n, pow2, vec4);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,158 @@
+"""Building-block layers, dense decoder subset (port of
+``repro/models/layers.py``, local path).
+
+Each function repeats the reference's float32 arithmetic in the same
+order (norm statistics, rope angles, masked softmax with the ``l_safe``
+guard), so the two packages agree to float32 rounding at equal inputs.
+Attention here is plain PyTorch on the cache view; the kernels the
+path runs sit behind :func:`pmatmul` (K1) and ``gather_pages`` (K2).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.serve.quantized import QuantizedLeaf
+
+
+# ---------------------------------------------------------------------------
+# Projections
+# ---------------------------------------------------------------------------
+
+def code_resident(w) -> bool:
+    """True for code-resident quantized weights (``QuantizedLeaf``)."""
+    return isinstance(w, QuantizedLeaf)
+
+
+def pmatmul(x: torch.Tensor, w, backend: Optional[str] = None) -> torch.Tensor:
+    """Weight projection ``x @ w`` in x's dtype - the model's single
+    contraction choke point. A code-resident ``w`` runs the K1 fused
+    dequant-matmul; a float ``w`` is cast to x's dtype first."""
+    if code_resident(w):
+        return w.astype(x.dtype).matmul(x, backend=backend)
+    return x @ w.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, w, eps=1e-6):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w.to(torch.float32)).to(dt)
+
+
+def apply_norm(x, p, cfg: ModelConfig):
+    return rmsnorm(x, p["w"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x, positions, theta):
+    """x: (..., S, H, hd); positions: (S,) or (B, S) int positions."""
+    hd = x.shape[-1]
+    half = hd // 2
+    dev = x.device
+    th = torch.full((), theta, dtype=torch.float32, device=dev)  # no H2D copy
+    inv_freq = torch.exp(-torch.log(th) * 2.0
+                         * torch.arange(half, dtype=torch.float32, device=dev)
+                         / hd)
+    ang = positions.to(torch.float32)[..., None] * inv_freq   # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    if positions.dim() == 1:
+        cos, sin = cos[None], sin[None]                       # (1, S, 1, half)
+    xf = x.to(torch.float32)
+    x1, x2 = xf[..., :half], xf[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention against a cache view
+# ---------------------------------------------------------------------------
+
+def decode_attention(q, k_cache, v_cache, *, total_len, kv_positions=None,
+                     extra_valid=None):
+    """Single-token decode against a (B, S, K, hd) cache view.
+
+    total_len: valid cache entries, scalar or (B,) per slot (the query
+    sits at position total_len - 1). kv_positions: (S,) positions of the
+    view columns; extra_valid: optional (B, S) mask ANDed into validity
+    (page ownership for paged views).
+    """
+    B, _, H, hd = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    rep = H // K
+    dev = q.device
+    kv_pos = (torch.arange(S, device=dev) if kv_positions is None
+              else kv_positions)
+    tl = torch.as_tensor(total_len, device=dev).expand(B)
+    valid = kv_pos[None, :] < tl[:, None]                      # (B, S)
+    if extra_valid is not None:
+        valid = valid & extra_valid
+    qr = q.reshape(B, K, rep, hd).to(torch.float32)
+    scores = torch.einsum("bkrd,bskd->bkrs", qr,
+                          k_cache.to(torch.float32)) / math.sqrt(hd)
+    mask = valid[:, None, None, :]
+    scores = torch.where(mask, scores, -torch.inf)
+    l_loc = torch.amax(scores, dim=-1)                         # (B, K, rep)
+    l_safe = torch.where(torch.isfinite(l_loc), l_loc, -1e30)
+    p = torch.exp(scores - l_safe[..., None])
+    p = torch.where(mask, p, 0.0)
+    denom = torch.sum(p, dim=-1)
+    o = torch.einsum("bkrs,bskd->bkrd", p, v_cache.to(torch.float32))
+    out = o / torch.clamp_min(denom[..., None], 1e-30)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def chunk_attention(q, k_cache, v_cache, *, q_pos, kv_positions=None,
+                    extra_valid=None):
+    """Chunked-prefill attention: Sq prompt tokens per slot attend to the
+    slot's cache view, which already holds the chunk's own K/V.
+
+    q: (B, Sq, H, hd); q_pos: (B, Sq) positions; causality rides on them
+    (kv_pos <= q_pos). Queries past the chunk's valid prefix give
+    outputs the caller discards.
+    """
+    B, Sq, H, hd = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    rep = H // K
+    dev = q.device
+    kv_pos = (torch.arange(S, device=dev) if kv_positions is None
+              else kv_positions)
+    valid = kv_pos[None, None, :] <= q_pos[:, :, None]        # (B, Sq, S)
+    if extra_valid is not None:
+        valid = valid & extra_valid[:, None, :]
+    qr = q.reshape(B, Sq, K, rep, hd).to(torch.float32)
+    scores = torch.einsum("bqkrd,bskd->bkrqs", qr,
+                          k_cache.to(torch.float32)) / math.sqrt(hd)
+    mask = valid[:, None, None]                                # (B,1,1,Sq,S)
+    scores = torch.where(mask, scores, -torch.inf)
+    l_loc = torch.amax(scores, dim=-1)
+    l_safe = torch.where(torch.isfinite(l_loc), l_loc, -1e30)
+    p = torch.exp(scores - l_safe[..., None])
+    p = torch.where(mask, p, 0.0)
+    denom = torch.sum(p, dim=-1)                               # (B,K,rep,Sq)
+    o = torch.einsum("bkrqs,bskd->bqkrd", p, v_cache.to(torch.float32))
+    out = o / torch.clamp_min(torch.movedim(denom, -1, 1)[..., None], 1e-30)
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp(params, x, backend: Optional[str] = None):
+    """Gated silu MLP."""
+    h = (F.silu(pmatmul(x, params["w_gate"], backend))
+         * pmatmul(x, params["w_up"], backend))
+    return pmatmul(h, params["w_down"], backend)

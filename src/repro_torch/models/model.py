@@ -1,0 +1,285 @@
+"""Dense decoder LM, serving subset (port of ``repro/models/model.py``).
+
+Parameters keep the reference's tree: ``embed`` (V, d), ``unembed``
+(d, V), ``final_norm``, and the scan-stacked ``blocks`` whose leaves
+carry a leading layer dim (L, ...). Where the reference scans over that
+dim with ``lax.scan``, the port loops over layers in Python.
+
+The decode cache is updated IN PLACE (the reference returns a new one):
+``decode_step``/``decode_chunk`` write each token's K/V into the fixed
+lanes or the page pool and return the same dict. Writes the reference
+drops (``mode="drop"``: released-sentinel pages, positions past the
+view, padded chunk tails) are dropped here too, with fixed shapes and
+no host sync (see :class:`_DropScatter`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.serve.paged import gather_pages
+from repro_torch.serve.quantized import layer_slice
+
+Gather = Optional[Callable[[Any, str], Any]]
+
+
+def _dt(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+class _DropScatter:
+    """``dst[idx] = vals`` for the rows where ``ok``; other rows vanish,
+    as the reference's ``.at[idx].set(..., mode="drop")``.
+
+    Fixed shapes and no host sync: a dropped row repeats the write of the
+    first kept row (same place, same value), or, when no row is kept,
+    writes back what is already at the first row's place. Kept rows
+    target distinct places, so every duplicate index carries one value.
+    ``idx`` must already be clipped into ``dst``. Built once per step and
+    applied to every layer's pool or lane. The donor index is a (1,)
+    tensor: indexing with a 0-d tensor would read it on the host.
+    """
+
+    def __init__(self, idx: Tuple[torch.Tensor, ...], ok: torch.Tensor):
+        donor = torch.argmax(ok.to(torch.uint8)).reshape(1)
+        self.loc = tuple(i[donor] for i in idx)
+        self.idx = tuple(torch.where(ok, i, l) for i, l in zip(idx, self.loc))
+        self.ok, self.donor, self.donor_ok = ok, donor, ok[donor]
+
+    def __call__(self, dst: torch.Tensor, vals: torch.Tensor) -> None:
+        vals = vals.to(dst.dtype)
+        fill = torch.where(self.donor_ok, vals[self.donor], dst[self.loc])
+        ok = self.ok.reshape((-1,) + (1,) * (vals.dim() - 1))
+        dst.index_put_(self.idx, torch.where(ok, vals, fill))
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def _check_dense(self):
+        """The port's decoder is the yi-6b family: dense GQA, untied head,
+        rmsnorm, silu MLP, full attention, no biases or softcaps."""
+        c = self.cfg
+        extras = [name for name, on in (
+            ("arch_type != dense", c.arch_type != "dense"),
+            ("input_mode != tokens", c.input_mode != "tokens"),
+            ("tie_embeddings", c.tie_embeddings), ("qkv_bias", c.qkv_bias),
+            ("qk_norm", c.qk_norm), ("post_norm", c.post_norm),
+            ("emb_scale", c.emb_scale), ("softcaps", c.attn_softcap
+                                         or c.final_softcap),
+            ("sliding window", c.window), ("norm != rmsnorm",
+                                           c.norm != "rmsnorm"),
+            ("act != silu", c.act != "silu")) if on]
+        if extras:
+            raise NotImplementedError(
+                f"{c.name}: {', '.join(extras)} not ported yet; the other "
+                "architecture families are queued in ROADMAP.md")
+
+    # ---------------- init ----------------
+    def init(self, generator: Optional[torch.Generator] = None, *,
+             seed: int = 0, device="cuda") -> Dict[str, Any]:
+        """Random float32 parameters with the reference's leaf names and
+        shapes: truncated normal in [-2, 2] times 0.02 for weights, ones
+        for norms. Draws come from ``generator`` (default: a generator on
+        ``device`` seeded with ``seed``); the numbers differ from
+        ``jax.random``'s, so tests convert the reference's tree instead
+        (``repro_torch.convert``)."""
+        self._check_dense()
+        cfg = self.cfg
+        dev = torch.device(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(seed)
+
+        def dense(*shape):
+            t = torch.empty(shape, dtype=torch.float32, device=dev)
+            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                        generator=generator)
+            return t.mul_(0.02)
+
+        def ones(*shape):
+            return torch.ones(shape, dtype=torch.float32, device=dev)
+
+        d, H, K, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim_, cfg.d_ff)
+        n = cfg.n_layers
+        return {
+            "embed": dense(cfg.vocab_size, d),
+            "final_norm": {"w": ones(d)},
+            "unembed": dense(d, cfg.vocab_size),
+            "blocks": {
+                "ln1": {"w": ones(n, d)},
+                "attn": {"q": dense(n, d, H * hd), "k": dense(n, d, K * hd),
+                         "v": dense(n, d, K * hd), "o": dense(n, H * hd, d)},
+                "ln2": {"w": ones(n, d)},
+                "mlp": {"w_gate": dense(n, d, f), "w_up": dense(n, d, f),
+                        "w_down": dense(n, f, d)}}}
+
+    # ---------------- embed / head ----------------
+    def _embed_in(self, params, tokens):
+        if L.code_resident(params["embed"]):
+            # code-resident table: gather only the hit rows' codes
+            return params["embed"].astype(_dt(self.cfg)).take(tokens)
+        return params["embed"].to(_dt(self.cfg))[tokens.long()]
+
+    def _head(self, params, x, backend=None):
+        return L.pmatmul(x, params["unembed"], backend).to(torch.float32)
+
+    # ---------------- KV cache ----------------
+    def init_cache(self, batch_size: int, max_seq_local: int, dtype=None,
+                   page_pool: Optional[Tuple[int, int]] = None,
+                   device="cuda") -> Dict[str, torch.Tensor]:
+        """Decode cache: fixed lanes ``k``/``v`` (layers, B, max_seq, K, hd)
+        or, with ``page_pool=(num_pages, page_size)``, a page pool
+        ``pk``/``pv`` (layers, num_pages, page_size, K, hd) plus a page
+        table ``ptab`` (B, max_seq // page_size) initialised to the
+        RELEASED sentinel ``num_pages``."""
+        self._check_dense()
+        cfg = self.cfg
+        dtype = dtype or _dt(cfg)
+        K, hd, lyr = cfg.n_kv_heads, cfg.head_dim_, cfg.n_layers
+        dev = torch.device(device)
+        if page_pool is not None:
+            num_pages, page_size = page_pool
+            if max_seq_local % page_size:
+                raise ValueError(
+                    f"max_seq_local={max_seq_local} must be a multiple of "
+                    f"page_size={page_size}")
+            shape = (lyr, num_pages, page_size, K, hd)
+            return {"pk": torch.zeros(shape, dtype=dtype, device=dev),
+                    "pv": torch.zeros(shape, dtype=dtype, device=dev),
+                    "ptab": torch.full((batch_size, max_seq_local // page_size),
+                                       num_pages, dtype=torch.int32,
+                                       device=dev)}
+        shape = (lyr, batch_size, max_seq_local, K, hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+    def _paged_writes(self, cache, q_pos, valid_q):
+        """Write targets of tokens at ``q_pos`` (B, S) into the pool,
+        the view's ownership mask and positions."""
+        ptab = cache["ptab"]
+        P, ps = cache["pk"].shape[1], cache["pk"].shape[2]
+        Bn, npag = ptab.shape
+        S_view = npag * ps
+        rows = torch.arange(Bn, device=ptab.device)[:, None]
+        wslot = torch.clamp(q_pos // ps, 0, npag - 1).long()
+        wloc = ptab[rows, wslot].long()
+        ok = valid_q & (q_pos < S_view) & (wloc >= 0) & (wloc < P)
+        write = _DropScatter((torch.clamp(wloc, 0, P - 1).reshape(-1),
+                              (q_pos % ps).long().reshape(-1)),
+                             ok.reshape(-1))
+        own = ptab < P
+        extra_valid = torch.repeat_interleave(own, ps, dim=1)
+        view_pos = torch.arange(S_view, device=ptab.device)
+        return write, extra_valid, view_pos
+
+    def _lane_writes(self, cache, q_pos, valid_q):
+        S = cache["k"].shape[2]
+        Bn = q_pos.shape[0]
+        rows = torch.arange(Bn, device=q_pos.device)[:, None].expand_as(q_pos)
+        ok = valid_q & (q_pos < S) & (q_pos >= 0)
+        return _DropScatter((rows.reshape(-1),
+                             torch.clamp(q_pos, 0, S - 1).long().reshape(-1)),
+                            ok.reshape(-1))
+
+    def _layers(self, params, x, cache, q_pos, valid_q, attend,
+                gather: Gather, backend):
+        """The per-layer body shared by decode_step and decode_chunk:
+        x (B, S, d) at positions q_pos (B, S); ``attend(q, kc, vc, view)``
+        runs the attention variant."""
+        cfg = self.cfg
+        Bn, S, _ = x.shape
+        H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        paged = "pk" in cache
+        if paged:
+            write, extra_valid, view_pos = self._paged_writes(
+                cache, q_pos, valid_q)
+            view = dict(kv_positions=view_pos, extra_valid=extra_valid)
+        else:
+            write, view = self._lane_writes(cache, q_pos, valid_q), {}
+        thetas = cfg.layer_rope_thetas()
+        for i in range(cfg.n_layers):
+            p = layer_slice(params["blocks"], i)
+            if gather is not None:
+                p = gather(p, "blocks")
+            h = L.apply_norm(x, p["ln1"], cfg)
+            pa = p["attn"]
+            q = L.pmatmul(h, pa["q"], backend).reshape(Bn, S, H, hd)
+            k = L.pmatmul(h, pa["k"], backend).reshape(Bn, S, K, hd)
+            v = L.pmatmul(h, pa["v"], backend).reshape(Bn, S, K, hd)
+            q = L.rope(q, q_pos, thetas[i])
+            k = L.rope(k, q_pos, thetas[i])
+            if paged:
+                pk, pv = cache["pk"][i], cache["pv"][i]
+                write(pk, k.reshape(Bn * S, K, hd))
+                write(pv, v.reshape(Bn * S, K, hd))
+                kc = gather_pages(pk, cache["ptab"], backend=backend)
+                vc = gather_pages(pv, cache["ptab"], backend=backend)
+            else:
+                kc, vc = cache["k"][i], cache["v"][i]
+                write(kc, k.reshape(Bn * S, K, hd))
+                write(vc, v.reshape(Bn * S, K, hd))
+            attn = attend(q, kc, vc, view)
+            x = x + L.pmatmul(attn.reshape(Bn, S, H * hd), pa["o"], backend)
+            h2 = L.apply_norm(x, p["ln2"], cfg)
+            x = x + L.mlp(p["mlp"], h2, backend)
+        return L.apply_norm(x, params["final_norm"], cfg)
+
+    # ---------------- decode ----------------
+    def decode_step(self, params, inputs, cache, pos, gather: Gather = None,
+                    backend: Optional[str] = None):
+        """One-token decode. inputs: {"token": (B, 1)}; pos: the token's
+        position, scalar or (B,) per slot. Returns (logits (B, V), cache),
+        the cache updated in place. ``gather`` is the per-layer parameter
+        hook (``make_dequant_gather``); ``backend`` forces the kernels'
+        implementation (default: by device)."""
+        self._check_dense()
+        cfg = self.cfg
+        if gather is not None:
+            params = gather(params, "static")
+        x = self._embed_in(params, inputs["token"])
+        Bn = x.shape[0]
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+        posv = pos.expand(Bn)[:, None]                          # (B, 1)
+
+        def attend(q, kc, vc, view):
+            return L.decode_attention(q, kc, vc, total_len=posv[:, 0] + 1,
+                                      **view)
+
+        x = self._layers(params, x, cache, posv, torch.ones_like(
+            posv, dtype=torch.bool), attend, gather, backend)
+        return self._head(params, x, backend)[:, 0], cache
+
+    def decode_chunk(self, params, inputs, cache, start, nvalid,
+                     gather: Gather = None, backend: Optional[str] = None):
+        """Chunked prefill: advance B slots by one fixed-size chunk of
+        prompt tokens. inputs: {"token": (B, Sq)}; start: (B,) position
+        of each slot's first chunk token; nvalid: (B,) valid tokens (the
+        padded tail's writes are dropped). Returns (logits (B, V) of
+        position start + nvalid - 1, cache updated in place)."""
+        self._check_dense()
+        cfg = self.cfg
+        if gather is not None:
+            params = gather(params, "static")
+        x = self._embed_in(params, inputs["token"])
+        Bn, Sq, _ = x.shape
+        dev = x.device
+        start = torch.as_tensor(start, dtype=torch.int32, device=dev)
+        nvalid = torch.as_tensor(nvalid, dtype=torch.int32, device=dev)
+        ar = torch.arange(Sq, dtype=torch.int32, device=dev)[None, :]
+        q_pos = start[:, None] + ar                             # (B, Sq)
+        valid_q = ar < nvalid[:, None]
+
+        def attend(q, kc, vc, view):
+            return L.chunk_attention(q, kc, vc, q_pos=q_pos, **view)
+
+        x = self._layers(params, x, cache, q_pos, valid_q, attend, gather,
+                         backend)
+        last = torch.clamp(nvalid - 1, 0, Sq - 1).long()
+        xl = x[torch.arange(Bn, device=dev), last][:, None]     # (B, 1, d)
+        return self._head(params, xl, backend)[:, 0], cache

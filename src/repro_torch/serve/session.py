@@ -1,0 +1,593 @@
+"""Continuous-batching serve sessions over a fixed pool of decode slots
+(port of ``repro/serve/session.py``).
+
+  * ``submit(Request) -> handle`` claims a free slot (or queues). The
+    pending queue is ordered by SLO class (``interactive`` > ``standard``
+    > ``batch``) and arrival; under slot or page pressure a higher class
+    preempts the lowest-class occupant (``preempt_mode="requeue"``
+    recomputes it later with its own sampling stream, ``"kill"`` returns
+    the partial generation).
+  * ``step()`` runs one decode step over all slots - embedding, attention
+    against each slot's own cache prefix, greedy or temperature sampling -
+    as device work only: no per-token device-to-host transfer. Before it,
+    at most one chunk of a pending prompt advances through
+    ``model.decode_chunk`` (chunked prefill).
+  * ``drain()`` steps until every request finished and returns
+    ``{handle: Result}``. The host reads device state only at harvests
+    (``stats["syncs"]``), O(requests), never O(tokens).
+
+Differences from the reference, all inside the session: the cache is
+updated in place (inactive slots' rows rewrite identical bytes or drop,
+so no retention pass is needed); sampling draws Gumbel noise from a
+counter-based hash of (request key, draw count), so a request's stream
+is reproducible from ``seed``, independent of its batch mates and of
+preemption, but not the reference's ``jax.random`` stream. Greedy
+tokens are the reference's.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.serve.paged import PagePool
+from repro_torch.serve.quantized import is_quantized, make_dequant_gather
+
+SLO_PRIORITY = {"batch": 0, "standard": 1, "interactive": 2}
+
+_M64 = (1 << 64) - 1
+
+
+def _signed64(v: int) -> int:
+    v &= _M64
+    return v - (1 << 64) if v >> 63 else v
+
+
+_C1 = _signed64(0xBF58476D1CE4E5B9)
+_C2 = _signed64(0x94D049BB133111EB)
+_GOLD = _signed64(0x9E3779B97F4A7C15)
+
+
+def _mix64_int(z: int) -> int:
+    """splitmix64's finalizer on a Python int (mod 2^64)."""
+    z &= _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return _signed64(z ^ (z >> 31))
+
+
+def _mix64(z: torch.Tensor) -> torch.Tensor:
+    """The same finalizer on int64 tensors (wrapping multiply, logical
+    shifts by masking)."""
+    z = (z ^ ((z >> 30) & ((1 << 34) - 1))) * _C1
+    z = (z ^ ((z >> 27) & ((1 << 37) - 1))) * _C2
+    return z ^ ((z >> 31) & ((1 << 33) - 1))
+
+
+def request_key(seed: int, ordinal: int) -> int:
+    """The sampling key of the ``ordinal``-th submission under ``seed``."""
+    return _mix64_int(_mix64_int(seed) + ordinal * 0x9E3779B97F4A7C15)
+
+
+def gumbel_noise(key: torch.Tensor, ctr: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, n) standard Gumbel noise from per-row (key, draw counter)
+    int64 pairs: a pure function of its inputs on any device."""
+    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    z = _mix64(key[:, None] + _mix64(ctr[:, None] * _GOLD + idx[None, :]))
+    u = (((z >> 40) & ((1 << 24) - 1)).to(torch.float32) + 0.5) / (1 << 24)
+    return -torch.log(-torch.log(u))
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: Sequence[int]
+    max_new_tokens: int = 16
+    temperature: float = 0.0
+    slo: str = "standard"           # "interactive" | "standard" | "batch"
+
+
+@dataclasses.dataclass
+class Result:
+    tokens: List[int]
+    prompt_len: int
+    handle: int = -1
+    # "length" | "eos" | "cache_full" | "preempted"
+    finish_reason: str = "length"
+
+
+class ServeSession:
+    """Slot-scheduled continuous-batching session.
+
+    model: ``repro_torch.models.model.Model`` (token-input decoder LM).
+    params: its parameter tree, on ``device``; may hold ``QuantizedLeaf``
+        leaves from ``quantize_params`` (matmul leaves then run K1).
+    slots: concurrent decode lanes; max_seq: per-slot cache length (a
+        request needs ``len(prompt) + max_new_tokens - 1 <= max_seq``).
+    paged: page pool + page tables (``page_size`` tokens per page,
+        ``num_pages`` pages, default fixed-lane-equal memory); admission
+        validates pages up front.
+    prefill: "chunked" (``prefill_chunk`` prompt tokens per dispatch,
+        interleaved with decode), the only admission path ported; the
+        reference's "whole" and "inject" raise (ROADMAP.md).
+    """
+
+    def __init__(self, model, params, *, slots: int = 8, max_seq: int = 256,
+                 eos_id: Optional[int] = None, seed: int = 0,
+                 sync_interval: int = 8, fused_matmul: bool = True,
+                 paged: bool = False, page_size: int = 16,
+                 num_pages: Optional[int] = None, prefill: str = "chunked",
+                 prefill_chunk: int = 32, preempt_mode: str = "requeue",
+                 device="cuda"):
+        cfg = model.cfg
+        if cfg.input_mode != "tokens" or cfg.arch_type != "dense":
+            raise ValueError("the port's ServeSession serves dense "
+                             "token-input decoder LMs")
+        self.model, self.cfg = model, cfg
+        self.device = torch.device(device)
+        self.slots, self.max_seq, self.eos_id = slots, max_seq, eos_id
+        self.sync_interval = max(1, sync_interval)
+        self.params = params
+        self.paged = bool(paged)
+        if self.paged:
+            if max_seq % page_size:
+                raise ValueError(f"max_seq={max_seq} must be a multiple of "
+                                 f"page_size={page_size}")
+            self.page_size = int(page_size)
+            self.num_pages = int(num_pages if num_pages is not None
+                                 else slots * (max_seq // page_size))
+            self._pool = PagePool(self.num_pages, self.page_size)
+        else:
+            self.page_size = self.num_pages = 0
+            self._pool = None
+        if prefill in ("whole", "inject"):
+            raise NotImplementedError(f"prefill={prefill!r} is not ported "
+                                      "yet (ROADMAP.md); use chunked")
+        if prefill != "chunked":
+            raise ValueError(f"unknown prefill mode {prefill!r}")
+        self.prefill_chunk = max(1, int(prefill_chunk))
+        if preempt_mode not in ("requeue", "kill"):
+            raise ValueError(f"unknown preempt_mode {preempt_mode!r}")
+        self.preempt_mode = preempt_mode
+        self._gather = (make_dequant_gather(fused=fused_matmul)
+                        if is_quantized(params) else None)
+        self._state = self._init_state()
+        self._seed = int(seed)
+        self._hot: set = set()          # handles in slots with temp > 0
+        self._slot_handle: List[Optional[int]] = [None] * slots
+        self._slot_done_step = [0] * slots   # earliest possible finish
+        self._slot_pages: List[Optional[List[int]]] = [None] * slots
+        self._prefill_q: "collections.OrderedDict[int, dict]" = \
+            collections.OrderedDict()   # slot -> chunked-admission progress
+        self._pending: List[int] = []   # handles, (priority, arrival) order
+        self._requests: Dict[int, Request] = {}
+        self._req_key: Dict[int, int] = {}   # stable across preemption
+        self._results: Dict[int, Result] = {}
+        self._submit_t: Dict[int, float] = {}
+        self.ttft_s: Dict[int, float] = {}  # submit -> first-token dispatch
+        self._next_handle = 0
+        self._admit_seq = 0
+        self._steps = 0
+        self.stats = {"dispatches": 0, "syncs": 0, "admitted": 0,
+                      "preemptions": 0, "chunk_dispatches": 0,
+                      "max_inflight": 0}
+
+    # ------------------------------------------------------------------
+    # device-side state and the programs that update it
+    # ------------------------------------------------------------------
+
+    def _init_state(self):
+        B, S, dev = self.slots, self.max_seq, self.device
+        pool = (self.num_pages, self.page_size) if self.paged else None
+        cache = self.model.init_cache(B, max_seq_local=S, page_pool=pool,
+                                      device=dev)
+
+        def z(dt):
+            return torch.zeros((B,), dtype=dt, device=dev)
+        return dict(cache=cache, cur=z(torch.int32), pos=z(torch.int32),
+                    plen=z(torch.int32), gen=z(torch.int32),
+                    max_new=z(torch.int32), active=z(torch.bool),
+                    temp=z(torch.float32),
+                    rng=torch.zeros((B, 2), dtype=torch.int64, device=dev),
+                    out=torch.zeros((B, S), dtype=torch.int32, device=dev))
+
+    def _to_dev(self, a, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+
+    def _claim_cache(self, slot: int, ptab_row: Optional[np.ndarray]):
+        """Slot reuse: per-slot attention masking already hides a previous
+        occupant's rows; paged sessions install the slot's table row."""
+        if self.paged:
+            self._state["cache"]["ptab"][slot] = self._to_dev(ptab_row,
+                                                              torch.int32)
+
+    def _stage(self, slot: int, ptab_row):
+        """Claim a slot for chunked admission: inactive, ``pos = max_seq``
+        so interleaved decode steps neither advance it nor write its
+        cache while its chunks are in flight."""
+        st = self._state
+        st["active"][slot] = False
+        st["pos"][slot] = self.max_seq
+        st["gen"][slot] = 0
+        self._claim_cache(slot, ptab_row)
+
+    def _release(self, slot: int):
+        """Free a slot: its decode writes drop from now on (paged: the
+        RELEASED-sentinel table row), so recycled pages stay intact."""
+        st = self._state
+        st["active"][slot] = False
+        st["pos"][slot] = self.max_seq
+        if self.paged:
+            st["cache"]["ptab"][slot] = self.num_pages
+
+    def _run_chunk(self, slot, tokens, start, nvalid, max_new, temp, key,
+                   is_last):
+        """One chunked-prefill dispatch for one slot; the final chunk
+        also picks the first generated token (draw 0 of the request's
+        stream when sampling)."""
+        st = self._state
+        cache = st["cache"]
+        if self.paged:
+            lane = {"pk": cache["pk"], "pv": cache["pv"],
+                    "ptab": cache["ptab"][slot:slot + 1]}
+        else:
+            lane = {"k": cache["k"][:, slot:slot + 1],
+                    "v": cache["v"][:, slot:slot + 1]}
+        lg, _ = self.model.decode_chunk(
+            self.params, {"token": self._to_dev(tokens[None], torch.int32)},
+            lane, self._to_dev([start], torch.int32),
+            self._to_dev([nvalid], torch.int32), self._gather)
+        if not is_last:
+            return
+        lgf = lg[0].to(torch.float32)
+        hot = temp > 0.0
+        if hot:
+            rk = self._to_dev([key], torch.int64)
+            noise = gumbel_noise(rk, torch.zeros_like(rk), lgf.shape[-1])[0]
+            t0 = torch.argmax(lgf / max(temp, 1e-6) + noise)
+        else:
+            t0 = torch.argmax(lgf)
+        t0 = t0.to(torch.int32)
+        plen = start + nvalid
+        st["cur"][slot] = t0
+        st["pos"][slot] = plen
+        st["plen"][slot] = plen
+        st["gen"][slot] = 1
+        st["out"][slot, 0] = t0
+        st["max_new"][slot] = max_new
+        done = torch.tensor(max_new <= 1, device=self.device)
+        if self.eos_id is not None:
+            done = done | (t0 == self.eos_id)
+        st["active"][slot] = ~done
+        st["temp"][slot] = temp
+        st["rng"][slot] = self._to_dev([key, int(hot)], torch.int64)
+
+    def _decode(self, sample: bool):
+        """One decode step over all slots, on the device only."""
+        st, S, eos = self._state, self.max_seq, self.eos_id
+        B = self.slots
+        active, pos = st["active"], st["pos"]
+        logits, _ = self.model.decode_step(
+            self.params, {"token": st["cur"][:, None]}, st["cache"], pos,
+            self._gather)
+        logits = logits.to(torch.float32)
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        if sample:
+            rng = st["rng"]
+            hot = st["temp"] > 0.0
+            scaled = logits / torch.clamp_min(st["temp"], 1e-6)[:, None]
+            noise = gumbel_noise(rng[:, 0], rng[:, 1], logits.shape[-1])
+            sampled = torch.argmax(scaled + noise, dim=-1).to(torch.int32)
+            tok = torch.where(hot, sampled, greedy)
+            rng[:, 1] += hot.to(torch.int64)
+        else:
+            tok = greedy
+        nxt = pos + 1
+        rows = torch.arange(B, device=self.device)
+        gidx = torch.clamp(st["gen"], 0, S - 1).long()
+        st["out"][rows, gidx] = torch.where(active, tok, st["out"][rows, gidx])
+        gen = st["gen"] + active.to(torch.int32)
+        done = active & (gen >= st["max_new"])
+        if eos is not None:
+            done = done | (active & (tok == eos))
+        done = done | (active & (nxt >= S))        # cache full
+        alive = active & ~done
+        st["cur"] = torch.where(alive, tok, st["cur"])
+        st["pos"] = torch.where(alive, torch.clamp_max(nxt, S - 1), pos)
+        st["gen"] = gen
+        st["active"] = alive
+
+    # ------------------------------------------------------------------
+    # scheduler API (host logic, as the reference's)
+    # ------------------------------------------------------------------
+
+    @property
+    def free_slots(self) -> int:
+        return sum(h is None for h in self._slot_handle)
+
+    @property
+    def inflight(self) -> int:
+        return sum(h is not None for h in self._slot_handle)
+
+    @property
+    def queued(self) -> int:
+        return len(self._pending)
+
+    @property
+    def free_pages(self) -> int:
+        return self._pool.free_pages if self.paged else 0
+
+    def _request_pages(self, req: Request) -> int:
+        # cache rows written: prompt + all generated tokens but the last
+        return self._pool.pages_for(len(req.prompt) + req.max_new_tokens - 1)
+
+    def submit(self, req: Request) -> int:
+        """Queue a request; returns its handle. Claims a free slot at once
+        when one is available (preempting a lower SLO class under slot or
+        page pressure)."""
+        plen = len(req.prompt)
+        if plen < 1:
+            raise ValueError("empty prompt")
+        if req.slo not in SLO_PRIORITY:
+            raise ValueError(f"unknown SLO class {req.slo!r}; expected one "
+                             f"of {sorted(SLO_PRIORITY)}")
+        if plen + req.max_new_tokens - 1 > self.max_seq:
+            raise ValueError(
+                f"prompt_len={plen} + max_new={req.max_new_tokens} - 1 "
+                f"exceeds max_seq={self.max_seq}")
+        if self.paged and self._request_pages(req) > self.num_pages:
+            raise ValueError(
+                f"request needs {self._request_pages(req)} pages; the pool "
+                f"holds {self.num_pages}")
+        h = self._next_handle
+        self._next_handle += 1
+        self._requests[h] = req
+        # keyed on the submission ordinal since the last (re)seed; the key
+        # survives preemption, so a requeued request replays its draws
+        self._req_key[h] = request_key(self._seed, self._admit_seq)
+        self._admit_seq += 1
+        self._submit_t[h] = time.perf_counter()
+        self._enqueue(h)
+        self._schedule()
+        return h
+
+    def _enqueue(self, h: int):
+        """Insert into the pending queue ordered by (SLO class desc,
+        arrival asc)."""
+        keyf = lambda hh: (-SLO_PRIORITY[self._requests[hh].slo], hh)
+        me = keyf(h)
+        lo = 0
+        while lo < len(self._pending) and keyf(self._pending[lo]) < me:
+            lo += 1
+        self._pending.insert(lo, h)
+
+    def _schedule(self, allow_harvest: bool = True):
+        """Admit from the head of the queue while resources allow; under
+        pressure collect finished slots first, then preempt strictly
+        lower-SLO occupants."""
+        while self._pending:
+            h = self._pending[0]
+            req = self._requests[h]
+            if self._try_admit(h, req):
+                self._pending.pop(0)
+                continue
+            if allow_harvest and self.inflight:
+                allow_harvest = False
+                if self._collect_finished():
+                    continue
+            if not self._try_preempt_for(req):
+                break
+
+    def _try_admit(self, handle: int, req: Request) -> bool:
+        free = [s for s, owner in enumerate(self._slot_handle)
+                if owner is None]
+        if not free:
+            return False
+        pages = None
+        if self.paged:
+            pages = self._pool.alloc(self._request_pages(req))
+            if pages is None:
+                return False
+        self._admit(free[0], handle, req, pages)
+        return True
+
+    def _try_preempt_for(self, req: Request) -> bool:
+        """Reclaim slot and pages from the lowest-SLO, most recently
+        admitted occupant strictly below ``req``'s class."""
+        pr = SLO_PRIORITY[req.slo]
+        victims = [(SLO_PRIORITY[self._requests[h].slo], -h, s)
+                   for s, h in enumerate(self._slot_handle)
+                   if h is not None and h in self._requests
+                   and SLO_PRIORITY[self._requests[h].slo] < pr]
+        if not victims:
+            return False
+        if self.paged:
+            reclaim = sum(len(self._slot_pages[s] or ())
+                          for _, _, s in victims)
+            if self._pool.free_pages + reclaim < self._request_pages(req):
+                return False
+        victims.sort()
+        self._preempt(victims[0][2])
+        return True
+
+    def _preempt(self, slot: int):
+        h = self._slot_handle[slot]
+        self.stats["preemptions"] += 1
+        if self.preempt_mode == "kill":
+            req = self._requests.pop(h)
+            tokens: List[int] = []
+            if slot not in self._prefill_q:
+                snap = self._sync()
+                tokens = [int(t) for t in snap["out"][slot, :int(snap["gen"][slot])]]
+            self._results[h] = Result(tokens=tokens, prompt_len=len(req.prompt),
+                                      handle=h, finish_reason="preempted")
+            self._req_key.pop(h, None)
+        else:
+            # requeue-and-recompute, at the head of its SLO class
+            self._enqueue(h)
+        self._free_slot(slot, release=True)
+
+    def _free_slot(self, slot: int, release: bool):
+        h = self._slot_handle[slot]
+        self._slot_handle[slot] = None
+        self._slot_done_step[slot] = 0
+        self._prefill_q.pop(slot, None)
+        self._hot.discard(h)
+        if self.paged and self._slot_pages[slot] is not None:
+            self._pool.free(self._slot_pages[slot])
+            self._slot_pages[slot] = None
+        if release:
+            self._release(slot)
+
+    def _admit(self, slot: int, handle: int, req: Request,
+               pages: Optional[List[int]]):
+        plen = len(req.prompt)
+        key = self._req_key[handle]
+        ptab_row = None
+        if self.paged:
+            ptab_row = np.full((self.max_seq // self.page_size,),
+                               self.num_pages, np.int32)
+            ptab_row[:len(pages)] = pages
+            self._slot_pages[slot] = pages
+        self._slot_handle[slot] = handle
+        self._stage(slot, ptab_row)
+        self._prefill_q[slot] = dict(
+            handle=handle, tokens=np.asarray(req.prompt, np.int32),
+            next=0, plen=plen, max_new=req.max_new_tokens,
+            temp=req.temperature, key=key)
+        nchunks = -(-plen // self.prefill_chunk)
+        # provisional bound until the final chunk lands
+        self._slot_done_step[slot] = (self._steps + nchunks
+                                      + req.max_new_tokens)
+        self._advance_prefill()    # first chunk goes out at once
+        self.stats["admitted"] += 1
+        self.stats["max_inflight"] = max(self.stats["max_inflight"],
+                                         self.inflight)
+
+    def _finalize_admission(self, slot: int, handle: int, req: Request,
+                            remaining: int):
+        self._slot_done_step[slot] = self._steps + remaining
+        if req.temperature > 0:
+            self._hot.add(handle)
+        if handle not in self.ttft_s and handle in self._submit_t:
+            self.ttft_s[handle] = time.perf_counter() - self._submit_t[handle]
+
+    def _advance_prefill(self):
+        """Dispatch ONE prompt chunk for the oldest mid-prefill slot."""
+        if not self._prefill_q:
+            return
+        slot, pp = next(iter(self._prefill_q.items()))
+        c = self.prefill_chunk
+        lo = pp["next"]
+        hi = min(lo + c, pp["plen"])
+        tok = np.zeros((c,), np.int32)
+        tok[:hi - lo] = pp["tokens"][lo:hi]
+        is_last = hi >= pp["plen"]
+        self._run_chunk(slot, tok, lo, hi - lo, pp["max_new"], pp["temp"],
+                        pp["key"], is_last)
+        pp["next"] = hi
+        self.stats["chunk_dispatches"] += 1
+        if is_last:
+            del self._prefill_q[slot]
+            h = pp["handle"]
+            self._finalize_admission(slot, h, self._requests[h],
+                                     remaining=max(0, pp["max_new"] - 1))
+
+    def step(self):
+        """One decode step for every slot, preceded by at most one
+        chunked-prefill dispatch. While requests are queued, finished
+        slots are harvested as soon as one can have finished."""
+        self._advance_prefill()
+        self._decode(sample=bool(self._hot))
+        self.stats["dispatches"] += 1
+        self._steps += 1
+        if self._pending:
+            bound = min((self._slot_done_step[s]
+                         for s, h in enumerate(self._slot_handle)
+                         if h is not None), default=0)
+            if self._steps >= bound or (
+                    self.eos_id is not None
+                    and self._steps % self.sync_interval == 0):
+                self.harvest()
+
+    def _sync(self) -> Dict[str, np.ndarray]:
+        self.stats["syncs"] += 1
+        return {k: self._state[k].cpu().numpy()
+                for k in ("active", "gen", "plen", "out")}
+
+    def harvest(self) -> List[int]:
+        """Collect finished slots into results, free them (pages back to
+        the pool), and admit queued requests."""
+        finished = self._collect_finished()
+        self._schedule(allow_harvest=False)
+        return finished
+
+    def _collect_finished(self) -> List[int]:
+        snap = self._sync()
+        finished = []
+        for s in range(self.slots):
+            h = self._slot_handle[s]
+            if h is None or snap["active"][s] or s in self._prefill_q:
+                continue
+            n = int(snap["gen"][s])
+            req = self._requests.pop(h)
+            reason = "length"
+            if n < req.max_new_tokens:
+                reason = ("eos" if self.eos_id is not None and n > 0
+                          and int(snap["out"][s, n - 1]) == self.eos_id
+                          else "cache_full")
+            self._results[h] = Result(
+                tokens=[int(t) for t in snap["out"][s, :n]],
+                prompt_len=int(snap["plen"][s]), handle=h,
+                finish_reason=reason)
+            self._req_key.pop(h, None)
+            self._free_slot(s, release=self.paged)
+            finished.append(h)
+        return finished
+
+    def drain(self, max_steps: Optional[int] = None) -> Dict[int, Result]:
+        """Step until every submitted request has finished; returns the
+        results not yet delivered as ``{handle: Result}``."""
+        outstanding = self.inflight + self.queued
+        budget = (max_steps if max_steps is not None
+                  else (outstanding + self.slots) * 2 * self.max_seq
+                  + self.max_seq)
+        while self.inflight or self._pending:
+            if budget <= 0:
+                raise RuntimeError("drain exceeded its step budget")
+            if self._prefill_q:
+                # one chunk advances per step: burst through the chunks
+                burst = sum(-(-(pp["plen"] - pp["next"])
+                              // self.prefill_chunk) or 1
+                            for pp in self._prefill_q.values())
+            elif self._pending:
+                burst = 8
+            elif self.eos_id is not None:
+                burst = self.sync_interval
+            else:
+                # no EOS: slots finish exactly at their known bound
+                nxt = min(self._slot_done_step[s]
+                          for s, h in enumerate(self._slot_handle)
+                          if h is not None)
+                burst = max(1, nxt - self._steps)
+            burst = min(burst, budget)
+            for _ in range(burst):
+                self.step()
+            budget -= burst
+            if not self._pending:
+                self.harvest()
+        out, self._results = self._results, {}
+        return out
+
+    def reseed(self, seed: int):
+        """Set the base sampling seed for requests submitted from now on
+        (restarting the per-submission key sequence)."""
+        self._seed = int(seed)
+        self._admit_seq = 0
+
+    def result(self, handle: int) -> Optional[Result]:
+        """Pop a finished request's result (None while still running)."""
+        return self._results.pop(handle, None)

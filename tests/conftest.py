@@ -19,3 +19,7 @@ def pytest_configure(config):
         "markers",
         "slow: multi-device subprocess tests (compile-heavy; deselect "
         "with -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's kernels); skips "
+        "elsewhere")

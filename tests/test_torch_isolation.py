@@ -1,0 +1,81 @@
+"""Guards of the PyTorch port's boundary: it never imports JAX or the JAX
+package, and its entry points run on the GPU unless told otherwise."""
+import ast
+import inspect
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch.launch.serve, repro_torch.serve.session, "
+            "repro_torch.convert; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def _default(fn, name):
+    return inspect.signature(fn).parameters[name].default
+
+
+def test_entry_points_default_to_cuda():
+    from repro_torch import convert
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.session import ServeSession
+    assert _default(Model.init, "device") == "cuda"
+    assert _default(Model.init_cache, "device") == "cuda"
+    assert _default(ServeSession.__init__, "device") == "cuda"
+    assert _default(Engine.__init__, "device") == "cuda"
+    assert _default(convert.params_from_numpy, "device") == "cuda"
+    assert _default(convert.quantized_from_numpy, "device") == "cuda"
+    src = inspect.getsource(launch.main)
+    assert 'ap.add_argument("--device", default="cuda")' in src
+
+
+def test_kernel_wrappers_refuse_cuda_backend_on_cpu():
+    import torch
+    from repro_torch.comm import kernels as K
+    from repro_torch.comm.codec import resolve_backend
+    x = torch.ones(2, 8)
+    assert resolve_backend(None, x) == "torch"
+    assert resolve_backend("torch", x) == "torch"
+    with pytest.raises(ValueError):
+        resolve_backend("cuda", x)
+    with pytest.raises(ValueError):
+        resolve_backend("pallas", x)
+    with pytest.raises(ValueError):
+        K.amax_rows(x, backend="cuda")

@@ -1,0 +1,114 @@
+"""K1 dequant-matmul wrapper (plain version on the CPU) against the JAX
+package's ``dequant_matmul`` on the same codes and activations.
+
+Tiers: float32 activations within rtol 1e-5 / atol 1e-6 (summation
+order); bf16 activations through the cast chain within one bf16 ulp
+(plus a floor of K1_FLOOR sqrt(K) 2^-24 |x*w|_2 for sums that cancel to
+near zero, as ``chip_smoke.py`` holds the kernel); dequantized weights
+bitwise.
+The JAX side runs ``backend="jnp"`` and ``backend="pallas"`` (interpret
+mode off-TPU), as its own tests do.
+"""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.comm import bits as JB
+from repro.comm import matmul as JM
+from repro_torch.comm import bits as TB
+from repro_torch.comm import matmul as TM
+
+K1_FLOOR = 8.0
+
+def _case(k_x, pack_bits, K, N, M, seed):
+    rng = np.random.default_rng(seed)
+    lim = 2 ** k_x
+    codes = rng.integers(-lim, lim + 1, size=(K, N))
+    codes = codes.astype(np.int16 if k_x > 6 else np.int8)
+    if pack_bits:
+        codes = np.array(JB.pack_rows(jnp.asarray(codes), pack_bits))
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    return codes, np.float32(0.0312), x
+
+
+CASES = [(6, 0), (7, 0), (2, 4), (3, 6), (1, 3), (4, 6)]
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+@pytest.mark.parametrize("k_x,pack_bits", CASES)
+def test_f32_matches_reference(backend, k_x, pack_bits):
+    codes, s, x = _case(k_x, pack_bits, 64, 256, 3, seed=k_x)
+    kw = dict(k_x=k_x, n=256, pack_bits=pack_bits, w_dtype="float32",
+              cast_dtype="float32")
+    ref = JM.dequant_matmul(jnp.asarray(x), jnp.asarray(codes), s,
+                            backend=backend, **kw)
+    out = TM.dequant_matmul(torch.from_numpy(x), torch.from_numpy(codes),
+                            torch.tensor(s), **kw)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("k_x,pack_bits", CASES)
+def test_bf16_cast_chain_within_one_ulp(k_x, pack_bits):
+    codes, s, x = _case(k_x, pack_bits, 96, 128, 4, seed=10 + k_x)
+    xb = x.astype(ml_dtypes.bfloat16)
+    kw = dict(k_x=k_x, n=128, pack_bits=pack_bits, w_dtype="float32",
+              cast_dtype="bfloat16")
+    ref = np.asarray(JM.dequant_matmul(jnp.asarray(xb), jnp.asarray(codes),
+                                       s, backend="jnp", **kw)).astype(np.float32)
+    out = TM.dequant_matmul(torch.from_numpy(xb.astype(np.float32)).to(
+        torch.bfloat16), torch.from_numpy(codes), torch.tensor(s), **kw)
+    assert out.dtype == torch.bfloat16
+    got = out.float().numpy()
+    # one bf16 ulp, plus a floor at the scale of fp32 summation-order
+    # noise (it matters only where the sum cancels to near zero)
+    w = TM.dequant_codes(torch.from_numpy(codes), torch.tensor(s), k_x=k_x,
+                         n=128, pack_bits=pack_bits, w_dtype="float32",
+                         cast_dtype="bfloat16").float().numpy()
+    norm = np.sqrt(xb.astype(np.float32) ** 2 @ w ** 2)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -126))) - 7)
+    floor = K1_FLOOR * np.sqrt(96) * 2.0 ** -24 * norm
+    assert np.all(np.abs(got - ref) <= ulp + floor)
+
+
+@pytest.mark.parametrize("k_x,pack_bits", CASES)
+def test_dequantized_weight_bitwise(k_x, pack_bits):
+    codes, s, _ = _case(k_x, pack_bits, 16, 40, 1, seed=20 + k_x)
+    for cast in ("float32", "bfloat16"):
+        ref = JM._dequant_codes(
+            JB.unpack_rows(jnp.asarray(codes), pack_bits, 40) if pack_bits
+            else jnp.asarray(codes), s, k_x=k_x, w_dtype="float32",
+            cast_dtype=cast)
+        out = TM.dequant_codes(torch.from_numpy(codes), torch.tensor(s),
+                               k_x=k_x, n=40, pack_bits=pack_bits,
+                               w_dtype="float32", cast_dtype=cast)
+        np.testing.assert_array_equal(np.asarray(ref).astype(np.float32),
+                                      out.float().numpy())
+
+
+def test_ragged_shapes_and_leading_dims():
+    codes, s, x = _case(6, 0, 33, 7, 10, seed=5)
+    x3 = x.reshape(2, 5, 33)
+    kw = dict(k_x=6, n=7)
+    ref = JM.dequant_matmul(jnp.asarray(x3), jnp.asarray(codes), s, **kw)
+    out = TM.dequant_matmul(torch.from_numpy(x3), torch.from_numpy(codes),
+                            torch.tensor(s), **kw)
+    assert out.shape == (2, 5, 7)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+    assert TB.payload_nbytes(7, 4) == 4
+
+
+def test_transpose_and_cuda_backend_refused_on_cpu():
+    codes, s, x = _case(6, 0, 8, 8, 2, seed=1)
+    args = (torch.from_numpy(x), torch.from_numpy(codes), torch.tensor(s))
+    with pytest.raises(NotImplementedError):
+        TM.dequant_matmul(*args, k_x=6, n=8, transpose=True)
+    with pytest.raises(ValueError):
+        TM.dequant_matmul(*args, k_x=6, n=8, backend="cuda")
+    n0 = TM.launches
+    TM.dequant_matmul(*args, k_x=6, n=8)
+    assert TM.launches == n0          # CPU tensors never launch the kernel

@@ -1,0 +1,162 @@
+"""The port's dense decoder (decode_step, decode_chunk; fixed lanes and
+paged pool; float32-resident and quantized weights) against the JAX
+package on the same parameters, cache layout and tokens.
+
+Tier: logits within rtol 1e-4 / atol 1e-5 (XLA on the CPU evaluates
+rsqrt approximately and contracts into fma, so logits are compared to a
+tolerance); the written cache to the same tolerance.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget
+from repro.models.layers import ShardCtx
+from repro.models.model import Model as JModel
+from repro.serve import quantized as JQ
+from repro_torch.configs import get_config as tget
+from repro_torch.convert import params_from_numpy
+from repro_torch.models import layers as TL
+from repro_torch.models.model import Model as TModel
+from repro_torch.serve import quantized as TQ
+
+TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def models():
+    jm = JModel(jget("yi-6b", smoke=True))
+    tm = TModel(tget("yi-6b", smoke=True))
+    return jm, tm, jm.init(jax.random.PRNGKey(0))
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) else \
+        np.asarray(t, np.float32)
+
+
+@pytest.mark.parametrize("k_x", [None, 6, 2])
+@pytest.mark.parametrize("paged", [False, True])
+def test_chunk_then_decode_logits(models, k_x, paged):
+    jm, tm, jp = models
+    if k_x is None:
+        jpp, ctx, gather = jp, ShardCtx(), None
+    else:
+        jpp = JQ.quantize_params(jp, k_x=k_x, min_numel=256, pack=True)
+        ctx = ShardCtx(param_gather=JQ.make_dequant_gather())
+        gather = TQ.make_dequant_gather()
+    tp = params_from_numpy(jax.tree.map(np.asarray, jpp), "cpu")
+    B, S = 3, 32
+    pool = (12, 8) if paged else None
+    jc = jm.init_cache(B, S, page_pool=pool)
+    tc = tm.init_cache(B, S, page_pool=pool, device="cpu")
+    if paged:   # fragmented tables, a sentinel tail, and slot 1 short
+        tab = np.array([[3, 1, 7, 9], [0, 2, 12, 12], [5, 4, 6, 8]], np.int32)
+        jc["ptab"] = jnp.asarray(tab)
+        tc["ptab"] = torch.from_numpy(tab)
+    chunk = jax.jit(lambda p, t, c, s, n: jm.decode_chunk(
+        p, {"token": t}, c, s, n, ctx))
+    step = jax.jit(lambda p, t, c, pos: jm.decode_step(
+        p, {"token": t}, c, pos, ctx))
+    rng = np.random.default_rng(7)
+    toks = rng.integers(1, 512, size=(B, 8)).astype(np.int32)
+    start = np.zeros(B, np.int32)
+    nval = np.array([8, 5, 7], np.int32)
+    jl, jc = chunk(jpp, jnp.asarray(toks), jc, jnp.asarray(start),
+                   jnp.asarray(nval))
+    tl, tc = tm.decode_chunk(tp, {"token": torch.from_numpy(toks)}, tc,
+                             torch.from_numpy(start), torch.from_numpy(nval),
+                             gather)
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    pos = nval.copy()
+    for _ in range(3):
+        cur = rng.integers(1, 512, size=(B, 1)).astype(np.int32)
+        jl, jc = step(jpp, jnp.asarray(cur), jc, jnp.asarray(pos))
+        tl, tc = tm.decode_step(tp, {"token": torch.from_numpy(cur)}, tc,
+                                torch.from_numpy(pos), gather)
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+        pos = pos + 1
+    for name in (("pk", "pv") if paged else ("k", "v")):
+        np.testing.assert_allclose(_np(tc[name]), _np(jc[name]), **TOL)
+    if paged:
+        np.testing.assert_array_equal(tc["ptab"].numpy(),
+                                      np.asarray(jc["ptab"]))
+
+
+def test_released_rows_drop_their_writes(models):
+    """Writes at the RELEASED sentinel, past the view, or in a chunk's
+    padded tail vanish, as the reference's mode="drop" scatters."""
+    _, tm, jp = models
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    tc = tm.init_cache(2, 16, page_pool=(4, 8), device="cpu")
+    tc["ptab"] = torch.tensor([[4, 4], [1, 4]], dtype=torch.int32)
+    before = tc["pk"].clone()
+    tm.decode_step(tp, {"token": torch.tensor([[3], [4]])}, tc,
+                   torch.tensor([0, 16], dtype=torch.int32))
+    assert torch.equal(tc["pk"], before)
+    tm.decode_chunk(tp, {"token": torch.tensor([[5, 6, 7, 8]])},
+                    {"pk": tc["pk"], "pv": tc["pv"], "ptab": tc["ptab"][1:]},
+                    torch.tensor([6]), torch.tensor([1]))
+    changed = (tc["pk"] != before).any(dim=(0, 3, 4))      # (pages, ps)
+    assert changed.nonzero().tolist() == [[1, 6]]
+
+
+def test_layers_match_reference():
+    from repro.models import layers as JL
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 3, 4, 16)).astype(np.float32)
+    pos = np.array([[0, 5, 9], [2, 3, 100]], np.int32)
+    np.testing.assert_allclose(
+        TL.rope(torch.from_numpy(x), torch.from_numpy(pos), 5e6).numpy(),
+        np.asarray(JL.rope(jnp.asarray(x), jnp.asarray(pos), 5e6)), **TOL)
+    w = rng.standard_normal(16).astype(np.float32)
+    np.testing.assert_allclose(
+        TL.rmsnorm(torch.from_numpy(x), torch.from_numpy(w)).numpy(),
+        np.asarray(JL.rmsnorm(jnp.asarray(x), jnp.asarray(w))), **TOL)
+    q = rng.standard_normal((2, 1, 4, 16)).astype(np.float32)
+    kc = rng.standard_normal((2, 6, 2, 16)).astype(np.float32)
+    vc = rng.standard_normal((2, 6, 2, 16)).astype(np.float32)
+    tl = np.array([3, 0], np.int32)      # slot 1 has no valid column
+    ref = JL.decode_attention(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                              total_len=jnp.asarray(tl),
+                              q_pos=jnp.asarray(tl - 1))
+    out = TL.decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                              torch.from_numpy(vc),
+                              total_len=torch.from_numpy(tl))
+    assert np.isfinite(out.numpy()).all()
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def test_init_leaf_names_and_shapes(models):
+    jm, tm, jp = models
+    tp = tm.init(seed=0, device="cpu")
+    jl = {tuple(k.key for k in path): leaf.shape for path, leaf in
+          jax.tree_util.tree_flatten_with_path(jp)[0]}
+    tl = {}
+
+    def walk(t, path=()):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                tl[path + (k,)] = tuple(v.shape)
+                assert v.dtype == torch.float32
+    walk(tp)
+    assert jl == tl
+    assert float(tp["blocks"]["attn"]["q"].abs().max()) <= 0.04
+    again = tm.init(seed=0, device="cpu")
+    assert torch.equal(again["embed"], tp["embed"])
+
+
+def test_unported_features_are_refused():
+    import dataclasses
+    cfg = tget("yi-6b", smoke=True)
+    for change in (dict(qkv_bias=True), dict(tie_embeddings=True),
+                   dict(window=8, pattern="lg"), dict(arch_type="moe"),
+                   dict(attn_softcap=50.0), dict(norm="layernorm")):
+        with pytest.raises(NotImplementedError):
+            TModel(dataclasses.replace(cfg, **change)).init(device="cpu")
+    with pytest.raises(KeyError):
+        tget("gemma2-2b")
