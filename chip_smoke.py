@@ -6,15 +6,21 @@
 Phases, each raising on failure (exit code nonzero, no result line):
 
   1. print the card's name and power limit (nvidia-smi);
-  2. build the four CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
-     sm_90a, one process per source);
-  3. hold each kernel against its plain PyTorch version at yi-6b shapes:
-     K3 amax / K4 quantize on a stacked (32, 4096, 11008) f32 leaf and K2
-     page gather bitwise; K1 dequant-matmul at M in {1, 4, 32} for every
-     projection shape and code type within one bf16 ulp (plus a floor
-     near zero set from the measured fp32 summation-order noise; a
-     dropped K row must fail that gate); time each kernel, its plain
-     version and a one-call PyTorch yardstick;
+  2. build the eight CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
+     sm_90a, one process per source, all started together);
+  3. hold each serving kernel against its plain PyTorch version at yi-6b
+     shapes: K3 amax / K4 quantize on a stacked (32, 4096, 11008) f32
+     leaf and K2 page gather bitwise; K1 dequant-matmul at M in
+     {1, 4, 32} for every projection shape and code type within one bf16
+     ulp (plus a floor near zero set from the measured fp32
+     summation-order noise; a dropped K row must fail that gate); then
+     the training kernels bitwise on the stacked (8, 4096, 11008) w_gate
+     leaf and the (64000, 4096) embedding: K15 Adam+EF moments (m', v',
+     Delta+e, the amax word), K16 EF quantize (codes, residual), K11 log
+     dequantize, and the Q_x round trip as training runs it: K3 over the
+     whole leaf as one row, K4 to int16 codes at k_x = 7, K12 uniform
+     dequantize; time each kernel, its plain version and a one-call
+     PyTorch yardstick where there is one;
   4. serve full-width yi-6b (random weights from a seed): Model.init,
      quantize_params(k_x=6), a paged ServeSession (page 16, 4 slots,
      chunked prefill 32) answering 8 requests of 64-token prompts with
@@ -26,7 +32,19 @@ Phases, each raising on failure (exit code nonzero, no result line):
      F32_LIMIT for the full-depth step in float32 activations (at full
      depth in bf16, fp32 summation order alone moves the logits by
      ~3e-2, which is printed, with a float64-summed step, not gated);
-  5. print one ``{"kernels": [...]}`` line, the card line again, and the
+  5. train full-width yi-6b cut to 8 layers (fp32 parameters and state,
+     bf16 activations) with Algorithm 1 through ``qadam`` and
+     ``TrainSession.from_optimizer``: 12 steps of 2 x 1024 tokens; gates:
+     finite losses, the mean of the last 3 below the first, K3, K4, K11,
+     K12, K15 and K16 launched, no plain version on the card, no host
+     sync in steps 2-12 beyond the one loss harvest; then, on the
+     trained state, every leaf's Q_x forward copy and one update on
+     captured gradients through the kernels and through the plain
+     versions, bitwise equal in the forward copy, m, v, e and the new
+     parameters; print the
+     step's wall and device time, its time by kernel, tokens/s and peak
+     memory;
+  6. print one ``{"kernels": [...]}`` line, the card line again, and the
      last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package. Detailed tables are
@@ -36,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -51,6 +70,12 @@ YI = dict(L=32, d=4096, H=32, K=4, hd=128, f=11008, V=64000)
 # full-depth step in float32 activations
 SHALLOW_LIMIT = 1e-2
 F32_LIMIT = 5e-5
+# the training cell: yi-6b's widths, depth cut to 8 layers so that the
+# fp32 parameters, m, v, e, the Q_x forward copy and the gradients
+# (24 B per parameter) fit one 80 GB card
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 8, 1024, 2, 12
+TRAIN_OPT = dict(alpha=1e-3, grad_q="log:6", weight_q="uniform_amax:7",
+                 weight_q_min_numel=2 ** 14)
 
 
 def card_line() -> str:
@@ -359,6 +384,341 @@ def check_matmul(torch, MM, B, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, training kernels: K15, K16, K11, K12 against their plain versions
+# ---------------------------------------------------------------------------
+
+def bits_equal(torch, a, b) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def check_training_kernels(torch, dev):
+    """K15/K16/K11/K12 bitwise against their plain versions on the
+    stacked w_gate leaf of the 8-layer cell and on the embedding, with a
+    seeded optimizer state; times at both shapes. Returns the four kernel
+    rows (w_gate shape) and a table of every timing."""
+    import numpy as np
+    from repro_torch.comm import kernels as K
+    from repro_torch.kernels import adam_ef as A
+    from repro_torch.opt import engine as E
+    d, f, V = YI["d"], YI["f"], YI["V"]
+    theta_t = np.float32(1.0) - np.float32(0.999) / np.float32(3.0)
+    hp = E.hyperparams(np.float32(1e-3), 0.99, theta_t, 1e-5, dev)
+    table, rows = [], None
+    for leaf, shape in (("w_gate", (TRAIN_LAYERS, d, f)), ("embed", (V, d))):
+        gen = torch.Generator(device=dev).manual_seed(21)
+        g, m, v, e = (torch.randn(shape, generator=gen, device=dev) * s
+                      for s in (1e-2, 1e-3, 1e-2, 1e-6))
+        v.mul_(v)
+        n = g.numel()
+        a = A.adam_moments(g, m, v, e, hp, backend="cuda")
+        b = A.adam_moments(g, m, v, e, hp, backend="torch")
+        for what, x, y in zip(("m'", "v'", "Delta+e", "amax"), a, b):
+            if not bits_equal(torch, x, y):
+                raise AssertionError(f"K15 {what} differs from its plain "
+                                     f"version on {leaf}")
+        del b
+        m2, v2, de, amax = a
+        del m2, v2
+        scale = E.amax_scale(amax)
+        ck, ek = A.ef_quantize(de, scale, 6, backend="cuda")
+        cp, ep = A.ef_quantize(de, scale, 6, backend="torch")
+        if not (bits_equal(torch, ck, cp) and bits_equal(torch, ek, ep)):
+            raise AssertionError(f"K16 differs from its plain version on "
+                                 f"{leaf}")
+        del cp, ep
+        dk = K.log_dequantize(ck, -scale, 6, backend="cuda")
+        if not bits_equal(torch, dk, K.log_dequantize(ck, -scale, 6,
+                                                      backend="torch")):
+            raise AssertionError(f"K11 differs from its plain version on "
+                                 f"{leaf}")
+        # the leaf's Q_x round trip as forward_params runs it
+        # (uniform_amax:7): K3 over the whole leaf as one row, K4 to int16
+        # codes at k_x = 7, K12 back to float32
+        x2 = m.reshape(1, -1)
+        ak = K.amax_rows(x2, backend="cuda")
+        if not bits_equal(torch, ak, K.amax_rows(x2, backend="torch")):
+            raise AssertionError(f"K3 differs from its plain version on the "
+                                 f"whole {leaf} leaf")
+        qs = E.amax_scale(ak)
+        qc = K.uniform_quantize_rows(x2, qs, 7, backend="cuda")
+        if qc.dtype != torch.int16 or not bits_equal(
+                torch, qc, K.uniform_quantize_rows(x2, qs, 7,
+                                                   backend="torch")):
+            raise AssertionError(f"K4 (int16, k_x = 7) differs from its "
+                                 f"plain version on the whole {leaf} leaf")
+        uk = K.uniform_dequantize_rows(qc, qs, 7, backend="cuda")
+        if not bits_equal(torch, uk, K.uniform_dequantize_rows(
+                qc, qs, 7, backend="torch")):
+            raise AssertionError(f"K12 differs from its plain version on "
+                                 f"{leaf}")
+        del uk, ak
+        t = {}
+        t["adam_moments"] = (
+            cuda_ms(torch, lambda i: A.adam_moments(g, m, v, e, hp,
+                                                    backend="cuda"), 5, 1),
+            cuda_ms(torch, lambda i: A.adam_moments(g, m, v, e, hp,
+                                                    backend="torch"), 3, 1),
+            None, bound_ms(28 * n + 16 + 4))
+        # no one PyTorch call computes K15; its max-fold alone, timed for
+        # results/chip_smoke.json and kept out of the kernels line
+        fold_ms = cuda_ms(torch, lambda i: de.abs().amax(), 5, 1)
+        t["ef_quantize"] = (
+            cuda_ms(torch, lambda i: A.ef_quantize(de, scale, 6,
+                                                   backend="cuda"), 5, 1),
+            cuda_ms(torch, lambda i: A.ef_quantize(de, scale, 6,
+                                                   backend="torch"), 3, 1),
+            None, bound_ms(9 * n + 4))
+        t["log_dequantize"] = (
+            cuda_ms(torch, lambda i: K.log_dequantize(ck, scale, 6,
+                                                      backend="cuda"), 5, 1),
+            cuda_ms(torch, lambda i: K.log_dequantize(ck, scale, 6,
+                                                      backend="torch"), 3, 1),
+            None, bound_ms(5 * n + 4 + 16 * 4))
+        t["uniform_dequantize_rows"] = (
+            cuda_ms(torch, lambda i: K.uniform_dequantize_rows(
+                qc, qs, 7, backend="cuda"), 5, 1),
+            cuda_ms(torch, lambda i: K.uniform_dequantize_rows(
+                qc, qs, 7, backend="torch"), 3, 1),
+            None, bound_ms(6 * n + 4))
+        for name, (ms, plain, lib, (bnd, by)) in t.items():
+            table.append(dict(name=name, leaf=leaf, shape=list(shape), ms=ms,
+                              plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                              bound_by=by, gbs=None))
+            if name == "adam_moments":
+                table[-1]["amax_fold_library_ms"] = fold_ms
+        if rows is None:
+            src = {"adam_moments": ("src/repro_torch/csrc/adam_ef.cu",
+                                    "src/repro/kernels/adam_ef.py:42"),
+                   "ef_quantize": ("src/repro_torch/csrc/adam_ef.cu",
+                                   "src/repro/kernels/adam_ef.py:70"),
+                   "log_dequantize": ("src/repro_torch/csrc/dequantize.cu",
+                                      "src/repro/comm/kernels.py:524"),
+                   "uniform_dequantize_rows": (
+                       "src/repro_torch/csrc/dequantize.cu",
+                       "src/repro/comm/kernels.py:571")}
+            rows = [dict(name=name, route="cuda", source=src[name][0],
+                         replaces=src[name][1], max_abs_err=0.0, ms=ms,
+                         plain_ms=plain, bound_ms=bnd, bound_by=by,
+                         library_ms=lib, shape=list(shape))
+                    for name, (ms, plain, lib, (bnd, by)) in t.items()]
+        del g, m, v, e, de, amax, ck, ek, dk, qc, x2, a
+        torch.cuda.empty_cache()
+    return rows, table
+
+
+# ---------------------------------------------------------------------------
+# phase 5: Algorithm 1 training of full-width yi-6b cut to 8 layers
+# ---------------------------------------------------------------------------
+
+TRAIN_COUNTERS = {"amax_rows": ("K", "amax_launches"),
+                  "uniform_quantize_rows": ("K", "quantize_launches"),
+                  "uniform_dequantize_rows": ("K", "dequantize_launches"),
+                  "log_dequantize": ("K", "log_dequantize_launches"),
+                  "adam_moments": ("A", "moments_launches"),
+                  "ef_quantize": ("A", "ef_quantize_launches")}
+UPDATE_KERNELS = ("adam_moments_kernel", "ef_quantize_kernel",
+                  "log_dequantize_kernel")
+QX_KERNELS = ("amax_rows_kernel", "uniform_quantize_kernel",
+              "uniform_dequantize_kernel")
+
+
+def train(torch, dev, mods):
+    import warnings
+    from repro_torch.configs import get_config
+    from repro_torch.core.qadam import (QAdamConfig, QAdamState,
+                                        apply_updates, qadam)
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.models.model import Model
+    from repro_torch.train.session import (SessionConfig, TrainSession,
+                                           stage_batch)
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    K, A = mods["K"], mods["A"]
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=TRAIN_LAYERS)
+    model = Model(cfg)
+    ocfg = QAdamConfig(**TRAIN_OPT)
+    opt = qadam(ocfg)
+
+    def loss_fn(p, b):
+        ls, nt = model.loss(p, b)
+        return ls / nt
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path, with every count at 0 just before it
+    for mod, attr in TRAIN_COUNTERS.values():
+        setattr(mods[mod], attr, 0)
+    K.plain_on_cuda = A.plain_on_cuda = 0
+    params = model.init(seed=0, device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    sess = TrainSession.from_optimizer(
+        opt, loss_fn, params, batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                              seed=0),
+        SessionConfig(log_every=TRAIN_STEPS), log=lambda *_: None)
+    del params
+    # every step's loss (device tensors, read after the run); the
+    # synchronizing operations (torch's sync debug mode) at each step's
+    # start and around each loss harvest
+    losses, starts, harvests, caught = [], [], [], []
+
+    def nsync():
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    program_step, program_harvest = sess._program.step, sess.harvest_losses
+
+    def step(state, batch):
+        starts.append(nsync())
+        state, metrics = program_step(state, batch)
+        losses.append(metrics["loss"])
+        return state, metrics
+
+    def harvest():
+        n0 = nsync()
+        out = program_harvest()
+        harvests.append(nsync() - n0)
+        return out
+
+    sess._program.step, sess.harvest_losses = step, harvest
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            sess.run(TRAIN_STEPS)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            total_syncs = nsync()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        sess._program.step = program_step
+        del sess.harvest_losses
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: getattr(mods[mod], attr)
+                for name, (mod, attr) in TRAIN_COUNTERS.items()}
+    plain = K.plain_on_cuda + A.plain_on_cuda
+    stats = dict(sess.stats)
+    vals = [float(x) for x in torch.stack(losses).cpu()]
+    sync_msgs = sorted({str(w.message)[:160] for w in caught})
+
+    if len(vals) != TRAIN_STEPS or not all(math.isfinite(x) for x in vals):
+        raise AssertionError(f"training losses not finite: {vals}")
+    if not sum(vals[-3:]) / 3 < vals[0]:
+        raise AssertionError(f"training loss did not fall: {vals}")
+    if any(n == 0 for n in launches.values()):
+        raise AssertionError(f"a training kernel never launched: {launches}")
+    if plain:
+        raise AssertionError(f"{plain} plain-version calls on the card")
+    # from the start of step 2 on: no synchronizing operation but the
+    # final loss harvest's own, and the session read the device twice in
+    # all (after step 1 and after step 12)
+    steady = total_syncs - starts[1] - harvests[-1]
+    if stats["syncs"] != 2 or len(harvests) != 2 or steady:
+        raise AssertionError(f"host syncs in steady state: {steady} beyond "
+                             f"the harvest (stats {stats}, at step starts "
+                             f"{starts} of {total_syncs}): {sync_msgs}")
+
+    # wall time per steady step, then the device's share by kernel
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.run(3)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+    dev_ms, by_kernel = profile_ms(torch, lambda: sess.run(1), steps=2)
+    upd_ms = sum(t for k, t in by_kernel if any(n in k for n in
+                                                 UPDATE_KERNELS))
+    qx_ms = sum(t for k, t in by_kernel if any(n in k for n in QX_KERNELS))
+
+    # one update on captured gradients, kernels against plain versions
+    state = sess.state
+    p, s = state["params"], state["opt"]
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      tree_leaves(p) + tree_leaves(s.m) + tree_leaves(s.v)
+                      + tree_leaves(s.e))
+    batch = stage_batch(next(batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                             seed=1)), dev)
+
+    def grads_at(fp):
+        leaves = [l.detach().requires_grad_() for l in tree_leaves(fp)]
+        with torch.enable_grad():
+            return torch.autograd.grad(loss_fn(tree_unflatten(fp, leaves),
+                                               batch), leaves)
+
+    grads = grads_at(opt.forward_params(p, s))
+    for g, pl, m, v, e in zip(grads, tree_leaves(p), tree_leaves(s.m),
+                              tree_leaves(s.v), tree_leaves(s.e)):
+        # Q_x of the trained leaf (K3, K4, K12 on a large one)
+        fk, fp = (qadam(dataclasses.replace(ocfg, backend=backend))
+                  .forward_params({"x": pl})["x"]
+                  for backend in ("cuda", "torch"))
+        if not bits_equal(torch, fk, fp):
+            raise AssertionError(f"captured-state forward_params through the "
+                                 f"kernels differs from the plain versions "
+                                 f"(leaf {tuple(pl.shape)})")
+        del fk, fp
+        outs = []
+        for backend in ("cuda", "torch"):
+            # update consumes its state (in place): each side gets a copy
+            sub = QAdamState(count=s.count, m={"x": m.clone()},
+                             v={"x": v.clone()}, e={"x": e.clone()})
+            u, s2 = qadam(dataclasses.replace(ocfg, backend=backend)).update(
+                {"x": g}, sub)
+            outs.append((apply_updates({"x": pl}, u)["x"], s2.m["x"],
+                         s2.v["x"], s2.e["x"]))
+        for what, a, b in zip(("params", "m", "v", "e"), *outs):
+            if not bits_equal(torch, a, b):
+                raise AssertionError(f"captured-gradient update: {what} "
+                                     f"through the kernels differs from the "
+                                     f"plain versions (leaf {tuple(g.shape)})")
+        del outs
+    del grads
+    # the step's phases on the device (CUDA events; the device is busy
+    # through the step): Q_x forward copy, forward + backward, the
+    # update's kernels, apply_updates. On a copy of the state.
+    def flat(tree):     # a tree's leaves as a flat dict, in one order
+        return dict(enumerate(tree_leaves(tree)))
+
+    s = QAdamState(count=s.count, **{f: {k: t.clone() for k, t in flat(
+        getattr(s, f)).items()} for f in ("m", "v", "e")})
+    phases = {"forward_params": 0.0, "forward_backward": 0.0, "update": 0.0,
+              "apply_updates": 0.0}
+    for rep in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        fp = opt.forward_params(p, None)
+        ev[1].record()
+        grads = grads_at(fp)
+        del fp
+        ev[2].record()
+        upd, _ = opt.update(dict(enumerate(grads)), s)
+        del grads
+        ev[3].record()
+        apply_updates(flat(p), upd)
+        ev[4].record()
+        del upd
+        ev[4].synchronize()
+        if rep:      # the first round warms up
+            for i, k in enumerate(phases):
+                phases[k] += ev[i].elapsed_time(ev[i + 1]) / 2
+    sess.close()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    return dict(launches=launches, losses=vals, stats=stats,
+                syncs_at_step_starts=starts, syncs_by_harvest=harvests,
+                sync_warnings=total_syncs,
+                sync_messages=sync_msgs, run_s=run_s,
+                step_wall_ms=wall_ms, step_device_ms=dev_ms,
+                device_idle=1 - dev_ms / wall_ms,
+                update_kernels_ms=upd_ms, qx_kernels_ms=qx_ms,
+                step_kernels=by_kernel[:16], phases_ms=phases,
+                tokens_per_s=tokens / wall_ms
+                * 1e3, peak_bytes=peak, state_bytes=state_bytes,
+                n_params=n_params)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: full-width serving
 # ---------------------------------------------------------------------------
 
@@ -560,6 +920,7 @@ def main() -> int:
     from repro_torch.comm import bits as B
     from repro_torch.comm import kernels as K
     from repro_torch.comm import matmul as MM
+    from repro_torch.kernels import adam_ef as A
     from repro_torch.serve import paged
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -591,9 +952,27 @@ def main() -> int:
               f"{n['f32_noise']:.3f} units of sqrt(K) 2^-24 |x*w|_2 (floor "
               f"{K1_FLOOR:g}){fault}", flush=True)
 
+    t_rows, t_table = check_training_kernels(torch, dev)
+    print("training kernels K15 K16 K11 K12, and K3 K4 at the Q_x round "
+          "trip's whole-leaf shapes, bitwise against their plain versions",
+          flush=True)
+    for t in t_table:
+        lib = (f" library {t['library_ms']:.4f}" if t["library_ms"]
+               is not None else "")
+        if "amax_fold_library_ms" in t:
+            lib += f" (max-fold alone {t['amax_fold_library_ms']:.4f})"
+        print(f"  {t['name']} {t['leaf']} {t['shape']}: {t['ms']:.4f} ms "
+              f"plain {t['plain_ms']:.4f}{lib} bound {t['bound_ms']:.4f} "
+              f"({t['bound_by']})", flush=True)
+
     res = serve(torch, dev, {"MM": MM, "paged": paged, "K": K})
+    tr = train(torch, dev, {"K": K, "A": A})
+    rows += t_rows
     for r in rows:
-        r["launches"] = res["launches"][r["name"]]
+        by_path = {"serve": res["launches"].get(r["name"], 0),
+                   "train": tr["launches"].get(r["name"], 0)}
+        r["launches"] = by_path["serve"] + by_path["train"]
+        r["launches_by_path"] = by_path
     print(f"served {res['tokens']} tokens in {res['serve_s']:.3f} s "
           f"({res['tok_per_s']:.2f} tok/s); decode step "
           f"{res['decode_step_ms']:.3f} ms, chunk {res['chunk_ms']:.3f} ms; "
@@ -613,12 +992,31 @@ def main() -> int:
               f"{t['library_ms']:.4f} bound {t['bound_ms']:.4f} eager call "
               f"{t['eager_ms']:.4f}")
 
+    print(f"trained yi-6b x {TRAIN_LAYERS} layers ({tr['n_params']} "
+          f"parameters): losses {', '.join(f'{x:.4f}' for x in tr['losses'])}"
+          f"; {TRAIN_STEPS} steps in {tr['run_s']:.3f} s; stats "
+          f"{tr['stats']}; sync-debug warnings {tr['sync_warnings']} "
+          f"(at step starts {tr['syncs_at_step_starts']}, by harvest "
+          f"{tr['syncs_by_harvest']}); launches {tr['launches']}", flush=True)
+    print(f"train step: wall {tr['step_wall_ms']:.3f} ms, device "
+          f"{tr['step_device_ms']:.3f} ms (device idle "
+          f"{tr['device_idle']:.1%}), {tr['tokens_per_s']:.1f} tok/s; update "
+          f"kernels K15+K16+K11 {tr['update_kernels_ms']:.3f} ms, Q_x "
+          f"kernels K3+K4+K12 {tr['qx_kernels_ms']:.3f} ms "
+          f"({(tr['update_kernels_ms'] + tr['qx_kernels_ms']) / tr['step_device_ms']:.1%}"
+          f" of device time); peak {tr['peak_bytes']} B; state "
+          f"{tr['state_bytes']} B; by kernel:", flush=True)
+    for name, t in tr["step_kernels"]:
+        print(f"  {t:9.4f} ms  {name[:90]}")
+    print("train step phases (CUDA events): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in tr["phases_ms"].items()), flush=True)
+
     out_dir = os.path.join(HERE, "results")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump(dict(card=card, kernels=rows, k1_cases=mm_table,
-                       k1_noise=mm_noise, k1_timed=mm_timed, serve=res),
-                  fh, indent=1)
+                       k1_noise=mm_noise, k1_timed=mm_timed, serve=res,
+                       train_kernels=t_table, train=tr), fh, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

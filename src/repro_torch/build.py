@@ -7,9 +7,9 @@ lives in ``build/`` at the repository root, named by a hash of the
 sources and flags, so a checkout builds it on first use and reuses it
 after. Nothing here runs at import time.
 
-Flags keep IEEE division and rounding (no ``--use_fast_math``): the
-quantize and gather kernels are held bitwise against their plain
-versions.
+Flags keep IEEE division, square root and rounding (no
+``--use_fast_math``): the quantize, dequantize, Adam+EF and gather
+kernels are held bitwise against their plain versions.
 """
 from __future__ import annotations
 
@@ -45,6 +45,14 @@ SIGNATURES = {
     "rt_amax_rows": [_P, _P, _I, _L, _P],
     # x, scale, codes, rows, n, k_x, code_bytes, stream
     "rt_uniform_quantize_rows": [_P, _P, _P, _I, _L, _I, _I, _P],
+    # g, m, v, e, hp, m_out, v_out, de_out, amax_bits, n, stream
+    "rt_adam_moments": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P],
+    # de, scale, codes, e_out, n, k_g, stream
+    "rt_ef_quantize": [_P, _P, _P, _P, _L, _I, _P],
+    # codes, scale, table, half, out, n, stream
+    "rt_log_dequantize": [_P, _P, _P, _I, _P, _L, _P],
+    # codes, scale, out, rows, n, k_x, code_bytes, stream
+    "rt_uniform_dequantize_rows": [_P, _P, _P, _I, _L, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,15 +1,19 @@
-"""K3 per-row amax and K4 per-row uniform quantize: the Q_x residency
-passes behind ``quantize_params``.
+"""K3 per-row amax, K4 per-row uniform quantize, K12 per-row uniform
+dequantize and K11 log-grid dequantize: the Q_x passes behind
+``quantize_params`` and the training forward copy, and the Q_g decode of
+the update.
 
-Replace ``repro/comm/kernels.py`` ``amax_pallas`` and
-``uniform_quantize_pallas``. The kernels live in ``csrc/quantize.cu``
-(design notes there): both are bound by bytes, one launch covers every
-row of a ``(rows, n)`` view, so a stacked ``(L, ...)`` leaf gets its L
-per-layer scales (the reference's vmap over layers) in one launch.
+Replace ``repro/comm/kernels.py`` ``amax_pallas``,
+``uniform_quantize_pallas``, ``uniform_dequantize_pallas`` and
+``log_dequantize_pallas``. The kernels live in ``csrc/quantize.cu`` and
+``csrc/dequantize.cu`` (design notes there): all are bound by bytes. One
+launch covers every row of a ``(rows, n)`` view, so a stacked
+``(L, ...)`` leaf gets its L per-layer scales (the reference's vmap over
+layers) in one launch, and a whole leaf its one scale with rows = 1.
 
-Beside each kernel: its plain PyTorch version (``_amax_rows_torch``,
-``_uniform_quantize_torch``), which a wrapper runs only for CPU tensors
-or when asked with ``backend="torch"``, and plain-int launch counters.
+Beside each kernel: its plain PyTorch version, which a wrapper runs only
+for CPU tensors or when asked with ``backend="torch"``, and plain-int
+launch counters.
 """
 from __future__ import annotations
 
@@ -18,11 +22,14 @@ from typing import Optional
 import torch
 
 from repro_torch import build
+from repro_torch.comm import bits as B
 from repro_torch.comm.codec import resolve_backend
 from repro_torch.opt import grids
 
 amax_launches = 0          # K3 kernel launches
 quantize_launches = 0      # K4 kernel launches
+dequantize_launches = 0    # K12 kernel launches
+log_dequantize_launches = 0  # K11 kernel launches
 plain_on_cuda = 0          # plain versions run on CUDA tensors
 
 
@@ -93,3 +100,85 @@ def uniform_quantize_rows(x2d: torch.Tensor, scale: torch.Tensor, k_x: int,
         return _uniform_quantize_cuda(x2d, scale, k_x)
     plain_on_cuda += x2d.is_cuda
     return _uniform_quantize_torch(x2d, scale, k_x)
+
+
+def _uniform_dequantize_cuda(codes2d, scale, k_x):
+    global dequantize_launches
+    if codes2d.dtype not in (torch.int8, torch.int16):
+        raise ValueError(f"the kernel reads int8/int16 codes, got "
+                         f"{codes2d.dtype}")
+    lib = build.library()
+    codes2d = codes2d.contiguous()
+    scale = scale.to(torch.float32).contiguous()
+    out = torch.empty(codes2d.shape, dtype=torch.float32,
+                      device=codes2d.device)
+    err = lib.rt_uniform_dequantize_rows(
+        build.ptr(codes2d), build.ptr(scale), build.ptr(out),
+        codes2d.shape[0], codes2d.shape[1], k_x, codes2d.element_size(),
+        build.stream_ptr(codes2d.device))
+    build.check(err, "uniform_dequantize_rows")
+    dequantize_launches += 1
+    return out
+
+
+def uniform_dequantize_rows(codes2d: torch.Tensor, scale: torch.Tensor,
+                            k_x: int, backend: Optional[str] = None
+                            ) -> torch.Tensor:
+    """``codes / 2^k_x * scale`` in float32 for a (rows, n) code tensor
+    and one scale per row ((rows,) float32)."""
+    global plain_on_cuda
+    if codes2d.dim() != 2 or not 1 <= codes2d.shape[0] <= 65535:
+        raise ValueError(f"need (rows, n) codes with 1 <= rows <= 65535, "
+                         f"got {tuple(codes2d.shape)}")
+    if scale.shape != (codes2d.shape[0],):
+        raise ValueError(f"scale {tuple(scale.shape)} != "
+                         f"({codes2d.shape[0]},)")
+    if resolve_backend(backend, codes2d, scale) == "cuda":
+        return _uniform_dequantize_cuda(codes2d, scale, k_x)
+    plain_on_cuda += codes2d.is_cuda
+    return grids.uniform_dequantize(codes2d, scale[:, None], k_x)
+
+
+_log_tables = {}   # (k_g, device) -> the lane table on that device
+
+
+def _log_table(k_g: int, device) -> torch.Tensor:
+    key = (k_g, str(device))
+    if key not in _log_tables:
+        bits = B.lane_bits_for(k_g + 1)
+        _log_tables[key] = torch.from_numpy(
+            grids.log_dequant_table(k_g, bits)).to(device)
+    return _log_tables[key]
+
+
+def _log_dequantize_cuda(codes, scale, k_g):
+    global log_dequantize_launches
+    lib = build.library()
+    codes = codes.contiguous()
+    scale = scale.reshape(1).contiguous()
+    table = _log_table(k_g, codes.device)
+    out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
+    err = lib.rt_log_dequantize(build.ptr(codes), build.ptr(scale),
+                                build.ptr(table), table.shape[0] // 2,
+                                build.ptr(out), codes.numel(),
+                                build.stream_ptr(codes.device))
+    build.check(err, "log_dequantize")
+    log_dequantize_launches += 1
+    return out
+
+
+def log_dequantize(codes: torch.Tensor, scale: torch.Tensor, k_g: int,
+                   backend: Optional[str] = None) -> torch.Tensor:
+    """Q_g decode: int8 log-grid codes of any shape and one float32
+    scale -> ``sign(c) * 2^(|c|-k_g-1) * scale`` in float32."""
+    global plain_on_cuda
+    if codes.dtype != torch.int8:
+        raise ValueError(f"need int8 codes, got {codes.dtype}")
+    if scale.numel() != 1 or scale.dtype != torch.float32:
+        raise ValueError("scale must be one float32 value")
+    if not 0 <= k_g <= 30:
+        raise ValueError(f"k_g={k_g} outside [0, 30]")
+    if resolve_backend(backend, codes, scale) == "cuda":
+        return _log_dequantize_cuda(codes, scale, k_g)
+    plain_on_cuda += codes.is_cuda
+    return grids.log_dequantize(codes, scale.reshape(()), k_g)

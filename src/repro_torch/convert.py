@@ -1,17 +1,19 @@
-"""Carry parameter trees across from the reference package.
+"""Carry parameter trees and optimizer state across from the reference
+package.
 
 The reference's tree, after ``jax.tree.map(np.asarray, params)``, is a
 nested dict of numpy arrays whose quantized leaves are objects with
 ``codes``, ``scale``, ``k_x``, ``shape``, ``dtype`` and ``pack_bits``.
 These functions turn it into the port's tree on ``device``, so both
-packages compute with the same weights. Nothing here imports the
-reference: quantized leaves are read by their attributes.
+packages compute with the same weights and state. Nothing here imports
+the reference: quantized leaves and states are read by their attributes.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.qadam import QAdamState
 from repro_torch.serve.quantized import QuantizedLeaf
 
 
@@ -38,3 +40,13 @@ def params_from_numpy(tree, device="cuda"):
     if hasattr(tree, "codes") and hasattr(tree, "k_x"):
         return quantized_from_numpy(tree, device)
     return _tensor(tree, device)
+
+
+def qadam_state_from_numpy(state, device="cuda") -> QAdamState:
+    """A reference ``QAdamState`` with numpy leaves (count, m, v, e; its
+    PRNG key feeds only the stochastic quantizers, which the port does
+    not have) -> the port's, with the step count on the host."""
+    return QAdamState(count=int(np.asarray(state.count)),
+                      m=params_from_numpy(state.m, device),
+                      v=params_from_numpy(state.v, device),
+                      e=params_from_numpy(state.e, device))

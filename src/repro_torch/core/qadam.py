@@ -1,0 +1,153 @@
+"""Quantized Generic Adam with Error Feedback, Algorithm 1 (port of
+``repro/core/qadam.py``, the single-worker optimizer).
+
+    opt = qadam(QAdamConfig(alpha=1e-3, grad_q="log:6",
+                            weight_q="uniform_amax:7"))
+    state = opt.init(params)
+    qparams = opt.forward_params(params, state)   # Q_x(x_t): fwd/bwd on these
+    updates, state = opt.update(grads, state)     # quantized delta, EF applied
+    params = apply_updates(params, updates)
+
+theta_t = 1 - theta/t, alpha_t per ``schedule`` ("constant", "sqrt":
+alpha/sqrt(t), "halving:K": halve every K steps), beta constant. Both
+come from the host's step count in float32, as the reference computes
+them, so no step reads the device.
+
+On CUDA tensors ``update`` launches per leaf K15 (moments), K16 (codes
+and residual) and K11 (decode), and ``forward_params`` K3, K4 and K12
+(the Q_x round trip) per quantized leaf. ``update`` consumes its state:
+m, v and e are updated in place and the returned state holds the same
+tensors (the reference donates these buffers to its step; a full-width
+model's state would not fit twice on one card). The reference's
+baselines (``ef_sgdm``, ``terngrad_sgd``, ``wquan``) wait for
+their kernels (ROADMAP.md queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.quantizers import (IdentityQuantizer, LogGradQuantizer,
+                                         Quantizer, get_quantizer)
+from repro_torch.opt import engine
+from repro_torch.tree import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class QAdamConfig:
+    alpha: float = 1e-3
+    beta: float = 0.99
+    theta: float = 0.999
+    eps: float = 1e-5
+    schedule: str = "constant"     # "sqrt" | "constant" | "halving:K"
+    grad_q: Optional[str] = "log:6"
+    weight_q: Optional[str] = None
+    error_feedback: bool = True    # ablation knob (paper: EF on)
+    # leaves smaller than this skip Q_x (norm scales would be clipped by
+    # the absolute grid; the paper quantizes weight matrices). 0 =
+    # quantize everything.
+    weight_q_min_numel: int = 0
+    # kernels' implementation in update and forward_params: "cuda" |
+    # "torch" (the plain versions) | None = by the tensors' device
+    backend: Optional[str] = None
+
+    def grad_quantizer(self) -> Quantizer:
+        return get_quantizer(self.grad_q)
+
+    def weight_quantizer(self) -> Quantizer:
+        return get_quantizer(self.weight_q)
+
+
+class QAdamState(NamedTuple):
+    count: int    # t, steps taken (the next step uses t + 1), on the host
+    m: Any        # first moment, per param
+    v: Any        # second moment, per param
+    e: Any        # error-feedback residual, per param
+
+
+class Optimizer(NamedTuple):
+    init: Callable
+    update: Callable
+    forward_params: Callable
+
+
+def _alpha_t(cfg: QAdamConfig, t: int) -> np.float32:
+    tf = np.float32(t)
+    if cfg.schedule == "sqrt":
+        return np.float32(cfg.alpha) / np.sqrt(tf)
+    if cfg.schedule == "constant":
+        return np.float32(cfg.alpha)
+    if cfg.schedule.startswith("halving"):
+        k = np.float32(int(cfg.schedule.split(":")[1]))
+        return np.float32(cfg.alpha) * np.float32(0.5) ** np.floor(
+            (tf - np.float32(1.0)) / k)
+    raise ValueError(cfg.schedule)
+
+
+def _theta_t(cfg: QAdamConfig, t: int) -> np.float32:
+    # theta_t = 1 - theta/t (Assumption 4); with theta < 1 it stays in (0, 1)
+    return np.float32(1.0) - np.float32(cfg.theta) / np.float32(t)
+
+
+def _zeros_like_tree(params):
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
+
+
+def qadam(cfg: QAdamConfig) -> Optimizer:
+    """Algorithm 1: Quantized Generic Adam (single worker)."""
+    gq = cfg.grad_quantizer()
+    wq = cfg.weight_quantizer()
+
+    def init(params) -> QAdamState:
+        return QAdamState(count=0, m=_zeros_like_tree(params),
+                          v=_zeros_like_tree(params),
+                          e=_zeros_like_tree(params))
+
+    def forward_params(params, state=None):
+        """Q_x(x_t), per tensor (one amax over a whole stacked leaf): the
+        weights the gradient is sampled at (Assumption 3)."""
+        if isinstance(wq, IdentityQuantizer):
+            return params
+
+        def leaf(p):
+            if p.numel() < cfg.weight_q_min_numel:
+                return p
+            return wq(p, backend=cfg.backend).to(p.dtype)
+        return tree_map(leaf, params)
+
+    def update(grads, state: QAdamState, params=None):
+        t = state.count + 1
+        dev = tree_leaves(grads)[0].device
+        hp = engine.hyperparams(_alpha_t(cfg, t), cfg.beta, _theta_t(cfg, t),
+                                cfg.eps, dev)
+        bk = cfg.backend
+
+        def leaf(g, m, v, e):
+            g = g.to(torch.float32)
+            if isinstance(gq, LogGradQuantizer):
+                # the paper's Q_g: K15, K16 (state in place), then K11
+                return engine.adam_ef_update(
+                    g, m, v, e, hp, k_g=gq.k_g,
+                    error_feedback=cfg.error_feedback, backend=bk)[0]
+            _, _, de = engine.adam_ef_moments(g, m, v, e, hp, backend=bk,
+                                              out=(m, v))
+            dq = gq(de, backend=bk)
+            if cfg.error_feedback:
+                torch.sub(de, dq, out=e)
+            else:
+                e.zero_()
+            return -dq
+
+        upd = tree_map(leaf, grads, state.m, state.v, state.e)
+        return upd, QAdamState(count=t, m=state.m, v=state.v, e=state.e)
+
+    return Optimizer(init=init, update=update, forward_params=forward_params)
+
+
+def apply_updates(params, updates):
+    return tree_map(lambda p, u: (p.to(torch.float32) + u).to(p.dtype),
+                    params, updates)

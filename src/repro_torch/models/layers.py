@@ -4,8 +4,11 @@
 Each function repeats the reference's float32 arithmetic in the same
 order (norm statistics, rope angles, masked softmax with the ``l_safe``
 guard), so the two packages agree to float32 rounding at equal inputs.
-Attention here is plain PyTorch on the cache view; the kernels the
-path runs sit behind :func:`pmatmul` (K1) and ``gather_pages`` (K2).
+Attention here is plain PyTorch (training over the whole sequence, and
+decode against the cache view); the kernels the serving path runs sit
+behind :func:`pmatmul` (K1) and ``gather_pages`` (K2). Every function
+is differentiable by autograd, including ``pmatmul``'s cast of a float32
+weight to the activation dtype.
 """
 from __future__ import annotations
 
@@ -74,6 +77,34 @@ def rope(x, positions, theta):
     x1, x2 = xf[..., :half], xf[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (training): causal, over the whole sequence
+# ---------------------------------------------------------------------------
+
+def attention(q, k, v, *, q_pos):
+    """Causal GQA attention of a training forward. q: (B, S, H, hd);
+    k, v: (B, S, K, hd); q_pos: (S,) positions of queries and keys.
+
+    As the reference: the H query heads are grouped (B, S, K, rep, hd)
+    against their K/V head, scores are taken in float32 (exact products
+    of the activation-dtype inputs), masked with -1e30, softmaxed in
+    float32 and cast to the activation dtype before the product with v.
+    Plain PyTorch, so autograd gives its backward; the reference also
+    computes it outside any Pallas kernel.
+    """
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    rep = H // K
+    qr = q.reshape(B, Sq, K, rep, hd)
+    scores = torch.einsum("bqkrd,bskd->bkrqs", qr.to(torch.float32),
+                          k.to(torch.float32)) / math.sqrt(hd)
+    mask = q_pos[:, None] >= q_pos[None, :]                    # (Sq, Skv)
+    scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkrqs,bskd->bqkrd", probs, v)
+    return out.reshape(B, Sq, H, hd)
 
 
 # ---------------------------------------------------------------------------

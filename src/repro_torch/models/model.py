@@ -1,4 +1,5 @@
-"""Dense decoder LM, serving subset (port of ``repro/models/model.py``).
+"""Dense decoder LM: training forward and loss, and the serving decode
+(port of ``repro/models/model.py``).
 
 Parameters keep the reference's tree: ``embed`` (V, d), ``unembed``
 (d, V), ``final_norm``, and the scan-stacked ``blocks`` whose leaves
@@ -18,11 +19,13 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.paged import gather_pages
 from repro_torch.serve.quantized import layer_slice
+from repro_torch.tree import tree_map
 
 Gather = Optional[Callable[[Any, str], Any]]
 
@@ -128,6 +131,58 @@ class Model:
 
     def _head(self, params, x, backend=None):
         return L.pmatmul(x, params["unembed"], backend).to(torch.float32)
+
+    # ---------------- training forward ----------------
+    def _block(self, p, x, q_pos, theta):
+        """One decoder block of the training forward on x (B, S, d)."""
+        cfg = self.cfg
+        Bn, S, _ = x.shape
+        H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        h = L.apply_norm(x, p["ln1"], cfg)
+        pa = p["attn"]
+        q = L.rope(L.pmatmul(h, pa["q"]).reshape(Bn, S, H, hd), q_pos, theta)
+        k = L.rope(L.pmatmul(h, pa["k"]).reshape(Bn, S, K, hd), q_pos, theta)
+        v = L.pmatmul(h, pa["v"]).reshape(Bn, S, K, hd)
+        attn = L.attention(q, k, v, q_pos=q_pos)
+        x = x + L.pmatmul(attn.reshape(Bn, S, H * hd), pa["o"])
+        return x + L.mlp(p["mlp"], L.apply_norm(x, p["ln2"], cfg))
+
+    def forward(self, params, batch) -> torch.Tensor:
+        """Training forward of float parameters -> float32 logits
+        (B, S, V). batch: {"tokens": (B, S) int}.
+
+        Each block runs under ``torch.utils.checkpoint`` (non-reentrant):
+        its activations are recomputed in the backward, the reference's
+        ``remat_policy="full"``. The stacked (L, ...) leaves are unbound
+        once, so the backward stacks each leaf's per-layer gradients in
+        one copy. The weight products are ``torch.matmul`` in the
+        activation dtype, as the reference leaves them to XLA."""
+        self._check_dense()
+        cfg = self.cfg
+        x = self._embed_in(params, batch["tokens"])
+        q_pos = torch.arange(x.shape[1], device=x.device)
+        per_layer = tree_map(lambda w: torch.unbind(w, 0), params["blocks"])
+        for i, theta in enumerate(cfg.layer_rope_thetas()):
+            p = tree_map(lambda ws: ws[i], per_layer)
+            x = checkpoint(self._block, p, x, q_pos, theta,
+                           use_reentrant=False)
+        x = L.apply_norm(x, params["final_norm"], cfg)
+        return self._head(params, x)
+
+    def loss(self, params, batch):
+        """(sum of masked next-token NLL, token count), both 0-d float32:
+        the caller takes the mean. batch: tokens, targets (B, S) and an
+        optional float mask."""
+        logits = self.forward(params, batch)
+        targets = batch["targets"].long()
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones(targets.shape, dtype=torch.float32,
+                              device=logits.device)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
+        nll = (logz - gold) * mask
+        return nll.sum(), mask.sum()
 
     # ---------------- KV cache ----------------
     def init_cache(self, batch_size: int, max_seq_local: int, dtype=None,

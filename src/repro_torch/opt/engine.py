@@ -1,17 +1,23 @@
-"""Backend-dispatched Q_x encode (port of ``repro/opt/engine.py``
-``quantize_uniform``).
+"""Backend-dispatched quantizer passes and the Adam+EF update core (port
+of ``repro/opt/engine.py``).
 
-``backend="torch"`` runs the plain ``grids`` math, ``"cuda"`` the K3/K4
-kernels of ``repro_torch.comm.kernels``; ``None`` follows the tensor's
-device. Codes and scales are bitwise equal across backends.
+``backend="torch"`` runs the plain ``grids`` math, ``"cuda"`` the
+hand-written kernels (K3/K4 Q_x encode, K12 Q_x decode, K11 Q_g decode
+in ``repro_torch.comm.kernels``; K15/K16 Adam+EF in
+``repro_torch.kernels.adam_ef``); ``None`` follows the tensors' device.
+Codes, scales, moments and residuals are bitwise equal across backends.
+The kernels take flat tensors of any length, so the reference's
+(R, 128) tiling and padding (``_to_tiles``) has no counterpart.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.comm import kernels as K
+from repro_torch.kernels import adam_ef as AK
 
 
 def quantize_uniform(x: torch.Tensor, k_x: int = 7, absolute: bool = True,
@@ -33,3 +39,88 @@ def quantize_uniform(x: torch.Tensor, k_x: int = 7, absolute: bool = True,
         scale = torch.clamp_min(K.amax_rows(x2d, backend=backend), 1e-30)
     codes = K.uniform_quantize_rows(x2d, scale, k_x, backend=backend)
     return codes.reshape(x.shape), (scale if per_layer else scale[0])
+
+
+def dequantize_uniform(codes: torch.Tensor, scale: torch.Tensor,
+                       k_x: int = 7, backend: Optional[str] = None):
+    """Q_x decode of a whole tensor against one scale: ``codes / 2^k_x *
+    scale`` in float32 (K12)."""
+    out = K.uniform_dequantize_rows(codes.reshape(1, -1),
+                                    scale.reshape(1).to(torch.float32), k_x,
+                                    backend=backend)
+    return out.reshape(codes.shape)
+
+
+def dequantize_log(codes: torch.Tensor, scale: torch.Tensor, k_g: int = 6,
+                   backend: Optional[str] = None):
+    """Q_g decode (K11): ``sign(c) * 2^(|c|-k_g-1) * scale``, float32."""
+    return K.log_dequantize(codes, scale, k_g, backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# Adam+EF update core (Algorithm 1 lines 3-6)
+# ---------------------------------------------------------------------------
+
+def hyperparams(alpha_t, beta, theta_t, eps, device) -> torch.Tensor:
+    """The (4,) float32 tensor [alpha_t, beta, theta_t, eps] on
+    ``device``, each value rounded once to float32 on the host. On a GPU
+    the copy is staged through pinned memory and does not wait for the
+    device."""
+    hp = torch.from_numpy(np.array([alpha_t, beta, theta_t, eps],
+                                   dtype=np.float32))
+    device = torch.device(device)
+    if device.type == "cuda":
+        return hp.pin_memory().to(device, non_blocking=True)
+    return hp.to(device)
+
+
+def amax_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The Q_g scale with the reference's zero guard, on the device:
+    ``where(amax > 0, amax, 1)`` (a NaN amax also gives 1)."""
+    return torch.where(amax > 0, amax, torch.ones_like(amax))
+
+
+def adam_ef_moments(g, m, v, e, hp, backend: Optional[str] = None,
+                    out=None):
+    """Pass A (K15): moment updates and the full-precision Delta_t + e_t.
+    Returns (m', v', Delta+e); ``out=(m_out, v_out)`` receives m' and v'
+    (they may be m and v)."""
+    m2, v2, de, _ = AK.adam_moments(g, m, v, e, hp, backend=backend, out=out)
+    return m2, v2, de
+
+
+def ef_quantize(de, scale, k_g: int, backend: Optional[str] = None):
+    """Pass B (K16): log-grid codes and the new EF residual
+    e' = Delta+e - deq(codes)."""
+    return AK.ef_quantize(de, scale, k_g, backend=backend)
+
+
+def adam_ef_step(g, m, v, e, hp, k_g: int = 6,
+                 backend: Optional[str] = None):
+    """K15 then K16 on one leaf, the state updated in place: K15 writes
+    m' and v' over m and v, K16 writes e' over e (which K15 has read).
+    Returns (m', v', codes, scale, e'), m', v' and e' being the tensors
+    m, v and e. The scale is K15's folded max|Delta+e| under the zero
+    guard, on the device. The reference donates these buffers to its
+    step, which amounts to the same."""
+    _, _, de, amax = AK.adam_moments(g, m, v, e, hp, backend=backend,
+                                     out=(m, v))
+    scale = amax_scale(amax)
+    codes, _ = AK.ef_quantize(de, scale, k_g, backend=backend, out=e)
+    return m, v, codes, scale, e
+
+
+def adam_ef_update(g, m, v, e, hp, k_g: int, error_feedback: bool = True,
+                   backend: Optional[str] = None):
+    """The complete single-machine Algorithm 1 leaf update, the state
+    updated in place (:func:`adam_ef_step`): returns (update, m', v', e').
+    The update is -Q_g(Delta_t + e_t), the reference's ``-delta_deq``: K11
+    (a separate launch after K16, as in the reference) decodes the codes
+    against -scale, which gives -deq bit for bit (the rounding is
+    symmetric). ``error_feedback=False`` zeroes e'."""
+    m, v, codes, scale, e = adam_ef_step(g, m, v, e, hp, k_g=k_g,
+                                         backend=backend)
+    upd = dequantize_log(codes, -scale, k_g, backend=backend)
+    if not error_feedback:
+        e.zero_()
+    return upd, m, v, e

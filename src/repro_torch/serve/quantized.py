@@ -25,6 +25,7 @@ from repro_torch.comm import bits as B
 from repro_torch.comm import matmul as MM
 from repro_torch.comm.codec import UniformCodec
 from repro_torch.opt import engine, grids
+from repro_torch.tree import tree_leaves
 
 _STACKED_KEYS = ("blocks", "enc_blocks")
 
@@ -115,12 +116,6 @@ def tree_map_with_path(fn, tree, path=()):
         return {k: tree_map_with_path(fn, v, path + (k,))
                 for k, v in tree.items()}
     return fn(path, tree)
-
-
-def tree_leaves(tree):
-    if isinstance(tree, dict):
-        return [l for v in tree.values() for l in tree_leaves(v)]
-    return [tree]
 
 
 def _quantize_leaf(p: torch.Tensor, k_x: int, absolute: bool,

@@ -2,12 +2,15 @@
 card (marker ``cuda``; skipped where there is no GPU).
 
 Run on a GPU machine with ``PYTHONPATH=src python -m pytest -q -m cuda
-tests/test_torch_cuda_kernels.py``. Tiers: quantize codes, scales and
-page gathers bitwise; the dequant-matmul within float32 summation-order
-tolerance (f32 activations) or one bf16 ulp plus a floor of
-K1_FLOOR sqrt(K) 2^-24 |x*w|_2 near zero (bf16 activations), the tier of
-``chip_smoke.py``.
+tests/test_torch_cuda_kernels.py``. Tiers: quantize and dequantize codes,
+scales, page gathers and the Adam+EF passes (moments, Delta+e, amax,
+codes, residuals, decoded updates) bitwise; the dequant-matmul within
+float32 summation-order tolerance (f32 activations) or one bf16 ulp plus
+a floor of K1_FLOOR sqrt(K) 2^-24 |x*w|_2 near zero (bf16 activations),
+the tier of ``chip_smoke.py``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -116,3 +119,141 @@ def test_session_runs_through_kernels(dev):
     assert K.amax_launches > 0
     assert res[hs[0]].tokens == res[hs[1]].tokens == res[hs[2]].tokens
     np.testing.assert_array_equal(sess.free_pages, sess.num_pages)
+
+
+def _bits_equal(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    assert torch.equal(a, b)
+
+
+def _adam_inputs(dev, n, seed, zero=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = [torch.randn(n, generator=g, device=dev) * s
+         for s in (1.0, 0.3, 1.0, 1e-4)]
+    t[2] = t[2].abs()
+    if zero:
+        t = [torch.zeros(n, device=dev) for _ in t]
+    return t
+
+
+@pytest.mark.parametrize("n", [1, 127, 1000003])
+@pytest.mark.parametrize("k_g", [2, 4, 6])
+@pytest.mark.parametrize("zero", [False, True])
+def test_adam_ef_passes_bitwise(dev, n, k_g, zero):
+    """K15 moments + amax, the scale guard, K16 codes + residual and K11
+    decode, each against its plain version on the same inputs."""
+    from repro_torch.comm import kernels as K
+    from repro_torch.kernels import adam_ef as A
+    from repro_torch.opt import engine as E
+    g, m, v, e = _adam_inputs(dev, n, n + k_g, zero)
+    hp = E.hyperparams(3e-3, 0.99, 1.0 - 0.999 / 3.0, 1e-5, dev)
+    a = A.adam_moments(g, m, v, e, hp, backend="cuda")
+    b = A.adam_moments(g, m, v, e, hp, backend="torch")
+    for x, y in zip(a, b):
+        _bits_equal(x, y)
+    scale = E.amax_scale(a[3])
+    if zero:
+        assert float(scale) == 1.0
+    c_k, e_k = A.ef_quantize(a[2], scale, k_g, backend="cuda")
+    c_p, e_p = A.ef_quantize(a[2], scale, k_g, backend="torch")
+    _bits_equal(c_k, c_p)
+    _bits_equal(e_k, e_p)
+    for s in (scale, -scale):
+        _bits_equal(K.log_dequantize(c_k, s, k_g, backend="cuda"),
+                    K.log_dequantize(c_k, s, k_g, backend="torch"))
+
+
+@pytest.mark.parametrize("n", [1, 127, 1000003])
+@pytest.mark.parametrize("k_g", [2, 4, 6])
+def test_ef_quantize_decision_points_bitwise(dev, n, k_g):
+    """K16 on values placed within a few ulps of the grid's decision
+    points, zeros, subnormals and values above the scale."""
+    from repro_torch.kernels import adam_ef as A
+    from repro_torch.opt import grids
+    pts = torch.tensor(grids.log_thresholds(k_g) + [0.0, 1e-40, 1.5, 7.0],
+                       device=dev)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    idx = torch.randint(0, pts.numel(), (n,), generator=gen, device=dev)
+    x = pts[idx].view(torch.int32) + torch.randint(
+        -3, 4, (n,), generator=gen, device=dev, dtype=torch.int32)
+    x = x.view(torch.float32) * torch.where(
+        torch.rand(n, generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    scale = torch.tensor(1.0, device=dev)
+    for kernel, plain in zip(A.ef_quantize(x, scale, k_g, backend="cuda"),
+                             A.ef_quantize(x, scale, k_g, backend="torch")):
+        _bits_equal(kernel, plain)
+
+
+@pytest.mark.parametrize("n", [1, 127, 1000003])
+@pytest.mark.parametrize("k_x", [6, 7])
+@pytest.mark.parametrize("rows", [1, 3])
+def test_uniform_dequantize_bitwise(dev, n, k_x, rows):
+    from repro_torch.comm import kernels as K
+    from repro_torch.opt import grids
+    gen = torch.Generator(device=dev).manual_seed(n + k_x)
+    lim = 2 ** k_x
+    codes = torch.randint(-lim, lim + 1, (rows, n), generator=gen,
+                          device=dev).to(grids.uniform_code_dtype(k_x))
+    scale = torch.rand(rows, generator=gen, device=dev) + 0.01
+    _bits_equal(K.uniform_dequantize_rows(codes, scale, k_x, backend="cuda"),
+                K.uniform_dequantize_rows(codes, scale, k_x,
+                                          backend="torch"))
+
+
+def test_training_runs_through_kernels(dev):
+    """Three Algorithm 1 steps of the smoke model on the card: every
+    training kernel launches, no plain version runs, the steady step
+    makes no host sync, and one update and the Q_x forward params through
+    the kernels equal the plain versions' bit for bit."""
+    from repro_torch.comm import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core.qadam import QAdamConfig, apply_updates, qadam
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.kernels import adam_ef as A
+    from repro_torch.models.model import Model
+    from repro_torch.train.session import SessionConfig, TrainSession
+    from repro_torch.tree import tree_leaves
+    model = Model(get_config("yi-6b", smoke=True))
+    cfg = QAdamConfig(alpha=1e-3, grad_q="log:6", weight_q="uniform_amax:7",
+                      weight_q_min_numel=2 ** 14)
+
+    def loss_fn(p, b):
+        ls, nt = model.loss(p, b)
+        return ls / nt
+    K.amax_launches = K.quantize_launches = K.dequantize_launches = 0
+    K.log_dequantize_launches = A.moments_launches = 0
+    A.ef_quantize_launches = K.plain_on_cuda = A.plain_on_cuda = 0
+    sess = TrainSession.from_optimizer(
+        qadam(cfg), loss_fn, model.init(seed=0, device=dev),
+        batch_for_model(model.cfg, 32, 2), SessionConfig(log_every=3),
+        log=lambda *_: 0)
+    with sess:
+        sess.run(3)
+    assert sess.stats["syncs"] == 2 and len(sess.history) == 2
+    assert min(K.amax_launches, K.quantize_launches, K.dequantize_launches,
+               K.log_dequantize_launches, A.moments_launches,
+               A.ef_quantize_launches) > 0
+    assert K.plain_on_cuda == A.plain_on_cuda == 0
+    st = sess.state
+    p = {"embed": st["params"]["embed"]}
+    grads = {"embed": p["embed"] * 0.01 + 1e-3}
+    outs = []
+    for backend in ("cuda", "torch"):
+        # update consumes its state (in place): each backend gets a copy
+        sub = type(st["opt"])(count=st["opt"].count, **{
+            f: {"embed": getattr(st["opt"], f)["embed"].clone()}
+            for f in ("m", "v", "e")})
+        upd, s2 = qadam(dataclasses.replace(cfg, backend=backend)).update(
+            grads, sub)
+        outs.append((apply_updates(p, upd)["embed"], s2.m["embed"],
+                     s2.v["embed"], s2.e["embed"]))
+    for x, y in zip(*outs):
+        _bits_equal(x, y)
+    # the Q_x forward copy of every trained leaf (K3, K4, K12 on the
+    # large ones), kernels against plain versions
+    fk, fp = (qadam(dataclasses.replace(cfg, backend=backend))
+              .forward_params(st["params"]) for backend in ("cuda", "torch"))
+    for x, y in zip(tree_leaves(fk), tree_leaves(fp)):
+        _bits_equal(x, y)

@@ -37,7 +37,9 @@ def test_no_jax_or_reference_imports(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch.launch.serve, repro_torch.serve.session, "
-            "repro_torch.convert; "
+            "repro_torch.convert, repro_torch.core.qadam, "
+            "repro_torch.train.session, repro_torch.kernels.adam_ef, "
+            "repro_torch.data.pipeline; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -62,6 +64,7 @@ def test_entry_points_default_to_cuda():
     assert _default(Engine.__init__, "device") == "cuda"
     assert _default(convert.params_from_numpy, "device") == "cuda"
     assert _default(convert.quantized_from_numpy, "device") == "cuda"
+    assert _default(convert.qadam_state_from_numpy, "device") == "cuda"
     src = inspect.getsource(launch.main)
     assert 'ap.add_argument("--device", default="cuda")' in src
 
@@ -79,3 +82,16 @@ def test_kernel_wrappers_refuse_cuda_backend_on_cpu():
         resolve_backend("pallas", x)
     with pytest.raises(ValueError):
         K.amax_rows(x, backend="cuda")
+    from repro_torch.kernels import adam_ef as A
+    from repro_torch.opt import engine as E
+    hp = E.hyperparams(1e-3, 0.99, 0.001, 1e-5, "cpu")
+    with pytest.raises(ValueError):
+        A.adam_moments(x, x, x, x, hp, backend="cuda")
+    with pytest.raises(ValueError):
+        A.ef_quantize(x, torch.tensor(1.0), 6, backend="cuda")
+    with pytest.raises(ValueError):
+        K.log_dequantize(x.to(torch.int8), torch.tensor(1.0), 6,
+                         backend="cuda")
+    with pytest.raises(ValueError):
+        K.uniform_dequantize_rows(x.to(torch.int8), torch.ones(2), 6,
+                                  backend="cuda")
