@@ -6,7 +6,7 @@
 Phases, each raising on failure (exit code nonzero, no result line):
 
   1. print the card's name and power limit (nvidia-smi);
-  2. build the eight CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
+  2. build the ten CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
      sm_90a, one process per source, all started together);
   3. hold each serving kernel against its plain PyTorch version at yi-6b
      shapes: K3 amax / K4 quantize on a stacked (32, 4096, 11008) f32
@@ -19,8 +19,13 @@ Phases, each raising on failure (exit code nonzero, no result line):
      Delta+e, the amax word), K16 EF quantize (codes, residual), K11 log
      dequantize, and the Q_x round trip as training runs it: K3 over the
      whole leaf as one row, K4 to int16 codes at k_x = 7, K12 uniform
-     dequantize; time each kernel, its plain version and a one-call
-     PyTorch yardstick where there is one;
+     dequantize; then the wire kernels bitwise: K7 fused EF encode
+     (payload rows, residual) and K6 fused decode (a scale per row, into
+     rows or a flat leaf) over n_rows {1, 2, 4}, chunks {1, 7, 1000003},
+     log k_g {2, 4, 6, 8}, uniform wire k_x {3, 6, 7} and zero input,
+     and at the w_gate stack for log:6 and uniform:7; time each kernel,
+     its plain version and a one-call PyTorch yardstick where there is
+     one;
   4. serve full-width yi-6b (random weights from a seed): Model.init,
      quantize_params(k_x=6), a paged ServeSession (page 16, 4 slots,
      chunked prefill 32) answering 8 requests of 64-token prompts with
@@ -44,7 +49,24 @@ Phases, each raising on failure (exit code nonzero, no result line):
      parameters; print the
      step's wall and device time, its time by kernel, tokens/s and peak
      memory;
-  6. print one ``{"kernels": [...]}`` line, the card line again, and the
+  6. train the same cut of yi-6b with Algorithms 2+3 through
+     ``launch.train``'s path, in process: ``make_process_group`` (one
+     NCCL rank), ``make_train_step(model, group, TrainConfig(alpha=1e-3,
+     beta=0.99, theta=0.999, grad_k=6, weight_k=7, weight_absolute=True,
+     mode="qadam"))``, ``TrainSession.from_artifacts``, 12 steps of the
+     same batches; gates: the phase-5 gates with K7 and K6 (each kind)
+     and K15 launched, the bytes the collectives move equal to
+     ``comm_bytes_per_step``, one update on captured gradients bitwise
+     through the kernels, the plain versions and Algorithm 1's
+     ``qadam.update``, and Algorithms 2+3 at one worker against
+     Algorithm 1 (the slice-2 session) from the same initialization,
+     under torch's deterministic algorithms: bitwise losses and
+     parameters, else within the reference's drift with the
+     nondeterministic operations named; print wall and device time, the
+     device time by phase (broadcast, forward+backward,
+     update+exchange, master update), the wire kernels' time, peak
+     memory and state bytes;
+  7. print one ``{"kernels": [...]}`` line, the card line again, and the
      last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package. Detailed tables are
@@ -59,6 +81,11 @@ import os
 import subprocess
 import sys
 import time
+
+# cuBLAS is deterministic only with a fixed workspace (phase 6 runs two
+# trainings under torch.use_deterministic_algorithms); set before CUDA
+# starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -511,6 +538,135 @@ def check_training_kernels(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, wire kernels: K7 fused EF encode and K6 fused decode
+# ---------------------------------------------------------------------------
+
+WIRE_CODECS = [("log", 2), ("log", 4), ("log", 6), ("log", 8),
+               ("uniform", 3), ("uniform", 6), ("uniform", 7)]
+
+
+def wire_codec(kind, k, absolute=True):
+    from repro_torch.comm import codec as CD
+    return CD.LogCodec(k_g=k) if kind == "log" else \
+        CD.uniform_wire_codec(k, absolute)
+
+
+def check_wire_kernels(torch, dev):
+    """K7 and K6 bitwise against their plain versions over n_rows in
+    {1, 2, 4} (a distinct scale per decoded row, the last row short),
+    chunk lengths {1, 7, 1000003}, the log grid at k_g {2, 4, 6, 8} and
+    the uniform wire at k_x {3, 6, 7} (its +/-2^k_x clip), all-zero
+    input, K6 straight into a flat leaf; then at the 8-layer w_gate
+    stack for log:6 (the update exchange: Delta+e against its amax) and
+    uniform:7 (the weight broadcast: weights against 0.5), bitwise and
+    timed against their bounds. Returns the four kernel rows and the
+    timing table."""
+    from repro_torch.comm import kernels as K
+    from repro_torch.opt import engine as E
+    cases = 0
+    for kind, k in WIRE_CODECS:
+        codec = wire_codec(kind, k)
+        for c in (1, 7, 1000003):
+            for n_rows in (1, 2, 4):
+                n = n_rows * c - (n_rows - 1)
+                gen = torch.Generator(device=dev).manual_seed(
+                    n_rows * 100 + c + k)
+                x = torch.randn(n, generator=gen, device=dev) * (
+                    1.0 if kind == "log" else 0.3)
+                scale = (E.amax_scale(x.abs().amax()) if kind == "log"
+                         else torch.tensor(0.5, device=dev))
+                for zero in (False, True) if c == 7 else (False,):
+                    if zero:
+                        x.zero_()
+                        if kind == "log":
+                            scale = E.amax_scale(x.abs().amax())
+                    enc = [K.ef_encode_rows(x, scale, codec, n_rows,
+                                            backend=b)
+                           for b in ("cuda", "torch")]
+                    if not all(bits_equal(torch, a, b)
+                               for a, b in zip(*enc)):
+                        raise AssertionError(
+                            f"K7 {codec.spec} differs from its plain version "
+                            f"(n_rows={n_rows}, c={c}, zero={zero})")
+                    scales = (torch.rand(n_rows, generator=gen, device=dev)
+                              + 0.5) * scale
+                    dk = K.decode_rows(enc[0][0], scales, codec, c,
+                                       backend="cuda")
+                    out = torch.full((n,), float("nan"), device=dev)
+                    K.decode_rows(enc[0][0], scales, codec, c,
+                                  backend="cuda", out=out)
+                    if not (bits_equal(torch, dk, K.decode_rows(
+                            enc[0][0], scales, codec, c, backend="torch"))
+                            and bits_equal(torch, out, dk.reshape(-1)[:n])):
+                        raise AssertionError(
+                            f"K6 {codec.spec} differs from its plain version "
+                            f"(n_rows={n_rows}, c={c}, zero={zero})")
+                    cases += 1
+    # the w_gate stack of the 8-layer cell, as the main path gives it at
+    # one worker: one payload row
+    d, f = YI["d"], YI["f"]
+    n = TRAIN_LAYERS * d * f
+    gen = torch.Generator(device=dev).manual_seed(31)
+    x = torch.empty(n, device=dev)
+    table, rows = [], []
+    for kind, k, src in (("log", 6, "Delta+e"), ("uniform", 7, "weights")):
+        codec = wire_codec(kind, k)
+        if kind == "log":
+            torch.randn(n, generator=gen, out=x).mul_(1e-3)
+            scale = E.amax_scale(x.abs().amax())
+        else:
+            torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0,
+                                        generator=gen).mul_(0.02)
+            scale = torch.tensor(0.5, device=dev)
+        pk, ek = K.ef_encode_rows(x, scale, codec, 1, backend="cuda")
+        pp, ep = K.ef_encode_rows(x, scale, codec, 1, backend="torch")
+        if not (bits_equal(torch, pk, pp) and bits_equal(torch, ek, ep)):
+            raise AssertionError(f"K7 {codec.spec} differs from its plain "
+                                 f"version at the w_gate stack")
+        del pp, ep
+        scales = scale.reshape(1)
+        out = torch.empty(n, device=dev)
+        K.decode_rows(pk, scales, codec, n, backend="cuda", out=out)
+        if not bits_equal(torch, out, K.decode_rows(
+                pk, scales, codec, n, backend="torch").reshape(-1)):
+            raise AssertionError(f"K6 {codec.spec} differs from its plain "
+                                 f"version at the w_gate stack")
+        nbytes = pk.numel()
+        t = {}
+        t["ef_encode_rows"] = (
+            cuda_ms(torch, lambda i: K.ef_encode_rows(x, scale, codec, 1,
+                                                      backend="cuda",
+                                                      out=ek), 5, 1),
+            cuda_ms(torch, lambda i: K.ef_encode_rows(x, scale, codec, 1,
+                                                      backend="torch"), 2, 1),
+            bound_ms(8 * n + nbytes + 4))
+        t["decode_rows"] = (
+            cuda_ms(torch, lambda i: K.decode_rows(pk, scales, codec, n,
+                                                   backend="cuda", out=out),
+                    5, 1),
+            cuda_ms(torch, lambda i: K.decode_rows(pk, scales, codec, n,
+                                                   backend="torch"), 2, 1),
+            bound_ms(nbytes + 4 * n + 4))
+        for name, (ms, plain, (bnd, by)) in t.items():
+            table.append(dict(name=f"{name}_{kind}", spec=codec.spec,
+                              input=src, shape=[n], ms=ms, plain_ms=plain,
+                              bound_ms=bnd, bound_by=by,
+                              gbs=(bnd * 1e-3 * HBM_BYTES_PER_S) / ms / 1e6))
+            rows.append(dict(
+                name=f"{name}_{kind}", route="cuda",
+                source="src/repro_torch/csrc/codec.cu",
+                replaces=("src/repro/comm/kernels.py:356"
+                          if name == "ef_encode_rows"
+                          else "src/repro/comm/kernels.py:286"),
+                max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd,
+                bound_by=by, library_ms=None, shape=[n]))
+        del pk, ek, out
+    del x
+    torch.cuda.empty_cache()
+    return rows, table, cases
+
+
+# ---------------------------------------------------------------------------
 # phase 5: Algorithm 1 training of full-width yi-6b cut to 8 layers
 # ---------------------------------------------------------------------------
 
@@ -526,8 +682,75 @@ QX_KERNELS = ("amax_rows_kernel", "uniform_quantize_kernel",
               "uniform_dequantize_kernel")
 
 
-def train(torch, dev, mods):
+def run_watched(torch, sess, steps: int):
+    """``sess.run(steps)`` with every step's loss kept (device tensors,
+    read after the run) and the synchronizing operations that torch's
+    sync debug mode reports counted at each step's start and around each
+    loss harvest."""
     import warnings
+    losses, starts, harvests, caught = [], [], [], []
+
+    def nsync():
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    program_step, program_harvest = sess._program.step, sess.harvest_losses
+
+    def step(state, batch):
+        starts.append(nsync())
+        state, metrics = program_step(state, batch)
+        losses.append(metrics["loss"])
+        return state, metrics
+
+    def harvest():
+        n0 = nsync()
+        out = program_harvest()
+        harvests.append(nsync() - n0)
+        return out
+
+    sess._program.step, sess.harvest_losses = step, harvest
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            sess.run(steps)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            total = nsync()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        sess._program.step = program_step
+        del sess.harvest_losses
+    return dict(losses=[float(x) for x in torch.stack(losses).cpu()],
+                starts=starts, harvests=harvests, syncs=total, run_s=run_s,
+                messages=sorted({str(w.message)[:160] for w in caught}))
+
+
+def check_run(w, stats, launches, plain, what: str, steps: int) -> None:
+    """The gates of a training run: finite losses whose last-3 mean is
+    below the first, every kernel of the path launched, no plain version
+    on the card, and from the start of step 2 on no synchronizing
+    operation but the final loss harvest's own (two session reads in all:
+    after the first and the last step)."""
+    vals = w["losses"]
+    if len(vals) != steps or not all(math.isfinite(x) for x in vals):
+        raise AssertionError(f"{what} losses not finite: {vals}")
+    if not sum(vals[-3:]) / 3 < vals[0]:
+        raise AssertionError(f"{what} loss did not fall: {vals}")
+    if any(n == 0 for n in launches.values()):
+        raise AssertionError(f"a {what} kernel never launched: {launches}")
+    if plain:
+        raise AssertionError(f"{plain} plain-version calls on the card "
+                             f"({what})")
+    steady = w["syncs"] - w["starts"][1] - w["harvests"][-1]
+    if stats["syncs"] != 2 or len(w["harvests"]) != 2 or steady:
+        raise AssertionError(f"{what}: host syncs in steady state: {steady} "
+                             f"beyond the harvest (stats {stats}, at step "
+                             f"starts {w['starts']} of {w['syncs']}): "
+                             f"{w['messages']}")
+
+
+def train(torch, dev, mods):
     from repro_torch.configs import get_config
     from repro_torch.core.qadam import (QAdamConfig, QAdamState,
                                         apply_updates, qadam)
@@ -560,66 +783,14 @@ def train(torch, dev, mods):
                                               seed=0),
         SessionConfig(log_every=TRAIN_STEPS), log=lambda *_: None)
     del params
-    # every step's loss (device tensors, read after the run); the
-    # synchronizing operations (torch's sync debug mode) at each step's
-    # start and around each loss harvest
-    losses, starts, harvests, caught = [], [], [], []
-
-    def nsync():
-        return sum("synchroniz" in str(w.message) for w in caught)
-
-    program_step, program_harvest = sess._program.step, sess.harvest_losses
-
-    def step(state, batch):
-        starts.append(nsync())
-        state, metrics = program_step(state, batch)
-        losses.append(metrics["loss"])
-        return state, metrics
-
-    def harvest():
-        n0 = nsync()
-        out = program_harvest()
-        harvests.append(nsync() - n0)
-        return out
-
-    sess._program.step, sess.harvest_losses = step, harvest
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            t0 = time.perf_counter()
-            sess.run(TRAIN_STEPS)
-            torch.cuda.synchronize()
-            run_s = time.perf_counter() - t0
-            total_syncs = nsync()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-        sess._program.step = program_step
-        del sess.harvest_losses
+    w = run_watched(torch, sess, TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated()
     launches = {name: getattr(mods[mod], attr)
                 for name, (mod, attr) in TRAIN_COUNTERS.items()}
     plain = K.plain_on_cuda + A.plain_on_cuda
     stats = dict(sess.stats)
-    vals = [float(x) for x in torch.stack(losses).cpu()]
-    sync_msgs = sorted({str(w.message)[:160] for w in caught})
-
-    if len(vals) != TRAIN_STEPS or not all(math.isfinite(x) for x in vals):
-        raise AssertionError(f"training losses not finite: {vals}")
-    if not sum(vals[-3:]) / 3 < vals[0]:
-        raise AssertionError(f"training loss did not fall: {vals}")
-    if any(n == 0 for n in launches.values()):
-        raise AssertionError(f"a training kernel never launched: {launches}")
-    if plain:
-        raise AssertionError(f"{plain} plain-version calls on the card")
-    # from the start of step 2 on: no synchronizing operation but the
-    # final loss harvest's own, and the session read the device twice in
-    # all (after step 1 and after step 12)
-    steady = total_syncs - starts[1] - harvests[-1]
-    if stats["syncs"] != 2 or len(harvests) != 2 or steady:
-        raise AssertionError(f"host syncs in steady state: {steady} beyond "
-                             f"the harvest (stats {stats}, at step starts "
-                             f"{starts} of {total_syncs}): {sync_msgs}")
+    vals = w["losses"]
+    check_run(w, stats, launches, plain, "training", TRAIN_STEPS)
 
     # wall time per steady step, then the device's share by kernel
     torch.cuda.synchronize()
@@ -706,9 +877,9 @@ def train(torch, dev, mods):
     sess.close()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     return dict(launches=launches, losses=vals, stats=stats,
-                syncs_at_step_starts=starts, syncs_by_harvest=harvests,
-                sync_warnings=total_syncs,
-                sync_messages=sync_msgs, run_s=run_s,
+                syncs_at_step_starts=w["starts"],
+                syncs_by_harvest=w["harvests"], sync_warnings=w["syncs"],
+                sync_messages=w["messages"], run_s=w["run_s"],
                 step_wall_ms=wall_ms, step_device_ms=dev_ms,
                 device_idle=1 - dev_ms / wall_ms,
                 update_kernels_ms=upd_ms, qx_kernels_ms=qx_ms,
@@ -716,6 +887,313 @@ def train(torch, dev, mods):
                 tokens_per_s=tokens / wall_ms
                 * 1e3, peak_bytes=peak, state_bytes=state_bytes,
                 n_params=n_params)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: Algorithms 2+3, the distributed step on one NCCL rank
+# ---------------------------------------------------------------------------
+
+DIST_TC = dict(alpha=1e-3, beta=0.99, theta=0.999, grad_k=6, weight_k=7,
+               weight_absolute=True, mode="qadam")
+DIST_COUNTERS = {"ef_encode_rows_log": ("K", "ef_encode_log_launches"),
+                 "ef_encode_rows_uniform": ("K", "ef_encode_uniform_launches"),
+                 "decode_rows_log": ("K", "decode_log_launches"),
+                 "decode_rows_uniform": ("K", "decode_uniform_launches"),
+                 "adam_moments": ("A", "moments_launches")}
+# the Alg 2+3 == Alg 1 gate's steps, and its Q_x threshold: above the
+# (8, 4096) norm leaves, whose weights (1.0) lie past the absolute grid's
+# 0.5, where Alg 1's residency codes reach +128 and the wire clips to +127
+EQ_STEPS, EQ_MIN_NUMEL = 4, 2 ** 16
+LOSS_RTOL, PARAM_REL_L2 = 2.3e-4, 4e-6   # the reference's own drift
+
+
+def _wire_kernel_ms(by_kernel):
+    """Device ms per step of K7 and K6 by kind (template <bits, kind>,
+    kind 0 log, 1 uniform), and of NCCL's kernels."""
+    import re
+    out = {}
+    for name, t in by_kernel:
+        m = re.search(r"(ef_encode|decode)_kernel<(\d+), ?(\d)>", name)
+        if m:
+            key = f"{m.group(1)}_{'log' if m.group(3) == '0' else 'uniform'}"
+            out[key] = out.get(key, 0.0) + t
+        elif "nccl" in name.lower():
+            out["nccl"] = out.get("nccl", 0.0) + t
+    return out
+
+
+def dist_train(torch, dev, mods):
+    import gc
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.qadam import (QAdamConfig, QAdamState, _alpha_t,
+                                        _theta_t, apply_updates, qadam)
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.modes import WorkerCtx, get_mode
+    from repro_torch.dist.step import TrainConfig, _leaf_meta, make_train_step
+    from repro_torch.launch.mesh import (close_process_group,
+                                         make_process_group)
+    from repro_torch.models.model import Model
+    from repro_torch.opt import engine
+    from repro_torch.train.loop import comm_bytes_per_step
+    from repro_torch.train.session import (SessionConfig, TrainSession,
+                                           stage_batch)
+    from repro_torch.tree import tree_leaves, tree_map
+    K, A = mods["K"], mods["A"]
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=TRAIN_LAYERS)
+    model = Model(cfg)
+    tc = TrainConfig(**DIST_TC)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    group = make_process_group("cuda")    # one NCCL rank, a local store
+    res = {"backend": dist.get_backend(group),
+           "world_size": dist.get_world_size(group)}
+    if res["backend"] != "nccl" or res["world_size"] != 1:
+        raise AssertionError(f"expected one NCCL rank: {res}")
+    try:
+        art = make_train_step(model, group, tc)
+        comm = comm_bytes_per_step(art, tc)
+        torch.cuda.reset_peak_memory_stats()
+        # the main path, with every count at 0 just before it
+        for mod, attr in DIST_COUNTERS.values():
+            setattr(mods[mod], attr, 0)
+        K.amax_launches = K.plain_on_cuda = A.plain_on_cuda = 0
+        sess = TrainSession.from_artifacts(
+            art, batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+            SessionConfig(log_every=TRAIN_STEPS), seed=0, device=dev,
+            log=lambda *_: None)
+        w = run_watched(torch, sess, TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        launches = {name: getattr(mods[mod], attr)
+                    for name, (mod, attr) in DIST_COUNTERS.items()}
+        res.update(launches=launches, amax_launches=K.amax_launches)
+        check_run(w, dict(sess.stats), launches,
+                  K.plain_on_cuda + A.plain_on_cuda, "distributed",
+                  TRAIN_STEPS)
+        res.update(losses=w["losses"], stats=dict(sess.stats),
+                   syncs_at_step_starts=w["starts"],
+                   syncs_by_harvest=w["harvests"], sync_warnings=w["syncs"],
+                   sync_messages=w["messages"], run_s=w["run_s"],
+                   peak_bytes=peak, comm=comm)
+
+        # wall time per steady step, the device's share by kernel
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.run(3)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+        dev_ms, by_kernel = profile_ms(torch, lambda: sess.run(1), steps=2)
+        res.update(step_wall_ms=wall_ms, step_device_ms=dev_ms,
+                   device_idle=1 - dev_ms / wall_ms,
+                   tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / wall_ms * 1e3,
+                   step_kernels=by_kernel[:20],
+                   wire_kernels_ms=_wire_kernel_ms(by_kernel),
+                   update_kernel_ms=sum(t for k, t in by_kernel
+                                        if "adam_moments_kernel" in k))
+
+        # device time by phase (CUDA events at the step's marks; the
+        # update's marks alternate per leaf), one warm step then one
+        events = []
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((name, ev))
+
+        program_step = sess._program.step
+
+        def marked_step(state, batch):
+            mark("start")
+            return art.step_fn(state, batch, mark=mark)
+        sess._program.step = marked_step
+        try:
+            sess.run(1)
+            events.clear()
+            sess.run(1)
+        finally:
+            sess._program.step = program_step
+        events[-1][1].synchronize()
+        phases = {"broadcast": 0.0, "forward_backward": 0.0,
+                  "update_exchange": 0.0, "master_update": 0.0}
+        for (_, a), (name, b) in zip(events, events[1:]):
+            phases[name] += a.elapsed_time(b)
+        res["phases_ms"] = phases
+
+        # the bytes the collectives move in one step against the
+        # accounting (scale gathers, 0-d, excluded)
+        moved = {"exchange": 0, "broadcast": 0}
+        exchange, gather = C.exchange_rows, C.gather_rows
+
+        def count_exchange(rows, grp):
+            moved["exchange"] += rows.nbytes
+            return exchange(rows, grp)
+
+        def count_gather(x, grp):
+            out = gather(x, grp)
+            if x.dim():
+                moved["broadcast"] += out.nbytes
+            return out
+        C.exchange_rows, C.gather_rows = count_exchange, count_gather
+        try:
+            sess.run(1)
+        finally:
+            C.exchange_rows, C.gather_rows = exchange, gather
+        res["moved_bytes"] = dict(moved)
+        if (moved["exchange"], moved["broadcast"]) != (
+                comm["update_exchange_bytes"], comm["weight_broadcast_bytes"]):
+            raise AssertionError(f"collectives moved {moved}, accounting "
+                                 f"says {comm}")
+
+        # one update on captured gradients from the trained state: the
+        # step's updater through the kernels, through the plain versions,
+        # and Algorithm 1's qadam.update, each on its own copy, bitwise
+        state = sess.state
+        def leaves_of(tree):     # in the layout's order
+            return tree_leaves(tree_map(lambda _, x: x, art.layout.shapes,
+                                        tree))
+        masters, ms_, vs_, es_ = (leaves_of(state[k])
+                                  for k in ("master", "m", "v", "e"))
+        res["state_bytes"] = sum(x.numel() * 4 for x in
+                                 masters + ms_ + vs_ + es_)
+        res["n_params"] = sum(x.numel() for x in masters)
+        batch = stage_batch(next(batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                                 seed=1)), dev)
+        xs = art.broadcast(state)
+        _, grads = art.loss_and_grads(xs, batch)
+        del xs
+        metas = tree_leaves(_leaf_meta(art.layout, 1))
+        mode = get_mode(tc.mode)
+        upd = {b: mode.make_updater(
+            dataclasses.replace(tc, backend=b), WorkerCtx(
+                group=group, n_workers=1, backend=b, tiers=art.tiers))
+            for b in ("cuda", "torch")}
+        qcfg = QAdamConfig(alpha=tc.alpha, beta=tc.beta, theta=tc.theta,
+                           eps=tc.eps, grad_q=f"log:{tc.grad_k}")
+        t = state["count"] + 1
+        hp = engine.hyperparams(_alpha_t(qcfg, t), tc.beta,
+                                _theta_t(qcfg, t), tc.eps, dev)
+        for i, meta in enumerate(metas):
+            g = grads[i].reshape(-1)
+            grads[i] = None
+            new = {}
+            for b in ("cuda", "torch"):
+                copy = [x.clone() for x in (masters[i], ms_[i], vs_[i],
+                                            es_[i])]
+                upd[b](g, copy[1], copy[2], copy[3], copy[0], meta, hp)
+                new[b] = copy
+                if b == "torch":
+                    if not all(bits_equal(torch, x, y)
+                               for x, y in zip(new["cuda"], copy)):
+                        raise AssertionError(
+                            f"captured-gradient update through the kernels "
+                            f"differs from the plain versions (leaf "
+                            f"{meta.shape})")
+                    del new["torch"], copy
+            sub = QAdamState(count=state["count"],
+                             m={"x": ms_[i].clone()}, v={"x": vs_[i].clone()},
+                             e={"x": es_[i].clone()})
+            u, s2 = qadam(qcfg).update({"x": g}, sub)
+            ref = (apply_updates({"x": masters[i]}, u)["x"], s2.m["x"],
+                   s2.v["x"], s2.e["x"])
+            if not all(bits_equal(torch, x, y)
+                       for x, y in zip(new["cuda"], ref)):
+                raise AssertionError(f"captured-gradient update of Alg 2+3 "
+                                     f"differs from Algorithm 1's (leaf "
+                                     f"{meta.shape})")
+            del new, sub, u, s2, ref, g
+        del grads, state, masters, ms_, vs_, es_
+        sess.close()
+        del sess, art
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["equivalence"] = equivalence(torch, dev, group, model, cfg)
+    finally:
+        close_process_group()
+    return res
+
+
+def equivalence(torch, dev, group, model, cfg):
+    """Algorithms 2+3 at one worker against Algorithm 1 (the reference's
+    own bar, tests/test_dist_step.py): the distributed step and the
+    slice-2 session (qadam, weight_q="uniform:7") from the same
+    initialization and batches, EQ_STEPS steps each, with torch's
+    deterministic algorithms. Bitwise losses and parameters; where they
+    differ, the reference's drift (losses rel LOSS_RTOL, parameters rel
+    L2 PARAM_REL_L2) with the nondeterministic operations torch names."""
+    import gc
+    import warnings
+    import torch.utils.deterministic as det
+    from repro_torch.core.qadam import QAdamConfig, qadam
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.dist.step import TrainConfig, make_train_step
+    from repro_torch.train.session import SessionConfig, TrainSession
+    from repro_torch.tree import tree_leaves, tree_map
+    fill = det.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tc = TrainConfig(**DIST_TC, weight_q_min_numel=EQ_MIN_NUMEL)
+            art = make_train_step(model, group, tc)
+            sess = TrainSession.from_artifacts(
+                art, batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+                SessionConfig(log_every=1), seed=0, device=dev,
+                log=lambda *_: None)
+            sess.run(EQ_STEPS)
+            dist_losses = [h["loss"] for h in sess.history]
+            dist_params = [x.cpu() for x in tree_leaves(tree_map(
+                lambda _, x: x, art.layout.shapes, sess.state["master"]))]
+            sess.close()
+            del sess, art
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            def loss_fn(p, b):
+                ls, nt = model.loss(p, b)
+                return ls / nt
+            opt = qadam(QAdamConfig(
+                alpha=DIST_TC["alpha"], beta=DIST_TC["beta"],
+                theta=DIST_TC["theta"], grad_q=f"log:{DIST_TC['grad_k']}",
+                weight_q=f"uniform:{DIST_TC['weight_k']}",
+                weight_q_min_numel=EQ_MIN_NUMEL))
+            ref = TrainSession.from_optimizer(
+                opt, loss_fn, model.init(seed=0, device=dev),
+                batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+                SessionConfig(log_every=1), log=lambda *_: None)
+            ref.run(EQ_STEPS)
+            ref_losses = [h["loss"] for h in ref.history]
+            bitwise = dist_losses == ref_losses
+            num = den = 0.0
+            for a, b in zip(dist_params, tree_leaves(ref.state["params"])):
+                a = a.to(dev)
+                b = b.reshape(-1)
+                bitwise = bitwise and bits_equal(torch, a, b)
+                num += float(((a.double() - b.double()) ** 2).sum())
+                den += float((b.double() ** 2).sum())
+                del a
+            ref.close()
+            del ref, dist_params
+        nondet = sorted({str(w.message)[:200] for w in caught
+                         if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+        det.fill_uninitialized_memory = fill
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(dist_losses,
+                                                        ref_losses))
+    out = dict(bitwise=bitwise, steps=EQ_STEPS, min_numel=EQ_MIN_NUMEL,
+               dist_losses=dist_losses, alg1_losses=ref_losses,
+               loss_rel=loss_rel, param_rel_l2=(num / den) ** 0.5,
+               nondeterministic=nondet)
+    if not bitwise and not (loss_rel <= LOSS_RTOL and
+                            out["param_rel_l2"] <= PARAM_REL_L2):
+        raise AssertionError(f"Alg 2+3 at one worker vs Algorithm 1: {out}")
+    if not bitwise and not nondet:
+        raise AssertionError(f"Alg 2+3 vs Algorithm 1 not bitwise, and torch "
+                             f"names no nondeterministic operation: {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -953,6 +1431,14 @@ def main() -> int:
               f"{K1_FLOOR:g}){fault}", flush=True)
 
     t_rows, t_table = check_training_kernels(torch, dev)
+    w_rows, w_table, w_cases = check_wire_kernels(torch, dev)
+    print(f"wire kernels K7 K6 bitwise against their plain versions "
+          f"({w_cases} cases and the w_gate stack)", flush=True)
+    for t in w_table:
+        print(f"  {t['name']} {t['spec']} {t['input']} {t['shape']}: "
+              f"{t['ms']:.4f} ms ({t['gbs']:.0f} GB/s) plain "
+              f"{t['plain_ms']:.4f} bound {t['bound_ms']:.4f} "
+              f"({t['bound_by']})", flush=True)
     print("training kernels K15 K16 K11 K12, and K3 K4 at the Q_x round "
           "trip's whole-leaf shapes, bitwise against their plain versions",
           flush=True)
@@ -967,11 +1453,13 @@ def main() -> int:
 
     res = serve(torch, dev, {"MM": MM, "paged": paged, "K": K})
     tr = train(torch, dev, {"K": K, "A": A})
-    rows += t_rows
+    ds = dist_train(torch, dev, {"K": K, "A": A})
+    rows += t_rows + w_rows
     for r in rows:
         by_path = {"serve": res["launches"].get(r["name"], 0),
-                   "train": tr["launches"].get(r["name"], 0)}
-        r["launches"] = by_path["serve"] + by_path["train"]
+                   "train": tr["launches"].get(r["name"], 0),
+                   "dist": ds["launches"].get(r["name"], 0)}
+        r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
     print(f"served {res['tokens']} tokens in {res['serve_s']:.3f} s "
           f"({res['tok_per_s']:.2f} tok/s); decode step "
@@ -1011,12 +1499,45 @@ def main() -> int:
     print("train step phases (CUDA events): " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in tr["phases_ms"].items()), flush=True)
 
+    print(f"distributed (Algorithms 2+3, {ds['world_size']} "
+          f"{ds['backend']} rank): losses "
+          f"{', '.join(f'{x:.4f}' for x in ds['losses'])}; {TRAIN_STEPS} "
+          f"steps in {ds['run_s']:.3f} s; stats {ds['stats']}; sync-debug "
+          f"warnings {ds['sync_warnings']} (at step starts "
+          f"{ds['syncs_at_step_starts']}, by harvest "
+          f"{ds['syncs_by_harvest']}); launches {ds['launches']} (K3 "
+          f"{ds['amax_launches']})", flush=True)
+    c = ds["comm"]
+    print(f"dist step: wall {ds['step_wall_ms']:.3f} ms, device "
+          f"{ds['step_device_ms']:.3f} ms (device idle "
+          f"{ds['device_idle']:.1%}), {ds['tokens_per_s']:.1f} tok/s; "
+          f"phases " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                 ds["phases_ms"].items())
+          + f"; wire kernels ms/step {ds['wire_kernels_ms']}; K15 "
+          f"{ds['update_kernel_ms']:.3f} ms; peak {ds['peak_bytes']} B; "
+          f"state {ds['state_bytes']} B ({ds['n_params']} parameters); "
+          f"comm/step exchange {c['update_exchange_bytes']} B broadcast "
+          f"{c['weight_broadcast_bytes']} B (moved {ds['moved_bytes']}); "
+          f"the broadcast residual K7 writes and the step drops: "
+          f"{4 * ds['n_params']} B; by kernel:", flush=True)
+    for name, t in ds["step_kernels"]:
+        print(f"  {t:9.4f} ms  {name[:90]}")
+    eq = ds["equivalence"]
+    print(f"Alg 2+3 at one worker vs Algorithm 1 ({eq['steps']} steps, Q_x "
+          f"from {eq['min_numel']} elements): bitwise {eq['bitwise']}; "
+          f"losses {eq['dist_losses']} vs {eq['alg1_losses']} (rel "
+          f"{eq['loss_rel']:.3e}), parameters rel L2 "
+          f"{eq['param_rel_l2']:.3e}; nondeterministic operations "
+          f"{eq['nondeterministic']}; captured-gradient update bitwise "
+          f"(kernels, plain versions, Algorithm 1)", flush=True)
+
     out_dir = os.path.join(HERE, "results")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump(dict(card=card, kernels=rows, k1_cases=mm_table,
                        k1_noise=mm_noise, k1_timed=mm_timed, serve=res,
-                       train_kernels=t_table, train=tr), fh, indent=1)
+                       train_kernels=t_table, train=tr,
+                       wire_kernels=w_table, dist=ds), fh, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

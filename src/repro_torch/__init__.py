@@ -4,15 +4,23 @@ The JAX package ``repro`` is the reference; this package mirrors its
 module layout so every part has one counterpart to be held against.
 It imports ``torch`` and numpy only, never ``jax`` or ``repro``.
 
-The ported slice is code-resident quantized serving: ``Model`` (dense
-GQA decoder), ``quantize_params`` (int codes + per-layer amax scales),
-``ServeSession`` (slots, paged KV cache, chunked prefill, SLO
-preemption) and the four hand-written Hopper kernels under ``csrc/``:
+Three slices are ported, each through its entry point:
 
-  * ``comm.matmul.dequant_matmul``   - fused dequant-matmul from codes;
-  * ``serve.paged.gather_pages``     - page-table gather of the KV pool;
-  * ``comm.kernels.amax_rows``       - per-row max|x|;
-  * ``comm.kernels.uniform_quantize_rows`` - uniform Q_x codes.
+  * serving (``launch.serve``): code-resident Q_x weights
+    (``quantize_params``) behind a paged, chunked-prefill
+    ``ServeSession``;
+  * single-machine training, Algorithm 1 (``core.qadam`` +
+    ``TrainSession.from_optimizer``);
+  * distributed training, Algorithms 2+3 (``launch.train``:
+    ``dist.step.make_train_step`` on a ``torch.distributed`` group +
+    ``TrainSession.from_artifacts``), the paper's ``qadam`` mode on the
+    flat topology.
+
+Their ten hand-written Hopper kernels live under ``csrc/`` (K1
+dequant-matmul, K2 page gather, K3 amax, K4 uniform quantize, K6 wire
+decode, K7 wire EF encode, K11 log dequantize, K12 uniform dequantize,
+K15 Adam+EF moments, K16 EF quantize), each beside its plain PyTorch
+version and a launch counter; ``PERF.md`` has the table.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on CPU tensors every kernel wrapper runs its plain PyTorch version.

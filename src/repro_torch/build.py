@@ -8,8 +8,10 @@ sources and flags, so a checkout builds it on first use and reuses it
 after. Nothing here runs at import time.
 
 Flags keep IEEE division, square root and rounding (no
-``--use_fast_math``): the quantize, dequantize, Adam+EF and gather
-kernels are held bitwise against their plain versions.
+``--use_fast_math``): the quantize, dequantize, Adam+EF, wire codec
+and gather kernels are held bitwise against their plain versions. The
+grids and lanes they share live in ``csrc/grids.cuh``, which the hash
+covers.
 """
 from __future__ import annotations
 
@@ -53,6 +55,13 @@ SIGNATURES = {
     "rt_log_dequantize": [_P, _P, _P, _I, _P, _L, _P],
     # codes, scale, out, rows, n, k_x, code_bytes, stream
     "rt_uniform_dequantize_rows": [_P, _P, _P, _I, _L, _I, _I, _P],
+    # x, scale, payload, e_out, n, n_rows, c, row_bytes, kind, bits, k,
+    # clip_abs, stream
+    "rt_ef_encode_rows": [_P, _P, _P, _P, _L, _I, _L, _L, _I, _I, _I, _I,
+                          _P],
+    # payload, scales, table, half, out, out_n, n_rows, c, row_bytes, kind,
+    # bits, k, stream
+    "rt_decode_rows": [_P, _P, _P, _I, _P, _L, _I, _L, _L, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,8 +1,12 @@
-"""Backend policy and the two grid codecs, log Q_g and uniform Q_x (port
-of the parts of ``repro/comm/codec.py`` that serving and the
-single-machine optimizer need: scales, quantize, dequantize and lane
-widths; the wire encode/decode, ``WireBuffer`` and the spec registry wait
-for the distributed slice, ROADMAP queue 1).
+"""Backend policy, the codecs and the wire's row entry points (port of
+``repro/comm/codec.py``): the log Q_g and uniform Q_x grids (scales,
+quantize, dequantize, lane widths), the f32 identity codec, exact byte
+accounting (``payload_nbytes``, ``wire_nbytes``), the spec registry
+(``get_codec``) and the worker-ownership rows of Algorithm 2
+(``encode_rows_ef``, K7; ``decode_rows``, K6), whose payloads are byte
+for byte the reference's. ``WireBuffer``, ``Codec.encode``/``decode``
+and ``encode_rows`` need the fused amax encode (#5 in ``PERF.md``) and
+raise until it is ported (ROADMAP.md queue 2).
 
 Backends: ``"torch"`` is the plain PyTorch version of a kernel (what the
 CPU tests run, and the yardstick a kernel is held against on the card);
@@ -47,17 +51,64 @@ def _amax_scale(x: torch.Tensor, backend: Optional[str]) -> torch.Tensor:
     return engine.amax_scale(amax[0])
 
 
+_NOT_PORTED = ("needs the fused amax encode (comm/kernels.py:203 "
+               "encode_pallas, #5), not ported yet (ROADMAP.md queue 2); "
+               "the distributed step's wire runs encode_rows_ef and "
+               "decode_rows")
+
+
+class _Codec:
+    """Byte accounting shared by the codecs: ``payload_nbytes`` counts
+    the packed codes (what the collectives move), ``wire_nbytes`` adds
+    the float32 scale side-channel."""
+
+    stochastic = False
+
+    def scale_numel(self, numel: int) -> int:
+        return 1
+
+    def payload_nbytes(self, numel: int) -> int:
+        return B.payload_nbytes(numel, self.bits)
+
+    def wire_nbytes(self, numel: int) -> int:
+        return self.payload_nbytes(numel) + 4 * self.scale_numel(numel)
+
+    def dequant_lut(self):
+        """Scale-1 dequant table by lane code, or None where dequant is a
+        single multiply."""
+        return None
+
+    def encode(self, x, *, key=None, backend=None):
+        raise NotImplementedError(f"Codec.encode {_NOT_PORTED}")
+
+    def decode(self, wb, *, backend=None, out_dtype=None):
+        raise NotImplementedError(f"Codec.decode {_NOT_PORTED}")
+
+
 @dataclasses.dataclass(frozen=True)
-class LogCodec:
+class LogCodec(_Codec):
     """The paper's Q_g: log grid, per-tensor amax scale. Codes live in
     [-(k_g+1), k_g+1] and pack to the smallest lane holding them."""
 
     k_g: int = 6
+    name = "log"
     kind = "log"
+    clip_abs = None
+
+    @property
+    def spec(self) -> str:
+        return f"log:{self.k_g}"
 
     @property
     def bits(self) -> int:
         return B.lane_bits_for(self.k_g + 1)
+
+    @property
+    def k(self) -> int:
+        return self.k_g
+
+    def dequant_lut(self):
+        return grids.log_dequant_table(self.k_g, self.bits)
 
     def compute_scale(self, x: torch.Tensor,
                       backend: Optional[str] = None) -> torch.Tensor:
@@ -82,18 +133,40 @@ class LogCodec:
 
 
 @dataclasses.dataclass(frozen=True)
-class UniformCodec:
+class UniformCodec(_Codec):
     """The paper's Q_x: uniform grid over [-scale, scale] (``absolute``:
     scale = 0.5, else a per-tensor amax scale). Codes reach +/- 2^k_x and
-    pack exactly into the next lane up, the residency lane."""
+    by default pack exactly into the next lane up, the residency lane.
+    ``wire_bits`` pins a narrower lane and clips the extreme codes into
+    it (see :func:`uniform_wire_codec`)."""
 
     k_x: int = 7
     absolute: bool = True
+    wire_bits: Optional[int] = None
+    name = "uniform"
     kind = "uniform"
+
+    def __post_init__(self):
+        if self.wire_bits is not None and \
+                self.wire_bits not in B.SUPPORTED_BITS:
+            raise ValueError(f"wire_bits={self.wire_bits} not in "
+                             f"{B.SUPPORTED_BITS}")
+
+    @property
+    def spec(self) -> str:
+        base = "uniform" if self.absolute else "uniform_amax"
+        suffix = f":w{self.wire_bits}" if self.wire_bits else ""
+        return f"{base}:{self.k_x}{suffix}"
 
     @property
     def bits(self) -> int:
+        if self.wire_bits is not None:
+            return self.wire_bits
         return B.lane_bits_for(2 ** self.k_x)
+
+    @property
+    def k(self) -> int:
+        return self.k_x
 
     @property
     def clip_abs(self) -> Optional[int]:
@@ -110,11 +183,14 @@ class UniformCodec:
 
     def quantize(self, x: torch.Tensor, scale: torch.Tensor,
                  backend: Optional[str] = None) -> torch.Tensor:
-        """Codes of the whole tensor against one scale (K4)."""
+        """Codes of the whole tensor against one scale (K4), clipped to
+        the lane where it clips."""
         from repro_torch.comm import kernels as K
         codes = K.uniform_quantize_rows(
             x.to(torch.float32).reshape(1, -1), scale.reshape(1), self.k_x,
             backend=backend)
+        if self.clip_abs is not None:
+            codes = torch.clamp(codes, -self.clip_abs, self.clip_abs)
         return codes.reshape(x.shape)
 
     def dequantize(self, codes: torch.Tensor, scale: torch.Tensor,
@@ -122,3 +198,105 @@ class UniformCodec:
         from repro_torch.opt import engine
         return engine.dequantize_uniform(codes, scale, self.k_x,
                                          backend=backend)
+
+
+def uniform_wire_codec(k_x: int, absolute: bool = True) -> UniformCodec:
+    """The weight-broadcast wire's Q_x lanes: the smallest lane whose
+    clipped range loses only the two extreme codes (+/- 2^k_x -> the lane
+    edge): k_x = 7 rides 8-bit lanes at +/-127, k_x = 3 4-bit lanes."""
+    return UniformCodec(k_x=k_x, absolute=absolute,
+                        wire_bits=B.lane_bits_for(2 ** k_x - 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class IdentityCodec(_Codec):
+    """No compression: the payload is the float32 bytes (4 per element),
+    no scale."""
+
+    name = "identity"
+    kind = "identity"
+    clip_abs = None
+    spec = "identity"
+    bits = 32
+
+    def scale_numel(self, numel: int) -> int:
+        return 0
+
+    def payload_nbytes(self, numel: int) -> int:
+        return 4 * int(numel)
+
+
+class WireBuffer:
+    """The reference's packed single-tensor buffer; it comes with the
+    fused amax encode."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(f"WireBuffer {_NOT_PORTED}")
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+def get_codec(spec: Optional[str]):
+    """Parse a codec spec string (the reference's grammar): 'none',
+    'log:k', 'uniform:k', 'uniform_amax:k'; a trailing ':wire' or ':wN'
+    on the uniform specs selects the clipped wire lanes. The baselines'
+    'terngrad' and 'blockwise:b' are not ported yet."""
+    if spec is None or spec in ("none", "identity", "fp32"):
+        return IdentityCodec()
+    parts = spec.split(":")
+    head, args = parts[0], parts[1:]
+    wire_bits = None
+    if "wire" in args:
+        args.remove("wire")
+        wire_bits = "wire"
+    for a in list(args):
+        if a.startswith("w") and a[1:].isdigit():
+            wire_bits = int(a[1:])
+            args.remove(a)
+    arg = args[0] if args else ""
+    if head == "log":
+        return LogCodec(k_g=int(arg or 6))
+    if head in ("uniform", "uniform_amax"):
+        k_x = int(arg or 7)
+        absolute = head == "uniform"
+        if wire_bits == "wire":
+            return uniform_wire_codec(k_x, absolute)
+        return UniformCodec(k_x=k_x, absolute=absolute, wire_bits=wire_bits)
+    if head in ("terngrad", "ternary", "blockwise"):
+        raise NotImplementedError(
+            f"codec {spec!r} is not ported yet: its kernels (#13, #14, #8) "
+            "are queued in ROADMAP.md")
+    raise ValueError(f"unknown codec spec: {spec}")
+
+
+# ---------------------------------------------------------------------------
+# row-chunked wire entry points (the layout the collectives move)
+# ---------------------------------------------------------------------------
+
+def encode_rows(x, codec, n_rows, *, key=None, backend=None):
+    raise NotImplementedError(f"encode_rows {_NOT_PORTED}")
+
+
+def encode_rows_ef(x: torch.Tensor, scale: torch.Tensor, codec,
+                   n_rows: int, *, backend: Optional[str] = None, out=None):
+    """Fused encode + error feedback (K7): flat x -> (payload rows
+    ``(n_rows, codec.payload_nbytes(c))`` uint8, residual
+    ``e' = x - deq(codes)`` in x's shape, into ``out`` when given). The
+    scale arrives from the caller (the Adam moment pass, or the weight
+    codec's); the codes are never written unpacked."""
+    from repro_torch.comm import kernels as K
+    return K.ef_encode_rows(x, scale, codec, n_rows, backend=backend,
+                            out=out)
+
+
+def decode_rows(payload_rows: torch.Tensor, scales: torch.Tensor, codec,
+                c: int, *, backend: Optional[str] = None,
+                out=None) -> torch.Tensor:
+    """Fused decode of received payload rows (K6): ``(n_rows, nbytes)``
+    uint8 + per-source-row scales -> ``(n_rows, c)`` float32 values, or
+    the first ``out.numel()`` of them written into ``out``."""
+    from repro_torch.comm import kernels as K
+    return K.decode_rows(payload_rows, scales, codec, c, backend=backend,
+                         out=out)

@@ -1,15 +1,20 @@
 """K3 per-row amax, K4 per-row uniform quantize, K12 per-row uniform
 dequantize and K11 log-grid dequantize: the Q_x passes behind
 ``quantize_params`` and the training forward copy, and the Q_g decode of
-the update.
+the update. K7 fused EF encode and K6 fused decode: the wire of the
+distributed step (both channels).
 
 Replace ``repro/comm/kernels.py`` ``amax_pallas``,
-``uniform_quantize_pallas``, ``uniform_dequantize_pallas`` and
-``log_dequantize_pallas``. The kernels live in ``csrc/quantize.cu`` and
-``csrc/dequantize.cu`` (design notes there): all are bound by bytes. One
+``uniform_quantize_pallas``, ``uniform_dequantize_pallas``,
+``log_dequantize_pallas``, ``ef_encode_pallas`` and ``decode_pallas``.
+The kernels live in ``csrc/quantize.cu``, ``csrc/dequantize.cu`` and
+``csrc/codec.cu`` (design notes there): all are bound by bytes. One
 launch covers every row of a ``(rows, n)`` view, so a stacked
 ``(L, ...)`` leaf gets its L per-layer scales (the reference's vmap over
 layers) in one launch, and a whole leaf its one scale with rows = 1.
+K7 and K6 work in the flat per-row lane layout of ``comm/bits.py``
+``pack_rows``/``unpack_rows`` (the wire contract), not the reference's
+VMEM tiling.
 
 Beside each kernel: its plain PyTorch version, which a wrapper runs only
 for CPU tensors or when asked with ``backend="torch"``, and plain-int
@@ -30,6 +35,10 @@ amax_launches = 0          # K3 kernel launches
 quantize_launches = 0      # K4 kernel launches
 dequantize_launches = 0    # K12 kernel launches
 log_dequantize_launches = 0  # K11 kernel launches
+ef_encode_log_launches = 0       # K7 kernel launches, log codes
+ef_encode_uniform_launches = 0   # K7 kernel launches, uniform codes
+decode_log_launches = 0          # K6 kernel launches, log codes
+decode_uniform_launches = 0      # K6 kernel launches, uniform codes
 plain_on_cuda = 0          # plain versions run on CUDA tensors
 
 
@@ -182,3 +191,160 @@ def log_dequantize(codes: torch.Tensor, scale: torch.Tensor, k_g: int,
         return _log_dequantize_cuda(codes, scale, k_g)
     plain_on_cuda += codes.is_cuda
     return grids.log_dequantize(codes, scale.reshape(()), k_g)
+
+
+# ---------------------------------------------------------------------------
+# K7 fused EF encode and K6 fused decode (the wire, csrc/codec.cu)
+# ---------------------------------------------------------------------------
+
+_KINDS = {"log": 0, "uniform": 1}
+
+
+def _check_wire_codec(codec) -> None:
+    if codec.kind not in _KINDS:
+        raise ValueError(f"the wire kernels take log and uniform codecs, "
+                         f"got {codec.kind!r}")
+    if codec.bits not in B.SUPPORTED_BITS:
+        raise ValueError(f"lane width {codec.bits} not in "
+                         f"{B.SUPPORTED_BITS}")
+
+
+def _wire_quantize(codec, x, scale):
+    """The codec's codes of float32 x against ``scale`` (broadcasting),
+    clipped to its lane where it clips (the reference's ``_quant``)."""
+    if codec.kind == "log":
+        return grids.log_quantize(x, scale, codec.k)
+    codes = grids.uniform_quantize(x, scale, codec.k)
+    if codec.clip_abs is not None:
+        codes = torch.clamp(codes, -codec.clip_abs, codec.clip_abs)
+    return codes
+
+
+def _wire_dequantize(codec, codes, scale):
+    if codec.kind == "log":
+        return grids.log_dequantize(codes, scale, codec.k)
+    return grids.uniform_dequantize(codes, scale, codec.k)
+
+
+def _ef_encode_rows_torch(flat, scale, codec, n_rows):
+    s = scale.reshape(())
+    codes = _wire_quantize(codec, flat, s)
+    e_new = flat - _wire_dequantize(codec, codes, s)
+    return B.pack_rows(B.pad_rows(codes, n_rows), codec.bits), e_new
+
+
+def _ef_encode_rows_cuda(flat, scale, codec, n_rows, e_new):
+    global ef_encode_log_launches, ef_encode_uniform_launches
+    lib = build.library()
+    n = flat.numel()
+    c = -(-n // n_rows)
+    row_bytes = B.payload_nbytes(c, codec.bits)
+    scale = scale.reshape(1).contiguous()
+    payload = torch.empty((n_rows, row_bytes), dtype=torch.uint8,
+                          device=flat.device)
+    clip = codec.clip_abs if codec.kind == "uniform" else None
+    err = lib.rt_ef_encode_rows(
+        build.ptr(flat), build.ptr(scale), build.ptr(payload),
+        build.ptr(e_new), n, n_rows, c, row_bytes, _KINDS[codec.kind],
+        codec.bits, codec.k, clip or 0, build.stream_ptr(flat.device))
+    build.check(err, "ef_encode_rows")
+    if codec.kind == "log":
+        ef_encode_log_launches += 1
+    else:
+        ef_encode_uniform_launches += 1
+    return payload
+
+
+def ef_encode_rows(x: torch.Tensor, scale: torch.Tensor, codec,
+                   n_rows: int, backend: Optional[str] = None, out=None):
+    """K7: quantize x (float32, any shape, read flat) against one scale
+    (a 1-element float32 tensor on x's device) with a log or uniform
+    codec, pack the codes into ``n_rows`` worker-ownership rows of
+    ``ceil(numel / n_rows)`` elements (zero codes past the end) and keep
+    the residual. Returns ``(payload (n_rows, codec.payload_nbytes(c))
+    uint8, e' = x - deq(codes))``, e' in x's shape, written into ``out``
+    when given (it may be x itself)."""
+    global plain_on_cuda
+    _check_wire_codec(codec)
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"need a contiguous float32 tensor, got {x.dtype}")
+    if scale.numel() != 1 or scale.dtype != torch.float32:
+        raise ValueError("scale must be one float32 value")
+    if not 1 <= n_rows <= 65535 or x.numel() < 1:
+        raise ValueError(f"n_rows={n_rows} outside [1, 65535] or empty x")
+    if out is not None and (out.dtype != torch.float32 or
+                            out.shape != x.shape or
+                            not out.is_contiguous()):
+        raise ValueError("out must be a contiguous float32 tensor of x's "
+                         "shape")
+    flat = x.reshape(-1)
+    if resolve_backend(backend, x, scale) == "cuda":
+        e_new = out if out is not None else torch.empty_like(x)
+        payload = _ef_encode_rows_cuda(flat, scale, codec, n_rows,
+                                       e_new.reshape(-1))
+        return payload, e_new
+    plain_on_cuda += x.is_cuda
+    payload, e_new = _ef_encode_rows_torch(flat, scale, codec, n_rows)
+    e_new = e_new.reshape(x.shape)
+    return payload, (e_new if out is None else out.copy_(e_new))
+
+
+def _decode_rows_cuda(payload_rows, scales, codec, c, out):
+    global decode_log_launches, decode_uniform_launches
+    lib = build.library()
+    n_rows, row_bytes = payload_rows.shape
+    if codec.kind == "log":
+        table = _log_table(codec.k, payload_rows.device)
+        half = table.shape[0] // 2
+    else:
+        table, half = scales, 0      # not read by the uniform kind
+    err = lib.rt_decode_rows(
+        build.ptr(payload_rows), build.ptr(scales), build.ptr(table), half,
+        build.ptr(out), out.numel(), n_rows, c, row_bytes,
+        _KINDS[codec.kind], codec.bits, codec.k,
+        build.stream_ptr(payload_rows.device))
+    build.check(err, "decode_rows")
+    if codec.kind == "log":
+        decode_log_launches += 1
+    else:
+        decode_uniform_launches += 1
+    return out
+
+
+def decode_rows(payload_rows: torch.Tensor, scales: torch.Tensor, codec,
+                c: int, backend: Optional[str] = None, out=None):
+    """K6: unpack ``(n_rows, codec.payload_nbytes(c))`` uint8 payload
+    rows and dequantize row r against ``scales[r]`` ((n_rows,) float32,
+    each source worker's own scale). Returns ``(n_rows, c)`` float32, or
+    fills ``out`` (contiguous float32 of at most n_rows * c elements) with
+    the first ``out.numel()`` values in row-major order, dropping the
+    rows' padding, and returns it."""
+    global plain_on_cuda
+    _check_wire_codec(codec)
+    if payload_rows.dim() != 2 or payload_rows.dtype != torch.uint8:
+        raise ValueError(f"need (n_rows, nbytes) uint8 payload rows, got "
+                         f"{tuple(payload_rows.shape)} {payload_rows.dtype}")
+    n_rows, row_bytes = payload_rows.shape
+    if not 1 <= n_rows <= 65535 or c < 1 or \
+            row_bytes != B.payload_nbytes(c, codec.bits):
+        raise ValueError(f"payload rows {tuple(payload_rows.shape)} do not "
+                         f"hold {c} codes of {codec.bits} bits each")
+    if scales.shape != (n_rows,) or scales.dtype != torch.float32:
+        raise ValueError(f"scales must be ({n_rows},) float32")
+    if out is not None and (out.dtype != torch.float32 or
+                            not out.is_contiguous() or
+                            out.numel() > n_rows * c):
+        raise ValueError(f"out must be contiguous float32 of at most "
+                         f"{n_rows * c} elements")
+    if resolve_backend(backend, payload_rows, scales) == "cuda":
+        if out is None:
+            out = torch.empty((n_rows, c), dtype=torch.float32,
+                              device=payload_rows.device)
+        return _decode_rows_cuda(payload_rows.contiguous(),
+                                 scales.contiguous(), codec, c, out)
+    plain_on_cuda += payload_rows.is_cuda
+    codes = B.unpack_rows(payload_rows, codec.bits, c)
+    vals = _wire_dequantize(codec, codes, scales[:, None])
+    if out is None:
+        return vals
+    return out.copy_(vals.reshape(-1)[:out.numel()].reshape(out.shape))

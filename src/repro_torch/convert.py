@@ -50,3 +50,27 @@ def qadam_state_from_numpy(state, device="cuda") -> QAdamState:
                       m=params_from_numpy(state.m, device),
                       v=params_from_numpy(state.v, device),
                       e=params_from_numpy(state.e, device))
+
+
+def dist_state_from_numpy(state, rank: int, n_workers: int, device="cuda"):
+    """The reference's chunked distributed state (``master``, ``m``,
+    ``v``, ``e``: trees of arrays shaped ``worker_sizes + (1, X)``, and
+    ``count``), as numpy -> rank ``rank``'s state of
+    ``repro_torch.dist.step`` (flat float32 leaves, the count on the
+    host). One model shard only, as the port's step."""
+    def leaf(a):
+        a = np.asarray(a)
+        if a.size % n_workers:
+            raise ValueError(f"a state leaf of shape {a.shape} does not "
+                             f"split over {n_workers} workers")
+        rows = a.reshape(n_workers, -1)
+        return _tensor(rows[rank], device).to(torch.float32)
+
+    def tree(t):
+        if isinstance(t, dict):
+            return {k: tree(v) for k, v in t.items()}
+        return leaf(t)
+
+    return {"master": tree(state["master"]), "m": tree(state["m"]),
+            "v": tree(state["v"]), "e": tree(state["e"]),
+            "count": int(np.asarray(state["count"]))}

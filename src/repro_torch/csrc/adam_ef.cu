@@ -29,16 +29,15 @@
 // Design for both: grid-stride loops with 16-byte float4 loads where the
 // length and alignment allow (a scalar tail covers ragged lengths), at
 // most ~16 blocks per SM in flight.
-#include <cuda_runtime.h>
-#include <stdint.h>
+//
+// The log grid's code and level (rt::log_code, rt::log_level) live in
+// grids.cuh, shared with the wire's K7.
+#include "grids.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ unsigned int abs_bits(float v) {
-  return __float_as_uint(v) & 0x7fffffffu;
-}
+using rt::abs_bits;
+using rt::kThreads;
 
 struct Hyper {
   float alpha, beta, theta, eps, one_m_beta, one_m_theta;
@@ -125,47 +124,10 @@ __global__ void adam_moments_kernel(
   fold_amax(mx, amax_bits);
 }
 
-struct LogGrid {
-  float s;      // the scale as given (deq multiplies by it)
-  float s_div;  // max(s, 1e-30): the quantizer's divisor
-  float zero;   // 2^-(k+1)
-  float low_mid;  // 0.75 * 2^-(k-1), the smallest midpoint
-  int k;
-};
-
-__device__ __forceinline__ float pow2i(int e) {  // exact for -126 <= e <= 127
-  return __int_as_float((127 + e) << 23);
-}
-
-__device__ __forceinline__ int8_t log_code(float x, const LogGrid& q) {
-  const float y = __fdiv_rn(fabsf(x), q.s_div);
-  int mag;
-  if (x == 0.0f || y < q.zero) {
-    mag = 0;
-  } else if (y != y) {
-    mag = q.k > 0 ? q.k : 1;  // the reference's magnitude for a NaN y
-  } else {
-    mag = 1;
-    float t = q.low_mid;
-    for (int j = 1; j <= q.k; ++j) {  // midpoints ascending, exact doubling
-      mag += y >= t;
-      t = __fmul_rn(t, 2.0f);
-    }
-  }
-  return (int8_t)(x < 0.0f ? -mag : mag);
-}
-
-__device__ __forceinline__ float log_level(int c, int k) {
-  // sign(c) * 2^(|c|-k-1), 0 for c = 0: the grid's exact levels
-  if (c == 0) return 0.0f;
-  const float p = pow2i((c < 0 ? -c : c) - k - 1);
-  return c < 0 ? -p : p;
-}
-
-__device__ __forceinline__ void ef1(float x, const LogGrid& q, int8_t* c,
-                                    float* e_new) {
-  *c = log_code(x, q);
-  *e_new = __fsub_rn(x, __fmul_rn(log_level(*c, q.k), q.s));
+__device__ __forceinline__ void ef1(float x, const rt::LogGrid& q,
+                                    int8_t* c, float* e_new) {
+  *c = (int8_t)rt::log_code(x, q);
+  *e_new = __fsub_rn(x, __fmul_rn(rt::log_level(*c, q.k), q.s));
 }
 
 __global__ void ef_quantize_kernel(const float* __restrict__ de,
@@ -173,12 +135,7 @@ __global__ void ef_quantize_kernel(const float* __restrict__ de,
                                    int8_t* __restrict__ codes,
                                    float* __restrict__ e_out, long long n,
                                    int k, int vec4) {
-  LogGrid q;
-  q.s = scale[0];
-  q.s_div = q.s < 1e-30f ? 1e-30f : q.s;  // NaN passes through, as max()
-  q.k = k;
-  q.zero = pow2i(-(k + 1));
-  q.low_mid = __fmul_rn(0.75f, pow2i(1 - k));
+  const rt::LogGrid q = rt::make_log_grid(scale[0], k);
   const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
   long long done = 0;
@@ -209,9 +166,7 @@ __global__ void ef_quantize_kernel(const float* __restrict__ de,
 }
 
 unsigned int n_blocks(long long work) {
-  long long want = (work + kThreads - 1) / kThreads;
-  if (want > 2048) want = 2048;  // ~16 blocks per SM, grid-stride beyond
-  return (unsigned int)(want < 1 ? 1 : want);
+  return rt::blocks_per_row(work, 1);  // one flat row
 }
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }

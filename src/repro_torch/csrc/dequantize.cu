@@ -18,12 +18,12 @@
 // Design for both: grid-stride loops, 4 codes a thread (char4/short4 loads,
 // float4 stores) where the length and alignment allow, a scalar tail for
 // ragged lengths; K12 takes one grid row of blocks per tensor row.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "grids.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using rt::blocks_per_row;
+using rt::kThreads;
 constexpr int kMaxTable = 256;  // every int8 lane
 
 __global__ void log_dequantize_kernel(const int8_t* __restrict__ codes,
@@ -35,11 +35,7 @@ __global__ void log_dequantize_kernel(const int8_t* __restrict__ codes,
   for (int i = threadIdx.x; i < 2 * half; i += blockDim.x) tbl[i] = table[i];
   __syncthreads();
   const float s = scale[0];
-  const int top = 2 * half - 1;
-  auto deq = [&](int8_t c) {
-    const int idx = min(max((int)c + half, 0), top);
-    return __fmul_rn(tbl[idx], s);
-  };
+  auto deq = [&](int8_t c) { return rt::lut_level(tbl, half, c, s); };
   const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
   long long done = 0;
@@ -64,7 +60,7 @@ __global__ void uniform_dequantize_kernel(const CT* __restrict__ codes,
   const float s = scale[r];
   const CT* crow = codes + (long long)r * n;
   float* orow = out + (long long)r * n;
-  auto deq = [&](CT c) { return __fmul_rn(__fdiv_rn((float)c, pow2), s); };
+  auto deq = [&](CT c) { return rt::uniform_level((float)c, pow2, s); };
   const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
   long long done = 0;
@@ -78,13 +74,6 @@ __global__ void uniform_dequantize_kernel(const CT* __restrict__ codes,
     done = n4 * 4;
   }
   for (long long i = done + start; i < n; i += stride) orow[i] = deq(crow[i]);
-}
-
-unsigned int blocks_per_row(long long work, int rows) {
-  long long want = (work + kThreads - 1) / kThreads;
-  long long fill = (2048 + rows - 1) / rows;  // ~16 blocks per SM overall
-  if (want > fill) want = fill;
-  return (unsigned int)(want < 1 ? 1 : want);
 }
 
 }  // namespace

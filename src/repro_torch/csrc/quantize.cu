@@ -15,18 +15,16 @@
 // enough blocks per row to fill the 132 SMs.
 //
 // Arithmetic of K4 follows repro/opt/grids.py uniform_quantize exactly:
-// y = clip(x / max(s, 1e-30), -1, 1); code = round_half_even(y * 2^k).
-// The division is IEEE (no fast math) and y * 2^k is exact.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// y = clip(x / max(s, 1e-30), -1, 1); code = round_half_even(y * 2^k)
+// (rt::uniform_code in grids.cuh). The division is IEEE (no fast math)
+// and y * 2^k is exact.
+#include "grids.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ unsigned int abs_bits(float v) {
-  return __float_as_uint(v) & 0x7fffffffu;
-}
+using rt::abs_bits;
+using rt::blocks_per_row;
+using rt::kThreads;
 
 __global__ void amax_rows_kernel(const float* __restrict__ x,
                                  unsigned int* __restrict__ out,
@@ -61,11 +59,6 @@ __global__ void amax_rows_kernel(const float* __restrict__ x,
   }
 }
 
-__device__ __forceinline__ float quant1(float x, float s, float n) {
-  float y = fminf(fmaxf(x / s, -1.0f), 1.0f);
-  return rintf(y * n);
-}
-
 template <typename CT>
 __global__ void uniform_quantize_kernel(const float* __restrict__ x,
                                         const float* __restrict__ scale,
@@ -82,8 +75,10 @@ __global__ void uniform_quantize_kernel(const float* __restrict__ x,
     const long long n4 = n / 4;
     for (long long i = start; i < n4; i += stride) {
       float4 v = row4[i];
-      CT c[4] = {(CT)quant1(v.x, s, pow2), (CT)quant1(v.y, s, pow2),
-                 (CT)quant1(v.z, s, pow2), (CT)quant1(v.w, s, pow2)};
+      CT c[4] = {(CT)rt::uniform_code(v.x, s, pow2),
+                 (CT)rt::uniform_code(v.y, s, pow2),
+                 (CT)rt::uniform_code(v.z, s, pow2),
+                 (CT)rt::uniform_code(v.w, s, pow2)};
       if (sizeof(CT) == 1) {
         char4 o = make_char4(c[0], c[1], c[2], c[3]);
         reinterpret_cast<char4*>(crow)[i] = o;
@@ -94,15 +89,8 @@ __global__ void uniform_quantize_kernel(const float* __restrict__ x,
     }
   } else {
     for (long long i = start; i < n; i += stride)
-      crow[i] = (CT)quant1(row[i], s, pow2);
+      crow[i] = (CT)rt::uniform_code(row[i], s, pow2);
   }
-}
-
-unsigned int blocks_per_row(long long work, int rows) {
-  long long want = (work + kThreads - 1) / kThreads;
-  long long fill = (2048 + rows - 1) / rows;  // ~16 blocks per SM overall
-  if (want > fill) want = fill;
-  return (unsigned int)(want < 1 ? 1 : want);
 }
 
 }  // namespace

@@ -1,0 +1,263 @@
+"""Distributed QAdam-EF train step (Algorithms 2+3; port of
+``repro/dist/step.py``): a quantized parameter server over the ranks of
+a ``torch.distributed`` process group, one model shard.
+
+One step on each rank (worker):
+
+  1. weight broadcast: every server Q_x-encodes its master chunk (K3
+     first where the scale is an amax; K7 uniform), the payloads are
+     all-gathered and every worker K6-decodes Q_x(x_t) for the whole
+     model (small leaves ride float32 rows);
+  2. forward and backward at Q_x(x_t) (Assumption 3) through
+     ``Model.loss``: each worker gets the gradient of its own mean loss;
+  3. the mode's update (``repro_torch.dist.modes``; the paper's
+     ``qadam``: K15 Adam+EF, K7 log codes to payload rows);
+  4. the update exchange: all-to-all of the payload rows, K6 decode of
+     every worker's codes for this server's chunk with that worker's
+     scale, and ``chunk - worker_mean(rows)`` into the master chunk;
+
+and the global loss as sum(s) / sum(n) over workers, one ``all_reduce``
+of a 2-vector on the device. No step reads the device on the host: the
+step count, alpha_t and theta_t live on the host.
+
+State per rank (the reference's chunked layout, this rank's slice, each
+leaf flat): ``master`` this worker's float32 chunk (c elements) of every
+leaf, ``m``, ``v``, ``e`` its Adam moments and EF residual over the
+whole leaf, and the host step ``count``. The step updates master, m, v
+and e in place (the reference donates these buffers).
+
+Batches: the global batch's rows are split over the workers when the
+batch divides by their number (worker w takes rows [w*B/W, (w+1)*B/W)),
+else every worker takes the whole batch, as ``_batch_geometry``.
+
+Out of scope (raise ``NotImplementedError``, ROADMAP.md queue 1): the
+modes other than ``qadam``, ``HierarchicalTopology``, a model axis and
+``model_gather_quant``. The reference's exchange buckets are XLA
+scheduling fences that change no number; the overlap of the exchange
+with the backward they allow is queued in ROADMAP.md.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.comm import codec as CD
+from repro_torch.core.qadam import QAdamConfig, _alpha_t, _theta_t
+from repro_torch.dist import collectives as C
+from repro_torch.dist import sharding as SH
+from repro_torch.dist import topology as T
+from repro_torch.dist.modes import WorkerCtx, get_mode
+from repro_torch.opt import engine
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    alpha: float = 1e-3
+    beta: float = 0.99
+    theta: float = 0.999
+    eps: float = 1e-5
+    schedule: str = "constant"          # "sqrt" | "constant" | "halving:K"
+    grad_k: Optional[int] = 6           # log-grid k_g; None = f32 wire
+    weight_k: Optional[int] = None      # uniform k_x; None = f32 broadcast
+    weight_absolute: bool = True        # paper's absolute [-0.5,0.5] grid
+    weight_q_min_numel: int = 2 ** 14   # small leaves skip Q_x (norms)
+    error_feedback: bool = True
+    mode: str = "qadam"
+    topology: T.Topology = T.FlatTopology()      # only flat is ported
+    model_gather_quant: Optional[int] = None     # not ported
+    # kernels' implementation: "cuda" | "torch" (the plain versions) |
+    # None = by the tensors' device
+    backend: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafMeta:
+    """Per-leaf wire geometry: the leaf's ``shape`` (one model shard is
+    the whole leaf), its element count ``numel`` and the per-worker chunk
+    length ``c``."""
+
+    shape: Tuple[int, ...]
+    c: int
+    numel: int
+
+
+def _leaf_meta(layout: SH.Layout, n_workers: int):
+    """Tree of LeafMeta mirroring the parameter tree."""
+    def one(shape):
+        n = math.prod(shape)
+        return LeafMeta(shape=tuple(shape), c=SH.chunk_size(n, n_workers),
+                        numel=n)
+    return tree_map(one, layout.shapes)
+
+
+class StepArtifacts(NamedTuple):
+    """``step_fn(state, batch)`` is ``broadcast`` -> ``loss_and_grads`` ->
+    ``update``; the three are exposed for measurement and checks."""
+
+    init_state: Callable
+    step_fn: Callable
+    layout: SH.Layout
+    n_workers: int
+    rank: int
+    group: Any
+    config: Any
+    tiers: Any
+    broadcast: Callable        # state -> [Q_x(x_t) leaf, ...]
+    loss_and_grads: Callable   # (xs, batch) -> (global loss, [grad, ...])
+    update: Callable           # (state, grads) -> state
+
+
+def weight_wire_codec(tc: TrainConfig, numel: int):
+    """The weight-broadcast channel's codec for a leaf of ``numel``
+    elements, the one source of what moves on channel 2
+    (``comm_bytes_per_step`` reads it too). Small or unquantized leaves
+    ride float32 (identity)."""
+    if tc.weight_k is None or numel < tc.weight_q_min_numel:
+        return CD.IdentityCodec()
+    return CD.uniform_wire_codec(tc.weight_k, tc.weight_absolute)
+
+
+def local_batch(batch: Dict[str, torch.Tensor], rank: int,
+                n_workers: int) -> Dict[str, torch.Tensor]:
+    """This worker's rows of the global batch (``_batch_geometry``): a
+    slice of B / W rows when B divides by W, else the whole batch."""
+    B = batch["tokens"].shape[0]
+    if B % n_workers or n_workers == 1:
+        return batch
+    b = B // n_workers
+    return {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
+
+
+def _check_supported(tc: TrainConfig) -> None:
+    if not isinstance(tc.topology, T.FlatTopology):
+        raise NotImplementedError(
+            f"{type(tc.topology).__name__} is not ported yet (ROADMAP.md "
+            "queue 1); the port runs the flat topology")
+    if tc.model_gather_quant is not None:
+        raise NotImplementedError(
+            "model_gather_quant (a quantized gather over a model axis) is "
+            "not ported yet (ROADMAP.md queue 1)")
+
+
+def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
+    """The distributed step of ``tc.mode`` over the ranks of ``group``
+    (``repro_torch.launch.mesh.make_process_group``): ``init_state`` and
+    ``step_fn(state, batch) -> (state, {"loss"})``."""
+    mode = get_mode(tc.mode)      # raises for the modes not ported
+    _check_supported(tc)
+    n_workers = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    shapes = model.init(torch.Generator(), device="meta")
+    layout = SH.build_layout(shapes)
+    metas_flat = tree_leaves(_leaf_meta(layout, n_workers))
+    qcfg = QAdamConfig(alpha=tc.alpha, beta=tc.beta, theta=tc.theta,
+                       eps=tc.eps, schedule=tc.schedule)
+    tiers = tc.topology.tiers(("data",), (n_workers,))
+    updater = mode.make_updater(tc, WorkerCtx(
+        group=group, n_workers=n_workers, backend=tc.backend,
+        tiers=tiers))
+
+    def flat(tree):
+        """A state tree's leaves in the layout's order."""
+        return tree_leaves(tree_map(lambda _, x: x, layout.shapes, tree))
+
+    def unflat(leaves):
+        return tree_unflatten(layout.shapes, leaves)
+
+    # ---------------- init ----------------
+    def init_state(seed: int = 0, device="cuda"):
+        """Rank ``rank``'s state for ``model.init(seed=seed)``: its master
+        chunks, zero moments and residuals, count 0."""
+        leaves = tree_leaves(model.init(seed=seed, device=device))
+        master, zs = [], []
+        for i, meta in enumerate(metas_flat):
+            p = leaves[i].to(torch.float32)
+            leaves[i] = None
+            row = SH.flatten_pad(p, n_workers)[rank]
+            master.append(row if n_workers == 1 else row.clone())
+            zs.append(meta.numel)
+            del p, row
+        def zeros():
+            return unflat([torch.zeros(n, dtype=torch.float32,
+                                       device=device) for n in zs])
+        return {"master": unflat(master), "m": zeros(), "v": zeros(),
+                "e": zeros(), "count": 0}
+
+    # ---------------- weight-broadcast channel ----------------
+    def chunks_to_shard(chunk, meta):
+        """My master chunk -> the whole leaf, Q_x(x_t), over the wire."""
+        codec = weight_wire_codec(tc, meta.numel)
+        if isinstance(codec, CD.IdentityCodec):
+            rows = C.gather_rows_tiered(chunk, tiers, group)
+            return SH.unflatten_chunked(rows, meta.shape)
+        scale = codec.compute_scale(chunk, backend=tc.backend)
+        # K7 uniform; its residual is not kept in this mode
+        payload, _ = CD.encode_rows_ef(chunk, scale, codec, 1,
+                                       backend=tc.backend)
+        out = torch.empty(meta.shape, dtype=torch.float32,
+                          device=chunk.device)
+        return C.broadcast_decode_tiered(payload[0], scale, codec, meta.c,
+                                         tiers, group, backend=tc.backend,
+                                         out=out)
+
+    # ---------------- the step ----------------
+    def broadcast(state):
+        """1. weight broadcast: every leaf's Q_x(x_t), in layout order."""
+        return [chunks_to_shard(ch, m)
+                for ch, m in zip(flat(state["master"]), metas_flat)]
+
+    def loss_and_grads(xs, batch):
+        """2. forward/backward at Q_x(x_t) on this worker's rows: the
+        gradients of its mean loss, and the global loss sum(s) / sum(n)
+        over workers (a 0-d tensor on the device)."""
+        xs = [x.detach().requires_grad_() for x in xs]
+        mine = local_batch(batch, rank, n_workers)
+        with torch.enable_grad():
+            s, n = model.loss(unflat(xs), mine)
+            grads = list(torch.autograd.grad(s / n, xs, allow_unused=True))
+        sn = torch.stack([s.detach(), n.detach().to(torch.float32)])
+        dist.all_reduce(sn, group=group)
+        return sn[0] / sn[1], grads
+
+    def update(state, grads, mark: Optional[Callable] = None):
+        """3+4. per-worker update and the mode's exchange, leaf by leaf,
+        into the state's tensors; consumes ``grads`` (each entry freed
+        after use). ``mark(name)``, when given, is called at the end of
+        each leaf's "update_exchange" and "master_update"."""
+        masters = flat(state["master"])
+        ms, vs, es = (flat(state[k]) for k in ("m", "v", "e"))
+        t = state["count"] + 1
+        dev = masters[0].device
+        hp = engine.hyperparams(_alpha_t(qcfg, t), tc.beta,
+                                _theta_t(qcfg, t), tc.eps, dev)
+        for i, meta in enumerate(metas_flat):
+            g = grads[i]
+            grads[i] = None
+            g = (torch.zeros(meta.numel, dtype=torch.float32, device=dev)
+                 if g is None else g.reshape(-1).to(torch.float32))
+            updater(g, ms[i], vs[i], es[i], masters[i], meta, hp, mark=mark)
+            del g
+        return dict(state, count=t)
+
+    def step_fn(state, batch, mark: Optional[Callable] = None):
+        """One step; ``mark(name)`` (optional) is called at the end of
+        "broadcast" and "forward_backward" and within ``update``."""
+        xs = broadcast(state)
+        if mark:
+            mark("broadcast")
+        loss, grads = loss_and_grads(xs, batch)
+        del xs
+        if mark:
+            mark("forward_backward")
+        return update(state, grads, mark), {"loss": loss}
+
+    return StepArtifacts(init_state=init_state, step_fn=step_fn,
+                         layout=layout, n_workers=n_workers, rank=rank,
+                         group=group, config=tc, tiers=tiers,
+                         broadcast=broadcast, loss_and_grads=loss_and_grads,
+                         update=update)

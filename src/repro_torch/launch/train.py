@@ -1,0 +1,152 @@
+"""Training launcher: distributed QAdam-EF (Algorithms 2+3) through
+``TrainSession.from_artifacts`` (port of ``repro/launch/train.py``).
+
+  python -m repro_torch.launch.train --arch yi-6b \\
+      --grad-bits 6 --weight-bits 7 --weight-absolute
+
+runs one rank on the GPU (``--device cuda``, the default, over NCCL);
+``torchrun --nproc-per-node W -m repro_torch.launch.train ...`` runs W
+ranks, one per card. ``--smoke --device cpu`` runs the small
+configuration on gloo through the kernels' plain versions, e.g.
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch yi-6b \\
+      --smoke --device cpu --data 2 --steps 5 --seq 32 --global-batch 4
+
+Weights are random, drawn from ``--seed``; batches are the synthetic
+token stream of ``data.pipeline``, every rank taking its rows of one
+global batch. ``--grad-bits 0``/``--weight-bits 0`` turn either channel
+to float32 rows; ``--no-ef`` ablates error feedback. The other modes,
+hierarchical topologies, a model axis, scan chunks, checkpoints and
+resume, bucket tuning and AOT artifacts are not ported yet (ROADMAP.md
+queue 1): their flags raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+# flags of the reference that the port does not run yet, with the value
+# that leaves them off
+NOT_PORTED = {"model": 1, "pod": 0, "topology": None, "model_gather_quant": 0,
+              "scan_chunk": 1, "ckpt_dir": None, "ckpt_every": 0,
+              "resume": False, "tune_buckets": False, "aot_dir": None,
+              "adaptive": False}
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--data", type=int, default=None,
+                    help="workers (the data axis); default: the ranks "
+                         "torchrun started, 1 alone")
+    ap.add_argument("--alpha", type=float, default=1e-3)
+    ap.add_argument("--beta", type=float, default=0.99)
+    ap.add_argument("--theta", type=float, default=0.999)
+    ap.add_argument("--schedule", default="constant")
+    ap.add_argument("--grad-bits", type=int, default=6,
+                    help="log-grid k_g; 0 = fp32 wire")
+    ap.add_argument("--weight-bits", type=int, default=6,
+                    help="uniform k_x; 0 = fp32 broadcast")
+    ap.add_argument("--weight-absolute", action="store_true",
+                    help="the paper's absolute [-0.5,0.5] grid")
+    ap.add_argument("--no-ef", action="store_true")
+    ap.add_argument("--mode", default="qadam",
+                    choices=["qadam", "efadam", "dp_adam", "terngrad",
+                             "ef_sgd", "adaptive"])
+    ap.add_argument("--prefetch", type=int, default=2,
+                    help="batches staged to the device ahead (0 = inline)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--history-out", default=None)
+    ap.add_argument("--device", default="cuda")
+    # not ported yet (ROADMAP.md queue 1)
+    ap.add_argument("--model", type=int, default=1)
+    ap.add_argument("--pod", type=int, default=0)
+    ap.add_argument("--topology", default=None)
+    ap.add_argument("--model-gather-quant", type=int, default=0)
+    ap.add_argument("--scan-chunk", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--tune-buckets", action="store_true")
+    ap.add_argument("--aot-dir", default=None)
+    ap.add_argument("--adaptive", action="store_true")
+    args = ap.parse_args(argv)
+    for name, off in NOT_PORTED.items():
+        if getattr(args, name) != off:
+            raise NotImplementedError(
+                f"--{name.replace('_', '-')} is not ported yet (ROADMAP.md "
+                "queue 1)")
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.dist.step import TrainConfig, make_train_step
+    from repro_torch.launch.mesh import (close_process_group,
+                                         make_process_group, rank_device)
+    from repro_torch.models.model import Model
+    from repro_torch.train.loop import comm_bytes_per_step
+    from repro_torch.train.session import SessionConfig, TrainSession
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tc = TrainConfig(alpha=args.alpha, beta=args.beta, theta=args.theta,
+                     schedule=args.schedule,
+                     grad_k=args.grad_bits or None,
+                     weight_k=args.weight_bits or None,
+                     weight_absolute=args.weight_absolute,
+                     error_feedback=not args.no_ef, mode=args.mode)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    model = Model(cfg)
+    group = make_process_group(args.device)
+    try:
+        art = make_train_step(model, group, tc)
+        if args.data is not None and args.data != art.n_workers:
+            raise ValueError(f"--data {args.data} but {art.n_workers} "
+                             f"ranks run")
+        lead = art.rank == 0
+        comm = comm_bytes_per_step(art, tc)
+        if lead:
+            print(f"workers={art.n_workers} device={args.device}")
+            print(f"comm/device/step: "
+                  f"exchange={comm['update_exchange_bytes'] / 1e6:.2f}MB "
+                  f"broadcast={comm['weight_broadcast_bytes'] / 1e6:.2f}MB")
+        batches = batch_for_model(cfg, args.seq, args.global_batch,
+                                  seed=args.seed)
+        sc = SessionConfig(log_every=args.log_every, prefetch=args.prefetch)
+        sess = TrainSession.from_artifacts(
+            art, batches, sc, seed=args.seed,
+            device=rank_device(args.device),
+            log=print if lead else (lambda *_: None))
+        try:
+            sess.run(args.steps)
+            losses = [h for h in sess.history if "loss" in h]
+            if not losses:   # --log-every 0: nothing harvested in the run
+                losses = [{"step": s, "loss": v}
+                          for s, v in sess.harvest_losses()]
+        finally:
+            sess.close()
+        if lead:
+            print(f"session stats: {sess.stats}")
+            if args.history_out:
+                with open(args.history_out, "w") as f:
+                    json.dump({"arch": args.arch, "history": sess.history,
+                               "comm": comm, "stats": sess.stats}, f,
+                              indent=1)
+            if losses:
+                print("final loss:", losses[-1]["loss"])
+    finally:
+        close_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -89,6 +89,16 @@ def adam_ef_moments(g, m, v, e, hp, backend: Optional[str] = None,
     return m2, v2, de
 
 
+def adam_ef_delta(g, m, v, e, hp, backend: Optional[str] = None):
+    """Pass A (K15) in place, m' and v' written over m and v: returns
+    (Delta+e, scale), the scale being K15's folded max|Delta+e| under the
+    zero guard, on the device (bitwise ``grids.amax_scale(Delta+e)``; no
+    extra amax pass). The distributed updater's first half."""
+    _, _, de, amax = AK.adam_moments(g, m, v, e, hp, backend=backend,
+                                     out=(m, v))
+    return de, amax_scale(amax)
+
+
 def ef_quantize(de, scale, k_g: int, backend: Optional[str] = None):
     """Pass B (K16): log-grid codes and the new EF residual
     e' = Delta+e - deq(codes)."""
@@ -103,9 +113,7 @@ def adam_ef_step(g, m, v, e, hp, k_g: int = 6,
     m, v and e. The scale is K15's folded max|Delta+e| under the zero
     guard, on the device. The reference donates these buffers to its
     step, which amounts to the same."""
-    _, _, de, amax = AK.adam_moments(g, m, v, e, hp, backend=backend,
-                                     out=(m, v))
-    scale = amax_scale(amax)
+    de, scale = adam_ef_delta(g, m, v, e, hp, backend=backend)
     codes, _ = AK.ef_quantize(de, scale, k_g, backend=backend, out=e)
     return m, v, codes, scale, e
 

@@ -1,14 +1,19 @@
-"""TrainSession: the prefetching training loop of the single-machine
-program (port of ``repro/train/session.py``, ``from_optimizer`` path).
+"""TrainSession: the prefetching training loop of both programs (port
+of ``repro/train/session.py``):
 
-    sess = TrainSession.from_optimizer(opt, loss_fn, params, batches, cfg)
+  * the distributed path, Algorithms 2+3 (``repro_torch.dist.step``
+    ``StepArtifacts``): ``TrainSession.from_artifacts(art, batches)``;
+  * the single-machine path, Algorithm 1 (``repro_torch.core.qadam``):
+    ``TrainSession.from_optimizer(opt, loss_fn, params, batches)``.
+
+    sess = TrainSession.from_artifacts(art, batches, cfg)
     sess.run(1000)                 # 1000 optimizer steps
     sess.close()
 
-One step is Algorithm 1: ``opt.forward_params`` (Q_x), the loss and its
+One single-machine step is ``opt.forward_params`` (Q_x), the loss and its
 gradients at those weights (autograd), ``opt.update`` (Q_g + EF) and
-``apply_updates``. The hot loop does not wait on the device in steady
-state:
+``apply_updates``; one distributed step is ``art.step_fn``. The hot loop
+does not wait on the device in steady state:
 
   * **prefetch** - a background thread pulls numpy batches from the
     generator and stages them to the device (pinned host copy, then a
@@ -21,9 +26,8 @@ state:
   * the step count, alpha_t and theta_t live on the host
     (``QAdamState.count``), so no step reads the device for them.
 
-The reference's scan chunking (``scan_chunk``), checkpoints, resume and
-the distributed program (``from_artifacts``) wait for later slices
-(ROADMAP.md queue 1).
+The reference's scan chunking (``scan_chunk``), checkpoints, resume
+and AOT artifacts wait for later slices (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -95,6 +99,23 @@ class _SingleProgram:
         return {"params": p2, "opt": s2}, {"loss": loss.detach()}
 
 
+class _DistProgram:
+    """Distributed path: wraps ``dist.step.StepArtifacts``. State is one
+    rank's chunked dict (master/m/v/e/count), on ``device``."""
+
+    def __init__(self, art, device):
+        self.art, self._device = art, device
+
+    def init_state(self, seed):
+        return self.art.init_state(seed=seed, device=self._device)
+
+    def device(self, state):
+        return tree_leaves(state["master"])[0].device
+
+    def step(self, state, batch):
+        return self.art.step_fn(state, batch)
+
+
 class _Prefetcher:
     """Pulls host batches from the generator and stages them to the
     device on a background thread, ``depth`` batches ahead. Work is
@@ -162,7 +183,7 @@ class _Prefetcher:
 
 
 class TrainSession:
-    """Training session over the single-machine program.
+    """Training session over one program (distributed or single-machine).
 
     ``run(n)`` executes exactly ``n`` optimizer steps (``n`` batches).
     ``history`` collects ``{"step", "loss"}`` entries at log boundaries.
@@ -172,12 +193,13 @@ class TrainSession:
 
     def __init__(self, program, batches: Iterator,
                  cfg: Optional[SessionConfig] = None, *, init_arg=None,
-                 log: Callable = print):
+                 state=None, log: Callable = print):
         self.cfg = cfg or SessionConfig()
         self._program = program
         self._batches = batches
         self._log = log
-        self._state = program.init_state(init_arg)
+        self._state = state if state is not None \
+            else program.init_state(init_arg)
         self._device = program.device(self._state)
         # every unharvested step since the last log boundary stays
         # resident, plus one slot of slack
@@ -191,6 +213,19 @@ class TrainSession:
         self.history: List[Dict[str, Any]] = []
         self.stats = {"dispatches": 0, "syncs": 0, "steps": 0}
         self._closed = False
+
+    @classmethod
+    def from_artifacts(cls, art, batches: Iterator,
+                       cfg: Optional[SessionConfig] = None, *, seed: int = 0,
+                       state=None, device="cuda",
+                       log: Callable = print) -> "TrainSession":
+        """Distributed session over ``dist.step.make_train_step``
+        artifacts, one per rank: this rank's state from
+        ``art.init_state(seed, device)``, or ``state`` as given (e.g.
+        ``convert.dist_state_from_numpy``). Every rank pulls the same
+        global batches; the step takes its own rows."""
+        return cls(_DistProgram(art, device), batches, cfg, init_arg=seed,
+                   state=state, log=log)
 
     @classmethod
     def from_optimizer(cls, opt, loss_fn: Callable, params,
@@ -270,7 +305,8 @@ class TrainSession:
 
     @property
     def state(self):
-        """The live train state ``{"params", "opt"}`` (between steps)."""
+        """The live train state (between steps): ``{"params", "opt"}``
+        single-machine, the rank's chunked dict distributed."""
         return self._state
 
     @property

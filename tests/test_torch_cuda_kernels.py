@@ -257,3 +257,140 @@ def test_training_runs_through_kernels(dev):
               .forward_params(st["params"]) for backend in ("cuda", "torch"))
     for x, y in zip(tree_leaves(fk), tree_leaves(fp)):
         _bits_equal(x, y)
+
+
+WIRE_CODECS = [("log", 2), ("log", 4), ("log", 6), ("log", 8),
+               ("uniform", 3), ("uniform", 6), ("uniform", 7)]
+
+
+def _wire_codec(kind, k, absolute=True):
+    from repro_torch.comm import codec as CD
+    return CD.LogCodec(k_g=k) if kind == "log" else \
+        CD.uniform_wire_codec(k, absolute)
+
+
+def _wire_input(dev, n, seed, kind, zero=False):
+    """x and its scale: K15's guarded amax for the log grid, 0.5 for the
+    absolute uniform grid with values past it (the lane clip)."""
+    from repro_torch.opt import engine as E
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, generator=gen, device=dev) * (
+        1.0 if kind == "log" else 0.3)
+    if zero:
+        x.zero_()
+    if kind == "log":
+        return x, E.amax_scale(x.abs().amax())
+    return x, torch.tensor(0.5, device=dev)
+
+
+@pytest.mark.parametrize("kind,k", WIRE_CODECS, ids=lambda v: str(v))
+@pytest.mark.parametrize("c", [1, 7, 1000003])
+@pytest.mark.parametrize("n_rows", [1, 2, 4])
+def test_wire_encode_decode_bitwise(dev, kind, k, c, n_rows):
+    """K7 (payload rows, residual) and K6 (decoded rows, a distinct scale
+    per row; and straight into a leaf of n elements) against their plain
+    versions, the last row short by n_rows - 1 elements."""
+    from repro_torch.comm import kernels as K
+    codec = _wire_codec(kind, k)
+    n = n_rows * c - (n_rows - 1)
+    x, scale = _wire_input(dev, n, n_rows * 100 + c + k, kind)
+    pk, ek = K.ef_encode_rows(x, scale, codec, n_rows, backend="cuda")
+    pp, ep = K.ef_encode_rows(x, scale, codec, n_rows, backend="torch")
+    _bits_equal(pk, pp)
+    _bits_equal(ek, ep)
+    gen = torch.Generator(device=dev).manual_seed(c)
+    scales = (torch.rand(n_rows, generator=gen, device=dev) + 0.5) * scale
+    dk = K.decode_rows(pk, scales, codec, c, backend="cuda")
+    _bits_equal(dk, K.decode_rows(pk, scales, codec, c, backend="torch"))
+    out = torch.full((n,), float("nan"), device=dev)
+    K.decode_rows(pk, scales, codec, c, backend="cuda", out=out)
+    _bits_equal(out, dk.reshape(-1)[:n])
+
+
+@pytest.mark.parametrize("kind,k", WIRE_CODECS, ids=lambda v: str(v))
+def test_wire_zero_and_in_place(dev, kind, k):
+    """All-zero input (scale 1 for the log grid), the amax uniform grid,
+    and K7's residual written over its input."""
+    from repro_torch.comm import kernels as K
+    codec = _wire_codec(kind, k)
+    x, scale = _wire_input(dev, 4099, k, kind, zero=True)
+    for a, b in zip(K.ef_encode_rows(x, scale, codec, 2, backend="cuda"),
+                    K.ef_encode_rows(x, scale, codec, 2, backend="torch")):
+        _bits_equal(a, b)
+    x, scale = _wire_input(dev, 4099, k + 1, kind)
+    if kind == "uniform":
+        codec = _wire_codec(kind, k, absolute=False)
+        scale = x.abs().amax()
+    pp, ep = K.ef_encode_rows(x, scale, codec, 3, backend="torch")
+    pk, ek = K.ef_encode_rows(x, scale, codec, 3, backend="cuda", out=x)
+    assert ek is x
+    _bits_equal(pk, pp)
+    _bits_equal(ek, ep)
+
+
+def test_distributed_step_runs_through_kernels(dev):
+    """Three steps of the distributed step (one NCCL rank) on the smoke
+    model: K7 and K6 of both kinds and K15 launch, no plain version runs,
+    the session reads the device only at its two harvests, and the
+    master, m, v, e and losses equal Algorithm 1's session (uniform:7
+    Q_x, the same init and batches) bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.comm import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core.qadam import QAdamConfig, qadam
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.dist.step import TrainConfig, make_train_step
+    from repro_torch.kernels import adam_ef as A
+    from repro_torch.launch import mesh
+    from repro_torch.models.model import Model
+    from repro_torch.train.session import SessionConfig, TrainSession
+    from repro_torch.tree import tree_leaves
+    model = Model(get_config("yi-6b", smoke=True))
+    group = mesh.make_process_group(dev, store=dist.HashStore())
+    # both runs with the deterministic kernels PyTorch has (embedding and
+    # gather backward); a warning, not an error, where it has none
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        tc = TrainConfig(alpha=1e-3, grad_k=6, weight_k=7,
+                         weight_absolute=True)
+        art = make_train_step(model, group, tc)
+        K.ef_encode_log_launches = K.ef_encode_uniform_launches = 0
+        K.decode_log_launches = K.decode_uniform_launches = 0
+        A.moments_launches = K.plain_on_cuda = A.plain_on_cuda = 0
+        sess = TrainSession.from_artifacts(
+            art, batch_for_model(model.cfg, 32, 2), SessionConfig(
+                log_every=3), device=dev, log=lambda *_: 0)
+        with sess:
+            sess.run(3)
+        assert sess.stats["syncs"] == 2
+        assert min(K.ef_encode_log_launches, K.ef_encode_uniform_launches,
+                   K.decode_log_launches, K.decode_uniform_launches,
+                   A.moments_launches) > 0
+        assert K.plain_on_cuda == A.plain_on_cuda == 0
+    finally:
+        mesh.close_process_group()
+
+    def loss_fn(p, b):
+        ls, nt = model.loss(p, b)
+        return ls / nt
+    try:
+        ref = TrainSession.from_optimizer(
+            qadam(QAdamConfig(alpha=1e-3, grad_q="log:6",
+                              weight_q="uniform:7",
+                              weight_q_min_numel=2 ** 14)),
+            loss_fn, model.init(seed=0, device=dev),
+            batch_for_model(model.cfg, 32, 2), SessionConfig(log_every=3),
+            log=lambda *_: 0)
+        with ref:
+            ref.run(3)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert [h["loss"] for h in sess.history] == \
+        [h["loss"] for h in ref.history]
+    for a, b in zip(tree_leaves(sess.state["master"]),
+                    tree_leaves(ref.state["params"])):
+        _bits_equal(a, b.reshape(-1))
+    for f in ("m", "v", "e"):
+        for a, b in zip(tree_leaves(sess.state[f]),
+                        tree_leaves(getattr(ref.state["opt"], f))):
+            _bits_equal(a, b.reshape(-1))

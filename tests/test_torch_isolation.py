@@ -39,7 +39,10 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch.launch.serve, repro_torch.serve.session, "
             "repro_torch.convert, repro_torch.core.qadam, "
             "repro_torch.train.session, repro_torch.kernels.adam_ef, "
-            "repro_torch.data.pipeline; "
+            "repro_torch.data.pipeline, repro_torch.launch.train, "
+            "repro_torch.launch.mesh, repro_torch.dist.step, "
+            "repro_torch.dist.collectives, repro_torch.dist.modes, "
+            "repro_torch.train.loop, repro_torch.comm.codec; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -67,6 +70,13 @@ def test_entry_points_default_to_cuda():
     assert _default(convert.qadam_state_from_numpy, "device") == "cuda"
     src = inspect.getsource(launch.main)
     assert 'ap.add_argument("--device", default="cuda")' in src
+    from repro_torch.launch import mesh
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.session import TrainSession
+    assert _default(convert.dist_state_from_numpy, "device") == "cuda"
+    assert _default(TrainSession.from_artifacts, "device") == "cuda"
+    assert _default(mesh.make_process_group, "device") == "cuda"
+    assert launch_train.parse_args(["--arch", "yi-6b"]).device == "cuda"
 
 
 def test_kernel_wrappers_refuse_cuda_backend_on_cpu():
@@ -95,3 +105,11 @@ def test_kernel_wrappers_refuse_cuda_backend_on_cpu():
     with pytest.raises(ValueError):
         K.uniform_dequantize_rows(x.to(torch.int8), torch.ones(2), 6,
                                   backend="cuda")
+    from repro_torch.comm import codec as CD
+    with pytest.raises(ValueError):
+        K.ef_encode_rows(x, torch.tensor(1.0), CD.LogCodec(6), 2,
+                         backend="cuda")
+    payload, _ = K.ef_encode_rows(x, torch.tensor(1.0), CD.LogCodec(6), 2)
+    with pytest.raises(ValueError):
+        K.decode_rows(payload, torch.ones(2), CD.LogCodec(6), 8,
+                      backend="cuda")
