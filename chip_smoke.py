@@ -6,8 +6,9 @@
 Phases, each raising on failure (exit code nonzero, no result line):
 
   1. print the card's name and power limit (nvidia-smi);
-  2. build the ten CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
-     sm_90a, one process per source, all started together);
+  2. build the thirteen CUDA kernels from the seven sources of
+     ``src/repro_torch/csrc`` (nvcc, sm_90a, one process per source, all
+     started together);
   3. hold each serving kernel against its plain PyTorch version at yi-6b
      shapes: K3 amax / K4 quantize on a stacked (32, 4096, 11008) f32
      leaf and K2 page gather bitwise; K1 dequant-matmul at M in
@@ -23,9 +24,13 @@ Phases, each raising on failure (exit code nonzero, no result line):
      (payload rows, residual) and K6 fused decode (a scale per row, into
      rows or a flat leaf) over n_rows {1, 2, 4}, chunks {1, 7, 1000003},
      log k_g {2, 4, 6, 8}, uniform wire k_x {3, 6, 7} and zero input,
-     and at the w_gate stack for log:6 and uniform:7; time each kernel,
-     its plain version and a one-call PyTorch yardstick where there is
-     one;
+     and at the w_gate stack for log:6 and uniform:7; then the
+     baselines' kernels bitwise: #5 fused encode (log, uniform with the
+     absolute and the amax scale, ternary on uniforms from one seeded
+     generator; zero input) with K6 on its rows (the ternary kind), #14
+     blockwise quantize and #8 blockwise encode, over the same n_rows and
+     chunks, and at the w_gate stack; time each kernel, its plain version
+     and a one-call PyTorch yardstick where there is one;
   4. serve full-width yi-6b (random weights from a seed): Model.init,
      quantize_params(k_x=6), a paged ServeSession (page 16, 4 slots,
      chunked prefill 32) answering 8 requests of 64-token prompts with
@@ -66,7 +71,22 @@ Phases, each raising on failure (exit code nonzero, no result line):
      device time by phase (broadcast, forward+backward,
      update+exchange, master update), the wire kernels' time, peak
      memory and state bytes;
-  7. print one ``{"kernels": [...]}`` line, the card line again, and the
+  7. the baselines the same way, each through ``launch.train``'s path on
+     the same rank, cut and batches, 8 steps (MODE_RUNS): ``dp_adam``
+     (fp32 both channels; K15), ``efadam`` (grad_k=6, weight_k=7, amax
+     weights; K15, K3, K7 and K6), ``terngrad`` and ``ef_sgd`` (fp32
+     broadcast, alpha 1e-3; #5 ternary with K3 and K6 ternary, #14), with
+     the gates of phase 6 (the captured-gradient update through the
+     kernels and the plain versions, TernGrad on the same uniforms); then
+     ``dp_adam`` bitwise ``qadam`` with both channels in float32 and
+     ``efadam`` with a float32 broadcast bitwise ``qadam``, under
+     deterministic algorithms;
+  8. every leaf of the cut's initial parameters through
+     ``Codec.encode`` -> ``WireBuffer.decode`` for log:6, the uniform:7
+     wire (absolute and amax), TernGrad and blockwise:256: #5 (each
+     kind), #8 and K6 launched, no plain version on the card, buffer
+     bytes ``codec.wire_nbytes``, bitwise the plain versions;
+  9. print one ``{"kernels": [...]}`` line, the card line again, and the
      last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package. Detailed tables are
@@ -74,6 +94,7 @@ also written to ``results/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -667,6 +688,157 @@ def check_wire_kernels(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, the baselines' kernels: #5 fused encode, K6 ternary, #14, #8
+# ---------------------------------------------------------------------------
+
+ENCODE_CODECS = ([("log", k, True) for k in (2, 4, 6, 8)]
+                 + [("uniform", k, a) for k in (3, 6, 7)
+                    for a in (True, False)]
+                 + [("ternary", 0, False)])
+
+
+def encode_codec(kind, k, absolute):
+    from repro_torch.comm import codec as CD
+    return CD.TernaryCodec() if kind == "ternary" else \
+        wire_codec(kind, k, absolute)
+
+
+def check_encode_kernels(torch, dev):
+    """#5 (each kind, the absolute and the amax scale, the ternary kind
+    on uniforms from one seeded generator on both sides, zero input),
+    K6 on its rows (the ternary kind new), #14 and #8 bitwise against
+    their plain versions over n_rows {1, 2, 4} x chunks {1, 7, 1000003};
+    then at the 8-layer w_gate stack: #5 ternary, log:6 and uniform:7
+    (amax scales), K6 ternary, #14 and #8, bitwise and timed against
+    their bounds, the plain versions and, for #5's amax launch,
+    ``x.abs().amax()``. Returns
+    the kernel rows, the timing table and the count of cases."""
+    from repro_torch.comm import kernels as K
+    cases = 0
+    for c in (1, 7, 1000003):
+        for n_rows in (1, 2, 4):
+            n = n_rows * c - (n_rows - 1)
+            gen = torch.Generator(device=dev).manual_seed(n_rows * 100 + c)
+            x = torch.randn(n, generator=gen, device=dev)
+            u = torch.rand(n, generator=gen, device=dev)
+            for zero in (False, True) if c == 7 else (False,):
+                if zero:
+                    x.zero_()
+                for kind, k, absolute in ENCODE_CODECS:
+                    codec = encode_codec(kind, k, absolute)
+                    enc = [K.encode_rows(x, codec, n_rows, u=u, backend=b)
+                           for b in ("cuda", "torch")]
+                    if not all(bits_equal(torch, a, b)
+                               for a, b in zip(*enc)):
+                        raise AssertionError(
+                            f"#5 {codec.spec} differs from its plain version "
+                            f"(n_rows={n_rows}, c={c}, zero={zero})")
+                    scales = (torch.rand(n_rows, generator=gen, device=dev)
+                              + 0.5) * enc[0][1]
+                    if not bits_equal(torch, K.decode_rows(
+                            enc[0][0], scales, codec, c, backend="cuda"),
+                            K.decode_rows(enc[0][0], scales, codec, c,
+                                          backend="torch")):
+                        raise AssertionError(
+                            f"K6 {codec.spec} differs from its plain version "
+                            f"(n_rows={n_rows}, c={c}, zero={zero})")
+                    cases += 1
+                for fn in (K.blockwise_quantize, K.blockwise_encode):
+                    if not all(bits_equal(torch, a, b) for a, b in zip(
+                            fn(x, backend="cuda"), fn(x, backend="torch"))):
+                        raise AssertionError(
+                            f"{fn.__name__} differs from its plain version "
+                            f"(n={n}, zero={zero})")
+                    cases += 1
+    # the w_gate stack of the 8-layer cell, as the main paths give it at
+    # one worker: the terngrad gradient (one payload row), ef_sgd's
+    # Delta+e, a leaf through Codec.encode
+    d, f = YI["d"], YI["f"]
+    n = TRAIN_LAYERS * d * f
+    nb = -(-n // K.BLOCK)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    x = torch.randn(n, generator=gen, device=dev).mul_(1e-3)
+    u = torch.rand(n, generator=gen, device=dev)
+    tern, log6 = encode_codec("ternary", 0, False), wire_codec("log", 6)
+    table, rows = [], []
+    t = {}
+    # no one PyTorch call computes #5; its first launch's yardstick, for
+    # the table and kept out of the kernels line
+    amax_ms = cuda_ms(torch, lambda i: x.abs().amax(), 5, 1)
+    for name, codec, ubytes in (("encode_rows_ternary", tern, 4),
+                                ("encode_rows_log", log6, 0),
+                                ("encode_rows_uniform",
+                                 wire_codec("uniform", 7, False), 0)):
+        pk, sk = K.encode_rows(x, codec, 1, u=u, backend="cuda")
+        pp, sp = K.encode_rows(x, codec, 1, u=u, backend="torch")
+        if not (bits_equal(torch, pk, pp) and bits_equal(torch, sk, sp)):
+            raise AssertionError(f"#5 {codec.spec} differs from its plain "
+                                 f"version at the w_gate stack")
+        del pp
+        nbytes = pk.numel()
+        t[name] = (codec.spec,
+                   cuda_ms(torch, lambda i: K.encode_rows(
+                       x, codec, 1, u=u, backend="cuda"), 5, 1),
+                   cuda_ms(torch, lambda i: K.encode_rows(
+                       x, codec, 1, u=u, backend="torch"), 2, 1),
+                   None, bound_ms((4 + 4 + ubytes) * n + nbytes + 4))
+        if name == "encode_rows_ternary":
+            scales = sk.reshape(1)
+            out = torch.empty(n, device=dev)
+            K.decode_rows(pk, scales, codec, n, backend="cuda", out=out)
+            if not bits_equal(torch, out, K.decode_rows(
+                    pk, scales, codec, n, backend="torch").reshape(-1)):
+                raise AssertionError("K6 ternary differs from its plain "
+                                     "version at the w_gate stack")
+            t["decode_rows_ternary"] = (
+                codec.spec,
+                cuda_ms(torch, lambda i: K.decode_rows(
+                    pk, scales, codec, n, backend="cuda", out=out), 5, 1),
+                cuda_ms(torch, lambda i: K.decode_rows(
+                    pk, scales, codec, n, backend="torch"), 2, 1),
+                None, bound_ms(nbytes + 4 * n + 4))
+            del out
+        del pk
+    for name, fn, out_bytes in (("blockwise_quantize", K.blockwise_quantize,
+                                 n),
+                                ("blockwise_encode", K.blockwise_encode,
+                                 -(-n // 4))):
+        a, b = fn(x, backend="cuda"), fn(x, backend="torch")
+        if not all(bits_equal(torch, p, q) for p, q in zip(a, b)):
+            raise AssertionError(f"{name} differs from its plain version at "
+                                 f"the w_gate stack")
+        del a, b
+        t[name] = ("blockwise:256",
+                   cuda_ms(torch, lambda i: fn(x, backend="cuda"), 5, 1),
+                   cuda_ms(torch, lambda i: fn(x, backend="torch"), 2, 1),
+                   None, bound_ms(4 * n + out_bytes + 4 * nb))
+    src = {"encode_rows": ("src/repro_torch/csrc/codec.cu",
+                           "src/repro/comm/kernels.py:203"),
+           "decode_rows": ("src/repro_torch/csrc/codec.cu",
+                           "src/repro/comm/kernels.py:286"),
+           "blockwise_quantize": ("src/repro_torch/csrc/blockwise.cu",
+                                  "src/repro/comm/kernels.py:618"),
+           "blockwise_encode": ("src/repro_torch/csrc/blockwise.cu",
+                                "src/repro/comm/kernels.py:408")}
+    for name, (spec, ms, plain, lib, (bnd, by)) in t.items():
+        table.append(dict(name=name, spec=spec, shape=[n], ms=ms,
+                          plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                          bound_by=by,
+                          gbs=(bnd * 1e-3 * HBM_BYTES_PER_S) / ms / 1e6))
+        if name.startswith("encode_rows"):
+            table[-1]["amax_library_ms"] = amax_ms
+        source, replaces = src[name.rsplit("_", 1)[0] if name.startswith(
+            ("encode_rows", "decode_rows")) else name]
+        rows.append(dict(name=name, route="cuda", source=source,
+                         replaces=replaces, max_abs_err=0.0, ms=ms,
+                         plain_ms=plain, bound_ms=bnd, bound_by=by,
+                         library_ms=lib, shape=[n]))
+    del x, u
+    torch.cuda.empty_cache()
+    return rows, table, cases
+
+
+# ---------------------------------------------------------------------------
 # phase 5: Algorithm 1 training of full-width yi-6b cut to 8 layers
 # ---------------------------------------------------------------------------
 
@@ -908,193 +1080,213 @@ LOSS_RTOL, PARAM_REL_L2 = 2.3e-4, 4e-6   # the reference's own drift
 
 
 def _wire_kernel_ms(by_kernel):
-    """Device ms per step of K7 and K6 by kind (template <bits, kind>,
-    kind 0 log, 1 uniform), and of NCCL's kernels."""
+    """Device ms per step of the wire kernels by name and kind (K7 and #5
+    are ``encode_kernel<bits, kind, ef>``, K6 ``decode_kernel<bits,
+    kind>``, kind 0 log, 1 uniform, 2 ternary; #14 and #8
+    ``blockwise_kernel<pack>``), and of NCCL's kernels."""
     import re
+    kinds = ("log", "uniform", "ternary")
     out = {}
     for name, t in by_kernel:
-        m = re.search(r"(ef_encode|decode)_kernel<(\d+), ?(\d)>", name)
+        m = re.search(r"(encode|decode)_kernel<(\d+), ?(\d)"
+                      r"(?:, ?(true|false))?>", name)
+        b = re.search(r"blockwise_kernel<(true|false)>", name)
         if m:
-            key = f"{m.group(1)}_{'log' if m.group(3) == '0' else 'uniform'}"
-            out[key] = out.get(key, 0.0) + t
+            op = "ef_encode" if m.group(4) == "true" else m.group(1)
+            key = f"{op}_{kinds[int(m.group(3))]}"
+        elif b:
+            key = ("blockwise_encode" if b.group(1) == "true"
+                   else "blockwise_quantize")
         elif "nccl" in name.lower():
-            out["nccl"] = out.get("nccl", 0.0) + t
+            key = "nccl"
+        else:
+            continue
+        out[key] = out.get(key, 0.0) + t
     return out
 
 
-def dist_train(torch, dev, mods):
+def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
+             what, alg1=None):
+    """One distributed training run through ``launch.train``'s path
+    (``make_train_step`` + ``TrainSession.from_artifacts`` on ``group``,
+    one NCCL rank) and its gates: the phase-5 gates with the ``counters``
+    kernels launched (every count at 0 just before the run), the bytes
+    the collectives move equal to ``comm_bytes_per_step`` (scale side
+    channels counted apart), and one update on captured gradients from
+    the trained state, every leaf, bitwise through the kernels and the
+    plain versions (the same uniforms on both sides) and, with ``alg1``
+    (a ``QAdamConfig``), through Algorithm 1's ``qadam.update``. Prints
+    nothing; returns the readings."""
     import gc
     import torch.distributed as dist
-    from repro_torch.configs import get_config
     from repro_torch.core.qadam import (QAdamConfig, QAdamState, _alpha_t,
                                         _theta_t, apply_updates, qadam)
     from repro_torch.data.pipeline import batch_for_model
     from repro_torch.dist import collectives as C
+    from repro_torch.dist import step as DS
     from repro_torch.dist.modes import WorkerCtx, get_mode
-    from repro_torch.dist.step import TrainConfig, _leaf_meta, make_train_step
-    from repro_torch.launch.mesh import (close_process_group,
-                                         make_process_group)
-    from repro_torch.models.model import Model
     from repro_torch.opt import engine
     from repro_torch.train.loop import comm_bytes_per_step
     from repro_torch.train.session import (SessionConfig, TrainSession,
                                            stage_batch)
     from repro_torch.tree import tree_leaves, tree_map
     K, A = mods["K"], mods["A"]
-    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=TRAIN_LAYERS)
-    model = Model(cfg)
-    tc = TrainConfig(**DIST_TC)
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.empty_cache()
-    group = make_process_group("cuda")    # one NCCL rank, a local store
     res = {"backend": dist.get_backend(group),
-           "world_size": dist.get_world_size(group)}
-    if res["backend"] != "nccl" or res["world_size"] != 1:
-        raise AssertionError(f"expected one NCCL rank: {res}")
+           "world_size": dist.get_world_size(group), "tc": dict(
+               (k, v) for k, v in dataclasses.asdict(tc).items()
+               if k != "topology")}
+    art = DS.make_train_step(model, group, tc)
+    comm = comm_bytes_per_step(art, tc)
+    torch.cuda.reset_peak_memory_stats()
+    # the main path, with every count at 0 just before it
+    for mod, attr in counters.values():
+        setattr(mods[mod], attr, 0)
+    K.plain_on_cuda = A.plain_on_cuda = 0
+    sess = TrainSession.from_artifacts(
+        art, batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+        SessionConfig(log_every=steps), seed=0, device=dev,
+        log=lambda *_: None)
+    w = run_watched(torch, sess, steps)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: getattr(mods[mod], attr)
+                for name, (mod, attr) in counters.items()}
+    res.update(launches=launches, amax_launches=K.amax_launches)
+    check_run(w, dict(sess.stats), launches,
+              K.plain_on_cuda + A.plain_on_cuda, what, steps)
+    res.update(losses=w["losses"], stats=dict(sess.stats),
+               syncs_at_step_starts=w["starts"],
+               syncs_by_harvest=w["harvests"], sync_warnings=w["syncs"],
+               sync_messages=w["messages"], run_s=w["run_s"],
+               peak_bytes=peak, comm=comm)
+
+    # wall time per steady step, the device's share by kernel
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.run(3)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+    dev_ms, by_kernel = profile_ms(torch, lambda: sess.run(1), steps=2)
+    res.update(step_wall_ms=wall_ms, step_device_ms=dev_ms,
+               device_idle=1 - dev_ms / wall_ms,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / wall_ms * 1e3,
+               step_kernels=by_kernel[:20],
+               wire_kernels_ms=_wire_kernel_ms(by_kernel),
+               update_kernel_ms=sum(t for k, t in by_kernel
+                                    if "adam_moments_kernel" in k))
+
+    # device time by phase (CUDA events at the step's marks; the
+    # update's marks alternate per leaf), one warm step then one
+    events = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((name, ev))
+
+    program_step = sess._program.step
+
+    def marked_step(state, batch):
+        mark("start")
+        return art.step_fn(state, batch, mark=mark)
+    sess._program.step = marked_step
     try:
-        art = make_train_step(model, group, tc)
-        comm = comm_bytes_per_step(art, tc)
-        torch.cuda.reset_peak_memory_stats()
-        # the main path, with every count at 0 just before it
-        for mod, attr in DIST_COUNTERS.values():
-            setattr(mods[mod], attr, 0)
-        K.amax_launches = K.plain_on_cuda = A.plain_on_cuda = 0
-        sess = TrainSession.from_artifacts(
-            art, batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0),
-            SessionConfig(log_every=TRAIN_STEPS), seed=0, device=dev,
-            log=lambda *_: None)
-        w = run_watched(torch, sess, TRAIN_STEPS)
-        peak = torch.cuda.max_memory_allocated()
-        launches = {name: getattr(mods[mod], attr)
-                    for name, (mod, attr) in DIST_COUNTERS.items()}
-        res.update(launches=launches, amax_launches=K.amax_launches)
-        check_run(w, dict(sess.stats), launches,
-                  K.plain_on_cuda + A.plain_on_cuda, "distributed",
-                  TRAIN_STEPS)
-        res.update(losses=w["losses"], stats=dict(sess.stats),
-                   syncs_at_step_starts=w["starts"],
-                   syncs_by_harvest=w["harvests"], sync_warnings=w["syncs"],
-                   sync_messages=w["messages"], run_s=w["run_s"],
-                   peak_bytes=peak, comm=comm)
+        sess.run(1)
+        events.clear()
+        sess.run(1)
+    finally:
+        sess._program.step = program_step
+    events[-1][1].synchronize()
+    phases = {"broadcast": 0.0, "forward_backward": 0.0,
+              "update_exchange": 0.0, "master_update": 0.0}
+    for (_, a), (name, b) in zip(events, events[1:]):
+        phases[name] += a.elapsed_time(b)
+    res["phases_ms"] = phases
 
-        # wall time per steady step, the device's share by kernel
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sess.run(3)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / 3 * 1e3
-        dev_ms, by_kernel = profile_ms(torch, lambda: sess.run(1), steps=2)
-        res.update(step_wall_ms=wall_ms, step_device_ms=dev_ms,
-                   device_idle=1 - dev_ms / wall_ms,
-                   tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / wall_ms * 1e3,
-                   step_kernels=by_kernel[:20],
-                   wire_kernels_ms=_wire_kernel_ms(by_kernel),
-                   update_kernel_ms=sum(t for k, t in by_kernel
-                                        if "adam_moments_kernel" in k))
+    # the payload bytes the collectives move in one step against the
+    # accounting; the scale side channels (per tensor, per block) apart
+    moved = {"exchange": 0, "broadcast": 0, "side": 0}
+    saved = {k: getattr(C, k) for k in ("exchange_rows", "reduce_rows",
+                                        "gather_rows", "gather_side")}
 
-        # device time by phase (CUDA events at the step's marks; the
-        # update's marks alternate per leaf), one warm step then one
-        events = []
-
-        def mark(name):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append((name, ev))
-
-        program_step = sess._program.step
-
-        def marked_step(state, batch):
-            mark("start")
-            return art.step_fn(state, batch, mark=mark)
-        sess._program.step = marked_step
-        try:
-            sess.run(1)
-            events.clear()
-            sess.run(1)
-        finally:
-            sess._program.step = program_step
-        events[-1][1].synchronize()
-        phases = {"broadcast": 0.0, "forward_backward": 0.0,
-                  "update_exchange": 0.0, "master_update": 0.0}
-        for (_, a), (name, b) in zip(events, events[1:]):
-            phases[name] += a.elapsed_time(b)
-        res["phases_ms"] = phases
-
-        # the bytes the collectives move in one step against the
-        # accounting (scale gathers, 0-d, excluded)
-        moved = {"exchange": 0, "broadcast": 0}
-        exchange, gather = C.exchange_rows, C.gather_rows
-
-        def count_exchange(rows, grp):
-            moved["exchange"] += rows.nbytes
-            return exchange(rows, grp)
-
-        def count_gather(x, grp):
-            out = gather(x, grp)
-            if x.dim():
-                moved["broadcast"] += out.nbytes
+    def counted(fn, key, after):
+        def call(x, grp):
+            out = fn(x, grp)
+            moved[key] += (out if after else x).nbytes
             return out
-        C.exchange_rows, C.gather_rows = count_exchange, count_gather
-        try:
-            sess.run(1)
-        finally:
-            C.exchange_rows, C.gather_rows = exchange, gather
-        res["moved_bytes"] = dict(moved)
-        if (moved["exchange"], moved["broadcast"]) != (
-                comm["update_exchange_bytes"], comm["weight_broadcast_bytes"]):
-            raise AssertionError(f"collectives moved {moved}, accounting "
-                                 f"says {comm}")
+        return call
+    C.exchange_rows = counted(saved["exchange_rows"], "exchange", False)
+    C.reduce_rows = counted(saved["reduce_rows"], "exchange", False)
+    C.gather_rows = counted(saved["gather_rows"], "broadcast", True)
+    C.gather_side = counted(saved["gather_side"], "side", True)
+    try:
+        sess.run(1)
+    finally:
+        for k, fn in saved.items():
+            setattr(C, k, fn)
+    res["moved_bytes"] = dict(moved)
+    if (moved["exchange"], moved["broadcast"]) != (
+            comm["update_exchange_bytes"], comm["weight_broadcast_bytes"]):
+        raise AssertionError(f"{what}: collectives moved {moved}, accounting "
+                             f"says {comm}")
 
-        # one update on captured gradients from the trained state: the
-        # step's updater through the kernels, through the plain versions,
-        # and Algorithm 1's qadam.update, each on its own copy, bitwise
-        state = sess.state
-        def leaves_of(tree):     # in the layout's order
-            return tree_leaves(tree_map(lambda _, x: x, art.layout.shapes,
-                                        tree))
-        masters, ms_, vs_, es_ = (leaves_of(state[k])
-                                  for k in ("master", "m", "v", "e"))
-        res["state_bytes"] = sum(x.numel() * 4 for x in
-                                 masters + ms_ + vs_ + es_)
-        res["n_params"] = sum(x.numel() for x in masters)
-        batch = stage_batch(next(batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH,
-                                                 seed=1)), dev)
-        xs = art.broadcast(state)
-        _, grads = art.loss_and_grads(xs, batch)
-        del xs
-        metas = tree_leaves(_leaf_meta(art.layout, 1))
-        mode = get_mode(tc.mode)
-        upd = {b: mode.make_updater(
-            dataclasses.replace(tc, backend=b), WorkerCtx(
-                group=group, n_workers=1, backend=b, tiers=art.tiers))
-            for b in ("cuda", "torch")}
-        qcfg = QAdamConfig(alpha=tc.alpha, beta=tc.beta, theta=tc.theta,
-                           eps=tc.eps, grad_q=f"log:{tc.grad_k}")
-        t = state["count"] + 1
-        hp = engine.hyperparams(_alpha_t(qcfg, t), tc.beta,
-                                _theta_t(qcfg, t), tc.eps, dev)
-        for i, meta in enumerate(metas):
-            g = grads[i].reshape(-1)
-            grads[i] = None
-            new = {}
-            for b in ("cuda", "torch"):
-                copy = [x.clone() for x in (masters[i], ms_[i], vs_[i],
-                                            es_[i])]
-                upd[b](g, copy[1], copy[2], copy[3], copy[0], meta, hp)
-                new[b] = copy
-                if b == "torch":
-                    if not all(bits_equal(torch, x, y)
-                               for x, y in zip(new["cuda"], copy)):
-                        raise AssertionError(
-                            f"captured-gradient update through the kernels "
-                            f"differs from the plain versions (leaf "
-                            f"{meta.shape})")
-                    del new["torch"], copy
+    # one update on captured gradients from the trained state: the step's
+    # updater through the kernels and through the plain versions (and
+    # Algorithm 1's qadam.update), each on its own copy, bitwise
+    state = sess.state
+    def leaves_of(tree):     # in the layout's order
+        return tree_leaves(tree_map(lambda _, x: x, art.layout.shapes,
+                                    tree))
+    keys = [k for k in state if k != "count"]
+    res["state_bytes"] = sum(x.numel() * x.element_size() for k in keys
+                             for x in leaves_of(state[k]))
+    masters, ms_, vs_, es_ = (leaves_of(state[k])
+                              for k in ("master", "m", "v", "e"))
+    res["n_params"] = sum(x.numel() for x in masters)
+    batch = stage_batch(next(batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                             seed=1)), dev)
+    xs = art.broadcast(state)
+    _, grads = art.loss_and_grads(xs, batch)
+    del xs
+    metas = tree_leaves(DS._leaf_meta(art.layout, 1))
+    draw_index = DS._sorted_leaf_index(art.layout.shapes)
+    mode = get_mode(tc.mode)
+    upd = {b: mode.make_updater(
+        dataclasses.replace(tc, backend=b), WorkerCtx(
+            group=group, n_workers=1, backend=b, tiers=art.tiers))
+        for b in ("cuda", "torch")}
+    t = state["count"] + 1
+    sched = QAdamConfig(alpha=tc.alpha, beta=tc.beta, theta=tc.theta,
+                        eps=tc.eps, schedule=tc.schedule)
+    hp = engine.hyperparams(_alpha_t(sched, t), tc.beta, _theta_t(sched, t),
+                            tc.eps, dev)
+    for i, meta in enumerate(metas):
+        g = grads[i].reshape(-1)
+        grads[i] = None
+
+        def draw(n, i=draw_index[i]):
+            return DS.draw_uniform(tc.seed, t, i, 0, n, dev)
+        new = {}
+        for b in ("cuda", "torch"):
+            copy = [x.clone() for x in (masters[i], ms_[i], vs_[i], es_[i])]
+            upd[b](g.clone(), copy[1], copy[2], copy[3], copy[0], meta, hp,
+                   draw=draw)
+            new[b] = copy
+            if b == "torch":
+                if not all(bits_equal(torch, x, y)
+                           for x, y in zip(new["cuda"], copy)):
+                    raise AssertionError(
+                        f"{what}: captured-gradient update through the "
+                        f"kernels differs from the plain versions (leaf "
+                        f"{meta.shape})")
+                del new["torch"], copy
+        if alg1 is not None:
             sub = QAdamState(count=state["count"],
                              m={"x": ms_[i].clone()}, v={"x": vs_[i].clone()},
                              e={"x": es_[i].clone()})
-            u, s2 = qadam(qcfg).update({"x": g}, sub)
+            u, s2 = qadam(alg1).update({"x": g}, sub)
             ref = (apply_updates({"x": masters[i]}, u)["x"], s2.m["x"],
                    s2.v["x"], s2.e["x"])
             if not all(bits_equal(torch, x, y)
@@ -1102,16 +1294,160 @@ def dist_train(torch, dev, mods):
                 raise AssertionError(f"captured-gradient update of Alg 2+3 "
                                      f"differs from Algorithm 1's (leaf "
                                      f"{meta.shape})")
-            del new, sub, u, s2, ref, g
-        del grads, state, masters, ms_, vs_, es_
-        sess.close()
-        del sess, art
-        gc.collect()
-        torch.cuda.empty_cache()
-        res["equivalence"] = equivalence(torch, dev, group, model, cfg)
-    finally:
-        close_process_group()
+            del sub, u, s2, ref
+        del new, g
+    del grads, state, masters, ms_, vs_, es_
+    sess.close()
+    del sess, art
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
+
+
+def dist_train(torch, dev, mods, group, model, cfg):
+    """Phase 6: the paper's qadam on one NCCL rank (DIST_TC), with the
+    captured-gradient update also held against Algorithm 1's, and then
+    Algorithms 2+3 at one worker against Algorithm 1."""
+    from repro_torch.core.qadam import QAdamConfig
+    from repro_torch.dist.step import TrainConfig
+    tc = TrainConfig(**DIST_TC)
+    qcfg = QAdamConfig(alpha=tc.alpha, beta=tc.beta, theta=tc.theta,
+                       eps=tc.eps, grad_q=f"log:{tc.grad_k}")
+    res = dist_run(torch, dev, mods, group, model, cfg, tc, DIST_COUNTERS,
+                   TRAIN_STEPS, "distributed", alg1=qcfg)
+    if res["backend"] != "nccl" or res["world_size"] != 1:
+        raise AssertionError(f"expected one NCCL rank: {res}")
+    res["equivalence"] = equivalence(torch, dev, group, model, cfg)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the baselines, each through launch.train's path on one NCCL rank
+# ---------------------------------------------------------------------------
+
+# the SGD baselines' learning rates, at which the loss falls over
+# MODE_STEPS steps at this cut (PERF.md, section 4)
+TERNGRAD_ALPHA, EF_SGD_ALPHA = 1e-3, 1e-3
+MODE_STEPS = 8
+_ADAM = dict(alpha=1e-3, beta=0.99, theta=0.999)
+MODE_RUNS = {
+    # fp32 both channels: the yardstick
+    "dp_adam": (dict(_ADAM, grad_k=None, weight_k=None, mode="dp_adam"),
+                {"adam_moments": ("A", "moments_launches")}),
+    # the paper's wire plus server EF; amax weights (the absolute grid
+    # clips the norm weights at +/-0.496 and would grow es by 0.504 a
+    # step, ROADMAP queue 3)
+    "efadam": (dict(_ADAM, grad_k=6, weight_k=7, weight_absolute=False,
+                    mode="efadam"),
+               {"adam_moments": ("A", "moments_launches"),
+                "amax_rows": ("K", "amax_launches"),
+                "ef_encode_rows_log": ("K", "ef_encode_log_launches"),
+                "ef_encode_rows_uniform": ("K", "ef_encode_uniform_launches"),
+                "decode_rows_log": ("K", "decode_log_launches"),
+                "decode_rows_uniform": ("K", "decode_uniform_launches")}),
+    "terngrad": (dict(alpha=TERNGRAD_ALPHA, grad_k=None, weight_k=None,
+                      mode="terngrad"),
+                 {"amax_rows": ("K", "amax_launches"),
+                  "encode_rows_ternary": ("K", "encode_ternary_launches"),
+                  "decode_rows_ternary": ("K", "decode_ternary_launches")}),
+    "ef_sgd": (dict(alpha=EF_SGD_ALPHA, beta=0.9, grad_k=None, weight_k=None,
+                    mode="ef_sgd"),
+               {"blockwise_quantize": ("K", "blockwise_quantize_launches")}),
+}
+# the equivalences: a baseline and qadam, bitwise at one worker
+MODE_EQUIV = (("dp_adam", dict(_ADAM, grad_k=None, weight_k=None,
+                               mode="dp_adam"),
+               dict(_ADAM, grad_k=None, weight_k=None, mode="qadam")),
+              ("efadam", dict(_ADAM, grad_k=6, weight_k=None, mode="efadam"),
+               dict(_ADAM, grad_k=6, weight_k=None, mode="qadam")))
+
+
+def modes_train(torch, dev, mods, group, model, cfg):
+    """Phase 7: each baseline of MODE_RUNS through ``dist_run`` (its
+    gates), then MODE_EQUIV's two equivalences."""
+    from repro_torch.dist.step import TrainConfig
+    out = {}
+    for name, (kw, counters) in MODE_RUNS.items():
+        out[name] = dist_run(torch, dev, mods, group, model, cfg,
+                             TrainConfig(**kw), counters, MODE_STEPS, name)
+        r = out[name]
+        print(f"{name}: losses {', '.join(f'{x:.4f}' for x in r['losses'])}; "
+              f"wall {r['step_wall_ms']:.3f} ms, device "
+              f"{r['step_device_ms']:.3f} ms (idle {r['device_idle']:.1%}), "
+              f"{r['tokens_per_s']:.1f} tok/s; phases "
+              + ", ".join(f"{k} {v:.3f}" for k, v in r["phases_ms"].items())
+              + f" ms; peak {r['peak_bytes']} B; state {r['state_bytes']} B; "
+              f"launches {r['launches']}; moved {r['moved_bytes']} (comm "
+              f"exchange {r['comm']['update_exchange_bytes']}, broadcast "
+              f"{r['comm']['weight_broadcast_bytes']}); stats {r['stats']}; "
+              f"captured-gradient update bitwise", flush=True)
+        for kname, t in r["step_kernels"][:8]:
+            print(f"  {t:9.4f} ms  {kname[:90]}")
+    out["equivalences"] = {}
+    for name, a, b in MODE_EQUIV:
+        eq = pair_equivalence(torch, dev, group, model, cfg,
+                              TrainConfig(**a), TrainConfig(**b))
+        out["equivalences"][name] = eq
+        print(f"{name} ({a}) vs qadam ({b}), {eq['steps']} steps: bitwise "
+              f"{eq['bitwise']}; losses {eq['losses']}", flush=True)
+    return out
+
+
+def _session_run(torch, dev, group, model, cfg, tc, steps):
+    """``steps`` steps of ``tc`` from ``model.init(seed=0)``: the losses
+    and the master leaves (on the host)."""
+    import gc
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.dist.step import make_train_step
+    from repro_torch.train.session import SessionConfig, TrainSession
+    from repro_torch.tree import tree_leaves, tree_map
+    art = make_train_step(model, group, tc)
+    sess = TrainSession.from_artifacts(
+        art, batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+        SessionConfig(log_every=1), seed=0, device=dev, log=lambda *_: None)
+    sess.run(steps)
+    losses = [h["loss"] for h in sess.history]
+    params = [x.cpu() for x in tree_leaves(tree_map(
+        lambda _, x: x, art.layout.shapes, sess.state["master"]))]
+    sess.close()
+    del sess, art
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, params
+
+
+def pair_equivalence(torch, dev, group, model, cfg, tc_a, tc_b):
+    """Two distributed configurations that must agree bit for bit at one
+    worker, EQ_STEPS steps each from the same initialization under
+    torch's deterministic algorithms: losses and parameters."""
+    with deterministic(torch):
+        la, pa = _session_run(torch, dev, group, model, cfg, tc_a, EQ_STEPS)
+        lb, pb = _session_run(torch, dev, group, model, cfg, tc_b, EQ_STEPS)
+    bitwise = la == lb and all(bits_equal(torch, x, y)
+                               for x, y in zip(pa, pb))
+    out = dict(bitwise=bitwise, steps=EQ_STEPS, losses=la, other_losses=lb)
+    if not bitwise:
+        raise AssertionError(f"{tc_a.mode} vs {tc_b.mode}: not bitwise: {out}")
+    return out
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """torch's deterministic algorithms (warnings, not errors, where an
+    operation has none; uninitialized memory left unfilled); yields the
+    list of warnings caught."""
+    import warnings
+    import torch.utils.deterministic as det
+    fill = det.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(False)
+        det.fill_uninitialized_memory = fill
 
 
 def equivalence(torch, dev, group, model, cfg):
@@ -1122,65 +1458,43 @@ def equivalence(torch, dev, group, model, cfg):
     deterministic algorithms. Bitwise losses and parameters; where they
     differ, the reference's drift (losses rel LOSS_RTOL, parameters rel
     L2 PARAM_REL_L2) with the nondeterministic operations torch names."""
-    import gc
-    import warnings
-    import torch.utils.deterministic as det
     from repro_torch.core.qadam import QAdamConfig, qadam
     from repro_torch.data.pipeline import batch_for_model
-    from repro_torch.dist.step import TrainConfig, make_train_step
+    from repro_torch.dist.step import TrainConfig
     from repro_torch.train.session import SessionConfig, TrainSession
-    from repro_torch.tree import tree_leaves, tree_map
-    fill = det.fill_uninitialized_memory
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    det.fill_uninitialized_memory = False
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            tc = TrainConfig(**DIST_TC, weight_q_min_numel=EQ_MIN_NUMEL)
-            art = make_train_step(model, group, tc)
-            sess = TrainSession.from_artifacts(
-                art, batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0),
-                SessionConfig(log_every=1), seed=0, device=dev,
-                log=lambda *_: None)
-            sess.run(EQ_STEPS)
-            dist_losses = [h["loss"] for h in sess.history]
-            dist_params = [x.cpu() for x in tree_leaves(tree_map(
-                lambda _, x: x, art.layout.shapes, sess.state["master"]))]
-            sess.close()
-            del sess, art
-            gc.collect()
-            torch.cuda.empty_cache()
+    from repro_torch.tree import tree_leaves
+    with deterministic(torch) as caught:
+        dist_losses, dist_params = _session_run(
+            torch, dev, group, model, cfg,
+            TrainConfig(**DIST_TC, weight_q_min_numel=EQ_MIN_NUMEL), EQ_STEPS)
 
-            def loss_fn(p, b):
-                ls, nt = model.loss(p, b)
-                return ls / nt
-            opt = qadam(QAdamConfig(
-                alpha=DIST_TC["alpha"], beta=DIST_TC["beta"],
-                theta=DIST_TC["theta"], grad_q=f"log:{DIST_TC['grad_k']}",
-                weight_q=f"uniform:{DIST_TC['weight_k']}",
-                weight_q_min_numel=EQ_MIN_NUMEL))
-            ref = TrainSession.from_optimizer(
-                opt, loss_fn, model.init(seed=0, device=dev),
-                batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0),
-                SessionConfig(log_every=1), log=lambda *_: None)
-            ref.run(EQ_STEPS)
-            ref_losses = [h["loss"] for h in ref.history]
-            bitwise = dist_losses == ref_losses
-            num = den = 0.0
-            for a, b in zip(dist_params, tree_leaves(ref.state["params"])):
-                a = a.to(dev)
-                b = b.reshape(-1)
-                bitwise = bitwise and bits_equal(torch, a, b)
-                num += float(((a.double() - b.double()) ** 2).sum())
-                den += float((b.double() ** 2).sum())
-                del a
-            ref.close()
-            del ref, dist_params
-        nondet = sorted({str(w.message)[:200] for w in caught
-                         if "deterministic" in str(w.message)})
-    finally:
-        torch.use_deterministic_algorithms(False)
-        det.fill_uninitialized_memory = fill
+        def loss_fn(p, b):
+            ls, nt = model.loss(p, b)
+            return ls / nt
+        opt = qadam(QAdamConfig(
+            alpha=DIST_TC["alpha"], beta=DIST_TC["beta"],
+            theta=DIST_TC["theta"], grad_q=f"log:{DIST_TC['grad_k']}",
+            weight_q=f"uniform:{DIST_TC['weight_k']}",
+            weight_q_min_numel=EQ_MIN_NUMEL))
+        ref = TrainSession.from_optimizer(
+            opt, loss_fn, model.init(seed=0, device=dev),
+            batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+            SessionConfig(log_every=1), log=lambda *_: None)
+        ref.run(EQ_STEPS)
+        ref_losses = [h["loss"] for h in ref.history]
+        bitwise = dist_losses == ref_losses
+        num = den = 0.0
+        for a, b in zip(dist_params, tree_leaves(ref.state["params"])):
+            a = a.to(dev)
+            b = b.reshape(-1)
+            bitwise = bitwise and bits_equal(torch, a, b)
+            num += float(((a.double() - b.double()) ** 2).sum())
+            den += float((b.double() ** 2).sum())
+            del a
+        ref.close()
+        del ref, dist_params
+    nondet = sorted({str(w.message)[:200] for w in caught
+                     if "deterministic" in str(w.message)})
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(dist_losses,
                                                         ref_losses))
     out = dict(bitwise=bitwise, steps=EQ_STEPS, min_numel=EQ_MIN_NUMEL,
@@ -1193,6 +1507,78 @@ def equivalence(torch, dev, group, model, cfg):
     if not bitwise and not nondet:
         raise AssertionError(f"Alg 2+3 vs Algorithm 1 not bitwise, and torch "
                              f"names no nondeterministic operation: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: Codec.encode / WireBuffer.decode over the cell's parameters
+# ---------------------------------------------------------------------------
+
+WIRE_SPECS = ("log:6", "uniform:7:wire", "uniform_amax:7:wire", "terngrad",
+              "blockwise:256")
+WIRE_COUNTERS = {"amax_rows": ("K", "amax_launches"),
+                 "encode_rows_log": ("K", "encode_log_launches"),
+                 "encode_rows_uniform": ("K", "encode_uniform_launches"),
+                 "encode_rows_ternary": ("K", "encode_ternary_launches"),
+                 "blockwise_encode": ("K", "blockwise_encode_launches"),
+                 "decode_rows_log": ("K", "decode_log_launches"),
+                 "decode_rows_uniform": ("K", "decode_uniform_launches"),
+                 "decode_rows_ternary": ("K", "decode_ternary_launches")}
+
+
+def wire_buffers(torch, dev, mods, model):
+    """Every leaf of the 8-layer cell's initial parameters (seed 0)
+    through ``Codec.encode`` -> ``WireBuffer`` -> ``decode`` for each of
+    WIRE_SPECS (uniforms from ``draw_uniform`` for TernGrad): #5 (each
+    kind; K3 first where the scale is an amax), #8 and K6 launched (counts
+    at 0 just before), no plain version on the card, each buffer's bytes
+    ``codec.wire_nbytes``; each leaf also through the plain versions,
+    bitwise (payloads, scales, decoded leaves)."""
+    from repro_torch.comm import codec as CD
+    from repro_torch.dist.step import draw_uniform
+    from repro_torch.tree import tree_leaves
+    K = mods["K"]
+    params = tree_leaves(model.init(seed=0, device=dev))
+    for mod, attr in WIRE_COUNTERS.values():
+        setattr(mods[mod], attr, 0)
+    K.plain_on_cuda = 0
+    out = {"leaves": len(params), "bytes": {}}
+    for spec in WIRE_SPECS:
+        codec = CD.get_codec(spec)
+        total = 0
+        for i, p in enumerate(params):
+            u = draw_uniform(0, 1, i, 0, p.numel(), dev) \
+                if codec.stochastic else None
+            wb = codec.encode(p, u=u)
+            y = wb.decode()
+            if wb.nbytes != codec.wire_nbytes(p.numel()) or \
+                    y.shape != p.shape or not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"{spec}: a wire buffer of leaf "
+                                     f"{tuple(p.shape)} is malformed")
+            total += wb.nbytes
+            # the comparison's plain calls are not the path's
+            plain = K.plain_on_cuda
+            wp = codec.encode(p, u=u, backend="torch")
+            if not (bits_equal(torch, wb.payload, wp.payload)
+                    and bits_equal(torch, wb.scale, wp.scale)
+                    and bits_equal(torch, y, wp.decode(backend="torch"))):
+                raise AssertionError(f"{spec}: Codec.encode/decode through "
+                                     f"the kernels differs from the plain "
+                                     f"versions (leaf {tuple(p.shape)})")
+            K.plain_on_cuda = plain
+            del wb, y, wp, u
+        out["bytes"][spec] = total
+    launches = {name: getattr(mods[mod], attr)
+                for name, (mod, attr) in WIRE_COUNTERS.items()}
+    out["launches"] = launches
+    if any(n == 0 for n in launches.values()):
+        raise AssertionError(f"a wire-buffer kernel never launched: "
+                             f"{launches}")
+    if K.plain_on_cuda:
+        raise AssertionError(f"{K.plain_on_cuda} plain-version calls on the "
+                             f"card (wire buffers)")
+    del params
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1451,14 +1837,44 @@ def main() -> int:
               f"plain {t['plain_ms']:.4f}{lib} bound {t['bound_ms']:.4f} "
               f"({t['bound_by']})", flush=True)
 
+    e_rows, e_table, e_cases = check_encode_kernels(torch, dev)
+    print(f"baseline kernels #5 (log, uniform, ternary), K6 ternary, #14, #8 "
+          f"bitwise against their plain versions ({e_cases} cases and the "
+          f"w_gate stack)", flush=True)
+    for t in e_table:
+        lib = (f" (amax launch's yardstick x.abs().amax() "
+               f"{t['amax_library_ms']:.4f})" if "amax_library_ms" in t
+               else "")
+        print(f"  {t['name']} {t['spec']} {t['shape']}: {t['ms']:.4f} ms "
+              f"({t['gbs']:.0f} GB/s) plain {t['plain_ms']:.4f} bound "
+              f"{t['bound_ms']:.4f} ({t['bound_by']}){lib}", flush=True)
+
+    mods = {"K": K, "A": A}
     res = serve(torch, dev, {"MM": MM, "paged": paged, "K": K})
-    tr = train(torch, dev, {"K": K, "A": A})
-    ds = dist_train(torch, dev, {"K": K, "A": A})
-    rows += t_rows + w_rows
+    tr = train(torch, dev, mods)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import close_process_group, make_process_group
+    from repro_torch.models.model import Model
+    cfg8 = dataclasses.replace(get_config("yi-6b"), n_layers=TRAIN_LAYERS)
+    model8 = Model(cfg8)
+    group = make_process_group("cuda")    # one NCCL rank, a local store
+    try:
+        ds = dist_train(torch, dev, mods, group, model8, cfg8)
+        md = modes_train(torch, dev, mods, group, model8, cfg8)
+    finally:
+        close_process_group()
+    wb = wire_buffers(torch, dev, mods, model8)
+    print(f"wire buffers: {wb['leaves']} leaves x {len(WIRE_SPECS)} codecs "
+          f"through Codec.encode/decode, bitwise the plain versions; bytes "
+          f"{wb['bytes']}; launches {wb['launches']}", flush=True)
+    rows += t_rows + w_rows + e_rows
     for r in rows:
         by_path = {"serve": res["launches"].get(r["name"], 0),
                    "train": tr["launches"].get(r["name"], 0),
                    "dist": ds["launches"].get(r["name"], 0)}
+        by_path.update({m: md[m]["launches"].get(r["name"], 0)
+                        for m in MODE_RUNS})
+        by_path["wire"] = wb["launches"].get(r["name"], 0)
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
     print(f"served {res['tokens']} tokens in {res['serve_s']:.3f} s "
@@ -1537,7 +1953,9 @@ def main() -> int:
         json.dump(dict(card=card, kernels=rows, k1_cases=mm_table,
                        k1_noise=mm_noise, k1_timed=mm_timed, serve=res,
                        train_kernels=t_table, train=tr,
-                       wire_kernels=w_table, dist=ds), fh, indent=1)
+                       wire_kernels=w_table, dist=ds,
+                       encode_kernels=e_table, modes=md, wire_buffers=wb),
+                  fh, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

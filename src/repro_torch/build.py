@@ -8,8 +8,9 @@ sources and flags, so a checkout builds it on first use and reuses it
 after. Nothing here runs at import time.
 
 Flags keep IEEE division, square root and rounding (no
-``--use_fast_math``): the quantize, dequantize, Adam+EF, wire codec
-and gather kernels are held bitwise against their plain versions. The
+``--use_fast_math``): the quantize, dequantize, Adam+EF, wire codec,
+blockwise and gather kernels are held bitwise against their plain
+versions. The
 grids and lanes they share live in ``csrc/grids.cuh``, which the hash
 covers.
 """
@@ -59,9 +60,17 @@ SIGNATURES = {
     # clip_abs, stream
     "rt_ef_encode_rows": [_P, _P, _P, _P, _L, _I, _L, _L, _I, _I, _I, _I,
                           _P],
+    # x, u, scale, guard, scale_out, payload, n, n_rows, c, row_bytes, kind,
+    # bits, k, clip_abs, stream
+    "rt_encode_rows": [_P, _P, _P, _I, _P, _P, _L, _I, _L, _L, _I, _I, _I,
+                       _I, _P],
     # payload, scales, table, half, out, out_n, n_rows, c, row_bytes, kind,
     # bits, k, stream
     "rt_decode_rows": [_P, _P, _P, _I, _P, _L, _I, _L, _L, _I, _I, _I, _P],
+    # x, codes, scales, n, nb, stream
+    "rt_blockwise_quantize": [_P, _P, _P, _L, _L, _P],
+    # x, payload, scales, n, nb, payload_bytes, stream
+    "rt_blockwise_encode": [_P, _P, _P, _L, _L, _L, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,12 +1,13 @@
 """Backend policy, the codecs and the wire's row entry points (port of
 ``repro/comm/codec.py``): the log Q_g and uniform Q_x grids (scales,
-quantize, dequantize, lane widths), the f32 identity codec, exact byte
-accounting (``payload_nbytes``, ``wire_nbytes``), the spec registry
-(``get_codec``) and the worker-ownership rows of Algorithm 2
-(``encode_rows_ef``, K7; ``decode_rows``, K6), whose payloads are byte
-for byte the reference's. ``WireBuffer``, ``Codec.encode``/``decode``
-and ``encode_rows`` need the fused amax encode (#5 in ``PERF.md``) and
-raise until it is ported (ROADMAP.md queue 2).
+quantize, dequantize, lane widths), the baselines' TernGrad ternary and
+blockwise sign codecs, the f32 identity codec, exact byte accounting
+(``payload_nbytes``, ``wire_nbytes``), the spec registry
+(``get_codec``), the single-tensor ``WireBuffer`` of ``Codec.encode``
+(#5, or #8 for the blockwise codec) and ``Codec.decode`` (K6), and the
+worker-ownership rows of Algorithm 2 (``encode_rows``, #5;
+``encode_rows_ef``, K7; ``decode_rows``, K6), whose payloads are byte
+for byte the reference's.
 
 Backends: ``"torch"`` is the plain PyTorch version of a kernel (what the
 CPU tests run, and the yardstick a kernel is held against on the card);
@@ -17,7 +18,8 @@ explicit backend always wins; ``"cuda"`` on a CPU tensor raises.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -51,18 +53,15 @@ def _amax_scale(x: torch.Tensor, backend: Optional[str]) -> torch.Tensor:
     return engine.amax_scale(amax[0])
 
 
-_NOT_PORTED = ("needs the fused amax encode (comm/kernels.py:203 "
-               "encode_pallas, #5), not ported yet (ROADMAP.md queue 2); "
-               "the distributed step's wire runs encode_rows_ef and "
-               "decode_rows")
-
-
 class _Codec:
     """Byte accounting shared by the codecs: ``payload_nbytes`` counts
     the packed codes (what the collectives move), ``wire_nbytes`` adds
-    the float32 scale side-channel."""
+    the float32 scale side-channel. ``encode``/``decode`` of the
+    one-scale codecs (log, uniform, ternary) run #5 and K6 over one
+    payload row."""
 
     stochastic = False
+    static_scale = None   # a data-independent scale, else an amax pass
 
     def scale_numel(self, numel: int) -> int:
         return 1
@@ -78,11 +77,26 @@ class _Codec:
         single multiply."""
         return None
 
-    def encode(self, x, *, key=None, backend=None):
-        raise NotImplementedError(f"Codec.encode {_NOT_PORTED}")
+    def encode(self, x: torch.Tensor, *, u: Optional[torch.Tensor] = None,
+               backend: Optional[str] = None) -> "WireBuffer":
+        """Fused amax + quantize + pack (#5) of x, read flat ->
+        :class:`WireBuffer`. A stochastic codec takes its uniforms ``u``
+        (float32, x's numel)."""
+        if self.stochastic and u is None:
+            raise ValueError(f"{self.name} codec is stochastic; pass u=")
+        flat = x.reshape(-1).to(torch.float32).contiguous()
+        payload, scale = encode_rows(flat, self, 1, u=u, backend=backend)
+        return WireBuffer(payload=payload.reshape(-1), scale=scale,
+                          spec=self.spec, shape=tuple(x.shape))
 
-    def decode(self, wb, *, backend=None, out_dtype=None):
-        raise NotImplementedError(f"Codec.decode {_NOT_PORTED}")
+    def decode(self, wb: "WireBuffer", *, backend: Optional[str] = None,
+               out_dtype=torch.float32) -> torch.Tensor:
+        """Fused unpack + dequantize (K6) of a :class:`WireBuffer`."""
+        n = wb.numel
+        vals = decode_rows(wb.payload.reshape(1, -1),
+                           wb.scale.reshape(1).to(torch.float32), self, n,
+                           backend=backend)
+        return vals.reshape(wb.shape).to(out_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,6 +187,10 @@ class UniformCodec(_Codec):
         top = 2 ** (self.bits - 1) - 1
         return top if 2 ** self.k_x > top else None
 
+    @property
+    def static_scale(self) -> Optional[float]:
+        return 0.5 if self.absolute else None
+
     def compute_scale(self, x: torch.Tensor,
                       backend: Optional[str] = None) -> torch.Tensor:
         """0.5 for the absolute grid, else ``grids.amax_scale`` (zero
@@ -209,6 +227,68 @@ def uniform_wire_codec(k_x: int, absolute: bool = True) -> UniformCodec:
 
 
 @dataclasses.dataclass(frozen=True)
+class TernaryCodec(_Codec):
+    """TernGrad: unbiased stochastic ternary {-1, 0, +1} against the
+    per-tensor amax scale, 2-bit lanes."""
+
+    name = "terngrad"
+    kind = "ternary"
+    stochastic = True
+    spec = "terngrad"
+    bits = 2
+    k = 0
+    clip_abs = None
+
+    def compute_scale(self, x: torch.Tensor,
+                      backend: Optional[str] = None) -> torch.Tensor:
+        return _amax_scale(x, backend)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockwiseCodec(_Codec):
+    """Zheng et al. '19: sign codes + per-block mean |x| scales, 2-bit
+    lanes. Outside the ``encode_rows``/``decode_rows`` contract (one
+    scale per source row): the ``ef_sgd`` mode packs its rows itself and
+    slices the scale columns of its chunk
+    (``dist.modes.base.blockwise_exchange``)."""
+
+    block: int = 256
+    name = "blockwise"
+    kind = "blockwise"
+    bits = 2
+    k = 0
+    clip_abs = None
+
+    @property
+    def spec(self) -> str:
+        return f"blockwise:{self.block}"
+
+    def scale_numel(self, numel: int) -> int:
+        return -(-int(numel) // self.block)
+
+    def encode(self, x: torch.Tensor, *, u=None,
+               backend: Optional[str] = None) -> "WireBuffer":
+        """Sign + block scale + 2-bit pack in one launch (#8)."""
+        from repro_torch.comm import kernels as K
+        payload, scales = K.blockwise_encode(
+            x.reshape(-1).to(torch.float32), self.block, backend=backend)
+        return WireBuffer(payload=payload, scale=scales, spec=self.spec,
+                          shape=tuple(x.shape))
+
+    def decode(self, wb: "WireBuffer", *, backend: Optional[str] = None,
+               out_dtype=torch.float32) -> torch.Tensor:
+        """Unpack and dequantize in plain tensor code, as the reference
+        (no kernel of its own)."""
+        n = wb.numel
+        nb = self.scale_numel(n)
+        codes = B.unpack_flat(wb.payload, self.bits, n)
+        codes2d = torch.nn.functional.pad(
+            codes, (0, nb * self.block - n)).reshape(nb, self.block)
+        vals = grids.blockwise_dequantize(codes2d, wb.scale)
+        return vals.reshape(-1)[:n].to(out_dtype).reshape(wb.shape)
+
+
+@dataclasses.dataclass(frozen=True)
 class IdentityCodec(_Codec):
     """No compression: the payload is the float32 bytes (4 per element),
     no scale."""
@@ -225,13 +305,49 @@ class IdentityCodec(_Codec):
     def payload_nbytes(self, numel: int) -> int:
         return 4 * int(numel)
 
+    def encode(self, x: torch.Tensor, *, u=None,
+               backend: Optional[str] = None) -> "WireBuffer":
+        flat = x.reshape(-1).to(torch.float32).contiguous()
+        return WireBuffer(payload=flat.view(torch.uint8),
+                          scale=torch.zeros(0, dtype=torch.float32,
+                                            device=x.device),
+                          spec=self.spec, shape=tuple(x.shape))
 
+    def decode(self, wb: "WireBuffer", *, backend: Optional[str] = None,
+               out_dtype=torch.float32) -> torch.Tensor:
+        return wb.payload.view(torch.float32).to(out_dtype).reshape(wb.shape)
+
+
+@dataclasses.dataclass
 class WireBuffer:
-    """The reference's packed single-tensor buffer; it comes with the
-    fused amax encode."""
+    """One tensor in wire form: the packed uint8 payload
+    (``codec.payload_nbytes(numel)`` bytes, flat) and its float32
+    scale(s): () per tensor, (nb,) per block (blockwise), (0,) for the
+    identity codec. ``spec`` and ``shape`` name the codec and the
+    logical shape, enough to decode."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"WireBuffer {_NOT_PORTED}")
+    payload: torch.Tensor
+    scale: torch.Tensor
+    spec: str
+    shape: Tuple[int, ...]
+
+    @property
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def bits(self) -> int:
+        return get_codec(self.spec).bits
+
+    @property
+    def nbytes(self) -> int:
+        """The buffer's bytes, payload and scales."""
+        return self.payload.nbytes + self.scale.nbytes
+
+    def decode(self, *, backend: Optional[str] = None,
+               out_dtype=torch.float32) -> torch.Tensor:
+        return get_codec(self.spec).decode(self, backend=backend,
+                                           out_dtype=out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -240,9 +356,9 @@ class WireBuffer:
 
 def get_codec(spec: Optional[str]):
     """Parse a codec spec string (the reference's grammar): 'none',
-    'log:k', 'uniform:k', 'uniform_amax:k'; a trailing ':wire' or ':wN'
-    on the uniform specs selects the clipped wire lanes. The baselines'
-    'terngrad' and 'blockwise:b' are not ported yet."""
+    'log:k', 'uniform:k', 'uniform_amax:k', 'terngrad' (or 'ternary'),
+    'blockwise:b'; a trailing ':wire' or ':wN' on the uniform specs
+    selects the clipped wire lanes."""
     if spec is None or spec in ("none", "identity", "fp32"):
         return IdentityCodec()
     parts = spec.split(":")
@@ -264,10 +380,10 @@ def get_codec(spec: Optional[str]):
         if wire_bits == "wire":
             return uniform_wire_codec(k_x, absolute)
         return UniformCodec(k_x=k_x, absolute=absolute, wire_bits=wire_bits)
-    if head in ("terngrad", "ternary", "blockwise"):
-        raise NotImplementedError(
-            f"codec {spec!r} is not ported yet: its kernels (#13, #14, #8) "
-            "are queued in ROADMAP.md")
+    if head in ("terngrad", "ternary"):
+        return TernaryCodec()
+    if head == "blockwise":
+        return BlockwiseCodec(block=int(arg or 256))
     raise ValueError(f"unknown codec spec: {spec}")
 
 
@@ -275,8 +391,28 @@ def get_codec(spec: Optional[str]):
 # row-chunked wire entry points (the layout the collectives move)
 # ---------------------------------------------------------------------------
 
-def encode_rows(x, codec, n_rows, *, key=None, backend=None):
-    raise NotImplementedError(f"encode_rows {_NOT_PORTED}")
+def _check_row_codec(codec) -> None:
+    if codec.kind == "blockwise":
+        raise NotImplementedError(
+            "the blockwise codec's per-block scales are outside the "
+            "one-scale-per-row contract of encode_rows/decode_rows (as in "
+            "the reference): ef_sgd runs dist.modes.base.blockwise_exchange")
+
+
+def encode_rows(x: torch.Tensor, codec, n_rows: int, *,
+                u: Optional[torch.Tensor] = None,
+                backend: Optional[str] = None):
+    """Fused encode (#5) into worker-ownership rows: flat x ->
+    ``(n_rows, payload_nbytes(c))`` uint8 payload (byte-aligned per row,
+    the array the all-to-all moves) and the per-tensor scale (0-d). A
+    stochastic codec (TernGrad) takes its uniforms ``u`` over the flat
+    x (the reference draws them from its key)."""
+    from repro_torch.comm import kernels as K
+    _check_row_codec(codec)
+    if codec.stochastic and u is None:
+        raise ValueError(f"{codec.name} codec is stochastic; pass u=")
+    flat = x.reshape(-1).to(torch.float32).contiguous()
+    return K.encode_rows(flat, codec, n_rows, u=u, backend=backend)
 
 
 def encode_rows_ef(x: torch.Tensor, scale: torch.Tensor, codec,
@@ -298,5 +434,6 @@ def decode_rows(payload_rows: torch.Tensor, scales: torch.Tensor, codec,
     uint8 + per-source-row scales -> ``(n_rows, c)`` float32 values, or
     the first ``out.numel()`` of them written into ``out``."""
     from repro_torch.comm import kernels as K
+    _check_row_codec(codec)
     return K.decode_rows(payload_rows, scales, codec, c, backend=backend,
                          out=out)

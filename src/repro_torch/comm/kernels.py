@@ -1,20 +1,24 @@
 """K3 per-row amax, K4 per-row uniform quantize, K12 per-row uniform
 dequantize and K11 log-grid dequantize: the Q_x passes behind
 ``quantize_params`` and the training forward copy, and the Q_g decode of
-the update. K7 fused EF encode and K6 fused decode: the wire of the
-distributed step (both channels).
+the update. K7 fused EF encode, #5 fused encode and K6 fused decode: the
+wire of the distributed step (both channels, every codec with one scale
+per row). #14 blockwise quantize and #8 blockwise encode: the sign codes
+and per-block scales of the ``ef_sgd`` baseline.
 
 Replace ``repro/comm/kernels.py`` ``amax_pallas``,
 ``uniform_quantize_pallas``, ``uniform_dequantize_pallas``,
-``log_dequantize_pallas``, ``ef_encode_pallas`` and ``decode_pallas``.
-The kernels live in ``csrc/quantize.cu``, ``csrc/dequantize.cu`` and
-``csrc/codec.cu`` (design notes there): all are bound by bytes. One
-launch covers every row of a ``(rows, n)`` view, so a stacked
-``(L, ...)`` leaf gets its L per-layer scales (the reference's vmap over
-layers) in one launch, and a whole leaf its one scale with rows = 1.
-K7 and K6 work in the flat per-row lane layout of ``comm/bits.py``
-``pack_rows``/``unpack_rows`` (the wire contract), not the reference's
-VMEM tiling.
+``log_dequantize_pallas``, ``ef_encode_pallas``, ``encode_pallas``,
+``decode_pallas``, ``blockwise_quantize_pallas`` and
+``encode_blockwise_pallas``. The kernels live in ``csrc/quantize.cu``,
+``csrc/dequantize.cu``, ``csrc/codec.cu`` and ``csrc/blockwise.cu``
+(design notes there): all are bound by bytes. One launch covers every
+row of a ``(rows, n)`` view, so a stacked ``(L, ...)`` leaf gets its L
+per-layer scales (the reference's vmap over layers) in one launch, and a
+whole leaf its one scale with rows = 1. K7, #5 and K6 work in the flat
+per-row lane layout of ``comm/bits.py`` ``pack_rows``/``unpack_rows``
+(the wire contract), not the reference's VMEM tiling; #5's amax is K3's
+kernel, launched on the flat x before the encode kernel, on one stream.
 
 Beside each kernel: its plain PyTorch version, which a wrapper runs only
 for CPU tensors or when asked with ``backend="torch"``, and plain-int
@@ -37,8 +41,14 @@ dequantize_launches = 0    # K12 kernel launches
 log_dequantize_launches = 0  # K11 kernel launches
 ef_encode_log_launches = 0       # K7 kernel launches, log codes
 ef_encode_uniform_launches = 0   # K7 kernel launches, uniform codes
+encode_log_launches = 0          # #5 encode launches, log codes
+encode_uniform_launches = 0      # #5 encode launches, uniform codes
+encode_ternary_launches = 0      # #5 encode launches, ternary codes
 decode_log_launches = 0          # K6 kernel launches, log codes
 decode_uniform_launches = 0      # K6 kernel launches, uniform codes
+decode_ternary_launches = 0      # K6 kernel launches, ternary codes
+blockwise_quantize_launches = 0  # #14 kernel launches
+blockwise_encode_launches = 0    # #8 kernel launches
 plain_on_cuda = 0          # plain versions run on CUDA tensors
 
 
@@ -194,26 +204,30 @@ def log_dequantize(codes: torch.Tensor, scale: torch.Tensor, k_g: int,
 
 
 # ---------------------------------------------------------------------------
-# K7 fused EF encode and K6 fused decode (the wire, csrc/codec.cu)
+# K7 fused EF encode, #5 fused encode and K6 fused decode (the wire,
+# csrc/codec.cu)
 # ---------------------------------------------------------------------------
 
-_KINDS = {"log": 0, "uniform": 1}
+_KINDS = {"log": 0, "uniform": 1, "ternary": 2}
 
 
 def _check_wire_codec(codec) -> None:
     if codec.kind not in _KINDS:
-        raise ValueError(f"the wire kernels take log and uniform codecs, "
-                         f"got {codec.kind!r}")
+        raise ValueError(f"the wire kernels take log, uniform and ternary "
+                         f"codecs, got {codec.kind!r}")
     if codec.bits not in B.SUPPORTED_BITS:
         raise ValueError(f"lane width {codec.bits} not in "
                          f"{B.SUPPORTED_BITS}")
 
 
-def _wire_quantize(codec, x, scale):
+def _wire_quantize(codec, x, scale, u=None):
     """The codec's codes of float32 x against ``scale`` (broadcasting),
-    clipped to its lane where it clips (the reference's ``_quant``)."""
+    clipped to its lane where it clips (the reference's ``_quant``);
+    ternary codes draw on the uniforms ``u`` of x's shape."""
     if codec.kind == "log":
         return grids.log_quantize(x, scale, codec.k)
+    if codec.kind == "ternary":
+        return grids.ternary_quantize(x, u, scale)
     codes = grids.uniform_quantize(x, scale, codec.k)
     if codec.clip_abs is not None:
         codes = torch.clamp(codes, -codec.clip_abs, codec.clip_abs)
@@ -223,7 +237,16 @@ def _wire_quantize(codec, x, scale):
 def _wire_dequantize(codec, codes, scale):
     if codec.kind == "log":
         return grids.log_dequantize(codes, scale, codec.k)
+    if codec.kind == "ternary":
+        return grids.ternary_dequantize(codes, scale)
     return grids.uniform_dequantize(codes, scale, codec.k)
+
+
+def _check_flat_x(x: torch.Tensor, n_rows: int) -> None:
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"need a contiguous float32 tensor, got {x.dtype}")
+    if not 1 <= n_rows <= 65535 or x.numel() < 1:
+        raise ValueError(f"n_rows={n_rows} outside [1, 65535] or empty x")
 
 
 def _ef_encode_rows_torch(flat, scale, codec, n_rows):
@@ -266,12 +289,12 @@ def ef_encode_rows(x: torch.Tensor, scale: torch.Tensor, codec,
     when given (it may be x itself)."""
     global plain_on_cuda
     _check_wire_codec(codec)
-    if x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"need a contiguous float32 tensor, got {x.dtype}")
+    if codec.kind == "ternary":
+        raise ValueError("K7 keeps a residual for log and uniform codes; "
+                         "the ternary wire has no error feedback")
+    _check_flat_x(x, n_rows)
     if scale.numel() != 1 or scale.dtype != torch.float32:
         raise ValueError("scale must be one float32 value")
-    if not 1 <= n_rows <= 65535 or x.numel() < 1:
-        raise ValueError(f"n_rows={n_rows} outside [1, 65535] or empty x")
     if out is not None and (out.dtype != torch.float32 or
                             out.shape != x.shape or
                             not out.is_contiguous()):
@@ -289,15 +312,93 @@ def ef_encode_rows(x: torch.Tensor, scale: torch.Tensor, codec,
     return payload, (e_new if out is None else out.copy_(e_new))
 
 
+def _encode_rows_torch(flat, codec, n_rows, u):
+    if codec.static_scale is not None:
+        scale = torch.full((), codec.static_scale, dtype=torch.float32,
+                           device=flat.device)
+    else:
+        scale = grids.amax_scale(flat)
+    codes = _wire_quantize(codec, flat, scale, u)
+    return B.pack_rows(B.pad_rows(codes, n_rows), codec.bits), scale
+
+
+def _encode_rows_cuda(flat, codec, n_rows, u):
+    global encode_log_launches, encode_uniform_launches
+    global encode_ternary_launches
+    lib = build.library()
+    n = flat.numel()
+    c = -(-n // n_rows)
+    row_bytes = B.payload_nbytes(c, codec.bits)
+    payload = torch.empty((n_rows, row_bytes), dtype=torch.uint8,
+                          device=flat.device)
+    if codec.static_scale is not None:
+        # _encode1_body: the known scale, launch 2 alone
+        scale = torch.full((), codec.static_scale, dtype=torch.float32,
+                           device=flat.device)
+        scale_in, scale_out, guard = scale, None, 0
+    else:
+        # launch 1: K3 folds max|x| into a device word; launch 2 reads it
+        # under the zero guard and writes the scale it used
+        scale_in = _amax_rows_cuda(flat.reshape(1, -1))
+        scale = torch.empty((), dtype=torch.float32, device=flat.device)
+        scale_out, guard = build.ptr(scale), 1
+    err = lib.rt_encode_rows(
+        build.ptr(flat), None if u is None else build.ptr(u),
+        build.ptr(scale_in), guard, scale_out, build.ptr(payload), n, n_rows,
+        c, row_bytes, _KINDS[codec.kind], codec.bits, codec.k,
+        codec.clip_abs or 0, build.stream_ptr(flat.device))
+    build.check(err, "encode_rows")
+    if codec.kind == "log":
+        encode_log_launches += 1
+    elif codec.kind == "uniform":
+        encode_uniform_launches += 1
+    else:
+        encode_ternary_launches += 1
+    return payload, scale
+
+
+def encode_rows(x: torch.Tensor, codec, n_rows: int,
+                u: Optional[torch.Tensor] = None,
+                backend: Optional[str] = None):
+    """#5: the fused amax + quantize + pack of x (float32, any shape,
+    read flat) with a log, uniform or ternary codec into ``n_rows``
+    worker-ownership rows of ``ceil(numel / n_rows)`` elements (zero
+    codes past the end). The scale is the codec's static one (the
+    absolute uniform grid: one launch) or ``where(amax > 0, amax, 1)``
+    (K3's amax launch, then the encode launch, no host sync). ``u``:
+    the ternary codec's uniforms in [0, 1), float32 of x's numel, read at
+    x's flat index. Returns ``(payload (n_rows, codec.payload_nbytes(c))
+    uint8, scale)``, the scale a 0-d float32 tensor on x's device."""
+    global plain_on_cuda
+    _check_wire_codec(codec)
+    _check_flat_x(x, n_rows)
+    flat = x.reshape(-1)
+    if codec.kind == "ternary":
+        if u is None or u.dtype != torch.float32 or \
+                u.numel() != flat.numel() or not u.is_contiguous():
+            raise ValueError("the ternary codec needs contiguous float32 "
+                             "uniforms u of x's numel")
+        u = u.reshape(-1)
+    else:
+        u = None
+    if resolve_backend(backend, x) == "cuda":
+        if u is not None and not u.is_cuda:
+            raise ValueError("u must lie on x's device")
+        return _encode_rows_cuda(flat, codec, n_rows, u)
+    plain_on_cuda += x.is_cuda
+    return _encode_rows_torch(flat, codec, n_rows, u)
+
+
 def _decode_rows_cuda(payload_rows, scales, codec, c, out):
     global decode_log_launches, decode_uniform_launches
+    global decode_ternary_launches
     lib = build.library()
     n_rows, row_bytes = payload_rows.shape
     if codec.kind == "log":
         table = _log_table(codec.k, payload_rows.device)
         half = table.shape[0] // 2
     else:
-        table, half = scales, 0      # not read by the uniform kind
+        table, half = scales, 0      # read by the log kind only
     err = lib.rt_decode_rows(
         build.ptr(payload_rows), build.ptr(scales), build.ptr(table), half,
         build.ptr(out), out.numel(), n_rows, c, row_bytes,
@@ -306,8 +407,10 @@ def _decode_rows_cuda(payload_rows, scales, codec, c, out):
     build.check(err, "decode_rows")
     if codec.kind == "log":
         decode_log_launches += 1
-    else:
+    elif codec.kind == "uniform":
         decode_uniform_launches += 1
+    else:
+        decode_ternary_launches += 1
     return out
 
 
@@ -315,7 +418,7 @@ def decode_rows(payload_rows: torch.Tensor, scales: torch.Tensor, codec,
                 c: int, backend: Optional[str] = None, out=None):
     """K6: unpack ``(n_rows, codec.payload_nbytes(c))`` uint8 payload
     rows and dequantize row r against ``scales[r]`` ((n_rows,) float32,
-    each source worker's own scale). Returns ``(n_rows, c)`` float32, or
+    each source worker's own). Returns ``(n_rows, c)`` float32, or
     fills ``out`` (contiguous float32 of at most n_rows * c elements) with
     the first ``out.numel()`` values in row-major order, dropping the
     rows' padding, and returns it."""
@@ -348,3 +451,75 @@ def decode_rows(payload_rows: torch.Tensor, scales: torch.Tensor, codec,
     if out is None:
         return vals
     return out.copy_(vals.reshape(-1)[:out.numel()].reshape(out.shape))
+
+
+# ---------------------------------------------------------------------------
+# #14 blockwise quantize and #8 blockwise encode (csrc/blockwise.cu)
+# ---------------------------------------------------------------------------
+
+BLOCK = 256    # the kernels' block; the plain versions take any power of 2
+
+
+def _blocks(flat: torch.Tensor, block: int) -> torch.Tensor:
+    """Flat x -> (nb, block), the tail zero-padded (the reference's)."""
+    n = flat.numel()
+    nb = -(-n // block)
+    return torch.nn.functional.pad(flat, (0, nb * block - n)).reshape(
+        nb, block)
+
+
+def _blockwise_args(x: torch.Tensor, block: int, backend):
+    if x.dtype != torch.float32 or x.numel() < 1:
+        raise ValueError(f"need a nonempty float32 tensor, got {x.dtype}")
+    flat = x.reshape(-1).contiguous()
+    bk = resolve_backend(backend, x)
+    if bk == "cuda" and block != BLOCK:
+        raise ValueError(f"the blockwise kernels take blocks of {BLOCK}, "
+                         f"got {block}")
+    return flat, -(-flat.numel() // block), bk
+
+
+def blockwise_quantize(x: torch.Tensor, block: int = BLOCK,
+                       backend: Optional[str] = None):
+    """#14: sign codes and per-block mean |x| over flat blocks of
+    ``block`` elements of float32 x (any shape, read flat; the tail block
+    zero-padded). Returns ((nb, block) int8 codes, (nb,) float32
+    scales)."""
+    global plain_on_cuda, blockwise_quantize_launches
+    flat, nb, bk = _blockwise_args(x, block, backend)
+    if bk == "cuda":
+        lib = build.library()
+        codes = torch.empty((nb, block), dtype=torch.int8, device=x.device)
+        scales = torch.empty(nb, dtype=torch.float32, device=x.device)
+        err = lib.rt_blockwise_quantize(build.ptr(flat), build.ptr(codes),
+                                        build.ptr(scales), flat.numel(), nb,
+                                        build.stream_ptr(x.device))
+        build.check(err, "blockwise_quantize")
+        blockwise_quantize_launches += 1
+        return codes, scales
+    plain_on_cuda += x.is_cuda
+    return grids.blockwise_quantize(_blocks(flat, block))
+
+
+def blockwise_encode(x: torch.Tensor, block: int = BLOCK,
+                     backend: Optional[str] = None):
+    """#8: #14's codes packed to 2-bit lanes in one pass: float32 x (any
+    shape, read flat) -> (flat payload of ``payload_nbytes(numel, 2)``
+    uint8, (nb,) float32 scales), the payload that of ``pack_flat`` of
+    the padded codes, cut to the numel's bytes."""
+    global plain_on_cuda, blockwise_encode_launches
+    flat, nb, bk = _blockwise_args(x, block, backend)
+    nbytes = B.payload_nbytes(flat.numel(), 2)
+    if bk == "cuda":
+        lib = build.library()
+        payload = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+        scales = torch.empty(nb, dtype=torch.float32, device=x.device)
+        err = lib.rt_blockwise_encode(build.ptr(flat), build.ptr(payload),
+                                      build.ptr(scales), flat.numel(), nb,
+                                      nbytes, build.stream_ptr(x.device))
+        build.check(err, "blockwise_encode")
+        blockwise_encode_launches += 1
+        return payload, scales
+    plain_on_cuda += x.is_cuda
+    codes, scales = grids.blockwise_quantize(_blocks(flat, block))
+    return B.pack_flat(codes, 2)[:nbytes], scales

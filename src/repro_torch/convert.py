@@ -54,10 +54,12 @@ def qadam_state_from_numpy(state, device="cuda") -> QAdamState:
 
 def dist_state_from_numpy(state, rank: int, n_workers: int, device="cuda"):
     """The reference's chunked distributed state (``master``, ``m``,
-    ``v``, ``e``: trees of arrays shaped ``worker_sizes + (1, X)``, and
-    ``count``), as numpy -> rank ``rank``'s state of
-    ``repro_torch.dist.step`` (flat float32 leaves, the count on the
-    host). One model shard only, as the port's step."""
+    ``v``, ``e`` and a mode's extra leaves such as ``efadam``'s ``es``:
+    trees of arrays shaped ``worker_sizes + (1, X)``, X the chunk or the
+    whole leaf as the mode lays out its moments; and ``count``), as numpy
+    -> rank ``rank``'s state of ``repro_torch.dist.step`` (flat float32
+    leaves, the count on the host). One model shard only, as the port's
+    step."""
     def leaf(a):
         a = np.asarray(a)
         if a.size % n_workers:
@@ -71,6 +73,6 @@ def dist_state_from_numpy(state, rank: int, n_workers: int, device="cuda"):
             return {k: tree(v) for k, v in t.items()}
         return leaf(t)
 
-    return {"master": tree(state["master"]), "m": tree(state["m"]),
-            "v": tree(state["v"]), "e": tree(state["e"]),
-            "count": int(np.asarray(state["count"]))}
+    out = {k: tree(v) for k, v in state.items() if k != "count"}
+    out["count"] = int(np.asarray(state["count"]))
+    return out

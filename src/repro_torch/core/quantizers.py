@@ -9,8 +9,10 @@ uses).
       X = {-1, ..., -1/2^{k_x}, 0, 1/2^{k_x}, ..., 1}          (uniform grid)
 
 Each operator wraps a codec of ``repro_torch.comm.codec``; ``QTensor``
-holds the unpacked integer codes and the scale. The baselines' operators
-(TernGrad, blockwise sign) wait for their kernels (ROADMAP.md).
+holds the unpacked integer codes and the scale. The Algorithm 1
+baselines' operators (TernGrad, blockwise sign) are not ported yet
+(ROADMAP.md queue 1; the codecs of those names are, for the distributed
+baselines).
 """
 from __future__ import annotations
 

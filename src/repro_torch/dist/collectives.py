@@ -5,7 +5,8 @@ float32 rows where a channel is unquantized.
 
 The reference names its workers by mesh axes inside ``shard_map``; here
 a process group is the worker axis and a rank its worker index. Two
-channels, both error-compensated in ``repro_torch.dist.step``:
+channels, both error-compensated in ``repro_torch.dist.step`` (the
+baselines' variants in ``repro_torch.dist.modes``):
 
   * **update exchange** (worker -> server): each worker K7-encodes its
     update ``Delta_t + e_t`` into per-chunk payload rows and all-to-alls
@@ -44,9 +45,7 @@ def worker_index(group) -> int:
     return dist.get_rank(group)
 
 
-def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
-    """All-gather one per-worker tensor -> (n_workers, *x.shape), rows in
-    rank order (one flat all-gather: gloo takes flat buffers only)."""
+def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
     # all_gather_single is the newer name of all_gather_into_tensor
@@ -54,6 +53,28 @@ def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
         or dist.all_gather_into_tensor
     gather(out, x.reshape(-1).contiguous(), group=group)
     return out.reshape((n,) + tuple(x.shape))
+
+
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """All-gather one per-worker payload or float32 row -> (n_workers,
+    *x.shape), rows in rank order (one flat all-gather: gloo takes flat
+    buffers only)."""
+    return _all_gather(x, group)
+
+
+def gather_side(x: torch.Tensor, group) -> torch.Tensor:
+    """All-gather a scale side channel (a per-tensor scale, or the
+    blockwise codec's per-block scales) -> (n_workers, *x.shape). Kept
+    apart from :func:`gather_rows`: the byte accounting counts payloads
+    only."""
+    return _all_gather(x, group)
+
+
+def reduce_rows(rows: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce (sum) of float32 worker-ownership rows, in place: the
+    ``dp_adam`` baseline's gradient reduce (the reference's psum)."""
+    dist.all_reduce(rows, group=group)
+    return rows
 
 
 def exchange_rows(rows: torch.Tensor, group) -> torch.Tensor:
@@ -73,7 +94,7 @@ def exchange_decode(payload_rows: torch.Tensor, scale: torch.Tensor, codec,
     if payload_rows.dtype != torch.uint8:
         raise ValueError("the exchange moves uint8 payload rows")
     recv = exchange_rows(payload_rows, group)
-    scales = gather_rows(scale.reshape(()), group)
+    scales = gather_side(scale.reshape(()), group)
     return CD.decode_rows(recv, scales, codec, c, backend=backend)
 
 
@@ -101,7 +122,7 @@ def broadcast_decode(payload: torch.Tensor, scale: torch.Tensor, codec,
     if payload.dtype != torch.uint8:
         raise ValueError("the broadcast moves uint8 payloads")
     rows = gather_rows(payload, group)
-    scales = gather_rows(scale.reshape(()), group)
+    scales = gather_side(scale.reshape(()), group)
     return CD.decode_rows(rows, scales, codec, c, backend=backend, out=out)
 
 

@@ -1,24 +1,31 @@
 """Per-mode distributed optimizer plugins (port of
-``repro/dist/modes``): the paper's ``qadam`` mode. The reference's other
-modes (``dp_adam``, ``efadam``, ``terngrad``, ``ef_sgd``, ``adaptive``)
-are queued in ROADMAP.md and raise ``NotImplementedError``."""
+``repro/dist/modes``): the paper's ``qadam`` and the baselines it is
+measured against, ``dp_adam`` (fp32 data-parallel Adam), ``efadam``
+(two-way EF), ``terngrad`` (Wen et al. '17) and ``ef_sgd`` (Zheng et al.
+'19). ``adaptive`` needs the reference's ``adapt/`` package, queued in
+ROADMAP.md; it raises ``NotImplementedError``."""
 from repro_torch.dist.modes.base import (  # noqa: F401
     ModeSpec,
     WorkerCtx,
+    blockwise_exchange,
     ctx_tiers,
+    identity_codec,
+    tier_grad_mean,
     worker_mean,
 )
-from repro_torch.dist.modes import qadam
+from repro_torch.dist.modes import dp_adam, ef_sgd, efadam, qadam, terngrad
 
-MODES = {qadam.SPEC.name: qadam.SPEC}
-NOT_PORTED = ("dp_adam", "efadam", "terngrad", "ef_sgd", "adaptive")
+MODES = {m.SPEC.name: m.SPEC
+         for m in (qadam, dp_adam, terngrad, ef_sgd, efadam)}
+NOT_PORTED = ("adaptive",)
 
 
 def get_mode(name: str) -> ModeSpec:
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"mode {name!r} is not ported yet (ROADMAP.md queue 1); the "
-            f"port runs {sorted(MODES)}")
+            f"mode {name!r} needs the reference's adapt/ package, not "
+            f"ported yet (ROADMAP.md queue 1); the port runs "
+            f"{sorted(MODES)}")
     if name not in MODES:
         raise ValueError(f"unknown mode {name!r}; available: "
                          f"{sorted(MODES)}")

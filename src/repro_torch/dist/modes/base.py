@@ -6,24 +6,32 @@ engine) and declares its update-exchange wire as a codec; the step
 template in ``repro_torch.dist.step`` owns the rest (weight broadcast ->
 forward/backward -> update -> exchange).
 
-Updater contract: ``updater(g, m, v, e, chunk, meta, hp, mark=None)``
-with the flat float32 gradient, moments and residual of the whole leaf,
-this worker's master chunk, its ``LeafMeta`` and the (4,)
-hyperparameter tensor [alpha_t, beta, theta_t, eps] on the device;
-returns ``(new_chunk, m', v', e')``. ``mark(name)``, when given, is
-called after the update and exchange ("update_exchange") and after the
-master update ("master_update"), for per-phase device timing. The port's updaters write them in place:
-the returned tensors are the given chunk, m, v and e (the reference
-donates these buffers to its step).
+Updater contract: ``updater(g, m, v, e, chunk, meta, hp, mark=None,
+draw=None)`` with the flat float32 gradient of the whole leaf, its
+moments and residual (over the whole leaf, or this worker's chunk where
+the mode's ``chunk_sharded_moments``), this worker's master chunk, its
+``LeafMeta`` and the (4,) hyperparameter tensor [alpha_t, beta, theta_t,
+eps] on the device; returns ``(new_chunk, m', v', e')``. ``mark(name)``,
+when given, is called after the update and exchange ("update_exchange")
+and after the master update ("master_update"), for per-phase device
+timing. ``draw(n)`` returns n uniforms in [0, 1) for this (step, leaf,
+worker), the stochastic codecs' randomness (the reference's per-leaf
+key). The port's updaters write their results in place: the returned
+tensors are the given chunk, m, v and e (the reference donates these
+buffers to its step).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from repro_torch.comm import bits as B
+from repro_torch.comm import codec as CD
+from repro_torch.dist import collectives as C
 from repro_torch.dist.topology import Tiers, flat_tiers
+from repro_torch.opt import engine, grids
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,16 +55,28 @@ def ctx_tiers(ctx: WorkerCtx) -> Tiers:
 
 @dataclasses.dataclass(frozen=True)
 class ModeSpec:
-    """One optimizer mode: updater factory + wire declaration.
+    """One optimizer mode: updater factory + wire declaration + state
+    layout.
 
     ``wire_codec(grad_k)`` names the update-exchange codec; the byte
     accounting behind ``train.loop.comm_bytes_per_step`` derives from it
     (packed codes only, scale side-channels excluded), so the figure is
-    byte for byte the payload the collectives move."""
+    byte for byte the payload the collectives move.
+    ``chunk_sharded_moments``: m, v and e hold this worker's chunk (c
+    elements, ``dp_adam``) instead of the whole leaf. ``extra_state``
+    adds chunk-sized state leaves; ``broadcast_ef`` turns on server-side
+    error feedback on the weight-broadcast channel (``efadam``).
+    ``tiered``: the updater understands hierarchical topologies (not
+    ported; ``dp_adam`` opts out, its all-reduce being one reduction on
+    any topology)."""
 
     name: str
+    chunk_sharded_moments: bool
     make_updater: Callable          # (tc, ctx: WorkerCtx) -> updater
     wire_codec: Callable            # (grad_k) -> codec
+    extra_state: Tuple[str, ...] = ()
+    broadcast_ef: bool = False
+    tiered: bool = True
 
     def wire_nbytes(self, c: int, n_workers: int, grad_k=None) -> int:
         """Per-worker, per-leaf update-exchange payload bytes."""
@@ -72,9 +92,10 @@ class ModeSpec:
 
     def leaf_tier_nbytes(self, tc, idx: int, c: int, numel: int,
                          n_workers: int, tiers: Optional[Tiers]) -> dict:
-        """Per-worker update-path bytes by link tier; a flat topology has
-        everything on the inter tier."""
-        if tiers is not None and tiers.intra_axes:
+        """Per-worker update-path bytes by link tier; a flat topology (or
+        a mode that is not ``tiered``) has everything on the inter
+        tier."""
+        if self.tiered and tiers is not None and tiers.intra_axes:
             raise NotImplementedError(
                 "hierarchical tiers are not ported yet (ROADMAP.md queue 1)")
         return {"inter": self.leaf_wire_nbytes(tc, idx, c, n_workers),
@@ -96,3 +117,59 @@ def worker_mean(rows: torch.Tensor) -> torch.Tensor:
     if rows.shape[0] == 1:
         return rows[0]
     return psum_rows(rows) / rows.shape[0]
+
+
+def identity_codec(grad_k=None):
+    """Wire declaration of the uncompressed (float32 rows) modes."""
+    return CD.IdentityCodec()
+
+
+def _flat_only(tiers: Optional[Tiers]) -> None:
+    if tiers is not None and tiers.intra_axes:
+        raise NotImplementedError(
+            "hierarchical tiers are not ported yet (ROADMAP.md queue 1)")
+
+
+def tier_grad_mean(g: torch.Tensor, tiers: Optional[Tiers]) -> torch.Tensor:
+    """The hierarchical pre-reduce of the reference (a tree mean of the
+    gradient over the intra tier): the identity on flat tiers;
+    hierarchical tiers are not ported."""
+    _flat_only(tiers)
+    return g
+
+
+def blockwise_exchange(de: torch.Tensor, codec, meta, ctx: WorkerCtx,
+                       tiers: Optional[Tiers] = None):
+    """The blockwise wire of ``ef_sgd``: sign codes of Delta+e and their
+    per-256-block mean |.| scales (#14), the EF residual against this
+    worker's own dequantized codes, the codes lane-packed into
+    worker-ownership rows and all-to-all'd, the (nb,) scales all-gathered
+    (a side channel), and each source's codes for MY chunk rescaled by
+    that source's scale columns for my chunk: elements [w*c, (w+1)*c) of
+    its block-repeated scales. Chunks need not align to blocks. Returns
+    ``(recv_rows (n_workers, c), e2)``."""
+    _flat_only(tiers if tiers is not None else ctx_tiers(ctx))
+    n = de.numel()
+    block = codec.block
+    codes2d, scale_b = engine.quantize_blockwise(de, block,
+                                                 backend=ctx.backend)
+    e2 = de - grids.blockwise_dequantize(codes2d, scale_b).reshape(-1)[:n]
+    payload = B.pack_rows(B.pad_rows(codes2d.reshape(-1)[:n], ctx.n_workers),
+                          codec.bits)
+    del codes2d
+    codes_rows = B.unpack_rows(C.exchange_rows(payload, ctx.group),
+                               codec.bits, meta.c)
+    scales = C.gather_side(scale_b, ctx.group)             # (W, nb)
+    W, nb = scales.shape
+    c = meta.c
+    w = C.worker_index(ctx.group)
+    # block b covers elements [b*block, (b+1)*block): my chunk's columns
+    # j in [w*c, (w+1)*c) read block j // block (zero past the scales)
+    lo, hi = w * c, (w + 1) * c
+    b0 = lo // block
+    b1 = max(min(-(-hi // block), nb), b0)
+    elem = scales[:, b0:b1, None].expand(W, b1 - b0, block).reshape(W, -1)
+    elem = elem[:, lo - b0 * block:hi - b0 * block]
+    if elem.shape[1] < c:
+        elem = torch.nn.functional.pad(elem, (0, c - elem.shape[1]))
+    return codes_rows.to(torch.float32) * elem, e2

@@ -24,7 +24,7 @@ def make_updater(tc, ctx: WorkerCtx):
     tiers = ctx_tiers(ctx)
     bk = ctx.backend
 
-    def upd(g, m, v, e, chunk, meta, hp, mark=None):
+    def upd(g, m, v, e, chunk, meta, hp, mark=None, draw=None):
         # K15: m', v' over m, v; Delta+e; the scale from its on-device
         # max|Delta+e| fold (bitwise grids.amax_scale(Delta+e))
         de, scale = engine.adam_ef_delta(g, m, v, e, hp, backend=bk)
@@ -52,5 +52,5 @@ def make_updater(tc, ctx: WorkerCtx):
     return upd
 
 
-SPEC = ModeSpec(name="qadam", make_updater=make_updater,
-                wire_codec=wire_codec)
+SPEC = ModeSpec(name="qadam", chunk_sharded_moments=False,
+                make_updater=make_updater, wire_codec=wire_codec)

@@ -1,17 +1,23 @@
 """Distributed QAdam-EF train step (Algorithms 2+3; port of
 ``repro/dist/step.py``): a quantized parameter server over the ranks of
-a ``torch.distributed`` process group, one model shard.
+a ``torch.distributed`` process group, one model shard, for the paper's
+``qadam`` mode and the baselines (``dp_adam``, ``efadam``, ``terngrad``,
+``ef_sgd``; ``repro_torch.dist.modes``).
 
 One step on each rank (worker):
 
   1. weight broadcast: every server Q_x-encodes its master chunk (K3
      first where the scale is an amax; K7 uniform), the payloads are
      all-gathered and every worker K6-decodes Q_x(x_t) for the whole
-     model (small leaves ride float32 rows);
+     model (small leaves ride float32 rows). Modes with ``broadcast_ef``
+     (``efadam``) send ``Q_x(chunk + es)`` and keep K7's residual as
+     the next ``es``;
   2. forward and backward at Q_x(x_t) (Assumption 3) through
-     ``Model.loss``: each worker gets the gradient of its own mean loss;
+     ``Model.loss``: each worker gets the gradient of its own mean loss
+     (``dp_adam``: of its loss sum over the global token count);
   3. the mode's update (``repro_torch.dist.modes``; the paper's
-     ``qadam``: K15 Adam+EF, K7 log codes to payload rows);
+     ``qadam``: K15 Adam+EF, K7 log codes to payload rows; stochastic
+     codecs draw their uniforms from :func:`draw_uniform`);
   4. the update exchange: all-to-all of the payload rows, K6 decode of
      every worker's codes for this server's chunk with that worker's
      scale, and ``chunk - worker_mean(rows)`` into the master chunk;
@@ -22,16 +28,18 @@ step count, alpha_t and theta_t live on the host.
 
 State per rank (the reference's chunked layout, this rank's slice, each
 leaf flat): ``master`` this worker's float32 chunk (c elements) of every
-leaf, ``m``, ``v``, ``e`` its Adam moments and EF residual over the
-whole leaf, and the host step ``count``. The step updates master, m, v
-and e in place (the reference donates these buffers).
+leaf, ``m``, ``v``, ``e`` its moments and EF residual over the whole
+leaf (over its chunk where the mode's ``chunk_sharded_moments``), the
+mode's ``extra_state`` leaves (chunk-sized: ``efadam``'s ``es``), and the
+host step ``count``. The step updates them in place (the reference
+donates these buffers).
 
 Batches: the global batch's rows are split over the workers when the
 batch divides by their number (worker w takes rows [w*B/W, (w+1)*B/W)),
 else every worker takes the whole batch, as ``_batch_geometry``.
 
 Out of scope (raise ``NotImplementedError``, ROADMAP.md queue 1): the
-modes other than ``qadam``, ``HierarchicalTopology``, a model axis and
+``adaptive`` mode, ``HierarchicalTopology``, a model axis and
 ``model_gather_quant``. The reference's exchange buckets are XLA
 scheduling fences that change no number; the overlap of the exchange
 with the backward they allow is queued in ROADMAP.md.
@@ -70,6 +78,7 @@ class TrainConfig:
     mode: str = "qadam"
     topology: T.Topology = T.FlatTopology()      # only flat is ported
     model_gather_quant: Optional[int] = None     # not ported
+    seed: int = 0                       # the stochastic codecs' draws
     # kernels' implementation: "cuda" | "torch" (the plain versions) |
     # None = by the tensors' device
     backend: Optional[str] = None
@@ -84,6 +93,23 @@ class LeafMeta:
     shape: Tuple[int, ...]
     c: int
     numel: int
+
+
+def _sorted_leaf_index(shapes) -> list:
+    """Each leaf's index in the reference's leaf order (jax flattens a
+    dict with its keys sorted, at every level), in ``tree_leaves``
+    order: what the stochastic codecs' draws are keyed by."""
+    def paths(tree, prefix=()):
+        if isinstance(tree, dict):
+            return [p for k, v in tree.items()
+                    for p in paths(v, prefix + (k,))]
+        return [prefix]
+    ps = paths(shapes)
+    order = sorted(range(len(ps)), key=lambda i: ps[i])
+    index = [0] * len(ps)
+    for j, i in enumerate(order):
+        index[i] = j
+    return index
 
 
 def _leaf_meta(layout: SH.Layout, n_workers: int):
@@ -122,6 +148,32 @@ def weight_wire_codec(tc: TrainConfig, numel: int):
     return CD.uniform_wire_codec(tc.weight_k, tc.weight_absolute)
 
 
+def _mix64(h: int, v: int) -> int:
+    """One splitmix64 round of h folded with v (64-bit)."""
+    z = (h ^ (v & 0xFFFFFFFFFFFFFFFF)) + 0x9E3779B97F4A7C15
+    z &= 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return z ^ (z >> 31)
+
+
+def draw_uniform(seed: int, t: int, leaf: int, worker: int, n: int,
+                 device) -> torch.Tensor:
+    """n float32 uniforms in [0, 1) for step ``t``, leaf ``leaf`` (its
+    index in the reference's leaf order, keys sorted) and ``worker``:
+    ``torch.rand`` from a generator on ``device`` seeded by a pure
+    function of the four, so a run and a resumed run draw the same and
+    workers draw independently (the reference folds a key per (step,
+    leaf, worker); torch has no threefry, so the draws differ from the
+    reference's)."""
+    h = 0
+    for v in (seed, t, leaf, worker):
+        h = _mix64(h, v)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(h & 0x7FFFFFFFFFFFFFFF)
+    return torch.rand(n, generator=gen, device=device)
+
+
 def local_batch(batch: Dict[str, torch.Tensor], rank: int,
                 n_workers: int) -> Dict[str, torch.Tensor]:
     """This worker's rows of the global batch (``_batch_geometry``): a
@@ -155,6 +207,7 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
     shapes = model.init(torch.Generator(), device="meta")
     layout = SH.build_layout(shapes)
     metas_flat = tree_leaves(_leaf_meta(layout, n_workers))
+    draw_index = _sorted_leaf_index(layout.shapes)
     qcfg = QAdamConfig(alpha=tc.alpha, beta=tc.beta, theta=tc.theta,
                        eps=tc.eps, schedule=tc.schedule)
     tiers = tc.topology.tiers(("data",), (n_workers,))
@@ -169,36 +222,48 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
     def unflat(leaves):
         return tree_unflatten(layout.shapes, leaves)
 
+    def state_x(meta):     # the length of a leaf's m, v and e
+        return meta.c if mode.chunk_sharded_moments else meta.numel
+
     # ---------------- init ----------------
     def init_state(seed: int = 0, device="cuda"):
         """Rank ``rank``'s state for ``model.init(seed=seed)``: its master
-        chunks, zero moments and residuals, count 0."""
+        chunks, zero moments, residuals and extra leaves, count 0."""
         leaves = tree_leaves(model.init(seed=seed, device=device))
-        master, zs = [], []
+        master = []
         for i, meta in enumerate(metas_flat):
             p = leaves[i].to(torch.float32)
             leaves[i] = None
             row = SH.flatten_pad(p, n_workers)[rank]
             master.append(row if n_workers == 1 else row.clone())
-            zs.append(meta.numel)
             del p, row
-        def zeros():
-            return unflat([torch.zeros(n, dtype=torch.float32,
-                                       device=device) for n in zs])
-        return {"master": unflat(master), "m": zeros(), "v": zeros(),
-                "e": zeros(), "count": 0}
+
+        def zeros(length):
+            return unflat([torch.zeros(length(m), dtype=torch.float32,
+                                       device=device) for m in metas_flat])
+        state = {"master": unflat(master), "m": zeros(state_x),
+                 "v": zeros(state_x), "e": zeros(state_x), "count": 0}
+        for k in mode.extra_state:     # efadam: the broadcast residual
+            state[k] = zeros(lambda m: m.c)
+        return state
 
     # ---------------- weight-broadcast channel ----------------
-    def chunks_to_shard(chunk, meta):
-        """My master chunk -> the whole leaf, Q_x(x_t), over the wire."""
+    def chunks_to_shard(chunk, meta, es=None):
+        """My master chunk -> the whole leaf, Q_x(x_t), over the wire.
+        With ``es`` (the ``broadcast_ef`` modes) the server sends
+        Q_x(chunk + es), its scale from chunk + es, and writes K7's
+        residual over ``es``; identity leaves send the chunk and keep
+        ``es``."""
         codec = weight_wire_codec(tc, meta.numel)
         if isinstance(codec, CD.IdentityCodec):
             rows = C.gather_rows_tiered(chunk, tiers, group)
             return SH.unflatten_chunked(rows, meta.shape)
-        scale = codec.compute_scale(chunk, backend=tc.backend)
-        # K7 uniform; its residual is not kept in this mode
-        payload, _ = CD.encode_rows_ef(chunk, scale, codec, 1,
-                                       backend=tc.backend)
+        send = chunk if es is None else chunk + es
+        scale = codec.compute_scale(send, backend=tc.backend)
+        # K7 uniform; its residual is kept as es' where there is an es
+        payload, _ = CD.encode_rows_ef(send, scale, codec, 1,
+                                       backend=tc.backend, out=es)
+        del send
         out = torch.empty(meta.shape, dtype=torch.float32,
                           device=chunk.device)
         return C.broadcast_decode_tiered(payload[0], scale, codec, meta.c,
@@ -207,9 +272,14 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
 
     # ---------------- the step ----------------
     def broadcast(state):
-        """1. weight broadcast: every leaf's Q_x(x_t), in layout order."""
-        return [chunks_to_shard(ch, m)
-                for ch, m in zip(flat(state["master"]), metas_flat)]
+        """1. weight broadcast: every leaf's Q_x(x_t), in layout order
+        (``broadcast_ef`` modes write es' over the state's ``es``)."""
+        chunks = flat(state["master"])
+        if not mode.broadcast_ef:
+            return [chunks_to_shard(ch, m) for ch, m in zip(chunks,
+                                                            metas_flat)]
+        return [chunks_to_shard(ch, m, es) for ch, m, es in
+                zip(chunks, metas_flat, flat(state["es"]))]
 
     def loss_and_grads(xs, batch):
         """2. forward/backward at Q_x(x_t) on this worker's rows: the
@@ -219,7 +289,14 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
         mine = local_batch(batch, rank, n_workers)
         with torch.enable_grad():
             s, n = model.loss(unflat(xs), mine)
-            grads = list(torch.autograd.grad(s / n, xs, allow_unused=True))
+            den = n
+            if tc.mode == "dp_adam":
+                # local sum / GLOBAL count: the reduced gradient is the
+                # global mean's
+                den = n.detach().clone()
+                dist.all_reduce(den, group=group)
+            grads = list(torch.autograd.grad(s / den, xs,
+                                             allow_unused=True))
         sn = torch.stack([s.detach(), n.detach().to(torch.float32)])
         dist.all_reduce(sn, group=group)
         return sn[0] / sn[1], grads
@@ -240,7 +317,11 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
             grads[i] = None
             g = (torch.zeros(meta.numel, dtype=torch.float32, device=dev)
                  if g is None else g.reshape(-1).to(torch.float32))
-            updater(g, ms[i], vs[i], es[i], masters[i], meta, hp, mark=mark)
+
+            def draw(n, i=draw_index[i]):   # looked up at call time
+                return draw_uniform(tc.seed, t, i, rank, n, dev)
+            updater(g, ms[i], vs[i], es[i], masters[i], meta, hp, mark=mark,
+                    draw=draw)
             del g
         return dict(state, count=t)
 

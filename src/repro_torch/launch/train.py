@@ -15,10 +15,17 @@ configuration on gloo through the kernels' plain versions, e.g.
 Weights are random, drawn from ``--seed``; batches are the synthetic
 token stream of ``data.pipeline``, every rank taking its rows of one
 global batch. ``--grad-bits 0``/``--weight-bits 0`` turn either channel
-to float32 rows; ``--no-ef`` ablates error feedback. The other modes,
-hierarchical topologies, a model axis, scan chunks, checkpoints and
-resume, bucket tuning and AOT artifacts are not ported yet (ROADMAP.md
-queue 1): their flags raise ``NotImplementedError``.
+to float32 rows; ``--no-ef`` ablates error feedback. ``--mode`` picks
+the paper's ``qadam`` or a baseline: ``dp_adam`` (fp32 data-parallel
+Adam), ``efadam`` (two-way EF), ``terngrad``, ``ef_sgd``, e.g.
+
+  python -m repro_torch.launch.train --arch yi-6b --smoke --device cpu \
+      --mode terngrad --grad-bits 0 --weight-bits 0 --alpha 0.02 --steps 5
+
+The ``adaptive`` mode, hierarchical topologies, a model axis, scan
+chunks, checkpoints and resume, bucket tuning and AOT artifacts are not
+ported yet (ROADMAP.md queue 1): their flags raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -104,7 +111,8 @@ def main(argv=None):
                      grad_k=args.grad_bits or None,
                      weight_k=args.weight_bits or None,
                      weight_absolute=args.weight_absolute,
-                     error_feedback=not args.no_ef, mode=args.mode)
+                     error_feedback=not args.no_ef, mode=args.mode,
+                     seed=args.seed)
     cfg = get_config(args.arch, smoke=args.smoke)
     model = Model(cfg)
     group = make_process_group(args.device)

@@ -2,8 +2,8 @@
 of ``repro/opt/engine.py``).
 
 ``backend="torch"`` runs the plain ``grids`` math, ``"cuda"`` the
-hand-written kernels (K3/K4 Q_x encode, K12 Q_x decode, K11 Q_g decode
-in ``repro_torch.comm.kernels``; K15/K16 Adam+EF in
+hand-written kernels (K3/K4 Q_x encode, K12 Q_x decode, K11 Q_g decode,
+#14 blockwise quantize in ``repro_torch.comm.kernels``; K15/K16 Adam+EF in
 ``repro_torch.kernels.adam_ef``); ``None`` follows the tensors' device.
 Codes, scales, moments and residuals are bitwise equal across backends.
 The kernels take flat tensors of any length, so the reference's
@@ -55,6 +55,15 @@ def dequantize_log(codes: torch.Tensor, scale: torch.Tensor, k_g: int = 6,
                    backend: Optional[str] = None):
     """Q_g decode (K11): ``sign(c) * 2^(|c|-k_g-1) * scale``, float32."""
     return K.log_dequantize(codes, scale, k_g, backend=backend)
+
+
+def quantize_blockwise(x: torch.Tensor, block: int = 256,
+                       backend: Optional[str] = None):
+    """Sign codes + per-block mean |x| scales over flat blocks of
+    ``block`` elements (the tail zero-padded), #14. Returns ((nb, block)
+    int8, (nb,) float32). The reference's ``BLOCKWISE_ROWS`` padding of
+    its tiling never reaches its output and has no counterpart."""
+    return K.blockwise_quantize(x.to(torch.float32), block, backend=backend)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""The paper's grids, uniform Q_x and log Q_g, and the Adam+EF leaf math
-(port of ``repro/opt/grids.py``).
+"""The paper's grids, uniform Q_x and log Q_g, the baselines' TernGrad
+ternary and blockwise sign grids, and the Adam+EF leaf math (port of
+``repro/opt/grids.py``).
 
 Plain tensor functions with explicit scales (pass 1 amax, pass 2
 quantize): the plain versions the kernels are held against. Codes and
@@ -136,6 +137,59 @@ def log_dequantize(codes: torch.Tensor, scale, k_g: int) -> torch.Tensor:
     idx = torch.clamp(codes.to(torch.int64) + half, 0, 2 * half - 1)
     s = torch.as_tensor(scale, dtype=torch.float32, device=codes.device)
     return table[idx] * s
+
+
+# ---------------------------------------------------------------------------
+# ternary grid (TernGrad baseline)
+# ---------------------------------------------------------------------------
+
+def ternary_quantize(x: torch.Tensor, u: torch.Tensor, scale) -> torch.Tensor:
+    """Unbiased stochastic ternary codes {-1, 0, +1}, int8:
+    ``sign(x) * (u < |x| / max(scale, 1e-30))`` with ``u`` uniforms in
+    [0, 1) of x's shape, drawn outside. The division is one IEEE
+    rounding, as the reference's."""
+    x = x.to(torch.float32)
+    s = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    p = x.abs() / torch.clamp_min(s, 1e-30)
+    return torch.sign(x).to(torch.int8) * (u < p).to(torch.int8)
+
+
+def ternary_dequantize(codes: torch.Tensor, scale) -> torch.Tensor:
+    """``codes * scale`` in float32."""
+    s = torch.as_tensor(scale, dtype=torch.float32, device=codes.device)
+    return codes.to(torch.float32) * s
+
+
+# ---------------------------------------------------------------------------
+# blockwise sign grid (Zheng et al. '19 baseline)
+# ---------------------------------------------------------------------------
+
+def tree_sum_last(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim (a power of two) in one fixed order, a
+    halving tree: ``x[..., :h] + x[..., h:]`` down to one column. The
+    blockwise kernel sums in this order, so the two are bitwise."""
+    n = x.shape[-1]
+    if n & (n - 1):
+        raise ValueError(f"the tree sums a power-of-two width, got {n}")
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def blockwise_quantize(x2d: torch.Tensor):
+    """(nb, block) float32 -> (sign codes int8, per-block mean |x|). The
+    mean is :func:`tree_sum_last` of |x| times 1/block (exact for a
+    power of two); the reference's XLA sum takes another order, within a
+    few ulps."""
+    x2d = x2d.to(torch.float32)
+    scale = tree_sum_last(x2d.abs()) * (1.0 / x2d.shape[-1])
+    return torch.sign(x2d).to(torch.int8), scale
+
+
+def blockwise_dequantize(codes2d: torch.Tensor,
+                         scales: torch.Tensor) -> torch.Tensor:
+    return codes2d.to(torch.float32) * scales[..., None]
 
 
 # ---------------------------------------------------------------------------

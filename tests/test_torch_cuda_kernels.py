@@ -3,11 +3,13 @@ card (marker ``cuda``; skipped where there is no GPU).
 
 Run on a GPU machine with ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda_kernels.py``. Tiers: quantize and dequantize codes,
-scales, page gathers and the Adam+EF passes (moments, Delta+e, amax,
-codes, residuals, decoded updates) bitwise; the dequant-matmul within
-float32 summation-order tolerance (f32 activations) or one bf16 ulp plus
-a floor of K1_FLOOR sqrt(K) 2^-24 |x*w|_2 near zero (bf16 activations),
-the tier of ``chip_smoke.py``.
+scales, page gathers, the Adam+EF passes (moments, Delta+e, amax,
+codes, residuals, decoded updates), the wire's encodes and decodes
+(K7, #5, K6) and the blockwise codes and scales (#14, #8) bitwise, and
+the baselines' training steps through their kernels; the dequant-matmul
+within float32 summation-order tolerance (f32 activations) or one bf16
+ulp plus a floor of K1_FLOOR sqrt(K) 2^-24 |x*w|_2 near zero (bf16
+activations), the tier of ``chip_smoke.py``.
 """
 import dataclasses
 
@@ -394,3 +396,107 @@ def test_distributed_step_runs_through_kernels(dev):
         for a, b in zip(tree_leaves(sess.state[f]),
                         tree_leaves(getattr(ref.state["opt"], f))):
             _bits_equal(a, b.reshape(-1))
+
+
+ENCODE_CODECS = [("log", 2, False), ("log", 6, False), ("log", 8, False),
+                 ("uniform", 3, True), ("uniform", 7, True),
+                 ("uniform", 6, False), ("uniform", 7, False),
+                 ("ternary", 0, False)]
+
+
+def _encode_codec(kind, k, absolute):
+    from repro_torch.comm import codec as CD
+    if kind == "ternary":
+        return CD.TernaryCodec()
+    return _wire_codec(kind, k, absolute)
+
+
+@pytest.mark.parametrize("kind,k,absolute", ENCODE_CODECS, ids=str)
+@pytest.mark.parametrize("c", [1, 7, 1000003])
+@pytest.mark.parametrize("n_rows", [1, 2, 4])
+def test_fused_encode_bitwise(dev, kind, k, absolute, c, n_rows):
+    """#5 (K3's amax launch then the encode launch, or the encode alone
+    with the absolute scale) against its plain version: payload rows and
+    scale, the ternary kind on uniforms from one seeded generator; K6
+    decodes the rows bitwise, the ternary kind included; zero input."""
+    from repro_torch.comm import kernels as K
+    codec = _encode_codec(kind, k, absolute)
+    n = n_rows * c - (n_rows - 1)
+    for zero in (False, True):
+        x, _ = _wire_input(dev, n, n_rows * 100 + c + k, "log", zero)
+        gen = torch.Generator(device=dev).manual_seed(c + n_rows)
+        u = torch.rand(n, generator=gen, device=dev)
+        pk, sk = K.encode_rows(x, codec, n_rows, u=u, backend="cuda")
+        pp, sp = K.encode_rows(x, codec, n_rows, u=u, backend="torch")
+        _bits_equal(pk, pp)
+        _bits_equal(sk, sp)
+        scales = (torch.rand(n_rows, generator=gen, device=dev) + 0.5) * sk
+        _bits_equal(K.decode_rows(pk, scales, codec, c, backend="cuda"),
+                    K.decode_rows(pk, scales, codec, c, backend="torch"))
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 4099, 1000003])
+def test_blockwise_kernels_bitwise(dev, n):
+    """#14 (codes, scales) and #8 (2-bit payload, scales) against their
+    plain versions, the tail block padded, zeros among the inputs, and an
+    unaligned view of x (scalar loads)."""
+    from repro_torch.comm import kernels as K
+    gen = torch.Generator(device=dev).manual_seed(n)
+    base = torch.randn(n + 1, generator=gen, device=dev) * 3.0
+    base[::7] = 0.0
+    for x in (base[:n], base[1:]):
+        for a, b in zip(K.blockwise_quantize(x, backend="cuda"),
+                        K.blockwise_quantize(x, backend="torch")):
+            _bits_equal(a, b)
+        for a, b in zip(K.blockwise_encode(x, backend="cuda"),
+                        K.blockwise_encode(x, backend="torch")):
+            _bits_equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["dp_adam", "efadam", "terngrad", "ef_sgd"])
+def test_baseline_modes_run_through_kernels(dev, mode):
+    """Three steps of each baseline (one NCCL rank) on the smoke model:
+    its kernels launch, no plain version runs, the session reads the
+    device only at its two harvests, and the losses are finite."""
+    import math
+    import torch.distributed as dist
+    from repro_torch.comm import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.dist.step import TrainConfig, make_train_step
+    from repro_torch.kernels import adam_ef as A
+    from repro_torch.launch import mesh
+    from repro_torch.models.model import Model
+    from repro_torch.train.session import SessionConfig, TrainSession
+    counters = {"dp_adam": [(A, "moments_launches")],
+                "efadam": [(A, "moments_launches"), (K, "amax_launches"),
+                           (K, "ef_encode_uniform_launches"),
+                           (K, "ef_encode_log_launches"),
+                           (K, "decode_uniform_launches")],
+                "terngrad": [(K, "amax_launches"),
+                             (K, "encode_ternary_launches"),
+                             (K, "decode_ternary_launches")],
+                "ef_sgd": [(K, "blockwise_quantize_launches")]}[mode]
+    kw = {"dp_adam": dict(grad_k=None, weight_k=None),
+          "efadam": dict(grad_k=6, weight_k=7, weight_absolute=False),
+          "terngrad": dict(alpha=2e-2, grad_k=None, weight_k=None),
+          "ef_sgd": dict(alpha=1e-2, beta=0.9, grad_k=None,
+                         weight_k=None)}[mode]
+    model = Model(get_config("yi-6b", smoke=True))
+    group = mesh.make_process_group(dev, store=dist.HashStore())
+    try:
+        art = make_train_step(model, group, TrainConfig(mode=mode, **kw))
+        for mod, name in counters:
+            setattr(mod, name, 0)
+        K.plain_on_cuda = A.plain_on_cuda = 0
+        sess = TrainSession.from_artifacts(
+            art, batch_for_model(model.cfg, 32, 2), SessionConfig(
+                log_every=3), device=dev, log=lambda *_: 0)
+        with sess:
+            sess.run(3)
+        assert sess.stats["syncs"] == 2
+        assert all(getattr(mod, name) > 0 for mod, name in counters)
+        assert K.plain_on_cuda == A.plain_on_cuda == 0
+        assert all(math.isfinite(h["loss"]) for h in sess.history)
+    finally:
+        mesh.close_process_group()

@@ -14,7 +14,9 @@ Tiers:
   * two and four workers: ``tests/test_torch_dist_workers.py``;
   * the port's step at one worker is bitwise the port's Algorithm 1;
   * planted faults fail the gate: error feedback off, k_g off by one;
-  * ``comm_bytes_per_step`` equals the bytes the collectives move.
+  * ``comm_bytes_per_step`` equals the bytes the collectives move, for
+    every mode (the baselines' trajectories:
+    ``tests/test_torch_dist_modes.py``).
 
 The measured drifts are what these tests print (``pytest -s``).
 """
@@ -53,6 +55,10 @@ SEQ = 32
 # test_one_worker_equals_algorithm1 holds the port's step exactly there
 BASE = dict(alpha=1e-3, beta=0.99, theta=0.999, grad_k=6, weight_k=7,
             weight_absolute=True)
+# the SGD baselines at the reference's own settings
+# (tests/dist_scripts/opt_modes.py): the float32 broadcast
+EF_SGD = dict(alpha=1e-2, beta=0.9, grad_k=None, weight_k=None)
+TERNGRAD = dict(alpha=2e-2, grad_k=None, weight_k=None)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -150,7 +156,7 @@ _REFERENCE = {}
 def _reference(jm, kw, steps, n_workers=1, batch=4):
     """The reference's distributed run: (initial state, losses, final
     master), numpy, cached per configuration."""
-    key = (tuple(sorted(kw.items())), steps, n_workers, batch)
+    key = (jm.cfg, tuple(sorted(kw.items())), steps, n_workers, batch)
     if key not in _REFERENCE:
         mesh = jax.make_mesh((n_workers, 1), ("data", "model"))
         art = j_make_train_step(jm, mesh, JTC(**kw, worker_axes=("data",)))
@@ -255,24 +261,33 @@ def test_one_worker_gate_fails_on_planted_fault(models, group, fault):
 
 
 def test_comm_bytes_match_the_collectives(models, group, monkeypatch):
-    """Bytes through the all-to-all and the weight all-gathers of one
-    step equal ``comm_bytes_per_step``; scale gathers (0-d) excluded."""
+    """Bytes through the all-to-all (dp_adam: the all-reduce) and the
+    weight all-gathers of one step equal ``comm_bytes_per_step``, for the
+    paper's mode and the four baselines; scale side channels (per tensor,
+    per block) ride ``gather_side``, excluded."""
     _, tm = models
     moved = {"exchange": 0, "broadcast": 0}
-    exchange, gather = TC.exchange_rows, TC.gather_rows
+    exchange, gather, reduce = TC.exchange_rows, TC.gather_rows, \
+        TC.reduce_rows
 
     def count_exchange(rows, grp):
         moved["exchange"] += rows.nbytes
         return exchange(rows, grp)
 
+    def count_reduce(rows, grp):
+        moved["exchange"] += rows.nbytes
+        return reduce(rows, grp)
+
     def count_gather(x, grp):
         out = gather(x, grp)
-        if x.dim():
-            moved["broadcast"] += out.nbytes
+        moved["broadcast"] += out.nbytes
         return out
     monkeypatch.setattr(TC, "exchange_rows", count_exchange)
+    monkeypatch.setattr(TC, "reduce_rows", count_reduce)
     monkeypatch.setattr(TC, "gather_rows", count_gather)
-    for kw in ({}, dict(grad_k=None, weight_k=None)):
+    for kw in ({}, dict(grad_k=None, weight_k=None), dict(mode="dp_adam"),
+               dict(mode="efadam"), dict(mode="terngrad", **TERNGRAD),
+               dict(mode="ef_sgd", **EF_SGD)):
         tc = TTC(**dict(BASE, **kw))
         art = t_make_train_step(tm, group, tc)
         state = art.init_state(seed=0, device="cpu")
@@ -290,26 +305,44 @@ def test_batch_rows_and_state_carried_over(models, group):
     assert local_batch(b, 0, 1) is b
     assert torch.equal(local_batch(b, 2, 3)["tokens"], b["tokens"][4:6])
     assert local_batch(b, 1, 4) is b           # 6 rows do not split in 4
-    init, _, _ = _reference(jm, BASE, 5)
-    st = dist_state_from_numpy(init, 0, 1, "cpu")
-    assert st["count"] == 0
-    for k in ("master", "m", "v", "e"):
-        want = dict(_paths(init[k]))
-        for p, t in _paths(st[k]):
-            np.testing.assert_array_equal(want[p].reshape(-1), t.numpy())
+    for kw, keys in ((BASE, ("master", "m", "v", "e")),
+                     (dict(BASE, mode="efadam"),
+                      ("master", "m", "v", "e", "es"))):
+        init, _, _ = _reference(jm, kw, 5)
+        st = dist_state_from_numpy(init, 0, 1, "cpu")
+        assert st["count"] == 0 and set(st) == set(keys) | {"count"}
+        fresh = t_make_train_step(tm, group, TTC(**kw)).init_state(
+            seed=0, device="cpu")
+        assert set(fresh) == set(st)
+        for k in keys:
+            want = dict(_paths(init[k]))
+            shapes = dict(_paths(fresh[k]))
+            for p, t in _paths(st[k]):
+                np.testing.assert_array_equal(want[p].reshape(-1),
+                                              t.numpy())
+                assert t.shape == shapes[p].shape, (k, p)
 
 
 def test_out_of_scope_raises(models, group):
+    """What the port's step still refuses: the adaptive mode (it needs
+    adapt/), hierarchical topologies, a quantized model-axis gather and
+    the launcher's flags of unported features. The baselines dp_adam,
+    efadam, terngrad and ef_sgd are ported (the tests above)."""
     from repro_torch.dist import topology as T
     from repro_torch.launch import train as launch
     _, tm = models
-    for kw in (dict(mode="dp_adam"), dict(mode="efadam"),
+    for kw in (dict(mode="adaptive"),
                dict(topology=T.HierarchicalTopology(2, 2)),
+               dict(topology=T.HierarchicalTopology(2, 2), mode="ef_sgd"),
                dict(model_gather_quant=8)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_make_train_step(tm, group, TTC(**kw))
     for flag in (["--model", "2"], ["--scan-chunk", "4"], ["--resume"],
                  ["--tune-buckets"], ["--topology", "2x2"],
-                 ["--ckpt-dir", "x"], ["--aot-dir", "x"]):
+                 ["--ckpt-dir", "x"], ["--aot-dir", "x"], ["--adaptive"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             launch.parse_args(["--arch", "yi-6b"] + flag)
+    for mode in ("dp_adam", "efadam", "terngrad", "ef_sgd"):
+        assert launch.parse_args(["--arch", "yi-6b", "--mode",
+                                  mode]).mode == mode
+        assert t_make_train_step(tm, group, TTC(mode=mode)).n_workers == 1
