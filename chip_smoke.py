@@ -6,7 +6,7 @@
 Phases, each raising on failure (exit code nonzero, no result line):
 
   1. print the card's name and power limit (nvidia-smi);
-  2. build the thirteen CUDA kernels from the seven sources of
+  2. build the fifteen CUDA kernels from the eight sources of
      ``src/repro_torch/csrc`` (nvcc, sm_90a, one process per source, all
      started together);
   3. hold each serving kernel against its plain PyTorch version at yi-6b
@@ -14,7 +14,17 @@ Phases, each raising on failure (exit code nonzero, no result line):
      leaf and K2 page gather bitwise; K1 dequant-matmul at M in
      {1, 4, 32} for every projection shape and code type within one bf16
      ulp (plus a floor near zero set from the measured fp32
-     summation-order noise; a dropped K row must fail that gate); then
+     summation-order noise; a dropped K row must fail that gate); K1t,
+     the transposed product of the tied head, at gemma2-2b's (256000,
+     2304) table for M in {1, 4} (int8 at k_x = 6, packed 3/4/6-bit rows)
+     and at ragged shapes, in the same tier (a dropped d column must
+     fail it); #17 flash attention on the four cases of
+     tests/test_kernels.py, gemma2-2b's prefill (B 1, S 8192, 8 heads
+     over 4, hd 256, bf16) as a local (window 4096) and a global layer
+     (softcap 50), and a ragged Sq/Skv, within rtol 1e-4 / atol 1e-5
+     (float32) or one bf16 ulp plus 1e-5 (a window off by one must fail
+     it), timed beside scaled_dot_product_attention without the
+     softcap; then
      the training kernels bitwise on the stacked (8, 4096, 11008) w_gate
      leaf and the (64000, 4096) embedding: K15 Adam+EF moments (m', v',
      Delta+e, the amax word), K16 EF quantize (codes, residual), K11 log
@@ -42,6 +52,15 @@ Phases, each raising on failure (exit code nonzero, no result line):
      F32_LIMIT for the full-depth step in float32 activations (at full
      depth in bf16, fp32 summation order alone moves the logits by
      ~3e-2, which is printed, with a float64-summed step, not gated);
+     4b. the same for full-width gemma2-2b (26 layers, tied head, k_x = 6),
+     in slots of 4224 positions, with a ninth request of 4200 prompt
+     tokens: K1, K1t, K2, K3 and K4 launched, no plain version on the
+     card, the same logits gates (depth 1 is a local layer, depth 2 adds
+     a global one), and at position 4200 the windowed and the global
+     model's logits must differ (the window is live), with the depth-2
+     gate there too;
+     4c. #17 through its entry point over one gemma2-2b prefill of 8192
+     tokens (26 layers with their windows; the count at 0 before);
   5. train full-width yi-6b cut to 8 layers (fp32 parameters and state,
      bf16 activations) with Algorithm 1 through ``qadam`` and
      ``TrainSession.from_optimizer``: 12 steps of 2 x 1024 tokens; gates:
@@ -113,6 +132,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
 YI = dict(L=32, d=4096, H=32, K=4, hd=128, f=11008, V=64000)
+GEMMA = dict(d=2304, V=256000)   # gemma2-2b's tied (vocab, d_model) table
+# the gemma2-2b serving cell's one long request: a prompt past the window,
+# in a session whose slots hold max_seq positions (a multiple of 16 above
+# the prompt and its 16 new tokens)
+GEMMA_LONG_PROMPT, GEMMA_MAX_SEQ = 4200, 4224
 # decode-logits limits, kernels vs plain versions (rel L2), set from the
 # readings in PERF.md: the bf16 step cut to 1 and 2 layers, and the
 # full-depth step in float32 activations
@@ -429,6 +453,198 @@ def check_matmul(torch, MM, B, dev):
                bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
                library_ms=rep["library_ms"], shape=[4, d, f])
     return row, table, timed, sorted(noise.values(), key=lambda r: r["K"])
+
+
+def check_matmul_t(torch, MM, B, dev):
+    """K1t (``x @ W.T`` from code rows, the tied head) at gemma2-2b's head
+    shape (256000 rows of 2304 codes) for M in {1, 4}, int8 at k_x = 6 and
+    packed 3/4/6-bit rows, and ragged shapes, within K1's tier; a dropped
+    d column must fail the gate. Returns the kernels-line row (M = 4,
+    int8), the case table and the timings."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    d, V = GEMMA["d"], GEMMA["V"]
+    cases = [(M, V, d, "int8") for M in (1, 4)]
+    cases += [(4, V, d, kind) for kind in ("p3", "p4", "p6")]
+    cases += [(5, 1001, n, kind) for n in (d, 37)
+              for kind in ("int8", "int16", "p3", "p4", "p6")]   # ragged
+    scale = torch.tensor(0.0371, device=dev)
+    table, worst = [], 0.0
+    for M, rows, n, kind in cases:
+        k_x, pb, codes = _codes(torch, B, g, dev, kind, rows, n)
+        x = torch.randn((M, n), generator=g, device=dev).to(torch.bfloat16)
+        kw = dict(k_x=k_x, n=n, pack_bits=pb, cast_dtype="bfloat16",
+                  transpose=True)
+        a = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+        b = MM.dequant_matmul(x, codes, scale, backend="torch", **kw)
+        w = MM.dequant_codes(codes, scale, k_x=k_x, n=n, pack_bits=pb,
+                             w_dtype="float32",
+                             cast_dtype="bfloat16").float()
+        unit = n ** 0.5 * 2.0 ** -24 * (x.float() ** 2 @ (w ** 2).T).sqrt()
+        tol = k1_tolerance(torch, b, unit)
+        diff = (a.float() - b.float()).abs()
+        if a.dtype != torch.bfloat16 or a.shape != (M, rows) or not bool(
+                (diff <= tol).all()):
+            raise AssertionError(f"K1t at M={M} V={rows} d={n} {kind}: beyond "
+                                 f"one bf16 ulp of the plain product + floor "
+                                 f"(max abs {float(diff.max())})")
+        over = float(((diff - bf16_ulp(torch, b.float())).clamp_min(0)
+                      / unit).max())
+        row = dict(M=M, V=rows, d=n, codes=kind, max_abs_err=float(diff.max()),
+                   over_ulp_units=over)
+        worst = max(worst, row["max_abs_err"])
+        if rows == V and kind == "int8":
+            # the same sums in fp32 activations: summation-order noise
+            kf = dict(kw, cast_dtype=None)
+            d32 = (MM.dequant_matmul(x.float(), codes, scale, backend="cuda",
+                                     **kf)
+                   - MM.dequant_matmul(x.float(), codes, scale,
+                                       backend="torch", **kf)).abs()
+            row["f32_noise"] = float((d32 / unit).max())
+            # the planted fault: the last d column dropped from the sum
+            bad = (x[:, :-1].float() @ w[:, :-1].T).to(torch.bfloat16)
+            seen = float(((bad.float() - b.float()).abs() > tol).float()
+                         .mean())
+            if seen == 0.0:
+                raise AssertionError(f"K1t gate blind to a dropped d column "
+                                     f"at M={M}")
+            row["fault_caught"] = seen
+        table.append(row)
+        del codes, w
+    timed = []
+    for M in (1, 4):
+        codes = _codes(torch, B, g, dev, "int8", V, d)[2]
+        wf = MM.dequant_codes(codes, scale, k_x=6, n=d, pack_bits=0,
+                              w_dtype="float32", cast_dtype="bfloat16")
+        x = torch.randn((M, d), generator=g, device=dev).to(torch.bfloat16)
+        kw = dict(k_x=6, n=d, cast_dtype="bfloat16", transpose=True)
+        t_k = cuda_ms(torch, lambda i: MM.dequant_matmul(
+            x, codes, scale, backend="cuda", **kw), 20, 3)
+        t_p = cuda_ms(torch, lambda i: MM.dequant_matmul(
+            x, codes, scale, backend="torch", **kw), 3, 1)
+        t_l = cuda_ms(torch, lambda i: torch.matmul(x, wf.T), 20, 3)
+        bnd, by = bound_ms(V * d + 2 * M * d + 2 * M * V + 4, 2.0 * M * d * V)
+        timed.append(dict(M=M, V=V, d=d, ms=t_k, plain_ms=t_p,
+                          library_ms=t_l, bound_ms=bnd, bound_by=by,
+                          gbs=V * d / t_k / 1e6))
+        del codes, wf
+    rep = timed[-1]
+    row = dict(name="dequant_matmul_t", route="cuda",
+               source="src/repro_torch/csrc/dequant_matmul.cu",
+               replaces="src/repro/comm/matmul.py:150", max_abs_err=worst,
+               ms=rep["ms"], plain_ms=rep["plain_ms"],
+               bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
+               library_ms=rep["library_ms"], shape=[4, V, d])
+    return row, table, timed
+
+
+def visible_pairs(Sq, Skv, *, causal, window, q_offset):
+    """(query, key) pairs a flash-attention call attends, per head."""
+    n = 0
+    for i in range(Sq):
+        p = q_offset + i
+        hi = min(Skv, p + 1) if causal else Skv
+        lo = max(0, p - window + 1) if window else 0
+        n += max(0, hi - lo)
+    return n
+
+
+FLASH_CASES = [   # tests/test_kernels.py:135-145, gemma2-2b prefill, ragged
+    ("causal", dict(B=2, Sq=256, Skv=256, H=4, K=2, hd=64, causal=True,
+                    window=0, softcap=None)),
+    ("suffix", dict(B=1, Sq=128, Skv=384, H=8, K=2, hd=32, causal=True,
+                    window=0, softcap=None, q_offset=256)),
+    ("swa_softcap", dict(B=1, Sq=256, Skv=256, H=2, K=2, hd=64, causal=True,
+                         window=96, softcap=50.0)),
+    ("bidirectional", dict(B=2, Sq=128, Skv=128, H=4, K=4, hd=128,
+                           causal=False, window=0, softcap=None)),
+    ("gemma2_local", dict(B=1, Sq=8192, Skv=8192, H=8, K=4, hd=256,
+                          causal=True, window=4096, softcap=50.0, bf16=True)),
+    ("gemma2_global", dict(B=1, Sq=8192, Skv=8192, H=8, K=4, hd=256,
+                           causal=True, window=0, softcap=50.0, bf16=True)),
+    ("ragged", dict(B=1, Sq=1000, Skv=1500, H=8, K=4, hd=256, causal=True,
+                    window=700, softcap=50.0, q_offset=500, bf16=True)),
+]
+
+
+def flash_tolerance(torch, b):
+    """float32: rtol 1e-4 / atol 1e-5; bfloat16: one bf16 ulp of the plain
+    result plus 1e-5 (both sum in fp32 in orders of their own)."""
+    if b.dtype == torch.bfloat16:
+        return bf16_ulp(torch, b.float()) + 1e-5
+    return 1e-5 + 1e-4 * b.abs()
+
+
+def check_flash(torch, FA, dev):
+    """#17 against its plain version on every FLASH_CASES entry, timed
+    with its bound, plain time and the softcap-free library call
+    (``scaled_dot_product_attention``); a window off by one in the plain
+    version must fail the gate at gemma2's local layer."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(19)
+    table, rows = [], {}
+    for name, c in FLASH_CASES:
+        dt = torch.bfloat16 if c.get("bf16") else torch.float32
+        q = torch.randn((c["B"], c["Sq"], c["H"], c["hd"]), generator=g,
+                        device=dev).to(dt)
+        k, v = (torch.randn((c["B"], c["Skv"], c["K"], c["hd"]), generator=g,
+                            device=dev).to(dt) for _ in range(2))
+        kw = dict(causal=c["causal"], window=c["window"],
+                  softcap=c["softcap"], q_offset=c.get("q_offset", 0))
+        a = FA.flash_attention(q, k, v, backend="cuda", **kw)
+        b = FA.flash_attention(q, k, v, backend="torch", **kw)
+        diff = (a.float() - b.float()).abs()
+        tol = flash_tolerance(torch, b)
+        if a.dtype != dt or a.shape != q.shape or not bool(
+                (diff <= tol).all()):
+            raise AssertionError(f"#17 {name}: beyond its tier of the plain "
+                                 f"version (max abs {float(diff.max())})")
+        row = dict(case=name, max_abs_err=float(diff.max()),
+                   shape=[c["B"], c["Sq"], c["Skv"], c["H"], c["K"],
+                          c["hd"]], dtype=str(dt).split(".")[-1],
+                   causal=c["causal"], window=c["window"],
+                   softcap=c["softcap"], q_offset=kw["q_offset"])
+        if name == "gemma2_local":
+            bad = FA.flash_attention(q, k, v, backend="torch",
+                                     **dict(kw, window=c["window"] + 1))
+            seen = float(((bad.float() - b.float()).abs() > tol).float()
+                         .mean())
+            if seen == 0.0:
+                raise AssertionError("#17 gate blind to a window off by one")
+            row["fault_caught"] = seen
+            del bad
+        del a, b
+        pairs = visible_pairs(c["Sq"], c["Skv"], causal=c["causal"],
+                              window=c["window"], q_offset=kw["q_offset"])
+        flops = 4.0 * c["hd"] * pairs * c["B"] * c["H"]
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+        big = c["Sq"] >= 4096
+        row["ms"] = cuda_ms(torch, lambda i: FA.flash_attention(
+            q, k, v, backend="cuda", **kw), 5 if big else 20, 1)
+        row["plain_ms"] = cuda_ms(torch, lambda i: FA.flash_attention(
+            q, k, v, backend="torch", **kw), 2 if big else 5, 1)
+        # the library yardstick: the same shapes without the softcap (no
+        # PyTorch call applies one), causal / banded by a boolean mask
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        vis = FA._visible(c["Sq"], c["Skv"], causal=c["causal"],
+                          window=c["window"], q_offset=kw["q_offset"],
+                          device=dev)
+        sdpa = F.scaled_dot_product_attention
+        row["library_ms"] = cuda_ms(torch, lambda i: sdpa(
+            qt, kt, vt, attn_mask=vis, enable_gqa=True), 5 if big else 20, 1)
+        row["gflops_per_s"] = flops / row["ms"] / 1e6
+        table.append(row)
+        rows[name] = row
+        del q, k, v, qt, kt, vt, vis
+    rep = rows["gemma2_global"]
+    krow = dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:76",
+                max_abs_err=max(r["max_abs_err"] for r in table),
+                ms=rep["ms"], plain_ms=rep["plain_ms"],
+                bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
+                library_ms=rep["library_ms"], shape=rep["shape"])
+    return krow, table
 
 
 # ---------------------------------------------------------------------------
@@ -1597,7 +1813,65 @@ def first_layers(blocks, n: int):
         blocks)
 
 
-def serve(torch, dev, mods):
+def window_live(torch, dev, model, qparams, gather, prompt, max_seq):
+    """Prefill ``prompt`` (longer than the window) into a fresh one-slot
+    paged cache, then one decode step past the window's reach with the
+    config's per-layer windows and with every window 0: the logits must
+    differ (the local layers' mask bites at its real width). Also the
+    depth-2 kernels-vs-plain gate at that position, and the step's time at
+    that view."""
+    from repro_torch.models.model import Model
+    cfg = model.cfg
+    n = len(prompt)
+    cache = model.init_cache(1, max_seq, page_pool=(max_seq // 16, 16),
+                             device=dev)
+    cache["ptab"].copy_(torch.arange(max_seq // 16, dtype=torch.int32,
+                                     device=dev)[None])
+    toks = torch.tensor(prompt, dtype=torch.int32, device=dev)[None]
+    for c0 in range(0, n, 32):
+        chunk = torch.zeros((1, 32), dtype=torch.int32, device=dev)
+        m = min(32, n - c0)
+        chunk[:, :m] = toks[:, c0:c0 + m]
+        model.decode_chunk(qparams, {"token": chunk}, cache,
+                           torch.tensor([c0], device=dev),
+                           torch.tensor([m], device=dev), gather)
+    tok = toks[:, -1:].contiguous()
+    pos = torch.full((1,), n, dtype=torch.int32, device=dev)
+
+    def clone(depth=None):
+        return {k: (v if k == "ptab" or depth is None else v[:depth]).clone()
+                for k, v in cache.items()}
+    la, _ = model.decode_step(qparams, {"token": tok}, clone(), pos, gather)
+    glob = Model(dataclasses.replace(cfg, window=None))
+    lg, _ = glob.decode_step(qparams, {"token": tok}, clone(), pos, gather)
+    if torch.equal(la, lg):
+        raise AssertionError(f"decode at position {n}: the windowed and the "
+                             f"global model give the same logits")
+    rel_win = float((la - lg).norm() / lg.norm())
+    mdl = Model(dataclasses.replace(cfg, n_layers=2))
+    qp = dict(qparams, blocks=first_layers(qparams["blocks"], 2))
+    a, _ = mdl.decode_step(qp, {"token": tok}, clone(2), pos, gather)
+    b, _ = mdl.decode_step(qp, {"token": tok}, clone(2), pos, gather,
+                           backend="torch")
+    rel2 = float((a - b).norm() / b.norm())
+    if rel2 > SHALLOW_LIMIT:
+        raise AssertionError(f"decode logits at depth 2, position {n}: "
+                             f"kernels vs plain rel L2 {rel2} > "
+                             f"{SHALLOW_LIMIT}")
+    step_ms = cuda_ms(torch, lambda i: model.decode_step(
+        qparams, {"token": tok}, cache, pos, gather), 5, 1)
+    print(f"{cfg.name} at position {n} (window {cfg.window}): logits rel L2 "
+          f"windowed vs global {rel_win:.4e}; depth-2 kernels vs plain "
+          f"{rel2:.4e} (limit {SHALLOW_LIMIT}); decode step, 1 slot, view "
+          f"{max_seq}: {step_ms:.3f} ms", flush=True)
+    return dict(long_position=n, logits_rel_l2_window_vs_global=rel_win,
+                logits_rel_l2_depth2_long=rel2, step_ms=step_ms)
+
+
+def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
+    """Serve full-width ``arch`` (phase 4: yi-6b; phase 4b: gemma2-2b with
+    one ``long_plen``-token request past its window, in a session of
+    ``max_seq`` positions a slot), then the decode gates."""
     MM, paged, K = mods["MM"], mods["paged"], mods["K"]
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
@@ -1606,18 +1880,21 @@ def serve(torch, dev, mods):
     from repro_torch.serve.session import Request, ServeSession
     import numpy as np
 
-    cfg = get_config("yi-6b")
+    cfg = get_config(arch)
     model = Model(cfg)
-    slots, max_seq, n_req, plen, max_new = 4, 128, 8, 64, 16
+    slots, n_req, plen, max_new = 4, 8, 64, 16
     rng = np.random.default_rng(0)
     reqs = [Request(prompt=[int(t) for t in rng.integers(
         1, cfg.vocab_size, size=plen)], max_new_tokens=max_new)
         for _ in range(n_req)]
+    if long_plen:
+        reqs.append(Request(prompt=[int(t) for t in rng.integers(
+            1, cfg.vocab_size, size=long_plen)], max_new_tokens=max_new))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     # the main path, with every kernel count at 0 just before it
-    MM.launches = paged.launches = 0
+    MM.launches = MM.t_launches = paged.launches = 0
     K.amax_launches = K.quantize_launches = 0
     MM.plain_on_cuda = paged.plain_on_cuda = K.plain_on_cuda = 0
     t0 = time.perf_counter()
@@ -1642,6 +1919,10 @@ def serve(torch, dev, mods):
     launches = {"dequant_matmul": MM.launches, "gather_pages": paged.launches,
                 "amax_rows": K.amax_launches,
                 "uniform_quantize_rows": K.quantize_launches}
+    if cfg.tie_embeddings:      # the tied head runs K1t
+        launches["dequant_matmul_t"] = MM.t_launches
+    elif MM.t_launches:
+        raise AssertionError(f"{arch}: K1t launched on an untied head")
     plain = MM.plain_on_cuda + paged.plain_on_cuda + K.plain_on_cuda
 
     if any(n == 0 for n in launches.values()):
@@ -1654,10 +1935,18 @@ def serve(torch, dev, mods):
             raise AssertionError(f"request {h}: {len(r.tokens)} tokens, "
                                  f"{r.finish_reason}")
     n_tok = sum(len(results[h].tokens) for h in handles)
+    gather = make_dequant_gather()
+    out = {}
+    if long_plen:
+        out.update(window_live(torch, dev, model, qparams, gather,
+                               reqs[-1].prompt, max_seq))
+        out["decode_step_long_view_ms"] = out.pop("step_ms")
+        out["view_len"] = max_seq
+        max_seq = 128        # the timings and gates below at yi's view
 
     # one decode step and one chunk, timed, on a fresh cache
-    gather = make_dequant_gather()
-    cache = model.init_cache(slots, max_seq, page_pool=(sess.num_pages, 16),
+    cache = model.init_cache(slots, max_seq,
+                             page_pool=(slots * max_seq // 16, 16),
                              device=dev)
     npag = max_seq // 16
     cache["ptab"].copy_(torch.arange(slots * npag, dtype=torch.int32,
@@ -1671,10 +1960,12 @@ def serve(torch, dev, mods):
             model.decode_chunk(qparams, {"token": prompt[s:s + 1, c0:c0 + 32]},
                                lane(s), torch.tensor([c0], device=dev),
                                torch.tensor([32], device=dev), gather)
+    c32 = torch.tensor([32], device=dev)
     chunk_ms = cuda_ms(torch, lambda i: model.decode_chunk(
-        qparams, {"token": prompt[0:1, 32:64]}, lane(0),
-        torch.tensor([32], device=dev), torch.tensor([32], device=dev),
-        gather), 5, 1)
+        qparams, {"token": prompt[0:1, 32:64]}, lane(0), c32, c32, gather),
+        5, 1)
+    chunk_dev_ms, _ = profile_ms(torch, lambda: model.decode_chunk(
+        qparams, {"token": prompt[0:1, 32:64]}, lane(0), c32, c32, gather))
     tok = prompt[:, -1:].contiguous()
     pos = torch.full((slots,), plen, dtype=torch.int32, device=dev)
     step_ms = cuda_ms(torch, lambda i: model.decode_step(
@@ -1731,14 +2022,15 @@ def serve(torch, dev, mods):
     # and a planted fault (one K row dropped from every plain projection)
     plain32 = MM._matmul_torch
 
-    def plain64(x2, codes, scale, **kw):
-        w = MM.dequant_codes(codes, scale, **kw)
-        return (x2.double() @ w.double()).to(
+    def plain64(x2, codes, scale, transpose=False, **kw):
+        w = MM.dequant_codes(codes, scale, **kw).double()
+        return (x2.double() @ (w.T if transpose else w)).to(
             MM._out_dtype(x2.dtype, kw["w_dtype"], kw["cast_dtype"]))
 
-    def dropped_row(x2, codes, scale, **kw):
-        w = MM.dequant_codes(codes, scale, **kw)
-        return (x2[:, :-1].float() @ w[:-1].float()).to(
+    def dropped_row(x2, codes, scale, transpose=False, **kw):
+        w = MM.dequant_codes(codes, scale, **kw).float()
+        w = w.T if transpose else w
+        return (x2[:, :-1].float() @ w[:-1]).to(
             MM._out_dtype(x2.dtype, kw["w_dtype"], kw["cast_dtype"]))
     try:
         MM._matmul_torch = plain64
@@ -1751,15 +2043,17 @@ def serve(torch, dev, mods):
         MM._matmul_torch = plain32
     rel_k64, rel_p64 = rel_l2(la, lc), rel_l2(lb, lc)
     rel_fault = rel_l2(lf, b32)
-    print(f"decode logits rel L2, kernels vs plain: bf16 {rel:.4e} (argmax "
+    print(f"{arch} decode logits rel L2, kernels vs plain: bf16 {rel:.4e} (argmax "
           f"agreement {agree:.3f}), bf16 at depth 1 {shallow[1]:.4e} and 2 "
           f"{shallow[2]:.4e} (limit {SHALLOW_LIMIT}), float32 {rel32:.4e} "
           f"(limit {F32_LIMIT}); readings: bf16 vs float64 sums kernels "
           f"{rel_k64:.4e} plain {rel_p64:.4e}; float32 with one K row "
           f"dropped {rel_fault:.4e}", flush=True)
-    return dict(launches=launches, tokens=n_tok, serve_s=t_serve,
+    return dict(out, arch=arch, launches=launches, tokens=n_tok,
+                serve_s=t_serve,
                 tok_per_s=n_tok / t_serve, startup_s=t_quant,
                 decode_step_ms=step_ms, chunk_ms=chunk_ms,
+                chunk_device_ms=chunk_dev_ms,
                 decode_step_device_ms=step_dev_ms,
                 decode_step_kernels=step_kernels[:12],
                 resident_bytes=q_bytes, fp32_bytes=fp_bytes,
@@ -1771,6 +2065,39 @@ def serve(torch, dev, mods):
                 logits_rel_l2_depth2=shallow[2], logits_rel_l2_f32=rel32,
                 logits_rel_l2_f32_row_dropped=rel_fault,
                 stats=dict(sess.stats))
+
+
+def flash_path(torch, dev, FA):
+    """#17 through its entry point as a caller runs it (no model calls it,
+    in either package): the attention of one gemma2-2b prefill of 8192
+    tokens, all 26 layers with their windows (local 4096, global), bf16,
+    the counts at 0 just before. Returns the launch counts and the time."""
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma2-2b")
+    g = torch.Generator(device=dev).manual_seed(23)
+    S, H, K, hd = 8192, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = torch.randn((1, S, H, hd), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((1, S, K, hd), generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    torch.cuda.synchronize()
+    FA.launches = FA.plain_on_cuda = 0
+    t0 = time.perf_counter()
+    outs = [FA.flash_attention(q, k, v, causal=True, window=w,
+                               softcap=cfg.attn_softcap)
+            for w in cfg.layer_windows()]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": FA.launches}
+    if FA.launches != cfg.n_layers or FA.plain_on_cuda:
+        raise AssertionError(f"flash path: {launches}, "
+                             f"{FA.plain_on_cuda} plain calls on the card")
+    if not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError("flash path: non-finite attention outputs")
+    print(f"flash path: gemma2-2b prefill attention, {cfg.n_layers} layers "
+          f"at S {S}: {wall * 1e3:.1f} ms wall; launches {launches}",
+          flush=True)
+    return dict(launches=launches, wall_ms=wall * 1e3, layers=cfg.n_layers,
+                seq=S)
 
 
 def main() -> int:
@@ -1785,6 +2112,7 @@ def main() -> int:
     from repro_torch.comm import kernels as K
     from repro_torch.comm import matmul as MM
     from repro_torch.kernels import adam_ef as A
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.serve import paged
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1806,7 +2134,37 @@ def main() -> int:
     mm_row, mm_table, mm_timed, mm_noise = check_matmul(torch, MM, B, dev)
     rows.insert(0, mm_row)
     torch.cuda.empty_cache()
-    print(f"kernel checks passed ({len(mm_table)} K1 cases)", flush=True)
+    mt_row, mt_table, mt_timed = check_matmul_t(torch, MM, B, dev)
+    rows.insert(1, mt_row)
+    torch.cuda.empty_cache()
+    fa_row, fa_table = check_flash(torch, FA, dev)
+    rows.append(fa_row)
+    torch.cuda.empty_cache()
+    print(f"kernel checks passed ({len(mm_table)} K1 cases, "
+          f"{len(mt_table)} K1t cases, {len(fa_table)} #17 cases)",
+          flush=True)
+    for t in mt_table:
+        extra = "".join(f", {k} {t[k]:.4g}" for k in ("f32_noise",
+                                                      "fault_caught")
+                        if k in t)
+        print(f"  K1t M={t['M']} V={t['V']} d={t['d']} {t['codes']}: max abs "
+              f"err {t['max_abs_err']:.4e}, beyond one ulp "
+              f"{t['over_ulp_units']:.3f} units (floor {K1_FLOOR:g}){extra}",
+              flush=True)
+    for t in mt_timed:
+        print(f"  K1t M={t['M']} V={t['V']} d={t['d']}: {t['ms']:.4f} ms "
+              f"({t['gbs']:.0f} GB/s) plain {t['plain_ms']:.4f} library "
+              f"{t['library_ms']:.4f} bound {t['bound_ms']:.4f} "
+              f"({t['bound_by']})", flush=True)
+    for t in fa_table:
+        fault = (f"; window off by one caught at {t['fault_caught']:.1%}"
+                 if "fault_caught" in t else "")
+        print(f"  #17 {t['case']} {t['shape']} {t['dtype']} window "
+              f"{t['window']} softcap {t['softcap']}: max abs err "
+              f"{t['max_abs_err']:.3e}; {t['ms']:.4f} ms "
+              f"({t['gflops_per_s']:.0f} GFLOP/s) plain {t['plain_ms']:.4f} "
+              f"library (no softcap) {t['library_ms']:.4f} bound "
+              f"{t['bound_ms']:.4f} ({t['bound_by']}){fault}", flush=True)
     for n in mm_noise:
         fault = (f"; one dropped K row: max abs {n['fault_max_abs']:.4e}, "
                  f"caught at {n['fault_caught']:.1%} of outputs"
@@ -1851,6 +2209,13 @@ def main() -> int:
 
     mods = {"K": K, "A": A}
     res = serve(torch, dev, {"MM": MM, "paged": paged, "K": K})
+    torch.cuda.empty_cache()
+    gem = serve(torch, dev, {"MM": MM, "paged": paged, "K": K},
+                arch="gemma2-2b", max_seq=GEMMA_MAX_SEQ,
+                long_plen=GEMMA_LONG_PROMPT)
+    torch.cuda.empty_cache()
+    fp = flash_path(torch, dev, FA)
+    torch.cuda.empty_cache()
     tr = train(torch, dev, mods)
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import close_process_group, make_process_group
@@ -1870,6 +2235,8 @@ def main() -> int:
     rows += t_rows + w_rows + e_rows
     for r in rows:
         by_path = {"serve": res["launches"].get(r["name"], 0),
+                   "serve_gemma2": gem["launches"].get(r["name"], 0),
+                   "flash": fp["launches"].get(r["name"], 0),
                    "train": tr["launches"].get(r["name"], 0),
                    "dist": ds["launches"].get(r["name"], 0)}
         by_path.update({m: md[m]["launches"].get(r["name"], 0)
@@ -1877,19 +2244,23 @@ def main() -> int:
         by_path["wire"] = wb["launches"].get(r["name"], 0)
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
-    print(f"served {res['tokens']} tokens in {res['serve_s']:.3f} s "
-          f"({res['tok_per_s']:.2f} tok/s); decode step "
-          f"{res['decode_step_ms']:.3f} ms, chunk {res['chunk_ms']:.3f} ms; "
-          f"resident {res['resident_bytes']} B vs fp32 {res['fp32_bytes']} B; "
-          f"peak {res['peak_bytes']} B (start-up {res['peak_startup_bytes']} B); "
-          f"logits rel L2 {res['logits_rel_l2']:.3e}, argmax agreement "
-          f"{res['argmax_agreement']:.3f}; stats {res['stats']}", flush=True)
-    busy = res["decode_step_device_ms"] / res["decode_step_ms"]
-    print(f"decode step: {res['decode_step_device_ms']:.3f} ms of device "
-          f"work in {res['decode_step_ms']:.3f} ms (device idle "
-          f"{1 - busy:.1%}); by kernel:", flush=True)
-    for name, t in res["decode_step_kernels"]:
-        print(f"  {t:9.4f} ms  {name[:90]}")
+    for sv in (res, gem):
+        print(f"{sv['arch']}: served {sv['tokens']} tokens in "
+              f"{sv['serve_s']:.3f} s ({sv['tok_per_s']:.2f} tok/s); decode "
+              f"step {sv['decode_step_ms']:.3f} ms, chunk "
+              f"{sv['chunk_ms']:.3f} ms (device {sv['chunk_device_ms']:.3f} "
+              f"ms); resident {sv['resident_bytes']} B vs "
+              f"fp32 {sv['fp32_bytes']} B; peak {sv['peak_bytes']} B "
+              f"(start-up {sv['peak_startup_bytes']} B); logits rel L2 "
+              f"{sv['logits_rel_l2']:.3e}, argmax agreement "
+              f"{sv['argmax_agreement']:.3f}; launches {sv['launches']}; "
+              f"stats {sv['stats']}", flush=True)
+        busy = sv["decode_step_device_ms"] / sv["decode_step_ms"]
+        print(f"{sv['arch']} decode step: {sv['decode_step_device_ms']:.3f} ms "
+              f"of device work in {sv['decode_step_ms']:.3f} ms (device idle "
+              f"{1 - busy:.1%}); by kernel:", flush=True)
+        for name, t in sv["decode_step_kernels"]:
+            print(f"  {t:9.4f} ms  {name[:90]}")
     for t in mm_timed:
         print(f"  K1 M={t['M']} K={t['K']} N={t['N']}: {t['ms']:.4f} ms "
               f"({t['gbs']:.0f} GB/s) plain {t['plain_ms']:.4f} library "
@@ -1952,6 +2323,8 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump(dict(card=card, kernels=rows, k1_cases=mm_table,
                        k1_noise=mm_noise, k1_timed=mm_timed, serve=res,
+                       k1t_cases=mt_table, k1t_timed=mt_timed,
+                       flash_cases=fa_table, serve_gemma2=gem, flash_path=fp,
                        train_kernels=t_table, train=tr,
                        wire_kernels=w_table, dist=ds,
                        encode_kernels=e_table, modes=md, wire_buffers=wb),

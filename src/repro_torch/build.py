@@ -10,9 +10,9 @@ after. Nothing here runs at import time.
 Flags keep IEEE division, square root and rounding (no
 ``--use_fast_math``): the quantize, dequantize, Adam+EF, wire codec,
 blockwise and gather kernels are held bitwise against their plain
-versions. The
-grids and lanes they share live in ``csrc/grids.cuh``, which the hash
-covers.
+versions; the two products (K1 and K1t dequant-matmul) and flash
+attention (#17) sum in fp32 in orders of their own. The grids and lanes
+they share live in ``csrc/grids.cuh``, which the hash covers.
 """
 from __future__ import annotations
 
@@ -36,12 +36,21 @@ CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # every C entry point returns cudaGetLastError() after its launch
 SIGNATURES = {
     # x, codes, scale, out, M, K, N, code_bits, k_x, x_bf16, w_bf16,
     # cast_bf16, out_bf16, stream
     "rt_dequant_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _P],
+    # x, codes, scale, out, M, d, V, code_bits, k_x, x_bf16, w_bf16,
+    # cast_bf16, out_bf16, stream
+    "rt_dequant_matmul_t": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _P],
+    # q, k, v, out, B, Sq, Skv, H, K, hd, causal, window, q_offset,
+    # softcap, sm_scale, bf16, stream
+    "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _F, _F, _I, _P],
     # pool, ptab, out, B, npag, page_bytes, stream
     "rt_gather_pages": [_P, _P, _P, _I, _I, _L, _P],
     # x, out_bits, rows, n, stream

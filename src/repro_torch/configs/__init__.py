@@ -2,7 +2,9 @@
 
 ``get_config(arch_id)`` returns the exact published configuration;
 ``get_config(arch_id, smoke=True)`` the reduced CPU-test variant. The
-port carries the architectures it serves: the dense GQA decoder yi-6b.
+port carries the architectures it serves: the dense GQA decoders yi-6b
+(untied head) and gemma2-2b (tied head, alternating sliding-window and
+global layers, softcaps, post-sublayer norms).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "yi-6b": "repro_torch.configs.yi_6b",
+    "gemma2-2b": "repro_torch.configs.gemma2_2b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -3,10 +3,14 @@ code-resident Q_x weights (port of ``repro/launch/serve.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
       --quantized --paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
+      --quantized --paged
 
 runs on the GPU (``--device cuda``, the default); ``--smoke --device cpu``
 runs the small configuration on the CPU through the kernels' plain
-versions. Weights are random, drawn from ``--seed``.
+versions. Weights are random, drawn from ``--seed``. gemma2-2b's head is
+tied to its embedding: quantized, both read the one table of codes (the
+lookup by row, the head through the transposed dequant-matmul).
 """
 from __future__ import annotations
 
@@ -16,7 +20,8 @@ import time
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="yi-6b or gemma2-2b (repro_torch.configs)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)

@@ -2,8 +2,12 @@
 ``repro/models/layers.py``, local path).
 
 Each function repeats the reference's float32 arithmetic in the same
-order (norm statistics, rope angles, masked softmax with the ``l_safe``
-guard), so the two packages agree to float32 rounding at equal inputs.
+order (norm statistics, rope angles, the ``cap * tanh(s / cap)``
+softcap after the 1/sqrt(hd) scaling and before the mask, masked
+softmax with the ``l_safe`` guard), so the two packages agree to
+float32 rounding at equal inputs. A ``window`` of 0 is global
+attention; otherwise a query at position p sees the keys at positions
+``> p - window`` (gemma2's local layers).
 Attention here is plain PyTorch (training over the whole sequence, and
 decode against the cache view); the kernels the serving path runs sit
 behind :func:`pmatmul` (K1) and ``gather_pages`` (K2). Every function
@@ -83,16 +87,31 @@ def rope(x, positions, theta):
 # Attention (training): causal, over the whole sequence
 # ---------------------------------------------------------------------------
 
-def attention(q, k, v, *, q_pos):
-    """Causal GQA attention of a training forward. q: (B, S, H, hd);
+def apply_softcap(s, cap):
+    """``cap * tanh(s / cap)``; None leaves the scores as they are."""
+    if cap is None:
+        return s
+    return cap * torch.tanh(s / cap)
+
+
+def _window_ok(kv_pos, q_pos, window):
+    """Keys inside the sliding window of each query (all when 0)."""
+    if not window:
+        return torch.ones_like(kv_pos > q_pos)
+    return kv_pos > q_pos - window
+
+
+def attention(q, k, v, *, q_pos, causal=True, window=0, softcap=None):
+    """GQA attention of a training forward. q: (B, S, H, hd);
     k, v: (B, S, K, hd); q_pos: (S,) positions of queries and keys.
 
     As the reference: the H query heads are grouped (B, S, K, rep, hd)
     against their K/V head, scores are taken in float32 (exact products
-    of the activation-dtype inputs), masked with -1e30, softmaxed in
-    float32 and cast to the activation dtype before the product with v.
-    Plain PyTorch, so autograd gives its backward; the reference also
-    computes it outside any Pallas kernel.
+    of the activation-dtype inputs), scaled, softcapped, masked (causal
+    and window) with -1e30, softmaxed in float32 and cast to the
+    activation dtype before the product with v. Plain PyTorch, so
+    autograd gives its backward; the reference also computes it outside
+    any Pallas kernel.
     """
     B, Sq, H, hd = q.shape
     K = k.shape[2]
@@ -100,7 +119,11 @@ def attention(q, k, v, *, q_pos):
     qr = q.reshape(B, Sq, K, rep, hd)
     scores = torch.einsum("bqkrd,bskd->bkrqs", qr.to(torch.float32),
                           k.to(torch.float32)) / math.sqrt(hd)
-    mask = q_pos[:, None] >= q_pos[None, :]                    # (Sq, Skv)
+    scores = apply_softcap(scores, softcap)
+    qp, kp = q_pos[:, None], q_pos[None, :]
+    mask = _window_ok(kp, qp, window)                          # (Sq, Skv)
+    if causal:
+        mask = mask & (qp >= kp)
     scores = torch.where(mask, scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkrqs,bskd->bqkrd", probs, v)
@@ -111,14 +134,16 @@ def attention(q, k, v, *, q_pos):
 # Attention against a cache view
 # ---------------------------------------------------------------------------
 
-def decode_attention(q, k_cache, v_cache, *, total_len, kv_positions=None,
-                     extra_valid=None):
+def decode_attention(q, k_cache, v_cache, *, total_len, window=0,
+                     softcap=None, kv_positions=None, extra_valid=None):
     """Single-token decode against a (B, S, K, hd) cache view.
 
     total_len: valid cache entries, scalar or (B,) per slot (the query
-    sits at position total_len - 1). kv_positions: (S,) positions of the
-    view columns; extra_valid: optional (B, S) mask ANDed into validity
-    (page ownership for paged views).
+    sits at position total_len - 1). window / softcap: the layer's
+    sliding window (0: global) and attention logit softcap.
+    kv_positions: (S,) positions of the view columns; extra_valid:
+    optional (B, S) mask ANDed into validity (page ownership for paged
+    views).
     """
     B, _, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
@@ -128,11 +153,13 @@ def decode_attention(q, k_cache, v_cache, *, total_len, kv_positions=None,
               else kv_positions)
     tl = torch.as_tensor(total_len, device=dev).expand(B)
     valid = kv_pos[None, :] < tl[:, None]                      # (B, S)
+    valid = valid & _window_ok(kv_pos[None, :], tl[:, None] - 1, window)
     if extra_valid is not None:
         valid = valid & extra_valid
     qr = q.reshape(B, K, rep, hd).to(torch.float32)
     scores = torch.einsum("bkrd,bskd->bkrs", qr,
                           k_cache.to(torch.float32)) / math.sqrt(hd)
+    scores = apply_softcap(scores, softcap)
     mask = valid[:, None, None, :]
     scores = torch.where(mask, scores, -torch.inf)
     l_loc = torch.amax(scores, dim=-1)                         # (B, K, rep)
@@ -145,14 +172,14 @@ def decode_attention(q, k_cache, v_cache, *, total_len, kv_positions=None,
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
-def chunk_attention(q, k_cache, v_cache, *, q_pos, kv_positions=None,
-                    extra_valid=None):
+def chunk_attention(q, k_cache, v_cache, *, q_pos, window=0, softcap=None,
+                    kv_positions=None, extra_valid=None):
     """Chunked-prefill attention: Sq prompt tokens per slot attend to the
     slot's cache view, which already holds the chunk's own K/V.
 
     q: (B, Sq, H, hd); q_pos: (B, Sq) positions; causality rides on them
-    (kv_pos <= q_pos). Queries past the chunk's valid prefix give
-    outputs the caller discards.
+    (kv_pos <= q_pos), and the window on them too. Queries past the
+    chunk's valid prefix give outputs the caller discards.
     """
     B, Sq, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
@@ -161,11 +188,14 @@ def chunk_attention(q, k_cache, v_cache, *, q_pos, kv_positions=None,
     kv_pos = (torch.arange(S, device=dev) if kv_positions is None
               else kv_positions)
     valid = kv_pos[None, None, :] <= q_pos[:, :, None]        # (B, Sq, S)
+    valid = valid & _window_ok(kv_pos[None, None, :], q_pos[:, :, None],
+                               window)
     if extra_valid is not None:
         valid = valid & extra_valid[:, None, :]
     qr = q.reshape(B, Sq, K, rep, hd).to(torch.float32)
     scores = torch.einsum("bqkrd,bskd->bkrqs", qr,
                           k_cache.to(torch.float32)) / math.sqrt(hd)
+    scores = apply_softcap(scores, softcap)
     mask = valid[:, None, None]                                # (B,1,1,Sq,S)
     scores = torch.where(mask, scores, -torch.inf)
     l_loc = torch.amax(scores, dim=-1)

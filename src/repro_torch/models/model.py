@@ -2,9 +2,12 @@
 (port of ``repro/models/model.py``).
 
 Parameters keep the reference's tree: ``embed`` (V, d), ``unembed``
-(d, V), ``final_norm``, and the scan-stacked ``blocks`` whose leaves
-carry a leading layer dim (L, ...). Where the reference scans over that
-dim with ``lax.scan``, the port loops over layers in Python.
+(d, V) unless the head is tied to ``embed``, ``final_norm``, and the
+scan-stacked ``blocks`` whose leaves carry a leading layer dim (L, ...),
+with ``ln1_post``/``ln2_post`` where the config asks for post-sublayer
+norms. Where the reference scans over that dim with ``lax.scan`` and
+per-layer flag arrays (windows, RoPE bases), the port loops over layers
+in Python with the same flags as Python numbers.
 
 The decode cache is updated IN PLACE (the reference returns a new one):
 ``decode_step``/``decode_chunk`` write each token's K/V into the fixed
@@ -16,6 +19,7 @@ no host sync (see :class:`_DropScatter`).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -65,18 +69,18 @@ class Model:
     cfg: ModelConfig
 
     def _check_dense(self):
-        """The port's decoder is the yi-6b family: dense GQA, untied head,
-        rmsnorm, silu MLP, full attention, no biases or softcaps."""
+        """The port's decoder is the dense GQA family of yi-6b and
+        gemma2-2b: token input, rmsnorm, gated silu MLP; tied or untied
+        head, sliding-window layers, softcaps, post-sublayer norms and
+        embedding scaling as the config says. No biases, qk-norm or
+        per-layer RoPE bases (gemma3) yet."""
         c = self.cfg
         extras = [name for name, on in (
             ("arch_type != dense", c.arch_type != "dense"),
             ("input_mode != tokens", c.input_mode != "tokens"),
-            ("tie_embeddings", c.tie_embeddings), ("qkv_bias", c.qkv_bias),
-            ("qk_norm", c.qk_norm), ("post_norm", c.post_norm),
-            ("emb_scale", c.emb_scale), ("softcaps", c.attn_softcap
-                                         or c.final_softcap),
-            ("sliding window", c.window), ("norm != rmsnorm",
-                                           c.norm != "rmsnorm"),
+            ("qkv_bias", c.qkv_bias), ("qk_norm", c.qk_norm),
+            ("rope_theta_local", c.rope_theta_local is not None),
+            ("norm != rmsnorm", c.norm != "rmsnorm"),
             ("act != silu", c.act != "silu")) if on]
         if extras:
             raise NotImplementedError(
@@ -110,30 +114,60 @@ class Model:
         d, H, K, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                           cfg.head_dim_, cfg.d_ff)
         n = cfg.n_layers
-        return {
-            "embed": dense(cfg.vocab_size, d),
-            "final_norm": {"w": ones(d)},
-            "unembed": dense(d, cfg.vocab_size),
-            "blocks": {
-                "ln1": {"w": ones(n, d)},
-                "attn": {"q": dense(n, d, H * hd), "k": dense(n, d, K * hd),
-                         "v": dense(n, d, K * hd), "o": dense(n, H * hd, d)},
-                "ln2": {"w": ones(n, d)},
-                "mlp": {"w_gate": dense(n, d, f), "w_up": dense(n, d, f),
-                        "w_down": dense(n, f, d)}}}
+        params = {"embed": dense(cfg.vocab_size, d),
+                  "final_norm": {"w": ones(d)}}
+        if not cfg.tie_embeddings:
+            params["unembed"] = dense(d, cfg.vocab_size)
+        blocks = {
+            "ln1": {"w": ones(n, d)},
+            "attn": {"q": dense(n, d, H * hd), "k": dense(n, d, K * hd),
+                     "v": dense(n, d, K * hd), "o": dense(n, H * hd, d)},
+            "ln2": {"w": ones(n, d)}}
+        if cfg.post_norm:
+            blocks["ln1_post"] = {"w": ones(n, d)}
+            blocks["ln2_post"] = {"w": ones(n, d)}
+        blocks["mlp"] = {"w_gate": dense(n, d, f), "w_up": dense(n, d, f),
+                         "w_down": dense(n, f, d)}
+        params["blocks"] = blocks
+        return params
 
     # ---------------- embed / head ----------------
     def _embed_in(self, params, tokens):
         if L.code_resident(params["embed"]):
             # code-resident table: gather only the hit rows' codes
-            return params["embed"].astype(_dt(self.cfg)).take(tokens)
-        return params["embed"].to(_dt(self.cfg))[tokens.long()]
+            x = params["embed"].astype(_dt(self.cfg)).take(tokens)
+        else:
+            x = params["embed"].to(_dt(self.cfg))[tokens.long()]
+        if self.cfg.emb_scale:
+            # sqrt(d) rounded to x's dtype first, as the reference
+            x = x * torch.full((), math.sqrt(self.cfg.d_model),
+                               dtype=x.dtype, device=x.device)
+        return x
 
     def _head(self, params, x, backend=None):
-        return L.pmatmul(x, params["unembed"], backend).to(torch.float32)
+        """float32 logits; a tied head contracts x against the embedding
+        table's rows (``x @ embed.T``, K1t from codes when the table is
+        code-resident), then the final softcap where the config has one."""
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            w = params["embed"]
+            if L.code_resident(w):
+                logits = w.astype(x.dtype).matmul_t(x, backend=backend)
+            else:
+                logits = x @ w.to(x.dtype).T
+        else:
+            logits = L.pmatmul(x, params["unembed"], backend)
+        logits = logits.to(torch.float32)
+        return L.apply_softcap(logits, cfg.final_softcap)
+
+    def _post(self, out, p, name):
+        """The post-sublayer norm (gemma2) where the config has one."""
+        if self.cfg.post_norm:
+            return L.apply_norm(out, p[name], self.cfg)
+        return out
 
     # ---------------- training forward ----------------
-    def _block(self, p, x, q_pos, theta):
+    def _block(self, p, x, q_pos, window, theta):
         """One decoder block of the training forward on x (B, S, d)."""
         cfg = self.cfg
         Bn, S, _ = x.shape
@@ -143,9 +177,12 @@ class Model:
         q = L.rope(L.pmatmul(h, pa["q"]).reshape(Bn, S, H, hd), q_pos, theta)
         k = L.rope(L.pmatmul(h, pa["k"]).reshape(Bn, S, K, hd), q_pos, theta)
         v = L.pmatmul(h, pa["v"]).reshape(Bn, S, K, hd)
-        attn = L.attention(q, k, v, q_pos=q_pos)
-        x = x + L.pmatmul(attn.reshape(Bn, S, H * hd), pa["o"])
-        return x + L.mlp(p["mlp"], L.apply_norm(x, p["ln2"], cfg))
+        attn = L.attention(q, k, v, q_pos=q_pos, window=window,
+                           softcap=cfg.attn_softcap)
+        attn = L.pmatmul(attn.reshape(Bn, S, H * hd), pa["o"])
+        x = x + self._post(attn, p, "ln1_post")
+        out = L.mlp(p["mlp"], L.apply_norm(x, p["ln2"], cfg))
+        return x + self._post(out, p, "ln2_post")
 
     def forward(self, params, batch) -> torch.Tensor:
         """Training forward of float parameters -> float32 logits
@@ -162,9 +199,10 @@ class Model:
         x = self._embed_in(params, batch["tokens"])
         q_pos = torch.arange(x.shape[1], device=x.device)
         per_layer = tree_map(lambda w: torch.unbind(w, 0), params["blocks"])
-        for i, theta in enumerate(cfg.layer_rope_thetas()):
+        for i, (window, theta) in enumerate(zip(cfg.layer_windows(),
+                                                cfg.layer_rope_thetas())):
             p = tree_map(lambda ws: ws[i], per_layer)
-            x = checkpoint(self._block, p, x, q_pos, theta,
+            x = checkpoint(self._block, p, x, q_pos, window, theta,
                            use_reentrant=False)
         x = L.apply_norm(x, params["final_norm"], cfg)
         return self._head(params, x)
@@ -245,8 +283,8 @@ class Model:
     def _layers(self, params, x, cache, q_pos, valid_q, attend,
                 gather: Gather, backend):
         """The per-layer body shared by decode_step and decode_chunk:
-        x (B, S, d) at positions q_pos (B, S); ``attend(q, kc, vc, view)``
-        runs the attention variant."""
+        x (B, S, d) at positions q_pos (B, S); ``attend(q, kc, vc, view,
+        window)`` runs the attention variant with the layer's window."""
         cfg = self.cfg
         Bn, S, _ = x.shape
         H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -257,7 +295,7 @@ class Model:
             view = dict(kv_positions=view_pos, extra_valid=extra_valid)
         else:
             write, view = self._lane_writes(cache, q_pos, valid_q), {}
-        thetas = cfg.layer_rope_thetas()
+        thetas, windows = cfg.layer_rope_thetas(), cfg.layer_windows()
         for i in range(cfg.n_layers):
             p = layer_slice(params["blocks"], i)
             if gather is not None:
@@ -279,10 +317,11 @@ class Model:
                 kc, vc = cache["k"][i], cache["v"][i]
                 write(kc, k.reshape(Bn * S, K, hd))
                 write(vc, v.reshape(Bn * S, K, hd))
-            attn = attend(q, kc, vc, view)
-            x = x + L.pmatmul(attn.reshape(Bn, S, H * hd), pa["o"], backend)
+            attn = attend(q, kc, vc, view, windows[i])
+            attn = L.pmatmul(attn.reshape(Bn, S, H * hd), pa["o"], backend)
+            x = x + self._post(attn, p, "ln1_post")
             h2 = L.apply_norm(x, p["ln2"], cfg)
-            x = x + L.mlp(p["mlp"], h2, backend)
+            x = x + self._post(L.mlp(p["mlp"], h2, backend), p, "ln2_post")
         return L.apply_norm(x, params["final_norm"], cfg)
 
     # ---------------- decode ----------------
@@ -302,9 +341,10 @@ class Model:
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
         posv = pos.expand(Bn)[:, None]                          # (B, 1)
 
-        def attend(q, kc, vc, view):
+        def attend(q, kc, vc, view, window):
             return L.decode_attention(q, kc, vc, total_len=posv[:, 0] + 1,
-                                      **view)
+                                      window=window,
+                                      softcap=cfg.attn_softcap, **view)
 
         x = self._layers(params, x, cache, posv, torch.ones_like(
             posv, dtype=torch.bool), attend, gather, backend)
@@ -330,8 +370,9 @@ class Model:
         q_pos = start[:, None] + ar                             # (B, Sq)
         valid_q = ar < nvalid[:, None]
 
-        def attend(q, kc, vc, view):
-            return L.chunk_attention(q, kc, vc, q_pos=q_pos, **view)
+        def attend(q, kc, vc, view, window):
+            return L.chunk_attention(q, kc, vc, q_pos=q_pos, window=window,
+                                     softcap=cfg.attn_softcap, **view)
 
         x = self._layers(params, x, cache, q_pos, valid_q, attend, gather,
                          backend)

@@ -87,13 +87,21 @@ class QuantizedLeaf:
             scale = scale.reshape(tuple(scale.shape) + (1,) * (ndim - scale.dim()))
         return self._finish(self.codes, scale)
 
-    def matmul(self, x: torch.Tensor, backend: Optional[str] = None):
-        """``x @ W`` without materializing W (K1 fused dequant-matmul);
-        a stacked leaf is sliced with :meth:`layer` first."""
+    def _mm(self, x, transpose: bool, backend: Optional[str]):
         return MM.dequant_matmul(x, self.codes, self.scale, k_x=self.k_x,
                                  n=self.shape[-1], pack_bits=self.pack_bits,
                                  w_dtype=self.dtype, cast_dtype=self.cast,
-                                 backend=backend)
+                                 transpose=transpose, backend=backend)
+
+    def matmul(self, x: torch.Tensor, backend: Optional[str] = None):
+        """``x @ W`` without materializing W (K1 fused dequant-matmul);
+        a stacked leaf is sliced with :meth:`layer` first."""
+        return self._mm(x, False, backend)
+
+    def matmul_t(self, x: torch.Tensor, backend: Optional[str] = None):
+        """``x @ W.T`` from the code rows (K1t; tied logit heads read the
+        same codes the embedding lookup :meth:`take` does)."""
+        return self._mm(x, True, backend)
 
     def take(self, idx: torch.Tensor) -> torch.Tensor:
         """Row lookup (embedding tables): gather only the requested code

@@ -7,9 +7,12 @@ scales, page gathers, the Adam+EF passes (moments, Delta+e, amax,
 codes, residuals, decoded updates), the wire's encodes and decodes
 (K7, #5, K6) and the blockwise codes and scales (#14, #8) bitwise, and
 the baselines' training steps through their kernels; the dequant-matmul
-within float32 summation-order tolerance (f32 activations) or one bf16
-ulp plus a floor of K1_FLOOR sqrt(K) 2^-24 |x*w|_2 near zero (bf16
-activations), the tier of ``chip_smoke.py``.
+in both orientations (K1, K1t) within float32 summation-order tolerance
+(f32 activations) or one bf16 ulp plus a floor of K1_FLOOR sqrt(K)
+2^-24 |x*w|_2 near zero (bf16 activations), the tier of
+``chip_smoke.py``; flash attention (#17) within rtol 1e-4 / atol 1e-5
+(float32) or one bf16 ulp plus 1e-5 (bfloat16 outputs) of its plain
+version, both taking float32 sums in orders of their own.
 """
 import dataclasses
 
@@ -97,6 +100,105 @@ def test_dequant_matmul(dev, bits, M, K, N, x_dtype):
         norm = (x.float() ** 2 @ w ** 2).sqrt()
         tol = _bf16_ulp(b.float()) + K1_FLOOR * K ** 0.5 * 2.0 ** -24 * norm
         assert bool(((a.float() - b.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("bits", [0, 16, 2, 3, 4, 6])
+@pytest.mark.parametrize("M,V,d", [(1, 256, 512), (4, 1001, 96),
+                                   (6, 300, 70), (3, 77, 2304)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_dequant_matmul_transposed(dev, bits, M, V, d, x_dtype):
+    """K1t: x @ W.T from (V, d) code rows, ragged V and d, M past one
+    4-row tile."""
+    from repro_torch.comm import bits as B
+    from repro_torch.comm import matmul as MM
+    g = torch.Generator(device=dev).manual_seed(M * V + d + bits)
+    k_x = {0: 6, 16: 7}.get(bits, {2: 0, 3: 1, 4: 2, 6: 4}.get(bits))
+    lim = 2 ** k_x
+    codes = torch.randint(-lim, lim + 1, (V, d), generator=g, device=dev)
+    pack_bits = bits if bits in (2, 3, 4, 6) else 0
+    if pack_bits:
+        codes = torch.clamp(codes, -(2 ** (bits - 1)), 2 ** (bits - 1) - 1)
+        codes = B.pack_rows(codes, bits)
+    else:
+        codes = codes.to(torch.int16 if bits == 16 else torch.int8)
+    scale = torch.tensor(0.37, device=dev)
+    x = torch.randn(M, d, generator=g, device=dev).to(x_dtype)
+    cast = "bfloat16" if x_dtype == torch.bfloat16 else None
+    kw = dict(k_x=k_x, n=d, pack_bits=pack_bits, cast_dtype=cast,
+              transpose=True)
+    n0 = MM.t_launches
+    a = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    assert MM.t_launches == n0 + 1
+    b = MM.dequant_matmul(x, codes, scale, backend="torch", **kw)
+    assert a.dtype == b.dtype and a.shape == (M, V)
+    if x_dtype == torch.float32:
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    else:
+        w = MM.dequant_codes(codes, scale, k_x=k_x, n=d, pack_bits=pack_bits,
+                             w_dtype="float32", cast_dtype=cast).float()
+        norm = (x.float() ** 2 @ (w ** 2).T).sqrt()
+        tol = _bf16_ulp(b.float()) + K1_FLOOR * d ** 0.5 * 2.0 ** -24 * norm
+        assert bool(((a.float() - b.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("case", [
+    dict(B=2, Sq=130, Skv=130, H=4, K=2, causal=True, window=0,
+         softcap=None),
+    dict(B=1, Sq=70, Skv=200, H=4, K=1, causal=True, window=0,
+         softcap=30.0, q_offset=130),
+    dict(B=1, Sq=150, Skv=150, H=2, K=2, causal=True, window=33,
+         softcap=50.0),
+    dict(B=2, Sq=65, Skv=97, H=4, K=4, causal=False, window=0,
+         softcap=None),
+    dict(B=1, Sq=40, Skv=100, H=2, K=1, causal=False, window=20,
+         softcap=None, q_offset=30)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention(dev, hd, case, dtype):
+    """#17 against its plain version: GQA, causal, window (skipped tiles
+    on both sides), softcap, q_offset, ragged Sq and Skv."""
+    from repro_torch.kernels import flash_attention as FA
+    g = torch.Generator(device=dev).manual_seed(hd + case["Sq"])
+    q = torch.randn(case["B"], case["Sq"], case["H"], hd, generator=g,
+                    device=dev).to(dtype)
+    k = torch.randn(case["B"], case["Skv"], case["K"], hd, generator=g,
+                    device=dev).to(dtype)
+    v = torch.randn(case["B"], case["Skv"], case["K"], hd, generator=g,
+                    device=dev).to(dtype)
+    kw = dict(causal=case["causal"], window=case["window"],
+              softcap=case["softcap"], q_offset=case.get("q_offset", 0))
+    n0 = FA.launches
+    a = FA.flash_attention(q, k, v, backend="cuda", **kw)
+    assert FA.launches == n0 + 1
+    b = FA.flash_attention(q, k, v, backend="torch", **kw)
+    assert a.dtype == b.dtype == dtype and a.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    else:
+        tol = _bf16_ulp(b.float()) + 1e-5
+        assert bool(((a.float() - b.float()).abs() <= tol).all())
+
+
+def test_gemma2_session_runs_through_kernels(dev):
+    """The tied head runs K1t from the embedding's codes; no plain
+    version on the card."""
+    from repro_torch.comm import matmul as MM
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve.quantized import quantize_params
+    from repro_torch.serve.session import Request, ServeSession
+    model = Model(get_config("gemma2-2b", smoke=True))
+    params = quantize_params(model.init(seed=0, device=dev), k_x=6,
+                             min_numel=256)
+    n0, p0 = MM.t_launches, MM.plain_on_cuda
+    sess = ServeSession(model, params, slots=2, max_seq=48, paged=True,
+                        page_size=8, prefill_chunk=4, device=dev)
+    hs = [sess.submit(Request(prompt=list(range(3, 23)), max_new_tokens=5))
+          for _ in range(2)]
+    res = sess.drain()
+    assert all(len(res[h].tokens) == 5 for h in hs)
+    assert MM.t_launches > n0 and MM.plain_on_cuda == p0
+    assert res[hs[0]].tokens == res[hs[1]].tokens
 
 
 def test_session_runs_through_kernels(dev):

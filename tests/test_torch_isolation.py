@@ -42,7 +42,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.data.pipeline, repro_torch.launch.train, "
             "repro_torch.launch.mesh, repro_torch.dist.step, "
             "repro_torch.dist.collectives, repro_torch.dist.modes, "
-            "repro_torch.train.loop, repro_torch.comm.codec; "
+            "repro_torch.train.loop, repro_torch.comm.codec, "
+            "repro_torch.kernels.flash_attention, "
+            "repro_torch.configs.gemma2_2b; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -1,5 +1,7 @@
 """K1 dequant-matmul wrapper (plain version on the CPU) against the JAX
-package's ``dequant_matmul`` on the same codes and activations.
+package's ``dequant_matmul`` on the same codes and activations, in both
+orientations: ``x @ W`` (K1) and ``x @ W.T`` from code rows (K1t, the
+tied logit head; ``transpose=True``).
 
 Tiers: float32 activations within rtol 1e-5 / atol 1e-6 (summation
 order); bf16 activations through the cast chain within one bf16 ulp
@@ -103,12 +105,81 @@ def test_ragged_shapes_and_leading_dims():
 
 
 def test_transpose_and_cuda_backend_refused_on_cpu():
+    """transpose computes on the CPU through the plain version, without a
+    launch; backend="cuda" on CPU tensors is refused in both
+    orientations."""
     codes, s, x = _case(6, 0, 8, 8, 2, seed=1)
     args = (torch.from_numpy(x), torch.from_numpy(codes), torch.tensor(s))
-    with pytest.raises(NotImplementedError):
-        TM.dequant_matmul(*args, k_x=6, n=8, transpose=True)
-    with pytest.raises(ValueError):
-        TM.dequant_matmul(*args, k_x=6, n=8, backend="cuda")
-    n0 = TM.launches
+    n0, t0 = TM.launches, TM.t_launches
+    out = TM.dequant_matmul(*args, k_x=6, n=8, transpose=True)
+    w = TM.dequant_codes(args[1], args[2], k_x=6, n=8, pack_bits=0,
+                         w_dtype="float32", cast_dtype=None)
+    torch.testing.assert_close(out, args[0] @ w.T, rtol=1e-6, atol=1e-7)
+    for transpose in (False, True):
+        with pytest.raises(ValueError):
+            TM.dequant_matmul(*args, k_x=6, n=8, backend="cuda",
+                              transpose=transpose)
     TM.dequant_matmul(*args, k_x=6, n=8)
-    assert TM.launches == n0          # CPU tensors never launch the kernel
+    assert (TM.launches, TM.t_launches) == (n0, t0)   # CPU never launches
+
+
+def _case_t(k_x, pack_bits, V, d, M, seed):
+    """Code rows (V, d) (packed rows for pack_bits) and x (M, d)."""
+    rng = np.random.default_rng(seed)
+    codes, s, _ = _case(k_x, pack_bits, V, d, 1, seed)
+    return codes, s, rng.standard_normal((M, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+@pytest.mark.parametrize("k_x,pack_bits", CASES)
+def test_transpose_f32_matches_reference(backend, k_x, pack_bits):
+    """K1t's plain version against the reference's transposed branch
+    (pallas: _mm_t_body in interpret mode; 256 rows = two of its tiles)."""
+    codes, s, x = _case_t(k_x, pack_bits, 256, 96, 3, seed=30 + k_x)
+    kw = dict(k_x=k_x, n=96, pack_bits=pack_bits, w_dtype="float32",
+              cast_dtype="float32", transpose=True)
+    ref = JM.dequant_matmul(jnp.asarray(x), jnp.asarray(codes), s,
+                            backend=backend, **kw)
+    out = TM.dequant_matmul(torch.from_numpy(x), torch.from_numpy(codes),
+                            torch.tensor(s), **kw)
+    assert out.dtype == torch.float32 and out.shape == (3, 256)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("k_x,pack_bits", CASES)
+def test_transpose_bf16_cast_chain_within_one_ulp(k_x, pack_bits):
+    codes, s, x = _case_t(k_x, pack_bits, 128, 80, 4, seed=40 + k_x)
+    xb = x.astype(ml_dtypes.bfloat16)
+    kw = dict(k_x=k_x, n=80, pack_bits=pack_bits, w_dtype="float32",
+              cast_dtype="bfloat16", transpose=True)
+    ref = np.asarray(JM.dequant_matmul(jnp.asarray(xb), jnp.asarray(codes),
+                                       s, backend="jnp", **kw)).astype(np.float32)
+    out = TM.dequant_matmul(torch.from_numpy(xb.astype(np.float32)).to(
+        torch.bfloat16), torch.from_numpy(codes), torch.tensor(s), **kw)
+    assert out.dtype == torch.bfloat16
+    w = TM.dequant_codes(torch.from_numpy(codes), torch.tensor(s), k_x=k_x,
+                         n=80, pack_bits=pack_bits, w_dtype="float32",
+                         cast_dtype="bfloat16").float().numpy()
+    norm = np.sqrt(xb.astype(np.float32) ** 2 @ (w ** 2).T)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -126))) - 7)
+    floor = K1_FLOOR * np.sqrt(80) * 2.0 ** -24 * norm
+    assert np.all(np.abs(out.float().numpy() - ref) <= ulp + floor)
+
+
+@pytest.mark.parametrize("k_x,pack_bits", [(6, 0), (2, 4), (1, 3)])
+def test_transpose_ragged_rows_and_leading_dims(k_x, pack_bits):
+    """V = 200 rows (no multiple of the reference's 128-row tile, which
+    its Pallas path refuses and its jnp path takes) and d = 37 (a ragged
+    last packing group), with leading dims on x."""
+    codes, s, x = _case_t(k_x, pack_bits, 200, 37, 6, seed=50 + k_x)
+    x3 = x.reshape(2, 3, 37)
+    kw = dict(k_x=k_x, n=37, pack_bits=pack_bits, transpose=True)
+    for backend in ("jnp", "pallas"):
+        ref = JM.dequant_matmul(jnp.asarray(x3), jnp.asarray(codes), s,
+                                backend=backend, **kw)
+        out = TM.dequant_matmul(torch.from_numpy(x3), torch.from_numpy(codes),
+                                torch.tensor(s), **kw)
+        assert out.shape == (2, 3, 200)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                                   atol=1e-6)

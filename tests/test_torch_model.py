@@ -1,10 +1,14 @@
-"""The port's dense decoder (decode_step, decode_chunk; fixed lanes and
-paged pool; float32-resident and quantized weights) against the JAX
-package on the same parameters, cache layout and tokens.
+"""The port's dense decoder (decode_step, decode_chunk, the training
+forward and loss; fixed lanes and paged pool; float32-resident and
+quantized weights) against the JAX package on the same parameters,
+cache layout and tokens, for yi-6b (untied head) and gemma2-2b (tied
+head from codes, sliding window 16 at smoke size, softcaps,
+post-sublayer norms, embedding scaling).
 
 Tier: logits within rtol 1e-4 / atol 1e-5 (XLA on the CPU evaluates
 rsqrt approximately and contracts into fma, so logits are compared to a
-tolerance); the written cache to the same tolerance.
+tolerance); the written cache to the same tolerance; gradients of the
+loss per leaf within rel L2 1e-5 (the tier of test_torch_train.py).
 """
 import jax
 import jax.numpy as jnp
@@ -25,11 +29,25 @@ from repro_torch.serve import quantized as TQ
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The smoke models' tensors are small: one intra-op thread is faster,
+    and the test processes of a parallel run share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _models(arch):
+    jm = JModel(jget(arch, smoke=True))
+    tm = TModel(tget(arch, smoke=True))
+    return jm, tm, jm.init(jax.random.PRNGKey(0))
+
+
 @pytest.fixture(scope="module")
 def models():
-    jm = JModel(jget("yi-6b", smoke=True))
-    tm = TModel(tget("yi-6b", smoke=True))
-    return jm, tm, jm.init(jax.random.PRNGKey(0))
+    return _models("yi-6b")
 
 
 def _np(t):
@@ -61,16 +79,19 @@ def test_chunk_then_decode_logits(models, k_x, paged):
     step = jax.jit(lambda p, t, c, pos: jm.decode_step(
         p, {"token": t}, c, pos, ctx))
     rng = np.random.default_rng(7)
-    toks = rng.integers(1, 512, size=(B, 8)).astype(np.int32)
-    start = np.zeros(B, np.int32)
-    nval = np.array([8, 5, 7], np.int32)
-    jl, jc = chunk(jpp, jnp.asarray(toks), jc, jnp.asarray(start),
-                   jnp.asarray(nval))
-    tl, tc = tm.decode_chunk(tp, {"token": torch.from_numpy(toks)}, tc,
-                             torch.from_numpy(start), torch.from_numpy(nval),
-                             gather)
-    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
-    pos = nval.copy()
+    # two chunks and three steps carry the slots to positions 20-23, past
+    # gemma2's smoke window of 16
+    pos = np.zeros(B, np.int32)
+    for nval in (np.array([12, 9, 11], np.int32),
+                 np.array([8, 10, 9], np.int32)):
+        toks = rng.integers(1, 512, size=(B, 12)).astype(np.int32)
+        jl, jc = chunk(jpp, jnp.asarray(toks), jc, jnp.asarray(pos),
+                       jnp.asarray(nval))
+        tl, tc = tm.decode_chunk(tp, {"token": torch.from_numpy(toks)}, tc,
+                                 torch.from_numpy(pos),
+                                 torch.from_numpy(nval), gather)
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+        pos = pos + nval
     for _ in range(3):
         cur = rng.integers(1, 512, size=(B, 1)).astype(np.int32)
         jl, jc = step(jpp, jnp.asarray(cur), jc, jnp.asarray(pos))
@@ -153,10 +174,93 @@ def test_init_leaf_names_and_shapes(models):
 def test_unported_features_are_refused():
     import dataclasses
     cfg = tget("yi-6b", smoke=True)
-    for change in (dict(qkv_bias=True), dict(tie_embeddings=True),
-                   dict(window=8, pattern="lg"), dict(arch_type="moe"),
-                   dict(attn_softcap=50.0), dict(norm="layernorm")):
+    for change in (dict(qkv_bias=True), dict(qk_norm=True),
+                   dict(arch_type="moe"), dict(norm="layernorm"),
+                   dict(rope_theta_local=10_000.0)):
         with pytest.raises(NotImplementedError):
             TModel(dataclasses.replace(cfg, **change)).init(device="cpu")
     with pytest.raises(KeyError):
-        tget("gemma2-2b")
+        tget("mamba2-2.7b")
+
+
+def test_forward_logits_and_loss_grads(models):
+    """The training forward over 24 tokens (past gemma2's smoke window)
+    and the loss's gradients, float32 parameters."""
+    jm, tm, jp = models
+    rng = np.random.default_rng(3)
+    toks = rng.integers(1, 512, size=(2, 24)).astype(np.int32)
+    tgts = rng.integers(1, 512, size=(2, 24)).astype(np.int32)
+    jl, _ = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(toks)})
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    tl = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    batch = {"tokens": toks, "targets": tgts}
+    (jloss, _), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(
+        jp, batch)
+    leaves = {}
+
+    def grad_leaf(path, t):
+        leaves[path] = t.requires_grad_()
+        return t
+    tq = TQ.tree_map_with_path(grad_leaf, tp)
+    tloss, _ = tm.loss(tq, {k: torch.from_numpy(v) for k, v in batch.items()})
+    grads = dict(zip(leaves, torch.autograd.grad(tloss, list(leaves.values()))))
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss), rtol=1e-5)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(jg)[0]:
+        want = np.asarray(leaf)
+        got = grads[tuple(k.key for k in path)].numpy()
+        rel = np.linalg.norm(want - got) / np.linalg.norm(want)
+        assert rel <= 1e-5, (path, rel)
+
+
+@pytest.mark.parametrize("window,softcap", [(0, None), (5, None),
+                                            (0, 50.0), (5, 2.0)])
+def test_window_and_softcap_attention_match_reference(window, softcap):
+    """The three attention variants with a sliding window and a logit
+    softcap (small caps bite harder) against the reference's."""
+    from repro.models import layers as JL
+    rng = np.random.default_rng(11)
+    B, S, H, K, hd = 2, 12, 4, 2, 16
+    q = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, S, K, hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, K, hd)).astype(np.float32)
+    kw = dict(window=window, softcap=softcap)
+    qpos = np.arange(S, dtype=np.int32)
+    for causal in (True, False):
+        ref = JL.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           q_pos=jnp.asarray(qpos), causal=causal, **kw)
+        out = TL.attention(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), q_pos=torch.from_numpy(qpos),
+                           causal=causal, **kw)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    tl = np.array([12, 7], np.int32)
+    ref = JL.decode_attention(jnp.asarray(q[:, :1]), jnp.asarray(k),
+                              jnp.asarray(v), total_len=jnp.asarray(tl),
+                              q_pos=jnp.asarray(tl - 1), **kw)
+    out = TL.decode_attention(torch.from_numpy(q[:, :1]), torch.from_numpy(k),
+                              torch.from_numpy(v),
+                              total_len=torch.from_numpy(tl), **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    cpos = np.stack([np.arange(4, 8), np.arange(8, 12)]).astype(np.int32)
+    ref = JL.chunk_attention(jnp.asarray(q[:, :4]), jnp.asarray(k),
+                             jnp.asarray(v), q_pos=jnp.asarray(cpos), **kw)
+    out = TL.chunk_attention(torch.from_numpy(q[:, :4]), torch.from_numpy(k),
+                             torch.from_numpy(v),
+                             q_pos=torch.from_numpy(cpos), **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+class TestGemma2:
+    """The checks that take ``models``, on gemma2-2b."""
+
+    @pytest.fixture(scope="class")
+    def models(self):
+        return _models("gemma2-2b")
+
+    test_chunk_then_decode_logits = staticmethod(test_chunk_then_decode_logits)
+    test_released_rows_drop_their_writes = staticmethod(
+        test_released_rows_drop_their_writes)
+    test_init_leaf_names_and_shapes = staticmethod(
+        test_init_leaf_names_and_shapes)
+    test_forward_logits_and_loss_grads = staticmethod(
+        test_forward_logits_and_loss_grads)

@@ -1,8 +1,10 @@
 """The port's ``quantize_params`` / ``QuantizedLeaf`` against the JAX
-package's on the yi-6b smoke parameters.
+package's on the yi-6b and gemma2-2b smoke parameters (gemma2: the tied
+``embed`` table and the post-sublayer norm leaves).
 
 Tier: bitwise (codes, scales, dequantized weights, row lookups, resident
-byte counts).
+byte counts); the tied head's ``matmul_t`` within rtol 1e-5 / atol 1e-6
+of the reference's (float32 summation order).
 """
 import jax
 import jax.numpy as jnp
@@ -17,6 +19,16 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.serve import quantized as TQ
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The smoke models' tensors are small: one intra-op thread is faster,
+    and the test processes of a parallel run share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _eq(a_jax, b_torch):
     a = np.asarray(a_jax)
     b = b_torch.numpy()
@@ -24,10 +36,13 @@ def _eq(a_jax, b_torch):
     np.testing.assert_array_equal(a, b)
 
 
+def _smoke_params(arch):
+    return JModel(jget(arch, smoke=True)).init(jax.random.PRNGKey(0))
+
+
 @pytest.fixture(scope="module")
 def smoke_params():
-    cfg = jget("yi-6b", smoke=True)
-    return JModel(cfg).init(jax.random.PRNGKey(0))
+    return _smoke_params("yi-6b")
 
 
 @pytest.mark.parametrize("k_x,pack", [(6, False), (6, True), (2, True),
@@ -58,6 +73,10 @@ def test_quantize_params_bitwise(smoke_params, k_x, pack):
         else:
             _eq(leaf, node)
     assert n_q >= 9
+    if "unembed" not in smoke_params:      # gemma2: one tied table
+        assert TQ.is_qleaf(tq["embed"])
+        assert TQ.is_qleaf(tq["blocks"]["ln1_post"]["w"])
+        assert TQ.is_qleaf(tq["blocks"]["ln2_post"]["w"])
     assert TQ.params_nbytes(tq) == JQ.params_nbytes(jq)
     assert TQ.params_nbytes(tp) == JQ.params_nbytes(smoke_params)
 
@@ -81,7 +100,8 @@ def test_dequant_gather_keeps_matmul_leaves_as_codes(smoke_params):
         k_x=6, min_numel=256)
     g = TQ.make_dequant_gather()
     static = g(tq, "static")
-    assert TQ.is_qleaf(static["embed"]) and TQ.is_qleaf(static["unembed"])
+    assert TQ.is_qleaf(static["embed"])
+    assert TQ.is_qleaf(static.get("unembed", static["embed"]))
     assert TQ.is_qleaf(static["blocks"]["attn"]["q"])
     blk = g(TQ.layer_slice(tq["blocks"], 0), "blocks")
     assert TQ.is_qleaf(blk["attn"]["q"]) and TQ.is_qleaf(blk["mlp"]["w_down"])
@@ -89,3 +109,40 @@ def test_dequant_gather_keeps_matmul_leaves_as_codes(smoke_params):
     plain = TQ.make_dequant_gather(fused=False)(
         TQ.layer_slice(tq["blocks"], 0), "blocks")
     assert isinstance(plain["attn"]["q"], torch.Tensor)
+
+
+@pytest.mark.parametrize("k_x,pack", [(6, False), (2, True)])
+def test_tied_head_from_the_embedding_codes(smoke_params, k_x, pack):
+    """``matmul_t`` of the one ``embed`` leaf against the reference's;
+    the table is held once (no second copy for the head)."""
+    jq = JQ.quantize_params(smoke_params, k_x=k_x, min_numel=256, pack=pack)
+    tq = TQ.quantize_params(
+        params_from_numpy(jax.tree.map(np.asarray, smoke_params), "cpu"),
+        k_x=k_x, min_numel=256, pack=pack)
+    x = np.random.default_rng(2).standard_normal((3, 128)).astype(np.float32)
+    ref = jq["embed"].astype(jnp.float32).matmul_t(jnp.asarray(x))
+    g = TQ.make_dequant_gather()(tq, "static")
+    assert g["embed"] is tq["embed"]            # the same codes, not a copy
+    out = g["embed"].astype(torch.float32).matmul_t(torch.from_numpy(x))
+    assert out.shape == (3, 512)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+    tables = [l for l in TQ.tree_leaves(tq) if TQ.is_qleaf(l)
+              and 512 in l.shape]
+    assert len(tables) == (2 if "unembed" in tq else 1)
+
+
+class TestGemma2:
+    """The checks that take ``smoke_params``, on gemma2-2b."""
+
+    @pytest.fixture(scope="class")
+    def smoke_params(self):
+        return _smoke_params("gemma2-2b")
+
+    test_quantize_params_bitwise = staticmethod(test_quantize_params_bitwise)
+    test_take_matches_full_dequant = staticmethod(
+        test_take_matches_full_dequant)
+    test_dequant_gather_keeps_matmul_leaves_as_codes = staticmethod(
+        test_dequant_gather_keeps_matmul_leaves_as_codes)
+    test_tied_head_from_the_embedding_codes = staticmethod(
+        test_tied_head_from_the_embedding_codes)

@@ -1,7 +1,9 @@
 """The port's ServeSession end to end against the JAX package's, on the
-CPU: greedy tokens identical for a paged, quantized, chunked-prefill
-session; no per-token host sync; reproducible sampling; SLO admission
-and preemption; the Engine shim and the launcher."""
+CPU, for yi-6b and gemma2-2b (tied head from codes, window 16 at smoke
+size, which the longest prompt crosses): greedy tokens identical for a
+paged, quantized, chunked-prefill session; no per-token host sync;
+reproducible sampling; SLO admission and preemption; the Engine shim and
+the launcher."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,33 +25,54 @@ from repro_torch.serve.session import Request, ServeSession
 
 MIXED = [[5, 6, 7, 8], [9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19], [3, 14],
          [21, 22, 23, 24, 25], [7, 8, 9],
-         [2, 4, 6, 8, 10, 12, 14, 16, 18, 20, 22, 24, 26]]
+         [2, 4, 6, 8, 10, 12, 14, 16, 18, 20, 22, 24, 26],
+         list(range(30, 51))]
 SESSION = dict(slots=3, max_seq=48, paged=True, page_size=8, prefill_chunk=4)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jm = JModel(jget("yi-6b", smoke=True))
-    tm = TModel(tget("yi-6b", smoke=True))
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The smoke models' tensors are small: one intra-op thread is faster,
+    and the test processes of a parallel run share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _setup(arch):
+    jm = JModel(jget(arch, smoke=True))
+    tm = TModel(tget(arch, smoke=True))
     jp = JQ.quantize_params(jm.init(jax.random.PRNGKey(0)), k_x=6,
                             min_numel=256, pack=True)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     return jm, tm, jp, tp
 
 
-def _min_top2_gap(jm, jp, prompt, tokens):
-    """Smallest top-1/top-2 logit gap (relative to the tolerance) along
-    the reference's greedy path for one request."""
+@pytest.fixture(scope="module")
+def setup():
+    return _setup("yi-6b")
+
+
+def _programs(jm):
+    """The reference's jitted chunk and step programs, one pair a model."""
     ctx = ShardCtx(param_gather=JQ.make_dequant_gather())
-    cache = jm.init_cache(1, 48)
-    pad = np.zeros((1, 16), np.int32)
-    pad[0, :len(prompt)] = prompt
     chunk = jax.jit(lambda p, t, c, n: jm.decode_chunk(
         p, {"token": t}, c, jnp.asarray([0]), n, ctx))
-    lg, cache = chunk(jp, jnp.asarray(pad), cache, jnp.asarray([len(prompt)]))
     step = jax.jit(lambda p, t, c, pos: jm.decode_step(
         p, {"token": t}, c, pos, ctx))
+    return chunk, step
+
+
+def _min_top2_gap(jm, jp, prompt, tokens, programs):
+    """Smallest top-1/top-2 logit gap (relative to the tolerance) along
+    the reference's greedy path for one request."""
+    chunk, step = programs
+    cache = jm.init_cache(1, 48)
+    pad = np.zeros((1, 24), np.int32)
+    pad[0, :len(prompt)] = prompt
+    lg, cache = chunk(jp, jnp.asarray(pad), cache, jnp.asarray([len(prompt)]))
     worst = np.inf
     for i, t in enumerate(tokens):
         top = np.sort(np.asarray(lg[0]))[-2:]
@@ -69,13 +92,14 @@ def test_greedy_tokens_identical_to_reference(setup):
     want = [jr[h].tokens for h in jh]
     # a match is a real check only if no greedy choice sits within the
     # logits tolerance of the runner-up
-    gaps = [_min_top2_gap(jm, jp, p, t) for p, t in zip(MIXED, want)]
+    programs = _programs(jm)
+    gaps = [_min_top2_gap(jm, jp, p, t, programs) for p, t in zip(MIXED, want)]
     assert min(gaps) > 1.0, gaps
     ts = ServeSession(tm, tp, device="cpu", **SESSION)
     th = [ts.submit(Request(prompt=p, max_new_tokens=6)) for p in MIXED]
     tr = ts.drain()
     assert [tr[h].tokens for h in th] == want
-    assert [tr[h].finish_reason for h in th] == ["length"] * 6
+    assert [tr[h].finish_reason for h in th] == ["length"] * len(MIXED)
     assert ts.free_pages == ts.num_pages
     for key in ("dispatches", "syncs", "admitted", "preemptions",
                 "chunk_dispatches", "max_inflight"):
@@ -206,10 +230,32 @@ def test_engine_shim_and_launcher(setup, capsys):
     res = s.drain()
     assert [r.tokens for r in out] == [res[h].tokens for h in hs]
     from repro_torch.launch import serve as launch
-    results = launch.main(["--arch", "yi-6b", "--smoke", "--device", "cpu",
+    results = launch.main(["--arch", tm.cfg.name, "--smoke", "--device", "cpu",
                            "--quantized", "--paged", "--requests", "3",
                            "--slots", "2", "--max-new", "4", "--k-x", "2"])
     assert all(len(r.tokens) == 4 for r in results.values())
     assert "resident codes" in capsys.readouterr().out
     params = quantize_params(tm.init(seed=1, device="cpu"), k_x=6)
     assert params["blocks"]["attn"]["q"].codes.dtype == torch.int8
+
+
+class TestGemma2:
+    """The checks that take ``setup``, on gemma2-2b."""
+
+    @pytest.fixture(scope="class")
+    def setup(self):
+        return _setup("gemma2-2b")
+
+    test_greedy_tokens_identical_to_reference = staticmethod(
+        test_greedy_tokens_identical_to_reference)
+    test_fixed_lanes_and_inject_match_paged = staticmethod(
+        test_fixed_lanes_and_inject_match_paged)
+    test_steady_state_decode_never_reads_the_device = staticmethod(
+        test_steady_state_decode_never_reads_the_device)
+    test_sampling_reproducible_and_batch_independent = staticmethod(
+        test_sampling_reproducible_and_batch_independent)
+    test_preempt_requeue_replays_exact_tokens = staticmethod(
+        test_preempt_requeue_replays_exact_tokens)
+    test_preempt_kill_and_slo_order = staticmethod(
+        test_preempt_kill_and_slo_order)
+    test_engine_shim_and_launcher = staticmethod(test_engine_shim_and_launcher)
