@@ -6,9 +6,11 @@
 Phases, each raising on failure (exit code nonzero, no result line):
 
   1. print the card's name and power limit (nvidia-smi);
-  2. build the fifteen CUDA kernels from the eight sources of
+  2. build the kernels of every TPU kernel row from the nine sources of
      ``src/repro_torch/csrc`` (nvcc, sm_90a, one process per source, all
-     started together);
+     started together), and beside them a library of planted faults
+     (copies of pack.cu and quantize.cu, each with one line changed,
+     under build/planted);
   3. hold each serving kernel against its plain PyTorch version at yi-6b
      shapes: K3 amax / K4 quantize on a stacked (32, 4096, 11008) f32
      leaf and K2 page gather bitwise; K1 dequant-matmul at M in
@@ -39,8 +41,15 @@ Phases, each raising on failure (exit code nonzero, no result line):
      absolute and the amax scale, ternary on uniforms from one seeded
      generator; zero input) with K6 on its rows (the ternary kind), #14
      blockwise quantize and #8 blockwise encode, over the same n_rows and
-     chunks, and at the w_gate stack; time each kernel, its plain version
-     and a one-call PyTorch yardstick where there is one;
+     chunks, and at the w_gate stack; then the last three kernels bitwise:
+     #10 log quantize at k_g {1, 2, 4, 6, 8} (random, zero and
+     decision-point inputs), #13 ternary quantize (uniforms from one
+     seeded generator, u = p exactly among them, x = 0, a zero scale) and
+     #9 lane pack/unpack at every width over rows {1, 2, 4} x chunks
+     {1, 7, 1000003}, each at the w_gate stack too, and the planted
+     faults (#9's lane bias off by one, #13 comparing u <= p) must fail
+     those gates; time each kernel, its plain version and a one-call
+     PyTorch yardstick where there is one (none for #9, #10, #13);
   4. serve full-width yi-6b (random weights from a seed): Model.init,
      quantize_params(k_x=6), a paged ServeSession (page 16, 4 slots,
      chunked prefill 32) answering 8 requests of 64-token prompts with
@@ -73,6 +82,13 @@ Phases, each raising on failure (exit code nonzero, no result line):
      parameters; print the
      step's wall and device time, its time by kernel, tokens/s and peak
      memory;
+     5b. the Algorithm 1 baselines on the same cut and batches, 8 steps
+     each through ``TrainSession.from_optimizer``: ``ef_sgdm(alpha=1e-3,
+     beta=0.9, grad_q="blockwise:256")`` (#14) and
+     ``terngrad_sgd(alpha=1e-3)`` (K3, #13), with the phase-5 gates and a
+     captured-gradient update bitwise through the kernels and the plain
+     versions (the same uniforms), then ``wquan(k_x=7, absolute=False)``
+     of the trained parameters (K3, K4, K12, bitwise);
   6. train the same cut of yi-6b with Algorithms 2+3 through
      ``launch.train``'s path, in process: ``make_process_group`` (one
      NCCL rank), ``make_train_step(model, group, TrainConfig(alpha=1e-3,
@@ -94,7 +110,8 @@ Phases, each raising on failure (exit code nonzero, no result line):
      the same rank, cut and batches, 8 steps (MODE_RUNS): ``dp_adam``
      (fp32 both channels; K15), ``efadam`` (grad_k=6, weight_k=7, amax
      weights; K15, K3, K7 and K6), ``terngrad`` and ``ef_sgd`` (fp32
-     broadcast, alpha 1e-3; #5 ternary with K3 and K6 ternary, #14), with
+     broadcast, alpha 1e-3; #5 ternary with K3 and K6 ternary, #14 and
+     #9 for ef_sgd's exchange rows), with
      the gates of phase 6 (the captured-gradient update through the
      kernels and the plain versions, TernGrad on the same uniforms); then
      ``dp_adam`` bitwise ``qadam`` with both channels in float32 and
@@ -105,8 +122,14 @@ Phases, each raising on failure (exit code nonzero, no result line):
      wire (absolute and amax), TernGrad and blockwise:256: #5 (each
      kind), #8 and K6 launched, no plain version on the card, buffer
      bytes ``codec.wire_nbytes``, bitwise the plain versions;
-  9. print one ``{"kernels": [...]}`` line, the card line again, and the
-     last line ``{"ok": true, "device": {...}}``.
+  9. the paper's comparison protocol, ``examples/paper_repro_torch.py``
+     (8 workers, 300 steps, one seed), in its default mode and in
+     ``--mode efadam``: every accuracy finite, #13 and #14 (and in efadam
+     mode #10) launched, no plain version on the card; print the
+     accuracy table;
+  10. print one ``{"kernels": [...]}`` line (each kernel's launches by
+     path), the card line again, and the last line ``{"ok": true,
+     "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package. Detailed tables are
 also written to ``results/chip_smoke.json``.
@@ -1055,6 +1078,242 @@ def check_encode_kernels(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, the last three kernels: #10 log quantize, #13 ternary quantize,
+# #9 lane pack/unpack; their planted faults
+# ---------------------------------------------------------------------------
+
+# the planted faults, each a text edit of one line of the kernels' sources
+# (built into a library of their own under build/planted, never the
+# port's): #9 packs with its lane bias off by one, #13 compares u <= p
+PLANTED = {"grids.cuh": ("val |= ((unsigned int)(codes[j] + bias) & mask)",
+                         "val |= ((unsigned int)(codes[j] + bias + 1) & "
+                         "mask)"),
+           "quantize.cu": ("return u < p ?", "return u <= p ?"),
+           "pack.cu": None}
+
+
+def start_planted_build(build):
+    """Start nvcc on the planted copies of pack.cu and quantize.cu (with
+    their edited grids.cuh), one process each, beside the port's own
+    build; returns what ``finish_planted_build`` waits for."""
+    out = build.BUILD_DIR / "planted"
+    out.mkdir(parents=True, exist_ok=True)
+    for name, edit in PLANTED.items():
+        text = (build.CSRC / name).read_text()
+        if edit is not None:
+            if text.count(edit[0]) != 1:
+                raise AssertionError(f"planted fault: {edit[0]!r} is not one "
+                                     f"line of {name}")
+            text = text.replace(edit[0], edit[1])
+        (out / name).write_text(text)
+    procs = []
+    for src in ("pack.cu", "quantize.cu"):
+        obj = out / (src[:-3] + ".o")
+        procs.append((obj, subprocess.Popen(
+            [build.nvcc_path(), *build.CFLAGS, "-I", str(out), "-c",
+             str(out / src), "-o", str(obj)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    return out, procs
+
+
+def finish_planted_build(build, started):
+    """Wait for the planted objects, link them and load the library with
+    the port's C signatures."""
+    import ctypes
+    out, procs = started
+    for obj, proc in procs:
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"planted build of {obj.name} failed:\n{text}")
+    so = out / "libplanted.so"
+    subprocess.run([build.nvcc_path(), *build.ARCH_FLAGS, "-shared", "-o",
+                    str(so), *(str(o) for o, _ in procs), "-lcudart"],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in build.SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
+
+
+def through(build, lib, fn):
+    """``fn()`` with the wrappers launching ``lib``'s kernels."""
+    saved = build._lib
+    build._lib = lib
+    try:
+        return fn()
+    finally:
+        build._lib = saved
+
+
+LOG_KG = (1, 2, 4, 6, 8)
+PACK_BITS = (2, 3, 4, 6, 8, 16)
+
+
+def check_slice6_kernels(torch, dev, build, planted):
+    """#10, #13 and #9 bitwise against their plain versions: #10 at k_g
+    LOG_KG on random, zero and decision-point inputs; #13 on uniforms from
+    one seeded generator, u = p exactly among them, x = 0 and a zero
+    scale; #9 at every lane width over R {1, 2, 4} x c {1, 7, 1000003}
+    (each code type); then each at the 8-layer w_gate stack (#9 at ef_sgd's
+    2-bit lanes, and at 16 bits), timed against its bound and its plain
+    version. The planted faults (``planted``: the lane bias off by one,
+    u <= p) must fail the same gates. Returns the kernel rows, the timing
+    table, the count of cases and the faults' readings."""
+    from repro_torch.comm import kernels as K
+    from repro_torch.opt import grids
+    cases = 0
+    for n in (1, 7, 1000003):
+        gen = torch.Generator(device=dev).manual_seed(60 + n)
+        x = torch.randn(n, generator=gen, device=dev)
+        x[::11] = 0.0
+        for k_g in LOG_KG:
+            t = torch.tensor(grids.log_thresholds(k_g), device=dev)
+            pts = torch.cat([t, -t, torch.nextafter(t, torch.zeros_like(t))])
+            xs = (x, torch.zeros_like(x), pts)
+            for xx in xs:
+                for s in (xx.abs().amax().clamp_min(1e-30),
+                          torch.tensor(1.0, device=dev)):
+                    if not bits_equal(torch, K.log_quantize(
+                            xx, s, k_g, backend="cuda"), K.log_quantize(
+                            xx, s, k_g, backend="torch")):
+                        raise AssertionError(f"#10 differs from its plain "
+                                             f"version (k_g={k_g}, n={n})")
+                    cases += 1
+        u = torch.rand(n, generator=gen, device=dev)
+        s = x.abs().amax()
+        u[1::3] = (x.abs() / s)[1::3]          # u == p: code 0
+        for xx, ss in ((x, s), (torch.zeros_like(x), s),
+                       (x, torch.tensor(0.0, device=dev))):
+            if not bits_equal(torch, K.ternary_quantize(
+                    xx, u, ss, backend="cuda"), K.ternary_quantize(
+                    xx, u, ss, backend="torch")):
+                raise AssertionError(f"#13 differs from its plain version "
+                                     f"(n={n})")
+            cases += 1
+        for bits in PACK_BITS:
+            lim = 2 ** (bits - 1)
+            for rows in (1, 2, 4):
+                for dt in (torch.int8, torch.int16):
+                    if bits == 16 and dt == torch.int8:
+                        continue
+                    codes = torch.randint(-lim, lim, (rows, n), generator=gen,
+                                          device=dev).to(dt)
+                    pk = K.pack_rows(codes, bits, backend="cuda")
+                    uk = K.unpack_rows(pk, bits, n, backend="cuda")
+                    if not (bits_equal(torch, pk, K.pack_rows(
+                            codes, bits, backend="torch")) and bits_equal(
+                            torch, uk, K.unpack_rows(
+                                pk, bits, n, backend="torch").contiguous())
+                            and torch.equal(uk.to(torch.int32),
+                                            codes.to(torch.int32))):
+                        raise AssertionError(f"#9 at {bits} bits differs "
+                                             f"from its plain version "
+                                             f"(R={rows}, c={n}, {dt})")
+                    cases += 1
+    # the planted faults must fail the gates that pass above
+    gen = torch.Generator(device=dev).manual_seed(67)
+    codes = torch.randint(-2, 2, (2, 1000003), generator=gen,
+                          device=dev).to(torch.int8)
+    fp = through(build, planted, lambda: K.pack_rows(codes, 2,
+                                                     backend="cuda"))
+    pp = K.pack_rows(codes, 2, backend="torch")
+    x = torch.randn(1000003, generator=gen, device=dev)
+    s = x.abs().amax()
+    u = torch.rand(1000003, generator=gen, device=dev)
+    u[::5] = (x.abs() / s)[::5]
+    ft = through(build, planted, lambda: K.ternary_quantize(
+        x, u, s, backend="cuda"))
+    tp = K.ternary_quantize(x, u, s, backend="torch")
+    faults = {"pack_bias_off_by_one": float((fp != pp).float().mean()),
+              "ternary_u_le_p": float((ft != tp).float().mean())}
+    if bits_equal(torch, fp, pp) or bits_equal(torch, ft, tp):
+        raise AssertionError(f"a planted fault passed its gate: {faults}")
+    del fp, pp, ft, tp, codes
+
+    # the w_gate stack of the 8-layer cell
+    d, f = YI["d"], YI["f"]
+    n = TRAIN_LAYERS * d * f
+    x = torch.randn(n, generator=gen, device=dev).mul_(1e-3)
+    u = torch.rand(n, generator=gen, device=dev)
+    s = x.abs().amax()
+    t = {}
+    ck = K.log_quantize(x, s, 6, backend="cuda")
+    if not bits_equal(torch, ck, K.log_quantize(x, s, 6, backend="torch")):
+        raise AssertionError("#10 differs from its plain version at the "
+                             "w_gate stack")
+    t["log_quantize"] = ("log:6", cuda_ms(torch, lambda i: K.log_quantize(
+        x, s, 6, backend="cuda"), 5, 1), cuda_ms(torch, lambda i: (
+            K.log_quantize(x, s, 6, backend="torch")), 2, 1),
+        bound_ms(5 * n + 4), "src/repro_torch/csrc/quantize.cu",
+        "src/repro/comm/kernels.py:501")
+    del ck
+    ck = K.ternary_quantize(x, u, s, backend="cuda")
+    if not bits_equal(torch, ck, K.ternary_quantize(x, u, s,
+                                                    backend="torch")):
+        raise AssertionError("#13 differs from its plain version at the "
+                             "w_gate stack")
+    t["ternary_quantize"] = ("terngrad", cuda_ms(
+        torch, lambda i: K.ternary_quantize(x, u, s, backend="cuda"), 5, 1),
+        cuda_ms(torch, lambda i: K.ternary_quantize(
+            x, u, s, backend="torch"), 2, 1), bound_ms(9 * n + 4),
+        "src/repro_torch/csrc/quantize.cu", "src/repro/comm/kernels.py:595")
+    del u
+    # #9 on 2-bit codes of the stack (the ternary codes just made), one
+    # row: ef_sgd's exchange packs its sign codes so at one worker
+    c2 = ck.reshape(1, n)
+    del x
+    p2 = K.pack_rows(c2, 2, backend="cuda")
+    if not (bits_equal(torch, p2, K.pack_rows(c2, 2, backend="torch"))
+            and bits_equal(torch, K.unpack_rows(p2, 2, n, backend="cuda"),
+                           K.unpack_rows(p2, 2, n, backend="torch")
+                           .contiguous())):
+        raise AssertionError("#9 (2 bits) differs from its plain version at "
+                             "the w_gate stack")
+    nb2 = p2.numel()
+    t["pack_rows"] = ("2-bit lanes", cuda_ms(torch, lambda i: K.pack_rows(
+        c2, 2, backend="cuda"), 5, 1), cuda_ms(torch, lambda i: K.pack_rows(
+            c2, 2, backend="torch"), 2, 1), bound_ms(n + nb2),
+        "src/repro_torch/csrc/pack.cu", "src/repro/comm/kernels.py:436")
+    t["unpack_rows"] = ("2-bit lanes", cuda_ms(
+        torch, lambda i: K.unpack_rows(p2, 2, n, backend="cuda"), 5, 1),
+        cuda_ms(torch, lambda i: K.unpack_rows(p2, 2, n, backend="torch"),
+                2, 1), bound_ms(nb2 + n), "src/repro_torch/csrc/pack.cu",
+        "src/repro/comm/kernels.py:457")
+    del c2, p2, ck
+    torch.cuda.empty_cache()
+    c16 = torch.randint(-2 ** 15, 2 ** 15, (1, n), generator=gen,
+                        device=dev).to(torch.int16)
+    p16 = K.pack_rows(c16, 16, backend="cuda")
+    if not (bits_equal(torch, p16, K.pack_rows(c16, 16, backend="torch"))
+            and bits_equal(torch, K.unpack_rows(p16, 16, n, backend="cuda"),
+                           c16)):
+        raise AssertionError("#9 (16 bits) differs from its plain version at "
+                             "the w_gate stack")
+    sixteen = dict(pack_ms=cuda_ms(torch, lambda i: K.pack_rows(
+        c16, 16, backend="cuda"), 5, 1), unpack_ms=cuda_ms(
+        torch, lambda i: K.unpack_rows(p16, 16, n, backend="cuda"), 5, 1),
+        pack_plain_ms=cuda_ms(torch, lambda i: K.pack_rows(
+            c16, 16, backend="torch"), 2, 1), bound_ms=bound_ms(4 * n)[0])
+    del c16, p16
+    torch.cuda.empty_cache()
+    table, rows = [], []
+    for name, (spec, ms, plain, (bnd, by), src, rep) in t.items():
+        table.append(dict(name=name, spec=spec, shape=[n], ms=ms,
+                          plain_ms=plain, library_ms=None, bound_ms=bnd,
+                          bound_by=by,
+                          gbs=(bnd * 1e-3 * HBM_BYTES_PER_S) / ms / 1e6))
+        rows.append(dict(name=name, route="cuda", source=src, replaces=rep,
+                         max_abs_err=0.0, ms=ms, plain_ms=plain,
+                         bound_ms=bnd, bound_by=by, library_ms=None,
+                         shape=[n]))
+    table.append(dict(name="pack_rows/unpack_rows", spec="16-bit lanes",
+                      shape=[n], **sixteen))
+    return rows, table, cases, faults
+
+
+# ---------------------------------------------------------------------------
 # phase 5: Algorithm 1 training of full-width yi-6b cut to 8 layers
 # ---------------------------------------------------------------------------
 
@@ -1136,6 +1395,43 @@ def check_run(w, stats, launches, plain, what: str, steps: int) -> None:
                              f"beyond the harvest (stats {stats}, at step "
                              f"starts {w['starts']} of {w['syncs']}): "
                              f"{w['messages']}")
+
+
+def step_phases(torch, opt, p, s, grads_at, fields=("m", "v", "e")):
+    """One Algorithm 1 step's phases on the device (CUDA events; the
+    device is busy through the step): the Q_x forward copy, forward +
+    backward, the update's kernels, apply_updates; on a copy of the
+    state's ``fields`` (those the update writes in place), the mean of two
+    rounds after a warm one."""
+    from repro_torch.core.qadam import apply_updates
+    from repro_torch.tree import tree_leaves
+
+    def flat(tree):     # a tree's leaves as a flat dict, in one order
+        return dict(enumerate(tree_leaves(tree)))
+
+    s = s._replace(**{f: {k: t.clone() for k, t in flat(
+        getattr(s, f)).items()} for f in fields})
+    phases = {"forward_params": 0.0, "forward_backward": 0.0, "update": 0.0,
+              "apply_updates": 0.0}
+    for rep in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        fp = opt.forward_params(p, None)
+        ev[1].record()
+        grads = grads_at(fp)
+        del fp
+        ev[2].record()
+        upd, _ = opt.update(dict(enumerate(grads)), s)
+        del grads
+        ev[3].record()
+        apply_updates(flat(p), upd)
+        ev[4].record()
+        del upd
+        ev[4].synchronize()
+        if rep:      # the first round warms up
+            for i, k in enumerate(phases):
+                phases[k] += ev[i].elapsed_time(ev[i + 1]) / 2
+    return phases
 
 
 def train(torch, dev, mods):
@@ -1234,34 +1530,7 @@ def train(torch, dev, mods):
                                      f"plain versions (leaf {tuple(g.shape)})")
         del outs
     del grads
-    # the step's phases on the device (CUDA events; the device is busy
-    # through the step): Q_x forward copy, forward + backward, the
-    # update's kernels, apply_updates. On a copy of the state.
-    def flat(tree):     # a tree's leaves as a flat dict, in one order
-        return dict(enumerate(tree_leaves(tree)))
-
-    s = QAdamState(count=s.count, **{f: {k: t.clone() for k, t in flat(
-        getattr(s, f)).items()} for f in ("m", "v", "e")})
-    phases = {"forward_params": 0.0, "forward_backward": 0.0, "update": 0.0,
-              "apply_updates": 0.0}
-    for rep in range(3):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        ev[0].record()
-        fp = opt.forward_params(p, None)
-        ev[1].record()
-        grads = grads_at(fp)
-        del fp
-        ev[2].record()
-        upd, _ = opt.update(dict(enumerate(grads)), s)
-        del grads
-        ev[3].record()
-        apply_updates(flat(p), upd)
-        ev[4].record()
-        del upd
-        ev[4].synchronize()
-        if rep:      # the first round warms up
-            for i, k in enumerate(phases):
-                phases[k] += ev[i].elapsed_time(ev[i + 1]) / 2
+    phases = step_phases(torch, opt, p, s, grads_at)
     sess.close()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     return dict(launches=launches, losses=vals, stats=stats,
@@ -1275,6 +1544,168 @@ def train(torch, dev, mods):
                 tokens_per_s=tokens / wall_ms
                 * 1e3, peak_bytes=peak, state_bytes=state_bytes,
                 n_params=n_params)
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the Algorithm 1 baselines on the same cut
+# ---------------------------------------------------------------------------
+
+# the baselines' learning rates, at which the loss falls over
+# BASELINE_STEPS steps at this cut (the distributed twins' of phase 7)
+EF_SGDM_ALPHA, TERNGRAD_SGD_ALPHA = 1e-3, 1e-3
+BASELINE_STEPS = 8
+ALG1_BASELINES = {
+    # name: (optimizer of core.qadam on a backend, its kernels' counters,
+    # its update kernels' names in the profile)
+    "ef_sgdm": (lambda Q, b=None: Q.ef_sgdm(
+        alpha=EF_SGDM_ALPHA, beta=0.9, grad_q="blockwise:256", backend=b),
+        {"blockwise_quantize": ("K", "blockwise_quantize_launches")},
+        ("blockwise_kernel",)),
+    "terngrad_sgd": (lambda Q, b=None: Q.terngrad_sgd(
+        alpha=TERNGRAD_SGD_ALPHA, backend=b),
+        {"amax_rows": ("K", "amax_launches"),
+         "ternary_quantize": ("K", "ternary_quantize_launches")},
+        ("amax_rows_kernel", "ternary_quantize_kernel")),
+}
+WQUAN_COUNTERS = {"amax_rows": ("K", "amax_launches"),
+                  "uniform_quantize_rows": ("K", "quantize_launches"),
+                  "uniform_dequantize_rows": ("K", "dequantize_launches")}
+
+
+def alg1_baselines(torch, dev, mods):
+    """Phase 5b: ``ef_sgdm`` (blockwise:256, beta 0.9) and
+    ``terngrad_sgd`` through ``TrainSession.from_optimizer`` on the
+    slice-2 cut, BASELINE_STEPS steps each, with the phase-5 gates (their
+    kernels launched: #14; K3 and #13), the step's wall and device time,
+    its phases and peak memory; one update on captured gradients from the
+    trained state through the kernels and the plain versions (the same
+    uniforms), bitwise; then ``wquan(params, k_x=7, absolute=False)`` on
+    the trained parameters (K3, K4, K12 launched, bitwise the plain
+    versions)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core import qadam as Q
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.models.model import Model
+    from repro_torch.train.session import (SessionConfig, TrainSession,
+                                           stage_batch)
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    K, A = mods["K"], mods["A"]
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=TRAIN_LAYERS)
+    model = Model(cfg)
+
+    def loss_fn(p, b):
+        ls, nt = model.loss(p, b)
+        return ls / nt
+
+    out = {}
+    for name, (make, counters, kernels) in ALG1_BASELINES.items():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path, with every count at 0 just before it
+        for mod, attr in counters.values():
+            setattr(mods[mod], attr, 0)
+        K.plain_on_cuda = A.plain_on_cuda = 0
+        opt = make(Q)
+        sess = TrainSession.from_optimizer(
+            opt, loss_fn, model.init(seed=0, device=dev),
+            batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+            SessionConfig(log_every=BASELINE_STEPS), log=lambda *_: None)
+        w = run_watched(torch, sess, BASELINE_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: getattr(mods[mod], attr)
+                    for k, (mod, attr) in counters.items()}
+        plain = K.plain_on_cuda + A.plain_on_cuda
+        stats = dict(sess.stats)
+        check_run(w, stats, launches, plain, name, BASELINE_STEPS)
+        res = dict(launches=launches, losses=w["losses"], stats=stats,
+                   syncs_at_step_starts=w["starts"],
+                   syncs_by_harvest=w["harvests"], run_s=w["run_s"],
+                   peak_bytes=peak, alpha=(EF_SGDM_ALPHA if name == "ef_sgdm"
+                                           else TERNGRAD_SGD_ALPHA))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.run(3)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+        dev_ms, by_kernel = profile_ms(torch, lambda: sess.run(1), steps=2)
+        res.update(step_wall_ms=wall_ms, step_device_ms=dev_ms,
+                   device_idle=1 - dev_ms / wall_ms,
+                   tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / wall_ms * 1e3,
+                   quantizer_kernels_ms=sum(t for k, t in by_kernel if any(
+                       n in k for n in kernels)),
+                   step_kernels=by_kernel[:12])
+        # one update on captured gradients, kernels against plain versions
+        p, s = sess.state["params"], sess.state["opt"]
+        batch = stage_batch(next(batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                                 seed=1)), dev)
+
+        def grads_at(fp):
+            leaves = [l.detach().requires_grad_() for l in tree_leaves(fp)]
+            with torch.enable_grad():
+                return torch.autograd.grad(loss_fn(
+                    tree_unflatten(fp, leaves), batch), leaves)
+
+        grads = grads_at(p)
+        for g, m, v, e in zip(grads, tree_leaves(s.m), tree_leaves(s.v),
+                              tree_leaves(s.e)):
+            outs = []
+            for backend in ("cuda", "torch"):
+                sub = s._replace(m={"x": m.clone()}, v={"x": v.clone()},
+                                 e={"x": e.clone()})
+                u, s2 = make(Q, backend).update({"x": g}, sub)
+                outs.append((u["x"], s2.m["x"], s2.v["x"], s2.e["x"]))
+            for what, a, b in zip(("update", "m", "v", "e"), *outs):
+                if not bits_equal(torch, a, b):
+                    raise AssertionError(
+                        f"{name}: captured-gradient update ({what}) through "
+                        f"the kernels differs from the plain versions (leaf "
+                        f"{tuple(g.shape)})")
+            del outs
+        del grads
+        res["phases_ms"] = step_phases(
+            torch, opt, p, s, grads_at,
+            fields=("m", "e") if name == "ef_sgdm" else ())
+        out[name] = res
+        if name == "terngrad_sgd":
+            # WQuan on the trained parameters, counts at 0 just before it
+            torch.cuda.synchronize()
+            for mod, attr in WQUAN_COUNTERS.values():
+                setattr(mods[mod], attr, 0)
+            K.plain_on_cuda = 0
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            q = Q.wquan(p, k_x=7, absolute=False)
+            ev[1].record()
+            ev[1].synchronize()
+            wl = {k: getattr(mods[mod], attr)
+                  for k, (mod, attr) in WQUAN_COUNTERS.items()}
+            if any(n == 0 for n in wl.values()) or K.plain_on_cuda:
+                raise AssertionError(f"wquan: kernels {wl}, plain versions "
+                                     f"on the card {K.plain_on_cuda}")
+            for a, b in zip(tree_leaves(q), tree_leaves(p)):
+                if not (bits_equal(torch, a, Q.wquan(
+                        {"x": b}, k_x=7, absolute=False,
+                        backend="torch")["x"]) and bool(
+                        torch.isfinite(a).all())):
+                    raise AssertionError(f"wquan through the kernels differs "
+                                         f"from the plain versions (leaf "
+                                         f"{tuple(b.shape)})")
+            rel = math.sqrt(sum(float(((a.double() - b.double()) ** 2).sum())
+                                for a, b in zip(tree_leaves(q),
+                                                tree_leaves(p)))
+                            / sum(float((b.double() ** 2).sum())
+                                  for b in tree_leaves(p)))
+            out["wquan"] = dict(launches=wl, ms=ev[0].elapsed_time(ev[1]),
+                                rel_l2_to_trained=rel)
+            del q
+        sess.close()
+        del sess, p, s, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1345,7 +1776,7 @@ def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
     from repro_torch.train.loop import comm_bytes_per_step
     from repro_torch.train.session import (SessionConfig, TrainSession,
                                            stage_batch)
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import sorted_leaf_index, tree_leaves, tree_map
     K, A = mods["K"], mods["A"]
     torch.cuda.synchronize()
     gc.collect()
@@ -1467,7 +1898,7 @@ def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
     _, grads = art.loss_and_grads(xs, batch)
     del xs
     metas = tree_leaves(DS._leaf_meta(art.layout, 1))
-    draw_index = DS._sorted_leaf_index(art.layout.shapes)
+    draw_index = sorted_leaf_index(art.layout.shapes)
     mode = get_mode(tc.mode)
     upd = {b: mode.make_updater(
         dataclasses.replace(tc, backend=b), WorkerCtx(
@@ -1568,8 +1999,14 @@ MODE_RUNS = {
                   "decode_rows_ternary": ("K", "decode_ternary_launches")}),
     "ef_sgd": (dict(alpha=EF_SGD_ALPHA, beta=0.9, grad_k=None, weight_k=None,
                     mode="ef_sgd"),
-               {"blockwise_quantize": ("K", "blockwise_quantize_launches")}),
+               {"blockwise_quantize": ("K", "blockwise_quantize_launches"),
+                "pack_rows": ("K", "pack_launches"),
+                "unpack_rows": ("K", "unpack_launches")}),
 }
+# ef_sgd's update + exchange with the plain lane pack on the card, before
+# #9 (NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 5), printed beside
+# this run's as a finding, not a gate
+EF_SGD_UPDATE_MS_PLAIN_PACK = 175.001
 # the equivalences: a baseline and qadam, bitwise at one worker
 MODE_EQUIV = (("dp_adam", dict(_ADAM, grad_k=None, weight_k=None,
                                mode="dp_adam"),
@@ -1599,6 +2036,12 @@ def modes_train(torch, dev, mods, group, model, cfg):
               f"captured-gradient update bitwise", flush=True)
         for kname, t in r["step_kernels"][:8]:
             print(f"  {t:9.4f} ms  {kname[:90]}")
+        if name == "ef_sgd":
+            print(f"ef_sgd update+exchange through #9: "
+                  f"{r['phases_ms']['update_exchange']:.3f} ms a step (with "
+                  f"the plain lane pack on the card: "
+                  f"{EF_SGD_UPDATE_MS_PLAIN_PACK} ms); a finding, not a gate",
+                  flush=True)
     out["equivalences"] = {}
     for name, a, b in MODE_EQUIV:
         eq = pair_equivalence(torch, dev, group, model, cfg,
@@ -1795,6 +2238,148 @@ def wire_buffers(torch, dev, mods, model):
                              f"card (wire buffers)")
     del params
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the paper's comparison protocol on the card
+# ---------------------------------------------------------------------------
+
+PAPER_STEPS = 300
+PAPER_COUNTERS = {"amax_rows": ("K", "amax_launches"),
+                  "uniform_quantize_rows": ("K", "quantize_launches"),
+                  "uniform_dequantize_rows": ("K", "dequantize_launches"),
+                  "log_dequantize": ("K", "log_dequantize_launches"),
+                  "log_quantize": ("K", "log_quantize_launches"),
+                  "ternary_quantize": ("K", "ternary_quantize_launches"),
+                  "blockwise_quantize": ("K", "blockwise_quantize_launches"),
+                  "adam_moments": ("A", "moments_launches"),
+                  "ef_quantize": ("A", "ef_quantize_launches")}
+# the kernels each mode's run must launch
+PAPER_NEEDS = {"qadam": ("ternary_quantize", "blockwise_quantize",
+                         "adam_moments", "ef_quantize", "log_dequantize",
+                         "amax_rows", "uniform_quantize_rows",
+                         "uniform_dequantize_rows"),
+               "efadam": ("log_quantize", "log_dequantize", "amax_rows",
+                          "adam_moments", "ef_quantize")}
+
+
+PARITY_STEPS = 3     # steps of each method held kernel against plain
+
+
+def paper_parity(torch, dev, ex):
+    """Every method of both modes at the protocol's shapes (the MLP's
+    leaves, batch 128): PARITY_STEPS steps of one worker, each step's
+    Q_x weights (``forward_params``) and its update on the captured
+    gradients (update, m, v, e) through the kernels and through the plain
+    versions, bitwise; where the method has a server codec, that codec's
+    ``compute_scale``/``quantize``/``dequantize`` on the update it would
+    broadcast, bitwise; WQuan after training, bitwise. Returns the
+    tensors compared per method."""
+    data = ex.classification_dataset(ex.ClsDataConfig(seed=1), device=dev)
+    xtr, ytr = data[0], data[1]
+    p0 = ex.mlp_init(0, xtr.shape[1], ex.HIDDEN, int(ytr.max()) + 1, dev)
+    backends = ("cuda", "torch")
+
+    def same(what, a, b):
+        if not bits_equal(torch, a, b):
+            raise AssertionError(f"paper protocol: {what} through the "
+                                 f"kernels differs from the plain versions "
+                                 f"(shape {tuple(a.shape)})")
+
+    def clone(d):
+        return {k: v.clone() for k, v in d.items()}
+
+    compared = {}
+    for mode in ("qadam", "efadam"):
+        for name, (kind, kw, wq_after, srv_q, _) in ex.methods(mode).items():
+            opts = {b: ex.build(kind, dict(kw, backend=b)) for b in backends}
+            codec = ex.get_codec(srv_q) if srv_q else None
+            params = clone(p0)
+            state = opts["cuda"].init(params)._replace(worker=3)
+            batches = ex.classification_batches(xtr, ytr, 128, seed=3)
+            n = 0
+            for _ in range(PARITY_STEPS):
+                x, y = next(batches)
+                fp = {b: opts[b].forward_params(params, state)
+                      for b in backends}
+                for k in params:
+                    same(f"{name}: Q_x of {k}", fp["cuda"][k], fp["torch"][k])
+                g = ex._grads(fp["cuda"], x, y)
+                outs = {}
+                for b in backends:
+                    st = state._replace(m=clone(state.m), v=clone(state.v),
+                                        e=clone(state.e))
+                    outs[b] = opts[b].update(g, st, params)
+                (uc, sc), (ut, st) = outs["cuda"], outs["torch"]
+                for k in params:
+                    same(f"{name}: update of {k}", uc[k], ut[k])
+                    for f in ("m", "v", "e"):
+                        same(f"{name}: {f} of {k}", getattr(sc, f)[k],
+                             getattr(st, f)[k])
+                    n += 5
+                    if codec is None:
+                        continue
+                    sent = {}
+                    for b in backends:
+                        scale = codec.compute_scale(uc[k], backend=b)
+                        codes = codec.quantize(uc[k], scale, backend=b)
+                        sent[b] = (scale, codes,
+                                   codec.dequantize(codes, scale, backend=b))
+                    for what, a, c in zip(("scale", "codes", "dequantized"),
+                                          sent["cuda"], sent["torch"]):
+                        same(f"{name}: server {srv_q} {what} of {k}", a, c)
+                    n += 3
+                state = sc
+                params = ex.apply_updates(params, uc)
+            if wq_after is not None:
+                wq = {b: ex.wquan(params, k_x=wq_after, absolute=False,
+                                  backend=b) for b in backends}
+                for k in params:
+                    same(f"{name}: WQuan of {k}", wq["cuda"][k],
+                         wq["torch"][k])
+                    n += 1
+            compared[name] = n
+    return compared
+
+
+def paper_protocol(torch, dev, mods):
+    """``examples/paper_repro_torch.py``'s comparison, PAPER_STEPS steps,
+    one seed, 8 workers, in its default mode and ``--mode efadam``, each
+    with every count at 0 just before it; gates: every method's kernels
+    bitwise their plain versions at the protocol's shapes first
+    (``paper_parity``), every method's accuracy finite, PAPER_NEEDS's
+    kernels launched, no plain version on the card."""
+    import importlib.util
+    K, A = mods["K"], mods["A"]
+    spec = importlib.util.spec_from_file_location(
+        "paper_repro_torch", os.path.join(HERE, "examples",
+                                          "paper_repro_torch.py"))
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    out = {"parity": paper_parity(torch, dev, ex)}
+    for mode in ("qadam", "efadam"):
+        for mod, attr in PAPER_COUNTERS.values():
+            setattr(mods[mod], attr, 0)
+        K.plain_on_cuda = A.plain_on_cuda = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = ex.compare(mode, steps=PAPER_STEPS, seeds=1, workers=8,
+                          device=dev, log=lambda line: print(
+                              f"  paper {mode}: {line}", flush=True))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {k: getattr(mods[mod], attr)
+                    for k, (mod, attr) in PAPER_COUNTERS.items()}
+        plain = K.plain_on_cuda + A.plain_on_cuda
+        if not all(math.isfinite(a) for _, a, _ in rows):
+            raise AssertionError(f"paper {mode}: an accuracy is not finite: "
+                                 f"{rows}")
+        if any(launches[k] == 0 for k in PAPER_NEEDS[mode]) or plain:
+            raise AssertionError(f"paper {mode}: kernels {launches}, plain "
+                                 f"versions on the card {plain}")
+        out[mode] = dict(rows=rows, launches=launches, run_s=run_s,
+                         steps=PAPER_STEPS, seeds=1, workers=8)
     return out
 
 
@@ -2123,8 +2708,13 @@ def main() -> int:
     print(card, flush=True)
 
     t0 = time.perf_counter()
-    build.library()
-    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    planted_build = start_planted_build(build)
+    try:
+        build.library()
+    finally:   # the planted nvcc processes end before anything else
+        planted = finish_planted_build(build, planted_build)
+    print(f"build (with the planted-fault library beside it): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     print_ptxas(build.build_log)
 
     rows = check_quantize(torch, K, dev)
@@ -2207,6 +2797,25 @@ def main() -> int:
               f"({t['gbs']:.0f} GB/s) plain {t['plain_ms']:.4f} bound "
               f"{t['bound_ms']:.4f} ({t['bound_by']}){lib}", flush=True)
 
+    s_rows, s_table, s_cases, s_faults = check_slice6_kernels(
+        torch, dev, build, planted)
+    print(f"#10 log quantize, #13 ternary quantize and #9 lane pack/unpack "
+          f"bitwise against their plain versions ({s_cases} cases and the "
+          f"w_gate stack); planted faults caught: lane bias off by one at "
+          f"{s_faults['pack_bias_off_by_one']:.1%} of payload bytes, u <= p "
+          f"at {s_faults['ternary_u_le_p']:.2%} of codes", flush=True)
+    for t in s_table:
+        if "ms" in t:
+            print(f"  {t['name']} {t['spec']} {t['shape']}: {t['ms']:.4f} ms "
+                  f"({t['gbs']:.0f} GB/s) plain {t['plain_ms']:.4f} bound "
+                  f"{t['bound_ms']:.4f} ({t['bound_by']}) library none",
+                  flush=True)
+        else:
+            print(f"  {t['name']} {t['spec']} {t['shape']}: pack "
+                  f"{t['pack_ms']:.4f} ms, unpack {t['unpack_ms']:.4f} ms, "
+                  f"pack plain {t['pack_plain_ms']:.4f}, bound each way "
+                  f"{t['bound_ms']:.4f} (bytes)", flush=True)
+
     mods = {"K": K, "A": A}
     res = serve(torch, dev, {"MM": MM, "paged": paged, "K": K})
     torch.cuda.empty_cache()
@@ -2217,6 +2826,7 @@ def main() -> int:
     fp = flash_path(torch, dev, FA)
     torch.cuda.empty_cache()
     tr = train(torch, dev, mods)
+    bl = alg1_baselines(torch, dev, mods)
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import close_process_group, make_process_group
     from repro_torch.models.model import Model
@@ -2232,16 +2842,33 @@ def main() -> int:
     print(f"wire buffers: {wb['leaves']} leaves x {len(WIRE_SPECS)} codecs "
           f"through Codec.encode/decode, bitwise the plain versions; bytes "
           f"{wb['bytes']}; launches {wb['launches']}", flush=True)
-    rows += t_rows + w_rows + e_rows
+    torch.cuda.empty_cache()
+    pp = paper_protocol(torch, dev, mods)
+    parity = pp.pop("parity")
+    print(f"paper protocol: every method's kernels bitwise their plain "
+          f"versions at the MLP's shapes over {PARITY_STEPS} steps "
+          f"(tensors compared: {parity})", flush=True)
+    for mode, r in pp.items():
+        print(f"paper protocol ({mode}, {r['steps']} steps, {r['workers']} "
+              f"workers, seed 0) in {r['run_s']:.1f} s; launches "
+              f"{r['launches']}; test accuracy:", flush=True)
+        for name, acc, _ in r["rows"]:
+            print(f"  {name:28s} {acc * 100:.2f} %", flush=True)
+    rows += t_rows + w_rows + e_rows + s_rows
     for r in rows:
         by_path = {"serve": res["launches"].get(r["name"], 0),
                    "serve_gemma2": gem["launches"].get(r["name"], 0),
                    "flash": fp["launches"].get(r["name"], 0),
                    "train": tr["launches"].get(r["name"], 0),
                    "dist": ds["launches"].get(r["name"], 0)}
+        by_path.update({f"alg1_{m}": bl[m]["launches"].get(r["name"], 0)
+                        for m in ALG1_BASELINES})
+        by_path["wquan"] = bl["wquan"]["launches"].get(r["name"], 0)
         by_path.update({m: md[m]["launches"].get(r["name"], 0)
                         for m in MODE_RUNS})
         by_path["wire"] = wb["launches"].get(r["name"], 0)
+        by_path.update({f"paper_{m}": pp[m]["launches"].get(r["name"], 0)
+                        for m in pp})
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
     for sv in (res, gem):
@@ -2285,6 +2912,25 @@ def main() -> int:
         print(f"  {t:9.4f} ms  {name[:90]}")
     print("train step phases (CUDA events): " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in tr["phases_ms"].items()), flush=True)
+    for name in ALG1_BASELINES:
+        b = bl[name]
+        print(f"{name} (alpha {b['alpha']:g}): losses "
+              f"{', '.join(f'{x:.4f}' for x in b['losses'])}; wall "
+              f"{b['step_wall_ms']:.3f} ms, device {b['step_device_ms']:.3f} "
+              f"ms (idle {b['device_idle']:.1%}), {b['tokens_per_s']:.1f} "
+              f"tok/s; quantizer kernels {b['quantizer_kernels_ms']:.3f} ms; "
+              f"phases " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                    b["phases_ms"].items())
+              + f" ms; peak {b['peak_bytes']} B; launches {b['launches']}; "
+              f"stats {b['stats']}; captured-gradient update bitwise",
+              flush=True)
+        for kname, t in b["step_kernels"][:6]:
+            print(f"  {t:9.4f} ms  {kname[:90]}")
+    wq = bl["wquan"]
+    print(f"wquan(k_x=7, amax) of the trained parameters: {wq['ms']:.3f} ms; "
+          f"launches {wq['launches']}; rel L2 to the trained weights "
+          f"{wq['rel_l2_to_trained']:.3e}; bitwise the plain versions",
+          flush=True)
 
     print(f"distributed (Algorithms 2+3, {ds['world_size']} "
           f"{ds['backend']} rank): losses "
@@ -2327,7 +2973,9 @@ def main() -> int:
                        flash_cases=fa_table, serve_gemma2=gem, flash_path=fp,
                        train_kernels=t_table, train=tr,
                        wire_kernels=w_table, dist=ds,
-                       encode_kernels=e_table, modes=md, wire_buffers=wb),
+                       encode_kernels=e_table, modes=md, wire_buffers=wb,
+                       slice6_kernels=s_table, planted_faults=s_faults,
+                       alg1_baselines=bl, paper=pp),
                   fh, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

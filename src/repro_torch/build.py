@@ -9,7 +9,7 @@ after. Nothing here runs at import time.
 
 Flags keep IEEE division, square root and rounding (no
 ``--use_fast_math``): the quantize, dequantize, Adam+EF, wire codec,
-blockwise and gather kernels are held bitwise against their plain
+blockwise, lane pack and gather kernels are held bitwise against their plain
 versions; the two products (K1 and K1t dequant-matmul) and flash
 attention (#17) sum in fp32 in orders of their own. The grids and lanes
 they share live in ``csrc/grids.cuh``, which the hash covers.
@@ -55,6 +55,14 @@ SIGNATURES = {
     "rt_gather_pages": [_P, _P, _P, _I, _I, _L, _P],
     # x, out_bits, rows, n, stream
     "rt_amax_rows": [_P, _P, _I, _L, _P],
+    # x, scale, codes, n, k_g, stream
+    "rt_log_quantize": [_P, _P, _P, _L, _I, _P],
+    # x, u, scale, codes, n, stream
+    "rt_ternary_quantize": [_P, _P, _P, _P, _L, _P],
+    # codes, payload, rows, c, row_bytes, bits, code_bytes, stream
+    "rt_pack_rows": [_P, _P, _I, _L, _L, _I, _I, _P],
+    # payload, codes, rows, c, row_bytes, bits, stream
+    "rt_unpack_rows": [_P, _P, _I, _L, _L, _I, _P],
     # x, scale, codes, rows, n, k_x, code_bytes, stream
     "rt_uniform_quantize_rows": [_P, _P, _P, _I, _L, _I, _I, _P],
     # g, m, v, e, hp, m_out, v_out, de_out, amax_bits, n, stream

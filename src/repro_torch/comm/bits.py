@@ -143,3 +143,9 @@ def pad_rows(x: torch.Tensor, n_rows: int) -> torch.Tensor:
     flat = x.reshape(-1)
     c = -(-flat.shape[0] // n_rows)
     return _pad_last(flat, n_rows * c - flat.shape[0]).reshape(n_rows, c)
+
+
+def packed_nbytes(numel: int, bits: int) -> int:
+    """Alias of :func:`payload_nbytes` (the reference's
+    ``repro.core.packing`` name)."""
+    return payload_nbytes(numel, bits)

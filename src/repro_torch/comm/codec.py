@@ -1,7 +1,8 @@
 """Backend policy, the codecs and the wire's row entry points (port of
-``repro/comm/codec.py``): the log Q_g and uniform Q_x grids (scales,
-quantize, dequantize, lane widths), the baselines' TernGrad ternary and
-blockwise sign codecs, the f32 identity codec, exact byte accounting
+``repro/comm/codec.py``): the log Q_g and uniform Q_x grids, the
+baselines' TernGrad ternary and blockwise sign codecs and the f32
+identity codec, each with its code-level primitives (``compute_scale``,
+``quantize``, ``dequantize``) and lane width, exact byte accounting
 (``payload_nbytes``, ``wire_nbytes``), the spec registry
 (``get_codec``), the single-tensor ``WireBuffer`` of ``Codec.encode``
 (#5, or #8 for the blockwise codec) and ``Codec.decode`` (K6), and the
@@ -53,12 +54,20 @@ def _amax_scale(x: torch.Tensor, backend: Optional[str]) -> torch.Tensor:
     return engine.amax_scale(amax[0])
 
 
-class _Codec:
-    """Byte accounting shared by the codecs: ``payload_nbytes`` counts
-    the packed codes (what the collectives move), ``wire_nbytes`` adds
-    the float32 scale side-channel. ``encode``/``decode`` of the
-    one-scale codecs (log, uniform, ternary) run #5 and K6 over one
-    payload row."""
+def _scale_tensor(scale, like: torch.Tensor) -> torch.Tensor:
+    """A scale given as a number or a tensor -> float32 on like's device."""
+    return torch.as_tensor(scale, dtype=torch.float32, device=like.device)
+
+
+class Codec:
+    """Base of the codecs. The code-level primitives: ``compute_scale``
+    (the codec's static scale, else the amax scale), ``quantize`` (codes
+    of the unpacked tensor against a scale) and ``dequantize``, each
+    codec's own kernel on CUDA tensors. Byte accounting:
+    ``payload_nbytes`` counts the packed codes (what the collectives
+    move), ``wire_nbytes`` adds the float32 scale side-channel.
+    ``encode``/``decode`` of the one-scale codecs (log, uniform, ternary)
+    run #5 and K6 over one payload row."""
 
     stochastic = False
     static_scale = None   # a data-independent scale, else an amax pass
@@ -76,6 +85,25 @@ class _Codec:
         """Scale-1 dequant table by lane code, or None where dequant is a
         single multiply."""
         return None
+
+    def compute_scale(self, x: torch.Tensor, *,
+                      backend: Optional[str] = None) -> torch.Tensor:
+        """The scale ``quantize`` takes, a 0-d float32 tensor on x's
+        device: the static one, else ``where(amax > 0, amax, 1)`` with
+        the amax from K3."""
+        if self.static_scale is not None:
+            return torch.full((), self.static_scale, dtype=torch.float32,
+                              device=x.device)
+        return _amax_scale(x, backend)
+
+    def quantize(self, x: torch.Tensor, scale, *,
+                 u: Optional[torch.Tensor] = None,
+                 backend: Optional[str] = None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def dequantize(self, codes: torch.Tensor, scale, *,
+                   backend: Optional[str] = None) -> torch.Tensor:
+        raise NotImplementedError
 
     def encode(self, x: torch.Tensor, *, u: Optional[torch.Tensor] = None,
                backend: Optional[str] = None) -> "WireBuffer":
@@ -100,7 +128,7 @@ class _Codec:
 
 
 @dataclasses.dataclass(frozen=True)
-class LogCodec(_Codec):
+class LogCodec(Codec):
     """The paper's Q_g: log grid, per-tensor amax scale. Codes live in
     [-(k_g+1), k_g+1] and pack to the smallest lane holding them."""
 
@@ -124,30 +152,25 @@ class LogCodec(_Codec):
     def dequant_lut(self):
         return grids.log_dequant_table(self.k_g, self.bits)
 
-    def compute_scale(self, x: torch.Tensor,
-                      backend: Optional[str] = None) -> torch.Tensor:
-        return _amax_scale(x, backend)
-
-    def quantize(self, x: torch.Tensor, scale: torch.Tensor,
+    def quantize(self, x: torch.Tensor, scale, *,
+                 u: Optional[torch.Tensor] = None,
                  backend: Optional[str] = None) -> torch.Tensor:
-        """Log-grid int8 codes given a scale. Its TPU kernel
-        (``log_quantize_pallas``) is not ported yet (ROADMAP queue 2), so
-        CUDA tensors raise; the update path quantizes inside K16."""
-        if resolve_backend(backend, x) == "cuda":
-            raise NotImplementedError(
-                "log_quantize has no CUDA kernel yet (ROADMAP.md queue 2); "
-                "the optimizer's Q_g quantizes inside K16 "
-                "(engine.adam_ef_step)")
-        return grids.log_quantize(x, scale, self.k_g)
+        """Log-grid int8 codes of x against a scale (#10)."""
+        from repro_torch.comm import kernels as K
+        x = x.to(torch.float32)
+        return K.log_quantize(x, _scale_tensor(scale, x), self.k_g,
+                              backend=backend)
 
-    def dequantize(self, codes: torch.Tensor, scale: torch.Tensor,
+    def dequantize(self, codes: torch.Tensor, scale, *,
                    backend: Optional[str] = None) -> torch.Tensor:
+        """``sign(c) * 2^(|c|-k_g-1) * scale`` in float32 (K11)."""
         from repro_torch.opt import engine
-        return engine.dequantize_log(codes, scale, self.k_g, backend=backend)
+        return engine.dequantize_log(codes, _scale_tensor(scale, codes),
+                                     self.k_g, backend=backend)
 
 
 @dataclasses.dataclass(frozen=True)
-class UniformCodec(_Codec):
+class UniformCodec(Codec):
     """The paper's Q_x: uniform grid over [-scale, scale] (``absolute``:
     scale = 0.5, else a per-tensor amax scale). Codes reach +/- 2^k_x and
     by default pack exactly into the next lane up, the residency lane.
@@ -191,31 +214,27 @@ class UniformCodec(_Codec):
     def static_scale(self) -> Optional[float]:
         return 0.5 if self.absolute else None
 
-    def compute_scale(self, x: torch.Tensor,
-                      backend: Optional[str] = None) -> torch.Tensor:
-        """0.5 for the absolute grid, else ``grids.amax_scale`` (zero
-        guard 1, not the 1e-30 floor of ``engine.quantize_uniform``)."""
-        if self.absolute:
-            return torch.full((), 0.5, dtype=torch.float32, device=x.device)
-        return _amax_scale(x, backend)
-
-    def quantize(self, x: torch.Tensor, scale: torch.Tensor,
+    def quantize(self, x: torch.Tensor, scale, *,
+                 u: Optional[torch.Tensor] = None,
                  backend: Optional[str] = None) -> torch.Tensor:
         """Codes of the whole tensor against one scale (K4), clipped to
-        the lane where it clips."""
+        the lane where it clips. (The scale from ``compute_scale`` has the
+        zero guard 1, not the 1e-30 floor of ``engine.quantize_uniform``.)"""
         from repro_torch.comm import kernels as K
+        x = x.to(torch.float32)
         codes = K.uniform_quantize_rows(
-            x.to(torch.float32).reshape(1, -1), scale.reshape(1), self.k_x,
+            x.reshape(1, -1), _scale_tensor(scale, x).reshape(1), self.k_x,
             backend=backend)
         if self.clip_abs is not None:
             codes = torch.clamp(codes, -self.clip_abs, self.clip_abs)
         return codes.reshape(x.shape)
 
-    def dequantize(self, codes: torch.Tensor, scale: torch.Tensor,
+    def dequantize(self, codes: torch.Tensor, scale, *,
                    backend: Optional[str] = None) -> torch.Tensor:
+        """``codes / 2^k_x * scale`` in float32 (K12)."""
         from repro_torch.opt import engine
-        return engine.dequantize_uniform(codes, scale, self.k_x,
-                                         backend=backend)
+        return engine.dequantize_uniform(codes, _scale_tensor(scale, codes),
+                                         self.k_x, backend=backend)
 
 
 def uniform_wire_codec(k_x: int, absolute: bool = True) -> UniformCodec:
@@ -227,7 +246,7 @@ def uniform_wire_codec(k_x: int, absolute: bool = True) -> UniformCodec:
 
 
 @dataclasses.dataclass(frozen=True)
-class TernaryCodec(_Codec):
+class TernaryCodec(Codec):
     """TernGrad: unbiased stochastic ternary {-1, 0, +1} against the
     per-tensor amax scale, 2-bit lanes."""
 
@@ -239,13 +258,28 @@ class TernaryCodec(_Codec):
     k = 0
     clip_abs = None
 
-    def compute_scale(self, x: torch.Tensor,
-                      backend: Optional[str] = None) -> torch.Tensor:
-        return _amax_scale(x, backend)
+    def quantize(self, x: torch.Tensor, scale, *,
+                 u: Optional[torch.Tensor] = None,
+                 backend: Optional[str] = None) -> torch.Tensor:
+        """Codes ``sign(x) * [u < |x| / max(scale, 1e-30)]`` (#13) from
+        the uniforms ``u`` (float32, x's numel; the reference draws them
+        from its key)."""
+        from repro_torch.comm import kernels as K
+        if u is None:
+            raise ValueError("terngrad codec is stochastic; pass u=")
+        x = x.to(torch.float32)
+        return K.ternary_quantize(x, u, _scale_tensor(scale, x),
+                                  backend=backend)
+
+    def dequantize(self, codes: torch.Tensor, scale, *,
+                   backend: Optional[str] = None) -> torch.Tensor:
+        """``codes * scale`` in float32 (one multiply, as the reference's;
+        no kernel of its own)."""
+        return grids.ternary_dequantize(codes, _scale_tensor(scale, codes))
 
 
 @dataclasses.dataclass(frozen=True)
-class BlockwiseCodec(_Codec):
+class BlockwiseCodec(Codec):
     """Zheng et al. '19: sign codes + per-block mean |x| scales, 2-bit
     lanes. Outside the ``encode_rows``/``decode_rows`` contract (one
     scale per source row): the ``ef_sgd`` mode packs its rows itself and
@@ -265,6 +299,23 @@ class BlockwiseCodec(_Codec):
 
     def scale_numel(self, numel: int) -> int:
         return -(-int(numel) // self.block)
+
+    def compute_scale(self, x: torch.Tensor, *,
+                      backend: Optional[str] = None) -> torch.Tensor:
+        raise NotImplementedError("blockwise scales ride encode()")
+
+    def quantize(self, x: torch.Tensor, scale=None, *,
+                 u: Optional[torch.Tensor] = None,
+                 backend: Optional[str] = None) -> torch.Tensor:
+        """Sign codes, int8 (plain, as the reference's; #14 computes them
+        with their block scales in ``engine.quantize_blockwise``)."""
+        return torch.sign(x.to(torch.float32)).to(torch.int8)
+
+    def dequantize(self, codes: torch.Tensor, scale, *,
+                   backend: Optional[str] = None) -> torch.Tensor:
+        """``codes * scale`` in float32, the per-block scale broadcast
+        over the block dim by the caller."""
+        return codes.to(torch.float32) * _scale_tensor(scale, codes)
 
     def encode(self, x: torch.Tensor, *, u=None,
                backend: Optional[str] = None) -> "WireBuffer":
@@ -289,7 +340,7 @@ class BlockwiseCodec(_Codec):
 
 
 @dataclasses.dataclass(frozen=True)
-class IdentityCodec(_Codec):
+class IdentityCodec(Codec):
     """No compression: the payload is the float32 bytes (4 per element),
     no scale."""
 
@@ -304,6 +355,20 @@ class IdentityCodec(_Codec):
 
     def payload_nbytes(self, numel: int) -> int:
         return 4 * int(numel)
+
+    def compute_scale(self, x: torch.Tensor, *,
+                      backend: Optional[str] = None) -> torch.Tensor:
+        return torch.ones((), dtype=torch.float32, device=x.device)
+
+    def quantize(self, x: torch.Tensor, scale=None, *,
+                 u: Optional[torch.Tensor] = None,
+                 backend: Optional[str] = None) -> torch.Tensor:
+        """The float32 values themselves (a copy)."""
+        return x.to(torch.float32, copy=True)
+
+    def dequantize(self, codes: torch.Tensor, scale=None, *,
+                   backend: Optional[str] = None) -> torch.Tensor:
+        return codes.to(torch.float32)
 
     def encode(self, x: torch.Tensor, *, u=None,
                backend: Optional[str] = None) -> "WireBuffer":
@@ -385,6 +450,10 @@ def get_codec(spec: Optional[str]):
     if head == "blockwise":
         return BlockwiseCodec(block=int(arg or 256))
     raise ValueError(f"unknown codec spec: {spec}")
+
+
+CODEC_NAMES = ("identity", "log", "uniform", "uniform_amax", "terngrad",
+               "blockwise")
 
 
 # ---------------------------------------------------------------------------

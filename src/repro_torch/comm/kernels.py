@@ -1,22 +1,27 @@
 """K3 per-row amax, K4 per-row uniform quantize, K12 per-row uniform
 dequantize and K11 log-grid dequantize: the Q_x passes behind
 ``quantize_params`` and the training forward copy, and the Q_g decode of
-the update. K7 fused EF encode, #5 fused encode and K6 fused decode: the
-wire of the distributed step (both channels, every codec with one scale
-per row). #14 blockwise quantize and #8 blockwise encode: the sign codes
-and per-block scales of the ``ef_sgd`` baseline.
+the update. #10 log quantize and #13 ternary quantize: the code-level
+Q_g and TernGrad quantizers (``LogCodec.quantize``,
+``TernaryCodec.quantize``). #9 lane pack and unpack of (rows, c) codes.
+K7 fused EF encode, #5 fused encode and K6 fused decode: the wire of the
+distributed step (both channels, every codec with one scale per row).
+#14 blockwise quantize and #8 blockwise encode: the sign codes and
+per-block scales of the ``ef_sgd`` baselines.
 
 Replace ``repro/comm/kernels.py`` ``amax_pallas``,
 ``uniform_quantize_pallas``, ``uniform_dequantize_pallas``,
-``log_dequantize_pallas``, ``ef_encode_pallas``, ``encode_pallas``,
-``decode_pallas``, ``blockwise_quantize_pallas`` and
-``encode_blockwise_pallas``. The kernels live in ``csrc/quantize.cu``,
-``csrc/dequantize.cu``, ``csrc/codec.cu`` and ``csrc/blockwise.cu``
-(design notes there): all are bound by bytes. One launch covers every
+``log_quantize_pallas``, ``log_dequantize_pallas``,
+``ternary_quantize_pallas``, ``pack_pallas``, ``unpack_pallas``,
+``ef_encode_pallas``, ``encode_pallas``, ``decode_pallas``,
+``blockwise_quantize_pallas`` and ``encode_blockwise_pallas``. The
+kernels live in ``csrc/quantize.cu``, ``csrc/dequantize.cu``,
+``csrc/pack.cu``, ``csrc/codec.cu`` and ``csrc/blockwise.cu`` (design
+notes there): all are bound by bytes. One launch covers every
 row of a ``(rows, n)`` view, so a stacked ``(L, ...)`` leaf gets its L
 per-layer scales (the reference's vmap over layers) in one launch, and a
-whole leaf its one scale with rows = 1. K7, #5 and K6 work in the flat
-per-row lane layout of ``comm/bits.py`` ``pack_rows``/``unpack_rows``
+whole leaf its one scale with rows = 1. K7, #5, K6 and #9 work in the
+flat per-row lane layout of ``comm/bits.py`` ``pack_rows``/``unpack_rows``
 (the wire contract), not the reference's VMEM tiling; #5's amax is K3's
 kernel, launched on the flat x before the encode kernel, on one stream.
 
@@ -39,6 +44,10 @@ amax_launches = 0          # K3 kernel launches
 quantize_launches = 0      # K4 kernel launches
 dequantize_launches = 0    # K12 kernel launches
 log_dequantize_launches = 0  # K11 kernel launches
+log_quantize_launches = 0    # #10 kernel launches
+ternary_quantize_launches = 0  # #13 kernel launches
+pack_launches = 0          # #9 pack kernel launches
+unpack_launches = 0        # #9 unpack kernel launches
 ef_encode_log_launches = 0       # K7 kernel launches, log codes
 ef_encode_uniform_launches = 0   # K7 kernel launches, uniform codes
 encode_log_launches = 0          # #5 encode launches, log codes
@@ -201,6 +210,148 @@ def log_dequantize(codes: torch.Tensor, scale: torch.Tensor, k_g: int,
         return _log_dequantize_cuda(codes, scale, k_g)
     plain_on_cuda += codes.is_cuda
     return grids.log_dequantize(codes, scale.reshape(()), k_g)
+
+
+def _check_scale(scale: torch.Tensor) -> None:
+    if scale.numel() != 1 or scale.dtype != torch.float32:
+        raise ValueError("scale must be one float32 value")
+
+
+def _log_quantize_cuda(x, scale, k_g):
+    global log_quantize_launches
+    lib = build.library()
+    x = x.contiguous()
+    scale = scale.reshape(1).contiguous()
+    codes = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    err = lib.rt_log_quantize(build.ptr(x), build.ptr(scale),
+                              build.ptr(codes), x.numel(), k_g,
+                              build.stream_ptr(x.device))
+    build.check(err, "log_quantize")
+    log_quantize_launches += 1
+    return codes
+
+
+def log_quantize(x: torch.Tensor, scale: torch.Tensor, k_g: int,
+                 backend: Optional[str] = None) -> torch.Tensor:
+    """#10: int8 log-grid codes of float32 x (any shape) against one
+    float32 scale on x's device: 0 encodes 0, and |c| in [1, k_g+1]
+    encodes +/- 2^-(k_g+1-|c|), taken nearest in linear space
+    (``grids.log_quantize``; the divisor is max(scale, 1e-30))."""
+    global plain_on_cuda
+    if x.dtype != torch.float32 or x.numel() < 1:
+        raise ValueError(f"need a nonempty float32 tensor, got {x.dtype}")
+    _check_scale(scale)
+    if not 0 <= k_g <= 30:
+        raise ValueError(f"k_g={k_g} outside [0, 30]")
+    if resolve_backend(backend, x, scale) == "cuda":
+        return _log_quantize_cuda(x, scale, k_g)
+    plain_on_cuda += x.is_cuda
+    return grids.log_quantize(x, scale.reshape(()), k_g)
+
+
+def _ternary_quantize_cuda(x, u, scale):
+    global ternary_quantize_launches
+    lib = build.library()
+    x, u = x.contiguous(), u.contiguous()
+    scale = scale.reshape(1).contiguous()
+    codes = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    err = lib.rt_ternary_quantize(build.ptr(x), build.ptr(u),
+                                  build.ptr(scale), build.ptr(codes),
+                                  x.numel(), build.stream_ptr(x.device))
+    build.check(err, "ternary_quantize")
+    ternary_quantize_launches += 1
+    return codes
+
+
+def ternary_quantize(x: torch.Tensor, u: torch.Tensor, scale: torch.Tensor,
+                     backend: Optional[str] = None) -> torch.Tensor:
+    """#13: TernGrad's int8 codes ``sign(x) * [u < |x| / max(s, 1e-30)]``
+    of float32 x (any shape), from the uniforms ``u`` in [0, 1) (float32,
+    x's numel, read at x's flat index, drawn by the caller) and one
+    float32 scale on x's device. The division is the IEEE one."""
+    global plain_on_cuda
+    if x.dtype != torch.float32 or x.numel() < 1:
+        raise ValueError(f"need a nonempty float32 tensor, got {x.dtype}")
+    if u.dtype != torch.float32 or u.numel() != x.numel():
+        raise ValueError("u must be float32 uniforms of x's numel")
+    _check_scale(scale)
+    if resolve_backend(backend, x, u, scale) == "cuda":
+        return _ternary_quantize_cuda(x, u, scale)
+    plain_on_cuda += x.is_cuda
+    return grids.ternary_quantize(x, u.reshape(x.shape), scale.reshape(()))
+
+
+# ---------------------------------------------------------------------------
+# #9 lane pack and unpack (csrc/pack.cu)
+# ---------------------------------------------------------------------------
+
+_CODE_TYPES = (torch.int8, torch.int16)
+
+
+def _check_lane(bits: int) -> None:
+    if bits not in B.SUPPORTED_BITS:
+        raise ValueError(f"lane width {bits} not in {B.SUPPORTED_BITS}")
+
+
+def pack_rows(codes_rows: torch.Tensor, bits: int,
+              backend: Optional[str] = None) -> torch.Tensor:
+    """#9: (R, c) signed codes (int8 or int16) -> (R,
+    ``payload_nbytes(c, bits)``) uint8 in ``comm/bits.py``'s lane layout,
+    each row packed on its own (the tail group padded with zero codes),
+    as ``bits.pack_rows``."""
+    global plain_on_cuda, pack_launches
+    _check_lane(bits)
+    if codes_rows.dim() != 2 or codes_rows.dtype not in _CODE_TYPES:
+        raise ValueError(f"need (rows, c) int8/int16 codes, got "
+                         f"{tuple(codes_rows.shape)} {codes_rows.dtype}")
+    rows, c = codes_rows.shape
+    if not 1 <= rows <= 65535 or c < 1:
+        raise ValueError(f"codes {tuple(codes_rows.shape)}: need 1 <= rows "
+                         f"<= 65535 and c >= 1")
+    if resolve_backend(backend, codes_rows) == "cuda":
+        lib = build.library()
+        codes_rows = codes_rows.contiguous()
+        row_bytes = B.payload_nbytes(c, bits)
+        payload = torch.empty((rows, row_bytes), dtype=torch.uint8,
+                              device=codes_rows.device)
+        err = lib.rt_pack_rows(build.ptr(codes_rows), build.ptr(payload),
+                               rows, c, row_bytes, bits,
+                               codes_rows.element_size(),
+                               build.stream_ptr(codes_rows.device))
+        build.check(err, "pack_rows")
+        pack_launches += 1
+        return payload
+    plain_on_cuda += codes_rows.is_cuda
+    return B.pack_rows(codes_rows, bits)
+
+
+def unpack_rows(payload_rows: torch.Tensor, bits: int, c: int,
+                backend: Optional[str] = None) -> torch.Tensor:
+    """#9: (R, ``payload_nbytes(c, bits)``) uint8 -> (R, c) codes, int8
+    (int16 for 16-bit lanes), as ``bits.unpack_rows``."""
+    global plain_on_cuda, unpack_launches
+    _check_lane(bits)
+    if payload_rows.dim() != 2 or payload_rows.dtype != torch.uint8:
+        raise ValueError(f"need (rows, nbytes) uint8 payload rows, got "
+                         f"{tuple(payload_rows.shape)} {payload_rows.dtype}")
+    rows, row_bytes = payload_rows.shape
+    if not 1 <= rows <= 65535 or c < 1 or \
+            row_bytes != B.payload_nbytes(c, bits):
+        raise ValueError(f"payload rows {tuple(payload_rows.shape)} do not "
+                         f"hold {c} codes of {bits} bits each")
+    if resolve_backend(backend, payload_rows) == "cuda":
+        lib = build.library()
+        payload_rows = payload_rows.contiguous()
+        codes = torch.empty((rows, c), dtype=torch.int16 if bits == 16
+                            else torch.int8, device=payload_rows.device)
+        err = lib.rt_unpack_rows(build.ptr(payload_rows), build.ptr(codes),
+                                 rows, c, row_bytes, bits,
+                                 build.stream_ptr(payload_rows.device))
+        build.check(err, "unpack_rows")
+        unpack_launches += 1
+        return codes
+    plain_on_cuda += payload_rows.is_cuda
+    return B.unpack_rows(payload_rows, bits, c)
 
 
 # ---------------------------------------------------------------------------

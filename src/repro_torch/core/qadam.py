@@ -1,5 +1,5 @@
-"""Quantized Generic Adam with Error Feedback, Algorithm 1 (port of
-``repro/core/qadam.py``, the single-worker optimizer).
+"""Quantized Generic Adam with Error Feedback, Algorithm 1, and the
+baselines the paper compares it with (port of ``repro/core/qadam.py``).
 
     opt = qadam(QAdamConfig(alpha=1e-3, grad_q="log:6",
                             weight_q="uniform_amax:7"))
@@ -15,12 +15,18 @@ them, so no step reads the device.
 
 On CUDA tensors ``update`` launches per leaf K15 (moments), K16 (codes
 and residual) and K11 (decode), and ``forward_params`` K3, K4 and K12
-(the Q_x round trip) per quantized leaf. ``update`` consumes its state:
-m, v and e are updated in place and the returned state holds the same
-tensors (the reference donates these buffers to its step; a full-width
-model's state would not fit twice on one card). The reference's
-baselines (``ef_sgdm``, ``terngrad_sgd``, ``wquan``) wait for
-their kernels (ROADMAP.md queue 1).
+(the Q_x round trip) per quantized leaf. Other gradient quantizers run
+their own kernels: TernGrad K3 and #13, blockwise sign #14. ``update``
+consumes its state: m, v and e are updated in place and the returned
+state holds the same tensors (the reference donates these buffers to its
+step; a full-width model's state would not fit twice on one card).
+
+The baselines: ``ef_sgdm`` (blockwise-compressed momentum SGD with error
+feedback, Zheng et al. '19), ``terngrad_sgd`` (Wen et al. '17) and
+``wquan`` (the weights quantized once, after training). A stochastic
+quantizer's uniforms come from ``core.uniforms.draw_uniform`` keyed by
+(seed, step, leaf, the state's ``worker``): the reference splits a key
+per step and leaf instead, which torch cannot reproduce.
 """
 from __future__ import annotations
 
@@ -30,10 +36,11 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import uniforms
 from repro_torch.core.quantizers import (IdentityQuantizer, LogGradQuantizer,
                                          Quantizer, get_quantizer)
 from repro_torch.opt import engine
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import sorted_leaf_index, tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +73,8 @@ class QAdamState(NamedTuple):
     m: Any        # first moment, per param
     v: Any        # second moment, per param
     e: Any        # error-feedback residual, per param
+    worker: int = 0   # keys the stochastic quantizers' draws (the
+    #                   reference's per-worker PRNG key)
 
 
 class Optimizer(NamedTuple):
@@ -97,15 +106,32 @@ def _zeros_like_tree(params):
                     params)
 
 
-def qadam(cfg: QAdamConfig) -> Optimizer:
-    """Algorithm 1: Quantized Generic Adam (single worker)."""
+def _init_state(params) -> QAdamState:
+    return QAdamState(count=0, m=_zeros_like_tree(params),
+                      v=_zeros_like_tree(params), e=_zeros_like_tree(params))
+
+
+def _leaf_draws(grads, seed: int, t: int, worker: int):
+    """An iterator over the leaves in ``tree_map`` order of functions
+    ``draw(n)``: the leaf's uniforms of this step and worker, keyed by
+    its index in the reference's (sorted) leaf order."""
+    dev = tree_leaves(grads)[0].device
+    for i in sorted_leaf_index(grads):
+        yield lambda n, i=i: uniforms.draw_uniform(seed, t, i, worker, n,
+                                                   dev)
+
+
+def _quantize(gq: Quantizer, x: torch.Tensor, draw, backend):
+    """gq(x), a stochastic operator's uniforms from ``draw``."""
+    u = draw(x.numel()).reshape(x.shape) if gq.codec.stochastic else None
+    return gq(x, backend, u=u)
+
+
+def qadam(cfg: QAdamConfig, seed: int = 0) -> Optimizer:
+    """Algorithm 1: Quantized Generic Adam (single worker). ``seed`` keys
+    the draws of a stochastic gradient quantizer (``grad_q="terngrad"``)."""
     gq = cfg.grad_quantizer()
     wq = cfg.weight_quantizer()
-
-    def init(params) -> QAdamState:
-        return QAdamState(count=0, m=_zeros_like_tree(params),
-                          v=_zeros_like_tree(params),
-                          e=_zeros_like_tree(params))
 
     def forward_params(params, state=None):
         """Q_x(x_t), per tensor (one amax over a whole stacked leaf): the
@@ -125,8 +151,10 @@ def qadam(cfg: QAdamConfig) -> Optimizer:
         hp = engine.hyperparams(_alpha_t(cfg, t), cfg.beta, _theta_t(cfg, t),
                                 cfg.eps, dev)
         bk = cfg.backend
+        draws = _leaf_draws(grads, seed, t, state.worker)
 
         def leaf(g, m, v, e):
+            draw = next(draws)
             g = g.to(torch.float32)
             if isinstance(gq, LogGradQuantizer):
                 # the paper's Q_g: K15, K16 (state in place), then K11
@@ -135,7 +163,7 @@ def qadam(cfg: QAdamConfig) -> Optimizer:
                     error_feedback=cfg.error_feedback, backend=bk)[0]
             _, _, de = engine.adam_ef_moments(g, m, v, e, hp, backend=bk,
                                               out=(m, v))
-            dq = gq(de, backend=bk)
+            dq = _quantize(gq, de, draw, bk)
             if cfg.error_feedback:
                 torch.sub(de, dq, out=e)
             else:
@@ -143,11 +171,80 @@ def qadam(cfg: QAdamConfig) -> Optimizer:
             return -dq
 
         upd = tree_map(leaf, grads, state.m, state.v, state.e)
-        return upd, QAdamState(count=t, m=state.m, v=state.v, e=state.e)
+        return upd, state._replace(count=t)
 
-    return Optimizer(init=init, update=update, forward_params=forward_params)
+    return Optimizer(init=_init_state, update=update,
+                     forward_params=forward_params)
+
+
+def _unquantized(params, state=None):
+    return params
+
+
+def ef_sgdm(alpha: float = 0.1, beta: float = 0.9,
+            grad_q: str = "blockwise:256", schedule: str = "constant",
+            seed: int = 0, backend: Optional[str] = None) -> Optimizer:
+    """Zheng et al. '19 baseline: blockwise-compressed momentum SGD with
+    error feedback. Per leaf, m and e in place: m' = beta * m + g,
+    Delta + e = alpha_t * m' + e, the update -Q(Delta + e) (#14 for the
+    blockwise operator), e' = Delta + e - Q(Delta + e); each operation
+    rounded once. v is kept, unused, as in the reference's state.
+    ``backend`` picks the quantizer's kernels or plain versions."""
+    gq = get_quantizer(grad_q)
+    cfg = QAdamConfig(alpha=alpha, beta=beta, schedule=schedule)
+
+    def update(grads, state: QAdamState, params=None):
+        t = state.count + 1
+        a_t = float(_alpha_t(cfg, t))
+        draws = _leaf_draws(grads, seed, t, state.worker)
+
+        def leaf(g, m, e):
+            draw = next(draws)
+            m.mul_(beta).add_(g.to(torch.float32))
+            de = torch.mul(m, a_t).add_(e)
+            dq = _quantize(gq, de, draw, backend)
+            torch.sub(de, dq, out=e)
+            return dq.neg_()
+
+        upd = tree_map(leaf, grads, state.m, state.e)
+        return upd, state._replace(count=t)
+
+    return Optimizer(init=_init_state, update=update,
+                     forward_params=_unquantized)
+
+
+def terngrad_sgd(alpha: float = 0.1, schedule: str = "constant",
+                 seed: int = 0, backend: Optional[str] = None) -> Optimizer:
+    """TernGrad baseline (Wen et al. '17): unbiased ternary SGD, no error
+    feedback. The update is -alpha_t * Q(g), Q's codes from K3's amax
+    scale and #13 on this step's uniforms."""
+    gq = get_quantizer("terngrad")
+    cfg = QAdamConfig(alpha=alpha, schedule=schedule)
+
+    def update(grads, state: QAdamState, params=None):
+        t = state.count + 1
+        neg_a = -float(_alpha_t(cfg, t))
+        draws = _leaf_draws(grads, seed, t, state.worker)
+
+        def leaf(g):
+            return _quantize(gq, g.to(torch.float32), next(draws),
+                             backend).mul_(neg_a)
+
+        return tree_map(leaf, grads), state._replace(count=t)
+
+    return Optimizer(init=_init_state, update=update,
+                     forward_params=_unquantized)
 
 
 def apply_updates(params, updates):
     return tree_map(lambda p, u: (p.to(torch.float32) + u).to(p.dtype),
                     params, updates)
+
+
+def wquan(params, k_x: int = 7, absolute: bool = True,
+          backend: Optional[str] = None):
+    """WQuan baseline: every weight quantized once, after training, on the
+    uniform grid (absolute, or against the leaf's amax: K3), and back
+    (K4, K12)."""
+    wq = get_quantizer(f"uniform:{k_x}" if absolute else f"uniform_amax:{k_x}")
+    return tree_map(lambda p: wq(p, backend=backend).to(p.dtype), params)

@@ -1,23 +1,32 @@
 // K3 per-row amax and K4 per-row uniform quantize (the Q_x residency
-// passes behind quantize_params).
+// passes behind quantize_params), #10 log quantize and #13 ternary
+// quantize (the code-level Q_g and TernGrad quantizers).
 //
-// Replaces repro/comm/kernels.py amax_pallas and uniform_quantize_pallas.
+// Replaces repro/comm/kernels.py amax_pallas, uniform_quantize_pallas,
+// log_quantize_pallas and ternary_quantize_pallas.
 // The TPU amax carried a running max through SMEM scratch across a grid
 // that runs in order; CUDA blocks run in no order, so each block reduces
 // its share of a row and folds it into the row's result with atomicMax
 // on the bits of the nonnegative float (|x| bits order like the values,
 // NaN above +inf, so max is exact and the scale stays bitwise).
 //
-// Both passes are bound by bytes: amax reads the leaf once; quantize
-// reads it once more and writes 1 or 2 bytes per element. Design: 16-byte
-// float4 loads where the row length allows, one grid row of blocks per
-// tensor row (a stacked (L, ...) leaf gets its L scales in one launch),
-// enough blocks per row to fill the 132 SMs.
+// All four passes are bound by bytes: amax reads the leaf once; quantize
+// reads it once more and writes 1 or 2 bytes per element; #10 reads 4 B
+// and writes 1 B per element (5 B); #13 reads x and the caller's
+// uniforms and writes 1 B (9 B). Design: 16-byte float4 loads where the
+// row length and alignment allow (#10 and #13: the float4 body, then a
+// tail of at most 3 elements), one grid row of blocks per tensor row (a
+// stacked (L, ...) leaf gets its L scales in one launch), enough blocks
+// per row to fill the 132 SMs. #10 and #13 read their one scale from
+// device memory, so no caller waits for the amax pass on the host.
 //
 // Arithmetic of K4 follows repro/opt/grids.py uniform_quantize exactly:
 // y = clip(x / max(s, 1e-30), -1, 1); code = round_half_even(y * 2^k)
-// (rt::uniform_code in grids.cuh). The division is IEEE (no fast math)
-// and y * 2^k is exact.
+// (rt::uniform_code in grids.cuh). #10 is grids.log_quantize as K16 and
+// K7 already compute it (rt::log_code: the decision points compared
+// exactly, no log2 or exp2). #13 is grids.ternary_quantize, sign(x) *
+// [u < |x| / max(s, 1e-30)]: the division is the IEEE division (no
+// reciprocal), the rule #5's ternary kind holds bitwise. No fast math.
 #include "grids.cuh"
 
 namespace {
@@ -93,6 +102,54 @@ __global__ void uniform_quantize_kernel(const float* __restrict__ x,
   }
 }
 
+__device__ __forceinline__ int8_t ternary_code(float x, float u, float s_div) {
+  const float p = __fdiv_rn(fabsf(x), s_div);
+  return u < p ? (int8_t)((x > 0.0f) - (x < 0.0f)) : (int8_t)0;
+}
+
+__global__ void log_quantize_kernel(const float* __restrict__ x,
+                                    const float* __restrict__ scale,
+                                    int8_t* __restrict__ codes, long long n,
+                                    int k, int vec4) {
+  const rt::LogGrid q = rt::make_log_grid(scale[0], k);
+  const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long n4 = vec4 ? n / 4 : 0;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  char4* c4 = reinterpret_cast<char4*>(codes);
+  for (long long i = start; i < n4; i += stride) {
+    const float4 v = x4[i];
+    c4[i] = make_char4(rt::log_code(v.x, q), rt::log_code(v.y, q),
+                       rt::log_code(v.z, q), rt::log_code(v.w, q));
+  }
+  for (long long i = 4 * n4 + start; i < n; i += stride)
+    codes[i] = (int8_t)rt::log_code(x[i], q);
+}
+
+__global__ void ternary_quantize_kernel(const float* __restrict__ x,
+                                        const float* __restrict__ u,
+                                        const float* __restrict__ scale,
+                                        int8_t* __restrict__ codes,
+                                        long long n, int vec4) {
+  const float s = scale[0];
+  const float s_div = s < 1e-30f ? 1e-30f : s;  // NaN passes through
+  const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long n4 = vec4 ? n / 4 : 0;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  const float4* u4 = reinterpret_cast<const float4*>(u);
+  char4* c4 = reinterpret_cast<char4*>(codes);
+  for (long long i = start; i < n4; i += stride) {
+    const float4 v = x4[i], w = u4[i];
+    c4[i] = make_char4(ternary_code(v.x, w.x, s_div),
+                       ternary_code(v.y, w.y, s_div),
+                       ternary_code(v.z, w.z, s_div),
+                       ternary_code(v.w, w.w, s_div));
+  }
+  for (long long i = 4 * n4 + start; i < n; i += stride)
+    codes[i] = ternary_code(x[i], u[i], s_div);
+}
+
 }  // namespace
 
 extern "C" int rt_amax_rows(const void* x, void* out_bits, int rows,
@@ -121,5 +178,28 @@ extern "C" int rt_uniform_quantize_rows(const void* x, const void* scale,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rt_log_quantize(const void* x, const void* scale, void* codes,
+                               long long n, int k_g, void* stream) {
+  if (n < 1 || k_g < 0 || k_g > 30) return (int)cudaErrorInvalidValue;
+  const int vec4 = ((uintptr_t)x % 16 == 0) && ((uintptr_t)codes % 4 == 0);
+  log_quantize_kernel<<<blocks_per_row(vec4 ? n / 4 : n, 1), kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)scale, (int8_t*)codes, n, k_g, vec4);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rt_ternary_quantize(const void* x, const void* u,
+                                   const void* scale, void* codes,
+                                   long long n, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  const int vec4 = ((uintptr_t)x % 16 == 0) && ((uintptr_t)u % 16 == 0) &&
+                   ((uintptr_t)codes % 4 == 0);
+  ternary_quantize_kernel<<<blocks_per_row(vec4 ? n / 4 : n, 1), kThreads, 0,
+                            (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)u, (const float*)scale, (int8_t*)codes,
+      n, vec4);
   return (int)cudaGetLastError();
 }

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.comm import bits as B
 from repro_torch.comm import codec as CD
+from repro_torch.comm import kernels as K
 from repro_torch.dist import collectives as C
 from repro_torch.dist.topology import Tiers, flat_tiers
 from repro_torch.opt import engine, grids
@@ -143,7 +144,7 @@ def blockwise_exchange(de: torch.Tensor, codec, meta, ctx: WorkerCtx,
     """The blockwise wire of ``ef_sgd``: sign codes of Delta+e and their
     per-256-block mean |.| scales (#14), the EF residual against this
     worker's own dequantized codes, the codes lane-packed into
-    worker-ownership rows and all-to-all'd, the (nb,) scales all-gathered
+    worker-ownership rows (#9) and all-to-all'd, unpacked (#9), the (nb,) scales all-gathered
     (a side channel), and each source's codes for MY chunk rescaled by
     that source's scale columns for my chunk: elements [w*c, (w+1)*c) of
     its block-repeated scales. Chunks need not align to blocks. Returns
@@ -154,11 +155,11 @@ def blockwise_exchange(de: torch.Tensor, codec, meta, ctx: WorkerCtx,
     codes2d, scale_b = engine.quantize_blockwise(de, block,
                                                  backend=ctx.backend)
     e2 = de - grids.blockwise_dequantize(codes2d, scale_b).reshape(-1)[:n]
-    payload = B.pack_rows(B.pad_rows(codes2d.reshape(-1)[:n], ctx.n_workers),
-                          codec.bits)
+    payload = K.pack_rows(B.pad_rows(codes2d.reshape(-1)[:n], ctx.n_workers),
+                          codec.bits, backend=ctx.backend)     # #9
     del codes2d
-    codes_rows = B.unpack_rows(C.exchange_rows(payload, ctx.group),
-                               codec.bits, meta.c)
+    codes_rows = K.unpack_rows(C.exchange_rows(payload, ctx.group),
+                               codec.bits, meta.c, backend=ctx.backend)
     scales = C.gather_side(scale_b, ctx.group)             # (W, nb)
     W, nb = scales.shape
     c = meta.c

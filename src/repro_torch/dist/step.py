@@ -55,12 +55,14 @@ import torch.distributed as dist
 
 from repro_torch.comm import codec as CD
 from repro_torch.core.qadam import QAdamConfig, _alpha_t, _theta_t
+from repro_torch.core.uniforms import draw_uniform
 from repro_torch.dist import collectives as C
 from repro_torch.dist import sharding as SH
 from repro_torch.dist import topology as T
 from repro_torch.dist.modes import WorkerCtx, get_mode
 from repro_torch.opt import engine
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import (sorted_leaf_index, tree_leaves, tree_map,
+                              tree_unflatten)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,23 +95,6 @@ class LeafMeta:
     shape: Tuple[int, ...]
     c: int
     numel: int
-
-
-def _sorted_leaf_index(shapes) -> list:
-    """Each leaf's index in the reference's leaf order (jax flattens a
-    dict with its keys sorted, at every level), in ``tree_leaves``
-    order: what the stochastic codecs' draws are keyed by."""
-    def paths(tree, prefix=()):
-        if isinstance(tree, dict):
-            return [p for k, v in tree.items()
-                    for p in paths(v, prefix + (k,))]
-        return [prefix]
-    ps = paths(shapes)
-    order = sorted(range(len(ps)), key=lambda i: ps[i])
-    index = [0] * len(ps)
-    for j, i in enumerate(order):
-        index[i] = j
-    return index
 
 
 def _leaf_meta(layout: SH.Layout, n_workers: int):
@@ -148,32 +133,6 @@ def weight_wire_codec(tc: TrainConfig, numel: int):
     return CD.uniform_wire_codec(tc.weight_k, tc.weight_absolute)
 
 
-def _mix64(h: int, v: int) -> int:
-    """One splitmix64 round of h folded with v (64-bit)."""
-    z = (h ^ (v & 0xFFFFFFFFFFFFFFFF)) + 0x9E3779B97F4A7C15
-    z &= 0xFFFFFFFFFFFFFFFF
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-    return z ^ (z >> 31)
-
-
-def draw_uniform(seed: int, t: int, leaf: int, worker: int, n: int,
-                 device) -> torch.Tensor:
-    """n float32 uniforms in [0, 1) for step ``t``, leaf ``leaf`` (its
-    index in the reference's leaf order, keys sorted) and ``worker``:
-    ``torch.rand`` from a generator on ``device`` seeded by a pure
-    function of the four, so a run and a resumed run draw the same and
-    workers draw independently (the reference folds a key per (step,
-    leaf, worker); torch has no threefry, so the draws differ from the
-    reference's)."""
-    h = 0
-    for v in (seed, t, leaf, worker):
-        h = _mix64(h, v)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(h & 0x7FFFFFFFFFFFFFFF)
-    return torch.rand(n, generator=gen, device=device)
-
-
 def local_batch(batch: Dict[str, torch.Tensor], rank: int,
                 n_workers: int) -> Dict[str, torch.Tensor]:
     """This worker's rows of the global batch (``_batch_geometry``): a
@@ -207,7 +166,7 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
     shapes = model.init(torch.Generator(), device="meta")
     layout = SH.build_layout(shapes)
     metas_flat = tree_leaves(_leaf_meta(layout, n_workers))
-    draw_index = _sorted_leaf_index(layout.shapes)
+    draw_index = sorted_leaf_index(layout.shapes)
     qcfg = QAdamConfig(alpha=tc.alpha, beta=tc.beta, theta=tc.theta,
                        eps=tc.eps, schedule=tc.schedule)
     tiers = tc.topology.tiers(("data",), (n_workers,))

@@ -2,8 +2,9 @@
 of ``repro/opt/engine.py``).
 
 ``backend="torch"`` runs the plain ``grids`` math, ``"cuda"`` the
-hand-written kernels (K3/K4 Q_x encode, K12 Q_x decode, K11 Q_g decode,
-#14 blockwise quantize in ``repro_torch.comm.kernels``; K15/K16 Adam+EF in
+hand-written kernels (K3/K4 Q_x encode, K12 Q_x decode, K3/#10 Q_g
+encode, K11 Q_g decode, K3/#13 TernGrad codes, #14 blockwise quantize in
+``repro_torch.comm.kernels``; K15/K16 Adam+EF in
 ``repro_torch.kernels.adam_ef``); ``None`` follows the tensors' device.
 Codes, scales, moments and residuals are bitwise equal across backends.
 The kernels take flat tensors of any length, so the reference's
@@ -51,10 +52,34 @@ def dequantize_uniform(codes: torch.Tensor, scale: torch.Tensor,
     return out.reshape(codes.shape)
 
 
+def quantize_log(x: torch.Tensor, k_g: int = 6,
+                 backend: Optional[str] = None):
+    """Paper's Q_g encode -> (int8 codes, scale): the per-tensor amax (K3)
+    under the reference's ``max(amax, 1e-30)`` floor (not the zero guard
+    1 of ``amax_scale``), then the log-grid codes (#10). The scale is a
+    0-d float32 tensor on x's device."""
+    x32 = x.to(torch.float32)
+    amax = K.amax_rows(x32.reshape(1, -1), backend=backend)
+    scale = torch.clamp_min(amax[0], 1e-30)
+    return K.log_quantize(x32, scale, k_g, backend=backend), scale
+
+
 def dequantize_log(codes: torch.Tensor, scale: torch.Tensor, k_g: int = 6,
                    backend: Optional[str] = None):
     """Q_g decode (K11): ``sign(c) * 2^(|c|-k_g-1) * scale``, float32."""
     return K.log_dequantize(codes, scale, k_g, backend=backend)
+
+
+def quantize_ternary(x: torch.Tensor, u: torch.Tensor,
+                     backend: Optional[str] = None):
+    """Unbiased stochastic ternary codes + amax scale -> (int8 codes,
+    scale): the scale ``where(amax > 0, amax, 1)`` (K3's amax), then #13
+    on the uniforms ``u`` (x's numel, in [0, 1)), drawn outside the kernel
+    as the reference draws them outside its kernel (here by the caller:
+    torch has no threefry)."""
+    x32 = x.to(torch.float32)
+    scale = amax_scale(K.amax_rows(x32.reshape(1, -1), backend=backend)[0])
+    return K.ternary_quantize(x32, u, scale, backend=backend), scale
 
 
 def quantize_blockwise(x: torch.Tensor, block: int = 256,

@@ -110,16 +110,18 @@ class ServeSession:
     paged: page pool + page tables (``page_size`` tokens per page,
         ``num_pages`` pages, default fixed-lane-equal memory); admission
         validates pages up front.
-    prefill: "chunked" (``prefill_chunk`` prompt tokens per dispatch,
-        interleaved with decode), the only admission path ported; the
-        reference's "whole" and "inject" raise (ROADMAP.md).
+    prefill: "auto" (the reference's default: for the dense family it
+        chooses chunked admission) or "chunked" (``prefill_chunk`` prompt
+        tokens per dispatch, interleaved with decode), the only admission
+        path ported; the reference's "whole" and "inject" raise
+        (ROADMAP.md).
     """
 
     def __init__(self, model, params, *, slots: int = 8, max_seq: int = 256,
                  eos_id: Optional[int] = None, seed: int = 0,
                  sync_interval: int = 8, fused_matmul: bool = True,
                  paged: bool = False, page_size: int = 16,
-                 num_pages: Optional[int] = None, prefill: str = "chunked",
+                 num_pages: Optional[int] = None, prefill: str = "auto",
                  prefill_chunk: int = 32, preempt_mode: str = "requeue",
                  device="cuda"):
         cfg = model.cfg
@@ -146,7 +148,7 @@ class ServeSession:
         if prefill in ("whole", "inject"):
             raise NotImplementedError(f"prefill={prefill!r} is not ported "
                                       "yet (ROADMAP.md); use chunked")
-        if prefill != "chunked":
+        if prefill not in ("auto", "chunked"):
             raise ValueError(f"unknown prefill mode {prefill!r}")
         self.prefill_chunk = max(1, int(prefill_chunk))
         if preempt_mode not in ("requeue", "kill"):

@@ -245,9 +245,15 @@ def test_codecs_and_quantizers_bitwise():
     js = JG.amax_scale(jnp.asarray(x))
     _eq(JG.log_quantize(jnp.asarray(x), js, 6),
         TC.LogCodec(6).quantize(t, TC.LogCodec(6).compute_scale(t)))
-    for bad in ("terngrad", "blockwise:256", "uniformx:3"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TQ.get_quantizer(bad)
+    # the baselines' specs parse as the reference's; an unknown one raises
+    # ValueError in both
+    for spec in ("terngrad", "blockwise:256"):
+        assert type(TQ.get_quantizer(spec)).__name__ == \
+            type(JQ.get_quantizer(spec)).__name__
+    with pytest.raises(ValueError):
+        JQ.get_quantizer("uniformx:3")
+    with pytest.raises(ValueError, match="unknown quantizer spec"):
+        TQ.get_quantizer("uniformx:3")
 
 
 def test_wrappers_validate():

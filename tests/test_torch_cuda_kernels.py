@@ -578,7 +578,8 @@ def test_baseline_modes_run_through_kernels(dev, mode):
                 "terngrad": [(K, "amax_launches"),
                              (K, "encode_ternary_launches"),
                              (K, "decode_ternary_launches")],
-                "ef_sgd": [(K, "blockwise_quantize_launches")]}[mode]
+                "ef_sgd": [(K, "blockwise_quantize_launches"),
+                           (K, "pack_launches"), (K, "unpack_launches")]}[mode]
     kw = {"dp_adam": dict(grad_k=None, weight_k=None),
           "efadam": dict(grad_k=6, weight_k=7, weight_absolute=False),
           "terngrad": dict(alpha=2e-2, grad_k=None, weight_k=None),
@@ -602,3 +603,205 @@ def test_baseline_modes_run_through_kernels(dev, mode):
         assert all(math.isfinite(h["loss"]) for h in sess.history)
     finally:
         mesh.close_process_group()
+
+
+# ---------------------------------------------------------------------------
+# #10 log quantize, #13 ternary quantize, #9 lane pack/unpack, and the
+# Algorithm 1 baselines and the paper protocol through them
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k_g", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("n", [1, 3, 4099, 1000003])
+def test_log_quantize_bitwise(dev, k_g, n):
+    """#10 against its plain version: random values, zeros, the zero
+    input, values exactly on the decision points (and one float below),
+    an unaligned view (scalar loads)."""
+    from repro_torch.comm import kernels as K
+    from repro_torch.opt import grids
+    gen = torch.Generator(device=dev).manual_seed(n * 10 + k_g)
+    base = torch.randn(n + 1, generator=gen, device=dev)
+    base[::5] = 0.0
+    t = torch.tensor(grids.log_thresholds(k_g), device=dev)
+    m = min(n, 2 * t.numel())
+    base[:m] = torch.cat([t, torch.nextafter(t, torch.zeros_like(t))])[:m]
+    s = torch.tensor(1.0, device=dev)
+    for x in (base[:n], base[1:], torch.zeros(n, device=dev)):
+        _bits_equal(K.log_quantize(x, s, k_g, backend="cuda"),
+                    K.log_quantize(x, s, k_g, backend="torch"))
+    s = base.abs().amax()
+    _bits_equal(K.log_quantize(base, s, k_g, backend="cuda"),
+                K.log_quantize(base, s, k_g, backend="torch"))
+
+
+@pytest.mark.parametrize("n", [1, 3, 4099, 1000003])
+def test_ternary_quantize_bitwise(dev, n):
+    """#13 against its plain version: u exactly at p = |x| / s (code 0),
+    just below it, x = 0, a zero scale (the 1e-30 floor), unaligned
+    views."""
+    from repro_torch.comm import kernels as K
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(n + 1, generator=gen, device=dev)
+    x[::7] = 0.0
+    u = torch.rand(n + 1, generator=gen, device=dev)
+    s = x.abs().amax()
+    p = x.abs() / s
+    u[1::3] = p[1::3]
+    u[2::3] = torch.nextafter(p[2::3], torch.zeros_like(p[2::3]))
+    for xx, uu in ((x[:n], u[:n]), (x[1:], u[1:])):
+        for scale in (s, torch.tensor(0.0, device=dev)):
+            a = K.ternary_quantize(xx, uu, scale, backend="cuda")
+            _bits_equal(a, K.ternary_quantize(xx, uu, scale,
+                                              backend="torch"))
+    a = K.ternary_quantize(x, u, s, backend="cuda")
+    assert not a[1::3].any()
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 6, 8, 16])
+@pytest.mark.parametrize("R,c", [(1, 1), (2, 7), (4, 1000003), (3, 8)])
+def test_pack_rows_bitwise(dev, bits, R, c):
+    """#9 against its plain version at every width, ragged rows, each
+    code type; the round trip returns the codes."""
+    from repro_torch.comm import kernels as K
+    gen = torch.Generator(device=dev).manual_seed(R * c + bits)
+    lim = 2 ** (bits - 1)
+    for dt in (torch.int8, torch.int16):
+        if bits == 16 and dt == torch.int8:
+            continue
+        codes = torch.randint(-lim, lim, (R, c), generator=gen,
+                              device=dev).to(dt)
+        pk = K.pack_rows(codes, bits, backend="cuda")
+        _bits_equal(pk, K.pack_rows(codes, bits, backend="torch"))
+        uk = K.unpack_rows(pk, bits, c, backend="cuda")
+        _bits_equal(uk, K.unpack_rows(pk, bits, c, backend="torch")
+                    .contiguous())
+        assert torch.equal(uk.to(torch.int32), codes.to(torch.int32))
+
+
+@pytest.mark.parametrize("spec", ["log:2", "log:6", "uniform_amax:5",
+                                  "uniform:7:wire", "terngrad"])
+def test_codec_primitives_on_cuda(dev, spec):
+    """The codecs' compute_scale / quantize / dequantize through the
+    kernels (K3, #10, K11; K4, K12; #13) equal the plain versions."""
+    from repro_torch.comm import codec as CD
+    from repro_torch.comm import kernels as K
+    cd = CD.get_codec(spec)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(4099, generator=gen, device=dev) * 0.3
+    u = torch.rand(4099, generator=gen, device=dev) if cd.stochastic \
+        else None
+    K.plain_on_cuda = 0
+    sk = cd.compute_scale(x)
+    ck = cd.quantize(x, sk, u=u)
+    dk = cd.dequantize(ck, sk)
+    assert K.plain_on_cuda == 0
+    sp = cd.compute_scale(x, backend="torch")
+    cp = cd.quantize(x, sp, u=u, backend="torch")
+    for a, b in ((sk, sp), (ck, cp), (dk, cd.dequantize(cp, sp,
+                                                       backend="torch"))):
+        _bits_equal(a, b)
+
+
+def test_blockwise_block_other_than_256_raises_on_cuda(dev):
+    from repro_torch.core.quantizers import get_quantizer
+    from repro_torch.opt import engine
+    x = torch.randn(1000, device=dev)
+    with pytest.raises(ValueError, match="blocks of 256"):
+        engine.quantize_blockwise(x, 64)
+    with pytest.raises(ValueError, match="blocks of 256"):
+        get_quantizer("blockwise:64")(x)
+
+
+@pytest.mark.parametrize("name", ["ef_sgdm", "terngrad_sgd",
+                                  "qadam_terngrad", "qadam_blockwise"])
+def test_algorithm1_baselines_run_through_kernels(dev, name):
+    """Three steps of each baseline of Algorithm 1 on the smoke model on
+    the card: its kernels launch, no plain version runs, the session reads
+    the device only at its harvests; one update on the trained state
+    through the kernels equals the plain versions' (the same draws)."""
+    from repro_torch.comm import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import qadam as Q
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.kernels import adam_ef as A
+    from repro_torch.models.model import Model
+    from repro_torch.train.session import SessionConfig, TrainSession
+    build = {"ef_sgdm": lambda b: Q.ef_sgdm(alpha=1e-2, backend=b),
+             "terngrad_sgd": lambda b: Q.terngrad_sgd(alpha=1e-2, backend=b),
+             "qadam_terngrad": lambda b: Q.qadam(Q.QAdamConfig(
+                 grad_q="terngrad", backend=b)),
+             "qadam_blockwise": lambda b: Q.qadam(Q.QAdamConfig(
+                 grad_q="blockwise:256", backend=b))}[name]
+    counters = {"ef_sgdm": ["blockwise_quantize_launches"],
+                "qadam_blockwise": ["blockwise_quantize_launches"]}.get(
+        name, ["amax_launches", "ternary_quantize_launches"])
+    model = Model(get_config("yi-6b", smoke=True))
+
+    def loss_fn(p, b):
+        ls, nt = model.loss(p, b)
+        return ls / nt
+    for c in counters:
+        setattr(K, c, 0)
+    K.plain_on_cuda = A.plain_on_cuda = 0
+    sess = TrainSession.from_optimizer(
+        build(None), loss_fn, model.init(seed=0, device=dev),
+        batch_for_model(model.cfg, 32, 2), SessionConfig(log_every=3),
+        log=lambda *_: 0)
+    with sess:
+        sess.run(3)
+    assert sess.stats["syncs"] == 2
+    assert all(getattr(K, c) > 0 for c in counters)
+    assert K.plain_on_cuda == A.plain_on_cuda == 0
+    st = sess.state
+    grads = {"embed": st["params"]["embed"] * 0.01 + 1e-3}
+    outs = []
+    for backend in ("cuda", "torch"):
+        s = st["opt"]
+        sub = s._replace(**{f: {"embed": getattr(s, f)["embed"].clone()}
+                            for f in ("m", "v", "e")})
+        upd, s2 = build(backend).update(grads, sub)
+        outs.append((upd["embed"], s2.m["embed"], s2.e["embed"]))
+    for x, y in zip(*outs):
+        _bits_equal(x, y)
+
+
+def test_wquan_through_kernels(dev):
+    from repro_torch.comm import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core.qadam import wquan
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_leaves
+    params = Model(get_config("yi-6b", smoke=True)).init(seed=0, device=dev)
+    K.amax_launches = K.quantize_launches = K.dequantize_launches = 0
+    K.plain_on_cuda = 0
+    got = wquan(params, k_x=7, absolute=False)
+    assert min(K.amax_launches, K.quantize_launches,
+               K.dequantize_launches) > 0 and K.plain_on_cuda == 0
+    want = wquan(params, k_x=7, absolute=False, backend="torch")
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        _bits_equal(a, b)
+
+
+def test_paper_protocol_on_cuda(dev):
+    """A few steps of every method of the paper protocol on the card, both
+    modes: #13, #14 and (efadam) #10 launch, no plain version runs."""
+    import importlib.util
+    import math
+    import os
+    from repro_torch.comm import kernels as K
+    from repro_torch.kernels import adam_ef as A
+    spec = importlib.util.spec_from_file_location(
+        "paper_repro_torch", os.path.join(os.path.dirname(__file__), "..",
+                                          "examples", "paper_repro_torch.py"))
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    for mode, names in (("qadam", ["ternary_quantize_launches",
+                                   "blockwise_quantize_launches"]),
+                        ("efadam", ["log_quantize_launches"])):
+        for c in names:
+            setattr(K, c, 0)
+        K.plain_on_cuda = A.plain_on_cuda = 0
+        rows = ex.compare(mode, steps=3, seeds=1, workers=2, device=dev,
+                          log=lambda *_: None)
+        assert all(math.isfinite(a) for _, a, _ in rows)
+        assert all(getattr(K, c) > 0 for c in names)
+        assert K.plain_on_cuda == A.plain_on_cuda == 0

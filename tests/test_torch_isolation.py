@@ -25,7 +25,9 @@ def _imported_roots(path: Path):
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "examples" /
+                                         "paper_repro_torch.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -44,7 +46,11 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.dist.collectives, repro_torch.dist.modes, "
             "repro_torch.train.loop, repro_torch.comm.codec, "
             "repro_torch.kernels.flash_attention, "
-            "repro_torch.configs.gemma2_2b; "
+            "repro_torch.configs.gemma2_2b, repro_torch.comm, "
+            "repro_torch.core.quantizers, repro_torch.core.packing, "
+            "repro_torch.core.uniforms, repro_torch.kernels.ops, "
+            "repro_torch.kernels.pack, repro_torch.kernels.quantize, "
+            "repro_torch.kernels.ref; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -79,6 +85,10 @@ def test_entry_points_default_to_cuda():
     assert _default(TrainSession.from_artifacts, "device") == "cuda"
     assert _default(mesh.make_process_group, "device") == "cuda"
     assert launch_train.parse_args(["--arch", "yi-6b"]).device == "cuda"
+    from repro_torch.data import pipeline
+    assert _default(pipeline.classification_dataset, "device") == "cuda"
+    example = (ROOT / "examples" / "paper_repro_torch.py").read_text()
+    assert 'ap.add_argument("--device", default="cuda")' in example
 
 
 def test_kernel_wrappers_refuse_cuda_backend_on_cpu():
@@ -115,3 +125,11 @@ def test_kernel_wrappers_refuse_cuda_backend_on_cpu():
     with pytest.raises(ValueError):
         K.decode_rows(payload, torch.ones(2), CD.LogCodec(6), 8,
                       backend="cuda")
+    for call in (lambda: K.log_quantize(x, torch.tensor(1.0), 6,
+                                        backend="cuda"),
+                 lambda: K.ternary_quantize(x, x, torch.tensor(1.0),
+                                            backend="cuda"),
+                 lambda: K.pack_rows(x.to(torch.int8), 2, backend="cuda"),
+                 lambda: K.unpack_rows(payload, 4, 8, backend="cuda")):
+        with pytest.raises(ValueError):
+            call()

@@ -239,6 +239,37 @@ def test_engine_shim_and_launcher(setup, capsys):
     assert params["blocks"]["attn"]["q"].codes.dtype == torch.int8
 
 
+def test_prefill_auto_is_the_reference_choice(setup):
+    """``prefill="auto"`` is the default, as in the reference, and admits
+    every prompt as the reference's ``_admission_mode`` chooses (chunked
+    prefill for the dense family), fixed lanes and paged alike: each
+    prompt of the mix goes out in ceil(plen / prefill_chunk) chunk
+    dispatches, and the tokens are those of an explicit "chunked"."""
+    import inspect
+    jm, tm, jp, tp = setup
+    assert inspect.signature(ServeSession).parameters["prefill"].default \
+        == inspect.signature(JSession).parameters["prefill"].default \
+        == "auto"
+    for kw in (dict(), dict(paged=True, page_size=8)):
+        js = JSession(jm, jp, slots=2, max_seq=48, prefill="auto", **kw)
+        assert {js._admission_mode(len(p)) for p in MIXED} == {"chunked"}
+    chunks = sum(-(-len(p) // SESSION["prefill_chunk"]) for p in MIXED)
+    runs = []
+    for sess_kw in (dict(paged=False), dict()):
+        for kw in (dict(), dict(prefill="chunked")):
+            s = ServeSession(tm, tp, device="cpu",
+                             **dict(SESSION, **sess_kw, **kw))
+            hs = [s.submit(Request(prompt=p, max_new_tokens=3))
+                  for p in MIXED]
+            r = s.drain()
+            assert s.stats["preemptions"] == 0
+            assert s.stats["chunk_dispatches"] == chunks
+            runs.append([r[h].tokens for h in hs])
+    assert runs[0] == runs[1] == runs[2] == runs[3]
+    with pytest.raises(ValueError, match="unknown prefill"):
+        ServeSession(tm, tp, device="cpu", prefill="eager")
+
+
 class TestGemma2:
     """The checks that take ``setup``, on gemma2-2b."""
 
@@ -259,3 +290,5 @@ class TestGemma2:
     test_preempt_kill_and_slo_order = staticmethod(
         test_preempt_kill_and_slo_order)
     test_engine_shim_and_launcher = staticmethod(test_engine_shim_and_launcher)
+    test_prefill_auto_is_the_reference_choice = staticmethod(
+        test_prefill_auto_is_the_reference_choice)
