@@ -14,19 +14,26 @@ Phases, each raising on failure (exit code nonzero, no result line):
   3. hold each serving kernel against its plain PyTorch version at yi-6b
      shapes: K3 amax / K4 quantize on a stacked (32, 4096, 11008) f32
      leaf and K2 page gather bitwise; K1 dequant-matmul at M in
-     {1, 4, 32} for every projection shape and code type within one bf16
-     ulp (plus a floor near zero set from the measured fp32
-     summation-order noise; a dropped K row must fail that gate); K1t,
+     {1, 4, 32} for every projection shape of yi-6b and gemma2-2b and
+     every code type, and at ragged shapes across its row tiles (M 5 to
+     100), on both routes (tensor cores for bf16 activations against
+     int8/int16 codes, CUDA cores for packed lanes and float32), within
+     one bf16 ulp (plus a floor near zero set from the measured fp32
+     summation-order noise; a dropped K row must fail that gate), timed
+     at every int8 shape with its kernel/library factor; K1t,
      the transposed product of the tied head, at gemma2-2b's (256000,
      2304) table for M in {1, 4} (int8 at k_x = 6, packed 3/4/6-bit rows)
      and at ragged shapes, in the same tier (a dropped d column must
      fail it); #17 flash attention on the four cases of
-     tests/test_kernels.py, gemma2-2b's prefill (B 1, S 8192, 8 heads
-     over 4, hd 256, bf16) as a local (window 4096) and a global layer
-     (softcap 50), and a ragged Sq/Skv, within rtol 1e-4 / atol 1e-5
-     (float32) or one bf16 ulp plus 1e-5 (a window off by one must fail
-     it), timed beside scaled_dot_product_attention without the
-     softcap; then
+     tests/test_kernels.py (float32, CUDA cores), gemma2-2b's prefill
+     (B 1, S 8192, 8 heads over 4, hd 256, bf16, tensor cores) as a
+     local (window 4096) and a global layer (softcap 50), a ragged
+     Sq/Skv, and the global layer without the softcap in bf16 and in
+     float32, within rtol 1e-4 / atol 1e-5 (float32) or one bf16 ulp
+     plus 1e-5 (a window off by one must fail it), two calls bitwise
+     equal, timed beside scaled_dot_product_attention: is_causal where
+     it computes the same function (no softcap), else with a boolean
+     mask and without the softcap; then
      the training kernels bitwise on the stacked (8, 4096, 11008) w_gate
      leaf and the (64000, 4096) embedding: K15 Adam+EF moments (m', v',
      Delta+e, the amax word), K16 EF quantize (codes, residual), K11 log
@@ -69,7 +76,11 @@ Phases, each raising on failure (exit code nonzero, no result line):
      model's logits must differ (the window is live), with the depth-2
      gate there too;
      4c. #17 through its entry point over one gemma2-2b prefill of 8192
-     tokens (26 layers with their windows; the count at 0 before);
+     tokens (26 layers with their windows), in bf16 (tensor cores) and
+     then in float32 (CUDA cores), each route's count at 0 before;
+     4d. yi-6b cut to 4 layers served from 4-bit packed lanes
+     (quantize_params(k_x=2, pack=True)), 4 requests: K1's CUDA-core
+     route, K2, K3, K4 launched, no plain version on the card;
   5. train full-width yi-6b cut to 8 layers (fp32 parameters and state,
      bf16 activations) with Algorithm 1 through ``qadam`` and
      ``TrainSession.from_optimizer``: 12 steps of 2 x 1024 tokens; gates:
@@ -128,7 +139,8 @@ Phases, each raising on failure (exit code nonzero, no result line):
      mode #10) launched, no plain version on the card; print the
      accuracy table;
   10. print one ``{"kernels": [...]}`` line (each kernel's launches by
-     path), the card line again, and the last line ``{"ok": true,
+     path; every kernel launched on some path), the card line again, and
+     the last line ``{"ok": true,
      "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package. Detailed tables are
@@ -370,9 +382,14 @@ def check_gather(torch, paged, dev, slots, npag, num_pages):
                 library_ms=t_l, eager_ms=t_e, shape=list(tab.shape))
 
 
+# the code kinds of phase 3: (k_x, packed lane bits or 0)
+CODE_KINDS = {"int8": (6, 0), "int16": (7, 0), "p3": (1, 3), "p4": (2, 4),
+              "p6": (4, 6)}
+
+
 def _codes(torch, B, g, dev, kind, Kd, N):
     """Random codes of one kind: (k_x, pack_bits, codes)."""
-    k_x = {"int8": 6, "int16": 7, "p3": 1, "p4": 2, "p6": 4}[kind]
+    k_x, bits = CODE_KINDS[kind]
     lim = 2 ** k_x
     c = torch.randint(-lim, lim + 1, (Kd, N), generator=g, device=dev,
                       dtype=torch.int32)
@@ -380,26 +397,43 @@ def _codes(torch, B, g, dev, kind, Kd, N):
         return k_x, 0, c.to(torch.int8)
     if kind == "int16":
         return k_x, 0, c.to(torch.int16)
-    bits = int(kind[1:])
     return k_x, bits, B.pack_rows(c, bits)
 
 
-def check_matmul(torch, MM, B, dev):
-    """K1 at every (M, K, N, code type) of the path; returns the decode
-    row for the kernels line and the full table."""
-    g = torch.Generator(device=dev).manual_seed(13)
+# K1's main-path shapes (K, N): yi-6b's wq/wo, wk/wv, w_gate/w_up, w_down,
+# head; gemma2-2b's wq, wk/wv, w_gate/w_up, w_down, wo
+GEMMA_K1_SHAPES = [(2304, 2048), (2304, 1024), (2304, 9216), (9216, 2304),
+                   (2048, 2304)]
+
+
+def k1_shapes():
     d, f, V, hK = YI["d"], YI["f"], YI["V"], YI["K"] * YI["hd"]
-    shapes = [(d, d), (d, hK), (d, f), (f, d), (d, V)]
+    return [(d, d), (d, hK), (d, f), (f, d), (d, V)] + GEMMA_K1_SHAPES
+
+
+def check_matmul(torch, MM, B, dev):
+    """K1 at every (M, K, N, code type) of the serving paths (yi-6b's and
+    gemma2-2b's projections at M in {1, 4, 32}, and ragged shapes across
+    the tensor-core route's row tiles), both routes held to the tier; the
+    timing table at int8 (tensor cores) with each shape's kernel/library
+    factor, and the CUDA-core route at the packed-lane serving path's
+    4-bit lanes. Returns the two kernels-line rows, the case table, the
+    timings and the noise readings."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    d, f = YI["d"], YI["f"]
+    shapes = k1_shapes()
+    kinds = ("int8", "int16", "p3", "p4", "p6")
     cases = [(M, Kd, N, kind) for M in (1, 4, 32) for (Kd, N) in shapes
-             for kind in ("int8", "int16", "p3", "p4", "p6")]
-    cases += [(5, 1000, 1001, kind)
-              for kind in ("int8", "int16", "p3", "p4", "p6")]  # ragged
-    table, worst, noise = [], 0.0, {}
+             for kind in kinds]
+    cases += [(M, 1000, 1001, kind) for M in (5, 16, 17, 33, 64, 100)
+              for kind in kinds]   # ragged, across the row tiles
+    table, worst, noise = [], {"tc": 0.0, "fma": 0.0}, {}
     scale = torch.tensor(0.0371, device=dev)
     for M, Kd, N, kind in cases:
         k_x, pb, codes = _codes(torch, B, g, dev, kind, Kd, N)
         x = (torch.randn((M, Kd), generator=g, device=dev)).to(torch.bfloat16)
         kw = dict(k_x=k_x, n=N, pack_bits=pb, cast_dtype="bfloat16")
+        route = MM.route(x.dtype, codes.dtype, pb, "float32", "bfloat16")
         a = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
         b = MM.dequant_matmul(x, codes, scale, backend="torch", **kw)
         diff = (a.float() - b.float()).abs()
@@ -407,12 +441,13 @@ def check_matmul(torch, MM, B, dev):
         tol = k1_tolerance(torch, b, unit)
         if a.dtype != torch.bfloat16 or not bool((diff <= tol).all()):
             over = (diff - bf16_ulp(torch, b.float())) / unit
-            raise AssertionError(f"K1 at M={M} K={Kd} N={N} {kind}: beyond "
-                                 f"one bf16 ulp of the plain product + "
-                                 f"floor (max abs {float(diff.max())}, "
+            raise AssertionError(f"K1 ({route}) at M={M} K={Kd} N={N} "
+                                 f"{kind}: beyond one bf16 ulp of the plain "
+                                 f"product + floor (max abs "
+                                 f"{float(diff.max())}, "
                                  f"{float(over.max())} floor units)")
         err = float(diff.max())
-        worst = max(worst, err)
+        worst[route] = max(worst[route], err)
         # beyond one ulp, in floor units (the floor is K1_FLOOR of them)
         over = float(((diff - bf16_ulp(torch, b.float())).clamp_min(0)
                       / unit).max())
@@ -420,11 +455,11 @@ def check_matmul(torch, MM, B, dev):
                                       f32_noise=0.0))
         n["max_abs_err"] = max(n["max_abs_err"], err)
         n["bf16_over_ulp"] = max(n["bf16_over_ulp"], over)
-        table.append(dict(M=M, K=Kd, N=N, codes=kind, max_abs_err=err,
-                          over_ulp_units=over))
-        if M == 4 or Kd == 1000:
-            # the same sums in fp32 activations: the summation-order noise
-            # itself, in the same units
+        table.append(dict(M=M, K=Kd, N=N, codes=kind, route=route,
+                          max_abs_err=err, over_ulp_units=over))
+        if M == 4 or (Kd == 1000 and M == 5):
+            # the same sums in fp32 activations (the CUDA-core route): the
+            # summation-order noise itself, in the same units
             xf = x.float()
             kf = dict(kw, cast_dtype=None)
             d32 = (MM.dequant_matmul(xf, codes, scale, backend="cuda", **kf)
@@ -441,41 +476,64 @@ def check_matmul(torch, MM, B, dev):
                 if seen == 0.0:
                     raise AssertionError(f"K1 gate blind to a dropped K row "
                                          f"at K={Kd} N={N}")
-                n["fault_max_abs"] = float(fd.max())
-                n["fault_caught"] = seen
-    # timing at the path's int8 shapes, four weight copies in rotation so
-    # the 50 MB L2 does not hold the codes between calls
+                n["fault_max_abs"] = max(n.get("fault_max_abs", 0.0),
+                                         float(fd.max()))
+                n["fault_caught"] = min(n.get("fault_caught", 1.0), seen)
+    # timing at the path's int8 shapes (tensor cores), four weight copies
+    # in rotation so the 50 MB L2 does not hold the codes between calls
     timed = []
+
+    def time_case(M, Kd, N, kind):
+        k_x, pb = CODE_KINDS[kind]
+        ws = [_codes(torch, B, g, dev, kind, Kd, N)[2] for _ in range(4)]
+        wf = [MM.dequant_codes(w, scale, k_x=k_x, n=N, pack_bits=pb,
+                               w_dtype="float32",
+                               cast_dtype="bfloat16") for w in ws]
+        x = torch.randn((M, Kd), generator=g, device=dev).to(torch.bfloat16)
+        kw = dict(k_x=k_x, n=N, pack_bits=pb, cast_dtype="bfloat16")
+        t_k = graph_ms(torch, lambda i: MM.dequant_matmul(
+            x, ws[i], scale, backend="cuda", **kw), 4)
+        t_p = graph_ms(torch, lambda i: MM.dequant_matmul(
+            x, ws[i], scale, backend="torch", **kw), 4, 5)
+        t_l = graph_ms(torch, lambda i: torch.matmul(x, wf[i]), 4)
+        t_e = cuda_ms(torch, lambda i: MM.dequant_matmul(
+            x, ws[i % 4], scale, backend="cuda", **kw))
+        nbytes = ws[0].numel() * ws[0].element_size()
+        bnd, by = bound_ms(nbytes + 2 * M * Kd + 2 * M * N + 4,
+                           2.0 * M * Kd * N)
+        route = MM.route(x.dtype, ws[0].dtype, pb, "float32", "bfloat16")
+        return dict(M=M, K=Kd, N=N, codes=kind, route=route, ms=t_k,
+                    plain_ms=t_p, library_ms=t_l, eager_ms=t_e, bound_ms=bnd,
+                    bound_by=by, factor=t_k / t_l, gbs=nbytes / t_k / 1e6)
+
     for M in (4, 32, 1):
         for Kd, N in shapes:
-            ws = [_codes(torch, B, g, dev, "int8", Kd, N)[2] for _ in range(4)]
-            wf = [MM.dequant_codes(w, scale, k_x=6, n=N, pack_bits=0,
-                                   w_dtype="float32",
-                                   cast_dtype="bfloat16") for w in ws]
-            x = torch.randn((M, Kd), generator=g, device=dev).to(torch.bfloat16)
-            kw = dict(k_x=6, n=N, cast_dtype="bfloat16")
-            t_k = graph_ms(torch, lambda i: MM.dequant_matmul(
-                x, ws[i], scale, backend="cuda", **kw), 4)
-            t_p = graph_ms(torch, lambda i: MM.dequant_matmul(
-                x, ws[i], scale, backend="torch", **kw), 4, 5)
-            t_l = graph_ms(torch, lambda i: torch.matmul(x, wf[i]), 4)
-            t_e = cuda_ms(torch, lambda i: MM.dequant_matmul(
-                x, ws[i % 4], scale, backend="cuda", **kw))
-            bnd, by = bound_ms(Kd * N + 2 * M * Kd + 2 * M * N + 4,
-                               2.0 * M * Kd * N)
-            timed.append(dict(M=M, K=Kd, N=N, ms=t_k, plain_ms=t_p,
-                              library_ms=t_l, eager_ms=t_e, bound_ms=bnd,
-                              bound_by=by,
-                              gbs=(Kd * N) / t_k / 1e6))
-            del ws, wf
-    rep = next(r for r in timed if (r["M"], r["K"], r["N"]) == (4, d, f))
-    row = dict(name="dequant_matmul", route="cuda",
-               source="src/repro_torch/csrc/dequant_matmul.cu",
-               replaces="src/repro/comm/matmul.py:166", max_abs_err=worst,
-               ms=rep["ms"], plain_ms=rep["plain_ms"],
-               bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
-               library_ms=rep["library_ms"], shape=[4, d, f])
-    return row, table, timed, sorted(noise.values(), key=lambda r: r["K"])
+            timed.append(time_case(M, Kd, N, "int8"))
+    fma = time_case(4, d, f, "p4")   # the packed-lane serving path (4d)
+    timed.append(fma)
+    tc_timed = [r for r in timed if r["route"] == "tc"]
+    rep = next(r for r in tc_timed if (r["M"], r["K"], r["N"]) == (4, d, f))
+    m32 = next(r for r in tc_timed if (r["M"], r["K"], r["N"]) == (32, d, f))
+    slow = max(tc_timed, key=lambda r: r["factor"])
+    row_tc = dict(name="dequant_matmul_tc", route="cuda",
+                  source="src/repro_torch/csrc/dequant_matmul.cu",
+                  replaces="src/repro/comm/matmul.py:166",
+                  max_abs_err=worst["tc"], ms=rep["ms"],
+                  plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
+                  bound_by=rep["bound_by"], library_ms=rep["library_ms"],
+                  shape=[4, d, f], m32_ms=m32["ms"],
+                  m32_library_ms=m32["library_ms"],
+                  worst_factor=slow["factor"],
+                  worst_shape=[slow["M"], slow["K"], slow["N"]])
+    row_fma = dict(name="dequant_matmul", route="cuda",
+                   source="src/repro_torch/csrc/dequant_matmul.cu",
+                   replaces="src/repro/comm/matmul.py:166",
+                   max_abs_err=worst["fma"], ms=fma["ms"],
+                   plain_ms=fma["plain_ms"], bound_ms=fma["bound_ms"],
+                   bound_by=fma["bound_by"], library_ms=fma["library_ms"],
+                   shape=[4, d, f, "p4"])
+    return ([row_tc, row_fma], table, timed,
+            sorted(noise.values(), key=lambda r: r["K"]))
 
 
 def check_matmul_t(torch, MM, B, dev):
@@ -586,6 +644,14 @@ FLASH_CASES = [   # tests/test_kernels.py:135-145, gemma2-2b prefill, ragged
                            causal=True, window=0, softcap=50.0, bf16=True)),
     ("ragged", dict(B=1, Sq=1000, Skv=1500, H=8, K=4, hd=256, causal=True,
                     window=700, softcap=50.0, q_offset=500, bf16=True)),
+    # like for like: the global layer without the softcap, which
+    # scaled_dot_product_attention(is_causal=True) computes; in bf16
+    # (tensor cores) and float32 (CUDA cores)
+    ("gemma2_global_nocap", dict(B=1, Sq=8192, Skv=8192, H=8, K=4, hd=256,
+                                 causal=True, window=0, softcap=None,
+                                 bf16=True)),
+    ("gemma2_global_f32", dict(B=1, Sq=8192, Skv=8192, H=8, K=4, hd=256,
+                               causal=True, window=0, softcap=None)),
 ]
 
 
@@ -598,10 +664,15 @@ def flash_tolerance(torch, b):
 
 
 def check_flash(torch, FA, dev):
-    """#17 against its plain version on every FLASH_CASES entry, timed
-    with its bound, plain time and the softcap-free library call
-    (``scaled_dot_product_attention``); a window off by one in the plain
-    version must fail the gate at gemma2's local layer."""
+    """#17 against its plain version on every FLASH_CASES entry (bf16 on
+    the tensor-core route, float32 on the CUDA-core route), timed with its
+    bound, plain time and a PyTorch yardstick: where the case has no
+    softcap, window or offset, scaled_dot_product_attention(is_causal=True)
+    computes the same function (like for like); elsewhere the reading is
+    scaled_dot_product_attention with a boolean mask and without the
+    softcap (no PyTorch call applies one), labelled as such. A window off
+    by one in the plain version must fail the gate at gemma2's local
+    layer. Returns the two kernels-line rows and the case table."""
     import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(19)
     table, rows = [], {}
@@ -614,6 +685,7 @@ def check_flash(torch, FA, dev):
         kw = dict(causal=c["causal"], window=c["window"],
                   softcap=c["softcap"], q_offset=c.get("q_offset", 0))
         a = FA.flash_attention(q, k, v, backend="cuda", **kw)
+        a2 = FA.flash_attention(q, k, v, backend="cuda", **kw)
         b = FA.flash_attention(q, k, v, backend="torch", **kw)
         diff = (a.float() - b.float()).abs()
         tol = flash_tolerance(torch, b)
@@ -621,7 +693,10 @@ def check_flash(torch, FA, dev):
                 (diff <= tol).all()):
             raise AssertionError(f"#17 {name}: beyond its tier of the plain "
                                  f"version (max abs {float(diff.max())})")
-        row = dict(case=name, max_abs_err=float(diff.max()),
+        if not torch.equal(a, a2):
+            raise AssertionError(f"#17 {name}: two calls differ")
+        row = dict(case=name, route=FA.route(dt),
+                   max_abs_err=float(diff.max()),
                    shape=[c["B"], c["Sq"], c["Skv"], c["H"], c["K"],
                           c["hd"]], dtype=str(dt).split(".")[-1],
                    causal=c["causal"], window=c["window"],
@@ -635,7 +710,7 @@ def check_flash(torch, FA, dev):
                 raise AssertionError("#17 gate blind to a window off by one")
             row["fault_caught"] = seen
             del bad
-        del a, b
+        del a, a2, b
         pairs = visible_pairs(c["Sq"], c["Skv"], causal=c["causal"],
                               window=c["window"], q_offset=kw["q_offset"])
         flops = 4.0 * c["hd"] * pairs * c["B"] * c["H"]
@@ -646,28 +721,45 @@ def check_flash(torch, FA, dev):
             q, k, v, backend="cuda", **kw), 5 if big else 20, 1)
         row["plain_ms"] = cuda_ms(torch, lambda i: FA.flash_attention(
             q, k, v, backend="torch", **kw), 2 if big else 5, 1)
-        # the library yardstick: the same shapes without the softcap (no
-        # PyTorch call applies one), causal / banded by a boolean mask
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        vis = FA._visible(c["Sq"], c["Skv"], causal=c["causal"],
-                          window=c["window"], q_offset=kw["q_offset"],
-                          device=dev)
         sdpa = F.scaled_dot_product_attention
-        row["library_ms"] = cuda_ms(torch, lambda i: sdpa(
-            qt, kt, vt, attn_mask=vis, enable_gqa=True), 5 if big else 20, 1)
+        same = (c["softcap"] is None and not c["window"] and
+                not kw["q_offset"] and c["causal"] and c["Sq"] == c["Skv"])
+        if same:
+            row["library"] = "same function (is_causal)"
+            row["library_ms"] = cuda_ms(torch, lambda i: sdpa(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+                5 if big else 20, 1)
+        else:
+            row["library"] = "boolean mask, no softcap"
+            vis = FA._visible(c["Sq"], c["Skv"], causal=c["causal"],
+                              window=c["window"], q_offset=kw["q_offset"],
+                              device=dev)
+            row["library_ms"] = cuda_ms(torch, lambda i: sdpa(
+                qt, kt, vt, attn_mask=vis, enable_gqa=True),
+                5 if big else 20, 1)
+            del vis
         row["gflops_per_s"] = flops / row["ms"] / 1e6
         table.append(row)
         rows[name] = row
-        del q, k, v, qt, kt, vt, vis
-    rep = rows["gemma2_global"]
-    krow = dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention.py:76",
-                max_abs_err=max(r["max_abs_err"] for r in table),
-                ms=rep["ms"], plain_ms=rep["plain_ms"],
-                bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
-                library_ms=rep["library_ms"], shape=rep["shape"])
-    return krow, table
+        del q, k, v, qt, kt, vt
+
+    def krow(name, case, **extra):
+        r = rows[case]
+        return dict(name=name, route="cuda",
+                    source="src/repro_torch/csrc/flash_attention.cu",
+                    replaces="src/repro/kernels/flash_attention.py:76",
+                    max_abs_err=max(t["max_abs_err"] for t in table
+                                    if t["route"] == r["route"]),
+                    ms=r["ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    library_ms=r["library_ms"], shape=r["shape"], **extra)
+    glob, local = rows["gemma2_global"], rows["gemma2_local"]
+    return [krow("flash_attention_tc", "gemma2_global_nocap",
+                 softcap_ms=glob["ms"],
+                 masked_library_ms=glob["library_ms"],
+                 local_ms=local["ms"]),
+            krow("flash_attention", "gemma2_global_f32")], table
 
 
 # ---------------------------------------------------------------------------
@@ -2479,8 +2571,8 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
     torch.cuda.reset_peak_memory_stats()
 
     # the main path, with every kernel count at 0 just before it
-    MM.launches = MM.t_launches = paged.launches = 0
-    K.amax_launches = K.quantize_launches = 0
+    MM.launches = MM.launches_tc = MM.launches_fma = MM.t_launches = 0
+    paged.launches = K.amax_launches = K.quantize_launches = 0
     MM.plain_on_cuda = paged.plain_on_cuda = K.plain_on_cuda = 0
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
@@ -2501,9 +2593,14 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
     results = sess.drain()
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t1
-    launches = {"dequant_matmul": MM.launches, "gather_pages": paged.launches,
+    # bf16 activations against int8 codes: K1 on tensor cores only
+    launches = {"dequant_matmul_tc": MM.launches_tc,
+                "gather_pages": paged.launches,
                 "amax_rows": K.amax_launches,
                 "uniform_quantize_rows": K.quantize_launches}
+    if MM.launches_fma:
+        raise AssertionError(f"{arch}: K1's CUDA-core route launched "
+                             f"{MM.launches_fma} times on bf16 int8 codes")
     if cfg.tie_embeddings:      # the tied head runs K1t
         launches["dequant_matmul_t"] = MM.t_launches
     elif MM.t_launches:
@@ -2652,37 +2749,124 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
                 stats=dict(sess.stats))
 
 
+# phase 4d: code-resident serving at 4-bit packed lanes (k_x = 2), the
+# path of K1's CUDA-core route; yi-6b's widths cut to PACKED_LAYERS layers
+PACKED_LAYERS = 4
+
+
+def serve_packed(torch, dev, mods, arch="yi-6b"):
+    """Serve full-width ``arch`` cut to PACKED_LAYERS layers with weights
+    resident as 4-bit lanes (``quantize_params(k_x=2, pack=True)``): 4
+    requests of 64-token prompts, 16 new tokens each, through the paged
+    session. K1 runs on CUDA cores there (packed lanes); the counts are at
+    0 just before and read just after."""
+    MM, paged, K = mods["MM"], mods["paged"], mods["K"]
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve.quantized import params_nbytes, quantize_params
+    from repro_torch.serve.session import Request, ServeSession
+    import numpy as np
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=PACKED_LAYERS)
+    model = Model(cfg)
+    slots, plen, max_new = 4, 64, 16
+    rng = np.random.default_rng(1)
+    reqs = [Request(prompt=[int(t) for t in rng.integers(
+        1, cfg.vocab_size, size=plen)], max_new_tokens=max_new)
+        for _ in range(slots)]
+    torch.cuda.synchronize()
+    MM.launches = MM.launches_tc = MM.launches_fma = MM.t_launches = 0
+    paged.launches = K.amax_launches = K.quantize_launches = 0
+    MM.plain_on_cuda = paged.plain_on_cuda = K.plain_on_cuda = 0
+    params = model.init(seed=0, device=dev)
+    qparams = quantize_params(params, k_x=2, pack=True)
+    del params
+    sess = ServeSession(model, qparams, slots=slots, max_seq=128,
+                        paged=True, page_size=16, prefill_chunk=32, seed=0,
+                        device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [sess.submit(r) for r in reqs]
+    results = sess.drain()
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    launches = {"dequant_matmul": MM.launches_fma,
+                "gather_pages": paged.launches,
+                "amax_rows": K.amax_launches,
+                "uniform_quantize_rows": K.quantize_launches}
+    plain = MM.plain_on_cuda + paged.plain_on_cuda + K.plain_on_cuda
+    if any(n == 0 for n in launches.values()):
+        raise AssertionError(f"packed serving: a kernel of the path never "
+                             f"launched: {launches}")
+    if plain or MM.launches_tc:
+        raise AssertionError(f"packed serving: {plain} plain calls on the "
+                             f"card, {MM.launches_tc} tensor-core K1 calls "
+                             f"on packed lanes")
+    for h in handles:
+        if len(results[h].tokens) != max_new:
+            raise AssertionError(f"packed serving: request {h} gave "
+                                 f"{len(results[h].tokens)} tokens")
+    n_tok = sum(len(results[h].tokens) for h in handles)
+    print(f"packed serving ({arch} x {PACKED_LAYERS} layers, 4-bit lanes): "
+          f"{n_tok} tokens in {t_serve:.3f} s; resident "
+          f"{params_nbytes(qparams)} B; launches {launches}", flush=True)
+    return dict(launches=launches, tokens=n_tok, serve_s=t_serve,
+                resident_bytes=params_nbytes(qparams), layers=PACKED_LAYERS)
+
+
 def flash_path(torch, dev, FA):
     """#17 through its entry point as a caller runs it (no model calls it,
     in either package): the attention of one gemma2-2b prefill of 8192
-    tokens, all 26 layers with their windows (local 4096, global), bf16,
-    the counts at 0 just before. Returns the launch counts and the time."""
+    tokens, all 26 layers with their windows (local 4096, global), in bf16
+    (the tensor-core route), then in float32 (the CUDA-core route), the
+    counts at 0 just before each. Returns the launch counts and times."""
     from repro_torch.configs import get_config
     cfg = get_config("gemma2-2b")
     g = torch.Generator(device=dev).manual_seed(23)
     S, H, K, hd = 8192, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = torch.randn((1, S, H, hd), generator=g, device=dev).to(torch.bfloat16)
-    k, v = (torch.randn((1, S, K, hd), generator=g, device=dev)
-            .to(torch.bfloat16) for _ in range(2))
-    torch.cuda.synchronize()
-    FA.launches = FA.plain_on_cuda = 0
-    t0 = time.perf_counter()
-    outs = [FA.flash_attention(q, k, v, causal=True, window=w,
-                               softcap=cfg.attn_softcap)
-            for w in cfg.layer_windows()]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"flash_attention": FA.launches}
-    if FA.launches != cfg.n_layers or FA.plain_on_cuda:
-        raise AssertionError(f"flash path: {launches}, "
-                             f"{FA.plain_on_cuda} plain calls on the card")
-    if not all(bool(torch.isfinite(o).all()) for o in outs):
-        raise AssertionError("flash path: non-finite attention outputs")
-    print(f"flash path: gemma2-2b prefill attention, {cfg.n_layers} layers "
-          f"at S {S}: {wall * 1e3:.1f} ms wall; launches {launches}",
-          flush=True)
-    return dict(launches=launches, wall_ms=wall * 1e3, layers=cfg.n_layers,
-                seq=S)
+    out = dict(layers=cfg.n_layers, seq=S)
+    for dt, key, count in ((torch.bfloat16, "flash_attention_tc", "tc"),
+                           (torch.float32, "flash_attention", "fma")):
+        q = torch.randn((1, S, H, hd), generator=g, device=dev).to(dt)
+        k, v = (torch.randn((1, S, K, hd), generator=g, device=dev).to(dt)
+                for _ in range(2))
+        torch.cuda.synchronize()
+        FA.launches = FA.launches_tc = FA.launches_fma = 0
+        FA.plain_on_cuda = 0
+        t0 = time.perf_counter()
+        outs = [FA.flash_attention(q, k, v, causal=True, window=w,
+                                   softcap=cfg.attn_softcap)
+                for w in cfg.layer_windows()]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = FA.launches_tc if count == "tc" else FA.launches_fma
+        if n != cfg.n_layers or FA.launches != n or FA.plain_on_cuda:
+            raise AssertionError(f"flash path ({dt}): {n} launches of the "
+                                 f"{count} route, {FA.launches} in all, "
+                                 f"{FA.plain_on_cuda} plain calls on the "
+                                 f"card")
+        if not all(bool(torch.isfinite(o).all()) for o in outs):
+            raise AssertionError("flash path: non-finite attention outputs")
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        # a second pass, outside the counted path: its outputs reuse the
+        # first pass's memory, so the wall is the attention's, not the
+        # allocator's
+        del outs
+        t0 = time.perf_counter()
+        outs = [FA.flash_attention(q, k, v, causal=True, window=w,
+                                   softcap=cfg.attn_softcap)
+                for w in cfg.layer_windows()]
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        out[f"launches_{tag}"] = {key: n}
+        out[f"wall_ms_{tag}"] = wall * 1e3
+        out[f"warm_wall_ms_{tag}"] = warm * 1e3
+        print(f"flash path: gemma2-2b prefill attention, {cfg.n_layers} "
+              f"layers at S {S} in {tag}: {wall * 1e3:.1f} ms wall "
+              f"(second pass {warm * 1e3:.1f} ms); launches "
+              f"{{{key!r}: {n}}}", flush=True)
+        del q, k, v, outs
+    return out
 
 
 def main() -> int:
@@ -2721,14 +2905,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows.append(check_gather(torch, paged, dev, slots=4, npag=8,
                              num_pages=32))
-    mm_row, mm_table, mm_timed, mm_noise = check_matmul(torch, MM, B, dev)
-    rows.insert(0, mm_row)
+    mm_rows, mm_table, mm_timed, mm_noise = check_matmul(torch, MM, B, dev)
     torch.cuda.empty_cache()
     mt_row, mt_table, mt_timed = check_matmul_t(torch, MM, B, dev)
-    rows.insert(1, mt_row)
+    rows[:0] = mm_rows + [mt_row]
     torch.cuda.empty_cache()
-    fa_row, fa_table = check_flash(torch, FA, dev)
-    rows.append(fa_row)
+    fa_rows, fa_table = check_flash(torch, FA, dev)
+    rows += fa_rows
     torch.cuda.empty_cache()
     print(f"kernel checks passed ({len(mm_table)} K1 cases, "
           f"{len(mt_table)} K1t cases, {len(fa_table)} #17 cases)",
@@ -2749,11 +2932,11 @@ def main() -> int:
     for t in fa_table:
         fault = (f"; window off by one caught at {t['fault_caught']:.1%}"
                  if "fault_caught" in t else "")
-        print(f"  #17 {t['case']} {t['shape']} {t['dtype']} window "
-              f"{t['window']} softcap {t['softcap']}: max abs err "
+        print(f"  #17 {t['case']} {t['shape']} {t['dtype']} ({t['route']}) "
+              f"window {t['window']} softcap {t['softcap']}: max abs err "
               f"{t['max_abs_err']:.3e}; {t['ms']:.4f} ms "
               f"({t['gflops_per_s']:.0f} GFLOP/s) plain {t['plain_ms']:.4f} "
-              f"library (no softcap) {t['library_ms']:.4f} bound "
+              f"library ({t['library']}) {t['library_ms']:.4f} bound "
               f"{t['bound_ms']:.4f} ({t['bound_by']}){fault}", flush=True)
     for n in mm_noise:
         fault = (f"; one dropped K row: max abs {n['fault_max_abs']:.4e}, "
@@ -2825,6 +3008,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     fp = flash_path(torch, dev, FA)
     torch.cuda.empty_cache()
+    pk = serve_packed(torch, dev, {"MM": MM, "paged": paged, "K": K})
+    torch.cuda.empty_cache()
     tr = train(torch, dev, mods)
     bl = alg1_baselines(torch, dev, mods)
     from repro_torch.configs import get_config
@@ -2858,7 +3043,9 @@ def main() -> int:
     for r in rows:
         by_path = {"serve": res["launches"].get(r["name"], 0),
                    "serve_gemma2": gem["launches"].get(r["name"], 0),
-                   "flash": fp["launches"].get(r["name"], 0),
+                   "flash": fp["launches_bf16"].get(r["name"], 0),
+                   "flash_f32": fp["launches_f32"].get(r["name"], 0),
+                   "serve_packed": pk["launches"].get(r["name"], 0),
                    "train": tr["launches"].get(r["name"], 0),
                    "dist": ds["launches"].get(r["name"], 0)}
         by_path.update({f"alg1_{m}": bl[m]["launches"].get(r["name"], 0)
@@ -2871,6 +3058,9 @@ def main() -> int:
                         for m in pp})
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
+    idle = [r["name"] for r in rows if r["launches"] == 0]
+    if idle:
+        raise AssertionError(f"kernels no main path launched: {idle}")
     for sv in (res, gem):
         print(f"{sv['arch']}: served {sv['tokens']} tokens in "
               f"{sv['serve_s']:.3f} s ({sv['tok_per_s']:.2f} tok/s); decode "
@@ -2889,10 +3079,20 @@ def main() -> int:
         for name, t in sv["decode_step_kernels"]:
             print(f"  {t:9.4f} ms  {name[:90]}")
     for t in mm_timed:
-        print(f"  K1 M={t['M']} K={t['K']} N={t['N']}: {t['ms']:.4f} ms "
-              f"({t['gbs']:.0f} GB/s) plain {t['plain_ms']:.4f} library "
-              f"{t['library_ms']:.4f} bound {t['bound_ms']:.4f} eager call "
-              f"{t['eager_ms']:.4f}")
+        print(f"  K1 ({t['route']}) M={t['M']} K={t['K']} N={t['N']} "
+              f"{t['codes']}: {t['ms']:.4f} ms ({t['gbs']:.0f} GB/s) plain "
+              f"{t['plain_ms']:.4f} library {t['library_ms']:.4f} (kernel/"
+              f"library {t['factor']:.2f}) bound {t['bound_ms']:.4f} eager "
+              f"call {t['eager_ms']:.4f}")
+    tc = mm_rows[0]
+    print(f"  K1 (tc) worst kernel/library factor {tc['worst_factor']:.2f} at "
+          f"M, K, N = {tc['worst_shape']}; M = 32 (4096, 11008) "
+          f"{tc['m32_ms']:.4f} ms, library {tc['m32_library_ms']:.4f}")
+    ft = fa_rows[0]
+    print(f"  #17 (tc) gemma2 global: {ft['softcap_ms']:.4f} ms with the "
+          f"softcap (masked SDPA without it {ft['masked_library_ms']:.4f}), "
+          f"{ft['ms']:.4f} ms without (SDPA is_causal "
+          f"{ft['library_ms']:.4f}); local {ft['local_ms']:.4f} ms")
 
     print(f"trained yi-6b x {TRAIN_LAYERS} layers ({tr['n_params']} "
           f"parameters): losses {', '.join(f'{x:.4f}' for x in tr['losses'])}"
@@ -2971,6 +3171,7 @@ def main() -> int:
                        k1_noise=mm_noise, k1_timed=mm_timed, serve=res,
                        k1t_cases=mt_table, k1t_timed=mt_timed,
                        flash_cases=fa_table, serve_gemma2=gem, flash_path=fp,
+                       serve_packed=pk,
                        train_kernels=t_table, train=tr,
                        wire_kernels=w_table, dist=ds,
                        encode_kernels=e_table, modes=md, wire_buffers=wb,

@@ -12,7 +12,9 @@ Flags keep IEEE division, square root and rounding (no
 blockwise, lane pack and gather kernels are held bitwise against their plain
 versions; the two products (K1 and K1t dequant-matmul) and flash
 attention (#17) sum in fp32 in orders of their own. The grids and lanes
-they share live in ``csrc/grids.cuh``, which the hash covers.
+they share live in ``csrc/grids.cuh``, the tensor-core and copy
+primitives of K1's and #17's tensor-core routes in ``csrc/mma.cuh``;
+the hash covers both.
 """
 from __future__ import annotations
 
@@ -47,10 +49,17 @@ SIGNATURES = {
     # cast_bf16, out_bf16, stream
     "rt_dequant_matmul_t": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, _P],
+    # x, codes, scale, out, ws, M, K, N, code_bits, k_x, tile_n, k_slice,
+    # slices, out_bf16, stream
+    "rt_dequant_matmul_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _P],
     # q, k, v, out, B, Sq, Skv, H, K, hd, causal, window, q_offset,
-    # softcap, sm_scale, bf16, stream
+    # softcap, sm_scale, stream (float32 on CUDA cores; _tc: bf16 on
+    # tensor cores)
     "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _F, _F, _I, _P],
+                           _I, _F, _F, _P],
+    "rt_flash_attention_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _F, _F, _P],
     # pool, ptab, out, B, npag, page_bytes, stream
     "rt_gather_pages": [_P, _P, _P, _I, _I, _L, _P],
     # x, out_bits, rows, n, stream

@@ -3,21 +3,34 @@ path; port of ``repro/comm/matmul.py``).
 
 Replaces ``_matmul_pallas``: ``_mm_body``/``_mm_lut_body`` (K1,
 ``x @ W``) and the transposed branch ``_mm_t_body`` (K1t, ``x @ W.T``
-from code rows, the tied logit head). Both kernels live in
-``csrc/dequant_matmul.cu`` (design notes there): they read the codes
-once per M-tile, dequantize in registers with the reference's exact
-cast chain, and accumulate in fp32; they are bound by the bytes of
-codes they stream at decode and chunk sizes. They cover every M, K, N
-(and every number of code rows) by masking the ragged edges, so the
-TPU tiling knobs (``mm_cols``, ``_MAX_FUSED_ROWS``, ``_pallas_covers``)
-have no counterpart here.
+from code rows, the tied logit head). The kernels live in
+``csrc/dequant_matmul.cu`` (design notes there). All are bound by the
+bytes of codes they stream at decode and chunk sizes, dequantize in
+registers with the reference's exact cast chain and accumulate in fp32.
+K1 has two routes, picked by type (:func:`route`), each with its own
+launch counter:
+
+- ``"tc"``, tensor cores (``launches_tc``): bf16 activations against
+  int8/int16 codes whose weight is a bf16 number. One pass over the
+  codes for M <= 64, split across blocks along K where the columns alone
+  cannot fill the card (:func:`k1_plan`), the slices' partial sums folded
+  by a second kernel in a fixed order. Faster than ``torch.matmul`` on
+  the dequantized bf16 weight at M = 4 and 32 (``PERF.md``).
+- ``"fma"``, CUDA cores (``launches_fma``): float32 activations, float32
+  weights and the packed 2/3/4/6-bit lanes (the first K1 kernel).
+
+``launches`` counts both. A failure of either route raises; neither
+falls back to the other or to the plain version. They cover every M, K,
+N by masking the ragged edges, so the TPU tiling knobs (``mm_cols``,
+``_MAX_FUSED_ROWS``, ``_pallas_covers``) have no counterpart here.
 
 The plain version ``_matmul_torch`` is dequantize-then-matmul with the
 product taken in float32 and rounded once to the output dtype.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -26,9 +39,22 @@ from repro_torch.comm import bits as B
 from repro_torch.comm.codec import resolve_backend
 from repro_torch.opt import grids
 
-launches = 0        # K1 kernel launches
+launches = 0        # K1 launches, either route
+launches_tc = 0     # K1 on tensor cores (route "tc")
+launches_fma = 0    # K1 on CUDA cores (route "fma")
 t_launches = 0      # K1t (transposed) kernel launches
 plain_on_cuda = 0   # plain versions run on CUDA tensors
+
+# the tensor-core route's tiles (csrc/dequant_matmul.cu, namespace tc)
+TC_TILE_N = (128, 256)   # output columns a block: 4 or 8 warps
+TC_TILE_K = 64      # K rows a pipeline stage
+TC_TILE_M = 64      # activation rows a block (in 16-row MMA tiles)
+TC_SLICE_ROWS = 32  # K slices are multiples of this many rows
+TC_MAX_SLICES = 128
+SMS = 132           # streaming multiprocessors of an H100 SXM
+# a block's fixed cost (pipeline fill, epilogue) in stages, for the
+# split-K choice
+TC_BLOCK_OVERHEAD = 4
 
 _FLOATS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -61,11 +87,108 @@ def _matmul_torch(x2, codes, scale, *, k_x, n, pack_bits, w_dtype,
     return out.to(_out_dtype(x2.dtype, w_dtype, cast_dtype))
 
 
+def route(x_dtype, codes_dtype, pack_bits, w_dtype, cast_dtype) -> str:
+    """Which kernel computes K1 (``x @ W``) on CUDA tensors: ``"tc"``
+    (tensor cores) for bfloat16 activations against int8/int16 codes
+    whose weight is a bf16 number (the leaf or the pending cast is
+    bfloat16, so every product is exact in fp32); ``"fma"`` (CUDA cores,
+    fmaf) for float32 activations, packed 2/3/4/6-bit lanes and float32
+    weights."""
+    bf16_w = _dtype(w_dtype) == torch.bfloat16 or (
+        cast_dtype is not None and _dtype(cast_dtype) == torch.bfloat16)
+    if (x_dtype == torch.bfloat16 and not pack_bits and bf16_w
+            and codes_dtype in (torch.int8, torch.int16)):
+        return "tc"
+    return "fma"
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Plan:
+    """The tensor-core route's launch for x (M, K) @ codes (K, N)."""
+    m_tile: int                  # activation rows a block: 16, 32 or 64
+    tile_n: int                  # output columns a block: 128 or 256
+    grid: Tuple[int, int, int]   # (column tiles, row tiles, K slices)
+    k: int                       # K
+    k_slice: int                 # K rows a slice (the last may be fewer)
+    workspace: int               # fp32 partial sums (slices, M, N); 0 unsplit
+
+    @property
+    def slices(self) -> List[Tuple[int, int]]:
+        """The K rows [k0, k1) each slice sums, in the fold's order."""
+        return [(z * self.k_slice, min(self.k, (z + 1) * self.k_slice))
+                for z in range(self.grid[2])]
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def k1_plan(M: int, K: int, N: int, code_bits: int) -> K1Plan:
+    """The tensor-core route's grid, a pure function of the shapes and the
+    code width (8 or 16 bits). Every code byte is read once for M <= 64
+    (one row tile). K is cut into slices of whole ``TC_SLICE_ROWS``
+    units; their fp32 partial sums go to a workspace that a second pass
+    folds in slice order. The count minimizes the waves of blocks over
+    the SMs times a block's stages plus its fixed cost, plus the
+    workspace's traffic, among the counts that give at least one block an
+    SM where K allows."""
+    if code_bits not in (8, 16) or min(M, K, N) <= 0:
+        raise ValueError(f"no tensor-core plan for M={M} K={K} N={N} "
+                         f"{code_bits}-bit codes")
+    m_tile = 16 if M <= 16 else 32 if M <= 32 else TC_TILE_M
+    # 256 columns (wider rows of codes a copy) where that still gives a
+    # quarter of the SMs a column tile each
+    tile_n = TC_TILE_N[1] if -(-N // TC_TILE_N[1]) >= SMS // 4 \
+        else TC_TILE_N[0]
+    tiles = -(-N // tile_n) * -(-M // m_tile)
+    units = -(-K // TC_SLICE_ROWS)
+    stage_codes = TC_TILE_K * tile_n * code_bits // 8   # bytes a stage
+    best = None
+    for s in range(1, min(units, TC_MAX_SLICES) + 1):
+        per = -(-units // s)                 # units a slice
+        s_eff = -(-units // per)
+        stages = -(-per * TC_SLICE_ROWS // TC_TILE_K)
+        cost = -(-tiles * s_eff // SMS) * (stages + TC_BLOCK_OVERHEAD)
+        if s_eff > 1:   # the workspace written and folded, in stages
+            cost += 8 * s_eff * M * N / (SMS * stage_codes)
+        key = (tiles * s_eff < SMS, cost, s_eff)
+        if best is None or key < best[0]:
+            best = (key, per, s_eff)
+    _, per, slices = best
+    k_slice = per * TC_SLICE_ROWS
+    return K1Plan(m_tile=m_tile, tile_n=tile_n,
+                  grid=(-(-N // tile_n), -(-M // m_tile), slices), k=K,
+                  k_slice=k_slice,
+                  workspace=slices * M * N if slices > 1 else 0)
+
+
+def _matmul_tc(x2, codes, scale, *, k_x, out_dtype):
+    """K1 on tensor cores (route "tc")."""
+    global launches, launches_tc
+    M, K = x2.shape
+    N = codes.shape[1]
+    code_bits = 8 * codes.element_size()
+    plan = k1_plan(M, K, N, code_bits)
+    out = torch.empty((M, N), dtype=out_dtype, device=x2.device)
+    ws = (torch.empty(plan.workspace, dtype=torch.float32, device=x2.device)
+          if plan.workspace else None)
+    err = build.library().rt_dequant_matmul_tc(
+        build.ptr(x2), build.ptr(codes), build.ptr(scale), build.ptr(out),
+        build.ptr(ws) if ws is not None else None, M, K, N, code_bits, k_x,
+        plan.tile_n, plan.k_slice, plan.grid[2],
+        int(out_dtype == torch.bfloat16),
+        build.stream_ptr(x2.device))
+    build.check(err, "dequant_matmul_tc")
+    launches += 1
+    launches_tc += 1
+    return out
+
+
 def _matmul_cuda(x2, codes, scale, *, k_x, n, pack_bits, w_dtype,
                  cast_dtype, transpose=False):
     """K1 (``x @ W``, codes (K, n)) or, with ``transpose``, K1t
     (``x @ W.T``, codes (rows, n) contracted along n)."""
-    global launches, t_launches
+    global launches, launches_fma, t_launches
     M, K = x2.shape
     rows = codes.shape[0]
     if transpose and K != n:
@@ -94,10 +217,13 @@ def _matmul_cuda(x2, codes, scale, *, k_x, n, pack_bits, w_dtype,
     out_dtype = _out_dtype(x2.dtype, w_dtype, cast_dtype)
     if x2.dtype == torch.float32 and out_dtype != torch.float32:
         raise ValueError("float32 activations give float32 outputs")
-    lib = build.library()
     x2 = x2.contiguous()
     codes = codes.contiguous()
     scale = scale.to(torch.float32).reshape(()).contiguous()
+    if not transpose and route(x2.dtype, codes.dtype, pack_bits, w_dtype,
+                               cast_dtype) == "tc":
+        return _matmul_tc(x2, codes, scale, k_x=k_x, out_dtype=out_dtype)
+    lib = build.library()
     flags = (code_bits, k_x, int(x2.dtype == torch.bfloat16),
              int(_dtype(w_dtype) == torch.bfloat16),
              int(cast_dtype is not None
@@ -117,6 +243,7 @@ def _matmul_cuda(x2, codes, scale, *, k_x, n, pack_bits, w_dtype,
         M, K, n, *flags)
     build.check(err, "dequant_matmul")
     launches += 1
+    launches_fma += 1
     return out
 
 

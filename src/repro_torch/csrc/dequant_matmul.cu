@@ -5,41 +5,71 @@
 // Replaces repro/comm/matmul.py _matmul_pallas (_mm_body, _mm_lut_body).
 // On the TPU each grid step held the whole (M, K) activation in VMEM and
 // one column tile of codes, and the LUT body read sub-8-bit values from an
-// SMEM table. Here the dequantization happens in registers: c / 2^k is
-// exact (computed as c * 2^-k, which is the same float), so a table buys
-// nothing. Each code is dequantized exactly as the reference's cast chain
-// does it: (c / 2^k) * s, then rounded to the leaf dtype, then to the
-// activation dtype, so the weight the product sees is bitwise the plain
-// version's. Products accumulate in fp32 (fmaf) on CUDA cores; tensor
-// cores (wgmma) come later.
+// SMEM table. Here the dequantization happens in registers, exactly as the
+// reference's cast chain does it: (c / 2^k) * s, then rounded to the leaf
+// dtype, then to the activation dtype, so the weight each product sees is
+// bitwise the plain version's.
 //
 // Bound: at decode (M = slots, a few rows) and chunked prefill (M = 32)
 // the work is ~2 M flops per code byte, far below the card's ~295
-// flop/byte balance point, so the kernel is bound by the bytes of codes
-// it streams. Design: a block owns 32 output columns of an M-tile and
-// walks all of K; its 512 threads split K into P interleaved partitions
-// (lanes of a warp span the 32 columns, several K rows per warp load), so
-// even N = 4096 gives 128 blocks of 16 warps. K is walked in chunks of
-// kChunk rows: the block stages the chunk's activations in shared memory
-// (as float), then every thread issues all its code loads for the chunk
-// before it uses any, so each warp keeps several loads in flight. Every
-// code byte is read once per M-tile. Partial sums are folded in shared
-// memory in a fixed order, so the result is deterministic; K is never
-// split across blocks (atomics would change the sum order from run to
-// run). Ragged M, N and K edges are masked, so every shape is covered.
+// flop/byte balance point, so K1 is bound by the bytes of codes it
+// streams: (4096, 11008) int8 is 45 MB, 0.0135 ms at the H100 SXM's
+// 3.35 TB/s (data sheet, 700 W).
+//
+// Tensor-core route, rt_dequant_matmul_tc (namespace tc): bf16 activations
+// against int8 / int16 codes whose weight is a bf16 number (the leaf or
+// the pending cast is bf16), so mma.sync.m16n8k16 (bf16 operands, fp32
+// accumulators) forms exactly the plain version's products; only the
+// order of the sum differs. One pass over the codes for M <= 64: x is
+// staged in 16-row MMA tiles with zero rows past M, so each code byte is
+// read once per call (M > 64 takes a row tile per 64 rows). A block of 4
+// or 8 warps owns 128 or 256 output columns and a slice of K; codes and x
+// stream through a 4-stage ring of 16-byte cp.async copies (64 K rows a
+// stage). The resident layout stays the reference's (K, N) rows: a thread
+// reads one 4-byte (int8) or 8-byte (int16) word of 4 codes per staged row
+// from a bank-conflict-free padded row, and the warp's four n8 MMA tiles
+// are interleaved over its 32 columns (MMA column g of tile j is column
+// 4g + j), so those 4 codes are one B-fragment element of each tile and
+// the C fragment holds 8 contiguous output columns. Each code becomes its
+// weight without a conversion instruction (see Deq). The tensor cores sum
+// a stage's 64 products of an output from zero and the result is added to
+// the running fp32 sum with one IEEE rounding: the MMA's truncating
+// accumulation never sees the large partial sum, so the error stays at
+// fp32 summation-order size (the tier's floor). Where the column tiles
+// alone cannot fill the 132 SMs (wk, wv, wq, wo, gemma2's projections), K
+// is cut into slices (comm/matmul.py k1_plan) whose fp32 partial sums go
+// to a workspace; a second kernel folds them in a fixed order and rounds
+// once. No atomics: the result is deterministic.
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W; PERF.md section
+// 6): (4096, 11008) int8 at M = 4 in 0.0247 ms (55 % of the byte bound)
+// and at M = 32 in 0.0318 ms, against 0.0341 and 0.0343 for torch.matmul
+// on the dequantized bf16 weight, which reads twice the bytes; gemma2's
+// small projections at M = 32 are latency-bound, up to 1.56x it.
+//
+// CUDA-core route, rt_dequant_matmul (the first K1 kernel): float32
+// activations, float32 weights and the packed 2/3/4/6-bit lanes. A block
+// owns 32 output columns of an M-tile and walks all of K; its 512 threads
+// split K into P interleaved partitions (lanes of a warp span the 32
+// columns, several K rows per warp load). K is walked in chunks of kChunk
+// rows: the block stages the chunk's activations in shared memory (as
+// float), then every thread issues all its code loads for the chunk
+// before it uses any. Every code byte is read once per M-tile of 4 or 8
+// rows. Partial sums fold in shared memory in a fixed order; products
+// accumulate in fp32 (fmaf). Ragged M, N and K edges are masked.
 //
 // K1t, the transposed product (rt_dequant_matmul_t): out = x @ W.T where
 // W is (V, d) as code rows, the tied logit head of gemma2 (256000 rows of
 // 2304 codes). Replaces the transposed branch of _matmul_pallas
 // (_mm_t_body, repro/comm/matmul.py:150), which tiled code rows and
 // needed V to be a multiple of its tile (_pallas_covers). Here one output
-// column IS one contiguous code row, so K1's layout (a block owns 32
-// output columns and walks K code rows) would read each row with a stride
-// of d bytes. Instead each warp owns kTRows consecutive code rows, and its
-// lanes stream them coalesced along d: int8 and int16 rows one 16-byte
-// vector a lane per load (16 or 8 codes), packed or misaligned rows one
-// packing group a lane per load; the loads of all kTRows rows are in
-// flight before any is used. x (one activation row, or a tile of 4) is
+// column IS one contiguous code row, so K1's CUDA-core layout (a block
+// owns 32 output columns and walks K code rows) would read each row with
+// a stride of d bytes. Instead each warp owns kTRows consecutive code
+// rows, and its lanes stream them coalesced along d: int8 and int16 rows
+// one 16-byte vector a lane per load (16 or 8 codes), packed or
+// misaligned rows one packing group a lane per load; the loads of all
+// kTRows rows are in flight before any is used. x (one activation row,
+// or a tile of 4) is
 // held in registers at the lane's columns of a chunk of d and reused
 // across the warp's kTRows rows: shared memory would serve a lane's
 // columns from one bank group, registers serve them free. x is read from
@@ -57,7 +87,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "mma.cuh"
+
 namespace {
+
+using rt::cp_async16;
+using rt::cp_async_commit;
+using rt::cp_async_wait;
+using rt::ldsm_x4;
+using rt::mma_bf16;
+using rt::pack_bf16;
 
 constexpr int kThreads = 512;
 constexpr int kCols = 32;    // output columns per block
@@ -434,6 +475,320 @@ int launch_t_types(const Args& a, int vec16, int x_bf16, int out_bf16,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// K1 on tensor cores: bf16 activations, int8 / int16 codes, bf16 weights
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kBK = 64;        // K rows per pipeline stage
+constexpr int kStages = 4;
+constexpr int kXRow = kBK + 8;  // bf16 per staged x row (16 bytes of pad)
+constexpr int kCPad = 16;       // bytes of pad per staged code row
+
+struct TArgs {
+  const __nv_bfloat16* x;
+  const uint8_t* codes;
+  const float* scale;
+  void* out;
+  float* ws;      // (slices, M, N) fp32 partial sums when K is split
+  int M, K, N;
+  int k_slice;    // K rows per slice, a multiple of 32
+  int k_x;
+  float inv_pow2;
+  int vec_x;      // x rows 16-byte aligned: cp.async, else element loads
+  int vec_c;      // code rows 16-byte aligned
+  int vec_o;      // output rows 16-byte aligned
+};
+
+// a block: NW warps of 32 output columns each (NW = 4 or 8). Shared
+// memory of one stage: codes [kBK][32 NW CB + kCPad] bytes, then x
+// [16 MT][kXRow] bf16 (rows past M stay zero)
+template <int CB, int MT, int NW>
+struct TLayout {
+  static constexpr int THREADS = 32 * NW;
+  static constexpr int BN = 32 * NW;
+  static constexpr int CROW = BN * CB + kCPad;
+  static constexpr int CBYTES = kBK * CROW;
+  static constexpr int XBYTES = 16 * MT * kXRow * 2;
+  static constexpr int STAGE = CBYTES + XBYTES;
+  static constexpr int SMEM = kStages * STAGE;
+};
+
+// The weight of a code, the reference's cast chain (c / 2^k) * s up to
+// the final bf16 rounding (done when packing), for every scale s. A code
+// biased to unsigned u (u = c + 128 for int8, c + 32768 for int16) is
+// spliced by one byte_perm into the low mantissa of a float whose
+// exponent field is 150 - k: that float is (2^23 + u) 2^-k exactly, so
+// subtracting the exact constant (2^23 + bias) 2^-k leaves c 2^-k exactly,
+// and one multiply by s rounds it once, as the chain does. No int->float
+// conversion (a quarter-rate instruction) and no branch on the scale.
+struct Deq {
+  uint32_t hi;   // bytes 2, 3 of the float: exponent field 150 - k
+  float base;    // (2^23 + bias) 2^-k
+  float s;
+  __device__ __forceinline__ float operator()(uint32_t bits) const {
+    return (__uint_as_float(bits) - base) * s;
+  }
+};
+
+// the four codes at columns 4g .. 4g+3 of one staged code row, as weights
+template <int CB>
+__device__ __forceinline__ void weights4(const uint8_t* p, const Deq& q,
+                                         float (&w)[4]) {
+  if constexpr (CB == 1) {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
+    // byte 0: code j; byte 1: 0 (q.hi's byte 2); bytes 2, 3: q.hi's 0, 1
+#pragma unroll
+    for (int j = 0; j < 4; ++j) w[j] = q(__byte_perm(v, q.hi, 0x5460u + j));
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const uint32_t v0 = u.x ^ 0x80008000u, v1 = u.y ^ 0x80008000u;
+    w[0] = q(__byte_perm(v0, q.hi, 0x5410u));
+    w[1] = q(__byte_perm(v0, q.hi, 0x5432u));
+    w[2] = q(__byte_perm(v1, q.hi, 0x5410u));
+    w[3] = q(__byte_perm(v1, q.hi, 0x5432u));
+  }
+}
+
+// Block (n tile, m tile, K slice). Warp w owns the block's columns
+// 32w .. 32w+31, laid out over its four n8 MMA tiles so that one 4-byte
+// (int8) or 8-byte (int16) shared load gives a thread one code of each:
+// MMA column g of tile j is block column 32w + 4g + j. The C fragment then
+// holds 8 contiguous output columns 8t .. 8t+7 a row.
+template <int CB, int MT, int NW, typename OT>
+__global__ void __launch_bounds__(32 * NW)
+k1_tc_kernel(const TArgs a) {
+  using L = TLayout<CB, MT, NW>;
+  constexpr int kThreads = L::THREADS, kBN = L::BN;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * 16 * MT;
+  const int mrows = min(16 * MT, a.M - m0);
+  const int kb = blockIdx.z * a.k_slice;
+  const int ke = min(a.K, kb + a.k_slice);
+  const int ntiles = (ke - kb + kBK - 1) / kBK;
+
+  for (int i = tid; i < L::SMEM / 16; i += kThreads)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  // stage tile kt of this slice: codes rows k0 .. k0+kBK-1 (zeros past
+  // the slice and past N), x columns likewise (zeros past the slice; the
+  // slice ends on a multiple of 32 rows or at K)
+  auto load = [&](int kt) {
+    uint8_t* cs = smem + (kt % kStages) * L::STAGE;
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(cs + L::CBYTES);
+    const int k0 = kb + kt * kBK;
+    constexpr int CCH = kBN * CB / 16;  // 16-byte chunks of a code row
+    for (int i = tid; i < kBK * CCH; i += kThreads) {
+      const int r = i / CCH, c = i % CCH;
+      const int k = k0 + r, col = n0 + c * (16 / CB);
+      uint8_t* dst = cs + r * L::CROW + c * 16;
+      if (a.vec_c) {
+        const bool in = k < ke && col < a.N;
+        cp_async16(dst,
+                   in ? a.codes + ((long long)k * a.N + col) * CB : a.codes,
+                   in ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const int cc = col + e / CB;
+          dst[e] = (k < ke && cc < a.N)
+              ? __ldg(a.codes + ((long long)k * a.N + cc) * CB + e % CB)
+              : (uint8_t)0;
+        }
+      }
+    }
+    constexpr int XCH = kBK / 8;  // 16-byte chunks of an x row
+    for (int i = tid; i < mrows * XCH; i += kThreads) {
+      const int r = i / XCH, c = i % XCH;
+      const int k = k0 + c * 8;
+      __nv_bfloat16* dst = xs + r * kXRow + c * 8;
+      const __nv_bfloat16* row = a.x + (long long)(m0 + r) * a.K;
+      if (a.vec_x) {
+        const bool in = k < ke;   // k and ke are multiples of 8 here
+        cp_async16(dst, in ? row + k : a.x, in ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[e] = k + e < ke ? row[k + e] : __float2bfloat16_rn(0.0f);
+      }
+    }
+  };
+
+  Deq q;
+  q.hi = (uint32_t)(150 - a.k_x) << 7;   // (150 - k) << 23, shifted down 16
+  q.base = (8388608.0f + (CB == 1 ? 128.0f : 32768.0f)) * a.inv_pow2;
+  q.s = __ldg(a.scale);
+
+  float acc[MT][4][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+#pragma unroll
+  for (int p = 0; p < kStages - 1; ++p) {
+    if (p < ntiles) load(p);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ntiles; ++kt) {
+    cp_async_wait<kStages - 2>();   // tile kt has landed
+    __syncthreads();                // ... for every thread; kt-1 consumed
+    if (kt + kStages - 1 < ntiles) load(kt + kStages - 1);
+    cp_async_commit();
+    const uint8_t* cs = smem + (kt % kStages) * L::STAGE;
+    const __nv_bfloat16* xs =
+        reinterpret_cast<const __nv_bfloat16*>(cs + L::CBYTES);
+    // the stage's 64 products of each output summed by the tensor cores
+    // alone (from zero), then added to the running sum with one IEEE
+    // rounding: the MMA's truncating accumulation never sees the large
+    // partial sum, so the error stays at fp32 summation-order size
+    float d[MT][4][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[i][j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      // B fragments of the warp's four n8 tiles: rows kk+2t, +1 (b0) and
+      // kk+2t+8, +9 (b1), MMA column g
+      uint32_t bf[4][2];
+#pragma unroll
+      for (int hb = 0; hb < 2; ++hb) {
+        const uint8_t* r0 =
+            cs + (kk + 2 * t + 8 * hb) * L::CROW + (warp * 32 + 4 * g) * CB;
+        float w0[4], w1[4];
+        weights4<CB>(r0, q, w0);
+        weights4<CB>(r0 + L::CROW, q, w1);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bf[j][hb] = pack_bf16(w0[j], w1[j]);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        uint32_t af[4];
+        ldsm_x4(af, xs + (16 * i + (lane & 15)) * kXRow + kk + 8 * (lane >> 4));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(d[i][j], af, bf[j][0], bf[j][1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += d[i][j][e];
+  }
+  cp_async_wait<0>();
+
+  // C fragment -> 8 contiguous columns 8t .. 8t+7 of rows g and g+8
+  const bool split = gridDim.z > 1;
+  const int col0 = n0 + warp * 32 + 8 * t;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = m0 + 16 * i + g + 8 * hr;
+      if (row >= a.M) continue;
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = acc[i][j][2 * hr];
+        v[4 + j] = acc[i][j][2 * hr + 1];
+      }
+      const long long off = (long long)row * a.N + col0;
+      const bool whole = a.vec_o && col0 + 8 <= a.N;
+      if (split) {
+        float* dst = a.ws + (long long)blockIdx.z * a.M * a.N + off;
+        if (whole) {
+          float4* d4 = reinterpret_cast<float4*>(dst);
+          d4[0] = make_float4(v[0], v[1], v[2], v[3]);
+          d4[1] = make_float4(v[4], v[5], v[6], v[7]);
+        } else {
+          for (int e = 0; e < 8; ++e)
+            if (col0 + e < a.N) dst[e] = v[e];
+        }
+      } else {
+        OT* dst = static_cast<OT*>(a.out) + off;
+        if constexpr (sizeof(OT) == 2) {
+          if (whole) {
+            *reinterpret_cast<uint4*>(dst) =
+                make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                           pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+            continue;
+          }
+        }
+        for (int e = 0; e < 8; ++e)
+          if (col0 + e < a.N) store(dst + e, v[e]);
+      }
+    }
+  }
+}
+
+// out = the slices' partial sums folded in a fixed order (slice z into
+// partial z % 4, then (p0 + p1) + (p2 + p3): four independent loads in
+// flight), rounded once
+template <typename OT>
+__global__ void k1_fold_kernel(const float* __restrict__ ws,
+                               OT* __restrict__ out, int slices,
+                               long long mn) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < mn;
+       i += (long long)gridDim.x * blockDim.x) {
+    float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    int z = 0;
+    for (; z + 4 <= slices; z += 4)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) p[u] += ws[(z + u) * mn + i];
+    for (int u = 0; z + u < slices; ++u) p[u] += ws[(z + u) * mn + i];
+    store(out + i, (p[0] + p[1]) + (p[2] + p[3]));
+  }
+}
+
+template <int CB, int MT, int NW, typename OT>
+int launch_tc(const TArgs& a, int slices, cudaStream_t stream) {
+  using L = TLayout<CB, MT, NW>;
+  static bool sized = false;   // once per instance: the shared-memory cap
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k1_tc_kernel<CB, MT, NW, OT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  dim3 grid((a.N + L::BN - 1) / L::BN, (a.M + 16 * MT - 1) / (16 * MT),
+            slices);
+  k1_tc_kernel<CB, MT, NW, OT><<<grid, L::THREADS, L::SMEM, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || slices == 1) return (int)err;
+  const long long mn = (long long)a.M * a.N;
+  const int blocks = (int)std::min<long long>((mn + 255) / 256, 132 * 8);
+  k1_fold_kernel<OT><<<blocks, 256, 0, stream>>>(
+      a.ws, static_cast<OT*>(a.out), slices, mn);
+  return (int)cudaGetLastError();
+}
+
+template <int CB, int NW, typename OT>
+int launch_tc_m(const TArgs& a, int slices, cudaStream_t stream) {
+  if (a.M <= 16) return launch_tc<CB, 1, NW, OT>(a, slices, stream);
+  if (a.M <= 32) return launch_tc<CB, 2, NW, OT>(a, slices, stream);
+  return launch_tc<CB, 4, NW, OT>(a, slices, stream);
+}
+
+template <int CB, typename OT>
+int launch_tc_n(const TArgs& a, int tile_n, int slices, cudaStream_t stream) {
+  return tile_n == 256 ? launch_tc_m<CB, 8, OT>(a, slices, stream)
+                       : launch_tc_m<CB, 4, OT>(a, slices, stream);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" int rt_dequant_matmul(const void* x, const void* codes,
@@ -519,6 +874,53 @@ extern "C" int rt_dequant_matmul_t(const void* x, const void* codes,
     case 6:
       a.row_bytes = (long long)((d + 3) / 4) * 3;
       return launch_t_types<6>(a, 0, x_bf16, out_bf16, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+
+// K1 on tensor cores. x (M, K) bf16; codes (K, N) int8 (code_bits 8) or
+// int16 (16); out (M, N) bf16 (out_bf16) or float32; ws (slices, M, N)
+// float32 when slices > 1 (unused otherwise). Blocks of tile_n (128 or
+// 256) output columns; K is cut into slices of k_slice rows (a multiple
+// of 32), the last one ragged; the wrapper's plan (comm/matmul.py
+// k1_plan) picks both.
+extern "C" int rt_dequant_matmul_tc(const void* x, const void* codes,
+                                    const void* scale, void* out, void* ws,
+                                    int M, int K, int N, int code_bits,
+                                    int k_x, int tile_n, int k_slice,
+                                    int slices, int out_bf16, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || k_slice <= 0 ||
+      k_slice % 32 || slices <= 0 || slices > 65535 ||
+      (long long)k_slice * slices < K ||
+      (long long)k_slice * (slices - 1) >= K ||
+      (slices > 1 && ws == nullptr) || (M + 63) / 64 > 65535 ||
+      k_x < 0 || k_x > 14 || (tile_n != 128 && tile_n != 256))
+    return (int)cudaErrorInvalidValue;
+  const int cb = code_bits / 8;
+  tc::TArgs a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.codes = static_cast<const uint8_t*>(codes);
+  a.scale = static_cast<const float*>(scale);
+  a.out = out;
+  a.ws = static_cast<float*>(ws);
+  a.M = M; a.K = K; a.N = N;
+  a.k_slice = k_slice;
+  a.k_x = k_x;
+  a.inv_pow2 = 1.0f / (float)(1 << k_x);
+  a.vec_x = K % 8 == 0 && (uintptr_t)x % 16 == 0;
+  a.vec_c = ((long long)N * cb) % 16 == 0 && (uintptr_t)codes % 16 == 0;
+  a.vec_o = N % 8 == 0 && (uintptr_t)out % 16 == 0 &&
+            (uintptr_t)ws % 16 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (code_bits) {
+    case 8:
+      return out_bf16 ? tc::launch_tc_n<1, __nv_bfloat16>(a, tile_n, slices, s)
+                      : tc::launch_tc_n<1, float>(a, tile_n, slices, s);
+    case 16:
+      return out_bf16 ? tc::launch_tc_n<2, __nv_bfloat16>(a, tile_n, slices, s)
+                      : tc::launch_tc_n<2, float>(a, tile_n, slices, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -4,11 +4,19 @@ Replaces ``flash_attention`` (``_flash_fwd_kernel``): online-softmax
 attention of q (B, Sq, H, hd) against k, v (B, Skv, K, hd), GQA (query
 head h reads KV head h // (H // K)), causal, a sliding window, a logit
 softcap and a query position offset, out (B, Sq, H, hd) in q's dtype.
-The kernel lives in ``csrc/flash_attention.cu`` (design notes there):
-fp32 scores and softmax on CUDA cores, K/V tiles in shared memory, the
-tiles no query of a block can see (past the causal diagonal, below the
-window) skipped. It takes hd in {32, 64, 128, 256} and any Sq, Skv; the
-TPU kernel's ``Sq % 128 == Skv % 128 == 0`` has no counterpart here.
+The kernels live in ``csrc/flash_attention.cu`` (design notes there);
+both visit only the K/V tiles some query of a block can see. Two routes,
+picked by dtype (:func:`route`), each with its own launch counter:
+
+- ``"tc"``, bfloat16 (``launches_tc``): wgmma on the tensor cores, two
+  warpgroups over one stream of K/V tiles, P fed to the MMA as two bf16
+  terms so the bf16 tier holds.
+- ``"fma"``, float32 (``launches_fma``): fp32 on CUDA cores (the first
+  kernel), which holds rtol 1e-4.
+
+``launches`` counts both; neither route falls back to the other. They
+take hd in {32, 64, 128, 256} and any Sq, Skv; the TPU kernel's
+``Sq % 128 == Skv % 128 == 0`` has no counterpart here.
 
 As in the JAX package, no model calls it: the models' attention is
 ``repro_torch.models.layers``. It is an entry point of its own.
@@ -31,7 +39,9 @@ import torch
 from repro_torch import build
 from repro_torch.comm.codec import resolve_backend
 
-launches = 0        # #17 kernel launches
+launches = 0        # #17 launches, either route
+launches_tc = 0     # #17 on tensor cores (bfloat16, route "tc")
+launches_fma = 0    # #17 on CUDA cores (float32, route "fma")
 plain_on_cuda = 0   # plain versions run on CUDA tensors
 
 HEAD_DIMS = (32, 64, 128, 256)
@@ -69,24 +79,45 @@ def _flash_torch(q, k, v, *, causal, window, softcap, q_offset):
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def route(dtype: torch.dtype) -> str:
+    """Which kernel computes #17 on CUDA tensors: ``"tc"`` (bf16 tensor
+    cores) for bfloat16 inputs, ``"fma"`` (fp32 CUDA cores) for float32,
+    whose rtol 1e-4 bf16 operands cannot hold."""
+    if dtype == torch.bfloat16:
+        return "tc"
+    if dtype == torch.float32:
+        return "fma"
+    raise ValueError(f"dtype {dtype}: need float32 or bfloat16")
+
+
 def _flash_cuda(q, k, v, *, causal, window, softcap, q_offset):
-    global launches
+    global launches, launches_tc, launches_fma
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if B * H > 65535:
         raise ValueError(f"B * H = {B * H} > 65535")
-    lib = build.library()
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    which = route(q.dtype)
+    # the kernels copy 16-byte row chunks: an unaligned view is copied
+    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
-    err = lib.rt_flash_attention(
-        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), B, Sq, Skv,
-        H, K, hd, int(causal), int(window), int(q_offset),
-        float(softcap or 0.0), 1.0 / math.sqrt(hd),
-        int(q.dtype == torch.bfloat16), build.stream_ptr(q.device))
-    build.check(err, "flash_attention")
+    fn = build.library().rt_flash_attention_tc if which == "tc" else \
+        build.library().rt_flash_attention
+    err = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), B, Sq,
+             Skv, H, K, hd, int(causal), int(window), int(q_offset),
+             float(softcap or 0.0), 1.0 / math.sqrt(hd),
+             build.stream_ptr(q.device))
+    build.check(err, f"flash_attention ({which})")
     launches += 1
+    if which == "tc":
+        launches_tc += 1
+    else:
+        launches_fma += 1
     return out
 
 

@@ -805,3 +805,127 @@ def test_paper_protocol_on_cuda(dev):
         assert all(math.isfinite(a) for _, a, _ in rows)
         assert all(getattr(K, c) > 0 for c in names)
         assert K.plain_on_cuda == A.plain_on_cuda == 0
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core routes of K1 and #17
+# ---------------------------------------------------------------------------
+
+def _k1_tc_case(dev, M, K, N, bits, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k_x = 6 if bits == 8 else 7
+    lim = 2 ** k_x
+    codes = torch.randint(-lim, lim + 1, (K, N), generator=g, device=dev)
+    codes = codes.to(torch.int8 if bits == 8 else torch.int16)
+    x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+    return x, codes, torch.tensor(0.0371, device=dev), k_x
+
+
+def _k1_bf16_tol(MM, x, codes, scale, k_x, b):
+    K, N = codes.shape
+    w = MM.dequant_codes(codes, scale, k_x=k_x, n=N, pack_bits=0,
+                         w_dtype="float32", cast_dtype="bfloat16").float()
+    norm = (x.float() ** 2 @ w ** 2).sqrt()
+    return _bf16_ulp(b.float()) + K1_FLOOR * K ** 0.5 * 2.0 ** -24 * norm
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("M,K,N", [
+    (16, 300, 70), (17, 1000, 1001), (32, 4095, 300), (33, 2304, 2049),
+    (64, 333, 513),                  # K no multiple of the 64-row stage
+    (4, 11008, 64), (1, 4096, 512),  # split K
+    (100, 700, 260)])                # two row tiles
+def test_dequant_matmul_tensor_cores(dev, bits, M, K, N):
+    """K1's tensor-core route (bf16 activations, int8/int16 codes) within
+    one bf16 ulp plus the floor of the plain product; two calls bitwise
+    equal; the route's counter moves, the other's does not."""
+    from repro_torch.comm import matmul as MM
+    x, codes, scale, k_x = _k1_tc_case(dev, M, K, N, bits, M * K + N + bits)
+    kw = dict(k_x=k_x, n=N, cast_dtype="bfloat16")
+    n_tc, n_fma = MM.launches_tc, MM.launches_fma
+    a = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    a2 = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    assert (MM.launches_tc, MM.launches_fma) == (n_tc + 2, n_fma)
+    b = MM.dequant_matmul(x, codes, scale, backend="torch", **kw)
+    assert a.dtype == b.dtype == torch.bfloat16 and a.shape == (M, N)
+    assert torch.equal(a, a2)
+    tol = _k1_bf16_tol(MM, x, codes, scale, k_x, b)
+    assert bool(((a.float() - b.float()).abs() <= tol).all())
+
+
+def test_dequant_matmul_tensor_cores_float32_out(dev):
+    """A bf16 leaf without a pending cast: bf16 weights, float32 output."""
+    from repro_torch.comm import matmul as MM
+    x, codes, scale, k_x = _k1_tc_case(dev, 5, 640, 96, 8, 1)
+    kw = dict(k_x=k_x, n=96, w_dtype="bfloat16", cast_dtype="float32")
+    assert MM.route(x.dtype, codes.dtype, 0, "bfloat16", "float32") == "tc"
+    n_tc = MM.launches_tc
+    a = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    b = MM.dequant_matmul(x, codes, scale, backend="torch", **kw)
+    assert MM.launches_tc == n_tc + 1
+    assert a.dtype == b.dtype == torch.float32
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_dequant_matmul_fma_route_counts(dev):
+    """Packed lanes and float32 activations stay on the CUDA-core route."""
+    from repro_torch.comm import bits as B
+    from repro_torch.comm import matmul as MM
+    g = torch.Generator(device=dev).manual_seed(5)
+    c = torch.randint(-4, 5, (256, 96), generator=g, device=dev)
+    packed = B.pack_rows(c, 4)
+    x = torch.randn(4, 256, generator=g, device=dev).to(torch.bfloat16)
+    scale = torch.tensor(0.37, device=dev)
+    n_tc, n_fma = MM.launches_tc, MM.launches_fma
+    MM.dequant_matmul(x, packed, scale, k_x=2, n=96, pack_bits=4,
+                      cast_dtype="bfloat16", backend="cuda")
+    MM.dequant_matmul(x.float(), c.to(torch.int8), scale, k_x=2, n=96,
+                      backend="cuda")
+    assert (MM.launches_tc, MM.launches_fma) == (n_tc, n_fma + 2)
+
+
+@pytest.mark.parametrize("case", [
+    # Sq no multiple of the 64-query tile, rep 2 (gemma2's)
+    dict(B=1, Sq=200, Skv=200, H=8, K=4, causal=True, window=0,
+         softcap=50.0),
+    # a window edge inside a 32-key tile, rep 1, q_offset
+    dict(B=2, Sq=77, Skv=160, H=4, K=4, causal=True, window=45,
+         softcap=None, q_offset=83),
+    # rep 4, ragged Skv, window and softcap
+    dict(B=1, Sq=130, Skv=333, H=8, K=2, causal=True, window=100,
+         softcap=30.0, q_offset=203),
+    # not causal, a window
+    dict(B=1, Sq=65, Skv=97, H=2, K=1, causal=False, window=20,
+         softcap=None, q_offset=30)])
+def test_flash_attention_tensor_cores(dev, case):
+    """#17's tensor-core route at hd 256 within one bf16 ulp plus 1e-5 of
+    the plain version; two calls bitwise equal; the route's counter
+    moves, the float32 route's does not."""
+    from repro_torch.kernels import flash_attention as FA
+    hd = 256
+    g = torch.Generator(device=dev).manual_seed(case["Sq"] + case["Skv"])
+    q = torch.randn(case["B"], case["Sq"], case["H"], hd, generator=g,
+                    device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(case["B"], case["Skv"], case["K"], hd, generator=g,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    kw = dict(causal=case["causal"], window=case["window"],
+              softcap=case["softcap"], q_offset=case.get("q_offset", 0))
+    n_tc, n_fma = FA.launches_tc, FA.launches_fma
+    a = FA.flash_attention(q, k, v, backend="cuda", **kw)
+    a2 = FA.flash_attention(q, k, v, backend="cuda", **kw)
+    assert (FA.launches_tc, FA.launches_fma) == (n_tc + 2, n_fma)
+    b = FA.flash_attention(q, k, v, backend="torch", **kw)
+    assert torch.equal(a, a2)
+    tol = _bf16_ulp(b.float()) + 1e-5
+    assert bool(((a.float() - b.float()).abs() <= tol).all())
+
+
+def test_flash_attention_float32_route_counts(dev):
+    from repro_torch.kernels import flash_attention as FA
+    q = torch.randn(1, 40, 2, 64, device=dev)
+    k = torch.randn(1, 40, 1, 64, device=dev)
+    n_tc, n_fma = FA.launches_tc, FA.launches_fma
+    a = FA.flash_attention(q, k, k, backend="cuda")
+    b = FA.flash_attention(q, k, k, backend="torch")
+    assert (FA.launches_tc, FA.launches_fma) == (n_tc, n_fma + 1)
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)

@@ -120,3 +120,23 @@ def test_query_that_sees_no_key_gets_zeros_and_cuda_is_refused_on_cpu():
     n0 = TF.launches
     TF.flash_attention(q, k, v)
     assert TF.launches == n0          # CPU tensors never launch the kernel
+
+
+@pytest.mark.parametrize("dtype,expect", [(torch.bfloat16, "tc"),
+                                          (torch.float32, "fma")])
+def test_route_by_dtype(dtype, expect):
+    assert TF.route(dtype) == expect
+
+
+def test_route_refuses_other_dtypes_and_cuda_on_cpu():
+    with pytest.raises(ValueError):
+        TF.route(torch.float16)
+    c = dict(B=1, Sq=8, Skv=8, H=2, K=1, hd=32)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(c, seed=2))
+    counts = (TF.launches, TF.launches_tc, TF.launches_fma)
+    with pytest.raises(ValueError):
+        TF.flash_attention(q, k, v, backend="cuda")
+    out = TF.flash_attention(q, k, v)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (TF.launches, TF.launches_tc, TF.launches_fma) == counts

@@ -183,3 +183,83 @@ def test_transpose_ragged_rows_and_leading_dims(k_x, pack_bits):
         assert out.shape == (2, 3, 200)
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
                                    atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core route's host side: route choice and launch plan
+# ---------------------------------------------------------------------------
+
+PLAN_SHAPES = [(1, 4096, 11008), (4, 4096, 512), (32, 4096, 11008),
+               (32, 11008, 4096), (4, 4096, 64000), (64, 2304, 9216),
+               (17, 300, 70), (33, 1000, 1001), (4, 11008, 64),
+               (100, 5000, 300), (3, 37, 9), (16, 2304, 1024)]
+
+
+@pytest.mark.parametrize("code_bits", [8, 16])
+@pytest.mark.parametrize("M,K,N", PLAN_SHAPES)
+def test_tc_plan_slices_cover_k_once_in_order(M, K, N, code_bits):
+    plan = TM.k1_plan(M, K, N, code_bits)
+    assert plan.slices[0][0] == 0 and plan.slices[-1][1] == K
+    for (a0, a1), (b0, b1) in zip(plan.slices, plan.slices[1:]):
+        assert a1 == b0                      # contiguous, in order
+    assert all(k0 < k1 for k0, k1 in plan.slices)   # none empty
+    assert plan.k_slice % TM.TC_SLICE_ROWS == 0
+    assert len(plan.slices) == plan.grid[2] <= TM.TC_MAX_SLICES
+    # every output column and row is in exactly one block of each slice
+    assert plan.grid[0] == -(-N // plan.tile_n)
+    assert plan.grid[1] == -(-M // plan.m_tile)
+    assert plan.tile_n in TM.TC_TILE_N
+    # one row tile up to 64 rows: each code byte read once per call
+    assert (plan.grid[1] == 1) == (M <= TM.TC_TILE_M)
+
+
+@pytest.mark.parametrize("M", [1, 4, 32])
+def test_tc_plan_split_fills_the_card(M):
+    """K is split at N = 512, K = 4096 (yi's wk and wv) until every SM has
+    a block."""
+    plan = TM.k1_plan(M, 4096, 512, 8)
+    assert plan.grid[2] > 1 and plan.blocks >= TM.SMS
+
+
+@pytest.mark.parametrize("M,K,N", PLAN_SHAPES)
+def test_tc_plan_workspace_size(M, K, N):
+    plan = TM.k1_plan(M, K, N, 8)
+    expect = plan.grid[2] * M * N if plan.grid[2] > 1 else 0
+    assert plan.workspace == expect
+
+
+def test_tc_plan_refuses_other_codes():
+    with pytest.raises(ValueError):
+        TM.k1_plan(4, 64, 64, 4)
+    with pytest.raises(ValueError):
+        TM.k1_plan(0, 64, 64, 8)
+
+
+@pytest.mark.parametrize("x,codes,pack,w,cast,expect", [
+    (torch.bfloat16, torch.int8, 0, "float32", "bfloat16", "tc"),
+    (torch.bfloat16, torch.int16, 0, "float32", "bfloat16", "tc"),
+    (torch.bfloat16, torch.int8, 0, "bfloat16", None, "tc"),
+    (torch.bfloat16, torch.int8, 0, "bfloat16", "float32", "tc"),
+    (torch.bfloat16, torch.uint8, 4, "float32", "bfloat16", "fma"),
+    (torch.bfloat16, torch.int8, 0, "float32", None, "fma"),
+    (torch.float32, torch.int8, 0, "float32", None, "fma"),
+    (torch.float32, torch.int16, 0, "bfloat16", None, "fma"),
+])
+def test_route_by_dtype_and_code_type(x, codes, pack, w, cast, expect):
+    assert TM.route(x, codes, pack, w, cast) == expect
+
+
+def test_tensor_core_route_refused_on_cpu():
+    """bf16 activations against int8 codes (the tensor-core route) with
+    backend="cuda" on CPU tensors raise; without a backend the plain
+    version runs and no counter moves."""
+    codes, s, x = _case(6, 0, 64, 96, 4, seed=3)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    args = (xb, torch.from_numpy(codes), torch.tensor(s))
+    kw = dict(k_x=6, n=96, cast_dtype="bfloat16")
+    counts = (TM.launches, TM.launches_tc, TM.launches_fma)
+    with pytest.raises(ValueError):
+        TM.dequant_matmul(*args, backend="cuda", **kw)
+    out = TM.dequant_matmul(*args, **kw)
+    assert out.dtype == torch.bfloat16 and out.shape == (4, 96)
+    assert (TM.launches, TM.launches_tc, TM.launches_fma) == counts
