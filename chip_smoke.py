@@ -13,14 +13,22 @@ Phases, each raising on failure (exit code nonzero, no result line):
      under build/planted);
   3. hold each serving kernel against its plain PyTorch version at yi-6b
      shapes: K3 amax / K4 quantize on a stacked (32, 4096, 11008) f32
-     leaf and K2 page gather bitwise; K1 dequant-matmul at M in
+     leaf; K2 page gather bitwise through both entry points (one pool,
+     and a layer's K and V in one launch, one launch a call) at the
+     serving cell's 4 x 8-page table and gemma2-2b's 4 x 264 pages,
+     timed in CUDA graphs beside index_select (two of them for K and V);
+     K1 dequant-matmul at M in
      {1, 4, 32} for every projection shape of yi-6b and gemma2-2b and
      every code type, and at ragged shapes across its row tiles (M 5 to
-     100), on both routes (tensor cores for bf16 activations against
-     int8/int16 codes, CUDA cores for packed lanes and float32), within
-     one bf16 ulp (plus a floor near zero set from the measured fp32
-     summation-order noise; a dropped K row must fail that gate), timed
-     at every int8 shape with its kernel/library factor; K1t,
+     100; packed rows of no whole 16 bytes among them), on tensor cores
+     for bf16 activations against int8, int16 and 2/3/4/6-bit packed
+     lanes, within one bf16 ulp (plus a floor near zero set from the
+     measured fp32 summation-order noise; a dropped K row, on int8 codes
+     and on 4-bit lanes, must fail that gate), and the same sums in
+     float32 on CUDA cores within the floor; timed at every int8 shape
+     with its kernel/library factor, every lane width at (4096, 11008),
+     M = 4 and 32, with its factor and share of the bound, and the
+     CUDA-core route at float32 activations against int8 codes; K1t,
      the transposed product of the tied head, at gemma2-2b's (256000,
      2304) table for M in {1, 4} (int8 at k_x = 6, packed 3/4/6-bit rows)
      and at ragged shapes, in the same tier (a dropped d column must
@@ -47,8 +55,9 @@ Phases, each raising on failure (exit code nonzero, no result line):
      baselines' kernels bitwise: #5 fused encode (log, uniform with the
      absolute and the amax scale, ternary on uniforms from one seeded
      generator; zero input) with K6 on its rows (the ternary kind), #14
-     blockwise quantize and #8 blockwise encode, over the same n_rows and
-     chunks, and at the w_gate stack; then the last three kernels bitwise:
+     blockwise quantize and #8 blockwise encode at blocks {1, 32, 64, 256,
+     1024, 4096}, over the same n_rows and chunks, and at the w_gate stack
+     (timed at blocks 256 and 64); then the last three kernels bitwise:
      #10 log quantize at k_g {1, 2, 4, 6, 8} (random, zero and
      decision-point inputs), #13 ternary quantize (uniforms from one
      seeded generator, u = p exactly among them, x = 0, a zero scale) and
@@ -61,7 +70,9 @@ Phases, each raising on failure (exit code nonzero, no result line):
      quantize_params(k_x=6), a paged ServeSession (page 16, 4 slots,
      chunked prefill 32) answering 8 requests of 64-token prompts with
      16 new tokens each; the kernels' launch counts are read around this
-     run and every one must be > 0, with no plain version on the card;
+     run and every one must be > 0, with no plain version on the card
+     (every K2 launch gathering a layer's K and V); the decode step's and
+     the chunk's wall and device time and device operations;
      then one decode step on identical state through the kernels and
      through the plain versions: relative L2 of the logits within
      SHALLOW_LIMIT for the bf16 step cut to 1 and 2 layers and within
@@ -79,8 +90,12 @@ Phases, each raising on failure (exit code nonzero, no result line):
      tokens (26 layers with their windows), in bf16 (tensor cores) and
      then in float32 (CUDA cores), each route's count at 0 before;
      4d. yi-6b cut to 4 layers served from 4-bit packed lanes
-     (quantize_params(k_x=2, pack=True)), 4 requests: K1's CUDA-core
-     route, K2, K3, K4 launched, no plain version on the card;
+     (quantize_params(k_x=2, pack=True)), 4 requests: K1 on tensor cores
+     only (its packed-lane instances; no CUDA-core launch), K2, K3, K4
+     launched, no plain version on the card; decode and chunk wall and
+     device time;
+     4e. the same cut served in float32 activations against int8 codes:
+     K1's CUDA-core route only;
   5. train full-width yi-6b cut to 8 layers (fp32 parameters and state,
      bf16 activations) with Algorithm 1 through ``qadam`` and
      ``TrainSession.from_optimizer``: 12 steps of 2 x 1024 tokens; gates:
@@ -256,9 +271,11 @@ def graph_ms(torch, fn, variants: int = 1, replays: int = 20) -> float:
     return start.elapsed_time(end) / (replays * variants)
 
 
-def profile_ms(torch, fn, steps: int = 3):
+def profile_ms(torch, fn, steps: int = 3, with_launches: bool = False):
     """Device time per call of ``fn()`` by kernel, from torch.profiler:
-    (total device ms, [(kernel name, device ms)] largest first)."""
+    (total device ms, [(kernel name, device ms)] largest first), and with
+    ``with_launches`` the device operations (kernels, copies, fills) a
+    call runs, counted from the same trace."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -267,7 +284,7 @@ def profile_ms(torch, fn, steps: int = 3):
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    rows = []
+    rows, n_ops = [], 0
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None)
         if t is None:
@@ -275,7 +292,10 @@ def profile_ms(torch, fn, steps: int = 3):
         if t and getattr(e, "device_type", None) is not None and \
                 "CUDA" in str(e.device_type):
             rows.append((e.key, t / steps / 1e3))
+            n_ops += e.count
     rows.sort(key=lambda r: -r[1])
+    if with_launches:
+        return sum(t for _, t in rows), rows, n_ops / steps
     return sum(t for _, t in rows), rows
 
 
@@ -353,38 +373,100 @@ def check_quantize(torch, K, dev):
     return rows
 
 
-def check_gather(torch, paged, dev, slots, npag, num_pages):
-    g = torch.Generator(device=dev).manual_seed(12)
-    pool = torch.randn((num_pages, 16, YI["K"], YI["hd"]), generator=g,
-                       device=dev).to(torch.bfloat16)
-    perm = torch.randperm(num_pages, generator=g, device=dev)
-    tab = perm[:slots * npag].reshape(slots, npag).to(torch.int32)
-    tab[1, npag // 2:] = num_pages          # RELEASED sentinel tail
-    tab[3, :] = num_pages                   # a released slot
-    a = paged.gather_pages(pool, tab, backend="cuda")
-    b = paged.gather_pages(pool, tab, backend="torch")
-    if not torch.equal(a, b):
-        raise AssertionError("K2 page gather differs from its plain version")
-    flat = torch.clamp(tab, 0, num_pages - 1).reshape(-1).long()
-    t_k = graph_ms(torch, lambda i: paged.gather_pages(pool, tab,
-                                                       backend="cuda"))
-    t_p = graph_ms(torch, lambda i: paged.gather_pages(pool, tab,
-                                                       backend="torch"))
-    t_l = graph_ms(torch, lambda i: torch.index_select(pool, 0, flat))
-    t_e = cuda_ms(torch, lambda i: paged.gather_pages(pool, tab,
-                                                      backend="cuda"))
-    view = a.numel() * a.element_size()
-    b_, by = bound_ms(2 * view + tab.numel() * 4)
-    return dict(name="gather_pages", route="cuda",
-                source="src/repro_torch/csrc/gather_pages.cu",
-                replaces="src/repro/serve/paged.py:74", max_abs_err=0.0,
-                ms=t_k, plain_ms=t_p, bound_ms=b_, bound_by=by,
-                library_ms=t_l, eager_ms=t_e, shape=list(tab.shape))
+# K2's tables: the serving cell's (yi-6b: 4 slots x 8 pages of 16 tokens x
+# 4 heads x 128 dims, bf16, 16 KB a page) and gemma2-2b's 4224-position
+# slots (4 x 264 pages of 16 x 4 x 256, 32 KB a page; 34.6 MB a pool)
+GATHER_TABLES = {"yi": dict(slots=4, npag=8, hd=128),
+                 "gemma2": dict(slots=4, npag=264, hd=256)}
+GATHER_CALLS = 8
+
+
+def check_gather(torch, paged, dev):
+    """K2 through both entry points at both tables, bitwise the plain
+    gathers (sentinel ids past the pool clamp inside the kernel), timed in
+    CUDA graphs of GATHER_CALLS calls: one pool against ``index_select``
+    (one call computes the same function), a layer's K and V in one
+    launch against two ``index_select`` calls. Returns the two
+    kernels-line rows and the timing table."""
+    table, rows = [], {}
+    for name, t in GATHER_TABLES.items():
+        slots, npag, hd = t["slots"], t["npag"], t["hd"]
+        num_pages = slots * npag + 8
+        g = torch.Generator(device=dev).manual_seed(12 + npag)
+        pk, pv = (torch.randn((num_pages, 16, YI["K"], hd), generator=g,
+                              device=dev).to(torch.bfloat16) for _ in "kv")
+        perm = torch.randperm(num_pages, generator=g, device=dev)
+        tab = perm[:slots * npag].reshape(slots, npag).to(torch.int32)
+        tab[1, npag // 2:] = num_pages          # RELEASED sentinel tail
+        tab[3, :] = num_pages                   # a released slot
+        n0, kv0 = paged.launches, paged.launches_kv
+        a = paged.gather_pages(pk, tab, backend="cuda")
+        ka, va = paged.gather_pages_kv(pk, pv, tab, backend="cuda")
+        if (paged.launches, paged.launches_kv) != (n0 + 2, kv0 + 1):
+            raise AssertionError(f"K2 at the {name} table: "
+                                 f"{paged.launches - n0} launches for two "
+                                 f"calls")
+        kb = paged.gather_pages(pk, tab, backend="torch")
+        vb = paged.gather_pages(pv, tab, backend="torch")
+        if not (torch.equal(a, kb) and torch.equal(ka, kb)
+                and torch.equal(va, vb)):
+            raise AssertionError(f"K2 differs from its plain version at the "
+                                 f"{name} table")
+        del kb, vb, ka, va
+        flat = torch.clamp(tab, 0, num_pages - 1).reshape(-1).long()
+        view = a.numel() * a.element_size()
+        del a
+        # GATHER_CALLS calls a graph: a call at the small table takes about
+        # as long as the host's replay of a one-call graph
+        one = dict(
+            ms=graph_ms(torch, lambda i: paged.gather_pages(
+                pk, tab, backend="cuda"), GATHER_CALLS),
+            plain_ms=graph_ms(torch, lambda i: paged.gather_pages(
+                pk, tab, backend="torch"), GATHER_CALLS),
+            library_ms=graph_ms(torch, lambda i: torch.index_select(
+                pk, 0, flat), GATHER_CALLS),
+            eager_ms=cuda_ms(torch, lambda i: paged.gather_pages(
+                pk, tab, backend="cuda")))
+        one["bound_ms"], one["bound_by"] = bound_ms(2 * view + tab.numel() * 4)
+        kv = dict(
+            ms=graph_ms(torch, lambda i: paged.gather_pages_kv(
+                pk, pv, tab, backend="cuda"), GATHER_CALLS),
+            plain_ms=graph_ms(torch, lambda i: paged.gather_pages_kv(
+                pk, pv, tab, backend="torch"), GATHER_CALLS),
+            two_index_select_ms=graph_ms(torch, lambda i: (
+                torch.index_select(pk, 0, flat),
+                torch.index_select(pv, 0, flat)), GATHER_CALLS),
+            eager_ms=cuda_ms(torch, lambda i: paged.gather_pages_kv(
+                pk, pv, tab, backend="cuda")))
+        kv["bound_ms"], kv["bound_by"] = bound_ms(4 * view + tab.numel() * 4)
+        for entry, r in (("gather_pages", one), ("gather_pages_kv", kv)):
+            r.update(name=entry, table=name, shape=[slots, npag, 16,
+                                                    YI["K"], hd],
+                     share_of_bound=r["bound_ms"] / r["ms"])
+            table.append(r)
+        rows[name] = (one, kv)
+        del pk, pv
+        torch.cuda.empty_cache()
+    base = dict(route="cuda", source="src/repro_torch/csrc/gather_pages.cu",
+                replaces="src/repro/serve/paged.py:74", max_abs_err=0.0)
+    one, kv = rows["yi"][0], rows["gemma2"][1]
+    # the one-pool entry point at the serving cell's table; the K+V entry
+    # point at gemma2's (no one PyTorch call gathers two pools)
+    out = [dict(base, name="gather_pages", ms=one["ms"],
+                plain_ms=one["plain_ms"], bound_ms=one["bound_ms"],
+                bound_by=one["bound_by"], library_ms=one["library_ms"],
+                shape=one["shape"]),
+           dict(base, name="gather_pages_kv", ms=kv["ms"],
+                plain_ms=kv["plain_ms"], bound_ms=kv["bound_ms"],
+                bound_by=kv["bound_by"], library_ms=None, shape=kv["shape"],
+                two_index_select_ms=kv["two_index_select_ms"])]
+    return out, table
 
 
 # the code kinds of phase 3: (k_x, packed lane bits or 0)
-CODE_KINDS = {"int8": (6, 0), "int16": (7, 0), "p3": (1, 3), "p4": (2, 4),
-              "p6": (4, 6)}
+CODE_KINDS = {"int8": (6, 0), "int16": (7, 0), "p2": (0, 2), "p3": (1, 3),
+              "p4": (2, 4), "p6": (4, 6)}
+PACKED_KINDS = ("p2", "p3", "p4", "p6")
 
 
 def _codes(torch, B, g, dev, kind, Kd, N):
@@ -414,20 +496,24 @@ def k1_shapes():
 def check_matmul(torch, MM, B, dev):
     """K1 at every (M, K, N, code type) of the serving paths (yi-6b's and
     gemma2-2b's projections at M in {1, 4, 32}, and ragged shapes across
-    the tensor-core route's row tiles), both routes held to the tier; the
-    timing table at int8 (tensor cores) with each shape's kernel/library
-    factor, and the CUDA-core route at the packed-lane serving path's
-    4-bit lanes. Returns the two kernels-line rows, the case table, the
-    timings and the noise readings."""
+    the tensor-core route's row tiles, rows of packed lanes of no whole 16
+    bytes among them), on tensor cores (bf16 activations, int8, int16 and
+    2/3/4/6-bit lanes) held to the tier, and the same sums in float32 on
+    CUDA cores; a dropped K row must fail the tier (int8 and 4-bit lanes);
+    the timing table at int8 with each shape's kernel/library factor,
+    every lane width at (4096, 11008), M = 4 and 32, and the CUDA-core
+    route at float32 activations against int8 codes. Returns the three
+    kernels-line rows, the case table, the timings and the noise
+    readings."""
     g = torch.Generator(device=dev).manual_seed(13)
     d, f = YI["d"], YI["f"]
     shapes = k1_shapes()
-    kinds = ("int8", "int16", "p3", "p4", "p6")
+    kinds = ("int8", "int16") + PACKED_KINDS
     cases = [(M, Kd, N, kind) for M in (1, 4, 32) for (Kd, N) in shapes
              for kind in kinds]
     cases += [(M, 1000, 1001, kind) for M in (5, 16, 17, 33, 64, 100)
               for kind in kinds]   # ragged, across the row tiles
-    table, worst, noise = [], {"tc": 0.0, "fma": 0.0}, {}
+    table, worst, noise = [], {"tc": 0.0, "tc_packed": 0.0, "fma": 0.0}, {}
     scale = torch.tensor(0.0371, device=dev)
     for M, Kd, N, kind in cases:
         k_x, pb, codes = _codes(torch, B, g, dev, kind, Kd, N)
@@ -446,8 +532,12 @@ def check_matmul(torch, MM, B, dev):
                                  f"product + floor (max abs "
                                  f"{float(diff.max())}, "
                                  f"{float(over.max())} floor units)")
+        if route != "tc":
+            raise AssertionError(f"K1 on bf16 activations, {kind} codes, "
+                                 f"took the {route} route")
         err = float(diff.max())
-        worst[route] = max(worst[route], err)
+        key = "tc_packed" if pb else "tc"
+        worst[key] = max(worst[key], err)
         # beyond one ulp, in floor units (the floor is K1_FLOOR of them)
         over = float(((diff - bf16_ulp(torch, b.float())).clamp_min(0)
                       / unit).max())
@@ -466,9 +556,16 @@ def check_matmul(torch, MM, B, dev):
                    - MM.dequant_matmul(xf, codes, scale, backend="torch",
                                        **kf)).abs()
             n["f32_noise"] = max(n["f32_noise"], float((d32 / unit).max()))
-            if kind == "int8" and Kd != 1000:
+            worst["fma"] = max(worst["fma"], float(d32.max()))
+            # the CUDA-core route's gate: float32 outputs within the floor
+            # (two fp32 orders of the same products)
+            if not bool((d32 <= K1_FLOOR * unit).all()):
+                raise AssertionError(f"K1 (fma) at M={M} K={Kd} N={N} "
+                                     f"{kind}, float32: beyond {K1_FLOOR:g} "
+                                     f"units of fp32 summation noise")
+            if kind in ("int8", "p4") and Kd != 1000:
                 # the upper reading: one K row dropped from the plain sum
-                w = MM.dequant_codes(codes, scale, k_x=k_x, n=N, pack_bits=0,
+                w = MM.dequant_codes(codes, scale, k_x=k_x, n=N, pack_bits=pb,
                                      w_dtype="float32", cast_dtype="bfloat16")
                 bad = (x[:, :-1].float() @ w[:-1].float()).to(torch.bfloat16)
                 fd = (bad.float() - b.float()).abs()
@@ -479,18 +576,22 @@ def check_matmul(torch, MM, B, dev):
                 n["fault_max_abs"] = max(n.get("fault_max_abs", 0.0),
                                          float(fd.max()))
                 n["fault_caught"] = min(n.get("fault_caught", 1.0), seen)
-    # timing at the path's int8 shapes (tensor cores), four weight copies
-    # in rotation so the 50 MB L2 does not hold the codes between calls
+    # timing at the path's shapes, four weight copies in rotation so the
+    # 50 MB L2 does not hold the codes between calls
     timed = []
 
-    def time_case(M, Kd, N, kind):
+    def time_case(M, Kd, N, kind, x_dtype=torch.bfloat16):
+        """Kernel, plain and library times of one shape; the library is
+        torch.matmul on the dequantized weight in the activations' type
+        (bf16; float32 with TF32 off on the CUDA-core route)."""
         k_x, pb = CODE_KINDS[kind]
+        cast = "bfloat16" if x_dtype == torch.bfloat16 else None
         ws = [_codes(torch, B, g, dev, kind, Kd, N)[2] for _ in range(4)]
         wf = [MM.dequant_codes(w, scale, k_x=k_x, n=N, pack_bits=pb,
                                w_dtype="float32",
-                               cast_dtype="bfloat16") for w in ws]
-        x = torch.randn((M, Kd), generator=g, device=dev).to(torch.bfloat16)
-        kw = dict(k_x=k_x, n=N, pack_bits=pb, cast_dtype="bfloat16")
+                               cast_dtype=cast) for w in ws]
+        x = torch.randn((M, Kd), generator=g, device=dev).to(x_dtype)
+        kw = dict(k_x=k_x, n=N, pack_bits=pb, cast_dtype=cast)
         t_k = graph_ms(torch, lambda i: MM.dequant_matmul(
             x, ws[i], scale, backend="cuda", **kw), 4)
         t_p = graph_ms(torch, lambda i: MM.dequant_matmul(
@@ -499,22 +600,36 @@ def check_matmul(torch, MM, B, dev):
         t_e = cuda_ms(torch, lambda i: MM.dequant_matmul(
             x, ws[i % 4], scale, backend="cuda", **kw))
         nbytes = ws[0].numel() * ws[0].element_size()
-        bnd, by = bound_ms(nbytes + 2 * M * Kd + 2 * M * N + 4,
+        xb = x.element_size()
+        bnd, by = bound_ms(nbytes + xb * M * Kd + xb * M * N + 4,
                            2.0 * M * Kd * N)
-        route = MM.route(x.dtype, ws[0].dtype, pb, "float32", "bfloat16")
-        return dict(M=M, K=Kd, N=N, codes=kind, route=route, ms=t_k,
+        route = MM.route(x.dtype, ws[0].dtype, pb, "float32", cast)
+        return dict(M=M, K=Kd, N=N, codes=kind, route=route,
+                    x_dtype=str(x_dtype).split(".")[-1], ms=t_k,
                     plain_ms=t_p, library_ms=t_l, eager_ms=t_e, bound_ms=bnd,
-                    bound_by=by, factor=t_k / t_l, gbs=nbytes / t_k / 1e6)
+                    bound_by=by, factor=t_k / t_l, share_of_bound=bnd / t_k,
+                    gbs=nbytes / t_k / 1e6)
 
     for M in (4, 32, 1):
         for Kd, N in shapes:
             timed.append(time_case(M, Kd, N, "int8"))
-    fma = time_case(4, d, f, "p4")   # the packed-lane serving path (4d)
+    for kind in PACKED_KINDS:   # every lane width on tensor cores
+        for M in (4, 32):
+            timed.append(time_case(M, d, f, kind))
+    # the CUDA-core route where it serves: float32 activations
+    fma = time_case(4, d, f, "int8", torch.float32)
     timed.append(fma)
-    tc_timed = [r for r in timed if r["route"] == "tc"]
+    tc_timed = [r for r in timed if r["route"] == "tc"
+                and r["codes"] == "int8"]
     rep = next(r for r in tc_timed if (r["M"], r["K"], r["N"]) == (4, d, f))
     m32 = next(r for r in tc_timed if (r["M"], r["K"], r["N"]) == (32, d, f))
     slow = max(tc_timed, key=lambda r: r["factor"])
+    packed = [r for r in timed if r["codes"] in PACKED_KINDS]
+    if any(r["route"] != "tc" for r in packed):
+        raise AssertionError("packed lanes timed off the tensor-core route")
+    p4 = next(r for r in packed if r["codes"] == "p4" and r["M"] == 4)
+    p4_32 = next(r for r in packed if r["codes"] == "p4" and r["M"] == 32)
+    slow_p = max(packed, key=lambda r: r["factor"])
     row_tc = dict(name="dequant_matmul_tc", route="cuda",
                   source="src/repro_torch/csrc/dequant_matmul.cu",
                   replaces="src/repro/comm/matmul.py:166",
@@ -525,14 +640,25 @@ def check_matmul(torch, MM, B, dev):
                   m32_library_ms=m32["library_ms"],
                   worst_factor=slow["factor"],
                   worst_shape=[slow["M"], slow["K"], slow["N"]])
+    row_tcp = dict(name="dequant_matmul_tc_packed", route="cuda",
+                   source="src/repro_torch/csrc/dequant_matmul.cu",
+                   replaces="src/repro/comm/matmul.py:166",
+                   max_abs_err=worst["tc_packed"], ms=p4["ms"],
+                   plain_ms=p4["plain_ms"], bound_ms=p4["bound_ms"],
+                   bound_by=p4["bound_by"], library_ms=p4["library_ms"],
+                   shape=[4, d, f, "p4"], m32_ms=p4_32["ms"],
+                   m32_library_ms=p4_32["library_ms"],
+                   worst_factor=slow_p["factor"],
+                   worst_shape=[slow_p["M"], slow_p["K"], slow_p["N"],
+                                slow_p["codes"]])
     row_fma = dict(name="dequant_matmul", route="cuda",
                    source="src/repro_torch/csrc/dequant_matmul.cu",
                    replaces="src/repro/comm/matmul.py:166",
                    max_abs_err=worst["fma"], ms=fma["ms"],
                    plain_ms=fma["plain_ms"], bound_ms=fma["bound_ms"],
                    bound_by=fma["bound_by"], library_ms=fma["library_ms"],
-                   shape=[4, d, f, "p4"])
-    return ([row_tc, row_fma], table, timed,
+                   shape=[4, d, f, "int8", "float32"])
+    return ([row_tc, row_tcp, row_fma], table, timed,
             sorted(noise.values(), key=lambda r: r["K"]))
 
 
@@ -1034,6 +1160,11 @@ def encode_codec(kind, k, absolute):
         wire_codec(kind, k, absolute)
 
 
+# #14 and #8 at every shape of their layout: a lane holding 4 blocks, a
+# block across 8 and 16 lanes, the warp, 8 and 32 chunks of a lane
+BLOCKWISE_BLOCKS = (1, 32, 64, 256, 1024, 4096)
+
+
 def check_encode_kernels(torch, dev):
     """#5 (each kind, the absolute and the amax scale, the ternary kind
     on uniforms from one seeded generator on both sides, zero input),
@@ -1075,12 +1206,14 @@ def check_encode_kernels(torch, dev):
                             f"(n_rows={n_rows}, c={c}, zero={zero})")
                     cases += 1
                 for fn in (K.blockwise_quantize, K.blockwise_encode):
-                    if not all(bits_equal(torch, a, b) for a, b in zip(
-                            fn(x, backend="cuda"), fn(x, backend="torch"))):
-                        raise AssertionError(
-                            f"{fn.__name__} differs from its plain version "
-                            f"(n={n}, zero={zero})")
-                    cases += 1
+                    for blk in BLOCKWISE_BLOCKS:
+                        if not all(bits_equal(torch, a, b) for a, b in zip(
+                                fn(x, blk, backend="cuda"),
+                                fn(x, blk, backend="torch"))):
+                            raise AssertionError(
+                                f"{fn.__name__} differs from its plain "
+                                f"version (n={n}, block {blk}, zero={zero})")
+                        cases += 1
     # the w_gate stack of the 8-layer cell, as the main paths give it at
     # one worker: the terngrad gradient (one payload row), ef_sgd's
     # Delta+e, a leaf through Codec.encode
@@ -1134,15 +1267,18 @@ def check_encode_kernels(torch, dev):
                                  n),
                                 ("blockwise_encode", K.blockwise_encode,
                                  -(-n // 4))):
-        a, b = fn(x, backend="cuda"), fn(x, backend="torch")
-        if not all(bits_equal(torch, p, q) for p, q in zip(a, b)):
-            raise AssertionError(f"{name} differs from its plain version at "
-                                 f"the w_gate stack")
-        del a, b
-        t[name] = ("blockwise:256",
-                   cuda_ms(torch, lambda i: fn(x, backend="cuda"), 5, 1),
-                   cuda_ms(torch, lambda i: fn(x, backend="torch"), 2, 1),
-                   None, bound_ms(4 * n + out_bytes + 4 * nb))
+        for blk in (256, 64):
+            a, b = fn(x, blk, backend="cuda"), fn(x, blk, backend="torch")
+            if not all(bits_equal(torch, p, q) for p, q in zip(a, b)):
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"at the w_gate stack, block {blk}")
+            del a, b
+            nbk = -(-n // blk)
+            t[name if blk == 256 else f"{name}_b{blk}"] = (
+                f"blockwise:{blk}",
+                cuda_ms(torch, lambda i: fn(x, blk, backend="cuda"), 5, 1),
+                cuda_ms(torch, lambda i: fn(x, blk, backend="torch"), 2, 1),
+                None, bound_ms(4 * n + out_bytes + 4 * nbk))
     src = {"encode_rows": ("src/repro_torch/csrc/codec.cu",
                            "src/repro/comm/kernels.py:203"),
            "decode_rows": ("src/repro_torch/csrc/codec.cu",
@@ -1158,6 +1294,8 @@ def check_encode_kernels(torch, dev):
                           gbs=(bnd * 1e-3 * HBM_BYTES_PER_S) / ms / 1e6))
         if name.startswith("encode_rows"):
             table[-1]["amax_library_ms"] = amax_ms
+        if name.endswith("_b64"):     # a reading beside its kernel's row
+            continue
         source, replaces = src[name.rsplit("_", 1)[0] if name.startswith(
             ("encode_rows", "decode_rows")) else name]
         rows.append(dict(name=name, route="cuda", source=source,
@@ -1822,14 +1960,14 @@ def _wire_kernel_ms(by_kernel):
     """Device ms per step of the wire kernels by name and kind (K7 and #5
     are ``encode_kernel<bits, kind, ef>``, K6 ``decode_kernel<bits,
     kind>``, kind 0 log, 1 uniform, 2 ternary; #14 and #8
-    ``blockwise_kernel<pack>``), and of NCCL's kernels."""
+    ``blockwise_kernel<log2 block, pack>``), and of NCCL's kernels."""
     import re
     kinds = ("log", "uniform", "ternary")
     out = {}
     for name, t in by_kernel:
         m = re.search(r"(encode|decode)_kernel<(\d+), ?(\d)"
                       r"(?:, ?(true|false))?>", name)
-        b = re.search(r"blockwise_kernel<(true|false)>", name)
+        b = re.search(r"blockwise_kernel<\d+, ?(true|false)>", name)
         if m:
             op = "ef_encode" if m.group(4) == "true" else m.group(1)
             key = f"{op}_{kinds[int(m.group(3))]}"
@@ -2545,6 +2683,62 @@ def window_live(torch, dev, model, qparams, gather, prompt, max_seq):
                 logits_rel_l2_depth2_long=rel2, step_ms=step_ms)
 
 
+def zero_serving_counts(MM, paged, K):
+    """Every count of the serving paths' kernels, and of their plain
+    versions on the card, at 0."""
+    MM.launches = MM.launches_tc = MM.launches_tc_packed = 0
+    MM.launches_fma = MM.t_launches = 0
+    paged.launches = paged.launches_kv = 0
+    K.amax_launches = K.quantize_launches = 0
+    MM.plain_on_cuda = paged.plain_on_cuda = K.plain_on_cuda = 0
+
+
+def decode_timings(torch, dev, model, qparams, gather, prompts, max_seq):
+    """Prefill each prompt (a multiple of 32 tokens) into its slot of a
+    fresh paged cache of ``max_seq`` positions a slot, then time one
+    32-token chunk (slot 0) and one decode step (every slot): CUDA events
+    around the host's calls (the step's wall on the device's clock) and
+    the profiler's device time, with the device operations (kernels,
+    copies, fills) each runs. Returns (timings, cache, tok, pos), the last
+    three the decode step's inputs."""
+    slots, plen = len(prompts), len(prompts[0])
+    cache = model.init_cache(slots, max_seq,
+                             page_pool=(slots * max_seq // 16, 16),
+                             device=dev)
+    npag = max_seq // 16
+    cache["ptab"].copy_(torch.arange(slots * npag, dtype=torch.int32,
+                                     device=dev).reshape(slots, npag))
+    prompt = torch.tensor(prompts, dtype=torch.int32, device=dev)
+    lane = lambda s: {"pk": cache["pk"], "pv": cache["pv"],
+                      "ptab": cache["ptab"][s:s + 1]}
+    for s in range(slots):
+        for c0 in range(0, plen, 32):
+            model.decode_chunk(qparams, {"token": prompt[s:s + 1, c0:c0 + 32]},
+                               lane(s), torch.tensor([c0], device=dev),
+                               torch.tensor([32], device=dev), gather)
+    c32 = torch.tensor([32], device=dev)
+
+    def chunk():
+        return model.decode_chunk(qparams, {"token": prompt[0:1, 32:64]},
+                                  lane(0), c32, c32, gather)
+    tok = prompt[:, -1:].contiguous()
+    pos = torch.full((slots,), plen, dtype=torch.int32, device=dev)
+
+    def step():
+        return model.decode_step(qparams, {"token": tok}, cache, pos, gather)
+    chunk_ms = cuda_ms(torch, lambda i: chunk(), 5, 1)
+    chunk_dev_ms, _, chunk_ops = profile_ms(torch, chunk, with_launches=True)
+    step_ms = cuda_ms(torch, lambda i: step(), 10, 2)
+    step_dev_ms, step_kernels, step_ops = profile_ms(torch, step,
+                                                     with_launches=True)
+    return (dict(chunk_ms=chunk_ms, chunk_device_ms=chunk_dev_ms,
+                 chunk_device_ops=chunk_ops, decode_step_ms=step_ms,
+                 decode_step_device_ms=step_dev_ms,
+                 decode_step_device_ops=step_ops,
+                 decode_step_kernels=step_kernels[:12]),
+            cache, tok, pos)
+
+
 def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
     """Serve full-width ``arch`` (phase 4: yi-6b; phase 4b: gemma2-2b with
     one ``long_plen``-token request past its window, in a session of
@@ -2571,9 +2765,7 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
     torch.cuda.reset_peak_memory_stats()
 
     # the main path, with every kernel count at 0 just before it
-    MM.launches = MM.launches_tc = MM.launches_fma = MM.t_launches = 0
-    paged.launches = K.amax_launches = K.quantize_launches = 0
-    MM.plain_on_cuda = paged.plain_on_cuda = K.plain_on_cuda = 0
+    zero_serving_counts(MM, paged, K)
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
     fp_bytes = params_nbytes(params)
@@ -2593,14 +2785,21 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
     results = sess.drain()
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t1
-    # bf16 activations against int8 codes: K1 on tensor cores only
+    # bf16 activations against int8 codes: K1 on tensor cores only; the
+    # cache view of a layer one K2 launch (K and V)
     launches = {"dequant_matmul_tc": MM.launches_tc,
                 "gather_pages": paged.launches,
+                "gather_pages_kv": paged.launches_kv,
                 "amax_rows": K.amax_launches,
                 "uniform_quantize_rows": K.quantize_launches}
-    if MM.launches_fma:
+    if MM.launches_fma or MM.launches_tc_packed:
         raise AssertionError(f"{arch}: K1's CUDA-core route launched "
-                             f"{MM.launches_fma} times on bf16 int8 codes")
+                             f"{MM.launches_fma} times, its packed-lane "
+                             f"instances {MM.launches_tc_packed} times on "
+                             f"bf16 int8 codes")
+    if paged.launches != paged.launches_kv:
+        raise AssertionError(f"{arch}: {paged.launches - paged.launches_kv} "
+                             f"K2 launches gathered one pool")
     if cfg.tie_embeddings:      # the tied head runs K1t
         launches["dequant_matmul_t"] = MM.t_launches
     elif MM.t_launches:
@@ -2627,33 +2826,9 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
         max_seq = 128        # the timings and gates below at yi's view
 
     # one decode step and one chunk, timed, on a fresh cache
-    cache = model.init_cache(slots, max_seq,
-                             page_pool=(slots * max_seq // 16, 16),
-                             device=dev)
-    npag = max_seq // 16
-    cache["ptab"].copy_(torch.arange(slots * npag, dtype=torch.int32,
-                                     device=dev).reshape(slots, npag))
-    prompt = torch.tensor([reqs[i].prompt for i in range(slots)],
-                          dtype=torch.int32, device=dev)
-    lane = lambda s: {"pk": cache["pk"], "pv": cache["pv"],
-                      "ptab": cache["ptab"][s:s + 1]}
-    for s in range(slots):
-        for c0 in range(0, plen, 32):
-            model.decode_chunk(qparams, {"token": prompt[s:s + 1, c0:c0 + 32]},
-                               lane(s), torch.tensor([c0], device=dev),
-                               torch.tensor([32], device=dev), gather)
-    c32 = torch.tensor([32], device=dev)
-    chunk_ms = cuda_ms(torch, lambda i: model.decode_chunk(
-        qparams, {"token": prompt[0:1, 32:64]}, lane(0), c32, c32, gather),
-        5, 1)
-    chunk_dev_ms, _ = profile_ms(torch, lambda: model.decode_chunk(
-        qparams, {"token": prompt[0:1, 32:64]}, lane(0), c32, c32, gather))
-    tok = prompt[:, -1:].contiguous()
-    pos = torch.full((slots,), plen, dtype=torch.int32, device=dev)
-    step_ms = cuda_ms(torch, lambda i: model.decode_step(
-        qparams, {"token": tok}, cache, pos, gather), 10, 2)
-    step_dev_ms, step_kernels = profile_ms(torch, lambda: model.decode_step(
-        qparams, {"token": tok}, cache, pos, gather))
+    tm, cache, tok, pos = decode_timings(
+        torch, dev, model, qparams, gather,
+        [reqs[i].prompt for i in range(slots)], max_seq)
 
     # identical state through the kernels and through the plain versions
     def rel_l2(a, b):
@@ -2731,13 +2906,9 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
           f"(limit {F32_LIMIT}); readings: bf16 vs float64 sums kernels "
           f"{rel_k64:.4e} plain {rel_p64:.4e}; float32 with one K row "
           f"dropped {rel_fault:.4e}", flush=True)
-    return dict(out, arch=arch, launches=launches, tokens=n_tok,
+    return dict(out, **tm, arch=arch, launches=launches, tokens=n_tok,
                 serve_s=t_serve,
                 tok_per_s=n_tok / t_serve, startup_s=t_quant,
-                decode_step_ms=step_ms, chunk_ms=chunk_ms,
-                chunk_device_ms=chunk_dev_ms,
-                decode_step_device_ms=step_dev_ms,
-                decode_step_kernels=step_kernels[:12],
                 resident_bytes=q_bytes, fp32_bytes=fp_bytes,
                 peak_startup_bytes=peak_start,
                 peak_bytes=torch.cuda.max_memory_allocated(),
@@ -2749,25 +2920,32 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
                 stats=dict(sess.stats))
 
 
-# phase 4d: code-resident serving at 4-bit packed lanes (k_x = 2), the
-# path of K1's CUDA-core route; yi-6b's widths cut to PACKED_LAYERS layers
+# phase 4d: code-resident serving at 4-bit packed lanes (k_x = 2), K1 on
+# tensor cores; yi-6b's widths cut to PACKED_LAYERS layers. Phase 4e: the
+# same cut served in float32 activations against int8 codes, the path of
+# K1's CUDA-core route
 PACKED_LAYERS = 4
 
 
-def serve_packed(torch, dev, mods, arch="yi-6b"):
-    """Serve full-width ``arch`` cut to PACKED_LAYERS layers with weights
-    resident as 4-bit lanes (``quantize_params(k_x=2, pack=True)``): 4
-    requests of 64-token prompts, 16 new tokens each, through the paged
-    session. K1 runs on CUDA cores there (packed lanes); the counts are at
-    0 just before and read just after."""
+def serve_packed(torch, dev, mods, arch="yi-6b", dtype="bfloat16"):
+    """Serve full-width ``arch`` cut to PACKED_LAYERS layers, 4 requests of
+    64-token prompts, 16 new tokens each, through the paged session; the
+    counts at 0 just before and read just after. bfloat16 (phase 4d):
+    weights resident as 4-bit lanes (``quantize_params(k_x=2,
+    pack=True)``), K1 on tensor cores only. float32 (phase 4e): int8
+    codes (k_x = 6), K1 on CUDA cores only. Then the decode step's and the
+    chunk's wall and device time."""
     MM, paged, K = mods["MM"], mods["paged"], mods["K"]
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
-    from repro_torch.serve.quantized import params_nbytes, quantize_params
+    from repro_torch.serve.quantized import (make_dequant_gather,
+                                             params_nbytes, quantize_params)
     from repro_torch.serve.session import Request, ServeSession
     import numpy as np
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=PACKED_LAYERS)
+    packed = dtype == "bfloat16"
+    cfg = dataclasses.replace(get_config(arch), n_layers=PACKED_LAYERS,
+                              dtype=dtype)
     model = Model(cfg)
     slots, plen, max_new = 4, 64, 16
     rng = np.random.default_rng(1)
@@ -2775,11 +2953,9 @@ def serve_packed(torch, dev, mods, arch="yi-6b"):
         1, cfg.vocab_size, size=plen)], max_new_tokens=max_new)
         for _ in range(slots)]
     torch.cuda.synchronize()
-    MM.launches = MM.launches_tc = MM.launches_fma = MM.t_launches = 0
-    paged.launches = K.amax_launches = K.quantize_launches = 0
-    MM.plain_on_cuda = paged.plain_on_cuda = K.plain_on_cuda = 0
+    zero_serving_counts(MM, paged, K)
     params = model.init(seed=0, device=dev)
-    qparams = quantize_params(params, k_x=2, pack=True)
+    qparams = quantize_params(params, k_x=2 if packed else 6, pack=True)
     del params
     sess = ServeSession(model, qparams, slots=slots, max_seq=128,
                         paged=True, page_size=16, prefill_chunk=32, seed=0,
@@ -2790,28 +2966,46 @@ def serve_packed(torch, dev, mods, arch="yi-6b"):
     results = sess.drain()
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t0
-    launches = {"dequant_matmul": MM.launches_fma,
+    k1 = ("dequant_matmul_tc_packed" if packed else "dequant_matmul")
+    launches = {k1: MM.launches_tc_packed if packed else MM.launches_fma,
                 "gather_pages": paged.launches,
+                "gather_pages_kv": paged.launches_kv,
                 "amax_rows": K.amax_launches,
                 "uniform_quantize_rows": K.quantize_launches}
+    if packed:
+        launches["dequant_matmul_tc"] = MM.launches_tc
     plain = MM.plain_on_cuda + paged.plain_on_cuda + K.plain_on_cuda
+    what = "packed serving" if packed else "float32 serving"
     if any(n == 0 for n in launches.values()):
-        raise AssertionError(f"packed serving: a kernel of the path never "
+        raise AssertionError(f"{what}: a kernel of the path never "
                              f"launched: {launches}")
-    if plain or MM.launches_tc:
-        raise AssertionError(f"packed serving: {plain} plain calls on the "
-                             f"card, {MM.launches_tc} tensor-core K1 calls "
-                             f"on packed lanes")
+    # one K1 route only: tensor cores for bf16 on packed lanes, CUDA cores
+    # for float32
+    other = MM.launches_fma if packed else MM.launches_tc
+    if plain or other or (packed and MM.launches_tc != MM.launches_tc_packed):
+        raise AssertionError(f"{what}: {plain} plain calls on the card, "
+                             f"{MM.launches_fma} CUDA-core and "
+                             f"{MM.launches_tc} tensor-core K1 calls "
+                             f"({MM.launches_tc_packed} on packed lanes)")
     for h in handles:
         if len(results[h].tokens) != max_new:
-            raise AssertionError(f"packed serving: request {h} gave "
+            raise AssertionError(f"{what}: request {h} gave "
                                  f"{len(results[h].tokens)} tokens")
     n_tok = sum(len(results[h].tokens) for h in handles)
-    print(f"packed serving ({arch} x {PACKED_LAYERS} layers, 4-bit lanes): "
-          f"{n_tok} tokens in {t_serve:.3f} s; resident "
-          f"{params_nbytes(qparams)} B; launches {launches}", flush=True)
-    return dict(launches=launches, tokens=n_tok, serve_s=t_serve,
-                resident_bytes=params_nbytes(qparams), layers=PACKED_LAYERS)
+    tm, _, _, _ = decode_timings(torch, dev, model, qparams,
+                                 make_dequant_gather(),
+                                 [r.prompt for r in reqs], 128)
+    print(f"{what} ({arch} x {PACKED_LAYERS} layers, "
+          f"{'4-bit lanes' if packed else 'int8 codes'}): {n_tok} tokens in "
+          f"{t_serve:.3f} s; resident {params_nbytes(qparams)} B; launches "
+          f"{launches}; decode step {tm['decode_step_ms']:.3f} ms (device "
+          f"{tm['decode_step_device_ms']:.3f} ms, "
+          f"{tm['decode_step_device_ops']:.0f} device operations), chunk "
+          f"{tm['chunk_ms']:.3f} ms (device {tm['chunk_device_ms']:.3f} ms, "
+          f"{tm['chunk_device_ops']:.0f} operations)", flush=True)
+    return dict(tm, launches=launches, tokens=n_tok, serve_s=t_serve,
+                resident_bytes=params_nbytes(qparams), layers=PACKED_LAYERS,
+                dtype=dtype)
 
 
 def flash_path(torch, dev, FA):
@@ -2903,8 +3097,8 @@ def main() -> int:
 
     rows = check_quantize(torch, K, dev)
     torch.cuda.empty_cache()
-    rows.append(check_gather(torch, paged, dev, slots=4, npag=8,
-                             num_pages=32))
+    g_rows, g_table = check_gather(torch, paged, dev)
+    rows += g_rows
     mm_rows, mm_table, mm_timed, mm_noise = check_matmul(torch, MM, B, dev)
     torch.cuda.empty_cache()
     mt_row, mt_table, mt_timed = check_matmul_t(torch, MM, B, dev)
@@ -3010,6 +3204,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     pk = serve_packed(torch, dev, {"MM": MM, "paged": paged, "K": K})
     torch.cuda.empty_cache()
+    pf = serve_packed(torch, dev, {"MM": MM, "paged": paged, "K": K},
+                      dtype="float32")
+    torch.cuda.empty_cache()
     tr = train(torch, dev, mods)
     bl = alg1_baselines(torch, dev, mods)
     from repro_torch.configs import get_config
@@ -3046,6 +3243,7 @@ def main() -> int:
                    "flash": fp["launches_bf16"].get(r["name"], 0),
                    "flash_f32": fp["launches_f32"].get(r["name"], 0),
                    "serve_packed": pk["launches"].get(r["name"], 0),
+                   "serve_f32": pf["launches"].get(r["name"], 0),
                    "train": tr["launches"].get(r["name"], 0),
                    "dist": ds["launches"].get(r["name"], 0)}
         by_path.update({f"alg1_{m}": bl[m]["launches"].get(r["name"], 0)
@@ -3075,15 +3273,30 @@ def main() -> int:
         busy = sv["decode_step_device_ms"] / sv["decode_step_ms"]
         print(f"{sv['arch']} decode step: {sv['decode_step_device_ms']:.3f} ms "
               f"of device work in {sv['decode_step_ms']:.3f} ms (device idle "
-              f"{1 - busy:.1%}); by kernel:", flush=True)
+              f"{1 - busy:.1%}), {sv['decode_step_device_ops']:.0f} device "
+              f"operations a step (chunk: {sv['chunk_device_ops']:.0f}); by "
+              f"kernel:", flush=True)
         for name, t in sv["decode_step_kernels"]:
             print(f"  {t:9.4f} ms  {name[:90]}")
     for t in mm_timed:
         print(f"  K1 ({t['route']}) M={t['M']} K={t['K']} N={t['N']} "
-              f"{t['codes']}: {t['ms']:.4f} ms ({t['gbs']:.0f} GB/s) plain "
+              f"{t['codes']} {t['x_dtype']}: {t['ms']:.4f} ms ({t['gbs']:.0f} "
+              f"GB/s, {t['share_of_bound']:.1%} of bound) plain "
               f"{t['plain_ms']:.4f} library {t['library_ms']:.4f} (kernel/"
               f"library {t['factor']:.2f}) bound {t['bound_ms']:.4f} eager "
               f"call {t['eager_ms']:.4f}")
+    tp = mm_rows[1]
+    print(f"  K1 (tc, packed lanes) worst kernel/library factor "
+          f"{tp['worst_factor']:.2f} at {tp['worst_shape']}; 4-bit M = 4 "
+          f"{tp['ms']:.4f} ms ({tp['bound_ms'] / tp['ms']:.1%} of its "
+          f"{tp['bound_ms']:.4f} ms bound), library {tp['library_ms']:.4f}")
+    for t in g_table:
+        lib = (f"index_select {t['library_ms']:.4f}" if "library_ms" in t
+               else f"two index_select {t['two_index_select_ms']:.4f}")
+        print(f"  K2 {t['name']} at the {t['table']} table {t['shape']}: "
+              f"graph {t['ms']:.4f} ms ({t['share_of_bound']:.1%} of its "
+              f"{t['bound_ms']:.4f} ms bound) plain {t['plain_ms']:.4f} "
+              f"{lib}; eager call {t['eager_ms']:.4f}")
     tc = mm_rows[0]
     print(f"  K1 (tc) worst kernel/library factor {tc['worst_factor']:.2f} at "
           f"M, K, N = {tc['worst_shape']}; M = 32 (4096, 11008) "
@@ -3171,7 +3384,8 @@ def main() -> int:
                        k1_noise=mm_noise, k1_timed=mm_timed, serve=res,
                        k1t_cases=mt_table, k1t_timed=mt_timed,
                        flash_cases=fa_table, serve_gemma2=gem, flash_path=fp,
-                       serve_packed=pk,
+                       serve_packed=pk, serve_f32=pf,
+                       gather_timed=g_table,
                        train_kernels=t_table, train=tr,
                        wire_kernels=w_table, dist=ds,
                        encode_kernels=e_table, modes=md, wire_buffers=wb,

@@ -60,8 +60,9 @@ SIGNATURES = {
                            _I, _F, _F, _P],
     "rt_flash_attention_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _F, _F, _P],
-    # pool, ptab, out, B, npag, page_bytes, stream
-    "rt_gather_pages": [_P, _P, _P, _I, _I, _L, _P],
+    # pool_k, pool_v (or null), ptab, out_k, out_v (or null), B, npag,
+    # num_pages, page_bytes, stream
+    "rt_gather_pages": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _P],
     # x, out_bits, rows, n, stream
     "rt_amax_rows": [_P, _P, _I, _L, _P],
     # x, scale, codes, n, k_g, stream
@@ -93,10 +94,10 @@ SIGNATURES = {
     # payload, scales, table, half, out, out_n, n_rows, c, row_bytes, kind,
     # bits, k, stream
     "rt_decode_rows": [_P, _P, _P, _I, _P, _L, _I, _L, _L, _I, _I, _I, _P],
-    # x, codes, scales, n, nb, stream
-    "rt_blockwise_quantize": [_P, _P, _P, _L, _L, _P],
-    # x, payload, scales, n, nb, payload_bytes, stream
-    "rt_blockwise_encode": [_P, _P, _P, _L, _L, _L, _P],
+    # x, codes, scales, n, nb, log2 block, stream
+    "rt_blockwise_quantize": [_P, _P, _P, _L, _L, _I, _P],
+    # x, payload, scales, n, nb, payload_bytes, log2 block, stream
+    "rt_blockwise_encode": [_P, _P, _P, _L, _L, _L, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

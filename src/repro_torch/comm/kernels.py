@@ -608,7 +608,8 @@ def decode_rows(payload_rows: torch.Tensor, scales: torch.Tensor, codec,
 # #14 blockwise quantize and #8 blockwise encode (csrc/blockwise.cu)
 # ---------------------------------------------------------------------------
 
-BLOCK = 256    # the kernels' block; the plain versions take any power of 2
+BLOCK = 256          # the default block
+MAX_LOG_BLOCK = 30   # the kernels take blocks of 2^0 .. 2^30 elements
 
 
 def _blocks(flat: torch.Tensor, block: int) -> torch.Tensor:
@@ -624,9 +625,10 @@ def _blockwise_args(x: torch.Tensor, block: int, backend):
         raise ValueError(f"need a nonempty float32 tensor, got {x.dtype}")
     flat = x.reshape(-1).contiguous()
     bk = resolve_backend(backend, x)
-    if bk == "cuda" and block != BLOCK:
-        raise ValueError(f"the blockwise kernels take blocks of {BLOCK}, "
-                         f"got {block}")
+    if bk == "cuda" and (block < 1 or block & (block - 1)
+                         or block > 2 ** MAX_LOG_BLOCK):
+        raise ValueError(f"the blockwise kernels take power-of-two blocks "
+                         f"of 1 .. 2^{MAX_LOG_BLOCK} elements, got {block}")
     return flat, -(-flat.numel() // block), bk
 
 
@@ -644,6 +646,7 @@ def blockwise_quantize(x: torch.Tensor, block: int = BLOCK,
         scales = torch.empty(nb, dtype=torch.float32, device=x.device)
         err = lib.rt_blockwise_quantize(build.ptr(flat), build.ptr(codes),
                                         build.ptr(scales), flat.numel(), nb,
+                                        block.bit_length() - 1,
                                         build.stream_ptr(x.device))
         build.check(err, "blockwise_quantize")
         blockwise_quantize_launches += 1
@@ -667,7 +670,8 @@ def blockwise_encode(x: torch.Tensor, block: int = BLOCK,
         scales = torch.empty(nb, dtype=torch.float32, device=x.device)
         err = lib.rt_blockwise_encode(build.ptr(flat), build.ptr(payload),
                                       build.ptr(scales), flat.numel(), nb,
-                                      nbytes, build.stream_ptr(x.device))
+                                      nbytes, block.bit_length() - 1,
+                                      build.stream_ptr(x.device))
         build.check(err, "blockwise_encode")
         blockwise_encode_launches += 1
         return payload, scales

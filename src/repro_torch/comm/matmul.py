@@ -10,14 +10,17 @@ registers with the reference's exact cast chain and accumulate in fp32.
 K1 has two routes, picked by type (:func:`route`), each with its own
 launch counter:
 
-- ``"tc"``, tensor cores (``launches_tc``): bf16 activations against
-  int8/int16 codes whose weight is a bf16 number. One pass over the
-  codes for M <= 64, split across blocks along K where the columns alone
-  cannot fill the card (:func:`k1_plan`), the slices' partial sums folded
-  by a second kernel in a fixed order. Faster than ``torch.matmul`` on
-  the dequantized bf16 weight at M = 4 and 32 (``PERF.md``).
-- ``"fma"``, CUDA cores (``launches_fma``): float32 activations, float32
-  weights and the packed 2/3/4/6-bit lanes (the first K1 kernel).
+- ``"tc"``, tensor cores (``launches_tc``; the packed-lane calls among
+  them also in ``launches_tc_packed``): bf16 activations against
+  int8/int16 codes or packed 2/3/4/6-bit lanes whose weight is a bf16
+  number. One pass over the codes for M <= 64, split across blocks along
+  K where the columns alone cannot fill the card (:func:`k1_plan`), the
+  slices' partial sums folded by a second kernel in a fixed order. The
+  packed lanes are unpacked in registers as int8 codes are dequantized.
+  Faster than ``torch.matmul`` on the dequantized bf16 weight at M = 4
+  and 32 (``PERF.md``).
+- ``"fma"``, CUDA cores (``launches_fma``): float32 activations or
+  float32 weights, on any code type (the first K1 kernel).
 
 ``launches`` counts both. A failure of either route raises; neither
 falls back to the other or to the plain version. They cover every M, K,
@@ -41,6 +44,7 @@ from repro_torch.opt import grids
 
 launches = 0        # K1 launches, either route
 launches_tc = 0     # K1 on tensor cores (route "tc")
+launches_tc_packed = 0   # ... of them on packed 2/3/4/6-bit lanes
 launches_fma = 0    # K1 on CUDA cores (route "fma")
 t_launches = 0      # K1t (transposed) kernel launches
 plain_on_cuda = 0   # plain versions run on CUDA tensors
@@ -51,6 +55,7 @@ TC_TILE_K = 64      # K rows a pipeline stage
 TC_TILE_M = 64      # activation rows a block (in 16-row MMA tiles)
 TC_SLICE_ROWS = 32  # K slices are multiples of this many rows
 TC_MAX_SLICES = 128
+TC_CODE_BITS = (2, 3, 4, 6, 8, 16)   # packed lanes, int8, int16
 SMS = 132           # streaming multiprocessors of an H100 SXM
 # a block's fixed cost (pipeline fill, epilogue) in stages, for the
 # split-K choice
@@ -89,15 +94,16 @@ def _matmul_torch(x2, codes, scale, *, k_x, n, pack_bits, w_dtype,
 
 def route(x_dtype, codes_dtype, pack_bits, w_dtype, cast_dtype) -> str:
     """Which kernel computes K1 (``x @ W``) on CUDA tensors: ``"tc"``
-    (tensor cores) for bfloat16 activations against int8/int16 codes
-    whose weight is a bf16 number (the leaf or the pending cast is
-    bfloat16, so every product is exact in fp32); ``"fma"`` (CUDA cores,
-    fmaf) for float32 activations, packed 2/3/4/6-bit lanes and float32
-    weights."""
+    (tensor cores) for bfloat16 activations against int8/int16 codes or
+    packed uint8 lanes whose weight is a bf16 number (the leaf or the
+    pending cast is bfloat16, so every product is exact in fp32);
+    ``"fma"`` (CUDA cores, fmaf) for float32 activations and float32
+    weights (on tensor cores their product would be TF32)."""
     bf16_w = _dtype(w_dtype) == torch.bfloat16 or (
         cast_dtype is not None and _dtype(cast_dtype) == torch.bfloat16)
-    if (x_dtype == torch.bfloat16 and not pack_bits and bf16_w
-            and codes_dtype in (torch.int8, torch.int16)):
+    codes_ok = (codes_dtype == torch.uint8 if pack_bits
+                else codes_dtype in (torch.int8, torch.int16))
+    if x_dtype == torch.bfloat16 and bf16_w and codes_ok:
         return "tc"
     return "fma"
 
@@ -125,14 +131,16 @@ class K1Plan:
 
 def k1_plan(M: int, K: int, N: int, code_bits: int) -> K1Plan:
     """The tensor-core route's grid, a pure function of the shapes and the
-    code width (8 or 16 bits). Every code byte is read once for M <= 64
-    (one row tile). K is cut into slices of whole ``TC_SLICE_ROWS``
+    code width (2, 3, 4, 6, 8 or 16 bits; a stage holds
+    ``TC_TILE_K * tile_n * code_bits / 8`` code bytes, so narrower codes
+    weigh the workspace's traffic more). Every code byte is read once for
+    M <= 64 (one row tile). K is cut into slices of whole ``TC_SLICE_ROWS``
     units; their fp32 partial sums go to a workspace that a second pass
     folds in slice order. The count minimizes the waves of blocks over
     the SMs times a block's stages plus its fixed cost, plus the
     workspace's traffic, among the counts that give at least one block an
     SM where K allows."""
-    if code_bits not in (8, 16) or min(M, K, N) <= 0:
+    if code_bits not in TC_CODE_BITS or min(M, K, N) <= 0:
         raise ValueError(f"no tensor-core plan for M={M} K={K} N={N} "
                          f"{code_bits}-bit codes")
     m_tile = 16 if M <= 16 else 32 if M <= 32 else TC_TILE_M
@@ -162,12 +170,12 @@ def k1_plan(M: int, K: int, N: int, code_bits: int) -> K1Plan:
                   workspace=slices * M * N if slices > 1 else 0)
 
 
-def _matmul_tc(x2, codes, scale, *, k_x, out_dtype):
-    """K1 on tensor cores (route "tc")."""
-    global launches, launches_tc
+def _matmul_tc(x2, codes, scale, *, k_x, n, code_bits, out_dtype):
+    """K1 on tensor cores (route "tc"), codes (K, n) int8/int16 or (K,
+    payload) packed lanes of ``code_bits``."""
+    global launches, launches_tc, launches_tc_packed
     M, K = x2.shape
-    N = codes.shape[1]
-    code_bits = 8 * codes.element_size()
+    N = n
     plan = k1_plan(M, K, N, code_bits)
     out = torch.empty((M, N), dtype=out_dtype, device=x2.device)
     ws = (torch.empty(plan.workspace, dtype=torch.float32, device=x2.device)
@@ -181,6 +189,7 @@ def _matmul_tc(x2, codes, scale, *, k_x, out_dtype):
     build.check(err, "dequant_matmul_tc")
     launches += 1
     launches_tc += 1
+    launches_tc_packed += code_bits < 8
     return out
 
 
@@ -222,7 +231,8 @@ def _matmul_cuda(x2, codes, scale, *, k_x, n, pack_bits, w_dtype,
     scale = scale.to(torch.float32).reshape(()).contiguous()
     if not transpose and route(x2.dtype, codes.dtype, pack_bits, w_dtype,
                                cast_dtype) == "tc":
-        return _matmul_tc(x2, codes, scale, k_x=k_x, out_dtype=out_dtype)
+        return _matmul_tc(x2, codes, scale, k_x=k_x, n=n,
+                          code_bits=code_bits, out_dtype=out_dtype)
     lib = build.library()
     flags = (code_bits, k_x, int(x2.dtype == torch.bfloat16),
              int(_dtype(w_dtype) == torch.bfloat16),

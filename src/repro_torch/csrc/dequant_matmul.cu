@@ -17,37 +17,48 @@
 // 3.35 TB/s (data sheet, 700 W).
 //
 // Tensor-core route, rt_dequant_matmul_tc (namespace tc): bf16 activations
-// against int8 / int16 codes whose weight is a bf16 number (the leaf or
-// the pending cast is bf16), so mma.sync.m16n8k16 (bf16 operands, fp32
-// accumulators) forms exactly the plain version's products; only the
-// order of the sum differs. One pass over the codes for M <= 64: x is
-// staged in 16-row MMA tiles with zero rows past M, so each code byte is
-// read once per call (M > 64 takes a row tile per 64 rows). A block of 4
-// or 8 warps owns 128 or 256 output columns and a slice of K; codes and x
-// stream through a 4-stage ring of 16-byte cp.async copies (64 K rows a
-// stage). The resident layout stays the reference's (K, N) rows: a thread
-// reads one 4-byte (int8) or 8-byte (int16) word of 4 codes per staged row
-// from a bank-conflict-free padded row, and the warp's four n8 MMA tiles
-// are interleaved over its 32 columns (MMA column g of tile j is column
-// 4g + j), so those 4 codes are one B-fragment element of each tile and
-// the C fragment holds 8 contiguous output columns. Each code becomes its
-// weight without a conversion instruction (see Deq). The tensor cores sum
-// a stage's 64 products of an output from zero and the result is added to
-// the running fp32 sum with one IEEE rounding: the MMA's truncating
-// accumulation never sees the large partial sum, so the error stays at
-// fp32 summation-order size (the tier's floor). Where the column tiles
-// alone cannot fill the 132 SMs (wk, wv, wq, wo, gemma2's projections), K
-// is cut into slices (comm/matmul.py k1_plan) whose fp32 partial sums go
-// to a workspace; a second kernel folds them in a fixed order and rounds
-// once. No atomics: the result is deterministic.
+// against int8 / int16 codes or packed 2/3/4/6-bit lanes whose weight is a
+// bf16 number (the leaf or the pending cast is bf16), so
+// mma.sync.m16n8k16 (bf16 operands, fp32 accumulators) forms exactly the
+// plain version's products; only the order of the sum differs. One pass
+// over the codes for M <= 64: x is staged in 16-row MMA tiles with zero
+// rows past M, so each code byte is read once per call (M > 64 takes a row
+// tile per 64 rows). A block of 4 or 8 warps owns 128 or 256 output
+// columns and a slice of K; codes and x stream through a 4-stage ring of
+// 16-byte cp.async copies (64 K rows a stage). The resident layout stays
+// the reference's (K, N) rows, packed lanes included: a thread reads the
+// 4 codes of columns 4g .. 4g+3 of each staged row with one shared load
+// (4 bytes of int8, 8 of int16; a byte of 2-bit lanes, 2 bytes of 4-bit
+// ones, one whole 3-byte group of 6-bit lanes, half an 8-code 3-byte
+// group of 3-bit lanes, the last two through a funnel shift over two
+// words) from a row padded so that a warp's rows fall in distinct banks,
+// and the warp's four n8 MMA tiles are interleaved over its 32 columns
+// (MMA column g of tile j is column 4g + j), so those 4 codes are one
+// B-fragment element of each tile and the C fragment holds 8 contiguous
+// output columns. Each code
+// becomes its weight without a conversion instruction (see Deq): the
+// packed lanes are stored biased already (comm/bits.py), so their codes
+// splice into the mantissa as they are. The tensor cores sum a stage's 64
+// products of an output from zero and the result is added to the running
+// fp32 sum with one IEEE rounding: the MMA's truncating accumulation never
+// sees the large partial sum, so the error stays at fp32 summation-order
+// size (the tier's floor). Where the column tiles alone cannot fill the
+// 132 SMs (wk, wv, wq, wo, gemma2's projections), K is cut into slices
+// (comm/matmul.py k1_plan) whose fp32 partial sums go to a workspace; a
+// second kernel folds them in a fixed order and rounds once. No atomics:
+// the result is deterministic. Rows whose bytes are no multiple of 16 (a
+// ragged N of packed lanes, N = 1001) are staged byte by byte, masked at
+// the row's end; they stay on this route.
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W; PERF.md section
 // 6): (4096, 11008) int8 at M = 4 in 0.0247 ms (55 % of the byte bound)
 // and at M = 32 in 0.0318 ms, against 0.0341 and 0.0343 for torch.matmul
 // on the dequantized bf16 weight, which reads twice the bytes; gemma2's
-// small projections at M = 32 are latency-bound, up to 1.56x it.
+// small projections at M = 32 are latency-bound, up to 1.56x it. The
+// packed lanes' times are in PERF.md.
 //
 // CUDA-core route, rt_dequant_matmul (the first K1 kernel): float32
-// activations, float32 weights and the packed 2/3/4/6-bit lanes. A block
+// activations and float32 weights, on any code type (an fp32 product on
+// tensor cores would be TF32, not the plain version's). A block
 // owns 32 output columns of an M-tile and walks all of K; its 512 threads
 // split K into P interleaved partitions (lanes of a warp span the 32
 // columns, several K rows per warp load). K is walked in chunks of kChunk
@@ -484,7 +495,6 @@ namespace tc {
 constexpr int kBK = 64;        // K rows per pipeline stage
 constexpr int kStages = 4;
 constexpr int kXRow = kBK + 8;  // bf16 per staged x row (16 bytes of pad)
-constexpr int kCPad = 16;       // bytes of pad per staged code row
 
 struct TArgs {
   const __nv_bfloat16* x;
@@ -493,38 +503,59 @@ struct TArgs {
   void* out;
   float* ws;      // (slices, M, N) fp32 partial sums when K is split
   int M, K, N;
+  long long row_bytes;  // bytes of one code row: N codes of BITS bits
   int k_slice;    // K rows per slice, a multiple of 32
   int k_x;
   float inv_pow2;
   int vec_x;      // x rows 16-byte aligned: cp.async, else element loads
   int vec_c;      // code rows 16-byte aligned
   int vec_o;      // output rows 16-byte aligned
+  int out_bf16;   // out is bf16 (else float32)
 };
 
+// A staged code row's stride: its bytes plus pad (a multiple of 16) such
+// that rows 2t (t = 0..3), which one warp-wide load reads, start 8 banks
+// apart: two rows are stride / 2 words, 8 or 24 mod 32 banks. A thread's
+// word(s) of a row then share no bank with another row's (at most 8 words
+// a row a warp: 6-bit lanes, 4 bytes of int8).
+constexpr int crow_of(int row) {
+  int c = row + 16;
+  while ((c / 2) % 32 != 8 && (c / 2) % 32 != 24) c += 16;
+  return c;
+}
+
 // a block: NW warps of 32 output columns each (NW = 4 or 8). Shared
-// memory of one stage: codes [kBK][32 NW CB + kCPad] bytes, then x
-// [16 MT][kXRow] bf16 (rows past M stay zero)
-template <int CB, int MT, int NW>
+// memory of one stage: codes [kBK][CROW] bytes (a row: the block's 32 NW
+// codes of BITS bits, then pad), then x [16 MT][kXRow] bf16 (rows past M
+// stay zero). The ring is 4 stages at every code width: narrower codes
+// stage fewer bytes for the same MMA work, and more or longer stages for
+// them (6 to 12 stages, 128 or 256 rows) did not move the time.
+template <int BITS, int MT, int NW>
 struct TLayout {
   static constexpr int THREADS = 32 * NW;
   static constexpr int BN = 32 * NW;
-  static constexpr int CROW = BN * CB + kCPad;
+  static constexpr int RB = BN * BITS / 8;   // code bytes of a staged row
+  static constexpr int CROW = crow_of(RB);
   static constexpr int CBYTES = kBK * CROW;
   static constexpr int XBYTES = 16 * MT * kXRow * 2;
   static constexpr int STAGE = CBYTES + XBYTES;
   static constexpr int SMEM = kStages * STAGE;
+  static_assert(RB % 16 == 0, "whole 16-byte copies a staged row");
+  static_assert(SMEM <= 232448, "a block's shared memory on sm_90");
 };
 
 // The weight of a code, the reference's cast chain (c / 2^k) * s up to
 // the final bf16 rounding (done when packing), for every scale s. A code
-// biased to unsigned u (u = c + 128 for int8, c + 32768 for int16) is
-// spliced by one byte_perm into the low mantissa of a float whose
-// exponent field is 150 - k: that float is (2^23 + u) 2^-k exactly, so
-// subtracting the exact constant (2^23 + bias) 2^-k leaves c 2^-k exactly,
-// and one multiply by s rounds it once, as the chain does. No int->float
-// conversion (a quarter-rate instruction) and no branch on the scale.
+// biased to unsigned u (u = c + 128 for int8, c + 32768 for int16; the
+// packed lanes are stored biased, u = c + 2^(BITS-1)) is spliced into the
+// low mantissa of a float whose exponent field is 150 - k: that float is
+// (2^23 + u) 2^-k exactly, so subtracting the exact constant
+// (2^23 + bias) 2^-k leaves c 2^-k exactly, and one multiply by s rounds
+// it once, as the chain does. No int->float conversion (a quarter-rate
+// instruction) and no branch on the scale.
 struct Deq {
   uint32_t hi;   // bytes 2, 3 of the float: exponent field 150 - k
+  uint32_t hi32; // the whole exponent word, (150 - k) << 23
   float base;    // (2^23 + bias) 2^-k
   float s;
   __device__ __forceinline__ float operator()(uint32_t bits) const {
@@ -532,34 +563,48 @@ struct Deq {
   }
 };
 
-// the four codes at columns 4g .. 4g+3 of one staged code row, as weights
-template <int CB>
-__device__ __forceinline__ void weights4(const uint8_t* p, const Deq& q,
-                                         float (&w)[4]) {
-  if constexpr (CB == 1) {
-    const uint32_t v = *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
+// The four codes at columns 4g .. 4g+3 of one staged code row, as
+// weights; `at` is the thread's offset into the row: bytes for int8 /
+// int16 (4g CB), bits for the packed lanes (4g BITS).
+template <int BITS>
+__device__ __forceinline__ void weights4(const uint8_t* row, int at,
+                                         const Deq& q, float (&w)[4]) {
+  if constexpr (BITS == 8) {
+    const uint32_t v =
+        *reinterpret_cast<const uint32_t*>(row + at) ^ 0x80808080u;
     // byte 0: code j; byte 1: 0 (q.hi's byte 2); bytes 2, 3: q.hi's 0, 1
 #pragma unroll
     for (int j = 0; j < 4; ++j) w[j] = q(__byte_perm(v, q.hi, 0x5460u + j));
-  } else {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
+  } else if constexpr (BITS == 16) {
+    const uint2 u = *reinterpret_cast<const uint2*>(row + at);
     const uint32_t v0 = u.x ^ 0x80008000u, v1 = u.y ^ 0x80008000u;
     w[0] = q(__byte_perm(v0, q.hi, 0x5410u));
     w[1] = q(__byte_perm(v0, q.hi, 0x5432u));
     w[2] = q(__byte_perm(v1, q.hi, 0x5410u));
     w[3] = q(__byte_perm(v1, q.hi, 0x5432u));
+  } else {
+    // 4 BITS bits from bit `at`: one aligned word for 2- and 4-bit lanes
+    // (a byte, a half word), a funnel shift over two for 3 and 6 (half of
+    // an 8-code group, or one whole 4-code group, of 3 bytes)
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(row) + (at >> 5);
+    uint32_t v;
+    if constexpr (BITS == 2 || BITS == 4) v = p[0] >> (at & 31);
+    else v = __funnelshift_r(p[0], p[1], at & 31);
+    constexpr uint32_t kMask = (1u << BITS) - 1u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) w[j] = q(q.hi32 | ((v >> (j * BITS)) & kMask));
   }
 }
 
 // Block (n tile, m tile, K slice). Warp w owns the block's columns
-// 32w .. 32w+31, laid out over its four n8 MMA tiles so that one 4-byte
-// (int8) or 8-byte (int16) shared load gives a thread one code of each:
-// MMA column g of tile j is block column 32w + 4g + j. The C fragment then
-// holds 8 contiguous output columns 8t .. 8t+7 a row.
-template <int CB, int MT, int NW, typename OT>
+// 32w .. 32w+31, laid out over its four n8 MMA tiles so that one shared
+// load gives a thread one code of each: MMA column g of tile j is block
+// column 32w + 4g + j. The C fragment then holds 8 contiguous output
+// columns 8t .. 8t+7 a row.
+template <int BITS, int MT, int NW>
 __global__ void __launch_bounds__(32 * NW)
 k1_tc_kernel(const TArgs a) {
-  using L = TLayout<CB, MT, NW>;
+  using L = TLayout<BITS, MT, NW>;
   constexpr int kThreads = L::THREADS, kBN = L::BN;
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -570,36 +615,42 @@ k1_tc_kernel(const TArgs a) {
   const int kb = blockIdx.z * a.k_slice;
   const int ke = min(a.K, kb + a.k_slice);
   const int ntiles = (ke - kb + kBK - 1) / kBK;
+  // the block's first code byte of a row (n0 is a multiple of 128, so of
+  // every packing group)
+  const long long c0 = (long long)n0 * BITS / 8;
 
-  for (int i = tid; i < L::SMEM / 16; i += kThreads)
-    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
-  __syncthreads();
+  // x rows past M are never loaded: zero them once in every stage
+  constexpr int XROW16 = kXRow * 2 / 16;   // 16-byte words of an x row
+  for (int i = mrows * XROW16 + tid; i < 16 * MT * XROW16; i += kThreads)
+#pragma unroll
+    for (int st = 0; st < kStages; ++st)
+      reinterpret_cast<uint4*>(smem + st * L::STAGE + L::CBYTES)[i] =
+          make_uint4(0u, 0u, 0u, 0u);
 
-  // stage tile kt of this slice: codes rows k0 .. k0+kBK-1 (zeros past
-  // the slice and past N), x columns likewise (zeros past the slice; the
-  // slice ends on a multiple of 32 rows or at K)
+  // stage tile kt of this slice: code rows k0 .. k0+kBK-1 (zeros past
+  // the slice and past the row's bytes), x columns likewise (zeros past
+  // the slice; the slice ends on a multiple of 32 rows or at K)
   auto load = [&](int kt) {
     uint8_t* cs = smem + (kt % kStages) * L::STAGE;
     __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(cs + L::CBYTES);
     const int k0 = kb + kt * kBK;
-    constexpr int CCH = kBN * CB / 16;  // 16-byte chunks of a code row
+    constexpr int CCH = L::RB / 16;  // 16-byte chunks of a code row
     for (int i = tid; i < kBK * CCH; i += kThreads) {
       const int r = i / CCH, c = i % CCH;
-      const int k = k0 + r, col = n0 + c * (16 / CB);
+      const int k = k0 + r;
+      const long long at = c0 + c * 16;   // byte of the code row
       uint8_t* dst = cs + r * L::CROW + c * 16;
-      if (a.vec_c) {
-        const bool in = k < ke && col < a.N;
-        cp_async16(dst,
-                   in ? a.codes + ((long long)k * a.N + col) * CB : a.codes,
+      if (a.vec_c) {   // rows of whole 16-byte words: a chunk is in or out
+        const bool in = k < ke && at < a.row_bytes;
+        cp_async16(dst, in ? a.codes + (long long)k * a.row_bytes + at
+                           : a.codes,
                    in ? 16 : 0);
       } else {
 #pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          const int cc = col + e / CB;
-          dst[e] = (k < ke && cc < a.N)
-              ? __ldg(a.codes + ((long long)k * a.N + cc) * CB + e % CB)
+        for (int e = 0; e < 16; ++e)
+          dst[e] = (k < ke && at + e < a.row_bytes)
+              ? __ldg(a.codes + (long long)k * a.row_bytes + at + e)
               : (uint8_t)0;
-        }
       }
     }
     constexpr int XCH = kBK / 8;  // 16-byte chunks of an x row
@@ -621,8 +672,16 @@ k1_tc_kernel(const TArgs a) {
 
   Deq q;
   q.hi = (uint32_t)(150 - a.k_x) << 7;   // (150 - k) << 23, shifted down 16
-  q.base = (8388608.0f + (CB == 1 ? 128.0f : 32768.0f)) * a.inv_pow2;
+  q.hi32 = (uint32_t)(150 - a.k_x) << 23;
+  q.base = (8388608.0f + (BITS == 8    ? 128.0f
+                          : BITS == 16 ? 32768.0f
+                                       : (float)(1 << (BITS - 1)))) *
+           a.inv_pow2;
   q.s = __ldg(a.scale);
+  // the thread's offset into a staged code row: bytes (int8 / int16) or
+  // bits (packed lanes) of column 32 warp + 4g
+  const int at = BITS >= 8 ? (warp * 32 + 4 * g) * (BITS / 8)
+                           : (warp * 32 + 4 * g) * BITS;
 
   float acc[MT][4][4];
 #pragma unroll
@@ -663,11 +722,10 @@ k1_tc_kernel(const TArgs a) {
       uint32_t bf[4][2];
 #pragma unroll
       for (int hb = 0; hb < 2; ++hb) {
-        const uint8_t* r0 =
-            cs + (kk + 2 * t + 8 * hb) * L::CROW + (warp * 32 + 4 * g) * CB;
+        const uint8_t* r0 = cs + (kk + 2 * t + 8 * hb) * L::CROW;
         float w0[4], w1[4];
-        weights4<CB>(r0, q, w0);
-        weights4<CB>(r0 + L::CROW, q, w1);
+        weights4<BITS>(r0, at, q, w0);
+        weights4<BITS>(r0 + L::CROW, at, q, w1);
 #pragma unroll
         for (int j = 0; j < 4; ++j) bf[j][hb] = pack_bf16(w0[j], w1[j]);
       }
@@ -705,8 +763,9 @@ k1_tc_kernel(const TArgs a) {
       }
       const long long off = (long long)row * a.N + col0;
       const bool whole = a.vec_o && col0 + 8 <= a.N;
-      if (split) {
-        float* dst = a.ws + (long long)blockIdx.z * a.M * a.N + off;
+      if (split || !a.out_bf16) {
+        float* dst = split ? a.ws + (long long)blockIdx.z * a.M * a.N + off
+                           : static_cast<float*>(a.out) + off;
         if (whole) {
           float4* d4 = reinterpret_cast<float4*>(dst);
           d4[0] = make_float4(v[0], v[1], v[2], v[3]);
@@ -716,17 +775,15 @@ k1_tc_kernel(const TArgs a) {
             if (col0 + e < a.N) dst[e] = v[e];
         }
       } else {
-        OT* dst = static_cast<OT*>(a.out) + off;
-        if constexpr (sizeof(OT) == 2) {
-          if (whole) {
-            *reinterpret_cast<uint4*>(dst) =
-                make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
-                           pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
-            continue;
-          }
+        __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(a.out) + off;
+        if (whole) {
+          *reinterpret_cast<uint4*>(dst) =
+              make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                         pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+        } else {
+          for (int e = 0; e < 8; ++e)
+            if (col0 + e < a.N) store(dst + e, v[e]);
         }
-        for (int e = 0; e < 8; ++e)
-          if (col0 + e < a.N) store(dst + e, v[e]);
       }
     }
   }
@@ -751,40 +808,44 @@ __global__ void k1_fold_kernel(const float* __restrict__ ws,
   }
 }
 
-template <int CB, int MT, int NW, typename OT>
+template <int BITS, int MT, int NW>
 int launch_tc(const TArgs& a, int slices, cudaStream_t stream) {
-  using L = TLayout<CB, MT, NW>;
+  using L = TLayout<BITS, MT, NW>;
   static bool sized = false;   // once per instance: the shared-memory cap
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
-        k1_tc_kernel<CB, MT, NW, OT>,
+        k1_tc_kernel<BITS, MT, NW>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
     if (err != cudaSuccess) return (int)err;
     sized = true;
   }
   dim3 grid((a.N + L::BN - 1) / L::BN, (a.M + 16 * MT - 1) / (16 * MT),
             slices);
-  k1_tc_kernel<CB, MT, NW, OT><<<grid, L::THREADS, L::SMEM, stream>>>(a);
+  k1_tc_kernel<BITS, MT, NW><<<grid, L::THREADS, L::SMEM, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || slices == 1) return (int)err;
   const long long mn = (long long)a.M * a.N;
   const int blocks = (int)std::min<long long>((mn + 255) / 256, 132 * 8);
-  k1_fold_kernel<OT><<<blocks, 256, 0, stream>>>(
-      a.ws, static_cast<OT*>(a.out), slices, mn);
+  if (a.out_bf16)
+    k1_fold_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(
+        a.ws, static_cast<__nv_bfloat16*>(a.out), slices, mn);
+  else
+    k1_fold_kernel<float><<<blocks, 256, 0, stream>>>(
+        a.ws, static_cast<float*>(a.out), slices, mn);
   return (int)cudaGetLastError();
 }
 
-template <int CB, int NW, typename OT>
+template <int BITS, int NW>
 int launch_tc_m(const TArgs& a, int slices, cudaStream_t stream) {
-  if (a.M <= 16) return launch_tc<CB, 1, NW, OT>(a, slices, stream);
-  if (a.M <= 32) return launch_tc<CB, 2, NW, OT>(a, slices, stream);
-  return launch_tc<CB, 4, NW, OT>(a, slices, stream);
+  if (a.M <= 16) return launch_tc<BITS, 1, NW>(a, slices, stream);
+  if (a.M <= 32) return launch_tc<BITS, 2, NW>(a, slices, stream);
+  return launch_tc<BITS, 4, NW>(a, slices, stream);
 }
 
-template <int CB, typename OT>
+template <int BITS>
 int launch_tc_n(const TArgs& a, int tile_n, int slices, cudaStream_t stream) {
-  return tile_n == 256 ? launch_tc_m<CB, 8, OT>(a, slices, stream)
-                       : launch_tc_m<CB, 4, OT>(a, slices, stream);
+  return tile_n == 256 ? launch_tc_m<BITS, 8>(a, slices, stream)
+                       : launch_tc_m<BITS, 4>(a, slices, stream);
 }
 
 }  // namespace tc
@@ -880,8 +941,9 @@ extern "C" int rt_dequant_matmul_t(const void* x, const void* codes,
 }
 
 
-// K1 on tensor cores. x (M, K) bf16; codes (K, N) int8 (code_bits 8) or
-// int16 (16); out (M, N) bf16 (out_bf16) or float32; ws (slices, M, N)
+// K1 on tensor cores. x (M, K) bf16; codes (K, N) int8 (code_bits 8),
+// int16 (16) or rows of packed 2/3/4/6-bit lanes (payload_nbytes(N, bits)
+// bytes each); out (M, N) bf16 (out_bf16) or float32; ws (slices, M, N)
 // float32 when slices > 1 (unused otherwise). Blocks of tile_n (128 or
 // 256) output columns; K is cut into slices of k_slice rows (a multiple
 // of 32), the last one ragged; the wrapper's plan (comm/matmul.py
@@ -898,7 +960,16 @@ extern "C" int rt_dequant_matmul_tc(const void* x, const void* codes,
       (slices > 1 && ws == nullptr) || (M + 63) / 64 > 65535 ||
       k_x < 0 || k_x > 14 || (tile_n != 128 && tile_n != 256))
     return (int)cudaErrorInvalidValue;
-  const int cb = code_bits / 8;
+  long long row_bytes;
+  switch (code_bits) {
+    case 16: row_bytes = 2LL * N; break;
+    case 8: row_bytes = N; break;
+    case 6: row_bytes = (long long)((N + 3) / 4) * 3; break;
+    case 4: row_bytes = (long long)((N + 1) / 2); break;
+    case 3: row_bytes = (long long)((N + 7) / 8) * 3; break;
+    case 2: row_bytes = (long long)((N + 3) / 4); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   tc::TArgs a;
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.codes = static_cast<const uint8_t*>(codes);
@@ -906,22 +977,22 @@ extern "C" int rt_dequant_matmul_tc(const void* x, const void* codes,
   a.out = out;
   a.ws = static_cast<float*>(ws);
   a.M = M; a.K = K; a.N = N;
+  a.row_bytes = row_bytes;
   a.k_slice = k_slice;
   a.k_x = k_x;
   a.inv_pow2 = 1.0f / (float)(1 << k_x);
   a.vec_x = K % 8 == 0 && (uintptr_t)x % 16 == 0;
-  a.vec_c = ((long long)N * cb) % 16 == 0 && (uintptr_t)codes % 16 == 0;
+  a.vec_c = row_bytes % 16 == 0 && (uintptr_t)codes % 16 == 0;
   a.vec_o = N % 8 == 0 && (uintptr_t)out % 16 == 0 &&
             (uintptr_t)ws % 16 == 0;
+  a.out_bf16 = out_bf16;
   cudaStream_t s = (cudaStream_t)stream;
   switch (code_bits) {
-    case 8:
-      return out_bf16 ? tc::launch_tc_n<1, __nv_bfloat16>(a, tile_n, slices, s)
-                      : tc::launch_tc_n<1, float>(a, tile_n, slices, s);
-    case 16:
-      return out_bf16 ? tc::launch_tc_n<2, __nv_bfloat16>(a, tile_n, slices, s)
-                      : tc::launch_tc_n<2, float>(a, tile_n, slices, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 16: return tc::launch_tc_n<16>(a, tile_n, slices, s);
+    case 8: return tc::launch_tc_n<8>(a, tile_n, slices, s);
+    case 6: return tc::launch_tc_n<6>(a, tile_n, slices, s);
+    case 4: return tc::launch_tc_n<4>(a, tile_n, slices, s);
+    case 3: return tc::launch_tc_n<3>(a, tile_n, slices, s);
+    default: return tc::launch_tc_n<2>(a, tile_n, slices, s);
   }
 }

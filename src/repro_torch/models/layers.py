@@ -10,7 +10,7 @@ attention; otherwise a query at position p sees the keys at positions
 ``> p - window`` (gemma2's local layers).
 Attention here is plain PyTorch (training over the whole sequence, and
 decode against the cache view); the kernels the serving path runs sit
-behind :func:`pmatmul` (K1) and ``gather_pages`` (K2). Every function
+behind :func:`pmatmul` (K1) and ``gather_pages_kv`` (K2). Every function
 is differentiable by autograd, including ``pmatmul``'s cast of a float32
 weight to the activation dtype.
 """

@@ -27,7 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.serve.paged import gather_pages
+from repro_torch.serve.paged import gather_pages_kv
 from repro_torch.serve.quantized import layer_slice
 from repro_torch.tree import tree_map
 
@@ -311,8 +311,8 @@ class Model:
                 pk, pv = cache["pk"][i], cache["pv"][i]
                 write(pk, k.reshape(Bn * S, K, hd))
                 write(pv, v.reshape(Bn * S, K, hd))
-                kc = gather_pages(pk, cache["ptab"], backend=backend)
-                vc = gather_pages(pv, cache["ptab"], backend=backend)
+                kc, vc = gather_pages_kv(pk, pv, cache["ptab"],
+                                         backend=backend)
             else:
                 kc, vc = cache["k"][i], cache["v"][i]
                 write(kc, k.reshape(Bn * S, K, hd))

@@ -111,6 +111,96 @@ def test_quantize_blockwise(n):
     np.testing.assert_array_equal(a[:, 0] * np.float32(1 / 256), ts.numpy())
 
 
+def order_ulps(block: int) -> int:
+    """Ulps by which two float32 sums of the same ``block`` nonnegative
+    terms in two orders can differ: the reference's XLA sum on the CPU
+    (sequential for rows of 32, each partial sum within (block - 1) u of
+    its exact value) against the port's halving tree (within log2(block)
+    u), u = 2^-24 of the sum, which is under one ulp of it.
+    BLOCK_SCALE_ULPS is the tier measured at blocks of 256; at 32 the
+    two orders differ by 5 ulps on some inputs (tests below)."""
+    return block - 1 + block.bit_length() - 1
+
+
+def order_gate(want_codes, want_scales, got_codes, got_scales, block):
+    """Codes (or packed payloads) bitwise, scales within
+    ``order_ulps(block)``."""
+    return (np.array_equal(np.asarray(want_codes), np.asarray(got_codes))
+            and np.asarray(want_scales).shape == np.asarray(got_scales).shape
+            and bool((_ulps(want_scales, got_scales)
+                      <= order_ulps(block)).all()))
+
+
+def _tree_scales(x, block):
+    """The port's order, the halving tree, spelled out in numpy float32."""
+    a = np.abs(np.pad(x, (0, -(-x.size // block) * block - x.size))
+               .reshape(-1, block))
+    while a.shape[1] > 1:
+        h = a.shape[1] // 2
+        a = a[:, :h] + a[:, h:]
+    return a[:, 0] * np.float32(1 / block)
+
+
+@pytest.mark.parametrize("block", [32, 64, 1024])
+@pytest.mark.parametrize("n", [1, 31, 1000, 4099, 70001])
+def test_quantize_blockwise_other_blocks(block, n):
+    """#14's plain version at blocks other than 256 (the kernel takes every
+    power of two): codes bitwise the reference's, scales bitwise the
+    halving tree in numpy and within ``order_ulps`` of XLA's sum order;
+    the reference's Pallas kernel (interpret mode) agrees."""
+    x = _x(n, n + block, "log")
+    x[::11] = 0.0
+    jc, js = JE.quantize_blockwise(jnp.asarray(x), block, backend="jnp")
+    tc, ts = TE.quantize_blockwise(torch.from_numpy(x), block)
+    assert tuple(tc.shape) == (-(-n // block), block)
+    np.testing.assert_array_equal(_tree_scales(x, block), ts.numpy())
+    assert order_gate(jc, js, tc.numpy(), ts.numpy(), block)
+    print(f"block {block}, n={n}: scales off XLA's by at most "
+          f"{int(_ulps(js, ts.numpy()).max())} ulps")
+    if n <= 4099:
+        pc, ps = JE.quantize_blockwise(jnp.asarray(x), block,
+                                       backend="pallas")
+        assert order_gate(pc, ps, tc.numpy(), ts.numpy(), block)
+
+
+@pytest.mark.parametrize("block", [32, 64, 1024])
+@pytest.mark.parametrize("n", [1, 7, 4099, 70001])
+def test_blockwise_encode_other_blocks(block, n):
+    """#8's plain version at blocks other than 256 against the reference's
+    ``BlockwiseCodec(block).encode``: payload bitwise, scales bitwise the
+    halving tree and within ``order_ulps`` of the reference's."""
+    jc = J.BlockwiseCodec(block=block)
+    x = _x(n, n + 2 * block, "log")
+    jp = jc.encode(jnp.asarray(x), backend="jnp")
+    tp, ts = TK.blockwise_encode(torch.from_numpy(x), block)
+    assert tp.shape == (T.BlockwiseCodec(block=block).payload_nbytes(n),)
+    np.testing.assert_array_equal(_tree_scales(x, block), ts.numpy())
+    assert order_gate(jp.payload, jp.scale, tp.numpy(), ts.numpy(), block)
+
+
+@pytest.mark.parametrize("block", [32, 1024])
+@pytest.mark.parametrize("fault", ["flipped code", "scale of the next block",
+                                   "one element dropped"])
+def test_order_gate_fails_on_planted_fault(block, fault):
+    """The wider tier of other blocks still fails a flipped code, a scale
+    taken from the next block, and a block sum missing one element."""
+    x = _x(70001, 3, "log")
+    jc, js = JE.quantize_blockwise(jnp.asarray(x), block, backend="jnp")
+    tc, ts = TE.quantize_blockwise(torch.from_numpy(x), block)
+    tc, ts = tc.numpy().copy(), ts.numpy().copy()
+    assert order_gate(jc, js, tc, ts, block)
+    if fault == "flipped code":
+        i = np.flatnonzero(tc)[0]
+        tc.reshape(-1)[i] = -tc.reshape(-1)[i]
+    elif fault == "scale of the next block":
+        ts = np.roll(ts, -1)
+    else:
+        y = x.copy()
+        y[::block] = 0.0               # each block's first element
+        ts = _tree_scales(y, block)
+    assert not order_gate(jc, js, tc, ts, block)
+
+
 @pytest.mark.parametrize("n", [1, 7, 256, 4099, 70001])
 def test_blockwise_encode(n):
     jc, tc = J.BlockwiseCodec(), T.BlockwiseCodec()

@@ -3,8 +3,9 @@ card (marker ``cuda``; skipped where there is no GPU).
 
 Run on a GPU machine with ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda_kernels.py``. Tiers: quantize and dequantize codes,
-scales, page gathers, the Adam+EF passes (moments, Delta+e, amax,
-codes, residuals, decoded updates), the wire's encodes and decodes
+scales, page gathers (one pool, and a layer's K and V in one launch),
+the Adam+EF passes (moments, Delta+e, amax, codes, residuals, decoded
+updates), the wire's encodes and decodes
 (K7, #5, K6) and the blockwise codes and scales (#14, #8) bitwise, and
 the baselines' training steps through their kernels; the dequant-matmul
 in both orientations (K1, K1t) within float32 summation-order tolerance
@@ -61,9 +62,38 @@ def test_gather_pages_bitwise(dev, dtype):
     pool = torch.randn(10, 16, 4, 128, generator=g, device=dev).to(dtype)
     tab = torch.tensor([[3, 1, 9, 10], [0, 10, 10, 10], [7, 2, 5, 4]],
                        dtype=torch.int32, device=dev)
+    n0 = paged.launches
     a = paged.gather_pages(pool, tab, backend="cuda")
+    assert paged.launches == n0 + 1      # one launch, the clamp inside
     b = paged.gather_pages(pool, tab, backend="torch")
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("slots,npag,pages,ps", [
+    (3, 4, 10, 16),      # the smoke table, sentinels among the ids
+    (4, 8, 32, 16),      # the serving cell's table
+    (4, 264, 1056, 16),  # gemma2's 4224-position slots
+    (2, 3, 7, 5),        # bf16 pages of 120 bytes: no whole 16-byte words
+])
+def test_gather_pages_kv_bitwise(dev, dtype, slots, npag, pages, ps):
+    """K and V of a layer in one launch, each bitwise the plain gather
+    (sentinel ids past the pool and below 0 read a clamped page)."""
+    from repro_torch.serve import paged
+    g = torch.Generator(device=dev).manual_seed(slots * npag + ps)
+    hd = 128 if ps == 16 else 3
+    pk = torch.randn(pages, ps, 4, hd, generator=g, device=dev).to(dtype)
+    pv = torch.randn(pages, ps, 4, hd, generator=g, device=dev).to(dtype)
+    tab = torch.randint(0, pages, (slots, npag), generator=g, device=dev,
+                        dtype=torch.int32)
+    tab[0, npag // 2:] = pages           # RELEASED sentinel tail
+    tab[-1, 0] = -1
+    n0, kv0 = paged.launches, paged.launches_kv
+    kc, vc = paged.gather_pages_kv(pk, pv, tab, backend="cuda")
+    assert (paged.launches, paged.launches_kv) == (n0 + 1, kv0 + 1)
+    assert torch.equal(kc, paged.gather_pages(pk, tab, backend="torch"))
+    assert torch.equal(vc, paged.gather_pages(pv, tab, backend="torch"))
+    assert paged.launches == n0 + 1
 
 
 @pytest.mark.parametrize("bits", [0, 16, 2, 3, 4, 6])
@@ -537,22 +567,29 @@ def test_fused_encode_bitwise(dev, kind, k, absolute, c, n_rows):
                     K.decode_rows(pk, scales, codec, c, backend="torch"))
 
 
+@pytest.mark.parametrize("block", [1, 2, 4, 8, 32, 64, 128, 256, 1024,
+                                   4096, 2 ** 16])
 @pytest.mark.parametrize("n", [1, 255, 256, 257, 4099, 1000003])
-def test_blockwise_kernels_bitwise(dev, n):
+def test_blockwise_kernels_bitwise(dev, n, block):
     """#14 (codes, scales) and #8 (2-bit payload, scales) against their
-    plain versions, the tail block padded, zeros among the inputs, and an
-    unaligned view of x (scalar loads)."""
+    plain versions at every shape of the kernel's layout (a lane holding
+    several blocks, a block across 1 .. 32 lanes, across chunks of a
+    lane), the tail block padded, zeros among the inputs, and an
+    unaligned view of x (scalar loads); one launch a call."""
     from repro_torch.comm import kernels as K
-    gen = torch.Generator(device=dev).manual_seed(n)
+    gen = torch.Generator(device=dev).manual_seed(n + block)
     base = torch.randn(n + 1, generator=gen, device=dev) * 3.0
     base[::7] = 0.0
     for x in (base[:n], base[1:]):
-        for a, b in zip(K.blockwise_quantize(x, backend="cuda"),
-                        K.blockwise_quantize(x, backend="torch")):
+        n14, n8 = K.blockwise_quantize_launches, K.blockwise_encode_launches
+        for a, b in zip(K.blockwise_quantize(x, block, backend="cuda"),
+                        K.blockwise_quantize(x, block, backend="torch")):
             _bits_equal(a, b)
-        for a, b in zip(K.blockwise_encode(x, backend="cuda"),
-                        K.blockwise_encode(x, backend="torch")):
+        for a, b in zip(K.blockwise_encode(x, block, backend="cuda"),
+                        K.blockwise_encode(x, block, backend="torch")):
             _bits_equal(a, b)
+        assert (K.blockwise_quantize_launches,
+                K.blockwise_encode_launches) == (n14 + 1, n8 + 1)
 
 
 @pytest.mark.parametrize("mode", ["dp_adam", "efadam", "terngrad", "ef_sgd"])
@@ -701,18 +738,28 @@ def test_codec_primitives_on_cuda(dev, spec):
         _bits_equal(a, b)
 
 
-def test_blockwise_block_other_than_256_raises_on_cuda(dev):
+def test_blockwise_any_power_of_two_on_cuda(dev):
+    """blockwise:64 runs through #14 on the card (it raised before the
+    kernel took every power of two); a block that is no power of two
+    raises, naming the reason."""
+    from repro_torch.comm import kernels as K
     from repro_torch.core.quantizers import get_quantizer
     from repro_torch.opt import engine
     x = torch.randn(1000, device=dev)
-    with pytest.raises(ValueError, match="blocks of 256"):
-        engine.quantize_blockwise(x, 64)
-    with pytest.raises(ValueError, match="blocks of 256"):
-        get_quantizer("blockwise:64")(x)
+    n0 = K.blockwise_quantize_launches
+    qt = get_quantizer("blockwise:64").encode(x)
+    assert K.blockwise_quantize_launches == n0 + 1
+    codes, scales = engine.quantize_blockwise(x, 64, backend="torch")
+    _bits_equal(qt.codes, codes)
+    _bits_equal(qt.scale, scales)
+    for bad in (48, 3, 0):
+        with pytest.raises(ValueError, match="power-of-two"):
+            engine.quantize_blockwise(x, bad)
 
 
 @pytest.mark.parametrize("name", ["ef_sgdm", "terngrad_sgd",
-                                  "qadam_terngrad", "qadam_blockwise"])
+                                  "qadam_terngrad", "qadam_blockwise",
+                                  "ef_sgdm_blockwise64"])
 def test_algorithm1_baselines_run_through_kernels(dev, name):
     """Three steps of each baseline of Algorithm 1 on the smoke model on
     the card: its kernels launch, no plain version runs, the session reads
@@ -729,9 +776,12 @@ def test_algorithm1_baselines_run_through_kernels(dev, name):
              "terngrad_sgd": lambda b: Q.terngrad_sgd(alpha=1e-2, backend=b),
              "qadam_terngrad": lambda b: Q.qadam(Q.QAdamConfig(
                  grad_q="terngrad", backend=b)),
+             "ef_sgdm_blockwise64": lambda b: Q.ef_sgdm(
+                 alpha=1e-2, grad_q="blockwise:64", backend=b),
              "qadam_blockwise": lambda b: Q.qadam(Q.QAdamConfig(
                  grad_q="blockwise:256", backend=b))}[name]
     counters = {"ef_sgdm": ["blockwise_quantize_launches"],
+                "ef_sgdm_blockwise64": ["blockwise_quantize_launches"],
                 "qadam_blockwise": ["blockwise_quantize_launches"]}.get(
         name, ["amax_launches", "ternary_quantize_launches"])
     model = Model(get_config("yi-6b", smoke=True))
@@ -811,19 +861,32 @@ def test_paper_protocol_on_cuda(dev):
 # the tensor-core routes of K1 and #17
 # ---------------------------------------------------------------------------
 
+# k_x of each code width: the widest grid the lane holds (packed lanes
+# hold codes in [-2^(b-1), 2^(b-1) - 1])
+_TC_K_X = {8: 6, 16: 7, 2: 0, 3: 1, 4: 2, 6: 4}
+
+
 def _k1_tc_case(dev, M, K, N, bits, seed):
+    """x (M, K) bf16 and codes (K, N) of one width: int8, int16, or rows
+    of packed lanes; returns (x, codes, scale, k_x, pack_bits)."""
+    from repro_torch.comm import bits as B
     g = torch.Generator(device=dev).manual_seed(seed)
-    k_x = 6 if bits == 8 else 7
+    k_x = _TC_K_X[bits]
     lim = 2 ** k_x
     codes = torch.randint(-lim, lim + 1, (K, N), generator=g, device=dev)
-    codes = codes.to(torch.int8 if bits == 8 else torch.int16)
+    if bits < 8:
+        codes = B.pack_rows(torch.clamp(codes, -(2 ** (bits - 1)),
+                                        2 ** (bits - 1) - 1), bits)
+    else:
+        codes = codes.to(torch.int8 if bits == 8 else torch.int16)
     x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
-    return x, codes, torch.tensor(0.0371, device=dev), k_x
+    return (x, codes, torch.tensor(0.0371, device=dev), k_x,
+            bits if bits < 8 else 0)
 
 
-def _k1_bf16_tol(MM, x, codes, scale, k_x, b):
-    K, N = codes.shape
-    w = MM.dequant_codes(codes, scale, k_x=k_x, n=N, pack_bits=0,
+def _k1_bf16_tol(MM, x, codes, scale, k_x, b, pack_bits=0):
+    K, N = x.shape[1], b.shape[1]
+    w = MM.dequant_codes(codes, scale, k_x=k_x, n=N, pack_bits=pack_bits,
                          w_dtype="float32", cast_dtype="bfloat16").float()
     norm = (x.float() ** 2 @ w ** 2).sqrt()
     return _bf16_ulp(b.float()) + K1_FLOOR * K ** 0.5 * 2.0 ** -24 * norm
@@ -840,7 +903,8 @@ def test_dequant_matmul_tensor_cores(dev, bits, M, K, N):
     one bf16 ulp plus the floor of the plain product; two calls bitwise
     equal; the route's counter moves, the other's does not."""
     from repro_torch.comm import matmul as MM
-    x, codes, scale, k_x = _k1_tc_case(dev, M, K, N, bits, M * K + N + bits)
+    x, codes, scale, k_x, _ = _k1_tc_case(dev, M, K, N, bits,
+                                          M * K + N + bits)
     kw = dict(k_x=k_x, n=N, cast_dtype="bfloat16")
     n_tc, n_fma = MM.launches_tc, MM.launches_fma
     a = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
@@ -856,7 +920,7 @@ def test_dequant_matmul_tensor_cores(dev, bits, M, K, N):
 def test_dequant_matmul_tensor_cores_float32_out(dev):
     """A bf16 leaf without a pending cast: bf16 weights, float32 output."""
     from repro_torch.comm import matmul as MM
-    x, codes, scale, k_x = _k1_tc_case(dev, 5, 640, 96, 8, 1)
+    x, codes, scale, k_x, _ = _k1_tc_case(dev, 5, 640, 96, 8, 1)
     kw = dict(k_x=k_x, n=96, w_dtype="bfloat16", cast_dtype="float32")
     assert MM.route(x.dtype, codes.dtype, 0, "bfloat16", "float32") == "tc"
     n_tc = MM.launches_tc
@@ -868,20 +932,64 @@ def test_dequant_matmul_tensor_cores_float32_out(dev):
 
 
 def test_dequant_matmul_fma_route_counts(dev):
-    """Packed lanes and float32 activations stay on the CUDA-core route."""
+    """float32 activations, or a float32 weight, stay on the CUDA-core
+    route, on int8 codes and on packed lanes alike."""
     from repro_torch.comm import bits as B
     from repro_torch.comm import matmul as MM
     g = torch.Generator(device=dev).manual_seed(5)
-    c = torch.randint(-4, 5, (256, 96), generator=g, device=dev)
+    c = torch.randint(-8, 8, (256, 96), generator=g, device=dev)
     packed = B.pack_rows(c, 4)
-    x = torch.randn(4, 256, generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn(4, 256, generator=g, device=dev)
     scale = torch.tensor(0.37, device=dev)
     n_tc, n_fma = MM.launches_tc, MM.launches_fma
     MM.dequant_matmul(x, packed, scale, k_x=2, n=96, pack_bits=4,
-                      cast_dtype="bfloat16", backend="cuda")
-    MM.dequant_matmul(x.float(), c.to(torch.int8), scale, k_x=2, n=96,
                       backend="cuda")
-    assert (MM.launches_tc, MM.launches_fma) == (n_tc, n_fma + 2)
+    MM.dequant_matmul(x, c.to(torch.int8), scale, k_x=2, n=96,
+                      backend="cuda")
+    MM.dequant_matmul(x.to(torch.bfloat16), packed, scale, k_x=2, n=96,
+                      pack_bits=4, backend="cuda")   # float32 weight
+    assert (MM.launches_tc, MM.launches_fma) == (n_tc, n_fma + 3)
+
+
+def test_dequant_matmul_packed_lanes_count_on_tensor_cores(dev):
+    """bf16 activations against packed lanes with a bf16 weight move
+    ``launches_tc`` and ``launches_tc_packed``, and not ``launches_fma``."""
+    from repro_torch.comm import matmul as MM
+    counts = (MM.launches_tc, MM.launches_tc_packed, MM.launches_fma)
+    for bits in (2, 3, 4, 6):
+        x, codes, scale, k_x, pb = _k1_tc_case(dev, 4, 256, 96, bits, bits)
+        MM.dequant_matmul(x, codes, scale, k_x=k_x, n=96, pack_bits=pb,
+                          cast_dtype="bfloat16", backend="cuda")
+    assert (MM.launches_tc, MM.launches_tc_packed, MM.launches_fma) == (
+        counts[0] + 4, counts[1] + 4, counts[2])
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 6])
+@pytest.mark.parametrize("M", [1, 5, 17, 33, 64, 100])
+@pytest.mark.parametrize("K,N", [
+    (1024, 2304),    # rows of whole 16-byte words: cp.async copies
+    (1000, 1001),    # ragged rows staged byte by byte, K past a stage
+    (4096, 512),     # split K
+    (300, 70)])      # one column tile, part of it past N
+def test_dequant_matmul_tensor_cores_packed(dev, bits, M, K, N):
+    """K1's tensor-core route on packed 2/3/4/6-bit lanes within one bf16
+    ulp plus the floor of the plain product; two calls bitwise equal; the
+    route's counters move, the CUDA-core route's does not."""
+    from repro_torch.comm import matmul as MM
+    x, codes, scale, k_x, pb = _k1_tc_case(dev, M, K, N, bits,
+                                           M * K + N + bits)
+    kw = dict(k_x=k_x, n=N, pack_bits=pb, cast_dtype="bfloat16")
+    n_tc, n_p, n_fma = MM.launches_tc, MM.launches_tc_packed, \
+        MM.launches_fma
+    a = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    a2 = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    assert (MM.launches_tc, MM.launches_tc_packed, MM.launches_fma) == (
+        n_tc + 2, n_p + 2, n_fma)
+    b = MM.dequant_matmul(x, codes, scale, backend="torch", **kw)
+    assert a.dtype == b.dtype == torch.bfloat16 and a.shape == (M, N)
+    assert torch.equal(a, a2)
+    tol = _k1_bf16_tol(MM, x, codes, scale, k_x, b, pb)
+    assert bool(((a.float() - b.float()).abs() <= tol).all())
 
 
 @pytest.mark.parametrize("case", [

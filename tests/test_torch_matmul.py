@@ -195,7 +195,10 @@ PLAN_SHAPES = [(1, 4096, 11008), (4, 4096, 512), (32, 4096, 11008),
                (100, 5000, 300), (3, 37, 9), (16, 2304, 1024)]
 
 
-@pytest.mark.parametrize("code_bits", [8, 16])
+TC_BITS = [2, 3, 4, 6, 8, 16]   # packed lanes, int8, int16
+
+
+@pytest.mark.parametrize("code_bits", TC_BITS)
 @pytest.mark.parametrize("M,K,N", PLAN_SHAPES)
 def test_tc_plan_slices_cover_k_once_in_order(M, K, N, code_bits):
     plan = TM.k1_plan(M, K, N, code_bits)
@@ -213,26 +216,30 @@ def test_tc_plan_slices_cover_k_once_in_order(M, K, N, code_bits):
     assert (plan.grid[1] == 1) == (M <= TM.TC_TILE_M)
 
 
+@pytest.mark.parametrize("code_bits", TC_BITS)
 @pytest.mark.parametrize("M", [1, 4, 32])
-def test_tc_plan_split_fills_the_card(M):
+def test_tc_plan_split_fills_the_card(M, code_bits):
     """K is split at N = 512, K = 4096 (yi's wk and wv) until every SM has
-    a block."""
-    plan = TM.k1_plan(M, 4096, 512, 8)
+    a block, at every code width."""
+    plan = TM.k1_plan(M, 4096, 512, code_bits)
     assert plan.grid[2] > 1 and plan.blocks >= TM.SMS
 
 
+@pytest.mark.parametrize("code_bits", TC_BITS)
 @pytest.mark.parametrize("M,K,N", PLAN_SHAPES)
-def test_tc_plan_workspace_size(M, K, N):
-    plan = TM.k1_plan(M, K, N, 8)
+def test_tc_plan_workspace_size(M, K, N, code_bits):
+    plan = TM.k1_plan(M, K, N, code_bits)
     expect = plan.grid[2] * M * N if plan.grid[2] > 1 else 0
     assert plan.workspace == expect
 
 
 def test_tc_plan_refuses_other_codes():
-    with pytest.raises(ValueError):
-        TM.k1_plan(4, 64, 64, 4)
+    for bits in (5, 32, 1, 0):
+        with pytest.raises(ValueError):
+            TM.k1_plan(4, 64, 64, bits)
     with pytest.raises(ValueError):
         TM.k1_plan(0, 64, 64, 8)
+
 
 
 @pytest.mark.parametrize("x,codes,pack,w,cast,expect", [
@@ -240,7 +247,15 @@ def test_tc_plan_refuses_other_codes():
     (torch.bfloat16, torch.int16, 0, "float32", "bfloat16", "tc"),
     (torch.bfloat16, torch.int8, 0, "bfloat16", None, "tc"),
     (torch.bfloat16, torch.int8, 0, "bfloat16", "float32", "tc"),
-    (torch.bfloat16, torch.uint8, 4, "float32", "bfloat16", "fma"),
+    # packed lanes whose weight is a bf16 number: tensor cores
+    (torch.bfloat16, torch.uint8, 4, "float32", "bfloat16", "tc"),
+    (torch.bfloat16, torch.uint8, 2, "bfloat16", None, "tc"),
+    (torch.bfloat16, torch.uint8, 3, "float32", "bfloat16", "tc"),
+    (torch.bfloat16, torch.uint8, 6, "bfloat16", "float32", "tc"),
+    # float32 weights or activations: CUDA cores (TF32 on tensor cores)
+    (torch.bfloat16, torch.uint8, 4, "float32", None, "fma"),
+    (torch.float32, torch.uint8, 4, "float32", None, "fma"),
+    (torch.float32, torch.uint8, 6, "bfloat16", None, "fma"),
     (torch.bfloat16, torch.int8, 0, "float32", None, "fma"),
     (torch.float32, torch.int8, 0, "float32", None, "fma"),
     (torch.float32, torch.int16, 0, "bfloat16", None, "fma"),
@@ -263,3 +278,39 @@ def test_tensor_core_route_refused_on_cpu():
     out = TM.dequant_matmul(*args, **kw)
     assert out.dtype == torch.bfloat16 and out.shape == (4, 96)
     assert (TM.launches, TM.launches_tc, TM.launches_fma) == counts
+
+
+@pytest.mark.parametrize("pack_bits,k_x", [(2, 0), (3, 1), (4, 2), (6, 4)])
+def test_packed_tensor_core_route_refused_on_cpu(pack_bits, k_x):
+    """bf16 activations against packed lanes (now the tensor-core route)
+    with backend="cuda" on CPU tensors raise; without a backend the plain
+    version runs, within one bf16 ulp plus the floor of the reference's
+    product at a ragged N (a packed row of no whole 16 bytes), and no
+    counter moves."""
+    N = 1001
+    codes, s, x = _case(k_x, pack_bits, 96, N, 5, seed=60 + pack_bits)
+    xb = x.astype(ml_dtypes.bfloat16)
+    assert codes.shape[1] == TB.payload_nbytes(N, pack_bits)
+    args = (torch.from_numpy(xb.astype(np.float32)).to(torch.bfloat16),
+            torch.from_numpy(codes), torch.tensor(s))
+    kw = dict(k_x=k_x, n=N, pack_bits=pack_bits, cast_dtype="bfloat16")
+    assert TM.route(args[0].dtype, args[1].dtype, pack_bits, "float32",
+                    "bfloat16") == "tc"
+    counts = (TM.launches, TM.launches_tc, TM.launches_tc_packed,
+              TM.launches_fma)
+    with pytest.raises(ValueError):
+        TM.dequant_matmul(*args, backend="cuda", **kw)
+    out = TM.dequant_matmul(*args, **kw)
+    assert (TM.launches, TM.launches_tc, TM.launches_tc_packed,
+            TM.launches_fma) == counts
+    ref = np.asarray(JM.dequant_matmul(
+        jnp.asarray(xb), jnp.asarray(codes), s, backend="jnp",
+        w_dtype="float32", **kw)).astype(np.float32)
+    w = TM.dequant_codes(args[1], args[2], k_x=k_x, n=N,
+                         pack_bits=pack_bits, w_dtype="float32",
+                         cast_dtype="bfloat16").float().numpy()
+    norm = np.sqrt(xb.astype(np.float32) ** 2 @ w ** 2)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -126))) - 7)
+    floor = K1_FLOOR * np.sqrt(96) * 2.0 ** -24 * norm
+    assert out.dtype == torch.bfloat16 and out.shape == (5, N)
+    assert np.all(np.abs(out.float().numpy() - ref) <= ulp + floor)

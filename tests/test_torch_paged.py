@@ -36,6 +36,49 @@ def test_gather_matches_reference_bitwise(backend, dtype):
                                   out.float().numpy())
 
 
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_gather_pages_kv_matches_reference_bitwise(backend, dtype):
+    """K and V of a layer through one table (one launch on the card)
+    against the reference's gather_pages called once per pool, with
+    RELEASED-sentinel rows (clipped to the last page) and a released
+    slot."""
+    rng = np.random.default_rng(1)
+    pk = rng.standard_normal((12, 4, 2, 8)).astype(np.float32)
+    pv = rng.standard_normal((12, 4, 2, 8)).astype(np.float32)
+    tab = rng.integers(0, 12, size=(4, 6)).astype(np.int32)
+    tab[1, 2:] = 12                     # RELEASED sentinel tail
+    tab[3, :] = 12                      # a released slot
+    jk, jv = jnp.asarray(pk), jnp.asarray(pv)
+    tk, tv = torch.from_numpy(pk), torch.from_numpy(pv)
+    if dtype == "bfloat16":
+        jk, jv = jk.astype(jnp.bfloat16), jv.astype(jnp.bfloat16)
+        tk, tv = tk.to(torch.bfloat16), tv.to(torch.bfloat16)
+    n0 = (TP.launches, TP.launches_kv)
+    kc, vc = TP.gather_pages_kv(tk, tv, torch.from_numpy(tab))
+    assert (TP.launches, TP.launches_kv) == n0     # the CPU never launches
+    for ref, out in ((JP.gather_pages(jk, jnp.asarray(tab), backend=backend),
+                      kc),
+                     (JP.gather_pages(jv, jnp.asarray(tab), backend=backend),
+                      vc)):
+        assert out.shape == ref.shape and out.dtype == tk.dtype
+        np.testing.assert_array_equal(np.asarray(ref.astype(jnp.float32)),
+                                      out.float().numpy())
+
+
+def test_gather_pages_kv_refuses_mismatched_pools():
+    tab = torch.zeros(1, 3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="differ"):
+        TP.gather_pages_kv(torch.zeros(2, 2, 1, 2), torch.zeros(3, 2, 1, 2),
+                           tab)
+    with pytest.raises(ValueError, match="differ"):
+        TP.gather_pages_kv(torch.zeros(2, 2, 1, 2),
+                           torch.zeros(2, 2, 1, 2, dtype=torch.bfloat16), tab)
+    with pytest.raises(ValueError):
+        TP.gather_pages_kv(torch.zeros(2, 2, 1, 2), torch.zeros(2, 2, 1, 2),
+                           tab, backend="cuda")
+
+
 def test_gather_never_launches_on_cpu():
     n0 = TP.launches
     TP.gather_pages(torch.zeros(2, 2, 1, 2), torch.zeros(1, 3, dtype=torch.int32))
