@@ -30,18 +30,23 @@ Phases, each raising on failure (exit code nonzero, no result line):
      M = 4 and 32, with its factor and share of the bound, and the
      CUDA-core route at float32 activations against int8 codes; K1t,
      the transposed product of the tied head, at gemma2-2b's (256000,
-     2304) table for M in {1, 4} (int8 at k_x = 6, packed 3/4/6-bit rows)
-     and at ragged shapes, in the same tier (a dropped d column must
-     fail it); #17 flash attention on the four cases of
-     tests/test_kernels.py (float32, CUDA cores), gemma2-2b's prefill
-     (B 1, S 8192, 8 heads over 4, hd 256, bf16, tensor cores) as a
-     local (window 4096) and a global layer (softcap 50), a ragged
-     Sq/Skv, and the global layer without the softcap in bf16 and in
-     float32, within rtol 1e-4 / atol 1e-5 (float32) or one bf16 ulp
-     plus 1e-5 (a window off by one must fail it), two calls bitwise
-     equal, timed beside scaled_dot_product_attention: is_causal where
-     it computes the same function (no softcap), else with a boolean
-     mask and without the softcap; then
+     2304) table on tensor cores for bf16 activations against every code
+     type (int8 at k_x = 6 at M in {1, 4}, int16 and 2/3/4/6-bit rows at
+     M = 4) and at ragged V, d and M past one n8 tile, in the same tier
+     (a dropped d column must fail it), the same sums in float32 on its
+     CUDA-core route within the floor; timed at M = 1 and 4 for every
+     code type with its kernel/library factor and share of the bound,
+     and the CUDA-core route beside the fp32 torch.matmul; #17 flash
+     attention on the four cases of tests/test_kernels.py (float32,
+     3xTF32 on tensor cores), gemma2-2b's prefill (B 1, S 8192, 8 heads
+     over 4, hd 256) as a local (window 4096) and a global layer (softcap
+     50) in bf16 and in float32, a ragged Sq/Skv in both, and the global
+     layer without the softcap in both, within rtol 1e-4 / atol 1e-5
+     (float32) or one bf16 ulp plus 1e-5 (a window off by one must fail
+     it, in both), two calls bitwise equal, timed beside
+     scaled_dot_product_attention: is_causal where it computes the same
+     function (no softcap), else with a boolean mask and without the
+     softcap; then
      the training kernels bitwise on the stacked (8, 4096, 11008) w_gate
      leaf and the (64000, 4096) embedding: K15 Adam+EF moments (m', v',
      Delta+e, the amax word), K16 EF quantize (codes, residual), K11 log
@@ -81,14 +86,15 @@ Phases, each raising on failure (exit code nonzero, no result line):
      ~3e-2, which is printed, with a float64-summed step, not gated);
      4b. the same for full-width gemma2-2b (26 layers, tied head, k_x = 6),
      in slots of 4224 positions, with a ninth request of 4200 prompt
-     tokens: K1, K1t, K2, K3 and K4 launched, no plain version on the
-     card, the same logits gates (depth 1 is a local layer, depth 2 adds
-     a global one), and at position 4200 the windowed and the global
-     model's logits must differ (the window is live), with the depth-2
-     gate there too;
+     tokens: K1, K1t (on tensor cores only), K2, K3 and K4 launched, no
+     plain version on the card, the same logits gates (depth 1 is a
+     local layer, depth 2 adds a global one), and at position 4200 the
+     windowed and the global model's logits must differ (the window is
+     live), with the depth-2 gate there too;
      4c. #17 through its entry point over one gemma2-2b prefill of 8192
-     tokens (26 layers with their windows), in bf16 (tensor cores) and
-     then in float32 (CUDA cores), each route's count at 0 before;
+     tokens (26 layers with their windows), in bf16 (route "tc") and
+     then in float32 (route "tc32", 3xTF32), each route's count at 0
+     before;
      4d. yi-6b cut to 4 layers served from 4-bit packed lanes
      (quantize_params(k_x=2, pack=True)), 4 requests: K1 on tensor cores
      only (its packed-lane instances; no CUDA-core launch), K2, K3, K4
@@ -96,6 +102,8 @@ Phases, each raising on failure (exit code nonzero, no result line):
      device time;
      4e. the same cut served in float32 activations against int8 codes:
      K1's CUDA-core route only;
+     4f. gemma2-2b's widths cut to 4 layers served the same way in
+     float32: K1's and K1t's CUDA-core routes only;
   5. train full-width yi-6b cut to 8 layers (fp32 parameters and state,
      bf16 activations) with Algorithm 1 through ``qadam`` and
      ``TrainSession.from_optimizer``: 12 steps of 2 x 1024 tokens; gates:
@@ -664,24 +672,37 @@ def check_matmul(torch, MM, B, dev):
 
 def check_matmul_t(torch, MM, B, dev):
     """K1t (``x @ W.T`` from code rows, the tied head) at gemma2-2b's head
-    shape (256000 rows of 2304 codes) for M in {1, 4}, int8 at k_x = 6 and
-    packed 3/4/6-bit rows, and ragged shapes, within K1's tier; a dropped
-    d column must fail the gate. Returns the kernels-line row (M = 4,
-    int8), the case table and the timings."""
+    shape (256000 rows of 2304 codes) and at ragged shapes: bf16
+    activations on the tensor-core route for every code type (int8,
+    int16, 2/3/4/6-bit rows) at M in {1, 4} (and past one n8 tile), within
+    K1's tier, each call moving ``t_launches_tc``; a dropped d column must
+    fail the gate; the same sums in float32 activations on the CUDA-core
+    route within the floor. Timed: int8, int16 and every lane width at M
+    = 1 and 4 on tensor cores, with the kernel/library factor and the
+    share of the bound, and the CUDA-core route at float32 activations
+    beside the fp32 ``torch.matmul`` (TF32 off). Returns the two
+    kernels-line rows, the case table and the timings."""
     g = torch.Generator(device=dev).manual_seed(17)
     d, V = GEMMA["d"], GEMMA["V"]
+    kinds = ("int8", "int16") + PACKED_KINDS
     cases = [(M, V, d, "int8") for M in (1, 4)]
-    cases += [(4, V, d, kind) for kind in ("p3", "p4", "p6")]
-    cases += [(5, 1001, n, kind) for n in (d, 37)
-              for kind in ("int8", "int16", "p3", "p4", "p6")]   # ragged
+    cases += [(4, V, d, kind) for kind in kinds[1:]]
+    cases += [(M, 1001, n, kind) for M, n in ((5, d), (5, 37), (17, 1000))
+              for kind in kinds]   # ragged V and d, M past one n8 tile
     scale = torch.tensor(0.0371, device=dev)
-    table, worst = [], 0.0
+    table, worst = [], {"tc": 0.0, "fma": 0.0}
     for M, rows, n, kind in cases:
         k_x, pb, codes = _codes(torch, B, g, dev, kind, rows, n)
         x = torch.randn((M, n), generator=g, device=dev).to(torch.bfloat16)
         kw = dict(k_x=k_x, n=n, pack_bits=pb, cast_dtype="bfloat16",
                   transpose=True)
+        route = MM.route(x.dtype, codes.dtype, pb, "float32", "bfloat16")
+        n0 = (MM.t_launches_tc, MM.t_launches_fma)
         a = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+        if route != "tc" or (MM.t_launches_tc, MM.t_launches_fma) != (
+                n0[0] + 1, n0[1]):
+            raise AssertionError(f"K1t on bf16 activations, {kind} rows, "
+                                 f"took the {route} route")
         b = MM.dequant_matmul(x, codes, scale, backend="torch", **kw)
         w = MM.dequant_codes(codes, scale, k_x=k_x, n=n, pack_bits=pb,
                              w_dtype="float32",
@@ -691,57 +712,97 @@ def check_matmul_t(torch, MM, B, dev):
         diff = (a.float() - b.float()).abs()
         if a.dtype != torch.bfloat16 or a.shape != (M, rows) or not bool(
                 (diff <= tol).all()):
-            raise AssertionError(f"K1t at M={M} V={rows} d={n} {kind}: beyond "
-                                 f"one bf16 ulp of the plain product + floor "
-                                 f"(max abs {float(diff.max())})")
+            raise AssertionError(f"K1t (tc) at M={M} V={rows} d={n} {kind}: "
+                                 f"beyond one bf16 ulp of the plain product "
+                                 f"+ floor (max abs {float(diff.max())})")
         over = float(((diff - bf16_ulp(torch, b.float())).clamp_min(0)
                       / unit).max())
-        row = dict(M=M, V=rows, d=n, codes=kind, max_abs_err=float(diff.max()),
-                   over_ulp_units=over)
-        worst = max(worst, row["max_abs_err"])
-        if rows == V and kind == "int8":
-            # the same sums in fp32 activations: summation-order noise
+        row = dict(M=M, V=rows, d=n, codes=kind, route=route,
+                   max_abs_err=float(diff.max()), over_ulp_units=over)
+        worst["tc"] = max(worst["tc"], row["max_abs_err"])
+        if kind == "int8" or (rows == V and kind == "p4"):
+            # the same sums in fp32 activations (the CUDA-core route), held
+            # within the floor: summation-order noise in the same units
             kf = dict(kw, cast_dtype=None)
+            n0 = MM.t_launches_fma
             d32 = (MM.dequant_matmul(x.float(), codes, scale, backend="cuda",
                                      **kf)
                    - MM.dequant_matmul(x.float(), codes, scale,
                                        backend="torch", **kf)).abs()
+            if MM.t_launches_fma != n0 + 1 or not bool(
+                    (d32 <= K1_FLOOR * unit).all()):
+                raise AssertionError(f"K1t (fma) at M={M} V={rows} d={n} "
+                                     f"{kind}, float32: beyond {K1_FLOOR:g} "
+                                     f"units of fp32 summation noise")
             row["f32_noise"] = float((d32 / unit).max())
+            worst["fma"] = max(worst["fma"], float(d32.max()))
+        if rows == V and kind in ("int8", "p4"):
             # the planted fault: the last d column dropped from the sum
             bad = (x[:, :-1].float() @ w[:, :-1].T).to(torch.bfloat16)
             seen = float(((bad.float() - b.float()).abs() > tol).float()
                          .mean())
             if seen == 0.0:
                 raise AssertionError(f"K1t gate blind to a dropped d column "
-                                     f"at M={M}")
+                                     f"at M={M} {kind}")
             row["fault_caught"] = seen
         table.append(row)
-        del codes, w
-    timed = []
-    for M in (1, 4):
-        codes = _codes(torch, B, g, dev, "int8", V, d)[2]
-        wf = MM.dequant_codes(codes, scale, k_x=6, n=d, pack_bits=0,
-                              w_dtype="float32", cast_dtype="bfloat16")
-        x = torch.randn((M, d), generator=g, device=dev).to(torch.bfloat16)
-        kw = dict(k_x=6, n=d, cast_dtype="bfloat16", transpose=True)
+        del codes, w, a, b, unit, tol, diff
+    torch.cuda.empty_cache()
+
+    def time_case(M, kind, x_dtype=torch.bfloat16):
+        """Kernel, plain and library times at the head; the library is
+        torch.matmul on the dequantized weight in the activations' type."""
+        k_x, pb = CODE_KINDS[kind]
+        cast = "bfloat16" if x_dtype == torch.bfloat16 else None
+        codes = _codes(torch, B, g, dev, kind, V, d)[2]
+        wf = MM.dequant_codes(codes, scale, k_x=k_x, n=d, pack_bits=pb,
+                              w_dtype="float32", cast_dtype=cast)
+        x = torch.randn((M, d), generator=g, device=dev).to(x_dtype)
+        kw = dict(k_x=k_x, n=d, pack_bits=pb, cast_dtype=cast,
+                  transpose=True)
         t_k = cuda_ms(torch, lambda i: MM.dequant_matmul(
             x, codes, scale, backend="cuda", **kw), 20, 3)
         t_p = cuda_ms(torch, lambda i: MM.dequant_matmul(
             x, codes, scale, backend="torch", **kw), 3, 1)
         t_l = cuda_ms(torch, lambda i: torch.matmul(x, wf.T), 20, 3)
-        bnd, by = bound_ms(V * d + 2 * M * d + 2 * M * V + 4, 2.0 * M * d * V)
-        timed.append(dict(M=M, V=V, d=d, ms=t_k, plain_ms=t_p,
-                          library_ms=t_l, bound_ms=bnd, bound_by=by,
-                          gbs=V * d / t_k / 1e6))
+        nbytes = codes.numel() * codes.element_size()
+        xb = x.element_size()
+        bnd, by = bound_ms(nbytes + xb * M * d + xb * M * V + 4,
+                           2.0 * M * d * V)
+        route = MM.route(x_dtype, codes.dtype, pb, "float32", cast)
         del codes, wf
-    rep = timed[-1]
-    row = dict(name="dequant_matmul_t", route="cuda",
-               source="src/repro_torch/csrc/dequant_matmul.cu",
-               replaces="src/repro/comm/matmul.py:150", max_abs_err=worst,
-               ms=rep["ms"], plain_ms=rep["plain_ms"],
-               bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
-               library_ms=rep["library_ms"], shape=[4, V, d])
-    return row, table, timed
+        return dict(M=M, V=V, d=d, codes=kind, route=route,
+                    x_dtype=str(x_dtype).split(".")[-1], ms=t_k,
+                    plain_ms=t_p, library_ms=t_l, bound_ms=bnd, bound_by=by,
+                    factor=t_k / t_l, share_of_bound=bnd / t_k,
+                    gbs=nbytes / t_k / 1e6)
+    timed = [time_case(M, kind) for kind in kinds for M in (1, 4)]
+    if any(r["route"] != "tc" for r in timed):
+        raise AssertionError("K1t bf16 timed off the tensor-core route")
+    fma = time_case(4, "int8", torch.float32)
+    timed.append(fma)
+    torch.cuda.empty_cache()
+    at = {(r["codes"], r["M"]): r for r in timed if r["route"] == "tc"}
+    rep, slow = at[("int8", 4)], max(at.values(), key=lambda r: r["factor"])
+    row_tc = dict(name="dequant_matmul_t_tc", route="cuda",
+                  source="src/repro_torch/csrc/dequant_matmul.cu",
+                  replaces="src/repro/comm/matmul.py:150",
+                  max_abs_err=worst["tc"], ms=rep["ms"],
+                  plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
+                  bound_by=rep["bound_by"], library_ms=rep["library_ms"],
+                  shape=[4, V, d], m1_ms=at[("int8", 1)]["ms"],
+                  p4_ms=at[("p4", 4)]["ms"],
+                  p4_library_ms=at[("p4", 4)]["library_ms"],
+                  worst_factor=slow["factor"],
+                  worst_case=[slow["codes"], slow["M"]])
+    row_fma = dict(name="dequant_matmul_t", route="cuda",
+                   source="src/repro_torch/csrc/dequant_matmul.cu",
+                   replaces="src/repro/comm/matmul.py:150",
+                   max_abs_err=worst["fma"], ms=fma["ms"],
+                   plain_ms=fma["plain_ms"], bound_ms=fma["bound_ms"],
+                   bound_by=fma["bound_by"], library_ms=fma["library_ms"],
+                   shape=[4, V, d, "int8", "float32"])
+    return [row_tc, row_fma], table, timed
 
 
 def visible_pairs(Sq, Skv, *, causal, window, q_offset):
@@ -772,13 +833,25 @@ FLASH_CASES = [   # tests/test_kernels.py:135-145, gemma2-2b prefill, ragged
                     window=700, softcap=50.0, q_offset=500, bf16=True)),
     # like for like: the global layer without the softcap, which
     # scaled_dot_product_attention(is_causal=True) computes; in bf16
-    # (tensor cores) and float32 (CUDA cores)
+    # (route "tc") and float32 (route "tc32", 3xTF32)
     ("gemma2_global_nocap", dict(B=1, Sq=8192, Skv=8192, H=8, K=4, hd=256,
                                  causal=True, window=0, softcap=None,
                                  bf16=True)),
     ("gemma2_global_f32", dict(B=1, Sq=8192, Skv=8192, H=8, K=4, hd=256,
                                causal=True, window=0, softcap=None)),
+    # the float32 route at gemma2's layers as phase 4c runs them, and ragged
+    ("gemma2_local_f32", dict(B=1, Sq=8192, Skv=8192, H=8, K=4, hd=256,
+                              causal=True, window=4096, softcap=50.0)),
+    ("gemma2_global_cap_f32", dict(B=1, Sq=8192, Skv=8192, H=8, K=4, hd=256,
+                                   causal=True, window=0, softcap=50.0)),
+    ("ragged_f32", dict(B=1, Sq=1000, Skv=1500, H=8, K=4, hd=256,
+                        causal=True, window=700, softcap=50.0,
+                        q_offset=500)),
 ]
+# the float32 route's fp32-accurate floors at gemma2's global layer: 3 x
+# its FLOPs at the H100 SXM's 494.7 TFLOP/s TF32 (tensor cores, 3xTF32)
+# and 1 x at 66.9 TFLOP/s fp32 (CUDA cores); data sheet, 700 W
+TF32_FLOPS, FP32_FLOPS = 494.7e12, 66.9e12
 
 
 def flash_tolerance(torch, b):
@@ -791,14 +864,15 @@ def flash_tolerance(torch, b):
 
 def check_flash(torch, FA, dev):
     """#17 against its plain version on every FLASH_CASES entry (bf16 on
-    the tensor-core route, float32 on the CUDA-core route), timed with its
+    route "tc", float32 on route "tc32", both tensor cores), timed with its
     bound, plain time and a PyTorch yardstick: where the case has no
     softcap, window or offset, scaled_dot_product_attention(is_causal=True)
     computes the same function (like for like); elsewhere the reading is
     scaled_dot_product_attention with a boolean mask and without the
     softcap (no PyTorch call applies one), labelled as such. A window off
     by one in the plain version must fail the gate at gemma2's local
-    layer. Returns the two kernels-line rows and the case table."""
+    layer, in bf16 and in float32. Returns the two kernels-line rows and
+    the case table."""
     import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(19)
     table, rows = [], {}
@@ -810,7 +884,10 @@ def check_flash(torch, FA, dev):
                             device=dev).to(dt) for _ in range(2))
         kw = dict(causal=c["causal"], window=c["window"],
                   softcap=c["softcap"], q_offset=c.get("q_offset", 0))
+        n0 = getattr(FA, "launches_" + FA.route(dt))
         a = FA.flash_attention(q, k, v, backend="cuda", **kw)
+        if getattr(FA, "launches_" + FA.route(dt)) != n0 + 1:
+            raise AssertionError(f"#17 {name}: off the {FA.route(dt)} route")
         a2 = FA.flash_attention(q, k, v, backend="cuda", **kw)
         b = FA.flash_attention(q, k, v, backend="torch", **kw)
         diff = (a.float() - b.float()).abs()
@@ -827,7 +904,7 @@ def check_flash(torch, FA, dev):
                           c["hd"]], dtype=str(dt).split(".")[-1],
                    causal=c["causal"], window=c["window"],
                    softcap=c["softcap"], q_offset=kw["q_offset"])
-        if name == "gemma2_local":
+        if name in ("gemma2_local", "gemma2_local_f32"):
             bad = FA.flash_attention(q, k, v, backend="torch",
                                      **dict(kw, window=c["window"] + 1))
             seen = float(((bad.float() - b.float()).abs() > tol).float()
@@ -881,11 +958,18 @@ def check_flash(torch, FA, dev):
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"], shape=r["shape"], **extra)
     glob, local = rows["gemma2_global"], rows["gemma2_local"]
+    f32 = rows["gemma2_global_f32"]
+    flops = f32["gflops_per_s"] * f32["ms"] * 1e6
     return [krow("flash_attention_tc", "gemma2_global_nocap",
                  softcap_ms=glob["ms"],
                  masked_library_ms=glob["library_ms"],
                  local_ms=local["ms"]),
-            krow("flash_attention", "gemma2_global_f32")], table
+            krow("flash_attention_tc32", "gemma2_global_f32",
+                 softcap_ms=rows["gemma2_global_cap_f32"]["ms"],
+                 local_ms=rows["gemma2_local_f32"]["ms"],
+                 floor_3xtf32_ms=3 * flops / TF32_FLOPS * 1e3,
+                 floor_fp32_cores_ms=flops / FP32_FLOPS * 1e3,
+                 tf32_tflops=3 * flops / f32["ms"] / 1e9)], table
 
 
 # ---------------------------------------------------------------------------
@@ -2687,7 +2771,8 @@ def zero_serving_counts(MM, paged, K):
     """Every count of the serving paths' kernels, and of their plain
     versions on the card, at 0."""
     MM.launches = MM.launches_tc = MM.launches_tc_packed = 0
-    MM.launches_fma = MM.t_launches = 0
+    MM.launches_fma = MM.t_launches = MM.t_launches_tc = 0
+    MM.t_launches_fma = 0
     paged.launches = paged.launches_kv = 0
     K.amax_launches = K.quantize_launches = 0
     MM.plain_on_cuda = paged.plain_on_cuda = K.plain_on_cuda = 0
@@ -2800,8 +2885,11 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
     if paged.launches != paged.launches_kv:
         raise AssertionError(f"{arch}: {paged.launches - paged.launches_kv} "
                              f"K2 launches gathered one pool")
-    if cfg.tie_embeddings:      # the tied head runs K1t
-        launches["dequant_matmul_t"] = MM.t_launches
+    if cfg.tie_embeddings:      # the tied head runs K1t, on tensor cores
+        launches["dequant_matmul_t_tc"] = MM.t_launches_tc
+        if MM.t_launches_fma or MM.t_launches != MM.t_launches_tc:
+            raise AssertionError(f"{arch}: K1t's CUDA-core route launched "
+                                 f"{MM.t_launches_fma} times in bf16 serving")
     elif MM.t_launches:
         raise AssertionError(f"{arch}: K1t launched on an untied head")
     plain = MM.plain_on_cuda + paged.plain_on_cuda + K.plain_on_cuda
@@ -2923,7 +3011,8 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
 # phase 4d: code-resident serving at 4-bit packed lanes (k_x = 2), K1 on
 # tensor cores; yi-6b's widths cut to PACKED_LAYERS layers. Phase 4e: the
 # same cut served in float32 activations against int8 codes, the path of
-# K1's CUDA-core route
+# K1's CUDA-core route; phase 4f: gemma2-2b's widths cut the same way in
+# float32, the path of K1t's CUDA-core route (the tied head)
 PACKED_LAYERS = 4
 
 
@@ -2932,9 +3021,9 @@ def serve_packed(torch, dev, mods, arch="yi-6b", dtype="bfloat16"):
     64-token prompts, 16 new tokens each, through the paged session; the
     counts at 0 just before and read just after. bfloat16 (phase 4d):
     weights resident as 4-bit lanes (``quantize_params(k_x=2,
-    pack=True)``), K1 on tensor cores only. float32 (phase 4e): int8
-    codes (k_x = 6), K1 on CUDA cores only. Then the decode step's and the
-    chunk's wall and device time."""
+    pack=True)``), K1 on tensor cores only. float32 (phases 4e, 4f): int8
+    codes (k_x = 6), K1 (and a tied head's K1t) on CUDA cores only. Then
+    the decode step's and the chunk's wall and device time."""
     MM, paged, K = mods["MM"], mods["paged"], mods["K"]
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
@@ -2974,6 +3063,12 @@ def serve_packed(torch, dev, mods, arch="yi-6b", dtype="bfloat16"):
                 "uniform_quantize_rows": K.quantize_launches}
     if packed:
         launches["dequant_matmul_tc"] = MM.launches_tc
+    if cfg.tie_embeddings:       # float32: K1t's CUDA-core route only
+        launches["dequant_matmul_t"] = MM.t_launches_fma
+    if MM.t_launches_tc or MM.t_launches != MM.t_launches_fma or (
+            MM.t_launches and (packed or not cfg.tie_embeddings)):
+        raise AssertionError(f"{arch} {dtype}: K1t launched {MM.t_launches} "
+                             f"times ({MM.t_launches_tc} on tensor cores)")
     plain = MM.plain_on_cuda + paged.plain_on_cuda + K.plain_on_cuda
     what = "packed serving" if packed else "float32 serving"
     if any(n == 0 for n in launches.values()):
@@ -3012,20 +3107,20 @@ def flash_path(torch, dev, FA):
     """#17 through its entry point as a caller runs it (no model calls it,
     in either package): the attention of one gemma2-2b prefill of 8192
     tokens, all 26 layers with their windows (local 4096, global), in bf16
-    (the tensor-core route), then in float32 (the CUDA-core route), the
-    counts at 0 just before each. Returns the launch counts and times."""
+    (route "tc"), then in float32 (route "tc32", 3xTF32), the counts at 0
+    just before each. Returns the launch counts and times."""
     from repro_torch.configs import get_config
     cfg = get_config("gemma2-2b")
     g = torch.Generator(device=dev).manual_seed(23)
     S, H, K, hd = 8192, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     out = dict(layers=cfg.n_layers, seq=S)
     for dt, key, count in ((torch.bfloat16, "flash_attention_tc", "tc"),
-                           (torch.float32, "flash_attention", "fma")):
+                           (torch.float32, "flash_attention_tc32", "tc32")):
         q = torch.randn((1, S, H, hd), generator=g, device=dev).to(dt)
         k, v = (torch.randn((1, S, K, hd), generator=g, device=dev).to(dt)
                 for _ in range(2))
         torch.cuda.synchronize()
-        FA.launches = FA.launches_tc = FA.launches_fma = 0
+        FA.launches = FA.launches_tc = FA.launches_tc32 = 0
         FA.plain_on_cuda = 0
         t0 = time.perf_counter()
         outs = [FA.flash_attention(q, k, v, causal=True, window=w,
@@ -3033,7 +3128,7 @@ def flash_path(torch, dev, FA):
                 for w in cfg.layer_windows()]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = FA.launches_tc if count == "tc" else FA.launches_fma
+        n = FA.launches_tc if count == "tc" else FA.launches_tc32
         if n != cfg.n_layers or FA.launches != n or FA.plain_on_cuda:
             raise AssertionError(f"flash path ({dt}): {n} launches of the "
                                  f"{count} route, {FA.launches} in all, "
@@ -3101,8 +3196,8 @@ def main() -> int:
     rows += g_rows
     mm_rows, mm_table, mm_timed, mm_noise = check_matmul(torch, MM, B, dev)
     torch.cuda.empty_cache()
-    mt_row, mt_table, mt_timed = check_matmul_t(torch, MM, B, dev)
-    rows[:0] = mm_rows + [mt_row]
+    mt_rows, mt_table, mt_timed = check_matmul_t(torch, MM, B, dev)
+    rows[:0] = mm_rows + mt_rows
     torch.cuda.empty_cache()
     fa_rows, fa_table = check_flash(torch, FA, dev)
     rows += fa_rows
@@ -3114,14 +3209,16 @@ def main() -> int:
         extra = "".join(f", {k} {t[k]:.4g}" for k in ("f32_noise",
                                                       "fault_caught")
                         if k in t)
-        print(f"  K1t M={t['M']} V={t['V']} d={t['d']} {t['codes']}: max abs "
-              f"err {t['max_abs_err']:.4e}, beyond one ulp "
-              f"{t['over_ulp_units']:.3f} units (floor {K1_FLOOR:g}){extra}",
-              flush=True)
+        print(f"  K1t ({t['route']}) M={t['M']} V={t['V']} d={t['d']} "
+              f"{t['codes']}: max abs err {t['max_abs_err']:.4e}, beyond one "
+              f"ulp {t['over_ulp_units']:.3f} units (floor {K1_FLOOR:g})"
+              f"{extra}", flush=True)
     for t in mt_timed:
-        print(f"  K1t M={t['M']} V={t['V']} d={t['d']}: {t['ms']:.4f} ms "
-              f"({t['gbs']:.0f} GB/s) plain {t['plain_ms']:.4f} library "
-              f"{t['library_ms']:.4f} bound {t['bound_ms']:.4f} "
+        print(f"  K1t ({t['route']}) M={t['M']} V={t['V']} d={t['d']} "
+              f"{t['codes']} {t['x_dtype']}: {t['ms']:.4f} ms ({t['gbs']:.0f} "
+              f"GB/s, {t['share_of_bound']:.1%} of bound) plain "
+              f"{t['plain_ms']:.4f} library {t['library_ms']:.4f} (kernel/"
+              f"library {t['factor']:.2f}) bound {t['bound_ms']:.4f} "
               f"({t['bound_by']})", flush=True)
     for t in fa_table:
         fault = (f"; window off by one caught at {t['fault_caught']:.1%}"
@@ -3207,6 +3304,9 @@ def main() -> int:
     pf = serve_packed(torch, dev, {"MM": MM, "paged": paged, "K": K},
                       dtype="float32")
     torch.cuda.empty_cache()
+    pg = serve_packed(torch, dev, {"MM": MM, "paged": paged, "K": K},
+                      arch="gemma2-2b", dtype="float32")
+    torch.cuda.empty_cache()
     tr = train(torch, dev, mods)
     bl = alg1_baselines(torch, dev, mods)
     from repro_torch.configs import get_config
@@ -3244,6 +3344,7 @@ def main() -> int:
                    "flash_f32": fp["launches_f32"].get(r["name"], 0),
                    "serve_packed": pk["launches"].get(r["name"], 0),
                    "serve_f32": pf["launches"].get(r["name"], 0),
+                   "serve_gemma2_f32": pg["launches"].get(r["name"], 0),
                    "train": tr["launches"].get(r["name"], 0),
                    "dist": ds["launches"].get(r["name"], 0)}
         by_path.update({f"alg1_{m}": bl[m]["launches"].get(r["name"], 0)
@@ -3306,6 +3407,20 @@ def main() -> int:
           f"softcap (masked SDPA without it {ft['masked_library_ms']:.4f}), "
           f"{ft['ms']:.4f} ms without (SDPA is_causal "
           f"{ft['library_ms']:.4f}); local {ft['local_ms']:.4f} ms")
+    f3 = fa_rows[1]
+    print(f"  #17 (tc32, 3xTF32) gemma2 global without the softcap: "
+          f"{f3['ms']:.4f} ms ({f3['tf32_tflops']:.1f} TFLOP/s of TF32 MMA "
+          f"work), SDPA is_causal in float32 {f3['library_ms']:.4f}; floors "
+          f"3xTF32 {f3['floor_3xtf32_ms']:.4f}, fp32 CUDA cores "
+          f"{f3['floor_fp32_cores_ms']:.4f}; with the softcap "
+          f"{f3['softcap_ms']:.4f}, local {f3['local_ms']:.4f} ms")
+    t1 = mt_rows[0]
+    print(f"  K1t (tc) gemma2 head int8 M = 4 {t1['ms']:.4f} ms "
+          f"({t1['bound_ms'] / t1['ms']:.1%} of its {t1['bound_ms']:.4f} ms "
+          f"bound), M = 1 {t1['m1_ms']:.4f}, library {t1['library_ms']:.4f}; "
+          f"4-bit M = 4 {t1['p4_ms']:.4f} (library "
+          f"{t1['p4_library_ms']:.4f}); worst kernel/library factor "
+          f"{t1['worst_factor']:.2f} at {t1['worst_case']}")
 
     print(f"trained yi-6b x {TRAIN_LAYERS} layers ({tr['n_params']} "
           f"parameters): losses {', '.join(f'{x:.4f}' for x in tr['losses'])}"
@@ -3385,6 +3500,7 @@ def main() -> int:
                        k1t_cases=mt_table, k1t_timed=mt_timed,
                        flash_cases=fa_table, serve_gemma2=gem, flash_path=fp,
                        serve_packed=pk, serve_f32=pf,
+                       serve_gemma2_f32=pg,
                        gather_timed=g_table,
                        train_kernels=t_table, train=tr,
                        wire_kernels=w_table, dist=ds,

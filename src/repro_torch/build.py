@@ -13,7 +13,7 @@ blockwise, lane pack and gather kernels are held bitwise against their plain
 versions; the two products (K1 and K1t dequant-matmul) and flash
 attention (#17) sum in fp32 in orders of their own. The grids and lanes
 they share live in ``csrc/grids.cuh``, the tensor-core and copy
-primitives of K1's and #17's tensor-core routes in ``csrc/mma.cuh``;
+primitives of the tensor-core routes (K1, K1t, #17) in ``csrc/mma.cuh``;
 the hash covers both.
 """
 from __future__ import annotations
@@ -53,13 +53,14 @@ SIGNATURES = {
     # slices, out_bf16, stream
     "rt_dequant_matmul_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P],
+    # x, codes, scale, out, M, d, V, code_bits, k_x, out_bf16, stream
+    "rt_dequant_matmul_t_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, out, B, Sq, Skv, H, K, hd, causal, window, q_offset,
-    # softcap, sm_scale, stream (float32 on CUDA cores; _tc: bf16 on
-    # tensor cores)
-    "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _F, _F, _P],
+    # softcap, sm_scale, stream (_tc: bf16; _tc32: float32 in 3xTF32)
     "rt_flash_attention_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _F, _F, _P],
+    "rt_flash_attention_tc32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _F, _F, _P],
     # pool_k, pool_v (or null), ptab, out_k, out_v (or null), B, npag,
     # num_pages, page_bytes, stream
     "rt_gather_pages": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _P],

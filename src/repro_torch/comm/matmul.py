@@ -7,8 +7,8 @@ from code rows, the tied logit head). The kernels live in
 ``csrc/dequant_matmul.cu`` (design notes there). All are bound by the
 bytes of codes they stream at decode and chunk sizes, dequantize in
 registers with the reference's exact cast chain and accumulate in fp32.
-K1 has two routes, picked by type (:func:`route`), each with its own
-launch counter:
+K1 and K1t each have two routes, picked by type (:func:`route`), each
+with its own launch counter:
 
 - ``"tc"``, tensor cores (``launches_tc``; the packed-lane calls among
   them also in ``launches_tc_packed``): bf16 activations against
@@ -22,7 +22,13 @@ launch counter:
 - ``"fma"``, CUDA cores (``launches_fma``): float32 activations or
   float32 weights, on any code type (the first K1 kernel).
 
-``launches`` counts both. A failure of either route raises; neither
+K1t's ``"tc"`` (``t_launches_tc``) computes ``out.T = W x.T``: 16 code
+rows are the A operand of one MMA and up to 8 activation rows one n8 B
+tile, the codes streamed from device memory straight into registers;
+its ``"fma"`` (``t_launches_fma``) is the first K1t kernel, on CUDA
+cores. ``t_launches`` counts both.
+
+``launches`` counts both K1 routes. A failure of any route raises; none
 falls back to the other or to the plain version. They cover every M, K,
 N by masking the ragged edges, so the TPU tiling knobs (``mm_cols``,
 ``_MAX_FUSED_ROWS``, ``_pallas_covers``) have no counterpart here.
@@ -46,7 +52,9 @@ launches = 0        # K1 launches, either route
 launches_tc = 0     # K1 on tensor cores (route "tc")
 launches_tc_packed = 0   # ... of them on packed 2/3/4/6-bit lanes
 launches_fma = 0    # K1 on CUDA cores (route "fma")
-t_launches = 0      # K1t (transposed) kernel launches
+t_launches = 0      # K1t (transposed) launches, either route
+t_launches_tc = 0   # K1t on tensor cores (route "tc")
+t_launches_fma = 0  # K1t on CUDA cores (route "fma")
 plain_on_cuda = 0   # plain versions run on CUDA tensors
 
 # the tensor-core route's tiles (csrc/dequant_matmul.cu, namespace tc)
@@ -93,7 +101,8 @@ def _matmul_torch(x2, codes, scale, *, k_x, n, pack_bits, w_dtype,
 
 
 def route(x_dtype, codes_dtype, pack_bits, w_dtype, cast_dtype) -> str:
-    """Which kernel computes K1 (``x @ W``) on CUDA tensors: ``"tc"``
+    """Which kernel computes K1 (``x @ W``), or K1t (``x @ W.T``), on CUDA
+    tensors: ``"tc"``
     (tensor cores) for bfloat16 activations against int8/int16 codes or
     packed uint8 lanes whose weight is a bf16 number (the leaf or the
     pending cast is bfloat16, so every product is exact in fp32);
@@ -193,11 +202,28 @@ def _matmul_tc(x2, codes, scale, *, k_x, n, code_bits, out_dtype):
     return out
 
 
+def _matmul_t_tc(x2, codes, scale, *, k_x, n, code_bits, out_dtype):
+    """K1t on tensor cores (route "tc"), code rows (V, n) int8/int16 or
+    (V, payload) packed lanes of ``code_bits``."""
+    global t_launches, t_launches_tc
+    M = x2.shape[0]
+    V = codes.shape[0]
+    out = torch.empty((M, V), dtype=out_dtype, device=x2.device)
+    err = build.library().rt_dequant_matmul_t_tc(
+        build.ptr(x2), build.ptr(codes), build.ptr(scale), build.ptr(out),
+        M, n, V, code_bits, k_x, int(out_dtype == torch.bfloat16),
+        build.stream_ptr(x2.device))
+    build.check(err, "dequant_matmul_t_tc")
+    t_launches += 1
+    t_launches_tc += 1
+    return out
+
+
 def _matmul_cuda(x2, codes, scale, *, k_x, n, pack_bits, w_dtype,
                  cast_dtype, transpose=False):
     """K1 (``x @ W``, codes (K, n)) or, with ``transpose``, K1t
     (``x @ W.T``, codes (rows, n) contracted along n)."""
-    global launches, launches_fma, t_launches
+    global launches, launches_fma, t_launches, t_launches_fma
     M, K = x2.shape
     rows = codes.shape[0]
     if transpose and K != n:
@@ -229,10 +255,10 @@ def _matmul_cuda(x2, codes, scale, *, k_x, n, pack_bits, w_dtype,
     x2 = x2.contiguous()
     codes = codes.contiguous()
     scale = scale.to(torch.float32).reshape(()).contiguous()
-    if not transpose and route(x2.dtype, codes.dtype, pack_bits, w_dtype,
-                               cast_dtype) == "tc":
-        return _matmul_tc(x2, codes, scale, k_x=k_x, n=n,
-                          code_bits=code_bits, out_dtype=out_dtype)
+    if route(x2.dtype, codes.dtype, pack_bits, w_dtype, cast_dtype) == "tc":
+        tc = _matmul_t_tc if transpose else _matmul_tc
+        return tc(x2, codes, scale, k_x=k_x, n=n, code_bits=code_bits,
+                  out_dtype=out_dtype)
     lib = build.library()
     flags = (code_bits, k_x, int(x2.dtype == torch.bfloat16),
              int(_dtype(w_dtype) == torch.bfloat16),
@@ -246,6 +272,7 @@ def _matmul_cuda(x2, codes, scale, *, k_x, n, pack_bits, w_dtype,
             build.ptr(out), M, n, rows, *flags)
         build.check(err, "dequant_matmul_t")
         t_launches += 1
+        t_launches_fma += 1
         return out
     out = torch.empty((M, n), dtype=out_dtype, device=x2.device)
     err = lib.rt_dequant_matmul(

@@ -68,32 +68,64 @@
 // rows. Partial sums fold in shared memory in a fixed order; products
 // accumulate in fp32 (fmaf). Ragged M, N and K edges are masked.
 //
-// K1t, the transposed product (rt_dequant_matmul_t): out = x @ W.T where
-// W is (V, d) as code rows, the tied logit head of gemma2 (256000 rows of
-// 2304 codes). Replaces the transposed branch of _matmul_pallas
-// (_mm_t_body, repro/comm/matmul.py:150), which tiled code rows and
-// needed V to be a multiple of its tile (_pallas_covers). Here one output
-// column IS one contiguous code row, so K1's CUDA-core layout (a block
-// owns 32 output columns and walks K code rows) would read each row with
-// a stride of d bytes. Instead each warp owns kTRows consecutive code
-// rows, and its lanes stream them coalesced along d: int8 and int16 rows
-// one 16-byte vector a lane per load (16 or 8 codes), packed or
-// misaligned rows one packing group a lane per load; the loads of all
-// kTRows rows are in flight before any is used. x (one activation row,
-// or a tile of 4) is
+// K1t, the transposed product: out = x @ W.T where W is (V, d) as code
+// rows, the tied logit head of gemma2 (256000 rows of 2304 codes).
+// Replaces the transposed branch of _matmul_pallas (_mm_t_body,
+// repro/comm/matmul.py:150), which tiled code rows and needed V to be a
+// multiple of its tile (_pallas_covers). Bound: at M = 4 the head reads
+// 590 MB of int8 codes for 4.7 GFLOP, ~8 flops a byte, so the bytes of
+// codes bound it: 0.176 ms at the H100 SXM's 3.35 TB/s (data sheet,
+// 700 W), about 14 codes a clock per SM. Two routes, as K1's:
+//
+// Tensor-core route, rt_dequant_matmul_t_tc (namespace tt): bf16
+// activations against a bf16 weight, every code type. It computes out.T
+// (V, M) = W (V, d) x.T (d, M): 16 code rows are the A operand of
+// mma.sync.m16n8k16 (row-major along d, the contracted axis, as they lie)
+// and up to 8 activation rows one n8 B tile (NT tiles for M up to 32, a
+// grid row per 32 more). The contracted index is permuted inside each
+// chunk of d, in both operands alike (a sum over d does not see the
+// order): a thread's codes of a row are one contiguous span (32 bytes of
+// int8, int16 or 4-bit lanes: 8, 4 or 16 k steps; 16 bytes of 2-bit
+// lanes; 48 bytes, whole groups, of 3- and 6-bit lanes), so each row
+// costs 16-byte ld.global.nc loads, and x is staged
+// once a block in shared memory already in B fragment order (one 8-byte
+// load a k step, no bank conflict; 37 KB at d 2304, M <= 8). Codes go
+// from device memory straight into registers, the next chunk's loads in
+// flight while this one's weights are made: a warp walks two 16-row
+// tiles (one for 3- and 6-bit spans), blocks are persistent over the
+// row groups, and there is no barrier after the staging (K1's tensor-core
+// route meets at one every 64 rows). Each code becomes its weight as in
+// K1 (tc::Deq: the biased code spliced into the mantissa, the exact base
+// subtracted, one multiply by the scale, one bf16 rounding in the pack),
+// for 2- and 4-bit lanes one mask of a word puts four codes in four bytes
+// for the byte permute, for 3 and 6 bits a funnel shift over two words.
+// Count a weight's ALU instructions against the budget: at the bound an
+// SM streams ~14 int8 codes a clock and issues 128 thread instructions,
+// ~9 a weight; the kernel spends ~4 (byte permute, subtract, multiply,
+// half a bf16x2 pack, a quarter of the bias XOR; plus a mask a word for
+// packed lanes) and one MMA per 8 weights a thread. Narrow lanes carry
+// 2-4 codes a byte, so the same ~4 instructions bound them before the
+// bytes do. The MMA sums a stage's 64 products from zero and the result
+// is added to the running fp32 sum with one IEEE rounding (K1's order and
+// tier). Rows whose bytes are no multiple of 16 (ragged d, packed rows at
+// odd widths) load byte by byte on the same route; ragged V and M are
+// masked, x zero past d. Deterministic. d is limited by the staged x:
+// 16 NT bytes a value of d in shared memory (d up to ~14,500 at M <= 8).
+//
+// CUDA-core route, rt_dequant_matmul_t (the first K1t kernel): float32
+// activations or float32 weights (on tensor cores TF32, not the plain
+// version's product). Each warp owns kTRows consecutive code rows, and its
+// lanes stream them coalesced along d: int8 and int16 rows one 16-byte
+// vector a lane per load (16 or 8 codes), packed or misaligned rows one
+// packing group a lane per load; the loads of all kTRows rows are in
+// flight before any is used. x (one activation row, or a tile of 4) is
 // held in registers at the lane's columns of a chunk of d and reused
-// across the warp's kTRows rows: shared memory would serve a lane's
-// columns from one bank group, registers serve them free. x is read from
-// L1/L2 once per chunk per warp, every code byte once per M-tile. Each
-// lane sums its columns in a fixed order in fp32; the warp folds the 32
-// lane sums by a fixed xor butterfly; one rounding to the output dtype.
-// The weight each product sees is bitwise the plain version's cast chain,
-// as in K1. Ragged V, d and M are masked. Bound: at M = 4 the head reads
-// 590 MB of codes for 4.7 GFLOP, ~8 flops a byte, so it is bound by the
-// bytes of codes: 0.176 ms at the H100 SXM's 3.35 TB/s (data sheet,
-// 700 W). A first version with 4-byte loads and 8 rows a warp (166
-// registers a thread, one block an SM) reached 12 % of that bound on an
-// NVIDIA H100 80GB HBM3 at 700 W; PERF.md has both versions' times.
+// across the warp's kTRows rows. Each lane sums its columns in a fixed
+// order in fp32; the warp folds the 32 lane sums by a fixed xor
+// butterfly; one rounding to the output dtype. The weight each product
+// sees is bitwise the plain version's cast chain, as in K1. Ragged V, d
+// and M are masked.
+// Measured times of both routes: PERF.md section 6 (chip_smoke.py).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -473,16 +505,15 @@ int launch_t_tile(const Args& a, int vec16, cudaStream_t stream) {
   return launch_t<BITS, false, 4, XT, OT>(a, stream);
 }
 
+// float32 activations, or bf16 activations against a float32 weight
+// (float32 out); a bf16 weight takes the tensor-core route
 template <int BITS>
 int launch_t_types(const Args& a, int vec16, int x_bf16, int out_bf16,
                    cudaStream_t stream) {
   if (!x_bf16 && !out_bf16)
     return launch_t_tile<BITS, float, float>(a, vec16, stream);
-  if (x_bf16 && out_bf16)
-    return launch_t_tile<BITS, __nv_bfloat16, __nv_bfloat16>(a, vec16,
-                                                              stream);
-  if (x_bf16) return launch_t_tile<BITS, __nv_bfloat16, float>(a, vec16,
-                                                              stream);
+  if (x_bf16 && !out_bf16)
+    return launch_t_tile<BITS, __nv_bfloat16, float>(a, vec16, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -850,6 +881,342 @@ int launch_tc_n(const TArgs& a, int tile_n, int slices, cudaStream_t stream) {
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// K1t on tensor cores: out (M, V) = x (M, d) @ W.T, bf16 activations, W
+// (V, d) as code rows whose weight is a bf16 number
+// ---------------------------------------------------------------------------
+
+namespace tt {
+
+using tc::Deq;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+
+// A thread's span of one code row: V16 16-byte vectors holding CS codes,
+// KS MMA k steps of 4 codes a row. A chunk of d is the 4 spans of a quad
+// (t = 0..3), CHUNK codes; RT: 16-row tiles a warp walks together.
+template <int BITS>
+struct Span {
+  static constexpr int V16 = (BITS == 3 || BITS == 6) ? 3 : BITS == 2 ? 1 : 2;
+  static constexpr int BYTES = 16 * V16;
+  static constexpr int CS = BYTES * 8 / BITS;
+  static constexpr int KS = CS / 4;
+  static constexpr int CHUNK = 4 * CS;
+  static constexpr int STAGE = KS < 4 ? KS : 4;   // k steps summed from 0
+  // the span's code that element e (0..3) of k step s takes: 4s + e, but
+  // for 2- and 4-bit lanes the codes of one byte position across a word
+  // (one mask and a byte permute give 4 weights)
+  __host__ __device__ static constexpr int pos(int s, int e) {
+    return BITS == 4   ? 8 * (s / 2) + 2 * e + s % 2
+           : BITS == 2 ? 16 * (s / 4) + 4 * e + s % 4
+                       : 4 * s + e;
+  }
+};
+
+template <int V16>
+__device__ __forceinline__ uint32_t word(const uint4 (&r)[V16], int j) {
+  const uint4 u = r[j / 4];
+  switch (j % 4) {
+    case 0: return u.x;
+    case 1: return u.y;
+    case 2: return u.z;
+    default: return u.w;
+  }
+}
+
+// The weights of elements 0..3 of k step s of one row's span (s is a
+// compile-time constant once the caller's loop is unrolled).
+template <int BITS>
+__device__ __forceinline__ void weights(const uint4 (&r)[Span<BITS>::V16],
+                                        int s, const Deq& q, float (&w)[4]) {
+  constexpr int V16 = Span<BITS>::V16;
+  if constexpr (BITS == 8) {
+    const uint32_t v = word<V16>(r, s) ^ 0x80808080u;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) w[e] = q(__byte_perm(v, q.hi, 0x5460u + e));
+  } else if constexpr (BITS == 16) {
+    const uint32_t v0 = word<V16>(r, 2 * s) ^ 0x80008000u;
+    const uint32_t v1 = word<V16>(r, 2 * s + 1) ^ 0x80008000u;
+    w[0] = q(__byte_perm(v0, q.hi, 0x5410u));
+    w[1] = q(__byte_perm(v0, q.hi, 0x5432u));
+    w[2] = q(__byte_perm(v1, q.hi, 0x5410u));
+    w[3] = q(__byte_perm(v1, q.hi, 0x5432u));
+  } else if constexpr (BITS == 4 || BITS == 2) {
+    // byte e of the masked word: code pos(s, e), biased already
+    constexpr int PER = 32 / BITS / 4;   // k steps a word
+    const int sh = BITS * (s % PER);
+    const uint32_t v = (word<V16>(r, s / PER) >> sh) &
+                       (BITS == 4 ? 0x0F0F0F0Fu : 0x03030303u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) w[e] = q(__byte_perm(v, q.hi, 0x5460u + e));
+  } else {
+    // 3 and 6 bits: codes 4s .. 4s+3 from bit 4s BITS, over two words
+    // where they cross one
+    constexpr uint32_t kMask = (1u << BITS) - 1u;
+    const int bit = 4 * BITS * s, o = bit >> 5, sh = bit & 31;
+    const uint32_t v = sh + 4 * BITS <= 32
+        ? word<V16>(r, o) >> sh
+        : __funnelshift_r(word<V16>(r, o), word<V16>(r, o + 1), sh);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      w[e] = q(q.hi32 | ((v >> (e * BITS)) & kMask));
+  }
+}
+
+struct TTArgs {
+  const __nv_bfloat16* x;
+  const uint8_t* codes;
+  const float* scale;
+  void* out;
+  int M, d, V;
+  long long row_bytes;  // bytes of one code row: d codes of BITS bits
+  int nchunks;          // chunks of d, the last one ragged
+  int k_x;
+  float inv_pow2;
+  int out_bf16;
+};
+
+// Block (persistent over 16 RT-row groups of code rows, n8 tiles NT of
+// activation rows). Shared memory holds x once a block, already in B
+// fragment order: [k step][n tile][lane] of uint2 (b0, b1), zeros past M
+// and past d. Each warp then streams code rows straight into registers,
+// the next chunk's 16-byte loads in flight while this chunk's weights are
+// made and multiplied; no barrier after the staging.
+template <int BITS, int NT, int RT, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+k1t_tc_kernel(const TTArgs a) {
+  using S = Span<BITS>;
+  constexpr int V16 = S::V16;
+  extern __shared__ __align__(16) uint2 xf[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.y * 8 * NT;
+  const int mrows = min(8 * NT, a.M - m0);
+  const long long groups = (a.V + 16 * RT - 1) / (16 * RT);
+  const long long gstride = (long long)gridDim.x * kWarps;
+  long long grp = (long long)blockIdx.x * kWarps + warp;
+
+  // the 16-byte vectors of the thread's span of rows g, g+8 of each tile
+  auto load = [&](uint4 (&r)[RT][2][V16], long long gi, int c) {
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long v = gi * 16 * RT + 16 * i + g + 8 * h;
+        const uint8_t* row = a.codes + v * a.row_bytes;
+        const long long at0 = (long long)c * 4 * S::BYTES + t * S::BYTES;
+#pragma unroll
+        for (int u = 0; u < V16; ++u) {
+          const long long at = at0 + 16 * u;
+          uint4 val = make_uint4(0u, 0u, 0u, 0u);
+          if constexpr (VEC) {
+            if (v < a.V && at < a.row_bytes)
+              val = __ldg(reinterpret_cast<const uint4*>(row + at));
+          } else if (v < a.V) {
+            uint32_t wv[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+            for (int e = 0; e < 16; ++e)
+              if (at + e < a.row_bytes)
+                wv[e / 4] |= (uint32_t)__ldg(row + at + e) << (8 * (e % 4));
+            val = make_uint4(wv[0], wv[1], wv[2], wv[3]);
+          }
+          r[i][h][u] = val;
+        }
+      }
+  };
+
+  uint4 raw[RT][2][V16], nxt[RT][2][V16];
+  if (grp < groups) load(raw, grp, 0);   // in flight while x is staged
+
+  const uint16_t* xr = reinterpret_cast<const uint16_t*>(a.x);
+  const int nsteps = a.nchunks * S::KS;
+  for (int i = tid; i < nsteps * NT * 32; i += kThreads) {
+    const int l = i & 31, nt = (i >> 5) % NT, K = (i >> 5) / NT;
+    const int c = K / S::KS, s = K % S::KS;
+    const int m = 8 * nt + (l >> 2);
+    uint32_t e16[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = c * S::CHUNK + (l & 3) * S::CS + S::pos(s, e);
+      e16[e] = (m < mrows && p < a.d)
+          ? (uint32_t)xr[(long long)(m0 + m) * a.d + p] : 0u;
+    }
+    xf[i] = make_uint2(e16[0] | (e16[1] << 16), e16[2] | (e16[3] << 16));
+  }
+  __syncthreads();
+
+  Deq q;
+  q.hi = (uint32_t)(150 - a.k_x) << 7;
+  q.hi32 = (uint32_t)(150 - a.k_x) << 23;
+  q.base = (8388608.0f + (BITS == 8    ? 128.0f
+                          : BITS == 16 ? 32768.0f
+                                       : (float)(1 << (BITS - 1)))) *
+           a.inv_pow2;
+  q.s = __ldg(a.scale);
+
+  float acc[RT][NT][4];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.0f;
+
+  int c = 0;
+  while (grp < groups) {
+    long long ngrp = grp;
+    int nc = c + 1;
+    if (nc == a.nchunks) { nc = 0; ngrp += gstride; }
+    if (ngrp < groups) load(nxt, ngrp, nc);
+
+    const uint2* xc = xf + (long long)c * S::KS * NT * 32 + lane;
+#pragma unroll
+    for (int s0 = 0; s0 < S::KS; s0 += S::STAGE) {
+      // a stage's 64 products of an output summed by the tensor cores from
+      // zero, then added to the running sum with one IEEE rounding (K1's
+      // order of the sum)
+      float dd[RT][NT][4];
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dd[i][n][e] = 0.0f;
+#pragma unroll
+      for (int s = s0; s < s0 + S::STAGE; ++s) {
+        uint2 b[NT];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) b[n] = xc[(s * NT + n) * 32];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          float wg[4], wh[4];
+          weights<BITS>(raw[i][0], s, q, wg);
+          weights<BITS>(raw[i][1], s, q, wh);
+          // A rows g / g+8, MMA k 2t, 2t+1 (elements 0, 1) and 2t+8, 2t+9
+          // (2, 3)
+          const uint32_t af[4] = {pack_bf16(wg[0], wg[1]),
+                                  pack_bf16(wh[0], wh[1]),
+                                  pack_bf16(wg[2], wg[3]),
+                                  pack_bf16(wh[2], wh[3])};
+#pragma unroll
+          for (int n = 0; n < NT; ++n) mma_bf16(dd[i][n], af, b[n].x, b[n].y);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][n][e] += dd[i][n][e];
+    }
+
+    if (c == a.nchunks - 1) {
+      // C fragment: code rows g (e 0, 1) and g+8 (2, 3), activation rows
+      // 2t (e 0, 2) and 2t+1 (1, 3) of n tile n
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const long long v = grp * 16 * RT + 16 * i + g + 8 * (e >> 1);
+            const int m = m0 + 8 * n + 2 * t + (e & 1);
+            if (v < a.V && m < a.M) {
+              const long long off = (long long)m * a.V + v;
+              if (a.out_bf16)
+                store(static_cast<__nv_bfloat16*>(a.out) + off, acc[i][n][e]);
+              else
+                static_cast<float*>(a.out)[off] = acc[i][n][e];
+            }
+            acc[i][n][e] = 0.0f;
+          }
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int u = 0; u < V16; ++u) raw[i][h][u] = nxt[i][h][u];
+    grp = ngrp;
+    c = nc;
+  }
+}
+
+// shared memory of the x fragments: nchunks * KS k steps x NT x 32 lanes
+template <int BITS>
+long long smem_of(int d, int nt) {
+  using S = Span<BITS>;
+  return (long long)((d + S::CHUNK - 1) / S::CHUNK) * S::KS * nt * 32 * 8;
+}
+
+template <int BITS, int NT, int RT, bool VEC>
+int launch(TTArgs a, cudaStream_t stream) {
+  using S = Span<BITS>;
+  a.nchunks = (a.d + S::CHUNK - 1) / S::CHUNK;
+  const int smem = (int)smem_of<BITS>(a.d, NT);
+  // per instance: the shared-memory cap, the SM count, and the blocks an
+  // SM holds at the last shared-memory size
+  static int sized = 0, sms = 0, occ_smem = -1, per_sm = 0;
+  cudaError_t err = cudaSuccess;
+  if (smem > sized) {
+    err = cudaFuncSetAttribute(k1t_tc_kernel<BITS, NT, RT, VEC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    sized = smem;
+  }
+  if (!sms) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (smem != occ_smem) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, k1t_tc_kernel<BITS, NT, RT, VEC>, kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    occ_smem = smem;
+  }
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long groups = (a.V + 16 * RT - 1) / (16 * RT);
+  const long long blocks =
+      std::min<long long>((groups + kWarps - 1) / kWarps,
+                          (long long)sms * per_sm);
+  dim3 grid((unsigned)blocks, (a.M + 8 * NT - 1) / (8 * NT));
+  k1t_tc_kernel<BITS, NT, RT, VEC><<<grid, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// NT n8 tiles of activation rows a block (1, 2 or 4: M up to 8, 16, or
+// 32 a row of the grid), as many as M needs and shared memory holds
+template <int BITS, bool VEC>
+int launch_nt(const TTArgs& a, cudaStream_t stream) {
+  constexpr long long kMax = 232448;
+  // two 16-row tiles a warp where the registers allow (at most 128 a
+  // thread, two blocks an SM): not with 4 n tiles, nor with the 48-byte
+  // spans of 3- and 6-bit rows
+  constexpr int RT = Span<BITS>::V16 <= 2 ? 2 : 1;
+  const int want = a.M <= 8 ? 1 : a.M <= 16 ? 2 : 4;
+  if (want >= 4 && smem_of<BITS>(a.d, 4) <= kMax)
+    return launch<BITS, 4, 1, VEC>(a, stream);
+  if (want >= 2 && smem_of<BITS>(a.d, 2) <= kMax)
+    return launch<BITS, 2, RT, VEC>(a, stream);
+  if (smem_of<BITS>(a.d, 1) <= kMax)
+    return launch<BITS, 1, RT, VEC>(a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int BITS>
+int launch_vec(const TTArgs& a, cudaStream_t stream) {
+  const bool vec = a.row_bytes % 16 == 0 && (uintptr_t)a.codes % 16 == 0;
+  return vec ? launch_nt<BITS, true>(a, stream)
+             : launch_nt<BITS, false>(a, stream);
+}
+
+}  // namespace tt
+
 }  // namespace
 
 extern "C" int rt_dequant_matmul(const void* x, const void* codes,
@@ -940,6 +1307,41 @@ extern "C" int rt_dequant_matmul_t(const void* x, const void* codes,
   }
 }
 
+// K1t on tensor cores. x (M, d) bf16; codes (V, row bytes of d codes):
+// int8 (code_bits 8), int16 (16) or packed 2/3/4/6-bit lanes; out (M, V)
+// bf16 (out_bf16) or float32. The weight is the leaf's or the pending
+// cast's bf16 number (the wrapper's route).
+extern "C" int rt_dequant_matmul_t_tc(const void* x, const void* codes,
+                                      const void* scale, void* out, int M,
+                                      int d, int V, int code_bits, int k_x,
+                                      int out_bf16, void* stream) {
+  if (M <= 0 || d <= 0 || V <= 0 || k_x < 0 || k_x > 14 ||
+      (M + 7) / 8 > 65535)
+    return (int)cudaErrorInvalidValue;
+  tt::TTArgs a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.codes = static_cast<const uint8_t*>(codes);
+  a.scale = static_cast<const float*>(scale);
+  a.out = out;
+  a.M = M; a.d = d; a.V = V;
+  a.k_x = k_x;
+  a.inv_pow2 = 1.0f / (float)(1 << k_x);
+  a.out_bf16 = out_bf16;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (code_bits) {
+    case 16: a.row_bytes = 2LL * d; return tt::launch_vec<16>(a, s);
+    case 8: a.row_bytes = d; return tt::launch_vec<8>(a, s);
+    case 6: a.row_bytes = (long long)((d + 3) / 4) * 3;
+            return tt::launch_vec<6>(a, s);
+    case 4: a.row_bytes = (long long)((d + 1) / 2);
+            return tt::launch_vec<4>(a, s);
+    case 3: a.row_bytes = (long long)((d + 7) / 8) * 3;
+            return tt::launch_vec<3>(a, s);
+    case 2: a.row_bytes = (long long)((d + 3) / 4);
+            return tt::launch_vec<2>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 // K1 on tensor cores. x (M, K) bf16; codes (K, N) int8 (code_bits 8),
 // int16 (16) or rows of packed 2/3/4/6-bit lanes (payload_nbytes(N, bits)

@@ -53,14 +53,37 @@
 // sets of P, and ptxas then serializes the wgmmas (C7513): the lead for
 // the next step.
 //
-// float32 route, rt_flash_attention (CUDA cores, the first #17 kernel):
-// bf16 tensor cores cannot hold rtol 1e-4 on fp32 inputs. A block of 256
-// threads owns a (64, hd) query tile of one (batch, head), held scaled in
-// shared memory as fp32, and walks 32-key tiles of K and V staged in
-// shared memory; each thread holds a 2 x 4 block of the 64 x 32 score
-// tile and a 2 x (hd / 8) block of the output accumulator; row maxima and
-// sums fold over 8 lanes by a fixed xor butterfly. At hd 256 the tiles
-// take 141 KB of dynamic shared memory (one block an SM).
+// float32 route, rt_flash_attention_tc32 (namespace tc32): the tensor
+// cores in 3xTF32. bf16 operands cannot hold rtol 1e-4 on fp32 inputs and
+// one TF32 pass errs by 2^-10 a product, but a = hi + lo with hi =
+// tf32(a), lo = tf32(a - hi) (both truncated, mma.cuh split_tf32) and the
+// three products lo hi + hi lo + hi hi (lo lo dropped) err by ~2^-19,
+// which holds the tier (the numpy emulation in
+// tests/test_torch_flash_attention.py shows it, for this split and for
+// round-to-nearest, and that one pass fails). Both S = Q K^T and O += P V take the three MMAs. The
+// fp32-accurate floors at gemma2's global layer (275 GFLOP): 3 x 275
+// GFLOP at 494.7 TFLOP/s TF32 = 1.67 ms; CUDA cores, 275 GFLOP at 66.9
+// TFLOP/s fp32 = 4.11 ms (data sheet, 700 W).
+// mma.sync.m16n8k8.tf32, not wgmma: wgmma takes TF32 only K-major, and
+// for P V that is V key-contiguous, a transpose that cp.async's 16-byte
+// row copies cannot do; mma.sync loads each B element itself, so V stays
+// as it lands (row 2t, column g of a k step: conflict-free at a row
+// stride of 4 mod 32 words). The contracted index is permuted inside each
+// k step (MMA k t <-> element 2t, k t+4 <-> 2t+1): for S both Q's and K's
+// fragment pairs are one 8-byte shared load each; for P V it makes the
+// S accumulator's layout (keys 2t, 2t+1 of each 8) P's A fragment with no
+// shuffle. The operands are split on the fly in registers after the
+// fragment load (two masks and a subtraction an element), so
+// shared memory holds fp32 only: at hd 256, Q for 128 rows 128 x 264 x 4
+// = 135,168 B (a split Q would be twice that), a 32-key K tile 33,792 B
+// and V 33,280 B, 202,240 B in all of the 232,448 an SM has; K and V are
+// single-buffered, K(i+1) copied during softmax and P V of tile i, V(i+1)
+// during S of tile i+1. A block is 8 warps over one K/V stream, as the
+// bf16 route's. Each tile's P V is summed by the tensor cores from zero
+// over its 32 keys and added into O with one fp32 fma (O = alpha O + PV):
+// the MMA's truncating accumulation never sees the long sum over Skv. A
+// warp skips the MMAs of a tile none of its rows sees. Registers at hd
+// 256: O 128, P hi/lo 32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,9 +97,6 @@ using rt::cp_async_commit;
 using rt::cp_async_wait;
 using rt::pack_bf16;
 
-constexpr int kFThreads = 256;
-constexpr int kBQ = 64;   // queries per block
-constexpr int kBK = 32;   // keys per tile
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -90,189 +110,6 @@ struct FArgs {
   float softcap;   // 0: none
   float sm_scale;  // 1/sqrt(hd) rounded to fp32
 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-
-template <int HD>
-constexpr int smem_floats() {
-  return kBQ * (HD + 4) + kBK * (HD + 4) + kBK * HD + kBQ * (kBK + 1);
-}
-
-template <int HD, typename T>
-__global__ void __launch_bounds__(kFThreads, 1)
-flash_attention_kernel(const FArgs a) {
-  constexpr int QS = HD + 4;     // padded row stride of the q and k tiles
-  constexpr int PS = kBK + 1;    // row stride of the p tile
-  constexpr int NC = HD / 32;    // float4 column groups a thread owns
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);   // [kBQ][QS]
-  float* Ks = Qs + kBQ * QS;                     // [kBK][QS]
-  float* Vs = Ks + kBK * QS;                     // [kBK][HD]
-  float* Ps = Vs + kBK * HD;                     // [kBQ][PS]
-
-  const T* __restrict__ q = static_cast<const T*>(a.q);
-  const T* __restrict__ k = static_cast<const T*>(a.k);
-  const T* __restrict__ v = static_cast<const T*>(a.v);
-  const int t = threadIdx.x, tx = t & 7, ty = t >> 3;   // ty in [0, 32)
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int kh = h / (a.H / a.K);
-  const int q0 = blockIdx.x * kBQ;
-  const long long q_row = (long long)a.H * HD;      // q/out stride of s
-  const long long kv_row = (long long)a.K * HD;     // k/v stride of j
-  const T* qb = q + ((long long)b * a.Sq * a.H + h) * HD;
-  const T* kb = k + ((long long)b * a.Skv * a.K + kh) * HD;
-  const T* vb = v + ((long long)b * a.Skv * a.K + kh) * HD;
-
-  for (int i = t; i < kBQ * HD; i += kFThreads) {
-    const int r = i / HD, d = i % HD;
-    Qs[r * QS + d] = q0 + r < a.Sq
-        ? to_f32(qb[(q0 + r) * q_row + d]) * a.sm_scale : 0.0f;
-  }
-
-  // the keys some query of this tile can see: [kv_lo, kv_hi)
-  const int qp_lo = a.q_offset + q0;
-  const int qp_hi = a.q_offset + min(q0 + kBQ, a.Sq) - 1;
-  int kv_lo = 0, kv_hi = a.Skv;
-  if (a.window > 0) kv_lo = max(0, qp_lo - a.window + 1);
-  if (a.causal) kv_hi = min(a.Skv, qp_hi + 1);
-
-  const int qpos[2] = {qp_lo + ty, qp_lo + ty + 32};
-  float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};
-  float acc[2][NC * 4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int c = 0; c < NC * 4; ++c) acc[i][c] = 0.0f;
-
-  for (int j0 = (kv_lo / kBK) * kBK; j0 < kv_hi; j0 += kBK) {
-    __syncthreads();   // q staged; the last tile's Ps and Vs read
-    for (int i = t; i < kBK * HD; i += kFThreads) {
-      const int j = i / HD, d = i % HD;
-      const bool in = j0 + j < a.Skv;
-      Ks[j * QS + d] = in ? to_f32(kb[(j0 + j) * kv_row + d]) : 0.0f;
-      Vs[j * HD + d] = in ? to_f32(vb[(j0 + j) * kv_row + d]) : 0.0f;
-    }
-    __syncthreads();
-
-    float sc[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) sc[i][c] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      const float4 qa = *reinterpret_cast<const float4*>(&Qs[ty * QS + d]);
-      const float4 qc =
-          *reinterpret_cast<const float4*>(&Qs[(ty + 32) * QS + d]);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float4 kk =
-            *reinterpret_cast<const float4*>(&Ks[(tx + 8 * c) * QS + d]);
-        sc[0][c] = fmaf(qa.x, kk.x, sc[0][c]);
-        sc[0][c] = fmaf(qa.y, kk.y, sc[0][c]);
-        sc[0][c] = fmaf(qa.z, kk.z, sc[0][c]);
-        sc[0][c] = fmaf(qa.w, kk.w, sc[0][c]);
-        sc[1][c] = fmaf(qc.x, kk.x, sc[1][c]);
-        sc[1][c] = fmaf(qc.y, kk.y, sc[1][c]);
-        sc[1][c] = fmaf(qc.z, kk.z, sc[1][c]);
-        sc[1][c] = fmaf(qc.w, kk.w, sc[1][c]);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      bool vis[4];
-      float mx = kNeg;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = j0 + tx + 8 * c;
-        vis[c] = j < a.Skv && (!a.causal || j <= qpos[i]) &&
-                 (a.window <= 0 || j > qpos[i] - a.window);
-        float s = sc[i][c];
-        if (a.softcap > 0.0f) s = a.softcap * tanhf(s / a.softcap);
-        sc[i][c] = vis[c] ? s : kNeg;
-        mx = fmaxf(mx, sc[i][c]);
-      }
-#pragma unroll
-      for (int off = 4; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = vis[c] ? expf(sc[i][c] - m_new) : 0.0f;
-        Ps[(ty + 32 * i) * PS + tx + 8 * c] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 4; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC * 4; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      const float pa = Ps[ty * PS + j], pc = Ps[(ty + 32) * PS + j];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(&Vs[j * HD + 32 * c + 4 * tx]);
-        acc[0][4 * c + 0] = fmaf(pa, vv.x, acc[0][4 * c + 0]);
-        acc[0][4 * c + 1] = fmaf(pa, vv.y, acc[0][4 * c + 1]);
-        acc[0][4 * c + 2] = fmaf(pa, vv.z, acc[0][4 * c + 2]);
-        acc[0][4 * c + 3] = fmaf(pa, vv.w, acc[0][4 * c + 3]);
-        acc[1][4 * c + 0] = fmaf(pc, vv.x, acc[1][4 * c + 0]);
-        acc[1][4 * c + 1] = fmaf(pc, vv.y, acc[1][4 * c + 1]);
-        acc[1][4 * c + 2] = fmaf(pc, vv.z, acc[1][4 * c + 2]);
-        acc[1][4 * c + 3] = fmaf(pc, vv.w, acc[1][4 * c + 3]);
-      }
-    }
-  }
-
-  T* __restrict__ ob = static_cast<T*>(a.out) +
-                       ((long long)b * a.Sq * a.H + h) * HD;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = q0 + ty + 32 * i;
-    if (r < a.Sq) {
-      const float den = fmaxf(l[i], 1e-30f);
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          store(ob + r * q_row + 32 * c + 4 * tx + e, acc[i][4 * c + e] / den);
-    }
-  }
-}
-
-template <int HD, typename T>
-int launch(const FArgs& a, cudaStream_t stream) {
-  const int bytes = smem_floats<HD>() * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<HD, T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.Sq + kBQ - 1) / kBQ, a.B * a.H);
-  flash_attention_kernel<HD, T><<<grid, kFThreads, bytes, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_hd(const FArgs& a, int hd, cudaStream_t stream) {
-  switch (hd) {
-    case 32: return launch<32, T>(a, stream);
-    case 64: return launch<64, T>(a, stream);
-    case 128: return launch<128, T>(a, stream);
-    case 256: return launch<256, T>(a, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // #17 on tensor cores (wgmma): bf16 q, k, v
@@ -621,23 +458,301 @@ int launch_tc(const FArgs& a, cudaStream_t stream) {
 
 }  // namespace tc
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// #17 on tensor cores in float32: 3xTF32 mma.sync
+// ---------------------------------------------------------------------------
 
-// q, out (B, Sq, H, hd); k, v (B, Skv, K, hd); all float32 (CUDA cores)
-extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
-                                  void* out, int B, int Sq, int Skv, int H,
-                                  int K, int hd, int causal, int window,
-                                  int q_offset, float softcap, float sm_scale,
-                                  void* stream) {
-  FArgs a;
-  a.q = q; a.k = k; a.v = v; a.out = out;
-  a.B = B; a.Sq = Sq; a.Skv = Skv; a.H = H; a.K = K;
-  a.causal = causal; a.window = window; a.q_offset = q_offset;
-  a.softcap = softcap; a.sm_scale = sm_scale;
-  if (Sq <= 0 || Skv <= 0 || K <= 0 || H % K || B * H > 65535)
-    return (int)cudaErrorInvalidValue;
-  return launch_hd<float>(a, hd, (cudaStream_t)stream);
+namespace tc32 {
+
+using rt::mma_3xtf32;
+using rt::split_tf32;
+
+constexpr int kThreads = 256;  // 8 warps of 16 query rows
+constexpr int kBQ = 64;        // query rows of 4 warps (a head's, paired)
+constexpr int kBK = 32;        // keys per tile
+constexpr int kCG = 4;         // n8 column tiles of P V summed together
+
+// Shared memory, fp32 as cp.async lands it: Q [2 kBQ][QS], K [kBK][QS],
+// V [kBK][VS]. A warp reads Q and K as 8-byte pairs (row g, columns 2t,
+// 2t+1: a half-warp's 16 pairs fall in distinct banks at a row stride of
+// 8 mod 32 words) and V as words (row 2t or 2t+1, column g: distinct at
+// 4 mod 32).
+template <int HD>
+struct L32 {
+  static constexpr int QS = HD + 8;
+  static constexpr int VS = HD + 4;
+  static constexpr int QF = 2 * kBQ * QS;
+  static constexpr int KF = kBK * QS;
+  static constexpr int VF = kBK * VS;
+  static constexpr int SMEM = (QF + KF + VF) * 4;
+  static_assert(SMEM <= 232448, "a block's shared memory on sm_90");
+  static_assert(HD / 8 % kCG == 0, "whole column groups");
+};
+
+// Block: 8 warps over one K/V stream, as the bf16 route's: the two query
+// heads of one KV head (64 rows each, `pair`) or 128 rows of one head.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_tc32_kernel(const FArgs a, int pair) {
+  using L = L32<HD>;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;
+  float* Ks = Qs + L::QF;
+  float* Vs = Ks + L::KF;
+
+  const float* __restrict__ q = static_cast<const float*>(a.q);
+  const float* __restrict__ k = static_cast<const float*>(a.k);
+  const float* __restrict__ v = static_cast<const float*>(a.v);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wgi = warp >> 2, wq = warp & 3;
+  const int rows = pair ? kBQ : 2 * kBQ;
+  // the query tiles with the most keys (causal: the last) start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * rows;
+  const int heads = pair ? a.H / 2 : a.H;
+  const int b = blockIdx.y / heads;
+  const int h0 = (blockIdx.y % heads) * (pair ? 2 : 1);
+  const int kh = h0 / (a.H / a.K);
+  const int hw = pair ? wgi : 0, rw = pair ? 0 : kBQ * wgi;
+  const long long q_row = (long long)a.H * HD;
+  const long long kv_row = (long long)a.K * HD;
+  const float* qb = q + ((long long)b * a.Sq * a.H + h0) * HD;
+  const float* kb = k + ((long long)b * a.Skv * a.K + kh) * HD;
+  const float* vb = v + ((long long)b * a.Skv * a.K + kh) * HD;
+  constexpr int CH = HD / 4;   // 16-byte chunks of a row
+
+  // Q: row r of shared memory is row r % 64 of warp group r / 64
+  for (int i = tid; i < 2 * kBQ * CH; i += kThreads) {
+    const int r = i / CH, c = i % CH, w = r / kBQ;
+    const int qr = q0 + (pair ? 0 : kBQ * w) + r % kBQ;
+    const bool in = qr < a.Sq;
+    cp_async16(Qs + r * L::QS + 4 * c,
+               in ? qb + qr * q_row + (pair ? w : 0) * HD + 4 * c : qb,
+               in ? 16 : 0);
+  }
+  auto load_kv = [&](float* dst, int stride, const float* src, int j0) {
+    for (int i = tid; i < kBK * CH; i += kThreads) {
+      const int r = i / CH, c = i % CH;
+      const bool in = j0 + r < a.Skv;
+      cp_async16(dst + r * stride + 4 * c,
+                 in ? src + (long long)(j0 + r) * kv_row + 4 * c : src,
+                 in ? 16 : 0);
+    }
+  };
+
+  // the keys some query of the block can see: [kv_lo, kv_hi)
+  const int qp_lo = a.q_offset + q0;
+  const int qp_hi = a.q_offset + min(q0 + rows, a.Sq) - 1;
+  int kv_lo = 0, kv_hi = a.Skv;
+  if (a.window > 0) kv_lo = max(0, qp_lo - a.window + 1);
+  if (a.causal) kv_hi = min(a.Skv, qp_hi + 1);
+  const int j_first = (kv_lo / kBK) * kBK;
+  const int ntiles = kv_hi > j_first ? (kv_hi - j_first + kBK - 1) / kBK : 0;
+
+  // this warp's first row and position; a tile that none of its 16 rows
+  // sees is skipped by the warp (mma.sync has no wgmma's serialization)
+  const int wrow = q0 + rw + wq * 16;
+  const int wpos = a.q_offset + wrow;
+  const int pos[2] = {wpos + g, wpos + g + 8};
+  float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+  const bool cap = a.softcap > 0.0f;
+  const float pre = cap ? a.sm_scale / a.softcap : a.sm_scale * kLog2e;
+  const float post = a.softcap * kLog2e;
+  const float* qw = Qs + (16 * warp + g) * L::QS + 2 * t;
+  const float* kw = Ks + g * L::QS + 2 * t;
+  const float* vw = Vs + 2 * t * L::VS + g;
+
+  // Copy groups, in commit order: {Q, K0}, {V0}, then each tile i commits
+  // {K(i+1)} once every warp has read K(i), and {V(i+1)} once every warp
+  // has read V(i): K(i+1) lands during softmax and P V of tile i, V(i+1)
+  // during S of tile i+1.
+  if (ntiles > 0) load_kv(Ks, L::QS, kb, j_first);
+  cp_async_commit();
+  if (ntiles > 0) load_kv(Vs, L::VS, vb, j_first);
+  cp_async_commit();
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int j0 = j_first + it * kBK;
+    const int jmax = min(j0 + kBK, a.Skv) - 1;
+    const bool sees = wrow < a.Sq && (!a.causal || j0 <= wpos + 15) &&
+                      (a.window <= 0 || jmax > wpos - a.window);
+    cp_async_wait<1>();        // Q, K(it)
+    __syncthreads();
+    // S = Q K^T (16 x 32) in 3xTF32. The contracted d is permuted within
+    // each k step (MMA k t <-> d 2t, k t+4 <-> d 2t+1) in both operands,
+    // so each fragment pair is one 8-byte shared load
+    float sc[4][4];
+    if (sees) {
+      float ss[4][4];   // the cross terms, a chain beside sc's
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = ss[n][e] = 0.0f;
+#pragma unroll 4
+      for (int ks = 0; ks < HD / 8; ++ks) {
+        const float2 x0 = *reinterpret_cast<const float2*>(qw + 8 * ks);
+        const float2 x1 =
+            *reinterpret_cast<const float2*>(qw + 8 * L::QS + 8 * ks);
+        uint32_t ah[4], al[4];
+        split_tf32(x0.x, ah[0], al[0]);
+        split_tf32(x1.x, ah[1], al[1]);
+        split_tf32(x0.y, ah[2], al[2]);
+        split_tf32(x1.y, ah[3], al[3]);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const float2 kk =
+              *reinterpret_cast<const float2*>(kw + 8 * n * L::QS + 8 * ks);
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(kk.x, bh0, bl0);
+          split_tf32(kk.y, bh1, bl1);
+          mma_3xtf32(sc[n], ss[n], ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] += ss[n][e];
+    }
+    __syncthreads();           // every warp has read K(it)
+    if (it + 1 < ntiles) load_kv(Ks, L::QS, kb, j0 + kBK);
+    cp_async_commit();
+
+    // scale, softcap, mask, online softmax (log2 domain, as the bf16
+    // route); P = P_hi + P_lo as the A fragments of P V: key group n,
+    // rows g / g+8, MMA k t <-> key 8n+2t, k t+4 <-> key 8n+2t+1
+    uint32_t ph[4][4], pl[4][4];
+    float alpha[2] = {1.0f, 1.0f};
+    if (sees) {
+      const bool full = j0 + kBK <= a.Skv &&
+                        (!a.causal || j0 + kBK - 1 <= wpos) &&
+                        (a.window <= 0 || j0 > wpos + 15 - a.window);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float s = sc[n][e] * pre;
+          if (cap) s = post * tanhf(s);
+          if (!full) {
+            const int j = j0 + 8 * n + 2 * t + (e & 1);
+            const int p = pos[e >> 1];
+            if (j >= a.Skv || (a.causal && j > p) ||
+                (a.window > 0 && j <= p - a.window))
+              s = kNeg;
+          }
+          sc[n][e] = s;
+        }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mx = fmaxf(fmaxf(fmaxf(sc[0][2 * hr], sc[0][2 * hr + 1]),
+                               fmaxf(sc[1][2 * hr], sc[1][2 * hr + 1])),
+                         fmaxf(fmaxf(sc[2][2 * hr], sc[2][2 * hr + 1]),
+                               fmaxf(sc[3][2 * hr], sc[3][2 * hr + 1])));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hr], mx);
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float sv = sc[n][2 * hr + e];
+            sc[n][2 * hr + e] = sv > kNeg ? tc::ex2(sv - m_new) : 0.0f;
+          }
+        float sum = ((sc[0][2 * hr] + sc[0][2 * hr + 1]) +
+                     (sc[1][2 * hr] + sc[1][2 * hr + 1])) +
+                    ((sc[2][2 * hr] + sc[2][2 * hr + 1]) +
+                     (sc[3][2 * hr] + sc[3][2 * hr + 1]));
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        alpha[hr] = tc::ex2(m[hr] - m_new);
+        l[hr] = l[hr] * alpha[hr] + sum;
+        m[hr] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        split_tf32(sc[n][0], ph[n][0], pl[n][0]);
+        split_tf32(sc[n][2], ph[n][1], pl[n][1]);
+        split_tf32(sc[n][1], ph[n][2], pl[n][2]);
+        split_tf32(sc[n][3], ph[n][3], pl[n][3]);
+      }
+    }
+
+    cp_async_wait<1>();        // V(it); K(it+1) may still be in flight
+    __syncthreads();
+    if (sees) {
+      // O = alpha O + P V(it), kCG n8 column tiles at a time: the tile's
+      // 32 products of an output summed by the tensor cores from zero (hi
+      // hi and the cross terms apart: 2 kCG independent chains), then one
+      // fp32 fma into the running O (the MMA's truncating accumulation
+      // never sees the long sum)
+#pragma unroll
+      for (int c0 = 0; c0 < HD / 8; c0 += kCG) {
+        float db[kCG][4], ds[kCG][4];
+#pragma unroll
+        for (int c = 0; c < kCG; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) db[c][e] = ds[c][e] = 0.0f;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+#pragma unroll
+          for (int c = 0; c < kCG; ++c) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(vw[8 * n * L::VS + 8 * (c0 + c)], bh0, bl0);
+            split_tf32(vw[(8 * n + 1) * L::VS + 8 * (c0 + c)], bh1, bl1);
+            mma_3xtf32(db[c], ds[c], ph[n], pl[n], bh0, bh1, bl0, bl1);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < kCG; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[4 * (c0 + c) + e] = fmaf(o[4 * (c0 + c) + e], alpha[e >> 1],
+                                       db[c][e] + ds[c][e]);
+      }
+    }
+    __syncthreads();           // every warp has read V(it)
+    if (it + 1 < ntiles) load_kv(Vs, L::VS, vb, j0 + kBK);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  float* ob = static_cast<float*>(a.out) +
+              ((long long)b * a.Sq * a.H + h0 + hw) * HD;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = wrow + g + 8 * hr;
+    if (r >= a.Sq) continue;
+    const float den = fmaxf(l[hr], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c)
+      *reinterpret_cast<float2*>(ob + r * q_row + 8 * c + 2 * t) =
+          make_float2(o[4 * c + 2 * hr] / den, o[4 * c + 2 * hr + 1] / den);
+  }
 }
+
+template <int HD>
+int launch(const FArgs& a, cudaStream_t stream) {
+  static bool sized = false;   // once per instance: the shared-memory cap
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_tc32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L32<HD>::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  const int pair = (a.H / a.K) % 2 == 0;
+  const int rows = pair ? kBQ : 2 * kBQ;
+  dim3 grid((a.Sq + rows - 1) / rows, a.B * a.H / (pair ? 2 : 1));
+  flash_tc32_kernel<HD><<<grid, kThreads, L32<HD>::SMEM, stream>>>(a, pair);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc32
+
+
+}  // namespace
 
 // q, out (B, Sq, H, hd); k, v (B, Skv, K, hd); all bf16 (tensor cores)
 extern "C" int rt_flash_attention_tc(const void* q, const void* k,
@@ -659,6 +774,32 @@ extern "C" int rt_flash_attention_tc(const void* q, const void* k,
     case 64: return tc::launch_tc<64>(a, s);
     case 128: return tc::launch_tc<128>(a, s);
     case 256: return tc::launch_tc<256>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// q, out (B, Sq, H, hd); k, v (B, Skv, K, hd); all float32 (tensor cores,
+// 3xTF32)
+extern "C" int rt_flash_attention_tc32(const void* q, const void* k,
+                                       const void* v, void* out, int B,
+                                       int Sq, int Skv, int H, int K, int hd,
+                                       int causal, int window, int q_offset,
+                                       float softcap, float sm_scale,
+                                       void* stream) {
+  FArgs a;
+  a.q = q; a.k = k; a.v = v; a.out = out;
+  a.B = B; a.Sq = Sq; a.Skv = Skv; a.H = H; a.K = K;
+  a.causal = causal; a.window = window; a.q_offset = q_offset;
+  a.softcap = softcap; a.sm_scale = sm_scale;
+  if (Sq <= 0 || Skv <= 0 || K <= 0 || H % K || B * H > 65535 ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (hd) {
+    case 32: return tc32::launch<32>(a, s);
+    case 64: return tc32::launch<64>(a, s);
+    case 128: return tc32::launch<128>(a, s);
+    case 256: return tc32::launch<256>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

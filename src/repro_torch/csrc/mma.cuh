@@ -1,9 +1,10 @@
-// Hopper tensor-core and copy primitives shared by the two kernels that
-// run on tensor cores: K1 dequant-matmul (dequant_matmul.cu,
-// rt_dequant_matmul_tc) and #17 flash attention (flash_attention.cu,
-// rt_flash_attention_tc). PTX for sm_90a: 16-byte cp.async copies into
-// shared memory (with zero fill), ldmatrix, and the warp-level
-// mma.sync.m16n8k16 on bf16 operands with fp32 accumulators.
+// Hopper tensor-core and copy primitives shared by the kernels that run on
+// tensor cores: K1 and K1t dequant-matmul (dequant_matmul.cu,
+// rt_dequant_matmul_tc, rt_dequant_matmul_t_tc) and #17 flash attention
+// (flash_attention.cu, rt_flash_attention_tc and _tc32). PTX for sm_90a:
+// 16-byte cp.async copies into shared memory (with zero fill), ldmatrix,
+// the warp-level mma.sync.m16n8k16 on bf16 operands and m16n8k8 on TF32
+// operands (with the 3xTF32 split) with fp32 accumulators, and wgmma.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row major), a[0..3]: (g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..),
@@ -58,6 +59,43 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo + O(2^-20 |x|), hi and lo TF32 (the 3xTF32 split): hi is x
+// with its low 13 mantissa bits cleared (truncated toward zero), lo = x -
+// hi (exact in fp32, below 2^-10 |x|) likewise. Two integer masks and a
+// subtraction: cvt.rna.tf32.f32 lowers to about five instructions an
+// element, and the split is redone for every fragment.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xFFFFE000u;
+}
+
+// d = a b + c on TF32 operands (m16n8k8), fp32 accumulators (in place).
+// Fragments (g = lane / 4, t = lane % 4): A (16 x 8, row major) a[0..3]:
+// (g, t), (g+8, t), (g, t+4), (g+8, t+4); B (8 x 8, k x n) b0: (k t, n g),
+// b1: (k t+4, n g); C as m16n8k16's.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a b in 3xTF32, into two accumulators (two dependency chains): the cross
+// terms lo hi + hi lo into `small`, hi hi into `big` (lo lo, ~2^-20
+// relative, is dropped); a b = big + small
+__device__ __forceinline__ void mma_3xtf32(float (&big)[4], float (&small)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(small, al, bh0, bh1);
+  mma_tf32(big, ah, bh0, bh1);
+  mma_tf32(small, ah, bl0, bl1);
 }
 
 // two floats -> one register of two bf16, each rounded to nearest even;

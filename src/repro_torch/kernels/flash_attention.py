@@ -5,14 +5,16 @@ attention of q (B, Sq, H, hd) against k, v (B, Skv, K, hd), GQA (query
 head h reads KV head h // (H // K)), causal, a sliding window, a logit
 softcap and a query position offset, out (B, Sq, H, hd) in q's dtype.
 The kernels live in ``csrc/flash_attention.cu`` (design notes there);
-both visit only the K/V tiles some query of a block can see. Two routes,
-picked by dtype (:func:`route`), each with its own launch counter:
+both run on the tensor cores and visit only the K/V tiles some query of
+a block can see. Two routes, picked by dtype (:func:`route`), each with
+its own launch counter:
 
-- ``"tc"``, bfloat16 (``launches_tc``): wgmma on the tensor cores, two
-  warpgroups over one stream of K/V tiles, P fed to the MMA as two bf16
-  terms so the bf16 tier holds.
-- ``"fma"``, float32 (``launches_fma``): fp32 on CUDA cores (the first
-  kernel), which holds rtol 1e-4.
+- ``"tc"``, bfloat16 (``launches_tc``): wgmma, two warpgroups over one
+  stream of K/V tiles, P fed to the MMA as two bf16 terms so the bf16
+  tier holds.
+- ``"tc32"``, float32 (``launches_tc32``): mma.sync in 3xTF32 (each
+  operand split into two TF32 terms, three products), which holds
+  rtol 1e-4 where one TF32 pass would not.
 
 ``launches`` counts both; neither route falls back to the other. They
 take hd in {32, 64, 128, 256} and any Sq, Skv; the TPU kernel's
@@ -40,8 +42,8 @@ from repro_torch import build
 from repro_torch.comm.codec import resolve_backend
 
 launches = 0        # #17 launches, either route
-launches_tc = 0     # #17 on tensor cores (bfloat16, route "tc")
-launches_fma = 0    # #17 on CUDA cores (float32, route "fma")
+launches_tc = 0     # #17 on tensor cores in bfloat16 (route "tc")
+launches_tc32 = 0   # #17 on tensor cores in float32, 3xTF32 (route "tc32")
 plain_on_cuda = 0   # plain versions run on CUDA tensors
 
 HEAD_DIMS = (32, 64, 128, 256)
@@ -84,18 +86,18 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def route(dtype: torch.dtype) -> str:
-    """Which kernel computes #17 on CUDA tensors: ``"tc"`` (bf16 tensor
-    cores) for bfloat16 inputs, ``"fma"`` (fp32 CUDA cores) for float32,
-    whose rtol 1e-4 bf16 operands cannot hold."""
+    """Which kernel computes #17 on CUDA tensors: ``"tc"`` (bf16 MMAs) for
+    bfloat16 inputs, ``"tc32"`` (3xTF32 MMAs) for float32, whose rtol
+    1e-4 neither bf16 operands nor one TF32 pass can hold."""
     if dtype == torch.bfloat16:
         return "tc"
     if dtype == torch.float32:
-        return "fma"
+        return "tc32"
     raise ValueError(f"dtype {dtype}: need float32 or bfloat16")
 
 
 def _flash_cuda(q, k, v, *, causal, window, softcap, q_offset):
-    global launches, launches_tc, launches_fma
+    global launches, launches_tc, launches_tc32
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
@@ -107,7 +109,7 @@ def _flash_cuda(q, k, v, *, causal, window, softcap, q_offset):
     q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
     fn = build.library().rt_flash_attention_tc if which == "tc" else \
-        build.library().rt_flash_attention
+        build.library().rt_flash_attention_tc32
     err = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), B, Sq,
              Skv, H, K, hd, int(causal), int(window), int(q_offset),
              float(softcap or 0.0), 1.0 / math.sqrt(hd),
@@ -117,7 +119,7 @@ def _flash_cuda(q, k, v, *, causal, window, softcap, q_offset):
     if which == "tc":
         launches_tc += 1
     else:
-        launches_fma += 1
+        launches_tc32 += 1
     return out
 
 

@@ -12,8 +12,9 @@ in both orientations (K1, K1t) within float32 summation-order tolerance
 (f32 activations) or one bf16 ulp plus a floor of K1_FLOOR sqrt(K)
 2^-24 |x*w|_2 near zero (bf16 activations), the tier of
 ``chip_smoke.py``; flash attention (#17) within rtol 1e-4 / atol 1e-5
-(float32) or one bf16 ulp plus 1e-5 (bfloat16 outputs) of its plain
-version, both taking float32 sums in orders of their own.
+(float32, 3xTF32 on tensor cores) or one bf16 ulp plus 1e-5 (bfloat16
+outputs) of its plain version, both taking float32 sums in orders of
+their own.
 """
 import dataclasses
 
@@ -1006,9 +1007,9 @@ def test_dequant_matmul_tensor_cores_packed(dev, bits, M, K, N):
     dict(B=1, Sq=65, Skv=97, H=2, K=1, causal=False, window=20,
          softcap=None, q_offset=30)])
 def test_flash_attention_tensor_cores(dev, case):
-    """#17's tensor-core route at hd 256 within one bf16 ulp plus 1e-5 of
-    the plain version; two calls bitwise equal; the route's counter
-    moves, the float32 route's does not."""
+    """#17's bf16 route at hd 256 within one bf16 ulp plus 1e-5 of the
+    plain version; two calls bitwise equal; the route's counter moves,
+    the float32 route's does not."""
     from repro_torch.kernels import flash_attention as FA
     hd = 256
     g = torch.Generator(device=dev).manual_seed(case["Sq"] + case["Skv"])
@@ -1018,10 +1019,10 @@ def test_flash_attention_tensor_cores(dev, case):
                         device=dev).to(torch.bfloat16) for _ in range(2))
     kw = dict(causal=case["causal"], window=case["window"],
               softcap=case["softcap"], q_offset=case.get("q_offset", 0))
-    n_tc, n_fma = FA.launches_tc, FA.launches_fma
+    n_tc, n_tc32 = FA.launches_tc, FA.launches_tc32
     a = FA.flash_attention(q, k, v, backend="cuda", **kw)
     a2 = FA.flash_attention(q, k, v, backend="cuda", **kw)
-    assert (FA.launches_tc, FA.launches_fma) == (n_tc + 2, n_fma)
+    assert (FA.launches_tc, FA.launches_tc32) == (n_tc + 2, n_tc32)
     b = FA.flash_attention(q, k, v, backend="torch", **kw)
     assert torch.equal(a, a2)
     tol = _bf16_ulp(b.float()) + 1e-5
@@ -1032,8 +1033,173 @@ def test_flash_attention_float32_route_counts(dev):
     from repro_torch.kernels import flash_attention as FA
     q = torch.randn(1, 40, 2, 64, device=dev)
     k = torch.randn(1, 40, 1, 64, device=dev)
-    n_tc, n_fma = FA.launches_tc, FA.launches_fma
+    n_tc, n_tc32 = FA.launches_tc, FA.launches_tc32
     a = FA.flash_attention(q, k, k, backend="cuda")
     b = FA.flash_attention(q, k, k, backend="torch")
-    assert (FA.launches_tc, FA.launches_fma) == (n_tc, n_fma + 1)
+    assert (FA.launches_tc, FA.launches_tc32) == (n_tc, n_tc32 + 1)
     torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K1t on tensor cores, #17 in float32 on tensor cores (3xTF32)
+# ---------------------------------------------------------------------------
+
+def _k1t_case(dev, M, V, d, bits, seed):
+    """x (M, d) bf16 and code rows (V, d) of one width, as _k1_tc_case."""
+    x, codes, scale, k_x, pb = _k1_tc_case(dev, M, V, d, bits, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn(M, d, generator=g, device=dev).to(torch.bfloat16)
+    return x, codes, scale, k_x, pb
+
+
+def _k1t_bf16_tol(MM, x, codes, scale, k_x, b, pack_bits=0):
+    d = x.shape[1]
+    w = MM.dequant_codes(codes, scale, k_x=k_x, n=d, pack_bits=pack_bits,
+                         w_dtype="float32", cast_dtype="bfloat16").float()
+    norm = (x.float() ** 2 @ (w ** 2).T).sqrt()
+    return _bf16_ulp(b.float()) + K1_FLOOR * d ** 0.5 * 2.0 ** -24 * norm
+
+
+@pytest.mark.parametrize("bits", [8, 16, 2, 3, 4, 6])
+@pytest.mark.parametrize("M", [1, 2, 4, 5, 8, 17])
+@pytest.mark.parametrize("V,d", [
+    (512, 2304),     # aligned: whole 16-byte spans, whole 16-row tiles
+    (1001, 2304),    # ragged V
+    (256, 1000),     # ragged d (a chunk part past the row)
+    (77, 37)])       # both, rows of no whole 16 bytes
+def test_dequant_matmul_t_tensor_cores(dev, bits, M, V, d):
+    """K1t's tensor-core route (bf16 activations, every code type) within
+    K1's tier: one bf16 ulp plus the floor of the plain product; two calls
+    bitwise equal; t_launches_tc moves, t_launches_fma does not."""
+    from repro_torch.comm import matmul as MM
+    x, codes, scale, k_x, pb = _k1t_case(dev, M, V, d, bits,
+                                         M * V + d + bits)
+    kw = dict(k_x=k_x, n=d, pack_bits=pb, cast_dtype="bfloat16",
+              transpose=True)
+    n = (MM.t_launches, MM.t_launches_tc, MM.t_launches_fma)
+    a = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    a2 = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    assert (MM.t_launches, MM.t_launches_tc, MM.t_launches_fma) == (
+        n[0] + 2, n[1] + 2, n[2])
+    b = MM.dequant_matmul(x, codes, scale, backend="torch", **kw)
+    assert a.dtype == b.dtype == torch.bfloat16 and a.shape == (M, V)
+    assert torch.equal(a, a2)
+    tol = _k1t_bf16_tol(MM, x, codes, scale, k_x, b, pb)
+    assert bool(((a.float() - b.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dequant_matmul_t_tier_catches_a_dropped_column(dev, bits):
+    """The planted fault: the plain product with the last d column dropped
+    fails the tier the kernel passes."""
+    from repro_torch.comm import matmul as MM
+    M, V, d = 4, 1001, 2304
+    x, codes, scale, k_x, pb = _k1t_case(dev, M, V, d, bits, 99 + bits)
+    kw = dict(k_x=k_x, n=d, pack_bits=pb, cast_dtype="bfloat16",
+              transpose=True)
+    a = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    b = MM.dequant_matmul(x, codes, scale, backend="torch", **kw)
+    tol = _k1t_bf16_tol(MM, x, codes, scale, k_x, b, pb)
+    assert bool(((a.float() - b.float()).abs() <= tol).all())
+    w = MM.dequant_codes(codes, scale, k_x=k_x, n=d, pack_bits=pb,
+                         w_dtype="float32", cast_dtype="bfloat16").float()
+    bad = (x[:, :-1].float() @ w[:, :-1].T).to(torch.bfloat16)
+    assert bool(((bad.float() - b.float()).abs() > tol).any())
+
+
+def test_dequant_matmul_t_route_counts(dev):
+    """bf16 activations against a bf16 weight move t_launches_tc; float32
+    activations, or a float32 weight, move t_launches_fma; t_launches
+    counts both, and K1's counters stay."""
+    from repro_torch.comm import matmul as MM
+    x, codes, scale, k_x, _ = _k1t_case(dev, 3, 300, 256, 8, 7)
+    kw = dict(k_x=k_x, n=256, transpose=True)
+    n = (MM.t_launches, MM.t_launches_tc, MM.t_launches_fma, MM.launches)
+    MM.dequant_matmul(x, codes, scale, cast_dtype="bfloat16",
+                      backend="cuda", **kw)
+    MM.dequant_matmul(x, codes, scale, w_dtype="bfloat16",
+                      cast_dtype="float32", backend="cuda", **kw)
+    assert (MM.t_launches, MM.t_launches_tc, MM.t_launches_fma) == (
+        n[0] + 2, n[1] + 2, n[2])
+    a = MM.dequant_matmul(x.float(), codes, scale, backend="cuda", **kw)
+    MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)  # f32 weight
+    assert (MM.t_launches, MM.t_launches_tc, MM.t_launches_fma,
+            MM.launches) == (n[0] + 4, n[1] + 2, n[2] + 2, n[3])
+    b = MM.dequant_matmul(x.float(), codes, scale, backend="torch", **kw)
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_dequant_matmul_t_tensor_cores_float32_out(dev):
+    """A bf16 leaf without a pending cast: bf16 weights, float32 output."""
+    from repro_torch.comm import matmul as MM
+    x, codes, scale, k_x, _ = _k1t_case(dev, 5, 640, 96, 8, 1)
+    kw = dict(k_x=k_x, n=96, w_dtype="bfloat16", cast_dtype="float32",
+              transpose=True)
+    n_tc = MM.t_launches_tc
+    a = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    b = MM.dequant_matmul(x, codes, scale, backend="torch", **kw)
+    assert MM.t_launches_tc == n_tc + 1
+    assert a.dtype == b.dtype == torch.float32 and a.shape == (5, 640)
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# the four cases of tests/test_kernels.py (TestFlashAttention) and a
+# ragged one (Sq, Skv no multiple of any tile, window, softcap, offset)
+F32_FLASH_CASES = {
+    "causal": dict(B=2, Sq=256, Skv=256, H=4, K=2, causal=True, window=0,
+                   softcap=None),
+    "suffix": dict(B=1, Sq=128, Skv=384, H=8, K=2, causal=True, window=0,
+                   softcap=None, q_offset=256),
+    "swa_softcap": dict(B=1, Sq=256, Skv=256, H=2, K=2, causal=True,
+                        window=96, softcap=50.0),
+    "bidirectional": dict(B=2, Sq=128, Skv=128, H=4, K=4, causal=False,
+                          window=0, softcap=None),
+    "ragged": dict(B=1, Sq=100, Skv=150, H=4, K=2, causal=True, window=40,
+                   softcap=30.0, q_offset=50),
+}
+
+
+def _flash_f32_inputs(dev, c, hd, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(c["B"], c["Sq"], c["H"], hd, generator=g, device=dev)
+    k, v = (torch.randn(c["B"], c["Skv"], c["K"], hd, generator=g,
+                        device=dev) for _ in range(2))
+    kw = dict(causal=c["causal"], window=c["window"], softcap=c["softcap"],
+              q_offset=c.get("q_offset", 0))
+    return q, k, v, kw
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("case", sorted(F32_FLASH_CASES))
+def test_flash_attention_float32_tensor_cores(dev, case, hd):
+    """#17's float32 route (3xTF32) within rtol 1e-4 / atol 1e-5 of the
+    plain version at every head dim; two calls bitwise equal; launches_tc32
+    moves, the bf16 route's counter does not."""
+    from repro_torch.kernels import flash_attention as FA
+    c = F32_FLASH_CASES[case]
+    q, k, v, kw = _flash_f32_inputs(dev, c, hd, hd + c["Sq"] + c["Skv"])
+    assert FA.route(q.dtype) == "tc32"
+    n_tc, n_tc32 = FA.launches_tc, FA.launches_tc32
+    a = FA.flash_attention(q, k, v, backend="cuda", **kw)
+    a2 = FA.flash_attention(q, k, v, backend="cuda", **kw)
+    assert (FA.launches_tc, FA.launches_tc32) == (n_tc, n_tc32 + 2)
+    b = FA.flash_attention(q, k, v, backend="torch", **kw)
+    assert a.dtype == torch.float32 and a.shape == q.shape
+    assert torch.equal(a, a2)
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["swa_softcap", "ragged"])
+def test_flash_attention_float32_tier_catches_window_off_by_one(dev, case):
+    """The planted fault: the plain version with the window one wider
+    fails the tier the kernel passes."""
+    from repro_torch.kernels import flash_attention as FA
+    c = F32_FLASH_CASES[case]
+    q, k, v, kw = _flash_f32_inputs(dev, c, 256, 5)
+    a = FA.flash_attention(q, k, v, backend="cuda", **kw)
+    b = FA.flash_attention(q, k, v, backend="torch", **kw)
+    tol = 1e-5 + 1e-4 * b.abs()
+    assert bool(((a - b).abs() <= tol).all())
+    bad = FA.flash_attention(q, k, v, backend="torch",
+                             **dict(kw, window=kw["window"] + 1))
+    assert bool(((bad - b).abs() > tol).any())

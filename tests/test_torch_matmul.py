@@ -314,3 +314,79 @@ def test_packed_tensor_core_route_refused_on_cpu(pack_bits, k_x):
     floor = K1_FLOOR * np.sqrt(96) * 2.0 ** -24 * norm
     assert out.dtype == torch.bfloat16 and out.shape == (5, N)
     assert np.all(np.abs(out.float().numpy() - ref) <= ulp + floor)
+
+
+# K1t (transpose=True) takes the same two routes, by the same rule, with
+# counters of its own: t_launches_tc / t_launches_fma (t_launches both)
+@pytest.mark.parametrize("x,codes,pack,w,cast,expect", [
+    # bf16 activations against a bf16 weight: tensor cores, every code type
+    (torch.bfloat16, torch.int8, 0, "float32", "bfloat16", "tc"),
+    (torch.bfloat16, torch.int16, 0, "float32", "bfloat16", "tc"),
+    (torch.bfloat16, torch.uint8, 2, "float32", "bfloat16", "tc"),
+    (torch.bfloat16, torch.uint8, 3, "bfloat16", None, "tc"),
+    (torch.bfloat16, torch.uint8, 4, "float32", "bfloat16", "tc"),
+    (torch.bfloat16, torch.uint8, 6, "bfloat16", "float32", "tc"),
+    # float32 activations or a float32 weight: CUDA cores
+    (torch.float32, torch.int8, 0, "float32", None, "fma"),
+    (torch.float32, torch.int16, 0, "bfloat16", None, "fma"),
+    (torch.float32, torch.uint8, 4, "float32", "bfloat16", "fma"),
+    (torch.bfloat16, torch.int8, 0, "float32", None, "fma"),
+    (torch.bfloat16, torch.uint8, 3, "float32", "float32", "fma"),
+    (torch.float32, torch.uint8, 6, "float32", None, "fma"),
+])
+def test_transposed_route_by_dtype_and_code_type(x, codes, pack, w, cast,
+                                                 expect):
+    assert TM.route(x, codes, pack, w, cast) == expect
+
+
+def _t_counts():
+    return (TM.t_launches, TM.t_launches_tc, TM.t_launches_fma,
+            TM.launches)
+
+
+@pytest.mark.parametrize("k_x,pack_bits", CASES)
+def test_transposed_tensor_core_route_refused_on_cpu(k_x, pack_bits):
+    """bf16 activations against code rows with a bf16 weight (K1t's
+    tensor-core route) with backend="cuda" on CPU tensors raise, on every
+    code type; without a backend the plain version runs, within one bf16
+    ulp plus the floor of the reference's transposed product at a ragged
+    V and d, and no counter moves."""
+    V, d, M = 77, 37, 5
+    codes, s, x = _case_t(k_x, pack_bits, V, d, M, seed=70 + k_x + pack_bits)
+    xb = x.astype(ml_dtypes.bfloat16)
+    args = (torch.from_numpy(xb.astype(np.float32)).to(torch.bfloat16),
+            torch.from_numpy(codes), torch.tensor(s))
+    kw = dict(k_x=k_x, n=d, pack_bits=pack_bits, cast_dtype="bfloat16",
+              transpose=True)
+    assert TM.route(args[0].dtype, args[1].dtype, pack_bits, "float32",
+                    "bfloat16") == "tc"
+    counts = _t_counts()
+    with pytest.raises(ValueError):
+        TM.dequant_matmul(*args, backend="cuda", **kw)
+    out = TM.dequant_matmul(*args, **kw)
+    assert _t_counts() == counts
+    ref = np.asarray(JM.dequant_matmul(
+        jnp.asarray(xb), jnp.asarray(codes), s, backend="jnp",
+        w_dtype="float32", **kw)).astype(np.float32)
+    w = TM.dequant_codes(args[1], args[2], k_x=k_x, n=d,
+                         pack_bits=pack_bits, w_dtype="float32",
+                         cast_dtype="bfloat16").float().numpy()
+    norm = np.sqrt(xb.astype(np.float32) ** 2 @ (w ** 2).T)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -126))) - 7)
+    floor = K1_FLOOR * np.sqrt(d) * 2.0 ** -24 * norm
+    assert out.dtype == torch.bfloat16 and out.shape == (M, V)
+    assert np.all(np.abs(out.float().numpy() - ref) <= ulp + floor)
+
+
+def test_transposed_fma_route_refused_on_cpu():
+    """float32 activations (K1t's CUDA-core route): backend="cuda" on CPU
+    tensors raises; the plain version runs without moving a counter."""
+    codes, s, x = _case_t(6, 0, 40, 24, 3, seed=80)
+    args = (torch.from_numpy(x), torch.from_numpy(codes), torch.tensor(s))
+    assert TM.route(torch.float32, torch.int8, 0, "float32", None) == "fma"
+    counts = _t_counts()
+    with pytest.raises(ValueError):
+        TM.dequant_matmul(*args, k_x=6, n=24, transpose=True, backend="cuda")
+    out = TM.dequant_matmul(*args, k_x=6, n=24, transpose=True)
+    assert out.dtype == torch.float32 and out.shape == (3, 40)
+    assert _t_counts() == counts
