@@ -101,9 +101,10 @@ Phases, each raising on failure (exit code nonzero, no result line):
      launched, no plain version on the card; decode and chunk wall and
      device time;
      4e. the same cut served in float32 activations against int8 codes:
-     K1's CUDA-core route only;
+     K1's CUDA-core route only, the decode step's logits within F32_LIMIT
+     of the plain step at the cut's depth;
      4f. gemma2-2b's widths cut to 4 layers served the same way in
-     float32: K1's and K1t's CUDA-core routes only;
+     float32: K1's and K1t's CUDA-core routes only, the same logits gate;
   5. train full-width yi-6b cut to 8 layers (fp32 parameters and state,
      bf16 activations) with Algorithm 1 through ``qadam`` and
      ``TrainSession.from_optimizer``: 12 steps of 2 x 1024 tokens; gates:
@@ -501,18 +502,26 @@ def k1_shapes():
     return [(d, d), (d, hK), (d, f), (f, d), (d, V)] + GEMMA_K1_SHAPES
 
 
+# the CUDA-core route's timed shapes (K, N): yi-6b's w_gate, gemma2-2b's
+# wq, wk/wv and w_down
+FMA_TIMED_SHAPES = [(YI["d"], YI["f"]), (2304, 2048), (2304, 1024),
+                    (9216, 2304)]
+
+
 def check_matmul(torch, MM, B, dev):
     """K1 at every (M, K, N, code type) of the serving paths (yi-6b's and
     gemma2-2b's projections at M in {1, 4, 32}, and ragged shapes across
     the tensor-core route's row tiles, rows of packed lanes of no whole 16
     bytes among them), on tensor cores (bf16 activations, int8, int16 and
     2/3/4/6-bit lanes) held to the tier, and the same sums in float32 on
-    CUDA cores; a dropped K row must fail the tier (int8 and 4-bit lanes);
-    the timing table at int8 with each shape's kernel/library factor,
-    every lane width at (4096, 11008), M = 4 and 32, and the CUDA-core
-    route at float32 activations against int8 codes. Returns the three
-    kernels-line rows, the case table, the timings and the noise
-    readings."""
+    CUDA cores at M = 4 and 32 (one CUDA-core launch a call); a dropped
+    K row must fail the bf16 tier at M = 4 and the float32 tier at M = 32
+    (int8 and 4-bit lanes); the timing table at int8 with each shape's
+    kernel/library factor, every lane width at (4096, 11008), M = 4 and
+    32, and the CUDA-core route at float32 activations against int8 codes
+    at M = 4 and 32 over FMA_TIMED_SHAPES, with its fp32 FMA floor on CUDA
+    cores. Returns the three kernels-line rows, the case table, the
+    timings and the noise readings."""
     g = torch.Generator(device=dev).manual_seed(13)
     d, f = YI["d"], YI["f"]
     shapes = k1_shapes()
@@ -555,23 +564,43 @@ def check_matmul(torch, MM, B, dev):
         n["bf16_over_ulp"] = max(n["bf16_over_ulp"], over)
         table.append(dict(M=M, K=Kd, N=N, codes=kind, route=route,
                           max_abs_err=err, over_ulp_units=over))
-        if M == 4 or (Kd == 1000 and M == 5):
+        if M in (4, 32) or (Kd == 1000 and M == 5):
             # the same sums in fp32 activations (the CUDA-core route): the
             # summation-order noise itself, in the same units
             xf = x.float()
             kf = dict(kw, cast_dtype=None)
+            n_fma = MM.launches_fma
+            b32 = MM.dequant_matmul(xf, codes, scale, backend="torch", **kf)
             d32 = (MM.dequant_matmul(xf, codes, scale, backend="cuda", **kf)
-                   - MM.dequant_matmul(xf, codes, scale, backend="torch",
-                                       **kf)).abs()
-            n["f32_noise"] = max(n["f32_noise"], float((d32 / unit).max()))
+                   - b32).abs()
+            if MM.launches_fma != n_fma + 1:
+                raise AssertionError(f"K1 on float32 activations at M={M} "
+                                     f"K={Kd} N={N} {kind}: "
+                                     f"{MM.launches_fma - n_fma} CUDA-core "
+                                     f"launches for one call")
+            unit32 = k1_noise_unit(torch, MM, xf, codes, scale, kf)
+            n["f32_noise"] = max(n["f32_noise"], float((d32 / unit32).max()))
             worst["fma"] = max(worst["fma"], float(d32.max()))
             # the CUDA-core route's gate: float32 outputs within the floor
             # (two fp32 orders of the same products)
-            if not bool((d32 <= K1_FLOOR * unit).all()):
+            if not bool((d32 <= K1_FLOOR * unit32).all()):
                 raise AssertionError(f"K1 (fma) at M={M} K={Kd} N={N} "
                                      f"{kind}, float32: beyond {K1_FLOOR:g} "
                                      f"units of fp32 summation noise")
-            if kind in ("int8", "p4") and Kd != 1000:
+            if M == 32 and kind in ("int8", "p4") and Kd != 1000:
+                # the float32 gate's upper reading: one K row dropped
+                w32 = MM.dequant_codes(codes, scale, k_x=k_x, n=N,
+                                       pack_bits=pb, w_dtype="float32",
+                                       cast_dtype=None)
+                fd = ((xf[:, :-1] @ w32[:-1]) - b32).abs()
+                seen = float((fd > K1_FLOOR * unit32).float().mean())
+                if seen == 0.0:
+                    raise AssertionError(f"K1 float32 gate blind to a "
+                                         f"dropped K row at M=32 K={Kd} "
+                                         f"N={N} {kind}")
+                n["f32_fault_caught"] = min(n.get("f32_fault_caught", 1.0),
+                                            seen)
+            if M == 4 and kind in ("int8", "p4") and Kd != 1000:
                 # the upper reading: one K row dropped from the plain sum
                 w = MM.dequant_codes(codes, scale, k_x=k_x, n=N, pack_bits=pb,
                                      w_dtype="float32", cast_dtype="bfloat16")
@@ -624,9 +653,22 @@ def check_matmul(torch, MM, B, dev):
     for kind in PACKED_KINDS:   # every lane width on tensor cores
         for M in (4, 32):
             timed.append(time_case(M, d, f, kind))
-    # the CUDA-core route where it serves: float32 activations
-    fma = time_case(4, d, f, "int8", torch.float32)
-    timed.append(fma)
+    # the CUDA-core route where it serves: float32 activations, at the
+    # decode step's and the chunk's M, yi-6b's w_gate and gemma2-2b's
+    # projections, each beside the fp32 torch.matmul (TF32 off) and its
+    # FMA floor on CUDA cores
+    fma_timed = [time_case(M, Kd, N, "int8", torch.float32)
+                 for M in (4, 32) for Kd, N in FMA_TIMED_SHAPES]
+    for r in fma_timed:
+        r["floor_fp32_cores_ms"] = 2.0 * r["M"] * r["K"] * r["N"] / \
+            FP32_FLOPS * 1e3
+        r["share_of_fp32_floor"] = max(r["floor_fp32_cores_ms"],
+                                       r["bound_ms"]) / r["ms"]
+    timed += fma_timed
+    fma = fma_timed[0]
+    fma32 = next(r for r in fma_timed if (r["M"], r["K"], r["N"]) ==
+                 (32, d, f))
+    slow_f = max(fma_timed, key=lambda r: r["factor"])
     tc_timed = [r for r in timed if r["route"] == "tc"
                 and r["codes"] == "int8"]
     rep = next(r for r in tc_timed if (r["M"], r["K"], r["N"]) == (4, d, f))
@@ -665,7 +707,12 @@ def check_matmul(torch, MM, B, dev):
                    max_abs_err=worst["fma"], ms=fma["ms"],
                    plain_ms=fma["plain_ms"], bound_ms=fma["bound_ms"],
                    bound_by=fma["bound_by"], library_ms=fma["library_ms"],
-                   shape=[4, d, f, "int8", "float32"])
+                   shape=[4, d, f, "int8", "float32"],
+                   floor_fp32_cores_ms=fma["floor_fp32_cores_ms"],
+                   m32_ms=fma32["ms"], m32_library_ms=fma32["library_ms"],
+                   m32_floor_fp32_cores_ms=fma32["floor_fp32_cores_ms"],
+                   worst_factor=slow_f["factor"],
+                   worst_shape=[slow_f["M"], slow_f["K"], slow_f["N"]])
     return ([row_tc, row_tcp, row_fma], table, timed,
             sorted(noise.values(), key=lambda r: r["K"]))
 
@@ -1171,6 +1218,14 @@ def check_wire_kernels(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(31)
     x = torch.empty(n, device=dev)
     table, rows = [], []
+    # the card's own write rate at K6's output bytes: fill_ over the same
+    # float32 stack, a yardstick for K6's share of its bound (a reading)
+    fill_ms = cuda_ms(torch, lambda i: x.fill_(0.0), 5, 1)
+    table.append(dict(name="fill_", spec="yardstick", input="zeros",
+                      shape=[n], ms=fill_ms, plain_ms=fill_ms,
+                      bound_ms=bound_ms(4 * n)[0], bound_by="bytes",
+                      share_of_bound=bound_ms(4 * n)[0] / fill_ms,
+                      gbs=4 * n / fill_ms / 1e6))
     for kind, k, src in (("log", 6, "Delta+e"), ("uniform", 7, "weights")):
         codec = wire_codec(kind, k)
         if kind == "log":
@@ -1213,6 +1268,7 @@ def check_wire_kernels(torch, dev):
             table.append(dict(name=f"{name}_{kind}", spec=codec.spec,
                               input=src, shape=[n], ms=ms, plain_ms=plain,
                               bound_ms=bnd, bound_by=by,
+                              share_of_bound=bnd / ms,
                               gbs=(bnd * 1e-3 * HBM_BYTES_PER_S) / ms / 1e6))
             rows.append(dict(
                 name=f"{name}_{kind}", route="cuda",
@@ -1374,7 +1430,7 @@ def check_encode_kernels(torch, dev):
     for name, (spec, ms, plain, lib, (bnd, by)) in t.items():
         table.append(dict(name=name, spec=spec, shape=[n], ms=ms,
                           plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                          bound_by=by,
+                          bound_by=by, share_of_bound=bnd / ms,
                           gbs=(bnd * 1e-3 * HBM_BYTES_PER_S) / ms / 1e6))
         if name.startswith("encode_rows"):
             table[-1]["amax_library_ms"] = amax_ms
@@ -2347,6 +2403,7 @@ def modes_train(torch, dev, mods, group, model, cfg):
               f"launches {r['launches']}; moved {r['moved_bytes']} (comm "
               f"exchange {r['comm']['update_exchange_bytes']}, broadcast "
               f"{r['comm']['weight_broadcast_bytes']}); stats {r['stats']}; "
+              f"wire kernels ms/step {r['wire_kernels_ms']}; "
               f"captured-gradient update bitwise", flush=True)
         for kname, t in r["step_kernels"][:8]:
             print(f"  {t:9.4f} ms  {kname[:90]}")
@@ -3014,6 +3071,10 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
 # K1's CUDA-core route; phase 4f: gemma2-2b's widths cut the same way in
 # float32, the path of K1t's CUDA-core route (the tied head)
 PACKED_LAYERS = 4
+# phases 4e and 4f before K1's CUDA-core route was redesigned: the decode
+# step's and the chunk's device ms (NVIDIA H100 80GB HBM3 at 700 W;
+# PERF.md section 5), printed beside this run's as a finding, not a gate
+F32_SERVE_BEFORE = {"yi-6b": (2.087, 6.591), "gemma2-2b": (1.950, 3.785)}
 
 
 def serve_packed(torch, dev, mods, arch="yi-6b", dtype="bfloat16"):
@@ -3087,9 +3148,33 @@ def serve_packed(torch, dev, mods, arch="yi-6b", dtype="bfloat16"):
             raise AssertionError(f"{what}: request {h} gave "
                                  f"{len(results[h].tokens)} tokens")
     n_tok = sum(len(results[h].tokens) for h in handles)
-    tm, _, _, _ = decode_timings(torch, dev, model, qparams,
-                                 make_dequant_gather(),
-                                 [r.prompt for r in reqs], 128)
+    gather = make_dequant_gather()
+    tm, cache, tok, pos = decode_timings(torch, dev, model, qparams, gather,
+                                         [r.prompt for r in reqs], 128)
+    tm["k1_step_device_ms"] = sum(
+        t for name, t in tm["decode_step_kernels"]
+        if "k1_fma_kernel" in name or "k1_fold_kernel" in name
+        or "k1_tc_kernel" in name)
+    extra = ""
+    if not packed:
+        # the decode step's logits at the cut's full depth, kernels vs
+        # plain versions, each on its own copy of the state
+        la, _ = model.decode_step(qparams, {"token": tok},
+                                  {k: v.clone() for k, v in cache.items()},
+                                  pos, gather)
+        lb, _ = model.decode_step(qparams, {"token": tok},
+                                  {k: v.clone() for k, v in cache.items()},
+                                  pos, gather, backend="torch")
+        rel = float((la - lb).norm() / lb.norm())
+        if not bool(torch.isfinite(la).all()) or rel > F32_LIMIT:
+            raise AssertionError(f"{what} ({arch}): decode logits kernels vs "
+                                 f"plain rel L2 {rel} > {F32_LIMIT}")
+        tm["logits_rel_l2_f32"] = rel
+        was = F32_SERVE_BEFORE[arch]
+        extra = (f"; logits rel L2 kernels vs plain {rel:.4e} (limit "
+                 f"{F32_LIMIT}); K1 in the step {tm['k1_step_device_ms']:.4f} "
+                 f"ms; before the CUDA-core redesign: step device "
+                 f"{was[0]:.3f} ms, chunk device {was[1]:.3f} ms")
     print(f"{what} ({arch} x {PACKED_LAYERS} layers, "
           f"{'4-bit lanes' if packed else 'int8 codes'}): {n_tok} tokens in "
           f"{t_serve:.3f} s; resident {params_nbytes(qparams)} B; launches "
@@ -3097,7 +3182,7 @@ def serve_packed(torch, dev, mods, arch="yi-6b", dtype="bfloat16"):
           f"{tm['decode_step_device_ms']:.3f} ms, "
           f"{tm['decode_step_device_ops']:.0f} device operations), chunk "
           f"{tm['chunk_ms']:.3f} ms (device {tm['chunk_device_ms']:.3f} ms, "
-          f"{tm['chunk_device_ops']:.0f} operations)", flush=True)
+          f"{tm['chunk_device_ops']:.0f} operations){extra}", flush=True)
     return dict(tm, launches=launches, tokens=n_tok, serve_s=t_serve,
                 resident_bytes=params_nbytes(qparams), layers=PACKED_LAYERS,
                 dtype=dtype)
@@ -3233,6 +3318,9 @@ def main() -> int:
         fault = (f"; one dropped K row: max abs {n['fault_max_abs']:.4e}, "
                  f"caught at {n['fault_caught']:.1%} of outputs"
                  if "fault_max_abs" in n else "")
+        if "f32_fault_caught" in n:
+            fault += (f"; in float32 at M = 32 caught at "
+                      f"{n['f32_fault_caught']:.1%}")
         print(f"  K1 K={n['K']}: max abs err {n['max_abs_err']:.4e}; beyond "
               f"one ulp {n['bf16_over_ulp']:.3f} and f32 summation noise "
               f"{n['f32_noise']:.3f} units of sqrt(K) 2^-24 |x*w|_2 (floor "
@@ -3244,7 +3332,8 @@ def main() -> int:
           f"({w_cases} cases and the w_gate stack)", flush=True)
     for t in w_table:
         print(f"  {t['name']} {t['spec']} {t['input']} {t['shape']}: "
-              f"{t['ms']:.4f} ms ({t['gbs']:.0f} GB/s) plain "
+              f"{t['ms']:.4f} ms ({t['gbs']:.0f} GB/s, "
+              f"{t['share_of_bound']:.1%} of bound) plain "
               f"{t['plain_ms']:.4f} bound {t['bound_ms']:.4f} "
               f"({t['bound_by']})", flush=True)
     print("training kernels K15 K16 K11 K12, and K3 K4 at the Q_x round "
@@ -3268,8 +3357,9 @@ def main() -> int:
                f"{t['amax_library_ms']:.4f})" if "amax_library_ms" in t
                else "")
         print(f"  {t['name']} {t['spec']} {t['shape']}: {t['ms']:.4f} ms "
-              f"({t['gbs']:.0f} GB/s) plain {t['plain_ms']:.4f} bound "
-              f"{t['bound_ms']:.4f} ({t['bound_by']}){lib}", flush=True)
+              f"({t['gbs']:.0f} GB/s, {t['share_of_bound']:.1%} of bound) "
+              f"plain {t['plain_ms']:.4f} bound {t['bound_ms']:.4f} "
+              f"({t['bound_by']}){lib}", flush=True)
 
     s_rows, s_table, s_cases, s_faults = check_slice6_kernels(
         torch, dev, build, planted)
@@ -3380,12 +3470,21 @@ def main() -> int:
         for name, t in sv["decode_step_kernels"]:
             print(f"  {t:9.4f} ms  {name[:90]}")
     for t in mm_timed:
+        floor = (f"; fp32 FMA floor {t['floor_fp32_cores_ms']:.4f} "
+                 f"({t['share_of_fp32_floor']:.1%} of the larger floor)"
+                 if "floor_fp32_cores_ms" in t else "")
         print(f"  K1 ({t['route']}) M={t['M']} K={t['K']} N={t['N']} "
               f"{t['codes']} {t['x_dtype']}: {t['ms']:.4f} ms ({t['gbs']:.0f} "
               f"GB/s, {t['share_of_bound']:.1%} of bound) plain "
               f"{t['plain_ms']:.4f} library {t['library_ms']:.4f} (kernel/"
               f"library {t['factor']:.2f}) bound {t['bound_ms']:.4f} eager "
-              f"call {t['eager_ms']:.4f}")
+              f"call {t['eager_ms']:.4f}{floor}")
+    tf = mm_rows[2]
+    print(f"  K1 (fma, float32) worst kernel/library factor "
+          f"{tf['worst_factor']:.2f} at M, K, N = {tf['worst_shape']}; M = 4 "
+          f"(4096, 11008) {tf['ms']:.4f} ms, M = 32 {tf['m32_ms']:.4f} ms "
+          f"(library {tf['m32_library_ms']:.4f}, fp32 FMA floor "
+          f"{tf['m32_floor_fp32_cores_ms']:.4f})")
     tp = mm_rows[1]
     print(f"  K1 (tc, packed lanes) worst kernel/library factor "
           f"{tp['worst_factor']:.2f} at {tp['worst_shape']}; 4-bit M = 4 "

@@ -41,10 +41,10 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # every C entry point returns cudaGetLastError() after its launch
 SIGNATURES = {
-    # x, codes, scale, out, M, K, N, code_bits, k_x, x_bf16, w_bf16,
-    # cast_bf16, out_bf16, stream
-    "rt_dequant_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _P],
+    # x, codes, scale, out, ws, M, K, N, code_bits, k_x, x_bf16, w_bf16,
+    # cast_bf16, m_tile, k_slice, slices, stream
+    "rt_dequant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _P],
     # x, codes, scale, out, M, d, V, code_bits, k_x, x_bf16, w_bf16,
     # cast_bf16, out_bf16, stream
     "rt_dequant_matmul_t": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

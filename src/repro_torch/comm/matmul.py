@@ -20,7 +20,11 @@ with its own launch counter:
   Faster than ``torch.matmul`` on the dequantized bf16 weight at M = 4
   and 32 (``PERF.md``).
 - ``"fma"``, CUDA cores (``launches_fma``): float32 activations or
-  float32 weights, on any code type (the first K1 kernel).
+  float32 weights, on any code type. Codes stream from device memory
+  into registers in 16-byte loads, x is staged once a block, and each
+  code byte is read once for M <= 32; K is split across blocks where the
+  columns alone cannot fill the card (:func:`fma_plan`), the slices'
+  partial sums folded by the same second kernel in a fixed order.
 
 K1t's ``"tc"`` (``t_launches_tc``) computes ``out.T = W x.T``: 16 code
 rows are the A operand of one MMA and up to 8 activation rows one n8 B
@@ -119,9 +123,9 @@ def route(x_dtype, codes_dtype, pack_bits, w_dtype, cast_dtype) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class K1Plan:
-    """The tensor-core route's launch for x (M, K) @ codes (K, N)."""
-    m_tile: int                  # activation rows a block: 16, 32 or 64
-    tile_n: int                  # output columns a block: 128 or 256
+    """A K1 route's launch for x (M, K) @ codes (K, N)."""
+    m_tile: int                  # activation rows a block (a row tile)
+    tile_n: int                  # output columns a block
     grid: Tuple[int, int, int]   # (column tiles, row tiles, K slices)
     k: int                       # K
     k_slice: int                 # K rows a slice (the last may be fewer)
@@ -176,6 +180,56 @@ def k1_plan(M: int, K: int, N: int, code_bits: int) -> K1Plan:
     return K1Plan(m_tile=m_tile, tile_n=tile_n,
                   grid=(-(-N // tile_n), -(-M // m_tile), slices), k=K,
                   k_slice=k_slice,
+                  workspace=slices * M * N if slices > 1 else 0)
+
+
+# the CUDA-core route's tiles (csrc/dequant_matmul.cu, namespace fm)
+FMA_TILE_N = 128          # output columns a block (8 warps, 4 a lane)
+FMA_M_TILES = (4, 8, 16, 32)   # activation rows a block
+FMA_SLICE_ROWS = 32       # K slices are multiples of this many rows
+FMA_MAX_SLICES = 128
+FMA_X_FLOATS = 16384      # staged x floats a block (64 KB of shared memory)
+# a block's fixed cost (staging x, folding its warps) in 32-row units
+FMA_BLOCK_OVERHEAD = 2
+
+
+def fma_plan(M: int, K: int, N: int, code_bits: int) -> K1Plan:
+    """The CUDA-core route's grid, a pure function of the shapes and the
+    code width (2, 3, 4, 6, 8 or 16 bits). One row tile of x for M <= 32,
+    so every code byte is read once a call. K is cut into slices of whole
+    ``FMA_SLICE_ROWS`` units, no longer than the shared memory that
+    stages x allows (``FMA_X_FLOATS / m_tile`` rows); their fp32 partial
+    sums go to a workspace that a second pass folds in slice order. The
+    count minimizes the waves of blocks over the SMs times a block's units
+    plus its fixed cost, plus the workspace's traffic, among the counts
+    that give at least one block an SM where K allows."""
+    if code_bits not in TC_CODE_BITS or min(M, K, N) <= 0:
+        raise ValueError(f"no CUDA-core plan for M={M} K={K} N={N} "
+                         f"{code_bits}-bit codes")
+    m_tile = next((t for t in FMA_M_TILES if M <= t), FMA_M_TILES[-1])
+    tiles = -(-N // FMA_TILE_N) * -(-M // m_tile)
+    units = -(-K // FMA_SLICE_ROWS)
+    max_units = FMA_X_FLOATS // m_tile // FMA_SLICE_ROWS
+    unit_codes = FMA_SLICE_ROWS * FMA_TILE_N * code_bits // 8   # bytes
+    best = None
+    for s in range(1, min(units, FMA_MAX_SLICES) + 1):
+        per = -(-units // s)                 # units a slice
+        if per > max_units:
+            continue
+        s_eff = -(-units // per)
+        cost = -(-tiles * s_eff // SMS) * (per + FMA_BLOCK_OVERHEAD)
+        if s_eff > 1:   # the workspace written and folded, in units
+            cost += 8 * s_eff * M * N / (SMS * unit_codes)
+        key = (tiles * s_eff < SMS, cost, s_eff)
+        if best is None or key < best[0]:
+            best = (key, per, s_eff)
+    if best is None:
+        raise ValueError(f"K={K} needs more than {FMA_MAX_SLICES} slices of "
+                         f"{max_units * FMA_SLICE_ROWS} rows")
+    _, per, slices = best
+    return K1Plan(m_tile=m_tile, tile_n=FMA_TILE_N,
+                  grid=(-(-N // FMA_TILE_N), -(-M // m_tile), slices), k=K,
+                  k_slice=per * FMA_SLICE_ROWS,
                   workspace=slices * M * N if slices > 1 else 0)
 
 
@@ -274,10 +328,17 @@ def _matmul_cuda(x2, codes, scale, *, k_x, n, pack_bits, w_dtype,
         t_launches += 1
         t_launches_fma += 1
         return out
+    if out_dtype != torch.float32:
+        raise ValueError(f"the CUDA-core route writes float32, not "
+                         f"{out_dtype}")
+    plan = fma_plan(M, K, n, code_bits)
     out = torch.empty((M, n), dtype=out_dtype, device=x2.device)
+    ws = (torch.empty(plan.workspace, dtype=torch.float32, device=x2.device)
+          if plan.workspace else None)
     err = lib.rt_dequant_matmul(
         build.ptr(x2), build.ptr(codes), build.ptr(scale), build.ptr(out),
-        M, K, n, *flags)
+        build.ptr(ws) if ws is not None else None, M, K, n, *flags[:5],
+        plan.m_tile, plan.k_slice, plan.grid[2], flags[6])
     build.check(err, "dequant_matmul")
     launches += 1
     launches_fma += 1

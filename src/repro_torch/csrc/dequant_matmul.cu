@@ -56,17 +56,56 @@
 // small projections at M = 32 are latency-bound, up to 1.56x it. The
 // packed lanes' times are in PERF.md.
 //
-// CUDA-core route, rt_dequant_matmul (the first K1 kernel): float32
-// activations and float32 weights, on any code type (an fp32 product on
-// tensor cores would be TF32, not the plain version's). A block
-// owns 32 output columns of an M-tile and walks all of K; its 512 threads
-// split K into P interleaved partitions (lanes of a warp span the 32
-// columns, several K rows per warp load). K is walked in chunks of kChunk
-// rows: the block stages the chunk's activations in shared memory (as
-// float), then every thread issues all its code loads for the chunk
-// before it uses any. Every code byte is read once per M-tile of 4 or 8
-// rows. Partial sums fold in shared memory in a fixed order; products
-// accumulate in fp32 (fmaf). Ragged M, N and K edges are masked.
+// CUDA-core route, rt_dequant_matmul (namespace fm): float32 activations
+// against a float32 weight, or a bf16 one where the activations are
+// float32, and bf16 activations against a float32 weight, on every code
+// type (an fp32 product on tensor cores would be TF32, not the plain
+// version's). Products are fp32 fmaf. Bound: at M = 4 the bytes of codes
+// ((4096, 11008) int8: 0.0135 ms); at M = 32 the fp32 FMAs (2.89 GFLOP,
+// 0.043 ms at 66.9 TFLOP/s). The first kernel reached 25 % of the
+// byte bound: a block of 32 columns walked all of K in 512-row chunks, two
+// block barriers a chunk, no chunk's loads in flight during another's
+// math, 4-byte code loads, N / 32 blocks (32 to 128 at the serving
+// shapes: less than one wave), and x tiled 4 or 8 rows at a time (each
+// code byte read 4 times at M = 32). Now:
+// - a block owns 128 output columns, all of x's rows up to 32 (one row
+//   tile: each code byte read once for M <= 32; m_tile 4, 8, 16 or 32)
+//   and one slice of K; comm/matmul.py fma_plan splits K until the blocks
+//   fill the 132 SMs, the slices' partial sums folded by
+//   tc::k1_fold_kernel in slice order;
+// - x's rows of the slice are staged once, as floats (float32 rows by
+//   cp.async, every copy in flight), while the first step's code loads
+//   are in flight; then each warp group streams its steps of the slice
+//   (8 to 64 code rows of the block's 128 columns, two or four 16-byte
+//   ld.global.nc a lane, through a staging buffer of its own), the next
+//   step's loads in flight while this one is multiplied, with no block
+//   barrier in the loop; the groups' sums fold in group order at the end;
+// - lane l owns columns 4l .. 4l+3: one shared load gives it their 4
+//   codes of a row, which become weights as on the tensor cores (tc::Deq:
+//   the biased code spliced into a float's mantissa, the exact base
+//   subtracted, one multiply by s: (c 2^-k) s bit for bit, no conversion
+//   instruction), then one bf16 rounding where the weight is bf16; one
+//   16-byte shared load gives 4 K rows of x for each of its rows. A
+//   weight costs ~3 ALU instructions plus m_tile FMAs, and a quarter of a
+//   shared load each for its codes and for x: ~7.6 at M = 4 against ~9
+//   that 128 issue slots allow at 14 int8 weights a clock an SM;
+// - at 32 rows the two warps of a group split x's rows (16 each: 64
+//   accumulators a lane, two blocks an SM at 128 registers) and share one
+//   double-buffered step, met at a named barrier; with all 32 rows a warp
+//   (128 accumulators, one block an SM) it was slower.
+// Ragged N (rows of no whole 16 bytes load byte by byte), K and M are
+// masked; the order of every sum is fixed (no atomics): deterministic.
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W; PERF.md section
+// 6): (4096, 11008) int8 at M = 4 in 0.0261 ms (52 % of the byte bound;
+// the first kernel 0.0544, fp32 torch.matmul 0.0908) and at M = 32 in
+// 0.1155 ms (the first kernel 0.354; the library 0.1270; 37 % of the
+// 0.043 ms FMA floor: the goal of twice that floor is missed). At M = 32
+// the FMA loop issues at about half rate: removing x's shared loads (an
+// uncommitted probe) gained 15 %, removing the dequantization 3 %; other
+// loop orders and an exact I2F weight gained nothing. gemma2's small
+// projections at M = 32 are latency-bound (the fold is a second launch,
+// x staged per slice): 1.04x to 1.29x the library, faster than the first
+// kernel; at M = 4 every timed shape is 0.3x to 0.6x the library.
 //
 // K1t, the transposed product: out = x @ W.T where W is (V, d) as code
 // rows, the tied logit head of gemma2 (256000 rows of 2304 codes).
@@ -143,10 +182,6 @@ using rt::ldsm_x4;
 using rt::mma_bf16;
 using rt::pack_bf16;
 
-constexpr int kThreads = 512;
-constexpr int kCols = 32;    // output columns per block
-constexpr int kChunk = 512;  // K rows staged per step (a multiple of P)
-
 // C: columns one thread owns (one 4-byte word of int8 / int16 codes, or
 // one packing group of a sub-8-bit lane); NB: bytes of a packed group.
 template <int BITS> struct Lane;
@@ -217,114 +252,6 @@ __device__ __forceinline__ int code(uint32_t raw, int j) {
   else if constexpr (BITS == 16) return (int)(int16_t)(raw >> (16 * j));
   else return (int)((raw >> (j * BITS)) & ((1u << BITS) - 1u)) - (1 << (BITS - 1));
 }
-
-template <int BITS, int MT, typename XT, typename OT>
-__global__ void __launch_bounds__(kThreads)
-dequant_matmul_kernel(const Args a) {
-  constexpr int C = Lane<BITS>::C;
-  constexpr int CL = kCols / C;      // lanes across the block's columns
-  constexpr int P = kThreads / CL;   // partitions of K
-  constexpr int U = kChunk / P;      // code rows per thread per chunk
-  static_assert(kChunk % P == 0, "chunk must tile the partitions");
-  __shared__ float xs[MT][kChunk];
-  __shared__ float red[P][kCols];
-
-  const XT* __restrict__ x = static_cast<const XT*>(a.x);
-  const int t = threadIdx.x;
-  const int cl = t % CL, p = t / CL;
-  const int n0 = blockIdx.x * kCols + cl * C;
-  const int m0 = blockIdx.y * MT;
-  const int mrows = min(MT, a.M - m0);
-  const float s = __ldg(a.scale);
-
-  float acc[MT][C];
-#pragma unroll
-  for (int r = 0; r < MT; ++r)
-#pragma unroll
-    for (int j = 0; j < C; ++j) acc[r][j] = 0.0f;
-
-  for (int k0 = 0; k0 < a.K; k0 += kChunk) {
-    // stage this chunk's activations (zeros past M and K)
-    for (int i = t; i < MT * kChunk; i += kThreads) {
-      const int r = i / kChunk, k = k0 + i % kChunk;
-      xs[r][i % kChunk] = (r < mrows && k < a.K)
-          ? to_f32(x[(long long)(m0 + r) * a.K + k]) : 0.0f;
-    }
-    __syncthreads();
-    if (n0 < a.N) {
-      uint32_t raw[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {  // all loads first, then the math
-        const int k = k0 + p + u * P;
-        raw[u] = k < a.K ? load_raw<BITS>(a.codes + (long long)k * a.row_bytes,
-                                          n0, a.N, a.vec) : 0u;
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (k0 + p + u * P < a.K) {
-          float w[C];
-#pragma unroll
-          for (int j = 0; j < C; ++j) {
-            float v = ((float)code<BITS>(raw[u], j) * a.inv_pow2) * s;
-            if (a.w_bf16) v = round_bf16(v);
-            if (a.cast_bf16) v = round_bf16(v);
-            w[j] = v;
-          }
-#pragma unroll
-          for (int r = 0; r < MT; ++r) {
-            if (r < mrows) {
-              const float xv = xs[r][p + u * P];
-#pragma unroll
-              for (int j = 0; j < C; ++j) acc[r][j] = fmaf(xv, w[j], acc[r][j]);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // fold the P partial sums of each output in a fixed order
-  OT* __restrict__ out = static_cast<OT*>(a.out);
-#pragma unroll
-  for (int r = 0; r < MT; ++r) {
-    if (r < mrows) {  // uniform across the block
-#pragma unroll
-      for (int j = 0; j < C; ++j) red[p][cl * C + j] = acc[r][j];
-      __syncthreads();
-      if (t < kCols) {
-        float sum = 0.0f;
-        for (int q = 0; q < P; ++q) sum += red[q][t];
-        const int col = blockIdx.x * kCols + t;
-        if (col < a.N) store(out + (long long)(m0 + r) * a.N + col, sum);
-      }
-      __syncthreads();
-    }
-  }
-}
-
-template <int BITS, int MT, typename XT, typename OT>
-int launch(const Args& a, cudaStream_t stream) {
-  dim3 grid((a.N + kCols - 1) / kCols, (a.M + MT - 1) / MT);
-  dequant_matmul_kernel<BITS, MT, XT, OT><<<grid, kThreads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <int BITS, typename XT, typename OT>
-int launch_tile(const Args& a, cudaStream_t stream) {
-  return a.M <= 4 ? launch<BITS, 4, XT, OT>(a, stream)
-                  : launch<BITS, 8, XT, OT>(a, stream);
-}
-
-template <int BITS>
-int launch_types(const Args& a, int x_bf16, int out_bf16, cudaStream_t stream) {
-  if (!x_bf16 && !out_bf16) return launch_tile<BITS, float, float>(a, stream);
-  if (x_bf16 && out_bf16)
-    return launch_tile<BITS, __nv_bfloat16, __nv_bfloat16>(a, stream);
-  if (x_bf16) return launch_tile<BITS, __nv_bfloat16, float>(a, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
 
 // ---------------------------------------------------------------------------
 // K1t: out (M, V) = x (M, d) @ W.T, W (V, d) as code rows
@@ -882,6 +809,325 @@ int launch_tc_n(const TArgs& a, int tile_n, int slices, cudaStream_t stream) {
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
+// K1 on CUDA cores: float32 products (fmaf), every code type
+// ---------------------------------------------------------------------------
+
+namespace fm {
+
+using tc::Deq;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTileN = 128;     // output columns a block: 4 a lane
+
+// A step over the block's 128 columns: H warps (a warp group) share it,
+// each lane loading VL 16-byte vectors of codes; R whole code rows (RB
+// bytes each, BITS vectors), R a multiple of 4 (x is read 4 K rows a
+// shared load). At 32 rows of x the two warps of a group split them (16
+// each: 64 accumulators a lane, two blocks an SM) and share the staged
+// codes through a double buffer. Wide row tiles keep fewer vectors a lane
+// in flight: their FMAs, not the bytes, bound them.
+template <int BITS, int TM>
+struct Step {
+  static constexpr int H = TM == 32 ? 2 : 1;       // warps a group
+  static constexpr int TMW = TM / H;               // x rows a warp
+  static constexpr int GROUPS = kWarps / H;
+  static constexpr int VL = TM <= 8 ? 4 : 2;
+  static constexpr int RB = 16 * BITS;
+  static constexpr int R = (32 * H * VL / BITS) / 4 * 4;
+  static constexpr int VECS = R * BITS;             // vectors a step
+  static constexpr int BUF = VECS * 16 + 16;        // staged bytes, a pad
+  static constexpr int NBUF = H;                    // buffers a group
+  static_assert(R >= 4 && VECS <= 32 * H * VL, "a step of whole rows");
+};
+
+struct FArgs {
+  const void* x;
+  const uint8_t* codes;
+  const float* scale;
+  float* out;
+  float* ws;            // (slices, M, N) fp32 partial sums when K is split
+  int M, K, N;
+  long long row_bytes;  // bytes of one code row: N codes of BITS bits
+  int k_slice;          // K rows a slice, a multiple of 32; x rows staged
+  int k_x;
+  float inv_pow2;
+  int vec_c;            // code rows of whole 16-byte vectors, aligned
+  int vec_x;            // float32 x rows of whole 16-byte vectors, aligned
+};
+
+// the x rows of a warp group's step meet here: a named barrier of its H
+// warps (barrier 0 is __syncthreads')
+template <int H>
+__device__ __forceinline__ void group_sync(int g) {
+  if constexpr (H == 1)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + g), "r"(32 * H) : "memory");
+}
+
+// 4 staged code rows (of which `live` lie inside the slice) against the
+// warp's TMW rows of x: the lane's 4 columns' weights, then TMW x 16 FMAs,
+// x read 4 K rows a shared load
+template <int BITS, int TMW, bool RBF>
+__device__ __forceinline__ void fma_rows4(const uint8_t* rows, int at,
+                                          const Deq& q, const float* xk,
+                                          int xstride, int live,
+                                          float (&acc)[TMW][4]) {
+  float w[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    tc::weights4<BITS>(rows + j * 16 * BITS, at, q, w[j]);
+    if constexpr (RBF) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) w[j][e] = round_bf16(w[j][e]);
+    }
+  }
+  if (live < 4) {                    // rows past the slice weigh nothing
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (j >= live) w[j][e] = 0.0f;
+  }
+#pragma unroll
+  for (int m = 0; m < TMW; ++m) {
+    const float4 xv = *reinterpret_cast<const float4*>(xk + m * xstride);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[m][e] = fmaf(xv.x, w[0][e], acc[m][e]);
+      acc[m][e] = fmaf(xv.y, w[1][e], acc[m][e]);
+      acc[m][e] = fmaf(xv.z, w[2][e], acc[m][e]);
+      acc[m][e] = fmaf(xv.w, w[3][e], acc[m][e]);
+    }
+  }
+}
+
+// Block (128-column tile, TM-row tile of x, K slice), 8 warps. x's rows
+// of the slice are staged once, as floats ([TM][k_slice], zeros past M
+// and the slice; float32 rows by cp.async, all copies in flight); then
+// each warp group streams steps g, g + GROUPS, ... of the slice from
+// device memory straight into registers (16-byte ld.global.nc), the next
+// step's loads in flight while this one's weights are made, through a
+// staging buffer of its own (no block barrier in the loop). Lane l owns
+// columns 4l .. 4l+3 and sums TMW x 4 outputs in fp32 over its K rows in
+// order; the groups' sums fold in group order at the end.
+// RBF: the weight is rounded to bf16 (a bf16 leaf, or a pending cast).
+template <int BITS, int TM, typename XT, bool RBF>
+__global__ void __launch_bounds__(kThreads, TM >= 16 ? 2 : 1)
+k1_fma_kernel(const FArgs a) {
+  using S = Step<BITS, TM>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* xs = reinterpret_cast<float*>(smem);          // [TM][k_slice]
+  float* red = xs + TM * a.k_slice;                      // [TM][kTileN]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = warp % S::GROUPS, half = warp / S::GROUPS;
+  uint8_t* gbuf = reinterpret_cast<uint8_t*>(red + TM * kTileN) +
+                  grp * S::NBUF * S::BUF;
+  const int n0 = blockIdx.x * kTileN;
+  const int m0 = blockIdx.y * TM;
+  const int mrows = min(TM, a.M - m0);
+  const int kb = blockIdx.z * a.k_slice;
+  const int rows = min(a.K, kb + a.k_slice) - kb;
+  const int nsteps = (rows + S::R - 1) / S::R;
+  const long long c0 = 16LL * BITS * blockIdx.x;   // the tile's first byte
+
+  // vector i of step s: row i / BITS of the step, vector i % BITS of it;
+  // this warp loads vectors half * 32 VL + lane + 32 u
+  auto load = [&](int s, uint4 (&v)[S::VL]) {
+#pragma unroll
+    for (int u = 0; u < S::VL; ++u) {
+      const int i = half * 32 * S::VL + lane + 32 * u;
+      const int r = i / BITS;
+      const long long at = c0 + 16 * (i % BITS);
+      const int k = s * S::R + r;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (i < S::VECS && k < rows) {
+        const uint8_t* p = a.codes + (long long)(kb + k) * a.row_bytes + at;
+        if (a.vec_c) {
+          if (at < a.row_bytes)
+            val = __ldg(reinterpret_cast<const uint4*>(p));
+        } else {
+          uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+          for (int e = 0; e < 16; ++e)
+            if (at + e < a.row_bytes)
+              w[e / 4] |= (uint32_t)__ldg(p + e) << (8 * (e % 4));
+          val = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+      }
+      v[u] = val;
+    }
+  };
+
+  uint4 raw[S::VL];
+  if (grp < nsteps) load(grp, raw);   // in flight while x is staged
+
+  const XT* __restrict__ x = static_cast<const XT*>(a.x);
+  if (a.vec_x) {   // float32 rows of whole vectors: cp.async, zero-filled
+    const int kv = a.k_slice / 4;
+#pragma unroll 1
+    for (int m = 0; m < TM; ++m) {
+      const bool live = m < mrows;
+      const XT* src = x + (long long)(m0 + m) * a.K + kb;
+      for (int k4 = tid; k4 < kv; k4 += kThreads) {
+        const bool in = live && 4 * k4 < rows;
+        cp_async16(xs + m * a.k_slice + 4 * k4, in ? src + 4 * k4 : x,
+                   in ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  } else {         // element by element, MB rows' loads in flight
+    constexpr int MB = TM < 8 ? TM : 8;
+#pragma unroll 1
+    for (int mb = 0; mb < TM; mb += MB)
+      for (int k = tid; k < a.k_slice; k += kThreads) {
+        float v[MB];
+#pragma unroll
+        for (int j = 0; j < MB; ++j)
+          v[j] = mb + j < mrows && k < rows
+              ? to_f32(x[(long long)(m0 + mb + j) * a.K + kb + k]) : 0.0f;
+#pragma unroll
+        for (int j = 0; j < MB; ++j) xs[(mb + j) * a.k_slice + k] = v[j];
+      }
+  }
+  __syncthreads();
+
+  Deq q;
+  q.hi = (uint32_t)(150 - a.k_x) << 7;
+  q.hi32 = (uint32_t)(150 - a.k_x) << 23;
+  q.base = (8388608.0f + (BITS == 8    ? 128.0f
+                          : BITS == 16 ? 32768.0f
+                                       : (float)(1 << (BITS - 1)))) *
+           a.inv_pow2;
+  q.s = __ldg(a.scale);
+  // the lane's offset into a staged code row: bytes (int8 / int16) or
+  // bits (packed lanes) of column 4 lane
+  const int at = BITS >= 8 ? 4 * lane * (BITS / 8) : 4 * lane * BITS;
+  const float* xh = xs + half * S::TMW * a.k_slice;   // this warp's x rows
+
+  float acc[S::TMW][4];
+#pragma unroll
+  for (int m = 0; m < S::TMW; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[m][e] = 0.0f;
+
+  int it = 0;
+  for (int s = grp; s < nsteps; s += S::GROUPS, ++it) {
+    uint8_t* buf = gbuf + (it % S::NBUF) * S::BUF;
+    if constexpr (S::H == 1) __syncwarp();   // the last step's rows are read
+#pragma unroll
+    for (int u = 0; u < S::VL; ++u) {
+      const int i = half * 32 * S::VL + lane + 32 * u;
+      if (i < S::VECS) reinterpret_cast<uint4*>(buf)[i] = raw[u];
+    }
+    group_sync<S::H>(grp);
+    if (s + S::GROUPS < nsteps) load(s + S::GROUPS, raw);
+
+    const int k0 = s * S::R;          // the step's first row in the slice
+    const int live = min(S::R, rows - k0);
+    // 4 rows a pass; at 16 and 32 rows of x a pass is ~300 instructions
+    // and the loop stays rolled (unrolled, those instances were slower)
+    if constexpr (TM >= 16) {
+#pragma unroll 1
+      for (int g = 0; 4 * g < live; ++g)
+        fma_rows4<BITS, S::TMW, RBF>(buf + 4 * g * S::RB, at, q,
+                                     xh + k0 + 4 * g, a.k_slice, live - 4 * g,
+                                     acc);
+    } else {
+#pragma unroll
+      for (int g = 0; g < S::R / 4; ++g) {
+        if (4 * g >= live) break;      // uniform across the group
+        fma_rows4<BITS, S::TMW, RBF>(buf + 4 * g * S::RB, at, q,
+                                     xh + k0 + 4 * g, a.k_slice, live - 4 * g,
+                                     acc);
+      }
+    }
+  }
+
+  // the groups' sums folded in group order, in shared memory (the two
+  // warps of a group hold disjoint rows)
+#pragma unroll 1
+  for (int gi = 0; gi < S::GROUPS; ++gi) {
+    if (grp == gi) {
+#pragma unroll
+      for (int m = 0; m < S::TMW; ++m) {
+        float4* r4 = reinterpret_cast<float4*>(
+            red + (half * S::TMW + m) * kTileN + 4 * lane);
+        if (gi == 0) {
+          *r4 = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+        } else {
+          const float4 o = *r4;
+          *r4 = make_float4(o.x + acc[m][0], o.y + acc[m][1],
+                            o.z + acc[m][2], o.w + acc[m][3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  float* dst = gridDim.z > 1 ? a.ws + (long long)blockIdx.z * a.M * a.N
+                             : a.out;
+  for (int i = tid; i < mrows * kTileN; i += kThreads) {
+    const int m = i / kTileN, col = n0 + i % kTileN;
+    if (col < a.N) dst[(long long)(m0 + m) * a.N + col] = red[i];
+  }
+}
+
+template <int BITS, int TM, typename XT, bool RBF>
+int launch(const FArgs& a, int slices, cudaStream_t stream) {
+  using S = Step<BITS, TM>;
+  const long long smem = 4LL * TM * a.k_slice + 4LL * TM * kTileN +
+                         (long long)S::GROUPS * S::NBUF * S::BUF;
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  static long long sized = 48 * 1024;   // once per instance and size
+  if (smem > sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k1_fma_kernel<BITS, TM, XT, RBF>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    sized = smem;
+  }
+  dim3 grid((a.N + kTileN - 1) / kTileN, (a.M + TM - 1) / TM, slices);
+  k1_fma_kernel<BITS, TM, XT, RBF>
+      <<<grid, kThreads, (size_t)smem, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || slices == 1) return (int)err;
+  const long long mn = (long long)a.M * a.N;
+  const int blocks = (int)std::min<long long>((mn + 255) / 256, 132 * 8);
+  tc::k1_fold_kernel<float><<<blocks, 256, 0, stream>>>(a.ws, a.out, slices,
+                                                        mn);
+  return (int)cudaGetLastError();
+}
+
+// float32 activations (with a float32 or a bf16 weight), or bf16
+// activations against a float32 weight (a bf16 weight takes the tensor
+// cores)
+template <int BITS, int TM>
+int launch_types(const FArgs& a, int x_bf16, int rbf, int slices,
+                 cudaStream_t stream) {
+  if (x_bf16)
+    return rbf ? (int)cudaErrorInvalidValue
+               : launch<BITS, TM, __nv_bfloat16, false>(a, slices, stream);
+  return rbf ? launch<BITS, TM, float, true>(a, slices, stream)
+             : launch<BITS, TM, float, false>(a, slices, stream);
+}
+
+template <int BITS>
+int launch_m(const FArgs& a, int m_tile, int x_bf16, int rbf, int slices,
+             cudaStream_t stream) {
+  switch (m_tile) {
+    case 4: return launch_types<BITS, 4>(a, x_bf16, rbf, slices, stream);
+    case 8: return launch_types<BITS, 8>(a, x_bf16, rbf, slices, stream);
+    case 16: return launch_types<BITS, 16>(a, x_bf16, rbf, slices, stream);
+    case 32: return launch_types<BITS, 32>(a, x_bf16, rbf, slices, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace fm
+
+// ---------------------------------------------------------------------------
 // K1t on tensor cores: out (M, V) = x (M, d) @ W.T, bf16 activations, W
 // (V, d) as code rows whose weight is a bf16 number
 // ---------------------------------------------------------------------------
@@ -1219,45 +1465,57 @@ int launch_vec(const TTArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
+// K1 on CUDA cores. x (M, K) float32 (or bf16 against a float32
+// weight); codes (K, N) int8 (code_bits 8), int16 (16) or rows of packed
+// 2/3/4/6-bit lanes; out (M, N) float32; ws (slices, M, N) float32 when
+// slices > 1. Blocks of 128 output columns and m_tile (4, 8, 16 or 32)
+// rows of x; K is cut into slices of k_slice rows (a multiple of 32), the
+// last one ragged; the wrapper's plan (comm/matmul.py fma_plan) picks
+// them. w_bf16 / cast_bf16: the weight is rounded to bf16 (once: rounding
+// to bf16 twice is rounding once).
 extern "C" int rt_dequant_matmul(const void* x, const void* codes,
-                                 const void* scale, void* out, int M, int K,
-                                 int N, int code_bits, int k_x, int x_bf16,
-                                 int w_bf16, int cast_bf16, int out_bf16,
+                                 const void* scale, void* out, void* ws,
+                                 int M, int K, int N, int code_bits, int k_x,
+                                 int x_bf16, int w_bf16, int cast_bf16,
+                                 int m_tile, int k_slice, int slices,
                                  void* stream) {
-  Args a;
+  if (M <= 0 || K <= 0 || N <= 0 || k_slice <= 0 || k_slice % 32 ||
+      slices <= 0 || slices > 65535 || (long long)k_slice * slices < K ||
+      (long long)k_slice * (slices - 1) >= K ||
+      (slices > 1 && ws == nullptr) || k_x < 0 || k_x > 14 ||
+      (m_tile != 4 && m_tile != 8 && m_tile != 16 && m_tile != 32) ||
+      (M + m_tile - 1) / m_tile > 65535)
+    return (int)cudaErrorInvalidValue;
+  fm::FArgs a;
+  switch (code_bits) {
+    case 16: a.row_bytes = 2LL * N; break;
+    case 8: a.row_bytes = N; break;
+    case 6: a.row_bytes = (long long)((N + 3) / 4) * 3; break;
+    case 4: a.row_bytes = (long long)((N + 1) / 2); break;
+    case 3: a.row_bytes = (long long)((N + 7) / 8) * 3; break;
+    case 2: a.row_bytes = (long long)((N + 3) / 4); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   a.x = x;
   a.codes = static_cast<const uint8_t*>(codes);
   a.scale = static_cast<const float*>(scale);
-  a.out = out;
+  a.out = static_cast<float*>(out);
+  a.ws = static_cast<float*>(ws);
   a.M = M; a.K = K; a.N = N;
+  a.k_slice = k_slice;
+  a.k_x = k_x;
   a.inv_pow2 = 1.0f / (float)(1 << k_x);
-  a.w_bf16 = w_bf16;
-  a.cast_bf16 = cast_bf16;
-  a.vec = 0;
+  a.vec_c = a.row_bytes % 16 == 0 && (uintptr_t)codes % 16 == 0;
+  a.vec_x = !x_bf16 && K % 4 == 0 && (uintptr_t)x % 16 == 0;
+  const int rbf = w_bf16 || cast_bf16;
   cudaStream_t s = (cudaStream_t)stream;
   switch (code_bits) {
-    case 8:
-      a.row_bytes = N;
-      a.vec = (N % 4 == 0) && ((uintptr_t)codes % 4 == 0);
-      return launch_types<8>(a, x_bf16, out_bf16, s);
-    case 16:
-      a.row_bytes = 2LL * N;
-      a.vec = (N % 2 == 0) && ((uintptr_t)codes % 4 == 0);
-      return launch_types<16>(a, x_bf16, out_bf16, s);
-    case 2:
-      a.row_bytes = (long long)((N + 3) / 4) * 1;
-      return launch_types<2>(a, x_bf16, out_bf16, s);
-    case 3:
-      a.row_bytes = (long long)((N + 7) / 8) * 3;
-      return launch_types<3>(a, x_bf16, out_bf16, s);
-    case 4:
-      a.row_bytes = (long long)((N + 1) / 2) * 1;
-      return launch_types<4>(a, x_bf16, out_bf16, s);
-    case 6:
-      a.row_bytes = (long long)((N + 3) / 4) * 3;
-      return launch_types<6>(a, x_bf16, out_bf16, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 16: return fm::launch_m<16>(a, m_tile, x_bf16, rbf, slices, s);
+    case 8: return fm::launch_m<8>(a, m_tile, x_bf16, rbf, slices, s);
+    case 6: return fm::launch_m<6>(a, m_tile, x_bf16, rbf, slices, s);
+    case 4: return fm::launch_m<4>(a, m_tile, x_bf16, rbf, slices, s);
+    case 3: return fm::launch_m<3>(a, m_tile, x_bf16, rbf, slices, s);
+    default: return fm::launch_m<2>(a, m_tile, x_bf16, rbf, slices, s);
   }
 }
 

@@ -1203,3 +1203,166 @@ def test_flash_attention_float32_tier_catches_window_off_by_one(dev, case):
     bad = FA.flash_attention(q, k, v, backend="torch",
                              **dict(kw, window=kw["window"] + 1))
     assert bool(((bad - b).abs() > tol).any())
+
+
+# ---------------------------------------------------------------------------
+# K6 fused decode: a row's head, 16-byte body and tail, every lane width
+# ---------------------------------------------------------------------------
+
+# (kind, k, lane bits): the uniform kind at every lane width (its wire
+# lanes pinned), k = 30 the finest grid; the log kind at its 3-, 4- and
+# 6-bit lanes; the ternary kind's 2-bit lanes
+K6_CASES = ([("uniform", k, b) for b, k in ((2, 1), (3, 2), (4, 3), (6, 5),
+                                            (8, 7), (16, 15))]
+            + [("uniform", 30, 16)]
+            + [("log", k, None) for k in (1, 4, 6, 8)]
+            + [("ternary", 0, 2)])
+
+
+def _k6_codec(kind, k, bits):
+    from repro_torch.comm import codec as CD
+    if kind == "log":
+        return CD.LogCodec(k_g=k)
+    if kind == "ternary":
+        return CD.TernaryCodec()
+    return CD.UniformCodec(k_x=k, absolute=True, wire_bits=bits)
+
+
+@pytest.mark.parametrize("kind,k,bits", K6_CASES, ids=str)
+@pytest.mark.parametrize("c", [1, 3, 4, 7, 16, 4099, 1000003])
+@pytest.mark.parametrize("n_rows", [1, 2, 3, 5])
+def test_decode_rows_head_body_tail_bitwise(dev, kind, k, bits, c, n_rows):
+    """K6 against its plain version, bitwise: codes over the whole lane,
+    a distinct scale per row, into rows; into a flat output shorter than
+    n_rows * c by 1, 3 and 5 elements; into an output that starts 4 bytes
+    past a 16-byte boundary; from a payload that starts one byte past one.
+    One launch a call."""
+    from repro_torch.comm import bits as B
+    from repro_torch.comm import kernels as K
+    codec = _k6_codec(kind, k, bits)
+    g = torch.Generator(device=dev).manual_seed(c * 8 + n_rows + codec.bits)
+    half = 2 ** (codec.bits - 1)
+    codes = torch.randint(-half, half, (n_rows, c), generator=g, device=dev,
+                          dtype=torch.int32)
+    if kind == "ternary":
+        codes = codes.clamp(-1, 1)
+    payload = B.pack_rows(codes, codec.bits)
+    scales = torch.rand(n_rows, generator=g, device=dev) + 0.5
+    plain = K.decode_rows(payload, scales, codec, c, backend="torch")
+    counter = f"decode_{kind}_launches"
+    n0 = getattr(K, counter)
+    _bits_equal(K.decode_rows(payload, scales, codec, c, backend="cuda"),
+                plain)
+    assert getattr(K, counter) == n0 + 1
+    flat = plain.reshape(-1)
+    for short in (1, 3, 5):
+        n = n_rows * c - short
+        if n < 1:
+            continue
+        out = torch.full((n,), float("nan"), device=dev)
+        K.decode_rows(payload, scales, codec, c, backend="cuda", out=out)
+        _bits_equal(out, flat[:n])
+    buf = torch.full((n_rows * c + 4,), float("nan"), device=dev)
+    out = buf[1:1 + n_rows * c]
+    K.decode_rows(payload, scales, codec, c, backend="cuda", out=out)
+    _bits_equal(out, flat)
+    assert torch.isnan(buf[0]) and bool(torch.isnan(buf[1 + n_rows * c:]).all())
+    store = torch.empty(payload.numel() + 1, dtype=torch.uint8, device=dev)
+    shifted = store[1:].view(payload.shape)
+    shifted.copy_(payload)
+    _bits_equal(K.decode_rows(shifted, scales, codec, c, backend="cuda"),
+                plain)
+
+
+# ---------------------------------------------------------------------------
+# K1's CUDA-core route: float32 activations, every code type, split K
+# ---------------------------------------------------------------------------
+
+def _k1_fma_case(dev, M, K, N, bits, seed, x_dtype=torch.float32):
+    """x (M, K) and codes (K, N) of one width for the CUDA-core route."""
+    x, codes, scale, k_x, pb = _k1_tc_case(dev, M, K, N, bits, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn(M, K, generator=g, device=dev).to(x_dtype)
+    return x, codes, scale, k_x, pb
+
+
+def _k1_f32_floor(MM, x, codes, scale, k_x, N, pack_bits, cast=None,
+                  w_dtype="float32"):
+    """K1_FLOOR units of sqrt(K) 2^-24 |x*w|_2: the tier of two fp32
+    summation orders of the same products."""
+    w = MM.dequant_codes(codes, scale, k_x=k_x, n=N, pack_bits=pack_bits,
+                         w_dtype=w_dtype, cast_dtype=cast).float()
+    norm = (x.float() ** 2 @ w ** 2).sqrt()
+    return K1_FLOOR * x.shape[1] ** 0.5 * 2.0 ** -24 * norm
+
+
+@pytest.mark.parametrize("bits", [8, 16, 2, 3, 4, 6])
+@pytest.mark.parametrize("M", [1, 4, 5, 8, 9, 16, 32, 33, 64])
+@pytest.mark.parametrize("K,N", [
+    (300, 70),       # one column tile, part of it past N
+    (1000, 1001),    # ragged rows loaded byte by byte
+    (4095, 384),     # K no multiple of 4: x staged element by element
+    (4096, 512),     # split K
+    (2304, 1024)])   # gemma2's wk/wv: split K
+def test_dequant_matmul_float32_route(dev, bits, M, K, N):
+    """K1's CUDA-core route (float32 activations and weights) within
+    rtol/atol 1e-5 and the fp32 summation-order floor of the plain
+    product; two calls bitwise equal; one CUDA-core launch a call and no
+    tensor-core launch."""
+    from repro_torch.comm import matmul as MM
+    x, codes, scale, k_x, pb = _k1_fma_case(dev, M, K, N, bits,
+                                            M * K + N + bits)
+    kw = dict(k_x=k_x, n=N, pack_bits=pb)
+    n_fma, n_tc = MM.launches_fma, MM.launches_tc
+    a = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    assert (MM.launches_fma, MM.launches_tc) == (n_fma + 1, n_tc)
+    a2 = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    b = MM.dequant_matmul(x, codes, scale, backend="torch", **kw)
+    assert a.dtype == b.dtype == torch.float32 and a.shape == (M, N)
+    assert torch.equal(a, a2)
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    floor = _k1_f32_floor(MM, x, codes, scale, k_x, N, pb)
+    assert bool(((a - b).abs() <= floor).all())
+
+
+@pytest.mark.parametrize("bits", [8, 16, 2, 3, 4, 6])
+@pytest.mark.parametrize("M", [4, 32])
+@pytest.mark.parametrize("variant", ["x_bf16", "w_bf16", "cast_bf16"])
+def test_dequant_matmul_float32_route_bf16_sides(dev, bits, M, variant):
+    """The route's other instances: bf16 activations against a float32
+    weight, and float32 activations against a weight rounded to bf16 (a
+    bf16 leaf, or a pending cast), each within the fp32 floor."""
+    from repro_torch.comm import matmul as MM
+    K, N = 2304, 1001
+    x, codes, scale, k_x, pb = _k1_fma_case(
+        dev, M, K, N, bits, 7 * M + bits,
+        torch.bfloat16 if variant == "x_bf16" else torch.float32)
+    w_dtype = "bfloat16" if variant == "w_bf16" else "float32"
+    cast = "bfloat16" if variant == "cast_bf16" else None
+    kw = dict(k_x=k_x, n=N, pack_bits=pb, w_dtype=w_dtype, cast_dtype=cast)
+    assert MM.route(x.dtype, codes.dtype, pb, w_dtype, cast) == "fma"
+    n_fma = MM.launches_fma
+    a = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    assert MM.launches_fma == n_fma + 1
+    b = MM.dequant_matmul(x, codes, scale, backend="torch", **kw)
+    assert a.dtype == b.dtype == torch.float32
+    floor = _k1_f32_floor(MM, x, codes, scale, k_x, N, pb, cast, w_dtype)
+    assert bool(((a - b).abs() <= floor).all())
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dequant_matmul_float32_tier_catches_a_dropped_row(dev, bits):
+    """The planted fault at the chunk's M = 32: the plain product with its
+    last K row dropped fails the float32 tier the kernel passes."""
+    from repro_torch.comm import matmul as MM
+    M, K, N = 32, 4096, 1024
+    x, codes, scale, k_x, pb = _k1_fma_case(dev, M, K, N, bits, 123 + bits)
+    kw = dict(k_x=k_x, n=N, pack_bits=pb)
+    a = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    b = MM.dequant_matmul(x, codes, scale, backend="torch", **kw)
+    floor = _k1_f32_floor(MM, x, codes, scale, k_x, N, pb)
+    assert bool(((a - b).abs() <= floor).all())
+    w = MM.dequant_codes(codes, scale, k_x=k_x, n=N, pack_bits=pb,
+                         w_dtype="float32", cast_dtype=None)
+    bad = x[:, :-1] @ w[:-1]
+    assert bool(((bad - b).abs() > floor).any())

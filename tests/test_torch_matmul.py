@@ -241,6 +241,83 @@ def test_tc_plan_refuses_other_codes():
         TM.k1_plan(0, 64, 64, 8)
 
 
+# the CUDA-core route's plan: the serving paths' float32 shapes (yi-6b's
+# and gemma2-2b's projections at decode and chunk sizes), ragged ones, and
+# M past one row tile
+FMA_PLAN_SHAPES = PLAN_SHAPES + [
+    (4, 4096, 4096), (32, 4096, 512), (4, 2304, 2048), (32, 2304, 1024),
+    (4, 9216, 2304), (32, 2048, 2304), (1, 4096, 64000), (5, 1000, 1001),
+    (9, 4095, 300), (64, 4096, 11008), (200, 300, 70), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("code_bits", TC_BITS)
+@pytest.mark.parametrize("M,K,N", FMA_PLAN_SHAPES)
+def test_fma_plan_slices_cover_k_once_in_order(M, K, N, code_bits):
+    plan = TM.fma_plan(M, K, N, code_bits)
+    assert plan.slices[0][0] == 0 and plan.slices[-1][1] == K
+    for (a0, a1), (b0, b1) in zip(plan.slices, plan.slices[1:]):
+        assert a1 == b0                      # contiguous, in order
+    assert all(k0 < k1 for k0, k1 in plan.slices)   # none empty
+    assert plan.k_slice % TM.FMA_SLICE_ROWS == 0
+    assert len(plan.slices) == plan.grid[2] <= TM.FMA_MAX_SLICES
+    # every output column and row is in exactly one block of each slice
+    assert plan.grid[0] == -(-N // TM.FMA_TILE_N)
+    assert plan.grid[1] == -(-M // plan.m_tile)
+    assert plan.m_tile in TM.FMA_M_TILES
+    # the staged x of a slice fits the block's shared memory
+    assert plan.m_tile * plan.k_slice <= TM.FMA_X_FLOATS
+
+
+@pytest.mark.parametrize("code_bits", TC_BITS)
+@pytest.mark.parametrize("M", [1, 2, 4, 5, 8, 9, 16, 17, 32, 33, 64, 100])
+def test_fma_plan_reads_each_code_byte_once(M, code_bits):
+    """One row tile of x for M <= 32 (each code byte read once a call),
+    the narrowest that holds M; 32-row tiles past it."""
+    plan = TM.fma_plan(M, 4096, 11008, code_bits)
+    assert (plan.grid[1] == 1) == (M <= 32)
+    assert plan.m_tile == min(t for t in TM.FMA_M_TILES if t >= min(M, 32))
+
+
+@pytest.mark.parametrize("code_bits", TC_BITS)
+@pytest.mark.parametrize("M", [1, 4, 32])
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 512), (4096, 11008),
+                                 (11008, 4096), (2304, 2048), (2304, 1024),
+                                 (2304, 9216), (9216, 2304), (2048, 2304)])
+def test_fma_plan_fills_the_card(M, K, N, code_bits):
+    """At every float32 serving shape of yi-6b and gemma2-2b, K is split
+    until every SM has a block."""
+    plan = TM.fma_plan(M, K, N, code_bits)
+    assert plan.blocks >= TM.SMS
+
+
+def test_fma_plan_fills_the_card_where_k_allows():
+    """Where K has too few 32-row units to give each SM a block, every
+    unit is its own slice."""
+    plan = TM.fma_plan(4, 64, 256, 8)
+    assert plan.grid[2] == 2 and plan.k_slice == 32
+
+
+@pytest.mark.parametrize("code_bits", TC_BITS)
+@pytest.mark.parametrize("M,K,N", FMA_PLAN_SHAPES)
+def test_fma_plan_workspace_size(M, K, N, code_bits):
+    plan = TM.fma_plan(M, K, N, code_bits)
+    expect = plan.grid[2] * M * N if plan.grid[2] > 1 else 0
+    assert plan.workspace == expect
+
+
+def test_fma_plan_refuses_bad_shapes():
+    for bits in (5, 32, 1, 0):
+        with pytest.raises(ValueError):
+            TM.fma_plan(4, 64, 64, bits)
+    for M, K, N in ((0, 64, 64), (4, 0, 64), (4, 64, 0), (-1, 64, 64)):
+        with pytest.raises(ValueError):
+            TM.fma_plan(M, K, N, 8)
+    # more K than FMA_MAX_SLICES slices of staged x can hold
+    with pytest.raises(ValueError):
+        TM.fma_plan(32, TM.FMA_MAX_SLICES * TM.FMA_X_FLOATS // 32 + 32, 64, 8)
+
+
+
 
 @pytest.mark.parametrize("x,codes,pack,w,cast,expect", [
     (torch.bfloat16, torch.int8, 0, "float32", "bfloat16", "tc"),
