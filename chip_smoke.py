@@ -34,9 +34,11 @@ Phases, each raising on failure (exit code nonzero, no result line):
      type (int8 at k_x = 6 at M in {1, 4}, int16 and 2/3/4/6-bit rows at
      M = 4) and at ragged V, d and M past one n8 tile, in the same tier
      (a dropped d column must fail it), the same sums in float32 on its
-     CUDA-core route within the floor; timed at M = 1 and 4 for every
-     code type with its kernel/library factor and share of the bound,
-     and the CUDA-core route beside the fp32 torch.matmul; #17 flash
+     CUDA-core route within the floor at every case (a dropped d column
+     must fail that gate too); timed at M = 1 and 4 for every code type
+     with its kernel/library factor and share of the bound, and the
+     CUDA-core route (int8 at M = 1, 4, 8, 4-bit lanes at M = 4) beside
+     the fp32 torch.matmul; #17 flash
      attention on the four cases of tests/test_kernels.py (float32,
      3xTF32 on tensor cores), gemma2-2b's prefill (B 1, S 8192, 8 heads
      over 4, hd 256) as a local (window 4096) and a global layer (softcap
@@ -124,6 +126,14 @@ Phases, each raising on failure (exit code nonzero, no result line):
      captured-gradient update bitwise through the kernels and the plain
      versions (the same uniforms), then ``wquan(k_x=7, absolute=False)``
      of the trained parameters (K3, K4, K12, bitwise);
+     5c. the phase-5 session with ``scan_chunk=4``: the first chunk
+     eager, the next captured as one CUDA graph and replayed, 12 steps
+     (3 dispatches, 1 capture, 2 replays), against the same session step
+     by step, both under deterministic algorithms: losses and parameters
+     bitwise (else within the trajectory tier, the difference printed);
+     the training kernels launched, no plain version on the card; the
+     step's wall and device time, idle share and peak memory beside
+     phase 5's;
   6. train the same cut of yi-6b with Algorithms 2+3 through
      ``launch.train``'s path, in process: ``make_process_group`` (one
      NCCL rank), ``make_train_step(model, group, TrainConfig(alpha=1e-3,
@@ -152,6 +162,18 @@ Phases, each raising on failure (exit code nonzero, no result line):
      ``dp_adam`` bitwise ``qadam`` with both channels in float32 and
      ``efadam`` with a float32 broadcast bitwise ``qadam``, under
      deterministic algorithms;
+     6b. on the same rank and at the same size (a 30.5 GB state), 8
+     steps under deterministic algorithms: 4 steps, a checkpoint (pinned
+     host copy on a side stream, the writer thread), 4 more; a new
+     session resumed from the checkpoint (leaf by leaf into its own
+     state's tensors, no device bytes added) for 4 more, bitwise the
+     first run's losses and state; a checkpoint with ``ckpt_codec=
+     "uniform_amax:7"`` (#5 with K3's amax, then K6 on restore, at most
+     one leaf beside the state): masters and count exact, m, v and e
+     bitwise the plain versions' codec round trip; then ``scan_chunk=4``
+     with the step's collectives in the graph, bitwise the first run;
+     bytes written, seconds to save and restore and the device bytes a
+     restore adds, in a temp dir deleted at the end;
   8. every leaf of the cut's initial parameters through
      ``Codec.encode`` -> ``WireBuffer.decode`` for log:6, the uniform:7
      wire (absolute and amax), TernGrad and blockwise:256: #5 (each
@@ -724,11 +746,14 @@ def check_matmul_t(torch, MM, B, dev):
     int16, 2/3/4/6-bit rows) at M in {1, 4} (and past one n8 tile), within
     K1's tier, each call moving ``t_launches_tc``; a dropped d column must
     fail the gate; the same sums in float32 activations on the CUDA-core
-    route within the floor. Timed: int8, int16 and every lane width at M
-    = 1 and 4 on tensor cores, with the kernel/library factor and the
-    share of the bound, and the CUDA-core route at float32 activations
-    beside the fp32 ``torch.matmul`` (TF32 off). Returns the two
-    kernels-line rows, the case table and the timings."""
+    route (every case: each code type at the head and at the ragged V, d
+    and M) within the floor, each call moving ``t_launches_fma``, where a
+    dropped d column must fail too. Timed: int8, int16 and every lane
+    width at M = 1 and 4 on tensor cores, with the kernel/library factor
+    and the share of the bound, and the CUDA-core route at float32
+    activations (int8 at M = 1, 4 and 8, 4-bit lanes at M = 4) beside the
+    fp32 ``torch.matmul`` (TF32 off). Returns the two kernels-line rows,
+    the case table and the timings."""
     g = torch.Generator(device=dev).manual_seed(17)
     d, V = GEMMA["d"], GEMMA["V"]
     kinds = ("int8", "int16") + PACKED_KINDS
@@ -767,22 +792,34 @@ def check_matmul_t(torch, MM, B, dev):
         row = dict(M=M, V=rows, d=n, codes=kind, route=route,
                    max_abs_err=float(diff.max()), over_ulp_units=over)
         worst["tc"] = max(worst["tc"], row["max_abs_err"])
-        if kind == "int8" or (rows == V and kind == "p4"):
-            # the same sums in fp32 activations (the CUDA-core route), held
-            # within the floor: summation-order noise in the same units
-            kf = dict(kw, cast_dtype=None)
-            n0 = MM.t_launches_fma
-            d32 = (MM.dequant_matmul(x.float(), codes, scale, backend="cuda",
-                                     **kf)
-                   - MM.dequant_matmul(x.float(), codes, scale,
-                                       backend="torch", **kf)).abs()
-            if MM.t_launches_fma != n0 + 1 or not bool(
-                    (d32 <= K1_FLOOR * unit).all()):
-                raise AssertionError(f"K1t (fma) at M={M} V={rows} d={n} "
-                                     f"{kind}, float32: beyond {K1_FLOOR:g} "
-                                     f"units of fp32 summation noise")
-            row["f32_noise"] = float((d32 / unit).max())
-            worst["fma"] = max(worst["fma"], float(d32.max()))
+        # the same sums in fp32 activations (the CUDA-core route), held
+        # within the floor: summation-order noise in the same units
+        kf = dict(kw, cast_dtype=None)
+        n0 = MM.t_launches_fma
+        x32 = x.float()
+        p32 = MM.dequant_matmul(x32, codes, scale, backend="torch", **kf)
+        w32 = MM.dequant_codes(codes, scale, k_x=k_x, n=n, pack_bits=pb,
+                               w_dtype="float32", cast_dtype=None)
+        u32 = n ** 0.5 * 2.0 ** -24 * (x32 ** 2 @ (w32 ** 2).T).sqrt()
+        d32 = (MM.dequant_matmul(x32, codes, scale, backend="cuda", **kf)
+               - p32).abs()
+        if MM.t_launches_fma != n0 + 1 or not bool(
+                (d32 <= K1_FLOOR * u32).all()):
+            raise AssertionError(f"K1t (fma) at M={M} V={rows} d={n} "
+                                 f"{kind}, float32: beyond {K1_FLOOR:g} "
+                                 f"units of fp32 summation noise")
+        row["f32_noise"] = float((d32 / u32).max())
+        worst["fma"] = max(worst["fma"], float(d32.max()))
+        if rows == V and kind in ("int8", "p4"):
+            bad32 = x32[:, :-1] @ w32[:, :-1].T
+            seen32 = float(((bad32 - p32).abs() > K1_FLOOR * u32).float()
+                           .mean())
+            if seen32 == 0.0:
+                raise AssertionError(f"K1t float32 gate blind to a dropped d "
+                                     f"column at M={M} {kind}")
+            row["f32_fault_caught"] = seen32
+            del bad32
+        del x32, p32, w32, u32, d32
         if rows == V and kind in ("int8", "p4"):
             # the planted fault: the last d column dropped from the sum
             bad = (x[:, :-1].float() @ w[:, :-1].T).to(torch.bfloat16)
@@ -826,8 +863,10 @@ def check_matmul_t(torch, MM, B, dev):
     timed = [time_case(M, kind) for kind in kinds for M in (1, 4)]
     if any(r["route"] != "tc" for r in timed):
         raise AssertionError("K1t bf16 timed off the tensor-core route")
-    fma = time_case(4, "int8", torch.float32)
-    timed.append(fma)
+    f32 = {(kind, M): time_case(M, kind, torch.float32)
+           for kind, M in (("int8", 1), ("int8", 4), ("int8", 8), ("p4", 4))}
+    timed += list(f32.values())
+    fma = f32[("int8", 4)]
     torch.cuda.empty_cache()
     at = {(r["codes"], r["M"]): r for r in timed if r["route"] == "tc"}
     rep, slow = at[("int8", 4)], max(at.values(), key=lambda r: r["factor"])
@@ -848,7 +887,10 @@ def check_matmul_t(torch, MM, B, dev):
                    max_abs_err=worst["fma"], ms=fma["ms"],
                    plain_ms=fma["plain_ms"], bound_ms=fma["bound_ms"],
                    bound_by=fma["bound_by"], library_ms=fma["library_ms"],
-                   shape=[4, V, d, "int8", "float32"])
+                   shape=[4, V, d, "int8", "float32"],
+                   m1_ms=f32[("int8", 1)]["ms"], m8_ms=f32[("int8", 8)]["ms"],
+                   p4_ms=f32[("p4", 4)]["ms"],
+                   p4_bound_ms=f32[("p4", 4)]["bound_ms"])
     return [row_tc, row_fma], table, timed
 
 
@@ -1712,9 +1754,9 @@ def run_watched(torch, sess, steps: int):
 
     program_step, program_harvest = sess._program.step, sess.harvest_losses
 
-    def step(state, batch):
+    def step(state, batch, hp=None):
         starts.append(nsync())
-        state, metrics = program_step(state, batch)
+        state, metrics = program_step(state, batch, hp)
         losses.append(metrics["loss"])
         return state, metrics
 
@@ -2079,6 +2121,155 @@ def alg1_baselines(torch, dev, mods):
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: Algorithm 1 with scan chunks, one CUDA graph a chunk
+# ---------------------------------------------------------------------------
+
+GRAPH_CHUNK = 4
+
+
+def all_losses(sess, steps: int):
+    """``sess.run(steps)``; every step's loss, from the session's own
+    harvests (and one after the run)."""
+    got = {}
+    harvest = sess.harvest_losses
+
+    def keep():
+        out = harvest()
+        got.update(out)
+        return out
+    sess.harvest_losses = keep
+    try:
+        sess.run(steps)
+    finally:
+        del sess.harvest_losses
+    got.update(harvest())
+    return [got[s] for s in sorted(got)]
+
+
+def trajectory(torch, la, lb, pa, pb):
+    """Two runs' losses and parameter lists: bitwise, and the largest
+    loss rel difference and the parameters' rel L2 distance."""
+    bitwise = la == lb and all(bits_equal(torch, a, b)
+                               for a, b in zip(pa, pb))
+    num = den = 0.0
+    for a, b in zip(pa, pb):
+        num += float(((a.double() - b.double()) ** 2).sum())
+        den += float((b.double() ** 2).sum())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(la, lb))
+    return dict(bitwise=bitwise, loss_rel=loss_rel,
+                param_rel_l2=(num / den) ** 0.5)
+
+
+def graph_train(torch, dev, mods):
+    """Phase 5c: phase 5's session with ``scan_chunk=GRAPH_CHUNK`` (one
+    CUDA-graph replay a chunk after an eager first chunk) against the
+    same session step by step, both under deterministic algorithms:
+    bitwise losses and parameters, else within the trajectory tier with
+    the difference printed; three dispatches, one capture, two replays;
+    every training kernel launched (counts at 0 before the chunked run;
+    the captured launches count once, replays not at all), no plain
+    version on the card; then wall and device time a step and peak
+    memory."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core.qadam import QAdamConfig, qadam
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.models.model import Model
+    from repro_torch.train.session import SessionConfig, TrainSession
+    from repro_torch.tree import tree_leaves
+    K, A = mods["K"], mods["A"]
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=TRAIN_LAYERS)
+    model = Model(cfg)
+    opt = qadam(QAdamConfig(**TRAIN_OPT))
+
+    def loss_fn(p, b):
+        ls, nt = model.loss(p, b)
+        return ls / nt
+
+    def session(chunk):
+        return TrainSession.from_optimizer(
+            opt, loss_fn, model.init(seed=0, device=dev),
+            batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+            SessionConfig(log_every=TRAIN_STEPS, scan_chunk=chunk),
+            log=lambda *_: None)
+
+    torch.cuda.empty_cache()
+    with deterministic(torch) as caught:
+        ref = session(1)
+        t0 = time.perf_counter()
+        ref_losses = all_losses(ref, TRAIN_STEPS)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        ref_params = [p.clone() for p in tree_leaves(ref.state["params"])]
+        ref.close()
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path, with every count at 0 just before it
+        for mod, attr in TRAIN_COUNTERS.values():
+            setattr(mods[mod], attr, 0)
+        K.plain_on_cuda = A.plain_on_cuda = 0
+        sess = session(GRAPH_CHUNK)
+        t0 = time.perf_counter()
+        losses = all_losses(sess, TRAIN_STEPS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    launches = {name: getattr(mods[mod], attr)
+                for name, (mod, attr) in TRAIN_COUNTERS.items()}
+    plain = K.plain_on_cuda + A.plain_on_cuda
+    stats = dict(sess.stats)
+    peak = torch.cuda.max_memory_allocated()
+    tr = trajectory(torch, losses, ref_losses,
+                    tree_leaves(sess.state["params"]), ref_params)
+    # the peak holds the step-by-step run's parameters, kept to compare
+    ref_bytes = sum(p.numel() * p.element_size() for p in ref_params)
+    del ref_params
+    res = dict(chunk=GRAPH_CHUNK, steps=TRAIN_STEPS, losses=losses,
+               per_step_losses=ref_losses, stats=stats, launches=launches,
+               run_s=run_s, per_step_run_s=ref_s, peak_bytes=peak,
+               peak_less_reference_bytes=peak - ref_bytes,
+               nondeterministic=sorted({str(w.message)[:200] for w in caught
+                                        if "deterministic" in
+                                        str(w.message)}), **tr)
+    if not all(math.isfinite(x) for x in losses) or len(losses) != \
+            TRAIN_STEPS:
+        raise AssertionError(f"graph training losses: {losses}")
+    if (stats["dispatches"], stats["graph_captures"],
+            stats["graph_replays"]) != (3, 1, 2):
+        raise AssertionError(f"scan_chunk={GRAPH_CHUNK} over {TRAIN_STEPS} "
+                             f"steps: not 3 dispatches, 1 capture, 2 "
+                             f"replays: {stats}")
+    if any(n == 0 for n in launches.values()) or plain:
+        raise AssertionError(f"graph training: launches {launches}, plain "
+                             f"{plain}")
+    if not tr["bitwise"] and not (tr["loss_rel"] <= LOSS_RTOL and
+                                  tr["param_rel_l2"] <= PARAM_REL_L2):
+        raise AssertionError(f"scan_chunk={GRAPH_CHUNK} vs step by step: "
+                             f"{res}")
+
+    # wall and device time a step over whole replays
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.run(2 * GRAPH_CHUNK)
+    torch.cuda.synchronize()
+    res["step_wall_ms"] = ((time.perf_counter() - t0) / (2 * GRAPH_CHUNK)
+                           * 1e3)
+    dev_ms, by_kernel = profile_ms(torch, lambda: sess.run(GRAPH_CHUNK),
+                                   steps=2)
+    res["step_device_ms"] = dev_ms / GRAPH_CHUNK
+    res["device_idle"] = 1 - res["step_device_ms"] / res["step_wall_ms"]
+    res["step_kernels"] = [(k, t / GRAPH_CHUNK) for k, t in by_kernel[:8]]
+    res["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / res["step_wall_ms"] * 1e3
+    res["replays_after_timing"] = sess.stats["graph_replays"]
+    sess.close()
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 6: Algorithms 2+3, the distributed step on one NCCL rank
 # ---------------------------------------------------------------------------
 
@@ -2205,9 +2396,9 @@ def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
 
     program_step = sess._program.step
 
-    def marked_step(state, batch):
+    def marked_step(state, batch, hp=None):
         mark("start")
-        return art.step_fn(state, batch, mark=mark)
+        return art.step_fn(state, batch, mark=mark, hp=hp)
     sess._program.step = marked_step
     try:
         sess.run(1)
@@ -2335,6 +2526,193 @@ def dist_train(torch, dev, mods, group, model, cfg):
     if res["backend"] != "nccl" or res["world_size"] != 1:
         raise AssertionError(f"expected one NCCL rank: {res}")
     res["equivalence"] = equivalence(torch, dev, group, model, cfg)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: the distributed session's checkpoints and resume
+# ---------------------------------------------------------------------------
+
+CKPT_STEPS, CKPT_CODEC = 8, "uniform_amax:7"
+CKPT_COUNTERS = {"amax_rows": ("K", "amax_launches"),
+                 "encode_rows_uniform": ("K", "encode_uniform_launches"),
+                 "decode_rows_uniform": ("K", "decode_uniform_launches")}
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def release_pinned(torch) -> None:
+    """Hand the pinned host pool's free blocks back to the system (a
+    checkpoint's host copy of a 30.5 GB state is cached there)."""
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+
+
+def ckpt_resume(torch, dev, mods, group, model, cfg):
+    """Phase 6b: Algorithms 2+3 (DIST_TC) on one NCCL rank at phase 6's
+    size (full-width yi-6b cut to TRAIN_LAYERS layers, a 30.5 GB state),
+    CKPT_STEPS steps, under deterministic algorithms. Run B runs half the
+    steps, checkpoints (pinned host copy on a side stream, the writer
+    thread) and runs the rest; its final state goes to the host. A new
+    session resumes from the checkpoint, the device holding its state
+    and nothing more, and runs the rest: losses and state bitwise run
+    B's. Then a checkpoint of that state with ``ckpt_codec=CKPT_CODEC``
+    (#5 with K3's amax on the moments) restored by a new session (K6, at
+    most one leaf beside the state): masters and count exact, m, v and e
+    bitwise the plain versions' codec round trip. Then
+    ``scan_chunk=GRAPH_CHUNK`` on the same rank (the step's collectives
+    captured in the graph): losses and state bitwise run B's. Written
+    into a temp dir deleted at the end; prints the bytes written, the
+    seconds to save and restore and the device bytes a restore adds."""
+    import gc
+    import shutil
+    import tempfile
+    from repro_torch.comm.codec import get_codec
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.dist.step import TrainConfig, make_train_step
+    from repro_torch.train.session import (SessionConfig, TrainSession,
+                                           _replaced, _tensor_leaves)
+    K = mods["K"]
+    art = make_train_step(model, group, TrainConfig(**DIST_TC))
+    half = CKPT_STEPS // 2
+
+    def session(**kw):
+        kw.setdefault("log_every", 1)
+        return TrainSession.from_artifacts(
+            art, batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+            SessionConfig(**kw), seed=0, device=dev, log=lambda *_: None)
+
+    def same(sess, host, count, moments=None) -> bool:
+        """The session's state against the host copy, leaf by leaf;
+        ``moments``: m, v and e compared with that round trip."""
+        if sess.state["count"] != count:
+            return False
+        for key, x in _tensor_leaves(sess.state):
+            want = host[key].to(dev)
+            if moments is not None and \
+                    key.split("/", 1)[0] in ("m", "v", "e"):
+                want = moments(want)
+            if not bits_equal(torch, x, want):
+                print(f"6b: {key} differs", flush=True)
+                return False
+        return True
+
+    def restore(sess, step):
+        """resume() from ``step``; (seconds, device bytes it added at its
+        peak)."""
+        before = _tensor_leaves(sess.state)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        found = sess.resume()
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        if found != step or _replaced(before, sess.state):
+            raise AssertionError(f"resume: step {found}, replaced "
+                                 f"{_replaced(before, sess.state)}")
+        return took, torch.cuda.max_memory_allocated() - base
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    release_pinned(torch)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    res = {"free_disk_bytes": shutil.disk_usage(root).free}
+    try:
+        with deterministic(torch):
+            d1 = os.path.join(root, "plain")
+            b = session(ckpt_dir=d1)
+            b.run(half)
+            t0 = time.perf_counter()
+            b.checkpoint()
+            res["checkpoint_call_s"] = time.perf_counter() - t0
+            b.wait_for_checkpoints()
+            res["save_s"] = time.perf_counter() - t0
+            res["bytes_written"] = dir_bytes(d1)
+            release_pinned(torch)
+            b.run(CKPT_STEPS - half)
+            la = [h["loss"] for h in b.history]
+            host = {k: x.cpu() for k, x in _tensor_leaves(b.state)}
+            count = b.state["count"]
+            res["state_bytes"] = sum(x.numel() * x.element_size()
+                                     for x in host.values())
+            res["largest_leaf_bytes"] = max(x.numel() * x.element_size()
+                                            for x in host.values())
+            b.close()
+            del b
+            gc.collect()
+            torch.cuda.empty_cache()
+            # a new session resumes and runs the rest
+            c = session(ckpt_dir=d1)
+            res["restore_s"], res["restore_added_bytes"] = restore(c, half)
+            shutil.rmtree(d1)
+            c.run(CKPT_STEPS - half)
+            lc = [h["loss"] for h in c.history]
+            res.update(losses=la, resumed_losses=lc, resumed_from=half)
+            if lc != la[half:] or not same(c, host, count) or \
+                    res["restore_added_bytes"] > 0:
+                raise AssertionError(f"resumed run not bitwise the unbroken "
+                                     f"one, or the restore held more than "
+                                     f"the state: {res}")
+            # the moments through the codec, encoded and decoded on the card
+            for mod, attr in CKPT_COUNTERS.values():
+                setattr(mods[mod], attr, 0)
+            K.plain_on_cuda = 0
+            d2 = os.path.join(root, "codec")
+            c.cfg.ckpt_dir, c.cfg.ckpt_codec = d2, CKPT_CODEC
+            t0 = time.perf_counter()
+            c.checkpoint()
+            c.wait_for_checkpoints()
+            res["codec_save_s"] = time.perf_counter() - t0
+            res["codec_bytes_written"] = dir_bytes(d2)
+            release_pinned(torch)
+            c.close()
+            del c
+            gc.collect()
+            torch.cuda.empty_cache()
+            r = session(ckpt_dir=d2)
+            res["codec_restore_s"], res["codec_restore_added_bytes"] = \
+                restore(r, CKPT_STEPS)
+            launches = {name: getattr(mods[mod], attr)
+                        for name, (mod, attr) in CKPT_COUNTERS.items()}
+            res["launches"] = launches
+            if any(n == 0 for n in launches.values()) or K.plain_on_cuda:
+                raise AssertionError(f"codec checkpoint: launches "
+                                     f"{launches}, plain {K.plain_on_cuda}")
+            if res["codec_restore_added_bytes"] > \
+                    2 * res["largest_leaf_bytes"]:
+                raise AssertionError(f"codec restore held more than one "
+                                     f"leaf beside the state: {res}")
+            cd = get_codec(CKPT_CODEC)
+            if not same(r, host, count, lambda x: cd.encode(
+                    x, backend="torch").decode(backend="torch")):
+                raise AssertionError("codec checkpoint: not the plain round "
+                                     "trip")
+            r.close()
+            del r
+            gc.collect()
+            torch.cuda.empty_cache()
+            # scan chunks on the same rank: the collectives in the graph
+            e = session(scan_chunk=GRAPH_CHUNK, log_every=GRAPH_CHUNK)
+            le = all_losses(e, CKPT_STEPS)
+            res["chunk_losses"] = le
+            res["chunk_stats"] = dict(e.stats)
+            if le != la or not same(e, host, count) or (
+                    e.stats["graph_captures"], e.stats["graph_replays"]) != (
+                    1, CKPT_STEPS // GRAPH_CHUNK - 1):
+                raise AssertionError(f"distributed scan_chunk="
+                                     f"{GRAPH_CHUNK} not bitwise step by "
+                                     f"step: {res}")
+            e.close()
+            del e, host
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -3291,9 +3669,8 @@ def main() -> int:
           f"{len(mt_table)} K1t cases, {len(fa_table)} #17 cases)",
           flush=True)
     for t in mt_table:
-        extra = "".join(f", {k} {t[k]:.4g}" for k in ("f32_noise",
-                                                      "fault_caught")
-                        if k in t)
+        extra = "".join(f", {k} {t[k]:.4g}" for k in (
+            "f32_noise", "fault_caught", "f32_fault_caught") if k in t)
         print(f"  K1t ({t['route']}) M={t['M']} V={t['V']} d={t['d']} "
               f"{t['codes']}: max abs err {t['max_abs_err']:.4e}, beyond one "
               f"ulp {t['over_ulp_units']:.3f} units (floor {K1_FLOOR:g})"
@@ -3399,6 +3776,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     tr = train(torch, dev, mods)
     bl = alg1_baselines(torch, dev, mods)
+    gt = graph_train(torch, dev, mods)
+    print(f"phase 5c: scan_chunk={gt['chunk']} over {gt['steps']} steps: "
+          f"bitwise step by step {gt['bitwise']} (loss rel "
+          f"{gt['loss_rel']:.3e}, parameters rel L2 "
+          f"{gt['param_rel_l2']:.3e}); stats {gt['stats']}", flush=True)
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import close_process_group, make_process_group
     from repro_torch.models.model import Model
@@ -3408,6 +3790,8 @@ def main() -> int:
     try:
         ds = dist_train(torch, dev, mods, group, model8, cfg8)
         md = modes_train(torch, dev, mods, group, model8, cfg8)
+        torch.cuda.empty_cache()
+        ck = ckpt_resume(torch, dev, mods, group, model8, cfg8)
     finally:
         close_process_group()
     wb = wire_buffers(torch, dev, mods, model8)
@@ -3436,7 +3820,9 @@ def main() -> int:
                    "serve_f32": pf["launches"].get(r["name"], 0),
                    "serve_gemma2_f32": pg["launches"].get(r["name"], 0),
                    "train": tr["launches"].get(r["name"], 0),
-                   "dist": ds["launches"].get(r["name"], 0)}
+                   "train_graph": gt["launches"].get(r["name"], 0),
+                   "dist": ds["launches"].get(r["name"], 0),
+                   "dist_ckpt": ck["launches"].get(r["name"], 0)}
         by_path.update({f"alg1_{m}": bl[m]["launches"].get(r["name"], 0)
                         for m in ALG1_BASELINES})
         by_path["wquan"] = bl["wquan"]["launches"].get(r["name"], 0)
@@ -3514,6 +3900,12 @@ def main() -> int:
           f"{f3['floor_fp32_cores_ms']:.4f}; with the softcap "
           f"{f3['softcap_ms']:.4f}, local {f3['local_ms']:.4f} ms")
     t1 = mt_rows[0]
+    t2 = mt_rows[1]
+    print(f"  K1t (fma, float32) gemma2 head int8 M = 4 {t2['ms']:.4f} ms "
+          f"({t2['bound_ms'] / t2['ms']:.1%} of its {t2['bound_ms']:.4f} ms "
+          f"bound), M = 1 {t2['m1_ms']:.4f}, M = 8 {t2['m8_ms']:.4f}, "
+          f"library {t2['library_ms']:.4f}; 4-bit M = 4 {t2['p4_ms']:.4f} "
+          f"({t2['p4_bound_ms'] / t2['p4_ms']:.1%} of its bound)")
     print(f"  K1t (tc) gemma2 head int8 M = 4 {t1['ms']:.4f} ms "
           f"({t1['bound_ms'] / t1['ms']:.1%} of its {t1['bound_ms']:.4f} ms "
           f"bound), M = 1 {t1['m1_ms']:.4f}, library {t1['library_ms']:.4f}; "
@@ -3591,6 +3983,42 @@ def main() -> int:
           f"{eq['nondeterministic']}; captured-gradient update bitwise "
           f"(kernels, plain versions, Algorithm 1)", flush=True)
 
+    print(f"Algorithm 1 with scan_chunk={gt['chunk']} (one CUDA graph a "
+          f"chunk after an eager one): losses "
+          f"{', '.join(f'{x:.4f}' for x in gt['losses'])} (step by step "
+          f"{', '.join(f'{x:.4f}' for x in gt['per_step_losses'])}); bitwise "
+          f"{gt['bitwise']}, loss rel {gt['loss_rel']:.3e}, parameters rel "
+          f"L2 {gt['param_rel_l2']:.3e}; nondeterministic operations "
+          f"{gt['nondeterministic']}; {gt['steps']} steps in "
+          f"{gt['run_s']:.3f} s (step by step {gt['per_step_run_s']:.3f} "
+          f"s); stats {gt['stats']}; launches {gt['launches']}", flush=True)
+    print(f"graph train step: wall {gt['step_wall_ms']:.3f} ms, device "
+          f"{gt['step_device_ms']:.3f} ms (device idle "
+          f"{gt['device_idle']:.1%}), {gt['tokens_per_s']:.1f} tok/s "
+          f"(phase 5: wall {tr['step_wall_ms']:.3f}, device "
+          f"{tr['step_device_ms']:.3f}, idle {tr['device_idle']:.1%}); "
+          f"peak {gt['peak_less_reference_bytes']} B beside the step-by-step "
+          f"run's parameters ({gt['peak_bytes']} B with them; phase 5: "
+          f"{tr['peak_bytes']} B); "
+          f"by kernel:", flush=True)
+    for name, t in gt["step_kernels"]:
+        print(f"  {t:9.4f} ms  {name[:90]}")
+    print(f"distributed checkpoints (yi-6b x {TRAIN_LAYERS} layers, one "
+          f"NCCL rank, {CKPT_STEPS} steps): state {ck['state_bytes']} B "
+          f"(largest leaf {ck['largest_leaf_bytes']} B); resumed from step "
+          f"{ck['resumed_from']} bitwise the unbroken run (losses "
+          f"{', '.join(f'{x:.4f}' for x in ck['losses'])}); wrote "
+          f"{ck['bytes_written']} B in {ck['save_s']:.2f} s (checkpoint() "
+          f"returned in {ck['checkpoint_call_s'] * 1e3:.1f} ms), restored in "
+          f"{ck['restore_s']:.2f} s adding {ck['restore_added_bytes']} B on "
+          f"the device; {CKPT_CODEC} moments: "
+          f"{ck['codec_bytes_written']} B in {ck['codec_save_s']:.2f} s, "
+          f"restored in {ck['codec_restore_s']:.2f} s adding "
+          f"{ck['codec_restore_added_bytes']} B, the plain round trip "
+          f"bitwise, launches {ck['launches']}; scan_chunk={GRAPH_CHUNK} "
+          f"bitwise step by step, stats {ck['chunk_stats']}; free disk "
+          f"{ck['free_disk_bytes']} B", flush=True)
+
     out_dir = os.path.join(HERE, "results")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
@@ -3605,7 +4033,8 @@ def main() -> int:
                        wire_kernels=w_table, dist=ds,
                        encode_kernels=e_table, modes=md, wire_buffers=wb,
                        slice6_kernels=s_table, planted_faults=s_faults,
-                       alg1_baselines=bl, paper=pp),
+                       alg1_baselines=bl, paper=pp, train_graph=gt,
+                       dist_ckpt=ck),
                   fh, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

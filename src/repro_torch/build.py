@@ -46,7 +46,7 @@ SIGNATURES = {
     "rt_dequant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _P],
     # x, codes, scale, out, M, d, V, code_bits, k_x, x_bf16, w_bf16,
-    # cast_bf16, out_bf16, stream
+    # cast_bf16, m_tile, stream
     "rt_dequant_matmul_t": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, _P],
     # x, codes, scale, out, ws, M, K, N, code_bits, k_x, tile_n, k_slice,

@@ -29,8 +29,10 @@ with its own launch counter:
 K1t's ``"tc"`` (``t_launches_tc``) computes ``out.T = W x.T``: 16 code
 rows are the A operand of one MMA and up to 8 activation rows one n8 B
 tile, the codes streamed from device memory straight into registers;
-its ``"fma"`` (``t_launches_fma``) is the first K1t kernel, on CUDA
-cores. ``t_launches`` counts both.
+its ``"fma"`` (``t_launches_fma``) has the same structure with fp32 FMAs
+for the MMA: persistent warps over groups of code rows streamed into
+registers, x staged once a block in shared memory in 1-, 4- or 8-row
+tiles (:func:`t_fma_plan`). ``t_launches`` counts both.
 
 ``launches`` counts both K1 routes. A failure of any route raises; none
 falls back to the other or to the plain version. They cover every M, K,
@@ -233,6 +235,40 @@ def fma_plan(M: int, K: int, N: int, code_bits: int) -> K1Plan:
                   workspace=slices * M * N if slices > 1 else 0)
 
 
+# K1t on CUDA cores (csrc/dequant_matmul.cu, namespace ft): a block's
+# shared memory, and the tiles of activation rows it stages
+SMEM_BYTES = 232448       # a block's shared memory on sm_90
+T_FMA_M_TILES = (1, 4, 8)
+
+
+def t_fma_smem(d: int, code_bits: int, m_tile: int) -> int:
+    """Bytes of K1t's staged x on CUDA cores: d in chunks of four code
+    spans of a 16-byte vector's multiple (``tt::Span``), each span's
+    positions ``m_tile`` floats a slot, then 16 bytes of pad."""
+    span_bytes = {2: 16, 3: 48, 4: 32, 6: 48, 8: 32, 16: 32}[code_bits]
+    cs = span_bytes * 8 // code_bits          # codes a span
+    nchunks = -(-d // (4 * cs))
+    return 4 * 4 * nchunks * (cs * m_tile + 4)
+
+
+def t_fma_plan(M: int, d: int, code_bits: int) -> int:
+    """K1t's row tile on CUDA cores: 1 for one activation row, 4 up to
+    four, else 8 (a grid row per 8 more), or the largest smaller tile
+    whose staged x fits a block's shared memory. Each code byte is read
+    once per tile of rows."""
+    if code_bits not in TC_CODE_BITS or min(M, d) <= 0:
+        raise ValueError(f"no K1t CUDA-core plan for M={M} d={d} "
+                         f"{code_bits}-bit codes")
+    want = next((t for t in T_FMA_M_TILES if M <= t), T_FMA_M_TILES[-1])
+    for m_tile in reversed(T_FMA_M_TILES):
+        if m_tile <= want and t_fma_smem(d, code_bits, m_tile) <= SMEM_BYTES:
+            if -(-M // m_tile) > 65535:
+                break
+            return m_tile
+    raise ValueError(f"K1t on CUDA cores stages x in shared memory: d={d} "
+                     f"at M={M} does not fit {SMEM_BYTES} bytes a block")
+
+
 def _matmul_tc(x2, codes, scale, *, k_x, n, code_bits, out_dtype):
     """K1 on tensor cores (route "tc"), codes (K, n) int8/int16 or (K,
     payload) packed lanes of ``code_bits``."""
@@ -282,8 +318,6 @@ def _matmul_cuda(x2, codes, scale, *, k_x, n, pack_bits, w_dtype,
     rows = codes.shape[0]
     if transpose and K != n:
         raise ValueError(f"x width {K} != code row width {n}")
-    if transpose and M > 4 * 65535:
-        raise ValueError(f"{M} activation rows > {4 * 65535} (grid rows)")
     if x2.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"activation dtype {x2.dtype} not float32/bfloat16")
     if pack_bits:
@@ -319,18 +353,19 @@ def _matmul_cuda(x2, codes, scale, *, k_x, n, pack_bits, w_dtype,
              int(cast_dtype is not None
                  and _dtype(cast_dtype) == torch.bfloat16),
              int(out_dtype == torch.bfloat16), build.stream_ptr(x2.device))
+    if out_dtype != torch.float32:
+        raise ValueError(f"the CUDA-core route writes float32, not "
+                         f"{out_dtype}")
     if transpose:
+        m_tile = t_fma_plan(M, n, code_bits)
         out = torch.empty((M, rows), dtype=out_dtype, device=x2.device)
         err = lib.rt_dequant_matmul_t(
             build.ptr(x2), build.ptr(codes), build.ptr(scale),
-            build.ptr(out), M, n, rows, *flags)
+            build.ptr(out), M, n, rows, *flags[:5], m_tile, flags[6])
         build.check(err, "dequant_matmul_t")
         t_launches += 1
         t_launches_fma += 1
         return out
-    if out_dtype != torch.float32:
-        raise ValueError(f"the CUDA-core route writes float32, not "
-                         f"{out_dtype}")
     plan = fma_plan(M, K, n, code_bits)
     out = torch.empty((M, n), dtype=out_dtype, device=x2.device)
     ws = (torch.empty(plan.workspace, dtype=torch.float32, device=x2.device)

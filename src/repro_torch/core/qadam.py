@@ -81,6 +81,13 @@ class Optimizer(NamedTuple):
     init: Callable
     update: Callable
     forward_params: Callable
+    # hp_row(t) -> (alpha_t, beta, theta_t, eps) of step t: what
+    # ``update(grads, state, params, hp=None)`` turns into its (4,) device
+    # row when no ``hp`` is given; a K-step dispatch fills a static table
+    # from it and passes the rows (train.session)
+    hp_row: Optional[Callable] = None
+    stochastic: bool = False   # the update draws uniforms (TernGrad)
+    seed: int = 0              # keys the draws; checkpoints write it
 
 
 def _alpha_t(cfg: QAdamConfig, t: int) -> np.float32:
@@ -133,6 +140,9 @@ def qadam(cfg: QAdamConfig, seed: int = 0) -> Optimizer:
     gq = cfg.grad_quantizer()
     wq = cfg.weight_quantizer()
 
+    def hp_row(t):
+        return _alpha_t(cfg, t), cfg.beta, _theta_t(cfg, t), cfg.eps
+
     def forward_params(params, state=None):
         """Q_x(x_t), per tensor (one amax over a whole stacked leaf): the
         weights the gradient is sampled at (Assumption 3)."""
@@ -145,11 +155,10 @@ def qadam(cfg: QAdamConfig, seed: int = 0) -> Optimizer:
             return wq(p, backend=cfg.backend).to(p.dtype)
         return tree_map(leaf, params)
 
-    def update(grads, state: QAdamState, params=None):
+    def update(grads, state: QAdamState, params=None, hp=None):
         t = state.count + 1
-        dev = tree_leaves(grads)[0].device
-        hp = engine.hyperparams(_alpha_t(cfg, t), cfg.beta, _theta_t(cfg, t),
-                                cfg.eps, dev)
+        if hp is None:
+            hp = engine.hyperparams(*hp_row(t), tree_leaves(grads)[0].device)
         bk = cfg.backend
         draws = _leaf_draws(grads, seed, t, state.worker)
 
@@ -174,7 +183,8 @@ def qadam(cfg: QAdamConfig, seed: int = 0) -> Optimizer:
         return upd, state._replace(count=t)
 
     return Optimizer(init=_init_state, update=update,
-                     forward_params=forward_params)
+                     forward_params=forward_params, hp_row=hp_row,
+                     stochastic=gq.codec.stochastic, seed=seed)
 
 
 def _unquantized(params, state=None):
@@ -193,9 +203,14 @@ def ef_sgdm(alpha: float = 0.1, beta: float = 0.9,
     gq = get_quantizer(grad_q)
     cfg = QAdamConfig(alpha=alpha, beta=beta, schedule=schedule)
 
-    def update(grads, state: QAdamState, params=None):
+    def hp_row(t):
+        return _alpha_t(cfg, t), beta, 0.0, 0.0
+
+    def update(grads, state: QAdamState, params=None, hp=None):
         t = state.count + 1
-        a_t = float(_alpha_t(cfg, t))
+        if hp is None:
+            hp = engine.hyperparams(*hp_row(t), tree_leaves(grads)[0].device)
+        a_t = hp[0]
         draws = _leaf_draws(grads, seed, t, state.worker)
 
         def leaf(g, m, e):
@@ -210,7 +225,8 @@ def ef_sgdm(alpha: float = 0.1, beta: float = 0.9,
         return upd, state._replace(count=t)
 
     return Optimizer(init=_init_state, update=update,
-                     forward_params=_unquantized)
+                     forward_params=_unquantized, hp_row=hp_row,
+                     stochastic=gq.codec.stochastic, seed=seed)
 
 
 def terngrad_sgd(alpha: float = 0.1, schedule: str = "constant",
@@ -221,24 +237,43 @@ def terngrad_sgd(alpha: float = 0.1, schedule: str = "constant",
     gq = get_quantizer("terngrad")
     cfg = QAdamConfig(alpha=alpha, schedule=schedule)
 
-    def update(grads, state: QAdamState, params=None):
+    def hp_row(t):
+        return _alpha_t(cfg, t), 0.0, 0.0, 0.0
+
+    def update(grads, state: QAdamState, params=None, hp=None):
         t = state.count + 1
-        neg_a = -float(_alpha_t(cfg, t))
+        if hp is None:
+            hp = engine.hyperparams(*hp_row(t), tree_leaves(grads)[0].device)
+        a_t = hp[0]
         draws = _leaf_draws(grads, seed, t, state.worker)
 
         def leaf(g):
+            # -(Q(g) a_t) is Q(g) (-a_t) bit for bit
             return _quantize(gq, g.to(torch.float32), next(draws),
-                             backend).mul_(neg_a)
+                             backend).mul_(a_t).neg_()
 
         return tree_map(leaf, grads), state._replace(count=t)
 
     return Optimizer(init=_init_state, update=update,
-                     forward_params=_unquantized)
+                     forward_params=_unquantized, hp_row=hp_row,
+                     stochastic=True, seed=seed)
 
 
 def apply_updates(params, updates):
     return tree_map(lambda p, u: (p.to(torch.float32) + u).to(p.dtype),
                     params, updates)
+
+
+def apply_updates_(params, updates):
+    """:func:`apply_updates` in place: each leaf's p + u, rounded once to
+    its dtype, written over p (bitwise the same values; a float32 leaf
+    takes ``p.add_(u)``). Returns ``params``, whose tensors keep their
+    addresses (what a CUDA graph of the step needs)."""
+    def leaf(p, u):
+        if p.dtype == torch.float32:
+            return p.add_(u)
+        return p.copy_((p.to(torch.float32) + u).to(p.dtype))
+    return tree_map(leaf, params, updates)
 
 
 def wquan(params, k_x: int = 7, absolute: bool = True,

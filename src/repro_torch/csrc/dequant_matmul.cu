@@ -151,19 +151,31 @@
 // masked, x zero past d. Deterministic. d is limited by the staged x:
 // 16 NT bytes a value of d in shared memory (d up to ~14,500 at M <= 8).
 //
-// CUDA-core route, rt_dequant_matmul_t (the first K1t kernel): float32
+// CUDA-core route, rt_dequant_matmul_t (namespace ft): float32
 // activations or float32 weights (on tensor cores TF32, not the plain
-// version's product). Each warp owns kTRows consecutive code rows, and its
-// lanes stream them coalesced along d: int8 and int16 rows one 16-byte
-// vector a lane per load (16 or 8 codes), packed or misaligned rows one
-// packing group a lane per load; the loads of all kTRows rows are in
-// flight before any is used. x (one activation row, or a tile of 4) is
-// held in registers at the lane's columns of a chunk of d and reused
-// across the warp's kTRows rows. Each lane sums its columns in a fixed
-// order in fp32; the warp folds the 32 lane sums by a fixed xor
-// butterfly; one rounding to the output dtype. The weight each product
-// sees is bitwise the plain version's cast chain, as in K1. Ragged V, d
-// and M are masked.
+// version's product). Products are fp32 fmaf. At M = 4 the bytes of codes
+// bound it as the tensor-core route (0.177 ms at gemma2's head); a weight
+// costs the byte permute, subtract and multiply of tc::Deq plus M FMAs
+// and 1/R of a shared load of x: ~7.5 instructions at M = 4 against the
+// ~9 that 128 issue slots a clock allow at 14 int8 codes a clock an SM.
+// The first K1t kernel reached 43 % of the bound: a warp's lanes streamed
+// 4 rows along d, so gemma2's 2304-code rows were ~4.5 loads a lane, x was
+// read again from the cache for every 4 rows (4 bytes of x a code), and
+// each row paid a 5-step butterfly for each output. Now it takes the
+// tensor-core route's structure with FMAs for the MMA: blocks persistent
+// over groups of code rows, a thread's 32- or 48-byte span of R rows (4,
+// or 2 of 3- and 6-bit lanes) of a chunk streamed from device memory into
+// registers with the next chunk's loads in flight, x staged once a block
+// in shared memory in the span's order (MT = 1, 4 or 8 activation rows a
+// slot, one 16-byte shared load serving R rows), no barrier after the
+// staging, and a quad's 4 sums folded by a 2-step butterfly once a row.
+// Each output is summed in fp32 in an order fixed by d alone (a thread's
+// products 32 at a time from zero, each such sum added to its running sum
+// with one rounding, as the tensor-core routes order theirs); the weight
+// each product sees is bitwise the plain version's cast chain, as in K1.
+// Ragged V, d and M are masked (rows of no whole 16 bytes load byte by
+// byte); d is limited by the staged x (comm/matmul.py t_fma_plan: about
+// 7,000 at M > 4, 57,000 at M = 1).
 // Measured times of both routes: PERF.md section 6 (chip_smoke.py).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -182,29 +194,6 @@ using rt::ldsm_x4;
 using rt::mma_bf16;
 using rt::pack_bf16;
 
-// C: columns one thread owns (one 4-byte word of int8 / int16 codes, or
-// one packing group of a sub-8-bit lane); NB: bytes of a packed group.
-template <int BITS> struct Lane;
-template <> struct Lane<8>  { static constexpr int C = 4, NB = 4; };
-template <> struct Lane<16> { static constexpr int C = 2, NB = 4; };
-template <> struct Lane<2>  { static constexpr int C = 4, NB = 1; };
-template <> struct Lane<3>  { static constexpr int C = 8, NB = 3; };
-template <> struct Lane<4>  { static constexpr int C = 2, NB = 1; };
-template <> struct Lane<6>  { static constexpr int C = 4, NB = 3; };
-
-struct Args {
-  const void* x;
-  const uint8_t* codes;
-  const float* scale;
-  void* out;
-  int M, K, N;
-  long long row_bytes;  // bytes of one code row (K index)
-  float inv_pow2;       // 2^-k_x, exact
-  int w_bf16;           // leaf dtype is bf16: round the dequantized value
-  int cast_bf16;        // pending astype(bf16): round again
-  int vec;              // aligned word loads for int8 / int16 codes
-};
-
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -215,233 +204,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 }
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// The raw word holding columns n0 .. n0+C-1 of one code row; the caller
-// guarantees n0 < N. int8 / int16: little-endian lanes of the word, with
-// columns past N read as 0; packed: the NB bytes of one group.
-template <int BITS>
-__device__ __forceinline__ uint32_t load_raw(const uint8_t* __restrict__ row,
-                                             int n0, int N, int vec) {
-  if constexpr (BITS == 8 || BITS == 16) {
-    constexpr int W = BITS / 8;  // bytes per code
-    constexpr int C = Lane<BITS>::C;
-    if (vec) return __ldg(reinterpret_cast<const uint32_t*>(row + n0 * W));
-    uint32_t raw = 0;
-#pragma unroll
-    for (int j = 0; j < C; ++j)
-      if (n0 + j < N)
-#pragma unroll
-        for (int b = 0; b < W; ++b)
-          raw |= (uint32_t)__ldg(row + (n0 + j) * W + b) << (8 * (j * W + b));
-    return raw;
-  } else {
-    constexpr int C = Lane<BITS>::C, NB = Lane<BITS>::NB;
-    const uint8_t* g = row + (long long)(n0 / C) * NB;
-    uint32_t raw = 0;
-#pragma unroll
-    for (int b = 0; b < NB; ++b) raw |= (uint32_t)__ldg(g + b) << (8 * b);
-    return raw;
-  }
-}
-
-// Signed code j of a raw word (packed lanes are biased by 2^(BITS-1)).
-template <int BITS>
-__device__ __forceinline__ int code(uint32_t raw, int j) {
-  if constexpr (BITS == 8) return (int)(int8_t)(raw >> (8 * j));
-  else if constexpr (BITS == 16) return (int)(int16_t)(raw >> (16 * j));
-  else return (int)((raw >> (j * BITS)) & ((1u << BITS) - 1u)) - (1 << (BITS - 1));
-}
-
-// ---------------------------------------------------------------------------
-// K1t: out (M, V) = x (M, d) @ W.T, W (V, d) as code rows
-// ---------------------------------------------------------------------------
-
-constexpr int kTThreads = 256;
-constexpr int kTWarps = kTThreads / 32;
-constexpr int kTRows = 4;    // code rows (output columns) per warp
-constexpr int kTCols = 16;   // x columns a lane holds per chunk, per row
-
-// How a lane's columns of a chunk of d sit in a code row. VEC (int8 /
-// int16 rows whose 16-byte vectors are aligned): one 16-byte load of
-// COLS = 16 / W contiguous codes. Otherwise one packing group (a 4-byte
-// word of int8 / int16 codes, or NB bytes of a packed lane) per load,
-// the lane's U groups 32 groups apart, so a warp's load is coalesced.
-template <int BITS, bool VEC> struct TUnit;
-template <int BITS> struct TUnit<BITS, true> {
-  static_assert(BITS == 8 || BITS == 16, "vector loads of whole codes");
-  static constexpr int W = BITS / 8, COLS = 16 / W, WORDS = 4;
-  __device__ static int col(int lane, int i) { return lane * COLS + i; }
-  __device__ static int at(const uint32_t* raw, int i) {
-    if constexpr (BITS == 8) return (int)(int8_t)(raw[i / 4] >> (8 * (i % 4)));
-    else return (int)(int16_t)(raw[i / 2] >> (16 * (i % 2)));
-  }
-};
-template <int BITS> struct TUnit<BITS, false> {
-  static constexpr int C = Lane<BITS>::C, COLS = kTCols, WORDS = kTCols / C;
-  static_assert(kTCols % C == 0, "a lane holds whole groups");
-  __device__ static int col(int lane, int i) {
-    return ((i / C) * 32 + lane) * C + i % C;
-  }
-  __device__ static int at(const uint32_t* raw, int i) {
-    return code<BITS>(raw[i / C], i % C);
-  }
-};
-
-// x[0 .. n) as floats, n a multiple of 16 bytes' worth, p 16-byte aligned
-template <typename XT, int N>
-__device__ __forceinline__ void load_x_vec(const XT* __restrict__ p,
-                                           float* out) {
-  constexpr int PER = 16 / (int)sizeof(XT);
-  static_assert(N % PER == 0, "whole vectors");
-#pragma unroll
-  for (int v = 0; v < N / PER; ++v) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + v);
-    const XT* e = reinterpret_cast<const XT*>(&u);
-#pragma unroll
-    for (int j = 0; j < PER; ++j) out[v * PER + j] = to_f32(e[j]);
-  }
-}
-
-// a.K = d (the contracted width, codes per row), a.N = V (code rows).
-// A chunk is 32 * COLS columns of d; each lane holds x at its COLS
-// columns of the chunk for every activation row in registers, so x is
-// read once per chunk for all kTRows code rows of the warp.
-template <int BITS, bool VEC, int TM, typename XT, typename OT>
-__global__ void __launch_bounds__(kTThreads)
-dequant_matmul_t_kernel(const Args a) {
-  using T = TUnit<BITS, VEC>;
-  constexpr int COLS = T::COLS, CW = 32 * COLS;
-
-  const XT* __restrict__ x = static_cast<const XT*>(a.x);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int m0 = blockIdx.y * TM;
-  const int mrows = min(TM, a.M - m0);
-  const long long v0 =
-      ((long long)blockIdx.x * kTWarps + warp) * kTRows;
-  if (v0 >= a.N) return;  // no barrier below: whole warps may leave
-  const float s = __ldg(a.scale);
-  // (c * 2^-k) * s == c * (2^-k * s) bit for bit while 2^-k * s is a
-  // normal float (both round the same exact product once); rounding to
-  // bf16 twice is rounding once (the leaf's bf16, then the cast's)
-  const float s2 = s * a.inv_pow2;
-  const bool fold = fabsf(s2) >= 1.17549435e-38f;
-  const bool rb = a.w_bf16 || a.cast_bf16;
-
-  float acc[kTRows][TM];
-#pragma unroll
-  for (int i = 0; i < kTRows; ++i)
-#pragma unroll
-    for (int r = 0; r < TM; ++r) acc[i][r] = 0.0f;
-
-  for (int k0 = 0; k0 < a.K; k0 += CW) {
-    uint32_t raw[kTRows][T::WORDS];
-#pragma unroll
-    for (int i = 0; i < kTRows; ++i) {  // all loads first, then the math
-      const uint8_t* row = a.codes + (v0 + i) * a.row_bytes;
-      const bool live = v0 + i < a.N;
-      if constexpr (VEC) {
-        const int c0 = k0 + lane * COLS;
-        uint4 u = make_uint4(0u, 0u, 0u, 0u);
-        if (live && c0 < a.K)
-          u = __ldg(reinterpret_cast<const uint4*>(row + c0 * T::W));
-        raw[i][0] = u.x; raw[i][1] = u.y; raw[i][2] = u.z; raw[i][3] = u.w;
-      } else {
-#pragma unroll
-        for (int g = 0; g < T::WORDS; ++g) {
-          const int c0 = k0 + T::col(lane, g * T::C);
-          raw[i][g] = (live && c0 < a.K)
-              ? load_raw<BITS>(row, c0, a.K, a.vec) : 0u;
-        }
-      }
-    }
-    float xr[TM][COLS];
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const XT* xrow = x + (long long)(m0 + r) * a.K + k0;
-      if constexpr (VEC) {
-        if (r < mrows && k0 + lane * COLS < a.K)
-          load_x_vec<XT, COLS>(xrow + lane * COLS, xr[r]);
-        else
-#pragma unroll
-          for (int i = 0; i < COLS; ++i) xr[r][i] = 0.0f;
-      } else {
-#pragma unroll
-        for (int i = 0; i < COLS; ++i) {
-          const int col = T::col(lane, i);
-          xr[r][i] = (r < mrows && k0 + col < a.K) ? to_f32(xrow[col])
-                                                    : 0.0f;
-        }
-      }
-    }
-    // a vector lies wholly inside d or wholly past it
-    if (VEC && k0 + lane * COLS >= a.K) continue;
-#pragma unroll
-    for (int i = 0; i < kTRows; ++i)
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        if (VEC || k0 + T::col(lane, j) < a.K) {
-          float w = fold ? (float)T::at(raw[i], j) * s2
-                         : ((float)T::at(raw[i], j) * a.inv_pow2) * s;
-          if (rb) w = round_bf16(w);
-#pragma unroll
-          for (int r = 0; r < TM; ++r)
-            acc[i][r] = fmaf(xr[r][j], w, acc[i][r]);
-        }
-      }
-  }
-
-  // fold the 32 lane sums of each output by a fixed xor butterfly (every
-  // lane ends with the same bits); lane 0 writes
-  OT* __restrict__ out = static_cast<OT*>(a.out);
-#pragma unroll
-  for (int i = 0; i < kTRows; ++i) {
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      float v = acc[i][r];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      const long long col = v0 + i;
-      if (lane == 0 && r < mrows && col < a.N)
-        store(out + (long long)(m0 + r) * a.N + col, v);
-    }
-  }
-}
-
-template <int BITS, bool VEC, int TM, typename XT, typename OT>
-int launch_t(const Args& a, cudaStream_t stream) {
-  const long long per_block = (long long)kTWarps * kTRows;
-  dim3 grid((unsigned)((a.N + per_block - 1) / per_block),
-            (a.M + TM - 1) / TM);
-  dequant_matmul_t_kernel<BITS, VEC, TM, XT, OT>
-      <<<grid, kTThreads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// vec16: int8 / int16 rows and x whose 16-byte vectors are aligned; one
-// activation row gets its own instance (M = 1: the last position of a
-// chunk, one slot)
-template <int BITS, typename XT, typename OT>
-int launch_t_tile(const Args& a, int vec16, cudaStream_t stream) {
-  if constexpr (BITS == 8 || BITS == 16) {
-    if (vec16)
-      return a.M == 1 ? launch_t<BITS, true, 1, XT, OT>(a, stream)
-                      : launch_t<BITS, true, 4, XT, OT>(a, stream);
-  }
-  return launch_t<BITS, false, 4, XT, OT>(a, stream);
-}
-
-// float32 activations, or bf16 activations against a float32 weight
-// (float32 out); a bf16 weight takes the tensor-core route
-template <int BITS>
-int launch_t_types(const Args& a, int vec16, int x_bf16, int out_bf16,
-                   cudaStream_t stream) {
-  if (!x_bf16 && !out_bf16)
-    return launch_t_tile<BITS, float, float>(a, vec16, stream);
-  if (x_bf16 && !out_bf16)
-    return launch_t_tile<BITS, __nv_bfloat16, float>(a, vec16, stream);
-  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -1463,6 +1225,298 @@ int launch_vec(const TTArgs& a, cudaStream_t stream) {
 
 }  // namespace tt
 
+// ---------------------------------------------------------------------------
+// K1t on CUDA cores: out (M, V) = x (M, d) @ W.T in float32 products
+// (fmaf), every code type
+// ---------------------------------------------------------------------------
+
+namespace ft {
+
+using tc::Deq;
+using tt::Span;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+
+// code rows a thread holds: 4 of 32-byte spans (int8, int16, 4-bit lanes)
+// or 16-byte ones (2-bit), 2 of the 48-byte spans of 3- and 6-bit lanes;
+// a warp's 8 row groups g hold rows g, g + 8, ..., so a warp walks 8 R
+// consecutive rows
+template <int BITS>
+struct Rows {
+  static constexpr int R = Span<BITS>::V16 <= 2 ? 4 : 2;
+};
+
+struct FTArgs {
+  const void* x;
+  const uint8_t* codes;
+  const float* scale;
+  float* out;
+  int M, d, V;
+  long long row_bytes;  // bytes of one code row: d codes of BITS bits
+  int nchunks;          // chunks of d, the last one ragged
+  int k_x;
+  float inv_pow2;
+  int x_bf16;           // bf16 activations (against a float32 weight)
+};
+
+// The staged x: span j = 4 c + t of chunk c holds the MT activation rows'
+// values at the CS positions thread t of a quad multiplies, in the order
+// its k steps take them (slot 4 s + e: position c CHUNK + t CS + pos(s,
+// e)), MT floats a slot, then 16 bytes of pad, so that the four spans a
+// warp reads at once start 4 banks apart.
+template <int BITS, int MT>
+struct XLayout {
+  static constexpr int SPAN = Span<BITS>::CS * MT + 4;   // floats
+  __host__ __device__ static long long floats(int nchunks) {
+    return 4LL * nchunks * SPAN;
+  }
+};
+
+// Block: persistent over groups of 8 R code rows (one group a warp at a
+// time), one tile of MT activation rows. x's rows are staged once a block
+// as floats (zeros past M and past d), then each warp streams its code
+// rows straight from device memory into registers (16-byte ld.global.nc,
+// the next chunk's loads in flight while this one is multiplied) with no
+// barrier after the staging. Thread (g, t) makes the weights of its span
+// of rows g + 8 i (tc::Deq, the plain version's cast chain bit for bit)
+// and sums R x MT outputs over its span positions in k-step order (32
+// products from zero, then into the running sum), each
+// x value (MT rows, one shared load) reused by its R rows; at a group's
+// last chunk the quad's four sums fold by a fixed xor butterfly (every
+// lane ends with the same bits) and the lanes share the stores. The
+// order of every sum depends on d alone. RBF: the weight is rounded to
+// bf16 (a bf16 leaf or a pending cast).
+template <int BITS, int MT, bool VEC, bool RBF>
+__global__ void __launch_bounds__(kThreads, MT <= 4 ? 2 : 1)
+k1t_fma_kernel(const FTArgs a) {
+  using S = Span<BITS>;
+  using XL = XLayout<BITS, MT>;
+  constexpr int V16 = S::V16, R = Rows<BITS>::R;
+  extern __shared__ __align__(16) float xs[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.y * MT;
+  const int mrows = min(MT, a.M - m0);
+  const long long groups = (a.V + 8 * R - 1) / (8 * R);
+  const long long gstride = (long long)gridDim.x * kWarps;
+  long long grp = (long long)blockIdx.x * kWarps + warp;
+
+  // the 16-byte vectors of the thread's span of its R rows in chunk c
+  auto load = [&](uint4 (&r)[R][V16], long long gi, int c) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const long long v = gi * 8 * R + 8 * i + g;
+      const uint8_t* row = a.codes + v * a.row_bytes;
+      const long long at0 = (long long)c * 4 * S::BYTES + t * S::BYTES;
+#pragma unroll
+      for (int u = 0; u < V16; ++u) {
+        const long long at = at0 + 16 * u;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if constexpr (VEC) {
+          if (v < a.V && at < a.row_bytes)
+            val = __ldg(reinterpret_cast<const uint4*>(row + at));
+        } else if (v < a.V) {
+          uint32_t wv[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+          for (int e = 0; e < 16; ++e)
+            if (at + e < a.row_bytes)
+              wv[e / 4] |= (uint32_t)__ldg(row + at + e) << (8 * (e % 4));
+          val = make_uint4(wv[0], wv[1], wv[2], wv[3]);
+        }
+        r[i][u] = val;
+      }
+    }
+  };
+
+  uint4 raw[R][V16], nxt[R][V16];
+  if (grp < groups) load(raw, grp, 0);   // in flight while x is staged
+
+  const float* __restrict__ xf = static_cast<const float*>(a.x);
+  const __nv_bfloat16* __restrict__ xh =
+      static_cast<const __nv_bfloat16*>(a.x);
+  const int nslots = a.nchunks * S::CHUNK;
+#pragma unroll 4
+  for (int i = tid; i < nslots; i += kThreads) {
+    const int c = i / S::CHUNK, j = (i % S::CHUNK) / S::CS;
+    const int k = i % S::CS, s = k / 4, e = k % 4;
+    const int p = c * S::CHUNK + j * S::CS + S::pos(s, e);
+    float* dst = xs + (long long)(4 * c + j) * XL::SPAN + k * MT;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const long long at = (long long)(m0 + m) * a.d + p;
+      dst[m] = m < mrows && p < a.d
+          ? (a.x_bf16 ? __bfloat162float(xh[at]) : xf[at]) : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  Deq q;
+  q.hi = (uint32_t)(150 - a.k_x) << 7;
+  q.hi32 = (uint32_t)(150 - a.k_x) << 23;
+  q.base = (8388608.0f + (BITS == 8    ? 128.0f
+                          : BITS == 16 ? 32768.0f
+                                       : (float)(1 << (BITS - 1)))) *
+           a.inv_pow2;
+  q.s = __ldg(a.scale);
+
+  float acc[R][MT];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int m = 0; m < MT; ++m) acc[i][m] = 0.0f;
+
+  int c = 0;
+  while (grp < groups) {
+    long long ngrp = grp;
+    int nc = c + 1;
+    if (nc == a.nchunks) { nc = 0; ngrp += gstride; }
+    if (ngrp < groups) load(nxt, ngrp, nc);
+
+    const float* xk = xs + (long long)(4 * c + t) * XL::SPAN;
+    // 32 products of an output (PB k steps) summed from zero, then added
+    // to the running sum with one rounding: the running sum's error does
+    // not grow with each product (the tensor-core route's order)
+    constexpr int PB = S::KS < 8 ? S::KS : 8;
+#pragma unroll
+    for (int s0 = 0; s0 < S::KS; s0 += PB) {
+      float part[R][MT];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int m = 0; m < MT; ++m) part[i][m] = 0.0f;
+#pragma unroll
+      for (int s = s0; s < s0 + PB; ++s) {
+        float w[R][4];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          tt::weights<BITS>(raw[i], s, q, w[i]);
+          if constexpr (RBF) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) w[i][e] = round_bf16(w[i][e]);
+          }
+        }
+        if constexpr (MT == 1) {
+          const float4 xv = *reinterpret_cast<const float4*>(xk + 4 * s);
+          const float xe[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int i = 0; i < R; ++i)
+              part[i][0] = fmaf(xe[e], w[i][e], part[i][0]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float xe[MT];
+#pragma unroll
+            for (int h = 0; h < MT / 4; ++h) {
+              const float4 xv = *reinterpret_cast<const float4*>(
+                  xk + (4 * s + e) * MT + 4 * h);
+              xe[4 * h] = xv.x; xe[4 * h + 1] = xv.y;
+              xe[4 * h + 2] = xv.z; xe[4 * h + 3] = xv.w;
+            }
+#pragma unroll
+            for (int i = 0; i < R; ++i)
+#pragma unroll
+              for (int m = 0; m < MT; ++m)
+                part[i][m] = fmaf(xe[m], w[i][e], part[i][m]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int m = 0; m < MT; ++m) acc[i][m] += part[i][m];
+    }
+
+    if (c == a.nchunks - 1) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const long long v = grp * 8 * R + 8 * i + g;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          float sum = acc[i][m];
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          acc[i][m] = 0.0f;
+          if (m % 4 == t && m < mrows && v < a.V)
+            a.out[(long long)(m0 + m) * a.V + v] = sum;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int u = 0; u < V16; ++u) raw[i][u] = nxt[i][u];
+    grp = ngrp;
+    c = nc;
+  }
+}
+
+template <int BITS, int MT, bool VEC, bool RBF>
+int launch(FTArgs a, cudaStream_t stream) {
+  using S = Span<BITS>;
+  a.nchunks = (a.d + S::CHUNK - 1) / S::CHUNK;
+  const long long smem = 4 * XLayout<BITS, MT>::floats(a.nchunks);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  // per instance: the shared-memory cap, the SM count, and the blocks an
+  // SM holds at the last shared-memory size
+  static int sized = 48 * 1024, sms = 0, occ_smem = -1, per_sm = 0;
+  auto kernel = k1t_fma_kernel<BITS, MT, VEC, RBF>;
+  cudaError_t err = cudaSuccess;
+  if (smem > sized) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    sized = (int)smem;
+  }
+  if (!sms) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (smem != occ_smem) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    occ_smem = (int)smem;
+  }
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long groups = (a.V + 8 * Rows<BITS>::R - 1) / (8 * Rows<BITS>::R);
+  const long long blocks = std::min<long long>((groups + kWarps - 1) / kWarps,
+                                               (long long)sms * per_sm);
+  dim3 grid((unsigned)blocks, (a.M + MT - 1) / MT);
+  kernel<<<grid, kThreads, (size_t)smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int BITS, int MT, bool VEC>
+int launch_types(const FTArgs& a, int rbf, cudaStream_t stream) {
+  return rbf ? launch<BITS, MT, VEC, true>(a, stream)
+             : launch<BITS, MT, VEC, false>(a, stream);
+}
+
+// a bf16 weight against bf16 activations takes the tensor cores
+template <int BITS>
+int launch_m(const FTArgs& a, int m_tile, int rbf, cudaStream_t stream) {
+  if (a.x_bf16 && rbf) return (int)cudaErrorInvalidValue;
+  const bool vec = a.row_bytes % 16 == 0 && (uintptr_t)a.codes % 16 == 0;
+  switch (m_tile * 2 + (int)vec) {
+    case 2: return launch_types<BITS, 1, false>(a, rbf, stream);
+    case 3: return launch_types<BITS, 1, true>(a, rbf, stream);
+    case 8: return launch_types<BITS, 4, false>(a, rbf, stream);
+    case 9: return launch_types<BITS, 4, true>(a, rbf, stream);
+    case 16: return launch_types<BITS, 8, false>(a, rbf, stream);
+    case 17: return launch_types<BITS, 8, true>(a, rbf, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace ft
+
 }  // namespace
 
 // K1 on CUDA cores. x (M, K) float32 (or bf16 against a float32
@@ -1519,49 +1573,47 @@ extern "C" int rt_dequant_matmul(const void* x, const void* codes,
   }
 }
 
-// x (M, d), codes (V, row bytes of d codes), out (M, V)
+// K1t on CUDA cores. x (M, d) float32 (or bf16 against a float32
+// weight); codes (V, row bytes of d codes): int8 (code_bits 8), int16 (16)
+// or packed 2/3/4/6-bit lanes; out (M, V) float32. m_tile (1, 4 or 8):
+// activation rows a block; the wrapper's plan (comm/matmul.py
+// t_fma_plan) picks it so that the staged x fits shared memory. w_bf16 /
+// cast_bf16: the weight is rounded to bf16 (once: rounding to bf16 twice
+// is rounding once).
 extern "C" int rt_dequant_matmul_t(const void* x, const void* codes,
                                    const void* scale, void* out, int M, int d,
                                    int V, int code_bits, int k_x, int x_bf16,
-                                   int w_bf16, int cast_bf16, int out_bf16,
+                                   int w_bf16, int cast_bf16, int m_tile,
                                    void* stream) {
-  Args a;
+  if (M <= 0 || d <= 0 || V <= 0 || k_x < 0 || k_x > 14 ||
+      (m_tile != 1 && m_tile != 4 && m_tile != 8) ||
+      (M + m_tile - 1) / m_tile > 65535)
+    return (int)cudaErrorInvalidValue;
+  ft::FTArgs a;
   a.x = x;
   a.codes = static_cast<const uint8_t*>(codes);
   a.scale = static_cast<const float*>(scale);
-  a.out = out;
-  a.M = M; a.K = d; a.N = V;
+  a.out = static_cast<float*>(out);
+  a.M = M; a.d = d; a.V = V;
+  a.k_x = k_x;
   a.inv_pow2 = 1.0f / (float)(1 << k_x);
-  a.w_bf16 = w_bf16;
-  a.cast_bf16 = cast_bf16;
-  a.vec = 0;
+  a.x_bf16 = x_bf16;
+  const int rbf = w_bf16 || cast_bf16;
   cudaStream_t s = (cudaStream_t)stream;
-  const bool aligned = (uintptr_t)codes % 16 == 0 && (uintptr_t)x % 16 == 0;
   switch (code_bits) {
-    case 8:
-      a.row_bytes = d;
-      a.vec = (d % 4 == 0) && ((uintptr_t)codes % 4 == 0);
-      return launch_t_types<8>(a, aligned && d % 16 == 0, x_bf16, out_bf16,
-                               s);
-    case 16:
-      a.row_bytes = 2LL * d;
-      a.vec = (d % 2 == 0) && ((uintptr_t)codes % 4 == 0);
-      return launch_t_types<16>(a, aligned && d % 8 == 0, x_bf16, out_bf16,
-                                s);
-    case 2:
-      a.row_bytes = (long long)((d + 3) / 4) * 1;
-      return launch_t_types<2>(a, 0, x_bf16, out_bf16, s);
-    case 3:
-      a.row_bytes = (long long)((d + 7) / 8) * 3;
-      return launch_t_types<3>(a, 0, x_bf16, out_bf16, s);
-    case 4:
-      a.row_bytes = (long long)((d + 1) / 2) * 1;
-      return launch_t_types<4>(a, 0, x_bf16, out_bf16, s);
-    case 6:
-      a.row_bytes = (long long)((d + 3) / 4) * 3;
-      return launch_t_types<6>(a, 0, x_bf16, out_bf16, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 16: a.row_bytes = 2LL * d;
+             return ft::launch_m<16>(a, m_tile, rbf, s);
+    case 8: a.row_bytes = d;
+            return ft::launch_m<8>(a, m_tile, rbf, s);
+    case 6: a.row_bytes = (long long)((d + 3) / 4) * 3;
+            return ft::launch_m<6>(a, m_tile, rbf, s);
+    case 4: a.row_bytes = (long long)((d + 1) / 2);
+            return ft::launch_m<4>(a, m_tile, rbf, s);
+    case 3: a.row_bytes = (long long)((d + 7) / 8) * 3;
+            return ft::launch_m<3>(a, m_tile, rbf, s);
+    case 2: a.row_bytes = (long long)((d + 3) / 4);
+            return ft::launch_m<2>(a, m_tile, rbf, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

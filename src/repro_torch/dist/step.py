@@ -121,6 +121,11 @@ class StepArtifacts(NamedTuple):
     broadcast: Callable        # state -> [Q_x(x_t) leaf, ...]
     loss_and_grads: Callable   # (xs, batch) -> (global loss, [grad, ...])
     update: Callable           # (state, grads) -> state
+    # hp_row(t) -> (alpha_t, beta, theta_t, eps) of step t: what
+    # ``update`` and ``step_fn`` turn into their (4,) device row when no
+    # ``hp`` is given (a K-step dispatch fills a static table from it and
+    # passes the rows)
+    hp_row: Optional[Callable] = None
 
 
 def weight_wire_codec(tc: TrainConfig, numel: int):
@@ -183,6 +188,9 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
 
     def state_x(meta):     # the length of a leaf's m, v and e
         return meta.c if mode.chunk_sharded_moments else meta.numel
+
+    def hp_row(t):
+        return _alpha_t(qcfg, t), tc.beta, _theta_t(qcfg, t), tc.eps
 
     # ---------------- init ----------------
     def init_state(seed: int = 0, device="cuda"):
@@ -260,17 +268,19 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
         dist.all_reduce(sn, group=group)
         return sn[0] / sn[1], grads
 
-    def update(state, grads, mark: Optional[Callable] = None):
+    def update(state, grads, mark: Optional[Callable] = None, hp=None):
         """3+4. per-worker update and the mode's exchange, leaf by leaf,
         into the state's tensors; consumes ``grads`` (each entry freed
         after use). ``mark(name)``, when given, is called at the end of
-        each leaf's "update_exchange" and "master_update"."""
+        each leaf's "update_exchange" and "master_update". ``hp``: the
+        step's (4,) device row of ``hp_row(count + 1)``, made here when
+        not given."""
         masters = flat(state["master"])
         ms, vs, es = (flat(state[k]) for k in ("m", "v", "e"))
         t = state["count"] + 1
         dev = masters[0].device
-        hp = engine.hyperparams(_alpha_t(qcfg, t), tc.beta,
-                                _theta_t(qcfg, t), tc.eps, dev)
+        if hp is None:
+            hp = engine.hyperparams(*hp_row(t), dev)
         for i, meta in enumerate(metas_flat):
             g = grads[i]
             grads[i] = None
@@ -284,9 +294,10 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
             del g
         return dict(state, count=t)
 
-    def step_fn(state, batch, mark: Optional[Callable] = None):
+    def step_fn(state, batch, mark: Optional[Callable] = None, hp=None):
         """One step; ``mark(name)`` (optional) is called at the end of
-        "broadcast" and "forward_backward" and within ``update``."""
+        "broadcast" and "forward_backward" and within ``update``; ``hp``
+        as in ``update``."""
         xs = broadcast(state)
         if mark:
             mark("broadcast")
@@ -294,10 +305,10 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
         del xs
         if mark:
             mark("forward_backward")
-        return update(state, grads, mark), {"loss": loss}
+        return update(state, grads, mark, hp), {"loss": loss}
 
     return StepArtifacts(init_state=init_state, step_fn=step_fn,
                          layout=layout, n_workers=n_workers, rank=rank,
                          group=group, config=tc, tiers=tiers,
                          broadcast=broadcast, loss_and_grads=loss_and_grads,
-                         update=update)
+                         update=update, hp_row=hp_row)

@@ -22,10 +22,24 @@ Adam), ``efadam`` (two-way EF), ``terngrad``, ``ef_sgd``, e.g.
   python -m repro_torch.launch.train --arch yi-6b --smoke --device cpu \
       --mode terngrad --grad-bits 0 --weight-bits 0 --alpha 0.02 --steps 5
 
-The ``adaptive`` mode, hierarchical topologies, a model axis, scan
-chunks, checkpoints and resume, bucket tuning and AOT artifacts are not
-ported yet (ROADMAP.md queue 1): their flags raise
-``NotImplementedError``.
+``--steps`` is the total step budget: with ``--resume`` the session
+restores the newest checkpoint under ``--ckpt-dir`` (state, step count
+and data-stream position: bitwise an unbroken run) and runs only the
+steps left. ``--ckpt-every N`` writes a checkpoint every N steps (keep
+the newest ``--ckpt-keep``; ``--ckpt-codec uniform_amax:7`` stores the
+moments as wire codes), e.g.
+
+  python -m repro_torch.launch.train --arch yi-6b --smoke --device cpu \
+      --steps 6 --seq 32 --global-batch 4 --ckpt-dir /tmp/ck \
+      --ckpt-every 2 --resume
+
+``--scan-chunk K`` runs K steps a dispatch: one CUDA-graph replay on the
+card, a loop on the CPU (the log and checkpoint cadences are multiples
+of K).
+
+The ``adaptive`` mode, hierarchical topologies, a model axis, bucket
+tuning and AOT artifacts are not ported yet (ROADMAP.md queue 1): their
+flags raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,9 +49,7 @@ import json
 # flags of the reference that the port does not run yet, with the value
 # that leaves them off
 NOT_PORTED = {"model": 1, "pod": 0, "topology": None, "model_gather_quant": 0,
-              "scan_chunk": 1, "ckpt_dir": None, "ckpt_every": 0,
-              "resume": False, "tune_buckets": False, "aot_dir": None,
-              "adaptive": False}
+              "tune_buckets": False, "aot_dir": None, "adaptive": False}
 
 
 def parse_args(argv=None):
@@ -64,9 +76,21 @@ def parse_args(argv=None):
     ap.add_argument("--mode", default="qadam",
                     choices=["qadam", "efadam", "dp_adam", "terngrad",
                              "ef_sgd", "adaptive"])
+    ap.add_argument("--scan-chunk", type=int, default=1,
+                    help=">1: this many steps a dispatch (a CUDA graph on "
+                         "the card)")
     ap.add_argument("--prefetch", type=int, default=2,
                     help="batches staged to the device ahead (0 = inline)")
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--ckpt-keep", type=int, default=3,
+                    help="versioned checkpoints kept (keep-last-N)")
+    ap.add_argument("--ckpt-codec", default=None,
+                    help="repro_torch.comm codec spec for compressed "
+                         "moment snapshots, e.g. uniform_amax:7 (lossy)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest checkpoint under --ckpt-dir")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--history-out", default=None)
     ap.add_argument("--device", default="cuda")
@@ -75,14 +99,12 @@ def parse_args(argv=None):
     ap.add_argument("--pod", type=int, default=0)
     ap.add_argument("--topology", default=None)
     ap.add_argument("--model-gather-quant", type=int, default=0)
-    ap.add_argument("--scan-chunk", type=int, default=1)
-    ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--ckpt-every", type=int, default=0)
-    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--tune-buckets", action="store_true")
     ap.add_argument("--aot-dir", default=None)
     ap.add_argument("--adaptive", action="store_true")
     args = ap.parse_args(argv)
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume requires --ckpt-dir")
     for name, off in NOT_PORTED.items():
         if getattr(args, name) != off:
             raise NotImplementedError(
@@ -130,13 +152,26 @@ def main(argv=None):
                   f"broadcast={comm['weight_broadcast_bytes'] / 1e6:.2f}MB")
         batches = batch_for_model(cfg, args.seq, args.global_batch,
                                   seed=args.seed)
-        sc = SessionConfig(log_every=args.log_every, prefetch=args.prefetch)
+        sc = SessionConfig(log_every=args.log_every,
+                           ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
+                           ckpt_keep=args.ckpt_keep,
+                           ckpt_codec=args.ckpt_codec,
+                           scan_chunk=args.scan_chunk, prefetch=args.prefetch)
         sess = TrainSession.from_artifacts(
             art, batches, sc, seed=args.seed,
             device=rank_device(args.device),
             log=print if lead else (lambda *_: None))
         try:
-            sess.run(args.steps)
+            start = sess.resume(args.ckpt_dir) if args.resume else 0
+            if start and lead:
+                print(f"resumed from step {start} ({args.ckpt_dir})")
+            remaining = args.steps - start
+            if remaining <= 0:
+                if lead:
+                    print(f"nothing to do: checkpoint at step {start} >= "
+                          f"--steps {args.steps}")
+                return
+            sess.run(remaining)
             losses = [h for h in sess.history if "loss" in h]
             if not losses:   # --log-every 0: nothing harvested in the run
                 losses = [{"step": s, "loss": v}

@@ -95,13 +95,44 @@ def quantize_blockwise(x: torch.Tensor, block: int = 256,
 # Adam+EF update core (Algorithm 1 lines 3-6)
 # ---------------------------------------------------------------------------
 
+def _host_rows(rows) -> torch.Tensor:
+    """Rows of [alpha_t, beta, theta_t, eps], each value rounded once to
+    float32 on the host."""
+    return torch.from_numpy(np.array(rows, dtype=np.float32))
+
+
+class HyperparamTable:
+    """A static (K, 4) float32 table of [alpha_t, beta, theta_t, eps] rows
+    on the device, for K steps in one dispatch: the host fills the rows
+    of the next steps before the dispatch (a non-blocking copy from
+    pinned memory on the current stream, outside any graph), and step i
+    of the dispatch is given ``table[i]`` as its ``hp``. A CUDA graph of
+    the K steps captures the rows' addresses, never their values, so
+    each replay reads the values the host filled for it."""
+
+    def __init__(self, k: int, device):
+        self.device = torch.device(device)
+        self.table = torch.zeros((k, 4), dtype=torch.float32,
+                                 device=self.device)
+
+    def fill(self, rows) -> None:
+        """Rows 0 .. len(rows)-1 from the host, the same float32 roundings
+        as :func:`hyperparams`."""
+        hp = _host_rows(rows)
+        if self.device.type == "cuda":
+            hp = hp.pin_memory()
+        self.table[:len(rows)].copy_(hp, non_blocking=True)
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return self.table[i]
+
+
 def hyperparams(alpha_t, beta, theta_t, eps, device) -> torch.Tensor:
     """The (4,) float32 tensor [alpha_t, beta, theta_t, eps] on
     ``device``, each value rounded once to float32 on the host. On a GPU
     the copy is staged through pinned memory and does not wait for the
     device."""
-    hp = torch.from_numpy(np.array([alpha_t, beta, theta_t, eps],
-                                   dtype=np.float32))
+    hp = _host_rows([alpha_t, beta, theta_t, eps])
     device = torch.device(device)
     if device.type == "cuda":
         return hp.pin_memory().to(device, non_blocking=True)

@@ -126,13 +126,25 @@ def log_dequant_table(k_g: int, bits: int) -> np.ndarray:
     return np.asarray(vals, dtype=np.float32)
 
 
+_log_tables = {}   # (k_g, device) -> the lane table on that device
+
+
+def _log_table_on(k_g: int, device) -> torch.Tensor:
+    """:func:`log_dequant_table` on ``device``, copied there once."""
+    key = (k_g, str(device))
+    if key not in _log_tables:
+        bits = B.lane_bits_for(k_g + 1)
+        _log_tables[key] = torch.from_numpy(
+            log_dequant_table(k_g, bits)).to(device)
+    return _log_tables[key]
+
+
 def log_dequantize(codes: torch.Tensor, scale, k_g: int) -> torch.Tensor:
     """``table[c] * scale`` in float32: the reference's
     ``sign(c) * 2^(|c|-k_g-1) * scale``, which multiplies the exact
     signed power of two by the scale once. Codes must lie in the k_g
     grid's lane (every quantizer output does); others clip to its ends."""
-    bits = B.lane_bits_for(k_g + 1)
-    table = torch.from_numpy(log_dequant_table(k_g, bits)).to(codes.device)
+    table = _log_table_on(k_g, codes.device)
     half = table.shape[0] // 2
     idx = torch.clamp(codes.to(torch.int64) + half, 0, 2 * half - 1)
     s = torch.as_tensor(scale, dtype=torch.float32, device=codes.device)

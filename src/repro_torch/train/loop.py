@@ -1,13 +1,34 @@
-"""Communication accounting of the distributed step (port of
-``repro/train/loop.py`` ``comm_bytes_per_step``; the loop itself is
-``repro_torch.train.session.TrainSession``)."""
+"""The training loop's compat surface and the communication accounting
+(port of ``repro/train/loop.py``).
+
+The loop itself is ``repro_torch.train.session.TrainSession`` (prefetch,
+device-resident losses, checkpoints, resume, scan chunks); ``train()`` is
+the reference's thin shim over one session run. ``comm_bytes_per_step``
+(the paper's 'Comm' column) is loop-independent accounting over the
+step's artifacts."""
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Callable, Dict, Iterator, Optional
 
 from repro_torch.dist.modes import get_mode
 from repro_torch.dist.step import TrainConfig, _leaf_meta, weight_wire_codec
+from repro_torch.train.session import SessionConfig, TrainSession
 from repro_torch.tree import tree_leaves
+
+
+@dataclasses.dataclass
+class LoopConfig:
+    steps: int = 100
+    log_every: int = 10
+    ckpt_every: int = 0            # 0 = never
+    ckpt_dir: Optional[str] = None
+    eval_every: int = 0
+    eval_fn: Optional[Callable] = None
+    # > 1: this many steps a dispatch (a CUDA graph on the card); the
+    # checkpoint, eval and log cadences must be multiples of it
+    scan_chunk: int = 1
+    prefetch: int = 2              # staged dispatches; 0 = inline pulls
 
 
 def comm_bytes_per_step(art, tc: TrainConfig) -> Dict:
@@ -38,3 +59,22 @@ def comm_bytes_per_step(art, tc: TrainConfig) -> Dict:
                 "intra": {"grad_reduce": ex_intra, "weight_broadcast": 0,
                           "total": ex_intra},
             }}
+
+
+def train(art, tc: TrainConfig, batches: Iterator, lc: LoopConfig, *,
+          seed: int = 0, state=None, device="cuda", log=print):
+    """One ``TrainSession`` run of ``lc.steps`` steps over
+    ``dist.step`` artifacts; returns ``(state, history)``, evals in their
+    own ``{"step", "eval"}`` entries. ``tc`` is ``art``'s configuration
+    (the reference's signature)."""
+    cfg = SessionConfig(log_every=lc.log_every, ckpt_every=lc.ckpt_every,
+                        ckpt_dir=lc.ckpt_dir, eval_every=lc.eval_every,
+                        eval_fn=lc.eval_fn, scan_chunk=lc.scan_chunk,
+                        prefetch=lc.prefetch)
+    sess = TrainSession.from_artifacts(art, batches, cfg, seed=seed,
+                                       state=state, device=device, log=log)
+    try:
+        sess.run(lc.steps)
+    finally:
+        sess.close()
+    return sess.state, sess.history

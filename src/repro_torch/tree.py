@@ -38,3 +38,56 @@ def sorted_leaf_index(tree) -> list:
     for j, i in enumerate(order):
         index[i] = j
     return index
+
+
+def _children(tree):
+    """A node's (name, child) pairs in the reference's leaf order, or
+    None for a leaf: a dict's keys sorted (jax flattens dicts so), a
+    NamedTuple's fields by name, a list's or tuple's items as ``[i]``."""
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [(f, getattr(tree, f)) for f in tree._fields]
+    if isinstance(tree, (list, tuple)):
+        return [(f"[{i}]", v) for i, v in enumerate(tree)]
+    return None
+
+
+def tree_flatten_with_path(tree):
+    """``[(key, leaf), ...]`` in the reference's leaf order, each key the
+    ``/``-joined path the reference's checkpoint store writes
+    (``jax.tree_util.tree_flatten_with_path``: dict keys by name, fields
+    by name, sequence indices as ``[0]``). ``None`` is an empty subtree,
+    as in jax."""
+    out = []
+
+    def walk(t, prefix):
+        if t is None:
+            return
+        kids = _children(t)
+        if kids is None:
+            out.append(("/".join(prefix), t))
+            return
+        for name, child in kids:
+            walk(child, prefix + (name,))
+    walk(tree, ())
+    return out
+
+
+def tree_map_with_path(fn, tree, prefix: str = ""):
+    """``fn(key, leaf)`` over every leaf (keys as
+    :func:`tree_flatten_with_path`), keeping the tree's structure:
+    dicts stay dicts in their own order, NamedTuples their type."""
+    if tree is None:
+        return None
+    kids = _children(tree)
+    if kids is None:
+        return fn(prefix, tree)
+    sub = {name: tree_map_with_path(fn, child,
+                                    f"{prefix}/{name}" if prefix else name)
+           for name, child in kids}
+    if isinstance(tree, dict):
+        return {k: sub[str(k)] for k in tree}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(**{f: sub[f] for f in tree._fields})
+    return type(tree)(sub[f"[{i}]"] for i in range(len(tree)))

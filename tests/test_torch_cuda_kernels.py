@@ -1366,3 +1366,297 @@ def test_dequant_matmul_float32_tier_catches_a_dropped_row(dev, bits):
                          w_dtype="float32", cast_dtype=None)
     bad = x[:, :-1] @ w[:-1]
     assert bool(((bad - b).abs() > floor).any())
+
+
+# ---------------------------------------------------------------------------
+# K1t on CUDA cores (float32), the session's CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _k1t_f32_case(dev, M, V, d, bits, seed, variant="f32"):
+    """x (M, d) float32 (bf16 for ``x_bf16``) and code rows (V, d) of one
+    width; the kwargs of the CUDA-core route and the floor of its tier,
+    K1_FLOOR sqrt(d) 2^-24 |x*w|_2."""
+    from repro_torch.comm import matmul as MM
+    x, codes, scale, k_x, pb = _k1t_case(dev, M, V, d, bits, seed)
+    x = x.to(torch.bfloat16 if variant == "x_bf16" else torch.float32)
+    w_dtype = "bfloat16" if variant == "w_bf16" else "float32"
+    kw = dict(k_x=k_x, n=d, pack_bits=pb, w_dtype=w_dtype, transpose=True)
+    w = MM.dequant_codes(codes, scale, k_x=k_x, n=d, pack_bits=pb,
+                         w_dtype=w_dtype, cast_dtype=None).float()
+    floor = K1_FLOOR * d ** 0.5 * 2.0 ** -24 * (
+        x.float() ** 2 @ (w ** 2).T).sqrt()
+    return x, codes, scale, kw, w, floor
+
+
+@pytest.mark.parametrize("variant", ["f32", "x_bf16", "w_bf16"])
+@pytest.mark.parametrize("bits", [8, 16, 2, 3, 4, 6])
+@pytest.mark.parametrize("M", [1, 3, 4, 5, 8, 17])
+@pytest.mark.parametrize("V,d", [(512, 2304), (1001, 2304), (256, 1000),
+                                 (77, 37)])
+def test_dequant_matmul_t_float32_tier(dev, variant, bits, M, V, d):
+    """K1t's CUDA-core route (float32 activations or weights, every code
+    type, every row tile of ``matmul.t_fma_plan``) within the floor of
+    the plain product; two calls bitwise equal; t_launches_fma moves."""
+    from repro_torch.comm import matmul as MM
+    x, codes, scale, kw, _, floor = _k1t_f32_case(
+        dev, M, V, d, bits, M * V + d + bits, variant)
+    assert MM.route(x.dtype, codes.dtype, kw["pack_bits"], kw["w_dtype"],
+                    None) == "fma"
+    n = (MM.t_launches_tc, MM.t_launches_fma)
+    a = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    a2 = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    assert (MM.t_launches_tc, MM.t_launches_fma) == (n[0], n[1] + 2)
+    b = MM.dequant_matmul(x, codes, scale, backend="torch", **kw)
+    assert a.dtype == b.dtype == torch.float32 and a.shape == (M, V)
+    assert torch.equal(a, a2)
+    assert bool(((a - b).abs() <= floor).all())
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dequant_matmul_t_float32_tier_catches_a_dropped_column(dev, bits):
+    """The planted fault: the plain float32 product with its last d column
+    dropped fails the tier the CUDA-core kernel passes."""
+    from repro_torch.comm import matmul as MM
+    x, codes, scale, kw, w, floor = _k1t_f32_case(dev, 4, 1001, 2304, bits,
+                                                  77 + bits)
+    a = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    b = MM.dequant_matmul(x, codes, scale, backend="torch", **kw)
+    assert bool(((a - b).abs() <= floor).all())
+    bad = x[:, :-1] @ w[:, :-1].T
+    assert bool(((bad - b).abs() > floor).any())
+
+
+def _smoke_training(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.core.qadam import QAdamConfig, qadam
+    from repro_torch.models.model import Model
+    cfg = get_config("yi-6b", smoke=True)
+    model = Model(cfg)
+    opt = qadam(QAdamConfig(alpha=1e-3, grad_q="log:6",
+                            weight_q="uniform_amax:7",
+                            weight_q_min_numel=2 ** 14))
+
+    def loss_fn(p, b):
+        s, n = model.loss(p, b)
+        return s / n
+    return cfg, model, opt, loss_fn
+
+
+@pytest.fixture
+def deterministic():
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+def test_session_scan_chunk_graph_equals_eager(dev, deterministic):
+    """``scan_chunk=3`` on the card: the first chunk eager, the second
+    captured and replayed, the third replayed, a tail of one eager; losses
+    and parameters bitwise the step-by-step session's."""
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.train.session import SessionConfig, TrainSession
+    from repro_torch.tree import tree_leaves
+    cfg, model, opt, loss_fn = _smoke_training(dev)
+
+    def run(chunk):
+        sess = TrainSession.from_optimizer(
+            opt, loss_fn, model.init(seed=0, device=dev),
+            batch_for_model(cfg, 32, 4), SessionConfig(log_every=3,
+                                                       scan_chunk=chunk),
+            log=lambda *_: None)
+        losses = {}
+        harvest = sess.harvest_losses
+
+        def keep():
+            out = harvest()
+            losses.update(out)
+            return out
+        sess.harvest_losses = keep
+        for n in (9, 1):
+            sess.run(n)
+        sess.close()
+        return sess, losses
+
+    ref, ref_losses = run(1)
+    got, losses = run(3)
+    assert sorted(losses) == list(range(1, 11))
+    assert losses == ref_losses
+    assert (got.stats["graph_captures"], got.stats["graph_replays"],
+            got.stats["dispatches"]) == (1, 2, 4)
+    for a, b in zip(tree_leaves(got.state["params"]),
+                    tree_leaves(ref.state["params"])):
+        assert torch.equal(a, b)
+    for f in ("m", "v", "e"):
+        for a, b in zip(tree_leaves(getattr(got.state["opt"], f)),
+                        tree_leaves(getattr(ref.state["opt"], f))):
+            assert torch.equal(a, b)
+    assert got.state["opt"].count == ref.state["opt"].count == 10
+
+
+def test_chunked_train_step_graph_equals_eager(dev, deterministic):
+    """``make_chunked_train_step`` on the card: three calls of 2 steps on
+    the same (donated) tensors (eager, captured and replayed, replayed)
+    give the step-by-step session's losses and parameters bitwise."""
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.train.session import (SessionConfig, TrainSession,
+                                           make_chunked_train_step,
+                                           stack_batches, stage_batch)
+    from repro_torch.tree import tree_leaves
+    cfg, model, opt, loss_fn = _smoke_training(dev)
+    ref = TrainSession.from_optimizer(
+        opt, loss_fn, model.init(seed=0, device=dev),
+        batch_for_model(cfg, 32, 4), SessionConfig(log_every=1),
+        log=lambda *_: None)
+    ref.run(6)
+    ref.close()
+    fn = make_chunked_train_step(opt, loss_fn)
+    params = model.init(seed=0, device=dev)
+    state = opt.init(params)
+    gen = batch_for_model(cfg, 32, 4)
+    losses = []
+    for _ in range(3):
+        stacked = stack_batches([stage_batch(next(gen), dev)
+                                 for _ in range(2)])
+        params, state, ls = fn(params, state, stacked)
+        losses += ls.tolist()
+    assert fn.stats == {"graph_captures": 1, "graph_replays": 2}
+    assert losses == [h["loss"] for h in ref.history]
+    assert state.count == 6
+    for a, b in zip(tree_leaves(params), tree_leaves(ref.state["params"])):
+        assert torch.equal(a, b)
+
+
+def test_session_refuses_terngrad_under_graphs(dev):
+    """A quantizer that draws uniforms from a host-seeded generator each
+    step cannot be captured: scan_chunk > 1 on CUDA is refused by name."""
+    from repro_torch.core.qadam import QAdamConfig, qadam, terngrad_sgd
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.train.session import SessionConfig, TrainSession
+    cfg, model, _, loss_fn = _smoke_training(dev)
+    for opt in (terngrad_sgd(alpha=1e-3),
+                qadam(QAdamConfig(grad_q="terngrad"))):
+        with pytest.raises(NotImplementedError, match="counter-based"):
+            TrainSession.from_optimizer(
+                opt, loss_fn, model.init(seed=0, device=dev),
+                batch_for_model(cfg, 32, 4), SessionConfig(scan_chunk=2))
+
+
+def _graph_vs_eager(make, runs=(6,), chunk=2):
+    """Losses and state of ``make(scan_chunk=chunk)`` against
+    ``make(scan_chunk=1)`` over ``runs``: every step's loss from the
+    session's own harvests."""
+    from repro_torch.train.session import _tensor_leaves
+
+    def go(k):
+        sess = make(k)
+        losses = {}
+        harvest = sess.harvest_losses
+
+        def keep():
+            out = harvest()
+            losses.update(out)
+            return out
+        sess.harvest_losses = keep
+        for n in runs:
+            sess.run(n)
+        sess.close()
+        return sess, losses
+    ref, ref_losses = go(1)
+    got, losses = go(chunk)
+    assert losses == ref_losses
+    assert sorted(losses) == list(range(1, sum(runs) + 1))
+    assert (got.stats["graph_captures"], got.stats["graph_replays"]) == (
+        1, sum(runs) // chunk - 1)
+    a, b = _tensor_leaves(got.state), _tensor_leaves(ref.state)
+    assert [k for k, _ in a] == [k for k, _ in b]
+    for (k, x), (_, y) in zip(a, b):
+        assert torch.equal(x, y), k
+
+
+@pytest.mark.parametrize("name", ["ef_sgdm", "qadam-blockwise",
+                                  "qadam-no-ef"])
+def test_session_graph_equals_eager_for_each_optimizer(dev, deterministic,
+                                                       name):
+    """The other single-machine optimizers allowed under graphs: one
+    eager chunk, one capture, two replays; losses and every state tensor
+    bitwise the step-by-step session's."""
+    from repro_torch.core.qadam import QAdamConfig, ef_sgdm, qadam
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.train.session import SessionConfig, TrainSession
+    cfg, model, _, loss_fn = _smoke_training(dev)
+    base = dict(alpha=1e-3, grad_q="log:6", weight_q="uniform_amax:7",
+                weight_q_min_numel=2 ** 14)
+    make_opt = {
+        "ef_sgdm": lambda: ef_sgdm(alpha=1e-3),
+        "qadam-blockwise": lambda: qadam(QAdamConfig(
+            **dict(base, grad_q="blockwise:256"))),
+        "qadam-no-ef": lambda: qadam(QAdamConfig(
+            **dict(base, error_feedback=False))),
+    }[name]
+    _graph_vs_eager(lambda k: TrainSession.from_optimizer(
+        make_opt(), loss_fn, model.init(seed=0, device=dev),
+        batch_for_model(cfg, 32, 4),
+        SessionConfig(log_every=2, scan_chunk=k), log=lambda *_: None))
+
+
+@pytest.fixture(scope="module")
+def nccl_group(dev):
+    from repro_torch.launch import mesh as TM
+    group = TM.make_process_group(dev, store=torch.distributed.HashStore())
+    yield group
+    TM.close_process_group()
+
+
+@pytest.mark.parametrize("mode,kw", [
+    ("qadam", dict(grad_k=6, weight_k=7)),
+    ("dp_adam", dict(grad_k=None, weight_k=None)),
+    ("efadam", dict(grad_k=6, weight_k=7, weight_absolute=False)),
+    ("ef_sgd", dict(beta=0.9, grad_k=None, weight_k=None)),
+])
+def test_distributed_session_graph_equals_eager(dev, deterministic,
+                                                nccl_group, mode, kw):
+    """Each distributed mode allowed under graphs on one NCCL rank (the
+    collectives in the graph): losses and every state tensor bitwise the
+    step-by-step session's."""
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.dist.step import TrainConfig, make_train_step
+    from repro_torch.train.session import SessionConfig, TrainSession
+    cfg, model, _, _ = _smoke_training(dev)
+    art = make_train_step(model, nccl_group,
+                          TrainConfig(alpha=1e-3, mode=mode, **kw))
+    _graph_vs_eager(lambda k: TrainSession.from_artifacts(
+        art, batch_for_model(cfg, 32, 4),
+        SessionConfig(log_every=2, scan_chunk=k), device=dev,
+        log=lambda *_: None))
+
+
+def test_resume_on_the_card_holds_one_state(dev, tmp_path):
+    """resume() on the card writes into the state's tensors: the device
+    holds the state and nothing more while it restores, and the restored
+    state equals the saved one bitwise."""
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.train.session import (SessionConfig, TrainSession,
+                                           _replaced, _tensor_leaves)
+    cfg, model, opt, loss_fn = _smoke_training(dev)
+
+    def make():
+        return TrainSession.from_optimizer(
+            opt, loss_fn, model.init(seed=0, device=dev),
+            batch_for_model(cfg, 32, 4),
+            SessionConfig(log_every=0, ckpt_dir=str(tmp_path)),
+            log=lambda *_: None)
+    with make() as a:
+        a.run(2)
+        a.checkpoint()
+    b = make()
+    before = _tensor_leaves(b.state)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    assert b.resume() == 2
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() == base
+    assert _replaced(before, b.state) == []
+    for (k, x), (_, y) in zip(_tensor_leaves(a.state), before):
+        assert torch.equal(x, y), k
+    b.close()

@@ -337,9 +337,8 @@ def test_out_of_scope_raises(models, group):
                dict(model_gather_quant=8)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_make_train_step(tm, group, TTC(**kw))
-    for flag in (["--model", "2"], ["--scan-chunk", "4"], ["--resume"],
-                 ["--tune-buckets"], ["--topology", "2x2"],
-                 ["--ckpt-dir", "x"], ["--aot-dir", "x"], ["--adaptive"]):
+    for flag in (["--model", "2"], ["--tune-buckets"], ["--topology", "2x2"],
+                 ["--aot-dir", "x"], ["--adaptive"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             launch.parse_args(["--arch", "yi-6b"] + flag)
     for mode in ("dp_adam", "efadam", "terngrad", "ef_sgd"):

@@ -467,3 +467,31 @@ def test_transposed_fma_route_refused_on_cpu():
     out = TM.dequant_matmul(*args, k_x=6, n=24, transpose=True)
     assert out.dtype == torch.float32 and out.shape == (3, 40)
     assert _t_counts() == counts
+
+
+@pytest.mark.parametrize("code_bits", [2, 3, 4, 6, 8, 16])
+@pytest.mark.parametrize("M", [1, 2, 4, 5, 8, 33])
+def test_t_fma_plan_row_tiles(M, code_bits):
+    """K1t's CUDA-core row tile: 1 for one row, 4 up to four, else 8 (a
+    grid row per 8), its staged x within a block's shared memory at
+    gemma2's d (2304)."""
+    tile = TM.t_fma_plan(M, 2304, code_bits)
+    assert tile == (1 if M == 1 else 4 if M <= 4 else 8)
+    assert TM.t_fma_smem(2304, code_bits, tile) <= TM.SMEM_BYTES
+
+
+@pytest.mark.parametrize("M,d,bits,tile", [
+    (8, 8000, 8, 4),       # 8 rows past shared memory: tiles of 4
+    (8, 20000, 8, 1),      # and of 4: one row a tile
+    (5, 20000, 16, 1), (2, 14000, 3, 4)])
+def test_t_fma_plan_wide_rows(M, d, bits, tile):
+    """Where the staged x of the wanted tile does not fit, a smaller tile
+    (more passes over the codes); past one row's, a refusal that names
+    the reason."""
+    assert TM.t_fma_plan(M, d, bits) == tile
+    assert TM.t_fma_smem(d, bits, tile) <= TM.SMEM_BYTES
+    if tile < 8:
+        bigger = {1: 4, 4: 8}[tile]
+        assert TM.t_fma_smem(d, bits, bigger) > TM.SMEM_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        TM.t_fma_plan(1, 60000, 8)
