@@ -13,13 +13,16 @@ Phases, each raising on failure (exit code nonzero, no result line):
      under build/planted);
   3. hold each serving kernel against its plain PyTorch version at yi-6b
      shapes: K3 amax / K4 quantize on a stacked (32, 4096, 11008) f32
-     leaf; K2 page gather bitwise through both entry points (one pool,
+     leaf, and on qwen2.5-14b's (48, 5120) QKV-bias stack with all-zero
+     layers (the 1e-30 scale floor and codes 0, bitwise); K2 page gather bitwise through both entry points (one pool,
      and a layer's K and V in one launch, one launch a call) at the
      serving cell's 4 x 8-page table and gemma2-2b's 4 x 264 pages,
      timed in CUDA graphs beside index_select (two of them for K and V);
      K1 dequant-matmul at M in
      {1, 4, 32} for every projection shape of yi-6b and gemma2-2b and
-     every code type, and at ragged shapes across its row tiles (M 5 to
+     every code type, at every projection shape of gemma3-4b and
+     qwen2.5-14b (its untied head among them) in int8, the code type of
+     their serving weights, and at ragged shapes across its row tiles (M 5 to
      100; packed rows of no whole 16 bytes among them), on tensor cores
      for bf16 activations against int8, int16 and 2/3/4/6-bit packed
      lanes, within one bf16 ulp (plus a floor near zero set from the
@@ -31,8 +34,10 @@ Phases, each raising on failure (exit code nonzero, no result line):
      CUDA-core route at float32 activations against int8 codes; K1t,
      the transposed product of the tied head, at gemma2-2b's (256000,
      2304) table on tensor cores for bf16 activations against every code
-     type (int8 at k_x = 6 at M in {1, 4}, int16 and 2/3/4/6-bit rows at
-     M = 4) and at ragged V, d and M past one n8 tile, in the same tier
+     type (int8 at k_x = 6 at M in {1, 4}, also at gemma3-4b's (262144,
+     2560) table, timed there at M 1 and 4 and on CUDA cores at M 4;
+     int16 and 2/3/4/6-bit rows at M = 4) and at ragged V, d and M past
+     one n8 tile, in the same tier
      (a dropped d column must fail it), the same sums in float32 on its
      CUDA-core route within the floor at every case (a dropped d column
      must fail that gate too); timed at M = 1 and 4 for every code type
@@ -86,6 +91,11 @@ Phases, each raising on failure (exit code nonzero, no result line):
      F32_LIMIT for the full-depth step in float32 activations (at full
      depth in bf16, fp32 summation order alone moves the logits by
      ~3e-2, which is printed, with a float64-summed step, not gated);
+     the session's decode step must have been one CUDA graph (a capture,
+     replays); then, in a session of 4 slots past 32-token prompts, one
+     greedy step eager and through a fresh capture and replay from
+     identical state, bitwise in logits, tokens and cache, and each way's
+     wall time, device time, operations and idle share;
      4b. the same for full-width gemma2-2b (26 layers, tied head, k_x = 6),
      in slots of 4224 positions, with a ninth request of 4200 prompt
      tokens: K1, K1t (on tensor cores only), K2, K3 and K4 launched, no
@@ -93,6 +103,16 @@ Phases, each raising on failure (exit code nonzero, no result line):
      local layer, depth 2 adds a global one), and at position 4200 the
      windowed and the global model's logits must differ (the window is
      live), with the depth-2 gate there too;
+     4g. the same for full-width gemma3-4b (34 layers, tied head of
+     262144 rows, 5:1 local:global with window 1024, qk-norm with random
+     weights, post-norms), slots of 1120 positions and a ninth request
+     of 1100 prompt tokens: K1, K1t, K2, K3, K4, the gates, the window
+     live at position 1100, and the local RoPE base live (the logits
+     differ with one base for every layer);
+     4h. the same for full-width qwen2.5-14b (48 layers, d 5120, untied
+     head of 152064 columns, random QKV biases quantized per layer), its
+     weights quantized leaf by leaf (each float32 leaf dropped once its
+     codes exist) and the peak memory printed;
      4c. #17 through its entry point over one gemma2-2b prefill of 8192
      tokens (26 layers with their windows), in bf16 (route "tc") and
      then in float32 (route "tc32", 3xTF32), each route's count at 0
@@ -101,12 +121,18 @@ Phases, each raising on failure (exit code nonzero, no result line):
      (quantize_params(k_x=2, pack=True)), 4 requests: K1 on tensor cores
      only (its packed-lane instances; no CUDA-core launch), K2, K3, K4
      launched, no plain version on the card; decode and chunk wall and
-     device time;
+     device time and, in 4d-4f alike, the session's decode step eager
+     and graphed (one step bitwise);
      4e. the same cut served in float32 activations against int8 codes:
      K1's CUDA-core route only, the decode step's logits within F32_LIMIT
      of the plain step at the cut's depth;
      4f. gemma2-2b's widths cut to 4 layers served the same way in
      float32: K1's and K1t's CUDA-core routes only, the same logits gate;
+     4i. gemma2-2b's widths cut to 4 layers, 6 requests admitted chunked,
+     whole (one Model.prefill each, fixed lanes) and injected (fixed
+     lanes and paged): every mode the chunked session's tokens, the
+     whole and injected decode steps graphed, their kernels launched
+     and no plain version on the card;
   5. train full-width yi-6b cut to 8 layers (fp32 parameters and state,
      bf16 activations) with Algorithm 1 through ``qadam`` and
      ``TrainSession.from_optimizer``: 12 steps of 2 x 1024 tokens; gates:
@@ -174,6 +200,15 @@ Phases, each raising on failure (exit code nonzero, no result line):
      with the step's collectives in the graph, bitwise the first run;
      bytes written, seconds to save and restore and the device bytes a
      restore adds, in a temp dir deleted at the end;
+     6c. llava-next-mistral-7b's decoder at full width cut to 4 layers on
+     embedding input (``batch_for_model``'s stub of the vision tower),
+     through ``launch.train``'s path on the same rank, 4 steps: finite
+     losses, K15, K7 and K6 launched, no plain version, no steady host
+     sync, the bytes moved equal to ``comm_bytes_per_step`` and a
+     captured-gradient update bitwise through the kernels and the plain
+     versions (the losses are printed, not gated to fall: random
+     embeddings say nothing of the targets, and the reference's
+     trajectory on this stub is flat over its first steps too);
   8. every leaf of the cut's initial parameters through
      ``Codec.encode`` -> ``WireBuffer.decode`` for log:6, the uniform:7
      wire (absolute and amax), TernGrad and blockwise:256: #5 (each
@@ -189,8 +224,9 @@ Phases, each raising on failure (exit code nonzero, no result line):
      the last line ``{"ok": true,
      "device": {...}}``.
 
-It imports nothing of JAX or of the JAX package. Detailed tables are
-also written to ``results/chip_smoke.json``.
+Each phase prints its seconds, and the total at the end. It imports
+nothing of JAX or of the JAX package. Detailed tables are also written
+to ``results/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -214,6 +250,10 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
 YI = dict(L=32, d=4096, H=32, K=4, hd=128, f=11008, V=64000)
 GEMMA = dict(d=2304, V=256000)   # gemma2-2b's tied (vocab, d_model) table
+GEMMA3_HEAD = (262144, 2560)     # gemma3-4b's tied (vocab, d_model) table
+# gemma3-4b's serving cell: a prompt past its 1024 window, in slots of
+# GEMMA3_MAX_SEQ positions (a multiple of 16 above it and 16 new tokens)
+GEMMA3_LONG_PROMPT, GEMMA3_MAX_SEQ = 1100, 1120
 # the gemma2-2b serving cell's one long request: a prompt past the window,
 # in a session whose slots hold max_seq positions (a multiple of 16 above
 # the prompt and its 16 new tokens)
@@ -379,6 +419,21 @@ def check_quantize(torch, K, dev):
         raise AssertionError("K4 uniform quantize differs from its plain "
                              "version")
     del c_p
+    # qwen2.5-14b's stacked QKV bias at init: every layer zero but one, so
+    # K3 gives amax 0, the scale its 1e-30 floor and K4 codes 0 (no NaN),
+    # bitwise the plain versions
+    zb = torch.zeros((48, 5120), dtype=torch.float32, device=dev)
+    zb[1].normal_(generator=g)
+    za = torch.clamp_min(K.amax_rows(zb, backend="cuda"), 1e-30)
+    zc = K.uniform_quantize_rows(zb, za, 6, backend="cuda")
+    zp = K.uniform_quantize_rows(zb, torch.clamp_min(
+        K.amax_rows(zb, backend="torch"), 1e-30), 6, backend="torch")
+    if not (torch.equal(zc, zp) and float(za[0]) == float(
+            torch.tensor(1e-30, dtype=torch.float32)) and not zc[0].any()
+            and zc[1].any()):
+        raise AssertionError("K3/K4 on an all-zero layer: scale "
+                             f"{float(za[0])}, codes differ from the plain "
+                             "versions or are not 0")
     xb = x.numel() * 4
     rows = []
     t_k = cuda_ms(torch, lambda i: K.amax_rows(x, backend="cuda"), 5, 1)
@@ -524,6 +579,15 @@ def k1_shapes():
     return [(d, d), (d, hK), (d, f), (f, d), (d, V)] + GEMMA_K1_SHAPES
 
 
+# the serving slice of gemma3-4b and qwen2.5-14b (K, N), held and timed at
+# int8, the code type their k_x = 6 weights take: gemma3's wq (q is 2048
+# wide), wk/wv, wo, w_gate/w_up, w_down; qwen's wq/wo, wk/wv, w_gate/w_up,
+# w_down and its untied head
+NEW_K1_SHAPES = [(2560, 2048), (2560, 1024), (2048, 2560), (2560, 10240),
+                 (10240, 2560), (5120, 5120), (5120, 1024), (5120, 13824),
+                 (13824, 5120), (5120, 152064)]
+
+
 # the CUDA-core route's timed shapes (K, N): yi-6b's w_gate, gemma2-2b's
 # wq, wk/wv and w_down
 FMA_TIMED_SHAPES = [(YI["d"], YI["f"]), (2304, 2048), (2304, 1024),
@@ -552,6 +616,8 @@ def check_matmul(torch, MM, B, dev):
              for kind in kinds]
     cases += [(M, 1000, 1001, kind) for M in (5, 16, 17, 33, 64, 100)
               for kind in kinds]   # ragged, across the row tiles
+    cases += [(M, Kd, N, "int8") for M in (1, 4, 32)
+              for (Kd, N) in NEW_K1_SHAPES]
     table, worst, noise = [], {"tc": 0.0, "tc_packed": 0.0, "fma": 0.0}, {}
     scale = torch.tensor(0.0371, device=dev)
     for M, Kd, N, kind in cases:
@@ -670,7 +736,7 @@ def check_matmul(torch, MM, B, dev):
                     gbs=nbytes / t_k / 1e6)
 
     for M in (4, 32, 1):
-        for Kd, N in shapes:
+        for Kd, N in shapes + NEW_K1_SHAPES:
             timed.append(time_case(M, Kd, N, "int8"))
     for kind in PACKED_KINDS:   # every lane width on tensor cores
         for M in (4, 32):
@@ -758,6 +824,7 @@ def check_matmul_t(torch, MM, B, dev):
     d, V = GEMMA["d"], GEMMA["V"]
     kinds = ("int8", "int16") + PACKED_KINDS
     cases = [(M, V, d, "int8") for M in (1, 4)]
+    cases += [(M,) + GEMMA3_HEAD + ("int8",) for M in (1, 4)]
     cases += [(4, V, d, kind) for kind in kinds[1:]]
     cases += [(M, 1001, n, kind) for M, n in ((5, d), (5, 37), (17, 1000))
               for kind in kinds]   # ragged V and d, M past one n8 tile
@@ -810,7 +877,7 @@ def check_matmul_t(torch, MM, B, dev):
                                  f"units of fp32 summation noise")
         row["f32_noise"] = float((d32 / u32).max())
         worst["fma"] = max(worst["fma"], float(d32.max()))
-        if rows == V and kind in ("int8", "p4"):
+        if rows in (V, GEMMA3_HEAD[0]) and kind in ("int8", "p4"):
             bad32 = x32[:, :-1] @ w32[:, :-1].T
             seen32 = float(((bad32 - p32).abs() > K1_FLOOR * u32).float()
                            .mean())
@@ -820,7 +887,7 @@ def check_matmul_t(torch, MM, B, dev):
             row["f32_fault_caught"] = seen32
             del bad32
         del x32, p32, w32, u32, d32
-        if rows == V and kind in ("int8", "p4"):
+        if rows in (V, GEMMA3_HEAD[0]) and kind in ("int8", "p4"):
             # the planted fault: the last d column dropped from the sum
             bad = (x[:, :-1].float() @ w[:, :-1].T).to(torch.bfloat16)
             seen = float(((bad.float() - b.float()).abs() > tol).float()
@@ -833,9 +900,10 @@ def check_matmul_t(torch, MM, B, dev):
         del codes, w, a, b, unit, tol, diff
     torch.cuda.empty_cache()
 
-    def time_case(M, kind, x_dtype=torch.bfloat16):
-        """Kernel, plain and library times at the head; the library is
-        torch.matmul on the dequantized weight in the activations' type."""
+    def time_case(M, kind, x_dtype=torch.bfloat16, V=V, d=d):
+        """Kernel, plain and library times at a head (gemma2's unless
+        given); the library is torch.matmul on the dequantized weight in
+        the activations' type."""
         k_x, pb = CODE_KINDS[kind]
         cast = "bfloat16" if x_dtype == torch.bfloat16 else None
         codes = _codes(torch, B, g, dev, kind, V, d)[2]
@@ -861,14 +929,20 @@ def check_matmul_t(torch, MM, B, dev):
                     factor=t_k / t_l, share_of_bound=bnd / t_k,
                     gbs=nbytes / t_k / 1e6)
     timed = [time_case(M, kind) for kind in kinds for M in (1, 4)]
+    g3 = {M: time_case(M, "int8", V=GEMMA3_HEAD[0], d=GEMMA3_HEAD[1])
+          for M in (1, 4)}
+    timed += list(g3.values())
     if any(r["route"] != "tc" for r in timed):
         raise AssertionError("K1t bf16 timed off the tensor-core route")
     f32 = {(kind, M): time_case(M, kind, torch.float32)
            for kind, M in (("int8", 1), ("int8", 4), ("int8", 8), ("p4", 4))}
-    timed += list(f32.values())
+    g3_f32 = time_case(4, "int8", torch.float32, V=GEMMA3_HEAD[0],
+                       d=GEMMA3_HEAD[1])
+    timed += list(f32.values()) + [g3_f32]
     fma = f32[("int8", 4)]
     torch.cuda.empty_cache()
-    at = {(r["codes"], r["M"]): r for r in timed if r["route"] == "tc"}
+    at = {(r["codes"], r["M"]): r for r in timed if r["route"] == "tc"
+          and r["V"] == V}
     rep, slow = at[("int8", 4)], max(at.values(), key=lambda r: r["factor"])
     row_tc = dict(name="dequant_matmul_t_tc", route="cuda",
                   source="src/repro_torch/csrc/dequant_matmul.cu",
@@ -879,6 +953,9 @@ def check_matmul_t(torch, MM, B, dev):
                   shape=[4, V, d], m1_ms=at[("int8", 1)]["ms"],
                   p4_ms=at[("p4", 4)]["ms"],
                   p4_library_ms=at[("p4", 4)]["library_ms"],
+                  gemma3_ms=g3[4]["ms"], gemma3_m1_ms=g3[1]["ms"],
+                  gemma3_library_ms=g3[4]["library_ms"],
+                  gemma3_bound_ms=g3[4]["bound_ms"],
                   worst_factor=slow["factor"],
                   worst_case=[slow["codes"], slow["M"]])
     row_fma = dict(name="dequant_matmul_t", route="cuda",
@@ -890,7 +967,10 @@ def check_matmul_t(torch, MM, B, dev):
                    shape=[4, V, d, "int8", "float32"],
                    m1_ms=f32[("int8", 1)]["ms"], m8_ms=f32[("int8", 8)]["ms"],
                    p4_ms=f32[("p4", 4)]["ms"],
-                   p4_bound_ms=f32[("p4", 4)]["bound_ms"])
+                   p4_bound_ms=f32[("p4", 4)]["bound_ms"],
+                   gemma3_ms=g3_f32["ms"],
+                   gemma3_library_ms=g3_f32["library_ms"],
+                   gemma3_bound_ms=g3_f32["bound_ms"])
     return [row_tc, row_fma], table, timed
 
 
@@ -1785,16 +1865,17 @@ def run_watched(torch, sess, steps: int):
                 messages=sorted({str(w.message)[:160] for w in caught}))
 
 
-def check_run(w, stats, launches, plain, what: str, steps: int) -> None:
+def check_run(w, stats, launches, plain, what: str, steps: int,
+              falling: bool = True) -> None:
     """The gates of a training run: finite losses whose last-3 mean is
-    below the first, every kernel of the path launched, no plain version
-    on the card, and from the start of step 2 on no synchronizing
-    operation but the final loss harvest's own (two session reads in all:
-    after the first and the last step)."""
+    below the first (unless ``falling`` is off), every kernel of the path
+    launched, no plain version on the card, and from the start of step 2
+    on no synchronizing operation but the final loss harvest's own (two
+    session reads in all: after the first and the last step)."""
     vals = w["losses"]
     if len(vals) != steps or not all(math.isfinite(x) for x in vals):
         raise AssertionError(f"{what} losses not finite: {vals}")
-    if not sum(vals[-3:]) / 3 < vals[0]:
+    if falling and not sum(vals[-3:]) / 3 < vals[0]:
         raise AssertionError(f"{what} loss did not fall: {vals}")
     if any(n == 0 for n in launches.values()):
         raise AssertionError(f"a {what} kernel never launched: {launches}")
@@ -2314,7 +2395,7 @@ def _wire_kernel_ms(by_kernel):
 
 
 def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
-             what, alg1=None):
+             what, alg1=None, falling=True):
     """One distributed training run through ``launch.train``'s path
     (``make_train_step`` + ``TrainSession.from_artifacts`` on ``group``,
     one NCCL rank) and its gates: the phase-5 gates with the ``counters``
@@ -2363,7 +2444,7 @@ def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
                 for name, (mod, attr) in counters.items()}
     res.update(launches=launches, amax_launches=K.amax_launches)
     check_run(w, dict(sess.stats), launches,
-              K.plain_on_cuda + A.plain_on_cuda, what, steps)
+              K.plain_on_cuda + A.plain_on_cuda, what, steps, falling)
     res.update(losses=w["losses"], stats=dict(sess.stats),
                syncs_at_step_starts=w["starts"],
                syncs_by_harvest=w["harvests"], sync_warnings=w["syncs"],
@@ -2471,7 +2552,10 @@ def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
     hp = engine.hyperparams(_alpha_t(sched, t), tc.beta, _theta_t(sched, t),
                             tc.eps, dev)
     for i, meta in enumerate(metas):
-        g = grads[i].reshape(-1)
+        # a leaf the loss does not use (llava's embedding table) has no
+        # gradient: zeros, as the step's update takes it
+        g = (torch.zeros(meta.numel, dtype=torch.float32, device=dev)
+             if grads[i] is None else grads[i].reshape(-1))
         grads[i] = None
 
         def draw(n, i=draw_index[i]):
@@ -2526,6 +2610,41 @@ def dist_train(torch, dev, mods, group, model, cfg):
     if res["backend"] != "nccl" or res["world_size"] != 1:
         raise AssertionError(f"expected one NCCL rank: {res}")
     res["equivalence"] = equivalence(torch, dev, group, model, cfg)
+    return res
+
+
+LLAVA_LAYERS, LLAVA_STEPS = 4, 4
+
+
+def llava_train(torch, dev, mods, group):
+    """Phase 6c: llava-next-mistral-7b's decoder at full width cut to
+    LLAVA_LAYERS layers, on embedding input (the vision tower's stub,
+    ``batch_for_model``'s embeds), trained through ``launch.train``'s path
+    on the phase-6 NCCL rank (``dist_run`` with DIST_TC, LLAVA_STEPS
+    steps of 2 x 1024 positions): finite losses, K15, K7 and K6
+    launched, no plain version on the card, no steady host sync, the
+    bytes moved equal to ``comm_bytes_per_step``, and one
+    captured-gradient update bitwise through the kernels and the plain
+    versions. The losses are not gated to fall: random embeddings carry
+    nothing of the targets, and the reference's own trajectory on this
+    stub stays flat over its first steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.step import TrainConfig
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config("llava-next-mistral-7b"),
+                              n_layers=LLAVA_LAYERS)
+    res = dist_run(torch, dev, mods, group, Model(cfg), cfg,
+                   TrainConfig(**DIST_TC), DIST_COUNTERS, LLAVA_STEPS,
+                   "llava training", falling=False)
+    res["layers"] = LLAVA_LAYERS
+    print(f"phase 6c: llava-next-mistral-7b x {LLAVA_LAYERS} layers on "
+          f"embeddings, one NCCL rank: losses "
+          f"{', '.join(f'{x:.4f}' for x in res['losses'])}; "
+          f"{LLAVA_STEPS} steps in {res['run_s']:.3f} s; step wall "
+          f"{res['step_wall_ms']:.3f} ms, device {res['step_device_ms']:.3f} "
+          f"ms (idle {res['device_idle']:.1%}); launches {res['launches']}; "
+          f"peak {res['peak_bytes']} B; captured-gradient update bitwise",
+          flush=True)
     return res
 
 
@@ -3162,9 +3281,9 @@ def window_live(torch, dev, model, qparams, gather, prompt, max_seq):
     cache["ptab"].copy_(torch.arange(max_seq // 16, dtype=torch.int32,
                                      device=dev)[None])
     toks = torch.tensor(prompt, dtype=torch.int32, device=dev)[None]
-    for c0 in range(0, n, 32):
-        chunk = torch.zeros((1, 32), dtype=torch.int32, device=dev)
-        m = min(32, n - c0)
+    for c0 in range(0, n, 512):
+        chunk = torch.zeros((1, 512), dtype=torch.int32, device=dev)
+        m = min(512, n - c0)
         chunk[:, :m] = toks[:, c0:c0 + m]
         model.decode_chunk(qparams, {"token": chunk}, cache,
                            torch.tensor([c0], device=dev),
@@ -3182,6 +3301,17 @@ def window_live(torch, dev, model, qparams, gather, prompt, max_seq):
         raise AssertionError(f"decode at position {n}: the windowed and the "
                              f"global model give the same logits")
     rel_win = float((la - lg).norm() / lg.norm())
+    rel_base = None
+    if cfg.rope_theta_local is not None:
+        # the local layers' RoPE base is live: one base for every layer
+        one = Model(dataclasses.replace(cfg, rope_theta_local=None))
+        lb1, _ = one.decode_step(qparams, {"token": tok}, clone(), pos, gather)
+        if torch.equal(la, lb1):
+            raise AssertionError(f"decode at position {n}: the local RoPE "
+                                 f"base {cfg.rope_theta_local} and the "
+                                 f"global {cfg.rope_theta} give the same "
+                                 f"logits")
+        rel_base = float((la - lb1).norm() / lb1.norm())
     mdl = Model(dataclasses.replace(cfg, n_layers=2))
     qp = dict(qparams, blocks=first_layers(qparams["blocks"], 2))
     a, _ = mdl.decode_step(qp, {"token": tok}, clone(2), pos, gather)
@@ -3194,11 +3324,15 @@ def window_live(torch, dev, model, qparams, gather, prompt, max_seq):
                              f"{SHALLOW_LIMIT}")
     step_ms = cuda_ms(torch, lambda i: model.decode_step(
         qparams, {"token": tok}, cache, pos, gather), 5, 1)
+    base = ("" if rel_base is None else
+            f"; local base {cfg.rope_theta_local:g} vs {cfg.rope_theta:g} "
+            f"everywhere {rel_base:.4e}")
     print(f"{cfg.name} at position {n} (window {cfg.window}): logits rel L2 "
-          f"windowed vs global {rel_win:.4e}; depth-2 kernels vs plain "
+          f"windowed vs global {rel_win:.4e}{base}; depth-2 kernels vs plain "
           f"{rel2:.4e} (limit {SHALLOW_LIMIT}); decode step, 1 slot, view "
           f"{max_seq}: {step_ms:.3f} ms", flush=True)
     return dict(long_position=n, logits_rel_l2_window_vs_global=rel_win,
+                logits_rel_l2_local_base_vs_global=rel_base,
                 logits_rel_l2_depth2_long=rel2, step_ms=step_ms)
 
 
@@ -3259,15 +3393,106 @@ def decode_timings(torch, dev, model, qparams, gather, prompts, max_seq):
             cache, tok, pos)
 
 
+def randomize_extras(torch, params, dev, seed=5):
+    """QKV biases N(0, 0.5^2) and qk-norm weights 1 + N(0, 0.3^2) from a
+    seeded generator, in place of init's zeros and ones, which would hide
+    a missing or swapped term."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    attn = params["blocks"]["attn"]
+    for name, base, sd in (("bq", 0.0, 0.5), ("bk", 0.0, 0.5),
+                           ("bv", 0.0, 0.5), ("q_norm", 1.0, 0.3),
+                           ("k_norm", 1.0, 0.3)):
+        if name in attn:
+            attn[name] = base + sd * torch.randn(attn[name].shape,
+                                                 generator=g, device=dev)
+
+
+class LogitsTap:
+    """A model whose decode steps also copy their logits into ``buf``: a
+    captured step records the copy, so a replay's logits can be read."""
+
+    def __init__(self, model, buf):
+        self.model, self.buf = model, buf
+
+    def decode_step(self, *args, **kw):
+        logits, cache = self.model.decode_step(*args, **kw)
+        self.buf.copy_(logits)
+        return logits, cache
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+
+def decode_graph_vs_eager(torch, dev, model, qparams, prompts, max_new=64):
+    """The session's decode step eager and as its CUDA graph: a paged
+    session of len(prompts) slots (128 positions each, page 16, chunk 32)
+    past its prompts' chunks; from identical state one greedy step eager
+    and one through a fresh capture and replay must give bitwise the same
+    logits, tokens and state (cache included); then each way's wall
+    (CUDA events around the host's calls), device time and operations
+    (profiler), and idle share, the slots decoding throughout."""
+    from repro_torch.serve.session import Request, ServeSession
+    slots = len(prompts)
+    sess = ServeSession(model, qparams, slots=slots, max_seq=128, paged=True,
+                        page_size=16, prefill_chunk=32, seed=0, device=dev)
+    for p in prompts:
+        sess.submit(Request(prompt=p, max_new_tokens=max_new))
+    while sess._prefill_q:
+        sess.step()
+    buf = torch.empty((slots, model.cfg.vocab_size), dtype=torch.float32,
+                      device=dev)
+    sess.model = LogitsTap(model, buf)
+    sess._graphs.clear()              # the next capture records the tap
+    tensors = [t for _, t in sess._state_tensors()]
+    snap = [t.clone() for t in tensors]
+    sess._decode(False)
+    eager = [t.clone() for t in tensors] + [buf.clone()]
+    for t, v in zip(tensors, snap):
+        t.copy_(v)
+    del snap
+    sess._warm.add(False)
+    sess._dispatch(False)             # capture, then replay
+    got = tensors + [buf]
+    bad = [name for (name, _), a, b in zip(
+        sess._state_tensors() + [("logits", None)], got, eager)
+        if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"{model.cfg.name}: the graphed decode step "
+                             f"differs from the eager one in {bad}")
+    del eager
+    graph = sess._graphs[False]
+    e_ms = cuda_ms(torch, lambda i: sess._decode(False), 8, 1)
+    g_ms = cuda_ms(torch, lambda i: graph.replay(), 8, 1)
+    e_dev, e_kernels, e_ops = profile_ms(torch, lambda: sess._decode(False),
+                                         with_launches=True)
+    g_dev, _, g_ops = profile_ms(torch, graph.replay, with_launches=True)
+    active = int(sess._state["active"].sum())
+    if active != slots:
+        raise AssertionError(f"{active} of {slots} slots active while timed")
+    out = dict(eager_ms=e_ms, eager_device_ms=e_dev, eager_device_ops=e_ops,
+               eager_idle=1 - e_dev / e_ms, graph_ms=g_ms,
+               graph_device_ms=g_dev, graph_device_ops=g_ops,
+               graph_idle=1 - g_dev / g_ms, bitwise=True,
+               eager_kernels=e_kernels[:8],
+               position=int(sess._state["pos"][0]))
+    del sess, graph
+    torch.cuda.empty_cache()
+    return out
+
+
 def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
     """Serve full-width ``arch`` (phase 4: yi-6b; phase 4b: gemma2-2b with
     one ``long_plen``-token request past its window, in a session of
-    ``max_seq`` positions a slot), then the decode gates."""
+    ``max_seq`` positions a slot; 4g: gemma3-4b likewise, its local RoPE
+    base checked too; 4h: qwen2.5-14b), the weights quantized leaf by leaf
+    as the launcher does (each float32 leaf dropped once its codes
+    exist), random QKV biases and qk-norm weights where the model has
+    them; then the decode gates and the decode step eager and graphed."""
     MM, paged, K = mods["MM"], mods["paged"], mods["K"]
     from repro_torch.configs import get_config
+    from repro_torch.launch.serve import quantize_in_place
     from repro_torch.models.model import Model
-    from repro_torch.serve.quantized import (make_dequant_gather,
-                                             params_nbytes, quantize_params)
+    from repro_torch.serve.quantized import make_dequant_gather, params_nbytes
     from repro_torch.serve.session import Request, ServeSession
     import numpy as np
 
@@ -3288,12 +3513,13 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
     zero_serving_counts(MM, paged, K)
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
+    randomize_extras(torch, params, dev)
     fp_bytes = params_nbytes(params)
-    qparams = quantize_params(params, k_x=6, pack=True)
+    qparams = quantize_in_place(params, k_x=6, pack=True)
+    del params
     torch.cuda.synchronize()
     t_quant = time.perf_counter() - t0
     peak_start = torch.cuda.max_memory_allocated()
-    del params
     torch.cuda.empty_cache()
     q_bytes = params_nbytes(qparams)
     sess = ServeSession(model, qparams, slots=slots, max_seq=max_seq,
@@ -3333,6 +3559,9 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     if plain:
         raise AssertionError(f"{plain} plain-version calls on the card")
+    if not (sess.stats["captures"] and sess.stats["replays"]):
+        raise AssertionError(f"{arch}: the decode step was not graphed: "
+                             f"{sess.stats}")
     for h in handles:
         r = results[h]
         if len(r.tokens) != max_new or r.finish_reason != "length":
@@ -3352,6 +3581,17 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
     tm, cache, tok, pos = decode_timings(
         torch, dev, model, qparams, gather,
         [reqs[i].prompt for i in range(slots)], max_seq)
+    dg = decode_graph_vs_eager(torch, dev, model, qparams,
+                               [reqs[i].prompt[:32] for i in range(slots)])
+    print(f"{arch} session decode step, 4 slots at position "
+          f"{dg['position']}: eager {dg['eager_ms']:.3f} ms wall, "
+          f"{dg['eager_device_ms']:.3f} ms device (idle "
+          f"{dg['eager_idle']:.1%}, {dg['eager_device_ops']:.0f} operations);"
+          f" CUDA graph {dg['graph_ms']:.3f} ms wall, "
+          f"{dg['graph_device_ms']:.3f} ms device (idle "
+          f"{dg['graph_idle']:.1%}, {dg['graph_device_ops']:.0f} "
+          f"operations); one step bitwise eager vs graphed (logits, tokens, "
+          f"cache)", flush=True)
 
     # identical state through the kernels and through the plain versions
     def rel_l2(a, b):
@@ -3430,6 +3670,7 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
           f"{rel_k64:.4e} plain {rel_p64:.4e}; float32 with one K row "
           f"dropped {rel_fault:.4e}", flush=True)
     return dict(out, **tm, arch=arch, launches=launches, tokens=n_tok,
+                decode_graph=dg, layers=cfg.n_layers,
                 serve_s=t_serve,
                 tok_per_s=n_tok / t_serve, startup_s=t_quant,
                 resident_bytes=q_bytes, fp32_bytes=fp_bytes,
@@ -3462,7 +3703,8 @@ def serve_packed(torch, dev, mods, arch="yi-6b", dtype="bfloat16"):
     weights resident as 4-bit lanes (``quantize_params(k_x=2,
     pack=True)``), K1 on tensor cores only. float32 (phases 4e, 4f): int8
     codes (k_x = 6), K1 (and a tied head's K1t) on CUDA cores only. Then
-    the decode step's and the chunk's wall and device time."""
+    the decode step's and the chunk's wall and device time, and the
+    session's decode step eager and graphed (``decode_graph_vs_eager``)."""
     MM, paged, K = mods["MM"], mods["paged"], mods["K"]
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
@@ -3529,6 +3771,8 @@ def serve_packed(torch, dev, mods, arch="yi-6b", dtype="bfloat16"):
     gather = make_dequant_gather()
     tm, cache, tok, pos = decode_timings(torch, dev, model, qparams, gather,
                                          [r.prompt for r in reqs], 128)
+    tm["decode_graph"] = dg = decode_graph_vs_eager(
+        torch, dev, model, qparams, [r.prompt[:32] for r in reqs])
     tm["k1_step_device_ms"] = sum(
         t for name, t in tm["decode_step_kernels"]
         if "k1_fma_kernel" in name or "k1_fold_kernel" in name
@@ -3560,10 +3804,93 @@ def serve_packed(torch, dev, mods, arch="yi-6b", dtype="bfloat16"):
           f"{tm['decode_step_device_ms']:.3f} ms, "
           f"{tm['decode_step_device_ops']:.0f} device operations), chunk "
           f"{tm['chunk_ms']:.3f} ms (device {tm['chunk_device_ms']:.3f} ms, "
-          f"{tm['chunk_device_ops']:.0f} operations){extra}", flush=True)
+          f"{tm['chunk_device_ops']:.0f} operations){extra}; session decode "
+          f"step eager {dg['eager_ms']:.3f} ms wall, {dg['eager_device_ms']:.3f}"
+          f" ms device (idle {dg['eager_idle']:.1%}), CUDA graph "
+          f"{dg['graph_ms']:.3f} ms wall, {dg['graph_device_ms']:.3f} ms "
+          f"device (idle {dg['graph_idle']:.1%}), one step bitwise",
+          flush=True)
     return dict(tm, launches=launches, tokens=n_tok, serve_s=t_serve,
                 resident_bytes=params_nbytes(qparams), layers=PACKED_LAYERS,
                 dtype=dtype)
+
+
+# phase 4i: the admission modes, gemma2-2b's widths cut to 4 layers
+ADMISSION_LAYERS = 4
+
+
+def serve_admission(torch, dev, mods):
+    """Phase 4i: gemma2-2b's widths cut to ADMISSION_LAYERS layers (k_x =
+    6), 6 requests (64-token prompts and a 1-token one, 16 new tokens)
+    on 4 slots admitted chunked (the reference's default), whole (one
+    ``Model.prefill`` a request, fixed lanes) and injected (the prompt
+    through the graphed decode step; fixed lanes and paged): every mode
+    gives the chunked session's tokens. The counts are at 0 before the
+    whole and injected runs: K1 and K1t on tensor cores, K3, K4 (and K2
+    for the paged run) launched, no plain version on the card."""
+    MM, paged, K = mods["MM"], mods["paged"], mods["K"]
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve.quantized import quantize_params
+    from repro_torch.serve.session import Request, ServeSession
+    import numpy as np
+    cfg = dataclasses.replace(get_config("gemma2-2b"),
+                              n_layers=ADMISSION_LAYERS)
+    model = Model(cfg)
+    rng = np.random.default_rng(2)
+    reqs = [Request(prompt=[int(t) for t in rng.integers(
+        1, cfg.vocab_size, size=64 if i < 5 else 1)], max_new_tokens=16)
+        for i in range(6)]
+    torch.cuda.synchronize()
+    zero_serving_counts(MM, paged, K)
+    qparams = quantize_params(model.init(seed=0, device=dev), k_x=6,
+                              pack=True)
+    runs = {}
+    for name, kw in (("chunked", dict(prefill="chunked")),
+                     ("whole", dict(prefill="whole")),
+                     ("inject", dict(prefill="inject")),
+                     ("inject_paged", dict(prefill="inject", paged=True,
+                                           page_size=16))):
+        sess = ServeSession(model, qparams, slots=4, max_seq=128, seed=0,
+                            prefill_chunk=32, device=dev, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hs = [sess.submit(r) for r in reqs]
+        res = sess.drain()
+        torch.cuda.synchronize()
+        runs[name] = dict(tokens=[res[h].tokens for h in hs],
+                          serve_s=time.perf_counter() - t0,
+                          stats=dict(sess.stats))
+        del sess
+    want = runs["chunked"]["tokens"]
+    bad = [k for k, r in runs.items() if r["tokens"] != want]
+    if bad or any(len(t) != 16 for t in want):
+        raise AssertionError(f"admission modes {bad} give other tokens than "
+                             f"chunked admission")
+    for k in ("whole", "inject", "inject_paged"):
+        st = runs[k]["stats"]
+        if st["chunk_dispatches"] or not (st["captures"] and st["replays"]):
+            raise AssertionError(f"{k} admission: {st}")
+    launches = {"dequant_matmul_tc": MM.launches_tc,
+                "dequant_matmul_t_tc": MM.t_launches_tc,
+                "gather_pages": paged.launches,
+                "gather_pages_kv": paged.launches_kv,
+                "amax_rows": K.amax_launches,
+                "uniform_quantize_rows": K.quantize_launches}
+    plain = MM.plain_on_cuda + paged.plain_on_cuda + K.plain_on_cuda
+    if any(n == 0 for n in launches.values()) or plain or MM.launches_fma:
+        raise AssertionError(f"admission runs: launches {launches}, "
+                             f"{MM.launches_fma} CUDA-core K1, {plain} "
+                             f"plain-version calls on the card")
+    print(f"phase 4i (gemma2-2b x {ADMISSION_LAYERS} layers, 6 requests on "
+          f"4 slots): whole and injected admission (fixed lanes and paged) "
+          f"give the chunked session's tokens; " + "; ".join(
+              f"{k} {r['serve_s']:.3f} s, {r['stats']['dispatches']} decode "
+              f"dispatches, {r['stats']['chunk_dispatches']} chunks, "
+              f"{r['stats']['captures']} captures, {r['stats']['replays']} "
+              f"replays" for k, r in runs.items())
+          + f"; launches {launches}", flush=True)
+    return dict(runs=runs, launches=launches, layers=ADMISSION_LAYERS)
 
 
 def flash_path(torch, dev, FA):
@@ -3642,6 +3969,17 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     print(card, flush=True)
+    phase_s = {}
+    t_start = time.perf_counter()
+
+    def timed(name, fn, *args, **kw):
+        """Run one phase and print its seconds."""
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t
+        print(f"phase {name}: {phase_s[name]:.1f} s (total "
+              f"{time.perf_counter() - t_start:.1f} s)", flush=True)
+        return out
 
     t0 = time.perf_counter()
     planted_build = start_planted_build(build)
@@ -3649,10 +3987,12 @@ def main() -> int:
         build.library()
     finally:   # the planted nvcc processes end before anything else
         planted = finish_planted_build(build, planted_build)
+    phase_s["2"] = time.perf_counter() - t0
     print(f"build (with the planted-fault library beside it): "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{phase_s['2']:.1f} s", flush=True)
     print_ptxas(build.build_log)
 
+    t3 = time.perf_counter()
     rows = check_quantize(torch, K, dev)
     torch.cuda.empty_cache()
     g_rows, g_table = check_gather(torch, paged, dev)
@@ -3757,26 +4097,35 @@ def main() -> int:
                   f"pack plain {t['pack_plain_ms']:.4f}, bound each way "
                   f"{t['bound_ms']:.4f} (bytes)", flush=True)
 
+    phase_s["3"] = time.perf_counter() - t3
+    print(f"phase 3: {phase_s['3']:.1f} s", flush=True)
+
     mods = {"K": K, "A": A}
-    res = serve(torch, dev, {"MM": MM, "paged": paged, "K": K})
+    smods = {"MM": MM, "paged": paged, "K": K}
+    res = timed("4", serve, torch, dev, smods)
     torch.cuda.empty_cache()
-    gem = serve(torch, dev, {"MM": MM, "paged": paged, "K": K},
-                arch="gemma2-2b", max_seq=GEMMA_MAX_SEQ,
-                long_plen=GEMMA_LONG_PROMPT)
+    gem = timed("4b", serve, torch, dev, smods, arch="gemma2-2b",
+                max_seq=GEMMA_MAX_SEQ, long_plen=GEMMA_LONG_PROMPT)
     torch.cuda.empty_cache()
-    fp = flash_path(torch, dev, FA)
+    g3 = timed("4g", serve, torch, dev, smods, arch="gemma3-4b",
+               max_seq=GEMMA3_MAX_SEQ, long_plen=GEMMA3_LONG_PROMPT)
     torch.cuda.empty_cache()
-    pk = serve_packed(torch, dev, {"MM": MM, "paged": paged, "K": K})
+    qw = timed("4h", serve, torch, dev, smods, arch="qwen2.5-14b")
     torch.cuda.empty_cache()
-    pf = serve_packed(torch, dev, {"MM": MM, "paged": paged, "K": K},
-                      dtype="float32")
+    fp = timed("4c", flash_path, torch, dev, FA)
     torch.cuda.empty_cache()
-    pg = serve_packed(torch, dev, {"MM": MM, "paged": paged, "K": K},
-                      arch="gemma2-2b", dtype="float32")
+    pk = timed("4d", serve_packed, torch, dev, smods)
     torch.cuda.empty_cache()
-    tr = train(torch, dev, mods)
-    bl = alg1_baselines(torch, dev, mods)
-    gt = graph_train(torch, dev, mods)
+    pf = timed("4e", serve_packed, torch, dev, smods, dtype="float32")
+    torch.cuda.empty_cache()
+    pg = timed("4f", serve_packed, torch, dev, smods, arch="gemma2-2b",
+               dtype="float32")
+    torch.cuda.empty_cache()
+    ad = timed("4i", serve_admission, torch, dev, smods)
+    torch.cuda.empty_cache()
+    tr = timed("5", train, torch, dev, mods)
+    bl = timed("5b", alg1_baselines, torch, dev, mods)
+    gt = timed("5c", graph_train, torch, dev, mods)
     print(f"phase 5c: scan_chunk={gt['chunk']} over {gt['steps']} steps: "
           f"bitwise step by step {gt['bitwise']} (loss rel "
           f"{gt['loss_rel']:.3e}, parameters rel L2 "
@@ -3788,18 +4137,19 @@ def main() -> int:
     model8 = Model(cfg8)
     group = make_process_group("cuda")    # one NCCL rank, a local store
     try:
-        ds = dist_train(torch, dev, mods, group, model8, cfg8)
-        md = modes_train(torch, dev, mods, group, model8, cfg8)
+        ds = timed("6", dist_train, torch, dev, mods, group, model8, cfg8)
+        md = timed("7", modes_train, torch, dev, mods, group, model8, cfg8)
         torch.cuda.empty_cache()
-        ck = ckpt_resume(torch, dev, mods, group, model8, cfg8)
+        ck = timed("6b", ckpt_resume, torch, dev, mods, group, model8, cfg8)
+        lv = timed("6c", llava_train, torch, dev, mods, group)
     finally:
         close_process_group()
-    wb = wire_buffers(torch, dev, mods, model8)
+    wb = timed("8", wire_buffers, torch, dev, mods, model8)
     print(f"wire buffers: {wb['leaves']} leaves x {len(WIRE_SPECS)} codecs "
           f"through Codec.encode/decode, bitwise the plain versions; bytes "
           f"{wb['bytes']}; launches {wb['launches']}", flush=True)
     torch.cuda.empty_cache()
-    pp = paper_protocol(torch, dev, mods)
+    pp = timed("9", paper_protocol, torch, dev, mods)
     parity = pp.pop("parity")
     print(f"paper protocol: every method's kernels bitwise their plain "
           f"versions at the MLP's shapes over {PARITY_STEPS} steps "
@@ -3814,6 +4164,10 @@ def main() -> int:
     for r in rows:
         by_path = {"serve": res["launches"].get(r["name"], 0),
                    "serve_gemma2": gem["launches"].get(r["name"], 0),
+                   "serve_gemma3": g3["launches"].get(r["name"], 0),
+                   "serve_qwen": qw["launches"].get(r["name"], 0),
+                   "serve_admission": ad["launches"].get(r["name"], 0),
+                   "train_llava": lv["launches"].get(r["name"], 0),
                    "flash": fp["launches_bf16"].get(r["name"], 0),
                    "flash_f32": fp["launches_f32"].get(r["name"], 0),
                    "serve_packed": pk["launches"].get(r["name"], 0),
@@ -3836,8 +4190,9 @@ def main() -> int:
     idle = [r["name"] for r in rows if r["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")
-    for sv in (res, gem):
-        print(f"{sv['arch']}: served {sv['tokens']} tokens in "
+    for sv in (res, gem, g3, qw):
+        print(f"{sv['arch']} ({sv['layers']} layers): served {sv['tokens']} "
+              f"tokens in "
               f"{sv['serve_s']:.3f} s ({sv['tok_per_s']:.2f} tok/s); decode "
               f"step {sv['decode_step_ms']:.3f} ms, chunk "
               f"{sv['chunk_ms']:.3f} ms (device {sv['chunk_device_ms']:.3f} "
@@ -4034,8 +4389,13 @@ def main() -> int:
                        encode_kernels=e_table, modes=md, wire_buffers=wb,
                        slice6_kernels=s_table, planted_faults=s_faults,
                        alg1_baselines=bl, paper=pp, train_graph=gt,
-                       dist_ckpt=ck),
+                       dist_ckpt=ck, serve_gemma3=g3, serve_qwen=qw,
+                       serve_admission=ad, train_llava=lv,
+                       phase_s=phase_s),
                   fh, indent=1)
+    print("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                           phase_s.items())
+          + f"; total {time.perf_counter() - t_start:.1f}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

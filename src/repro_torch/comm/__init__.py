@@ -34,3 +34,4 @@ from repro_torch.comm.codec import (  # noqa: F401
     resolve_backend,
     uniform_wire_codec,
 )
+from repro_torch.comm.matmul import dequant_matmul  # noqa: F401

@@ -2,9 +2,11 @@
 
 ``get_config(arch_id)`` returns the exact published configuration;
 ``get_config(arch_id, smoke=True)`` the reduced CPU-test variant. The
-port carries the architectures it serves: the dense GQA decoders yi-6b
-(untied head) and gemma2-2b (tied head, alternating sliding-window and
-global layers, softcaps, post-sublayer norms).
+port carries the dense GQA family: yi-6b (untied head), gemma2-2b (tied
+head, alternating sliding-window and global layers, softcaps,
+post-sublayer norms), gemma3-4b (5:1 local:global layers, qk-norm, a
+local RoPE base), qwen2.5-14b (QKV bias) and llava-next-mistral-7b (the
+mistral decoder on embedding input, its vision tower stubbed).
 """
 from __future__ import annotations
 
@@ -15,6 +17,9 @@ from repro_torch.models.config import ModelConfig
 _MODULES = {
     "yi-6b": "repro_torch.configs.yi_6b",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
+    "gemma3-4b": "repro_torch.configs.gemma3_4b",
+    "qwen2.5-14b": "repro_torch.configs.qwen2p5_14b",
+    "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
 }
 
 ARCH_IDS = tuple(_MODULES)

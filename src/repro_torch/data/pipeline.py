@@ -1,5 +1,6 @@
 """Deterministic synthetic data (port of ``repro/data/pipeline.py``:
-token models and the classification task of the paper's comparison).
+token and embedding-input models, and the classification task of the
+paper's comparison).
 
 numpy only: the same seed gives the reference's data element for
 element. Token streams have a Zipf-ish unigram structure plus copy
@@ -58,15 +59,31 @@ def lm_batches(cfg: LMDataConfig) -> Iterator[Dict[str, np.ndarray]]:
 
 def batch_for_model(mcfg: ModelConfig, seq_len: int, global_batch: int,
                     seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
-    """Model-aware synthetic batches. The port's models take tokens; the
-    reference's embedding and audio front-end stubs are not ported."""
-    if mcfg.input_mode != "tokens":
+    """Model-aware synthetic batches. An embedding-input model (llava's
+    stubbed vision tower) gets ``embeds`` (B, S, d) float32 drawn from
+    ``seed + 1`` in place of ``tokens``, bitwise the reference's; the
+    audio front-end's stub is not ported."""
+    if mcfg.input_mode not in ("tokens", "embeddings"):
         raise NotImplementedError(
             f"input_mode={mcfg.input_mode!r}: the port's data pipeline "
-            "makes token batches only (ROADMAP.md queue 1)")
-    return lm_batches(LMDataConfig(vocab_size=mcfg.vocab_size,
+            "makes token and embedding batches (ROADMAP.md queue 1)")
+    base = lm_batches(LMDataConfig(vocab_size=mcfg.vocab_size,
                                    seq_len=seq_len,
                                    global_batch=global_batch, seed=seed))
+    if mcfg.input_mode == "tokens":
+        return base
+    return _with_embeds(base, mcfg.d_model, seq_len, global_batch, seed)
+
+
+def _with_embeds(base, d: int, seq_len: int, global_batch: int,
+                 seed: int) -> Iterator[Dict[str, np.ndarray]]:
+    rng = np.random.default_rng(seed + 1)
+    for b in base:
+        b = dict(b)
+        b.pop("tokens")
+        b["embeds"] = rng.normal(size=(global_batch, seq_len, d),
+                                 scale=0.7).astype(np.float32)
+        yield b
 
 
 @dataclasses.dataclass

@@ -141,8 +141,10 @@ def weight_wire_codec(tc: TrainConfig, numel: int):
 def local_batch(batch: Dict[str, torch.Tensor], rank: int,
                 n_workers: int) -> Dict[str, torch.Tensor]:
     """This worker's rows of the global batch (``_batch_geometry``): a
-    slice of B / W rows when B divides by W, else the whole batch."""
-    B = batch["tokens"].shape[0]
+    slice of B / W rows when B divides by W, else the whole batch. B is
+    read from ``tokens``, or from ``embeds`` for an embedding-input
+    model."""
+    B = batch["tokens" if "tokens" in batch else "embeds"].shape[0]
     if B % n_workers or n_workers == 1:
         return batch
     b = B // n_workers

@@ -8,20 +8,64 @@ code-resident Q_x weights (port of ``repro/launch/serve.py``).
 
 runs on the GPU (``--device cuda``, the default); ``--smoke --device cpu``
 runs the small configuration on the CPU through the kernels' plain
-versions. Weights are random, drawn from ``--seed``. gemma2-2b's head is
-tied to its embedding: quantized, both read the one table of codes (the
-lookup by row, the head through the transposed dequant-matmul).
+versions. ``--arch`` takes the dense family of ``repro_torch.configs``:
+yi-6b, gemma2-2b, gemma3-4b and qwen2.5-14b (llava-next-mistral-7b takes
+embedding input, which the session does not serve, and is refused as
+the reference refuses it). Weights are random, drawn from ``--seed``;
+with ``--quantized`` each float32 leaf is dropped as soon as its codes
+exist, so the start-up peak stays near the float32 tree (qwen2.5-14b's
+59 GB). gemma2-2b's and gemma3-4b's heads are tied to their embedding:
+quantized, both read the one table of codes (the lookup by row, the
+head through the transposed dequant-matmul). The peak memory is
+printed: the device's on a GPU, the process's resident set on the CPU.
 """
 from __future__ import annotations
 
 import argparse
+import resource
 import time
+
+
+def quantize_in_place(params, **kw):
+    """``quantize_params`` one leaf at a time, each float leaf of
+    ``params`` (a nested dict, modified) replaced by its
+    ``QuantizedLeaf`` as soon as its codes exist: the float tree and the
+    codes never coexist whole."""
+    from repro_torch.serve.quantized import quantize_params
+
+    def walk(tree, path):
+        for k in list(tree):
+            if isinstance(tree[k], dict):
+                walk(tree[k], path + (k,))
+                continue
+            sub = tree.pop(k)
+            for name in reversed(path + (k,)):
+                sub = {name: sub}
+            q = quantize_params(sub, **kw)
+            del sub
+            for name in path + (k,):
+                q = q[name]
+            tree[k] = q
+    walk(params, ())
+    return params
+
+
+def peak_memory(device) -> str:
+    """The run's peak memory: allocated on a CUDA device, else the
+    process's maximum resident set."""
+    import torch
+    if torch.device(device).type == "cuda":
+        return (f"device peak {torch.cuda.max_memory_allocated(device)} B "
+                "allocated")
+    return (f"host peak resident set "
+            f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024} B")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="yi-6b or gemma2-2b (repro_torch.configs)")
+                    help="yi-6b, gemma2-2b, gemma3-4b or qwen2.5-14b "
+                         "(repro_torch.configs)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
@@ -57,17 +101,19 @@ def main(argv=None):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
-    from repro_torch.serve.quantized import params_nbytes, quantize_params
-    from repro_torch.serve.session import Request, ServeSession
+    from repro_torch.serve import Request, ServeSession, params_nbytes
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.arch_type == "encdec" or cfg.input_mode != "tokens":
+        raise SystemExit("serve CLI demo supports token-input decoder LMs")
     model = Model(cfg)
     params = model.init(seed=args.seed, device=args.device)
     fp_bytes = params_nbytes(params)
     if args.quantized:
-        params = quantize_params(params, k_x=args.k_x, pack=not args.no_pack)
+        params = quantize_in_place(params, k_x=args.k_x,
+                                   pack=not args.no_pack)
         q_bytes = params_nbytes(params)
         print(f"arch={args.arch} params={fp_bytes / 1e6:.1f}MB fp32 -> "
               f"{q_bytes / 1e6:.1f}MB resident codes "
@@ -102,7 +148,8 @@ def main(argv=None):
     total_new = sum(len(results[h].tokens) for h in handles)
     print(f"generated {total_new} tokens over {args.requests} requests on "
           f"{args.slots} slots in {dt:.2f}s ({total_new / dt:.1f} tok/s, "
-          f"{args.device}); stats={session.stats}")
+          f"{args.device}); stats={session.stats}; "
+          f"{peak_memory(args.device)}")
     for i, h in enumerate(handles):
         r = results[h]
         print(f"  req{i}: {r.tokens[:12]}{'...' if len(r.tokens) > 12 else ''}"

@@ -13,8 +13,14 @@ configuration on gloo through the kernels' plain versions, e.g.
       --smoke --device cpu --data 2 --steps 5 --seq 32 --global-batch 4
 
 Weights are random, drawn from ``--seed``; batches are the synthetic
-token stream of ``data.pipeline``, every rank taking its rows of one
-global batch. ``--grad-bits 0``/``--weight-bits 0`` turn either channel
+token stream of ``data.pipeline`` (embeddings in place of tokens for
+llava-next-mistral-7b, its vision tower's stub), every rank taking its
+rows of one global batch, e.g.
+
+  python -m repro_torch.launch.train --arch llava-next-mistral-7b \
+      --smoke --device cpu --steps 4 --seq 32 --global-batch 4
+
+``--grad-bits 0``/``--weight-bits 0`` turn either channel
 to float32 rows; ``--no-ef`` ablates error feedback. ``--mode`` picks
 the paper's ``qadam`` or a baseline: ``dp_adam`` (fp32 data-parallel
 Adam), ``efadam`` (two-way EF), ``terngrad``, ``ef_sgd``, e.g.

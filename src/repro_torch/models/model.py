@@ -1,13 +1,16 @@
-"""Dense decoder LM: training forward and loss, and the serving decode
-(port of ``repro/models/model.py``).
+"""Dense decoder LM: training forward and loss, whole-prompt prefill,
+and the serving decode (port of ``repro/models/model.py``).
 
 Parameters keep the reference's tree: ``embed`` (V, d), ``unembed``
 (d, V) unless the head is tied to ``embed``, ``final_norm``, and the
 scan-stacked ``blocks`` whose leaves carry a leading layer dim (L, ...),
 with ``ln1_post``/``ln2_post`` where the config asks for post-sublayer
-norms. Where the reference scans over that dim with ``lax.scan`` and
-per-layer flag arrays (windows, RoPE bases), the port loops over layers
-in Python with the same flags as Python numbers.
+norms, ``attn.bq``/``bk``/``bv`` with a QKV bias (qwen2.5) and
+``attn.q_norm``/``k_norm`` with qk-norm (gemma3). Where the reference
+scans over that dim with ``lax.scan`` and per-layer flag arrays
+(windows, RoPE bases), the port loops over layers in Python with the
+same flags as Python numbers. A model with ``input_mode="embeddings"``
+(llava) takes ``batch["embeds"]`` (B, S, d) in place of tokens.
 
 The decode cache is updated IN PLACE (the reference returns a new one):
 ``decode_step``/``decode_chunk`` write each token's K/V into the fixed
@@ -69,17 +72,18 @@ class Model:
     cfg: ModelConfig
 
     def _check_dense(self):
-        """The port's decoder is the dense GQA family of yi-6b and
-        gemma2-2b: token input, rmsnorm, gated silu MLP; tied or untied
-        head, sliding-window layers, softcaps, post-sublayer norms and
-        embedding scaling as the config says. No biases, qk-norm or
-        per-layer RoPE bases (gemma3) yet."""
+        """The port's decoder is the dense GQA family (yi-6b, gemma2-2b,
+        gemma3-4b, qwen2.5-14b, and llava-next's mistral decoder, which
+        is this family on embedding input): rmsnorm, gated silu MLP;
+        tied or untied head, sliding-window layers, softcaps,
+        post-sublayer norms, embedding scaling, QKV bias, qk-norm and a
+        local RoPE base as the config says."""
         c = self.cfg
         extras = [name for name, on in (
-            ("arch_type != dense", c.arch_type != "dense"),
-            ("input_mode != tokens", c.input_mode != "tokens"),
-            ("qkv_bias", c.qkv_bias), ("qk_norm", c.qk_norm),
-            ("rope_theta_local", c.rope_theta_local is not None),
+            (f"arch_type {c.arch_type}", c.arch_type not in ("dense", "vlm")),
+            (f"input_mode {c.input_mode}",
+             c.input_mode not in ("tokens", "embeddings")),
+            ("moe", c.moe is not None), ("meta_tokens", c.meta_tokens > 0),
             ("norm != rmsnorm", c.norm != "rmsnorm"),
             ("act != silu", c.act != "silu")) if on]
         if extras:
@@ -92,10 +96,10 @@ class Model:
              seed: int = 0, device="cuda") -> Dict[str, Any]:
         """Random float32 parameters with the reference's leaf names and
         shapes: truncated normal in [-2, 2] times 0.02 for weights, ones
-        for norms. Draws come from ``generator`` (default: a generator on
-        ``device`` seeded with ``seed``); the numbers differ from
-        ``jax.random``'s, so tests convert the reference's tree instead
-        (``repro_torch.convert``)."""
+        for norms (qk-norm's too), zeros for QKV biases. Draws come from
+        ``generator`` (default: a generator on ``device`` seeded with
+        ``seed``); the numbers differ from ``jax.random``'s, so tests
+        convert the reference's tree instead (``repro_torch.convert``)."""
         self._check_dense()
         cfg = self.cfg
         dev = torch.device(device)
@@ -118,11 +122,17 @@ class Model:
                   "final_norm": {"w": ones(d)}}
         if not cfg.tie_embeddings:
             params["unembed"] = dense(d, cfg.vocab_size)
-        blocks = {
-            "ln1": {"w": ones(n, d)},
-            "attn": {"q": dense(n, d, H * hd), "k": dense(n, d, K * hd),
-                     "v": dense(n, d, K * hd), "o": dense(n, H * hd, d)},
-            "ln2": {"w": ones(n, d)}}
+        attn = {"q": dense(n, d, H * hd), "k": dense(n, d, K * hd),
+                "v": dense(n, d, K * hd), "o": dense(n, H * hd, d)}
+        if cfg.qkv_bias:
+            for name, width in (("bq", H * hd), ("bk", K * hd),
+                                ("bv", K * hd)):
+                attn[name] = torch.zeros((n, width), dtype=torch.float32,
+                                         device=dev)
+        if cfg.qk_norm:
+            attn["q_norm"], attn["k_norm"] = ones(n, hd), ones(n, hd)
+        blocks = {"ln1": {"w": ones(n, d)}, "attn": attn,
+                  "ln2": {"w": ones(n, d)}}
         if cfg.post_norm:
             blocks["ln1_post"] = {"w": ones(n, d)}
             blocks["ln2_post"] = {"w": ones(n, d)}
@@ -132,12 +142,18 @@ class Model:
         return params
 
     # ---------------- embed / head ----------------
-    def _embed_in(self, params, tokens):
-        if L.code_resident(params["embed"]):
+    def _embed_in(self, params, inputs, key):
+        """The input rows in the activation dtype: ``inputs["embeds"]``
+        for an embedding-input model, else the embedding rows of
+        ``inputs[key]``; then the embedding scaling where the config has
+        it."""
+        if self.cfg.input_mode == "embeddings":
+            x = inputs["embeds"].to(_dt(self.cfg))
+        elif L.code_resident(params["embed"]):
             # code-resident table: gather only the hit rows' codes
-            x = params["embed"].astype(_dt(self.cfg)).take(tokens)
+            x = params["embed"].astype(_dt(self.cfg)).take(inputs[key])
         else:
-            x = params["embed"].to(_dt(self.cfg))[tokens.long()]
+            x = params["embed"].to(_dt(self.cfg))[inputs[key].long()]
         if self.cfg.emb_scale:
             # sqrt(d) rounded to x's dtype first, as the reference
             x = x * torch.full((), math.sqrt(self.cfg.d_model),
@@ -166,27 +182,51 @@ class Model:
             return L.apply_norm(out, p[name], self.cfg)
         return out
 
+    def _qkv(self, pa, h, q_pos, theta, backend=None):
+        """The attention sublayer's q (B, S, H, hd), k and v (B, S, K, hd)
+        of the normed input h, in the reference's order: projections,
+        the QKV bias (cast to h's dtype), qk-norm per head, RoPE on q and
+        k at ``q_pos`` with the layer's base."""
+        cfg = self.cfg
+        Bn, S, _ = h.shape
+        H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        q = L.pmatmul(h, pa["q"], backend)
+        k = L.pmatmul(h, pa["k"], backend)
+        v = L.pmatmul(h, pa["v"], backend)
+        if cfg.qkv_bias:
+            q = q + pa["bq"].to(h.dtype)
+            k = k + pa["bk"].to(h.dtype)
+            v = v + pa["bv"].to(h.dtype)
+        q = q.reshape(Bn, S, H, hd)
+        k = k.reshape(Bn, S, K, hd)
+        v = v.reshape(Bn, S, K, hd)
+        if cfg.qk_norm:
+            q = L.rmsnorm(q, pa["q_norm"], cfg.norm_eps)
+            k = L.rmsnorm(k, pa["k_norm"], cfg.norm_eps)
+        return L.rope(q, q_pos, theta), L.rope(k, q_pos, theta), v
+
     # ---------------- training forward ----------------
-    def _block(self, p, x, q_pos, window, theta):
-        """One decoder block of the training forward on x (B, S, d)."""
+    def _block(self, p, x, q_pos, window, theta, backend=None, kv=None):
+        """One decoder block of the training forward on x (B, S, d);
+        ``kv``, a list, collects the layer's (k, v) (prefill)."""
         cfg = self.cfg
         Bn, S, _ = x.shape
-        H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
         h = L.apply_norm(x, p["ln1"], cfg)
         pa = p["attn"]
-        q = L.rope(L.pmatmul(h, pa["q"]).reshape(Bn, S, H, hd), q_pos, theta)
-        k = L.rope(L.pmatmul(h, pa["k"]).reshape(Bn, S, K, hd), q_pos, theta)
-        v = L.pmatmul(h, pa["v"]).reshape(Bn, S, K, hd)
+        q, k, v = self._qkv(pa, h, q_pos, theta, backend)
+        if kv is not None:
+            kv.append((k, v))
         attn = L.attention(q, k, v, q_pos=q_pos, window=window,
                            softcap=cfg.attn_softcap)
-        attn = L.pmatmul(attn.reshape(Bn, S, H * hd), pa["o"])
+        attn = L.pmatmul(attn.reshape(Bn, S, -1), pa["o"], backend)
         x = x + self._post(attn, p, "ln1_post")
-        out = L.mlp(p["mlp"], L.apply_norm(x, p["ln2"], cfg))
+        out = L.mlp(p["mlp"], L.apply_norm(x, p["ln2"], cfg), backend)
         return x + self._post(out, p, "ln2_post")
 
     def forward(self, params, batch) -> torch.Tensor:
         """Training forward of float parameters -> float32 logits
-        (B, S, V). batch: {"tokens": (B, S) int}.
+        (B, S, V). batch: {"tokens": (B, S) int}, or {"embeds": (B, S,
+        d)} for an embedding-input model.
 
         Each block runs under ``torch.utils.checkpoint`` (non-reentrant):
         its activations are recomputed in the backward, the reference's
@@ -196,7 +236,7 @@ class Model:
         activation dtype, as the reference leaves them to XLA."""
         self._check_dense()
         cfg = self.cfg
-        x = self._embed_in(params, batch["tokens"])
+        x = self._embed_in(params, batch, "tokens")
         q_pos = torch.arange(x.shape[1], device=x.device)
         per_layer = tree_map(lambda w: torch.unbind(w, 0), params["blocks"])
         for i, (window, theta) in enumerate(zip(cfg.layer_windows(),
@@ -206,6 +246,40 @@ class Model:
                            use_reentrant=False)
         x = L.apply_norm(x, params["final_norm"], cfg)
         return self._head(params, x)
+
+    def prefill(self, params, batch, max_seq_local: int,
+                gather: Gather = None, backend: Optional[str] = None):
+        """Whole-prompt prefill: the forward pass over ``batch``'s
+        sequence that also returns each layer's K and V, as the
+        reference's ``forward(collect_cache=True)``. Returns (float32
+        logits (B, S, V), {"k", "v": (layers, B, max_seq_local, K, hd)}),
+        the cache zero-padded past S. ``gather`` is the per-layer
+        parameter hook of code-resident weights (``make_dequant_gather``);
+        no activations are kept for a backward."""
+        self._check_dense()
+        cfg = self.cfg
+        if gather is not None:
+            params = gather(params, "static")
+        x = self._embed_in(params, batch, "tokens")
+        S = x.shape[1]
+        if S > max_seq_local:
+            raise ValueError(f"a prompt of {S} tokens does not fit "
+                             f"max_seq_local={max_seq_local}")
+        q_pos = torch.arange(S, device=x.device)
+        kv = []
+        for i, (window, theta) in enumerate(zip(cfg.layer_windows(),
+                                                cfg.layer_rope_thetas())):
+            p = layer_slice(params["blocks"], i)
+            if gather is not None:
+                p = gather(p, "blocks")
+            x = self._block(p, x, q_pos, window, theta, backend, kv)
+        x = L.apply_norm(x, params["final_norm"], cfg)
+        logits = self._head(params, x, backend)
+        pad = (0, 0, 0, 0, 0, max_seq_local - S)
+        cache = {name: torch.nn.functional.pad(
+                     torch.stack([layer[j] for layer in kv]), pad)
+                 for j, name in enumerate(("k", "v"))}
+        return logits, cache
 
     def loss(self, params, batch):
         """(sum of masked next-token NLL, token count), both 0-d float32:
@@ -266,8 +340,8 @@ class Model:
         write = _DropScatter((torch.clamp(wloc, 0, P - 1).reshape(-1),
                               (q_pos % ps).long().reshape(-1)),
                              ok.reshape(-1))
-        own = ptab < P
-        extra_valid = torch.repeat_interleave(own, ps, dim=1)
+        own = ptab < P      # (B, npag) -> (B, S_view), each page's ps rows
+        extra_valid = own[:, :, None].expand(Bn, npag, ps).reshape(Bn, -1)
         view_pos = torch.arange(S_view, device=ptab.device)
         return write, extra_valid, view_pos
 
@@ -302,11 +376,7 @@ class Model:
                 p = gather(p, "blocks")
             h = L.apply_norm(x, p["ln1"], cfg)
             pa = p["attn"]
-            q = L.pmatmul(h, pa["q"], backend).reshape(Bn, S, H, hd)
-            k = L.pmatmul(h, pa["k"], backend).reshape(Bn, S, K, hd)
-            v = L.pmatmul(h, pa["v"], backend).reshape(Bn, S, K, hd)
-            q = L.rope(q, q_pos, thetas[i])
-            k = L.rope(k, q_pos, thetas[i])
+            q, k, v = self._qkv(pa, h, q_pos, thetas[i], backend)
             if paged:
                 pk, pv = cache["pk"][i], cache["pv"][i]
                 write(pk, k.reshape(Bn * S, K, hd))
@@ -326,34 +396,41 @@ class Model:
 
     # ---------------- decode ----------------
     def decode_step(self, params, inputs, cache, pos, gather: Gather = None,
-                    backend: Optional[str] = None):
-        """One-token decode. inputs: {"token": (B, 1)}; pos: the token's
-        position, scalar or (B,) per slot. Returns (logits (B, V), cache),
-        the cache updated in place. ``gather`` is the per-layer parameter
-        hook (``make_dequant_gather``); ``backend`` forces the kernels'
-        implementation (default: by device)."""
+                    backend: Optional[str] = None,
+                    write: Optional[torch.Tensor] = None):
+        """One-token decode. inputs: {"token": (B, 1)} or {"embeds": (B,
+        1, d)}; pos: the token's position, scalar or (B,) per slot.
+        Returns (logits (B, V), cache), the cache updated in place.
+        ``gather`` is the per-layer parameter hook
+        (``make_dequant_gather``); ``backend`` forces the kernels'
+        implementation (default: by device); ``write``, (B,) bool, drops
+        the K/V writes of the rows where it is False (a session's
+        inactive slots)."""
         self._check_dense()
         cfg = self.cfg
         if gather is not None:
             params = gather(params, "static")
-        x = self._embed_in(params, inputs["token"])
+        x = self._embed_in(params, inputs, "token")
         Bn = x.shape[0]
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
         posv = pos.expand(Bn)[:, None]                          # (B, 1)
+        valid = (torch.ones_like(posv, dtype=torch.bool) if write is None
+                 else write.reshape(Bn, 1))
 
         def attend(q, kc, vc, view, window):
             return L.decode_attention(q, kc, vc, total_len=posv[:, 0] + 1,
                                       window=window,
                                       softcap=cfg.attn_softcap, **view)
 
-        x = self._layers(params, x, cache, posv, torch.ones_like(
-            posv, dtype=torch.bool), attend, gather, backend)
+        x = self._layers(params, x, cache, posv, valid, attend, gather,
+                         backend)
         return self._head(params, x, backend)[:, 0], cache
 
     def decode_chunk(self, params, inputs, cache, start, nvalid,
                      gather: Gather = None, backend: Optional[str] = None):
         """Chunked prefill: advance B slots by one fixed-size chunk of
-        prompt tokens. inputs: {"token": (B, Sq)}; start: (B,) position
+        prompt tokens. inputs: {"token": (B, Sq)} or {"embeds": (B, Sq,
+        d)}; start: (B,) position
         of each slot's first chunk token; nvalid: (B,) valid tokens (the
         padded tail's writes are dropped). Returns (logits (B, V) of
         position start + nvalid - 1, cache updated in place)."""
@@ -361,7 +438,7 @@ class Model:
         cfg = self.cfg
         if gather is not None:
             params = gather(params, "static")
-        x = self._embed_in(params, inputs["token"])
+        x = self._embed_in(params, inputs, "token")
         Bn, Sq, _ = x.shape
         dev = x.device
         start = torch.as_tensor(start, dtype=torch.int32, device=dev)

@@ -16,20 +16,36 @@
     ``{handle: Result}``. The host reads device state only at harvests
     (``stats["syncs"]``), O(requests), never O(tokens).
 
+Admission, as the reference's: ``"chunked"`` (the dense family's
+``"auto"``), ``"whole"`` (one ``Model.prefill`` over the prompt fills the
+slot's fixed lane; prompts shorter than 2 tokens are injected) or
+``"inject"`` (the prompt enters through the decode step, one token a
+step, the step's logits discarded until the last prompt position).
+
+On a CUDA device the decode step is one CUDA graph, the counterpart of
+the reference's single jitted step: the first step of each kind (greedy,
+sampling) runs eagerly as the warm-up, the next captures it, and every
+later one replays it (``stats["captures"]``, ``stats["replays"]``; a
+kernel's launch counter counts it once, at capture). Every state tensor
+is written in place, by the step and by the host's admissions and
+releases alike, so the graph always sees the live state. A capture that
+fails raises. The CPU runs every step eagerly.
+
 Differences from the reference, all inside the session: the cache is
-updated in place (inactive slots' rows rewrite identical bytes or drop,
-so no retention pass is needed); sampling draws Gumbel noise from a
+updated in place (inactive slots' writes drop, where the reference
+reverts them on fixed lanes and rewrites identical bytes on pages);
+sampling draws Gumbel noise from a
 counter-based hash of (request key, draw count), so a request's stream
-is reproducible from ``seed``, independent of its batch mates and of
-preemption, but not the reference's ``jax.random`` stream. Greedy
-tokens are the reference's.
+is reproducible from ``seed``, independent of its batch mates, of
+preemption and of the admission mode, but not the reference's
+``jax.random`` stream. Greedy tokens are the reference's.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -111,10 +127,15 @@ class ServeSession:
         ``num_pages`` pages, default fixed-lane-equal memory); admission
         validates pages up front.
     prefill: "auto" (the reference's default: for the dense family it
-        chooses chunked admission) or "chunked" (``prefill_chunk`` prompt
-        tokens per dispatch, interleaved with decode), the only admission
-        path ported; the reference's "whole" and "inject" raise
-        (ROADMAP.md).
+        chooses chunked admission), "chunked" (``prefill_chunk`` prompt
+        tokens per dispatch, interleaved with decode), "whole" (one
+        ``Model.prefill`` of the prompt into the slot's fixed lane; fixed
+        lanes only, a prompt shorter than 2 tokens is injected) or
+        "inject" (the prompt through the decode step, one token a step).
+        The first generated token of a chunked or whole admission is the
+        greedy argmax of the last prompt position's logits, or draw 0 of
+        the request's Gumbel stream when sampling; an injected prompt's
+        first token is the decode step's, with the same draw 0.
     """
 
     def __init__(self, model, params, *, slots: int = 8, max_seq: int = 256,
@@ -126,8 +147,8 @@ class ServeSession:
                  device="cuda"):
         cfg = model.cfg
         if cfg.input_mode != "tokens" or cfg.arch_type != "dense":
-            raise ValueError("the port's ServeSession serves dense "
-                             "token-input decoder LMs")
+            raise ValueError("ServeSession serves token-input decoder LMs "
+                             "(the port: the dense family)")
         self.model, self.cfg = model, cfg
         self.device = torch.device(device)
         self.slots, self.max_seq, self.eos_id = slots, max_seq, eos_id
@@ -145,11 +166,12 @@ class ServeSession:
         else:
             self.page_size = self.num_pages = 0
             self._pool = None
-        if prefill in ("whole", "inject"):
-            raise NotImplementedError(f"prefill={prefill!r} is not ported "
-                                      "yet (ROADMAP.md); use chunked")
-        if prefill not in ("auto", "chunked"):
+        if prefill not in ("auto", "chunked", "whole", "inject"):
             raise ValueError(f"unknown prefill mode {prefill!r}")
+        if prefill == "whole" and self.paged:
+            raise ValueError("whole-prompt prefill fills a dense lane; "
+                             "paged sessions admit chunked (or inject)")
+        self._prefill_mode = prefill
         self.prefill_chunk = max(1, int(prefill_chunk))
         if preempt_mode not in ("requeue", "kill"):
             raise ValueError(f"unknown preempt_mode {preempt_mode!r}")
@@ -157,6 +179,8 @@ class ServeSession:
         self._gather = (make_dequant_gather(fused=fused_matmul)
                         if is_quantized(params) else None)
         self._state = self._init_state()
+        self._graphs: Dict[bool, torch.cuda.CUDAGraph] = {}  # sample ->
+        self._warm: set = set()         # step kinds run once eagerly
         self._seed = int(seed)
         self._hot: set = set()          # handles in slots with temp > 0
         self._slot_handle: List[Optional[int]] = [None] * slots
@@ -175,7 +199,7 @@ class ServeSession:
         self._steps = 0
         self.stats = {"dispatches": 0, "syncs": 0, "admitted": 0,
                       "preemptions": 0, "chunk_dispatches": 0,
-                      "max_inflight": 0}
+                      "max_inflight": 0, "captures": 0, "replays": 0}
 
     # ------------------------------------------------------------------
     # device-side state and the programs that update it
@@ -194,6 +218,7 @@ class ServeSession:
                     max_new=z(torch.int32), active=z(torch.bool),
                     temp=z(torch.float32),
                     rng=torch.zeros((B, 2), dtype=torch.int64, device=dev),
+                    prompt=torch.zeros((B, S), dtype=torch.int32, device=dev),
                     out=torch.zeros((B, S), dtype=torch.int32, device=dev))
 
     def _to_dev(self, a, dtype) -> torch.Tensor:
@@ -225,26 +250,14 @@ class ServeSession:
         if self.paged:
             st["cache"]["ptab"][slot] = self.num_pages
 
-    def _run_chunk(self, slot, tokens, start, nvalid, max_new, temp, key,
-                   is_last):
-        """One chunked-prefill dispatch for one slot; the final chunk
-        also picks the first generated token (draw 0 of the request's
-        stream when sampling)."""
+    def _first_token(self, slot: int, lg: torch.Tensor, plen: int,
+                     max_new: int, temp: float, key: int):
+        """Activate ``slot`` after its prompt of ``plen`` tokens filled
+        the cache: the first generated token from the last prompt
+        position's logits ``lg`` (V,), greedy or draw 0 of the request's
+        stream when sampling (chunked and whole admission alike)."""
         st = self._state
-        cache = st["cache"]
-        if self.paged:
-            lane = {"pk": cache["pk"], "pv": cache["pv"],
-                    "ptab": cache["ptab"][slot:slot + 1]}
-        else:
-            lane = {"k": cache["k"][:, slot:slot + 1],
-                    "v": cache["v"][:, slot:slot + 1]}
-        lg, _ = self.model.decode_chunk(
-            self.params, {"token": self._to_dev(tokens[None], torch.int32)},
-            lane, self._to_dev([start], torch.int32),
-            self._to_dev([nvalid], torch.int32), self._gather)
-        if not is_last:
-            return
-        lgf = lg[0].to(torch.float32)
+        lgf = lg.to(torch.float32)
         hot = temp > 0.0
         if hot:
             rk = self._to_dev([key], torch.int64)
@@ -253,7 +266,6 @@ class ServeSession:
         else:
             t0 = torch.argmax(lgf)
         t0 = t0.to(torch.int32)
-        plen = start + nvalid
         st["cur"][slot] = t0
         st["pos"][slot] = plen
         st["plen"][slot] = plen
@@ -267,16 +279,80 @@ class ServeSession:
         st["temp"][slot] = temp
         st["rng"][slot] = self._to_dev([key, int(hot)], torch.int64)
 
+    def _run_chunk(self, slot, tokens, start, nvalid, max_new, temp, key,
+                   is_last):
+        """One chunked-prefill dispatch for one slot; the final chunk
+        also picks the first generated token (:meth:`_first_token`)."""
+        st = self._state
+        cache = st["cache"]
+        if self.paged:
+            lane = {"pk": cache["pk"], "pv": cache["pv"],
+                    "ptab": cache["ptab"][slot:slot + 1]}
+        else:
+            lane = {"k": cache["k"][:, slot:slot + 1],
+                    "v": cache["v"][:, slot:slot + 1]}
+        lg, _ = self.model.decode_chunk(
+            self.params, {"token": self._to_dev(tokens[None], torch.int32)},
+            lane, self._to_dev([start], torch.int32),
+            self._to_dev([nvalid], torch.int32), self._gather)
+        if is_last:
+            self._first_token(slot, lg[0], start + nvalid, max_new, temp, key)
+
+    def _prefill_whole(self, slot: int, prompt: np.ndarray, max_new: int,
+                       temp: float, key: int):
+        """Whole-prompt admission: one ``Model.prefill`` over the prompt
+        writes the slot's fixed lane (zeros past the prompt, as the
+        reference's padded cache), then the first token."""
+        st = self._state
+        plen = len(prompt)
+        toks = self._to_dev(prompt[None], torch.int32)
+        lg, lane = self.model.prefill(self.params, {"tokens": toks},
+                                      max_seq_local=self.max_seq,
+                                      gather=self._gather)
+        for name in ("k", "v"):
+            st["cache"][name][:, slot].copy_(lane[name][:, 0])
+        self._write_prompt(slot, prompt)
+        self._first_token(slot, lg[0, plen - 1], plen, max_new, temp, key)
+
+    def _write_prompt(self, slot: int, prompt: np.ndarray):
+        row = np.zeros((self.max_seq,), np.int32)
+        row[:len(prompt)] = prompt
+        self._state["prompt"][slot] = self._to_dev(row, torch.int32)
+
+    def _inject(self, slot: int, prompt: np.ndarray, max_new: int,
+                temp: float, key: int, ptab_row):
+        """Injected admission: the slot starts active at position 0 on
+        its first prompt token; the decode step feeds the rest of the
+        prompt and emits from the last prompt position on."""
+        st = self._state
+        self._write_prompt(slot, prompt)
+        st["cur"][slot] = int(prompt[0])
+        st["pos"][slot] = 0
+        st["plen"][slot] = len(prompt)
+        st["gen"][slot] = 0
+        st["max_new"][slot] = max_new
+        st["active"][slot] = True
+        st["temp"][slot] = temp
+        st["rng"][slot] = self._to_dev([key, 0], torch.int64)
+        self._claim_cache(slot, ptab_row)
+
     def _decode(self, sample: bool):
-        """One decode step over all slots, on the device only."""
+        """One decode step over all slots, on the device only, every
+        state tensor written in place (a CUDA graph of this step replays
+        against the tensors it captured). A slot still inside its
+        injected prompt feeds its next prompt token and emits nothing;
+        inactive slots' cache writes drop."""
         st, S, eos = self._state, self.max_seq, self.eos_id
         B = self.slots
         active, pos = st["active"], st["pos"]
         logits, _ = self.model.decode_step(
             self.params, {"token": st["cur"][:, None]}, st["cache"], pos,
-            self._gather)
+            self._gather, write=active)
         logits = logits.to(torch.float32)
         greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = pos + 1
+        in_prompt = nxt < st["plen"]
+        emit = active & ~in_prompt                 # tok was generated
         if sample:
             rng = st["rng"]
             hot = st["temp"] > 0.0
@@ -284,23 +360,66 @@ class ServeSession:
             noise = gumbel_noise(rng[:, 0], rng[:, 1], logits.shape[-1])
             sampled = torch.argmax(scaled + noise, dim=-1).to(torch.int32)
             tok = torch.where(hot, sampled, greedy)
-            rng[:, 1] += hot.to(torch.int64)
+            rng[:, 1] += (hot & emit).to(torch.int64)
         else:
             tok = greedy
-        nxt = pos + 1
+        prompt_next = torch.gather(
+            st["prompt"], 1, torch.clamp(nxt, 0, S - 1).long()[:, None])[:, 0]
         rows = torch.arange(B, device=self.device)
         gidx = torch.clamp(st["gen"], 0, S - 1).long()
-        st["out"][rows, gidx] = torch.where(active, tok, st["out"][rows, gidx])
-        gen = st["gen"] + active.to(torch.int32)
-        done = active & (gen >= st["max_new"])
+        st["out"][rows, gidx] = torch.where(emit, tok, st["out"][rows, gidx])
+        gen = st["gen"] + emit.to(torch.int32)
+        done = emit & (gen >= st["max_new"])
         if eos is not None:
-            done = done | (active & (tok == eos))
+            done = done | (emit & (tok == eos))
         done = done | (active & (nxt >= S))        # cache full
         alive = active & ~done
-        st["cur"] = torch.where(alive, tok, st["cur"])
-        st["pos"] = torch.where(alive, torch.clamp_max(nxt, S - 1), pos)
-        st["gen"] = gen
-        st["active"] = alive
+        cur = torch.where(alive, torch.where(in_prompt, prompt_next, tok),
+                          st["cur"])
+        new_pos = torch.where(alive, torch.clamp_max(nxt, S - 1), pos)
+        st["cur"].copy_(cur)
+        st["pos"].copy_(new_pos)
+        st["gen"].copy_(gen)
+        st["active"].copy_(alive)
+
+    def _state_tensors(self) -> List[Tuple[str, torch.Tensor]]:
+        return ([(k, v) for k, v in self._state.items() if k != "cache"]
+                + [("cache." + k, v) for k, v in self._state["cache"].items()])
+
+    def _capture(self, sample: bool) -> torch.cuda.CUDAGraph:
+        """Capture one decode step of this kind as a CUDA graph (which
+        executes nothing). Raises if the capture fails or the step left
+        a state tensor other than the one it was given."""
+        before = self._state_tensors()
+        torch.cuda.synchronize(self.device)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._decode(sample)
+        except Exception as e:
+            raise RuntimeError(f"capturing the decode step (sample={sample}) "
+                               f"as a CUDA graph failed: {e}") from e
+        now = dict(self._state_tensors())
+        moved = [k for k, t in before if now.get(k) is not t]
+        if moved:
+            raise RuntimeError(f"the decode step replaced the state tensors "
+                               f"{moved}; a CUDA graph of it would replay "
+                               "against the old ones")
+        self.stats["captures"] += 1
+        return graph
+
+    def _dispatch(self, sample: bool):
+        """One decode step: eager on the CPU and for each kind's first
+        step on CUDA, then one capture, then replays."""
+        if self.device.type != "cuda" or sample not in self._warm:
+            self._decode(sample)
+            self._warm.add(sample)
+            return
+        graph = self._graphs.get(sample)
+        if graph is None:
+            graph = self._graphs[sample] = self._capture(sample)
+        graph.replay()
+        self.stats["replays"] += 1
 
     # ------------------------------------------------------------------
     # scheduler API (host logic, as the reference's)
@@ -455,19 +574,41 @@ class ServeSession:
             ptab_row[:len(pages)] = pages
             self._slot_pages[slot] = pages
         self._slot_handle[slot] = handle
-        self._stage(slot, ptab_row)
-        self._prefill_q[slot] = dict(
-            handle=handle, tokens=np.asarray(req.prompt, np.int32),
-            next=0, plen=plen, max_new=req.max_new_tokens,
-            temp=req.temperature, key=key)
-        nchunks = -(-plen // self.prefill_chunk)
-        # provisional bound until the final chunk lands
-        self._slot_done_step[slot] = (self._steps + nchunks
-                                      + req.max_new_tokens)
-        self._advance_prefill()    # first chunk goes out at once
+        prompt = np.asarray(req.prompt, np.int32)
+        mode = self._admission_mode(plen)
+        if mode == "whole":
+            self._prefill_whole(slot, prompt, req.max_new_tokens,
+                                req.temperature, key)
+            self._finalize_admission(slot, handle, req,
+                                     remaining=req.max_new_tokens - 1)
+        elif mode == "chunked":
+            self._stage(slot, ptab_row)
+            self._prefill_q[slot] = dict(
+                handle=handle, tokens=prompt, next=0, plen=plen,
+                max_new=req.max_new_tokens, temp=req.temperature, key=key)
+            nchunks = -(-plen // self.prefill_chunk)
+            # provisional bound until the final chunk lands
+            self._slot_done_step[slot] = (self._steps + nchunks
+                                          + req.max_new_tokens)
+            self._advance_prefill()    # first chunk goes out at once
+        else:
+            self._inject(slot, prompt, req.max_new_tokens, req.temperature,
+                         key, ptab_row)
+            self._finalize_admission(slot, handle, req,
+                                     remaining=plen + req.max_new_tokens - 1)
         self.stats["admitted"] += 1
         self.stats["max_inflight"] = max(self.stats["max_inflight"],
                                          self.inflight)
+
+    def _admission_mode(self, plen: int) -> str:
+        """The reference's choice for a local session of the dense
+        family: chunked unless asked otherwise; whole falls back to
+        inject below 2 prompt tokens."""
+        if self._prefill_mode == "inject":
+            return "inject"
+        if self._prefill_mode == "whole":
+            return "whole" if plen >= 2 else "inject"
+        return "chunked"
 
     def _finalize_admission(self, slot: int, handle: int, req: Request,
                             remaining: int):
@@ -503,7 +644,7 @@ class ServeSession:
         chunked-prefill dispatch. While requests are queued, finished
         slots are harvested as soon as one can have finished."""
         self._advance_prefill()
-        self._decode(sample=bool(self._hot))
+        self._dispatch(sample=bool(self._hot))
         self.stats["dispatches"] += 1
         self._steps += 1
         if self._pending:

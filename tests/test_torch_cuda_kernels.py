@@ -14,7 +14,9 @@ in both orientations (K1, K1t) within float32 summation-order tolerance
 ``chip_smoke.py``; flash attention (#17) within rtol 1e-4 / atol 1e-5
 (float32, 3xTF32 on tensor cores) or one bf16 ulp plus 1e-5 (bfloat16
 outputs) of its plain version, both taking float32 sums in orders of
-their own.
+their own. The serving session's decode step as one CUDA graph is
+bitwise its eager step (tokens, cache and state), and a capture that
+fails raises.
 """
 import dataclasses
 
@@ -54,6 +56,27 @@ def test_amax_and_quantize_bitwise(dev, rows, n, k_x):
     c_k = K.uniform_quantize_rows(x, s, k_x, backend="cuda")
     c_p = K.uniform_quantize_rows(x, s, k_x, backend="torch")
     assert c_k.dtype == c_p.dtype and torch.equal(c_k, c_p)
+
+
+def test_zero_layers_quantize_bitwise(dev):
+    """A stacked leaf whose layers are all zero but one (qwen2.5-14b's
+    QKV biases at init) through quantize_params on the card: K3's amax
+    0 floored to the reference's 1e-30 scale, K4's codes 0, no NaN, the
+    other layer's codes and scale bitwise the plain versions'."""
+    from repro_torch.serve.quantized import quantize_params
+    g = torch.Generator(device=dev).manual_seed(4)
+    bq = torch.zeros((48, 5120), dtype=torch.float32, device=dev)
+    bq[1] = torch.randn(5120, generator=g, device=dev)
+    tree = {"blocks": {"attn": {"bq": bq}}}
+    got = quantize_params(tree, k_x=6)["blocks"]["attn"]["bq"]
+    want = quantize_params({"blocks": {"attn": {"bq": bq.cpu()}}},
+                           k_x=6)["blocks"]["attn"]["bq"]
+    assert torch.equal(got.codes.cpu(), want.codes)
+    assert torch.equal(got.scale.cpu(), want.scale)
+    assert float(got.scale[0]) == float(torch.tensor(1e-30))
+    assert not got.codes[0].any() and got.codes[1].any()
+    deq = got.layer(0).dequantize()
+    assert bool(torch.isfinite(deq).all()) and not deq.any()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1660,3 +1683,101 @@ def test_resume_on_the_card_holds_one_state(dev, tmp_path):
     for (k, x), (_, y) in zip(_tensor_leaves(a.state), before):
         assert torch.equal(x, y), k
     b.close()
+
+
+def _served_smoke(dev, arch, seed=5):
+    """A smoke model of ``arch`` with random QKV biases and qk-norm
+    weights (zeros and ones would hide a missing term), quantized at
+    k_x = 6 on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve.quantized import quantize_params
+    model = Model(get_config(arch, smoke=True))
+    params = model.init(seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    attn = params["blocks"]["attn"]
+    for name in ("bq", "bk", "bv"):
+        if name in attn:
+            attn[name] = 0.5 * torch.randn(attn[name].shape, generator=g,
+                                           device=dev)
+    for name in ("q_norm", "k_norm"):
+        if name in attn:
+            attn[name] = 1 + 0.3 * torch.randn(attn[name].shape, generator=g,
+                                               device=dev)
+    return model, quantize_params(params, k_x=6, min_numel=256)
+
+
+def _serve_mixed(model, params, dev, **kw):
+    """Two greedy requests for 5 steps (the greedy step's warm-up,
+    capture and replays), then a sampled interactive arrival that
+    preempts a batch-class one (the sampling step's), and more requests
+    than slots (admission mid flight), greedy and sampled."""
+    from repro_torch.serve.session import Request, ServeSession
+    sess = ServeSession(model, params, slots=2, max_seq=48, seed=3,
+                        prefill_chunk=4, device=dev, **kw)
+    reqs = [Request(prompt=list(range(3 + i, 9 + 2 * i)),
+                    max_new_tokens=16 if i < 2 else 6,
+                    temperature=0.7 if i == 3 else 0.0, slo="batch")
+            for i in range(4)]
+    hs = [sess.submit(r) for r in reqs[:2]]
+    for _ in range(5):
+        sess.step()
+    hs.append(sess.submit(Request(prompt=[11, 12, 13], max_new_tokens=6,
+                                  temperature=0.9, slo="interactive")))
+    hs += [sess.submit(r) for r in reqs[2:]]
+    res = sess.drain()
+    return sess, [res[h].tokens for h in hs]
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("gemma3-4b", dict(paged=True, page_size=8)),
+    ("qwen2.5-14b", dict(paged=True, page_size=8)),
+    ("yi-6b", dict()),
+    ("yi-6b", dict(prefill="inject")),
+    ("gemma3-4b", dict(prefill="whole"))], ids=str)
+def test_session_decode_graph_equals_eager(dev, arch, kw, monkeypatch):
+    """The decode step as one CUDA graph (a capture per kind, greedy and
+    sampling, then replays) gives the eager session's tokens and cache
+    bitwise, across admission mid flight and a preemption."""
+    from repro_torch.serve.session import ServeSession
+    model, params = _served_smoke(dev, arch)
+    graphed, tokens = _serve_mixed(model, params, dev, **kw)
+    assert graphed.stats["captures"] == 2 and graphed.stats["replays"] > 0
+    assert graphed.stats["preemptions"] == 1
+    monkeypatch.setattr(ServeSession, "_dispatch",
+                        lambda self, sample: self._decode(sample))
+    eager, want = _serve_mixed(model, params, dev, **kw)
+    assert eager.stats["captures"] == eager.stats["replays"] == 0
+    assert tokens == want
+    for name, t in graphed._state["cache"].items():
+        assert torch.equal(t, eager._state["cache"][name]), name
+    for name in ("out", "gen", "pos", "cur", "rng"):
+        assert torch.equal(graphed._state[name], eager._state[name]), name
+
+
+def test_session_decode_capture_failures_raise(dev, monkeypatch):
+    """A host read inside the step breaks its capture, and a step that
+    rebinds a state tensor would replay against the old one: both
+    raise."""
+    from repro_torch.serve.session import Request, ServeSession
+    model, params = _served_smoke(dev, "yi-6b")
+    real = ServeSession._decode
+
+    def run():
+        sess = ServeSession(model, params, slots=2, max_seq=48, device=dev)
+        sess.submit(Request(prompt=[5, 6, 7], max_new_tokens=8))
+        sess.drain()
+
+    def host_read(self, sample):
+        real(self, sample)
+        int(self._state["pos"][0])
+    monkeypatch.setattr(ServeSession, "_decode", host_read)
+    with pytest.raises(RuntimeError, match="capturing the decode step"):
+        run()
+
+    def rebinds(self, sample):
+        real(self, sample)
+        self._state["gen"] = self._state["gen"] + 0
+    monkeypatch.setattr(ServeSession, "_decode", rebinds)
+    with pytest.raises(RuntimeError, match="replaced the state tensors"):
+        run()

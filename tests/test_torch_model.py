@@ -172,15 +172,40 @@ def test_init_leaf_names_and_shapes(models):
 
 
 def test_unported_features_are_refused():
+    """The families still queued are refused; QKV bias, qk-norm and the
+    local RoPE base are ported, and each matches the reference on yi-6b's
+    smoke model with the feature switched on (random biases and norm
+    weights: zeros and ones would hide a missing term)."""
     import dataclasses
     cfg = tget("yi-6b", smoke=True)
-    for change in (dict(qkv_bias=True), dict(qk_norm=True),
-                   dict(arch_type="moe"), dict(norm="layernorm"),
-                   dict(rope_theta_local=10_000.0)):
+    for change in (dict(arch_type="moe"), dict(norm="layernorm")):
         with pytest.raises(NotImplementedError):
             TModel(dataclasses.replace(cfg, **change)).init(device="cpu")
     with pytest.raises(KeyError):
         tget("mamba2-2.7b")
+    jcfg = jget("yi-6b", smoke=True)
+    rng = np.random.default_rng(11)
+    toks = rng.integers(1, 512, size=(2, 20)).astype(np.int32)
+    for change in (dict(qkv_bias=True), dict(qk_norm=True),
+                   dict(rope_theta_local=10_000.0, pattern="lg", window=8)):
+        jm = JModel(dataclasses.replace(jcfg, **change))
+        tm = TModel(dataclasses.replace(cfg, **change))
+
+        def draw(path, x):
+            name = path[-1].key
+            if name in ("bq", "bk", "bv"):
+                return jnp.asarray(rng.normal(size=x.shape, scale=0.5),
+                                   jnp.float32)
+            if name in ("q_norm", "k_norm"):
+                return jnp.asarray(1 + rng.normal(size=x.shape, scale=0.3),
+                                   jnp.float32)
+            return x
+        jp = jax.tree_util.tree_map_with_path(
+            draw, jm.init(jax.random.PRNGKey(0)))
+        tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+        want, _ = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(toks)})
+        got = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+        np.testing.assert_allclose(_np(got), _np(want), **TOL)
 
 
 def test_forward_logits_and_loss_grads(models):

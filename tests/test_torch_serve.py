@@ -116,8 +116,7 @@ def test_fixed_lanes_and_inject_match_paged(setup):
         return [r[h].tokens for h in hs]
     base = run(paged=True, page_size=8)
     assert run() == base
-    with pytest.raises(NotImplementedError):
-        run(prefill="inject")              # not ported: chunked only
+    assert run(prefill="inject") == base
     assert run(paged=True, page_size=8, num_pages=8, prefill_chunk=32) == base
     assert run(paged=True, page_size=8, fused_matmul=False) == base
 
