@@ -62,15 +62,19 @@ Phases, each raising on failure (exit code nonzero, no result line):
      dequantize; then the wire kernels bitwise: K7 fused EF encode
      (payload rows, residual) and K6 fused decode (a scale per row, into
      rows or a flat leaf) over n_rows {1, 2, 4}, chunks {1, 7, 1000003},
-     log k_g {2, 4, 6, 8}, uniform wire k_x {3, 6, 7} and zero input,
-     and at the w_gate stack for log:6 and uniform:7; then the
+     log k_g {2, 4, 6, 8, 30, 126}, uniform wire k_x {3, 6, 7, 14} and
+     zero input, and at the w_gate stack for log:6 and uniform:7; the
+     adaptive plan's new lanes at the w_gate stack, bitwise and timed:
+     K7 and K6 at log:30, log:126 and uniform_amax:14:w16, #10 and K11
+     at log:30 and log:126 (the reference's deep decision points and
+     levels, grids.log_grid_table); then the
      baselines' kernels bitwise: #5 fused encode (log, uniform with the
      absolute and the amax scale, ternary on uniforms from one seeded
      generator; zero input) with K6 on its rows (the ternary kind), #14
      blockwise quantize and #8 blockwise encode at blocks {1, 32, 64, 256,
      1024, 4096}, over the same n_rows and chunks, and at the w_gate stack
      (timed at blocks 256 and 64); then the last three kernels bitwise:
-     #10 log quantize at k_g {1, 2, 4, 6, 8} (random, zero and
+     #10 log quantize at k_g {1, 2, 4, 6, 8, 30, 126} (random, zero and
      decision-point inputs), #13 ternary quantize (uniforms from one
      seeded generator, u = p exactly among them, x = 0, a zero scale) and
      #9 lane pack/unpack at every width over rows {1, 2, 4} x chunks
@@ -209,16 +213,35 @@ Phases, each raising on failure (exit code nonzero, no result line):
      versions (the losses are printed, not gated to fall: random
      embeddings say nothing of the targets, and the reference's
      trajectory on this stub is flat over its first steps too);
+     6d. the adaptive mode (``repro_torch.adapt``) on the same rank and
+     cut: a fixed plan with every lane of WIDTH_SPECS on two leaves, 3
+     steps through the kernels bitwise the same steps through the plain
+     versions (deterministic algorithms), every lane's kernels launched,
+     its byte accounting exact against payloads encoded on the card
+     (#5, #14, #9); ``bit_plan=None`` bitwise the qadam mode; then the
+     launcher's ``--adaptive`` path, ``AdaptiveController`` with every
+     count at 0 just before it: 12 steps, a replan every 4, scan_chunk 4
+     (a CUDA graph a window, the new plan captured after each swap),
+     budget 0.6: a replan at least, each swap leaving the state's
+     tensors and bits as they were, one host sync a window, no plain
+     version, every kernel of the plans' lanes launched, every plan's
+     accounting exact; printed: each plan's exchange bytes a step
+     against log:6's 954,238,976, its step wall and device ms and wire
+     kernels with the plan installed again (its capture: what a
+     revisited plan costs), capture seconds, peak bytes;
   8. every leaf of the cut's initial parameters through
      ``Codec.encode`` -> ``WireBuffer.decode`` for log:6, the uniform:7
      wire (absolute and amax), TernGrad and blockwise:256: #5 (each
      kind), #8 and K6 launched, no plain version on the card, buffer
      bytes ``codec.wire_nbytes``, bitwise the plain versions;
   9. the paper's comparison protocol, ``examples/paper_repro_torch.py``
-     (8 workers, 300 steps, one seed), in its default mode and in
-     ``--mode efadam``: every accuracy finite, #13 and #14 (and in efadam
-     mode #10) launched, no plain version on the card; print the
-     accuracy table;
+     (8 workers, 150 steps, one seed; 300 before phase 6d took the
+     time), in its default mode and in ``--mode efadam``: every accuracy
+     finite, #13 and #14 (and in efadam mode #10) launched, no plain
+     version on the card; print the accuracy table; then ``--adaptive``
+     (the fixed log:6 arm against the adaptive arm, 100 steps, a replan
+     every 25) and the fixed arm on log:30 and log:126 (20 steps each,
+     #10 and K11 at the deep grids launched);
   10. print one ``{"kernels": [...]}`` line (each kernel's launches by
      path; every kernel launched on some path), the card line again, and
      the last line ``{"ok": true,
@@ -1273,7 +1296,9 @@ def check_training_kernels(torch, dev):
 # ---------------------------------------------------------------------------
 
 WIRE_CODECS = [("log", 2), ("log", 4), ("log", 6), ("log", 8),
-               ("uniform", 3), ("uniform", 6), ("uniform", 7)]
+               ("log", 30), ("log", 126),
+               ("uniform", 3), ("uniform", 6), ("uniform", 7),
+               ("uniform", 14)]
 
 
 def wire_codec(kind, k, absolute=True):
@@ -1410,8 +1435,8 @@ def check_wire_kernels(torch, dev):
 # phase 3, the baselines' kernels: #5 fused encode, K6 ternary, #14, #8
 # ---------------------------------------------------------------------------
 
-ENCODE_CODECS = ([("log", k, True) for k in (2, 4, 6, 8)]
-                 + [("uniform", k, a) for k in (3, 6, 7)
+ENCODE_CODECS = ([("log", k, True) for k in (2, 4, 6, 8, 30, 126)]
+                 + [("uniform", k, a) for k in (3, 6, 7, 14)
                     for a in (True, False)]
                  + [("ternary", 0, False)])
 
@@ -1639,7 +1664,7 @@ def through(build, lib, fn):
         build._lib = saved
 
 
-LOG_KG = (1, 2, 4, 6, 8)
+LOG_KG = (1, 2, 4, 6, 8, 30, 126)
 PACK_BITS = (2, 3, 4, 6, 8, 16)
 
 
@@ -1803,6 +1828,128 @@ def check_slice6_kernels(torch, dev, build, planted):
     table.append(dict(name="pack_rows/unpack_rows", spec="16-bit lanes",
                       shape=[n], **sixteen))
     return rows, table, cases, faults
+
+
+# ---------------------------------------------------------------------------
+# phase 3, the adaptive plan's new lanes: K7, K6, #10, K11 at log:30,
+# log:126 (the reference's deep decision points and levels) and the
+# 14-bit uniform lane on 16-bit lanes
+# ---------------------------------------------------------------------------
+
+DEEP_SPECS = ("log:30", "log:126", "uniform_amax:14:w16")
+
+
+def lane_row(name, spec):
+    """The kernels line's name of a kernel at one of the new lanes."""
+    return f"{name}@{spec}"
+
+
+def check_deep_lanes(torch, dev):
+    """At the 8-layer w_gate stack (Delta+e-like values, 1e-3 randn, the
+    amax scale): K7 and K6 at each of DEEP_SPECS, #10 and K11 at the two
+    log grids, each bitwise its plain version and timed against its
+    bound and its plain version. Returns the kernel rows and the table."""
+    from repro_torch.comm import codec as CD
+    from repro_torch.comm import kernels as K
+    from repro_torch.opt import engine as E
+    d, f = YI["d"], YI["f"]
+    n = TRAIN_LAYERS * d * f
+    gen = torch.Generator(device=dev).manual_seed(32)
+    x = torch.randn(n, generator=gen, device=dev).mul_(1e-3)
+    scale = E.amax_scale(x.abs().amax())
+    rows, table = [], []
+
+    def add(name, spec, ms, plain, bnd_by, src, rep_line):
+        bnd, by = bnd_by
+        table.append(dict(name=name, spec=spec, shape=[n], ms=ms,
+                          plain_ms=plain, bound_ms=bnd, bound_by=by,
+                          share_of_bound=bnd / ms,
+                          gbs=(bnd * 1e-3 * HBM_BYTES_PER_S) / ms / 1e6))
+        rows.append(dict(name=lane_row(name, spec), route="cuda",
+                         source=src, replaces=rep_line, max_abs_err=0.0,
+                         ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                         library_ms=None, shape=[n]))
+    for spec in DEEP_SPECS:
+        codec = CD.get_codec(spec)
+        pk, ek = K.ef_encode_rows(x, scale, codec, 1, backend="cuda")
+        pp, ep = K.ef_encode_rows(x, scale, codec, 1, backend="torch")
+        if not (bits_equal(torch, pk, pp) and bits_equal(torch, ek, ep)):
+            raise AssertionError(f"K7 {spec} differs from its plain version "
+                                 f"at the w_gate stack")
+        del pp, ep
+        scales = scale.reshape(1)
+        out = torch.empty(n, device=dev)
+        K.decode_rows(pk, scales, codec, n, backend="cuda", out=out)
+        if not bits_equal(torch, out, K.decode_rows(
+                pk, scales, codec, n, backend="torch").reshape(-1)):
+            raise AssertionError(f"K6 {spec} differs from its plain version "
+                                 f"at the w_gate stack")
+        nb = pk.numel()
+        add("ef_encode_rows", spec,
+            cuda_ms(torch, lambda i: K.ef_encode_rows(
+                x, scale, codec, 1, backend="cuda", out=ek), 5, 1),
+            cuda_ms(torch, lambda i: K.ef_encode_rows(
+                x, scale, codec, 1, backend="torch"), 2, 1),
+            bound_ms(8 * n + nb + 4), "src/repro_torch/csrc/codec.cu",
+            "src/repro/comm/kernels.py:356")
+        add("decode_rows", spec,
+            cuda_ms(torch, lambda i: K.decode_rows(
+                pk, scales, codec, n, backend="cuda", out=out), 5, 1),
+            cuda_ms(torch, lambda i: K.decode_rows(
+                pk, scales, codec, n, backend="torch"), 2, 1),
+            bound_ms(nb + 4 * n + 4), "src/repro_torch/csrc/codec.cu",
+            "src/repro/comm/kernels.py:286")
+        del pk, ek, out
+        torch.cuda.empty_cache()
+        if codec.kind != "log":
+            continue
+        k = codec.k
+        ck = K.log_quantize(x, scale, k, backend="cuda")
+        if not bits_equal(torch, ck, K.log_quantize(x, scale, k,
+                                                    backend="torch")):
+            raise AssertionError(f"#10 {spec} differs from its plain version "
+                                 f"at the w_gate stack")
+        dk = K.log_dequantize(ck, scale, k, backend="cuda")
+        if not bits_equal(torch, dk, K.log_dequantize(ck, scale, k,
+                                                      backend="torch")):
+            raise AssertionError(f"K11 {spec} differs from its plain version "
+                                 f"at the w_gate stack")
+        del dk
+        add("log_quantize", spec,
+            cuda_ms(torch, lambda i: K.log_quantize(x, scale, k,
+                                                    backend="cuda"), 5, 1),
+            cuda_ms(torch, lambda i: K.log_quantize(x, scale, k,
+                                                    backend="torch"), 2, 1),
+            bound_ms(5 * n + 4), "src/repro_torch/csrc/quantize.cu",
+            "src/repro/comm/kernels.py:501")
+        add("log_dequantize", spec,
+            cuda_ms(torch, lambda i: K.log_dequantize(ck, scale, k,
+                                                      backend="cuda"), 5, 1),
+            cuda_ms(torch, lambda i: K.log_dequantize(ck, scale, k,
+                                                      backend="torch"), 2, 1),
+            bound_ms(5 * n + 4), "src/repro_torch/csrc/dequantize.cu",
+            "src/repro/comm/kernels.py:524")
+        del ck
+        torch.cuda.empty_cache()
+    del x
+    torch.cuda.empty_cache()
+    return rows, table
+
+
+def by_spec_launches(K):
+    """The new lanes' launches so far (``comm.kernels.by_spec``), by the
+    kernels line's row names."""
+    names = {"ef_encode": "ef_encode_rows", "decode": "decode_rows",
+             "log_quantize": "log_quantize",
+             "log_dequantize": "log_dequantize"}
+    return {lane_row(names[kern], spec): K.by_spec[kern].get(spec, 0)
+            for kern in names for spec in DEEP_SPECS
+            if spec.startswith("log") or kern in ("ef_encode", "decode")}
+
+
+def clear_by_spec(K):
+    for d in K.by_spec.values():
+        d.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -2649,6 +2796,241 @@ def llava_train(torch, dev, mods, group):
 
 
 # ---------------------------------------------------------------------------
+# phase 6d: the adaptive mode on one NCCL rank (repro_torch.adapt)
+# ---------------------------------------------------------------------------
+
+# every lane of repro_torch.adapt.WIDTH_SPECS on two of the cut's 12
+# leaves (the reference's leaf order: blocks/attn k, o, q, v, ln1, ln2,
+# mlp w_down, w_gate, w_up, embed, final_norm, unembed)
+ADAPT_PLAN = ("blockwise:256", "log:2", "log:6", "log:30", "log:126",
+              "uniform_amax:14:w16") * 2
+ADAPT_FIXED_STEPS = 3
+ADAPT_STEPS, ADAPT_EVERY, ADAPT_CHUNK, ADAPT_BUDGET = 12, 4, 4, 0.6
+FIXED_LOG6_EXCHANGE_BYTES = 954_238_976    # phase 6's qadam (log:6) a step
+ADAPT_COUNTERS = {"ef_encode_rows_log": ("K", "ef_encode_log_launches"),
+                  "ef_encode_rows_uniform": ("K", "ef_encode_uniform_launches"),
+                  "decode_rows_log": ("K", "decode_log_launches"),
+                  "decode_rows_uniform": ("K", "decode_uniform_launches"),
+                  "adam_moments": ("A", "moments_launches"),
+                  "blockwise_quantize": ("K", "blockwise_quantize_launches"),
+                  "pack_rows": ("K", "pack_launches"),
+                  "unpack_rows": ("K", "unpack_launches"),
+                  "encode_rows_log": ("K", "encode_log_launches"),
+                  "encode_rows_uniform": ("K", "encode_uniform_launches"),
+                  "amax_rows": ("K", "amax_launches")}
+# the kernels each lane's leaves launch in a step (besides K15)
+LANE_KERNELS = {"log": ("ef_encode_rows_log", "decode_rows_log"),
+                "uniform": ("ef_encode_rows_uniform", "decode_rows_uniform"),
+                "blockwise": ("blockwise_quantize", "pack_rows",
+                              "unpack_rows")}
+
+
+def _plan_counts(plan):
+    counts = {}
+    for spec in plan or ("log:6",) * 12:
+        counts[spec] = counts.get(spec, 0) + 1
+    return counts
+
+
+def _zero_counts(mods, counters):
+    for mod, attr in counters.values():
+        setattr(mods[mod], attr, 0)
+    mods["K"].plain_on_cuda = mods["A"].plain_on_cuda = 0
+    clear_by_spec(mods["K"])
+
+
+def _counts(mods, counters):
+    out = {name: getattr(mods[mod], attr)
+           for name, (mod, attr) in counters.items()}
+    out.update(by_spec_launches(mods["K"]))
+    return out
+
+
+def _lanes_launched(launches, plans, what):
+    """Every kernel of every lane in ``plans`` launched, K15 too."""
+    from repro_torch.comm.codec import get_codec
+    need = {"adam_moments"}
+    for plan in plans:
+        for spec in plan:
+            codec = get_codec(spec)
+            need.update(LANE_KERNELS[codec.kind])
+            if spec in DEEP_SPECS:
+                need.update(lane_row(n, spec) for n in
+                            ("ef_encode_rows", "decode_rows"))
+    idle = sorted(n for n in need if not launches.get(n))
+    if idle:
+        raise AssertionError(f"{what}: kernels of its lanes never "
+                             f"launched: {idle} ({launches})")
+
+
+def _fingerprint(torch, state):
+    """An exact fingerprint of a state: every tensor's int32 words summed
+    in int64 (a swap that moved, freed or rewrote a tensor changes it)."""
+    from repro_torch.train.session import _tensor_leaves
+    return [(k, x.data_ptr(), int(x.view(torch.int32).sum(
+        dtype=torch.int64))) for k, x in _tensor_leaves(state)]
+
+
+def adaptive_train(torch, dev, mods, group, model, cfg):
+    """Phase 6d: the adaptive mode on the phase-6 cut, one NCCL rank.
+
+    1. A fixed plan with every lane of WIDTH_SPECS (ADAPT_PLAN):
+       ADAPT_FIXED_STEPS steps through the kernels bitwise the same steps
+       through the plain versions (losses, masters; deterministic
+       algorithms), every lane's kernels launched, and its accounting
+       exact against payloads encoded on the card.
+    2. ``bit_plan=None`` bitwise the qadam mode (EQ_STEPS steps).
+    3. The main path: ``AdaptiveController`` (the launcher's
+       ``--adaptive``), ADAPT_STEPS steps, a replan every ADAPT_EVERY,
+       scan_chunk ADAPT_CHUNK (a CUDA graph a window), budget
+       ADAPT_BUDGET, verify on, every count at 0 just before: a replan at
+       least, the state's tensors and bits untouched by each swap, one
+       host sync a window, no plain version on the card, every kernel of
+       the plans' lanes launched. Then each plan's steady step (wall,
+       device, its kernels) with the plan installed again (the cost of a
+       revisited plan: a capture), the peak bytes over all of it."""
+    import gc
+    from repro_torch.adapt.controller import (AdaptConfig, AdaptiveController,
+                                              verify_accounting)
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.dist.step import TrainConfig, make_train_step
+    from repro_torch.train.session import SessionConfig, _tensor_leaves
+    K, A = mods["K"], mods["A"]
+    res = {}
+    base = dict(DIST_TC, mode="adaptive")
+    fixed = TrainConfig(**base, bit_plan=ADAPT_PLAN)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. the fixed plan, kernels against plain versions
+    with deterministic(torch):
+        _zero_counts(mods, ADAPT_COUNTERS)
+        lk, pk = _session_run(torch, dev, group, model, cfg, fixed,
+                              ADAPT_FIXED_STEPS)
+        fixed_launches = _counts(mods, ADAPT_COUNTERS)
+        if K.plain_on_cuda + A.plain_on_cuda:
+            raise AssertionError("6d: a plain version ran in the fixed "
+                                 "plan's kernel run")
+        lp, pp = _session_run(torch, dev, group, model, cfg,
+                              dataclasses.replace(fixed, backend="torch"),
+                              ADAPT_FIXED_STEPS)
+    bitwise = lk == lp and all(bits_equal(torch, a, b)
+                               for a, b in zip(pk, pp))
+    del pk, pp
+    if not bitwise:
+        raise AssertionError(f"6d: the fixed plan through the kernels is not "
+                             f"bitwise its plain run: {lk} vs {lp}")
+    _lanes_launched(fixed_launches, [ADAPT_PLAN], "6d fixed plan")
+    art = make_train_step(model, group, fixed)
+    acc = verify_accounting(art, fixed, dev)
+    del art
+    res.update(fixed_plan=list(ADAPT_PLAN), fixed_losses=lk,
+               fixed_launches=fixed_launches, fixed_accounting=acc)
+
+    # 2. no plan: the qadam mode, bitwise
+    res["no_plan_vs_qadam"] = pair_equivalence(
+        torch, dev, group, model, cfg, TrainConfig(**base),
+        TrainConfig(**DIST_TC))
+
+    # 3. the controller
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctl = AdaptiveController(
+        model, group, TrainConfig(**DIST_TC),
+        batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+        AdaptConfig(budget_ratio=ADAPT_BUDGET, replan_every=ADAPT_EVERY),
+        SessionConfig(log_every=0, scan_chunk=ADAPT_CHUNK), seed=0,
+        device=dev, log=lambda *_: None, verify=True)
+    sess = ctl.session
+    swaps = []
+    swap = sess.swap_artifacts
+
+    def watched_swap(art):
+        before = _fingerprint(torch, sess.state)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        swap(art)
+        swaps.append(dict(step=sess.step, s=time.perf_counter() - t,
+                          bitwise=_fingerprint(torch, sess.state) == before))
+    sess.swap_artifacts = watched_swap
+    ptrs = [x.data_ptr() for _, x in _tensor_leaves(sess.state)]
+    torch.cuda.synchronize()
+    _zero_counts(mods, ADAPT_COUNTERS)
+    t0 = time.perf_counter()
+    ctl.run(ADAPT_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _counts(mods, ADAPT_COUNTERS)
+    plain = K.plain_on_cuda + A.plain_on_cuda
+    stats = dict(ctl.stats)            # before the losses' own harvest
+    losses = [v for _, v in sess.harvest_losses()]
+    plans = [e["bit_plan"] for e in ctl.plan_log]
+    if ctl.replans < 1 or not swaps or not all(w["bitwise"] for w in swaps):
+        raise AssertionError(f"6d: replans {ctl.replans}, swaps {swaps}")
+    if [x.data_ptr() for _, x in _tensor_leaves(sess.state)] != ptrs:
+        raise AssertionError("6d: a swap replaced the state's tensors")
+    windows = math.ceil(ADAPT_STEPS / ADAPT_EVERY)
+    if stats["syncs"] != windows:
+        raise AssertionError(f"6d: {stats['syncs']} host syncs for "
+                             f"{windows} windows")
+    if plain:
+        raise AssertionError(f"6d: {plain} plain-version calls on the card")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"6d losses not finite: {losses}")
+    _lanes_launched(launches, [p or ("log:6",) for p in plans], "6d")
+    for e in ctl.plan_log:
+        if e["verify"]["measured"] != e["comm"]["update_exchange_bytes"]:
+            raise AssertionError(f"6d accounting: {e['verify']}")
+    capture_s = sess.capture_seconds
+    res.update(launches=launches, losses=losses, stats=stats, run_s=run_s,
+               replans=ctl.replans, swaps=swaps, capture_s=capture_s,
+               plans=[dict(step=e["step"], bit_plan=(
+                   list(e["bit_plan"]) if e["bit_plan"] else None),
+                   exchange_bytes=e["comm"]["update_exchange_bytes"],
+                   broadcast_bytes=e["comm"]["weight_broadcast_bytes"],
+                   vs_log6=e["comm"]["update_exchange_bytes"]
+                   / FIXED_LOG6_EXCHANGE_BYTES) for e in ctl.plan_log],
+               ema_snapshot=ctl.ema.snapshot().tolist())
+
+    # each plan's steady step, the plan installed again (a capture)
+    per_plan = []
+    for e in ctl.plan_log:
+        tc = dataclasses.replace(ctl.tc, bit_plan=e["bit_plan"])
+        ctl.tc, ctl.art = tc, make_train_step(model, group, tc)
+        n_cap = len(sess.capture_seconds)
+        swap(ctl.art)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sess.run(ADAPT_CHUNK)          # the capture and a replay
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+        t = time.perf_counter()
+        sess.run(2 * ADAPT_CHUNK)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) / (2 * ADAPT_CHUNK) * 1e3
+        dev_ms, by_kernel = profile_ms(
+            torch, lambda: sess.run(ADAPT_CHUNK), steps=1)
+        per_plan.append(dict(
+            step=e["step"], step_wall_ms=wall_ms,
+            step_device_ms=dev_ms / ADAPT_CHUNK,
+            device_idle=1 - dev_ms / ADAPT_CHUNK / wall_ms,
+            revisit_capture_s=sess.capture_seconds[n_cap:],
+            revisit_first_dispatch_s=first_s,
+            wire_kernels_ms=_wire_kernel_ms(
+                [(k, t / ADAPT_CHUNK) for k, t in by_kernel]),
+            step_kernels=[(k, t / ADAPT_CHUNK) for k, t in by_kernel[:12]]))
+    res["per_plan"] = per_plan
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    ctl.close()
+    del ctl, sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 6b: the distributed session's checkpoints and resume
 # ---------------------------------------------------------------------------
 
@@ -3113,7 +3495,8 @@ def wire_buffers(torch, dev, mods, model):
 # phase 9: the paper's comparison protocol on the card
 # ---------------------------------------------------------------------------
 
-PAPER_STEPS = 300
+# 150 (was 300): the time phase 6d and phase 9's adaptive arms take
+PAPER_STEPS = 150
 PAPER_COUNTERS = {"amax_rows": ("K", "amax_launches"),
                   "uniform_quantize_rows": ("K", "quantize_launches"),
                   "uniform_dequantize_rows": ("K", "dequantize_launches"),
@@ -3248,7 +3631,62 @@ def paper_protocol(torch, dev, mods):
                                  f"versions on the card {plain}")
         out[mode] = dict(rows=rows, launches=launches, run_s=run_s,
                          steps=PAPER_STEPS, seeds=1, workers=8)
+    out["adaptive"] = paper_adaptive(torch, dev, mods, ex)
     return out
+
+
+PAPER_ADAPT_STEPS, PAPER_ADAPT_EVERY, PAPER_DEEP_STEPS = 100, 25, 20
+
+
+def paper_adaptive(torch, dev, mods, ex):
+    """``paper_repro_torch.py --adaptive``: the fixed log:6 arm against
+    the adaptive arm (PAPER_ADAPT_STEPS steps, a replan every
+    PAPER_ADAPT_EVERY, budget ADAPT_BUDGET, one seed, 8 workers), then the
+    fixed arm on the deep lanes (``run_quantized(fixed_spec=...)``,
+    PAPER_DEEP_STEPS steps each: #10 and K11 at log:30 and log:126), every
+    count at 0 just before; gates: finite losses, the deep lanes' #10 and
+    K11 launched, no plain version on the card."""
+    from repro_torch.data.pipeline import ClsDataConfig, classification_dataset
+    K, A = mods["K"], mods["A"]
+    for mod, attr in PAPER_COUNTERS.values():
+        setattr(mods[mod], attr, 0)
+    K.plain_on_cuda = A.plain_on_cuda = 0
+    clear_by_spec(K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, summary = ex.run_adaptive_compare(
+        steps=PAPER_ADAPT_STEPS, seeds=1, workers=8, budget=ADAPT_BUDGET,
+        replan_every=PAPER_ADAPT_EVERY, device=dev,
+        log=lambda line: print(f"  paper adaptive: {line}", flush=True))
+    data = classification_dataset(ClsDataConfig(seed=1), device=dev)
+    deep = {}
+    for spec in ("log:30", "log:126"):
+        p0 = ex.mlp_init(0, data[2].shape[1], ex.HIDDEN,
+                         int(data[1].max()) + 1, dev)
+        _, info = ex.run_quantized(PAPER_DEEP_STEPS, data, p0, seed=0,
+                                   n_workers=8, fixed_spec=spec)
+        deep[spec] = dict(final_test_loss=info["final_test_loss"],
+                          bytes_per_step=info["bytes_per_step"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: getattr(mods[mod], attr)
+                for k, (mod, attr) in PAPER_COUNTERS.items()}
+    launches.update(by_spec_launches(K))
+    plain = K.plain_on_cuda + A.plain_on_cuda
+    need = [lane_row(n, s) for n in ("log_quantize", "log_dequantize")
+            for s in ("log:30", "log:126")]
+    losses = [r["loss"] for r in results.values()] + [
+        d["final_test_loss"] for d in deep.values()]
+    if plain or any(not launches[k] for k in need) or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"paper adaptive: launches {launches}, plain "
+                             f"versions on the card {plain}, losses "
+                             f"{losses}")
+    return dict(summary=summary, launches=launches, run_s=run_s, deep=deep,
+                steps=PAPER_ADAPT_STEPS, replan_every=PAPER_ADAPT_EVERY,
+                plan_log=results["adaptive"]["plan_log"],
+                arms={k: {f: v[f] for f in ("loss", "acc", "bytes_per_step")}
+                      for k, v in results.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -4078,6 +4516,16 @@ def main() -> int:
               f"plain {t['plain_ms']:.4f} bound {t['bound_ms']:.4f} "
               f"({t['bound_by']}){lib}", flush=True)
 
+    dl_rows, dl_table = check_deep_lanes(torch, dev)
+    print("the adaptive plan's new lanes: K7, K6 (log:30, log:126, "
+          "uniform_amax:14:w16), #10, K11 (log:30, log:126) bitwise against "
+          "their plain versions at the w_gate stack", flush=True)
+    for t in dl_table:
+        print(f"  {t['name']} {t['spec']} {t['shape']}: {t['ms']:.4f} ms "
+              f"({t['gbs']:.0f} GB/s, {t['share_of_bound']:.1%} of bound) "
+              f"plain {t['plain_ms']:.4f} bound {t['bound_ms']:.4f} "
+              f"({t['bound_by']})", flush=True)
+
     s_rows, s_table, s_cases, s_faults = check_slice6_kernels(
         torch, dev, build, planted)
     print(f"#10 log quantize, #13 ternary quantize and #9 lane pack/unpack "
@@ -4142,6 +4590,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         ck = timed("6b", ckpt_resume, torch, dev, mods, group, model8, cfg8)
         lv = timed("6c", llava_train, torch, dev, mods, group)
+        a6 = timed("6d", adaptive_train, torch, dev, mods, group, model8,
+                   cfg8)
     finally:
         close_process_group()
     wb = timed("8", wire_buffers, torch, dev, mods, model8)
@@ -4151,6 +4601,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     pp = timed("9", paper_protocol, torch, dev, mods)
     parity = pp.pop("parity")
+    pa = pp.pop("adaptive")
     print(f"paper protocol: every method's kernels bitwise their plain "
           f"versions at the MLP's shapes over {PARITY_STEPS} steps "
           f"(tensors compared: {parity})", flush=True)
@@ -4160,7 +4611,16 @@ def main() -> int:
               f"{r['launches']}; test accuracy:", flush=True)
         for name, acc, _ in r["rows"]:
             print(f"  {name:28s} {acc * 100:.2f} %", flush=True)
-    rows += t_rows + w_rows + e_rows + s_rows
+    print(f"paper protocol --adaptive ({pa['steps']} steps, replan every "
+          f"{pa['replan_every']}, seed 0, 8 workers) in {pa['run_s']:.1f} s: "
+          f"arms {pa['arms']}; adaptive/fixed bytes "
+          f"{pa['summary']['bytes_ratio']:.4f}, loss parity "
+          f"{pa['summary']['loss_parity']:.4f}; deep fixed lanes "
+          f"{pa['deep']}; launches {pa['launches']}", flush=True)
+    for e in pa["plan_log"]:
+        print(f"  plan @{e['step']}: {e['plan']} "
+              f"({e['bytes_per_step']} B/step)", flush=True)
+    rows += t_rows + w_rows + dl_rows + e_rows + s_rows
     for r in rows:
         by_path = {"serve": res["launches"].get(r["name"], 0),
                    "serve_gemma2": gem["launches"].get(r["name"], 0),
@@ -4176,7 +4636,10 @@ def main() -> int:
                    "train": tr["launches"].get(r["name"], 0),
                    "train_graph": gt["launches"].get(r["name"], 0),
                    "dist": ds["launches"].get(r["name"], 0),
-                   "dist_ckpt": ck["launches"].get(r["name"], 0)}
+                   "dist_ckpt": ck["launches"].get(r["name"], 0),
+                   "adaptive": a6["launches"].get(r["name"], 0),
+                   "adaptive_fixed_plan": a6["fixed_launches"].get(
+                       r["name"], 0)}
         by_path.update({f"alg1_{m}": bl[m]["launches"].get(r["name"], 0)
                         for m in ALG1_BASELINES})
         by_path["wquan"] = bl["wquan"]["launches"].get(r["name"], 0)
@@ -4185,6 +4648,7 @@ def main() -> int:
         by_path["wire"] = wb["launches"].get(r["name"], 0)
         by_path.update({f"paper_{m}": pp[m]["launches"].get(r["name"], 0)
                         for m in pp})
+        by_path["paper_adaptive"] = pa["launches"].get(r["name"], 0)
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
     idle = [r["name"] for r in rows if r["launches"] == 0]
@@ -4374,6 +4838,29 @@ def main() -> int:
           f"bitwise step by step, stats {ck['chunk_stats']}; free disk "
           f"{ck['free_disk_bytes']} B", flush=True)
 
+    print(f"adaptive (6d, yi-6b x {TRAIN_LAYERS} layers, one NCCL rank): "
+          f"fixed plan {ADAPT_FIXED_STEPS} steps bitwise its plain run "
+          f"(losses {', '.join(f'{x:.4f}' for x in a6['fixed_losses'])}), "
+          f"accounting exact ({a6['fixed_accounting']['measured']} B); "
+          f"bit_plan=None bitwise qadam ({a6['no_plan_vs_qadam']['steps']} "
+          f"steps); controller {ADAPT_STEPS} steps, replan every "
+          f"{ADAPT_EVERY}, scan_chunk {ADAPT_CHUNK}, budget {ADAPT_BUDGET}: "
+          f"{a6['replans']} replans in {a6['run_s']:.2f} s, swaps "
+          f"{a6['swaps']}, captures {a6['capture_s']} s; losses "
+          f"{', '.join(f'{x:.4f}' for x in a6['losses'])}; stats "
+          f"{a6['stats']}; peak {a6['peak_bytes']} B; launches "
+          f"{a6['launches']}", flush=True)
+    for p, q in zip(a6["plans"], a6["per_plan"]):
+        print(f"  plan @{p['step']}: exchange {p['exchange_bytes']} B/step "
+              f"({p['vs_log6']:.4f} of log:6's "
+              f"{FIXED_LOG6_EXCHANGE_BYTES}); step wall "
+              f"{q['step_wall_ms']:.3f} ms, device {q['step_device_ms']:.3f} "
+              f"ms (idle {q['device_idle']:.1%}); revisited: capture "
+              f"{q['revisit_capture_s']} s, first dispatch "
+              f"{q['revisit_first_dispatch_s']:.2f} s; wire kernels "
+              f"{q['wire_kernels_ms']}; lanes "
+              f"{_plan_counts(p['bit_plan'])}", flush=True)
+
     out_dir = os.path.join(HERE, "results")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
@@ -4390,7 +4877,8 @@ def main() -> int:
                        slice6_kernels=s_table, planted_faults=s_faults,
                        alg1_baselines=bl, paper=pp, train_graph=gt,
                        dist_ckpt=ck, serve_gemma3=g3, serve_qwen=qw,
-                       serve_admission=ad, train_llava=lv,
+                       serve_admission=ad, train_llava=lv, adaptive=a6,
+                       deep_lanes=dl_table, paper_adaptive=pa,
                        phase_s=phase_s),
                   fh, indent=1)
     print("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in

@@ -8,16 +8,22 @@ blockwise-EF SGD (Zheng et al.) and WQuan (post-training weight
 quantization), at matched wire bits, with 8 workers whose updates the
 server averages (Algorithm 2). ``--mode efadam`` adds two-way
 compression: the server quantizes the averaged update it broadcasts with
-a ``log:2`` codec and its own error feedback.
+a ``log:2`` codec and its own error feedback. ``--adaptive`` compares
+the paper's fixed k_g = 6 wire against ``repro_torch.adapt``'s per-leaf
+bit allocation under a byte budget (``--budget``, replans every
+``--replan-every`` steps), at measured bytes a step.
 
 On the card every quantizer runs its kernel: the log-grid Q_g K15, K16
 and K11; Q_x K3, K4 and K12; TernGrad K3 and #13; blockwise sign #14;
-the server's log codec K3, #10 and K11.
+the server's log codec K3, #10 and K11; the adaptive arms' lanes K3 with
+#10 and K11 (log), K4 and K12 (uniform_amax) or #14 (blockwise), and #5
+(#14 and #9) for the measured bytes.
 
   PYTHONPATH=src python examples/paper_repro_torch.py --steps 400
   PYTHONPATH=src python examples/paper_repro_torch.py --mode efadam
   PYTHONPATH=src python examples/paper_repro_torch.py --device cpu \\
       --steps 20 --seeds 1
+  PYTHONPATH=src python examples/paper_repro_torch.py --adaptive
 """
 import argparse
 import json
@@ -115,6 +121,194 @@ def run(opt, steps, data, params, batch=128, seed=0, n_workers=8,
     return params
 
 
+# ---------------------------------------------------------------------------
+# --adaptive: fixed k_g against runtime-adaptive per-leaf bit allocation
+# (repro_torch.adapt) under the same multi-worker protocol
+# ---------------------------------------------------------------------------
+
+def _leaf_payload_bytes(numel: int, spec: str, device) -> int:
+    """Measured wire bytes of one worker's payload of one leaf: a real
+    tensor encoded with the spec's codec (#5, or #14 and #9)."""
+    from repro_torch.comm import bits as B
+    from repro_torch.comm import codec as CD
+    from repro_torch.comm import kernels as K
+    from repro_torch.opt import engine
+    codec = CD.get_codec(spec)
+    x = torch.linspace(-1.0, 1.0, numel, dtype=torch.float32, device=device)
+    if isinstance(codec, CD.BlockwiseCodec):
+        codes2d, _ = engine.quantize_blockwise(x, codec.block)
+        rows = B.pad_rows(codes2d.reshape(-1)[:numel], 1)
+        return K.pack_rows(rows, codec.bits).nbytes
+    payload, _ = CD.encode_rows(x, codec, 1)
+    return payload.nbytes
+
+
+def _quantize_leaf(codec, send):
+    """deq(Q(send)) with the codec's own scale: the blockwise lanes'
+    per-block scales (#14), else ``compute_scale`` (K3 for an amax)."""
+    from repro_torch.comm import codec as CD
+    from repro_torch.opt import engine
+    if isinstance(codec, CD.BlockwiseCodec):
+        flat = send.reshape(-1)
+        codes, scales = engine.quantize_blockwise(flat, codec.block)
+        deq = (codes.to(torch.float32) * scales[:, None]).reshape(-1)
+        return deq[:flat.numel()].reshape(send.shape)
+    scale = codec.compute_scale(send)
+    return codec.dequantize(codec.quantize(send, scale), scale)
+
+
+@torch.no_grad()
+def run_quantized(steps, data, params, *, batch=128, seed=0, n_workers=8,
+                  adaptive=False, budget_ratio=0.6, replan_every=25,
+                  fixed_spec="log:6", ema_decay=0.8):
+    """The Algorithm-2 worker protocol with the quantizer hoisted out of
+    the optimizer (the reference's ``run_quantized``): every worker sends
+    Q(delta + e) per leaf with its own EF residual, the server applies
+    the worker mean. ``adaptive`` swaps the per-leaf codecs every
+    ``replan_every`` steps from the repro_torch.adapt allocator fed by
+    the observed (amax, meansq) EMAs; otherwise every leaf stays on
+    ``fixed_spec``. Returns ``(params, info)`` with the measured bytes a
+    step, the plan log and the loss curve."""
+    from repro_torch.adapt import allocate as A
+    from repro_torch.adapt import stats as S
+    from repro_torch.comm.codec import get_codec as codec_of
+    xtr, ytr, xte, yte = data
+    device = xtr.device
+    params = {k: v.clone() for k, v in params.items()}
+    opt = qadam(QAdamConfig(alpha=2e-3, grad_q=None, weight_q=None))
+    states = [opt.init(params)._replace(worker=w) for w in range(n_workers)]
+    es = [{k: torch.zeros_like(v) for k, v in params.items()}
+          for _ in range(n_workers)]
+    names = sorted(params)
+
+    def plan_bytes(plan):
+        return n_workers * sum(_leaf_payload_bytes(params[k].numel(), s,
+                                                   device)
+                               for k, s in zip(names, plan))
+
+    ema = S.StatsEMA(len(names), ema_decay)
+    plan = tuple(fixed_spec for _ in names)
+    its = [classification_batches(xtr, ytr, batch, seed=seed + w)
+           for w in range(n_workers)]
+    plan_log = [{"step": 0, "plan": list(plan),
+                 "bytes_per_step": plan_bytes(plan)}]
+    total_bytes = 0
+    curve = []   # (cumulative bytes, train loss)
+    t = 0
+    loss = None
+    while t < steps:
+        k = min(replan_every, steps - t) if adaptive else steps - t
+        codecs = {n: codec_of(s) for n, s in zip(names, plan)}
+        window_rows = []
+        pb = plan_log[-1]["bytes_per_step"]
+        for _ in range(k):
+            qs, rows, losses = [], [], []
+            for w in range(n_workers):
+                x, y = next(its[w])
+                fp = opt.forward_params(params, states[w])
+                leaves = {n: v.detach().requires_grad_()
+                          for n, v in fp.items()}
+                with torch.enable_grad():
+                    lw = loss_fn(leaves, x, y)
+                    gs = torch.autograd.grad(lw, list(leaves.values()))
+                upd, states[w] = opt.update(dict(zip(leaves, gs)),
+                                            states[w], params)
+                q, r = {}, []
+                for n in names:
+                    send = upd[n] + es[w][n]
+                    deq = _quantize_leaf(codecs[n], send)
+                    q[n] = deq
+                    es[w][n] = send - deq
+                    r.append(torch.stack([send.abs().amax(),
+                                          (send * send).mean()]))
+                qs.append(q)
+                rows.append(torch.stack(r))
+                losses.append(lw.detach())
+            mean_upd = {n: torch.stack([q[n] for q in qs]).mean(0)
+                        for n in names}
+            rows = torch.stack(rows)
+            window_rows.append(torch.cat([rows[:, :, :1].amax(0),
+                                          rows[:, :, 1:].mean(0)], dim=1))
+            params = apply_updates(params, mean_upd)
+            loss = float(torch.stack(losses).mean())
+            total_bytes += pb
+            curve.append((total_bytes, loss))
+        t += k
+        if adaptive and t < steps:
+            for r in torch.stack(window_rows).cpu().numpy():
+                ema.update(np.concatenate(
+                    [r, np.zeros((len(names), 1))], axis=1))
+            snap = ema.snapshot()
+            groups = [A.Group(name=n, numel=params[n].numel(),
+                              c=params[n].numel(), amax=float(snap[i, 0]),
+                              meansq=float(snap[i, 1]))
+                      for i, n in enumerate(names)]
+            budget = int(budget_ratio *
+                         A.baseline_cost(groups, n_workers, width=4))
+            new = A.allocate_specs(groups, budget, n_workers)
+            if new != plan:
+                plan = new
+                plan_log.append({"step": t, "plan": list(plan),
+                                 "bytes_per_step": plan_bytes(plan)})
+    curve = [(int(b), float(l)) for b, l in curve]
+    return params, {"bytes_per_step": total_bytes / steps,
+                    "total_bytes": total_bytes, "plan_log": plan_log,
+                    "final_test_loss": float(loss_fn(params, xte, yte)),
+                    "curve": curve}
+
+
+def run_adaptive_compare(steps=400, seeds=3, workers=8, budget=0.6,
+                         replan_every=25, device="cuda", out=None,
+                         log=print):
+    """The fixed k_g = 6 arm against the adaptive arm (the reference's
+    ``run_adaptive_compare``): final test loss, accuracy and measured
+    bytes a step over ``seeds`` seeds, the adaptive arm's plan log;
+    returns ``(results, summary)`` and writes them to ``out`` (JSON)."""
+    data = classification_dataset(ClsDataConfig(seed=1), device=device)
+    xte, yte = data[2], data[3]
+    arms = {"fixed k_g=6 (log:6)": False, "adaptive": True}
+    results = {}
+    for name, adaptive in arms.items():
+        losses, accs, infos = [], [], []
+        for s in range(seeds):
+            p0 = mlp_init(s, xte.shape[1], HIDDEN, int(data[1].max()) + 1,
+                          device)
+            p, info = run_quantized(
+                steps, data, p0, seed=s * 100, n_workers=workers,
+                adaptive=adaptive, budget_ratio=budget,
+                replan_every=replan_every)
+            losses.append(info["final_test_loss"])
+            accs.append(accuracy(p, xte, yte))
+            infos.append(info)
+        results[name] = {
+            "loss": float(np.mean(losses)), "loss_std": float(np.std(losses)),
+            "acc": float(np.mean(accs)),
+            "bytes_per_step": float(np.mean(
+                [i["bytes_per_step"] for i in infos])),
+            "plan_log": infos[0]["plan_log"],
+            "curve": infos[0]["curve"]}
+        log(f"{name:22s} loss {np.mean(losses):.4f} "
+            f"+/- {np.std(losses):.4f}  acc {np.mean(accs) * 100:.2f}%  "
+            f"{np.mean([i['bytes_per_step'] for i in infos]) / 1e3:.1f}"
+            f"KB/step")
+    fx, ad = results["fixed k_g=6 (log:6)"], results["adaptive"]
+    summary = {"bytes_ratio": ad["bytes_per_step"] / fx["bytes_per_step"],
+               "loss_parity": fx["loss"] / ad["loss"]}
+    log(f"adaptive/fixed bytes: {summary['bytes_ratio']:.3f}x  "
+        f"loss parity (fixed/adaptive): {summary['loss_parity']:.4f}")
+    for e in ad["plan_log"]:
+        lanes = {}
+        for s in e["plan"]:
+            lanes[s] = lanes.get(s, 0) + 1
+        log(f"  plan @{e['step']}: "
+            + " ".join(f"{s}x{n}" for s, n in sorted(lanes.items()))
+            + f"  ({e['bytes_per_step'] / 1e3:.1f}KB/step)")
+    if out:
+        with open(out, "w") as f:
+            json.dump({"results": results, "summary": summary}, f, indent=1)
+    return results, summary
+
+
 def methods(mode: str, server_q: str = "log:2"):
     """name -> (optimizer, its arguments, k_x of WQuan after training or
     None, server codec spec or None, server EF): the reference's methods
@@ -193,18 +387,23 @@ def main():
     ap.add_argument("--server-q", default="log:2",
                     help="efadam server->worker codec spec")
     ap.add_argument("--adaptive", action="store_true",
-                    help="not ported (ROADMAP.md queue 1 item 5)")
+                    help="compare fixed k_g=6 against repro_torch.adapt's "
+                         "runtime bit allocation, measured bytes/step")
+    ap.add_argument("--budget", type=float, default=0.6,
+                    help="--adaptive: byte budget vs the fixed wire")
+    ap.add_argument("--replan-every", type=int, default=25)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    if args.adaptive:
-        raise NotImplementedError(
-            "--adaptive needs the port of repro.adapt, which is not ported "
-            "yet (ROADMAP.md queue 1 item 5)")
     if torch.device(args.device).type == "cuda" and \
             not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the "
                          "plain versions on the CPU")
+    if args.adaptive:
+        run_adaptive_compare(args.steps, args.seeds, args.workers,
+                             args.budget, args.replan_every, args.device,
+                             args.out)
+        return
     rows = compare(args.mode, args.steps, args.seeds, args.workers,
                    args.server_q, args.device)
     if args.out:

@@ -66,8 +66,8 @@ SIGNATURES = {
     "rt_gather_pages": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _P],
     # x, out_bits, rows, n, stream
     "rt_amax_rows": [_P, _P, _I, _L, _P],
-    # x, scale, codes, n, k_g, stream
-    "rt_log_quantize": [_P, _P, _P, _L, _I, _P],
+    # x, scale, grid, codes, n, k_g, stream
+    "rt_log_quantize": [_P, _P, _P, _P, _L, _I, _P],
     # x, u, scale, codes, n, stream
     "rt_ternary_quantize": [_P, _P, _P, _P, _L, _P],
     # codes, payload, rows, c, row_bytes, bits, code_bytes, stream
@@ -78,20 +78,20 @@ SIGNATURES = {
     "rt_uniform_quantize_rows": [_P, _P, _P, _I, _L, _I, _I, _P],
     # g, m, v, e, hp, m_out, v_out, de_out, amax_bits, n, stream
     "rt_adam_moments": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P],
-    # de, scale, codes, e_out, n, k_g, stream
-    "rt_ef_quantize": [_P, _P, _P, _P, _L, _I, _P],
+    # de, scale, grid, table, half, codes, e_out, n, k_g, stream
+    "rt_ef_quantize": [_P, _P, _P, _P, _I, _P, _P, _L, _I, _P],
     # codes, scale, table, half, out, n, stream
     "rt_log_dequantize": [_P, _P, _P, _I, _P, _L, _P],
     # codes, scale, out, rows, n, k_x, code_bytes, stream
     "rt_uniform_dequantize_rows": [_P, _P, _P, _I, _L, _I, _I, _P],
     # x, scale, payload, e_out, n, n_rows, c, row_bytes, kind, bits, k,
-    # clip_abs, stream
+    # clip_abs, grid, table, half, stream
     "rt_ef_encode_rows": [_P, _P, _P, _P, _L, _I, _L, _L, _I, _I, _I, _I,
-                          _P],
+                          _P, _P, _I, _P],
     # x, u, scale, guard, scale_out, payload, n, n_rows, c, row_bytes, kind,
-    # bits, k, clip_abs, stream
+    # bits, k, clip_abs, grid, table, half, stream
     "rt_encode_rows": [_P, _P, _P, _I, _P, _P, _L, _I, _L, _L, _I, _I, _I,
-                       _I, _P],
+                       _I, _P, _P, _I, _P],
     # payload, scales, table, half, out, out_n, n_rows, c, row_bytes, kind,
     # bits, k, stream
     "rt_decode_rows": [_P, _P, _P, _I, _P, _L, _I, _L, _L, _I, _I, _I, _P],

@@ -59,6 +59,15 @@ decode_ternary_launches = 0      # K6 kernel launches, ternary codes
 blockwise_quantize_launches = 0  # #14 kernel launches
 blockwise_encode_launches = 0    # #8 kernel launches
 plain_on_cuda = 0          # plain versions run on CUDA tensors
+# the same launches by codec spec (K7, #5, K6) or log grid (#10, K11): the
+# adaptive plan's lanes counted apart (clear a dict to reset it)
+by_spec = {"ef_encode": {}, "encode": {}, "decode": {}, "log_quantize": {},
+           "log_dequantize": {}}
+
+
+def _count(kernel: str, key) -> None:
+    d = by_spec[kernel]
+    d[key] = d.get(key, 0) + 1
 
 
 def _check_rows(x2d: torch.Tensor) -> None:
@@ -167,24 +176,12 @@ def uniform_dequantize_rows(codes2d: torch.Tensor, scale: torch.Tensor,
     return grids.uniform_dequantize(codes2d, scale[:, None], k_x)
 
 
-_log_tables = {}   # (k_g, device) -> the lane table on that device
-
-
-def _log_table(k_g: int, device) -> torch.Tensor:
-    key = (k_g, str(device))
-    if key not in _log_tables:
-        bits = B.lane_bits_for(k_g + 1)
-        _log_tables[key] = torch.from_numpy(
-            grids.log_dequant_table(k_g, bits)).to(device)
-    return _log_tables[key]
-
-
 def _log_dequantize_cuda(codes, scale, k_g):
     global log_dequantize_launches
     lib = build.library()
     codes = codes.contiguous()
     scale = scale.reshape(1).contiguous()
-    table = _log_table(k_g, codes.device)
+    table = grids.log_table_on(k_g, codes.device)
     out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
     err = lib.rt_log_dequantize(build.ptr(codes), build.ptr(scale),
                                 build.ptr(table), table.shape[0] // 2,
@@ -192,6 +189,7 @@ def _log_dequantize_cuda(codes, scale, k_g):
                                 build.stream_ptr(codes.device))
     build.check(err, "log_dequantize")
     log_dequantize_launches += 1
+    _count("log_dequantize", f"log:{k_g}")
     return out
 
 
@@ -204,8 +202,8 @@ def log_dequantize(codes: torch.Tensor, scale: torch.Tensor, k_g: int,
         raise ValueError(f"need int8 codes, got {codes.dtype}")
     if scale.numel() != 1 or scale.dtype != torch.float32:
         raise ValueError("scale must be one float32 value")
-    if not 0 <= k_g <= 30:
-        raise ValueError(f"k_g={k_g} outside [0, 30]")
+    if not 0 <= k_g <= grids.MAX_LOG_K:
+        raise ValueError(f"k_g={k_g} outside [0, {grids.MAX_LOG_K}]")
     if resolve_backend(backend, codes, scale) == "cuda":
         return _log_dequantize_cuda(codes, scale, k_g)
     plain_on_cuda += codes.is_cuda
@@ -224,10 +222,12 @@ def _log_quantize_cuda(x, scale, k_g):
     scale = scale.reshape(1).contiguous()
     codes = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     err = lib.rt_log_quantize(build.ptr(x), build.ptr(scale),
+                              build.ptr(grids.log_grid_on(x.device)),
                               build.ptr(codes), x.numel(), k_g,
                               build.stream_ptr(x.device))
     build.check(err, "log_quantize")
     log_quantize_launches += 1
+    _count("log_quantize", f"log:{k_g}")
     return codes
 
 
@@ -241,8 +241,8 @@ def log_quantize(x: torch.Tensor, scale: torch.Tensor, k_g: int,
     if x.dtype != torch.float32 or x.numel() < 1:
         raise ValueError(f"need a nonempty float32 tensor, got {x.dtype}")
     _check_scale(scale)
-    if not 0 <= k_g <= 30:
-        raise ValueError(f"k_g={k_g} outside [0, 30]")
+    if not 0 <= k_g <= grids.MAX_LOG_K:
+        raise ValueError(f"k_g={k_g} outside [0, {grids.MAX_LOG_K}]")
     if resolve_backend(backend, x, scale) == "cuda":
         return _log_quantize_cuda(x, scale, k_g)
     plain_on_cuda += x.is_cuda
@@ -400,6 +400,16 @@ def _check_flat_x(x: torch.Tensor, n_rows: int) -> None:
         raise ValueError(f"n_rows={n_rows} outside [1, 65535] or empty x")
 
 
+def _log_tables(codec, device):
+    """(grid, levels, half) pointers of a log codec's tables on
+    ``device`` for the encode kernels; nulls for the other kinds."""
+    if codec.kind != "log":
+        return None, None, 0
+    table = grids.log_table_on(codec.k, device)
+    return (build.ptr(grids.log_grid_on(device)), build.ptr(table),
+            table.shape[0] // 2)
+
+
 def _ef_encode_rows_torch(flat, scale, codec, n_rows):
     s = scale.reshape(())
     codes = _wire_quantize(codec, flat, s)
@@ -417,15 +427,18 @@ def _ef_encode_rows_cuda(flat, scale, codec, n_rows, e_new):
     payload = torch.empty((n_rows, row_bytes), dtype=torch.uint8,
                           device=flat.device)
     clip = codec.clip_abs if codec.kind == "uniform" else None
+    grid, table, half = _log_tables(codec, flat.device)
     err = lib.rt_ef_encode_rows(
         build.ptr(flat), build.ptr(scale), build.ptr(payload),
         build.ptr(e_new), n, n_rows, c, row_bytes, _KINDS[codec.kind],
-        codec.bits, codec.k, clip or 0, build.stream_ptr(flat.device))
+        codec.bits, codec.k, clip or 0, grid, table, half,
+        build.stream_ptr(flat.device))
     build.check(err, "ef_encode_rows")
     if codec.kind == "log":
         ef_encode_log_launches += 1
     else:
         ef_encode_uniform_launches += 1
+    _count("ef_encode", codec.spec)
     return payload
 
 
@@ -493,11 +506,13 @@ def _encode_rows_cuda(flat, codec, n_rows, u):
         scale_in = _amax_rows_cuda(flat.reshape(1, -1))
         scale = torch.empty((), dtype=torch.float32, device=flat.device)
         scale_out, guard = build.ptr(scale), 1
+    grid, table, half = _log_tables(codec, flat.device)
     err = lib.rt_encode_rows(
         build.ptr(flat), None if u is None else build.ptr(u),
         build.ptr(scale_in), guard, scale_out, build.ptr(payload), n, n_rows,
         c, row_bytes, _KINDS[codec.kind], codec.bits, codec.k,
-        codec.clip_abs or 0, build.stream_ptr(flat.device))
+        codec.clip_abs or 0, grid, table, half,
+        build.stream_ptr(flat.device))
     build.check(err, "encode_rows")
     if codec.kind == "log":
         encode_log_launches += 1
@@ -505,6 +520,7 @@ def _encode_rows_cuda(flat, codec, n_rows, u):
         encode_uniform_launches += 1
     else:
         encode_ternary_launches += 1
+    _count("encode", codec.spec)
     return payload, scale
 
 
@@ -546,7 +562,7 @@ def _decode_rows_cuda(payload_rows, scales, codec, c, out):
     lib = build.library()
     n_rows, row_bytes = payload_rows.shape
     if codec.kind == "log":
-        table = _log_table(codec.k, payload_rows.device)
+        table = grids.log_table_on(codec.k, payload_rows.device)
         half = table.shape[0] // 2
     else:
         table, half = scales, 0      # read by the log kind only
@@ -562,6 +578,7 @@ def _decode_rows_cuda(payload_rows, scales, codec, c, out):
         decode_uniform_launches += 1
     else:
         decode_ternary_launches += 1
+    _count("decode", codec.spec)
     return out
 
 

@@ -21,16 +21,18 @@
 //
 // K16 reads Delta+e and the scale and writes int8 log-grid codes and
 // e' = (Delta+e) - deq(codes): 9 bytes per element. The level is found by
-// comparing y = |x| / max(s, 1e-30) against the grid's exact decision
-// points (zero threshold 2^-(k+1), midpoints 0.75 * 2^-j), with no log2 or
-// exp2; deq is the exact signed power of two times the scale, as
-// log_dequantize computes it, not Delta+e - e'.
+// comparing y = |x| / max(s, 1e-30) against the grid's decision points
+// (the reference's zero threshold and midpoints, grids.log_grid_table:
+// 2^-(k+1) and 0.75 * 2^-j for shallow grids, an ulp or more off them
+// for deep ones), with no log2 or exp2, one table read for y's binade;
+// deq is the lane table's level times the scale, as log_dequantize
+// computes it, not Delta+e - e'.
 //
 // Design for both: grid-stride loops with 16-byte float4 loads where the
 // length and alignment allow (a scalar tail covers ragged lengths), at
 // most ~16 blocks per SM in flight.
 //
-// The log grid's code and level (rt::log_code, rt::log_level) live in
+// The log grid's code (rt::log_code) and level (rt::lut_level) live in
 // grids.cuh, shared with the wire's K7.
 #include "grids.cuh"
 
@@ -124,18 +126,26 @@ __global__ void adam_moments_kernel(
   fold_amax(mx, amax_bits);
 }
 
+struct LogLevels {
+  const float* table;  // the lane's levels (grids.log_dequant_table)
+  int half;
+};
+
 __device__ __forceinline__ void ef1(float x, const rt::LogGrid& q,
-                                    int8_t* c, float* e_new) {
+                                    const LogLevels& lv, int8_t* c,
+                                    float* e_new) {
   *c = (int8_t)rt::log_code(x, q);
-  *e_new = __fsub_rn(x, __fmul_rn(rt::log_level(*c, q.k), q.s));
+  *e_new = __fsub_rn(x, rt::lut_level(lv.table, lv.half, *c, q.s));
 }
 
 __global__ void ef_quantize_kernel(const float* __restrict__ de,
                                    const float* __restrict__ scale,
+                                   const float* __restrict__ grid,
+                                   const LogLevels lv,
                                    int8_t* __restrict__ codes,
                                    float* __restrict__ e_out, long long n,
                                    int k, int vec4) {
-  const rt::LogGrid q = rt::make_log_grid(scale[0], k);
+  const rt::LogGrid q = rt::make_log_grid(scale[0], k, grid);
   const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
   long long done = 0;
@@ -146,10 +156,10 @@ __global__ void ef_quantize_kernel(const float* __restrict__ de,
       char4 c;
       float4 r;
       int8_t cx, cy, cz, cw;
-      ef1(x.x, q, &cx, &r.x);
-      ef1(x.y, q, &cy, &r.y);
-      ef1(x.z, q, &cz, &r.z);
-      ef1(x.w, q, &cw, &r.w);
+      ef1(x.x, q, lv, &cx, &r.x);
+      ef1(x.y, q, lv, &cy, &r.y);
+      ef1(x.z, q, lv, &cz, &r.z);
+      ef1(x.w, q, lv, &cw, &r.w);
       c = make_char4(cx, cy, cz, cw);
       reinterpret_cast<char4*>(codes)[i] = c;
       reinterpret_cast<float4*>(e_out)[i] = r;
@@ -159,7 +169,7 @@ __global__ void ef_quantize_kernel(const float* __restrict__ de,
   for (long long i = done + start; i < n; i += stride) {
     int8_t c;
     float r;
-    ef1(de[i], q, &c, &r);
+    ef1(de[i], q, lv, &c, &r);
     codes[i] = c;
     e_out[i] = r;
   }
@@ -188,15 +198,19 @@ extern "C" int rt_adam_moments(const void* g, const void* m, const void* v,
   return (int)cudaGetLastError();
 }
 
-extern "C" int rt_ef_quantize(const void* de, const void* scale, void* codes,
-                              void* e_out, long long n, int k_g,
+extern "C" int rt_ef_quantize(const void* de, const void* scale,
+                              const void* grid, const void* table, int half,
+                              void* codes, void* e_out, long long n, int k_g,
                               void* stream) {
-  if (k_g < 0 || k_g > 120) return (int)cudaErrorInvalidValue;
+  if (k_g < 0 || k_g > rt::kMaxLogK || grid == nullptr || table == nullptr ||
+      half < 1)
+    return (int)cudaErrorInvalidValue;
   const int vec4 = aligned16(de) && aligned16(e_out) &&
                    ((uintptr_t)codes % 4 == 0);
   ef_quantize_kernel<<<n_blocks(vec4 ? n / 4 : n), kThreads, 0,
                        (cudaStream_t)stream>>>(
-      (const float*)de, (const float*)scale, (int8_t*)codes, (float*)e_out, n,
+      (const float*)de, (const float*)scale, (const float*)grid,
+      LogLevels{(const float*)table, half}, (int8_t*)codes, (float*)e_out, n,
       k_g, vec4);
   return (int)cudaGetLastError();
 }

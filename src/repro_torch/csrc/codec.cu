@@ -6,10 +6,11 @@
 // on the weight broadcast) and one scale become the packed payload rows
 // of comm/bits.py pack_rows(pad_rows(codes, n_rows)) and the residual
 // e' = x - deq(codes). The log kind quantizes as K16 does (rt::log_code,
-// exact midpoint comparison) and its residual is x - level * s (K16's
-// ef1); the uniform kind quantizes as K4 does (rt::uniform_code), clips
-// the codes to the lane (+/-clip_abs: k_x = 7 rides 8-bit lanes at
-// +/-127) and its residual is x - (c / 2^k) * s.
+// the reference's decision points compared exactly) and its residual is
+// x - level * s with the lane table's level (K16's ef1), for every k up
+// to 126 (8-bit lanes); the uniform kind quantizes as K4 does
+// (rt::uniform_code), clips the codes to the lane (+/-clip_abs: k_x = 7
+// rides 8-bit lanes at +/-127) and its residual is x - (c / 2^k) * s.
 //
 // #5 replaces repro/comm/kernels.py encode_pallas (_encode2_body,
 // _encode2_ternary_body, _encode1_body): amax + quantize + pack, no
@@ -107,8 +108,10 @@ struct Encode {
   float* scale_out;      // the scale used, or nullptr
   uint8_t* payload;
   float* e_out;          // K7's residual (EF only)
+  const float* grid;     // log: the decision points (grids.log_grid_table)
+  const float* table;    // log: the lane's levels (log_dequant_table)
   long long n, c, row_bytes;
-  int k, clip_abs, guard;
+  int k, clip_abs, guard, half;
 };
 
 template <int BITS, int KIND, bool EF>
@@ -122,7 +125,7 @@ __global__ void encode_kernel(const Encode a) {
   rt::LogGrid lg;
   float s_div = 0.0f, pow2 = 0.0f, top = 0.0f;
   if constexpr (KIND == kLog) {
-    lg = rt::make_log_grid(s, a.k);
+    lg = rt::make_log_grid(s, a.k, a.grid);
   } else if constexpr (KIND == kUniform) {
     s_div = fmaxf(s, 1e-30f);  // as K4
     pow2 = (float)(1 << a.k);
@@ -147,7 +150,7 @@ __global__ void encode_kernel(const Encode a) {
         float level = 0.0f;
         if constexpr (KIND == kLog) {
           code = rt::log_code(xv, lg);
-          level = __fmul_rn(rt::log_level(code, a.k), s);
+          level = rt::lut_level(a.table, a.half, code, s);
         } else if constexpr (KIND == kUniform) {
           float cf = rt::uniform_code(xv, s_div, pow2);
           if (a.clip_abs > 0) cf = fminf(fmaxf(cf, -top), top);
@@ -410,7 +413,8 @@ int launch_decode_kind(DecodeArgs a, int kind, cudaStream_t st) {
 bool valid_geometry(int kind, int bits, int n_rows, long long c,
                     long long row_bytes, int k) {
   if (kind != kLog && kind != kUniform && kind != kTernary) return false;
-  if (n_rows < 1 || n_rows > 65535 || c < 1 || k < 0 || k > 30) return false;
+  if (n_rows < 1 || n_rows > 65535 || c < 1 || k < 0) return false;
+  if (k > (kind == kLog ? rt::kMaxLogK : 30)) return false;
   const int g = rt::group_codes(bits), nb = rt::group_nbytes(bits);
   return row_bytes == (c + g - 1) / g * nb;
 }
@@ -418,6 +422,9 @@ bool valid_geometry(int kind, int bits, int n_rows, long long c,
 int encode_rows(const Encode& a, int n_rows, int kind, int bits, bool ef,
                 cudaStream_t st) {
   if (!valid_geometry(kind, bits, n_rows, a.c, a.row_bytes, a.k))
+    return (int)cudaErrorInvalidValue;
+  if (kind == kLog && (a.grid == nullptr || a.table == nullptr ||
+                       a.half < 1 || 2 * a.half > kMaxTable))
     return (int)cudaErrorInvalidValue;
   if (ef && kind == kTernary) return (int)cudaErrorInvalidValue;
 #define CASE(B) \
@@ -433,10 +440,11 @@ extern "C" int rt_ef_encode_rows(const void* x, const void* scale,
                                  void* payload, void* e_out, long long n,
                                  int n_rows, long long c, long long row_bytes,
                                  int kind, int bits, int k, int clip_abs,
+                                 const void* grid, const void* table, int half,
                                  void* stream) {
   const Encode a{(const float*)x, nullptr, (const float*)scale, nullptr,
-                 (uint8_t*)payload, (float*)e_out, n, c, row_bytes, k,
-                 clip_abs, 0};
+                 (uint8_t*)payload, (float*)e_out, (const float*)grid,
+                 (const float*)table, n, c, row_bytes, k, clip_abs, 0, half};
   return encode_rows(a, n_rows, kind, bits, true, (cudaStream_t)stream);
 }
 
@@ -444,11 +452,13 @@ extern "C" int rt_encode_rows(const void* x, const void* u, const void* scale,
                               int guard, void* scale_out, void* payload,
                               long long n, int n_rows, long long c,
                               long long row_bytes, int kind, int bits, int k,
-                              int clip_abs, void* stream) {
+                              int clip_abs, const void* grid,
+                              const void* table, int half, void* stream) {
   if (kind == kTernary && u == nullptr) return (int)cudaErrorInvalidValue;
   const Encode a{(const float*)x, (const float*)u, (const float*)scale,
-                 (float*)scale_out, (uint8_t*)payload, nullptr, n, c,
-                 row_bytes, k, clip_abs, guard};
+                 (float*)scale_out, (uint8_t*)payload, nullptr,
+                 (const float*)grid, (const float*)table, n, c, row_bytes, k,
+                 clip_abs, guard, half};
   return encode_rows(a, n_rows, kind, bits, false, (cudaStream_t)stream);
 }
 

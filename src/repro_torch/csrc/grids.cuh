@@ -14,7 +14,7 @@
 
 namespace rt {
 
-// 2^e as a float, exact for -126 <= e <= 127.
+// 2^e as a float, exact for -126 <= e <= 127 (the uniform grid's 2^-k).
 __device__ __forceinline__ float pow2i(int e) {
   return __int_as_float((127 + e) << 23);
 }
@@ -29,27 +29,41 @@ __device__ __forceinline__ unsigned int abs_bits(float v) {
 // log grid (the paper's Q_g): grids.log_quantize / log_dequantize
 // ---------------------------------------------------------------------------
 
+// The grid's decision points, the reference's own values
+// (grids.log_grid_table, one table on the device): g[j] is the midpoint
+// between levels 2^-j and 2^-(j+1) (j <= 125), strictly inside
+// [2^-(j+1), 2^-j); g[kZeroAt + k] is the zero threshold of the k grid.
+// The levels come from the lane table (lut_level), which holds the
+// reference's values as well.
+constexpr int kGridLen = 256;
+constexpr int kZeroAt = 128;
+constexpr int kMaxLogK = 126;  // int8 codes hold +/-(k + 1)
+
 struct LogGrid {
-  float s;        // the scale as given (deq multiplies by it)
-  float s_div;    // max(s, 1e-30): the quantizer's divisor
-  float zero;     // 2^-(k+1)
-  float low_mid;  // 0.75 * 2^-(k-1), the smallest midpoint
+  float s;          // the scale as given (deq multiplies by it)
+  float s_div;      // max(s, 1e-30): the quantizer's divisor
+  float zero;       // the zero threshold, about 2^-(k+1)
+  const float* mid; // the midpoints g[0 .. 125]
   int k;
 };
 
-__device__ __forceinline__ LogGrid make_log_grid(float s, int k) {
+__device__ __forceinline__ LogGrid make_log_grid(float s, int k,
+                                                 const float* g) {
   LogGrid q;
   q.s = s;
   q.s_div = s < 1e-30f ? 1e-30f : s;  // NaN passes through, as max()
   q.k = k;
-  q.zero = pow2i(-(k + 1));
-  q.low_mid = __fmul_rn(0.75f, pow2i(1 - k));
+  q.zero = g[kZeroAt + k];
+  q.mid = g;
   return q;
 }
 
-// Nearest-in-linear-space level: the number of decision points (zero
-// threshold 2^-(k+1), then midpoints 0.75 * 2^-j) that y = |x| / s
-// reaches, compared exactly (no log2 or exp2).
+// Nearest-in-linear-space level: the number of decision points (the
+// zero threshold, then the midpoints) that y = |x| / s reaches, compared
+// exactly (no log2 or exp2). The binade [2^E, 2^(E+1)) of a y below 1
+// holds one midpoint, j = -E-1, and every midpoint of a deeper binade
+// lies below y: so the count is k - j plus [y >= mid[j]] when j < k, and
+// 1 (the zero threshold alone) when the binade lies below the grid.
 __device__ __forceinline__ int log_code(float x, const LogGrid& q) {
   const float y = __fdiv_rn(fabsf(x), q.s_div);
   int mag;
@@ -57,22 +71,15 @@ __device__ __forceinline__ int log_code(float x, const LogGrid& q) {
     mag = 0;
   } else if (y != y) {
     mag = q.k > 0 ? q.k : 1;  // the reference's magnitude for a NaN y
+  } else if (y >= 1.0f) {
+    mag = q.k + 1;
   } else {
-    mag = 1;
-    float t = q.low_mid;
-    for (int j = 1; j <= q.k; ++j) {  // midpoints ascending, exact doubling
-      mag += y >= t;
-      t = __fmul_rn(t, 2.0f);
-    }
+    // j = -E-1 with E the unbiased exponent; a subnormal y reads as
+    // E = -127, below every grid
+    const int j = 126 - ((__float_as_int(y) >> 23) & 0xff);
+    mag = j >= q.k ? 1 : q.k - j + (y >= q.mid[j]);
   }
   return x < 0.0f ? -mag : mag;
-}
-
-// sign(c) * 2^(|c|-k-1), 0 for c = 0: the grid's exact levels.
-__device__ __forceinline__ float log_level(int c, int k) {
-  if (c == 0) return 0.0f;
-  const float p = pow2i((c < 0 ? -c : c) - k - 1);
-  return c < 0 ? -p : p;
 }
 
 // The table form: tbl[c + half] * s, tbl holding every lane code's

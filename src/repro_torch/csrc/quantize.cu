@@ -23,8 +23,9 @@
 // Arithmetic of K4 follows repro/opt/grids.py uniform_quantize exactly:
 // y = clip(x / max(s, 1e-30), -1, 1); code = round_half_even(y * 2^k)
 // (rt::uniform_code in grids.cuh). #10 is grids.log_quantize as K16 and
-// K7 already compute it (rt::log_code: the decision points compared
-// exactly, no log2 or exp2). #13 is grids.ternary_quantize, sign(x) *
+// K7 already compute it (rt::log_code: the reference's decision points,
+// grids.log_grid_table, compared exactly, no log2 or exp2; k up to
+// 126). #13 is grids.ternary_quantize, sign(x) *
 // [u < |x| / max(s, 1e-30)]: the division is the IEEE division (no
 // reciprocal), the rule #5's ternary kind holds bitwise. No fast math.
 #include "grids.cuh"
@@ -109,9 +110,10 @@ __device__ __forceinline__ int8_t ternary_code(float x, float u, float s_div) {
 
 __global__ void log_quantize_kernel(const float* __restrict__ x,
                                     const float* __restrict__ scale,
+                                    const float* __restrict__ grid,
                                     int8_t* __restrict__ codes, long long n,
                                     int k, int vec4) {
-  const rt::LogGrid q = rt::make_log_grid(scale[0], k);
+  const rt::LogGrid q = rt::make_log_grid(scale[0], k, grid);
   const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long n4 = vec4 ? n / 4 : 0;
@@ -181,13 +183,16 @@ extern "C" int rt_uniform_quantize_rows(const void* x, const void* scale,
   return (int)cudaGetLastError();
 }
 
-extern "C" int rt_log_quantize(const void* x, const void* scale, void* codes,
-                               long long n, int k_g, void* stream) {
-  if (n < 1 || k_g < 0 || k_g > 30) return (int)cudaErrorInvalidValue;
+extern "C" int rt_log_quantize(const void* x, const void* scale,
+                               const void* grid, void* codes, long long n,
+                               int k_g, void* stream) {
+  if (n < 1 || k_g < 0 || k_g > rt::kMaxLogK || grid == nullptr)
+    return (int)cudaErrorInvalidValue;
   const int vec4 = ((uintptr_t)x % 16 == 0) && ((uintptr_t)codes % 4 == 0);
   log_quantize_kernel<<<blocks_per_row(vec4 ? n / 4 : n, 1), kThreads, 0,
                         (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)scale, (int8_t*)codes, n, k_g, vec4);
+      (const float*)x, (const float*)scale, (const float*)grid,
+      (int8_t*)codes, n, k_g, vec4);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,7 @@
   topology     - link-tier topologies (the flat one is ported)
   collectives  - the quantized wire (packed uint8 exchange / broadcast)
   modes        - per-mode optimizer plugins (qadam/dp_adam/efadam/
-                 terngrad/ef_sgd)
+                 terngrad/ef_sgd/adaptive)
   step         - make_train_step: the mode-independent worker-step template
 
 Importing the package initializes no process group.

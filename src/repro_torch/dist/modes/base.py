@@ -7,7 +7,7 @@ template in ``repro_torch.dist.step`` owns the rest (weight broadcast ->
 forward/backward -> update -> exchange).
 
 Updater contract: ``updater(g, m, v, e, chunk, meta, hp, mark=None,
-draw=None)`` with the flat float32 gradient of the whole leaf, its
+draw=None, idx=None)`` with the flat float32 gradient of the whole leaf, its
 moments and residual (over the whole leaf, or this worker's chunk where
 the mode's ``chunk_sharded_moments``), this worker's master chunk, its
 ``LeafMeta`` and the (4,) hyperparameter tensor [alpha_t, beta, theta_t,
@@ -16,9 +16,12 @@ when given, is called after the update and exchange ("update_exchange")
 and after the master update ("master_update"), for per-phase device
 timing. ``draw(n)`` returns n uniforms in [0, 1) for this (step, leaf,
 worker), the stochastic codecs' randomness (the reference's per-leaf
-key). The port's updaters write their results in place: the returned
-tensors are the given chunk, m, v and e (the reference donates these
-buffers to its step).
+key). ``idx`` is the leaf's index in the reference's leaf order (its
+``metas_flat``: dict keys sorted), what per-leaf wire plans key on. The
+port's updaters write their results in place: the returned tensors are
+the given chunk, m, v and e (the reference donates these buffers to its
+step), followed by one ``adapt.stats`` row (a (3,) float32 tensor) where
+the mode sets ``emits_stats``.
 """
 from __future__ import annotations
 
@@ -69,7 +72,14 @@ class ModeSpec:
     error feedback on the weight-broadcast channel (``efadam``).
     ``tiered``: the updater understands hierarchical topologies (not
     ported; ``dp_adam`` opts out, its all-reduce being one reduction on
-    any topology)."""
+    any topology).
+
+    ``per_leaf`` (the adaptive mode) maps ``(tc, leaf_idx) -> codec`` so
+    different leaves ride different lanes; ``leaf_codec`` and
+    ``leaf_wire_nbytes`` are the indexed entry points every accounting
+    path goes through, and fall back to ``wire_codec`` without a
+    per-leaf plan. ``leaf_idx`` is the reference's leaf order.
+    ``emits_stats`` marks updaters that return a trailing stats row."""
 
     name: str
     chunk_sharded_moments: bool
@@ -77,6 +87,8 @@ class ModeSpec:
     wire_codec: Callable            # (grad_k) -> codec
     extra_state: Tuple[str, ...] = ()
     broadcast_ef: bool = False
+    per_leaf: Optional[Callable] = None   # (tc, leaf_idx) -> codec
+    emits_stats: bool = False
     tiered: bool = True
 
     def wire_nbytes(self, c: int, n_workers: int, grad_k=None) -> int:
@@ -84,8 +96,9 @@ class ModeSpec:
         return n_workers * self.wire_codec(grad_k).payload_nbytes(c)
 
     def leaf_codec(self, tc, idx: int):
-        """Wire codec for leaf ``idx`` (one codec for every leaf: the
-        adaptive mode's per-leaf plans are not ported)."""
+        """Wire codec for leaf ``idx`` (the reference's leaf order)."""
+        if self.per_leaf is not None:
+            return self.per_leaf(tc, idx)
         return self.wire_codec(tc.grad_k)
 
     def leaf_wire_nbytes(self, tc, idx: int, c: int, n_workers: int) -> int:
@@ -141,7 +154,8 @@ def tier_grad_mean(g: torch.Tensor, tiers: Optional[Tiers]) -> torch.Tensor:
 
 def blockwise_exchange(de: torch.Tensor, codec, meta, ctx: WorkerCtx,
                        tiers: Optional[Tiers] = None):
-    """The blockwise wire of ``ef_sgd``: sign codes of Delta+e and their
+    """The blockwise wire of ``ef_sgd`` and the adaptive 2-bit lanes:
+    sign codes of Delta+e and their
     per-256-block mean |.| scales (#14), the EF residual against this
     worker's own dequantized codes, the codes lane-packed into
     worker-ownership rows (#9) and all-to-all'd, unpacked (#9), the (nb,) scales all-gathered

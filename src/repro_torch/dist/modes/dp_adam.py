@@ -21,7 +21,7 @@ from repro_torch.opt import engine
 def make_updater(tc, ctx: WorkerCtx):
     bk = ctx.backend
 
-    def upd(g, m, v, e, chunk, meta, hp, mark=None, draw=None):
+    def upd(g, m, v, e, chunk, meta, hp, mark=None, draw=None, idx=None):
         # the worker rows of the summed gradient, this worker's row
         rows = C.reduce_rows(SH.flatten_pad(g, ctx.n_workers), ctx.group)
         gc = rows[C.worker_index(ctx.group)]

@@ -27,7 +27,7 @@ def make_updater(tc, ctx: WorkerCtx):
     codec = wire_codec()
     tiers = ctx_tiers(ctx)
 
-    def upd(g, m, v, e, chunk, meta, hp, mark=None, draw=None):
+    def upd(g, m, v, e, chunk, meta, hp, mark=None, draw=None, idx=None):
         g = tier_grad_mean(g, tiers)
         m.mul_(hp[1]).add_(g)                  # m' = beta * m + g
         de = torch.mul(m, hp[0]).add_(e)       # alpha_t * m' + e

@@ -24,7 +24,7 @@ def make_updater(tc, ctx: WorkerCtx):
     tiers = ctx_tiers(ctx)
     bk = ctx.backend
 
-    def upd(g, m, v, e, chunk, meta, hp, mark=None, draw=None):
+    def upd(g, m, v, e, chunk, meta, hp, mark=None, draw=None, idx=None):
         # K15: m', v' over m, v; Delta+e; the scale from its on-device
         # max|Delta+e| fold (bitwise grids.amax_scale(Delta+e))
         de, scale = engine.adam_ef_delta(g, m, v, e, hp, backend=bk)

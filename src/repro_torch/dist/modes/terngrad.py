@@ -19,7 +19,7 @@ def make_updater(tc, ctx: WorkerCtx):
     tiers = ctx_tiers(ctx)
     bk = ctx.backend
 
-    def upd(g, m, v, e, chunk, meta, hp, mark=None, draw=None):
+    def upd(g, m, v, e, chunk, meta, hp, mark=None, draw=None, idx=None):
         g = tier_grad_mean(g, tiers)
         # the uniforms of this (step, leaf, worker), read by #5 at g's
         # flat index

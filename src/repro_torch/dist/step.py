@@ -1,8 +1,9 @@
 """Distributed QAdam-EF train step (Algorithms 2+3; port of
 ``repro/dist/step.py``): a quantized parameter server over the ranks of
 a ``torch.distributed`` process group, one model shard, for the paper's
-``qadam`` mode and the baselines (``dp_adam``, ``efadam``, ``terngrad``,
-``ef_sgd``; ``repro_torch.dist.modes``).
+``qadam`` mode, the baselines (``dp_adam``, ``efadam``, ``terngrad``,
+``ef_sgd``) and the ``adaptive`` mode's per-leaf wire plans
+(``repro_torch.dist.modes``).
 
 One step on each rank (worker):
 
@@ -23,7 +24,10 @@ One step on each rank (worker):
      scale, and ``chunk - worker_mean(rows)`` into the master chunk;
 
 and the global loss as sum(s) / sum(n) over workers, one ``all_reduce``
-of a 2-vector on the device. No step reads the device on the host: the
+of a 2-vector on the device. Modes with ``emits_stats`` (``adaptive``)
+also return ``gstats``: one ``adapt.stats`` row per leaf, stacked in
+the reference's leaf order and reduced over the workers (two
+``all_reduce``s), on the device. No step reads the device on the host: the
 step count, alpha_t and theta_t live on the host.
 
 State per rank (the reference's chunked layout, this rank's slice, each
@@ -38,9 +42,8 @@ Batches: the global batch's rows are split over the workers when the
 batch divides by their number (worker w takes rows [w*B/W, (w+1)*B/W)),
 else every worker takes the whole batch, as ``_batch_geometry``.
 
-Out of scope (raise ``NotImplementedError``, ROADMAP.md queue 1): the
-``adaptive`` mode, ``HierarchicalTopology``, a model axis and
-``model_gather_quant``. The reference's exchange buckets are XLA
+Out of scope (raise ``NotImplementedError``, ROADMAP.md queue 1):
+``HierarchicalTopology``, a model axis and ``model_gather_quant``. The reference's exchange buckets are XLA
 scheduling fences that change no number; the overlap of the exchange
 with the backward they allow is queued in ROADMAP.md.
 """
@@ -53,6 +56,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.adapt import stats as astats
 from repro_torch.comm import codec as CD
 from repro_torch.core.qadam import QAdamConfig, _alpha_t, _theta_t
 from repro_torch.core.uniforms import draw_uniform
@@ -60,7 +64,7 @@ from repro_torch.dist import collectives as C
 from repro_torch.dist import sharding as SH
 from repro_torch.dist import topology as T
 from repro_torch.dist.modes import WorkerCtx, get_mode
-from repro_torch.opt import engine
+from repro_torch.opt import engine, grids
 from repro_torch.tree import (sorted_leaf_index, tree_leaves, tree_map,
                               tree_unflatten)
 
@@ -81,6 +85,9 @@ class TrainConfig:
     topology: T.Topology = T.FlatTopology()      # only flat is ported
     model_gather_quant: Optional[int] = None     # not ported
     seed: int = 0                       # the stochastic codecs' draws
+    # adaptive mode: one codec spec per leaf, in the reference's leaf
+    # order (keys sorted); None = every leaf on log:grad_k
+    bit_plan: Optional[Tuple[str, ...]] = None
     # kernels' implementation: "cuda" | "torch" (the plain versions) |
     # None = by the tensors' device
     backend: Optional[str] = None
@@ -126,6 +133,9 @@ class StepArtifacts(NamedTuple):
     # ``hp`` is given (a K-step dispatch fills a static table from it and
     # passes the rows)
     hp_row: Optional[Callable] = None
+    # prepare(device): make the device tables the exchange's codecs read,
+    # outside any CUDA graph capture (a session calls it at a plan swap)
+    prepare: Optional[Callable] = None
 
 
 def weight_wire_codec(tc: TrainConfig, numel: int):
@@ -173,6 +183,12 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
     shapes = model.init(torch.Generator(), device="meta")
     layout = SH.build_layout(shapes)
     metas_flat = tree_leaves(_leaf_meta(layout, n_workers))
+    if tc.bit_plan is not None and len(tc.bit_plan) != len(metas_flat):
+        raise ValueError(
+            f"bit_plan has {len(tc.bit_plan)} specs for "
+            f"{len(metas_flat)} state leaves")
+    # each leaf's index in the reference's leaf order: what the draws and
+    # the per-leaf plans and stats rows are keyed by
     draw_index = sorted_leaf_index(layout.shapes)
     qcfg = QAdamConfig(alpha=tc.alpha, beta=tc.beta, theta=tc.theta,
                        eps=tc.eps, schedule=tc.schedule)
@@ -193,6 +209,16 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
 
     def hp_row(t):
         return _alpha_t(qcfg, t), tc.beta, _theta_t(qcfg, t), tc.eps
+
+    def prepare(device):
+        """Copy the log lanes' levels and decision points of every leaf's
+        exchange codec to ``device`` now (the step makes them at first
+        use, a host-to-device copy that a graph capture refuses)."""
+        for i in range(len(metas_flat)):
+            codec = mode.leaf_codec(tc, draw_index[i])
+            if getattr(codec, "kind", None) == "log":
+                grids.log_table_on(codec.k, device)
+                grids.log_grid_on(device)
 
     # ---------------- init ----------------
     def init_state(seed: int = 0, device="cuda"):
@@ -277,12 +303,18 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
         each leaf's "update_exchange" and "master_update". ``hp``: the
         step's (4,) device row of ``hp_row(count + 1)``, made here when
         not given."""
+        return update_stats(state, grads, mark, hp)[0]
+
+    def update_stats(state, grads, mark=None, hp=None):
+        """``update``, and the local stats rows ((n_leaves, 3) in the
+        reference's leaf order) where the mode emits them, else None."""
         masters = flat(state["master"])
         ms, vs, es = (flat(state[k]) for k in ("m", "v", "e"))
         t = state["count"] + 1
         dev = masters[0].device
         if hp is None:
             hp = engine.hyperparams(*hp_row(t), dev)
+        rows = [None] * len(metas_flat) if mode.emits_stats else None
         for i, meta in enumerate(metas_flat):
             g = grads[i]
             grads[i] = None
@@ -291,10 +323,13 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
 
             def draw(n, i=draw_index[i]):   # looked up at call time
                 return draw_uniform(tc.seed, t, i, rank, n, dev)
-            updater(g, ms[i], vs[i], es[i], masters[i], meta, hp, mark=mark,
-                    draw=draw)
-            del g
-        return dict(state, count=t)
+            out = updater(g, ms[i], vs[i], es[i], masters[i], meta, hp,
+                          mark=mark, draw=draw, idx=draw_index[i])
+            if rows is not None:
+                rows[draw_index[i]] = out[4]
+            del g, out
+        return (dict(state, count=t),
+                None if rows is None else torch.stack(rows))
 
     def step_fn(state, batch, mark: Optional[Callable] = None, hp=None):
         """One step; ``mark(name)`` (optional) is called at the end of
@@ -307,10 +342,14 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
         del xs
         if mark:
             mark("forward_backward")
-        return update(state, grads, mark, hp), {"loss": loss}
+        state, rows = update_stats(state, grads, mark, hp)
+        metrics = {"loss": loss}
+        if rows is not None:
+            metrics["gstats"] = astats.reduce_stats(rows, group, n_workers)
+        return state, metrics
 
     return StepArtifacts(init_state=init_state, step_fn=step_fn,
                          layout=layout, n_workers=n_workers, rank=rank,
                          group=group, config=tc, tiers=tiers,
                          broadcast=broadcast, loss_and_grads=loss_and_grads,
-                         update=update, hp_row=hp_row)
+                         update=update, hp_row=hp_row, prepare=prepare)

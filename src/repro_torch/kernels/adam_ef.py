@@ -93,7 +93,10 @@ def _ef_quantize_cuda(de, scale, k_g, out):
     scale = scale.reshape(1).contiguous()
     codes = torch.empty(de.shape, dtype=torch.int8, device=de.device)
     e_new = out if out is not None else torch.empty_like(de)
+    table = grids.log_table_on(k_g, de.device)
     err = lib.rt_ef_quantize(build.ptr(de), build.ptr(scale),
+                             build.ptr(grids.log_grid_on(de.device)),
+                             build.ptr(table), table.shape[0] // 2,
                              build.ptr(codes), build.ptr(e_new), de.numel(),
                              k_g, build.stream_ptr(de.device))
     build.check(err, "ef_quantize")
@@ -112,8 +115,8 @@ def ef_quantize(de: torch.Tensor, scale: torch.Tensor, k_g: int,
     _check_out(None if out is None else (out,), de, 1)
     if scale.numel() != 1 or scale.dtype != torch.float32:
         raise ValueError("scale must be one float32 value")
-    if not 0 <= k_g <= 120:
-        raise ValueError(f"k_g={k_g} outside [0, 120]")
+    if not 0 <= k_g <= grids.MAX_LOG_K:
+        raise ValueError(f"k_g={k_g} outside [0, {grids.MAX_LOG_K}]")
     if resolve_backend(backend, de, scale) == "cuda":
         return _ef_quantize_cuda(de, scale, k_g, out)
     plain_on_cuda += de.is_cuda

@@ -43,9 +43,21 @@ moments as wire codes), e.g.
 card, a loop on the CPU (the log and checkpoint cadences are multiples
 of K).
 
-The ``adaptive`` mode, hierarchical topologies, a model axis, bucket
-tuning and AOT artifacts are not ported yet (ROADMAP.md queue 1): their
-flags raise ``NotImplementedError``.
+``--adaptive`` (or ``--mode adaptive``) drives the run through
+``repro_torch.adapt``'s controller: per-leaf stats kept on the device,
+a replan every ``--replan-every`` steps under ``--adapt-budget`` (the
+exchange's byte budget against the fixed log:6 wire), the new plan's
+step swapped in with the state carried bitwise; ``--adapt-verify``
+holds every plan's byte accounting to measured payloads and the host
+syncs to one a window (with ``--log-every 0``); ``--resume`` restores
+the plan and the stats EMA with the state, e.g.
+
+  python -m repro_torch.launch.train --arch yi-6b --smoke --device cpu \
+      --adaptive --replan-every 2 --steps 6 --adapt-verify --log-every 0
+
+Hierarchical topologies, a model axis, bucket tuning and AOT artifacts
+are not ported yet (ROADMAP.md queue 1): their flags raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -55,7 +67,7 @@ import json
 # flags of the reference that the port does not run yet, with the value
 # that leaves them off
 NOT_PORTED = {"model": 1, "pod": 0, "topology": None, "model_gather_quant": 0,
-              "tune_buckets": False, "aot_dir": None, "adaptive": False}
+              "tune_buckets": False, "aot_dir": None}
 
 
 def parse_args(argv=None):
@@ -82,6 +94,19 @@ def parse_args(argv=None):
     ap.add_argument("--mode", default="qadam",
                     choices=["qadam", "efadam", "dp_adam", "terngrad",
                              "ef_sgd", "adaptive"])
+    ap.add_argument("--adaptive", action="store_true",
+                    help="runtime-adaptive per-leaf bit allocation "
+                         "(repro_torch.adapt): stats-driven replans every "
+                         "--replan-every steps under --adapt-budget")
+    ap.add_argument("--adapt-budget", type=float, default=0.6,
+                    help="exchange byte budget as a fraction of the fixed "
+                         "log:6 wire")
+    ap.add_argument("--replan-every", type=int, default=25)
+    ap.add_argument("--adapt-ema", type=float, default=0.8,
+                    help="stats EMA decay per step")
+    ap.add_argument("--adapt-verify", action="store_true",
+                    help="assert exact byte accounting at every plan and "
+                         "no steady-state host sync")
     ap.add_argument("--scan-chunk", type=int, default=1,
                     help=">1: this many steps a dispatch (a CUDA graph on "
                          "the card)")
@@ -107,16 +132,96 @@ def parse_args(argv=None):
     ap.add_argument("--model-gather-quant", type=int, default=0)
     ap.add_argument("--tune-buckets", action="store_true")
     ap.add_argument("--aot-dir", default=None)
-    ap.add_argument("--adaptive", action="store_true")
     args = ap.parse_args(argv)
     if args.resume and not args.ckpt_dir:
         ap.error("--resume requires --ckpt-dir")
+    args.adaptive = args.adaptive or args.mode == "adaptive"
     for name, off in NOT_PORTED.items():
         if getattr(args, name) != off:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} is not ported yet (ROADMAP.md "
                 "queue 1)")
     return args
+
+
+def _plan_summary(plan) -> str:
+    counts = {}
+    for spec in plan:
+        counts[spec] = counts.get(spec, 0) + 1
+    return " ".join(f"{s}x{n}" for s, n in sorted(counts.items()))
+
+
+def _run_adaptive(args, model, group, tc, cfg, lead):
+    """--adaptive: the run through the repro_torch.adapt controller
+    (stats ring -> bit allocation -> step swaps at replan boundaries)
+    instead of a plain session."""
+    import math
+
+    from repro_torch.adapt.controller import AdaptConfig, AdaptiveController
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.launch.mesh import rank_device
+    from repro_torch.train.session import SessionConfig
+
+    say = print if lead else (lambda *_: None)
+    batches = batch_for_model(cfg, args.seq, args.global_batch,
+                              seed=args.seed)
+    sc = SessionConfig(log_every=args.log_every,
+                       ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
+                       ckpt_keep=args.ckpt_keep, ckpt_codec=args.ckpt_codec,
+                       scan_chunk=args.scan_chunk, prefetch=args.prefetch)
+    acfg = AdaptConfig(budget_ratio=args.adapt_budget,
+                       replan_every=args.replan_every,
+                       ema_decay=args.adapt_ema)
+    ctl = AdaptiveController(model, group, tc, batches, acfg, sc,
+                             seed=args.seed, device=rank_device(args.device),
+                             log=say, verify=args.adapt_verify)
+    say(f"workers={ctl.art.n_workers} device={args.device}")
+    try:
+        start = ctl.resume(args.ckpt_dir) if args.resume else 0
+        if start:
+            plan = ctl.tc.bit_plan
+            say(f"resumed from step {start} ({args.ckpt_dir}), plan "
+                f"restored: "
+                f"{_plan_summary(plan) if plan else 'initial log grid'}")
+        remaining = args.steps - start
+        if remaining <= 0:
+            say(f"nothing to do: checkpoint at step {start} >= "
+                f"--steps {args.steps}")
+            return
+        ctl.run(remaining)
+        windows = math.ceil(remaining / args.replan_every)
+        if args.adapt_verify:
+            # every plan already passed accounted == measured; here: the
+            # only host syncs are the window harvests (and the log
+            # boundaries' loss harvests), nothing a step
+            if args.log_every == 0:
+                assert ctl.stats["syncs"] == windows,                     (f"{ctl.stats['syncs']} syncs != {windows} replan "
+                     f"windows: a per-step host sync crept in")
+            say(f"adapt-verify OK: {len(ctl.plan_log)} plans exact, "
+                f"{ctl.stats['syncs']} syncs / {windows} windows")
+        losses = [h for h in ctl.session.history if "loss" in h]
+        if not losses:
+            losses = [{"step": s, "loss": v}
+                      for s, v in ctl.session.harvest_losses()]
+    finally:
+        ctl.close()
+    say(f"session stats: {ctl.stats}")
+    for e in ctl.plan_log:
+        a2a = e["comm"]["update_exchange_bytes"]
+        say(f"plan @{e['step']}: a2a {a2a / 1e6:.3f}MB/step "
+            f"({'initial log grid' if e['bit_plan'] is None else ''}"
+            f"{'' if e['bit_plan'] is None else _plan_summary(e['bit_plan'])})")
+    if args.history_out and lead:
+        with open(args.history_out, "w") as f:
+            json.dump({"arch": args.arch, "history": ctl.session.history,
+                       "plan_log": [
+                           {"step": e["step"], "comm": e["comm"],
+                            "bit_plan": (list(e["bit_plan"])
+                                         if e["bit_plan"] else None)}
+                           for e in ctl.plan_log],
+                       "stats": ctl.stats}, f, indent=1)
+    if losses:
+        say("final loss:", losses[-1]["loss"])
 
 
 def main(argv=None):
@@ -139,16 +244,21 @@ def main(argv=None):
                      grad_k=args.grad_bits or None,
                      weight_k=args.weight_bits or None,
                      weight_absolute=args.weight_absolute,
-                     error_feedback=not args.no_ef, mode=args.mode,
+                     error_feedback=not args.no_ef,
+                     mode="adaptive" if args.adaptive else args.mode,
                      seed=args.seed)
     cfg = get_config(args.arch, smoke=args.smoke)
     model = Model(cfg)
     group = make_process_group(args.device)
     try:
+        world = torch.distributed.get_world_size(group)
+        if args.data is not None and args.data != world:
+            raise ValueError(f"--data {args.data} but {world} ranks run")
+        if args.adaptive:
+            _run_adaptive(args, model, group, tc, cfg,
+                          torch.distributed.get_rank(group) == 0)
+            return
         art = make_train_step(model, group, tc)
-        if args.data is not None and args.data != art.n_workers:
-            raise ValueError(f"--data {args.data} but {art.n_workers} "
-                             f"ranks run")
         lead = art.rank == 0
         comm = comm_bytes_per_step(art, tc)
         if lead:

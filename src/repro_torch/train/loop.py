@@ -14,7 +14,7 @@ from typing import Callable, Dict, Iterator, Optional
 from repro_torch.dist.modes import get_mode
 from repro_torch.dist.step import TrainConfig, _leaf_meta, weight_wire_codec
 from repro_torch.train.session import SessionConfig, TrainSession
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import sorted_leaf_index, tree_leaves
 
 
 @dataclasses.dataclass
@@ -34,16 +34,21 @@ class LoopConfig:
 def comm_bytes_per_step(art, tc: TrainConfig) -> Dict:
     """Per-worker payload bytes of the two quantized channels (the
     paper's 'Comm' column), exact integers from the codecs: per leaf the
-    mode's update-exchange codec (``ModeSpec.leaf_tier_nbytes``) plus the
-    weight-broadcast codec (``dist.step.weight_wire_codec``). The float32
-    scale side-channels are excluded. ``art`` needs ``layout``,
-    ``n_workers`` and ``tiers`` (flat: every byte on the inter tier)."""
+    mode's update-exchange codec (``ModeSpec.leaf_tier_nbytes``; a
+    per-leaf plan's codec of that leaf, so the figure follows every
+    replan) plus the weight-broadcast codec
+    (``dist.step.weight_wire_codec``). The float32 scale side-channels
+    (one per leaf and worker; one per 256-block on the blockwise lanes)
+    are excluded. ``art`` needs ``layout``, ``n_workers`` and ``tiers``
+    (flat: every byte on the inter tier)."""
     mode = get_mode(tc.mode)
     leaves = tree_leaves(_leaf_meta(art.layout, art.n_workers))
+    ref_index = sorted_leaf_index(art.layout.shapes)
     tiers = getattr(art, "tiers", None)
     ex_inter = ex_intra = 0
     for i, m in enumerate(leaves):
-        d = mode.leaf_tier_nbytes(tc, i, m.c, m.numel, art.n_workers, tiers)
+        d = mode.leaf_tier_nbytes(tc, ref_index[i], m.c, m.numel,
+                                  art.n_workers, tiers)
         ex_inter += d["inter"]
         ex_intra += d["intra"]
     bc_inter = sum(art.n_workers * weight_wire_codec(tc, m.numel)

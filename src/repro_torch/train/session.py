@@ -58,9 +58,26 @@ The hot loop does not wait on the device in steady state:
   * **evals** - ``eval_fn(state)`` at ``eval_every`` boundaries, each in
     its own ``{"step", "eval"}`` history entry pinned to the true
     post-dispatch step, as are checkpoints.
+  * **stats ring** - a mode with ``emits_stats`` (``adaptive``) returns
+    one (n_leaves, 3) gradient-stats row block a step; the session keeps
+    them in a device ring that shares the loss ring's slots (a dispatch
+    writes its K losses and its K row blocks at the same slot, a device
+    copy: inside a CUDA graph the K steps write static buffers, and the
+    copies into the ring at the host's slot run after the replay, so no
+    host integer is frozen into the graph). ``harvest_stats()`` reads the
+    ring in one host sync. ``stats_ring`` sets how many steps stay
+    resident between harvests.
+  * **plan swaps** - ``swap_artifacts(art)`` installs another step of the
+    same workers and state layout (the adaptive controller's new bit
+    plan) between dispatches: the state tensors carry over as they are.
+    On the card the old plan's graph is released (its pool freed before
+    the next capture: one graph pool at a time), the new step's device
+    tables are made (``art.prepare``) and the next K-step dispatch
+    captures the new plan and replays it. A plan met again is captured
+    again.
 
-The reference's stats ring (``stats_ring``, the adaptive mode) and AOT
-artifacts (``aot_dir``) wait for ROADMAP.md queue 1 items 4 and 8.
+The reference's AOT artifacts (``aot_dir``) wait for ROADMAP.md queue 1
+item 8.
 """
 from __future__ import annotations
 
@@ -98,6 +115,11 @@ class SessionConfig:
     scan_chunk: int = 1        # K steps a dispatch (a CUDA graph on CUDA)
     prefetch: int = 2          # staged dispatches in flight; 0 = inline
     check_finite: bool = True  # raise on non-finite harvested loss
+    # stats-ring coverage in steps (modes with ``emits_stats``: the
+    # adaptive controller's replan window): the per-step stats rows stay
+    # on the device for at least this many steps between
+    # ``harvest_stats()`` calls; 0 sizes the ring off log_every alone
+    stats_ring: int = 0
 
 
 def stage_batch(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -152,10 +174,12 @@ def _replaced(before: List[tuple], after) -> List[str]:
 
 
 class _Chunks:
-    """K steps of ``step(state, batch_i, hp_i) -> (state, loss or None)``
-    a dispatch, state updated in place, the step count read and set
-    through ``get_count`` / ``set_count`` (a host int). Step t's
-    hyperparameters ``hp_row(t)`` reach it as row i of a static table.
+    """K steps of ``step(state, batch_i, hp_i) -> (state, outs or None)``
+    a dispatch (``outs`` a tuple of device tensors: the loss, and the
+    stats rows where the mode emits them), state updated in place, the
+    step count read and set through ``get_count`` / ``set_count`` (a
+    host int). Step t's hyperparameters ``hp_row(t)`` reach it as row i
+    of a static table.
 
     On a CUDA device the first K-step dispatch runs eagerly (the warm-up),
     the second captures the K steps in one CUDA graph and replays it, and
@@ -174,34 +198,46 @@ class _Chunks:
         self.table = engine.HyperparamTable(k, self.device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._warm = False
-        self._batch = self._losses = None
+        self._batch = self._outs = self._like = None
+        self.capture_s: List[float] = []   # host seconds of each capture
+
+    def reset(self) -> None:
+        """Drop the captured graph (its pool is freed at the next
+        capture): the next K-step dispatch captures again (after an eager
+        one where none has run yet)."""
+        self.graph = None
+        self._batch = self._outs = None
 
     def _fill(self, t0: int, k: int) -> None:
         self.table.fill([self._hp_row(t0 + 1 + i) for i in range(k)])
 
     def _eager(self, state, batch, k: int):
-        losses = []
+        outs = []
         for i in range(k):
-            state, loss = self._step(state, _row(batch, i), self.table[i])
-            losses.append(loss)
-        return state, (torch.stack(losses) if losses[0] is not None
-                       else None)
+            state, out = self._step(state, _row(batch, i), self.table[i])
+            outs.append(out)
+        if outs[0] is None:
+            return state, None
+        self._like = [(o.shape, o.dtype) for o in outs[0]]
+        return state, tuple(torch.stack(c) for c in zip(*outs))
 
     def _capture(self, state, batch) -> None:
         torch.cuda.empty_cache()   # one pool of a step's transients, not two
         self._batch = tree_map(torch.empty_like, batch)
-        self._losses = torch.zeros(self.k, dtype=torch.float32,
-                                   device=self.device)
+        self._outs = None if self._like is None else tuple(
+            torch.zeros((self.k,) + tuple(shape), dtype=dt,
+                        device=self.device) for shape, dt in self._like)
         count = self._get(state)
         before = _tensor_leaves(state)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             st = state
             for i in range(self.k):
-                st, loss = self._step(st, _row(self._batch, i),
-                                      self.table[i])
-                if loss is not None:
-                    self._losses[i].copy_(loss)
+                st, out = self._step(st, _row(self._batch, i),
+                                     self.table[i])
+                if self._outs is not None:
+                    for buf, o in zip(self._outs, out):
+                        buf[i].copy_(o)
         moved = _replaced(before, st)
         if moved:
             raise RuntimeError(
@@ -215,7 +251,7 @@ class _Chunks:
 
     def __call__(self, state, batch, k: int):
         """Run the ``k`` steps of the stacked ``batch``; returns (state,
-        the (k,) losses or None)."""
+        the outs stacked over the k steps, or None)."""
         t0 = self._get(state)
         self._fill(t0, k)
         if self.device.type != "cuda" or k < self.k or not self._warm:
@@ -223,12 +259,14 @@ class _Chunks:
             self._warm = self._warm or k == self.k
             return out
         if self.graph is None:
+            t = time.perf_counter()
             self._capture(state, batch)
+            self.capture_s.append(time.perf_counter() - t)
         tree_map(lambda dst, src: dst.copy_(src), self._batch, batch)
         self.graph.replay()
         self.stats["graph_replays"] += 1
         state = self._set(state, t0 + self.k)
-        return state, self._losses
+        return state, self._outs
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +300,9 @@ class _SingleProgram:
         self.stochastic = opt.stochastic
         self.hp_row = opt.hp_row
         self.name = "the optimizer"
+
+    def stats_shape(self):
+        return None
 
     def init_state(self, params):
         # a private copy: the steps update the parameters in place
@@ -341,6 +382,15 @@ class _DistProgram:
 
     def step(self, state, batch, hp=None):
         return self.art.step_fn(state, batch, hp=hp)
+
+    def stats_shape(self):
+        """(n_leaves, N_FIELDS) where the mode emits stats rows, else
+        None (no stats ring)."""
+        from repro_torch.adapt import stats as astats
+        from repro_torch.dist.modes import get_mode
+        if not get_mode(self.art.config.mode).emits_stats:
+            return None
+        return (len(tree_leaves(self.art.layout.shapes)), astats.N_FIELDS)
 
     def get_count(self, state) -> int:
         return state["count"]
@@ -500,14 +550,19 @@ class TrainSession:
                 "each step, which a CUDA graph would freeze; it runs with "
                 "scan_chunk=1 until its kernel draws from a counter-based "
                 "generator (ROADMAP.md queue 2)")
-        # every unharvested step since the last log boundary stays
-        # resident, plus one chunk of slack
-        cover = max(self.cfg.log_every, 1)
+        # every unharvested step since the last log boundary (or stats
+        # harvest) stays resident, plus one chunk of slack
+        cover = max(self.cfg.log_every, self.cfg.stats_ring, 1)
         self._ring_len = self.chunk * (math.ceil(cover / self.chunk) + 1)
         self._ring = torch.zeros((self._ring_len,), dtype=torch.float32,
                                  device=self._device)
+        sshape = program.stats_shape()
+        self._sring = None if sshape is None else torch.zeros(
+            (self._ring_len,) + tuple(sshape), dtype=torch.float32,
+            device=self._device)
         self._slot = 0
         self._pending: Dict[int, int] = {}  # ring slot -> its unread step
+        self._stat_pending: Dict[int, int] = {}
         self._step = 0                     # optimizer steps executed
         self._prefetch: Optional[_Prefetcher] = None
         self.stats = {"dispatches": 0, "syncs": 0, "steps": 0, "ckpts": 0,
@@ -553,7 +608,9 @@ class TrainSession:
 
     def _one(self, state, batch, hp=None):
         state, metrics = self._program.step(state, batch, hp)
-        return state, metrics["loss"]
+        if "gstats" in metrics:
+            return state, (metrics["loss"], metrics["gstats"])
+        return state, (metrics["loss"],)
 
     def _sync(self, x: torch.Tensor) -> np.ndarray:
         self.stats["syncs"] += 1
@@ -576,6 +633,49 @@ class TrainSession:
                 if not np.isfinite(v):
                     raise FloatingPointError(f"loss diverged at step {s}")
         return out
+
+    def harvest_stats(self) -> List[tuple]:
+        """Pull every still-resident per-step stats row block off the
+        device in ONE host sync; returns ``[(step, (n_leaves, N_FIELDS)
+        ndarray), ...]`` sorted by step and clears the pending slots.
+        Empty for modes without ``emits_stats``."""
+        if self._sring is None or not self._stat_pending:
+            return []
+        vals = self._sync(self._sring)
+        out = sorted(((step, vals[slot])
+                      for slot, step in self._stat_pending.items()),
+                     key=lambda t: t[0])
+        self._stat_pending.clear()
+        return out
+
+    # -- adaptive replans ----------------------------------------------
+
+    def swap_artifacts(self, art) -> None:
+        """Install other ``dist.step`` artifacts (same workers, same state
+        layout: the adaptive controller's next bit plan) between
+        dispatches. The state tensors carry over untouched, so masters,
+        moments and EF residuals go on bitwise from the previous plan.
+        On the card the old plan's graph is dropped and the next K-step
+        dispatch captures the new plan."""
+        if not isinstance(self._program, _DistProgram):
+            raise ValueError("swap_artifacts requires a distributed session")
+        from repro_torch.dist.modes import get_mode
+        old = self._program.art
+        om, nm = get_mode(old.config.mode), get_mode(art.config.mode)
+        if (art.n_workers != old.n_workers or art.rank != old.rank
+                or art.group is not old.group or art.layout != old.layout
+                or om.chunk_sharded_moments != nm.chunk_sharded_moments
+                or om.extra_state != nm.extra_state
+                or om.emits_stats != nm.emits_stats):
+            raise ValueError("swap_artifacts cannot change the workers, "
+                             "the state layout or the stats rows")
+        self._program.art = art
+        self._program.hp_row = art.hp_row
+        if art.prepare is not None:
+            art.prepare(self._device)
+        if self._chunks is not None:
+            self._chunks.reset()
+            self._chunks._hp_row = art.hp_row
 
     # -- checkpointing --------------------------------------------------
 
@@ -775,13 +875,17 @@ class TrainSession:
                 self._slot = 0
             sl, i0 = self._slot, self._step
             if self._chunks is None:
-                self._state, loss = self._one(self._state, batch)
-                self._ring[sl] = loss
+                self._state, out = self._one(self._state, batch)
+                outs = tuple(o[None] for o in out)
             else:
-                self._state, losses = self._chunks(self._state, batch, k)
-                self._ring[sl:sl + k].copy_(losses)
+                self._state, outs = self._chunks(self._state, batch, k)
+            self._ring[sl:sl + k].copy_(outs[0])
+            if self._sring is not None:
+                self._sring[sl:sl + k].copy_(outs[1])
             for j in range(k):
                 self._pending[sl + j] = i0 + j + 1
+                if self._sring is not None:
+                    self._stat_pending[sl + j] = i0 + j + 1
             self._slot += k
             self._step += k
             self.stats["dispatches"] += 1
@@ -824,6 +928,12 @@ class TrainSession:
     @property
     def step(self) -> int:
         return self._step
+
+    @property
+    def capture_seconds(self) -> List[float]:
+        """Host seconds of each CUDA graph capture so far (none off the
+        card or at scan_chunk=1)."""
+        return [] if self._chunks is None else list(self._chunks.capture_s)
 
     def close(self):
         """Stop the prefetch thread and flush pending checkpoints."""
@@ -869,7 +979,7 @@ def _chunked(opt, step: Callable, donate: bool) -> Callable:
     def one(st, row, hp):
         (p, s), loss = step((st[0], st[1]), row, hp)
         st[0], st[1] = p, s
-        return st, loss
+        return st, None if loss is None else (loss,)
 
     def fn(params, state, stacked):
         if not donate:
@@ -887,9 +997,9 @@ def _chunked(opt, step: Callable, donate: bool) -> Callable:
             run = runners[key] = _Chunks(k, one, opt.hp_row, get_count,
                                          set_count, dev, stats,
                                          "the optimizer")
-        st, losses = run([params, state], stacked, k)
+        st, outs = run([params, state], stacked, k)
         # a graph's loss buffer is overwritten by its next replay
-        return st[0], st[1], None if losses is None else losses.clone()
+        return st[0], st[1], None if outs is None else outs[0].clone()
 
     fn.stats = stats
     return fn

@@ -80,6 +80,26 @@ def test_log_quantize_decision_points_bitwise(k_g):
         _eq(_jit_log_quantize(jnp.asarray(xs), jnp.float32(scale), k_g), t)
 
 
+@pytest.mark.parametrize("k_g", [30, 126])
+def test_log_quantize_deep_decision_points_bitwise(k_g):
+    """Windows of ulps around every decision point and power of two of
+    the deep grids, where the reference's points come from XLA's exp2
+    (and, in binade 125, its log2) and sit an ulp or more off the exact
+    ones. Bitwise wherever |x| and |x| / scale are normal floats: XLA on
+    the CPU flushes subnormals (the port's rule there is
+    ``test_torch_log_grid_deep.py``'s)."""
+    x = _log_inputs(k_g)
+    for scale in (f32(1.0), f32(0.37), f32(1e-31)):
+        xs = x * scale if scale != f32(1.0) else x
+        keep = ~np.isfinite(xs) | (xs == 0) | (
+            (np.abs(xs) >= f32(2.0 ** -126)) &
+            (np.abs(xs) / scale >= f32(2.0 ** -126)))
+        xs = np.ascontiguousarray(xs[keep])
+        t = TG.log_quantize(torch.from_numpy(xs), torch.tensor(scale), k_g)
+        _eq(_jit_log_quantize(jnp.asarray(xs), jnp.float32(scale), k_g), t)
+        _eq(JG.log_quantize(jnp.asarray(xs), jnp.float32(scale), k_g), t)
+
+
 @pytest.mark.parametrize("lo", [-7, -1, 0])
 def test_log_quantize_full_binade_bitwise(lo):
     """Every float32 in [2^lo, 2^(lo+1)) at k_g = 6: the binade of the
@@ -90,16 +110,25 @@ def test_log_quantize_full_binade_bitwise(lo):
     _eq(_jit_log_quantize(jnp.asarray(x), jnp.float32(1.0), 6), t)
 
 
-@pytest.mark.parametrize("k_g", range(1, 9))
+@pytest.mark.parametrize("k_g", [*range(1, 9), 30, 126])
 def test_log_dequant_table_and_lane_codes_bitwise(k_g):
+    """Every lane code's table entry, at the shallow grids and at the
+    adaptive plan's deep ones (log:30 on 6-bit lanes, log:126 on 8-bit
+    lanes), whose powers of two come from XLA's inexact exp2."""
     bits = JB.lane_bits_for(k_g + 1)
-    np.testing.assert_array_equal(JG.log_dequant_table(k_g, bits).view(
-        np.uint32), TG.log_dequant_table(k_g, bits).view(np.uint32))
+    jt = JG.log_dequant_table(k_g, bits)
+    np.testing.assert_array_equal(jt.view(np.uint32),
+                                  TG.log_dequant_table(k_g, bits).view(
+                                      np.uint32))
     n = 1 << bits
     codes = np.arange(-(n // 2), n // 2).astype(np.int8)
     # scales keep the values normal: XLA on the CPU flushes subnormal
     # results to zero, the port (and the card) keeps them
-    for scale in (f32(1.0), f32(0.0123), f32(2.0 ** -100)):
+    small = float(np.abs(jt[jt != 0]).min())
+    for scale in (f32(1.0), f32(0.0123), f32(2.0 ** -100), f32(3.7e5)):
+        if small * float(scale) < 2.0 ** -126 or \
+                float(np.abs(jt).max()) * float(scale) > 3e38:
+            continue
         _eq(JG.log_dequantize(jnp.asarray(codes), jnp.float32(scale), k_g),
             TG.log_dequantize(torch.from_numpy(codes), torch.tensor(scale),
                               k_g))
@@ -188,7 +217,7 @@ def test_adam_moments_vs_reference_tiers(backend, seed):
 
 
 @pytest.mark.parametrize("backend", ["jnp", "pallas"])
-@pytest.mark.parametrize("k_g", [2, 4, 6])
+@pytest.mark.parametrize("k_g", [2, 4, 6, 30, 126])
 def test_ef_quantize_and_update_bitwise_given_reference_de(backend, k_g):
     """Fed the reference's Delta+e: the scale, codes, residual and the
     decoded update are bitwise the reference's."""
@@ -202,7 +231,23 @@ def test_ef_quantize_and_update_bitwise_given_reference_de(backend, k_g):
     jc, je = JE.ef_quantize(de, js, k_g, backend=backend)
     tc, te = TE.ef_quantize(torch.from_numpy(np.asarray(de)), ts, k_g)
     _eq(jc, tc)
-    _eq(je, te)
+    if k_g <= 12:
+        _eq(je, te)
+    else:
+        # past k_g = 12 the levels are XLA's inexact powers of two, so
+        # level * scale rounds: the port rounds it and then the
+        # difference (as the kernels do); XLA contracts the two into one
+        # fma. Each side is bitwise its own form.
+        de_n = np.asarray(de)
+        lv = TG.log_dequant_table(k_g, JB.lane_bits_for(k_g + 1))[
+            tc.numpy().astype(int) + (1 << (JB.lane_bits_for(k_g + 1) - 1))]
+        s = np.float32(js)
+        np.testing.assert_array_equal(
+            te.numpy().view(np.uint32), (de_n - lv * s).view(np.uint32))
+        fma = (de_n.astype(np.float64)
+               - lv.astype(np.float64) * np.float64(s)).astype(f32)
+        np.testing.assert_array_equal(np.asarray(je).view(np.uint32),
+                                      fma.view(np.uint32))
     _eq(JE.dequantize_log(jc, js, k_g, backend=backend),
         TE.dequantize_log(tc, ts, k_g))
     # the whole leaf update from the same state: Delta+e differs by XLA's

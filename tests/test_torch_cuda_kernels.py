@@ -297,7 +297,7 @@ def _adam_inputs(dev, n, seed, zero=False):
 
 
 @pytest.mark.parametrize("n", [1, 127, 1000003])
-@pytest.mark.parametrize("k_g", [2, 4, 6])
+@pytest.mark.parametrize("k_g", [2, 4, 6, 30, 126])
 @pytest.mark.parametrize("zero", [False, True])
 def test_adam_ef_passes_bitwise(dev, n, k_g, zero):
     """K15 moments + amax, the scale guard, K16 codes + residual and K11
@@ -324,7 +324,7 @@ def test_adam_ef_passes_bitwise(dev, n, k_g, zero):
 
 
 @pytest.mark.parametrize("n", [1, 127, 1000003])
-@pytest.mark.parametrize("k_g", [2, 4, 6])
+@pytest.mark.parametrize("k_g", [2, 4, 6, 30, 126])
 def test_ef_quantize_decision_points_bitwise(dev, n, k_g):
     """K16 on values placed within a few ulps of the grid's decision
     points, zeros, subnormals and values above the scale."""
@@ -417,8 +417,12 @@ def test_training_runs_through_kernels(dev):
         _bits_equal(x, y)
 
 
+# the adaptive plan's lanes among them: log:2, log:6, log:30 (6-bit
+# lanes), log:126 (8-bit lanes) and k_x = 14 on 16-bit lanes
 WIRE_CODECS = [("log", 2), ("log", 4), ("log", 6), ("log", 8),
-               ("uniform", 3), ("uniform", 6), ("uniform", 7)]
+               ("log", 30), ("log", 126),
+               ("uniform", 3), ("uniform", 6), ("uniform", 7),
+               ("uniform", 14)]
 
 
 def _wire_codec(kind, k, absolute=True):
@@ -555,9 +559,10 @@ def test_distributed_step_runs_through_kernels(dev):
 
 
 ENCODE_CODECS = [("log", 2, False), ("log", 6, False), ("log", 8, False),
+                 ("log", 30, False), ("log", 126, False),
                  ("uniform", 3, True), ("uniform", 7, True),
                  ("uniform", 6, False), ("uniform", 7, False),
-                 ("ternary", 0, False)]
+                 ("uniform", 14, False), ("ternary", 0, False)]
 
 
 def _encode_codec(kind, k, absolute):
@@ -671,7 +676,7 @@ def test_baseline_modes_run_through_kernels(dev, mode):
 # Algorithm 1 baselines and the paper protocol through them
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("k_g", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("k_g", [1, 2, 3, 4, 5, 6, 7, 8, 30, 126])
 @pytest.mark.parametrize("n", [1, 3, 4099, 1000003])
 def test_log_quantize_bitwise(dev, k_g, n):
     """#10 against its plain version: random values, zeros, the zero
@@ -1238,7 +1243,8 @@ def test_flash_attention_float32_tier_catches_window_off_by_one(dev, case):
 K6_CASES = ([("uniform", k, b) for b, k in ((2, 1), (3, 2), (4, 3), (6, 5),
                                             (8, 7), (16, 15))]
             + [("uniform", 30, 16)]
-            + [("log", k, None) for k in (1, 4, 6, 8)]
+            + [("uniform", 14, 16)]
+            + [("log", k, None) for k in (1, 4, 6, 8, 30, 126)]
             + [("ternary", 0, 2)])
 
 
@@ -1651,6 +1657,76 @@ def test_distributed_session_graph_equals_eager(dev, deterministic,
         art, batch_for_model(cfg, 32, 4),
         SessionConfig(log_every=2, scan_chunk=k), device=dev,
         log=lambda *_: None))
+
+
+ADAPTIVE_PLAN = ("blockwise:256", "log:2", "log:6", "log:30", "log:126",
+                 "uniform_amax:14:w16") * 2
+
+
+def test_adaptive_session_graph_equals_eager(dev, deterministic,
+                                             nccl_group):
+    """The adaptive mode with every lane of the plan (the 2-bit blockwise
+    lanes among them) under CUDA graphs on one NCCL rank: losses, every
+    state tensor and every step's stats rows bitwise the step-by-step
+    session's; no plain version on the card."""
+    from repro_torch.comm import kernels as K
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.dist.step import TrainConfig, make_train_step
+    from repro_torch.train.session import SessionConfig, TrainSession
+    cfg, model, _, _ = _smoke_training(dev)
+    art = make_train_step(model, nccl_group, TrainConfig(
+        alpha=1e-3, grad_k=6, weight_k=7, mode="adaptive",
+        bit_plan=ADAPTIVE_PLAN))
+    rows = {}
+
+    def make(k):
+        sess = TrainSession.from_artifacts(
+            art, batch_for_model(cfg, 32, 4),
+            SessionConfig(log_every=2, scan_chunk=k, stats_ring=6),
+            device=dev, log=lambda *_: None)
+        harvest = sess.harvest_losses
+
+        def keep():
+            rows.setdefault(k, {}).update(
+                {s: r for s, r in sess.harvest_stats()})
+            return harvest()
+        sess.harvest_losses = keep
+        return sess
+    plain = K.plain_on_cuda
+    _graph_vs_eager(make)
+    assert K.plain_on_cuda == plain
+    assert sorted(rows[1]) == sorted(rows[2]) and len(rows[1]) == 6
+    for s in rows[1]:
+        np.testing.assert_array_equal(rows[1][s], rows[2][s])
+
+
+def test_adaptive_controller_swaps_graphs_on_the_card(dev, nccl_group):
+    """The controller at scan_chunk=2, a replan every 4 steps: the state
+    carries over every swap (the same tensors), each plan is captured
+    after one eager dispatch, one host sync a window, and the accounting
+    of every plan is exact against payloads encoded on the card."""
+    from repro_torch.adapt.controller import AdaptConfig, AdaptiveController
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.dist.step import TrainConfig
+    from repro_torch.train.session import SessionConfig, _tensor_leaves
+    cfg, model, _, _ = _smoke_training(dev)
+    ctl = AdaptiveController(
+        model, nccl_group, TrainConfig(alpha=1e-3, grad_k=6, weight_k=7),
+        batch_for_model(cfg, 32, 4), AdaptConfig(replan_every=4),
+        SessionConfig(log_every=0, scan_chunk=2), device=dev,
+        log=lambda *_: None, verify=True)
+    with ctl:
+        ptrs = [x.data_ptr() for _, x in _tensor_leaves(ctl.state)]
+        ctl.run(12)
+        assert [x.data_ptr() for _, x in _tensor_leaves(ctl.state)] == ptrs
+        assert ctl.stats["syncs"] == 3
+        n_plans = len(ctl.plan_log)
+        assert n_plans >= 2
+        # a capture for each plan that ran two dispatches of its own
+        assert ctl.stats["graph_captures"] == n_plans
+        for e in ctl.plan_log:
+            assert e["verify"]["measured"] == \
+                e["comm"]["update_exchange_bytes"]
 
 
 def test_resume_on_the_card_holds_one_state(dev, tmp_path):

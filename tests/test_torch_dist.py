@@ -324,24 +324,26 @@ def test_batch_rows_and_state_carried_over(models, group):
 
 
 def test_out_of_scope_raises(models, group):
-    """What the port's step still refuses: the adaptive mode (it needs
-    adapt/), hierarchical topologies, a quantized model-axis gather and
-    the launcher's flags of unported features. The baselines dp_adam,
-    efadam, terngrad and ef_sgd are ported (the tests above)."""
+    """What the port's step still refuses: hierarchical topologies, a
+    quantized model-axis gather and the launcher's flags of unported
+    features. The baselines dp_adam, efadam, terngrad and ef_sgd and the
+    adaptive mode are ported (the tests above and
+    ``test_torch_dist_adaptive.py``)."""
     from repro_torch.dist import topology as T
     from repro_torch.launch import train as launch
     _, tm = models
-    for kw in (dict(mode="adaptive"),
-               dict(topology=T.HierarchicalTopology(2, 2)),
+    for kw in (dict(topology=T.HierarchicalTopology(2, 2)),
+               dict(topology=T.HierarchicalTopology(2, 2), mode="adaptive"),
                dict(topology=T.HierarchicalTopology(2, 2), mode="ef_sgd"),
                dict(model_gather_quant=8)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_make_train_step(tm, group, TTC(**kw))
     for flag in (["--model", "2"], ["--tune-buckets"], ["--topology", "2x2"],
-                 ["--aot-dir", "x"], ["--adaptive"]):
+                 ["--aot-dir", "x"], ["--adaptive", "--model", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             launch.parse_args(["--arch", "yi-6b"] + flag)
-    for mode in ("dp_adam", "efadam", "terngrad", "ef_sgd"):
+    for mode in ("dp_adam", "efadam", "terngrad", "ef_sgd", "adaptive"):
         assert launch.parse_args(["--arch", "yi-6b", "--mode",
                                   mode]).mode == mode
         assert t_make_train_step(tm, group, TTC(mode=mode)).n_workers == 1
+    assert launch.parse_args(["--arch", "yi-6b", "--adaptive"]).adaptive

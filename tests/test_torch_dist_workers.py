@@ -52,6 +52,11 @@ RUNS = {
                       weight_k=None), None),
     "ef_sgd": (dict(BASE, mode="ef_sgd", alpha=1e-2, beta=0.9, grad_k=None,
                     weight_k=None), 501),
+    # every lane of the adaptive plan on two leaves of the smoke model
+    # (its 12 leaves in the reference's order)
+    "adaptive": (dict(BASE, mode="adaptive", bit_plan=(
+        "blockwise:256", "log:2", "log:6", "log:30", "log:126",
+        "uniform_amax:14:w16") * 2), None),
 }
 FAULTS = ("qadam", "dp_adam", "ef_sgd")
 
@@ -78,9 +83,9 @@ def _config(get_config, vocab):
                                                          vocab_size=vocab)
 
 
-def _reference_main(out_dir: str, names) -> None:
-    """Subprocess body: the reference's runs ``names`` at 2 and 4
-    workers on simulated CPU devices. The initial states are saved first
+def _reference_main(out_dir: str, names, widths=WIDTHS) -> None:
+    """Subprocess body: the reference's runs ``names`` at ``widths`` (2
+    and 4) workers on simulated CPU devices. The initial states are saved first
     (the port's ranks start from them while the reference compiles),
     then the trajectories."""
     import jax
@@ -92,7 +97,7 @@ def _reference_main(out_dir: str, names) -> None:
     for name in names:
         kw, vocab = RUNS[name]
         jm = JModel(_config(jget, vocab))
-        for w in WIDTHS:
+        for w in widths:
             mesh = jax.make_mesh((w, 1), ("data", "model"))
             art = j_make_train_step(jm, mesh, JTC(**kw,
                                                   worker_axes=("data",)))
@@ -103,7 +108,7 @@ def _reference_main(out_dir: str, names) -> None:
     for name in names:
         kw, vocab = RUNS[name]
         jm = JModel(_config(jget, vocab))
-        for w in WIDTHS:
+        for w in widths:
             _, losses, master = _reference(jm, kw, STEPS, w, BATCH)
             _save(os.path.join(out_dir, f"ref_{name}{w}.npz"),
                   losses=np.asarray(losses),
@@ -180,16 +185,17 @@ def _wait_for(path: Path, proc, timeout: float = 300.0) -> Path:
     return path
 
 
-def start_reference(tmp_path_factory, names):
-    """The reference subprocess for runs ``names``, started once per test
-    module; yields (out_dir, proc)."""
+def start_reference(tmp_path_factory, names, widths=WIDTHS):
+    """The reference subprocess for runs ``names`` at ``widths`` workers,
+    started once per test module; yields (out_dir, proc)."""
     out = tmp_path_factory.mktemp("ref")
     env = dict(os.environ,
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
                JAX_PLATFORMS="cpu")
     code = (f"import sys; sys.path.insert(0, {str(HERE)!r}); "
             "import test_torch_dist_workers as t; "
-            f"t._reference_main({str(out)!r}, {tuple(names)!r})")
+            f"t._reference_main({str(out)!r}, {tuple(names)!r}, "
+            f"{tuple(widths)!r})")
     proc = subprocess.Popen([sys.executable, "-c", code], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)

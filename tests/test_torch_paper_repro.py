@@ -116,12 +116,57 @@ def test_method_against_reference(setup, mode, name, monkeypatch):
             jex.accuracy(want, jdata[2], jdata[3])
 
 
-def test_adaptive_raises_naming_the_roadmap(monkeypatch):
+def test_adaptive_raises_naming_the_roadmap(monkeypatch, tmp_path, capsys):
+    """``--adaptive`` on the command line: both arms run on the CPU and
+    the --out table holds them, the adaptive arm's plan log first on the
+    fixed log:6 lanes."""
     tex = _load("paper_repro_torch")
-    monkeypatch.setattr("sys.argv", ["paper_repro_torch.py", "--adaptive",
-                                     "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tex.main()
+    out = tmp_path / "adaptive.json"
+    monkeypatch.setattr("sys.argv", [
+        "paper_repro_torch.py", "--adaptive", "--device", "cpu", "--steps",
+        "4", "--seeds", "1", "--workers", "2", "--replan-every", "2",
+        "--out", str(out)])
+    tex.main()
+    got = json.loads(out.read_text())
+    assert set(got["results"]) == {"fixed k_g=6 (log:6)", "adaptive"}
+    log = got["results"]["adaptive"]["plan_log"]
+    assert log[0]["plan"] == ["log:6"] * 6 and log[0]["step"] == 0
+    assert got["summary"]["bytes_ratio"] <= 1.0
+    assert "adaptive/fixed bytes" in capsys.readouterr().out
+
+
+ADAPT_STEPS, ADAPT_EVERY = 4, 2
+
+
+def test_adaptive_arm_against_reference(setup):
+    """``run_quantized`` (both arms) from the reference's parameters: the
+    plan log (steps, per-leaf specs, measured bytes a step) and the
+    bytes are identical to the reference's; the final test loss and the
+    loss curve within the trajectory tier."""
+    jex, tex, jdata, tdata = setup
+    key = jax.random.PRNGKey(2)
+    jp0 = jex.mlp_init(key, 32, tex.HIDDEN, 50)
+    for adaptive in (False, True):
+        jp, ji = jex.run_quantized(ADAPT_STEPS, jdata, key, seed=200,
+                                   n_workers=WORKERS, adaptive=adaptive,
+                                   replan_every=ADAPT_EVERY)
+        tp, ti = tex.run_quantized(
+            ADAPT_STEPS, tdata,
+            params_from_numpy(jax.tree.map(np.asarray, jp0), "cpu"),
+            seed=200, n_workers=WORKERS, adaptive=adaptive,
+            replan_every=ADAPT_EVERY)
+        assert ti["plan_log"] == ji["plan_log"]
+        assert ti["total_bytes"] == ji["total_bytes"]
+        assert [b for b, _ in ti["curve"]] == [b for b, _ in ji["curve"]]
+        if adaptive:
+            assert len(ji["plan_log"]) >= 2     # the plan did move
+        want = ji["final_test_loss"]
+        print(f"adaptive={adaptive}: test loss {ti['final_test_loss']:.6f} "
+              f"(rel drift {abs(ti['final_test_loss'] - want) / want:.2e}),"
+              f" plans {[e['step'] for e in ti['plan_log']]}")
+        assert abs(ti["final_test_loss"] - want) <= LOSS_RTOL * abs(want)
+        for (_, a), (_, b) in zip(ti["curve"], ji["curve"]):
+            assert abs(a - b) <= LOSS_RTOL * abs(b)
 
 
 def test_cli_on_the_cpu(monkeypatch, tmp_path, capsys):
