@@ -9,8 +9,8 @@ Phases, each raising on failure (exit code nonzero, no result line):
   2. build the kernels of every TPU kernel row from the nine sources of
      ``src/repro_torch/csrc`` (nvcc, sm_90a, one process per source, all
      started together), and beside them a library of planted faults
-     (copies of pack.cu and quantize.cu, each with one line changed,
-     under build/planted);
+     (copies of pack.cu, quantize.cu and codec.cu, each with one line
+     changed, under build/planted);
   3. hold each serving kernel against its plain PyTorch version at yi-6b
      shapes: K3 amax / K4 quantize on a stacked (32, 4096, 11008) f32
      leaf, and on qwen2.5-14b's (48, 5120) QKV-bias stack with all-zero
@@ -65,9 +65,11 @@ Phases, each raising on failure (exit code nonzero, no result line):
      log k_g {2, 4, 6, 8, 30, 126}, uniform wire k_x {3, 6, 7, 14} and
      zero input, and at the w_gate stack for log:6 and uniform:7; the
      adaptive plan's new lanes at the w_gate stack, bitwise and timed:
-     K7 and K6 at log:30, log:126 and uniform_amax:14:w16, #10 and K11
-     at log:30 and log:126 (the reference's deep decision points and
-     levels, grids.log_grid_table); then the
+     K7 and K6 at log:2, log:30, log:126 and uniform_amax:14:w16, #10
+     and K11 at log:30 and log:126 (the reference's deep decision points
+     and levels, grids.log_grid_table), and #5 timed at every lane width
+     (3-, 6-, 8- and 16-bit lanes beside the ternary, log:6 and uniform:7
+     timings below); then the
      baselines' kernels bitwise: #5 fused encode (log, uniform with the
      absolute and the amax scale, ternary on uniforms from one seeded
      generator; zero input) with K6 on its rows (the ternary kind), #14
@@ -79,8 +81,9 @@ Phases, each raising on failure (exit code nonzero, no result line):
      seeded generator, u = p exactly among them, x = 0, a zero scale) and
      #9 lane pack/unpack at every width over rows {1, 2, 4} x chunks
      {1, 7, 1000003}, each at the w_gate stack too, and the planted
-     faults (#9's lane bias off by one, #13 comparing u <= p) must fail
-     those gates; time each kernel, its plain version and a one-call
+     faults (#9's lane bias off by one, #13 comparing u <= p, K7 with
+     one code off by one in the last vector of a chunk on 6-bit lanes)
+     must fail those gates; time each kernel, its plain version and a one-call
      PyTorch yardstick where there is one (none for #9, #10, #13);
   4. serve full-width yi-6b (random weights from a seed): Model.init,
      quantize_params(k_x=6), a paged ServeSession (page 16, 4 slots,
@@ -1601,18 +1604,24 @@ def check_encode_kernels(torch, dev):
 
 # the planted faults, each a text edit of one line of the kernels' sources
 # (built into a library of their own under build/planted, never the
-# port's): #9 packs with its lane bias off by one, #13 compares u <= p
+# port's): #9 packs with its lane bias off by one, #13 compares u <= p,
+# K7 and #5 on 6-bit lanes put the last code of a chunk's last float4 (the
+# last vector of a full chunk) one above its value
 PLANTED = {"grids.cuh": ("val |= ((unsigned int)(codes[j] + bias) & mask)",
                          "val |= ((unsigned int)(codes[j] + bias + 1) & "
                          "mask)"),
            "quantize.cu": ("return u < p ?", "return u <= p ?"),
+           "codec.cu": ("f = field4<BITS>(cd);",
+                        "f = field4<BITS>(cd) + (BITS == 6 && i == nf4 - 1 "
+                        "? 1ull << 18 : 0ull);"),
            "pack.cu": None}
+PLANTED_SOURCES = ("pack.cu", "quantize.cu", "codec.cu")
 
 
 def start_planted_build(build):
-    """Start nvcc on the planted copies of pack.cu and quantize.cu (with
-    their edited grids.cuh), one process each, beside the port's own
-    build; returns what ``finish_planted_build`` waits for."""
+    """Start nvcc on the planted copies of PLANTED_SOURCES (with their
+    edited grids.cuh), one process each, beside the port's own build;
+    returns what ``finish_planted_build`` waits for."""
     out = build.BUILD_DIR / "planted"
     out.mkdir(parents=True, exist_ok=True)
     for name, edit in PLANTED.items():
@@ -1624,7 +1633,7 @@ def start_planted_build(build):
             text = text.replace(edit[0], edit[1])
         (out / name).write_text(text)
     procs = []
-    for src in ("pack.cu", "quantize.cu"):
+    for src in PLANTED_SOURCES:
         obj = out / (src[:-3] + ".o")
         procs.append((obj, subprocess.Popen(
             [build.nvcc_path(), *build.CFLAGS, "-I", str(out), "-c",
@@ -1676,8 +1685,11 @@ def check_slice6_kernels(torch, dev, build, planted):
     (each code type); then each at the 8-layer w_gate stack (#9 at ef_sgd's
     2-bit lanes, and at 16 bits), timed against its bound and its plain
     version. The planted faults (``planted``: the lane bias off by one,
-    u <= p) must fail the same gates. Returns the kernel rows, the timing
-    table, the count of cases and the faults' readings."""
+    u <= p, K7's 6-bit code off by one) must fail the same gates (K7's:
+    the gate of check_wire_kernels, payload and residual bitwise).
+    Returns the kernel rows, the timing table, the count of cases and the
+    faults' readings."""
+    from repro_torch.comm import codec as CD
     from repro_torch.comm import kernels as K
     from repro_torch.opt import grids
     cases = 0
@@ -1743,11 +1755,24 @@ def check_slice6_kernels(torch, dev, build, planted):
     ft = through(build, planted, lambda: K.ternary_quantize(
         x, u, s, backend="cuda"))
     tp = K.ternary_quantize(x, u, s, backend="torch")
+    # K7 at log:30 (6-bit lanes) on x at one row and at three rows
+    log30 = CD.get_codec("log:30")
+    k7 = {}
+    for n_rows in (1, 3):
+        fk = through(build, planted, lambda: K.ef_encode_rows(
+            x, s, log30, n_rows, backend="cuda"))
+        pk = K.ef_encode_rows(x, s, log30, n_rows, backend="torch")
+        k7[n_rows] = (float((fk[0] != pk[0]).float().mean()),
+                      bits_equal(torch, fk[0], pk[0])
+                      and bits_equal(torch, fk[1], pk[1]))
     faults = {"pack_bias_off_by_one": float((fp != pp).float().mean()),
-              "ternary_u_le_p": float((ft != tp).float().mean())}
-    if bits_equal(torch, fp, pp) or bits_equal(torch, ft, tp):
+              "ternary_u_le_p": float((ft != tp).float().mean()),
+              "k7_6bit_last_vector": k7[1][0],
+              "k7_6bit_last_vector_3_rows": k7[3][0]}
+    if (bits_equal(torch, fp, pp) or bits_equal(torch, ft, tp)
+            or k7[1][1] or k7[3][1]):
         raise AssertionError(f"a planted fault passed its gate: {faults}")
-    del fp, pp, ft, tp, codes
+    del fp, pp, ft, tp, codes, fk, pk
 
     # the w_gate stack of the 8-layer cell
     d, f = YI["d"], YI["f"]
@@ -1831,12 +1856,19 @@ def check_slice6_kernels(torch, dev, build, planted):
 
 
 # ---------------------------------------------------------------------------
-# phase 3, the adaptive plan's new lanes: K7, K6, #10, K11 at log:30,
-# log:126 (the reference's deep decision points and levels) and the
-# 14-bit uniform lane on 16-bit lanes
+# phase 3, the adaptive plan's lanes besides log:6: K7, K6 at log:2 (3-bit
+# lanes), log:30, log:126 (the reference's deep decision points and
+# levels) and the 14-bit uniform lane on 16-bit lanes; #10, K11 at the
+# deep grids; #5 at every lane width
 # ---------------------------------------------------------------------------
 
-DEEP_SPECS = ("log:30", "log:126", "uniform_amax:14:w16")
+DEEP_SPECS = ("log:2", "log:30", "log:126", "uniform_amax:14:w16")
+DEEP_LOG = ("log:30", "log:126")    # #10 and K11 timed here
+# #5 at the lane widths check_encode_kernels does not time (ternary,
+# log:6 and the uniform:7 wire there): a reading each, no kernels row
+ENCODE_WIDTH_SPECS = ("log:2", "log:30", "log:126", "uniform_amax:14:w16")
+# K7 on the 2-bit lanes no main path gives it: a reading, no kernels row
+K7_READING_SPECS = ("uniform:1:w2",)
 
 
 def lane_row(name, spec):
@@ -1846,9 +1878,11 @@ def lane_row(name, spec):
 
 def check_deep_lanes(torch, dev):
     """At the 8-layer w_gate stack (Delta+e-like values, 1e-3 randn, the
-    amax scale): K7 and K6 at each of DEEP_SPECS, #10 and K11 at the two
-    log grids, each bitwise its plain version and timed against its
-    bound and its plain version. Returns the kernel rows and the table."""
+    amax scale): K7 and K6 at each of DEEP_SPECS, #10 and K11 at
+    DEEP_LOG, each bitwise its plain version and timed against its bound
+    and its plain version; #5 at ENCODE_WIDTH_SPECS, bitwise and timed
+    (with its K3 launch, and K3 alone beside it); K7 at K7_READING_SPECS,
+    bitwise and timed. Returns the kernel rows and the table."""
     from repro_torch.comm import codec as CD
     from repro_torch.comm import kernels as K
     from repro_torch.opt import engine as E
@@ -1901,7 +1935,7 @@ def check_deep_lanes(torch, dev):
             "src/repro/comm/kernels.py:286")
         del pk, ek, out
         torch.cuda.empty_cache()
-        if codec.kind != "log":
+        if spec not in DEEP_LOG:
             continue
         k = codec.k
         ck = K.log_quantize(x, scale, k, backend="cuda")
@@ -1931,6 +1965,50 @@ def check_deep_lanes(torch, dev):
             "src/repro/comm/kernels.py:524")
         del ck
         torch.cuda.empty_cache()
+    for spec in K7_READING_SPECS:
+        codec = CD.get_codec(spec)
+        pk, ek = K.ef_encode_rows(x, scale, codec, 1, backend="cuda")
+        pp, ep = K.ef_encode_rows(x, scale, codec, 1, backend="torch")
+        if not (bits_equal(torch, pk, pp) and bits_equal(torch, ek, ep)):
+            raise AssertionError(f"K7 {spec} differs from its plain version "
+                                 f"at the w_gate stack")
+        nb = pk.numel()
+        del pk, pp, ep
+        ms = cuda_ms(torch, lambda i: K.ef_encode_rows(
+            x, scale, codec, 1, backend="cuda", out=ek), 5, 1)
+        bnd, by = bound_ms(8 * n + nb + 4)
+        table.append(dict(
+            name="ef_encode_rows", spec=spec, shape=[n], ms=ms,
+            plain_ms=cuda_ms(torch, lambda i: K.ef_encode_rows(
+                x, scale, codec, 1, backend="torch"), 2, 1),
+            bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
+            gbs=(bnd * 1e-3 * HBM_BYTES_PER_S) / ms / 1e6))
+        del ek
+        torch.cuda.empty_cache()
+    amax_ms = cuda_ms(torch, lambda i: K.amax_rows(x.reshape(1, -1),
+                                                   backend="cuda"), 5, 1)
+    for spec in ENCODE_WIDTH_SPECS:
+        codec = CD.get_codec(spec)
+        pk, sk = K.encode_rows(x, codec, 1, backend="cuda")
+        pp, sp = K.encode_rows(x, codec, 1, backend="torch")
+        if not (bits_equal(torch, pk, pp) and bits_equal(torch, sk, sp)):
+            raise AssertionError(f"#5 {spec} differs from its plain version "
+                                 f"at the w_gate stack")
+        nb = pk.numel()
+        del pk, pp
+        ms = cuda_ms(torch, lambda i: K.encode_rows(x, codec, 1,
+                                                    backend="cuda"), 5, 1)
+        bnd, by = bound_ms(8 * n + nb + 4)
+        launch_bnd = bound_ms(4 * n + nb + 4)[0]
+        table.append(dict(
+            name="encode_rows", spec=spec, shape=[n], ms=ms,
+            plain_ms=cuda_ms(torch, lambda i: K.encode_rows(
+                x, codec, 1, backend="torch"), 2, 1),
+            bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
+            gbs=(bnd * 1e-3 * HBM_BYTES_PER_S) / ms / 1e6,
+            amax_ms=amax_ms, encode_launch_ms=ms - amax_ms,
+            encode_launch_bound_ms=launch_bnd))
+        torch.cuda.empty_cache()
     del x
     torch.cuda.empty_cache()
     return rows, table
@@ -1944,7 +2022,7 @@ def by_spec_launches(K):
              "log_dequantize": "log_dequantize"}
     return {lane_row(names[kern], spec): K.by_spec[kern].get(spec, 0)
             for kern in names for spec in DEEP_SPECS
-            if spec.startswith("log") or kern in ("ef_encode", "decode")}
+            if spec in DEEP_LOG or kern in ("ef_encode", "decode")}
 
 
 def clear_by_spec(K):
@@ -4517,14 +4595,20 @@ def main() -> int:
               f"({t['bound_by']}){lib}", flush=True)
 
     dl_rows, dl_table = check_deep_lanes(torch, dev)
-    print("the adaptive plan's new lanes: K7, K6 (log:30, log:126, "
-          "uniform_amax:14:w16), #10, K11 (log:30, log:126) bitwise against "
-          "their plain versions at the w_gate stack", flush=True)
+    print(f"the adaptive plan's lanes: K7, K6 ({', '.join(DEEP_SPECS)}), "
+          f"#10, K11 ({', '.join(DEEP_LOG)}), #5 "
+          f"({', '.join(ENCODE_WIDTH_SPECS)}), K7 "
+          f"({', '.join(K7_READING_SPECS)}) bitwise against their plain "
+          f"versions at the w_gate stack", flush=True)
     for t in dl_table:
+        launch = (f"; K3 alone {t['amax_ms']:.4f}, the encode launch "
+                  f"{t['encode_launch_ms']:.4f} (its bound "
+                  f"{t['encode_launch_bound_ms']:.4f})" if "amax_ms" in t
+                  else "")
         print(f"  {t['name']} {t['spec']} {t['shape']}: {t['ms']:.4f} ms "
               f"({t['gbs']:.0f} GB/s, {t['share_of_bound']:.1%} of bound) "
               f"plain {t['plain_ms']:.4f} bound {t['bound_ms']:.4f} "
-              f"({t['bound_by']})", flush=True)
+              f"({t['bound_by']}){launch}", flush=True)
 
     s_rows, s_table, s_cases, s_faults = check_slice6_kernels(
         torch, dev, build, planted)
@@ -4532,7 +4616,10 @@ def main() -> int:
           f"bitwise against their plain versions ({s_cases} cases and the "
           f"w_gate stack); planted faults caught: lane bias off by one at "
           f"{s_faults['pack_bias_off_by_one']:.1%} of payload bytes, u <= p "
-          f"at {s_faults['ternary_u_le_p']:.2%} of codes", flush=True)
+          f"at {s_faults['ternary_u_le_p']:.2%} of codes, K7's 6-bit code "
+          f"off by one at {s_faults['k7_6bit_last_vector']:.3%} of payload "
+          f"bytes ({s_faults['k7_6bit_last_vector_3_rows']:.3%} at 3 rows)",
+          flush=True)
     for t in s_table:
         if "ms" in t:
             print(f"  {t['name']} {t['spec']} {t['shape']}: {t['ms']:.4f} ms "

@@ -82,6 +82,41 @@ __device__ __forceinline__ int log_code(float x, const LogGrid& q) {
   return x < 0.0f ? -mag : mag;
 }
 
+// log_code as one read of a per-binade table, for kernels whose codes are
+// bound by instructions (K7 and #5, codec.cu): y's binade (its exponent
+// field e, 0 for zero and the subnormals) holds one (base, threshold bits)
+// pair, built once a block from the same decision points by log_binade,
+// and the magnitude is base + [bits(y) >= threshold] (bits order like the
+// values for y >= 0). Binades below 2^-k (j = 126 - e >= k) hold the zero
+// threshold or lie wholly on one side of it; those from 2^-k up hold
+// midpoint j, wholly above the threshold (it sits near 2^-(k+1)); y >= 1,
+// inf and NaN read e >= 127. A NaN y and x == 0 are decided apart, as
+// log_code decides them, so both forms give every code alike.
+constexpr unsigned kNever = 0xffffffffu;   // a threshold no y reaches
+
+__device__ __forceinline__ uint2 log_binade(int e, int k, const float* g) {
+  if (e >= 127) return make_uint2(k + 1, kNever);
+  const int j = 126 - e;
+  if (j < k) return make_uint2(k - j, __float_as_uint(g[j]));
+  const unsigned lo = (unsigned)e << 23, hi = (unsigned)(e + 1) << 23;
+  const unsigned z = __float_as_uint(g[kZeroAt + k]);
+  if (z <= lo) return make_uint2(1, kNever);
+  if (z >= hi) return make_uint2(0, kNever);
+  return make_uint2(0, z);
+}
+
+// s_div = max(s, 1e-30) as make_log_grid's; nan_mag = k > 0 ? k : 1
+__device__ __forceinline__ int log_code_binade(float x, float s_div,
+                                               int nan_mag, const uint2* bin) {
+  const float y = __fdiv_rn(fabsf(x), s_div);
+  const unsigned yb = __float_as_uint(y);
+  const uint2 t = bin[(yb >> 23) & 0xff];
+  int mag = (int)t.x + (yb >= t.y);
+  mag = y != y ? nan_mag : mag;
+  mag = x == 0.0f ? 0 : mag;
+  return x < 0.0f ? -mag : mag;
+}
+
 // The table form: tbl[c + half] * s, tbl holding every lane code's
 // scale-1 level (grids.log_dequant_table, index = code + half); codes
 // outside the lane clip to its ends. One rounding, as the reference's

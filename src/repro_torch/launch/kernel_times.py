@@ -1,5 +1,5 @@
-"""Time K1's CUDA-core route and K6 on the card, through their public
-wrappers only, so that two checkouts can be compared in one call.
+"""Time K1's CUDA-core route, K6, K7 and #5 on the card, through their
+public wrappers only, so that two checkouts can be compared in one call.
 
   python src/repro_torch/launch/kernel_times.py [--label NAME]
 
@@ -13,13 +13,18 @@ activations against int8 codes, k_x = 6) at M = 4 and 32 over yi-6b's
 w_gate and gemma2-2b's wq, wk/wv and w_down, beside the fp32
 ``torch.matmul`` (TF32 off) on the dequantized weight; K6
 (``decode_rows``) for log:6, uniform:7 and ternary at the 8-layer w_gate
-stack (8 x 4096 x 11008 elements, one payload row). Times are CUDA-graph
+stack (8 x 4096 x 11008 elements, one payload row); K7
+(``ef_encode_rows``) and #5 (``encode_rows``) at every lane width at the
+same stack (K7: uniform:1:w2, log:2, log:6, log:30, uniform:7:w8 (the
+weight wire), log:126, uniform_amax:14:w16; #5: terngrad, the log grids,
+uniform_amax:7:w8, uniform_amax:14:w16), beside their byte bounds and,
+for #5, K3's amax launch alone on the same x. Times are CUDA-graph
 replays (K1, four weight copies in rotation past the L2) or CUDA events
-over back-to-back calls (K6), in ms; the card's name and power limit
-come first. Last, the SM clock and power draw nvidia-smi reads while K1
-runs back to back at M = 32 on (4096, 11008) for two seconds (medians of
-samples 100 ms apart): the clock the FMA floor's 66.9 TFLOP/s assumes
-is 1.98 GHz.
+over back-to-back calls (K6, K7, #5), in ms; the card's name and power
+limit come first. Last, the SM clock and power draw nvidia-smi reads
+while K1 runs back to back at M = 32 on (4096, 11008) for two seconds
+(medians of samples 100 ms apart): the clock the FMA floor's 66.9
+TFLOP/s assumes is 1.98 GHz.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ import torch
 
 # the timing helpers of chip_smoke.py at this checkout's root
 sys.path.insert(0, str(Path(__file__).resolve().parents[3]))
-from chip_smoke import card_line, cuda_ms, graph_ms  # noqa: E402
+from chip_smoke import bound_ms, card_line, cuda_ms, graph_ms  # noqa: E402
 
 K1_SHAPES = [(4096, 11008), (2304, 2048), (2304, 1024), (9216, 2304)]
 STACK = 8 * 4096 * 11008
@@ -78,6 +83,57 @@ def k6_times(dev):
             payload, scales, codec, STACK, backend="cuda", out=out), 10, 1)
         yield dict(kernel="K6", spec=spec, n=STACK, ms=ms)
         del payload
+
+
+def _encode_input(dev, g, x, codec):
+    """The w_gate stack as the main paths give it to the encodes: Delta+e
+    (1e-3 randn) against its amax for the log grids and the amax uniform
+    lanes, weights (0.02 truncated normal) against 0.5 for the absolute
+    uniform wire."""
+    from repro_torch.opt import engine as E
+    if codec.kind == "uniform" and codec.static_scale is not None:
+        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0,
+                                    generator=g).mul_(0.02)
+        return torch.tensor(0.5, device=dev)
+    torch.randn(STACK, generator=g, out=x).mul_(1e-3)
+    return E.amax_scale(x.abs().amax())
+
+
+def encode_times(dev):
+    from repro_torch.comm import codec as CD
+    from repro_torch.comm import kernels as K
+    g = torch.Generator(device=dev).manual_seed(32)
+    x = torch.empty(STACK, device=dev)
+    e = torch.empty(STACK, device=dev)
+    for spec in ("uniform:1:w2", "log:2", "log:6", "log:30", "uniform:7:w8",
+                 "log:126", "uniform_amax:14:w16"):
+        codec = CD.get_codec(spec)
+        scale = _encode_input(dev, g, x, codec)
+        nbytes = codec.payload_nbytes(STACK)
+        ms = cuda_ms(torch, lambda i: K.ef_encode_rows(
+            x, scale, codec, 1, backend="cuda", out=e), 10, 1)
+        bnd = bound_ms(8 * STACK + nbytes + 4)[0]
+        yield dict(kernel="K7", spec=codec.spec, bits=codec.bits, n=STACK,
+                   ms=ms, bound_ms=bnd, share_of_bound=bnd / ms)
+    u = torch.rand(STACK, generator=g, device=dev)
+    for spec in ("terngrad", "log:2", "log:6", "log:30", "uniform_amax:7:w8",
+                 "log:126", "uniform_amax:14:w16"):
+        codec = CD.get_codec(spec)
+        _encode_input(dev, g, x, codec)
+        nbytes = codec.payload_nbytes(STACK)
+        ubytes = 4 * STACK if codec.kind == "ternary" else 0
+        ms = cuda_ms(torch, lambda i: K.encode_rows(
+            x, codec, 1, u=u, backend="cuda"), 10, 1)
+        amax = cuda_ms(torch, lambda i: K.amax_rows(
+            x.reshape(1, -1), backend="cuda"), 10, 1)
+        launch = bound_ms(4 * STACK + ubytes + nbytes + 4)[0]
+        yield dict(kernel="#5", spec=codec.spec, bits=codec.bits, n=STACK,
+                   ms=ms, k3_amax_ms=amax, encode_launch_ms=ms - amax,
+                   bound_ms=bound_ms(8 * STACK + ubytes + nbytes + 4)[0],
+                   encode_launch_bound_ms=launch,
+                   encode_launch_share=(launch / (ms - amax)
+                                        if ms > amax else None))
+    del x, e, u
 
 
 def clock_under_load(dev, seconds: float = 2.0):
@@ -126,7 +182,8 @@ def main() -> int:
     dev = torch.device("cuda")
     from repro_torch import build
     build.library()
-    for row in (*k1_times(dev), *k6_times(dev), clock_under_load(dev)):
+    for row in (*k1_times(dev), *k6_times(dev), *encode_times(dev),
+                clock_under_load(dev)):
         print(json.dumps(dict(row, label=args.label)), flush=True)
     return 0
 

@@ -82,6 +82,7 @@ item 8.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import math
 import queue
 import threading
@@ -230,14 +231,21 @@ class _Chunks:
         count = self._get(state)
         before = _tensor_leaves(state)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            st = state
-            for i in range(self.k):
-                st, out = self._step(st, _row(self._batch, i),
-                                     self.table[i])
-                if self._outs is not None:
-                    for buf, o in zip(self._outs, out):
-                        buf[i].copy_(o)
+        # no garbage collection inside the capture: a finalizer of an
+        # earlier object (a graph, a collective's work) would make a CUDA
+        # call that the capturing thread may not make
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                st = state
+                for i in range(self.k):
+                    st, out = self._step(st, _row(self._batch, i),
+                                         self.table[i])
+                    if self._outs is not None:
+                        for buf, o in zip(self._outs, out):
+                            buf[i].copy_(o)
+        finally:
+            gc.enable()
         moved = _replaced(before, st)
         if moved:
             raise RuntimeError(

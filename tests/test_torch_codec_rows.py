@@ -210,3 +210,94 @@ def test_comm_bytes_per_step_full_width(yi_layouts, n_workers, grad_k,
     if (grad_k, weight_k, n_workers, mode) == (6, 7, 1, "qadam"):
         print(f"yi-6b, one worker: exchange {got['update_exchange_bytes']} B,"
               f" broadcast {got['weight_broadcast_bytes']} B a step")
+
+
+# ---------------------------------------------------------------------------
+# K7 at the card kernel's chunk geometry: every lane width, views of x at
+# float offsets 0-3, in place, rows whose payload bytes are no multiple of
+# 16 (the card kernel's chunks hold 512 codes; tests/test_torch_cuda_kernels
+# holds the kernel against these plain versions at the same cases)
+# ---------------------------------------------------------------------------
+
+CHUNK = 512
+CHUNK_CS = [1, CHUNK - 1, CHUNK, CHUNK + 1, 1100]
+# (kind, k, lane bits): the absolute uniform grid on every lane width, the
+# log grid at k_g 1, 2 (3-bit lanes), 30 (6-bit) and 126 (8-bit)
+EF_GEOMETRY = ([("uniform", k, b) for b, k in ((2, 1), (3, 2), (4, 3), (6, 5),
+                                               (8, 7), (16, 15))]
+               + [("log", k, None) for k in (1, 2, 30, 126)])
+
+
+def _geometry_codecs(kind, k, bits):
+    if kind == "log":
+        return J.LogCodec(k_g=k), T.LogCodec(k_g=k)
+    return (J.UniformCodec(k_x=k, absolute=True, wire_bits=bits),
+            T.UniformCodec(k_x=k, absolute=True, wire_bits=bits))
+
+
+def _view(x, off):
+    """x copied into a buffer at ``off`` floats past its start."""
+    buf = torch.full((x.size + 4,), float("nan"))
+    view = buf[off:off + x.size]
+    view.copy_(torch.from_numpy(x))
+    return view
+
+
+def _residual_gate(kind, k, x, je, te, level):
+    """K7's residual x - level, the level rounded once (lut * s or
+    (c / 2^k) * s) and then the difference: bitwise the reference's where
+    the level is a power of two times s (the uniform grid, the log grid
+    at k_g <= 8); at k_g 30 and 126 the reference's levels come from XLA's
+    exp2 (``tests/test_torch_log_grid_deep.py``), so the product rounds
+    and XLA on the CPU contracts x - level * s into an fma: there its
+    residual is within one rounding of the product of the port's, and
+    the port's is x - level bit for bit."""
+    np.testing.assert_array_equal((x - level).view(np.int32),
+                                  te.view(np.int32))
+    if kind == "uniform" or k <= 8:
+        np.testing.assert_array_equal(je.view(np.int32), te.view(np.int32))
+    else:
+        assert (np.abs(je - te) <= np.spacing(np.abs(level))).all()
+
+
+@pytest.mark.parametrize("kind,k,bits", EF_GEOMETRY, ids=str)
+@pytest.mark.parametrize("c", CHUNK_CS)
+@pytest.mark.parametrize("n_rows", [1, 2, 3, 4, 5])
+def test_encode_rows_ef_chunk_geometry(kind, k, bits, c, n_rows):
+    """Payload rows bitwise the reference's and residuals as
+    ``_residual_gate`` says, from x as a view at float offsets 0-3 of a
+    larger buffer and with the residual written over that view
+    (``out=x``)."""
+    jc, tc = _geometry_codecs(kind, k, bits)
+    assert tc.bits == jc.bits and tc.clip_abs == jc.clip_abs
+    n = n_rows * c - (n_rows - 1 if c > 1 else 0)
+    x, scale = _inputs(kind, n, seed=n_rows * 7000 + c + k)
+    jp, je = J.encode_rows_ef(jnp.asarray(x), jnp.float32(scale), jc, n_rows,
+                              backend="jnp")
+    jp, je = np.asarray(jp), np.asarray(je)
+    rows_c = -(-n // n_rows)
+    assert jp.shape == (n_rows, tc.payload_nbytes(rows_c))
+    level = T.decode_rows(torch.from_numpy(jp), torch.full((n_rows,), scale),
+                          tc, rows_c).reshape(-1)[:n].numpy()
+    for off in range(4):
+        view = _view(x, off)
+        tp, te = T.encode_rows_ef(view, torch.tensor(scale), tc, n_rows)
+        np.testing.assert_array_equal(jp, tp.numpy())
+        _residual_gate(kind, k, x, je, te.numpy(), level)
+        tp, te = T.encode_rows_ef(view, torch.tensor(scale), tc, n_rows,
+                                  out=view)
+        assert te is view
+        np.testing.assert_array_equal(jp, tp.numpy())
+        _residual_gate(kind, k, x, je, view.numpy(), level)
+
+
+@pytest.mark.parametrize("kind,k,bits", EF_GEOMETRY, ids=str)
+def test_encode_rows_ef_zero_chunks(kind, k, bits):
+    """All-zero input over a chunk and a half, three rows."""
+    jc, tc = _geometry_codecs(kind, k, bits)
+    x, scale = _inputs(kind, 3 * (CHUNK + CHUNK // 2), seed=0, zero=True)
+    jp, je = J.encode_rows_ef(jnp.asarray(x), jnp.float32(scale), jc, 3,
+                              backend="jnp")
+    tp, te = T.encode_rows_ef(_view(x, 3), torch.tensor(scale), tc, 3)
+    np.testing.assert_array_equal(np.asarray(jp), tp.numpy())
+    assert not te.any() and not np.asarray(je).any()

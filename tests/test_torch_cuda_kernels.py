@@ -1304,6 +1304,115 @@ def test_decode_rows_head_body_tail_bitwise(dev, kind, k, bits, c, n_rows):
 
 
 # ---------------------------------------------------------------------------
+# K7 fused EF encode and #5's encode launch: a warp a chunk of 512 codes;
+# every lane width and kind, x at float offsets 0-3, rows whose payload
+# bytes are no multiple of 16, chunk - 1, chunk, chunk + 1 codes
+# ---------------------------------------------------------------------------
+
+ENC_CHUNK = 512
+ENC_CS = [1, ENC_CHUNK - 1, ENC_CHUNK, ENC_CHUNK + 1, 1100]
+# (kind, k, absolute, lane bits): the uniform grid on every lane width and
+# with the amax scale on 8 and 16 bits; the log grid at k_g 1, 2 (3-bit
+# lanes), 6 (4-bit), 30 (6-bit), 126 (8-bit); the ternary kind (#5 only)
+ENC_CASES = ([("uniform", k, True, b) for b, k in ((2, 1), (3, 2), (4, 3),
+                                                   (6, 5), (8, 7), (16, 15))]
+             + [("uniform", 7, False, 8), ("uniform", 14, False, 16)]
+             + [("log", k, True, None) for k in (1, 2, 6, 30, 126)]
+             + [("ternary", 0, True, None)])
+
+
+def _enc_codec(kind, k, absolute, bits):
+    from repro_torch.comm import codec as CD
+    if kind == "log":
+        return CD.LogCodec(k_g=k)
+    if kind == "ternary":
+        return CD.TernaryCodec()
+    return CD.UniformCodec(k_x=k, absolute=absolute, wire_bits=bits)
+
+
+def _at(dev, values, off):
+    """values copied into a fresh buffer ``off`` floats past its start
+    (16-byte aligned), NaN around them."""
+    buf = torch.full((values.numel() + 8,), float("nan"), device=dev)
+    view = buf[off:off + values.numel()]
+    view.copy_(values)
+    return view
+
+
+@pytest.mark.parametrize("kind,k,absolute,bits", ENC_CASES, ids=str)
+@pytest.mark.parametrize("c", ENC_CS)
+@pytest.mark.parametrize("n_rows", [1, 2, 3, 4, 5])
+def test_encode_chunk_geometry_bitwise(dev, kind, k, absolute, bits, c,
+                                       n_rows):
+    """K7 (log and uniform kinds: payload rows and e') and #5 (every kind:
+    payload rows and scale) against their plain versions, bitwise, from x
+    at float offsets 0-3 of a buffer: e' into a fresh tensor, into one
+    aligned unlike x, and over x itself (``out=x``); #5's ternary kind on
+    uniforms at another offset. One launch a call (#5: K3's amax launch
+    besides, for an amax scale); nothing past the view is written."""
+    from repro_torch.comm import kernels as K
+    from repro_torch.opt import engine as E
+    codec = _enc_codec(kind, k, absolute, bits)
+    n = n_rows * c - (n_rows - 1 if c > 1 else 0)
+    g = torch.Generator(device=dev).manual_seed(n_rows * 7000 + c + k)
+    base = torch.randn(n, generator=g, device=dev) * (
+        0.3 if kind == "uniform" else 1.0)
+    base[::13] = 0.0
+    scale = (torch.tensor(0.5, device=dev) if codec.static_scale is not None
+             else E.amax_scale(base.abs().amax()))
+    u = torch.rand(n, generator=g, device=dev)
+    counter = f"encode_{kind}_launches"
+    for off in range(4):
+        x = _at(dev, base, off)
+        n0 = getattr(K, counter)
+        pk, sk = K.encode_rows(x, codec, n_rows, u=_at(dev, u, 3 - off),
+                               backend="cuda")
+        assert getattr(K, counter) == n0 + 1
+        pp, sp = K.encode_rows(base, codec, n_rows, u=u, backend="torch")
+        _bits_equal(pk, pp)
+        _bits_equal(sk, sp)
+        if kind == "ternary":
+            continue
+        pp, ep = K.ef_encode_rows(base, scale, codec, n_rows, backend="torch")
+        ef_counter = f"ef_encode_{kind}_launches"
+        for out_off in (None, (off + 2) % 4, "x"):
+            out = (None if out_off is None else x if out_off == "x"
+                   else _at(dev, torch.zeros_like(base), out_off))
+            n0 = getattr(K, ef_counter)
+            pk, ek = K.ef_encode_rows(x, scale, codec, n_rows,
+                                      backend="cuda", out=out)
+            assert getattr(K, ef_counter) == n0 + 1
+            _bits_equal(pk, pp)
+            _bits_equal(ek, ep)
+            if out is not None:
+                assert ek is out
+        buf = x._base if x._base is not None else x
+        assert bool(torch.isnan(buf[:off]).all())
+        assert bool(torch.isnan(buf[off + n:]).all())
+
+
+@pytest.mark.parametrize("kind,k,absolute,bits", ENC_CASES, ids=str)
+def test_encode_zero_chunks_bitwise(dev, kind, k, absolute, bits):
+    """All-zero input over a chunk and a half, three rows, x one float
+    past a 16-byte boundary: K7's residual all zero, #5's scale the zero
+    guard's 1 for the amax kinds."""
+    from repro_torch.comm import kernels as K
+    codec = _enc_codec(kind, k, absolute, bits)
+    n = 3 * (ENC_CHUNK + ENC_CHUNK // 2)
+    x = _at(dev, torch.zeros(n, device=dev), 1)
+    u = torch.rand(n, device=dev)
+    for a, b in zip(K.encode_rows(x, codec, 3, u=u, backend="cuda"),
+                    K.encode_rows(x, codec, 3, u=u, backend="torch")):
+        _bits_equal(a, b)
+    if kind != "ternary":
+        scale = torch.tensor(1.0, device=dev)
+        pk, ek = K.ef_encode_rows(x, scale, codec, 3, backend="cuda")
+        _bits_equal(pk, K.ef_encode_rows(x, scale, codec, 3,
+                                         backend="torch")[0])
+        assert not bool(ek.any())
+
+
+# ---------------------------------------------------------------------------
 # K1's CUDA-core route: float32 activations, every code type, split K
 # ---------------------------------------------------------------------------
 

@@ -180,3 +180,69 @@ def test_rows_gate_fails_on_planted_fault(fault):
     else:
         td = T.decode_rows(tp, torch.from_numpy(np.roll(scales, -1)), tc, c)
     assert not rows_gate((jd,), (td.numpy(),))
+
+
+# ---------------------------------------------------------------------------
+# #5 at the card kernel's chunk geometry: every lane width and kind, x (and
+# the ternary kind's u) as views at float offsets 0-3, rows whose payload
+# bytes are no multiple of 16 (the card kernel's chunks hold 512 codes;
+# tests/test_torch_cuda_kernels.py holds the kernel against these plain
+# versions at the same cases)
+# ---------------------------------------------------------------------------
+
+CHUNK = 512
+CHUNK_CS = (1, CHUNK - 1, CHUNK, CHUNK + 1, 1100)
+GEOMETRY = ([("uniform", k, True, b) for b, k in ((2, 1), (3, 2), (4, 3),
+                                                  (6, 5), (8, 7), (16, 15))]
+            + [("uniform", 7, False, 8), ("uniform", 14, False, 16)]
+            + [("log", k, True, None) for k in (1, 2, 30, 126)]
+            + [("ternary", None, True, None)])
+
+
+def _geometry_pair(kind, k, absolute, bits):
+    if kind == "uniform":
+        return (J.UniformCodec(k_x=k, absolute=absolute, wire_bits=bits),
+                T.UniformCodec(k_x=k, absolute=absolute, wire_bits=bits))
+    return _codec_pair(kind, k, absolute)
+
+
+def _view(a, off):
+    buf = torch.full((a.size + 4,), float("nan"))
+    view = buf[off:off + a.size]
+    view.copy_(torch.from_numpy(a))
+    return view
+
+
+@pytest.mark.parametrize("kind,k,absolute,bits", GEOMETRY, ids=str)
+@pytest.mark.parametrize("c", CHUNK_CS)
+@pytest.mark.parametrize("n_rows", [1, 2, 3, 4, 5])
+def test_encode_rows_chunk_geometry(kind, k, absolute, bits, c, n_rows):
+    """Payload rows and scales bitwise the reference's, from x (and u) as
+    views at float offsets 0-3 of larger buffers."""
+    jc, tc = _geometry_pair(kind, k, absolute, bits)
+    assert (tc.spec, tc.bits, tc.clip_abs, tc.static_scale) == \
+        (jc.spec, jc.bits, jc.clip_abs, jc.static_scale)
+    n = n_rows * c - (n_rows - 1 if c > 1 else 0)
+    seed = n_rows * 7000 + c + (k or 0)
+    x = _x(n, seed, kind)
+    key, u = _key_and_u(seed, n)
+    jp, js = J.encode_rows(jnp.asarray(x), jc, n_rows, key=key,
+                           backend="jnp")
+    assert np.asarray(jp).shape == (n_rows, tc.payload_nbytes(-(-n // n_rows)))
+    for off in range(4):
+        tp, ts = T.encode_rows(_view(x, off), tc, n_rows,
+                               u=_view(u, 3 - off))
+        assert rows_gate((jp, js), (tp.numpy(), ts.numpy()))
+
+
+@pytest.mark.parametrize("kind,k,absolute,bits", GEOMETRY, ids=str)
+def test_encode_rows_zero_chunks(kind, k, absolute, bits):
+    """All-zero input over a chunk and a half, three rows (the zero
+    guard's scale 1 for the amax kinds)."""
+    jc, tc = _geometry_pair(kind, k, absolute, bits)
+    n = 3 * (CHUNK + CHUNK // 2)
+    x = np.zeros(n, np.float32)
+    key, u = _key_and_u(7, n)
+    jp, js = J.encode_rows(jnp.asarray(x), jc, 3, key=key, backend="jnp")
+    tp, ts = T.encode_rows(_view(x, 1), tc, 3, u=_view(u, 2))
+    assert rows_gate((jp, js), (tp.numpy(), ts.numpy()))
