@@ -232,6 +232,19 @@ Phases, each raising on failure (exit code nonzero, no result line):
      against log:6's 954,238,976, its step wall and device ms and wire
      kernels with the plan installed again (its capture: what a
      revisited plan costs), capture seconds, peak bytes;
+     6e. the hierarchical topology and the model axis on the same rank,
+     yi-6b at full width cut to 2 layers, through
+     ``repro_torch.launch.train``'s ``main`` under deterministic
+     algorithms: the flat run and ``--topology 1x1`` (the tiered path on
+     a (pod=1, data=1, model=1) grid, every count at 0 just before it),
+     3 steps each: losses, master, m, v and e bitwise, K15, K7 and K6
+     launched, no plain version; the per-tier bytes (inter equal to the
+     flat wire's total, intra the float32 gradient gather and the
+     broadcast's fan-out); ``quantized_gather_shard`` (the int8 gather,
+     K3, K4, K12) on the 2-layer w_gate stack at one shard bitwise its
+     plain version, its launches and ms; then ``--data 1 --model 1
+     --model-gather-quant 8`` 2 steps; each run's step device ms beside
+     phase 6's;
   8. every leaf of the cut's initial parameters through
      ``Codec.encode`` -> ``WireBuffer.decode`` for log:6, the uniform:7
      wire (absolute and amax), TernGrad and blockwise:256: #5 (each
@@ -3109,6 +3122,156 @@ def adaptive_train(torch, dev, mods, group, model, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 6e: the hierarchical topology and the model axis on one NCCL rank
+# ---------------------------------------------------------------------------
+
+# yi-6b at full width cut to 2 layers, through launch.train's main
+HIER_LAYERS, HIER_STEPS, MGQ_STEPS = 2, 3, 2
+GATHER_COUNTERS = {"amax_rows": ("K", "amax_launches"),
+                   "uniform_quantize_rows": ("K", "quantize_launches"),
+                   "uniform_dequantize_rows": ("K", "dequantize_launches")}
+
+
+def _launch(torch, mods, counters, *flags):
+    """``launch.train.main`` on the current NCCL rank with the phase's
+    flags, every count of ``counters`` at 0 just before it: (its
+    result, the counts, plain-version calls on the card, its output)."""
+    import io
+    from repro_torch.launch import train as launch
+    K, A = mods["K"], mods["A"]
+    for mod, attr in counters.values():
+        setattr(mods[mod], attr, 0)
+    K.plain_on_cuda = A.plain_on_cuda = 0
+    argv = ["--arch", "yi-6b", "--layers", str(HIER_LAYERS), "--seq",
+            str(TRAIN_SEQ), "--global-batch", str(TRAIN_BATCH),
+            "--grad-bits", "6", "--weight-bits", "7", "--weight-absolute",
+            "--log-every", "1", "--device", "cuda", *flags]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        r = launch.main(argv)
+    torch.cuda.synchronize()
+    launches = {n: getattr(mods[m], a) for n, (m, a) in counters.items()}
+    return r, launches, K.plain_on_cuda + A.plain_on_cuda, out.getvalue()
+
+
+def _step_device_ms(torch, dev, r, cfg):
+    """Device ms of one more step of a launcher run's session state."""
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.train.session import SessionConfig, TrainSession
+    sess = TrainSession.from_artifacts(
+        r["art"], batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=7),
+        SessionConfig(log_every=1), state=r["state"], device=dev,
+        log=lambda *_: None)
+    try:
+        ms, by_kernel = profile_ms(torch, lambda: sess.run(1), steps=2)
+    finally:
+        sess.close()
+    return ms, by_kernel[:8]
+
+
+def hier_train(torch, dev, mods):
+    """Phase 6e (see the module docstring)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.dist import collectives as C
+    from repro_torch.tree import tree_leaves
+    K = mods["K"]
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=HIER_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"layers": HIER_LAYERS, "steps": HIER_STEPS,
+           "allocated_at_start": torch.cuda.memory_allocated()}
+    keys = ("master", "m", "v", "e")
+    with deterministic(torch):
+        flat, _, _, _ = _launch(torch, mods, DIST_COUNTERS,
+                                "--steps", str(HIER_STEPS))
+    # the flat run's state on the host: the 1x1 run is held against it
+    # with one run's state on the card
+    host = {k: [x.to("cpu", copy=True) for x in tree_leaves(
+        flat["state"][k])] for k in keys}
+    fl, fc = [h["loss"] for h in flat["history"]], flat["comm"]
+    res["flat_step_device_ms"], _ = _step_device_ms(torch, dev, flat, cfg)
+    del flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    with deterministic(torch):
+        hier, launches, plain, hier_log = _launch(
+            torch, mods, DIST_COUNTERS, "--steps", str(HIER_STEPS),
+            "--topology", "1x1")
+    if not hier["art"].tiers.hierarchical:
+        raise AssertionError("--topology 1x1 did not take the tiered path")
+    if min(launches.values()) == 0 or plain:
+        raise AssertionError(f"1x1: kernels not launched or a plain "
+                             f"version ran: {launches}, plain {plain}")
+    hl = [h["loss"] for h in hier["history"]]
+    same = fl == hl and all(
+        bits_equal(torch, x.cpu(), y) for k in keys
+        for x, y in zip(tree_leaves(hier["state"][k]), host[k]))
+    if not same or not all(math.isfinite(x) for x in hl):
+        raise AssertionError(f"1x1 is not bitwise the flat run: {hl} vs {fl}")
+    del host
+    tiers = hier["comm"]["tiers"]
+    n_params = sum(x.numel() for x in tree_leaves(hier["state"]["master"]))
+    if tiers["inter"]["total"] != fc["total_bytes"] or \
+            tiers["intra"]["grad_reduce"] != 4 * n_params:
+        raise AssertionError(f"tier bytes {tiers} against flat {fc}")
+    res.update(losses=hl, flat_losses=fl, launches=launches, bitwise=same,
+               tiers=tiers, flat_comm={k: fc[k] for k in (
+                   "update_exchange_bytes", "weight_broadcast_bytes",
+                   "total_bytes")}, n_params=n_params,
+               log=hier_log.splitlines()[:3])
+    res["step_device_ms"], res["step_kernels"] = _step_device_ms(
+        torch, dev, hier, cfg)
+    del hier
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the int8 gather at one shard on the w_gate stack: K3, K4, K12
+    d, f = cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device=dev).manual_seed(3)
+    w = torch.randn((HIER_LAYERS, d, f), generator=gen, device=dev) * 0.02
+    for mod, attr in GATHER_COUNTERS.values():
+        setattr(mods[mod], attr, 0)
+    K.plain_on_cuda = 0
+    got = C.quantized_gather_shard(w, 1, 1, 8, False, backend="cuda")
+    torch.cuda.synchronize()
+    glaunch = {n: getattr(mods[m], a) for n, (m, a) in
+               GATHER_COUNTERS.items()}
+    if min(glaunch.values()) == 0 or K.plain_on_cuda:
+        raise AssertionError(f"int8 gather: {glaunch}, plain "
+                             f"{K.plain_on_cuda}")
+    want = C.quantized_gather_shard(w, 1, 1, 8, False, backend="torch")
+    if not bits_equal(torch, got, want):
+        raise AssertionError("the int8 gather differs from its plain "
+                             "version")
+    n = w.numel()
+    res["gather"] = dict(
+        shape=list(w.shape), launches=glaunch,
+        ms=cuda_ms(torch, lambda i: C.quantized_gather_shard(
+            w, 1, 1, 8, False, backend="cuda"), 5, 1),
+        plain_ms=cuda_ms(torch, lambda i: C.quantized_gather_shard(
+            w, 1, 1, 8, False, backend="torch"), 3, 1),
+        bound_ms=bound_ms(8 * n)[0])
+    del w, got, want
+    torch.cuda.empty_cache()
+
+    mgq, _, plain, _ = _launch(torch, mods, DIST_COUNTERS, "--steps",
+                               str(MGQ_STEPS), "--data", "1", "--model",
+                               "1", "--model-gather-quant", "8")
+    ml = [h["loss"] for h in mgq["history"]]
+    if plain or len(ml) != MGQ_STEPS or not all(math.isfinite(x)
+                                                 for x in ml):
+        raise AssertionError(f"--model-gather-quant 8: losses {ml}, plain "
+                             f"{plain}")
+    res["mgq_losses"] = ml
+    res["mgq_step_device_ms"], _ = _step_device_ms(torch, dev, mgq, cfg)
+    del mgq
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 6b: the distributed session's checkpoints and resume
 # ---------------------------------------------------------------------------
 
@@ -4494,7 +4657,8 @@ def main() -> int:
         out = fn(*args, **kw)
         phase_s[name] = time.perf_counter() - t
         print(f"phase {name}: {phase_s[name]:.1f} s (total "
-              f"{time.perf_counter() - t_start:.1f} s)", flush=True)
+              f"{time.perf_counter() - t_start:.1f} s; allocated "
+              f"{torch.cuda.memory_allocated()} B)", flush=True)
         return out
 
     t0 = time.perf_counter()
@@ -4679,6 +4843,8 @@ def main() -> int:
         lv = timed("6c", llava_train, torch, dev, mods, group)
         a6 = timed("6d", adaptive_train, torch, dev, mods, group, model8,
                    cfg8)
+        torch.cuda.empty_cache()
+        h6 = timed("6e", hier_train, torch, dev, mods)
     finally:
         close_process_group()
     wb = timed("8", wire_buffers, torch, dev, mods, model8)
@@ -4733,6 +4899,8 @@ def main() -> int:
         by_path.update({m: md[m]["launches"].get(r["name"], 0)
                         for m in MODE_RUNS})
         by_path["wire"] = wb["launches"].get(r["name"], 0)
+        by_path["hier_1x1"] = h6["launches"].get(r["name"], 0)
+        by_path["int8_gather"] = h6["gather"]["launches"].get(r["name"], 0)
         by_path.update({f"paper_{m}": pp[m]["launches"].get(r["name"], 0)
                         for m in pp})
         by_path["paper_adaptive"] = pa["launches"].get(r["name"], 0)
@@ -4948,6 +5116,28 @@ def main() -> int:
               f"{q['wire_kernels_ms']}; lanes "
               f"{_plan_counts(p['bit_plan'])}", flush=True)
 
+    g6 = h6["gather"]
+    print(f"hierarchical (6e, yi-6b x {h6['layers']} layers, one NCCL rank, "
+          f"launch.train main): --topology 1x1 {h6['steps']} steps bitwise "
+          f"the flat run {h6['bitwise']} (losses "
+          f"{', '.join(f'{x:.4f}' for x in h6['losses'])}); launches "
+          f"{h6['launches']}; per-tier bytes a step: inter "
+          f"{h6['tiers']['inter']} (flat wire total "
+          f"{h6['flat_comm']['total_bytes']}), intra {h6['tiers']['intra']}"
+          f"; step device ms: 1x1 {h6['step_device_ms']:.3f}, flat "
+          f"{h6['flat_step_device_ms']:.3f}, --model-gather-quant 8 "
+          f"{h6['mgq_step_device_ms']:.3f} (losses "
+          f"{', '.join(f'{x:.4f}' for x in h6['mgq_losses'])}); phase 6 "
+          f"at {TRAIN_LAYERS} layers {ds['step_device_ms']:.3f}; "
+          f"allocated on the card at its start "
+          f"{h6['allocated_at_start']} B; int8 "
+          f"gather {g6['shape']} at one shard bitwise its plain version: "
+          f"{g6['ms']:.4f} ms, plain {g6['plain_ms']:.4f}, bound "
+          f"{g6['bound_ms']:.4f} (bytes), launches {g6['launches']}",
+          flush=True)
+    for name, t in h6["step_kernels"]:
+        print(f"  {t:9.4f} ms  {name[:90]}")
+
     out_dir = os.path.join(HERE, "results")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
@@ -4965,7 +5155,7 @@ def main() -> int:
                        alg1_baselines=bl, paper=pp, train_graph=gt,
                        dist_ckpt=ck, serve_gemma3=g3, serve_qwen=qw,
                        serve_admission=ad, train_llava=lv, adaptive=a6,
-                       deep_lanes=dl_table, paper_adaptive=pa,
+                       deep_lanes=dl_table, paper_adaptive=pa, hier=h6,
                        phase_s=phase_s),
                   fh, indent=1)
     print("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in

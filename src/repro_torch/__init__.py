@@ -12,9 +12,10 @@ Three slices are ported, each through its entry point:
   * single-machine training, Algorithm 1 (``core.qadam`` +
     ``TrainSession.from_optimizer``);
   * distributed training, Algorithms 2+3 (``launch.train``:
-    ``dist.step.make_train_step`` on a ``torch.distributed`` group +
-    ``TrainSession.from_artifacts``), the paper's ``qadam`` mode on the
-    flat topology.
+    ``dist.step.make_train_step`` on a ``launch.mesh.Grid`` of
+    ``torch.distributed`` ranks + ``TrainSession.from_artifacts``), the
+    paper's ``qadam`` mode and its baselines, on the flat or the
+    hierarchical topology, with the model axis (context parallelism).
 
 Their ten hand-written Hopper kernels live under ``csrc/`` (K1
 dequant-matmul, K2 page gather, K3 amax, K4 uniform quantize, K6 wire

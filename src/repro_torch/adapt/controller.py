@@ -27,7 +27,9 @@ before the window's harvest.)
 ``measured_exchange_bytes`` re-derives the exchange's bytes from real
 encoded payloads (#5 or #14 + #9 on the card), leaf by leaf: the check
 behind ``--adapt-verify`` and the accounting tests, where the codecs'
-``comm_bytes_per_step`` must equal it exactly. Leaf indices, plans and
+``comm_bytes_per_step`` must equal it exactly (on a hierarchical
+topology: the ``n_inter`` rows a leaf that cross the slow tier, and
+``measured_tier_bytes`` every tier). Leaf indices, plans and
 stats rows follow the reference's leaf order (dict keys sorted), so a
 plan or a stats history crosses between the two programs as it is.
 """
@@ -136,21 +138,25 @@ def plan_for_model(model, group, tc, *, budget_ratio: float = 0.6,
                        "plan_bytes": sum(r["a2a_bytes"] for r in report)}
 
 
-def _flat_tiers(art) -> None:
+def _hier_tiers(art, mode):
+    """The artifacts' tiers where the mode exchanges over them (None for
+    the flat topology and for a mode that is not tiered, dp_adam)."""
     tiers = getattr(art, "tiers", None)
-    if tiers is not None and tiers.intra_axes:
-        raise NotImplementedError(
-            "measured bytes over hierarchical tiers are not ported yet "
-            "(ROADMAP.md queue 1)")
+    if mode.tiered and tiers is not None and tiers.hierarchical:
+        return tiers
+    return None
 
 
-def _leaf_payload_nbytes(art, tc, mode, m, idx: int, device) -> int:
+def _leaf_payload_nbytes(art, tc, mode, m, idx: int, n_src: int,
+                         device) -> int:
     """Measured exchange payload bytes of one leaf: a real tensor of its
-    numel encoded with its plan codec into the worker rows the
-    all-to-all moves (rows are byte-aligned, so the array is the wire)."""
+    numel encoded with its plan codec into the worker rows, of which the
+    ``n_src`` rows that cross the exchange tier are counted (all
+    ``n_workers`` flat, ``n_inter`` hierarchical; rows are byte-aligned,
+    so the slice is the wire array)."""
     codec = mode.leaf_codec(tc, idx)
     if isinstance(codec, CD.IdentityCodec):
-        return art.n_workers * m.c * 4
+        return n_src * m.c * 4
     x = torch.linspace(-1.0, 1.0, m.numel, dtype=torch.float32,
                        device=device)
     if isinstance(codec, CD.BlockwiseCodec):
@@ -159,41 +165,50 @@ def _leaf_payload_nbytes(art, tc, mode, m, idx: int, device) -> int:
         codes2d, _ = engine.quantize_blockwise(x, codec.block)     # #14
         del x
         rows = B.pad_rows(codes2d.reshape(-1)[:m.numel], art.n_workers)
-        return K.pack_rows(rows, codec.bits).nbytes                # #9
+        return K.pack_rows(rows, codec.bits)[:n_src].nbytes        # #9
     u = torch.zeros_like(x) if codec.stochastic else None
     payload, _ = CD.encode_rows(x, codec, art.n_workers, u=u)      # #5
-    return payload.nbytes
+    return payload[:n_src].nbytes
 
 
 def measured_exchange_bytes(art, tc, device=None) -> int:
-    """Measured per-worker exchange payload bytes: each leaf encoded with
-    its plan codec and the wire arrays' ``nbytes`` summed, the ground
-    truth ``comm_bytes_per_step(...)["update_exchange_bytes"]`` must
-    equal. ``device``: where to encode (default: the CPU)."""
+    """Measured per-worker exchange payload bytes on the exchange tier:
+    each leaf encoded with its plan codec and the wire arrays' ``nbytes``
+    summed, the ground truth ``comm_bytes_per_step(...)
+    ["update_exchange_bytes"]`` must equal. On a hierarchical topology
+    only the ``n_inter`` rows a leaf that cross the slow tier count.
+    ``device``: where to encode (default: the CPU)."""
     from repro_torch.dist.modes import get_mode
-    _flat_tiers(art)
     mode = get_mode(tc.mode)
+    tiers = _hier_tiers(art, mode)
+    n_src = tiers.n_inter if tiers is not None else art.n_workers
     device = device or "cpu"
-    return sum(_leaf_payload_nbytes(art, tc, mode, m, i, device)
+    return sum(_leaf_payload_nbytes(art, tc, mode, m, i, n_src, device)
                for i, m in enumerate(_ref_metas(art)))
 
 
 def measured_tier_bytes(art, tc, device=None) -> Dict[str, Dict[str, int]]:
     """Measured per-tier wire bytes from real buffers' ``nbytes``, the
     counterpart of ``comm_bytes_per_step(...)["tiers"]``: the exchange
-    re-encodes every leaf (:func:`measured_exchange_bytes`), the
-    broadcast encodes one real chunk a leaf with the weight wire's codec
-    and counts it once per worker. The flat topology only: every byte
-    rides the inter tier."""
+    re-encodes every leaf (:func:`measured_exchange_bytes`); the intra
+    tier's gradient reduce makes the float32 buffer it gathers
+    (``n_intra`` rows of the shard); the broadcast encodes one real chunk
+    a leaf with the weight wire's codec and counts it by the per-tier
+    fan-out of the inter-first gather."""
     from repro_torch.dist.modes import get_mode
     from repro_torch.dist.step import weight_wire_codec
-    _flat_tiers(art)
     mode = get_mode(tc.mode)
+    tiers = _hier_tiers(art, mode)
+    n_src = tiers.n_inter if tiers is not None else art.n_workers
     device = device or "cpu"
-    ex = bc = 0
+    ex_inter = ex_intra = bc_inter = bc_intra = 0
     for i, m in enumerate(_ref_metas(art)):
-        ex += _leaf_payload_nbytes(art, tc, mode, m, i, device)
-        wc = weight_wire_codec(tc, m.numel)
+        ex_inter += _leaf_payload_nbytes(art, tc, mode, m, i, n_src, device)
+        if tiers is not None:
+            ex_intra += torch.zeros((tiers.n_intra, m.numel),
+                                    dtype=torch.float32,
+                                    device="meta").nbytes
+        wc = weight_wire_codec(tc, m.full_numel)
         if isinstance(wc, CD.IdentityCodec):
             p = m.c * 4
         else:
@@ -201,10 +216,17 @@ def measured_tier_bytes(art, tc, device=None) -> Dict[str, Dict[str, int]]:
                 torch.linspace(-1.0, 1.0, m.c, dtype=torch.float32,
                                device=device), wc, 1)
             p = payload.nbytes
-        bc += art.n_workers * p
-    return {"inter": {"update_exchange": ex, "weight_broadcast": bc,
-                      "total": ex + bc},
-            "intra": {"grad_reduce": 0, "weight_broadcast": 0, "total": 0}}
+        if tiers is not None:
+            bc_inter += tiers.n_inter * p
+            bc_intra += tiers.n_intra * tiers.n_inter * p
+        else:
+            bc_inter += art.n_workers * p
+    return {"inter": {"update_exchange": ex_inter,
+                      "weight_broadcast": bc_inter,
+                      "total": ex_inter + bc_inter},
+            "intra": {"grad_reduce": ex_intra,
+                      "weight_broadcast": bc_intra,
+                      "total": ex_intra + bc_intra}}
 
 
 def verify_accounting(art, tc, device=None) -> Dict[str, Any]:

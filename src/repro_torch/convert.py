@@ -32,9 +32,23 @@ def quantized_from_numpy(leaf, device="cuda") -> QuantizedLeaf:
                          cast=getattr(leaf, "cast", None))
 
 
-def params_from_numpy(tree, device="cuda"):
+def params_from_numpy(tree, device="cuda", *, layout=None, index: int = 0):
     """A reference parameter tree (numpy leaves, nested dicts, quantized
-    leaves by attribute) -> the port's tree on ``device``."""
+    leaves by attribute) -> the port's tree on ``device``. With a
+    ``layout`` (``dist.sharding.Layout``), model shard ``index`` of each
+    float leaf: what a rank of a model-sharded grid holds."""
+    if layout is not None:
+        from repro_torch.dist import sharding as SH
+        dims = SH.dims_by_path(layout)
+
+        def shard(path, t):
+            if isinstance(t, dict):
+                return {k: shard(path + (k,), v) for k, v in t.items()}
+            leaf = params_from_numpy(t, device)
+            dim, stacked = dims[path]
+            return SH.shard_of(leaf, dim, stacked, layout.n_shards,
+                               index).contiguous()
+        return shard((), tree)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if hasattr(tree, "codes") and hasattr(tree, "k_x"):
@@ -52,21 +66,23 @@ def qadam_state_from_numpy(state, device="cuda") -> QAdamState:
                       e=params_from_numpy(state.e, device))
 
 
-def dist_state_from_numpy(state, rank: int, n_workers: int, device="cuda"):
+def dist_state_from_numpy(state, rank: int, n_workers: int, device="cuda",
+                          index: int = 0, n_shards: int = 1):
     """The reference's chunked distributed state (``master``, ``m``,
     ``v``, ``e`` and a mode's extra leaves such as ``efadam``'s ``es``:
-    trees of arrays shaped ``worker_sizes + (1, X)``, X the chunk or the
-    whole leaf as the mode lays out its moments; and ``count``), as numpy
-    -> rank ``rank``'s state of ``repro_torch.dist.step`` (flat float32
-    leaves, the count on the host). One model shard only, as the port's
-    step."""
+    trees of arrays shaped ``worker_sizes + (n_shards, X)``, X the chunk
+    or the whole shard as the mode lays out its moments; and ``count``),
+    as numpy -> the state of worker ``rank`` at model shard ``index`` in
+    ``repro_torch.dist.step`` (flat float32 leaves, the count on the
+    host)."""
     def leaf(a):
         a = np.asarray(a)
-        if a.size % n_workers:
+        if a.size % (n_workers * n_shards):
             raise ValueError(f"a state leaf of shape {a.shape} does not "
-                             f"split over {n_workers} workers")
-        rows = a.reshape(n_workers, -1)
-        return _tensor(rows[rank], device).to(torch.float32)
+                             f"split over {n_workers} workers x "
+                             f"{n_shards} shards")
+        rows = a.reshape(n_workers, n_shards, -1)
+        return _tensor(rows[rank, index], device).to(torch.float32)
 
     def tree(t):
         if isinstance(t, dict):

@@ -1,11 +1,15 @@
 """Distributed QAdam-EF, Algorithms 2+3 (port of ``repro/dist``).
 
-  sharding     - parameter layout: worker chunking (one model shard)
-  topology     - link-tier topologies (the flat one is ported)
+  sharding     - parameter layout: model-axis shard dims + worker chunking
+  topology     - link-tier topologies (flat / hierarchical)
   collectives  - the quantized wire (packed uint8 exchange / broadcast)
   modes        - per-mode optimizer plugins (qadam/dp_adam/efadam/
                  terngrad/ef_sgd/adaptive)
   step         - make_train_step: the mode-independent worker-step template
+                 over a launch.mesh.Grid (workers x model shards)
+
+The sharded serving step of the reference (``dist/serve.py``) is not
+ported (ROADMAP.md queue 1).
 
 Importing the package initializes no process group.
 """

@@ -1,12 +1,12 @@
 """The quantized wire of Algorithm 3 on ``torch.distributed`` (port of
-``repro/dist/collectives.py``, the worker channels): every cross-worker
-collective ships packed uint8 payload rows plus float32 scales, or
-float32 rows where a channel is unquantized.
+``repro/dist/collectives.py``): every cross-worker collective ships
+packed uint8 payload rows plus float32 scales, or float32 rows where a
+channel is unquantized.
 
 The reference names its workers by mesh axes inside ``shard_map``; here
 a process group is the worker axis and a rank its worker index. Two
-channels, both error-compensated in ``repro_torch.dist.step`` (the
-baselines' variants in ``repro_torch.dist.modes``):
+worker channels, both error-compensated in ``repro_torch.dist.step``
+(the baselines' variants in ``repro_torch.dist.modes``):
 
   * **update exchange** (worker -> server): each worker K7-encodes its
     update ``Delta_t + e_t`` into per-chunk payload rows and all-to-alls
@@ -18,34 +18,54 @@ baselines' variants in ``repro_torch.dist.modes``):
     master chunk with the weight codec and all-gathers the payload;
     every worker K6-decodes Q_x(x_t) for the whole leaf.
 
+Hierarchical tiers (``repro_torch.dist.topology``) run the same two
+channels through a :class:`TierGroups`: the exchange all-to-alls the
+``n_inter`` rows of this device's intra position over the inter (node)
+group, and the broadcast gathers over the inter group first, then
+within the node. Flat tiers take the flat collectives op for op.
+
+One model-axis channel, the forward's per-layer weight gather:
+:func:`gather_shard` in float32, or :func:`quantized_gather_shard` with
+int8 codes and one scale a shard (K3, K4 and K12 on the card). Both are
+differentiable: the backward of an all-gather is a reduce-scatter.
+
 The collectives are the synchronous forms of ``torch.distributed``: on
 NCCL they are ordered on the device after the current stream's work and
-the host does not wait for them; on gloo (CPU tests) they block.
-Hierarchical tiers are not ported (``repro_torch.dist.topology``).
+the host does not wait for them; on gloo (CPU tests) they block. A group
+of None is one rank alone: its collectives are local.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.comm import codec as CD
-from repro_torch.dist.topology import Tiers
+from repro_torch.comm import kernels as K
 
 
-def _check_flat(tiers: Optional[Tiers]) -> None:
-    if tiers is not None and tiers.intra_axes:
-        raise NotImplementedError(
-            "hierarchical tiers are not ported yet (ROADMAP.md queue 1)")
+class TierGroups(NamedTuple):
+    """The process groups of resolved tiers: ``inter`` spans the exchange
+    tier (every worker on a flat topology), ``intra`` the fast tier (None
+    on a flat topology, and for one device a node)."""
+
+    inter: Any
+    intra: Any = None
+
+
+def group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
 
 
 def worker_index(group) -> int:
     """This worker's index: its rank in the group."""
-    return dist.get_rank(group)
+    return 0 if group is None else dist.get_rank(group)
 
 
 def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    if group is None:
+        return x.reshape((1,) + tuple(x.shape)).clone()
     n = dist.get_world_size(group)
     out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
     # all_gather_single is the newer name of all_gather_into_tensor
@@ -53,6 +73,13 @@ def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
         or dist.all_gather_into_tensor
     gather(out, x.reshape(-1).contiguous(), group=group)
     return out.reshape((n,) + tuple(x.shape))
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the group, in place."""
+    if group is not None:
+        dist.all_reduce(x, group=group)
+    return x
 
 
 def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
@@ -73,13 +100,14 @@ def gather_side(x: torch.Tensor, group) -> torch.Tensor:
 def reduce_rows(rows: torch.Tensor, group) -> torch.Tensor:
     """All-reduce (sum) of float32 worker-ownership rows, in place: the
     ``dp_adam`` baseline's gradient reduce (the reference's psum)."""
-    dist.all_reduce(rows, group=group)
-    return rows
+    return all_reduce(rows, group)
 
 
 def exchange_rows(rows: torch.Tensor, group) -> torch.Tensor:
     """All-to-all of worker-ownership rows: row j goes to worker j; the
     result's row i is worker i's row for this worker."""
+    if group is None:
+        return rows
     out = torch.empty_like(rows)
     dist.all_to_all_single(out, rows.contiguous(), group=group)
     return out
@@ -98,20 +126,6 @@ def exchange_decode(payload_rows: torch.Tensor, scale: torch.Tensor, codec,
     return CD.decode_rows(recv, scales, codec, c, backend=backend)
 
 
-def exchange_decode_tiered(payload_rows, scale, codec, c: int, tiers, group,
-                           *, backend: Optional[str] = None):
-    """Tier-aware ``exchange_decode``: flat tiers only."""
-    _check_flat(tiers)
-    return exchange_decode(payload_rows, scale, codec, c, group,
-                           backend=backend)
-
-
-def gather_rows_tiered(x: torch.Tensor, tiers, group) -> torch.Tensor:
-    """Tier-aware ``gather_rows``: flat tiers only."""
-    _check_flat(tiers)
-    return gather_rows(x, group)
-
-
 def broadcast_decode(payload: torch.Tensor, scale: torch.Tensor, codec,
                      c: int, group, *, backend: Optional[str] = None,
                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -126,9 +140,208 @@ def broadcast_decode(payload: torch.Tensor, scale: torch.Tensor, codec,
     return CD.decode_rows(rows, scales, codec, c, backend=backend, out=out)
 
 
-def broadcast_decode_tiered(payload, scale, codec, c: int, tiers, group, *,
-                            backend: Optional[str] = None, out=None):
-    """Tier-aware ``broadcast_decode``: flat tiers only."""
-    _check_flat(tiers)
-    return broadcast_decode(payload, scale, codec, c, group, backend=backend,
-                            out=out)
+# ---------------------------------------------------------------------------
+# per-tier channels: flat tiers take the collectives above op for op;
+# hierarchical tiers keep the slow (inter) links to n_inter rows a leaf
+# ---------------------------------------------------------------------------
+
+def exchange_rows_tiered(rows: torch.Tensor, tiers, groups: TierGroups
+                         ) -> torch.Tensor:
+    """Tier-aware ``exchange_rows``. Flat: the all-to-all over every
+    worker. Hierarchical: a node's devices hold bitwise the same rows
+    (the gradient was intra-reduced first), so each device takes the
+    ``n_inter`` rows of its intra position (worker ``w = node * n_intra
+    + intra``) and all-to-alls them over the inter group only. Row ``k``
+    of the result is node ``k``'s row for this worker's chunk."""
+    if not tiers.hierarchical:
+        return exchange_rows(rows, groups.inter)
+    j = worker_index(groups.intra)
+    grid = rows.reshape((tiers.n_inter, tiers.n_intra) + rows.shape[1:])
+    return exchange_rows(grid[:, j].contiguous(), groups.inter)
+
+
+def exchange_decode_tiered(payload_rows: torch.Tensor, scale: torch.Tensor,
+                           codec, c: int, tiers, groups: TierGroups, *,
+                           backend: Optional[str] = None) -> torch.Tensor:
+    """Tier-aware ``exchange_decode``: the payload all-to-all over the
+    exchange (inter) tier and the source scales gathered over the same
+    tier. Returns ``(n_inter, c)`` float32 rows, one a peer
+    (``n_inter == n_workers`` on a flat topology)."""
+    if payload_rows.dtype != torch.uint8:
+        raise ValueError("the exchange moves uint8 payload rows")
+    recv = exchange_rows_tiered(payload_rows, tiers, groups)
+    scales = gather_side(scale.reshape(()), groups.inter)
+    return CD.decode_rows(recv, scales, codec, c, backend=backend)
+
+
+def gather_rows_tiered(x: torch.Tensor, tiers, groups: TierGroups,
+                       gather=None) -> torch.Tensor:
+    """Tier-aware ``gather_rows`` (or ``gather``, e.g. ``gather_side``):
+    (n_workers, *x.shape) in worker order. Hierarchical: over the inter
+    group first (``n_inter`` rows cross the slow tier), then the stacked
+    rows within the node, swapped into the flat ``(node, intra)``
+    order."""
+    gather = gather or gather_rows
+    if not tiers.hierarchical:
+        return gather(x, groups.inter)
+    r = gather(x, groups.inter)                   # (n_inter, ...)
+    r = gather(r, groups.intra)                   # (n_intra, n_inter, ...)
+    return r.transpose(0, 1).reshape(
+        (tiers.n_inter * tiers.n_intra,) + tuple(x.shape))
+
+
+def broadcast_decode_tiered(payload: torch.Tensor, scale: torch.Tensor,
+                            codec, c: int, tiers, groups: TierGroups, *,
+                            backend: Optional[str] = None,
+                            out: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Tier-aware ``broadcast_decode``: hierarchical tiers gather the
+    payloads and scales inter first (``gather_rows_tiered``), so each
+    chunk's codes cross the slow tier once a node. Returns ``(n_workers,
+    c)`` float32 rows in worker order (or writes ``out``)."""
+    if not tiers.hierarchical:
+        return broadcast_decode(payload, scale, codec, c, groups.inter,
+                                backend=backend, out=out)
+    if payload.dtype != torch.uint8:
+        raise ValueError("the broadcast moves uint8 payloads")
+    rows = gather_rows_tiered(payload, tiers, groups)
+    scales = gather_rows_tiered(scale.reshape(()), tiers, groups,
+                                gather_side)
+    return CD.decode_rows(rows, scales, codec, c, backend=backend, out=out)
+
+
+# ---------------------------------------------------------------------------
+# model-axis weight gather
+# ---------------------------------------------------------------------------
+
+def _tile(parts: torch.Tensor, ax: int) -> torch.Tensor:
+    """(n, *shard) segments -> the whole tensor, segment i at position i
+    along ``ax`` (a tiled all-gather's layout)."""
+    n = parts.shape[0]
+    shape = list(parts.shape[1:])
+    shape[ax] *= n
+    return parts.movedim(0, ax).reshape(shape)
+
+
+def _untile(full: torch.Tensor, ax: int, n: int) -> torch.Tensor:
+    """Inverse of :func:`_tile`: (n, *shard), contiguous."""
+    shape = list(full.shape)
+    loc = shape[ax] // n
+    split = shape[:ax] + [n, loc] + shape[ax + 1:]
+    return full.reshape(split).movedim(ax, 0).contiguous()
+
+
+def _reduce_scatter(parts: torch.Tensor, group) -> torch.Tensor:
+    """Sum of every rank's (n, *shard) segments, this rank's segment:
+    one reduce-scatter on NCCL; an all-reduce and this rank's row on
+    gloo, which has no reduce-scatter (the same sums)."""
+    n = parts.shape[0]
+    if dist.get_backend(group) == "nccl":
+        out = torch.empty(parts.shape[1:], dtype=parts.dtype,
+                          device=parts.device)
+        dist.reduce_scatter_tensor(out, parts.reshape(n, -1), group=group)
+        return out
+    dist.all_reduce(parts, group=group)
+    return parts[dist.get_rank(group)]
+
+
+class _GatherShard(torch.autograd.Function):
+    """All-gather along ``ax`` (tiled); backward: reduce-scatter, what
+    the transpose of the reference's tiled ``all_gather`` is."""
+
+    @staticmethod
+    def forward(ctx, x, ax, group):
+        ctx.ax, ctx.group = ax, group
+        return _tile(_all_gather(x.contiguous(), group), ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = group_size(ctx.group)
+        return (_reduce_scatter(_untile(g, ctx.ax, n), ctx.group), None,
+                None)
+
+
+def gather_shard(leaf: torch.Tensor, ax: int, n_shards: int,
+                 group=None) -> torch.Tensor:
+    """The whole weight from its model shards: a float all-gather of
+    ``leaf`` along ``ax`` over ``group`` (the model group), with
+    autograd (backward: the reduce-scatter of the gradient). One shard:
+    the leaf itself."""
+    if n_shards <= 1:
+        return leaf
+    return _GatherShard.apply(leaf, ax, group)
+
+
+def quantize_shard(leaf: torch.Tensor, k_x: int, absolute: bool, *,
+                   backend: Optional[str] = None):
+    """A shard's int8 wire form: ``(codes int8, scale 0-d float32)`` of
+    ``UniformCodec(k_x, absolute, wire_bits=8)``: the amax scale (K3;
+    0.5 when absolute) and the codes clipped to +/-127 (K4)."""
+    codec = CD.UniformCodec(k_x=k_x, absolute=absolute, wire_bits=8)
+    x32 = leaf.to(torch.float32)
+    scale = codec.compute_scale(x32, backend=backend)
+    codes = codec.quantize(x32, scale, backend=backend).to(torch.int8)
+    return codes, scale
+
+
+class _QuantizedGather(torch.autograd.Function):
+    """The int8 gather and the gradient ``jax.grad`` gives through the
+    reference's ``quantized_gather_shard`` (see there)."""
+
+    @staticmethod
+    def forward(ctx, leaf, ax, n, k_x, absolute, group, backend):
+        codes, scale = quantize_shard(leaf, k_x, absolute, backend=backend)
+        if n <= 1:
+            seg, scales = codes.reshape((1,) + codes.shape), scale.reshape(1)
+        else:
+            seg = _all_gather(codes, group)                 # (n, *shard)
+            scales = _all_gather(scale.reshape(()), group)  # (n,)
+        deq = K.uniform_dequantize_rows(seg.reshape(n, -1), scales, k_x,
+                                        backend=backend)    # K12
+        ctx.save_for_backward(leaf, seg, scale)
+        ctx.ax, ctx.n, ctx.k_x, ctx.group = ax, n, k_x, group
+        ctx.absolute = absolute
+        return _tile(deq.reshape(seg.shape), ax).to(leaf.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        leaf, seg, scale = ctx.saved_tensors
+        none = (None,) * 6
+        if ctx.absolute:            # a constant scale: no gradient at all
+            return (torch.zeros_like(leaf),) + none
+        n = ctx.n
+        gs = _untile(g.to(torch.float32), ctx.ax, n).reshape(n, -1)
+        # d out / d scale_i = codes_i / 2^k_x; the codes carry none
+        dscales = torch.sum(gs * (seg.reshape(n, -1).to(torch.float32)
+                                  / float(2 ** ctx.k_x)), dim=1)
+        if n > 1:                   # the scales' all-gather, transposed
+            dist.all_reduce(dscales, group=ctx.group)
+        ds = dscales[worker_index(ctx.group) if n > 1 else 0]
+        # scale = where(amax > 0, amax, 1), amax = max|x|: the gradient
+        # splits evenly over the elements at the max, times their sign
+        x = leaf.to(torch.float32)
+        at = (torch.abs(x) == scale) & (scale > 0)
+        count = torch.clamp_min(at.sum().to(torch.float32), 1.0)
+        dx = torch.where(at, torch.sign(x) * (ds / count),
+                         torch.zeros_like(x))
+        return (dx.to(leaf.dtype),) + none
+
+
+def quantized_gather_shard(leaf: torch.Tensor, ax: int, n_shards: int,
+                           k_x: int, absolute: bool, group=None, *,
+                           backend: Optional[str] = None) -> torch.Tensor:
+    """Int8 weight gather: the local shard quantized with its own scale
+    (:func:`quantize_shard`), the int8 codes and scales all-gathered over
+    the model group, and each segment dequantized with its source's
+    scale (K12). One shard: a local Q_x round trip.
+
+    The gradient is the reference's, what ``jax.grad`` gives through
+    ``codec.quantize``'s rounding: the codes are integers and pass none,
+    so the whole gradient flows through the scales. Shard i's scale
+    takes ``sum(g_i * codes_i) / 2^k_x`` summed over the model group,
+    and, the scale being ``max|x|`` (``where(amax > 0, amax, 1)``), it
+    lands on the elements at the max, split evenly between ties, times
+    their sign; every other element gets 0 (all of them with
+    ``absolute``, whose scale is the constant 0.5)."""
+    return _QuantizedGather.apply(leaf, ax, max(int(n_shards), 1), k_x,
+                                  absolute, group, backend)

@@ -8,6 +8,7 @@ from repro_torch.dist.modes.base import (  # noqa: F401
     ModeSpec,
     WorkerCtx,
     blockwise_exchange,
+    ctx_groups,
     ctx_tiers,
     identity_codec,
     tier_grad_mean,

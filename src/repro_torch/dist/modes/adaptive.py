@@ -28,8 +28,9 @@ from repro_torch.comm import codec as CD
 from repro_torch.dist import collectives as C
 from repro_torch.dist.modes import qadam
 from repro_torch.dist.modes.base import (ModeSpec, WorkerCtx,
-                                         blockwise_exchange, ctx_tiers,
-                                         tier_grad_mean, worker_mean)
+                                         blockwise_exchange, ctx_groups,
+                                         ctx_tiers, tier_grad_mean,
+                                         worker_mean)
 from repro_torch.kernels import adam_ef as AK
 from repro_torch.opt import engine
 
@@ -43,11 +44,12 @@ def leaf_codec(tc, idx: int):
 
 def make_updater(tc, ctx: WorkerCtx):
     tiers = ctx_tiers(ctx)
+    groups = ctx_groups(ctx)
     bk = ctx.backend
 
     def upd(g, m, v, e, chunk, meta, hp, mark=None, draw=None, idx=None):
         codec = leaf_codec(tc, idx)
-        g = tier_grad_mean(g, tiers)
+        g = tier_grad_mean(g, tiers, groups.intra)
         # K15: m', v' over m, v; Delta+e and its folded max |Delta+e|
         _, _, de, amax = AK.adam_moments(g, m, v, e, hp, backend=bk,
                                          out=(m, v))
@@ -67,7 +69,7 @@ def make_updater(tc, ctx: WorkerCtx):
                                            backend=bk, out=e)
             # all_to_all, the source scales, K6
             recv = C.exchange_decode_tiered(payload, scale, codec, meta.c,
-                                            tiers, ctx.group, backend=bk)
+                                            tiers, groups, backend=bk)
         del de
         if not tc.error_feedback:
             e.zero_()

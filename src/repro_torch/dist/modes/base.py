@@ -40,14 +40,16 @@ from repro_torch.opt import engine, grids
 
 @dataclasses.dataclass(frozen=True)
 class WorkerCtx:
-    """Worker geometry of one train step: the process group (the
-    reference's worker axes), the worker count, the kernels' backend
-    (None: by device) and the resolved tiers."""
+    """Worker geometry of one train step: the worker group (the
+    reference's worker axes; this worker's rank in it is its index), the
+    worker count, the kernels' backend (None: by device), the resolved
+    tiers and their process groups (None: flat, over ``group``)."""
 
     group: Any
     n_workers: int
     backend: Optional[str] = None
     tiers: Optional[Tiers] = None
+    groups: Optional[C.TierGroups] = None
 
 
 def ctx_tiers(ctx: WorkerCtx) -> Tiers:
@@ -55,6 +57,16 @@ def ctx_tiers(ctx: WorkerCtx) -> Tiers:
     if ctx.tiers is not None:
         return ctx.tiers
     return flat_tiers(("data",), (ctx.n_workers,))
+
+
+def ctx_groups(ctx: WorkerCtx) -> C.TierGroups:
+    """The context's tier groups: flat tiers span the worker group."""
+    if ctx.groups is not None:
+        return ctx.groups
+    if ctx.tiers is not None and ctx.tiers.hierarchical:
+        raise ValueError("hierarchical tiers need their process groups "
+                         "(WorkerCtx.groups)")
+    return C.TierGroups(inter=ctx.group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,9 +82,10 @@ class ModeSpec:
     elements, ``dp_adam``) instead of the whole leaf. ``extra_state``
     adds chunk-sized state leaves; ``broadcast_ef`` turns on server-side
     error feedback on the weight-broadcast channel (``efadam``).
-    ``tiered``: the updater understands hierarchical topologies (not
-    ported; ``dp_adam`` opts out, its all-reduce being one reduction on
-    any topology).
+    ``tiered``: the updater understands hierarchical topologies (an
+    intra float32 pre-reduce, the exchange over the inter tier);
+    ``dp_adam`` opts out, its all-reduce being one reduction over every
+    worker on any topology, and keeps its wire on the inter tier.
 
     ``per_leaf`` (the adaptive mode) maps ``(tc, leaf_idx) -> codec`` so
     different leaves ride different lanes; ``leaf_codec`` and
@@ -106,14 +119,18 @@ class ModeSpec:
 
     def leaf_tier_nbytes(self, tc, idx: int, c: int, numel: int,
                          n_workers: int, tiers: Optional[Tiers]) -> dict:
-        """Per-worker update-path bytes by link tier; a flat topology (or
-        a mode that is not ``tiered``) has everything on the inter
-        tier."""
-        if self.tiered and tiers is not None and tiers.intra_axes:
-            raise NotImplementedError(
-                "hierarchical tiers are not ported yet (ROADMAP.md queue 1)")
-        return {"inter": self.leaf_wire_nbytes(tc, idx, c, n_workers),
-                "intra": 0}
+        """Per-worker update-path bytes by link tier: ``inter`` the
+        all-to-all'd payload (packed codes), ``intra`` the float32 rows
+        the hierarchical pre-reduce gathers (``tier_grad_mean``:
+        ``n_intra`` rows of the shard). A flat topology (or a mode that
+        is not ``tiered``) has everything on the inter tier, exactly
+        ``leaf_wire_nbytes``."""
+        if not self.tiered or tiers is None or not tiers.intra_axes:
+            return {"inter": self.leaf_wire_nbytes(tc, idx, c, n_workers),
+                    "intra": 0}
+        codec = self.leaf_codec(tc, idx)
+        return {"inter": tiers.n_inter * codec.payload_nbytes(c),
+                "intra": tiers.n_intra * numel * 4}
 
 
 def worker_mean(rows: torch.Tensor) -> torch.Tensor:
@@ -138,18 +155,19 @@ def identity_codec(grad_k=None):
     return CD.IdentityCodec()
 
 
-def _flat_only(tiers: Optional[Tiers]) -> None:
-    if tiers is not None and tiers.intra_axes:
-        raise NotImplementedError(
-            "hierarchical tiers are not ported yet (ROADMAP.md queue 1)")
-
-
-def tier_grad_mean(g: torch.Tensor, tiers: Optional[Tiers]) -> torch.Tensor:
-    """The hierarchical pre-reduce of the reference (a tree mean of the
-    gradient over the intra tier): the identity on flat tiers;
-    hierarchical tiers are not ported."""
-    _flat_only(tiers)
-    return g
+def tier_grad_mean(g: torch.Tensor, tiers: Optional[Tiers],
+                   group=None) -> torch.Tensor:
+    """The hierarchical pre-reduce: this leaf's flat gradient all-gathered
+    over the intra group (``group``, the fast tier) and tree-averaged by
+    :func:`worker_mean`, so every device of a node goes on with bitwise
+    the same node-mean gradient (its moments, residuals and codes then
+    agree, and the exchange ships one row a node). The pairwise tree
+    fixes the summation order (exact for identical rows at a power-of-two
+    node width), where an all-reduce would leave it to the library. The
+    identity on flat tiers."""
+    if tiers is None or not tiers.intra_axes:
+        return g
+    return worker_mean(C.gather_rows(g, group))
 
 
 def blockwise_exchange(de: torch.Tensor, codec, meta, ctx: WorkerCtx,
@@ -161,9 +179,13 @@ def blockwise_exchange(de: torch.Tensor, codec, meta, ctx: WorkerCtx,
     worker-ownership rows (#9) and all-to-all'd, unpacked (#9), the (nb,) scales all-gathered
     (a side channel), and each source's codes for MY chunk rescaled by
     that source's scale columns for my chunk: elements [w*c, (w+1)*c) of
-    its block-repeated scales. Chunks need not align to blocks. Returns
-    ``(recv_rows (n_workers, c), e2)``."""
-    _flat_only(tiers if tiers is not None else ctx_tiers(ctx))
+    its block-repeated scales (w the flat worker index: chunk ownership
+    does not depend on the topology). Chunks need not align to blocks.
+    The all-to-all and the scale gather run over the exchange (inter)
+    tier. Returns ``(recv_rows (n_src, c), e2)``, ``n_src = n_inter``
+    (``n_workers`` when flat)."""
+    tiers = tiers if tiers is not None else ctx_tiers(ctx)
+    groups = ctx_groups(ctx)
     n = de.numel()
     block = codec.block
     codes2d, scale_b = engine.quantize_blockwise(de, block,
@@ -172,9 +194,9 @@ def blockwise_exchange(de: torch.Tensor, codec, meta, ctx: WorkerCtx,
     payload = K.pack_rows(B.pad_rows(codes2d.reshape(-1)[:n], ctx.n_workers),
                           codec.bits, backend=ctx.backend)     # #9
     del codes2d
-    codes_rows = K.unpack_rows(C.exchange_rows(payload, ctx.group),
+    codes_rows = K.unpack_rows(C.exchange_rows_tiered(payload, tiers, groups),
                                codec.bits, meta.c, backend=ctx.backend)
-    scales = C.gather_side(scale_b, ctx.group)             # (W, nb)
+    scales = C.gather_side(scale_b, groups.inter)          # (n_src, nb)
     W, nb = scales.shape
     c = meta.c
     w = C.worker_index(ctx.group)

@@ -13,8 +13,9 @@ import torch
 
 from repro_torch.comm import codec as CD
 from repro_torch.dist.modes.base import (ModeSpec, WorkerCtx,
-                                         blockwise_exchange, ctx_tiers,
-                                         tier_grad_mean, worker_mean)
+                                         blockwise_exchange, ctx_groups,
+                                         ctx_tiers, tier_grad_mean,
+                                         worker_mean)
 
 BLOCK = 256
 
@@ -26,9 +27,10 @@ def wire_codec(grad_k=None):
 def make_updater(tc, ctx: WorkerCtx):
     codec = wire_codec()
     tiers = ctx_tiers(ctx)
+    groups = ctx_groups(ctx)
 
     def upd(g, m, v, e, chunk, meta, hp, mark=None, draw=None, idx=None):
-        g = tier_grad_mean(g, tiers)
+        g = tier_grad_mean(g, tiers, groups.intra)
         m.mul_(hp[1]).add_(g)                  # m' = beta * m + g
         de = torch.mul(m, hp[0]).add_(e)       # alpha_t * m' + e
         recv, e2 = blockwise_exchange(de, codec, meta, ctx, tiers)

@@ -6,7 +6,8 @@ from __future__ import annotations
 from repro_torch.comm import codec as CD
 from repro_torch.dist import collectives as C
 from repro_torch.dist import sharding as SH
-from repro_torch.dist.modes.base import (ModeSpec, WorkerCtx, ctx_tiers,
+from repro_torch.dist.modes.base import (ModeSpec, WorkerCtx, ctx_groups,
+                                         ctx_tiers, tier_grad_mean,
                                          worker_mean)
 from repro_torch.opt import engine
 
@@ -22,15 +23,19 @@ def wire_codec(grad_k=None):
 def make_updater(tc, ctx: WorkerCtx):
     codec = wire_codec(tc.grad_k)
     tiers = ctx_tiers(ctx)
+    groups = ctx_groups(ctx)
     bk = ctx.backend
 
     def upd(g, m, v, e, chunk, meta, hp, mark=None, draw=None, idx=None):
+        # hierarchical: the node-mean float32 gradient first; the
+        # exchange then ships one row a node over the slow tier
+        g = tier_grad_mean(g, tiers, groups.intra)
         # K15: m', v' over m, v; Delta+e; the scale from its on-device
         # max|Delta+e| fold (bitwise grids.amax_scale(Delta+e))
         de, scale = engine.adam_ef_delta(g, m, v, e, hp, backend=bk)
         if tc.grad_k is None:
-            recv = C.exchange_rows(SH.flatten_pad(de, ctx.n_workers),
-                                   ctx.group)
+            recv = C.exchange_rows_tiered(
+                SH.flatten_pad(de, ctx.n_workers), tiers, groups)
             e.zero_()
         else:
             # K7: codes to payload rows, e' over e
@@ -41,7 +46,7 @@ def make_updater(tc, ctx: WorkerCtx):
             del de
             # all_to_all, the source scales, K6
             recv = C.exchange_decode_tiered(payload, scale, codec, meta.c,
-                                            tiers, ctx.group, backend=bk)
+                                            tiers, groups, backend=bk)
         mean = worker_mean(recv)
         if mark:
             mark("update_exchange")

@@ -6,8 +6,9 @@ from __future__ import annotations
 
 from repro_torch.comm import codec as CD
 from repro_torch.dist import collectives as C
-from repro_torch.dist.modes.base import (ModeSpec, WorkerCtx, ctx_tiers,
-                                         tier_grad_mean, worker_mean)
+from repro_torch.dist.modes.base import (ModeSpec, WorkerCtx, ctx_groups,
+                                         ctx_tiers, tier_grad_mean,
+                                         worker_mean)
 
 
 def wire_codec(grad_k=None):
@@ -17,16 +18,17 @@ def wire_codec(grad_k=None):
 def make_updater(tc, ctx: WorkerCtx):
     codec = wire_codec()
     tiers = ctx_tiers(ctx)
+    groups = ctx_groups(ctx)
     bk = ctx.backend
 
     def upd(g, m, v, e, chunk, meta, hp, mark=None, draw=None, idx=None):
-        g = tier_grad_mean(g, tiers)
+        g = tier_grad_mean(g, tiers, groups.intra)
         # the uniforms of this (step, leaf, worker), read by #5 at g's
         # flat index
         payload, scale = CD.encode_rows(g, codec, ctx.n_workers,
                                         u=draw(g.numel()), backend=bk)
         recv = C.exchange_decode_tiered(payload, scale, codec, meta.c,
-                                        tiers, ctx.group, backend=bk)
+                                        tiers, groups, backend=bk)
         step = hp[0] * worker_mean(recv)
         del payload, recv
         if mark:

@@ -1,9 +1,11 @@
 """Distributed QAdam-EF train step (Algorithms 2+3; port of
-``repro/dist/step.py``): a quantized parameter server over the ranks of
-a ``torch.distributed`` process group, one model shard, for the paper's
+``repro/dist/step.py``): a quantized parameter server over the worker
+ranks of a ``launch.mesh.Grid`` (or of a plain process group: one model
+shard), context parallelism over its model axis, for the paper's
 ``qadam`` mode, the baselines (``dp_adam``, ``efadam``, ``terngrad``,
 ``ef_sgd``) and the ``adaptive`` mode's per-leaf wire plans
-(``repro_torch.dist.modes``).
+(``repro_torch.dist.modes``), on the flat or a hierarchical topology
+(``repro_torch.dist.topology``).
 
 One step on each rank (worker):
 
@@ -14,8 +16,11 @@ One step on each rank (worker):
      (``efadam``) send ``Q_x(chunk + es)`` and keep K7's residual as
      the next ``es``;
   2. forward and backward at Q_x(x_t) (Assumption 3) through
-     ``Model.loss``: each worker gets the gradient of its own mean loss
-     (``dp_adam``: of its loss sum over the global token count);
+     ``Model.loss``, the sequence split over the model axis and the
+     weights gathered layer by layer from their model shards (float32,
+     or int8 with ``model_gather_quant``): each worker gets the gradient
+     of its own mean loss (``dp_adam``: of its loss sum over the global
+     token count), reduce-scattered onto its shards;
   3. the mode's update (``repro_torch.dist.modes``; the paper's
      ``qadam``: K15 Adam+EF, K7 log codes to payload rows; stochastic
      codecs draw their uniforms from :func:`draw_uniform`);
@@ -23,29 +28,31 @@ One step on each rank (worker):
      every worker's codes for this server's chunk with that worker's
      scale, and ``chunk - worker_mean(rows)`` into the master chunk;
 
-and the global loss as sum(s) / sum(n) over workers, one ``all_reduce``
-of a 2-vector on the device. Modes with ``emits_stats`` (``adaptive``)
-also return ``gstats``: one ``adapt.stats`` row per leaf, stacked in
-the reference's leaf order and reduced over the workers (two
-``all_reduce``s), on the device. No step reads the device on the host: the
+and the global loss as sum(s) / sum(n) over every rank, one
+``all_reduce`` of a 2-vector on the device. Modes with ``emits_stats``
+(``adaptive``) also return ``gstats``: one ``adapt.stats`` row per
+leaf, stacked in the reference's leaf order and reduced over every rank
+(two ``all_reduce``s), on the device. No step reads the device on the host: the
 step count, alpha_t and theta_t live on the host.
 
 State per rank (the reference's chunked layout, this rank's slice, each
-leaf flat): ``master`` this worker's float32 chunk (c elements) of every
-leaf, ``m``, ``v``, ``e`` its moments and EF residual over the whole
-leaf (over its chunk where the mode's ``chunk_sharded_moments``), the
-mode's ``extra_state`` leaves (chunk-sized: ``efadam``'s ``es``), and the
-host step ``count``. The step updates them in place (the reference
-donates these buffers).
+leaf flat): ``master`` this worker's float32 chunk (c elements) of its
+model shard of every leaf, ``m``, ``v``, ``e`` its moments and EF
+residual over the whole shard (over its chunk where the mode's
+``chunk_sharded_moments``), the mode's ``extra_state`` leaves
+(chunk-sized: ``efadam``'s ``es``), and the host step ``count``. The
+step updates them in place (the reference donates these buffers).
 
-Batches: the global batch's rows are split over the workers when the
-batch divides by their number (worker w takes rows [w*B/W, (w+1)*B/W)),
-else every worker takes the whole batch, as ``_batch_geometry``.
+Batches (``_batch_geometry``): the global batch's rows are split over
+the workers when the batch divides by their number (worker w takes rows
+[w*B/W, (w+1)*B/W)), else every worker takes the whole batch; the
+sequence is split over the model shards when it divides by their number
+(shard m takes positions [m*S/Nm, (m+1)*S/Nm)), else every shard takes
+all of it.
 
-Out of scope (raise ``NotImplementedError``, ROADMAP.md queue 1):
-``HierarchicalTopology``, a model axis and ``model_gather_quant``. The reference's exchange buckets are XLA
-scheduling fences that change no number; the overlap of the exchange
-with the backward they allow is queued in ROADMAP.md.
+The reference's exchange buckets are XLA scheduling fences that change
+no number; the overlap of the exchange with the backward they allow is
+queued in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -54,7 +61,6 @@ import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.adapt import stats as astats
 from repro_torch.comm import codec as CD
@@ -64,6 +70,8 @@ from repro_torch.dist import collectives as C
 from repro_torch.dist import sharding as SH
 from repro_torch.dist import topology as T
 from repro_torch.dist.modes import WorkerCtx, get_mode
+from repro_torch.launch.mesh import Grid
+from repro_torch.models import layers as L
 from repro_torch.opt import engine, grids
 from repro_torch.tree import (sorted_leaf_index, tree_leaves, tree_map,
                               tree_unflatten)
@@ -82,8 +90,11 @@ class TrainConfig:
     weight_q_min_numel: int = 2 ** 14   # small leaves skip Q_x (norms)
     error_feedback: bool = True
     mode: str = "qadam"
-    topology: T.Topology = T.FlatTopology()      # only flat is ported
-    model_gather_quant: Optional[int] = None     # not ported
+    # link tiers: FlatTopology, or HierarchicalTopology(nodes, d) with a
+    # float32 intra-node reduce and the exchange across nodes only
+    topology: T.Topology = T.FlatTopology()
+    # int8 gather of the model shards at this k_x (None: float32)
+    model_gather_quant: Optional[int] = None
     seed: int = 0                       # the stochastic codecs' draws
     # adaptive mode: one codec spec per leaf, in the reference's leaf
     # order (keys sorted); None = every leaf on log:grad_k
@@ -95,22 +106,32 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LeafMeta:
-    """Per-leaf wire geometry: the leaf's ``shape`` (one model shard is
-    the whole leaf), its element count ``numel`` and the per-worker chunk
-    length ``c``."""
+    """Per-leaf wire geometry: ``shape`` the local model shard's shape,
+    ``numel`` its element count, ``c`` the per-worker chunk length;
+    ``dim`` and ``stacked`` the leaf's shard dim (``sharding``) and
+    ``full_shape`` the whole leaf's shape."""
 
     shape: Tuple[int, ...]
     c: int
     numel: int
+    dim: int
+    stacked: bool
+    full_shape: Tuple[int, ...]
+
+    @property
+    def full_numel(self) -> int:
+        return math.prod(self.full_shape)
 
 
 def _leaf_meta(layout: SH.Layout, n_workers: int):
     """Tree of LeafMeta mirroring the parameter tree."""
-    def one(shape):
-        n = math.prod(shape)
-        return LeafMeta(shape=tuple(shape), c=SH.chunk_size(n, n_workers),
-                        numel=n)
-    return tree_map(one, layout.shapes)
+    def one(shape, dim, stacked):
+        shp = SH.local_shard_shape(tuple(shape), dim, stacked,
+                                   layout.n_shards)
+        n = math.prod(shp)
+        return LeafMeta(shape=shp, c=SH.chunk_size(n, n_workers), numel=n,
+                        dim=dim, stacked=stacked, full_shape=tuple(shape))
+    return tree_map(one, layout.shapes, layout.dims, layout.stacked)
 
 
 class StepArtifacts(NamedTuple):
@@ -136,13 +157,16 @@ class StepArtifacts(NamedTuple):
     # prepare(device): make the device tables the exchange's codecs read,
     # outside any CUDA graph capture (a session calls it at a plan swap)
     prepare: Optional[Callable] = None
+    # the process grid (launch.mesh.Grid): its model axis and the group
+    # over every rank
+    grid: Any = None
 
 
 def weight_wire_codec(tc: TrainConfig, numel: int):
     """The weight-broadcast channel's codec for a leaf of ``numel``
-    elements, the one source of what moves on channel 2
-    (``comm_bytes_per_step`` reads it too). Small or unquantized leaves
-    ride float32 (identity)."""
+    elements (the whole leaf's, over every model shard), the one source
+    of what moves on channel 2 (``comm_bytes_per_step`` reads it too).
+    Small or unquantized leaves ride float32 (identity)."""
     if tc.weight_k is None or numel < tc.weight_q_min_numel:
         return CD.IdentityCodec()
     return CD.uniform_wire_codec(tc.weight_k, tc.weight_absolute)
@@ -150,10 +174,10 @@ def weight_wire_codec(tc: TrainConfig, numel: int):
 
 def local_batch(batch: Dict[str, torch.Tensor], rank: int,
                 n_workers: int) -> Dict[str, torch.Tensor]:
-    """This worker's rows of the global batch (``_batch_geometry``): a
-    slice of B / W rows when B divides by W, else the whole batch. B is
-    read from ``tokens``, or from ``embeds`` for an embedding-input
-    model."""
+    """This worker's rows of the global batch (``_batch_geometry``'s
+    worker half): a slice of B / W rows when B divides by W, else the
+    whole batch. B is read from ``tokens``, or from ``embeds`` for an
+    embedding-input model."""
     B = batch["tokens" if "tokens" in batch else "embeds"].shape[0]
     if B % n_workers or n_workers == 1:
         return batch
@@ -161,27 +185,93 @@ def local_batch(batch: Dict[str, torch.Tensor], rank: int,
     return {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
 
 
-def _check_supported(tc: TrainConfig) -> None:
-    if not isinstance(tc.topology, T.FlatTopology):
-        raise NotImplementedError(
-            f"{type(tc.topology).__name__} is not ported yet (ROADMAP.md "
-            "queue 1); the port runs the flat topology")
-    if tc.model_gather_quant is not None:
-        raise NotImplementedError(
-            "model_gather_quant (a quantized gather over a model axis) is "
-            "not ported yet (ROADMAP.md queue 1)")
+def _batch_geometry(batch: Dict[str, torch.Tensor], n_shards: int) -> bool:
+    """Whether the sequence splits over the model axis (context
+    parallelism): more than one shard, and S divides by their number."""
+    S = batch["tokens" if "tokens" in batch else "embeds"].shape[1]
+    return n_shards > 1 and S % n_shards == 0
 
 
-def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
-    """The distributed step of ``tc.mode`` over the ranks of ``group``
-    (``repro_torch.launch.mesh.make_process_group``): ``init_state`` and
-    ``step_fn(state, batch) -> (state, {"loss"})``."""
+def shard_batch(batch: Dict[str, torch.Tensor], rank: int, n_workers: int,
+                index: int = 0, n_shards: int = 1
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's part of the global batch: its worker's rows
+    (:func:`local_batch`) and, where the sequence splits over the model
+    axis, model shard ``index``'s positions of every entry with a
+    sequence dim."""
+    mine = local_batch(batch, rank, n_workers)
+    if not _batch_geometry(mine, n_shards):
+        return mine
+    S = mine["tokens" if "tokens" in mine else "embeds"].shape[1]
+    s = S // n_shards
+    return {k: v[:, index * s:(index + 1) * s] if v.dim() >= 2 else v
+            for k, v in mine.items()}
+
+
+def _make_param_gather(layout: SH.Layout, n_shards: int, group,
+                       expert_local: bool, quant_k: Optional[int],
+                       quant_absolute: bool = False,
+                       quant_min_numel: int = 0,
+                       backend: Optional[str] = None):
+    """The forward's parameter hook ``gather(subtree, kind)``
+    (``models.layers.ShardCtx``): the whole weights from their model
+    shards, float32 (``collectives.gather_shard``) or int8 at k_x =
+    ``quant_k`` for leaves of at least ``quant_min_numel`` elements
+    (``quantized_gather_shard``); expert tensors stay local when
+    ``expert_local``. ``kind`` "static" gathers the leaves outside the
+    layer stack (the stacked ones are gathered a layer at a time inside
+    the loop, kind "blocks")."""
+    dims = SH.dims_by_path(layout)
+
+    def gather_leaf(dim: int, stacked: bool, leaf):
+        if dim == SH.REPLICATED:
+            return leaf
+        ax = SH.axis_of(dim, stacked)
+        if dim == SH.EXPERT_MARKER and expert_local:
+            if quant_k is not None and leaf.numel() >= quant_min_numel:
+                # resident experts keep the Q_x wire's semantics
+                return C.quantized_gather_shard(leaf, ax, 1, quant_k,
+                                                quant_absolute,
+                                                backend=backend)
+            return leaf
+        if quant_k is not None and leaf.numel() * n_shards >= \
+                quant_min_numel:
+            return C.quantized_gather_shard(leaf, ax, n_shards, quant_k,
+                                            quant_absolute, group,
+                                            backend=backend)
+        return C.gather_shard(leaf, ax, n_shards, group)
+
+    def walk(tree, path, kind):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,), kind) for k, v in tree.items()}
+        if kind == "static":
+            if path and path[0] in SH._STACKED_KEYS:
+                return tree          # a layer at a time inside the loop
+            return gather_leaf(dims[path][0], dims[path][1], tree)
+        return gather_leaf(dims[(kind,) + path][0], False, tree)
+
+    def gather(subtree, kind: str):
+        if n_shards <= 1 and quant_k is None:
+            return subtree
+        return walk(subtree, (), kind)
+
+    return gather
+
+
+def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
+    """The distributed step of ``tc.mode`` over ``grid``, a
+    ``launch.mesh.Grid`` (``make_grid``: workers over its pod and data
+    axes, model shards over its model axis) or a plain process group
+    (``make_process_group``: its ranks the workers, one model shard):
+    ``init_state`` and ``step_fn(state, batch) -> (state, {"loss"})``."""
     mode = get_mode(tc.mode)      # raises for the modes not ported
-    _check_supported(tc)
-    n_workers = dist.get_world_size(group)
-    rank = dist.get_rank(group)
+    if not isinstance(grid, Grid):
+        grid = Grid.of_group(grid)
+    group = grid.workers
+    n_workers, rank = grid.n_workers, grid.worker_index
+    n_shards, shard = grid.n_shards, grid.model_index
     shapes = model.init(torch.Generator(), device="meta")
-    layout = SH.build_layout(shapes)
+    layout = SH.build_layout(shapes, n_shards)
     metas_flat = tree_leaves(_leaf_meta(layout, n_workers))
     if tc.bit_plan is not None and len(tc.bit_plan) != len(metas_flat):
         raise ValueError(
@@ -192,10 +282,25 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
     draw_index = sorted_leaf_index(layout.shapes)
     qcfg = QAdamConfig(alpha=tc.alpha, beta=tc.beta, theta=tc.theta,
                        eps=tc.eps, schedule=tc.schedule)
-    tiers = tc.topology.tiers(("data",), (n_workers,))
+    topo = tc.topology if tc.topology is not None else T.FlatTopology()
+    # a mode that is not tiered (dp_adam) runs flat collectives on any
+    # topology: its tiers resolve flat, for the updater and the accounting
+    tiers = topo.tiers(grid.worker_axes, grid.wsizes) if mode.tiered \
+        else T.flat_tiers(grid.worker_axes, grid.wsizes)
+    groups = C.TierGroups(
+        inter=grid.group(tiers.inter_axes),
+        intra=grid.group(tiers.intra_axes) if tiers.hierarchical else None)
+    # the stochastic codecs' draws are keyed by the inter-tier worker
+    # index: a node's devices draw the same codes for their node mean
+    draw_worker = grid.index_over(tiers.inter_axes)
     updater = mode.make_updater(tc, WorkerCtx(
         group=group, n_workers=n_workers, backend=tc.backend,
-        tiers=tiers))
+        tiers=tiers, groups=groups))
+    gather = _make_param_gather(
+        layout, n_shards, grid.model, expert_local=n_shards > 1,
+        quant_k=tc.model_gather_quant, quant_absolute=False,
+        quant_min_numel=2 ** 14, backend=tc.backend)
+    replicated = [m.dim == SH.REPLICATED for m in metas_flat]
 
     def flat(tree):
         """A state tree's leaves in the layout's order."""
@@ -227,10 +332,12 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
         leaves = tree_leaves(model.init(seed=seed, device=device))
         master = []
         for i, meta in enumerate(metas_flat):
-            p = leaves[i].to(torch.float32)
+            p = SH.shard_of(leaves[i].to(torch.float32), meta.dim,
+                            meta.stacked, n_shards, shard)
             leaves[i] = None
             row = SH.flatten_pad(p, n_workers)[rank]
-            master.append(row if n_workers == 1 else row.clone())
+            master.append(row if n_workers == 1 and n_shards == 1
+                          else row.clone())
             del p, row
 
         def zeros(length):
@@ -249,9 +356,9 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
         Q_x(chunk + es), its scale from chunk + es, and writes K7's
         residual over ``es``; identity leaves send the chunk and keep
         ``es``."""
-        codec = weight_wire_codec(tc, meta.numel)
+        codec = weight_wire_codec(tc, meta.full_numel)
         if isinstance(codec, CD.IdentityCodec):
-            rows = C.gather_rows_tiered(chunk, tiers, group)
+            rows = C.gather_rows_tiered(chunk, tiers, groups)
             return SH.unflatten_chunked(rows, meta.shape)
         send = chunk if es is None else chunk + es
         scale = codec.compute_scale(send, backend=tc.backend)
@@ -262,7 +369,7 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
         out = torch.empty(meta.shape, dtype=torch.float32,
                           device=chunk.device)
         return C.broadcast_decode_tiered(payload[0], scale, codec, meta.c,
-                                         tiers, group, backend=tc.backend,
+                                         tiers, groups, backend=tc.backend,
                                          out=out)
 
     # ---------------- the step ----------------
@@ -277,23 +384,37 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
                 zip(chunks, metas_flat, flat(state["es"]))]
 
     def loss_and_grads(xs, batch):
-        """2. forward/backward at Q_x(x_t) on this worker's rows: the
-        gradients of its mean loss, and the global loss sum(s) / sum(n)
-        over workers (a 0-d tensor on the device)."""
+        """2. forward/backward at Q_x(x_t) on this rank's part of the
+        batch: the gradients of its worker's mean loss on its model
+        shards, and the global loss sum(s) / sum(n) over every rank (a
+        0-d tensor on the device)."""
         xs = [x.detach().requires_grad_() for x in xs]
-        mine = local_batch(batch, rank, n_workers)
+        cp = _batch_geometry(batch, n_shards)
+        mine = shard_batch(batch, rank, n_workers, shard, n_shards)
+        ctx = L.ShardCtx(cp_group=grid.model if cp else None,
+                         cp_size=n_shards if cp else 1, cp_rank=shard,
+                         param_gather=gather)
         with torch.enable_grad():
-            s, n = model.loss(unflat(xs), mine)
+            s, n = model.loss(unflat(xs), mine, ctx)
             den = n
             if tc.mode == "dp_adam":
                 # local sum / GLOBAL count: the reduced gradient is the
                 # global mean's
-                den = n.detach().clone()
-                dist.all_reduce(den, group=group)
+                den = C.all_reduce(n.detach().clone(), grid.world)
+            elif n_shards > 1:
+                # the worker's count over its model shards; the gathers'
+                # reduce-scatter sums the shards' gradients
+                den = C.all_reduce(n.detach().clone(), grid.model)
             grads = list(torch.autograd.grad(s / den, xs,
                                              allow_unused=True))
+        if n_shards > 1:
+            # whole leaves take no gather: their gradient misses the
+            # reduce-scatter's sum over the model shards
+            for i, g in enumerate(grads):
+                if replicated[i] and g is not None:
+                    C.all_reduce(g, grid.model)
         sn = torch.stack([s.detach(), n.detach().to(torch.float32)])
-        dist.all_reduce(sn, group=group)
+        C.all_reduce(sn, grid.world)
         return sn[0] / sn[1], grads
 
     def update(state, grads, mark: Optional[Callable] = None, hp=None):
@@ -322,7 +443,7 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
                  if g is None else g.reshape(-1).to(torch.float32))
 
             def draw(n, i=draw_index[i]):   # looked up at call time
-                return draw_uniform(tc.seed, t, i, rank, n, dev)
+                return draw_uniform(tc.seed, t, i, draw_worker, n, dev)
             out = updater(g, ms[i], vs[i], es[i], masters[i], meta, hp,
                           mark=mark, draw=draw, idx=draw_index[i])
             if rows is not None:
@@ -345,11 +466,13 @@ def make_train_step(model, group, tc: TrainConfig) -> StepArtifacts:
         state, rows = update_stats(state, grads, mark, hp)
         metrics = {"loss": loss}
         if rows is not None:
-            metrics["gstats"] = astats.reduce_stats(rows, group, n_workers)
+            metrics["gstats"] = astats.reduce_stats(
+                rows, grid.world, n_workers * n_shards)
         return state, metrics
 
     return StepArtifacts(init_state=init_state, step_fn=step_fn,
                          layout=layout, n_workers=n_workers, rank=rank,
                          group=group, config=tc, tiers=tiers,
                          broadcast=broadcast, loss_and_grads=loss_and_grads,
-                         update=update, hp_row=hp_row, prepare=prepare)
+                         update=update, hp_row=hp_row, prepare=prepare,
+                         grid=grid)

@@ -55,9 +55,27 @@ the plan and the stats EMA with the state, e.g.
   python -m repro_torch.launch.train --arch yi-6b --smoke --device cpu \
       --adaptive --replan-every 2 --steps 6 --adapt-verify --log-every 0
 
-Hierarchical topologies, a model axis, bucket tuning and AOT artifacts
-are not ported yet (ROADMAP.md queue 1): their flags raise
-``NotImplementedError``.
+The ranks form a ``(pod, data, model)`` grid (``launch.mesh.make_grid``,
+row-major as the reference's mesh): ``--model N`` splits the sequence
+and every weight over N model shards (the forward gathers each layer's
+weights, float32 or int8 with ``--model-gather-quant 8``), and
+``--topology NxD`` (which implies ``--pod N --data D``) runs the
+hierarchical wire, a float32 reduce inside each node of D cards and the
+quantized exchange across the N nodes, e.g. on four cards
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch yi-6b \
+      --topology 2x2 --steps 5
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch yi-6b \
+      --data 2 --model 2 --model-gather-quant 8 --steps 5
+
+``--layers N`` cuts the configuration's depth at full width.
+
+Bucket tuning and AOT artifacts are not ported (ROADMAP.md queue 1):
+``--tune-buckets`` and ``--aot-dir`` raise ``NotImplementedError``. The
+reference's multi-host flags are known and refused by name: the port
+runs one process per card under ``torchrun``, which sets the process
+group from its environment, where the reference runs one process per
+host.
 """
 from __future__ import annotations
 
@@ -66,8 +84,11 @@ import json
 
 # flags of the reference that the port does not run yet, with the value
 # that leaves them off
-NOT_PORTED = {"model": 1, "pod": 0, "topology": None, "model_gather_quant": 0,
-              "tune_buckets": False, "aot_dir": None}
+NOT_PORTED = {"tune_buckets": False, "aot_dir": None}
+# the reference's jax.distributed flags (one process per host), with the
+# value that leaves them off
+MULTIHOST = {"multihost": False, "coordinator": None, "num_processes": None,
+             "process_id": None}
 
 
 def parse_args(argv=None):
@@ -125,13 +146,27 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--history-out", default=None)
     ap.add_argument("--device", default="cuda")
-    # not ported yet (ROADMAP.md queue 1)
-    ap.add_argument("--model", type=int, default=1)
-    ap.add_argument("--pod", type=int, default=0)
-    ap.add_argument("--topology", default=None)
-    ap.add_argument("--model-gather-quant", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the configuration to this many layers "
+                         "(0: its own depth)")
+    ap.add_argument("--model", type=int, default=1, help="model axis size")
+    ap.add_argument("--pod", type=int, default=0, help="pod axis size")
+    ap.add_argument("--topology", default=None, metavar="SPEC",
+                    help="'flat' (default) or 'NxD' = "
+                         "HierarchicalTopology(nodes=N, devices_per_node=D)"
+                         "; NxD implies --pod N --data D when those are "
+                         "left default")
+    ap.add_argument("--model-gather-quant", type=int, default=0,
+                    help="int8 gather of the model shards at this k_x, "
+                         "0 = float32")
+    # not ported (ROADMAP.md queue 1)
     ap.add_argument("--tune-buckets", action="store_true")
     ap.add_argument("--aot-dir", default=None)
+    # the reference's multi-host flags: refused (see the module docstring)
+    ap.add_argument("--multihost", action="store_true")
+    ap.add_argument("--coordinator", default=None)
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
     args = ap.parse_args(argv)
     if args.resume and not args.ckpt_dir:
         ap.error("--resume requires --ckpt-dir")
@@ -141,6 +176,26 @@ def parse_args(argv=None):
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} is not ported yet (ROADMAP.md "
                 "queue 1)")
+    for name, off in MULTIHOST.items():
+        if getattr(args, name) != off:
+            raise NotImplementedError(
+                f"--{name.replace('_', '-')}: the port runs one process per "
+                "card under torchrun, which sets the process group from its "
+                "environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT); "
+                "the reference's jax.distributed flags name one process "
+                "per host and have no counterpart")
+    from repro_torch.dist import topology as T
+    topo = T.parse_topology(args.topology)
+    if isinstance(topo, T.HierarchicalTopology):
+        n, d = topo.nodes, topo.devices_per_node
+        if args.pod == 0 and args.data in (None, 1):
+            # NxD picks the grid too: pod = node axis, data = intra axis
+            args.pod, args.data = n, d
+        elif max(args.pod, 1) * (args.data or 1) != n * d:
+            ap.error(f"--topology {args.topology} needs {n * d} workers "
+                     f"but --pod/--data give "
+                     f"{max(args.pod, 1) * (args.data or 1)}")
+    args.topology_spec = topo
     return args
 
 
@@ -151,7 +206,7 @@ def _plan_summary(plan) -> str:
     return " ".join(f"{s}x{n}" for s, n in sorted(counts.items()))
 
 
-def _run_adaptive(args, model, group, tc, cfg, lead):
+def _run_adaptive(args, model, grid, tc, cfg, lead):
     """--adaptive: the run through the repro_torch.adapt controller
     (stats ring -> bit allocation -> step swaps at replan boundaries)
     instead of a plain session."""
@@ -172,7 +227,7 @@ def _run_adaptive(args, model, group, tc, cfg, lead):
     acfg = AdaptConfig(budget_ratio=args.adapt_budget,
                        replan_every=args.replan_every,
                        ema_decay=args.adapt_ema)
-    ctl = AdaptiveController(model, group, tc, batches, acfg, sc,
+    ctl = AdaptiveController(model, grid, tc, batches, acfg, sc,
                              seed=args.seed, device=rank_device(args.device),
                              log=say, verify=args.adapt_verify)
     say(f"workers={ctl.art.n_workers} device={args.device}")
@@ -225,14 +280,21 @@ def _run_adaptive(args, model, group, tc, cfg, lead):
 
 
 def main(argv=None):
+    """Run the launcher on ``argv``; returns ``{"art", "comm", "history",
+    "stats", "state"}`` of the session (None for ``--adaptive`` and where
+    nothing was left to do). A process group that exists already (one
+    rank of a caller's) is used and left open; one made here is closed
+    at the end."""
     args = parse_args(argv)
+
+    import dataclasses
 
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import batch_for_model
     from repro_torch.dist.step import TrainConfig, make_train_step
-    from repro_torch.launch.mesh import (close_process_group,
-                                         make_process_group, rank_device)
+    from repro_torch.launch.mesh import (close_process_group, make_grid,
+                                         rank_device)
     from repro_torch.models.model import Model
     from repro_torch.train.loop import comm_bytes_per_step
     from repro_torch.train.session import SessionConfig, TrainSession
@@ -246,26 +308,33 @@ def main(argv=None):
                      weight_absolute=args.weight_absolute,
                      error_feedback=not args.no_ef,
                      mode="adaptive" if args.adaptive else args.mode,
+                     topology=args.topology_spec,
+                     model_gather_quant=args.model_gather_quant or None,
                      seed=args.seed)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = Model(cfg)
-    group = make_process_group(args.device)
+    owned = not torch.distributed.is_initialized()
     try:
-        world = torch.distributed.get_world_size(group)
-        if args.data is not None and args.data != world:
-            raise ValueError(f"--data {args.data} but {world} ranks run")
+        grid = make_grid(pod=args.pod, data=args.data, model=args.model,
+                         device=args.device)
+        lead = grid.rank == 0
         if args.adaptive:
-            _run_adaptive(args, model, group, tc, cfg,
-                          torch.distributed.get_rank(group) == 0)
-            return
-        art = make_train_step(model, group, tc)
-        lead = art.rank == 0
+            _run_adaptive(args, model, grid, tc, cfg, lead)
+            return None
+        art = make_train_step(model, grid, tc)
         comm = comm_bytes_per_step(art, tc)
         if lead:
-            print(f"workers={art.n_workers} device={args.device}")
+            print(f"grid={dict(zip(grid.axes, grid.sizes))} "
+                  f"workers={art.n_workers} device={args.device}")
             print(f"comm/device/step: "
                   f"exchange={comm['update_exchange_bytes'] / 1e6:.2f}MB "
                   f"broadcast={comm['weight_broadcast_bytes'] / 1e6:.2f}MB")
+            if comm["tiers"]["intra"]["total"]:
+                print(f"  per tier: "
+                      f"inter={comm['tiers']['inter']['total'] / 1e6:.2f}MB "
+                      f"intra={comm['tiers']['intra']['total'] / 1e6:.2f}MB")
         batches = batch_for_model(cfg, args.seq, args.global_batch,
                                   seed=args.seed)
         sc = SessionConfig(log_every=args.log_every,
@@ -286,7 +355,7 @@ def main(argv=None):
                 if lead:
                     print(f"nothing to do: checkpoint at step {start} >= "
                           f"--steps {args.steps}")
-                return
+                return None
             sess.run(remaining)
             losses = [h for h in sess.history if "loss" in h]
             if not losses:   # --log-every 0: nothing harvested in the run
@@ -303,8 +372,11 @@ def main(argv=None):
                               indent=1)
             if losses:
                 print("final loss:", losses[-1]["loss"])
+        return {"art": art, "comm": comm, "history": losses,
+                "stats": dict(sess.stats), "state": sess.state}
     finally:
-        close_process_group()
+        if owned:
+            close_process_group()
 
 
 if __name__ == "__main__":

@@ -13,17 +13,53 @@ decode against the cache view); the kernels the serving path runs sit
 behind :func:`pmatmul` (K1) and ``gather_pages_kv`` (K2). Every function
 is differentiable by autograd, including ``pmatmul``'s cast of a float32
 weight to the activation dtype.
+
+Context parallelism (:class:`ShardCtx`): under a sharded context the
+sequence is split over the model group; training attention all-gathers
+K and V along the sequence (its backward reduce-scatters them) and masks
+with global positions.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.quantized import QuantizedLeaf
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """How the forward is sharded: ``cp_group`` the model group the
+    sequence is split over (None: local), ``cp_size`` its number of
+    shards and ``cp_rank`` this rank's, and ``param_gather``, the hook
+    ``gather(subtree, kind)`` that makes whole weights of a parameter
+    subtree (kind "static": the leaves outside the layer stack; "blocks":
+    one layer's), e.g. from model shards (``dist.step``) or from
+    code-resident leaves (``serve.session.make_dequant_gather``). None is
+    the identity."""
+
+    cp_group: Any = None
+    cp_size: int = 1
+    cp_rank: int = 0
+    param_gather: Optional[Callable] = None
+
+    @property
+    def sharded(self) -> bool:
+        return self.cp_group is not None and self.cp_size > 1
+
+    def cp_index(self) -> int:
+        """This shard's place along the sequence (0 unsharded)."""
+        return self.cp_rank if self.sharded else 0
+
+    def gather(self, subtree, kind: str):
+        if self.param_gather is None:
+            return subtree
+        return self.param_gather(subtree, kind)
 
 
 # ---------------------------------------------------------------------------
@@ -101,9 +137,14 @@ def _window_ok(kv_pos, q_pos, window):
     return kv_pos > q_pos - window
 
 
-def attention(q, k, v, *, q_pos, causal=True, window=0, softcap=None):
-    """GQA attention of a training forward. q: (B, S, H, hd);
-    k, v: (B, S, K, hd); q_pos: (S,) positions of queries and keys.
+def attention(q, k, v, *, q_pos, causal=True, window=0, softcap=None,
+              ctx: ShardCtx = ShardCtx()):
+    """GQA attention of a training forward. q: (B, Sq, H, hd) local;
+    k, v: (B, Sq, K, hd) local, sequence-sharded iff ``ctx.sharded``;
+    q_pos: (Sq,) global positions of the local queries. A sharded
+    context all-gathers K and V along the sequence over its model group
+    (``collectives.gather_shard``: the backward reduce-scatters their
+    gradients), so the keys sit at global positions ``0..Skv-1``.
 
     As the reference: the H query heads are grouped (B, S, K, rep, hd)
     against their K/V head, scores are taken in float32 (exact products
@@ -114,13 +155,18 @@ def attention(q, k, v, *, q_pos, causal=True, window=0, softcap=None):
     any Pallas kernel.
     """
     B, Sq, H, hd = q.shape
+    if ctx.sharded:
+        from repro_torch.dist import collectives as C
+        k = C.gather_shard(k, 1, ctx.cp_size, ctx.cp_group)
+        v = C.gather_shard(v, 1, ctx.cp_size, ctx.cp_group)
     K = k.shape[2]
     rep = H // K
     qr = q.reshape(B, Sq, K, rep, hd)
     scores = torch.einsum("bqkrd,bskd->bkrqs", qr.to(torch.float32),
                           k.to(torch.float32)) / math.sqrt(hd)
     scores = apply_softcap(scores, softcap)
-    qp, kp = q_pos[:, None], q_pos[None, :]
+    kv_pos = torch.arange(k.shape[1], device=q_pos.device)
+    qp, kp = q_pos[:, None], kv_pos[None, :]
     mask = _window_ok(kp, qp, window)                          # (Sq, Skv)
     if causal:
         mask = mask & (qp >= kp)

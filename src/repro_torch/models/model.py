@@ -206,27 +206,39 @@ class Model:
         return L.rope(q, q_pos, theta), L.rope(k, q_pos, theta), v
 
     # ---------------- training forward ----------------
-    def _block(self, p, x, q_pos, window, theta, backend=None, kv=None):
-        """One decoder block of the training forward on x (B, S, d);
-        ``kv``, a list, collects the layer's (k, v) (prefill)."""
+    def _block(self, p, x, q_pos, window, theta, backend=None, kv=None,
+               ctx: L.ShardCtx = L.ShardCtx()):
+        """One decoder block of the training forward on x (B, S, d) at
+        global positions ``q_pos``; ``kv``, a list, collects the layer's
+        (k, v) (prefill). The layer's weights pass ``ctx.gather(p,
+        "blocks")`` first, inside the block, so that a checkpointed block
+        gathers them again in the backward instead of keeping them."""
         cfg = self.cfg
         Bn, S, _ = x.shape
+        p = ctx.gather(p, "blocks")
         h = L.apply_norm(x, p["ln1"], cfg)
         pa = p["attn"]
         q, k, v = self._qkv(pa, h, q_pos, theta, backend)
         if kv is not None:
             kv.append((k, v))
         attn = L.attention(q, k, v, q_pos=q_pos, window=window,
-                           softcap=cfg.attn_softcap)
+                           softcap=cfg.attn_softcap, ctx=ctx)
         attn = L.pmatmul(attn.reshape(Bn, S, -1), pa["o"], backend)
         x = x + self._post(attn, p, "ln1_post")
         out = L.mlp(p["mlp"], L.apply_norm(x, p["ln2"], cfg), backend)
         return x + self._post(out, p, "ln2_post")
 
-    def forward(self, params, batch) -> torch.Tensor:
+    def forward(self, params, batch,
+                ctx: L.ShardCtx = L.ShardCtx()) -> torch.Tensor:
         """Training forward of float parameters -> float32 logits
         (B, S, V). batch: {"tokens": (B, S) int}, or {"embeds": (B, S,
         d)} for an embedding-input model.
+
+        ``ctx`` (``layers.ShardCtx``): under context parallelism the batch
+        holds this shard's S positions of the sequence, at global
+        positions ``cp_index * S + arange(S)``; ``ctx.gather(params,
+        "static")`` and, a layer at a time, ``ctx.gather(p, "blocks")``
+        make the whole weights (from model shards in ``dist.step``).
 
         Each block runs under ``torch.utils.checkpoint`` (non-reentrant):
         its activations are recomputed in the backward, the reference's
@@ -236,14 +248,16 @@ class Model:
         activation dtype, as the reference leaves them to XLA."""
         self._check_dense()
         cfg = self.cfg
+        params = ctx.gather(params, "static")
         x = self._embed_in(params, batch, "tokens")
-        q_pos = torch.arange(x.shape[1], device=x.device)
+        S = x.shape[1]
+        q_pos = ctx.cp_index() * S + torch.arange(S, device=x.device)
         per_layer = tree_map(lambda w: torch.unbind(w, 0), params["blocks"])
         for i, (window, theta) in enumerate(zip(cfg.layer_windows(),
                                                 cfg.layer_rope_thetas())):
             p = tree_map(lambda ws: ws[i], per_layer)
-            x = checkpoint(self._block, p, x, q_pos, window, theta,
-                           use_reentrant=False)
+            x = checkpoint(self._block, p, x, q_pos, window, theta, None,
+                           None, ctx, use_reentrant=False)
         x = L.apply_norm(x, params["final_norm"], cfg)
         return self._head(params, x)
 
@@ -258,8 +272,8 @@ class Model:
         no activations are kept for a backward."""
         self._check_dense()
         cfg = self.cfg
-        if gather is not None:
-            params = gather(params, "static")
+        ctx = L.ShardCtx(param_gather=gather)
+        params = ctx.gather(params, "static")
         x = self._embed_in(params, batch, "tokens")
         S = x.shape[1]
         if S > max_seq_local:
@@ -269,10 +283,8 @@ class Model:
         kv = []
         for i, (window, theta) in enumerate(zip(cfg.layer_windows(),
                                                 cfg.layer_rope_thetas())):
-            p = layer_slice(params["blocks"], i)
-            if gather is not None:
-                p = gather(p, "blocks")
-            x = self._block(p, x, q_pos, window, theta, backend, kv)
+            x = self._block(layer_slice(params["blocks"], i), x, q_pos,
+                            window, theta, backend, kv, ctx)
         x = L.apply_norm(x, params["final_norm"], cfg)
         logits = self._head(params, x, backend)
         pad = (0, 0, 0, 0, 0, max_seq_local - S)
@@ -281,11 +293,11 @@ class Model:
                  for j, name in enumerate(("k", "v"))}
         return logits, cache
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, ctx: L.ShardCtx = L.ShardCtx()):
         """(sum of masked next-token NLL, token count), both 0-d float32:
         the caller takes the mean. batch: tokens, targets (B, S) and an
-        optional float mask."""
-        logits = self.forward(params, batch)
+        optional float mask (this shard's positions under ``ctx``)."""
+        logits = self.forward(params, batch, ctx)
         targets = batch["targets"].long()
         mask = batch.get("mask")
         if mask is None:

@@ -39,30 +39,46 @@ def comm_bytes_per_step(art, tc: TrainConfig) -> Dict:
     replan) plus the weight-broadcast codec
     (``dist.step.weight_wire_codec``). The float32 scale side-channels
     (one per leaf and worker; one per 256-block on the blockwise lanes)
-    are excluded. ``art`` needs ``layout``, ``n_workers`` and ``tiers``
-    (flat: every byte on the inter tier)."""
+    are excluded. ``art`` needs ``layout``, ``n_workers`` and ``tiers``.
+
+    ``"tiers"`` splits every figure by link tier: a flat topology has
+    every byte on ``inter``; a hierarchical one moves ``n_inter`` payload
+    rows a leaf across the slow tier (``update_exchange_bytes`` falls by
+    exactly ``1/n_intra``), adds the float32 gradient pre-reduce under
+    ``intra.grad_reduce``, and splits the broadcast's inter-first gather
+    (each chunk crosses the slow tier once a node, then fans out within
+    it). Per model shard: the figures are one rank's."""
     mode = get_mode(tc.mode)
     leaves = tree_leaves(_leaf_meta(art.layout, art.n_workers))
     ref_index = sorted_leaf_index(art.layout.shapes)
     tiers = getattr(art, "tiers", None)
+    hier = mode.tiered and tiers is not None and tiers.hierarchical
     ex_inter = ex_intra = 0
     for i, m in enumerate(leaves):
         d = mode.leaf_tier_nbytes(tc, ref_index[i], m.c, m.numel,
                                   art.n_workers, tiers)
         ex_inter += d["inter"]
         ex_intra += d["intra"]
-    bc_inter = sum(art.n_workers * weight_wire_codec(tc, m.numel)
-                   .payload_nbytes(m.c) for m in leaves)
+    bc_inter = bc_intra = 0
+    for m in leaves:
+        p = weight_wire_codec(tc, m.full_numel).payload_nbytes(m.c)
+        if hier:
+            bc_inter += tiers.n_inter * p
+            bc_intra += tiers.n_intra * tiers.n_inter * p
+        else:
+            bc_inter += art.n_workers * p
+    bcast = bc_inter + bc_intra
     return {"update_exchange_bytes": ex_inter,
-            "weight_broadcast_bytes": bc_inter,
-            "total_bytes": ex_inter + ex_intra + bc_inter,
+            "weight_broadcast_bytes": bcast,
+            "total_bytes": ex_inter + ex_intra + bcast,
             "shard_params": sum(m.numel for m in leaves),
             "tiers": {
                 "inter": {"update_exchange": ex_inter,
                           "weight_broadcast": bc_inter,
                           "total": ex_inter + bc_inter},
-                "intra": {"grad_reduce": ex_intra, "weight_broadcast": 0,
-                          "total": ex_intra},
+                "intra": {"grad_reduce": ex_intra,
+                          "weight_broadcast": bc_intra,
+                          "total": ex_intra + bc_intra},
             }}
 
 

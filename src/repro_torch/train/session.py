@@ -366,12 +366,23 @@ class _SingleProgram:
         pass
 
 
+def _place(art):
+    """Where the artifacts' rank sits: its workers and worker index, its
+    model shards and shard index. A flat and a hierarchical step over
+    the same ranks sit at the same place: the split into tiers leaves
+    chunk ownership and the state layout as they are."""
+    g = art.grid
+    shards = (1, 0) if g is None else (g.n_shards, g.model_index)
+    return (art.n_workers, art.rank) + shards
+
+
 class _DistProgram:
     """Distributed path: wraps ``dist.step.StepArtifacts``. State is one
-    rank's chunked dict (master/m/v/e/count[/es]), on ``device``. Its
-    checkpoint is the reference's global layout: each leaf (W, 1, X), the
-    workers' rows in rank order over one model shard, the count an int32
-    0-d array; rank 0 gathers the rows leaf by leaf and writes."""
+    rank's chunked dict (master/m/v/e/count[/es]), on ``device``: its
+    chunks of its model shard. Its checkpoint is the reference's global
+    layout: each leaf ``worker_sizes + (n_shards, X)``, the rows of every
+    (worker, shard) in the grid's rank order, the count an int32 0-d
+    array; rank 0 gathers the rows leaf by leaf and writes."""
 
     def __init__(self, art, device):
         from repro_torch.dist.modes import get_mode
@@ -412,32 +423,48 @@ class _DistProgram:
         tree["count"] = np.int32(state["count"])
         return tree
 
+    def _geometry(self):
+        """(stored leading shape, ranks in all, this rank's place)."""
+        grid = self.art.grid
+        if grid is None:
+            return (self.art.n_workers, 1), self.art.n_workers, \
+                self.art.rank
+        lead = grid.wsizes + (grid.n_shards,)
+        return lead, grid.n_workers * grid.n_shards, grid.rank
+
     def gather(self, x):
-        """This rank's flat leaf -> the (W, 1, X) rows of every rank on
-        rank 0 (a fresh tensor when W > 1), None elsewhere."""
+        """This rank's flat leaf -> the ``worker_sizes + (n_shards, X)``
+        rows of every rank on rank 0 (a fresh tensor when there is more
+        than one rank), None elsewhere."""
         import torch.distributed as dist
-        W, rank = self.art.n_workers, self.art.rank
-        if W == 1:
-            return x.reshape(1, 1, -1), False
-        rows = torch.empty((W, x.numel()), dtype=x.dtype, device=x.device) \
+        lead, n, rank = self._geometry()
+        if n == 1:
+            return x.reshape(lead + (-1,)), False
+        rows = torch.empty((n, x.numel()), dtype=x.dtype, device=x.device) \
             if rank == 0 else None
-        dist.gather(x, list(rows.unbind(0)) if rank == 0 else None, dst=0,
-                    group=self.art.group)
-        return (rows.reshape(W, 1, -1), True) if rank == 0 else (None, False)
+        dist.gather(x, list(rows.unbind(0)) if rank == 0 else None,
+                    dst=0, group=self._group())
+        return (rows.reshape(lead + (-1,)), True) if rank == 0 \
+            else (None, False)
+
+    def _group(self):
+        grid = self.art.grid
+        return self.art.group if grid is None else grid.world
 
     def stored_shape(self, x):
-        return (self.art.n_workers, 1, x.numel())
+        return self._geometry()[0] + (x.numel(),)
 
     def scatter(self, stored, live):
-        live.copy_(stored[self.art.rank, 0])
+        _, n, rank = self._geometry()
+        live.copy_(stored.reshape(n, -1)[rank])
 
     def from_ckpt(self, tree, state):
         return self.set_count(state, int(tree["count"]))
 
     def barrier(self) -> None:
         import torch.distributed as dist
-        if self.art.n_workers > 1:
-            dist.barrier(group=self.art.group)
+        if self._geometry()[1] > 1:
+            dist.barrier(group=self._group())
 
 
 # ---------------------------------------------------------------------------
@@ -660,18 +687,18 @@ class TrainSession:
 
     def swap_artifacts(self, art) -> None:
         """Install other ``dist.step`` artifacts (same workers, same state
-        layout: the adaptive controller's next bit plan) between
-        dispatches. The state tensors carry over untouched, so masters,
-        moments and EF residuals go on bitwise from the previous plan.
-        On the card the old plan's graph is dropped and the next K-step
-        dispatch captures the new plan."""
+        layout: the adaptive controller's next bit plan, or another
+        topology over the same ranks) between dispatches. The state
+        tensors carry over untouched, so masters, moments and EF
+        residuals go on bitwise from the previous plan. On the card the
+        old plan's graph is dropped and the next K-step dispatch
+        captures the new plan."""
         if not isinstance(self._program, _DistProgram):
             raise ValueError("swap_artifacts requires a distributed session")
         from repro_torch.dist.modes import get_mode
         old = self._program.art
         om, nm = get_mode(old.config.mode), get_mode(art.config.mode)
-        if (art.n_workers != old.n_workers or art.rank != old.rank
-                or art.group is not old.group or art.layout != old.layout
+        if (_place(art) != _place(old) or art.layout != old.layout
                 or om.chunk_sharded_moments != nm.chunk_sharded_moments
                 or om.extra_state != nm.extra_state
                 or om.emits_stats != nm.emits_stats):

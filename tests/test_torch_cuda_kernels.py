@@ -1768,6 +1768,72 @@ def test_distributed_session_graph_equals_eager(dev, deterministic,
         log=lambda *_: None))
 
 
+@pytest.mark.parametrize("chunk", [1, 2])
+def test_hierarchical_one_by_one_is_the_flat_step(dev, deterministic,
+                                                  nccl_group, chunk):
+    """``HierarchicalTopology(1, 1)`` on a (pod=1, data=1, model=1) grid
+    of one NCCL rank runs the tiered path (the intra gather, the
+    exchange over the inter tier, the inter-first broadcast) and is
+    bitwise the flat step on the plain group: losses, master, m, v and
+    e, eager and with ``scan_chunk=2`` (one CUDA graph a chunk); K15, K7
+    and K6 launch and no plain version runs. A flat session that swaps
+    in the 1x1 step half way (``swap_artifacts``: the old graph
+    released, the new step captured) is bitwise the flat run."""
+    from repro_torch.comm import kernels as K
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.dist import topology as T
+    from repro_torch.dist.step import TrainConfig, make_train_step
+    from repro_torch.kernels import adam_ef as A
+    from repro_torch.launch import mesh as TM
+    from repro_torch.train.session import SessionConfig, TrainSession
+    from repro_torch.tree import tree_leaves
+    cfg, model, _, _ = _smoke_training(dev)
+    tc = TrainConfig(alpha=1e-3, grad_k=6, weight_k=7)
+    arts = {"flat": make_train_step(model, nccl_group, tc),
+            "1x1": make_train_step(
+                model, TM.make_grid(pod=1, data=1, model=1, device=dev),
+                dataclasses.replace(tc,
+                                    topology=T.HierarchicalTopology(1, 1)))}
+    assert arts["1x1"].tiers.hierarchical
+    assert not arts["flat"].tiers.hierarchical
+
+    def session(name):
+        return TrainSession.from_artifacts(
+            arts[name], batch_for_model(cfg, 32, 4),
+            SessionConfig(log_every=2, scan_chunk=chunk), device=dev,
+            log=lambda *_: None)
+    sessions = {}
+    for name in ("flat", "1x1"):
+        K.ef_encode_log_launches = K.decode_log_launches = 0
+        A.moments_launches = 0
+        plain = K.plain_on_cuda + A.plain_on_cuda
+        with session(name) as sess:
+            sess.run(8)
+        assert min(K.ef_encode_log_launches, K.decode_log_launches,
+                   A.moments_launches) > 0
+        assert K.plain_on_cuda + A.plain_on_cuda == plain
+        sessions[name] = sess
+    with session("flat") as sess:
+        sess.run(4)
+        before = [(x.data_ptr(), x.clone())
+                  for x in tree_leaves(sess.state["master"])]
+        sess.swap_artifacts(arts["1x1"])
+        for (ptr, x), y in zip(before, tree_leaves(sess.state["master"])):
+            assert ptr == y.data_ptr() and torch.equal(x, y)
+        sess.run(4)
+    assert sess.stats["graph_captures"] == (2 if chunk == 2 else 0)
+    sessions["swapped"] = sess
+    b = sessions["flat"]
+    for name in ("1x1", "swapped"):
+        a = sessions[name]
+        assert [h["loss"] for h in a.history] == \
+            [h["loss"] for h in b.history], name
+        for f in ("master", "m", "v", "e"):
+            for x, y in zip(tree_leaves(a.state[f]),
+                            tree_leaves(b.state[f])):
+                assert torch.equal(x, y), (name, f)
+
+
 ADAPTIVE_PLAN = ("blockwise:256", "log:2", "log:6", "log:30", "log:126",
                  "uniform_amax:14:w16") * 2
 

@@ -323,25 +323,101 @@ def test_batch_rows_and_state_carried_over(models, group):
                 assert t.shape == shapes[p].shape, (k, p)
 
 
+def test_swap_between_flat_and_hierarchical_is_bitwise(models, group):
+    """One rank: ``HierarchicalTopology(1, 1)`` on a (pod=1, data=1,
+    model=1) grid is bitwise the flat step, and a session that swaps it
+    in half way (``swap_artifacts``: the same workers, chunks and state
+    layout) carries every state tensor as it is and is bitwise the
+    unswapped run."""
+    from repro_torch.dist import topology as T
+    from repro_torch.tree import tree_leaves
+    _, tm = models
+    flat = t_make_train_step(tm, group, TTC(**BASE))
+    hier = t_make_train_step(
+        tm, TM.make_grid(pod=1, data=1, model=1, device="cpu"),
+        TTC(**BASE, topology=T.HierarchicalTopology(1, 1)))
+    assert hier.tiers.hierarchical and not flat.tiers.hierarchical
+
+    def session(art):
+        return TrainSession.from_artifacts(
+            art, tbatches(tm.cfg, SEQ, 4), SessionConfig(log_every=1),
+            device="cpu", log=lambda *_: None)
+    runs = {}
+    for name, art in (("flat", flat), ("hier", hier)):
+        with session(art) as sess:
+            sess.run(4)
+        runs[name] = sess
+    with session(flat) as sess:
+        sess.run(2)
+        before = {k: [(x.data_ptr(), x.clone()) for x in tree_leaves(v)]
+                  for k, v in sess.state.items() if k != "count"}
+        sess.swap_artifacts(hier)
+        for k, xs in before.items():
+            for (ptr, x), y in zip(xs, tree_leaves(sess.state[k])):
+                assert ptr == y.data_ptr() and torch.equal(x, y), k
+        sess.run(2)
+    runs["swapped"] = sess
+    want = runs["flat"]
+    for name in ("hier", "swapped"):
+        got = runs[name]
+        assert [h["loss"] for h in got.history] == \
+            [h["loss"] for h in want.history], name
+        for k in ("master", "m", "v", "e"):
+            for x, y in zip(tree_leaves(got.state[k]),
+                            tree_leaves(want.state[k])):
+                assert torch.equal(x, y), (name, k)
+
+
 def test_out_of_scope_raises(models, group):
-    """What the port's step still refuses: hierarchical topologies, a
-    quantized model-axis gather and the launcher's flags of unported
-    features. The baselines dp_adam, efadam, terngrad and ef_sgd and the
-    adaptive mode are ported (the tests above and
+    """What the port still refuses: the launcher's ``--tune-buckets`` and
+    ``--aot-dir`` (ROADMAP.md), and the reference's four multi-host flags,
+    each by name (torchrun's environment stands in their place). The
+    rest parses and builds: hierarchical topologies, the model axis, the
+    int8 gather, the baselines and the adaptive mode (the trajectories:
+    the tests above, ``test_torch_dist_hier_workers.py``,
+    ``test_torch_model_axis_workers.py`` and
     ``test_torch_dist_adaptive.py``)."""
     from repro_torch.dist import topology as T
     from repro_torch.launch import train as launch
     _, tm = models
-    for kw in (dict(topology=T.HierarchicalTopology(2, 2)),
-               dict(topology=T.HierarchicalTopology(2, 2), mode="adaptive"),
-               dict(topology=T.HierarchicalTopology(2, 2), mode="ef_sgd"),
+    for kw in (dict(topology=T.HierarchicalTopology(1, 1)),
+               dict(topology=T.HierarchicalTopology(1, 1), mode="adaptive"),
+               dict(topology=T.HierarchicalTopology(1, 1), mode="ef_sgd"),
                dict(model_gather_quant=8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_make_train_step(tm, group, TTC(**kw))
-    for flag in (["--model", "2"], ["--tune-buckets"], ["--topology", "2x2"],
-                 ["--aot-dir", "x"], ["--adaptive", "--model", "2"]):
+        art = t_make_train_step(tm, group, TTC(**kw))
+        assert art.n_workers == 1
+        assert art.tiers.hierarchical == ("topology" in kw
+                                          and kw.get("mode") != "dp_adam")
+    # a plain group is one data axis: 2 nodes do not split it
+    with pytest.raises(ValueError, match="needs 4 workers"):
+        t_make_train_step(tm, group, TTC(topology=T.HierarchicalTopology(
+            2, 2)))
+    for flag in (["--tune-buckets"], ["--aot-dir", "x"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             launch.parse_args(["--arch", "yi-6b"] + flag)
+    for flag in (["--multihost"], ["--coordinator", "h:1"],
+                 ["--num-processes", "2"], ["--process-id", "0"]):
+        with pytest.raises(NotImplementedError,
+                           match=f"{flag[0]}: the port runs one process "
+                                 "per card under torchrun"):
+            launch.parse_args(["--arch", "yi-6b"] + flag)
+    for flag, want in ((["--model", "2"], dict(model=2)),
+                       (["--topology", "2x2"], dict(pod=2, data=2)),
+                       (["--topology", "2x2", "--pod", "2", "--data", "2"],
+                        dict(pod=2, data=2)),
+                       (["--pod", "2", "--data", "1"], dict(pod=2, data=1)),
+                       (["--model-gather-quant", "8"],
+                        dict(model_gather_quant=8)),
+                       (["--adaptive", "--model", "2"],
+                        dict(model=2, adaptive=True))):
+        args = launch.parse_args(["--arch", "yi-6b"] + flag)
+        for k, v in want.items():
+            assert getattr(args, k) == v, (flag, k)
+    assert launch.parse_args(["--arch", "yi-6b", "--topology", "2x2"]) \
+        .topology_spec == T.HierarchicalTopology(2, 2)
+    with pytest.raises(SystemExit):      # 2x2 needs 4 workers, not 3
+        launch.parse_args(["--arch", "yi-6b", "--topology", "2x2",
+                           "--pod", "3", "--data", "1"])
     for mode in ("dp_adam", "efadam", "terngrad", "ef_sgd", "adaptive"):
         assert launch.parse_args(["--arch", "yi-6b", "--mode",
                                   mode]).mode == mode
