@@ -84,7 +84,12 @@ Phases, each raising on failure (exit code nonzero, no result line):
      faults (#9's lane bias off by one, #13 comparing u <= p, K7 with
      one code off by one in the last vector of a chunk on 6-bit lanes)
      must fail those gates; time each kernel, its plain version and a one-call
-     PyTorch yardstick where there is one (none for #9, #10, #13);
+     PyTorch yardstick where there is one (none for #9, #10, #13); then
+     the MoE family's shapes: K12 through ``QuantizedLeaf.dequantize`` on
+     a code-resident (2, 64, 2048, 1408) int8 stack (a sliced layer's
+     184,549,376 codes one row, a view of the 4-D codes), alone and with
+     the pending bf16 cast, bitwise its plain version; K1 at the routers'
+     shapes ((4 or 128) x 2048 x 64, x 5120 x 16) on tensor cores; timed;
   4. serve full-width yi-6b (random weights from a seed): Model.init,
      quantize_params(k_x=6), a paged ServeSession (page 16, 4 slots,
      chunked prefill 32) answering 8 requests of 64-token prompts with
@@ -140,6 +145,25 @@ Phases, each raising on failure (exit code nonzero, no result line):
      lanes and paged): every mode the chunked session's tokens, the
      whole and injected decode steps graphed, their kernels launched
      and no plain version on the card;
+     4j. deepseek-moe-16b at full width and depth (28 layers, d 2048, 64
+     routed experts top-6, 2 shared, expert d_ff 1408, vocab 102400),
+     phase 4's protocol: 67.5 GB of float32 quantized leaf by leaf (the
+     start-up peak printed), K1, K2, K3, K4 and K12 launched, no plain
+     version on the card (the at-use dequantize included), the decode
+     step graphed; one eager decode step launches K12 once a layer for
+     each at-use leaf (the three expert stacks, the norms) and for the
+     embedding rows, K1 for each projection (the router, N = 64, and the
+     shared experts among them) and the head, nothing plain; the decode
+     step eager and graphed bitwise; kernels-vs-plain logits gated on
+     the tokens whose routed expert sets agree at every layer (a bf16
+     ulp in a router logit flips a route), at depth 1 and 2 in bf16
+     (SHALLOW_LIMIT) and at MOE_F32_LAYERS layers in float32
+     (F32_LIMIT), the share that agree printed; one dropped K row in the
+     plain products must fail the float32 gate;
+     4k. the same for llama4-maverick-400b-a17b at its widths (d 5120, 40
+     heads over 8, expert and shared d_ff 8192, vocab 202048, top-1)
+     cut to MAVERICK_LAYERS layers of MAVERICK_EXPERTS routed experts
+     (its 128 experts are 64.4 GB of float32 a layer);
   5. train full-width yi-6b cut to 8 layers (fp32 parameters and state,
      bf16 activations) with Algorithm 1 through ``qadam`` and
      ``TrainSession.from_optimizer``: 12 steps of 2 x 1024 tokens; gates:
@@ -195,8 +219,8 @@ Phases, each raising on failure (exit code nonzero, no result line):
      ``dp_adam`` bitwise ``qadam`` with both channels in float32 and
      ``efadam`` with a float32 broadcast bitwise ``qadam``, under
      deterministic algorithms;
-     6b. on the same rank and at the same size (a 30.5 GB state), 8
-     steps under deterministic algorithms: 4 steps, a checkpoint (pinned
+     6b. on the same rank, yi-6b at full width cut to CKPT_LAYERS = 2
+     layers (a 13.9 GB state), 8 steps under deterministic algorithms: 4 steps, a checkpoint (pinned
      host copy on a side stream, the writer thread), 4 more; a new
      session resumed from the checkpoint (leaf by leaf into its own
      state's tensors, no device bytes added) for 4 more, bitwise the
@@ -244,7 +268,17 @@ Phases, each raising on failure (exit code nonzero, no result line):
      K3, K4, K12) on the 2-layer w_gate stack at one shard bitwise its
      plain version, its launches and ms; then ``--data 1 --model 1
      --model-gather-quant 8`` 2 steps; each run's step device ms beside
-     phase 6's;
+     phase 6's; no garbage collection in 6d's end or 6e: 6d's session,
+     closed and dropped, must leave no more than CLOSE_SLACK bytes
+     allocated beyond the level before 6d;
+     6f. deepseek-moe-16b at full width cut to MOE_TRAIN_LAYERS layers
+     (about 1.6 B parameters), Algorithms 2+3 ``qadam`` on the same rank
+     through phase 6's gates, MOE_TRAIN_STEPS steps of 2 x 1024 tokens
+     (capacity 240); one forward/backward each with the einsum and the
+     sort dispatch from the same weights: float32 losses within the
+     reference's rtol 1e-5, both times (bf16 and float32); the aux
+     loss's share of the loss; a ``--model 1`` step through the
+     launcher, where no token exchange runs;
   8. every leaf of the cut's initial parameters through
      ``Codec.encode`` -> ``WireBuffer.decode`` for log:6, the uniform:7
      wire (absolute and amax), TernGrad and blockwise:256: #5 (each
@@ -1305,6 +1339,93 @@ def check_training_kernels(torch, dev):
         del g, m, v, e, de, amax, ck, ek, dk, qc, x2, a
         torch.cuda.empty_cache()
     return rows, table
+
+
+# ---------------------------------------------------------------------------
+# phase 3, the MoE family's shapes: K12 on an expert stack, K1 at routers
+# ---------------------------------------------------------------------------
+
+DEEPSEEK_STACK = (64, 2048, 1408)       # one layer's w_gate: E, d, fe
+ROUTER_SHAPES = [(4, 2048, 64), (128, 2048, 64), (4, 5120, 16),
+                 (128, 5120, 16)]     # M, K = d_model, N = experts
+
+
+def check_moe_shapes(torch, dev, MM):
+    """K12 through ``QuantizedLeaf.dequantize`` on a code-resident
+    (2, 64, 2048, 1408) int8 stack: layer 1's row of 184,549,376 codes
+    is a view of the 4-D codes (no copy), one launch, bitwise the plain
+    version; alone and with the pending bf16 cast (the decode step's
+    at-use dequantize). K1 at the routers' shapes on tensor cores within
+    one bf16 ulp plus the floor. Both timed in CUDA graphs beside their
+    plain versions, bounds and (K1) ``torch.matmul``."""
+    from repro_torch.comm import kernels as K
+    from repro_torch.serve import quantized as Q
+    g = torch.Generator(device=dev).manual_seed(29)
+    codes = torch.randint(-64, 65, (2,) + DEEPSEEK_STACK, generator=g,
+                          device=dev).to(torch.int8)
+    scale = torch.rand(2, generator=g, device=dev) + 0.01
+    leaf = Q.QuantizedLeaf(codes=codes, scale=scale, k_x=6,
+                           shape=tuple(codes.shape), dtype="float32")
+    one = leaf.layer(1)
+    rows, _ = Q.code_rows(one.codes, one.scale)
+    if rows.data_ptr() != codes[1].data_ptr() or rows.shape != (
+            1, math.prod(DEEPSEEK_STACK)):
+        raise AssertionError(f"K12's rows of a sliced stack are no view: "
+                             f"{tuple(rows.shape)}")
+    table = []
+    n = rows.numel()
+    for what, lf, out_b in (("K12", one, 4),
+                            ("K12 + bf16 cast", one.astype(torch.bfloat16),
+                             2)):
+        k0 = K.dequantize_launches
+        a = lf.dequantize()
+        if K.dequantize_launches != k0 + 1 or not bits_equal(
+                torch, a, lf.dequantize(backend="torch")):
+            raise AssertionError(f"{what} on the expert stack: launches "
+                                 f"{K.dequantize_launches - k0}, or not "
+                                 f"bitwise its plain version")
+        # bytes: the codes read, float32 written; the cast reads that and
+        # writes bf16
+        nbytes = n * (1 + 4) + (n * (4 + out_b) if out_b == 2 else 0)
+        bnd, by = bound_ms(nbytes)
+        table.append(dict(name="uniform_dequantize_rows", what=what,
+                          shape=list(DEEPSEEK_STACK), codes=n,
+                          ms=graph_ms(torch, lambda i: lf.dequantize(), 1,
+                                      10),
+                          plain_ms=graph_ms(torch, lambda i: lf.dequantize(
+                              backend="torch"), 1, 5),
+                          library_ms=None, bound_ms=bnd, bound_by=by))
+        del a
+    del codes, leaf, one, rows
+    torch.cuda.empty_cache()
+    for M, Kd, N in ROUTER_SHAPES:
+        cs = [torch.randint(-64, 65, (Kd, N), generator=g, device=dev).to(
+            torch.int8) for _ in range(4)]
+        c = cs[0]
+        s = torch.tensor(0.0371, device=dev)
+        x = torch.randn(M, Kd, generator=g, device=dev).to(torch.bfloat16)
+        kw = dict(k_x=6, n=N, cast_dtype="bfloat16")
+        a = MM.dequant_matmul(x, c, s, backend="cuda", **kw)
+        b = MM.dequant_matmul(x, c, s, backend="torch", **kw)
+        unit = k1_noise_unit(torch, MM, x, c, s, dict(kw, pack_bits=0))
+        tol = k1_tolerance(torch, b, unit)
+        if not bool(((a.float() - b.float()).abs() <= tol).all()):
+            raise AssertionError(f"K1 at the router shape {(M, Kd, N)} "
+                                 f"beyond one bf16 ulp plus the floor")
+        ws = [MM.dequant_codes(ci, s, k_x=6, n=N, pack_bits=0,
+                               w_dtype="float32", cast_dtype="bfloat16")
+              for ci in cs]
+        bnd, by = bound_ms(Kd * N + 2 * M * Kd + 2 * M * N, 2 * M * Kd * N)
+        # in CUDA graphs over 4 sets of codes, as phase 3's K1 table
+        table.append(dict(
+            name="dequant_matmul_tc", what="router", shape=[M, Kd, N],
+            ms=graph_ms(torch, lambda i: MM.dequant_matmul(
+                x, cs[i], s, backend="cuda", **kw), 4),
+            plain_ms=graph_ms(torch, lambda i: MM.dequant_matmul(
+                x, cs[i], s, backend="torch", **kw), 4, 5),
+            library_ms=graph_ms(torch, lambda i: torch.matmul(x, ws[i]), 4),
+            bound_ms=bnd, bound_by=by))
+    return table
 
 
 # ---------------------------------------------------------------------------
@@ -2897,6 +3018,21 @@ ADAPT_PLAN = ("blockwise:256", "log:2", "log:6", "log:30", "log:126",
               "uniform_amax:14:w16") * 2
 ADAPT_FIXED_STEPS = 3
 ADAPT_STEPS, ADAPT_EVERY, ADAPT_CHUNK, ADAPT_BUDGET = 12, 4, 4, 0.6
+# what may stay allocated after 6d's session closes, beside its level
+# before 6d: device tables its plans made once for the process (the log
+# grids' levels and decision points), a few KB each; a session or a graph
+# left behind is GBs
+CLOSE_SLACK = 2 ** 21
+
+
+def allocated_without_workspaces(torch) -> int:
+    """The allocated bytes once cuBLAS has given back its workspaces
+    (32 MiB a stream it ran on, cuBLAS and cuBLASLt each, kept by the
+    caching allocator for the process; a first capture stream adds
+    64 MiB)."""
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
 FIXED_LOG6_EXCHANGE_BYTES = 954_238_976    # phase 6's qadam (log:6) a step
 ADAPT_COUNTERS = {"ef_encode_rows_log": ("K", "ef_encode_log_launches"),
                   "ef_encode_rows_uniform": ("K", "ef_encode_uniform_launches"),
@@ -2994,6 +3130,7 @@ def adaptive_train(torch, dev, mods, group, model, cfg):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    allocated_before = allocated_without_workspaces(torch)
 
     # 1. the fixed plan, kernels against plain versions
     with deterministic(torch):
@@ -3025,27 +3162,28 @@ def adaptive_train(torch, dev, mods, group, model, cfg):
         torch, dev, group, model, cfg, TrainConfig(**base),
         TrainConfig(**DIST_TC))
 
-    # 3. the controller
-    gc.collect()
+    # 3. the controller, its swaps watched from a subclass (nothing is
+    # stored on the session: a closure there would make a reference
+    # cycle that keeps the session's memory until a collection)
+    class Watched(AdaptiveController):
+        def _swap(self, plan, step: int):
+            before = _fingerprint(torch, self.session.state)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            super()._swap(plan, step)
+            self.swaps.append(dict(
+                step=self.session.step, s=time.perf_counter() - t,
+                bitwise=_fingerprint(torch, self.session.state) == before))
+
     torch.cuda.empty_cache()
-    ctl = AdaptiveController(
+    ctl = Watched(
         model, group, TrainConfig(**DIST_TC),
         batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0),
         AdaptConfig(budget_ratio=ADAPT_BUDGET, replan_every=ADAPT_EVERY),
         SessionConfig(log_every=0, scan_chunk=ADAPT_CHUNK), seed=0,
         device=dev, log=lambda *_: None, verify=True)
+    ctl.swaps = swaps = []
     sess = ctl.session
-    swaps = []
-    swap = sess.swap_artifacts
-
-    def watched_swap(art):
-        before = _fingerprint(torch, sess.state)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        swap(art)
-        swaps.append(dict(step=sess.step, s=time.perf_counter() - t,
-                          bitwise=_fingerprint(torch, sess.state) == before))
-    sess.swap_artifacts = watched_swap
     ptrs = [x.data_ptr() for _, x in _tensor_leaves(sess.state)]
     torch.cuda.synchronize()
     _zero_counts(mods, ADAPT_COUNTERS)
@@ -3091,7 +3229,7 @@ def adaptive_train(torch, dev, mods, group, model, cfg):
         tc = dataclasses.replace(ctl.tc, bit_plan=e["bit_plan"])
         ctl.tc, ctl.art = tc, make_train_step(model, group, tc)
         n_cap = len(sess.capture_seconds)
-        swap(ctl.art)
+        sess.swap_artifacts(ctl.art)
         torch.cuda.synchronize()
         t = time.perf_counter()
         sess.run(ADAPT_CHUNK)          # the capture and a replay
@@ -3114,15 +3252,26 @@ def adaptive_train(torch, dev, mods, group, model, cfg):
             step_kernels=[(k, t / ADAPT_CHUNK) for k, t in by_kernel[:12]]))
     res["per_plan"] = per_plan
     res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    held = torch.cuda.memory_allocated()
     ctl.close()
     del ctl, sess
-    gc.collect()
+    # no collection: close() drops the graphs and the session keeps no
+    # reference cycle, so the state and the graphs' buffers go here
+    after = allocated_without_workspaces(torch)
+    res.update(allocated_before=allocated_before, allocated_held=held,
+               allocated_after_close=after)
+    if after - allocated_before > CLOSE_SLACK:
+        raise AssertionError(f"6d: {after - allocated_before} B still "
+                             f"allocated after the session closed "
+                             f"({allocated_before} B before 6d)")
     torch.cuda.empty_cache()
     return res
 
 
 # ---------------------------------------------------------------------------
 # phase 6e: the hierarchical topology and the model axis on one NCCL rank
+# (no garbage collection: every session it and 6d make is freed when
+# dropped)
 # ---------------------------------------------------------------------------
 
 # yi-6b at full width cut to 2 layers, through launch.train's main
@@ -3132,17 +3281,19 @@ GATHER_COUNTERS = {"amax_rows": ("K", "amax_launches"),
                    "uniform_dequantize_rows": ("K", "dequantize_launches")}
 
 
-def _launch(torch, mods, counters, *flags):
-    """``launch.train.main`` on the current NCCL rank with the phase's
-    flags, every count of ``counters`` at 0 just before it: (its
-    result, the counts, plain-version calls on the card, its output)."""
+def _launch(torch, mods, counters, *flags, arch="yi-6b",
+            layers=HIER_LAYERS):
+    """``launch.train.main`` on the current NCCL rank for ``arch`` cut to
+    ``layers`` with the phase's flags, every count of ``counters`` at 0
+    just before it: (its result, the counts, plain-version calls on the
+    card, its output)."""
     import io
     from repro_torch.launch import train as launch
     K, A = mods["K"], mods["A"]
     for mod, attr in counters.values():
         setattr(mods[mod], attr, 0)
     K.plain_on_cuda = A.plain_on_cuda = 0
-    argv = ["--arch", "yi-6b", "--layers", str(HIER_LAYERS), "--seq",
+    argv = ["--arch", arch, "--layers", str(layers), "--seq",
             str(TRAIN_SEQ), "--global-batch", str(TRAIN_BATCH),
             "--grad-bits", "6", "--weight-bits", "7", "--weight-absolute",
             "--log-every", "1", "--device", "cuda", *flags]
@@ -3171,13 +3322,11 @@ def _step_device_ms(torch, dev, r, cfg):
 
 def hier_train(torch, dev, mods):
     """Phase 6e (see the module docstring)."""
-    import gc
     from repro_torch.configs import get_config
     from repro_torch.dist import collectives as C
     from repro_torch.tree import tree_leaves
     K = mods["K"]
     cfg = dataclasses.replace(get_config("yi-6b"), n_layers=HIER_LAYERS)
-    gc.collect()
     torch.cuda.empty_cache()
     res = {"layers": HIER_LAYERS, "steps": HIER_STEPS,
            "allocated_at_start": torch.cuda.memory_allocated()}
@@ -3192,7 +3341,6 @@ def hier_train(torch, dev, mods):
     fl, fc = [h["loss"] for h in flat["history"]], flat["comm"]
     res["flat_step_device_ms"], _ = _step_device_ms(torch, dev, flat, cfg)
     del flat
-    gc.collect()
     torch.cuda.empty_cache()
     with deterministic(torch):
         hier, launches, plain, hier_log = _launch(
@@ -3223,7 +3371,6 @@ def hier_train(torch, dev, mods):
     res["step_device_ms"], res["step_kernels"] = _step_device_ms(
         torch, dev, hier, cfg)
     del hier
-    gc.collect()
     torch.cuda.empty_cache()
 
     # the int8 gather at one shard on the w_gate stack: K3, K4, K12
@@ -3266,7 +3413,6 @@ def hier_train(torch, dev, mods):
     res["mgq_losses"] = ml
     res["mgq_step_device_ms"], _ = _step_device_ms(torch, dev, mgq, cfg)
     del mgq
-    gc.collect()
     torch.cuda.empty_cache()
     return res
 
@@ -3275,7 +3421,9 @@ def hier_train(torch, dev, mods):
 # phase 6b: the distributed session's checkpoints and resume
 # ---------------------------------------------------------------------------
 
-CKPT_STEPS, CKPT_CODEC = 8, "uniform_amax:7"
+# 6b's cut: full-width yi-6b at CKPT_LAYERS layers (a 13.9 GB state; 8
+# layers and 30.5 GB until the MoE phases needed the time)
+CKPT_LAYERS, CKPT_STEPS, CKPT_CODEC = 2, 8, "uniform_amax:7"
 CKPT_COUNTERS = {"amax_rows": ("K", "amax_launches"),
                  "encode_rows_uniform": ("K", "encode_uniform_launches"),
                  "decode_rows_uniform": ("K", "decode_uniform_launches")}
@@ -3288,16 +3436,16 @@ def dir_bytes(path: str) -> int:
 
 def release_pinned(torch) -> None:
     """Hand the pinned host pool's free blocks back to the system (a
-    checkpoint's host copy of a 30.5 GB state is cached there)."""
+    checkpoint's host copy of the state is cached there)."""
     empty = getattr(torch._C, "_host_emptyCache", None)
     if empty is not None:
         empty()
 
 
 def ckpt_resume(torch, dev, mods, group, model, cfg):
-    """Phase 6b: Algorithms 2+3 (DIST_TC) on one NCCL rank at phase 6's
-    size (full-width yi-6b cut to TRAIN_LAYERS layers, a 30.5 GB state),
-    CKPT_STEPS steps, under deterministic algorithms. Run B runs half the
+    """Phase 6b: Algorithms 2+3 (DIST_TC) on one NCCL rank, full-width
+    yi-6b cut to CKPT_LAYERS layers (``model``, ``cfg``), CKPT_STEPS
+    steps, under deterministic algorithms. Run B runs half the
     steps, checkpoints (pinned host copy on a side stream, the writer
     thread) and runs the rest; its final state goes to the host. A new
     session resumes from the checkpoint, the device holding its state
@@ -4018,12 +4166,22 @@ def window_live(torch, dev, model, qparams, gather, prompt, max_seq):
 def zero_serving_counts(MM, paged, K):
     """Every count of the serving paths' kernels, and of their plain
     versions on the card, at 0."""
+    from repro_torch.serve import quantized as Q
     MM.launches = MM.launches_tc = MM.launches_tc_packed = 0
     MM.launches_fma = MM.t_launches = MM.t_launches_tc = 0
     MM.t_launches_fma = 0
     paged.launches = paged.launches_kv = 0
-    K.amax_launches = K.quantize_launches = 0
+    K.amax_launches = K.quantize_launches = K.dequantize_launches = 0
     MM.plain_on_cuda = paged.plain_on_cuda = K.plain_on_cuda = 0
+    Q.plain_on_cuda = 0
+
+
+def serving_plain(MM, paged, K) -> int:
+    """Plain-version calls on the card since the counts were zeroed: the
+    serving kernels' and the at-use dequantize's (K12 bypassed)."""
+    from repro_torch.serve import quantized as Q
+    return (MM.plain_on_cuda + paged.plain_on_cuda + K.plain_on_cuda
+            + Q.plain_on_cuda)
 
 
 def decode_timings(torch, dev, model, qparams, gather, prompts, max_seq):
@@ -4232,7 +4390,7 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
                                  f"{MM.t_launches_fma} times in bf16 serving")
     elif MM.t_launches:
         raise AssertionError(f"{arch}: K1t launched on an untied head")
-    plain = MM.plain_on_cuda + paged.plain_on_cuda + K.plain_on_cuda
+    plain = serving_plain(MM, paged, K)
 
     if any(n == 0 for n in launches.values()):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
@@ -4429,7 +4587,7 @@ def serve_packed(torch, dev, mods, arch="yi-6b", dtype="bfloat16"):
             MM.t_launches and (packed or not cfg.tie_embeddings)):
         raise AssertionError(f"{arch} {dtype}: K1t launched {MM.t_launches} "
                              f"times ({MM.t_launches_tc} on tensor cores)")
-    plain = MM.plain_on_cuda + paged.plain_on_cuda + K.plain_on_cuda
+    plain = serving_plain(MM, paged, K)
     what = "packed serving" if packed else "float32 serving"
     if any(n == 0 for n in launches.values()):
         raise AssertionError(f"{what}: a kernel of the path never "
@@ -4556,7 +4714,7 @@ def serve_admission(torch, dev, mods):
                 "gather_pages_kv": paged.launches_kv,
                 "amax_rows": K.amax_launches,
                 "uniform_quantize_rows": K.quantize_launches}
-    plain = MM.plain_on_cuda + paged.plain_on_cuda + K.plain_on_cuda
+    plain = serving_plain(MM, paged, K)
     if any(n == 0 for n in launches.values()) or plain or MM.launches_fma:
         raise AssertionError(f"admission runs: launches {launches}, "
                              f"{MM.launches_fma} CUDA-core K1, {plain} "
@@ -4570,6 +4728,371 @@ def serve_admission(torch, dev, mods):
               f"replays" for k, r in runs.items())
           + f"; launches {launches}", flush=True)
     return dict(runs=runs, launches=launches, layers=ADMISSION_LAYERS)
+
+
+# ---------------------------------------------------------------------------
+# phases 4j and 4k: the MoE family served; phase 6f: trained
+# ---------------------------------------------------------------------------
+
+# 4k: llama4-maverick at its widths, cut to 2 layers of 16 routed experts
+# (its 128 experts are 64.4 GB of float32 a layer); the float32 gates of
+# both phases at MOE_F32_LAYERS layers at most
+MAVERICK_LAYERS, MAVERICK_EXPERTS, MOE_F32_LAYERS = 2, 16, 4
+
+
+@contextlib.contextmanager
+def route_tap():
+    """Every ``layers.moe_route`` call's expert sets (T, k), each token's
+    ascending (the order within a set does not change the layer's
+    terms), in call order (one a layer of a decode step), appended to
+    the yielded list."""
+    from repro_torch.models import layers as L
+    calls, route = [], L.moe_route
+
+    def tapped(params, xt, mcfg, backend=None):
+        out = route(params, xt, mcfg, backend)
+        calls.append(out[2].sort(dim=1).values)
+        return out
+    L.moe_route = tapped
+    try:
+        yield calls
+    finally:
+        L.moe_route = route
+
+
+def routed_gate(torch, a, b, ra, rb):
+    """Kernels-vs-plain logits (B, V) gated on the tokens whose expert
+    sets agree at every layer (a bf16 ulp in a router logit can flip a
+    route, and a flipped route is another function, not noise): (rel L2
+    over those tokens or inf where none agree, the share of tokens that
+    agree, the share of (token, layer) sets that agree)."""
+    same = torch.stack([(x == y).all(dim=1) for x, y in zip(ra, rb)])
+    tok = same.all(dim=0)
+    share, pairs = float(tok.float().mean()), float(same.float().mean())
+    if not bool(tok.any()):
+        return float("inf"), share, pairs
+    a, b = a[tok].float(), b[tok].float()
+    return float((a - b).norm() / b.norm()), share, pairs
+
+
+def _moe_counts(qparams, cfg):
+    """What one eager decode step launches: K12 once a layer for every
+    code-resident leaf the layer dequantizes at use (the three expert
+    stacks among them) and once for the embedding rows; K1 once a layer
+    for every code-resident projection (attention, router, shared
+    experts) and once for the head."""
+    from repro_torch.serve.quantized import (_fused_ok, is_qleaf,
+                                             layer_slice,
+                                             tree_map_with_path)
+    kinds = {"fused": [], "at_use": []}
+
+    def one(path, leaf):
+        if is_qleaf(leaf):
+            fused = _fused_ok(path, leaf, "blocks")
+            kinds["fused" if fused else "at_use"].append("/".join(path))
+        return leaf
+    tree_map_with_path(one, layer_slice(qparams["blocks"], 0))
+    L = cfg.n_layers
+    k12 = L * len(kinds["at_use"]) + is_qleaf(qparams["embed"])
+    k1 = L * len(kinds["fused"]) + is_qleaf(qparams["unembed"])
+    return k12, k1, kinds
+
+
+def serve_moe(torch, dev, mods, arch, layers=None, experts=None):
+    """Phase 4j (deepseek-moe-16b at full width and depth) and 4k
+    (llama4-maverick at its widths, cut to ``layers`` and ``experts``):
+    phase 4's protocol (quantize_params(k_x=6) leaf by leaf, paged,
+    page 16, 4 slots, chunk 32, 8 requests of 64-token prompts, 16 new
+    tokens, bf16), every count at 0 just before it, no plain version on
+    the card. Then: one eager decode step launches K12 for every at-use
+    dequantize (3 expert stacks a layer) and K1 for every projection
+    (the router and shared experts among them), nothing plain; the
+    decode step eager and graphed bitwise; kernels-vs-plain logits
+    gated on the tokens whose routes agree at every layer, at depth 1
+    and 2 in bf16 and at MOE_F32_LAYERS in float32, where one dropped K
+    row in the plain products must fail the gate."""
+    MM, paged, K = mods["MM"], mods["paged"], mods["K"]
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import quantize_in_place
+    from repro_torch.models.model import Model
+    from repro_torch.serve.quantized import make_dequant_gather, params_nbytes
+    from repro_torch.serve.session import Request, ServeSession
+    import numpy as np
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if experts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=experts))
+    model = Model(cfg)
+    slots, n_req, plen, max_new = 4, 8, 64, 16
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=[int(t) for t in rng.integers(
+        1, cfg.vocab_size, size=plen)], max_new_tokens=max_new)
+        for _ in range(n_req)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path, with every kernel count at 0 just before it
+    zero_serving_counts(MM, paged, K)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    fp_bytes = params_nbytes(params)
+    qparams = quantize_in_place(params, k_x=6, pack=True)
+    del params
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    peak_start = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    q_bytes = params_nbytes(qparams)
+    sess = ServeSession(model, qparams, slots=slots, max_seq=128,
+                        paged=True, page_size=16, prefill_chunk=32, seed=0,
+                        device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    handles = [sess.submit(r) for r in reqs]
+    results = sess.drain()
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t1
+    launches = {"dequant_matmul_tc": MM.launches_tc,
+                "gather_pages": paged.launches,
+                "gather_pages_kv": paged.launches_kv,
+                "amax_rows": K.amax_launches,
+                "uniform_quantize_rows": K.quantize_launches,
+                "uniform_dequantize_rows": K.dequantize_launches}
+    plain = serving_plain(MM, paged, K)
+    if any(n == 0 for n in launches.values()) or plain or \
+            MM.launches_fma or MM.launches_tc_packed or MM.t_launches:
+        raise AssertionError(f"{arch}: launches {launches}, {plain} plain "
+                             f"calls on the card, K1 CUDA-core "
+                             f"{MM.launches_fma}, packed "
+                             f"{MM.launches_tc_packed}, K1t {MM.t_launches}")
+    if not (sess.stats["captures"] and sess.stats["replays"]):
+        raise AssertionError(f"{arch}: the decode step was not graphed: "
+                             f"{sess.stats}")
+    for h in handles:
+        r = results[h]
+        if len(r.tokens) != max_new or r.finish_reason != "length":
+            raise AssertionError(f"request {h}: {len(r.tokens)} tokens, "
+                                 f"{r.finish_reason}")
+    n_tok = sum(len(results[h].tokens) for h in handles)
+    stats = dict(sess.stats)
+    del sess
+    gather = make_dequant_gather()
+    plain_gather = make_dequant_gather(backend="torch")
+    tm, cache, tok, pos = decode_timings(
+        torch, dev, model, qparams, gather,
+        [reqs[i].prompt for i in range(slots)], 128)
+
+    # one eager decode step: what it launches
+    want_k12, want_k1, kinds = _moe_counts(qparams, cfg)
+    zero_serving_counts(MM, paged, K)
+    model.decode_step(qparams, {"token": tok},
+                      {k: v.clone() for k, v in cache.items()}, pos, gather)
+    torch.cuda.synchronize()
+    step_k12, step_k1 = K.dequantize_launches, MM.launches_tc
+    if (step_k12, step_k1) != (want_k12, want_k1) or \
+            serving_plain(MM, paged, K) or \
+            "moe/router" not in kinds["fused"] or not all(
+                f"moe/{n}" in kinds["at_use"]
+                for n in ("w_gate", "w_up", "w_down")):
+        raise AssertionError(f"{arch} eager decode step: K12 {step_k12} "
+                             f"(want {want_k12}), K1 {step_k1} (want "
+                             f"{want_k1}), plain "
+                             f"{serving_plain(MM, paged, K)}; {kinds}")
+    dg = decode_graph_vs_eager(torch, dev, model, qparams,
+                               [reqs[i].prompt[:32] for i in range(slots)])
+
+    # kernels against plain versions, gated where the routes agree
+    def both(mdl, qp, cache_of):
+        with route_tap() as ra:
+            la, _ = mdl.decode_step(qp, {"token": tok}, cache_of(), pos,
+                                    gather)
+        with route_tap() as rb:
+            lb, _ = mdl.decode_step(qp, {"token": tok}, cache_of(), pos,
+                                    plain_gather, backend="torch")
+        return la, lb, ra, rb
+
+    def cut(n, dtype=None):
+        c = dataclasses.replace(cfg, n_layers=n)
+        if dtype:
+            c = dataclasses.replace(c, dtype=dtype)
+        qp = dict(qparams, blocks=first_layers(qparams["blocks"], n))
+
+        def cache_of():
+            return {k: (v if k == "ptab" else v[:n].to(
+                torch.float32 if dtype else v.dtype)).clone()
+                for k, v in cache.items()}
+        return Model(c), qp, cache_of
+
+    la, lb, ra, rb = both(model, qparams,
+                          lambda: {k: v.clone() for k, v in cache.items()})
+    if not bool(torch.isfinite(la).all()) or la.shape != (slots,
+                                                          cfg.vocab_size):
+        raise AssertionError("decode logits not finite or misshapen")
+    full = routed_gate(torch, la, lb, ra, rb)
+    gates = {}
+    for n, dt, limit in ((1, None, SHALLOW_LIMIT), (2, None, SHALLOW_LIMIT),
+                         (min(MOE_F32_LAYERS, cfg.n_layers), "float32",
+                          F32_LIMIT)):
+        mdl, qp, cache_of = cut(n, dt)
+        a, b, ra, rb = both(mdl, qp, cache_of)
+        rel, share, pairs = routed_gate(torch, a, b, ra, rb)
+        key = f"{dt or 'bf16'}@{n}"
+        gates[key] = dict(rel_l2=rel, tokens_agree=share,
+                          sets_agree=pairs, limit=limit)
+        if not rel <= limit:
+            raise AssertionError(f"{arch} decode logits {key}: kernels vs "
+                                 f"plain rel L2 {rel} over the {share:.0%} "
+                                 f"of tokens whose routes agree > {limit}")
+    # the planted fault: one K row dropped from every plain projection, in
+    # the float32 gate's setting; it must fail that gate
+    plain32 = MM._matmul_torch
+
+    def dropped_row(x2, codes, scale, transpose=False, **kw):
+        w = MM.dequant_codes(codes, scale, **kw).float()
+        w = w.T if transpose else w
+        return (x2[:, :-1].float() @ w[:-1]).to(
+            MM._out_dtype(x2.dtype, kw["w_dtype"], kw["cast_dtype"]))
+    mdl, qp, cache_of = cut(min(MOE_F32_LAYERS, cfg.n_layers), "float32")
+    try:
+        MM._matmul_torch = dropped_row
+        a, b, ra, rb = both(mdl, qp, cache_of)
+    finally:
+        MM._matmul_torch = plain32
+    fault = routed_gate(torch, a, b, ra, rb)
+    if fault[0] <= F32_LIMIT:
+        raise AssertionError(f"{arch}: a dropped K row passes the float32 "
+                             f"gate: {fault}")
+    print(f"{cfg.name} ({cfg.n_layers} layers, {cfg.moe.n_experts} experts "
+          f"top-{cfg.moe.top_k}): eager decode step launches K12 "
+          f"{step_k12} = {cfg.n_layers} x {len(kinds['at_use'])} at-use "
+          f"leaves ({', '.join(kinds['at_use'])}) + the embedding rows, K1 "
+          f"{step_k1} ({', '.join(kinds['fused'])} a layer + the head); "
+          f"logits kernels vs plain where the routes agree: "
+          + "; ".join(f"{k} rel L2 {g['rel_l2']:.4e} (limit {g['limit']}) "
+                      f"over {g['tokens_agree']:.0%} of tokens, "
+                      f"{g['sets_agree']:.1%} of (token, layer) sets agree"
+                      for k, g in gates.items())
+          + f"; full depth bf16 {full[0]:.4e} over {full[1]:.0%} of "
+          f"tokens ({full[2]:.1%} of sets agree); float32 with one K row "
+          f"dropped {fault[0]:.4e} over {fault[1]:.0%} (caught)",
+          flush=True)
+    print(f"{cfg.name} session decode step, 4 slots at position "
+          f"{dg['position']}: eager {dg['eager_ms']:.3f} ms wall, "
+          f"{dg['eager_device_ms']:.3f} ms device (idle "
+          f"{dg['eager_idle']:.1%}); CUDA graph {dg['graph_ms']:.3f} ms "
+          f"wall, {dg['graph_device_ms']:.3f} ms device (idle "
+          f"{dg['graph_idle']:.1%}); bitwise eager vs graphed; by kernel "
+          f"(eager): " + ", ".join(f"{n[:60]} {t:.3f}"
+                                   for n, t in dg["eager_kernels"][:5]),
+          flush=True)
+    out = dict(tm, arch=cfg.name, layers=cfg.n_layers,
+               experts=cfg.moe.n_experts, launches=launches, tokens=n_tok,
+               serve_s=t_serve, tok_per_s=n_tok / t_serve,
+               startup_s=t_quant, resident_bytes=q_bytes, fp32_bytes=fp_bytes,
+               peak_startup_bytes=peak_start,
+               peak_bytes=torch.cuda.max_memory_allocated(), stats=stats,
+               decode_graph=dg, step_k12=step_k12, step_k1=step_k1,
+               at_use=kinds["at_use"], fused=kinds["fused"], gates=gates,
+               full_depth_bf16=full, fault_f32=fault)
+    del qparams, cache, dg
+    torch.cuda.empty_cache()
+    return out
+
+
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 4
+
+
+def moe_train(torch, dev, mods, group):
+    """Phase 6f: deepseek-moe-16b at full width cut to MOE_TRAIN_LAYERS
+    layers (about 1.6 B parameters), Algorithms 2+3 ``qadam`` on the one
+    NCCL rank, 2 x 1024 tokens a step (capacity 240), MOE_TRAIN_STEPS
+    steps through ``dist_run`` (its gates: kernels launched, no plain
+    version, no steady host sync, collective bytes, the captured-gradient
+    update bitwise kernels vs plain); then one forward/backward each with
+    ``dispatch="einsum"`` and ``"sort"`` from the same weights: losses
+    within the reference's sort-vs-einsum tolerance (rtol 1e-5) in
+    float32, both times in bf16; the aux loss's share of the loss; one
+    ``--model 1`` step through the launcher, where no token exchange
+    runs (one shard)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.dist import collectives as CL
+    from repro_torch.dist.step import TrainConfig, make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.train.session import stage_batch
+    base = dataclasses.replace(get_config("deepseek-moe-16b"),
+                               n_layers=MOE_TRAIN_LAYERS)
+    tc = TrainConfig(**DIST_TC)
+    res = dist_run(torch, dev, mods, group, Model(base), base, tc,
+                   DIST_COUNTERS, MOE_TRAIN_STEPS, "6f")
+    batch = stage_batch(next(batch_for_model(base, TRAIN_SEQ, TRAIN_BATCH,
+                                             seed=1)), dev)
+
+    # the aux loss's share of the loss at the initial weights
+    model = Model(base)
+    params = model.init(seed=0, device=dev)
+    with torch.no_grad():
+        _, aux = model.forward_with_aux(params, batch)
+        s, n = model.loss(params, batch)
+    res.update(aux=float(aux), loss_sum=float(s), tokens=float(n),
+               aux_share=float(aux) / float(s))
+    del params
+
+    # the two dispatches from the same weights: float32 losses, bf16 times
+    disp = {}
+    for dtype in ("float32", "bfloat16"):
+        for name in ("einsum", "sort"):
+            cfg = dataclasses.replace(base, dtype=dtype, moe=dataclasses.replace(
+                base.moe, dispatch=name))
+            art = make_train_step(Model(cfg), group, tc)
+            state = art.init_state(0, dev)
+            xs = art.broadcast(state)
+            del state
+            times = []
+            for _ in range(2):      # the first call's one-time costs apart
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                loss, grads = art.loss_and_grads(xs, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                del grads
+            disp[f"{name}_{dtype}"] = dict(loss=float(loss),
+                                           fwd_bwd_ms=times[-1])
+            del xs, art
+            torch.cuda.empty_cache()
+    for dtype in ("float32", "bfloat16"):
+        e, o = disp[f"einsum_{dtype}"]["loss"], disp[f"sort_{dtype}"]["loss"]
+        disp[f"rel_{dtype}"] = abs(o - e) / abs(e)
+    if not disp["rel_float32"] <= 1e-5:
+        raise AssertionError(f"6f: sort vs einsum losses in float32: {disp}")
+    res["dispatch"] = disp
+
+    # one --model 1 step: one shard, so no token exchange
+    calls = []
+    exchange = CL._exchange_experts
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return exchange(*a, **kw)
+    CL._exchange_experts = counted
+    try:
+        m1, launches, plain, log = _launch(
+            torch, mods, DIST_COUNTERS, "--steps", "1", "--model", "1",
+            arch="deepseek-moe-16b", layers=MOE_TRAIN_LAYERS)
+    finally:
+        CL._exchange_experts = exchange
+    ml = [h["loss"] for h in m1["history"]]
+    if plain or calls or len(ml) != 1 or not math.isfinite(ml[0]):
+        raise AssertionError(f"6f --model 1: losses {ml}, plain {plain}, "
+                             f"token exchanges {len(calls)}")
+    res.update(model1_loss=ml[0], model1_exchanges=len(calls),
+               model1_grid=log.splitlines()[0])
+    del m1
+    torch.cuda.empty_cache()
+    return res
 
 
 def flash_path(torch, dev, FA):
@@ -4796,6 +5319,20 @@ def main() -> int:
                   f"pack plain {t['pack_plain_ms']:.4f}, bound each way "
                   f"{t['bound_ms']:.4f} (bytes)", flush=True)
 
+    moe_table = check_moe_shapes(torch, dev, MM)
+    print("the MoE family's shapes: K12 on a code-resident deepseek-moe-16b "
+          "expert stack (a sliced layer's codes a view, bitwise its plain "
+          "version), K1 at the routers' shapes (one bf16 ulp plus the floor)",
+          flush=True)
+    for t in moe_table:
+        lib = (f" library {t['library_ms']:.4f}" if t["library_ms"]
+               is not None else "")
+        print(f"  {t['name']} ({t['what']}) {t['shape']}: {t['ms']:.4f} ms "
+              f"plain {t['plain_ms']:.4f}{lib} bound {t['bound_ms']:.4f} "
+              f"({t['bound_by']}, {t['bound_ms'] / t['ms']:.1%})",
+              flush=True)
+    torch.cuda.empty_cache()
+
     phase_s["3"] = time.perf_counter() - t3
     print(f"phase 3: {phase_s['3']:.1f} s", flush=True)
 
@@ -4822,6 +5359,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     ad = timed("4i", serve_admission, torch, dev, smods)
     torch.cuda.empty_cache()
+    ds16 = timed("4j", serve_moe, torch, dev, smods, "deepseek-moe-16b")
+    torch.cuda.empty_cache()
+    mav = timed("4k", serve_moe, torch, dev, smods,
+                "llama4-maverick-400b-a17b", layers=MAVERICK_LAYERS,
+                experts=MAVERICK_EXPERTS)
+    torch.cuda.empty_cache()
     tr = timed("5", train, torch, dev, mods)
     bl = timed("5b", alg1_baselines, torch, dev, mods)
     gt = timed("5c", graph_train, torch, dev, mods)
@@ -4839,12 +5382,15 @@ def main() -> int:
         ds = timed("6", dist_train, torch, dev, mods, group, model8, cfg8)
         md = timed("7", modes_train, torch, dev, mods, group, model8, cfg8)
         torch.cuda.empty_cache()
-        ck = timed("6b", ckpt_resume, torch, dev, mods, group, model8, cfg8)
+        cfg_ck = dataclasses.replace(cfg8, n_layers=CKPT_LAYERS)
+        ck = timed("6b", ckpt_resume, torch, dev, mods, group,
+                   Model(cfg_ck), cfg_ck)
         lv = timed("6c", llava_train, torch, dev, mods, group)
         a6 = timed("6d", adaptive_train, torch, dev, mods, group, model8,
                    cfg8)
         torch.cuda.empty_cache()
         h6 = timed("6e", hier_train, torch, dev, mods)
+        f6 = timed("6f", moe_train, torch, dev, mods, group)
     finally:
         close_process_group()
     wb = timed("8", wire_buffers, torch, dev, mods, model8)
@@ -4880,6 +5426,9 @@ def main() -> int:
                    "serve_gemma3": g3["launches"].get(r["name"], 0),
                    "serve_qwen": qw["launches"].get(r["name"], 0),
                    "serve_admission": ad["launches"].get(r["name"], 0),
+                   "serve_deepseek": ds16["launches"].get(r["name"], 0),
+                   "serve_maverick": mav["launches"].get(r["name"], 0),
+                   "train_moe": f6["launches"].get(r["name"], 0),
                    "train_llava": lv["launches"].get(r["name"], 0),
                    "flash": fp["launches_bf16"].get(r["name"], 0),
                    "flash_f32": fp["launches_f32"].get(r["name"], 0),
@@ -5077,7 +5626,7 @@ def main() -> int:
           f"by kernel:", flush=True)
     for name, t in gt["step_kernels"]:
         print(f"  {t:9.4f} ms  {name[:90]}")
-    print(f"distributed checkpoints (yi-6b x {TRAIN_LAYERS} layers, one "
+    print(f"distributed checkpoints (yi-6b x {CKPT_LAYERS} layers, one "
           f"NCCL rank, {CKPT_STEPS} steps): state {ck['state_bytes']} B "
           f"(largest leaf {ck['largest_leaf_bytes']} B); resumed from step "
           f"{ck['resumed_from']} bitwise the unbroken run (losses "
@@ -5138,6 +5687,48 @@ def main() -> int:
     for name, t in h6["step_kernels"]:
         print(f"  {t:9.4f} ms  {name[:90]}")
 
+    for sv in (ds16, mav):
+        dg = sv["decode_graph"]
+        print(f"{sv['arch']} ({sv['layers']} layers, {sv['experts']} "
+              f"experts): served {sv['tokens']} tokens in "
+              f"{sv['serve_s']:.3f} s ({sv['tok_per_s']:.2f} tok/s); "
+              f"resident {sv['resident_bytes']} B vs fp32 "
+              f"{sv['fp32_bytes']} B; start-up peak "
+              f"{sv['peak_startup_bytes']} B (quantized in "
+              f"{sv['startup_s']:.1f} s), peak {sv['peak_bytes']} B; "
+              f"decode step eager {dg['eager_ms']:.3f} ms wall / "
+              f"{dg['eager_device_ms']:.3f} device, graphed "
+              f"{dg['graph_ms']:.3f} / {dg['graph_device_ms']:.3f} (idle "
+              f"{dg['graph_idle']:.1%}); chunk {sv['chunk_ms']:.3f} ms wall "
+              f"/ {sv['chunk_device_ms']:.3f} device; launches "
+              f"{sv['launches']}; stats {sv['stats']}", flush=True)
+    fd = f6["dispatch"]
+    print(f"MoE training (6f, deepseek-moe-16b x {MOE_TRAIN_LAYERS} layers, "
+          f"{f6['n_params']} parameters, one NCCL rank, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens): losses "
+          f"{', '.join(f'{x:.4f}' for x in f6['losses'])}; step wall "
+          f"{f6['step_wall_ms']:.3f} ms, device {f6['step_device_ms']:.3f} "
+          f"ms (idle {f6['device_idle']:.1%}), {f6['tokens_per_s']:.1f} "
+          f"tok/s; phases " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                        f6["phases_ms"].items())
+          + f" ms; peak {f6['peak_bytes']} B; aux {f6['aux']:.6f} of the "
+          f"loss sum {f6['loss_sum']:.2f} ({f6['aux_share']:.3e}); "
+          f"forward+backward einsum {fd['einsum_bfloat16']['fwd_bwd_ms']:.1f}"
+          f" ms, sort {fd['sort_bfloat16']['fwd_bwd_ms']:.1f} ms (bf16; "
+          f"loss rel {fd['rel_bfloat16']:.2e}), float32 einsum "
+          f"{fd['einsum_float32']['fwd_bwd_ms']:.1f}, sort "
+          f"{fd['sort_float32']['fwd_bwd_ms']:.1f} ms (loss rel "
+          f"{fd['rel_float32']:.2e}, limit 1e-5); --model 1 "
+          f"({f6['model1_grid']}): loss {f6['model1_loss']:.4f}, token "
+          f"exchanges {f6['model1_exchanges']} (one shard: no all-to-all); "
+          f"launches {f6['launches']}; by kernel:", flush=True)
+    for name, t in f6["step_kernels"][:12]:
+        print(f"  {t:9.4f} ms  {name[:90]}")
+    print(f"6d's session closed and dropped without a collection: allocated "
+          f"{a6['allocated_before']} B before 6d, {a6['allocated_held']} B "
+          f"with the session, {a6['allocated_after_close']} B after",
+          flush=True)
+
     out_dir = os.path.join(HERE, "results")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
@@ -5156,6 +5747,8 @@ def main() -> int:
                        dist_ckpt=ck, serve_gemma3=g3, serve_qwen=qw,
                        serve_admission=ad, train_llava=lv, adaptive=a6,
                        deep_lanes=dl_table, paper_adaptive=pa, hier=h6,
+                       moe_shapes=moe_table, serve_deepseek=ds16,
+                       serve_maverick=mav, train_moe=f6,
                        phase_s=phase_s),
                   fh, indent=1)
     print("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in

@@ -6,7 +6,9 @@ port carries the dense GQA family: yi-6b (untied head), gemma2-2b (tied
 head, alternating sliding-window and global layers, softcaps,
 post-sublayer norms), gemma3-4b (5:1 local:global layers, qk-norm, a
 local RoPE base), qwen2.5-14b (QKV bias) and llava-next-mistral-7b (the
-mistral decoder on embedding input, its vision tower stubbed).
+mistral decoder on embedding input, its vision tower stubbed), and the
+MoE family: deepseek-moe-16b (2 shared + 64 routed experts, top-6) and
+llama4-maverick-400b-a17b (1 shared + 128 routed, top-1).
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ _MODULES = {
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
     "qwen2.5-14b": "repro_torch.configs.qwen2p5_14b",
     "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -24,10 +24,13 @@ channels through a :class:`TierGroups`: the exchange all-to-alls the
 group, and the broadcast gathers over the inter group first, then
 within the node. Flat tiers take the flat collectives op for op.
 
-One model-axis channel, the forward's per-layer weight gather:
+Two model-axis channels. The forward's per-layer weight gather:
 :func:`gather_shard` in float32, or :func:`quantized_gather_shard` with
 int8 codes and one scale a shard (K3, K4 and K12 on the card). Both are
-differentiable: the backward of an all-gather is a reduce-scatter.
+differentiable: the backward of an all-gather is a reduce-scatter. And
+the MoE layer's token exchange, :func:`expert_exchange`: a tiled
+all-to-all between every expert's capacity slots and this rank's local
+experts; its backward is the reverse exchange.
 
 The collectives are the synchronous forms of ``torch.distributed``: on
 NCCL they are ordered on the device after the current stream's work and
@@ -345,3 +348,62 @@ def quantized_gather_shard(leaf: torch.Tensor, ax: int, n_shards: int,
     ``absolute``, whose scale is the constant 0.5)."""
     return _QuantizedGather.apply(leaf, ax, max(int(n_shards), 1), k_x,
                                   absolute, group, backend)
+
+
+# ---------------------------------------------------------------------------
+# model-axis expert exchange (expert parallelism)
+# ---------------------------------------------------------------------------
+
+def _exchange_experts(x: torch.Tensor, group, to_experts: bool
+                      ) -> torch.Tensor:
+    """One tiled all-to-all over the model group of n ranks, rank j
+    owning experts [j E_loc, (j + 1) E_loc).
+
+    ``to_experts``: (E, C, d) capacity slots of this rank's tokens ->
+    (E_loc, n C, d), every rank's slots for the local experts, rank j's
+    at columns [j C, (j + 1) C) (the reference's ``all_to_all(split_axis
+    =0, concat_axis=1, tiled=True)``). Otherwise the inverse: (E_loc,
+    n C, d) -> (E, C, d), rank j's experts' outputs for this rank's
+    tokens at rows [j E_loc, (j + 1) E_loc) (``split_axis=1,
+    concat_axis=0``)."""
+    n = group_size(group)
+    if to_experts:
+        E, C, d = x.shape
+        send = x.reshape(n, E // n, C, d).contiguous()
+    else:
+        El, nC, d = x.shape
+        send = x.reshape(El, n, nC // n, d).movedim(1, 0).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    if to_experts:                      # recv[j]: rank j's slots
+        return recv.movedim(0, 1).reshape(E // n, n * C, d)
+    return recv.reshape(n * El, nC // n, d)
+
+
+class _ExpertExchange(torch.autograd.Function):
+    """:func:`_exchange_experts` with autograd: the transpose of a tiled
+    all-to-all is the all-to-all the other way, as ``jax.grad`` takes it
+    through the reference's ``lax.all_to_all``."""
+
+    @staticmethod
+    def forward(ctx, x, group, to_experts):
+        ctx.group, ctx.to_experts = group, to_experts
+        return _exchange_experts(x, group, to_experts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_exchange_experts(g, ctx.group, not ctx.to_experts), None,
+                None)
+
+
+def expert_exchange(x: torch.Tensor, group, to_experts: bool
+                    ) -> torch.Tensor:
+    """The MoE token exchange over the model group (see
+    :func:`_exchange_experts`), differentiable. A rank's loss then
+    depends on the other ranks' local experts, and its backward sends
+    their cotangents back to them: each rank's local expert leaves get
+    the gradient of every rank's tokens' loss through them. One rank:
+    the tensor itself."""
+    if group_size(group) <= 1:
+        return x
+    return _ExpertExchange.apply(x, group, to_experts)

@@ -296,10 +296,13 @@ def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
     updater = mode.make_updater(tc, WorkerCtx(
         group=group, n_workers=n_workers, backend=tc.backend,
         tiers=tiers, groups=groups))
-    gather = _make_param_gather(
-        layout, n_shards, grid.model, expert_local=n_shards > 1,
+    # the expert stacks stay local (E / n_shards experts a rank) where
+    # the sequence splits over the model axis, as the reference's
+    # ``expert_local=cp``; else they are gathered whole like any leaf
+    gathers = {cp: _make_param_gather(
+        layout, n_shards, grid.model, expert_local=cp,
         quant_k=tc.model_gather_quant, quant_absolute=False,
-        quant_min_numel=2 ** 14, backend=tc.backend)
+        quant_min_numel=2 ** 14, backend=tc.backend) for cp in (False, True)}
     replicated = [m.dim == SH.REPLICATED for m in metas_flat]
 
     def flat(tree):
@@ -387,13 +390,26 @@ def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
         """2. forward/backward at Q_x(x_t) on this rank's part of the
         batch: the gradients of its worker's mean loss on its model
         shards, and the global loss sum(s) / sum(n) over every rank (a
-        0-d tensor on the device)."""
+        0-d tensor on the device).
+
+        The reference differentiates ``psum(s) / psum(n) / Nm`` over
+        the model axis; psum's transpose is psum, so each shard's local
+        s takes the cotangent 1 / psum(n), which is what ``s / den``
+        gives here. Gathered leaves then sum their shards' gradients in
+        the gathers' reduce-scatter, and replicated leaves in the
+        all-reduce below. A MoE layer's local expert leaves (E / Nm
+        experts a rank, never gathered) get theirs through the token
+        exchange: its backward returns every shard's cotangents to the
+        experts' owner, so each local expert leaf takes the gradient of
+        the whole worker's loss through it, divided by psum(n), which
+        is what ``jax.grad`` gives in the reference's ``cp_equiv`` run;
+        they take no all-reduce."""
         xs = [x.detach().requires_grad_() for x in xs]
         cp = _batch_geometry(batch, n_shards)
         mine = shard_batch(batch, rank, n_workers, shard, n_shards)
         ctx = L.ShardCtx(cp_group=grid.model if cp else None,
                          cp_size=n_shards if cp else 1, cp_rank=shard,
-                         param_gather=gather)
+                         param_gather=gathers[cp])
         with torch.enable_grad():
             s, n = model.loss(unflat(xs), mine, ctx)
             den = n

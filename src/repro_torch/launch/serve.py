@@ -11,10 +11,13 @@ runs the small configuration on the CPU through the kernels' plain
 versions. ``--arch`` takes the dense family of ``repro_torch.configs``:
 yi-6b, gemma2-2b, gemma3-4b and qwen2.5-14b (llava-next-mistral-7b takes
 embedding input, which the session does not serve, and is refused as
-the reference refuses it). Weights are random, drawn from ``--seed``;
-with ``--quantized`` each float32 leaf is dropped as soon as its codes
-exist, so the start-up peak stays near the float32 tree (qwen2.5-14b's
-59 GB). gemma2-2b's and gemma3-4b's heads are tied to their embedding:
+the reference refuses it), and the MoE family: deepseek-moe-16b and
+llama4-maverick-400b-a17b (the latter's 128 experts of 8192 a layer
+do not fit one card at its 48 layers). Weights are random, drawn from
+``--seed``; with ``--quantized`` each float32 leaf is dropped as soon
+as its codes exist, so the start-up peak stays near the float32 tree
+(qwen2.5-14b's 59 GB, deepseek-moe-16b's 67.5 GB, the largest leaf's
+codes beside it). gemma2-2b's and gemma3-4b's heads are tied to their embedding:
 quantized, both read the one table of codes (the lookup by row, the
 head through the transposed dequant-matmul). The peak memory is
 printed: the device's on a GPU, the process's resident set on the CPU.
@@ -64,7 +67,8 @@ def peak_memory(device) -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="yi-6b, gemma2-2b, gemma3-4b or qwen2.5-14b "
+                    help="yi-6b, gemma2-2b, gemma3-4b, qwen2.5-14b, "
+                         "deepseek-moe-16b or llama4-maverick-400b-a17b "
                          "(repro_torch.configs)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)

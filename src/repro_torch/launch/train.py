@@ -68,6 +68,15 @@ quantized exchange across the N nodes, e.g. on four cards
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch yi-6b \
       --data 2 --model 2 --model-gather-quant 8 --steps 5
 
+The MoE family trains the same way (``--arch deepseek-moe-16b`` or
+``llama4-maverick-400b-a17b``); under ``--model N`` each rank holds
+E / N of every layer's experts and the MoE layers exchange their tokens
+over the model group (expert parallelism), e.g.
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch deepseek-moe-16b --smoke --device cpu --data 2 --model 2 \
+      --steps 3 --seq 32 --global-batch 4
+
 ``--layers N`` cuts the configuration's depth at full width.
 
 Bucket tuning and AOT artifacts are not ported (ROADMAP.md queue 1):

@@ -1,5 +1,5 @@
-"""Building-block layers, dense decoder subset (port of
-``repro/models/layers.py``, local path).
+"""Building-block layers of the dense and MoE decoders (port of
+``repro/models/layers.py``).
 
 Each function repeats the reference's float32 arithmetic in the same
 order (norm statistics, rope angles, the ``cap * tanh(s / cap)``
@@ -17,18 +17,19 @@ weight to the activation dtype.
 Context parallelism (:class:`ShardCtx`): under a sharded context the
 sequence is split over the model group; training attention all-gathers
 K and V along the sequence (its backward reduce-scatters them) and masks
-with global positions.
+with global positions, and the MoE layer holds E / n of the experts and
+exchanges tokens with the other ranks (``collectives.expert_exchange``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.serve.quantized import QuantizedLeaf
 
 
@@ -263,3 +264,160 @@ def mlp(params, x, backend: Optional[str] = None):
     h = (F.silu(pmatmul(x, params["w_gate"], backend))
          * pmatmul(x, params["w_up"], backend))
     return pmatmul(h, params["w_down"], backend)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (shared + routed experts; einsum or sort dispatch)
+# ---------------------------------------------------------------------------
+
+def capacity(T: int, mcfg: MoEConfig) -> int:
+    """Slots an expert takes per call of T tokens: ``ceil(T k / E *
+    capacity_factor)``, at least 1, in Python doubles as the reference.
+    Every routed token counts (a padded chunk tail, an idle decode
+    slot), so chunked, whole and injected admission drop differently."""
+    return max(1, math.ceil(T * mcfg.top_k / mcfg.n_experts
+                            * mcfg.capacity_factor))
+
+
+def moe_route(params, xt: torch.Tensor, mcfg: MoEConfig,
+              backend: Optional[str] = None):
+    """The router of T tokens xt (T, d): (float32 softmax probabilities
+    (T, E), renormalized top-k gate values (T, k), their expert indices
+    (T, k) int64). The logits are taken in xt's dtype (K1 for a
+    code-resident router) and only then widened, as the reference
+    rounds them. Top-k is a stable descending sort, so a tie puts the
+    lower expert index first, as ``jax.lax.top_k`` does (``torch.topk``
+    promises no order on ties, and bf16 router logits tie often)."""
+    logits = pmatmul(xt, params["router"], backend).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = vals[:, :mcfg.top_k], idx[:, :mcfg.top_k]
+    gate_vals = gate_vals / torch.clamp_min(
+        gate_vals.sum(dim=-1, keepdim=True), 1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def _dispatch_einsum(xt, gate_idx, gate_vals, E: int, C: int):
+    """The Switch one-hot dispatch: (xe (E, C, d), comb (T, E, C)). Slot
+    c of expert e is the c-th of its (token, choice) pairs in token
+    order; later ones are dropped. Each (e, c) holds one pair at most,
+    so both products sum one nonzero term."""
+    T, k = gate_idx.shape
+    dt = xt.dtype
+    dev = xt.device
+    onehot = (gate_idx[..., None] == torch.arange(E, device=dev)).to(
+        torch.int32)                                        # (T, k, E)
+    flatoh = onehot.reshape(T * k, E)
+    pos = (torch.cumsum(flatoh, dim=0) * flatoh - 1).reshape(T, k, E)
+    in_cap = (pos >= 0) & (pos < C)
+    disp = ((pos[..., None] == torch.arange(C, device=dev)).to(dt)
+            * in_cap[..., None].to(dt) * onehot[..., None].to(dt))
+    comb = torch.sum(disp * gate_vals.to(dt)[:, :, None, None], dim=1)
+    xe = torch.einsum("td,tkec->ecd", xt, disp)
+    return xe, comb
+
+
+def _dispatch_sort(xt, gate_idx, E: int, C: int):
+    """The argsort dispatch (the reference's ``_moe_dispatch_sort``),
+    with no one-hot tensors and no scatter: a stable sort of the T k
+    (token, choice) pairs by expert keeps token order within an expert,
+    so expert e's rank-c pair fills slot (e, c) and the same late pairs
+    as the einsum path's are dropped. Slot (e, c) gathers its pair's
+    row (zeros where expert e has fewer than c + 1 pairs): every kept
+    destination is one pair's, so no sum order enters, and the backward
+    sums a token's k rows in a fixed order (no atomics).
+
+    Returns (xe (E, C, d), dest (T, k) flat slot of each pair, clipped
+    into its expert's slots, keep (T, k) bool)."""
+    T, k = gate_idx.shape
+    d = xt.shape[1]
+    dev = xt.device
+    flat_e = gate_idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    experts = torch.arange(E, device=dev)
+    starts = torch.searchsorted(se, experts)
+    counts = torch.searchsorted(se, experts, right=True) - starts
+    rank = torch.arange(T * k, device=dev) - starts[se]
+    cols = torch.arange(C, device=dev)
+    slot = torch.clamp(starts[:, None] + cols, max=T * k - 1)   # (E, C)
+    filled = cols[None, :] < counts[:, None]
+    xs = xt[:, None, :].expand(T, k, d).reshape(T * k, d)[order]
+    xe = torch.where(filled[..., None], xs[slot],
+                     torch.zeros((), dtype=xt.dtype, device=dev))
+    inv = torch.argsort(order)          # pair i sits at inv[i] in sorted order
+    keep = (rank < C)[inv].reshape(T, k)
+    dest = (se * C + torch.clamp(rank, max=C - 1))[inv].reshape(T, k)
+    return xe, dest, keep
+
+
+def _combine_sort(ye, gate_idx, gate_vals, dest, keep, dtype):
+    """The reference's ``_moe_combine_sort``: each token's k expert rows
+    times their gate values, summed into zeros in ascending expert order
+    (the order its scatter-add takes them, the pairs sorted by expert),
+    one add at a time in ``dtype``."""
+    T, k = gate_idx.shape
+    d = ye.shape[-1]
+    by_expert = torch.argsort(gate_idx, dim=1, stable=True)
+    dest = torch.take_along_dim(dest, by_expert, dim=1)
+    w = torch.take_along_dim(gate_vals * keep.to(gate_vals.dtype),
+                             by_expert, dim=1).to(dtype)
+    vals = ye.reshape(-1, d)[dest.reshape(-1)].reshape(T, k, d) * w[..., None]
+    y = torch.zeros((T, d), dtype=dtype, device=ye.device)
+    for j in range(k):
+        y = y + vals[:, j]
+    return y
+
+
+def moe(params, x: torch.Tensor, mcfg: MoEConfig,
+        ctx: ShardCtx = ShardCtx(), backend: Optional[str] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE feed-forward of x (B, S, d): (y (B, S, d), the 0-d float32
+    load-balance aux loss), step for step the reference's
+    ``layers.moe``.
+
+    The router (:func:`moe_route`); the Switch aux loss from the top-1
+    choice, ``sum(mean(probs) * mean(one_hot(idx[:, 0]))) * E *
+    router_aux_weight``; the capacity (:func:`capacity`); the dispatch
+    ``mcfg.dispatch`` names (``"einsum"``: the (T, k, E, C) one-hot
+    tensors and two plain products, left to ``torch.einsum`` as the
+    reference leaves them to XLA; ``"sort"``: :func:`_dispatch_sort` and
+    :func:`_combine_sort`); the routed experts silu(xe W_gate) * (xe
+    W_up) W_down on the stacks (E, d, f), cast to x's dtype; the shared
+    experts through :func:`mlp` (K1 on code-resident weights).
+
+    Under a sharded context the expert stacks are this rank's E / n
+    experts: the slots go to their owners and come back through
+    ``collectives.expert_exchange``. Every step is deterministic: the
+    sorts are stable, the dispatch gathers, and the sums run in fixed
+    orders."""
+    Bn, S, d = x.shape
+    T = Bn * S
+    xt = x.reshape(T, d)
+    E = mcfg.n_experts
+    probs, gate_vals, gate_idx = moe_route(params, xt, mcfg, backend)
+    me = torch.mean(probs, dim=0)
+    ce = torch.mean((gate_idx[:, :1] == torch.arange(
+        E, device=x.device)).to(torch.float32), dim=0)
+    aux = torch.sum(me * ce) * E * mcfg.router_aux_weight
+    C = capacity(T, mcfg)
+    if mcfg.dispatch == "sort":
+        xe, dest, keep = _dispatch_sort(xt, gate_idx, E, C)
+    else:
+        xe, comb = _dispatch_einsum(xt, gate_idx, gate_vals, E, C)
+    if ctx.sharded:
+        from repro_torch.dist import collectives as CL
+        xe = CL.expert_exchange(xe, ctx.cp_group, to_experts=True)
+    h = torch.einsum("ecd,edf->ecf", xe, params["w_gate"].to(xe.dtype))
+    h = F.silu(h) * torch.einsum("ecd,edf->ecf", xe,
+                                 params["w_up"].to(xe.dtype))
+    ye = torch.einsum("ecf,efd->ecd", h, params["w_down"].to(xe.dtype))
+    if ctx.sharded:
+        ye = CL.expert_exchange(ye, ctx.cp_group, to_experts=False)
+    if mcfg.dispatch == "sort":
+        y = _combine_sort(ye, gate_idx, gate_vals, dest, keep, xt.dtype)
+    else:
+        y = torch.einsum("ecd,tec->td", ye, comb)
+    if mcfg.n_shared:
+        y = y + mlp(params["shared"], xt, backend)
+    return y.reshape(Bn, S, d), aux

@@ -1,12 +1,17 @@
-"""Dense decoder LM: training forward and loss, whole-prompt prefill,
-and the serving decode (port of ``repro/models/model.py``).
+"""Decoder LMs of the dense and MoE families: training forward and
+loss, whole-prompt prefill, and the serving decode (port of
+``repro/models/model.py``).
 
 Parameters keep the reference's tree: ``embed`` (V, d), ``unembed``
 (d, V) unless the head is tied to ``embed``, ``final_norm``, and the
 scan-stacked ``blocks`` whose leaves carry a leading layer dim (L, ...),
 with ``ln1_post``/``ln2_post`` where the config asks for post-sublayer
-norms, ``attn.bq``/``bk``/``bv`` with a QKV bias (qwen2.5) and
-``attn.q_norm``/``k_norm`` with qk-norm (gemma3). Where the reference
+norms, ``attn.bq``/``bk``/``bv`` with a QKV bias (qwen2.5),
+``attn.q_norm``/``k_norm`` with qk-norm (gemma3), and ``moe`` in place
+of ``mlp`` where the config has a ``MoEConfig`` (deepseek-moe-16b,
+llama4-maverick): ``router`` (d, E), the expert stacks ``w_gate``/
+``w_up`` (E, d, fe) and ``w_down`` (E, fe, d), and ``shared``, an MLP
+of width ``n_shared * fe``. Where the reference
 scans over that dim with ``lax.scan`` and per-layer flag arrays
 (windows, RoPE bases), the port loops over layers in Python with the
 same flags as Python numbers. A model with ``input_mode="embeddings"``
@@ -71,19 +76,22 @@ class _DropScatter:
 class Model:
     cfg: ModelConfig
 
-    def _check_dense(self):
-        """The port's decoder is the dense GQA family (yi-6b, gemma2-2b,
+    def _check_family(self):
+        """The port's decoder is the GQA family, dense (yi-6b, gemma2-2b,
         gemma3-4b, qwen2.5-14b, and llava-next's mistral decoder, which
-        is this family on embedding input): rmsnorm, gated silu MLP;
-        tied or untied head, sliding-window layers, softcaps,
+        is this family on embedding input) or with MoE feed-forwards
+        (deepseek-moe-16b, llama4-maverick): rmsnorm, gated silu MLP or
+        experts; tied or untied head, sliding-window layers, softcaps,
         post-sublayer norms, embedding scaling, QKV bias, qk-norm and a
-        local RoPE base as the config says."""
+        local RoPE base as the config says. The SSM, hybrid and
+        encoder-decoder families and meta tokens are refused by name."""
         c = self.cfg
         extras = [name for name, on in (
-            (f"arch_type {c.arch_type}", c.arch_type not in ("dense", "vlm")),
+            (f"arch_type {c.arch_type}",
+             c.arch_type not in ("dense", "vlm", "moe")),
             (f"input_mode {c.input_mode}",
              c.input_mode not in ("tokens", "embeddings")),
-            ("moe", c.moe is not None), ("meta_tokens", c.meta_tokens > 0),
+            ("meta_tokens", c.meta_tokens > 0),
             ("norm != rmsnorm", c.norm != "rmsnorm"),
             ("act != silu", c.act != "silu")) if on]
         if extras:
@@ -100,7 +108,7 @@ class Model:
         ``generator`` (default: a generator on ``device`` seeded with
         ``seed``); the numbers differ from ``jax.random``'s, so tests
         convert the reference's tree instead (``repro_torch.convert``)."""
-        self._check_dense()
+        self._check_family()
         cfg = self.cfg
         dev = torch.device(device)
         if generator is None:
@@ -136,8 +144,22 @@ class Model:
         if cfg.post_norm:
             blocks["ln1_post"] = {"w": ones(n, d)}
             blocks["ln2_post"] = {"w": ones(n, d)}
-        blocks["mlp"] = {"w_gate": dense(n, d, f), "w_up": dense(n, d, f),
-                         "w_down": dense(n, f, d)}
+        if cfg.moe is None:
+            blocks["mlp"] = {"w_gate": dense(n, d, f),
+                             "w_up": dense(n, d, f),
+                             "w_down": dense(n, f, d)}
+        else:
+            m = cfg.moe
+            E, fe = m.n_experts, m.d_ff_expert or f
+            blocks["moe"] = {"router": dense(n, d, E),
+                             "w_gate": dense(n, E, d, fe),
+                             "w_up": dense(n, E, d, fe),
+                             "w_down": dense(n, E, fe, d)}
+            if m.n_shared:
+                fs = m.n_shared * fe
+                blocks["moe"]["shared"] = {"w_gate": dense(n, d, fs),
+                                           "w_up": dense(n, d, fs),
+                                           "w_down": dense(n, fs, d)}
         params["blocks"] = blocks
         return params
 
@@ -176,6 +198,13 @@ class Model:
         logits = logits.to(torch.float32)
         return L.apply_softcap(logits, cfg.final_softcap)
 
+    def _ffn(self, p, h, backend=None, ctx: L.ShardCtx = L.ShardCtx()):
+        """The feed-forward sublayer of the normed input h: (out, the
+        0-d float32 MoE aux loss, or None for a dense MLP)."""
+        if self.cfg.moe is None:
+            return L.mlp(p["mlp"], h, backend), None
+        return L.moe(p["moe"], h, self.cfg.moe, ctx, backend)
+
     def _post(self, out, p, name):
         """The post-sublayer norm (gemma2) where the config has one."""
         if self.cfg.post_norm:
@@ -209,10 +238,11 @@ class Model:
     def _block(self, p, x, q_pos, window, theta, backend=None, kv=None,
                ctx: L.ShardCtx = L.ShardCtx()):
         """One decoder block of the training forward on x (B, S, d) at
-        global positions ``q_pos``; ``kv``, a list, collects the layer's
-        (k, v) (prefill). The layer's weights pass ``ctx.gather(p,
-        "blocks")`` first, inside the block, so that a checkpointed block
-        gathers them again in the backward instead of keeping them."""
+        global positions ``q_pos``: (x, the layer's MoE aux loss or
+        None); ``kv``, a list, collects the layer's (k, v) (prefill). The
+        layer's weights pass ``ctx.gather(p, "blocks")`` first, inside
+        the block, so that a checkpointed block gathers them again in the
+        backward instead of keeping them."""
         cfg = self.cfg
         Bn, S, _ = x.shape
         p = ctx.gather(p, "blocks")
@@ -225,14 +255,24 @@ class Model:
                            softcap=cfg.attn_softcap, ctx=ctx)
         attn = L.pmatmul(attn.reshape(Bn, S, -1), pa["o"], backend)
         x = x + self._post(attn, p, "ln1_post")
-        out = L.mlp(p["mlp"], L.apply_norm(x, p["ln2"], cfg), backend)
-        return x + self._post(out, p, "ln2_post")
+        out, aux = self._ffn(p, L.apply_norm(x, p["ln2"], cfg), backend,
+                             ctx)
+        return x + self._post(out, p, "ln2_post"), aux
 
     def forward(self, params, batch,
                 ctx: L.ShardCtx = L.ShardCtx()) -> torch.Tensor:
         """Training forward of float parameters -> float32 logits
-        (B, S, V). batch: {"tokens": (B, S) int}, or {"embeds": (B, S,
-        d)} for an embedding-input model.
+        (B, S, V); :meth:`forward_with_aux` also returns the MoE aux
+        loss."""
+        return self.forward_with_aux(params, batch, ctx)[0]
+
+    def forward_with_aux(self, params, batch,
+                         ctx: L.ShardCtx = L.ShardCtx()):
+        """Training forward of float parameters -> (float32 logits
+        (B, S, V), the 0-d float32 aux loss summed over the MoE layers,
+        an exact 0 for a dense model), the reference's ``forward``.
+        batch: {"tokens": (B, S) int}, or {"embeds": (B, S, d)} for an
+        embedding-input model.
 
         ``ctx`` (``layers.ShardCtx``): under context parallelism the batch
         holds this shard's S positions of the sequence, at global
@@ -246,20 +286,23 @@ class Model:
         once, so the backward stacks each leaf's per-layer gradients in
         one copy. The weight products are ``torch.matmul`` in the
         activation dtype, as the reference leaves them to XLA."""
-        self._check_dense()
+        self._check_family()
         cfg = self.cfg
         params = ctx.gather(params, "static")
         x = self._embed_in(params, batch, "tokens")
         S = x.shape[1]
         q_pos = ctx.cp_index() * S + torch.arange(S, device=x.device)
         per_layer = tree_map(lambda w: torch.unbind(w, 0), params["blocks"])
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, (window, theta) in enumerate(zip(cfg.layer_windows(),
                                                 cfg.layer_rope_thetas())):
             p = tree_map(lambda ws: ws[i], per_layer)
-            x = checkpoint(self._block, p, x, q_pos, window, theta, None,
-                           None, ctx, use_reentrant=False)
+            x, aux = checkpoint(self._block, p, x, q_pos, window, theta,
+                                None, None, ctx, use_reentrant=False)
+            if aux is not None:
+                aux_total = aux_total + aux
         x = L.apply_norm(x, params["final_norm"], cfg)
-        return self._head(params, x)
+        return self._head(params, x), aux_total
 
     def prefill(self, params, batch, max_seq_local: int,
                 gather: Gather = None, backend: Optional[str] = None):
@@ -270,7 +313,7 @@ class Model:
         the cache zero-padded past S. ``gather`` is the per-layer
         parameter hook of code-resident weights (``make_dequant_gather``);
         no activations are kept for a backward."""
-        self._check_dense()
+        self._check_family()
         cfg = self.cfg
         ctx = L.ShardCtx(param_gather=gather)
         params = ctx.gather(params, "static")
@@ -283,8 +326,8 @@ class Model:
         kv = []
         for i, (window, theta) in enumerate(zip(cfg.layer_windows(),
                                                 cfg.layer_rope_thetas())):
-            x = self._block(layer_slice(params["blocks"], i), x, q_pos,
-                            window, theta, backend, kv, ctx)
+            x, _ = self._block(layer_slice(params["blocks"], i), x, q_pos,
+                               window, theta, backend, kv, ctx)
         x = L.apply_norm(x, params["final_norm"], cfg)
         logits = self._head(params, x, backend)
         pad = (0, 0, 0, 0, 0, max_seq_local - S)
@@ -294,10 +337,12 @@ class Model:
         return logits, cache
 
     def loss(self, params, batch, ctx: L.ShardCtx = L.ShardCtx()):
-        """(sum of masked next-token NLL, token count), both 0-d float32:
-        the caller takes the mean. batch: tokens, targets (B, S) and an
-        optional float mask (this shard's positions under ``ctx``)."""
-        logits = self.forward(params, batch, ctx)
+        """(sum of masked next-token NLL plus the MoE aux loss, token
+        count), both 0-d float32: the caller takes the mean. batch:
+        tokens, targets (B, S) and an optional float mask (this shard's
+        positions under ``ctx``). A dense model adds no aux term (the
+        reference adds its exact 0)."""
+        logits, aux = self.forward_with_aux(params, batch, ctx)
         targets = batch["targets"].long()
         mask = batch.get("mask")
         if mask is None:
@@ -306,7 +351,9 @@ class Model:
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
         nll = (logz - gold) * mask
-        return nll.sum(), mask.sum()
+        if self.cfg.moe is None:
+            return nll.sum(), mask.sum()
+        return nll.sum() + aux, mask.sum()
 
     # ---------------- KV cache ----------------
     def init_cache(self, batch_size: int, max_seq_local: int, dtype=None,
@@ -317,7 +364,7 @@ class Model:
         ``pk``/``pv`` (layers, num_pages, page_size, K, hd) plus a page
         table ``ptab`` (B, max_seq // page_size) initialised to the
         RELEASED sentinel ``num_pages``."""
-        self._check_dense()
+        self._check_family()
         cfg = self.cfg
         dtype = dtype or _dt(cfg)
         K, hd, lyr = cfg.n_kv_heads, cfg.head_dim_, cfg.n_layers
@@ -402,8 +449,8 @@ class Model:
             attn = attend(q, kc, vc, view, windows[i])
             attn = L.pmatmul(attn.reshape(Bn, S, H * hd), pa["o"], backend)
             x = x + self._post(attn, p, "ln1_post")
-            h2 = L.apply_norm(x, p["ln2"], cfg)
-            x = x + self._post(L.mlp(p["mlp"], h2, backend), p, "ln2_post")
+            out, _ = self._ffn(p, L.apply_norm(x, p["ln2"], cfg), backend)
+            x = x + self._post(out, p, "ln2_post")
         return L.apply_norm(x, params["final_norm"], cfg)
 
     # ---------------- decode ----------------
@@ -418,7 +465,7 @@ class Model:
         implementation (default: by device); ``write``, (B,) bool, drops
         the K/V writes of the rows where it is False (a session's
         inactive slots)."""
-        self._check_dense()
+        self._check_family()
         cfg = self.cfg
         if gather is not None:
             params = gather(params, "static")
@@ -446,7 +493,7 @@ class Model:
         of each slot's first chunk token; nvalid: (B,) valid tokens (the
         padded tail's writes are dropped). Returns (logits (B, V) of
         position start + nvalid - 1, cache updated in place)."""
-        self._check_dense()
+        self._check_family()
         cfg = self.cfg
         if gather is not None:
             params = gather(params, "static")

@@ -7,8 +7,11 @@ codec's packed 3/4/6-bit lanes with ``pack=True``) plus f32 scales, one
 per layer for the scan-stacked ``blocks`` leaves. Quantization runs the
 K3 amax and K4 quantize kernels on CUDA tensors (one launch each per
 leaf). Matmul-shaped leaves stay as codes through
-``make_dequant_gather`` and feed the K1 dequant-matmul; the rest
-dequantize at use, per layer.
+``make_dequant_gather`` and feed the K1 dequant-matmul; the rest (norm
+stacks, MoE expert stacks (L, E, d, f), embedding rows) dequantize at
+use, per layer, through the K12 uniform dequantize kernel on CUDA
+tensors (``QuantizedLeaf.dequantize``; one launch a call, one row of
+codes a layer).
 
 Parameter trees are nested dicts of tensors, as the reference's; the
 model loops over layers in Python and slices stacked leaves with
@@ -22,12 +25,22 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.comm import bits as B
+from repro_torch.comm import kernels as K
 from repro_torch.comm import matmul as MM
-from repro_torch.comm.codec import UniformCodec
+from repro_torch.comm.codec import UniformCodec, resolve_backend
 from repro_torch.opt import engine, grids
 from repro_torch.tree import tree_leaves
 
 _STACKED_KEYS = ("blocks", "enc_blocks")
+plain_on_cuda = 0   # plain dequantizes of CUDA leaves (K12 bypassed)
+
+
+def code_rows(codes: torch.Tensor, scale: torch.Tensor):
+    """(codes as (rows, n), scale as (rows,)): one row a layer for a
+    stacked leaf's per-layer scales, one row for a 0-d scale. A view of
+    contiguous codes: K12 reads the codes where they lie."""
+    rows = scale.numel() if scale.dim() else 1
+    return codes.reshape(rows, -1), scale.reshape(rows)
 
 
 @dataclasses.dataclass
@@ -67,25 +80,38 @@ class QuantizedLeaf:
         return dataclasses.replace(self, codes=self.codes[i],
                                    scale=self.scale[i])
 
-    def _finish(self, codes: torch.Tensor, scale) -> torch.Tensor:
+    def _finish(self, codes: torch.Tensor, scale: torch.Tensor,
+                backend: Optional[str] = None) -> torch.Tensor:
+        """``codes`` (this leaf's, or rows of them) dequantized with
+        ``scale`` (0-d, or one a leading row), then the leaf's dtype and
+        the pending cast. On CUDA tensors K12 does the dequantize
+        (``comm.kernels.uniform_dequantize_rows``), bitwise the plain
+        ``grids.uniform_dequantize``; on the CPU, or with
+        ``backend="torch"``, the plain version runs."""
+        global plain_on_cuda
         if self.pack_bits:
             lead = codes.shape[:-1]
             flat = codes.reshape(-1, codes.shape[-1])
             numel = self.shape[-1]
             codes = B.unpack_rows(flat, self.pack_bits, numel).reshape(
                 lead + (numel,))
-        out = grids.uniform_dequantize(codes, scale, self.k_x).to(
-            MM._dtype(self.dtype))
+        if resolve_backend(backend, codes, scale) == "cuda":
+            rows, srow = code_rows(codes, scale)
+            out = K.uniform_dequantize_rows(rows, srow, self.k_x,
+                                            backend="cuda").reshape(
+                                                codes.shape)
+        else:
+            plain_on_cuda += codes.is_cuda
+            if scale.dim():   # per-layer scales over their layer
+                scale = scale.reshape(tuple(scale.shape)
+                                      + (1,) * (codes.dim() - 1))
+            out = grids.uniform_dequantize(codes, scale, self.k_x)
+        out = out.to(MM._dtype(self.dtype))
         return out.to(MM._dtype(self.cast)) if self.cast else out
 
-    def dequantize(self) -> torch.Tensor:
-        """Codes -> float tensor (per-layer scales broadcast over their
-        layer)."""
-        scale = self.scale
-        ndim = self.codes.dim()
-        if scale.dim():
-            scale = scale.reshape(tuple(scale.shape) + (1,) * (ndim - scale.dim()))
-        return self._finish(self.codes, scale)
+    def dequantize(self, backend: Optional[str] = None) -> torch.Tensor:
+        """Codes -> float tensor (per-layer scales over their layer)."""
+        return self._finish(self.codes, self.scale, backend)
 
     def _mm(self, x, transpose: bool, backend: Optional[str]):
         return MM.dequant_matmul(x, self.codes, self.scale, k_x=self.k_x,
@@ -182,24 +208,28 @@ def _fused_ok(path, leaf, kind: str) -> bool:
     return len(leaf.shape) == (2 if kind == "static" else 3)
 
 
-def make_dequant_gather(fused: bool = True):
+def make_dequant_gather(fused: bool = True, backend: Optional[str] = None):
     """The per-layer parameter hook for code-resident params:
     ``gather(subtree, kind)`` with kind "static" (the whole tree: stacked
     subtrees are left for the layer loop) or "blocks" (one layer's
     slice). Matmul-shaped leaves stay as codes (``fused``); everything
-    else dequantizes here, at use. With ``fused=False`` a matmul leaf is
-    dequantized in plain PyTorch and multiplied by ``torch.matmul``: on a
-    CUDA tensor that counts as a plain version on the card
-    (``matmul.plain_on_cuda``), since K1 is bypassed."""
+    else (norm stacks, MoE expert stacks) dequantizes here, at use, on
+    K12 (``backend`` as in :meth:`QuantizedLeaf.dequantize`). With
+    ``fused=False`` a matmul leaf is dequantized in plain PyTorch and
+    multiplied by ``torch.matmul``: on a CUDA tensor that counts as a
+    plain version on the card (``matmul.plain_on_cuda``), since K1 is
+    bypassed."""
     def gather(subtree, kind: str):
         def one(path, leaf):
             if kind == "static" and path and path[0] in _STACKED_KEYS:
                 return leaf
-            if is_qleaf(leaf) and _fused_ok(path, leaf, kind):
+            if not is_qleaf(leaf):
+                return leaf
+            if _fused_ok(path, leaf, kind):
                 if fused:
                     return leaf
                 MM.plain_on_cuda += leaf.codes.is_cuda
-            return leaf.dequantize() if is_qleaf(leaf) else leaf
+            return leaf.dequantize(backend)
         return tree_map_with_path(one, subtree)
 
     return gather

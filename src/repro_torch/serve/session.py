@@ -146,9 +146,10 @@ class ServeSession:
                  prefill_chunk: int = 32, preempt_mode: str = "requeue",
                  device="cuda"):
         cfg = model.cfg
-        if cfg.input_mode != "tokens" or cfg.arch_type != "dense":
+        if cfg.input_mode != "tokens" or cfg.arch_type not in ("dense",
+                                                               "moe"):
             raise ValueError("ServeSession serves token-input decoder LMs "
-                             "(the port: the dense family)")
+                             "(the port: the dense and MoE families)")
         self.model, self.cfg = model, cfg
         self.device = torch.device(device)
         self.slots, self.max_seq, self.eos_id = slots, max_seq, eos_id

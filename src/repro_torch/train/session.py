@@ -203,9 +203,10 @@ class _Chunks:
         self.capture_s: List[float] = []   # host seconds of each capture
 
     def reset(self) -> None:
-        """Drop the captured graph (its pool is freed at the next
-        capture): the next K-step dispatch captures again (after an eager
-        one where none has run yet)."""
+        """Drop the captured graph with its static batch and output
+        buffers (the graph's private pool goes with it): the next K-step
+        dispatch captures again (after an eager one where none has run
+        yet)."""
         self.graph = None
         self._batch = self._outs = None
 
@@ -615,6 +616,7 @@ class TrainSession:
         self._ckpt_thread: Optional[threading.Thread] = None
         self._ckpt_err: Optional[BaseException] = None
         self._ckpt_stream = None
+        self._capture_s: List[float] = []  # kept past close()
         self._closed = False
 
     @classmethod
@@ -968,15 +970,29 @@ class TrainSession:
     def capture_seconds(self) -> List[float]:
         """Host seconds of each CUDA graph capture so far (none off the
         card or at scan_chunk=1)."""
-        return [] if self._chunks is None else list(self._chunks.capture_s)
+        if self._chunks is None:
+            return list(self._capture_s)
+        return list(self._chunks.capture_s)
 
     def close(self):
-        """Stop the prefetch thread and flush pending checkpoints."""
+        """Stop the prefetch thread, flush pending checkpoints, and
+        release what the session holds for its steps: the captured CUDA
+        graph with its static batch and output buffers, and the staged
+        batches. The state stays readable (``state``). Dropping the
+        chunk runner and the prefetcher also breaks the session's only
+        reference cycles (their bound method and closure), so once the
+        caller drops the session and its state the device memory is free
+        without a garbage collection. A second call does nothing."""
         if self._closed:
             return
         self._closed = True
         if self._prefetch is not None:
             self._prefetch.close()
+            self._prefetch = None
+        if self._chunks is not None:
+            self._capture_s = list(self._chunks.capture_s)
+            self._chunks.reset()
+            self._chunks = None
         self.wait_for_checkpoints()
         if self._ckpt_q is not None:
             self._ckpt_q.put(None)

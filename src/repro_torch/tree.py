@@ -60,18 +60,22 @@ def tree_flatten_with_path(tree):
     by name, sequence indices as ``[0]``). ``None`` is an empty subtree,
     as in jax."""
     out = []
-
-    def walk(t, prefix):
-        if t is None:
-            return
-        kids = _children(t)
-        if kids is None:
-            out.append(("/".join(prefix), t))
-            return
-        for name, child in kids:
-            walk(child, prefix + (name,))
-    walk(tree, ())
+    _flatten_into(out, tree, ())
     return out
+
+
+def _flatten_into(out, t, prefix) -> None:
+    """:func:`tree_flatten_with_path`'s walk, a module function: a
+    recursive closure would hold ``out`` (every leaf) in a reference
+    cycle until a garbage collection."""
+    if t is None:
+        return
+    kids = _children(t)
+    if kids is None:
+        out.append(("/".join(prefix), t))
+        return
+    for name, child in kids:
+        _flatten_into(out, child, prefix + (name,))
 
 
 def tree_map_with_path(fn, tree, prefix: str = ""):

@@ -16,7 +16,11 @@ in both orientations (K1, K1t) within float32 summation-order tolerance
 outputs) of its plain version, both taking float32 sums in orders of
 their own. The serving session's decode step as one CUDA graph is
 bitwise its eager step (tokens, cache and state), and a capture that
-fails raises.
+fails raises. The MoE family: a code-resident expert stack's at-use
+dequantize through K12 bitwise its plain version, K1 at the routers'
+shapes, and ``layers.moe`` bitwise its CUDA graph under both
+dispatches; a closed graphed training session gives back its memory
+with no garbage collection.
 """
 import dataclasses
 
@@ -1824,10 +1828,14 @@ def test_hierarchical_one_by_one_is_the_flat_step(dev, deterministic,
     assert sess.stats["graph_captures"] == (2 if chunk == 2 else 0)
     sessions["swapped"] = sess
     b = sessions["flat"]
+    want = {h["step"]: h["loss"] for h in b.history}
     for name in ("1x1", "swapped"):
         a = sessions[name]
-        assert [h["loss"] for h in a.history] == \
-            [h["loss"] for h in b.history], name
+        # the swapped session's second run() also logs its first step
+        # (a run's first dispatch is read): compare the losses by step
+        got = {h["step"]: h["loss"] for h in a.history}
+        assert set(want) <= set(got), name
+        assert {s: got[s] for s in want} == want, name
         for f in ("master", "m", "v", "e"):
             for x, y in zip(tree_leaves(a.state[f]),
                             tree_leaves(b.state[f])):
@@ -2032,3 +2040,143 @@ def test_session_decode_capture_failures_raise(dev, monkeypatch):
     monkeypatch.setattr(ServeSession, "_decode", rebinds)
     with pytest.raises(RuntimeError, match="replaced the state tensors"):
         run()
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: the expert stacks on K12, the router on K1, the layer
+# graphed, and a closed training session's memory
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,k_x", [(torch.int8, 6), (torch.int16, 10)])
+def test_expert_stack_dequantize_through_k12(dev, dtype, k_x):
+    """``QuantizedLeaf.dequantize()`` of a code-resident (L, E, d, f)
+    expert stack and of one sliced layer, with and without a pending
+    bf16 cast: one K12 launch a call, bitwise the plain version (which
+    counts as a plain version on the card)."""
+    from repro_torch.comm import kernels as K
+    from repro_torch.serve import quantized as Q
+    g = torch.Generator(device=dev).manual_seed(k_x)
+    lim = 2 ** k_x
+    codes = torch.randint(-lim, lim + 1, (3, 8, 64, 44), generator=g,
+                          device=dev).to(dtype)
+    scale = torch.rand(3, generator=g, device=dev) + 0.01
+    leaf = Q.QuantizedLeaf(codes=codes, scale=scale, k_x=k_x,
+                           shape=tuple(codes.shape), dtype="float32")
+    for one in (leaf, leaf.layer(1), leaf.astype(torch.bfloat16),
+                leaf.layer(2).astype(torch.bfloat16)):
+        n, p = K.dequantize_launches, Q.plain_on_cuda
+        a = one.dequantize()
+        assert K.dequantize_launches == n + 1 and Q.plain_on_cuda == p
+        b = one.dequantize(backend="torch")
+        assert Q.plain_on_cuda == p + 1
+        assert a.dtype == b.dtype and a.shape == b.shape
+        _bits_equal(a, b)
+
+
+@pytest.mark.parametrize("M", [4, 128])
+@pytest.mark.parametrize("K,N", [(2048, 64), (5120, 16)])
+def test_dequant_matmul_router_shapes(dev, M, K, N):
+    """K1 at the MoE routers' shapes (deepseek-moe-16b's (2048, 64),
+    llama4-maverick's cut to 16 experts, (5120, 16)) with int8 codes: on
+    tensor cores for bf16 activations within one bf16 ulp plus the
+    floor, on CUDA cores for float32 within the fp32 floor."""
+    from repro_torch.comm import matmul as MM
+    x, codes, scale, k_x, _ = _k1_tc_case(dev, M, K, N, 8, M + K + N)
+    kw = dict(k_x=k_x, n=N, cast_dtype="bfloat16")
+    n_tc = MM.launches_tc
+    a = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    b = MM.dequant_matmul(x, codes, scale, backend="torch", **kw)
+    assert MM.launches_tc == n_tc + 1
+    assert bool(((a.float() - b.float()).abs()
+                 <= _k1_bf16_tol(MM, x, codes, scale, k_x, b)).all())
+    xf = x.float()
+    n_fma = MM.launches_fma
+    a = MM.dequant_matmul(xf, codes, scale, backend="cuda", k_x=k_x, n=N)
+    b = MM.dequant_matmul(xf, codes, scale, backend="torch", k_x=k_x, n=N)
+    assert MM.launches_fma == n_fma + 1
+    floor = _k1_f32_floor(MM, xf, codes, scale, k_x, N, 0)
+    assert bool(((a - b).abs() <= floor).all())
+
+
+@pytest.mark.parametrize("dispatch", ["einsum", "sort"])
+def test_moe_graph_equals_eager(dev, dispatch):
+    """``layers.moe`` on the card, bf16 activations, with drops (4
+    tokens, 8 experts top-3: capacity 2; every token prefers expert 0):
+    two eager runs and a replay of its CUDA graph bitwise equal (the
+    sorts are stable, the dispatch gathers, the combine sums in a fixed
+    order)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.config import MoEConfig
+    g = torch.Generator(device=dev).manual_seed(3)
+    E, d, fe = 8, 256, 128
+    mcfg = MoEConfig(n_experts=E, top_k=3, n_shared=1, d_ff_expert=fe,
+                     dispatch=dispatch)
+
+    def w(*shape):
+        return torch.randn(shape, generator=g, device=dev) * 0.05
+    params = {"router": w(d, E), "w_gate": w(E, d, fe), "w_up": w(E, d, fe),
+              "w_down": w(E, fe, d),
+              "shared": {"w_gate": w(d, fe), "w_up": w(d, fe),
+                         "w_down": w(fe, d)}}
+    v = torch.randn(d, generator=g, device=dev)
+    params["router"][:, 0] = v / d
+    x = (v + 0.3 * torch.randn(4, 1, d, generator=g, device=dev)).to(
+        torch.bfloat16)
+    with torch.no_grad():
+        y1, a1 = L.moe(params, x, mcfg)
+        y2, a2 = L.moe(params, x, mcfg)
+        assert torch.equal(y1, y2) and torch.equal(a1, a2)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            yg, ag = L.moe(params, x, mcfg)
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(yg, y1) and torch.equal(ag, a1)
+    _, _, idx = L.moe_route(params, x.reshape(4, d), mcfg)
+    load = torch.bincount(idx.reshape(-1), minlength=E)
+    assert int(load.max()) > L.capacity(4, mcfg)      # a pair is dropped
+
+
+def test_close_frees_graph_memory(dev):
+    """A ``scan_chunk=4`` session (eager, capture and replay, replay)
+    closed and dropped: the allocated bytes return to their level before
+    it, with no ``gc.collect()`` (the session keeps no reference cycle,
+    and ``close()`` drops the graph and its static buffers). A first
+    session of the same kind warms the process-wide caches (the log
+    grid tables); cuBLAS's workspaces are given back before each
+    reading."""
+    import gc
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.train.session import SessionConfig, TrainSession
+    cfg, model, opt, loss_fn = _smoke_training(dev)
+    params = model.init(seed=0, device=dev)
+
+    def run():
+        sess = TrainSession.from_optimizer(
+            opt, loss_fn, params, batch_for_model(cfg, 32, 4),
+            SessionConfig(log_every=4, scan_chunk=4), log=lambda *_: None)
+        sess.run(12)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        assert sess.stats["graph_captures"] == 1
+        sess.close()
+        assert sess._chunks is None
+        return held
+
+    def allocated():     # cuBLAS's workspaces given back first
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        return torch.cuda.memory_allocated()
+
+    run()
+    gc.collect()
+    before = allocated()
+    gc.disable()
+    try:
+        held = run()
+        after = allocated()
+    finally:
+        gc.enable()
+    print(f"allocated before {before} B, while open {held} B, after close "
+          f"{after} B")
+    assert held > before and after == before

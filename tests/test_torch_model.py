@@ -172,13 +172,16 @@ def test_init_leaf_names_and_shapes(models):
 
 
 def test_unported_features_are_refused():
-    """The families still queued are refused; QKV bias, qk-norm and the
-    local RoPE base are ported, and each matches the reference on yi-6b's
-    smoke model with the feature switched on (random biases and norm
-    weights: zeros and ones would hide a missing term)."""
+    """The families still queued (SSM, hybrid, encoder-decoder) are
+    refused; QKV bias, qk-norm and the local RoPE base are ported, and
+    each matches the reference on yi-6b's smoke model with the feature
+    switched on (random biases and norm weights: zeros and ones would
+    hide a missing term)."""
     import dataclasses
     cfg = tget("yi-6b", smoke=True)
-    for change in (dict(arch_type="moe"), dict(norm="layernorm")):
+    for change in (dict(arch_type="ssm"), dict(arch_type="hybrid"),
+                   dict(arch_type="encdec"), dict(meta_tokens=4),
+                   dict(norm="layernorm")):
         with pytest.raises(NotImplementedError):
             TModel(dataclasses.replace(cfg, **change)).init(device="cpu")
     with pytest.raises(KeyError):
