@@ -164,6 +164,25 @@ Phases, each raising on failure (exit code nonzero, no result line):
      heads over 8, expert and shared d_ff 8192, vocab 202048, top-1)
      cut to MAVERICK_LAYERS layers of MAVERICK_EXPERTS routed experts
      (its 128 experts are 64.4 GB of float32 a layer);
+     4l. mamba2-2.7b at full width and depth (64 SSD layers, 10.8 GB of
+     float32 quantized leaf by leaf at k_x = 6), bf16, fixed lanes, 4
+     slots, prefill chunk SSM_CHUNK, 16 new tokens: six 256-token
+     prompts (chunked) and a 100-token one (injected) in one session, a
+     128-token one in a ``prefill="whole"`` session; gates: K1, K1t (the
+     tied head), K3, K4 and K12 launched, no plain version on the card,
+     the admission modes of the SSD chunk rule, the decode step graphed
+     and bitwise its eager step, kernels-vs-plain logits at depth 1 and
+     2 in bf16 (SHALLOW_LIMIT) and at SSM_F32_LAYERS in float32
+     (F32_LIMIT), one K row dropped from the plain in_proj failing the
+     float32 gate; readings: the step eager and graphed, a chunk, tok/s,
+     resident codes, the SSM state a slot, the start-up peak, the SSD
+     recurrence's device ms; phase 3 also holds and times K1 at the
+     family's in_proj/out_proj shapes (int8, 3/4/6-bit lanes) and K1t
+     over its two tied heads;
+     4m. the same for hymba-1.5b at 32 layers, paged (K2 too), with a
+     HYMBA_LONG_PROMPT-token prompt past the local layers' 1024 window:
+     one decode step there changes its logits without the window and
+     without the meta prefix;
   5. train full-width yi-6b cut to 8 layers (fp32 parameters and state,
      bf16 activations) with Algorithm 1 through ``qadam`` and
      ``TrainSession.from_optimizer``: 12 steps of 2 x 1024 tokens; gates:
@@ -279,18 +298,22 @@ Phases, each raising on failure (exit code nonzero, no result line):
      reference's rtol 1e-5, both times (bf16 and float32); the aux
      loss's share of the loss; a ``--model 1`` step through the
      launcher, where no token exchange runs;
+     6g. mamba2-2.7b cut to 16 layers and hymba-1.5b cut to 4, widths
+     unchanged, through phase 6f's gates (SSM_TRAIN_STEPS steps each);
+     the SSD scan's device ms alone at the forward's shapes beside the
+     step's phases; ``launch.train`` at mamba2 x 2 layers flat and with
+     ``--model 1`` and ``cp_exchange="ladder"``, bitwise equal;
   8. every leaf of the cut's initial parameters through
      ``Codec.encode`` -> ``WireBuffer.decode`` for log:6, the uniform:7
      wire (absolute and amax), TernGrad and blockwise:256: #5 (each
      kind), #8 and K6 launched, no plain version on the card, buffer
      bytes ``codec.wire_nbytes``, bitwise the plain versions;
   9. the paper's comparison protocol, ``examples/paper_repro_torch.py``
-     (8 workers, 150 steps, one seed; 300 before phase 6d took the
-     time), in its default mode and in ``--mode efadam``: every accuracy
-     finite, #13 and #14 (and in efadam mode #10) launched, no plain
-     version on the card; print the accuracy table; then ``--adaptive``
-     (the fixed log:6 arm against the adaptive arm, 100 steps, a replan
-     every 25) and the fixed arm on log:30 and log:126 (20 steps each,
+     (8 workers, PAPER_STEPS steps, one seed), in its default mode and
+     in ``--mode efadam``: every accuracy finite, #13 and #14 (and in
+     efadam mode #10) launched, no plain version on the card; print the
+     accuracy table; then ``--adaptive`` (the fixed log:6 arm against
+     the adaptive arm, PAPER_ADAPT_STEPS steps, a replan every 25) and the fixed arm on log:30 and log:126 (20 steps each,
      #10 and K11 at the deep grids launched);
   10. print one ``{"kernels": [...]}`` line (each kernel's launches by
      path; every kernel launched on some path), the card line again, and
@@ -3884,8 +3907,8 @@ def wire_buffers(torch, dev, mods, model):
 # phase 9: the paper's comparison protocol on the card
 # ---------------------------------------------------------------------------
 
-# 150 (was 300): the time phase 6d and phase 9's adaptive arms take
-PAPER_STEPS = 150
+# 50 (was 300, then 150): the time phases 6d, 4l, 4m and 6g take
+PAPER_STEPS = 50
 PAPER_COUNTERS = {"amax_rows": ("K", "amax_launches"),
                   "uniform_quantize_rows": ("K", "quantize_launches"),
                   "uniform_dequantize_rows": ("K", "dequantize_launches"),
@@ -4024,7 +4047,7 @@ def paper_protocol(torch, dev, mods):
     return out
 
 
-PAPER_ADAPT_STEPS, PAPER_ADAPT_EVERY, PAPER_DEEP_STEPS = 100, 25, 20
+PAPER_ADAPT_STEPS, PAPER_ADAPT_EVERY, PAPER_DEEP_STEPS = 50, 25, 20
 
 
 def paper_adaptive(torch, dev, mods, ex):
@@ -4184,6 +4207,13 @@ def serving_plain(MM, paged, K) -> int:
             + Q.plain_on_cuda)
 
 
+# profiled calls of a serving phase's decode step and chunk: one, since
+# the profiler's bookkeeping of an eager call's thousands of operations,
+# not the card, sets these calls' cost (with three, half of phase 4l's
+# seconds)
+PROFILED_CALLS = 1
+
+
 def decode_timings(torch, dev, model, qparams, gather, prompts, max_seq):
     """Prefill each prompt (a multiple of 32 tokens) into its slot of a
     fresh paged cache of ``max_seq`` positions a slot, then time one
@@ -4218,9 +4248,11 @@ def decode_timings(torch, dev, model, qparams, gather, prompts, max_seq):
     def step():
         return model.decode_step(qparams, {"token": tok}, cache, pos, gather)
     chunk_ms = cuda_ms(torch, lambda i: chunk(), 5, 1)
-    chunk_dev_ms, _, chunk_ops = profile_ms(torch, chunk, with_launches=True)
+    chunk_dev_ms, _, chunk_ops = profile_ms(torch, chunk, PROFILED_CALLS,
+                                            with_launches=True)
     step_ms = cuda_ms(torch, lambda i: step(), 10, 2)
     step_dev_ms, step_kernels, step_ops = profile_ms(torch, step,
+                                                     PROFILED_CALLS,
                                                      with_launches=True)
     return (dict(chunk_ms=chunk_ms, chunk_device_ms=chunk_dev_ms,
                  chunk_device_ops=chunk_ops, decode_step_ms=step_ms,
@@ -4260,18 +4292,20 @@ class LogitsTap:
         return getattr(self.model, name)
 
 
-def decode_graph_vs_eager(torch, dev, model, qparams, prompts, max_new=64):
-    """The session's decode step eager and as its CUDA graph: a paged
-    session of len(prompts) slots (128 positions each, page 16, chunk 32)
-    past its prompts' chunks; from identical state one greedy step eager
+def decode_graph_vs_eager(torch, dev, model, qparams, prompts, max_new=64,
+                          paged=True, max_seq=128, chunk=32):
+    """The session's decode step eager and as its CUDA graph: a session
+    of len(prompts) slots (``max_seq`` positions each, paged with page 16
+    or fixed lanes, prefill chunk ``chunk``) past its prompts' chunks; from identical state one greedy step eager
     and one through a fresh capture and replay must give bitwise the same
     logits, tokens and state (cache included); then each way's wall
     (CUDA events around the host's calls), device time and operations
     (profiler), and idle share, the slots decoding throughout."""
     from repro_torch.serve.session import Request, ServeSession
     slots = len(prompts)
-    sess = ServeSession(model, qparams, slots=slots, max_seq=128, paged=True,
-                        page_size=16, prefill_chunk=32, seed=0, device=dev)
+    sess = ServeSession(model, qparams, slots=slots, max_seq=max_seq,
+                        paged=paged, page_size=16, prefill_chunk=chunk,
+                        seed=0, device=dev)
     for p in prompts:
         sess.submit(Request(prompt=p, max_new_tokens=max_new))
     while sess._prefill_q:
@@ -4301,8 +4335,9 @@ def decode_graph_vs_eager(torch, dev, model, qparams, prompts, max_new=64):
     e_ms = cuda_ms(torch, lambda i: sess._decode(False), 8, 1)
     g_ms = cuda_ms(torch, lambda i: graph.replay(), 8, 1)
     e_dev, e_kernels, e_ops = profile_ms(torch, lambda: sess._decode(False),
-                                         with_launches=True)
-    g_dev, _, g_ops = profile_ms(torch, graph.replay, with_launches=True)
+                                         PROFILED_CALLS, with_launches=True)
+    g_dev, _, g_ops = profile_ms(torch, graph.replay, PROFILED_CALLS,
+                                 with_launches=True)
     active = int(sess._state["active"].sum())
     if active != slots:
         raise AssertionError(f"{active} of {slots} slots active while timed")
@@ -5095,6 +5130,599 @@ def moe_train(torch, dev, mods, group):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the SSM and hybrid family: phase 3's new shapes, phases 4l, 4m and 6g
+# ---------------------------------------------------------------------------
+
+# K1's new shapes (K, N): mamba2-2.7b's in_proj (2 d_inner + 2 d_state +
+# heads wide) and out_proj, hymba-1.5b's in_proj (6,482 wide: no whole 3-
+# or 6-bit packing group) and out_proj; the tied heads (V, d) of K1t
+SSM_K1_SHAPES = [(2560, 10576), (5120, 2560), (1600, 6482), (3200, 1600)]
+SSM_HEADS = [(50280, 2560), (32001, 1600)]
+SSM_K1_KINDS = ("int8", "p3", "p4", "p6")
+
+
+def check_ssm_shapes(torch, dev, MM, B, K):
+    """K1 at the SSM family's projection shapes, M = 4, on tensor cores
+    for bf16 activations against int8 codes and 3-, 4- and 6-bit packed
+    lanes (the lanes round-tripped through #9 bitwise first: pack then
+    unpack gives the codes back on a row that fills no whole group),
+    within one bf16 ulp plus the floor; K1t over the 50,280- and
+    32,001-row tied heads at M = 4 (int8) in the same tier. Each timed
+    in CUDA graphs over 4 sets of codes beside its plain version,
+    ``torch.matmul`` of the dequantized bf16 weights and its bound."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    scale = torch.tensor(0.0371, device=dev)
+    M, table = 4, []
+    for Kd, N in SSM_K1_SHAPES:
+        for kind in SSM_K1_KINDS:
+            k_x, bits = CODE_KINDS[kind]
+            lim = 2 ** k_x
+            raw = [torch.randint(-lim, lim + 1, (Kd, N), generator=g,
+                                 device=dev, dtype=torch.int32)
+                   for _ in range(4)]
+            if kind == "int8":
+                cs, pb = [r.to(torch.int8) for r in raw], 0
+            else:
+                cs, pb = [B.pack_rows(r, bits) for r in raw], bits
+                mine = K.pack_rows(raw[0].to(torch.int8), bits,
+                                   backend="cuda")
+                back = K.unpack_rows(mine, bits, N, backend="cuda")
+                if not torch.equal(mine, cs[0]) or not torch.equal(
+                        back.to(torch.int32), raw[0]):
+                    raise AssertionError(f"#9 lanes at {(Kd, N)} {kind}: "
+                                         f"not bitwise the plain packing, or "
+                                         f"the round trip changed codes")
+            del raw
+            x = torch.randn(M, Kd, generator=g, device=dev).to(torch.bfloat16)
+            kw = dict(k_x=k_x, n=N, pack_bits=pb, cast_dtype="bfloat16")
+            n0 = (MM.launches_tc, MM.launches_tc_packed)
+            a = MM.dequant_matmul(x, cs[0], scale, backend="cuda", **kw)
+            if (MM.launches_tc - n0[0], MM.launches_tc_packed - n0[1]) != (
+                    1, int(pb > 0)):
+                raise AssertionError(f"K1 at {(M, Kd, N)} {kind}: not one "
+                                     f"tensor-core launch")
+            b = MM.dequant_matmul(x, cs[0], scale, backend="torch", **kw)
+            tol = k1_tolerance(torch, b, k1_noise_unit(torch, MM, x, cs[0],
+                                                       scale, kw))
+            diff = (a.float() - b.float()).abs()
+            if a.shape != (M, N) or not bool((diff <= tol).all()):
+                raise AssertionError(f"K1 at {(M, Kd, N)} {kind}: beyond one "
+                                     f"bf16 ulp plus the floor (max abs "
+                                     f"{float(diff.max())})")
+            ws = [MM.dequant_codes(c, scale, k_x=k_x, n=N, pack_bits=pb,
+                                   w_dtype="float32", cast_dtype="bfloat16")
+                  for c in cs]
+            code_bytes = cs[0].numel() * cs[0].element_size()
+            bnd, by = bound_ms(code_bytes + 2 * M * Kd + 2 * M * N,
+                               2 * M * Kd * N)
+            table.append(dict(
+                name=("dequant_matmul_tc_packed" if pb else
+                      "dequant_matmul_tc"), what="K1", shape=[M, Kd, N],
+                codes=kind, max_abs_err=float(diff.max()),
+                ms=graph_ms(torch, lambda i: MM.dequant_matmul(
+                    x, cs[i], scale, backend="cuda", **kw), 4),
+                plain_ms=graph_ms(torch, lambda i: MM.dequant_matmul(
+                    x, cs[i], scale, backend="torch", **kw), 4, 5),
+                library_ms=graph_ms(torch, lambda i: torch.matmul(x, ws[i]),
+                                    4),
+                bound_ms=bnd, bound_by=by))
+            del cs, ws
+    for V, d in SSM_HEADS:
+        cs = [torch.randint(-64, 65, (V, d), generator=g, device=dev).to(
+            torch.int8) for _ in range(4)]
+        x = torch.randn(M, d, generator=g, device=dev).to(torch.bfloat16)
+        kw = dict(k_x=6, n=d, pack_bits=0, cast_dtype="bfloat16",
+                  transpose=True)
+        n0 = MM.t_launches_tc
+        a = MM.dequant_matmul(x, cs[0], scale, backend="cuda", **kw)
+        if MM.t_launches_tc != n0 + 1:
+            raise AssertionError(f"K1t at the ({V}, {d}) head: not one "
+                                 f"tensor-core launch")
+        b = MM.dequant_matmul(x, cs[0], scale, backend="torch", **kw)
+        ws = [MM.dequant_codes(c, scale, k_x=6, n=d, pack_bits=0,
+                               w_dtype="float32", cast_dtype="bfloat16")
+              for c in cs]
+        w = ws[0].float()
+        unit = d ** 0.5 * 2.0 ** -24 * (x.float() ** 2 @ (w ** 2).T).sqrt()
+        diff = (a.float() - b.float()).abs()
+        if a.shape != (M, V) or not bool(
+                (diff <= k1_tolerance(torch, b, unit)).all()):
+            raise AssertionError(f"K1t at the ({V}, {d}) head: beyond one "
+                                 f"bf16 ulp plus the floor")
+        bnd, by = bound_ms(V * d + 2 * M * d + 2 * M * V, 2 * M * V * d)
+        table.append(dict(
+            name="dequant_matmul_t_tc", what="K1t head", shape=[M, V, d],
+            codes="int8", max_abs_err=float(diff.max()),
+            ms=graph_ms(torch, lambda i: MM.dequant_matmul(
+                x, cs[i], scale, backend="cuda", **kw), 4),
+            plain_ms=graph_ms(torch, lambda i: MM.dequant_matmul(
+                x, cs[i], scale, backend="torch", **kw), 4, 5),
+            library_ms=graph_ms(torch, lambda i: torch.matmul(x, ws[i].T),
+                                4),
+            bound_ms=bnd, bound_by=by))
+        del cs, ws, w
+    torch.cuda.empty_cache()
+    return table
+
+
+SSM_CHUNK = 128            # prefill_chunk of phases 4l and 4m
+SSM_MAX_SEQ = {"mamba2-2.7b": 512, "hymba-1.5b": 1408}
+SSM_F32_LAYERS = 4         # the float32 logits gate's depth
+HYMBA_LONG_PROMPT = 1280   # past the local layers' 1024 window
+
+
+def ssm_decode_timings(torch, dev, model, qparams, gather, prompts,
+                       max_seq, paged):
+    """Prefill each prompt (SSM_CHUNK tokens) into its slot of a fresh
+    cache (paged or fixed lanes; the SSM state and conv tail per slot)
+    by one chunk each, keep a copy, then time one SSM_CHUNK-token chunk
+    (slot 0) and one decode step (every slot), as ``decode_timings``
+    does. Returns (timings, the copy, tok, pos)."""
+    slots = len(prompts)
+    pool = (slots * max_seq // 16, 16) if paged else None
+    cache = model.init_cache(slots, max_seq, page_pool=pool, device=dev)
+    if paged:
+        npag = max_seq // 16
+        cache["ptab"].copy_(torch.arange(slots * npag, dtype=torch.int32,
+                                         device=dev).reshape(slots, npag))
+    prompt = torch.tensor(prompts, dtype=torch.int32, device=dev)
+
+    def lane(s):
+        return {k: (v if k in ("pk", "pv") else v[s:s + 1] if k == "ptab"
+                    else v[:, s:s + 1]) for k, v in cache.items()}
+    c0 = torch.tensor([0], device=dev)
+    cn = torch.tensor([SSM_CHUNK], device=dev)
+    for s in range(slots):
+        model.decode_chunk(qparams, {"token": prompt[s:s + 1]}, lane(s), c0,
+                           cn, gather)
+    base = {k: v.clone() for k, v in cache.items()}
+
+    def chunk():
+        return model.decode_chunk(qparams, {"token": prompt[1:2]}, lane(0),
+                                  cn, cn, gather)
+    tok = prompt[:, -1:].contiguous()
+    pos = torch.full((slots,), SSM_CHUNK, dtype=torch.int32, device=dev)
+
+    def step():
+        return model.decode_step(qparams, {"token": tok}, cache, pos, gather)
+    chunk_ms = cuda_ms(torch, lambda i: chunk(), 5, 1)
+    chunk_dev_ms, _, chunk_ops = profile_ms(torch, chunk, PROFILED_CALLS,
+                                            with_launches=True)
+    step_ms = cuda_ms(torch, lambda i: step(), 10, 2)
+    step_dev_ms, step_kernels, step_ops = profile_ms(torch, step,
+                                                     PROFILED_CALLS,
+                                                     with_launches=True)
+    del cache
+    return (dict(chunk_ms=chunk_ms, chunk_device_ms=chunk_dev_ms,
+                 chunk_device_ops=chunk_ops, decode_step_ms=step_ms,
+                 decode_step_device_ms=step_dev_ms,
+                 decode_step_device_ops=step_ops,
+                 decode_step_kernels=step_kernels[:12]),
+            base, tok, pos)
+
+
+def ssd_scan_ms(torch, dev, cfg, B, S, dtype):
+    """The SSD scan alone at the shapes a layer gives it, device ms by the
+    profiler: ``ssd_chunked`` over B x S tokens forward, and forward with
+    its backward (S > 1), or one ``ssd_step`` of B slots (S == 1). Inputs
+    random, xdt, B and C in ``dtype``, the log decay float32 negative."""
+    from repro_torch.models import layers as L
+    s = cfg.ssm
+    H, P, G, N = cfg.n_ssm_heads, s.head_dim, s.n_groups, s.d_state
+    g = torch.Generator(device=dev).manual_seed(41)
+
+    def rnd(*shape, dt=dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+    a = -torch.rand((B, S, H), generator=g, device=dev) * 0.1
+    if S == 1:     # a few microseconds: averaged over many calls
+        h = rnd(B, H, P, N, dt=torch.float32)
+        args = (rnd(B, H, P), a[:, 0], rnd(B, G, N), rnd(B, G, N))
+        return {"step": profile_ms(torch, lambda: L.ssd_step(h, *args),
+                                   50)[0]}
+    xdt, Bm, Cm = rnd(B, S, H, P), rnd(B, S, G, N), rnd(B, S, G, N)
+    out = {"forward": profile_ms(torch, lambda: L.ssd_chunked(
+        xdt, a, Bm, Cm, chunk=s.chunk))[0]}
+    leaves = [t.clone().requires_grad_() for t in (xdt, a, Bm, Cm)]
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            y, f = L.ssd_chunked(*leaves, chunk=s.chunk)
+            torch.autograd.grad((y.float().sum() + f.sum()), leaves)
+    out["forward_backward"] = profile_ms(torch, fwd_bwd)[0]
+    return out
+
+
+def ssm_live(torch, dev, model, qparams, gather, prompt, max_seq):
+    """hymba-1.5b: prefill ``prompt`` (past the 1024 window) into a fresh
+    one-slot paged cache by SSM_CHUNK-token chunks, then one decode step
+    with the config, with every window 0, and without the meta prefix
+    (``meta_tokens=0``): each must change the logits (the window and the
+    prefix bite at their real widths)."""
+    from repro_torch.models.model import Model
+    cfg = model.cfg
+    n = len(prompt)
+    cache = model.init_cache(1, max_seq, page_pool=(max_seq // 16, 16),
+                             device=dev)
+    cache["ptab"].copy_(torch.arange(max_seq // 16, dtype=torch.int32,
+                                     device=dev)[None])
+    toks = torch.tensor(prompt, dtype=torch.int32, device=dev)[None]
+    for c0 in range(0, n, SSM_CHUNK):
+        model.decode_chunk(qparams, {"token": toks[:, c0:c0 + SSM_CHUNK]},
+                           cache, torch.tensor([c0], device=dev),
+                           torch.tensor([SSM_CHUNK], device=dev), gather)
+    tok = toks[:, -1:].contiguous()
+    pos = torch.full((1,), n, dtype=torch.int32, device=dev)
+    out = {}
+    la, _ = model.decode_step(qparams, {"token": tok},
+                              {k: v.clone() for k, v in cache.items()}, pos,
+                              gather)
+    for name, change in (("window", dict(window=None)),
+                         ("meta", dict(meta_tokens=0))):
+        other = Model(dataclasses.replace(cfg, **change))
+        lo, _ = other.decode_step(qparams, {"token": tok},
+                                  {k: v.clone() for k, v in cache.items()},
+                                  pos, gather)
+        if torch.equal(la, lo):
+            raise AssertionError(f"{cfg.name} at position {n}: the logits "
+                                 f"do not change without the {name}")
+        out[f"logits_rel_l2_without_{name}"] = float(
+            (la - lo).norm() / lo.norm())
+    del cache
+    return out
+
+
+def serve_ssm(torch, dev, mods, arch):
+    """Phase 4l (mamba2-2.7b) and 4m (hymba-1.5b), full width and depth,
+    bf16, ``quantize_params(k_x=6)`` leaf by leaf, 4 slots, prefill_chunk
+    SSM_CHUNK, 16 new tokens a request, every count at 0 just before the
+    main path. mamba2: fixed lanes; six 256-token prompts (chunked) and a
+    100-token one (injected) in one session, and a 128-token prompt in a
+    ``prefill="whole"`` session. hymba: paged (page 16); a 1280-token
+    prompt (chunked, past the window), six of 256 and one of 100
+    (injected). Gates: every kernel of the path launched (K1, K1t for the
+    tied head, K12 for the at-use leaves and the embedding rows, K3 and
+    K4 at quantize time, K2 for hymba's pages), no plain version on the
+    card, the admission modes the SSD chunk rule picks, the decode step
+    graphed, bitwise eager; kernels-vs-plain logits at depth 1 and 2 in
+    bf16 and at SSM_F32_LAYERS in float32, where one K row dropped from
+    the plain in_proj must fail the gate; hymba's window and meta prefix
+    live at the long prompt. Readings: the decode step eager and graphed,
+    the chunk, tok/s, resident codes, the SSM state a slot, the start-up
+    peak, the SSD recurrence's device ms a step."""
+    MM, paged, K = mods["MM"], mods["paged"], mods["K"]
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import quantize_in_place
+    from repro_torch.models.model import Model
+    from repro_torch.serve.quantized import make_dequant_gather, params_nbytes
+    from repro_torch.serve.session import Request, ServeSession
+    import numpy as np
+
+    cfg = get_config(arch)
+    model = Model(cfg)
+    is_paged = cfg.arch_type == "hybrid"
+    slots, max_new, max_seq = 4, 16, SSM_MAX_SEQ[arch]
+    secs, t_mark = {}, [time.perf_counter()]
+
+    def mark(name):
+        """Seconds since the last mark, by part of the phase."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        secs[name] = now - t_mark[0]
+        t_mark[0] = now
+    rng = np.random.default_rng(0)
+
+    def req(n):
+        return Request(prompt=[int(t) for t in rng.integers(
+            1, cfg.vocab_size, size=n)], max_new_tokens=max_new)
+    reqs = ([req(HYMBA_LONG_PROMPT)] if is_paged else []) + \
+        [req(256) for _ in range(6)] + [req(100)]
+    whole = [] if is_paged else [req(128)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path, with every kernel count at 0 just before it
+    zero_serving_counts(MM, paged, K)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    fp_bytes = params_nbytes(params)
+    qparams = quantize_in_place(params, k_x=6, pack=True)
+    del params
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    peak_start = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    q_bytes = params_nbytes(qparams)
+    sess = ServeSession(model, qparams, slots=slots, max_seq=max_seq,
+                        paged=is_paged, page_size=16,
+                        prefill_chunk=SSM_CHUNK, seed=0, device=dev)
+    modes = [sess._admission_mode(len(r.prompt)) for r in reqs]
+    ssm_slot_bytes = sess._state["cache"]["ssm"][:, 0].nbytes
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    handles = [sess.submit(r) for r in reqs]
+    results = sess.drain()
+    stats = dict(sess.stats)
+    del sess
+    if whole:
+        ws = ServeSession(model, qparams, slots=1, max_seq=max_seq,
+                          prefill="whole", seed=0, device=dev)
+        modes += [ws._admission_mode(len(r.prompt)) for r in whole]
+        hw = [ws.submit(r) for r in whole]
+        done = ws.drain()
+        results.update({len(handles) + i: done[h] for i, h in enumerate(hw)})
+        stats["whole"] = dict(ws.stats)
+        del ws
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t1
+    mark("quantize_and_serve")
+    launches = {"dequant_matmul_tc": MM.launches_tc,
+                "dequant_matmul_t_tc": MM.t_launches_tc,
+                "amax_rows": K.amax_launches,
+                "uniform_quantize_rows": K.quantize_launches,
+                "uniform_dequantize_rows": K.dequantize_launches}
+    if is_paged:
+        launches["gather_pages_kv"] = paged.launches_kv
+    plain = serving_plain(MM, paged, K)
+    want_modes = ({"chunked", "inject"} if is_paged
+                  else {"chunked", "inject", "whole"})
+    if any(n == 0 for n in launches.values()) or plain or \
+            MM.launches_fma or MM.launches_tc_packed or MM.t_launches_fma \
+            or paged.launches != paged.launches_kv:
+        raise AssertionError(f"{arch}: launches {launches}, {plain} plain "
+                             f"calls on the card, K1 CUDA-core "
+                             f"{MM.launches_fma}, packed "
+                             f"{MM.launches_tc_packed}, K1t CUDA-core "
+                             f"{MM.t_launches_fma}, K2 one pool "
+                             f"{paged.launches - paged.launches_kv}")
+    if set(modes) != want_modes:
+        raise AssertionError(f"{arch}: admission modes {modes}")
+    if not (stats["captures"] and stats["replays"]):
+        raise AssertionError(f"{arch}: the decode step was not graphed: "
+                             f"{stats}")
+    for h, r in results.items():
+        if len(r.tokens) != max_new or r.finish_reason != "length":
+            raise AssertionError(f"request {h}: {len(r.tokens)} tokens, "
+                                 f"{r.finish_reason}")
+    n_tok = sum(len(r.tokens) for r in results.values())
+    gather = make_dequant_gather()
+    plain_gather = make_dequant_gather(backend="torch")
+    out = {}
+    if is_paged:
+        out.update(ssm_live(torch, dev, model, qparams, gather,
+                            reqs[0].prompt, max_seq))
+        mark("window_and_meta")
+
+    short = [r.prompt[:SSM_CHUNK] for r in reqs[-1 - slots:-1]]
+    tm, base, tok, pos = ssm_decode_timings(torch, dev, model, qparams,
+                                            gather, short, 256, is_paged)
+    mark("timings")
+    dg = decode_graph_vs_eager(torch, dev, model, qparams, short,
+                               paged=is_paged, max_seq=256, chunk=SSM_CHUNK)
+    mark("graph_vs_eager")
+    scan = ssd_scan_ms(torch, dev, cfg, slots, 1, torch.bfloat16)
+
+    def both(mdl, qp, cache_of):
+        la, _ = mdl.decode_step(qp, {"token": tok}, cache_of(), pos, gather)
+        lb, _ = mdl.decode_step(qp, {"token": tok}, cache_of(), pos,
+                                plain_gather, backend="torch")
+        return la, lb
+
+    def rel_l2(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def cut(n, dtype=None):
+        c = dataclasses.replace(cfg, n_layers=n)
+        if dtype:
+            c = dataclasses.replace(c, dtype=dtype)
+        qp = dict(qparams, blocks=first_layers(qparams["blocks"], n))
+
+        def cache_of():
+            return {k: (v if k == "ptab" else v[:n].to(
+                torch.float32 if dtype else v.dtype)).clone()
+                for k, v in base.items()}
+        return Model(c), qp, cache_of
+
+    la, lb = both(model, qparams, lambda: {k: v.clone()
+                                           for k, v in base.items()})
+    if not bool(torch.isfinite(la).all()) or la.shape != (slots,
+                                                          cfg.vocab_size):
+        raise AssertionError(f"{arch}: decode logits not finite or "
+                             f"misshapen")
+    gates = {"bf16@full": rel_l2(la, lb)}
+    for n, dt, limit in ((1, None, SHALLOW_LIMIT), (2, None, SHALLOW_LIMIT),
+                         (SSM_F32_LAYERS, "float32", F32_LIMIT)):
+        a, b = both(*cut(n, dt))
+        key = f"{dt or 'bf16'}@{n}"
+        gates[key] = rel_l2(a, b)
+        if not gates[key] <= limit:
+            raise AssertionError(f"{arch} decode logits {key}: kernels vs "
+                                 f"plain rel L2 {gates[key]} > {limit}")
+    # the planted fault: one K row dropped from the plain in_proj, in the
+    # float32 gate's setting; it must fail that gate
+    width = 2 * cfg.d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.d_state \
+        + cfg.n_ssm_heads
+    plain32 = MM._matmul_torch
+
+    def dropped_row(x2, codes, scale, transpose=False, **kw):
+        if transpose or kw["n"] != width:
+            return plain32(x2, codes, scale, transpose=transpose, **kw)
+        w = MM.dequant_codes(codes, scale, **kw).float()
+        return (x2[:, :-1].float() @ w[:-1]).to(
+            MM._out_dtype(x2.dtype, kw["w_dtype"], kw["cast_dtype"]))
+    mdl, qp, cache_of = cut(SSM_F32_LAYERS, "float32")
+    b32 = mdl.decode_step(qp, {"token": tok}, cache_of(), pos, plain_gather,
+                          backend="torch")[0]
+    try:
+        MM._matmul_torch = dropped_row
+        lf, _ = mdl.decode_step(qp, {"token": tok}, cache_of(), pos,
+                                plain_gather, backend="torch")
+    finally:
+        MM._matmul_torch = plain32
+    fault = rel_l2(lf, b32)
+    mark("gates")
+    if not fault > F32_LIMIT:
+        raise AssertionError(f"{arch}: one K row dropped from in_proj "
+                             f"passes the float32 gate ({fault})")
+    busy = dg["graph_device_ms"]
+    print(f"{cfg.name} ({cfg.n_layers} layers): admission {modes}; served "
+          f"{n_tok} tokens in {t_serve:.3f} s ({n_tok / t_serve:.2f} tok/s); "
+          f"resident codes {q_bytes} B of {fp_bytes} B float32; SSM state "
+          f"{ssm_slot_bytes} B a slot; start-up peak {peak_start} B; "
+          f"launches {launches}; logits kernels vs plain: "
+          + ", ".join(f"{k} {v:.4e}" for k, v in gates.items())
+          + f" (limits {SHALLOW_LIMIT}, {F32_LIMIT}); in_proj's K row "
+          f"dropped {fault:.4e} (caught)"
+          + "".join(f"; {k} {v:.4e}" for k, v in out.items()), flush=True)
+    print(f"{cfg.name} session decode step, 4 slots at position "
+          f"{dg['position']}: eager {dg['eager_ms']:.3f} ms wall, "
+          f"{dg['eager_device_ms']:.3f} ms device (idle "
+          f"{dg['eager_idle']:.1%}, {dg['eager_device_ops']:.0f} "
+          f"operations); CUDA graph {dg['graph_ms']:.3f} ms wall, "
+          f"{busy:.3f} ms device (idle {dg['graph_idle']:.1%}); bitwise "
+          f"eager vs graphed; a {SSM_CHUNK}-token chunk "
+          f"{tm['chunk_ms']:.3f} ms ({tm['chunk_device_ms']:.3f} device); "
+          f"the SSD recurrence {scan['step']:.4f} ms a layer, "
+          f"{scan['step'] * cfg.n_layers:.3f} ms a step "
+          f"({scan['step'] * cfg.n_layers / busy:.1%} of the graphed "
+          f"step); seconds by part: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+    for name, t in tm["decode_step_kernels"][:8]:
+        print(f"  {t:9.4f} ms  {name[:90]}")
+    res = dict(out, **tm, arch=cfg.name, layers=cfg.n_layers,
+               launches=launches, tokens=n_tok, serve_s=t_serve,
+               tok_per_s=n_tok / t_serve, startup_s=t_quant,
+               resident_bytes=q_bytes, fp32_bytes=fp_bytes,
+               ssm_state_bytes_per_slot=ssm_slot_bytes,
+               peak_startup_bytes=peak_start,
+               peak_bytes=torch.cuda.max_memory_allocated(), stats=stats,
+               admission=modes, decode_graph=dg, gates=gates,
+               fault_in_proj_f32=fault, ssd_step_ms_per_layer=scan["step"],
+               seconds=secs)
+    del qparams, base
+    torch.cuda.empty_cache()
+    return res
+
+
+SSM_TRAIN = (("mamba2-2.7b", 16), ("hymba-1.5b", 4))
+SSM_TRAIN_STEPS = 4
+
+
+def ssm_train(torch, dev, mods, group):
+    """Phase 6g: mamba2-2.7b cut to 16 layers and hymba-1.5b cut to 4
+    (``_pattern(4)``), widths unchanged, Algorithms 2+3 ``qadam`` on the
+    one NCCL rank, 2 x 1024 tokens a step, SSM_TRAIN_STEPS steps each
+    through ``dist_run`` (6f's gates); the SSD scan's own device ms at
+    the forward's shapes (forward, and with its backward) beside the
+    step's phases; then ``launch.train`` at mamba2 x 2 layers, 2 steps,
+    flat and ``--model 1`` with ``cp_exchange="ladder"``: bitwise equal
+    (one shard: no exchange runs). The losses are gated finite, not
+    falling: 4 steps from random weights move mamba2's loss by less than
+    its step-to-step spread."""
+    from repro_torch import configs
+    from repro_torch.configs import get_config
+    from repro_torch.configs.hymba_1p5b import _pattern
+    from repro_torch.dist.step import TrainConfig
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_leaves
+    res, secs = {}, {}
+    for arch, layers in SSM_TRAIN:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        if cfg.pattern is not None:
+            cfg = dataclasses.replace(cfg, pattern=_pattern(layers))
+        r = dist_run(torch, dev, mods, group, Model(cfg), cfg,
+                     TrainConfig(**DIST_TC), DIST_COUNTERS, SSM_TRAIN_STEPS,
+                     f"6g {arch}", falling=False)
+        scan = ssd_scan_ms(torch, dev, cfg, TRAIN_BATCH, TRAIN_SEQ,
+                           torch.bfloat16)
+        r["ssd_scan_ms_per_layer"] = scan
+        # a step runs the scan's forward twice (the forward, and its
+        # recompute under the per-block checkpoint) and its backward once
+        r["ssd_scan_ms_step"] = (scan["forward"] + scan["forward_backward"]
+                                 ) * layers
+        r["ssd_scan_share"] = r["ssd_scan_ms_step"] / r["step_device_ms"]
+        res[arch] = r
+        torch.cuda.empty_cache()
+        secs[arch] = time.perf_counter() - t0
+
+    # --model 1 with the ladder exchange against the flat run, bitwise
+    ladder = dict(get_config=configs.get_config)
+
+    def with_ladder(arch, smoke=False):
+        cfg = ladder["get_config"](arch, smoke)
+        return dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, cp_exchange="ladder"))
+    t0 = time.perf_counter()
+    flat, _, plain_a, _ = _launch(torch, mods, DIST_COUNTERS, "--steps",
+                                  "2", arch="mamba2-2.7b", layers=2)
+    configs.get_config = with_ladder
+    try:
+        m1, _, plain_b, log = _launch(torch, mods, DIST_COUNTERS, "--steps",
+                                      "2", "--model", "1",
+                                      arch="mamba2-2.7b", layers=2)
+    finally:
+        configs.get_config = ladder["get_config"]
+    la = [h["loss"] for h in flat["history"]]
+    lb = [h["loss"] for h in m1["history"]]
+    same = la == lb and all(bits_equal(torch, x, y) for x, y in zip(
+        tree_leaves(flat["state"]["master"]),
+        tree_leaves(m1["state"]["master"])))
+    if plain_a or plain_b or not same or not all(map(math.isfinite, la)):
+        raise AssertionError(f"6g --model 1 (ladder) vs flat: losses {la} "
+                             f"vs {lb}, bitwise {same}, plain "
+                             f"{plain_a + plain_b}")
+    res["model1"] = dict(losses=la, bitwise=same,
+                         grid=log.splitlines()[0])
+    secs["model1"] = time.perf_counter() - t0
+    res["seconds"] = secs
+    del flat, m1
+    torch.cuda.empty_cache()
+    for arch, layers in SSM_TRAIN:
+        r = res[arch]
+        s = r["ssd_scan_ms_per_layer"]
+        print(f"6g {arch} x {layers} layers ({r['n_params']} parameters), "
+              f"qadam, one NCCL rank: losses "
+              + ", ".join(f"{x:.4f}" for x in r["losses"])
+              + f"; step wall {r['step_wall_ms']:.3f} ms, device "
+              f"{r['step_device_ms']:.3f} ms (idle {r['device_idle']:.1%}), "
+              f"{r['tokens_per_s']:.1f} tok/s; phases "
+              + ", ".join(f"{k} {v:.3f}" for k, v in r["phases_ms"].items())
+              + f" ms; the SSD scan a layer: forward {s['forward']:.4f} ms, "
+              f"forward+backward {s['forward_backward']:.4f} ms; a step "
+              f"(forward, recompute, backward over {layers} layers) "
+              f"{r['ssd_scan_ms_step']:.3f} ms, {r['ssd_scan_share']:.1%} "
+              f"of the step's device time; peak "
+              f"{r['peak_bytes']} B; launches {r['launches']}; "
+              f"captured-gradient update bitwise", flush=True)
+        for name, t in r["step_kernels"][:8]:
+            print(f"  {t:9.4f} ms  {name[:90]}")
+    print(f"6g --model 1 with cp_exchange=ladder bitwise the flat run "
+          f"(mamba2 x 2 layers, 2 steps: {res['model1']['losses']}); "
+          f"{res['model1']['grid']}; seconds by part: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+    launches = {}
+    for arch, _ in SSM_TRAIN:
+        for k, v in res[arch]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    res["launches"] = launches
+    return res
+
+
+def print_ssm_shapes(table):
+    print("the SSM family's shapes: K1 (tensor cores, M = 4) at mamba2's "
+          "and hymba's in_proj/out_proj in int8 and 3/4/6-bit lanes (#9's "
+          "round trip bitwise on the ragged 6,482), K1t over the 50,280- "
+          "and 32,001-row tied heads, within one bf16 ulp plus the floor",
+          flush=True)
+    for t in table:
+        print(f"  {t['what']} {t['shape']} {t['codes']}: {t['ms']:.4f} ms "
+              f"plain {t['plain_ms']:.4f} library {t['library_ms']:.4f} "
+              f"bound {t['bound_ms']:.4f} ({t['bound_by']}, "
+              f"{t['bound_ms'] / t['ms']:.1%}); max abs err "
+              f"{t['max_abs_err']:.3e}", flush=True)
+
+
 def flash_path(torch, dev, FA):
     """#17 through its entry point as a caller runs it (no model calls it,
     in either package): the attention of one gemma2-2b prefill of 8192
@@ -5332,6 +5960,8 @@ def main() -> int:
               f"({t['bound_by']}, {t['bound_ms'] / t['ms']:.1%})",
               flush=True)
     torch.cuda.empty_cache()
+    ssm_table = check_ssm_shapes(torch, dev, MM, B, K)
+    print_ssm_shapes(ssm_table)
 
     phase_s["3"] = time.perf_counter() - t3
     print(f"phase 3: {phase_s['3']:.1f} s", flush=True)
@@ -5365,6 +5995,10 @@ def main() -> int:
                 "llama4-maverick-400b-a17b", layers=MAVERICK_LAYERS,
                 experts=MAVERICK_EXPERTS)
     torch.cuda.empty_cache()
+    m2 = timed("4l", serve_ssm, torch, dev, smods, "mamba2-2.7b")
+    torch.cuda.empty_cache()
+    hy = timed("4m", serve_ssm, torch, dev, smods, "hymba-1.5b")
+    torch.cuda.empty_cache()
     tr = timed("5", train, torch, dev, mods)
     bl = timed("5b", alg1_baselines, torch, dev, mods)
     gt = timed("5c", graph_train, torch, dev, mods)
@@ -5391,6 +6025,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         h6 = timed("6e", hier_train, torch, dev, mods)
         f6 = timed("6f", moe_train, torch, dev, mods, group)
+        torch.cuda.empty_cache()
+        g6 = timed("6g", ssm_train, torch, dev, mods, group)
     finally:
         close_process_group()
     wb = timed("8", wire_buffers, torch, dev, mods, model8)
@@ -5429,6 +6065,9 @@ def main() -> int:
                    "serve_deepseek": ds16["launches"].get(r["name"], 0),
                    "serve_maverick": mav["launches"].get(r["name"], 0),
                    "train_moe": f6["launches"].get(r["name"], 0),
+                   "serve_mamba2": m2["launches"].get(r["name"], 0),
+                   "serve_hymba": hy["launches"].get(r["name"], 0),
+                   "train_ssm": g6["launches"].get(r["name"], 0),
                    "train_llava": lv["launches"].get(r["name"], 0),
                    "flash": fp["launches_bf16"].get(r["name"], 0),
                    "flash_f32": fp["launches_f32"].get(r["name"], 0),
@@ -5749,6 +6388,8 @@ def main() -> int:
                        deep_lanes=dl_table, paper_adaptive=pa, hier=h6,
                        moe_shapes=moe_table, serve_deepseek=ds16,
                        serve_maverick=mav, train_moe=f6,
+                       ssm_shapes=ssm_table, serve_mamba2=m2,
+                       serve_hymba=hy, train_ssm=g6,
                        phase_s=phase_s),
                   fh, indent=1)
     print("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in

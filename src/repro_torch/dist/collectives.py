@@ -407,3 +407,77 @@ def expert_exchange(x: torch.Tensor, group, to_experts: bool
     if group_size(group) <= 1:
         return x
     return _ExpertExchange.apply(x, group, to_experts)
+
+
+# ---------------------------------------------------------------------------
+# model-axis SSD summaries and conv halos (the SSM family's context
+# parallelism)
+# ---------------------------------------------------------------------------
+
+class _GatherStack(torch.autograd.Function):
+    """All-gather stacked along a new leading dim (the reference's
+    untiled ``lax.all_gather``): (n, *x.shape). Backward: the sum of
+    every rank's cotangent of row r, to rank r (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_gather(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g.contiguous().clone(), ctx.group), None
+
+
+def gather_stack(x: torch.Tensor, group) -> torch.Tensor:
+    """Every model rank's ``x``, stacked in rank order: (n, *x.shape),
+    differentiable. One rank: ``x[None]``."""
+    if group_size(group) <= 1:
+        return x[None]
+    return _GatherStack.apply(x, group)
+
+
+def _shift(x: torch.Tensor, hop: int, group) -> torch.Tensor:
+    """Rank r's ``x`` to rank r + hop (point to point; ``hop`` may be
+    negative); a rank with no source receives zeros (``lax.ppermute``
+    with the pairs (i, i + hop))."""
+    n, r = group_size(group), worker_index(group)
+    out = torch.zeros_like(x)
+    x = x.contiguous()
+    ops = []
+    if 0 <= r + hop < n:
+        ops.append(dist.P2POp(dist.isend, x,
+                              dist.get_global_rank(group, r + hop), group))
+    if 0 <= r - hop < n:
+        ops.append(dist.P2POp(dist.irecv, out,
+                              dist.get_global_rank(group, r - hop), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+class _Shift(torch.autograd.Function):
+    """:func:`_shift` with autograd: the transpose of a shift by ``hop``
+    is the shift by ``-hop`` (ranks past ``n - hop`` take zeros)."""
+
+    @staticmethod
+    def forward(ctx, x, hop, group):
+        ctx.hop, ctx.group = hop, group
+        return _shift(x, hop, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, -ctx.hop, ctx.group), None, None
+
+
+def shift(x: torch.Tensor, hop: int, group,
+          wire_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Model rank r's ``x`` arrives at rank r + hop, differentiable;
+    ranks r < hop get zeros. ``wire_dtype`` rounds what crosses the
+    wire (the ladder's bfloat16 wire), and the result is cast back."""
+    if group_size(group) <= 1:
+        return torch.zeros_like(x)
+    if wire_dtype is None or wire_dtype == x.dtype:
+        return _Shift.apply(x, hop, group)
+    return _Shift.apply(x.to(wire_dtype), hop, group).to(x.dtype)

@@ -11,9 +11,18 @@ runs the small configuration on the CPU through the kernels' plain
 versions. ``--arch`` takes the dense family of ``repro_torch.configs``:
 yi-6b, gemma2-2b, gemma3-4b and qwen2.5-14b (llava-next-mistral-7b takes
 embedding input, which the session does not serve, and is refused as
-the reference refuses it), and the MoE family: deepseek-moe-16b and
+the reference refuses it), the MoE family: deepseek-moe-16b and
 llama4-maverick-400b-a17b (the latter's 128 experts of 8192 a layer
-do not fit one card at its 48 layers). Weights are random, drawn from
+do not fit one card at its 48 layers), and the SSM and hybrid family:
+mamba2-2.7b (no K/V cache, so ``--paged`` exits with the reference's
+message) and hymba-1.5b:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+      --smoke --device cpu --quantized
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+      --smoke --device cpu --quantized --paged
+
+ Weights are random, drawn from
 ``--seed``; with ``--quantized`` each float32 leaf is dropped as soon
 as its codes exist, so the start-up peak stays near the float32 tree
 (qwen2.5-14b's 59 GB, deepseek-moe-16b's 67.5 GB, the largest leaf's
@@ -68,8 +77,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
                     help="yi-6b, gemma2-2b, gemma3-4b, qwen2.5-14b, "
-                         "deepseek-moe-16b or llama4-maverick-400b-a17b "
-                         "(repro_torch.configs)")
+                         "deepseek-moe-16b, llama4-maverick-400b-a17b, "
+                         "mamba2-2.7b or hymba-1.5b (repro_torch.configs)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
@@ -112,6 +121,8 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=args.smoke)
     if cfg.arch_type == "encdec" or cfg.input_mode != "tokens":
         raise SystemExit("serve CLI demo supports token-input decoder LMs")
+    if args.paged and cfg.arch_type == "ssm":
+        raise SystemExit("pure-SSM models hold no KV cache to page")
     model = Model(cfg)
     params = model.init(seed=args.seed, device=args.device)
     fp_bytes = params_nbytes(params)

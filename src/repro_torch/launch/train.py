@@ -77,6 +77,19 @@ over the model group (expert parallelism), e.g.
       --arch deepseek-moe-16b --smoke --device cpu --data 2 --model 2 \
       --steps 3 --seq 32 --global-batch 4
 
+The SSM and hybrid family too (``--arch mamba2-2.7b`` or
+``hymba-1.5b``); under ``--model N`` each rank holds S / N positions of
+every sequence (a multiple of the SSD chunk), scans its chunks from zero
+and corrects them with the shards before it (the config's
+``ssm.cp_exchange``: an all-gather of the per-shard summaries, or the
+log-step ladder of point-to-point shifts), takes its conv halo from the
+previous rank, and hymba's meta prefix goes in front of the gathered
+K/V, e.g.
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch mamba2-2.7b --smoke --device cpu --data 2 --model 2 \
+      --steps 3 --seq 32 --global-batch 4
+
 ``--layers N`` cuts the configuration's depth at full width.
 
 Bucket tuning and AOT artifacts are not ported (ROADMAP.md queue 1):

@@ -1,9 +1,9 @@
 """Architecture configuration schema (port of ``repro/models/config.py``;
 a copy, so the port imports nothing of the JAX package).
 
-One frozen dataclass drives every model. The port serves the dense GQA
-family (yi-6b); the other families' fields are kept so configurations
-read the same in both packages.
+One frozen dataclass drives every model. The port serves the dense GQA,
+MoE, SSM (mamba2) and hybrid (hymba) families; the encoder-decoder
+fields are kept so configurations read the same in both packages.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Building-block layers of the dense and MoE decoders (port of
-``repro/models/layers.py``).
+"""Building-block layers of the dense, MoE, SSM and hybrid decoders
+(port of ``repro/models/layers.py``).
 
 Each function repeats the reference's float32 arithmetic in the same
 order (norm statistics, rope angles, the ``cap * tanh(s / cap)``
@@ -17,8 +17,15 @@ weight to the activation dtype.
 Context parallelism (:class:`ShardCtx`): under a sharded context the
 sequence is split over the model group; training attention all-gathers
 K and V along the sequence (its backward reduce-scatters them) and masks
-with global positions, and the MoE layer holds E / n of the experts and
-exchanges tokens with the other ranks (``collectives.expert_exchange``).
+with global positions, the MoE layer holds E / n of the experts and
+exchanges tokens with the other ranks (``collectives.expert_exchange``),
+the SSD scan corrects each shard's chunks with the summaries of the
+shards before it and the causal convolution takes its halo from the
+previous shard (``collectives.gather_stack`` and ``shift``, whose
+backwards are written out: a reduce-scatter, the reverse shift).
+
+The SSD scan (mamba2, hymba's SSM heads) is plain PyTorch, as it is
+plain jnp in the reference.
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.config import ModelConfig, MoEConfig
+from repro_torch.models.config import ModelConfig, MoEConfig, SSMConfig
 from repro_torch.serve.quantized import QuantizedLeaf
 
 
@@ -139,7 +146,7 @@ def _window_ok(kv_pos, q_pos, window):
 
 
 def attention(q, k, v, *, q_pos, causal=True, window=0, softcap=None,
-              ctx: ShardCtx = ShardCtx()):
+              meta_tokens=0, ctx: ShardCtx = ShardCtx()):
     """GQA attention of a training forward. q: (B, Sq, H, hd) local;
     k, v: (B, Sq, K, hd) local, sequence-sharded iff ``ctx.sharded``;
     q_pos: (Sq,) global positions of the local queries. A sharded
@@ -154,6 +161,10 @@ def attention(q, k, v, *, q_pos, causal=True, window=0, softcap=None,
     activation dtype before the product with v. Plain PyTorch, so
     autograd gives its backward; the reference also computes it outside
     any Pallas kernel.
+
+    ``meta_tokens`` (hymba): the first ``meta_tokens`` key columns are a
+    learned prefix the caller concatenated in front of the keys (with
+    ``q_pos`` shifted by as many); the window never masks them.
     """
     B, Sq, H, hd = q.shape
     if ctx.sharded:
@@ -169,6 +180,8 @@ def attention(q, k, v, *, q_pos, causal=True, window=0, softcap=None,
     kv_pos = torch.arange(k.shape[1], device=q_pos.device)
     qp, kp = q_pos[:, None], kv_pos[None, :]
     mask = _window_ok(kp, qp, window)                          # (Sq, Skv)
+    if meta_tokens:
+        mask = mask | (kp < meta_tokens)
     if causal:
         mask = mask & (qp >= kp)
     scores = torch.where(mask, scores, -1e30)
@@ -181,8 +194,23 @@ def attention(q, k, v, *, q_pos, causal=True, window=0, softcap=None,
 # Attention against a cache view
 # ---------------------------------------------------------------------------
 
+def _with_meta(k_cache, v_cache, valid, meta_kv):
+    """The learned prefix ``meta_kv = (mk, mv)`` (B, M, K, hd) in front of
+    the cache view's columns, always valid (the port's decode is not
+    sequence-sharded: the reference's shard 0)."""
+    if meta_kv is None:
+        return k_cache, v_cache, valid
+    mk, mv = meta_kv
+    ones = torch.ones(valid.shape[:-1] + (mk.shape[1],), dtype=torch.bool,
+                      device=valid.device)
+    return (torch.cat([mk.to(k_cache.dtype), k_cache], dim=1),
+            torch.cat([mv.to(v_cache.dtype), v_cache], dim=1),
+            torch.cat([ones, valid], dim=-1))
+
+
 def decode_attention(q, k_cache, v_cache, *, total_len, window=0,
-                     softcap=None, kv_positions=None, extra_valid=None):
+                     softcap=None, kv_positions=None, extra_valid=None,
+                     meta_kv=None):
     """Single-token decode against a (B, S, K, hd) cache view.
 
     total_len: valid cache entries, scalar or (B,) per slot (the query
@@ -190,7 +218,7 @@ def decode_attention(q, k_cache, v_cache, *, total_len, window=0,
     sliding window (0: global) and attention logit softcap.
     kv_positions: (S,) positions of the view columns; extra_valid:
     optional (B, S) mask ANDed into validity (page ownership for paged
-    views).
+    views); meta_kv: hymba's (B, M, K, hd) prefix, always visible.
     """
     B, _, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
@@ -203,6 +231,7 @@ def decode_attention(q, k_cache, v_cache, *, total_len, window=0,
     valid = valid & _window_ok(kv_pos[None, :], tl[:, None] - 1, window)
     if extra_valid is not None:
         valid = valid & extra_valid
+    k_cache, v_cache, valid = _with_meta(k_cache, v_cache, valid, meta_kv)
     qr = q.reshape(B, K, rep, hd).to(torch.float32)
     scores = torch.einsum("bkrd,bskd->bkrs", qr,
                           k_cache.to(torch.float32)) / math.sqrt(hd)
@@ -220,13 +249,14 @@ def decode_attention(q, k_cache, v_cache, *, total_len, window=0,
 
 
 def chunk_attention(q, k_cache, v_cache, *, q_pos, window=0, softcap=None,
-                    kv_positions=None, extra_valid=None):
+                    kv_positions=None, extra_valid=None, meta_kv=None):
     """Chunked-prefill attention: Sq prompt tokens per slot attend to the
     slot's cache view, which already holds the chunk's own K/V.
 
     q: (B, Sq, H, hd); q_pos: (B, Sq) positions; causality rides on them
     (kv_pos <= q_pos), and the window on them too. Queries past the
-    chunk's valid prefix give outputs the caller discards.
+    chunk's valid prefix give outputs the caller discards. meta_kv:
+    hymba's (B, M, K, hd) prefix, visible to every query.
     """
     B, Sq, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
@@ -239,6 +269,7 @@ def chunk_attention(q, k_cache, v_cache, *, q_pos, window=0, softcap=None,
                                window)
     if extra_valid is not None:
         valid = valid & extra_valid[:, None, :]
+    k_cache, v_cache, valid = _with_meta(k_cache, v_cache, valid, meta_kv)
     qr = q.reshape(B, Sq, K, rep, hd).to(torch.float32)
     scores = torch.einsum("bqkrd,bskd->bkrqs", qr,
                           k_cache.to(torch.float32)) / math.sqrt(hd)
@@ -421,3 +452,262 @@ def moe(params, x: torch.Tensor, mcfg: MoEConfig,
     if mcfg.n_shared:
         y = y + mlp(params["shared"], xt, backend)
     return y.reshape(Bn, S, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality), chunked, context-parallel
+# ---------------------------------------------------------------------------
+
+def softplus(x):
+    """``jax.nn.softplus``'s formula, ``max(x, 0) + log1p(exp(-|x|))``
+    (``F.softplus`` switches to x above a threshold)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def segsum(a):
+    """a: (..., l) -> (..., l, l) lower-triangular segment sums,
+    ``out[..., i, j] = sum(a[..., j+1..i])`` for i >= j and -inf above the
+    diagonal, masked before any ``exp`` so that neither the forward nor
+    the backward meets an overflow (the reference's ``_segsum``)."""
+    l = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    ss = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((l, l), dtype=torch.bool, device=a.device))
+    return torch.where(mask, ss, -torch.inf)
+
+
+def chunk_prefix(chunk_decay, states):
+    """The inter-chunk recurrence: inclusive prefixes (decay (B, nc, H),
+    state (B, nc, H, P, N)) of ``(d1, s1) o (d2, s2) = (d1 d2, s1 d2 +
+    s2)`` over the chunks, in chunk order (the reference takes the same
+    prefixes with ``lax.associative_scan``, which groups the products
+    differently: float32 rounding apart)."""
+    d, s = chunk_decay[:, 0], states[:, 0]
+    ds, ss = [d], [s]
+    for c in range(1, chunk_decay.shape[1]):
+        dc = chunk_decay[:, c]
+        s = s * dc[..., None, None] + states[:, c]
+        d = d * dc
+        ds.append(d)
+        ss.append(s)
+    return torch.stack(ds, dim=1), torch.stack(ss, dim=1)
+
+
+def _exchange_summaries(total_decay, final, ctx: ShardCtx,
+                        cp_exchange: str, wire_dtype):
+    """Under context parallelism: the (decay (B, H), state (B, H, P, N))
+    that the shards before this one leave at its first token, from
+    every shard's local summary. ``"gather"``: all-gather the summaries
+    and fold those of the lower ranks in rank order. ``"ladder"``: a
+    Hillis-Steele prefix over the model group (log2(n) point-to-point
+    hops, then one shift), ``wire_dtype`` on the wire. Every collective
+    runs on every rank and its output enters every rank's graph (the
+    reference's ``where``s), so the backward's collectives (the
+    transposes: a reduce-scatter, the reverse shifts) pair up."""
+    from repro_torch.dist import collectives as CL
+    n, idx, group = ctx.cp_size, ctx.cp_rank, ctx.cp_group
+    dev = final.device
+    if cp_exchange == "ladder":
+        acc_d, acc_s = total_decay, final
+        hop = 1
+        while hop < n:
+            rd = CL.shift(acc_d, hop, group, wire_dtype)
+            rs = CL.shift(acc_s, hop, group, wire_dtype)
+            take = torch.tensor(idx >= hop, device=dev)
+            # the incoming segment precedes ours: (d_in, s_in) o (d, s)
+            acc_s = torch.where(take, rs * acc_d[..., None, None] + acc_s,
+                                acc_s)
+            acc_d = torch.where(take, rd * acc_d, acc_d)
+            hop *= 2
+        inc_state = CL.shift(acc_s, 1, group, wire_dtype)
+        inc_decay = torch.where(torch.tensor(idx == 0, device=dev),
+                                torch.ones_like(acc_d),
+                                CL.shift(acc_d, 1, group, wire_dtype))
+        return inc_decay, inc_state
+    if cp_exchange != "gather":
+        raise ValueError(f"unknown cp_exchange {cp_exchange!r}")
+    gd = CL.gather_stack(total_decay, group)
+    gs = CL.gather_stack(final, group)
+    d_acc, s_acc = torch.ones_like(total_decay), torch.zeros_like(final)
+    for i in range(n):
+        take = torch.tensor(i < idx, device=dev)
+        d_i = torch.where(take, gd[i], torch.ones_like(gd[i]))
+        s_i = torch.where(take, gs[i], torch.zeros_like(gs[i]))
+        d_acc, s_acc = d_acc * d_i, s_acc * d_i[..., None, None] + s_i
+    return d_acc, s_acc
+
+
+def ssd_chunked(xdt, a_bar, Bm, Cm, *, chunk: int,
+                ctx: ShardCtx = ShardCtx(), initial_state=None,
+                cp_exchange: str = "gather", cp_wire_dtype=torch.float32):
+    """The chunked SSD scan (the reference's ``ssd_chunked``), in float32.
+
+    xdt (B, S, H, P): inputs times dt; a_bar (B, S, H): log decay per
+    token (dt A, negative); Bm, Cm (B, S, G, N): input and output
+    projections, G groups shared by H / G heads each. Returns (y (B, S,
+    H, P) in xdt's dtype, the final state (B, H, P, N) float32).
+    ``initial_state`` (B, H, P, N) seeds the scan (chunked prefill from
+    a decode cache). S must be a multiple of ``chunk``.
+
+    Within a chunk, y = ((C B^T) * L) x with L = exp(segsum(a)), taken
+    as three products over the group's C B^T, never as one
+    four-operand einsum (which can build a (b, c, l, s, h, n) product).
+    Across chunks, :func:`chunk_prefix`. Under a sharded context the
+    sequence is split over the model group: each shard scans from zero
+    and adds ``init * decay`` corrections from the shards before it
+    (:func:`_exchange_summaries`); the returned final state is then this
+    shard's (the last shard holds the sequence's)."""
+    B, S, H, P = xdt.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if S % chunk:
+        raise ValueError(f"ssd_chunked: the sequence length {S} is not a "
+                         f"multiple of the chunk {chunk}")
+    reph = H // G
+    nc = S // chunk
+    f32 = torch.float32
+    xc = xdt.reshape(B, nc, chunk, H, P).to(f32)
+    ac = a_bar.reshape(B, nc, chunk, H).to(f32)
+    Bc = Bm.reshape(B, nc, chunk, G, N).to(f32)
+    Cc = Cm.reshape(B, nc, chunk, G, N).to(f32)
+
+    acum = torch.cumsum(ac, dim=2)                            # (B,nc,l,H)
+    # intra-chunk (diagonal) term: (C B^T per group) * L, then @ x
+    Lmat = torch.exp(segsum(ac.transpose(2, 3)))              # (B,nc,H,l,l)
+    CB = torch.einsum("bclgn,bcsgn->bcgls", Cc, Bc)           # (B,nc,G,l,l)
+    Wm = CB.repeat_interleave(reph, dim=2) * Lmat             # (B,nc,H,l,l)
+    Y_diag = torch.einsum("bchls,bcshp->bclhp", Wm, xc)
+
+    # per-chunk output states
+    decay_states = torch.exp(acum[:, :, -1:, :] - acum)       # (B,nc,l,H)
+    Bh = Bc.repeat_interleave(reph, dim=3)                    # (B,nc,l,H,N)
+    states = torch.einsum("bclhn,bclhp->bchpn",
+                          Bh * decay_states[..., None], xc)
+    chunk_decay = torch.exp(acum[:, :, -1, :])                # (B,nc,H)
+
+    dfx, sfx = chunk_prefix(chunk_decay, states)
+    prev = torch.cat([torch.zeros_like(sfx[:, :1]), sfx[:, :-1]], dim=1)
+    local_total_decay = dfx[:, -1]                            # (B,H)
+    local_final = sfx[:, -1]                                  # (B,H,P,N)
+
+    init = initial_state
+    if ctx.sharded:
+        inc_decay, inc_state = _exchange_summaries(
+            local_total_decay, local_final, ctx, cp_exchange, cp_wire_dtype)
+        init = inc_state if initial_state is None else \
+            inc_state + initial_state * inc_decay[..., None, None]
+    if init is not None:
+        # chunk c sees the extra state init * prod(decay of chunks < c)
+        excl_decay = torch.cat([torch.ones_like(dfx[:, :1]), dfx[:, :-1]],
+                               dim=1)                         # (B,nc,H)
+        prev = prev + init[:, None] * excl_decay[..., None, None]
+        local_final = local_final + init * local_total_decay[..., None, None]
+
+    Ch = Cc.repeat_interleave(reph, dim=3)                    # (B,nc,l,H,N)
+    Y_off = torch.einsum("bclhn,bchpn->bclhp", Ch, prev) \
+        * torch.exp(acum)[..., None]
+    y = (Y_diag + Y_off).reshape(B, S, H, P)
+    return y.to(xdt.dtype), local_final
+
+
+def ssd_step(h, xdt, a_bar, Bm, Cm):
+    """One token of the SSD recurrence: the state h (B, H, P, N) float32,
+    xdt (B, H, P), a_bar (B, H), Bm, Cm (B, G, N) -> (y (B, H, P) in
+    xdt's dtype, the new state ``h exp(a_bar) + xdt (x) B``), the
+    reference's decode arithmetic in float32."""
+    H, G = xdt.shape[1], Bm.shape[1]
+    dA = torch.exp(a_bar)                                      # (B,H)
+    Bh = Bm.repeat_interleave(H // G, dim=1)                   # (B,H,N)
+    Ch = Cm.repeat_interleave(H // G, dim=1)
+    h = h * dA[..., None, None] + torch.einsum(
+        "bhp,bhn->bhpn", xdt.to(torch.float32), Bh.to(torch.float32))
+    y = torch.einsum("bhpn,bhn->bhp", h, Ch.to(torch.float32))
+    return y.to(xdt.dtype), h
+
+
+def causal_conv1d(x, w, *, ctx: ShardCtx = ShardCtx(), prev_tail=None):
+    """Depthwise causal convolution of x (B, S, C) with w (d_conv, C), in
+    float32, cast back to x's dtype. The d_conv - 1 tokens before the
+    first are ``prev_tail`` (a decode cache's conv tail) or zeros; under
+    a sharded context, shard r > 0 takes them from shard r - 1 (the
+    halo, ``collectives.shift``)."""
+    B, S, C = x.shape
+    dconv = w.shape[0]
+    halo = dconv - 1
+    tail = (torch.zeros((B, halo, C), dtype=x.dtype, device=x.device)
+            if prev_tail is None else prev_tail)
+    if ctx.sharded:
+        from repro_torch.dist import collectives as CL
+        recv = CL.shift(x[:, -halo:, :], 1, ctx.cp_group)
+        tail = torch.where(torch.tensor(ctx.cp_rank > 0, device=x.device),
+                           recv, tail)
+    xp = torch.cat([tail.to(x.dtype), x], dim=1)              # (B,S+halo,C)
+    y = torch.zeros((B, S, C), dtype=torch.float32, device=x.device)
+    for i in range(dconv):
+        y = y + xp[:, i:i + S, :].to(torch.float32) * w[i].to(torch.float32)
+    return y.to(x.dtype)
+
+
+def mamba2_mix(params, x, scfg: SSMConfig, d_model: int,
+               ctx: ShardCtx = ShardCtx(), decode_cache=None,
+               backend: Optional[str] = None):
+    """The mamba2 mixer of x (B, S, d_model) -> (out (B, S, d_model),
+    {"ssm": state (B, H, P, N) float32, "conv": tail (B, d_conv - 1,
+    conv_dim)}), the reference's ``mamba2_mix`` with its casts: ``dt``
+    and ``A`` in float32, ``xdt`` in the activation dtype, the scan in
+    float32 and y cast back.
+
+    ``decode_cache`` None: training or whole-prompt prefill (the scan
+    from zero, or under ``ctx`` over the model group). A dict {"ssm",
+    "conv"} and S == 1: the single-token recurrence ``h dA + x (x) B``.
+    A dict and S > 1: the chunked prefill, the scan seeded from the
+    cache's state (S must be a multiple of ``scfg.chunk``). The caller
+    writes the returned state where it keeps it."""
+    Bn, S, _ = x.shape
+    di = scfg.expand * d_model
+    G, N, Pd = scfg.n_groups, scfg.d_state, scfg.head_dim
+    H = di // Pd
+    conv_dim = di + 2 * G * N
+    halo = scfg.d_conv - 1
+
+    zxbcdt = pmatmul(x, params["in_proj"], backend)
+    z, xbc, dt = torch.split(zxbcdt, [di, conv_dim, H], dim=-1)
+    dt = softplus(dt.to(torch.float32)
+                  + params["dt_bias"].to(torch.float32))     # (B,S,H)
+    A = -torch.exp(params["A_log"].to(torch.float32))         # (H,)
+
+    if decode_cache is None:
+        xbc_c = causal_conv1d(xbc, params["conv_w"], ctx=ctx)
+        new_conv = xbc[:, -halo:, :]
+    else:
+        xbc_c = causal_conv1d(xbc, params["conv_w"],
+                              prev_tail=decode_cache["conv"])
+        new_conv = torch.cat([decode_cache["conv"].to(xbc.dtype), xbc],
+                             dim=1)[:, -halo:, :]
+    xbc_c = F.silu(xbc_c)
+    xs, Bm, Cm = torch.split(xbc_c, [di, G * N, G * N], dim=-1)
+    xs = xs.reshape(Bn, S, H, Pd)
+    Bm = Bm.reshape(Bn, S, G, N)
+    Cm = Cm.reshape(Bn, S, G, N)
+
+    a_bar = dt * A[None, None, :]                              # log decay
+    xdt = xs * dt[..., None].to(xs.dtype)
+
+    if decode_cache is None:
+        wire = (torch.bfloat16 if scfg.cp_wire_dtype == "bfloat16"
+                else torch.float32)
+        y, new_ssm = ssd_chunked(xdt, a_bar, Bm, Cm, chunk=scfg.chunk,
+                                 ctx=ctx, cp_exchange=scfg.cp_exchange,
+                                 cp_wire_dtype=wire)
+    elif S == 1:
+        y, new_ssm = ssd_step(decode_cache["ssm"], xdt[:, 0], a_bar[:, 0],
+                              Bm[:, 0], Cm[:, 0])
+        y = y[:, None]                                         # (B,1,H,P)
+    else:
+        y, new_ssm = ssd_chunked(xdt, a_bar, Bm, Cm, chunk=scfg.chunk,
+                                 initial_state=decode_cache["ssm"])
+
+    y = y + xs * params["D"].to(xs.dtype)[None, None, :, None]
+    y = y.reshape(Bn, S, di)
+    y = rmsnorm(y * F.silu(z), params["norm_w"])
+    out = pmatmul(y, params["out_proj"], backend)
+    return out, {"ssm": new_ssm, "conv": new_conv}

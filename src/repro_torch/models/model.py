@@ -1,5 +1,5 @@
-"""Decoder LMs of the dense and MoE families: training forward and
-loss, whole-prompt prefill, and the serving decode (port of
+"""Decoder LMs of the dense, MoE, SSM and hybrid families: training
+forward and loss, whole-prompt prefill, and the serving decode (port of
 ``repro/models/model.py``).
 
 Parameters keep the reference's tree: ``embed`` (V, d), ``unembed``
@@ -11,7 +11,13 @@ norms, ``attn.bq``/``bk``/``bv`` with a QKV bias (qwen2.5),
 of ``mlp`` where the config has a ``MoEConfig`` (deepseek-moe-16b,
 llama4-maverick): ``router`` (d, E), the expert stacks ``w_gate``/
 ``w_up`` (E, d, fe) and ``w_down`` (E, fe, d), and ``shared``, an MLP
-of width ``n_shared * fe``. Where the reference
+of width ``n_shared * fe``. An SSM block (mamba2) is ``ln1`` and
+``ssm``: ``in_proj`` (d, 2 di + 2 G N + H), ``conv_w`` (d_conv,
+conv_dim), ``dt_bias``, ``A_log``, ``D`` (H,), ``norm_w`` (di,) and
+``out_proj`` (di, d). A hybrid block (hymba) has the attention block's
+leaves, ``ssm`` beside them, ``attn_out_norm``/``ssm_out_norm``, and
+with meta tokens ``attn.meta_k``/``meta_v`` (M, K, hd) and
+``ssm.init_state`` (H, P, N). Where the reference
 scans over that dim with ``lax.scan`` and per-layer flag arrays
 (windows, RoPE bases), the port loops over layers in Python with the
 same flags as Python numbers. A model with ``input_mode="embeddings"``
@@ -19,7 +25,8 @@ same flags as Python numbers. A model with ``input_mode="embeddings"``
 
 The decode cache is updated IN PLACE (the reference returns a new one):
 ``decode_step``/``decode_chunk`` write each token's K/V into the fixed
-lanes or the page pool and return the same dict. Writes the reference
+lanes or the page pool, and the SSM state and conv tail into their
+lanes, and return the same dict. Writes the reference
 drops (``mode="drop"``: released-sentinel pages, positions past the
 view, padded chunk tails) are dropped here too, with fixed shapes and
 no host sync (see :class:`_DropScatter`).
@@ -77,21 +84,22 @@ class Model:
     cfg: ModelConfig
 
     def _check_family(self):
-        """The port's decoder is the GQA family, dense (yi-6b, gemma2-2b,
+        """The port's decoders: the GQA family, dense (yi-6b, gemma2-2b,
         gemma3-4b, qwen2.5-14b, and llava-next's mistral decoder, which
         is this family on embedding input) or with MoE feed-forwards
-        (deepseek-moe-16b, llama4-maverick): rmsnorm, gated silu MLP or
-        experts; tied or untied head, sliding-window layers, softcaps,
-        post-sublayer norms, embedding scaling, QKV bias, qk-norm and a
-        local RoPE base as the config says. The SSM, hybrid and
-        encoder-decoder families and meta tokens are refused by name."""
+        (deepseek-moe-16b, llama4-maverick); the SSM family (mamba2-2.7b,
+        attention-free SSD blocks); the hybrid family (hymba-1.5b:
+        attention and SSD heads side by side, meta tokens): rmsnorm,
+        gated silu MLP or experts; tied or untied head, sliding-window
+        layers, softcaps, post-sublayer norms, embedding scaling, QKV
+        bias, qk-norm and a local RoPE base as the config says. The
+        encoder-decoder family (layernorm, gelu) is refused by name."""
         c = self.cfg
         extras = [name for name, on in (
             (f"arch_type {c.arch_type}",
-             c.arch_type not in ("dense", "vlm", "moe")),
+             c.arch_type not in ("dense", "vlm", "moe", "ssm", "hybrid")),
             (f"input_mode {c.input_mode}",
              c.input_mode not in ("tokens", "embeddings")),
-            ("meta_tokens", c.meta_tokens > 0),
             ("norm != rmsnorm", c.norm != "rmsnorm"),
             ("act != silu", c.act != "silu")) if on]
         if extras:
@@ -130,6 +138,11 @@ class Model:
                   "final_norm": {"w": ones(d)}}
         if not cfg.tie_embeddings:
             params["unembed"] = dense(d, cfg.vocab_size)
+        if cfg.arch_type == "ssm":
+            params["blocks"] = {"ln1": {"w": ones(n, d)},
+                                "ssm": self._ssm_init(dense, ones, generator,
+                                                      dev)}
+            return params
         attn = {"q": dense(n, d, H * hd), "k": dense(n, d, K * hd),
                 "v": dense(n, d, K * hd), "o": dense(n, H * hd, d)}
         if cfg.qkv_bias:
@@ -139,11 +152,18 @@ class Model:
                                          device=dev)
         if cfg.qk_norm:
             attn["q_norm"], attn["k_norm"] = ones(n, hd), ones(n, hd)
+        if cfg.meta_tokens:
+            attn["meta_k"] = dense(n, cfg.meta_tokens, K, hd)
+            attn["meta_v"] = dense(n, cfg.meta_tokens, K, hd)
         blocks = {"ln1": {"w": ones(n, d)}, "attn": attn,
                   "ln2": {"w": ones(n, d)}}
         if cfg.post_norm:
             blocks["ln1_post"] = {"w": ones(n, d)}
             blocks["ln2_post"] = {"w": ones(n, d)}
+        if cfg.arch_type == "hybrid":
+            blocks["ssm"] = self._ssm_init(dense, ones, generator, dev)
+            blocks["attn_out_norm"] = {"w": ones(n, d)}
+            blocks["ssm_out_norm"] = {"w": ones(n, d)}
         if cfg.moe is None:
             blocks["mlp"] = {"w_gate": dense(n, d, f),
                              "w_up": dense(n, d, f),
@@ -162,6 +182,35 @@ class Model:
                                            "w_down": dense(n, fs, d)}
         params["blocks"] = blocks
         return params
+
+    def _ssm_init(self, dense, ones, generator, dev):
+        """One SSD mixer's stacked leaves (the reference's ``_ssm_params``):
+        ``dt_bias`` the inverse softplus of dt, log-uniform in [1e-3,
+        0.1]; ``A_log = log(h % 15 + 1)`` for heads h = 1..H; ``conv_w``
+        a truncated normal times 0.2; ``D`` and ``norm_w`` ones; with
+        meta tokens, ``init_state`` zeros. ``init_state`` is carried so
+        the tree, checkpoints and the converter match the reference's,
+        but, as there, neither the forward nor the decode reads it."""
+        cfg = self.cfg
+        s, d, n = cfg.ssm, cfg.d_model, cfg.n_layers
+        di, H = cfg.d_inner, cfg.n_ssm_heads
+        conv_dim = di + 2 * s.n_groups * s.d_state
+        u = torch.rand((n, H), dtype=torch.float32, device=dev,
+                       generator=generator)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3))
+                       + math.log(1e-3))
+        heads = torch.arange(1, H + 1, dtype=torch.float32, device=dev)
+        p = {"in_proj": dense(n, d, 2 * di + 2 * s.n_groups * s.d_state + H),
+             "conv_w": dense(n, s.d_conv, conv_dim).mul_(10.0),
+             "dt_bias": dt + torch.log(-torch.expm1(-dt)),
+             "A_log": torch.log(heads % 15 + 1.0).expand(n, H).clone(),
+             "D": ones(n, H),
+             "norm_w": ones(n, di),
+             "out_proj": dense(n, di, d)}
+        if cfg.meta_tokens:
+            p["init_state"] = torch.zeros((n, H, s.head_dim, s.d_state),
+                                          dtype=torch.float32, device=dev)
+        return p
 
     # ---------------- embed / head ----------------
     def _embed_in(self, params, inputs, key):
@@ -234,26 +283,74 @@ class Model:
             k = L.rmsnorm(k, pa["k_norm"], cfg.norm_eps)
         return L.rope(q, q_pos, theta), L.rope(k, q_pos, theta), v
 
+    def _meta_kv(self, pa, Bn: int, dtype):
+        """Hymba's learned K/V prefix of the layer, (B, M, K, hd) each in
+        the activation dtype; None without meta tokens."""
+        if not self.cfg.meta_tokens:
+            return None
+        return tuple(pa[name].to(dtype).expand((Bn,) + tuple(
+            pa[name].shape)) for name in ("meta_k", "meta_v"))
+
+    def _mix(self, attn, ssm_out, p):
+        """The hybrid block's merge of its parallel heads:
+        ``0.5 (norm(attn) + norm(ssm))`` (attention alone otherwise)."""
+        if ssm_out is None:
+            return attn
+        return 0.5 * (L.apply_norm(attn, p["attn_out_norm"], self.cfg)
+                      + L.apply_norm(ssm_out, p["ssm_out_norm"], self.cfg))
+
     # ---------------- training forward ----------------
     def _block(self, p, x, q_pos, window, theta, backend=None, kv=None,
                ctx: L.ShardCtx = L.ShardCtx()):
         """One decoder block of the training forward on x (B, S, d) at
         global positions ``q_pos``: (x, the layer's MoE aux loss or
-        None); ``kv``, a list, collects the layer's (k, v) (prefill). The
-        layer's weights pass ``ctx.gather(p, "blocks")`` first, inside
-        the block, so that a checkpointed block gathers them again in the
-        backward instead of keeping them."""
+        None); ``kv``, a list, collects the layer's cache entries
+        ({"k", "v"} and/or {"ssm", "conv"}: prefill). The layer's
+        weights pass ``ctx.gather(p, "blocks")`` first, inside the
+        block, so that a checkpointed block gathers them again in the
+        backward instead of keeping them.
+
+        An SSM block is ``x + mamba2_mix(ln1(x))``. A hybrid block runs
+        the attention and the mixer on the same ``ln1`` output and
+        merges them (:meth:`_mix`); with meta tokens the prefix goes in
+        front of the (gathered) keys at positions below ``meta_tokens``,
+        which the window never masks."""
         cfg = self.cfg
         Bn, S, _ = x.shape
         p = ctx.gather(p, "blocks")
         h = L.apply_norm(x, p["ln1"], cfg)
+        if cfg.arch_type == "ssm":
+            out, st = L.mamba2_mix(p["ssm"], h, cfg.ssm, cfg.d_model,
+                                   ctx=ctx, backend=backend)
+            if kv is not None:
+                kv.append(st)
+            return x + out, None
         pa = p["attn"]
         q, k, v = self._qkv(pa, h, q_pos, theta, backend)
-        if kv is not None:
-            kv.append((k, v))
-        attn = L.attention(q, k, v, q_pos=q_pos, window=window,
-                           softcap=cfg.attn_softcap, ctx=ctx)
+        entry = {"k": k, "v": v}
+        meta = self._meta_kv(pa, Bn, h.dtype)
+        if meta is None:
+            attn = L.attention(q, k, v, q_pos=q_pos, window=window,
+                               softcap=cfg.attn_softcap, ctx=ctx)
+        else:
+            if ctx.sharded:
+                from repro_torch.dist import collectives as C
+                k = C.gather_shard(k, 1, ctx.cp_size, ctx.cp_group)
+                v = C.gather_shard(v, 1, ctx.cp_size, ctx.cp_group)
+            M = cfg.meta_tokens
+            attn = L.attention(q, torch.cat([meta[0], k], dim=1),
+                               torch.cat([meta[1], v], dim=1),
+                               q_pos=q_pos + M, window=window,
+                               softcap=cfg.attn_softcap, meta_tokens=M)
         attn = L.pmatmul(attn.reshape(Bn, S, -1), pa["o"], backend)
+        ssm_out = None
+        if cfg.arch_type == "hybrid":
+            ssm_out, st = L.mamba2_mix(p["ssm"], h, cfg.ssm, cfg.d_model,
+                                       ctx=ctx, backend=backend)
+            entry.update(st)
+        if kv is not None:
+            kv.append(entry)
+        attn = self._mix(attn, ssm_out, p)
         x = x + self._post(attn, p, "ln1_post")
         out, aux = self._ffn(p, L.apply_norm(x, p["ln2"], cfg), backend,
                              ctx)
@@ -305,24 +402,33 @@ class Model:
         return self._head(params, x), aux_total
 
     def prefill(self, params, batch, max_seq_local: int,
-                gather: Gather = None, backend: Optional[str] = None):
+                gather: Gather = None, backend: Optional[str] = None,
+                ctx: Optional[L.ShardCtx] = None):
         """Whole-prompt prefill: the forward pass over ``batch``'s
-        sequence that also returns each layer's K and V, as the
+        sequence that also returns each layer's cache, as the
         reference's ``forward(collect_cache=True)``. Returns (float32
-        logits (B, S, V), {"k", "v": (layers, B, max_seq_local, K, hd)}),
-        the cache zero-padded past S. ``gather`` is the per-layer
+        logits (B, S, V), cache): {"k", "v": (layers, B, max_seq_local,
+        K, hd)} zero-padded past S where the model attends, and {"ssm":
+        (layers, B, H, P, N) float32, "conv": (layers, B, d_conv - 1,
+        conv_dim)} where it has SSD mixers. ``gather`` is the per-layer
         parameter hook of code-resident weights (``make_dequant_gather``);
-        no activations are kept for a backward."""
+        no activations are kept for a backward.
+
+        ``ctx``: a context-parallel prefill (its ``param_gather`` in place
+        of ``gather``): ``batch`` holds this shard's positions, K and V
+        stay the shard's, and the SSM state and conv tail, which only
+        the last shard holds whole, are gathered from it."""
         self._check_family()
         cfg = self.cfg
-        ctx = L.ShardCtx(param_gather=gather)
+        if ctx is None:
+            ctx = L.ShardCtx(param_gather=gather)
         params = ctx.gather(params, "static")
         x = self._embed_in(params, batch, "tokens")
         S = x.shape[1]
         if S > max_seq_local:
             raise ValueError(f"a prompt of {S} tokens does not fit "
                              f"max_seq_local={max_seq_local}")
-        q_pos = torch.arange(S, device=x.device)
+        q_pos = ctx.cp_index() * S + torch.arange(S, device=x.device)
         kv = []
         for i, (window, theta) in enumerate(zip(cfg.layer_windows(),
                                                 cfg.layer_rope_thetas())):
@@ -330,10 +436,21 @@ class Model:
                                window, theta, backend, kv, ctx)
         x = L.apply_norm(x, params["final_norm"], cfg)
         logits = self._head(params, x, backend)
+        cache = {}
         pad = (0, 0, 0, 0, 0, max_seq_local - S)
-        cache = {name: torch.nn.functional.pad(
-                     torch.stack([layer[j] for layer in kv]), pad)
-                 for j, name in enumerate(("k", "v"))}
+        for name in ("k", "v"):
+            if name in kv[0]:
+                cache[name] = torch.nn.functional.pad(
+                    torch.stack([layer[name] for layer in kv]), pad)
+        if "ssm" in kv[0]:
+            ssm = torch.stack([layer["ssm"] for layer in kv]).to(
+                torch.float32)
+            conv = torch.stack([layer["conv"] for layer in kv])
+            if ctx.sharded:
+                from repro_torch.dist import collectives as C
+                ssm = C.gather_stack(ssm, ctx.cp_group)[-1]
+                conv = C.gather_stack(conv, ctx.cp_group)[-1]
+            cache["ssm"], cache["conv"] = ssm, conv
         return logits, cache
 
     def loss(self, params, batch, ctx: L.ShardCtx = L.ShardCtx()):
@@ -363,27 +480,42 @@ class Model:
         or, with ``page_pool=(num_pages, page_size)``, a page pool
         ``pk``/``pv`` (layers, num_pages, page_size, K, hd) plus a page
         table ``ptab`` (B, max_seq // page_size) initialised to the
-        RELEASED sentinel ``num_pages``."""
+        RELEASED sentinel ``num_pages``. SSD mixers add the per-slot
+        ``ssm`` state (layers, B, H, P, N) float32 and ``conv`` tail
+        (layers, B, d_conv - 1, conv_dim) (O(1) in the sequence: never
+        paged); a pure SSM model has no K/V and no page pool."""
         self._check_family()
         cfg = self.cfg
         dtype = dtype or _dt(cfg)
         K, hd, lyr = cfg.n_kv_heads, cfg.head_dim_, cfg.n_layers
         dev = torch.device(device)
-        if page_pool is not None:
+        cache = {}
+        if cfg.arch_type != "ssm" and page_pool is not None:
             num_pages, page_size = page_pool
             if max_seq_local % page_size:
                 raise ValueError(
                     f"max_seq_local={max_seq_local} must be a multiple of "
                     f"page_size={page_size}")
             shape = (lyr, num_pages, page_size, K, hd)
-            return {"pk": torch.zeros(shape, dtype=dtype, device=dev),
-                    "pv": torch.zeros(shape, dtype=dtype, device=dev),
-                    "ptab": torch.full((batch_size, max_seq_local // page_size),
-                                       num_pages, dtype=torch.int32,
-                                       device=dev)}
-        shape = (lyr, batch_size, max_seq_local, K, hd)
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            cache = {"pk": torch.zeros(shape, dtype=dtype, device=dev),
+                     "pv": torch.zeros(shape, dtype=dtype, device=dev),
+                     "ptab": torch.full(
+                         (batch_size, max_seq_local // page_size),
+                         num_pages, dtype=torch.int32, device=dev)}
+        elif cfg.arch_type != "ssm":
+            shape = (lyr, batch_size, max_seq_local, K, hd)
+            cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                     "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        if cfg.arch_type in ("ssm", "hybrid"):
+            s = cfg.ssm
+            conv_dim = cfg.d_inner + 2 * s.n_groups * s.d_state
+            cache["ssm"] = torch.zeros(
+                (lyr, batch_size, cfg.n_ssm_heads, s.head_dim, s.d_state),
+                dtype=torch.float32, device=dev)
+            cache["conv"] = torch.zeros(
+                (lyr, batch_size, s.d_conv - 1, conv_dim), dtype=dtype,
+                device=dev)
+        return cache
 
     def _paged_writes(self, cache, q_pos, valid_q):
         """Write targets of tokens at ``q_pos`` (B, S) into the pool,
@@ -413,11 +545,30 @@ class Model:
                              torch.clamp(q_pos, 0, S - 1).long().reshape(-1)),
                             ok.reshape(-1))
 
+    def _mixer_step(self, p, h, cache, i, rows_ok, backend):
+        """Layer i's SSD mixer on the normed input h against its cache
+        lanes (one token: the recurrence; a chunk: the seeded scan); the
+        new state and conv tail are written into the lanes in place, for
+        the rows where ``rows_ok`` (None: every row). Returns the mixer's
+        output."""
+        lanes = {"ssm": cache["ssm"][i], "conv": cache["conv"][i]}
+        out, st = L.mamba2_mix(p["ssm"], h, self.cfg.ssm, self.cfg.d_model,
+                               decode_cache=lanes, backend=backend)
+        for name, dst in lanes.items():
+            new = st[name].to(dst.dtype)
+            if rows_ok is not None:
+                new = torch.where(rows_ok.reshape(
+                    (-1,) + (1,) * (new.dim() - 1)), new, dst)
+            dst.copy_(new)
+        return out
+
     def _layers(self, params, x, cache, q_pos, valid_q, attend,
-                gather: Gather, backend):
+                gather: Gather, backend, rows_ok=None):
         """The per-layer body shared by decode_step and decode_chunk:
         x (B, S, d) at positions q_pos (B, S); ``attend(q, kc, vc, view,
-        window)`` runs the attention variant with the layer's window."""
+        window, meta_kv)`` runs the attention variant with the layer's
+        window; ``rows_ok`` (B,) masks the SSD state writes (None:
+        every row)."""
         cfg = self.cfg
         Bn, S, _ = x.shape
         H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -426,7 +577,7 @@ class Model:
             write, extra_valid, view_pos = self._paged_writes(
                 cache, q_pos, valid_q)
             view = dict(kv_positions=view_pos, extra_valid=extra_valid)
-        else:
+        elif "k" in cache:
             write, view = self._lane_writes(cache, q_pos, valid_q), {}
         thetas, windows = cfg.layer_rope_thetas(), cfg.layer_windows()
         for i in range(cfg.n_layers):
@@ -434,6 +585,9 @@ class Model:
             if gather is not None:
                 p = gather(p, "blocks")
             h = L.apply_norm(x, p["ln1"], cfg)
+            if cfg.arch_type == "ssm":
+                x = x + self._mixer_step(p, h, cache, i, rows_ok, backend)
+                continue
             pa = p["attn"]
             q, k, v = self._qkv(pa, h, q_pos, thetas[i], backend)
             if paged:
@@ -446,8 +600,13 @@ class Model:
                 kc, vc = cache["k"][i], cache["v"][i]
                 write(kc, k.reshape(Bn * S, K, hd))
                 write(vc, v.reshape(Bn * S, K, hd))
-            attn = attend(q, kc, vc, view, windows[i])
+            attn = attend(q, kc, vc, view, windows[i],
+                          self._meta_kv(pa, Bn, h.dtype))
             attn = L.pmatmul(attn.reshape(Bn, S, H * hd), pa["o"], backend)
+            ssm_out = None
+            if cfg.arch_type == "hybrid":
+                ssm_out = self._mixer_step(p, h, cache, i, rows_ok, backend)
+            attn = self._mix(attn, ssm_out, p)
             x = x + self._post(attn, p, "ln1_post")
             out, _ = self._ffn(p, L.apply_norm(x, p["ln2"], cfg), backend)
             x = x + self._post(out, p, "ln2_post")
@@ -463,8 +622,9 @@ class Model:
         ``gather`` is the per-layer parameter hook
         (``make_dequant_gather``); ``backend`` forces the kernels'
         implementation (default: by device); ``write``, (B,) bool, drops
-        the K/V writes of the rows where it is False (a session's
-        inactive slots)."""
+        the K/V writes of the rows where it is False and keeps their SSM
+        state and conv tail (a session's inactive slots, whose lanes the
+        reference's step reverts)."""
         self._check_family()
         cfg = self.cfg
         if gather is not None:
@@ -476,13 +636,13 @@ class Model:
         valid = (torch.ones_like(posv, dtype=torch.bool) if write is None
                  else write.reshape(Bn, 1))
 
-        def attend(q, kc, vc, view, window):
+        def attend(q, kc, vc, view, window, meta_kv):
             return L.decode_attention(q, kc, vc, total_len=posv[:, 0] + 1,
-                                      window=window,
-                                      softcap=cfg.attn_softcap, **view)
+                                      window=window, softcap=cfg.attn_softcap,
+                                      meta_kv=meta_kv, **view)
 
         x = self._layers(params, x, cache, posv, valid, attend, gather,
-                         backend)
+                         backend, rows_ok=write)
         return self._head(params, x, backend)[:, 0], cache
 
     def decode_chunk(self, params, inputs, cache, start, nvalid,
@@ -492,7 +652,10 @@ class Model:
         d)}; start: (B,) position
         of each slot's first chunk token; nvalid: (B,) valid tokens (the
         padded tail's writes are dropped). Returns (logits (B, V) of
-        position start + nvalid - 1, cache updated in place)."""
+        position start + nvalid - 1, cache updated in place). With SSD
+        mixers the scan has no per-token validity: the caller dispatches
+        only full chunks whose length is a multiple of ``ssm.chunk`` (the
+        session's admission rule)."""
         self._check_family()
         cfg = self.cfg
         if gather is not None:
@@ -506,9 +669,10 @@ class Model:
         q_pos = start[:, None] + ar                             # (B, Sq)
         valid_q = ar < nvalid[:, None]
 
-        def attend(q, kc, vc, view, window):
+        def attend(q, kc, vc, view, window, meta_kv):
             return L.chunk_attention(q, kc, vc, q_pos=q_pos, window=window,
-                                     softcap=cfg.attn_softcap, **view)
+                                     softcap=cfg.attn_softcap,
+                                     meta_kv=meta_kv, **view)
 
         x = self._layers(params, x, cache, q_pos, valid_q, attend, gather,
                          backend)

@@ -21,6 +21,12 @@ Admission, as the reference's: ``"chunked"`` (the dense family's
 slot's fixed lane; prompts shorter than 2 tokens are injected) or
 ``"inject"`` (the prompt enters through the decode step, one token a
 step, the step's logits discarded until the last prompt position).
+Models with SSD mixers (mamba2, hymba) follow the SSD chunk rule: the
+scan has no per-token validity, so a prompt is admitted chunked only
+when ``prefill_chunk`` is a multiple of ``ssm.chunk`` and the prompt a
+multiple of ``prefill_chunk``; else whole where the prompt tiles
+``ssm.chunk`` (fixed lanes only); else injected. A slot's SSM state and
+conv tail are zeroed (in place) when it is claimed.
 
 On a CUDA device the decode step is one CUDA graph, the counterpart of
 the reference's single jitted step: the first step of each kind (greedy,
@@ -146,10 +152,11 @@ class ServeSession:
                  prefill_chunk: int = 32, preempt_mode: str = "requeue",
                  device="cuda"):
         cfg = model.cfg
-        if cfg.input_mode != "tokens" or cfg.arch_type not in ("dense",
-                                                               "moe"):
+        if cfg.input_mode != "tokens" or cfg.arch_type not in (
+                "dense", "moe", "ssm", "hybrid"):
             raise ValueError("ServeSession serves token-input decoder LMs "
-                             "(the port: the dense and MoE families)")
+                             "(the port: the dense, MoE, SSM and hybrid "
+                             "families)")
         self.model, self.cfg = model, cfg
         self.device = torch.device(device)
         self.slots, self.max_seq, self.eos_id = slots, max_seq, eos_id
@@ -157,6 +164,8 @@ class ServeSession:
         self.params = params
         self.paged = bool(paged)
         if self.paged:
+            if cfg.arch_type == "ssm":
+                raise ValueError("pure-SSM models hold no KV cache to page")
             if max_seq % page_size:
                 raise ValueError(f"max_seq={max_seq} must be a multiple of "
                                  f"page_size={page_size}")
@@ -227,7 +236,13 @@ class ServeSession:
 
     def _claim_cache(self, slot: int, ptab_row: Optional[np.ndarray]):
         """Slot reuse: per-slot attention masking already hides a previous
-        occupant's rows; paged sessions install the slot's table row."""
+        occupant's rows, but the recurrent lanes (SSM state, conv tail)
+        carry it on, so they are zeroed, in place; paged sessions install
+        the slot's table row."""
+        cache = self._state["cache"]
+        for name in ("ssm", "conv"):
+            if name in cache:
+                cache[name][:, slot].zero_()
         if self.paged:
             self._state["cache"]["ptab"][slot] = self._to_dev(ptab_row,
                                                               torch.int32)
@@ -284,14 +299,11 @@ class ServeSession:
                    is_last):
         """One chunked-prefill dispatch for one slot; the final chunk
         also picks the first generated token (:meth:`_first_token`)."""
-        st = self._state
-        cache = st["cache"]
-        if self.paged:
-            lane = {"pk": cache["pk"], "pv": cache["pv"],
-                    "ptab": cache["ptab"][slot:slot + 1]}
-        else:
-            lane = {"k": cache["k"][:, slot:slot + 1],
-                    "v": cache["v"][:, slot:slot + 1]}
+        cache = self._state["cache"]
+        lane = {name: (t if name in ("pk", "pv") else
+                       t[slot:slot + 1] if name == "ptab" else
+                       t[:, slot:slot + 1])      # views: written in place
+                for name, t in cache.items()}
         lg, _ = self.model.decode_chunk(
             self.params, {"token": self._to_dev(tokens[None], torch.int32)},
             lane, self._to_dev([start], torch.int32),
@@ -302,16 +314,17 @@ class ServeSession:
     def _prefill_whole(self, slot: int, prompt: np.ndarray, max_new: int,
                        temp: float, key: int):
         """Whole-prompt admission: one ``Model.prefill`` over the prompt
-        writes the slot's fixed lane (zeros past the prompt, as the
-        reference's padded cache), then the first token."""
+        writes the slot's fixed lanes (zeros past the prompt, as the
+        reference's padded cache; the SSM state and conv tail at the
+        prompt's end), then the first token."""
         st = self._state
         plen = len(prompt)
         toks = self._to_dev(prompt[None], torch.int32)
         lg, lane = self.model.prefill(self.params, {"tokens": toks},
                                       max_seq_local=self.max_seq,
                                       gather=self._gather)
-        for name in ("k", "v"):
-            st["cache"][name][:, slot].copy_(lane[name][:, 0])
+        for name, t in lane.items():
+            st["cache"][name][:, slot].copy_(t[:, 0])
         self._write_prompt(slot, prompt)
         self._first_token(slot, lg[0, plen - 1], plen, max_new, temp, key)
 
@@ -601,14 +614,31 @@ class ServeSession:
         self.stats["max_inflight"] = max(self.stats["max_inflight"],
                                          self.inflight)
 
+    def _can_prefill_whole(self, plen: int) -> bool:
+        if plen < 2:
+            return False
+        if self.cfg.arch_type in ("ssm", "hybrid"):
+            # the SSD chunked scan needs the sequence to tile its chunk
+            return plen % self.cfg.ssm.chunk == 0
+        return True
+
     def _admission_mode(self, plen: int) -> str:
-        """The reference's choice for a local session of the dense
-        family: chunked unless asked otherwise; whole falls back to
-        inject below 2 prompt tokens."""
+        """The reference's choice for a local session: chunked unless
+        asked otherwise; whole falls back to inject below 2 prompt
+        tokens. With SSD mixers every dispatched chunk must be full and
+        a multiple of the SSD chunk, else whole where the prompt tiles
+        the SSD chunk (fixed lanes), else inject."""
         if self._prefill_mode == "inject":
             return "inject"
         if self._prefill_mode == "whole":
-            return "whole" if plen >= 2 else "inject"
+            return "whole" if self._can_prefill_whole(plen) else "inject"
+        if self.cfg.arch_type in ("ssm", "hybrid"):
+            c = self.prefill_chunk
+            if c % self.cfg.ssm.chunk == 0 and plen % c == 0:
+                return "chunked"
+            if not self.paged and self._can_prefill_whole(plen):
+                return "whole"
+            return "inject"
         return "chunked"
 
     def _finalize_admission(self, slot: int, handle: int, req: Request,

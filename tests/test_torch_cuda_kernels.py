@@ -20,7 +20,11 @@ fails raises. The MoE family: a code-resident expert stack's at-use
 dequantize through K12 bitwise its plain version, K1 at the routers'
 shapes, and ``layers.moe`` bitwise its CUDA graph under both
 dispatches; a closed graphed training session gives back its memory
-with no garbage collection.
+with no garbage collection. The SSM and hybrid family: K1 at mamba2's
+and hymba's projection shapes (int8 and 3/4/6-bit lanes, #9's packing
+bitwise on the 6,482-wide rows that fill no whole 3- or 6-bit group),
+K1t over their 50,280- and 32,001-row heads, and their sessions' decode
+step graphed (in the session test above).
 """
 import dataclasses
 
@@ -1954,7 +1958,7 @@ def _served_smoke(dev, arch, seed=5):
     model = Model(get_config(arch, smoke=True))
     params = model.init(seed=0, device=dev)
     g = torch.Generator(device=dev).manual_seed(seed)
-    attn = params["blocks"]["attn"]
+    attn = params["blocks"].get("attn", {})
     for name in ("bq", "bk", "bv"):
         if name in attn:
             attn[name] = 0.5 * torch.randn(attn[name].shape, generator=g,
@@ -1993,7 +1997,9 @@ def _serve_mixed(model, params, dev, **kw):
     ("qwen2.5-14b", dict(paged=True, page_size=8)),
     ("yi-6b", dict()),
     ("yi-6b", dict(prefill="inject")),
-    ("gemma3-4b", dict(prefill="whole"))], ids=str)
+    ("gemma3-4b", dict(prefill="whole")),
+    ("mamba2-2.7b", dict()),
+    ("hymba-1.5b", dict(paged=True, page_size=8))], ids=str)
 def test_session_decode_graph_equals_eager(dev, arch, kw, monkeypatch):
     """The decode step as one CUDA graph (a capture per kind, greedy and
     sampling, then replays) gives the eager session's tokens and cache
@@ -2180,3 +2186,70 @@ def test_close_frees_graph_memory(dev):
     print(f"allocated before {before} B, while open {held} B, after close "
           f"{after} B")
     assert held > before and after == before
+
+
+# ---------------------------------------------------------------------------
+# the SSM and hybrid family: K1 and K1t at the new shapes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bits", [8, 3, 4, 6])
+@pytest.mark.parametrize("M", [4, 128])
+@pytest.mark.parametrize("K,N", [(2560, 10576), (5120, 2560), (1600, 6482),
+                                 (3200, 1600)])
+def test_dequant_matmul_ssm_shapes(dev, bits, M, K, N):
+    """K1 on tensor cores at mamba2-2.7b's and hymba-1.5b's in_proj and
+    out_proj (M = 4: a decode step; 128: a prefill chunk), int8 codes and
+    3/4/6-bit lanes: the lanes packed by #9 bitwise the plain packing and
+    unpacked back to the codes (6,482 codes fill no whole 3- or 6-bit
+    group), the product within one bf16 ulp plus the floor."""
+    from repro_torch.comm import bits as B
+    from repro_torch.comm import kernels as KN
+    from repro_torch.comm import matmul as MM
+    g = torch.Generator(device=dev).manual_seed(M + K + N + bits)
+    k_x = _TC_K_X[bits]
+    lim = 2 ** k_x
+    raw = torch.randint(-lim, lim + 1, (K, N), generator=g, device=dev)
+    if bits < 8:
+        raw = torch.clamp(raw, -(2 ** (bits - 1)), 2 ** (bits - 1) - 1)
+        codes = KN.pack_rows(raw.to(torch.int8), bits, backend="cuda")
+        assert torch.equal(codes, B.pack_rows(raw, bits))
+        assert torch.equal(KN.unpack_rows(codes, bits, N, backend="cuda"),
+                           raw.to(torch.int8))
+    else:
+        codes = raw.to(torch.int8)
+    pb = bits if bits < 8 else 0
+    x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+    scale = torch.tensor(0.0371, device=dev)
+    kw = dict(k_x=k_x, n=N, pack_bits=pb, cast_dtype="bfloat16")
+    n_tc = MM.launches_tc
+    a = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    assert MM.launches_tc == n_tc + 1
+    b = MM.dequant_matmul(x, codes, scale, backend="torch", **kw)
+    assert a.shape == b.shape == (M, N)
+    tol = _k1_bf16_tol(MM, x, codes, scale, k_x, b, pb)
+    assert bool(((a.float() - b.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("V,d", [(50280, 2560), (32001, 1600)])
+@pytest.mark.parametrize("M", [1, 4])
+def test_dequant_matmul_t_ssm_heads(dev, V, d, M):
+    """K1t on tensor cores over the tied heads of mamba2-2.7b (50,280
+    rows) and hymba-1.5b (32,001: odd) with int8 codes, within one bf16
+    ulp plus the floor."""
+    from repro_torch.comm import matmul as MM
+    g = torch.Generator(device=dev).manual_seed(V + M)
+    codes = torch.randint(-64, 65, (V, d), generator=g, device=dev).to(
+        torch.int8)
+    x = torch.randn(M, d, generator=g, device=dev).to(torch.bfloat16)
+    scale = torch.tensor(0.0371, device=dev)
+    kw = dict(k_x=6, n=d, cast_dtype="bfloat16", transpose=True)
+    n_t = MM.t_launches_tc
+    a = MM.dequant_matmul(x, codes, scale, backend="cuda", **kw)
+    assert MM.t_launches_tc == n_t + 1
+    b = MM.dequant_matmul(x, codes, scale, backend="torch", **kw)
+    assert a.shape == b.shape == (M, V)
+    w = MM.dequant_codes(codes, scale, k_x=6, n=d, pack_bits=0,
+                         w_dtype="float32", cast_dtype="bfloat16").float()
+    norm = (x.float() ** 2 @ (w ** 2).T).sqrt()
+    tol = _bf16_ulp(b.float()) + K1_FLOOR * d ** 0.5 * 2.0 ** -24 * norm
+    assert bool(((a.float() - b.float()).abs() <= tol).all())
