@@ -183,6 +183,24 @@ Phases, each raising on failure (exit code nonzero, no result line):
      HYMBA_LONG_PROMPT-token prompt past the local layers' 1024 window:
      one decode step there changes its logits without the window and
      without the meta prefix;
+     4n. whisper-small at full width and depth (12 encoder and 12
+     decoder layers, tied head of 51865 rows), bf16, quantize_params(
+     k_x=6) leaf by leaf, through the model API (no session serves the
+     family, in either package): ``prefill_encoder`` over
+     ``batch_for_model``'s audio (4, 1500, 768), a 64-token prompt a
+     slot through ``decode_step`` a token at a time, 16 greedy tokens,
+     then a paged run of 8 steps; gates: K1, K1t, K2, K3, K4 and K12
+     launched, no plain version on the card, no host sync after the
+     first step, the paged logits those of the fixed lanes, kernels-vs-
+     plain logits at depth 1 and 2 in bf16 (SHALLOW_LIMIT) and of the
+     encoder prefill and a step at full depth in float32 (F32_LIMIT),
+     one K row dropped from the plain ``xattn.k`` failing the float32
+     gate, the decode step eager and as one captured CUDA graph bitwise;
+     readings: the encoder prefill's device ms, the step eager and
+     graphed, tok/s, resident codes, the cross cache a slot, the
+     start-up peak; phase 3 also holds and times K1 at whisper's
+     projections (M = 4, 1500, 6000), K1t over its head (M = 1, 4) and
+     #17 bidirectional at its encoder's (4, 1500, 1500, 12/12, 64);
   5. train full-width yi-6b cut to 8 layers (fp32 parameters and state,
      bf16 activations) with Algorithm 1 through ``qadam`` and
      ``TrainSession.from_optimizer``: 12 steps of 2 x 1024 tokens; gates:
@@ -238,8 +256,8 @@ Phases, each raising on failure (exit code nonzero, no result line):
      ``dp_adam`` bitwise ``qadam`` with both channels in float32 and
      ``efadam`` with a float32 broadcast bitwise ``qadam``, under
      deterministic algorithms;
-     6b. on the same rank, yi-6b at full width cut to CKPT_LAYERS = 2
-     layers (a 13.9 GB state), 8 steps under deterministic algorithms: 4 steps, a checkpoint (pinned
+     6b. on the same rank, yi-6b at full width cut to CKPT_LAYERS = 1
+     layer (an 11.2 GB state), 8 steps under deterministic algorithms: 4 steps, a checkpoint (pinned
      host copy on a side stream, the writer thread), 4 more; a new
      session resumed from the checkpoint (leaf by leaf into its own
      state's tensors, no device bytes added) for 4 more, bitwise the
@@ -303,6 +321,10 @@ Phases, each raising on failure (exit code nonzero, no result line):
      the SSD scan's device ms alone at the forward's shapes beside the
      step's phases; ``launch.train`` at mamba2 x 2 layers flat and with
      ``--model 1`` and ``cp_exchange="ladder"``, bitwise equal;
+     6h. whisper-small at full width and depth through phase 6f's gates,
+     ENCDEC_TRAIN_STEPS steps of 2 x 448 tokens and 2 x 1500 frames;
+     ``launch.train`` flat and with ``--data 1 --model 1``, 2 steps each,
+     bitwise equal;
   8. every leaf of the cut's initial parameters through
      ``Codec.encode`` -> ``WireBuffer.decode`` for log:6, the uniform:7
      wire (absolute and amax), TernGrad and blockwise:256: #5 (each
@@ -2777,7 +2799,7 @@ def _wire_kernel_ms(by_kernel):
 
 
 def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
-             what, alg1=None, falling=True):
+             what, alg1=None, falling=True, seq=TRAIN_SEQ):
     """One distributed training run through ``launch.train``'s path
     (``make_train_step`` + ``TrainSession.from_artifacts`` on ``group``,
     one NCCL rank) and its gates: the phase-5 gates with the ``counters``
@@ -2786,8 +2808,9 @@ def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
     channels counted apart), and one update on captured gradients from
     the trained state, every leaf, bitwise through the kernels and the
     plain versions (the same uniforms on both sides) and, with ``alg1``
-    (a ``QAdamConfig``), through Algorithm 1's ``qadam.update``. Prints
-    nothing; returns the readings."""
+    (a ``QAdamConfig``), through Algorithm 1's ``qadam.update``. Batches
+    of TRAIN_BATCH x ``seq`` tokens. Prints nothing; returns the
+    readings."""
     import gc
     import torch.distributed as dist
     from repro_torch.core.qadam import (QAdamConfig, QAdamState, _alpha_t,
@@ -2817,7 +2840,7 @@ def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
         setattr(mods[mod], attr, 0)
     K.plain_on_cuda = A.plain_on_cuda = 0
     sess = TrainSession.from_artifacts(
-        art, batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+        art, batch_for_model(cfg, seq, TRAIN_BATCH, seed=0),
         SessionConfig(log_every=steps), seed=0, device=dev,
         log=lambda *_: None)
     w = run_watched(torch, sess, steps)
@@ -2842,7 +2865,7 @@ def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
     dev_ms, by_kernel = profile_ms(torch, lambda: sess.run(1), steps=2)
     res.update(step_wall_ms=wall_ms, step_device_ms=dev_ms,
                device_idle=1 - dev_ms / wall_ms,
-               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / wall_ms * 1e3,
+               tokens_per_s=TRAIN_BATCH * seq / wall_ms * 1e3,
                step_kernels=by_kernel[:20],
                wire_kernels_ms=_wire_kernel_ms(by_kernel),
                update_kernel_ms=sum(t for k, t in by_kernel
@@ -2916,7 +2939,7 @@ def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
     masters, ms_, vs_, es_ = (leaves_of(state[k])
                               for k in ("master", "m", "v", "e"))
     res["n_params"] = sum(x.numel() for x in masters)
-    batch = stage_batch(next(batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH,
+    batch = stage_batch(next(batch_for_model(cfg, seq, TRAIN_BATCH,
                                              seed=1)), dev)
     xs = art.broadcast(state)
     _, grads = art.loss_and_grads(xs, batch)
@@ -3305,11 +3328,11 @@ GATHER_COUNTERS = {"amax_rows": ("K", "amax_launches"),
 
 
 def _launch(torch, mods, counters, *flags, arch="yi-6b",
-            layers=HIER_LAYERS):
+            layers=HIER_LAYERS, seq=TRAIN_SEQ):
     """``launch.train.main`` on the current NCCL rank for ``arch`` cut to
-    ``layers`` with the phase's flags, every count of ``counters`` at 0
-    just before it: (its result, the counts, plain-version calls on the
-    card, its output)."""
+    ``layers`` with the phase's flags, TRAIN_BATCH x ``seq`` tokens a
+    step, every count of ``counters`` at 0 just before it: (its result,
+    the counts, plain-version calls on the card, its output)."""
     import io
     from repro_torch.launch import train as launch
     K, A = mods["K"], mods["A"]
@@ -3317,7 +3340,7 @@ def _launch(torch, mods, counters, *flags, arch="yi-6b",
         setattr(mods[mod], attr, 0)
     K.plain_on_cuda = A.plain_on_cuda = 0
     argv = ["--arch", arch, "--layers", str(layers), "--seq",
-            str(TRAIN_SEQ), "--global-batch", str(TRAIN_BATCH),
+            str(seq), "--global-batch", str(TRAIN_BATCH),
             "--grad-bits", "6", "--weight-bits", "7", "--weight-absolute",
             "--log-every", "1", "--device", "cuda", *flags]
     out = io.StringIO()
@@ -3444,9 +3467,10 @@ def hier_train(torch, dev, mods):
 # phase 6b: the distributed session's checkpoints and resume
 # ---------------------------------------------------------------------------
 
-# 6b's cut: full-width yi-6b at CKPT_LAYERS layers (a 13.9 GB state; 8
-# layers and 30.5 GB until the MoE phases needed the time)
-CKPT_LAYERS, CKPT_STEPS, CKPT_CODEC = 2, 8, "uniform_amax:7"
+# 6b's cut: full-width yi-6b at CKPT_LAYERS layers (an 11.2 GB state; 8
+# layers and 30.5 GB until the MoE phases needed the time, 2 layers and
+# 13.9 GB until the encoder-decoder phases did)
+CKPT_LAYERS, CKPT_STEPS, CKPT_CODEC = 1, 8, "uniform_amax:7"
 CKPT_COUNTERS = {"amax_rows": ("K", "amax_launches"),
                  "encode_rows_uniform": ("K", "encode_uniform_launches"),
                  "decode_rows_uniform": ("K", "decode_uniform_launches")}
@@ -5142,20 +5166,28 @@ SSM_HEADS = [(50280, 2560), (32001, 1600)]
 SSM_K1_KINDS = ("int8", "p3", "p4", "p6")
 
 
-def check_ssm_shapes(torch, dev, MM, B, K):
-    """K1 at the SSM family's projection shapes, M = 4, on tensor cores
-    for bf16 activations against int8 codes and 3-, 4- and 6-bit packed
-    lanes (the lanes round-tripped through #9 bitwise first: pack then
-    unpack gives the codes back on a row that fills no whole group),
-    within one bf16 ulp plus the floor; K1t over the 50,280- and
-    32,001-row tied heads at M = 4 (int8) in the same tier. Each timed
-    in CUDA graphs over 4 sets of codes beside its plain version,
-    ``torch.matmul`` of the dequantized bf16 weights and its bound."""
-    g = torch.Generator(device=dev).manual_seed(31)
+def timed_row(torch, row, kernel, plain, library, variants=4):
+    """``row`` with the device ms of ``kernel(i)``, ``plain(i)`` and
+    ``library(i)`` in CUDA graphs over ``variants`` inputs, and the
+    kernel/library factor."""
+    row.update(ms=graph_ms(torch, kernel, variants),
+               plain_ms=graph_ms(torch, plain, variants, 5),
+               library_ms=graph_ms(torch, library, variants))
+    row["factor"] = row["ms"] / row["library_ms"]
+    return row
+
+
+def k1_rows(torch, dev, MM, B, K, g, shapes, kinds, Ms):
+    """K1 on tensor cores for bf16 activations at every (K, N) of
+    ``shapes``, code kind of ``kinds`` (int8, or packed lanes
+    round-tripped through #9 bitwise first: pack then unpack gives the
+    codes back) and M of ``Ms``, within one bf16 ulp plus the floor; each
+    timed over 4 sets of codes beside its plain version, ``torch.matmul``
+    of the dequantized bf16 weights and its bound."""
     scale = torch.tensor(0.0371, device=dev)
-    M, table = 4, []
-    for Kd, N in SSM_K1_SHAPES:
-        for kind in SSM_K1_KINDS:
+    table = []
+    for Kd, N in shapes:
+        for kind in kinds:
             k_x, bits = CODE_KINDS[kind]
             lim = 2 ** k_x
             raw = [torch.randint(-lim, lim + 1, (Kd, N), generator=g,
@@ -5174,74 +5206,98 @@ def check_ssm_shapes(torch, dev, MM, B, K):
                                          f"not bitwise the plain packing, or "
                                          f"the round trip changed codes")
             del raw
-            x = torch.randn(M, Kd, generator=g, device=dev).to(torch.bfloat16)
             kw = dict(k_x=k_x, n=N, pack_bits=pb, cast_dtype="bfloat16")
-            n0 = (MM.launches_tc, MM.launches_tc_packed)
-            a = MM.dequant_matmul(x, cs[0], scale, backend="cuda", **kw)
-            if (MM.launches_tc - n0[0], MM.launches_tc_packed - n0[1]) != (
-                    1, int(pb > 0)):
-                raise AssertionError(f"K1 at {(M, Kd, N)} {kind}: not one "
-                                     f"tensor-core launch")
-            b = MM.dequant_matmul(x, cs[0], scale, backend="torch", **kw)
-            tol = k1_tolerance(torch, b, k1_noise_unit(torch, MM, x, cs[0],
-                                                       scale, kw))
-            diff = (a.float() - b.float()).abs()
-            if a.shape != (M, N) or not bool((diff <= tol).all()):
-                raise AssertionError(f"K1 at {(M, Kd, N)} {kind}: beyond one "
-                                     f"bf16 ulp plus the floor (max abs "
-                                     f"{float(diff.max())})")
             ws = [MM.dequant_codes(c, scale, k_x=k_x, n=N, pack_bits=pb,
                                    w_dtype="float32", cast_dtype="bfloat16")
                   for c in cs]
-            code_bytes = cs[0].numel() * cs[0].element_size()
-            bnd, by = bound_ms(code_bytes + 2 * M * Kd + 2 * M * N,
-                               2 * M * Kd * N)
-            table.append(dict(
-                name=("dequant_matmul_tc_packed" if pb else
-                      "dequant_matmul_tc"), what="K1", shape=[M, Kd, N],
-                codes=kind, max_abs_err=float(diff.max()),
-                ms=graph_ms(torch, lambda i: MM.dequant_matmul(
-                    x, cs[i], scale, backend="cuda", **kw), 4),
-                plain_ms=graph_ms(torch, lambda i: MM.dequant_matmul(
-                    x, cs[i], scale, backend="torch", **kw), 4, 5),
-                library_ms=graph_ms(torch, lambda i: torch.matmul(x, ws[i]),
-                                    4),
-                bound_ms=bnd, bound_by=by))
+            for M in Ms:
+                x = torch.randn(M, Kd, generator=g, device=dev).to(
+                    torch.bfloat16)
+                n0 = (MM.launches_tc, MM.launches_tc_packed)
+                a = MM.dequant_matmul(x, cs[0], scale, backend="cuda", **kw)
+                if (MM.launches_tc - n0[0], MM.launches_tc_packed - n0[1]) \
+                        != (1, int(pb > 0)):
+                    raise AssertionError(f"K1 at {(M, Kd, N)} {kind}: not "
+                                         f"one tensor-core launch")
+                b = MM.dequant_matmul(x, cs[0], scale, backend="torch", **kw)
+                tol = k1_tolerance(torch, b, k1_noise_unit(
+                    torch, MM, x, cs[0], scale, kw))
+                diff = (a.float() - b.float()).abs()
+                if a.shape != (M, N) or not bool((diff <= tol).all()):
+                    raise AssertionError(f"K1 at {(M, Kd, N)} {kind}: beyond "
+                                         f"one bf16 ulp plus the floor (max "
+                                         f"abs {float(diff.max())})")
+                code_bytes = cs[0].numel() * cs[0].element_size()
+                bnd, by = bound_ms(code_bytes + 2 * M * Kd + 2 * M * N,
+                                   2 * M * Kd * N)
+                table.append(timed_row(torch, dict(
+                    name=("dequant_matmul_tc_packed" if pb else
+                          "dequant_matmul_tc"), what="K1", shape=[M, Kd, N],
+                    codes=kind, max_abs_err=float(diff.max()), bound_ms=bnd,
+                    bound_by=by),
+                    lambda i: MM.dequant_matmul(x, cs[i], scale,
+                                                backend="cuda", **kw),
+                    lambda i: MM.dequant_matmul(x, cs[i], scale,
+                                                backend="torch", **kw),
+                    lambda i: torch.matmul(x, ws[i])))
+                del a, b, x, diff, tol
             del cs, ws
-    for V, d in SSM_HEADS:
-        cs = [torch.randint(-64, 65, (V, d), generator=g, device=dev).to(
-            torch.int8) for _ in range(4)]
+    return table
+
+
+def k1t_rows(torch, dev, MM, g, V, d, Ms):
+    """K1t over a tied head of int8 codes (V, d) at every M of ``Ms``, on
+    tensor cores, within one bf16 ulp plus the floor; each timed over 4
+    sets of codes beside its plain version, ``torch.matmul`` of the
+    dequantized bf16 table's transpose and its bound."""
+    scale = torch.tensor(0.0371, device=dev)
+    cs = [torch.randint(-64, 65, (V, d), generator=g, device=dev).to(
+        torch.int8) for _ in range(4)]
+    kw = dict(k_x=6, n=d, pack_bits=0, cast_dtype="bfloat16", transpose=True)
+    ws = [MM.dequant_codes(c, scale, k_x=6, n=d, pack_bits=0,
+                           w_dtype="float32", cast_dtype="bfloat16")
+          for c in cs]
+    table = []
+    for M in Ms:
         x = torch.randn(M, d, generator=g, device=dev).to(torch.bfloat16)
-        kw = dict(k_x=6, n=d, pack_bits=0, cast_dtype="bfloat16",
-                  transpose=True)
         n0 = MM.t_launches_tc
         a = MM.dequant_matmul(x, cs[0], scale, backend="cuda", **kw)
         if MM.t_launches_tc != n0 + 1:
-            raise AssertionError(f"K1t at the ({V}, {d}) head: not one "
-                                 f"tensor-core launch")
+            raise AssertionError(f"K1t at the ({V}, {d}) head, M = {M}: not "
+                                 f"one tensor-core launch")
         b = MM.dequant_matmul(x, cs[0], scale, backend="torch", **kw)
-        ws = [MM.dequant_codes(c, scale, k_x=6, n=d, pack_bits=0,
-                               w_dtype="float32", cast_dtype="bfloat16")
-              for c in cs]
         w = ws[0].float()
         unit = d ** 0.5 * 2.0 ** -24 * (x.float() ** 2 @ (w ** 2).T).sqrt()
         diff = (a.float() - b.float()).abs()
         if a.shape != (M, V) or not bool(
                 (diff <= k1_tolerance(torch, b, unit)).all()):
-            raise AssertionError(f"K1t at the ({V}, {d}) head: beyond one "
-                                 f"bf16 ulp plus the floor")
+            raise AssertionError(f"K1t at the ({V}, {d}) head, M = {M}: "
+                                 f"beyond one bf16 ulp plus the floor")
         bnd, by = bound_ms(V * d + 2 * M * d + 2 * M * V, 2 * M * V * d)
-        table.append(dict(
+        table.append(timed_row(torch, dict(
             name="dequant_matmul_t_tc", what="K1t head", shape=[M, V, d],
-            codes="int8", max_abs_err=float(diff.max()),
-            ms=graph_ms(torch, lambda i: MM.dequant_matmul(
-                x, cs[i], scale, backend="cuda", **kw), 4),
-            plain_ms=graph_ms(torch, lambda i: MM.dequant_matmul(
-                x, cs[i], scale, backend="torch", **kw), 4, 5),
-            library_ms=graph_ms(torch, lambda i: torch.matmul(x, ws[i].T),
-                                4),
-            bound_ms=bnd, bound_by=by))
-        del cs, ws, w
+            codes="int8", max_abs_err=float(diff.max()), bound_ms=bnd,
+            bound_by=by),
+            lambda i: MM.dequant_matmul(x, cs[i], scale, backend="cuda",
+                                        **kw),
+            lambda i: MM.dequant_matmul(x, cs[i], scale, backend="torch",
+                                        **kw),
+            lambda i: torch.matmul(x, ws[i].T)))
+        del a, b, w, unit, diff, x
+    del cs, ws
+    return table
+
+
+def check_ssm_shapes(torch, dev, MM, B, K):
+    """K1 at the SSM family's projection shapes, M = 4, on tensor cores
+    for bf16 activations against int8 codes and 3-, 4- and 6-bit packed
+    lanes (``k1_rows``); K1t over the 50,280- and 32,001-row tied heads
+    at M = 4 (int8) in the same tier (``k1t_rows``)."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    table = k1_rows(torch, dev, MM, B, K, g, SSM_K1_SHAPES, SSM_K1_KINDS,
+                    (4,))
+    for V, d in SSM_HEADS:
+        table += k1t_rows(torch, dev, MM, g, V, d, (4,))
     torch.cuda.empty_cache()
     return table
 
@@ -5709,18 +5765,613 @@ def ssm_train(torch, dev, mods, group):
     return res
 
 
-def print_ssm_shapes(table):
-    print("the SSM family's shapes: K1 (tensor cores, M = 4) at mamba2's "
-          "and hymba's in_proj/out_proj in int8 and 3/4/6-bit lanes (#9's "
-          "round trip bitwise on the ragged 6,482), K1t over the 50,280- "
-          "and 32,001-row tied heads, within one bf16 ulp plus the floor",
-          flush=True)
+def print_shape_rows(title, table):
+    """One line a row of a family's K1, K1t (and #17) shape table."""
+    print(title, flush=True)
     for t in table:
         print(f"  {t['what']} {t['shape']} {t['codes']}: {t['ms']:.4f} ms "
               f"plain {t['plain_ms']:.4f} library {t['library_ms']:.4f} "
-              f"bound {t['bound_ms']:.4f} ({t['bound_by']}, "
-              f"{t['bound_ms'] / t['ms']:.1%}); max abs err "
-              f"{t['max_abs_err']:.3e}", flush=True)
+              f"(kernel/library {t['factor']:.2f}) bound {t['bound_ms']:.4f} "
+              f"({t['bound_by']}, {t['bound_ms'] / t['ms']:.1%}); max abs "
+              f"err {t['max_abs_err']:.3e}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder family: whisper-small (phases 3, 4n, 6h)
+# ---------------------------------------------------------------------------
+
+WHISPER = dict(L=12, d=768, f=3072, V=51865, Sa=1500, H=12, hd=64)
+# K1 at whisper's projections: M = 4 is the decode step's slots, M = 1500
+# and 6000 the encoder and the cross K/V fill over one and four slots'
+# frames
+ENCDEC_K1_SHAPES = [(768, 768), (768, 3072), (3072, 768)]
+ENCDEC_K1_M = (4, 1500, 6000)
+ENCDEC_HEAD_M = (1, 4)
+
+
+def check_encdec_shapes(torch, dev, MM, B, K, FA):
+    """K1 on tensor cores (bf16 activations, int8 codes at k_x = 6) at
+    whisper-small's projection shapes for every M of ENCDEC_K1_M
+    (``k1_rows``); K1t over the (51865, 768) tied head at M = 1 and 4
+    (``k1t_rows``); #17 bidirectional at the encoder's self-attention,
+    (4, 1500, 1500, 12/12, 64) in bf16, within its tier, timed beside
+    its plain version, its bound and ``scaled_dot_product_attention``
+    without a mask, which computes the same function."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(37)
+    table = k1_rows(torch, dev, MM, B, K, g, ENCDEC_K1_SHAPES, ("int8",),
+                    ENCDEC_K1_M)
+    table += k1t_rows(torch, dev, MM, g, WHISPER["V"], WHISPER["d"],
+                      ENCDEC_HEAD_M)
+    Bn, S, H, hd = 4, WHISPER["Sa"], WHISPER["H"], WHISPER["hd"]
+    q, k, v = (torch.randn((Bn, S, H, hd), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    fkw = dict(causal=False, window=0, softcap=None)
+    n0 = FA.launches_tc
+    a = FA.flash_attention(q, k, v, backend="cuda", **fkw)
+    if FA.launches_tc != n0 + 1:
+        raise AssertionError("#17 at whisper's encoder: off the tc route")
+    b = FA.flash_attention(q, k, v, backend="torch", **fkw)
+    diff = (a.float() - b.float()).abs()
+    if not bool((diff <= flash_tolerance(torch, b)).all()):
+        raise AssertionError(f"#17 at whisper's encoder: beyond its tier "
+                             f"(max abs {float(diff.max())})")
+    bnd, by = bound_ms(4 * q.numel() * q.element_size(),
+                       4.0 * hd * S * S * Bn * H)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    row = dict(name="flash_attention_tc", what="#17 encoder",
+               shape=[Bn, S, S, H, H, hd], codes="bf16",
+               max_abs_err=float(diff.max()), bound_ms=bnd, bound_by=by,
+               ms=cuda_ms(torch, lambda i: FA.flash_attention(
+                   q, k, v, backend="cuda", **fkw), 20, 2),
+               plain_ms=cuda_ms(torch, lambda i: FA.flash_attention(
+                   q, k, v, backend="torch", **fkw), 5, 1),
+               library_ms=cuda_ms(torch, lambda i:
+                                  F.scaled_dot_product_attention(qt, kt, vt),
+                                  20, 2))
+    row["factor"] = row["ms"] / row["library_ms"]
+    table.append(row)
+    del q, k, v, qt, kt, vt, a, b, diff
+    torch.cuda.empty_cache()
+    return table
+
+
+def graphed_ms(torch, fn, replays: int = 10) -> float:
+    """Device ms of one ``fn()`` captured as a CUDA graph (warmed up on a
+    side stream, as a captured backward needs) and replayed ``replays``
+    times between CUDA events: the device's time with the host out of
+    the way."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    end.synchronize()
+    del g
+    return start.elapsed_time(end) / replays
+
+
+def attention_ms(torch, dev, cfg, B, Sq, Skv, causal=False, backward=False):
+    """The family's plain attention (``layers.attention``) alone at the
+    shapes a layer gives it, bf16 inputs, device ms (``graphed_ms``): the
+    forward, and with ``backward`` (forward, forward with its backward)."""
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=dev).manual_seed(43)
+
+    def rnd(S):
+        return torch.randn((B, S, cfg.n_heads, cfg.head_dim_), generator=g,
+                           device=dev).to(torch.bfloat16)
+    q, k, v = rnd(Sq), rnd(Skv), rnd(Skv)
+    q_pos = torch.arange(Sq, device=dev) if causal else None
+    fwd = graphed_ms(torch, lambda: L.attention(q, k, v, q_pos=q_pos,
+                                                causal=causal))
+    if not backward:
+        return fwd
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            out = L.attention(*leaves, q_pos=q_pos, causal=causal)
+            torch.autograd.grad(out.float().sum(), leaves)
+    return fwd, graphed_ms(torch, fwd_bwd)
+
+
+def layernorm_ms(torch, dev, shape):
+    """``layers.layernorm`` alone on a bf16 activation of ``shape``,
+    device ms (``graphed_ms``)."""
+    from repro_torch.models import layers as L
+    x = torch.randn(shape, device=dev).to(torch.bfloat16)
+    w, b = torch.ones(shape[-1], device=dev), torch.zeros(shape[-1],
+                                                          device=dev)
+    return graphed_ms(torch, lambda: L.layernorm(x, w, b, 1e-6), 50)
+
+
+ENCDEC_SLOTS, ENCDEC_MAX_SEQ = 4, 448      # 448: whisper's text context
+ENCDEC_PROMPT, ENCDEC_NEW, ENCDEC_PAGED_STEPS = 64, 16, 8
+
+
+class _Steps:
+    """``model.decode_step`` over a fixed-shape state: the token and
+    position buffers and the cache, updated in place, so the step can be
+    captured once as a CUDA graph and replayed; ``logits`` is a copy of
+    the last step's."""
+
+    def __init__(self, torch, model, qparams, gather, cache, slots, dev):
+        self.model, self.qparams, self.gather = model, qparams, gather
+        self.cache = cache
+        self.tok = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
+        self.pos = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        self.logits = torch.zeros((slots, model.cfg.vocab_size),
+                                  dtype=torch.float32, device=dev)
+
+    def __call__(self):
+        out, _ = self.model.decode_step(self.qparams, {"token": self.tok},
+                                        self.cache, self.pos, self.gather)
+        self.logits.copy_(out)
+
+    def tensors(self):
+        return [self.tok, self.pos, self.logits] + list(self.cache.values())
+
+
+def encdec_graph_vs_eager(torch, steps):
+    """One decode step eager and through a fresh capture and replay from
+    identical state: logits and cache bitwise; then each way's wall (CUDA
+    events around the host's calls), device time and operations
+    (profiler) and idle share, and the graph."""
+    ts = steps.tensors()
+    snap = [t.clone() for t in ts]
+
+    def restore():
+        for t, v in zip(ts, snap):
+            t.copy_(v)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        steps()                       # warm-up off the capture stream
+    torch.cuda.current_stream().wait_stream(side)
+    restore()
+    steps()
+    eager = [t.clone() for t in ts]
+    restore()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        steps()
+    graph.replay()
+    bad = [i for i, (a, b) in enumerate(zip(ts, eager))
+           if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"whisper's graphed decode step differs from "
+                             f"the eager one in state tensors {bad}")
+    del eager
+    out = dict(eager_ms=cuda_ms(torch, lambda i: steps(), 8, 1),
+               graph_ms=cuda_ms(torch, lambda i: graph.replay(), 8, 1))
+    out["eager_device_ms"], out["eager_kernels"], out["eager_device_ops"] = \
+        profile_ms(torch, steps, PROFILED_CALLS, with_launches=True)
+    out["graph_device_ms"], _, out["graph_device_ops"] = profile_ms(
+        torch, graph.replay, PROFILED_CALLS, with_launches=True)
+    out["eager_kernels"] = out["eager_kernels"][:10]
+    out["eager_idle"] = 1 - out["eager_device_ms"] / out["eager_ms"]
+    out["graph_idle"] = 1 - out["graph_device_ms"] / out["graph_ms"]
+    restore()
+    del snap
+    return out, graph
+
+
+def serve_encdec(torch, dev, mods):
+    """Phase 4n: whisper-small at full width and depth (12 + 12 layers),
+    bf16, ``quantize_params(k_x=6)`` leaf by leaf, served through the
+    model API (the reference's serving path of the family: no session
+    takes it), every count at 0 just before the main path:
+    ``prefill_encoder`` over ``batch_for_model``'s audio (4, 1500, 768)
+    into fixed lanes of ENCDEC_MAX_SEQ positions, then a 64-token prompt
+    a slot fed through ``decode_step`` a token at a time, then 16 greedy
+    tokens; then the paged variant (page 16) for ENCDEC_PAGED_STEPS
+    steps. Gates: K1, K1t, K3, K4, K12 (the embedding rows) and K2 (the
+    paged run) launched, no plain version on the card, no host sync
+    after the first step (torch's sync debug mode), finite logits, the
+    paged steps' logits those of the fixed lanes; kernels-vs-plain
+    logits of one step at depth 1 and 2 in bf16 (SHALLOW_LIMIT) and of
+    ``prefill_encoder`` (its cross caches too) and one step at full
+    depth in float32 (F32_LIMIT), where one K row dropped from every
+    layer's ``xattn.k`` in the plain run must fail the gates; the decode
+    step eager and as
+    one captured CUDA graph, bitwise. Readings: the encoder prefill's
+    device ms, the step eager and graphed (wall, device, operations),
+    tok/s, resident codes, the cross cache a slot, the start-up peak."""
+    import warnings
+    import numpy as np
+    MM, paged, K = mods["MM"], mods["paged"], mods["K"]
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.launch.serve import quantize_in_place
+    from repro_torch.models.model import Model
+    from repro_torch.serve.quantized import make_dequant_gather, params_nbytes
+
+    cfg = get_config("whisper-small")
+    model = Model(cfg)
+    slots, Sa = ENCDEC_SLOTS, cfg.encoder_seq
+    secs, t_mark = {}, [time.perf_counter()]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        secs[name] = now - t_mark[0]
+        t_mark[0] = now
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, size=(slots, ENCDEC_PROMPT)).astype(np.int32)).to(
+        dev)
+    audio = torch.from_numpy(next(batch_for_model(
+        cfg, ENCDEC_PROMPT, slots, seed=0))["audio"]).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path, with every kernel count at 0 just before it
+    zero_serving_counts(MM, paged, K)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    fp_bytes = params_nbytes(params)
+    qparams = quantize_in_place(params, k_x=6, pack=True)
+    del params
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    peak_start = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    q_bytes = params_nbytes(qparams)
+    gather = make_dequant_gather()
+    cache = model.init_cache(slots, ENCDEC_MAX_SEQ, device=dev,
+                             encoder_seq_local=Sa)
+    cross_slot = cache["ck"][:, 0].nbytes + cache["cv"][:, 0].nbytes
+    steps = _Steps(torch, model, qparams, gather, cache, slots, dev)
+    caught = []
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    model.prefill_encoder(qparams, audio, cache, gather)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t1
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t2 = time.perf_counter()
+            for t in range(ENCDEC_PROMPT + ENCDEC_NEW):
+                if t < ENCDEC_PROMPT:
+                    steps.tok.copy_(prompt[:, t:t + 1])
+                else:
+                    steps.tok.copy_(steps.logits.argmax(-1, keepdim=True))
+                steps()
+                steps.pos.add_(1)
+                if t == 0:
+                    first = len(caught)
+                if t == ENCDEC_PROMPT - 1:
+                    torch.cuda.synchronize()
+                    t3 = time.perf_counter()
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message)[:160] for w in caught[first:]
+             if "synchroniz" in str(w.message)]
+    t_prompt, t_new = t3 - t2, t4 - t3
+    logits = steps.logits.clone()
+    # the paged variant: the same audio and prompt into a page pool
+    pcache = model.init_cache(slots, ENCDEC_MAX_SEQ, device=dev,
+                              encoder_seq_local=Sa,
+                              page_pool=(slots * ENCDEC_MAX_SEQ // 16, 16))
+    npag = ENCDEC_MAX_SEQ // 16
+    pcache["ptab"].copy_(torch.arange(slots * npag, dtype=torch.int32,
+                                      device=dev).reshape(slots, npag))
+    model.prefill_encoder(qparams, audio, pcache, gather)
+    lanes = model.init_cache(slots, ENCDEC_MAX_SEQ, device=dev,
+                             encoder_seq_local=Sa)
+    lanes["ck"].copy_(pcache["ck"])
+    lanes["cv"].copy_(pcache["cv"])
+    paged_rel, paged_bitwise = 0.0, True
+    for t in range(ENCDEC_PAGED_STEPS):
+        tok, pos = prompt[:, t:t + 1], torch.full((slots,), t,
+                                                  dtype=torch.int32,
+                                                  device=dev)
+        lp, _ = model.decode_step(qparams, {"token": tok}, pcache, pos,
+                                  gather)
+        lf, _ = model.decode_step(qparams, {"token": tok}, lanes, pos, gather)
+        paged_bitwise &= bool(torch.equal(lp, lf))
+        paged_rel = max(paged_rel, float((lp - lf).norm() / lf.norm()))
+    del pcache, lanes
+    mark("main_path")
+    launches = {"dequant_matmul_tc": MM.launches_tc,
+                "dequant_matmul_t_tc": MM.t_launches_tc,
+                "gather_pages_kv": paged.launches_kv,
+                "amax_rows": K.amax_launches,
+                "uniform_quantize_rows": K.quantize_launches,
+                "uniform_dequantize_rows": K.dequantize_launches}
+    plain = serving_plain(MM, paged, K)
+    if any(n == 0 for n in launches.values()) or plain or \
+            MM.launches_fma or MM.launches_tc_packed or MM.t_launches_fma \
+            or paged.launches != paged.launches_kv:
+        raise AssertionError(f"whisper-small: launches {launches}, {plain} "
+                             f"plain calls on the card, K1 CUDA-core "
+                             f"{MM.launches_fma}, packed "
+                             f"{MM.launches_tc_packed}, K1t CUDA-core "
+                             f"{MM.t_launches_fma}, K2 one pool "
+                             f"{paged.launches - paged.launches_kv}")
+    if syncs:
+        raise AssertionError(f"whisper-small: {len(syncs)} host syncs after "
+                             f"the first decode step: {sorted(set(syncs))}")
+    if not bool(torch.isfinite(logits).all()) or logits.shape != (
+            slots, cfg.vocab_size):
+        raise AssertionError("whisper-small: decode logits not finite or "
+                             "misshapen")
+    if not paged_rel <= SHALLOW_LIMIT:
+        raise AssertionError(f"whisper-small: paged logits rel L2 "
+                             f"{paged_rel} from the fixed lanes'")
+
+    # readings: the encoder prefill and the decode step, eager and graphed
+    enc_ms, enc_kernels = profile_ms(
+        torch, lambda: model.prefill_encoder(qparams, audio, cache, gather), 2)
+    enc_wall = cuda_ms(torch, lambda i: model.prefill_encoder(
+        qparams, audio, cache, gather), 3, 1)
+    dg, graph = encdec_graph_vs_eager(torch, steps)
+    del graph
+    # what the plain parts take: the cross-attention and the layernorms
+    # of a decode step, the encoder's self-attention and K1 in the prefill
+    L_, d = cfg.n_layers, cfg.d_model
+    shares = dict(
+        step_cross_attention_ms=L_ * attention_ms(torch, dev, cfg, slots, 1,
+                                                  Sa),
+        step_layernorm_ms=(3 * L_ + 1) * layernorm_ms(torch, dev,
+                                                      (slots, 1, d)),
+        prefill_attention_ms=cfg.encoder_layers * attention_ms(
+            torch, dev, cfg, slots, Sa, Sa),
+        prefill_layernorm_ms=(2 * cfg.encoder_layers + 1) * layernorm_ms(
+            torch, dev, (slots, Sa, d)),
+        prefill_k1_ms=sum(t for n, t in enc_kernels if "k1_" in n))
+    for key, whole in (("step", dg["graph_device_ms"]), ("prefill", enc_ms)):
+        for part in ("cross_attention", "attention", "layernorm", "k1"):
+            if f"{key}_{part}_ms" in shares:
+                shares[f"{key}_{part}_share"] = \
+                    shares[f"{key}_{part}_ms"] / whole
+    mark("timings")
+
+    # gates: one decode step through the kernels and the plain versions
+    plain_gather = make_dequant_gather(backend="torch")
+
+    def rel_l2(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def step_of(mdl, qp, c, backend=None):
+        return mdl.decode_step(qp, {"token": steps.tok}, c, steps.pos,
+                               plain_gather if backend else gather,
+                               backend=backend)[0]
+    gates = {}
+    for n in (1, 2):
+        mdl = Model(dataclasses.replace(cfg, n_layers=n))
+        qp = dict(qparams, blocks=first_layers(qparams["blocks"], n))
+        a = step_of(mdl, qp, {k: v[:n].clone() for k, v in cache.items()})
+        b = step_of(mdl, qp, {k: v[:n].clone() for k, v in cache.items()},
+                    "torch")
+        gates[f"bf16@{n}"] = rel_l2(a, b)
+        if not gates[f"bf16@{n}"] <= SHALLOW_LIMIT:
+            raise AssertionError(f"whisper-small decode logits at depth {n}:"
+                                 f" kernels vs plain rel L2 "
+                                 f"{gates[f'bf16@{n}']} > {SHALLOW_LIMIT}")
+    a = step_of(model, qparams, {k: v.clone() for k, v in cache.items()})
+    b = step_of(model, qparams, {k: v.clone() for k, v in cache.items()},
+                "torch")
+    gates["bf16@full"] = rel_l2(a, b)
+    # float32 at full depth: the encoder prefill and one step, each path
+    # from the same self-attention lanes
+    m32 = Model(dataclasses.replace(cfg, dtype="float32"))
+
+    def f32_path(qp, backend=None):
+        """float32 logits of one step after ``prefill_encoder``, and the
+        cross caches it wrote."""
+        c = {k: v.to(torch.float32, copy=True) for k, v in cache.items()}
+        m32.prefill_encoder(qp, audio, c, plain_gather if backend else gather,
+                            backend=backend)
+        return step_of(m32, qp, c, backend), c["ck"], c["cv"]
+
+    def f32_gates(got, want):
+        return {name: rel_l2(a, b) for name, a, b in zip(
+            ("f32@full", "f32_ck", "f32_cv"), got, want)}
+    want = f32_path(qparams, "torch")
+    gates.update(f32_gates(f32_path(qparams), want))
+    over = {k: v for k, v in gates.items() if k.startswith("f32")
+            and not v <= F32_LIMIT}
+    if over:
+        raise AssertionError(f"whisper-small float32 prefill_encoder and "
+                             f"decode step: kernels vs plain rel L2 {over} "
+                             f"> {F32_LIMIT}")
+    # the planted fault: one K row dropped from every layer's xattn.k in
+    # the plain run; it must fail the float32 gates (the cross cache's:
+    # random weights leave the cross-attention's softmax near uniform, so
+    # the logits barely see the keys)
+    xk = qparams["blocks"]["xattn"]["k"]
+    codes = xk.codes.clone()
+    codes[:, -1, :] = 0
+    blocks = dict(qparams["blocks"], xattn=dict(
+        qparams["blocks"]["xattn"], k=dataclasses.replace(xk, codes=codes)))
+    faults = f32_gates(f32_path(dict(qparams, blocks=blocks), "torch"), want)
+    fault = max(faults.values())
+    del codes, blocks, want
+    if not fault > F32_LIMIT:
+        raise AssertionError(f"whisper-small: one K row dropped from "
+                             f"xattn.k passes the float32 gate ({fault})")
+    mark("gates")
+    n_new = slots * ENCDEC_NEW
+    res = dict(arch=cfg.name, layers=cfg.n_layers,
+               encoder_layers=cfg.encoder_layers, launches=launches,
+               startup_s=t_quant, prefill_encoder_s=t_prefill,
+               prompt_s=t_prompt, new_s=t_new, tokens=n_new,
+               tok_per_s=n_new / t_new,
+               prompt_tok_per_s=slots * ENCDEC_PROMPT / t_prompt,
+               resident_bytes=q_bytes, fp32_bytes=fp_bytes,
+               cross_cache_bytes_per_slot=cross_slot,
+               peak_startup_bytes=peak_start,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               encoder_prefill_device_ms=enc_ms,
+               encoder_prefill_ms=enc_wall,
+               encoder_prefill_kernels=enc_kernels[:10],
+               decode_graph=dg, gates=gates, fault_xattn_k_f32=faults,
+               shares=shares,
+               paged_rel_l2=paged_rel, paged_bitwise=paged_bitwise,
+               seconds=secs)
+    print(f"whisper-small ({cfg.n_layers} + {cfg.encoder_layers} layers): "
+          f"prefill_encoder of {slots} x {Sa} frames {t_prefill:.3f} s at "
+          f"first ({enc_wall:.3f} ms warm, {enc_ms:.3f} ms device); "
+          f"{ENCDEC_PROMPT} prompt tokens a slot in {t_prompt:.3f} s, "
+          f"{ENCDEC_NEW} greedy in {t_new:.3f} s ({n_new / t_new:.2f} "
+          f"tok/s); resident codes {q_bytes} B of {fp_bytes} B float32; "
+          f"cross cache {cross_slot} B a slot; start-up peak {peak_start} B; "
+          f"launches {launches}; no host sync after the first step; paged "
+          f"vs fixed lanes rel L2 {paged_rel:.3e} (bitwise "
+          f"{paged_bitwise}); logits kernels vs plain: "
+          + ", ".join(f"{k} {v:.4e}" for k, v in gates.items())
+          + f" (limits {SHALLOW_LIMIT}, {F32_LIMIT}); xattn.k's K row "
+          f"dropped: " + ", ".join(f"{k} {v:.4e}" for k, v in faults.items())
+          + " (caught)", flush=True)
+    print(f"whisper-small decode step, {slots} slots at position "
+          f"{ENCDEC_PROMPT + ENCDEC_NEW}: eager {dg['eager_ms']:.3f} ms wall, "
+          f"{dg['eager_device_ms']:.3f} ms device (idle "
+          f"{dg['eager_idle']:.1%}, {dg['eager_device_ops']:.0f} "
+          f"operations); CUDA graph {dg['graph_ms']:.3f} ms wall, "
+          f"{dg['graph_device_ms']:.3f} ms device (idle "
+          f"{dg['graph_idle']:.1%}, {dg['graph_device_ops']:.0f} "
+          f"operations); bitwise eager vs graphed; plain parts alone: "
+          + ", ".join(f"{k} {v:.4g}" for k, v in shares.items())
+          + "; seconds by part: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+    for name, t in dg["eager_kernels"][:8]:
+        print(f"  step {t:9.4f} ms  {name[:90]}")
+    for name, t in enc_kernels[:6]:
+        print(f"  prefill_encoder {t:9.4f} ms  {name[:80]}")
+    del qparams, cache, steps, audio
+    torch.cuda.empty_cache()
+    return res
+
+
+ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_STEPS = 448, 4
+
+
+def host_ops(torch, fn, top=8):
+    """The host's time in one ``fn()`` by operator, from torch.profiler's
+    CPU activity after a warm call: (total self ms, [(operator, self ms,
+    calls)] largest first)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in prof.key_averages()), key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows[:top]
+
+
+def encdec_train(torch, dev, mods, group):
+    """Phase 6h: whisper-small at full width and depth through
+    ``launch.train``'s path on the one NCCL rank, Algorithms 2+3
+    ``qadam``, ENCDEC_TRAIN_STEPS steps of TRAIN_BATCH x 448 tokens beside
+    TRAIN_BATCH x 1500 audio frames, through phase 6's gates (finite
+    losses, K15, K7 and K6 launched, no plain version, no steady host
+    sync, the bytes moved equal to ``comm_bytes_per_step``, a
+    captured-gradient update bitwise through the kernels and the plain
+    versions); then ``launch.train`` flat and with ``--data 1 --model 1``
+    (the model axis at one shard: the frames and tokens stay whole),
+    2 steps each, bitwise equal; then where the host's time goes in a
+    step of the flat run's session, by operator; and the plain attention
+    alone at the step's shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.dist.step import TrainConfig
+    from repro_torch.models.model import Model
+    from repro_torch.train.session import SessionConfig, TrainSession
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("whisper-small")
+    t0 = time.perf_counter()
+    r = dist_run(torch, dev, mods, group, Model(cfg), cfg,
+                 TrainConfig(**DIST_TC), DIST_COUNTERS, ENCDEC_TRAIN_STEPS,
+                 "6h whisper-small", falling=False, seq=ENCDEC_TRAIN_SEQ)
+    secs = {"dist_run": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    kw = dict(arch="whisper-small", layers=cfg.n_layers,
+              seq=ENCDEC_TRAIN_SEQ)
+    flat, _, plain_a, _ = _launch(torch, mods, DIST_COUNTERS, "--steps", "2",
+                                  **kw)
+    m1, _, plain_b, log = _launch(torch, mods, DIST_COUNTERS, "--steps", "2",
+                                  "--data", "1", "--model", "1", **kw)
+    la = [h["loss"] for h in flat["history"]]
+    lb = [h["loss"] for h in m1["history"]]
+    same = la == lb and all(bits_equal(torch, x, y) for x, y in zip(
+        tree_leaves(flat["state"]["master"]),
+        tree_leaves(m1["state"]["master"])))
+    if plain_a or plain_b or not same or not all(map(math.isfinite, la)):
+        raise AssertionError(f"6h --data 1 --model 1 vs flat: losses {la} vs "
+                             f"{lb}, bitwise {same}, plain "
+                             f"{plain_a + plain_b}")
+    secs["model1"] = time.perf_counter() - t0
+    sess = TrainSession.from_artifacts(
+        flat["art"], batch_for_model(cfg, ENCDEC_TRAIN_SEQ, TRAIN_BATCH,
+                                     seed=7),
+        SessionConfig(log_every=1), state=flat["state"], device=dev,
+        log=lambda *_: None)
+    try:
+        r["host_ms"], r["host_ops"] = host_ops(torch, lambda: sess.run(1))
+    finally:
+        sess.close()
+    del sess
+    # the plain attention of a step alone: the encoder's, the decoder's
+    # causal one and the cross-attention, each run forward twice (the
+    # forward, and its recompute under the per-block checkpoint) and
+    # backward once, over every layer
+    Sa, S, n = cfg.encoder_seq, ENCDEC_TRAIN_SEQ, cfg.n_layers
+    att = {name: attention_ms(torch, dev, cfg, TRAIN_BATCH, sq, skv,
+                              causal=causal, backward=True)
+           for name, sq, skv, causal in (("encoder", Sa, Sa, False),
+                                         ("decoder", S, S, True),
+                                         ("cross", S, Sa, False))}
+    r["attention_ms_per_layer"] = att
+    r["attention_ms_step"] = n * sum(f + fb for f, fb in att.values())
+    r["attention_share"] = r["attention_ms_step"] / r["step_device_ms"]
+    r.update(model1=dict(losses=la, bitwise=same, grid=log.splitlines()[0]),
+             seconds=secs, seq=ENCDEC_TRAIN_SEQ, frames=cfg.encoder_seq)
+    del flat, m1
+    torch.cuda.empty_cache()
+    print(f"6h whisper-small ({cfg.n_layers} + {cfg.encoder_layers} layers, "
+          f"{r['n_params']} parameters), qadam, one NCCL rank, {TRAIN_BATCH} "
+          f"x {ENCDEC_TRAIN_SEQ} tokens and {TRAIN_BATCH} x "
+          f"{cfg.encoder_seq} frames: losses "
+          + ", ".join(f"{x:.4f}" for x in r["losses"])
+          + f"; step wall {r['step_wall_ms']:.3f} ms, device "
+          f"{r['step_device_ms']:.3f} ms (idle {r['device_idle']:.1%}), "
+          f"{r['tokens_per_s']:.1f} tok/s; phases "
+          + ", ".join(f"{k} {v:.3f}" for k, v in r["phases_ms"].items())
+          + f" ms; the plain attention alone (forward, forward+backward a "
+          f"layer: " + ", ".join(f"{k} {f:.3f}/{fb:.3f}" for k, (f, fb) in
+                                  r["attention_ms_per_layer"].items())
+          + f" ms) {r['attention_ms_step']:.3f} ms a step, "
+          f"{r['attention_share']:.1%} of its device time; peak "
+          f"{r['peak_bytes']} B; launches {r['launches']}; "
+          f"captured-gradient update bitwise; --data 1 --model 1 bitwise "
+          f"the flat run ({la}; {r['model1']['grid']}); the host's "
+          f"{r['host_ms']:.1f} ms of a step by operator (self ms, calls): "
+          + ", ".join(f"{k} {t:.1f}/{n}" for k, t, n in r["host_ops"])
+          + "; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+    for name, t in r["step_kernels"][:10]:
+        print(f"  {t:9.4f} ms  {name[:90]}")
+    return r
 
 
 def flash_path(torch, dev, FA):
@@ -5961,7 +6612,20 @@ def main() -> int:
               flush=True)
     torch.cuda.empty_cache()
     ssm_table = check_ssm_shapes(torch, dev, MM, B, K)
-    print_ssm_shapes(ssm_table)
+    print_shape_rows(
+        "the SSM family's shapes: K1 (tensor cores, M = 4) at mamba2's and "
+        "hymba's in_proj/out_proj in int8 and 3/4/6-bit lanes (#9's round "
+        "trip bitwise on the ragged 6,482), K1t over the 50,280- and "
+        "32,001-row tied heads, within one bf16 ulp plus the floor",
+        ssm_table)
+    encdec_table = check_encdec_shapes(torch, dev, MM, B, K, FA)
+    print_shape_rows(
+        "the encoder-decoder family's shapes: K1 (tensor cores, int8) at "
+        "whisper-small's projections for M = 4 (decode) and M = 1500, 6000 "
+        "(encoder, cross K/V fill), K1t over its (51865, 768) tied head, "
+        "within one bf16 ulp plus the floor; #17 bidirectional at the "
+        "encoder's (4, 1500, 1500, 12/12, 64) in bf16 beside SDPA",
+        encdec_table)
 
     phase_s["3"] = time.perf_counter() - t3
     print(f"phase 3: {phase_s['3']:.1f} s", flush=True)
@@ -5999,6 +6663,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     hy = timed("4m", serve_ssm, torch, dev, smods, "hymba-1.5b")
     torch.cuda.empty_cache()
+    wh = timed("4n", serve_encdec, torch, dev, smods)
+    torch.cuda.empty_cache()
     tr = timed("5", train, torch, dev, mods)
     bl = timed("5b", alg1_baselines, torch, dev, mods)
     gt = timed("5c", graph_train, torch, dev, mods)
@@ -6027,6 +6693,8 @@ def main() -> int:
         f6 = timed("6f", moe_train, torch, dev, mods, group)
         torch.cuda.empty_cache()
         g6 = timed("6g", ssm_train, torch, dev, mods, group)
+        torch.cuda.empty_cache()
+        w6 = timed("6h", encdec_train, torch, dev, mods, group)
     finally:
         close_process_group()
     wb = timed("8", wire_buffers, torch, dev, mods, model8)
@@ -6068,6 +6736,8 @@ def main() -> int:
                    "serve_mamba2": m2["launches"].get(r["name"], 0),
                    "serve_hymba": hy["launches"].get(r["name"], 0),
                    "train_ssm": g6["launches"].get(r["name"], 0),
+                   "serve_whisper": wh["launches"].get(r["name"], 0),
+                   "train_whisper": w6["launches"].get(r["name"], 0),
                    "train_llava": lv["launches"].get(r["name"], 0),
                    "flash": fp["launches_bf16"].get(r["name"], 0),
                    "flash_f32": fp["launches_f32"].get(r["name"], 0),
@@ -6390,7 +7060,8 @@ def main() -> int:
                        serve_maverick=mav, train_moe=f6,
                        ssm_shapes=ssm_table, serve_mamba2=m2,
                        serve_hymba=hy, train_ssm=g6,
-                       phase_s=phase_s),
+                       encdec_shapes=encdec_table, serve_whisper=wh,
+                       train_whisper=w6, phase_s=phase_s),
                   fh, indent=1)
     print("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                            phase_s.items())

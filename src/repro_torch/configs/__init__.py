@@ -8,9 +8,12 @@ post-sublayer norms), gemma3-4b (5:1 local:global layers, qk-norm, a
 local RoPE base), qwen2.5-14b (QKV bias) and llava-next-mistral-7b (the
 mistral decoder on embedding input, its vision tower stubbed), and the
 MoE family: deepseek-moe-16b (2 shared + 64 routed experts, top-6) and
-llama4-maverick-400b-a17b (1 shared + 128 routed, top-1), and the SSM
-and hybrid family: mamba2-2.7b (SSD, attention-free) and hymba-1.5b
-(parallel attention and SSD heads, 128 meta tokens).
+llama4-maverick-400b-a17b (1 shared + 128 routed, top-1), the SSM and
+hybrid family: mamba2-2.7b (SSD, attention-free) and hymba-1.5b
+(parallel attention and SSD heads, 128 meta tokens), and the
+encoder-decoder family: whisper-small (12 + 12 layers, layernorm, gelu,
+sinusoidal positions, 1500 stubbed audio frames). Every architecture of
+the reference's registry is here.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ _MODULES = {
     "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2p7b",
     "hymba-1.5b": "repro_torch.configs.hymba_1p5b",
+    "whisper-small": "repro_torch.configs.whisper_small",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -1,6 +1,6 @@
 """Deterministic synthetic data (port of ``repro/data/pipeline.py``:
-token and embedding-input models, and the classification task of the
-paper's comparison).
+token, embedding-input and audio-input models, and the classification
+task of the paper's comparison).
 
 numpy only: the same seed gives the reference's data element for
 element. Token streams have a Zipf-ish unigram structure plus copy
@@ -59,30 +59,38 @@ def lm_batches(cfg: LMDataConfig) -> Iterator[Dict[str, np.ndarray]]:
 
 def batch_for_model(mcfg: ModelConfig, seq_len: int, global_batch: int,
                     seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
-    """Model-aware synthetic batches. An embedding-input model (llava's
-    stubbed vision tower) gets ``embeds`` (B, S, d) float32 drawn from
-    ``seed + 1`` in place of ``tokens``, bitwise the reference's; the
-    audio front-end's stub is not ported."""
-    if mcfg.input_mode not in ("tokens", "embeddings"):
+    """Model-aware synthetic batches, bitwise the reference's. The stubbed
+    front-ends draw from ``default_rng(seed + 1)``, once a batch after
+    its tokens, ``normal(scale=0.7)`` in float32: an embedding-input
+    model (llava's vision tower) gets ``embeds`` (B, S, d) in place of
+    ``tokens``; an audio-input model (whisper's mel+conv front-end) gets
+    ``audio`` (B, encoder_seq, d) frame embeddings beside them."""
+    if mcfg.input_mode not in ("tokens", "embeddings", "audio+tokens"):
         raise NotImplementedError(
             f"input_mode={mcfg.input_mode!r}: the port's data pipeline "
-            "makes token and embedding batches (ROADMAP.md queue 1)")
+            "makes token, embedding and audio batches")
     base = lm_batches(LMDataConfig(vocab_size=mcfg.vocab_size,
                                    seq_len=seq_len,
                                    global_batch=global_batch, seed=seed))
     if mcfg.input_mode == "tokens":
         return base
-    return _with_embeds(base, mcfg.d_model, seq_len, global_batch, seed)
+    return _with_stub(base, mcfg, seq_len, global_batch, seed)
 
 
-def _with_embeds(base, d: int, seq_len: int, global_batch: int,
-                 seed: int) -> Iterator[Dict[str, np.ndarray]]:
+def _with_stub(base, mcfg: ModelConfig, seq_len: int, global_batch: int,
+               seed: int) -> Iterator[Dict[str, np.ndarray]]:
     rng = np.random.default_rng(seed + 1)
     for b in base:
         b = dict(b)
-        b.pop("tokens")
-        b["embeds"] = rng.normal(size=(global_batch, seq_len, d),
-                                 scale=0.7).astype(np.float32)
+        if mcfg.input_mode == "embeddings":
+            b.pop("tokens")
+            b["embeds"] = rng.normal(size=(global_batch, seq_len,
+                                           mcfg.d_model),
+                                     scale=0.7).astype(np.float32)
+        else:
+            b["audio"] = rng.normal(size=(global_batch, mcfg.encoder_seq,
+                                          mcfg.d_model),
+                                    scale=0.7).astype(np.float32)
         yield b
 
 

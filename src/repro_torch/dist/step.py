@@ -187,8 +187,11 @@ def local_batch(batch: Dict[str, torch.Tensor], rank: int,
 
 def _batch_geometry(batch: Dict[str, torch.Tensor], n_shards: int) -> bool:
     """Whether the sequence splits over the model axis (context
-    parallelism): more than one shard, and S divides by their number."""
+    parallelism): more than one shard, S divides by their number, and
+    so do an encoder-decoder's audio frames (else both stay whole)."""
     S = batch["tokens" if "tokens" in batch else "embeds"].shape[1]
+    if "audio" in batch and batch["audio"].shape[1] % n_shards:
+        return False
     return n_shards > 1 and S % n_shards == 0
 
 
@@ -198,14 +201,15 @@ def shard_batch(batch: Dict[str, torch.Tensor], rank: int, n_workers: int,
     """This rank's part of the global batch: its worker's rows
     (:func:`local_batch`) and, where the sequence splits over the model
     axis, model shard ``index``'s positions of every entry with a
-    sequence dim."""
+    sequence dim (an encoder-decoder's audio along its frames)."""
     mine = local_batch(batch, rank, n_workers)
     if not _batch_geometry(mine, n_shards):
         return mine
-    S = mine["tokens" if "tokens" in mine else "embeds"].shape[1]
-    s = S // n_shards
-    return {k: v[:, index * s:(index + 1) * s] if v.dim() >= 2 else v
-            for k, v in mine.items()}
+
+    def part(v):
+        s = v.shape[1] // n_shards
+        return v[:, index * s:(index + 1) * s]
+    return {k: part(v) if v.dim() >= 2 else v for k, v in mine.items()}
 
 
 def _make_param_gather(layout: SH.Layout, n_shards: int, group,

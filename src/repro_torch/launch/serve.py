@@ -78,7 +78,9 @@ def main(argv=None):
     ap.add_argument("--arch", required=True,
                     help="yi-6b, gemma2-2b, gemma3-4b, qwen2.5-14b, "
                          "deepseek-moe-16b, llama4-maverick-400b-a17b, "
-                         "mamba2-2.7b or hymba-1.5b (repro_torch.configs)")
+                         "mamba2-2.7b or hymba-1.5b (repro_torch.configs; "
+                         "whisper-small is served through the model API "
+                         "only, as in the reference)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)

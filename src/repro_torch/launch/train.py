@@ -14,8 +14,9 @@ configuration on gloo through the kernels' plain versions, e.g.
 
 Weights are random, drawn from ``--seed``; batches are the synthetic
 token stream of ``data.pipeline`` (embeddings in place of tokens for
-llava-next-mistral-7b, its vision tower's stub), every rank taking its
-rows of one global batch, e.g.
+llava-next-mistral-7b, its vision tower's stub; audio frames beside the
+tokens for whisper-small, its mel and conv front-end's stub), every
+rank taking its rows of one global batch, e.g.
 
   python -m repro_torch.launch.train --arch llava-next-mistral-7b \
       --smoke --device cpu --steps 4 --seq 32 --global-batch 4

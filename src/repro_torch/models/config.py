@@ -2,8 +2,8 @@
 a copy, so the port imports nothing of the JAX package).
 
 One frozen dataclass drives every model. The port serves the dense GQA,
-MoE, SSM (mamba2) and hybrid (hymba) families; the encoder-decoder
-fields are kept so configurations read the same in both packages.
+MoE, SSM (mamba2), hybrid (hymba) and encoder-decoder (whisper)
+families.
 """
 from __future__ import annotations
 

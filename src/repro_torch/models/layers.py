@@ -1,5 +1,5 @@
-"""Building-block layers of the dense, MoE, SSM and hybrid decoders
-(port of ``repro/models/layers.py``).
+"""Building-block layers of the dense, MoE, SSM, hybrid and
+encoder-decoder families (port of ``repro/models/layers.py``).
 
 Each function repeats the reference's float32 arithmetic in the same
 order (norm statistics, rope angles, the ``cap * tanh(s / cap)``
@@ -25,7 +25,8 @@ previous shard (``collectives.gather_stack`` and ``shift``, whose
 backwards are written out: a reduce-scatter, the reverse shift).
 
 The SSD scan (mamba2, hymba's SSM heads) is plain PyTorch, as it is
-plain jnp in the reference.
+plain jnp in the reference; so are the encoder-decoder family's
+layernorm, sinusoidal positions and gelu MLP (whisper).
 """
 from __future__ import annotations
 
@@ -99,7 +100,22 @@ def rmsnorm(x, w, eps=1e-6):
     return (x * w.to(torch.float32)).to(dt)
 
 
+def layernorm(x, w, b, eps=1e-5):
+    """float32 mean and biased variance, ``(x - mu) rsqrt(var + eps) w +
+    b`` with w and b in float32, cast back to x's dtype."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.to(torch.float32) + b.to(torch.float32)).to(dt)
+
+
 def apply_norm(x, p, cfg: ModelConfig):
+    """The config's norm with its ``norm_eps`` (whisper's layernorm: 1e-6,
+    not layernorm's default)."""
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["w"], p["b"], cfg.norm_eps)
     return rmsnorm(x, p["w"], cfg.norm_eps)
 
 
@@ -127,8 +143,24 @@ def rope(x, positions, theta):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(S: int, d: int, offset=0, device=None):
+    """Absolute positions ``offset + arange(S)`` as float32 ``[sin(p /
+    10000^(2i/d)), cos(...)]`` for i < d/2: (S, d) for a number or a 0-d
+    offset, (B, S, d) for a (B,) tensor (per-slot decode positions, read
+    on the device: no host sync)."""
+    if isinstance(offset, torch.Tensor):
+        device = offset.device
+        off = offset.to(torch.float32)[..., None]
+    else:
+        off = float(offset)
+    pos = off + torch.arange(S, dtype=torch.float32, device=device)
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)
+    ang = pos[..., None] / torch.pow(10000.0, 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
-# Attention (training): causal, over the whole sequence
+# Attention (training): over the whole sequence
 # ---------------------------------------------------------------------------
 
 def apply_softcap(s, cap):
@@ -148,8 +180,11 @@ def _window_ok(kv_pos, q_pos, window):
 def attention(q, k, v, *, q_pos, causal=True, window=0, softcap=None,
               meta_tokens=0, ctx: ShardCtx = ShardCtx()):
     """GQA attention of a training forward. q: (B, Sq, H, hd) local;
-    k, v: (B, Sq, K, hd) local, sequence-sharded iff ``ctx.sharded``;
-    q_pos: (Sq,) global positions of the local queries. A sharded
+    k, v: (B, Skv, K, hd) local, sequence-sharded iff ``ctx.sharded``;
+    q_pos: (Sq,) global positions of the local queries (unread by a
+    bidirectional, unwindowed call: the encoder's self-attention and the
+    cross-attention, which mask nothing, as the reference's all-true
+    mask changes nothing). A sharded
     context all-gathers K and V along the sequence over its model group
     (``collectives.gather_shard``: the backward reduce-scatters their
     gradients), so the keys sit at global positions ``0..Skv-1``.
@@ -177,14 +212,15 @@ def attention(q, k, v, *, q_pos, causal=True, window=0, softcap=None,
     scores = torch.einsum("bqkrd,bskd->bkrqs", qr.to(torch.float32),
                           k.to(torch.float32)) / math.sqrt(hd)
     scores = apply_softcap(scores, softcap)
-    kv_pos = torch.arange(k.shape[1], device=q_pos.device)
-    qp, kp = q_pos[:, None], kv_pos[None, :]
-    mask = _window_ok(kp, qp, window)                          # (Sq, Skv)
-    if meta_tokens:
-        mask = mask | (kp < meta_tokens)
-    if causal:
-        mask = mask & (qp >= kp)
-    scores = torch.where(mask, scores, -1e30)
+    if causal or window:
+        kv_pos = torch.arange(k.shape[1], device=q_pos.device)
+        qp, kp = q_pos[:, None], kv_pos[None, :]
+        mask = _window_ok(kp, qp, window)                      # (Sq, Skv)
+        if meta_tokens:
+            mask = mask | (kp < meta_tokens)
+        if causal:
+            mask = mask & (qp >= kp)
+        scores = torch.where(mask, scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkrqs,bskd->bqkrd", probs, v)
     return out.reshape(B, Sq, H, hd)
@@ -290,8 +326,13 @@ def chunk_attention(q, k_cache, v_cache, *, q_pos, window=0, softcap=None,
 # MLP
 # ---------------------------------------------------------------------------
 
-def mlp(params, x, backend: Optional[str] = None):
-    """Gated silu MLP."""
+def mlp(params, x, backend: Optional[str] = None, act: str = "silu"):
+    """Gated silu MLP, or with ``act="gelu"`` whisper's non-gated
+    ``gelu(x W_up) W_down`` (gelu's tanh form, as ``jax.nn.gelu``'s
+    default)."""
+    if act == "gelu":
+        h = F.gelu(pmatmul(x, params["w_up"], backend), approximate="tanh")
+        return pmatmul(h, params["w_down"], backend)
     h = (F.silu(pmatmul(x, params["w_gate"], backend))
          * pmatmul(x, params["w_up"], backend))
     return pmatmul(h, params["w_down"], backend)

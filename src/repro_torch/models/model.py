@@ -1,6 +1,6 @@
-"""Decoder LMs of the dense, MoE, SSM and hybrid families: training
-forward and loss, whole-prompt prefill, and the serving decode (port of
-``repro/models/model.py``).
+"""Decoder LMs of the dense, MoE, SSM and hybrid families and the
+encoder-decoder family: training forward and loss, whole-prompt
+prefill, and the serving decode (port of ``repro/models/model.py``).
 
 Parameters keep the reference's tree: ``embed`` (V, d), ``unembed``
 (d, V) unless the head is tied to ``embed``, ``final_norm``, and the
@@ -17,19 +17,31 @@ conv_dim), ``dt_bias``, ``A_log``, ``D`` (H,), ``norm_w`` (di,) and
 ``out_proj`` (di, d). A hybrid block (hymba) has the attention block's
 leaves, ``ssm`` beside them, ``attn_out_norm``/``ssm_out_norm``, and
 with meta tokens ``attn.meta_k``/``meta_v`` (M, K, hd) and
-``ssm.init_state`` (H, P, N). Where the reference
+``ssm.init_state`` (H, P, N). The encoder-decoder family (whisper) adds
+the encoder's stack ``enc_blocks`` (``ln1``, ``attn``, ``ln2``,
+``mlp``) and ``enc_norm``; its decoder ``blocks`` carry ``ln_x`` and
+the cross-attention ``xattn`` besides; its norms are layernorms (``w``
+and ``b``), its MLP the non-gated gelu one (``w_up``, ``w_down``), and
+it has no RoPE: sinusoidal positions are added to the audio frames and
+the token embeddings. Where the reference
 scans over that dim with ``lax.scan`` and per-layer flag arrays
 (windows, RoPE bases), the port loops over layers in Python with the
 same flags as Python numbers. A model with ``input_mode="embeddings"``
-(llava) takes ``batch["embeds"]`` (B, S, d) in place of tokens.
+(llava) takes ``batch["embeds"]`` (B, S, d) in place of tokens; one
+with ``input_mode="audio+tokens"`` (whisper) takes ``batch["audio"]``
+(B, encoder_seq, d) frame embeddings beside the tokens.
 
 The decode cache is updated IN PLACE (the reference returns a new one):
 ``decode_step``/``decode_chunk`` write each token's K/V into the fixed
 lanes or the page pool, and the SSM state and conv tail into their
-lanes, and return the same dict. Writes the reference
+lanes, and ``prefill_encoder`` writes the encoder-decoder's cross
+caches ``ck``/``cv``, and they return the same dict. Writes the reference
 drops (``mode="drop"``: released-sentinel pages, positions past the
 view, padded chunk tails) are dropped here too, with fixed shapes and
-no host sync (see :class:`_DropScatter`).
+no host sync (see :class:`_DropScatter`). The encoder-decoder family is
+served through this API only (``init_cache``, ``prefill_encoder``,
+``decode_step``): ``prefill``, ``decode_chunk`` and the serving session
+refuse it, as the reference's do.
 """
 from __future__ import annotations
 
@@ -84,24 +96,28 @@ class Model:
     cfg: ModelConfig
 
     def _check_family(self):
-        """The port's decoders: the GQA family, dense (yi-6b, gemma2-2b,
+        """The port's models: the GQA family, dense (yi-6b, gemma2-2b,
         gemma3-4b, qwen2.5-14b, and llava-next's mistral decoder, which
         is this family on embedding input) or with MoE feed-forwards
         (deepseek-moe-16b, llama4-maverick); the SSM family (mamba2-2.7b,
         attention-free SSD blocks); the hybrid family (hymba-1.5b:
-        attention and SSD heads side by side, meta tokens): rmsnorm,
-        gated silu MLP or experts; tied or untied head, sliding-window
-        layers, softcaps, post-sublayer norms, embedding scaling, QKV
-        bias, qk-norm and a local RoPE base as the config says. The
-        encoder-decoder family (layernorm, gelu) is refused by name."""
+        attention and SSD heads side by side, meta tokens); the
+        encoder-decoder family (whisper-small: a bidirectional encoder
+        over audio frames, a causal decoder with cross-attention,
+        sinusoidal positions, no RoPE): rmsnorm or layernorm, gated silu
+        MLP, non-gated gelu MLP or experts; tied or untied head,
+        sliding-window layers, softcaps, post-sublayer norms, embedding
+        scaling, QKV bias, qk-norm and a local RoPE base as the config
+        says. Any other arch type, input mode, norm or activation is
+        refused by name."""
         c = self.cfg
         extras = [name for name, on in (
-            (f"arch_type {c.arch_type}",
-             c.arch_type not in ("dense", "vlm", "moe", "ssm", "hybrid")),
-            (f"input_mode {c.input_mode}",
-             c.input_mode not in ("tokens", "embeddings")),
-            ("norm != rmsnorm", c.norm != "rmsnorm"),
-            ("act != silu", c.act != "silu")) if on]
+            (f"arch_type {c.arch_type}", c.arch_type not in (
+                "dense", "vlm", "moe", "ssm", "hybrid", "encdec")),
+            (f"input_mode {c.input_mode}", c.input_mode not in (
+                "tokens", "embeddings", "audio+tokens")),
+            (f"norm {c.norm}", c.norm not in ("rmsnorm", "layernorm")),
+            (f"act {c.act}", c.act not in ("silu", "gelu"))) if on]
         if extras:
             raise NotImplementedError(
                 f"{c.name}: {', '.join(extras)} not ported yet; the other "
@@ -112,7 +128,8 @@ class Model:
              seed: int = 0, device="cuda") -> Dict[str, Any]:
         """Random float32 parameters with the reference's leaf names and
         shapes: truncated normal in [-2, 2] times 0.02 for weights, ones
-        for norms (qk-norm's too), zeros for QKV biases. Draws come from
+        for norms (qk-norm's too), zeros for QKV biases and layernorm
+        biases. Draws come from
         ``generator`` (default: a generator on ``device`` seeded with
         ``seed``); the numbers differ from ``jax.random``'s, so tests
         convert the reference's tree instead (``repro_torch.convert``)."""
@@ -131,43 +148,67 @@ class Model:
         def ones(*shape):
             return torch.ones(shape, dtype=torch.float32, device=dev)
 
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+
         d, H, K, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                           cfg.head_dim_, cfg.d_ff)
         n = cfg.n_layers
-        params = {"embed": dense(cfg.vocab_size, d),
-                  "final_norm": {"w": ones(d)}}
+
+        def norm(*lead):
+            """A norm's leaves (the reference's ``_norm_param``)."""
+            p = {"w": ones(*lead, d)}
+            if cfg.norm == "layernorm":
+                p["b"] = zeros(*lead, d)
+            return p
+
+        def attention(n):
+            attn = {"q": dense(n, d, H * hd), "k": dense(n, d, K * hd),
+                    "v": dense(n, d, K * hd), "o": dense(n, H * hd, d)}
+            if cfg.qkv_bias:
+                for name, width in (("bq", H * hd), ("bk", K * hd),
+                                    ("bv", K * hd)):
+                    attn[name] = zeros(n, width)
+            if cfg.qk_norm:
+                attn["q_norm"], attn["k_norm"] = ones(n, hd), ones(n, hd)
+            if cfg.meta_tokens:
+                attn["meta_k"] = dense(n, cfg.meta_tokens, K, hd)
+                attn["meta_v"] = dense(n, cfg.meta_tokens, K, hd)
+            return attn
+
+        def mlp(n):
+            if cfg.act == "gelu":
+                return {"w_up": dense(n, d, f), "w_down": dense(n, f, d)}
+            return {"w_gate": dense(n, d, f), "w_up": dense(n, d, f),
+                    "w_down": dense(n, f, d)}
+
+        params = {"embed": dense(cfg.vocab_size, d), "final_norm": norm()}
         if not cfg.tie_embeddings:
             params["unembed"] = dense(d, cfg.vocab_size)
         if cfg.arch_type == "ssm":
-            params["blocks"] = {"ln1": {"w": ones(n, d)},
+            params["blocks"] = {"ln1": norm(n),
                                 "ssm": self._ssm_init(dense, ones, generator,
                                                       dev)}
             return params
-        attn = {"q": dense(n, d, H * hd), "k": dense(n, d, K * hd),
-                "v": dense(n, d, K * hd), "o": dense(n, H * hd, d)}
-        if cfg.qkv_bias:
-            for name, width in (("bq", H * hd), ("bk", K * hd),
-                                ("bv", K * hd)):
-                attn[name] = torch.zeros((n, width), dtype=torch.float32,
-                                         device=dev)
-        if cfg.qk_norm:
-            attn["q_norm"], attn["k_norm"] = ones(n, hd), ones(n, hd)
-        if cfg.meta_tokens:
-            attn["meta_k"] = dense(n, cfg.meta_tokens, K, hd)
-            attn["meta_v"] = dense(n, cfg.meta_tokens, K, hd)
-        blocks = {"ln1": {"w": ones(n, d)}, "attn": attn,
-                  "ln2": {"w": ones(n, d)}}
+        if cfg.arch_type == "encdec":
+            ne = cfg.encoder_layers
+            params["enc_blocks"] = {"ln1": norm(ne), "attn": attention(ne),
+                                    "ln2": norm(ne), "mlp": mlp(ne)}
+            params["enc_norm"] = norm()
+            params["blocks"] = {"ln1": norm(n), "attn": attention(n),
+                                "ln2": norm(n), "mlp": mlp(n),
+                                "ln_x": norm(n), "xattn": attention(n)}
+            return params
+        blocks = {"ln1": norm(n), "attn": attention(n), "ln2": norm(n)}
         if cfg.post_norm:
-            blocks["ln1_post"] = {"w": ones(n, d)}
-            blocks["ln2_post"] = {"w": ones(n, d)}
+            blocks["ln1_post"] = norm(n)
+            blocks["ln2_post"] = norm(n)
         if cfg.arch_type == "hybrid":
             blocks["ssm"] = self._ssm_init(dense, ones, generator, dev)
-            blocks["attn_out_norm"] = {"w": ones(n, d)}
-            blocks["ssm_out_norm"] = {"w": ones(n, d)}
+            blocks["attn_out_norm"] = norm(n)
+            blocks["ssm_out_norm"] = norm(n)
         if cfg.moe is None:
-            blocks["mlp"] = {"w_gate": dense(n, d, f),
-                             "w_up": dense(n, d, f),
-                             "w_down": dense(n, f, d)}
+            blocks["mlp"] = mlp(n)
         else:
             m = cfg.moe
             E, fe = m.n_experts, m.d_ff_expert or f
@@ -251,7 +292,7 @@ class Model:
         """The feed-forward sublayer of the normed input h: (out, the
         0-d float32 MoE aux loss, or None for a dense MLP)."""
         if self.cfg.moe is None:
-            return L.mlp(p["mlp"], h, backend), None
+            return L.mlp(p["mlp"], h, backend, self.cfg.act), None
         return L.moe(p["moe"], h, self.cfg.moe, ctx, backend)
 
     def _post(self, out, p, name):
@@ -264,7 +305,8 @@ class Model:
         """The attention sublayer's q (B, S, H, hd), k and v (B, S, K, hd)
         of the normed input h, in the reference's order: projections,
         the QKV bias (cast to h's dtype), qk-norm per head, RoPE on q and
-        k at ``q_pos`` with the layer's base."""
+        k at ``q_pos`` with the layer's base (none in the encoder-decoder
+        family, whose positions are absolute sinusoids)."""
         cfg = self.cfg
         Bn, S, _ = h.shape
         H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -281,7 +323,31 @@ class Model:
         if cfg.qk_norm:
             q = L.rmsnorm(q, pa["q_norm"], cfg.norm_eps)
             k = L.rmsnorm(k, pa["k_norm"], cfg.norm_eps)
+        if cfg.arch_type == "encdec":
+            return q, k, v
         return L.rope(q, q_pos, theta), L.rope(k, q_pos, theta), v
+
+    def _cross(self, pa, h, ck, cv, backend=None,
+               ctx: L.ShardCtx = L.ShardCtx()):
+        """The encoder-decoder's cross-attention of the normed input h
+        (B, S, d) against the encoder's K/V (B, Sa, K, hd) of the layer
+        (``enc @ xattn.k/v``; under ``ctx`` this shard's frames, which
+        ``attention`` gathers): bidirectional, projected by ``xattn.o``."""
+        cfg = self.cfg
+        Bn, S, _ = h.shape
+        q = L.pmatmul(h, pa["q"], backend).reshape(
+            Bn, S, cfg.n_heads, cfg.head_dim_)
+        out = L.attention(q, ck, cv, q_pos=None, causal=False,
+                          softcap=cfg.attn_softcap, ctx=ctx)
+        return L.pmatmul(out.reshape(Bn, S, -1), pa["o"], backend)
+
+    def _enc_kv(self, pa, enc, backend=None):
+        """The cross-attention's K and V (B, Sa, K, hd) of the encoder
+        output ``enc`` (B, Sa, d), from the layer's ``xattn.k/v``."""
+        Bn, Sa, _ = enc.shape
+        shape = (Bn, Sa, self.cfg.n_kv_heads, self.cfg.head_dim_)
+        return (L.pmatmul(enc, pa["k"], backend).reshape(shape),
+                L.pmatmul(enc, pa["v"], backend).reshape(shape))
 
     def _meta_kv(self, pa, Bn: int, dtype):
         """Hymba's learned K/V prefix of the layer, (B, M, K, hd) each in
@@ -356,6 +422,93 @@ class Model:
                              ctx)
         return x + self._post(out, p, "ln2_post"), aux
 
+    # ---------------- encoder-decoder (whisper) ----------------
+    def _enc_block(self, p, x, backend=None, ctx: L.ShardCtx = L.ShardCtx()):
+        """One encoder block: bidirectional self-attention over the
+        frames (all of them: ``attention`` gathers K/V under ``ctx``),
+        then the MLP, each pre-normed and residual."""
+        cfg = self.cfg
+        Bn, S, _ = x.shape
+        p = ctx.gather(p, "enc_blocks")
+        pa = p["attn"]
+        q, k, v = self._qkv(pa, L.apply_norm(x, p["ln1"], cfg), None, None,
+                            backend)
+        out = L.attention(q, k, v, q_pos=None, causal=False,
+                          softcap=cfg.attn_softcap, ctx=ctx)
+        x = x + L.pmatmul(out.reshape(Bn, S, -1), pa["o"], backend)
+        out, _ = self._ffn(p, L.apply_norm(x, p["ln2"], cfg), backend)
+        return x + out
+
+    def _dec_block(self, p, x, enc, q_pos, backend=None,
+                   ctx: L.ShardCtx = L.ShardCtx()):
+        """One decoder block of the training forward: causal
+        self-attention, the cross-attention against ``enc @ xattn.k/v``
+        (normed by ``ln_x``), then the MLP."""
+        cfg = self.cfg
+        Bn, S, _ = x.shape
+        p = ctx.gather(p, "blocks")
+        pa = p["attn"]
+        q, k, v = self._qkv(pa, L.apply_norm(x, p["ln1"], cfg), q_pos, None,
+                            backend)
+        out = L.attention(q, k, v, q_pos=q_pos, softcap=cfg.attn_softcap,
+                          ctx=ctx)
+        x = x + L.pmatmul(out.reshape(Bn, S, -1), pa["o"], backend)
+        ck, cv = self._enc_kv(p["xattn"], enc, backend)
+        x = x + self._cross(p["xattn"], L.apply_norm(x, p["ln_x"], cfg),
+                            ck, cv, backend, ctx)
+        out, _ = self._ffn(p, L.apply_norm(x, p["ln2"], cfg), backend)
+        return x + out
+
+    @staticmethod
+    def _layer_views(stack, n: int, train: bool):
+        """The n layers' subtrees of a scan-stacked ``stack``: unbound once
+        for a training forward (the backward then stacks each leaf's
+        per-layer gradients in one copy), else sliced with
+        ``layer_slice`` (code-resident leaves too)."""
+        if not train:
+            return [layer_slice(stack, i) for i in range(n)]
+        per_layer = tree_map(lambda w: torch.unbind(w, 0), stack)
+        return [tree_map(lambda ws: ws[i], per_layer) for i in range(n)]
+
+    def _encode(self, params, audio, ctx: L.ShardCtx = L.ShardCtx(),
+                backend=None, train: bool = True):
+        """The encoder over ``audio`` (B, Sa, d) frame embeddings, this
+        shard's Sa frames under ``ctx``: sinusoidal positions from
+        ``cp_index * Sa`` added in the activation dtype, the encoder
+        blocks (each under ``torch.utils.checkpoint`` when ``train``),
+        ``enc_norm``."""
+        cfg = self.cfg
+        x = audio.to(_dt(cfg))
+        _, Sa, d = x.shape
+        x = x + L.sinusoidal_positions(Sa, d, ctx.cp_index() * Sa,
+                                       x.device).to(x.dtype)[None]
+        for p in self._layer_views(params["enc_blocks"], cfg.encoder_layers,
+                                   train):
+            if train:
+                x = checkpoint(self._enc_block, p, x, backend, ctx,
+                               use_reentrant=False)
+            else:
+                x = self._enc_block(p, x, backend, ctx)
+        return L.apply_norm(x, params["enc_norm"], cfg)
+
+    def _forward_encdec(self, params, batch, ctx: L.ShardCtx):
+        """The encoder-decoder's training forward (the reference's
+        ``_forward_encdec``): (float32 logits, an exact 0 aux loss)."""
+        cfg = self.cfg
+        params = ctx.gather(params, "static")
+        enc = self._encode(params, batch["audio"], ctx)
+        x = self._embed_in(params, batch, "tokens")
+        _, S, d = x.shape
+        pos0 = ctx.cp_index() * S
+        x = x + L.sinusoidal_positions(S, d, pos0, x.device).to(x.dtype)[None]
+        q_pos = pos0 + torch.arange(S, device=x.device)
+        for p in self._layer_views(params["blocks"], cfg.n_layers, True):
+            x = checkpoint(self._dec_block, p, x, enc, q_pos, None, ctx,
+                           use_reentrant=False)
+        x = L.apply_norm(x, params["final_norm"], cfg)
+        return self._head(params, x), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
+
     def forward(self, params, batch,
                 ctx: L.ShardCtx = L.ShardCtx()) -> torch.Tensor:
         """Training forward of float parameters -> float32 logits
@@ -369,7 +522,8 @@ class Model:
         (B, S, V), the 0-d float32 aux loss summed over the MoE layers,
         an exact 0 for a dense model), the reference's ``forward``.
         batch: {"tokens": (B, S) int}, or {"embeds": (B, S, d)} for an
-        embedding-input model.
+        embedding-input model; an encoder-decoder's also holds "audio"
+        (B, Sa, d) (:meth:`_forward_encdec`).
 
         ``ctx`` (``layers.ShardCtx``): under context parallelism the batch
         holds this shard's S positions of the sequence, at global
@@ -385,15 +539,16 @@ class Model:
         activation dtype, as the reference leaves them to XLA."""
         self._check_family()
         cfg = self.cfg
+        if cfg.arch_type == "encdec":
+            return self._forward_encdec(params, batch, ctx)
         params = ctx.gather(params, "static")
         x = self._embed_in(params, batch, "tokens")
         S = x.shape[1]
         q_pos = ctx.cp_index() * S + torch.arange(S, device=x.device)
-        per_layer = tree_map(lambda w: torch.unbind(w, 0), params["blocks"])
+        views = self._layer_views(params["blocks"], cfg.n_layers, True)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i, (window, theta) in enumerate(zip(cfg.layer_windows(),
-                                                cfg.layer_rope_thetas())):
-            p = tree_map(lambda ws: ws[i], per_layer)
+        for p, window, theta in zip(views, cfg.layer_windows(),
+                                    cfg.layer_rope_thetas()):
             x, aux = checkpoint(self._block, p, x, q_pos, window, theta,
                                 None, None, ctx, use_reentrant=False)
             if aux is not None:
@@ -417,9 +572,15 @@ class Model:
         ``ctx``: a context-parallel prefill (its ``param_gather`` in place
         of ``gather``): ``batch`` holds this shard's positions, K and V
         stay the shard's, and the SSM state and conv tail, which only
-        the last shard holds whole, are gathered from it."""
+        the last shard holds whole, are gathered from it.
+
+        The encoder-decoder family is refused with the reference's
+        message: it is served through :meth:`prefill_encoder` and
+        :meth:`decode_step`."""
         self._check_family()
         cfg = self.cfg
+        if cfg.arch_type == "encdec":
+            raise NotImplementedError("use prefill() for enc-dec serving")
         if ctx is None:
             ctx = L.ShardCtx(param_gather=gather)
         params = ctx.gather(params, "static")
@@ -475,7 +636,8 @@ class Model:
     # ---------------- KV cache ----------------
     def init_cache(self, batch_size: int, max_seq_local: int, dtype=None,
                    page_pool: Optional[Tuple[int, int]] = None,
-                   device="cuda") -> Dict[str, torch.Tensor]:
+                   device="cuda", encoder_seq_local: int = 0
+                   ) -> Dict[str, torch.Tensor]:
         """Decode cache: fixed lanes ``k``/``v`` (layers, B, max_seq, K, hd)
         or, with ``page_pool=(num_pages, page_size)``, a page pool
         ``pk``/``pv`` (layers, num_pages, page_size, K, hd) plus a page
@@ -483,7 +645,10 @@ class Model:
         RELEASED sentinel ``num_pages``. SSD mixers add the per-slot
         ``ssm`` state (layers, B, H, P, N) float32 and ``conv`` tail
         (layers, B, d_conv - 1, conv_dim) (O(1) in the sequence: never
-        paged); a pure SSM model has no K/V and no page pool."""
+        paged); a pure SSM model has no K/V and no page pool. The
+        encoder-decoder family adds the per-slot cross caches ``ck``/
+        ``cv`` (layers, B, encoder_seq_local, K, hd) in ``dtype`` (fixed
+        length: never paged), which :meth:`prefill_encoder` fills."""
         self._check_family()
         cfg = self.cfg
         dtype = dtype or _dt(cfg)
@@ -515,6 +680,30 @@ class Model:
             cache["conv"] = torch.zeros(
                 (lyr, batch_size, s.d_conv - 1, conv_dim), dtype=dtype,
                 device=dev)
+        if cfg.arch_type == "encdec":
+            shape = (lyr, batch_size, encoder_seq_local, K, hd)
+            cache["ck"] = torch.zeros(shape, dtype=dtype, device=dev)
+            cache["cv"] = torch.zeros(shape, dtype=dtype, device=dev)
+        return cache
+
+    def prefill_encoder(self, params, audio, cache, gather: Gather = None,
+                        backend: Optional[str] = None):
+        """The encoder-decoder's prefill: the encoder over ``audio`` (B,
+        Sa, d) frame embeddings, then each decoder layer's cross K/V
+        ``enc @ xattn.k/v`` written into ``cache["ck"]``/``["cv"]`` in
+        place, a layer at a time (K1 for code-resident weights through
+        ``gather``, the per-layer hook of :meth:`decode_step`). Returns
+        the cache."""
+        self._check_family()
+        cfg = self.cfg
+        ctx = L.ShardCtx(param_gather=gather)
+        params = ctx.gather(params, "static")
+        enc = self._encode(params, audio, ctx, backend, train=False)
+        for i in range(cfg.n_layers):
+            p = ctx.gather(layer_slice(params["blocks"], i), "blocks")
+            ck, cv = self._enc_kv(p["xattn"], enc, backend)
+            cache["ck"][i].copy_(ck)
+            cache["cv"][i].copy_(cv)
         return cache
 
     def _paged_writes(self, cache, q_pos, valid_q):
@@ -568,7 +757,8 @@ class Model:
         x (B, S, d) at positions q_pos (B, S); ``attend(q, kc, vc, view,
         window, meta_kv)`` runs the attention variant with the layer's
         window; ``rows_ok`` (B,) masks the SSD state writes (None:
-        every row)."""
+        every row). An encoder-decoder layer runs its cross-attention
+        against the slot's ``ck``/``cv`` after the self-attention."""
         cfg = self.cfg
         Bn, S, _ = x.shape
         H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -608,6 +798,10 @@ class Model:
                 ssm_out = self._mixer_step(p, h, cache, i, rows_ok, backend)
             attn = self._mix(attn, ssm_out, p)
             x = x + self._post(attn, p, "ln1_post")
+            if cfg.arch_type == "encdec":
+                x = x + self._cross(p["xattn"],
+                                    L.apply_norm(x, p["ln_x"], cfg),
+                                    cache["ck"][i], cache["cv"][i], backend)
             out, _ = self._ffn(p, L.apply_norm(x, p["ln2"], cfg), backend)
             x = x + self._post(out, p, "ln2_post")
         return L.apply_norm(x, params["final_norm"], cfg)
@@ -624,7 +818,10 @@ class Model:
         implementation (default: by device); ``write``, (B,) bool, drops
         the K/V writes of the rows where it is False and keeps their SSM
         state and conv tail (a session's inactive slots, whose lanes the
-        reference's step reverts)."""
+        reference's step reverts). An encoder-decoder adds the
+        sinusoidal positions of ``pos`` to the token embeddings (read on
+        the device: the step stays one capturable graph) and attends to
+        the cross caches :meth:`prefill_encoder` filled."""
         self._check_family()
         cfg = self.cfg
         if gather is not None:
@@ -633,6 +830,9 @@ class Model:
         Bn = x.shape[0]
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
         posv = pos.expand(Bn)[:, None]                          # (B, 1)
+        if cfg.arch_type == "encdec":
+            x = x + L.sinusoidal_positions(1, cfg.d_model,
+                                           posv[:, 0]).to(x.dtype)
         valid = (torch.ones_like(posv, dtype=torch.bool) if write is None
                  else write.reshape(Bn, 1))
 
@@ -655,9 +855,13 @@ class Model:
         position start + nvalid - 1, cache updated in place). With SSD
         mixers the scan has no per-token validity: the caller dispatches
         only full chunks whose length is a multiple of ``ssm.chunk`` (the
-        session's admission rule)."""
+        session's admission rule). The encoder-decoder family is refused
+        with the reference's message."""
         self._check_family()
         cfg = self.cfg
+        if cfg.arch_type == "encdec":
+            raise NotImplementedError(
+                "enc-dec serving prefills via prefill()")
         if gather is not None:
             params = gather(params, "static")
         x = self._embed_in(params, inputs, "token")

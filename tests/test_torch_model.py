@@ -172,24 +172,28 @@ def test_init_leaf_names_and_shapes(models):
 
 
 def test_unported_features_are_refused():
-    """The family still queued (encoder-decoder: layernorm, whisper-small)
-    is refused; the SSM and hybrid families and meta tokens are ported
+    """What no family of the reference has is refused by name (an
+    unknown arch type, an unknown input mode); every family is ported:
+    the SSM and hybrid families and meta tokens
     (``tests/test_torch_ssm_family.py`` holds them against the
-    reference); QKV bias, qk-norm and the local RoPE base are ported,
-    and each matches the reference on yi-6b's smoke model with the
-    feature switched on (random biases and norm weights: zeros and ones
-    would hide a missing term)."""
+    reference) and the encoder-decoder family, whisper-small
+    (``tests/test_torch_encdec_family.py``), which builds; QKV bias,
+    qk-norm and the local RoPE base are ported, and each matches the
+    reference on yi-6b's smoke model with the feature switched on
+    (random biases and norm weights: zeros and ones would hide a
+    missing term)."""
     import dataclasses
     cfg = tget("yi-6b", smoke=True)
-    for change in (dict(arch_type="encdec"), dict(norm="layernorm")):
-        with pytest.raises(NotImplementedError):
+    for change, name in ((dict(arch_type="rnn"), "arch_type rnn"),
+                         (dict(input_mode="video"), "input_mode video")):
+        with pytest.raises(NotImplementedError, match=name):
             TModel(dataclasses.replace(cfg, **change)).init(device="cpu")
     for ported in (tget("mamba2-2.7b", smoke=True),
                    tget("hymba-1.5b", smoke=True),
+                   tget("whisper-small", smoke=True),
                    dataclasses.replace(cfg, meta_tokens=4)):
         TModel(ported).init(device="cpu")
-    with pytest.raises(KeyError):
-        tget("whisper-small")
+    assert tget("whisper-small").arch_type == "encdec"
     jcfg = jget("yi-6b", smoke=True)
     rng = np.random.default_rng(11)
     toks = rng.integers(1, 512, size=(2, 20)).astype(np.int32)
