@@ -325,6 +325,24 @@ Phases, each raising on failure (exit code nonzero, no result line):
      ENCDEC_TRAIN_STEPS steps of 2 x 448 tokens and 2 x 1500 frames;
      ``launch.train`` flat and with ``--data 1 --model 1``, 2 steps each,
      bitwise equal;
+     4o. (on the same NCCL rank, after 6h) sharded serving
+     (``dist.serve.make_serve_step`` over ``make_grid(data=1,
+     model=1)``, ``ServeConfig(weight_k=8)``): gemma2-2b at full width
+     and depth, its float32 tree the rank's one model shard (at one
+     shard the layout replicates every leaf but the MoE expert stacks,
+     so its step gathers nothing); 6 decode steps bitwise the local
+     ``decode_step`` on the round-tripped tree, the
+     paged mesh decode (a scrambled table) bitwise the fixed-lane one,
+     a ``ServeSession(decode_fn=step)`` draining 4 requests with the
+     tokens of a batch-synchronous loop over the step and its decode
+     step one CUDA graph, kind "prefill" bitwise ``Model.prefill``;
+     hymba-1.5b, whisper-small (``prefill_encoder`` under the step's
+     context) and deepseek-moe-16b (its expert stacks through the int8
+     gather's Q_x round trip: K3, K4, K12) at full width cut to 2
+     layers, bitwise; K2, K3, K4, K12
+     launched, no plain version on the card; the step eager and graphed
+     (bitwise), its wall and device ms, the gather kernels' share, the
+     start-up peak;
   8. every leaf of the cut's initial parameters through
      ``Codec.encode`` -> ``WireBuffer.decode`` for log:6, the uniform:7
      wire (absolute and amax), TernGrad and blockwise:256: #5 (each
@@ -5925,11 +5943,12 @@ class _Steps:
         return [self.tok, self.pos, self.logits] + list(self.cache.values())
 
 
-def encdec_graph_vs_eager(torch, steps):
+def graph_vs_eager(torch, steps, name="whisper-small"):
     """One decode step eager and through a fresh capture and replay from
     identical state: logits and cache bitwise; then each way's wall (CUDA
     events around the host's calls), device time and operations
-    (profiler) and idle share, and the graph."""
+    (profiler), idle share and the Q_x kernels' (K3, K4, K12) device
+    time, and the graph."""
     ts = steps.tensors()
     snap = [t.clone() for t in ts]
 
@@ -5952,7 +5971,7 @@ def encdec_graph_vs_eager(torch, steps):
     bad = [i for i, (a, b) in enumerate(zip(ts, eager))
            if not torch.equal(a, b)]
     if bad:
-        raise AssertionError(f"whisper's graphed decode step differs from "
+        raise AssertionError(f"{name}'s graphed decode step differs from "
                              f"the eager one in state tensors {bad}")
     del eager
     out = dict(eager_ms=cuda_ms(torch, lambda i: steps(), 8, 1),
@@ -5961,6 +5980,8 @@ def encdec_graph_vs_eager(torch, steps):
         profile_ms(torch, steps, PROFILED_CALLS, with_launches=True)
     out["graph_device_ms"], _, out["graph_device_ops"] = profile_ms(
         torch, graph.replay, PROFILED_CALLS, with_launches=True)
+    out["qx_kernels_ms"] = sum(t for n, t in out["eager_kernels"]
+                               if any(k in n for k in QX_KERNELS))
     out["eager_kernels"] = out["eager_kernels"][:10]
     out["eager_idle"] = 1 - out["eager_device_ms"] / out["eager_ms"]
     out["graph_idle"] = 1 - out["graph_device_ms"] / out["graph_ms"]
@@ -6122,7 +6143,7 @@ def serve_encdec(torch, dev, mods):
         torch, lambda: model.prefill_encoder(qparams, audio, cache, gather), 2)
     enc_wall = cuda_ms(torch, lambda i: model.prefill_encoder(
         qparams, audio, cache, gather), 3, 1)
-    dg, graph = encdec_graph_vs_eager(torch, steps)
+    dg, graph = graph_vs_eager(torch, steps)
     del graph
     # what the plain parts take: the cross-attention and the layernorms
     # of a decode step, the encoder's self-attention and K1 in the prefill
@@ -6372,6 +6393,286 @@ def encdec_train(torch, dev, mods, group):
     for name, t in r["step_kernels"][:10]:
         print(f"  {t:9.4f} ms  {name[:90]}")
     return r
+
+
+# sharded serving (phase 4o): one card holds one model shard
+MESH_SLOTS = 4
+MESH_MAX_SEQ = 64
+MESH_STEPS = 6
+MESH_PAGE = 16
+MESH_K_X = 8
+MESH_PROMPT = 6
+MESH_NEW = 4
+MESH_CUT = 2          # hymba-1.5b, whisper-small, deepseek-moe-16b layers
+MESH_CUTS = ("hymba-1.5b", "whisper-small", "deepseek-moe-16b")
+MESH_COUNTERS = {"gather_pages_kv": ("paged", "launches_kv"),
+                 "amax_rows": ("K", "amax_launches"),
+                 "uniform_quantize_rows": ("K", "quantize_launches"),
+                 "uniform_dequantize_rows": ("K", "dequantize_launches")}
+
+
+def _mesh_round_trip(torch, step, params):
+    """The tree a one-shard gather gives: every leaf the layout shards
+    through a local Q_x round trip (K3, K4, K12), one scale a leaf. At
+    one shard the layout replicates every leaf but the MoE expert
+    stacks (as the reference's), so only those change."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import sharding as SH
+    from repro_torch.tree import tree_map
+
+    def one(p, d, s):
+        ax = SH.axis_of(d, s)
+        return p if ax is None else C.quantized_gather_shard(
+            p, ax, 1, MESH_K_X, False)
+    return tree_map(one, params, step.layout.dims, step.layout.stacked)
+
+
+def _mesh_decode(torch, step, params, cache, toks):
+    out = []
+    for t in range(toks.shape[1]):
+        lg, _ = step(params, {"token": toks[:, t:t + 1]}, cache, t)
+        out.append(lg.clone())
+    return out
+
+
+class _MeshSteps(_Steps):
+    """:class:`_Steps` through a ``dist.serve`` decode step."""
+
+    def __init__(self, torch, step, params, cache, dev):
+        super().__init__(torch, step.model, params, None, cache, MESH_SLOTS,
+                         dev)
+        self.step = step
+        self.tok.fill_(1)
+        self.pos.fill_(MESH_STEPS)
+
+    def __call__(self):
+        out, _ = self.step(self.qparams, {"token": self.tok}, self.cache,
+                           self.pos)
+        self.logits.copy_(out)
+
+
+def _mesh_graph(torch, step, params, cache, dev, name):
+    """The mesh decode step eager and graphed (``graph_vs_eager``), and
+    the weight gather alone (the step context's "static" pass) as a CUDA
+    graph, with its share of the graphed step's time (CUDA events: the
+    profiler has dropped an eager step's events on a long run). A layout
+    that shards no leaf gathers nothing: 0."""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.tree import tree_leaves
+    dg, graph = graph_vs_eager(torch, _MeshSteps(torch, step, params, cache,
+                                                 dev), name)
+    del graph
+    moves = any(d != SH.REPLICATED for d in tree_leaves(step.layout.dims))
+    dg["gather_ms"] = graph_ms(
+        torch, lambda i: step.ctx.gather(params, "static"), 1, 5) \
+        if moves else 0.0
+    dg["gather_share"] = dg["gather_ms"] / dg["graph_ms"]
+    return dg
+
+
+def serve_mesh(torch, dev, mods):
+    """Phase 4o: sharded serving at Nm = 1 (``dist.serve``) on the one
+    NCCL rank (``make_grid(data=1, model=1)``): gemma2-2b at full width
+    and depth (26 layers, its 10.5 GB float32 tree the rank's one model
+    shard) through ``make_serve_step`` with ``ServeConfig(weight_k=8)``,
+    then hymba-1.5b, whisper-small and deepseek-moe-16b at full width
+    cut to MESH_CUT layers, every count at 0 just before the main path.
+    At one shard the layout replicates every leaf but the expert stacks
+    (the reference's ``build_layout``), so the int8 gather round-trips
+    deepseek's expert stacks only (K3, K4, K12) and gemma2's step is the
+    float32 decode with no gather: gemma2's mesh
+    decode of MESH_STEPS steps over fixed lanes and over a page pool
+    (page MESH_PAGE, a scrambled table), a ``ServeSession(decode_fn=
+    step)`` draining MESH_SLOTS requests and its batch-synchronous loop,
+    the kind "prefill" step; hymba's and deepseek's mesh decode;
+    whisper's ``prefill_encoder`` under the step's context, then its
+    mesh decode.
+    Gates: the mesh decode bitwise the local ``decode_step`` on the tree
+    after a per-leaf Q_x round trip (what one shard's gather is), the
+    paged mesh decode bitwise the fixed-lane one, the session's greedy
+    tokens those of the loop, the mesh prefill bitwise ``Model.prefill``
+    on the round-tripped tree, whisper's cross caches bitwise; K2, K3,
+    K4 and K12 launched, no plain version on the card; the decode step
+    eager and as one captured CUDA graph, bitwise (gemma2's and
+    deepseek's). Readings: each of those steps' eager and graphed wall
+    and device ms, the gather alone and its share of the graphed step,
+    the start-up peak and the peak."""
+    MM, paged, K = mods["MM"], mods["paged"], mods["K"]
+    from repro_torch.configs import get_config
+    from repro_torch.dist.serve import ServeConfig, make_serve_step
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.models.model import Model
+    from repro_torch.serve.quantized import params_nbytes
+    from repro_torch.serve.session import Request, ServeSession
+
+    grid = make_grid(data=1, model=1, device="cuda")
+    sc = ServeConfig(weight_k=MESH_K_X, worker_axes=("data",))
+    torch.cuda.synchronize()
+    allocated_at_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, S = MESH_SLOTS, MESH_MAX_SEQ
+    cfg = get_config("gemma2-2b")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    fp_bytes = params_nbytes(params)
+    step, _, _ = make_serve_step(model, grid, sc, "decode")
+    pstep, _, _ = make_serve_step(model, grid, sc, "prefill")
+    shard = step.shard_params(params)          # one shard: the tree
+    toks = torch.randint(1, cfg.vocab_size, (B, MESH_STEPS), generator=gen,
+                         device=dev, dtype=torch.int32)
+    ptoks = torch.randint(1, cfg.vocab_size, (B, 32), generator=gen,
+                          device=dev, dtype=torch.int32)
+    cuts = {}
+    for arch in MESH_CUTS:
+        c = get_config(arch)
+        c = dataclasses.replace(c, n_layers=MESH_CUT, encoder_layers=(
+            MESH_CUT if c.encoder_layers else c.encoder_layers))
+        m = Model(c)
+        p = m.init(seed=1, device=dev)
+        cuts[arch] = (c, m, p, make_serve_step(m, grid, sc, "decode")[0])
+    audio = torch.randn((B, cuts["whisper-small"][0].encoder_seq,
+                         cuts["whisper-small"][0].d_model), generator=gen,
+                        device=dev)
+
+    # the main path, with every kernel count at 0 just before it
+    zero_serving_counts(MM, paged, K)
+    cache = step.init_cache(B, S, device=dev)
+    mesh = _mesh_decode(torch, step, shard, cache, toks)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    peak_startup = torch.cuda.max_memory_allocated()
+    npag = S // MESH_PAGE
+    whole = model.init_cache(B, S, page_pool=(B * npag, MESH_PAGE),
+                             device=dev)
+    perm = torch.randperm(B * npag, generator=gen, device=dev)
+    whole["ptab"].copy_(perm.to(torch.int32).reshape(B, npag))
+    pcache = step.shard_cache(whole)
+    del whole
+    paged_logits = _mesh_decode(torch, step, shard, pcache, toks)
+    del pcache
+    prompts = [[int(x) for x in row] for row in
+               toks[:, :MESH_PROMPT].cpu().numpy()]
+    loop_cache = step.init_cache(B, S, device=dev)
+    cur = toks[:, :1]
+    loop = [[] for _ in range(B)]
+    for t in range(MESH_PROMPT + MESH_NEW - 1):
+        lg, _ = step(shard, {"token": cur}, loop_cache, t)
+        nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+        if t + 1 < MESH_PROMPT:
+            cur = toks[:, t + 1:t + 2]
+        else:
+            for i, v in enumerate(nxt.tolist()):
+                loop[i].append(v)
+            cur = nxt[:, None]
+    del loop_cache
+    sess = ServeSession(model, shard, slots=B, max_seq=S, decode_fn=step,
+                        device=dev)
+    hs = [sess.submit(Request(prompt=p, max_new_tokens=MESH_NEW))
+          for p in prompts]
+    res = sess.drain()
+    session_tokens = [res[h].tokens for h in hs]
+    sess_stats = dict(sess.stats)
+    del sess
+    pf_logits, pf_cache = pstep(shard, {"tokens": ptoks})
+    hy_c, _, hy_p, hy_step = cuts["hymba-1.5b"]
+    hy_cache = hy_step.init_cache(B, S, device=dev)
+    hy_mesh = _mesh_decode(torch, hy_step, hy_step.shard_params(hy_p),
+                           hy_cache, toks % hy_c.vocab_size)
+    wh_c, _, wh_p, wh_step = cuts["whisper-small"]
+    wh_cache = wh_step.init_cache(B, S, device=dev,
+                                  encoder_seq=wh_c.encoder_seq)
+    wh_shard = wh_step.shard_params(wh_p)
+    wh_step.prefill_encoder(wh_shard, audio, wh_cache)
+    wh_cross = {k: wh_cache[k].clone() for k in ("ck", "cv")}
+    wh_mesh = _mesh_decode(torch, wh_step, wh_shard, wh_cache,
+                           toks % wh_c.vocab_size)
+    ds_c, _, ds_p, ds_step = cuts["deepseek-moe-16b"]
+    ds_cache = ds_step.init_cache(B, S, device=dev)
+    ds_shard = ds_step.shard_params(ds_p)
+    ds_mesh = _mesh_decode(torch, ds_step, ds_shard, ds_cache,
+                           toks % ds_c.vocab_size)
+    torch.cuda.synchronize()
+    launches = {name: getattr({"paged": paged, "K": K}[m], attr)
+                for name, (m, attr) in MESH_COUNTERS.items()}
+    plain = serving_plain(MM, paged, K)
+    if any(n == 0 for n in launches.values()) or plain:
+        raise AssertionError(f"phase 4o: launches {launches}, {plain} "
+                             f"plain calls on the card")
+
+    # the comparisons, outside the counted run
+    qp = _mesh_round_trip(torch, step, params)
+    local_cache = model.init_cache(B, S, device=dev)
+    for t in range(MESH_STEPS):
+        lg, _ = model.decode_step(qp, {"token": toks[:, t:t + 1]},
+                                  local_cache, t)
+        if not torch.equal(lg, mesh[t]):
+            raise AssertionError(f"gemma2-2b mesh decode step {t} is not "
+                                 f"the local decode on the round-tripped "
+                                 f"tree (max abs "
+                                 f"{float((lg - mesh[t]).abs().max())})")
+    del local_cache
+    for t in range(MESH_STEPS):
+        if not torch.equal(paged_logits[t], mesh[t]):
+            raise AssertionError(f"gemma2-2b paged mesh decode step {t} is "
+                                 f"not the fixed-lane mesh decode")
+    if session_tokens != loop:
+        raise AssertionError(f"mesh session tokens {session_tokens} are "
+                             f"not the batch-synchronous loop's {loop}")
+    if sess_stats["captures"] < 1 or sess_stats["replays"] < 1:
+        raise AssertionError(f"the mesh session's decode step ran no CUDA "
+                             f"graph: {sess_stats}")
+    want_lg, want_cache = model.prefill(qp, {"tokens": ptoks},
+                                        max_seq_local=32)
+    if not torch.equal(pf_logits, want_lg) or any(
+            not torch.equal(pf_cache[k], want_cache[k]) for k in want_cache):
+        raise AssertionError("gemma2-2b mesh prefill is not Model.prefill "
+                             "on the round-tripped tree")
+    del want_lg, want_cache, pf_logits, pf_cache
+    for name, (c, m, p, st), got, extra in (
+            ("hymba-1.5b", cuts["hymba-1.5b"], hy_mesh, None),
+            ("whisper-small", cuts["whisper-small"], wh_mesh, wh_cross),
+            ("deepseek-moe-16b", cuts["deepseek-moe-16b"], ds_mesh, None)):
+        q = _mesh_round_trip(torch, st, p)
+        lc = m.init_cache(B, S, device=dev,
+                          encoder_seq_local=c.encoder_seq or 0)
+        if extra is not None:
+            m.prefill_encoder(q, audio, lc)
+            if any(not torch.equal(lc[k], extra[k]) for k in extra):
+                raise AssertionError(f"{name}: the mesh prefill_encoder's "
+                                     f"cross caches are not the local ones")
+        for t in range(MESH_STEPS):
+            lg, _ = m.decode_step(q, {"token": toks[:, t:t + 1]
+                                      % c.vocab_size}, lc, t)
+            if not torch.equal(lg, got[t]):
+                raise AssertionError(f"{name} mesh decode step {t} is not "
+                                     f"the local decode")
+        del q, lc
+    del qp
+    for x in mesh + [paged_logits[-1], hy_mesh[-1], wh_mesh[-1],
+                     ds_mesh[-1]]:
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError("phase 4o: logits not finite")
+
+    # readings: gemma2's and deepseek's mesh decode steps, eager and
+    # graphed
+    dg = _mesh_graph(torch, step, shard, cache, dev, "gemma2-2b (4o)")
+    dd = _mesh_graph(torch, ds_step, ds_shard, ds_cache, dev,
+                     "deepseek-moe-16b (4o)")
+    peak = torch.cuda.max_memory_allocated()
+    del cache, shard, params, cuts, hy_cache, wh_cache, mesh, paged_logits
+    del ds_cache, ds_shard
+    return dict(arch="gemma2-2b", layers=cfg.n_layers, slots=B, max_seq=S,
+                weight_k=MESH_K_X, fp32_bytes=fp_bytes,
+                launches=launches, session_stats=sess_stats,
+                session_tokens=session_tokens, startup_s=startup_s,
+                peak_startup_bytes=peak_startup, peak_bytes=peak,
+                allocated_at_start=allocated_at_start,
+                cut_layers=MESH_CUT, decode_graph=dg,
+                moe_decode_graph=dd,
+                moe_expert_bytes=sum(ds_p["blocks"]["moe"][k].nbytes
+                                     for k in ("w_gate", "w_up", "w_down")))
 
 
 def flash_path(torch, dev, FA):
@@ -6695,6 +6996,9 @@ def main() -> int:
         g6 = timed("6g", ssm_train, torch, dev, mods, group)
         torch.cuda.empty_cache()
         w6 = timed("6h", encdec_train, torch, dev, mods, group)
+        torch.cuda.empty_cache()
+        so = timed("4o", serve_mesh, torch, dev, smods)
+        torch.cuda.empty_cache()
     finally:
         close_process_group()
     wb = timed("8", wire_buffers, torch, dev, mods, model8)
@@ -6737,6 +7041,7 @@ def main() -> int:
                    "serve_hymba": hy["launches"].get(r["name"], 0),
                    "train_ssm": g6["launches"].get(r["name"], 0),
                    "serve_whisper": wh["launches"].get(r["name"], 0),
+                   "serve_mesh": so["launches"].get(r["name"], 0),
                    "train_whisper": w6["launches"].get(r["name"], 0),
                    "train_llava": lv["launches"].get(r["name"], 0),
                    "flash": fp["launches_bf16"].get(r["name"], 0),
@@ -7011,6 +7316,37 @@ def main() -> int:
               f"{dg['graph_idle']:.1%}); chunk {sv['chunk_ms']:.3f} ms wall "
               f"/ {sv['chunk_device_ms']:.3f} device; launches "
               f"{sv['launches']}; stats {sv['stats']}", flush=True)
+    dg = so["decode_graph"]
+    print(f"sharded serving (4o, dist.serve at Nm = 1, one NCCL rank): "
+          f"{so['arch']} ({so['layers']} layers, {so['fp32_bytes']} B of "
+          f"float32 shard), ServeConfig(weight_k={so['weight_k']}), "
+          f"{so['slots']} slots x {so['max_seq']}: mesh decode bitwise the "
+          f"local decode on the round-tripped tree, paged bitwise fixed, "
+          f"session tokens {so['session_tokens']} == the loop's, prefill "
+          f"bitwise; hymba-1.5b, whisper-small and deepseek-moe-16b x "
+          f"{so['cut_layers']} layers bitwise; gemma2 decode step (no "
+          f"gather at one shard) eager {dg['eager_ms']:.3f} ms wall "
+          f"/ {dg['eager_device_ms']:.3f} device, graphed "
+          f"{dg['graph_ms']:.3f} / {dg['graph_device_ms']:.3f} (idle "
+          f"{dg['graph_idle']:.1%}); start-up {so['startup_s']:.1f} s, peak "
+          f"{so['peak_startup_bytes']} B (allocated at the phase's start "
+          f"{so['allocated_at_start']} B), peak {so['peak_bytes']} B; "
+          f"launches {so['launches']}; session stats {so['session_stats']}; "
+          f"card {card}", flush=True)
+    for name, t in dg["eager_kernels"]:
+        print(f"  {t:9.4f} ms  {name[:90]}")
+    dd = so["moe_decode_graph"]
+    print(f"sharded serving (4o): deepseek-moe-16b x {so['cut_layers']} "
+          f"layers, its expert stacks ({so['moe_expert_bytes']} B of "
+          f"float32) through the int8 gather's Q_x round trip each step: "
+          f"decode step eager {dd['eager_ms']:.3f} ms wall / "
+          f"{dd['eager_device_ms']:.3f} device, graphed {dd['graph_ms']:.3f}"
+          f" / {dd['graph_device_ms']:.3f} (idle {dd['graph_idle']:.1%}); "
+          f"the gather alone (a CUDA graph) {dd['gather_ms']:.3f} ms, "
+          f"{dd['gather_share']:.1%} of the graphed step; K3+K4+K12 in the "
+          f"eager step's profile {dd['qx_kernels_ms']:.3f} ms", flush=True)
+    for name, t in dd["eager_kernels"]:
+        print(f"  {t:9.4f} ms  {name[:90]}")
     fd = f6["dispatch"]
     print(f"MoE training (6f, deepseek-moe-16b x {MOE_TRAIN_LAYERS} layers, "
           f"{f6['n_params']} parameters, one NCCL rank, {TRAIN_BATCH} x "
@@ -7061,7 +7397,8 @@ def main() -> int:
                        ssm_shapes=ssm_table, serve_mamba2=m2,
                        serve_hymba=hy, train_ssm=g6,
                        encdec_shapes=encdec_table, serve_whisper=wh,
-                       train_whisper=w6, phase_s=phase_s),
+                       train_whisper=w6, serve_mesh=so,
+                       phase_s=phase_s),
                   fh, indent=1)
     print("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                            phase_s.items())

@@ -78,10 +78,11 @@ def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
     return out.reshape((n,) + tuple(x.shape))
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """Sum over the group, in place."""
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """Sum (``op="max"``: maximum) over the group, in place."""
     if group is not None:
-        dist.all_reduce(x, group=group)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=group)
     return x
 
 

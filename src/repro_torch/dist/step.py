@@ -105,6 +105,19 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """The sharded serving step's settings (``dist.serve``): the weight
+    gather's int8 Q_x codes at ``weight_k`` bits (None: float32), on the
+    absolute grid or by amax; the grid axes whose ranks split the batch
+    (those present in the grid), and whether they do."""
+
+    weight_k: Optional[int] = None      # int8 weight-gather bits
+    weight_absolute: bool = False
+    worker_axes: Tuple[str, ...] = ("pod", "data")
+    batch_dim_shardable: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class LeafMeta:
     """Per-leaf wire geometry: ``shape`` the local model shard's shape,
     ``numel`` its element count, ``c`` the per-worker chunk length;
@@ -216,7 +229,8 @@ def _make_param_gather(layout: SH.Layout, n_shards: int, group,
                        expert_local: bool, quant_k: Optional[int],
                        quant_absolute: bool = False,
                        quant_min_numel: int = 0,
-                       backend: Optional[str] = None):
+                       backend: Optional[str] = None,
+                       stacked_at_static: bool = False):
     """The forward's parameter hook ``gather(subtree, kind)``
     (``models.layers.ShardCtx``): the whole weights from their model
     shards, float32 (``collectives.gather_shard``) or int8 at k_x =
@@ -224,7 +238,13 @@ def _make_param_gather(layout: SH.Layout, n_shards: int, group,
     (``quantized_gather_shard``); expert tensors stay local when
     ``expert_local``. ``kind`` "static" gathers the leaves outside the
     layer stack (the stacked ones are gathered a layer at a time inside
-    the loop, kind "blocks")."""
+    the loop, kind "blocks").
+
+    ``stacked_at_static`` (serving): the "static" pass gathers the
+    stacked leaves whole too, so a Q_x scale is one a shard across all
+    the layers of a leaf (the reference's serving semantics), and the
+    per-layer gather does nothing. Training keeps the per-layer
+    gather."""
     dims = SH.dims_by_path(layout)
 
     def gather_leaf(dim: int, stacked: bool, leaf):
@@ -249,7 +269,8 @@ def _make_param_gather(layout: SH.Layout, n_shards: int, group,
         if isinstance(tree, dict):
             return {k: walk(v, path + (k,), kind) for k, v in tree.items()}
         if kind == "static":
-            if path and path[0] in SH._STACKED_KEYS:
+            if path and path[0] in SH._STACKED_KEYS and \
+                    not stacked_at_static:
                 return tree          # a layer at a time inside the loop
             return gather_leaf(dims[path][0], dims[path][1], tree)
         return gather_leaf(dims[(kind,) + path][0], False, tree)
@@ -257,6 +278,8 @@ def _make_param_gather(layout: SH.Layout, n_shards: int, group,
     def gather(subtree, kind: str):
         if n_shards <= 1 and quant_k is None:
             return subtree
+        if stacked_at_static and kind != "static":
+            return subtree           # gathered whole in the static pass
         return walk(subtree, (), kind)
 
     return gather
@@ -496,3 +519,11 @@ def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
                          broadcast=broadcast, loss_and_grads=loss_and_grads,
                          update=update, hp_row=hp_row, prepare=prepare,
                          grid=grid)
+
+
+def __getattr__(name):
+    # compatibility: the serving step lives in repro_torch.dist.serve
+    if name in ("make_serve_step", "_cache_specs_for"):
+        from repro_torch.dist import serve
+        return getattr(serve, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

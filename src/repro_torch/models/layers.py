@@ -22,7 +22,10 @@ exchanges tokens with the other ranks (``collectives.expert_exchange``),
 the SSD scan corrects each shard's chunks with the summaries of the
 shards before it and the causal convolution takes its halo from the
 previous shard (``collectives.gather_stack`` and ``shift``, whose
-backwards are written out: a reduce-scatter, the reverse shift).
+backwards are written out: a reduce-scatter, the reverse shift). A
+sharded decode (``dist.serve``) holds the cache split along the
+sequence: each shard takes the softmax of its own columns and
+:func:`decode_attention` combines them over the model group.
 
 The SSD scan (mamba2, hymba's SSM heads) is plain PyTorch, as it is
 plain jnp in the reference; so are the encoder-decoder family's
@@ -230,44 +233,74 @@ def attention(q, k, v, *, q_pos, causal=True, window=0, softcap=None,
 # Attention against a cache view
 # ---------------------------------------------------------------------------
 
-def _with_meta(k_cache, v_cache, valid, meta_kv):
+def _meta_valid(ctx: ShardCtx) -> bool:
+    """Whether this shard counts the meta prefix: every local call, and
+    under a sharded context shard 0 only, so the combine across the
+    model group sees the prefix exactly once."""
+    return ctx.cp_index() == 0
+
+
+def _with_meta(k_cache, v_cache, valid, meta_kv, ctx: ShardCtx = ShardCtx()):
     """The learned prefix ``meta_kv = (mk, mv)`` (B, M, K, hd) in front of
-    the cache view's columns, always valid (the port's decode is not
-    sequence-sharded: the reference's shard 0)."""
+    the cache view's columns, valid where :func:`_meta_valid` says."""
     if meta_kv is None:
         return k_cache, v_cache, valid
     mk, mv = meta_kv
-    ones = torch.ones(valid.shape[:-1] + (mk.shape[1],), dtype=torch.bool,
-                      device=valid.device)
+    meta = torch.full(valid.shape[:-1] + (mk.shape[1],), _meta_valid(ctx),
+                      dtype=torch.bool, device=valid.device)
     return (torch.cat([mk.to(k_cache.dtype), k_cache], dim=1),
             torch.cat([mv.to(v_cache.dtype), v_cache], dim=1),
-            torch.cat([ones, valid], dim=-1))
+            torch.cat([meta, valid], dim=-1))
+
+
+def _combine(o, denom, l_safe, ctx: ShardCtx):
+    """The flash-style combine of every shard's partial softmax over the
+    model group: an all-reduce MAX of ``l_safe``, weights ``w = exp(l_safe
+    - l_max)`` and one SUM all-reduce of ``o w`` and ``denom w``, packed
+    into one float32 buffer: O(B H hd) bytes a call, whatever the
+    sequence length. Every rank of the group gets the same bits."""
+    from repro_torch.dist import collectives as C
+    l_max = C.all_reduce(l_safe.clone(), ctx.cp_group, op="max")
+    w = torch.exp(l_safe - l_max)
+    n = o.numel()
+    buf = torch.cat([(o * w[..., None]).reshape(-1),
+                     (denom * w).reshape(-1)])
+    C.all_reduce(buf, ctx.cp_group)
+    return buf[:n].reshape(o.shape), buf[n:].reshape(denom.shape)
 
 
 def decode_attention(q, k_cache, v_cache, *, total_len, window=0,
                      softcap=None, kv_positions=None, extra_valid=None,
-                     meta_kv=None):
-    """Single-token decode against a (B, S, K, hd) cache view.
+                     meta_kv=None, ctx: ShardCtx = ShardCtx()):
+    """Single-token decode against a (B, S_loc, K, hd) cache view.
 
     total_len: valid cache entries, scalar or (B,) per slot (the query
     sits at position total_len - 1). window / softcap: the layer's
     sliding window (0: global) and attention logit softcap.
-    kv_positions: (S,) positions of the view columns; extra_valid:
-    optional (B, S) mask ANDed into validity (page ownership for paged
-    views); meta_kv: hymba's (B, M, K, hd) prefix, always visible.
+    kv_positions: (S_loc,) global positions of the view columns, by
+    default ``ctx.cp_index() * S_loc + arange(S_loc)`` (a sequence-sharded
+    cache; a paged view passes its own); extra_valid: optional (B, S_loc)
+    mask ANDed into validity (page ownership for paged views, so each
+    shard counts each page once); meta_kv: hymba's (B, M, K, hd) prefix,
+    always visible, counted on shard 0 only under ``ctx``.
+
+    Under a sharded ``ctx`` each shard takes the softmax of its own
+    columns and :func:`_combine` joins them, as the reference's
+    (logsumexp, weighted sum) psums.
     """
     B, _, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
     rep = H // K
     dev = q.device
-    kv_pos = (torch.arange(S, device=dev) if kv_positions is None
-              else kv_positions)
+    kv_pos = (ctx.cp_index() * S + torch.arange(S, device=dev)
+              if kv_positions is None else kv_positions)
     tl = torch.as_tensor(total_len, device=dev).expand(B)
     valid = kv_pos[None, :] < tl[:, None]                      # (B, S)
     valid = valid & _window_ok(kv_pos[None, :], tl[:, None] - 1, window)
     if extra_valid is not None:
         valid = valid & extra_valid
-    k_cache, v_cache, valid = _with_meta(k_cache, v_cache, valid, meta_kv)
+    k_cache, v_cache, valid = _with_meta(k_cache, v_cache, valid, meta_kv,
+                                         ctx)
     qr = q.reshape(B, K, rep, hd).to(torch.float32)
     scores = torch.einsum("bkrd,bskd->bkrs", qr,
                           k_cache.to(torch.float32)) / math.sqrt(hd)
@@ -280,6 +313,8 @@ def decode_attention(q, k_cache, v_cache, *, total_len, window=0,
     p = torch.where(mask, p, 0.0)
     denom = torch.sum(p, dim=-1)
     o = torch.einsum("bkrs,bskd->bkrd", p, v_cache.to(torch.float32))
+    if ctx.sharded:
+        o, denom = _combine(o, denom, l_safe, ctx)
     out = o / torch.clamp_min(denom[..., None], 1e-30)
     return out.reshape(B, 1, H, hd).to(q.dtype)
 

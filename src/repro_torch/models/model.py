@@ -687,16 +687,23 @@ class Model:
         return cache
 
     def prefill_encoder(self, params, audio, cache, gather: Gather = None,
-                        backend: Optional[str] = None):
+                        backend: Optional[str] = None,
+                        ctx: Optional[L.ShardCtx] = None):
         """The encoder-decoder's prefill: the encoder over ``audio`` (B,
         Sa, d) frame embeddings, then each decoder layer's cross K/V
         ``enc @ xattn.k/v`` written into ``cache["ck"]``/``["cv"]`` in
         place, a layer at a time (K1 for code-resident weights through
         ``gather``, the per-layer hook of :meth:`decode_step`). Returns
-        the cache."""
+        the cache.
+
+        ``ctx``: a sharded prefill (its ``param_gather`` in place of
+        ``gather``): ``audio`` holds this shard's frames, the encoder's
+        self-attention gathers K/V over the model group, and the cache
+        takes this shard's frames of the cross K/V (``dist.serve``)."""
         self._check_family()
         cfg = self.cfg
-        ctx = L.ShardCtx(param_gather=gather)
+        if ctx is None:
+            ctx = L.ShardCtx(param_gather=gather)
         params = ctx.gather(params, "static")
         enc = self._encode(params, audio, ctx, backend, train=False)
         for i in range(cfg.n_layers):
@@ -706,26 +713,36 @@ class Model:
             cache["cv"][i].copy_(cv)
         return cache
 
-    def _paged_writes(self, cache, q_pos, valid_q):
-        """Write targets of tokens at ``q_pos`` (B, S) into the pool,
-        the view's ownership mask and positions."""
+    def _paged_writes(self, cache, q_pos, valid_q, page0: int = 0):
+        """Write targets of tokens at ``q_pos`` (B, S) into the pool, the
+        view's ownership mask and positions, and the table in the pool's
+        own page ids. The pool holds the pages [page0, page0 + P) of the
+        global ids in ``ptab`` (a pool split over the model axis,
+        ``dist.serve``): a write to another shard's page drops, and only
+        this shard's pages are valid view columns, so the combine across
+        the shards counts each page once. K2 clamps the other ids."""
         ptab = cache["ptab"]
         P, ps = cache["pk"].shape[1], cache["pk"].shape[2]
         Bn, npag = ptab.shape
         S_view = npag * ps
         rows = torch.arange(Bn, device=ptab.device)[:, None]
         wslot = torch.clamp(q_pos // ps, 0, npag - 1).long()
-        wloc = ptab[rows, wslot].long()
+        wloc = ptab[rows, wslot].long() - page0
         ok = valid_q & (q_pos < S_view) & (wloc >= 0) & (wloc < P)
         write = _DropScatter((torch.clamp(wloc, 0, P - 1).reshape(-1),
                               (q_pos % ps).long().reshape(-1)),
                              ok.reshape(-1))
-        own = ptab < P      # (B, npag) -> (B, S_view), each page's ps rows
+        # (B, npag) -> (B, S_view), each page's ps rows
+        own = (ptab >= page0) & (ptab < page0 + P)
         extra_valid = own[:, :, None].expand(Bn, npag, ps).reshape(Bn, -1)
         view_pos = torch.arange(S_view, device=ptab.device)
-        return write, extra_valid, view_pos
+        local = ptab - page0 if page0 else ptab
+        return write, extra_valid, view_pos, local
 
     def _lane_writes(self, cache, q_pos, valid_q):
+        """Write targets of tokens at lane positions ``q_pos`` (B, S):
+        rows outside [0, S) drop (another shard's part of a
+        sequence-sharded lane)."""
         S = cache["k"].shape[2]
         Bn = q_pos.shape[0]
         rows = torch.arange(Bn, device=q_pos.device)[:, None].expand_as(q_pos)
@@ -752,28 +769,38 @@ class Model:
         return out
 
     def _layers(self, params, x, cache, q_pos, valid_q, attend,
-                gather: Gather, backend, rows_ok=None):
+                ctx: L.ShardCtx, backend, rows_ok=None):
         """The per-layer body shared by decode_step and decode_chunk:
         x (B, S, d) at positions q_pos (B, S); ``attend(q, kc, vc, view,
         window, meta_kv)`` runs the attention variant with the layer's
         window; ``rows_ok`` (B,) masks the SSD state writes (None:
         every row). An encoder-decoder layer runs its cross-attention
-        against the slot's ``ck``/``cv`` after the self-attention."""
+        against the slot's ``ck``/``cv`` after the self-attention.
+
+        Under a sharded ``ctx`` (``dist.serve``) the fixed lanes hold the
+        sequence positions [cp_index S_loc, (cp_index + 1) S_loc) and a
+        page pool the pages [cp_index P_loc, (cp_index + 1) P_loc); a
+        token is written only where its lane position or page is this
+        shard's. The SSD state and conv tail are whole on every shard,
+        which all run the same recurrence; the MoE layer keeps its
+        experts local and exchanges tokens; the cross-attention gathers
+        the frames of ``ck``/``cv``."""
         cfg = self.cfg
         Bn, S, _ = x.shape
         H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
         paged = "pk" in cache
         if paged:
-            write, extra_valid, view_pos = self._paged_writes(
-                cache, q_pos, valid_q)
+            write, extra_valid, view_pos, ptab = self._paged_writes(
+                cache, q_pos, valid_q, ctx.cp_index() * cache["pk"].shape[1])
             view = dict(kv_positions=view_pos, extra_valid=extra_valid)
         elif "k" in cache:
-            write, view = self._lane_writes(cache, q_pos, valid_q), {}
+            lane0 = ctx.cp_index() * cache["k"].shape[2]
+            write = self._lane_writes(cache, q_pos - lane0 if lane0
+                                      else q_pos, valid_q)
+            view = {}
         thetas, windows = cfg.layer_rope_thetas(), cfg.layer_windows()
         for i in range(cfg.n_layers):
-            p = layer_slice(params["blocks"], i)
-            if gather is not None:
-                p = gather(p, "blocks")
+            p = ctx.gather(layer_slice(params["blocks"], i), "blocks")
             h = L.apply_norm(x, p["ln1"], cfg)
             if cfg.arch_type == "ssm":
                 x = x + self._mixer_step(p, h, cache, i, rows_ok, backend)
@@ -784,8 +811,7 @@ class Model:
                 pk, pv = cache["pk"][i], cache["pv"][i]
                 write(pk, k.reshape(Bn * S, K, hd))
                 write(pv, v.reshape(Bn * S, K, hd))
-                kc, vc = gather_pages_kv(pk, pv, cache["ptab"],
-                                         backend=backend)
+                kc, vc = gather_pages_kv(pk, pv, ptab, backend=backend)
             else:
                 kc, vc = cache["k"][i], cache["v"][i]
                 write(kc, k.reshape(Bn * S, K, hd))
@@ -801,15 +827,18 @@ class Model:
             if cfg.arch_type == "encdec":
                 x = x + self._cross(p["xattn"],
                                     L.apply_norm(x, p["ln_x"], cfg),
-                                    cache["ck"][i], cache["cv"][i], backend)
-            out, _ = self._ffn(p, L.apply_norm(x, p["ln2"], cfg), backend)
+                                    cache["ck"][i], cache["cv"][i], backend,
+                                    ctx)
+            out, _ = self._ffn(p, L.apply_norm(x, p["ln2"], cfg), backend,
+                               ctx)
             x = x + self._post(out, p, "ln2_post")
         return L.apply_norm(x, params["final_norm"], cfg)
 
     # ---------------- decode ----------------
     def decode_step(self, params, inputs, cache, pos, gather: Gather = None,
                     backend: Optional[str] = None,
-                    write: Optional[torch.Tensor] = None):
+                    write: Optional[torch.Tensor] = None,
+                    ctx: Optional[L.ShardCtx] = None):
         """One-token decode. inputs: {"token": (B, 1)} or {"embeds": (B,
         1, d)}; pos: the token's position, scalar or (B,) per slot.
         Returns (logits (B, V), cache), the cache updated in place.
@@ -821,11 +850,19 @@ class Model:
         reference's step reverts). An encoder-decoder adds the
         sinusoidal positions of ``pos`` to the token embeddings (read on
         the device: the step stays one capturable graph) and attends to
-        the cross caches :meth:`prefill_encoder` filled."""
+        the cross caches :meth:`prefill_encoder` filled.
+
+        ``ctx``: a sharded decode (``dist.serve.make_serve_step``; its
+        ``param_gather`` in place of ``gather``): ``cache`` is this
+        shard's, split along the sequence (fixed lanes), the pages (a
+        pool) or the frames (``ck``/``cv``) over the model group, and the
+        attention combines the shards' partial softmaxes
+        (``layers.decode_attention``); see :meth:`_layers`."""
         self._check_family()
         cfg = self.cfg
-        if gather is not None:
-            params = gather(params, "static")
+        if ctx is None:
+            ctx = L.ShardCtx(param_gather=gather)
+        params = ctx.gather(params, "static")
         x = self._embed_in(params, inputs, "token")
         Bn = x.shape[0]
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
@@ -839,14 +876,15 @@ class Model:
         def attend(q, kc, vc, view, window, meta_kv):
             return L.decode_attention(q, kc, vc, total_len=posv[:, 0] + 1,
                                       window=window, softcap=cfg.attn_softcap,
-                                      meta_kv=meta_kv, **view)
+                                      meta_kv=meta_kv, ctx=ctx, **view)
 
-        x = self._layers(params, x, cache, posv, valid, attend, gather,
+        x = self._layers(params, x, cache, posv, valid, attend, ctx,
                          backend, rows_ok=write)
         return self._head(params, x, backend)[:, 0], cache
 
     def decode_chunk(self, params, inputs, cache, start, nvalid,
-                     gather: Gather = None, backend: Optional[str] = None):
+                     gather: Gather = None, backend: Optional[str] = None,
+                     ctx: Optional[L.ShardCtx] = None):
         """Chunked prefill: advance B slots by one fixed-size chunk of
         prompt tokens. inputs: {"token": (B, Sq)} or {"embeds": (B, Sq,
         d)}; start: (B,) position
@@ -855,15 +893,19 @@ class Model:
         position start + nvalid - 1, cache updated in place). With SSD
         mixers the scan has no per-token validity: the caller dispatches
         only full chunks whose length is a multiple of ``ssm.chunk`` (the
-        session's admission rule). The encoder-decoder family is refused
-        with the reference's message."""
+        session's admission rule). The encoder-decoder family and a
+        sharded ``ctx`` (mesh sessions admit by injection) are refused
+        with the reference's messages."""
         self._check_family()
         cfg = self.cfg
+        if ctx is not None and ctx.sharded:
+            raise NotImplementedError("decode_chunk is local-only")
         if cfg.arch_type == "encdec":
             raise NotImplementedError(
                 "enc-dec serving prefills via prefill()")
-        if gather is not None:
-            params = gather(params, "static")
+        if ctx is None:
+            ctx = L.ShardCtx(param_gather=gather)
+        params = ctx.gather(params, "static")
         x = self._embed_in(params, inputs, "token")
         Bn, Sq, _ = x.shape
         dev = x.device
@@ -878,7 +920,7 @@ class Model:
                                      softcap=cfg.attn_softcap,
                                      meta_kv=meta_kv, **view)
 
-        x = self._layers(params, x, cache, q_pos, valid_q, attend, gather,
+        x = self._layers(params, x, cache, q_pos, valid_q, attend, ctx,
                          backend)
         last = torch.clamp(nvalid - 1, 0, Sq - 1).long()
         xl = x[torch.arange(Bn, device=dev), last][:, None]     # (B, 1, d)

@@ -37,6 +37,15 @@ is written in place, by the step and by the host's admissions and
 releases alike, so the graph always sees the live state. A capture that
 fails raises. The CPU runs every step eagerly.
 
+A mesh session (``decode_fn=`` a ``dist.serve.make_serve_step``
+decode step) runs the same scheduler on every rank of a grid: each rank
+holds its part of the cache (the step's ``init_cache``), while every
+host-side control vector (slots, positions, current tokens, prompts,
+sampling streams) is the global one, identical on every rank; the step
+returns the whole batch's logits on every rank, so every rank picks the
+same tokens. Mesh sessions admit by injection, and refuse a paged cache
+and ``QuantizedParams`` with the reference's messages.
+
 Differences from the reference, all inside the session: the cache is
 updated in place (inactive slots' writes drop, where the reference
 reverts them on fixed lanes and rewrites identical bytes on pages);
@@ -142,6 +151,13 @@ class ServeSession:
         greedy argmax of the last prompt position's logits, or draw 0 of
         the request's Gumbel stream when sampling; an injected prompt's
         first token is the decode step's, with the same draw 0.
+        A mesh session admits every prompt by injection.
+    decode_fn: a ``(params, inputs, cache, pos, write=) -> (logits,
+        cache)`` step in place of ``model.decode_step``, e.g.
+        ``dist.serve.make_serve_step(..., "decode")``'s, with ``params``
+        this rank's model shards; where it has ``init_cache`` and
+        ``rows`` (a ``dist.serve.ServeStep``), the session holds the
+        rank's part of the cache they give.
     """
 
     def __init__(self, model, params, *, slots: int = 8, max_seq: int = 256,
@@ -150,7 +166,7 @@ class ServeSession:
                  paged: bool = False, page_size: int = 16,
                  num_pages: Optional[int] = None, prefill: str = "auto",
                  prefill_chunk: int = 32, preempt_mode: str = "requeue",
-                 device="cuda"):
+                 device="cuda", decode_fn=None):
         cfg = model.cfg
         if cfg.input_mode != "tokens" or cfg.arch_type not in (
                 "dense", "moe", "ssm", "hybrid"):
@@ -162,8 +178,14 @@ class ServeSession:
         self.slots, self.max_seq, self.eos_id = slots, max_seq, eos_id
         self.sync_interval = max(1, sync_interval)
         self.params = params
+        self._local = decode_fn is None
+        self._decode_fn = decode_fn
         self.paged = bool(paged)
         if self.paged:
+            if not self._local:
+                raise ValueError("paged sessions use the local decode path; "
+                                 "mesh paged decode runs through "
+                                 "dist.serve cache specs directly")
             if cfg.arch_type == "ssm":
                 raise ValueError("pure-SSM models hold no KV cache to page")
             if max_seq % page_size:
@@ -186,6 +208,9 @@ class ServeSession:
         if preempt_mode not in ("requeue", "kill"):
             raise ValueError(f"unknown preempt_mode {preempt_mode!r}")
         self.preempt_mode = preempt_mode
+        if not self._local and is_quantized(params):
+            raise ValueError("QuantizedParams require the local decode path;"
+                             " a mesh decode_fn brings its own weight wire")
         self._gather = (make_dequant_gather(fused=fused_matmul)
                         if is_quantized(params) else None)
         self._state = self._init_state()
@@ -218,8 +243,12 @@ class ServeSession:
     def _init_state(self):
         B, S, dev = self.slots, self.max_seq, self.device
         pool = (self.num_pages, self.page_size) if self.paged else None
-        cache = self.model.init_cache(B, max_seq_local=S, page_pool=pool,
-                                      device=dev)
+        make = getattr(self._decode_fn, "init_cache", None)
+        if make is not None:
+            cache = make(B, S, device=dev)
+        else:
+            cache = self.model.init_cache(B, max_seq_local=S, page_pool=pool,
+                                          device=dev)
 
         def z(dt):
             return torch.zeros((B,), dtype=dt, device=dev)
@@ -240,9 +269,15 @@ class ServeSession:
         carry it on, so they are zeroed, in place; paged sessions install
         the slot's table row."""
         cache = self._state["cache"]
+        rows = getattr(self._decode_fn, "rows", None)
+        row = slot
+        if rows is not None:        # this rank's rows of a mesh step
+            mine = rows(self.slots)
+            row = slot - mine.start if mine.start <= slot < mine.stop \
+                else None
         for name in ("ssm", "conv"):
-            if name in cache:
-                cache[name][:, slot].zero_()
+            if name in cache and row is not None:
+                cache[name][:, row].zero_()
         if self.paged:
             self._state["cache"]["ptab"][slot] = self._to_dev(ptab_row,
                                                               torch.int32)
@@ -359,9 +394,14 @@ class ServeSession:
         st, S, eos = self._state, self.max_seq, self.eos_id
         B = self.slots
         active, pos = st["active"], st["pos"]
-        logits, _ = self.model.decode_step(
-            self.params, {"token": st["cur"][:, None]}, st["cache"], pos,
-            self._gather, write=active)
+        inputs = {"token": st["cur"][:, None]}
+        if self._local:
+            logits, _ = self.model.decode_step(
+                self.params, inputs, st["cache"], pos, self._gather,
+                write=active)
+        else:
+            logits, _ = self._decode_fn(self.params, inputs, st["cache"],
+                                        pos, write=active)
         logits = logits.to(torch.float32)
         greedy = torch.argmax(logits, dim=-1).to(torch.int32)
         nxt = pos + 1
@@ -615,7 +655,7 @@ class ServeSession:
                                          self.inflight)
 
     def _can_prefill_whole(self, plen: int) -> bool:
-        if plen < 2:
+        if not self._local or plen < 2:
             return False
         if self.cfg.arch_type in ("ssm", "hybrid"):
             # the SSD chunked scan needs the sequence to tile its chunk
@@ -627,8 +667,9 @@ class ServeSession:
         asked otherwise; whole falls back to inject below 2 prompt
         tokens. With SSD mixers every dispatched chunk must be full and
         a multiple of the SSD chunk, else whole where the prompt tiles
-        the SSD chunk (fixed lanes), else inject."""
-        if self._prefill_mode == "inject":
+        the SSD chunk (fixed lanes), else inject. A mesh session injects
+        every prompt."""
+        if self._prefill_mode == "inject" or not self._local:
             return "inject"
         if self._prefill_mode == "whole":
             return "whole" if self._can_prefill_whole(plen) else "inject"

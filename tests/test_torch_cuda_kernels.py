@@ -3,7 +3,8 @@ card (marker ``cuda``; skipped where there is no GPU).
 
 Run on a GPU machine with ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda_kernels.py``. Tiers: quantize and dequantize codes,
-scales, page gathers (one pool, and a layer's K and V in one launch),
+scales, page gathers (one pool, a layer's K and V in one launch, and a
+pool split over the model axis through ``ptab - page0``),
 the Adam+EF passes (moments, Delta+e, amax, codes, residuals, decoded
 updates), the wire's encodes and decodes
 (K7, #5, K6) and the blockwise codes and scales (#14, #8) bitwise, and
@@ -126,6 +127,33 @@ def test_gather_pages_kv_bitwise(dev, dtype, slots, npag, pages, ps):
     assert torch.equal(kc, paged.gather_pages(pk, tab, backend="torch"))
     assert torch.equal(vc, paged.gather_pages(pv, tab, backend="torch"))
     assert paged.launches == n0 + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_gather_pages_kv_sharded_pool_bitwise(dev, dtype, n_shards):
+    """A pool split over the model axis (``dist.serve``): each shard
+    gathers through ``ptab - page0``, whose ids run below 0 and past its
+    P / n pages; K2 clamps both ends, bitwise the plain gather."""
+    from repro_torch.serve import paged
+    slots, npag, ps = 4, 8, 16
+    pages = slots * npag
+    P = pages // n_shards
+    g = torch.Generator(device=dev).manual_seed(n_shards)
+    perm = torch.randperm(pages, generator=g, device=dev).to(torch.int32)
+    ptab = perm.reshape(slots, npag)
+    ptab[1, -2:] = pages                 # RELEASED sentinel tail
+    for shard in range(n_shards):
+        pk = torch.randn(P, ps, 4, 128, generator=g, device=dev).to(dtype)
+        pv = torch.randn(P, ps, 4, 128, generator=g, device=dev).to(dtype)
+        local = ptab - shard * P
+        assert bool((local < 0).any()) or shard == 0
+        assert bool((local >= P).any())
+        n0 = paged.launches
+        kc, vc = paged.gather_pages_kv(pk, pv, local, backend="cuda")
+        assert paged.launches == n0 + 1
+        assert torch.equal(kc, paged.gather_pages(pk, local, backend="torch"))
+        assert torch.equal(vc, paged.gather_pages(pv, local, backend="torch"))
 
 
 @pytest.mark.parametrize("bits", [0, 16, 2, 3, 4, 6])
