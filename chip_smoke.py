@@ -246,7 +246,8 @@ Phases, each raising on failure (exit code nonzero, no result line):
      update+exchange, master update), the wire kernels' time, peak
      memory and state bytes;
   7. the baselines the same way, each through ``launch.train``'s path on
-     the same rank, cut and batches, 8 steps (MODE_RUNS): ``dp_adam``
+     the same rank and batches, yi-6b cut to CUT_LAYERS layers (cut
+     from 8 for the perf phase's time), 8 steps (MODE_RUNS): ``dp_adam``
      (fp32 both channels; K15), ``efadam`` (grad_k=6, weight_k=7, amax
      weights; K15, K3, K7 and K6), ``terngrad`` and ``ef_sgd`` (fp32
      broadcast, alpha 1e-3; #5 ternary with K3 and K6 ternary, #14 and
@@ -277,9 +278,9 @@ Phases, each raising on failure (exit code nonzero, no result line):
      versions (the losses are printed, not gated to fall: random
      embeddings say nothing of the targets, and the reference's
      trajectory on this stub is flat over its first steps too);
-     6d. the adaptive mode (``repro_torch.adapt``) on the same rank and
-     cut: a fixed plan with every lane of WIDTH_SPECS on two leaves, 3
-     steps through the kernels bitwise the same steps through the plain
+     6d. the adaptive mode (``repro_torch.adapt``) on the same rank,
+     yi-6b cut to CUT_LAYERS layers (cut from 8): a fixed plan with
+     every lane of WIDTH_SPECS on two leaves, 3 steps through the kernels bitwise the same steps through the plain
      versions (deterministic algorithms), every lane's kernels launched,
      its byte accounting exact against payloads encoded on the card
      (#5, #14, #9); ``bit_plan=None`` bitwise the qadam mode; then the
@@ -355,6 +356,30 @@ Phases, each raising on failure (exit code nonzero, no result line):
      accuracy table; then ``--adaptive`` (the fixed log:6 arm against
      the adaptive arm, PAPER_ADAPT_STEPS steps, a replan every 25) and the fixed arm on log:30 and log:126 (20 steps each,
      #10 and K11 at the deep grids launched);
+  perf. the performance tooling (``repro_torch.perf``): (a) the tuners:
+     ``tune_mm_cols`` at yi-6b's (4, 4096, 11008) and hymba-1.5b's (4,
+     1600, 6482) int8 projections (every candidate plan's ms, the
+     winner, the installed plan held in K1's tier against the plain
+     version), ``tune_enc_rows`` on a log:6 round trip and K7, #5 and K6
+     bitwise at every blocks-an-SM value against the default's; (b) a
+     ``perf.trace`` of a few graphed decode steps of yi-6b cut to 2
+     layers, the Chrome trace holding the ``annotate`` names and K1's
+     kernel; (c) the warm start: ``launch.serve`` (smoke widths) in a
+     subprocess with a fresh ``--aot-dir`` and the library from the
+     build cache (``aot_saves`` 1), then with ``--no-compile-cache`` and
+     nvcc out of reach (off PATH, CUDA_HOME an empty directory):
+     ``aot_loads`` 1, ``compilations`` 0, the same tokens, both start-up
+     seconds; a touched copy of gather_pages.cu rebuilt in a scratch
+     cache seeded with the build's objects: exactly one object compiled;
+     (d) the exchange buckets on phase 6's cut (one NCCL rank):
+     ``tune_exchange_buckets`` over PERF_BUCKETS, losses and state
+     bitwise across sizes, the times and the overlap (each bucket's
+     bytes and the backward's device ms left after it launched, from
+     CUDA events on the backward's stream); and a
+     ``scan_chunk`` session (the step one CUDA graph) bitwise between 0
+     and 1 MiB buckets; (e) the three examples
+     (``examples/*_torch.py``) as subprocesses on the card at small
+     sizes, each exiting 0;
   10. print one ``{"kernels": [...]}`` line (each kernel's launches by
      path; every kernel launched on some path), the card line again, and
      the last line ``{"ok": true,
@@ -374,6 +399,7 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # cuBLAS is deterministic only with a fixed workspace (phase 6 runs two
 # trainings under torch.use_deterministic_algorithms); set before CUDA
@@ -403,6 +429,9 @@ F32_LIMIT = 5e-5
 # fp32 parameters, m, v, e, the Q_x forward copy and the gradients
 # (24 B per parameter) fit one 80 GB card
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 8, 1024, 2, 12
+# phases 7 and 6d: the same widths cut to 2 layers (from 8), for the perf
+# phase's seconds
+CUT_LAYERS = 2
 TRAIN_OPT = dict(alpha=1e-3, grad_q="log:6", weight_q="uniform_amax:7",
                  weight_q_min_numel=2 ** 14)
 
@@ -2890,7 +2919,10 @@ def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
                                     if "adam_moments_kernel" in k))
 
     # device time by phase (CUDA events at the step's marks; the
-    # update's marks alternate per leaf), one warm step then one
+    # update's marks alternate per leaf), one warm step then one, on the
+    # single pass (exchange_bucket_bytes 0: with buckets the update and
+    # exchange run inside the backward and are no phases of their own),
+    # so the four phases read as in runs before buckets
     events = []
 
     def mark(name):
@@ -2899,10 +2931,13 @@ def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
         events.append((name, ev))
 
     program_step = sess._program.step
+    one_pass = DS.make_train_step(model, group, dataclasses.replace(
+        tc, exchange_bucket_bytes=0))
+    one_pass.prepare(dev)
 
     def marked_step(state, batch, hp=None):
         mark("start")
-        return art.step_fn(state, batch, mark=mark, hp=hp)
+        return one_pass.step_fn(state, batch, mark=mark, hp=hp)
     sess._program.step = marked_step
     try:
         sess.run(1)
@@ -2916,6 +2951,7 @@ def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
     for (_, a), (name, b) in zip(events, events[1:]):
         phases[name] += a.elapsed_time(b)
     res["phases_ms"] = phases
+    del one_pass
 
     # the payload bytes the collectives move in one step against the
     # accounting; the scale side channels (per tensor, per block) apart
@@ -3097,7 +3133,6 @@ def allocated_without_workspaces(torch) -> int:
     torch.cuda.synchronize()
     torch._C._cuda_clearCublasWorkspaces()
     return torch.cuda.memory_allocated()
-FIXED_LOG6_EXCHANGE_BYTES = 954_238_976    # phase 6's qadam (log:6) a step
 ADAPT_COUNTERS = {"ef_encode_rows_log": ("K", "ef_encode_log_launches"),
                   "ef_encode_rows_uniform": ("K", "ef_encode_uniform_launches"),
                   "decode_rows_log": ("K", "decode_log_launches"),
@@ -3186,10 +3221,16 @@ def adaptive_train(torch, dev, mods, group, model, cfg):
     from repro_torch.data.pipeline import batch_for_model
     from repro_torch.dist.step import TrainConfig, make_train_step
     from repro_torch.train.session import SessionConfig, _tensor_leaves
+    from repro_torch.train.loop import comm_bytes_per_step
     K, A = mods["K"], mods["A"]
     res = {}
     base = dict(DIST_TC, mode="adaptive")
     fixed = TrainConfig(**base, bit_plan=ADAPT_PLAN)
+    # the fixed log:6 wire's bytes a step at this cut (qadam's)
+    qadam_tc = TrainConfig(**DIST_TC)
+    fixed_log6 = comm_bytes_per_step(make_train_step(model, group, qadam_tc),
+                                     qadam_tc)["update_exchange_bytes"]
+    res["fixed_log6_bytes"] = fixed_log6
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3284,7 +3325,7 @@ def adaptive_train(torch, dev, mods, group, model, cfg):
                    exchange_bytes=e["comm"]["update_exchange_bytes"],
                    broadcast_bytes=e["comm"]["weight_broadcast_bytes"],
                    vs_log6=e["comm"]["update_exchange_bytes"]
-                   / FIXED_LOG6_EXCHANGE_BYTES) for e in ctl.plan_log],
+                   / fixed_log6) for e in ctl.plan_log],
                ema_snapshot=ctl.ema.snapshot().tolist())
 
     # each plan's steady step, the plan installed again (a capture)
@@ -3707,8 +3748,8 @@ MODE_RUNS = {
                 "unpack_rows": ("K", "unpack_launches")}),
 }
 # ef_sgd's update + exchange with the plain lane pack on the card, before
-# #9 (NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 5), printed beside
-# this run's as a finding, not a gate
+# #9, at the 8-layer cut (NVIDIA H100 80GB HBM3 at 700 W; PERF.md section
+# 5), printed beside this run's as a finding, not a gate
 EF_SGD_UPDATE_MS_PLAIN_PACK = 175.001
 # the equivalences: a baseline and qadam, bitwise at one worker
 MODE_EQUIV = (("dp_adam", dict(_ADAM, grad_k=None, weight_k=None,
@@ -3741,9 +3782,11 @@ def modes_train(torch, dev, mods, group, model, cfg):
         for kname, t in r["step_kernels"][:8]:
             print(f"  {t:9.4f} ms  {kname[:90]}")
         if name == "ef_sgd":
-            print(f"ef_sgd update+exchange through #9: "
+            print(f"ef_sgd update+exchange through #9 (the single pass, "
+                  f"yi-6b x {cfg.n_layers} layers): "
                   f"{r['phases_ms']['update_exchange']:.3f} ms a step (with "
-                  f"the plain lane pack on the card: "
+                  f"the plain lane pack on the card at the 8-layer cut, not "
+                  f"comparable at another depth: "
                   f"{EF_SGD_UPDATE_MS_PLAIN_PACK} ms); a finding, not a gate",
                   flush=True)
     out["equivalences"] = {}
@@ -6730,6 +6773,409 @@ def flash_path(torch, dev, FA):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase perf: the performance tooling (repro_torch.perf)
+# ---------------------------------------------------------------------------
+
+# K1's tuner shapes: yi-6b's w_gate and hymba-1.5b's in_proj at 4 rows,
+# int8 codes (k_x = 6)
+PERF_MM_SHAPES = (("yi-6b w_gate", 4, 4096, 11008),
+                  ("hymba-1.5b in_proj", 4, 1600, 6482))
+PERF_BUCKETS = (0, 1 << 20, 4 << 20, 16 << 20)
+PERF_BUCKET_STEPS = 8
+
+
+def perf_tuners(torch, dev, mods):
+    """(a) ``tune_mm_cols`` at PERF_MM_SHAPES, each installed plan held
+    in K1's tier against the plain version (then removed), and
+    ``tune_enc_rows`` with K7, #5 and K6 bitwise at every candidate."""
+    from repro_torch.comm import codec as CD
+    from repro_torch.perf import autotune as AT
+    MM, K = mods["MM"], mods["K"]
+    res = {"mm": [], "enc": {}}
+    for name, m, k, n in PERF_MM_SHAPES:
+        r = AT.tune_mm_cols(m=m, k=k, n=n, k_x=6, iters=20, install=True,
+                            device=dev)
+        x, codes, scale = AT.k1_operands(m, k, n, 6, dev, seed=3)
+        kw = dict(k_x=6, n=n, pack_bits=0, w_dtype="float32",
+                  cast_dtype="bfloat16")
+        tc0 = MM.launches_tc
+        got = MM.dequant_matmul(x, codes, scale, **kw)
+        if MM.launches_tc != tc0 + 1:
+            raise AssertionError(f"{name}: K1's tensor-core route did not "
+                                 "launch")
+        want = MM.dequant_matmul(x, codes, scale, backend="torch", **kw)
+        unit = k1_noise_unit(torch, MM, x, codes, scale, kw)
+        err = (got.float() - want.float()).abs()
+        over = (err - bf16_ulp(torch, want.float())).clamp_min(0) / unit
+        if not bool((err <= k1_tolerance(torch, want, unit)).all()):
+            raise AssertionError(f"{name}: the tuned K1 plan {r['best']} is "
+                                 f"outside K1's tier (beyond one ulp "
+                                 f"{float(over.max()):.3f} units)")
+        MM.set_mm_cols(None, key=r["key"])
+        res["mm"].append(dict(
+            name=name, m=m, k=k, n=n, best=list(r["best"]),
+            default=list(r["default"]),
+            ms={f"{t}x{sl}": v * 1e3 for (t, sl), v in
+                r["timings_s"].items()},
+            best_ms=r["timings_s"][r["best"]] * 1e3,
+            default_ms=r["timings_s"][r["default"]] * 1e3,
+            max_abs_err=float(err.max()),
+            over_ulp_units=float(over.max())))
+    r = AT.tune_enc_rows("log:6", numel=1 << 22, iters=10, install=False,
+                         device=dev)
+    res["enc"] = dict(ms={b: t * 1e3 for b, t in r["timings_s"].items()},
+                      best=r["best"])
+    # every blocks-an-SM value writes the default's bits
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = []
+    for spec in ("log:6", "uniform_amax:7:w8"):
+        codec = CD.get_codec(spec)
+        for n_rows, numel in ((1, 1000003), (3, 4096 * 37 + 5),
+                              (5, 11008 * 7 + 1)):
+            x = torch.randn(numel, generator=gen, device=dev)
+            cases.append((codec, n_rows, x))
+
+    def outputs():
+        out = []
+        for codec, n_rows, x in cases:
+            payload, scale = K.encode_rows(x, codec, n_rows)          # #5
+            e = torch.empty_like(x)
+            ef_payload, _ = K.ef_encode_rows(x, scale.reshape(1), codec,
+                                             n_rows, out=e)           # K7
+            c = -(-x.numel() // n_rows)
+            dec = K.decode_rows(payload, scale.reshape(1).expand(
+                n_rows).contiguous(), codec, c)                       # K6
+            out.append((payload, ef_payload, e, dec))
+        return out
+    base = outputs()
+    for b in AT.CANDIDATE_ROWS:
+        K.set_enc_rows(b)
+        try:
+            got = outputs()
+        finally:
+            K.set_enc_rows(None)
+        for (codec, n_rows, _), g, w in zip(cases, got, base):
+            if not all(bits_equal(torch, a, c) for a, c in zip(g, w)):
+                raise AssertionError(f"{codec.spec} n_rows={n_rows}: "
+                                     f"{b} blocks an SM changed a bit")
+    res["enc"]["bitwise_values"] = list(AT.CANDIDATE_ROWS)
+    return res
+
+
+def perf_trace(torch, dev, mods):
+    """(b) A ``perf.trace`` of yi-6b cut to 2 layers serving 4 requests
+    (its decode step one CUDA graph after the eager warm-up): the trace
+    file holds the scopes' names and K1's tensor-core kernel."""
+    import shutil
+    from repro_torch import perf
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve.quantized import quantize_params
+    from repro_torch.serve.session import Request, ServeSession
+    import numpy as np
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=2)
+    model = Model(cfg)
+    qparams = quantize_params(model.init(seed=0, device=dev), k_x=6)
+    rng = np.random.default_rng(2)
+    reqs = [Request(prompt=[int(t) for t in rng.integers(
+        1, cfg.vocab_size, size=32)], max_new_tokens=8) for _ in range(4)]
+    sess = ServeSession(model, qparams, slots=4, max_seq=64, paged=True,
+                        page_size=16, device=dev)
+    out = os.path.join(HERE, "build", "perf_trace")
+    shutil.rmtree(out, ignore_errors=True)
+    with perf.trace(out) as d:
+        with perf.annotate("perf:submit"):
+            handles = [sess.submit(r) for r in reqs]
+        with perf.annotate("perf:drain"):
+            results = sess.drain()
+        torch.cuda.synchronize()
+    runs = perf.profiling.trace_runs(d)
+    path = os.path.join(runs[-1], "trace.json")
+    text = open(path).read()
+    found = {k: k in text for k in ("perf:submit", "perf:drain",
+                                     "k1_tc_kernel")}
+    if not all(found.values()):
+        raise AssertionError(f"trace {path} lacks {found}")
+    tokens = sum(len(results[h].tokens) for h in handles)
+    return dict(trace_bytes=os.path.getsize(path), found=found,
+                tokens=tokens, stats=dict(sess.stats),
+                trace=os.path.relpath(path, HERE))
+
+
+def _serve_run(env, args):
+    """``launch.serve`` in a subprocess: (start-up s, stats, tokens)."""
+    import ast
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "yi-6b", "--smoke", "--quantized", "--paged", "--requests", "2",
+           "--max-new", "8"] + args
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=300, cwd=HERE)
+    wall = time.perf_counter() - t0
+    if out.returncode:
+        raise AssertionError(f"{' '.join(args)}: exit {out.returncode}\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    startup = stats = None
+    tokens = []
+    for line in out.stdout.splitlines():
+        if line.startswith("start-up "):
+            startup = float(line.split()[1].rstrip("s"))
+        if "stats={" in line:
+            stats = ast.literal_eval(line.split("stats=")[1].split("}")[0]
+                                     + "}")
+        if line.strip().startswith("req"):
+            tokens.append(line.split(":", 1)[1].split("[")[1]
+                          .split("]")[0])
+    return dict(startup_s=startup, wall_s=wall, stats=stats, tokens=tokens)
+
+
+def perf_warm_start(torch, dev, build):
+    """(c) The AOT warm start without the toolkit and the per-object
+    build cache."""
+    import shutil
+    aot_dir = os.path.join(HERE, "build", "perf_aot")
+    shutil.rmtree(aot_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    env.pop("REPRO_COMPILE_CACHE", None)
+    cold = _serve_run(env, ["--aot-dir", aot_dir])
+    if cold["stats"]["aot_saves"] != 1 or cold["stats"]["compilations"]:
+        raise AssertionError(f"first start: {cold['stats']} (want one "
+                             "save, the library from the build cache)")
+    # nvcc out of reach: no PATH entry holds it and CUDA_HOME is an
+    # empty directory (so build.nvcc_path's /usr/local/cuda default is
+    # not taken either)
+    empty = os.path.join(HERE, "build", "perf_no_toolkit")
+    os.makedirs(empty, exist_ok=True)
+    path = [p for p in env.get("PATH", "").split(os.pathsep)
+            if p and not os.path.exists(os.path.join(p, "nvcc"))]
+    bare = dict(env, PATH=os.pathsep.join(path), CUDA_HOME=empty)
+    import shutil as sh
+    if sh.which("nvcc", path=bare["PATH"]) or os.path.exists(
+            os.path.join(empty, "bin", "nvcc")):
+        raise AssertionError("nvcc is still reachable")
+    warm = _serve_run(bare, ["--no-compile-cache", "--aot-dir", aot_dir])
+    st = warm["stats"]
+    if (st["aot_loads"], st["compilations"]) != (1, 0):
+        raise AssertionError(f"warm start without nvcc: {st}")
+    if warm["tokens"] != cold["tokens"]:
+        raise AssertionError(f"tokens differ: {warm['tokens']} vs "
+                             f"{cold['tokens']}")
+    # one touched source: one object rebuilt, in a scratch cache seeded
+    # with the build's objects
+    scratch = Path(HERE) / "build" / "perf_one_object"
+    shutil.rmtree(scratch, ignore_errors=True)
+    src, cache = scratch / "csrc", scratch / "cache"
+    shutil.copytree(build.CSRC, src)
+    cache.mkdir(parents=True)
+    for o in Path(build.cache_dir()).glob("*.o"):
+        shutil.copy2(o, cache / o.name)
+    with open(src / "gather_pages.cu", "a") as f:
+        f.write("\n// touched\n")
+    t0 = time.perf_counter()
+    _, compiled, linked, _, _ = build.build_library(cache, csrc=src)
+    rebuild_s = time.perf_counter() - t0
+    if compiled != ["gather_pages.cu"] or not linked:
+        raise AssertionError(f"one touched source rebuilt {compiled} "
+                             f"(linked {linked})")
+    shutil.rmtree(scratch, ignore_errors=True)
+    return dict(cold=cold, warm=warm, rebuilt=compiled,
+                rebuild_s=rebuild_s, aot_files=sorted(os.listdir(aot_dir)))
+
+
+def perf_buckets(torch, dev, mods, group, model, cfg):
+    """(d) ``tune_exchange_buckets`` on phase 6's cut, losses and state
+    bitwise across sizes; then a ``scan_chunk`` session bitwise between
+    0 and 1 MiB buckets."""
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.dist.step import TrainConfig, make_train_step
+    from repro_torch.perf.autotune import tune_exchange_buckets
+    from repro_torch.train.session import (SessionConfig, TrainSession,
+                                           stage_batch)
+    tc = TrainConfig(**DIST_TC)
+    batch = stage_batch(next(batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                             seed=0)), dev)
+    # two sweeps, the second in the reverse order (a sweep's first
+    # candidate meets a cold allocator)
+    reps = [tune_exchange_buckets(
+        model, group, tc, batch, candidates=order,
+        steps=PERF_BUCKET_STEPS, warmup=1, device=dev,
+        state_digest=lambda st: [v for _, _, v in _fingerprint(torch, st)])
+        for order in (PERF_BUCKETS, PERF_BUCKETS[::-1])]
+    rep = reps[0]
+    base = rep["losses"][0]
+    for r in reps:
+        for b in r["losses"]:
+            if r["losses"][b] != base or r["digests"][b] != \
+                    rep["digests"][0]:
+                raise AssertionError(f"bucket {b}: losses {r['losses'][b]} "
+                                     f"vs {base}, or the state differs")
+    overlap = {}
+    for b, ov in rep["overlap"].items():
+        if not ov:
+            overlap[b] = "one pass after the backward"
+            continue
+        first = ov["buckets"][0]
+        overlap[b] = dict(buckets=len(ov["buckets"]),
+                          ran_from_hooks=ov["in_backward"],
+                          bytes_overlapped=ov["bytes_overlapped"],
+                          bytes_total=ov["bytes_total"],
+                          first_bytes=first["bytes"],
+                          first_backward_ms_left=round(
+                              first["backward_ms_left"], 3),
+                          ms_left=[round(r["backward_ms_left"], 3)
+                                   for r in ov["buckets"]])
+    # inside a CUDA graph: scan_chunk=2, 4 steps (one eager dispatch, one
+    # capture + replay), 0 against 1 MiB buckets
+    chunked = {}
+    for b in (0, 1 << 20):
+        art = make_train_step(model, group, dataclasses.replace(
+            tc, exchange_bucket_bytes=b))
+        sess = TrainSession.from_artifacts(
+            art, batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+            SessionConfig(log_every=2, scan_chunk=2, prefetch=0),
+            seed=0, device=dev, log=lambda *_: None)
+        try:
+            sess.run(4)
+            losses = [h["loss"] for h in sess.history if "loss" in h]
+            chunked[b] = (losses, [v for _, _, v in
+                                   _fingerprint(torch, sess.state)],
+                          dict(sess.stats))
+        finally:
+            sess.close()
+        del sess, art
+        torch.cuda.empty_cache()
+    if chunked[0][:2] != chunked[1 << 20][:2]:
+        raise AssertionError(f"scan_chunk graphs: buckets 0 and 1 MiB "
+                             f"differ: {chunked[0][0]} vs "
+                             f"{chunked[1 << 20][0]}")
+    ms = {b: [r["timings_s"][b] * 1e3 for r in reps] for b in PERF_BUCKETS}
+    steps_ms = {b: [t * 1e3 for r in reps for t in r["step_s"][b]]
+                for b in PERF_BUCKETS}
+    spread = {b: (min(v), max(v)) for b, v in steps_ms.items()}
+    mean = {b: sum(v) / len(v) for b, v in ms.items()}
+    best = min(mean, key=mean.get)
+    return dict(ms=ms, spread_ms=spread, best=best,
+                speedup=mean[tc.exchange_bucket_bytes]
+                / mean[best], speedup_vs_one_pass=mean[0] / mean[best],
+                buckets=rep["buckets"], losses=base, overlap=overlap,
+                chunked_losses=chunked[0][0],
+                chunked_stats=chunked[1 << 20][2])
+
+
+PERF_EXAMPLES = (
+    ("quickstart_torch.py", ["--steps", "20", "--chunk", "5"]),
+    ("serve_quantized_torch.py", []),
+    ("train_lm_distributed_torch.py", ["--steps", "20", "--seq", "64",
+                                       "--global-batch", "4",
+                                       "--layers", "2"]),
+)
+
+
+def perf_examples():
+    """(e) The three examples as subprocesses on the card, all started
+    together, each exiting 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    procs = []
+    for name, args in PERF_EXAMPLES:
+        procs.append((name, time.perf_counter(), subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "examples", name)] + args,
+            env=env, cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    res = {}
+    for name, t0, proc in procs:
+        try:
+            text, _ = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        if proc.returncode:
+            raise AssertionError(f"{name}: exit {proc.returncode}\n"
+                                 f"{text[-3000:]}")
+        res[name] = dict(s=time.perf_counter() - t0,
+                         last=text.strip().splitlines()[-1][:200])
+    return res
+
+
+def perf_phase(torch, dev, mods, build, model, cfg):
+    """Phase perf: (a)-(e) above, each part's seconds."""
+    from repro_torch.launch.mesh import close_process_group, make_process_group
+    res, secs = {}, {}
+    t = time.perf_counter()
+    res["tuners"] = perf_tuners(torch, dev, mods)
+    secs["a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["trace"] = perf_trace(torch, dev, mods)
+    secs["b"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    res["warm_start"] = perf_warm_start(torch, dev, build)
+    secs["c"] = time.perf_counter() - t
+    t = time.perf_counter()
+    group = make_process_group("cuda")
+    try:
+        res["buckets"] = perf_buckets(torch, dev, mods, group, model, cfg)
+    finally:
+        close_process_group()
+    secs["d"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    res["examples"] = perf_examples()
+    secs["e"] = time.perf_counter() - t
+    res["seconds"] = secs
+    return res
+
+
+def print_perf(pf, card):
+    t = pf["tuners"]
+    for r in t["mm"]:
+        print(f"perf (a) tune_mm_cols {r['name']} (M {r['m']}, K {r['k']}, "
+              f"N {r['n']}, int8): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in r["ms"].items())
+              + f" ms (tile_n x slices); k1_plan's {r['default']} "
+              f"{r['default_ms']:.4f} ms, tuned {r['best']} "
+              f"{r['best_ms']:.4f} ms; max abs err {r['max_abs_err']:.3e} "
+              f"vs the plain version, beyond one ulp "
+              f"{r['over_ulp_units']:.3f} units (floor {K1_FLOOR:g})",
+              flush=True)
+    e = t["enc"]
+    print(f"perf (a) tune_enc_rows log:6 round trip (#5 + K6, 2^22): "
+          + ", ".join(f"{b} {v:.4f}" for b, v in e["ms"].items())
+          + f" ms by blocks an SM, best {e['best']}; K7, #5 and K6 "
+          f"bitwise at {e['bitwise_values']}", flush=True)
+    tr = pf["trace"]
+    print(f"perf (b) trace {tr['trace']} ({tr['trace_bytes']} B): "
+          f"{tr['found']}; {tr['tokens']} tokens; stats {tr['stats']}",
+          flush=True)
+    w = pf["warm_start"]
+    print(f"perf (c) warm start: first start-up {w['cold']['startup_s']}"
+          f" s (wall {w['cold']['wall_s']:.1f} s, stats "
+          f"{w['cold']['stats']}); without nvcc {w['warm']['startup_s']} s "
+          f"(wall {w['warm']['wall_s']:.1f} s, stats {w['warm']['stats']});"
+          f" tokens equal; touched gather_pages.cu: rebuilt {w['rebuilt']} "
+          f"in {w['rebuild_s']:.1f} s; card {card}", flush=True)
+    b = pf["buckets"]
+    print(f"perf (d) exchange buckets (yi-6b x {TRAIN_LAYERS} layers, one "
+          f"NCCL rank, {PERF_BUCKET_STEPS} steps each timed by CUDA events, "
+          f"a sweep and its reverse; mean / mean, least-most step): "
+          + ", ".join(
+              f"{k} B {v[0]:.2f} / {v[1]:.2f} ms, {b['spread_ms'][k][0]:.2f}"
+              f"-{b['spread_ms'][k][1]:.2f} ({b['buckets'][k]} buckets)"
+              for k, v in b["ms"].items())
+          + f"; best {b['best']} (the default's time over the best's "
+          f"{b['speedup']:.3f}, one pass's over the best's "
+          f"{b['speedup_vs_one_pass']:.3f}); losses and "
+          f"state bitwise across sizes ({b['losses']}); overlap "
+          f"{b['overlap']}; scan_chunk=2 graphs bitwise 0 vs 1 MiB "
+          f"(losses {b['chunked_losses']}, stats {b['chunked_stats']})",
+          flush=True)
+    for name, r in pf["examples"].items():
+        print(f"perf (e) {name}: exit 0 in {r['s']:.1f} s: {r['last']}",
+              flush=True)
+    print("perf seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in pf["seconds"].items()), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6981,14 +7427,17 @@ def main() -> int:
     group = make_process_group("cuda")    # one NCCL rank, a local store
     try:
         ds = timed("6", dist_train, torch, dev, mods, group, model8, cfg8)
-        md = timed("7", modes_train, torch, dev, mods, group, model8, cfg8)
+        cfg_cut = dataclasses.replace(cfg8, n_layers=CUT_LAYERS)
+        model_cut = Model(cfg_cut)
+        md = timed("7", modes_train, torch, dev, mods, group, model_cut,
+                   cfg_cut)
         torch.cuda.empty_cache()
         cfg_ck = dataclasses.replace(cfg8, n_layers=CKPT_LAYERS)
         ck = timed("6b", ckpt_resume, torch, dev, mods, group,
                    Model(cfg_ck), cfg_ck)
         lv = timed("6c", llava_train, torch, dev, mods, group)
-        a6 = timed("6d", adaptive_train, torch, dev, mods, group, model8,
-                   cfg8)
+        a6 = timed("6d", adaptive_train, torch, dev, mods, group, model_cut,
+                   cfg_cut)
         torch.cuda.empty_cache()
         h6 = timed("6e", hier_train, torch, dev, mods)
         f6 = timed("6f", moe_train, torch, dev, mods, group)
@@ -7027,6 +7476,9 @@ def main() -> int:
     for e in pa["plan_log"]:
         print(f"  plan @{e['step']}: {e['plan']} "
               f"({e['bytes_per_step']} B/step)", flush=True)
+    perf_res = timed("perf", perf_phase, torch, dev, dict(mods, MM=MM),
+                     build, model8, cfg8)
+    print_perf(perf_res, card)
     rows += t_rows + w_rows + dl_rows + e_rows + s_rows
     for r in rows:
         by_path = {"serve": res["launches"].get(r["name"], 0),
@@ -7256,7 +7708,7 @@ def main() -> int:
           f"bitwise step by step, stats {ck['chunk_stats']}; free disk "
           f"{ck['free_disk_bytes']} B", flush=True)
 
-    print(f"adaptive (6d, yi-6b x {TRAIN_LAYERS} layers, one NCCL rank): "
+    print(f"adaptive (6d, yi-6b x {CUT_LAYERS} layers, one NCCL rank): "
           f"fixed plan {ADAPT_FIXED_STEPS} steps bitwise its plain run "
           f"(losses {', '.join(f'{x:.4f}' for x in a6['fixed_losses'])}), "
           f"accounting exact ({a6['fixed_accounting']['measured']} B); "
@@ -7271,7 +7723,7 @@ def main() -> int:
     for p, q in zip(a6["plans"], a6["per_plan"]):
         print(f"  plan @{p['step']}: exchange {p['exchange_bytes']} B/step "
               f"({p['vs_log6']:.4f} of log:6's "
-              f"{FIXED_LOG6_EXCHANGE_BYTES}); step wall "
+              f"{a6['fixed_log6_bytes']}); step wall "
               f"{q['step_wall_ms']:.3f} ms, device {q['step_device_ms']:.3f} "
               f"ms (idle {q['device_idle']:.1%}); revisited: capture "
               f"{q['revisit_capture_s']} s, first dispatch "
@@ -7397,7 +7849,7 @@ def main() -> int:
                        ssm_shapes=ssm_table, serve_mamba2=m2,
                        serve_hymba=hy, train_ssm=g6,
                        encdec_shapes=encdec_table, serve_whisper=wh,
-                       train_whisper=w6, serve_mesh=so,
+                       train_whisper=w6, serve_mesh=so, perf=perf_res,
                        phase_s=phase_s),
                   fh, indent=1)
     print("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in

@@ -38,6 +38,7 @@ import torch
 from repro_torch import build
 from repro_torch.comm import bits as B
 from repro_torch.comm.codec import resolve_backend
+from repro_torch.kernels.meta import charged
 from repro_torch.opt import grids
 
 amax_launches = 0          # K3 kernel launches
@@ -94,6 +95,7 @@ def _amax_rows_cuda(x2d: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@charged("K3 amax_rows")
 def amax_rows(x2d: torch.Tensor, backend: Optional[str] = None) -> torch.Tensor:
     """max|x| of every row of a (rows, n) float32 tensor -> (rows,)."""
     global plain_on_cuda
@@ -125,6 +127,7 @@ def _uniform_quantize_cuda(x2d, scale, k_x):
     return codes
 
 
+@charged("K4 uniform_quantize_rows")
 def uniform_quantize_rows(x2d: torch.Tensor, scale: torch.Tensor, k_x: int,
                           backend: Optional[str] = None) -> torch.Tensor:
     """Uniform Q_x codes of a (rows, n) float32 tensor against one scale
@@ -158,6 +161,7 @@ def _uniform_dequantize_cuda(codes2d, scale, k_x):
     return out
 
 
+@charged("K12 uniform_dequantize_rows")
 def uniform_dequantize_rows(codes2d: torch.Tensor, scale: torch.Tensor,
                             k_x: int, backend: Optional[str] = None
                             ) -> torch.Tensor:
@@ -193,6 +197,7 @@ def _log_dequantize_cuda(codes, scale, k_g):
     return out
 
 
+@charged("K11 log_dequantize")
 def log_dequantize(codes: torch.Tensor, scale: torch.Tensor, k_g: int,
                    backend: Optional[str] = None) -> torch.Tensor:
     """Q_g decode: int8 log-grid codes of any shape and one float32
@@ -231,6 +236,7 @@ def _log_quantize_cuda(x, scale, k_g):
     return codes
 
 
+@charged("#10 log_quantize")
 def log_quantize(x: torch.Tensor, scale: torch.Tensor, k_g: int,
                  backend: Optional[str] = None) -> torch.Tensor:
     """#10: int8 log-grid codes of float32 x (any shape) against one
@@ -263,6 +269,7 @@ def _ternary_quantize_cuda(x, u, scale):
     return codes
 
 
+@charged("#13 ternary_quantize")
 def ternary_quantize(x: torch.Tensor, u: torch.Tensor, scale: torch.Tensor,
                      backend: Optional[str] = None) -> torch.Tensor:
     """#13: TernGrad's int8 codes ``sign(x) * [u < |x| / max(s, 1e-30)]``
@@ -293,6 +300,7 @@ def _check_lane(bits: int) -> None:
         raise ValueError(f"lane width {bits} not in {B.SUPPORTED_BITS}")
 
 
+@charged("#9 pack_rows")
 def pack_rows(codes_rows: torch.Tensor, bits: int,
               backend: Optional[str] = None) -> torch.Tensor:
     """#9: (R, c) signed codes (int8 or int16) -> (R,
@@ -325,6 +333,7 @@ def pack_rows(codes_rows: torch.Tensor, bits: int,
     return B.pack_rows(codes_rows, bits)
 
 
+@charged("#9 unpack_rows")
 def unpack_rows(payload_rows: torch.Tensor, bits: int, c: int,
                 backend: Optional[str] = None) -> torch.Tensor:
     """#9: (R, ``payload_nbytes(c, bits)``) uint8 -> (R, c) codes, int8
@@ -400,6 +409,29 @@ def _check_flat_x(x: torch.Tensor, n_rows: int) -> None:
         raise ValueError(f"n_rows={n_rows} outside [1, 65535] or empty x")
 
 
+# K7, #5 and K6's grid: blocks an SM (csrc/codec.cu ``chunk_blocks``), a
+# launch geometry that changes no output bit; ``perf.autotune
+# .tune_enc_rows`` times the candidates and installs one (the reference's
+# tile rows, per backend: the card's only here)
+ENC_ROWS = 8
+_ENC_ROWS_OVERRIDE: dict = {}
+
+
+def set_enc_rows(blocks: Optional[int], backend: str = "cuda") -> None:
+    """Install K7/#5/K6's blocks an SM (None: back to ``ENC_ROWS``)."""
+    if blocks is None:
+        _ENC_ROWS_OVERRIDE.pop(backend, None)
+        return
+    if not 1 <= int(blocks) <= 32:
+        raise ValueError(f"blocks an SM {blocks} outside [1, 32]")
+    _ENC_ROWS_OVERRIDE[backend] = int(blocks)
+
+
+def enc_rows(backend: str = "cuda") -> int:
+    """K7/#5/K6's blocks an SM: the installed override, else ENC_ROWS."""
+    return _ENC_ROWS_OVERRIDE.get(backend, ENC_ROWS)
+
+
 def _log_tables(codec, device):
     """(grid, levels, half) pointers of a log codec's tables on
     ``device`` for the encode kernels; nulls for the other kinds."""
@@ -431,7 +463,7 @@ def _ef_encode_rows_cuda(flat, scale, codec, n_rows, e_new):
     err = lib.rt_ef_encode_rows(
         build.ptr(flat), build.ptr(scale), build.ptr(payload),
         build.ptr(e_new), n, n_rows, c, row_bytes, _KINDS[codec.kind],
-        codec.bits, codec.k, clip or 0, grid, table, half,
+        codec.bits, codec.k, clip or 0, grid, table, half, enc_rows(),
         build.stream_ptr(flat.device))
     build.check(err, "ef_encode_rows")
     if codec.kind == "log":
@@ -442,6 +474,7 @@ def _ef_encode_rows_cuda(flat, scale, codec, n_rows, e_new):
     return payload
 
 
+@charged("K7 ef_encode_rows")
 def ef_encode_rows(x: torch.Tensor, scale: torch.Tensor, codec,
                    n_rows: int, backend: Optional[str] = None, out=None):
     """K7: quantize x (float32, any shape, read flat) against one scale
@@ -511,7 +544,7 @@ def _encode_rows_cuda(flat, codec, n_rows, u):
         build.ptr(flat), None if u is None else build.ptr(u),
         build.ptr(scale_in), guard, scale_out, build.ptr(payload), n, n_rows,
         c, row_bytes, _KINDS[codec.kind], codec.bits, codec.k,
-        codec.clip_abs or 0, grid, table, half,
+        codec.clip_abs or 0, grid, table, half, enc_rows(),
         build.stream_ptr(flat.device))
     build.check(err, "encode_rows")
     if codec.kind == "log":
@@ -524,6 +557,7 @@ def _encode_rows_cuda(flat, codec, n_rows, u):
     return payload, scale
 
 
+@charged("#5 encode_rows")
 def encode_rows(x: torch.Tensor, codec, n_rows: int,
                 u: Optional[torch.Tensor] = None,
                 backend: Optional[str] = None):
@@ -569,7 +603,7 @@ def _decode_rows_cuda(payload_rows, scales, codec, c, out):
     err = lib.rt_decode_rows(
         build.ptr(payload_rows), build.ptr(scales), build.ptr(table), half,
         build.ptr(out), out.numel(), n_rows, c, row_bytes,
-        _KINDS[codec.kind], codec.bits, codec.k,
+        _KINDS[codec.kind], codec.bits, codec.k, enc_rows(),
         build.stream_ptr(payload_rows.device))
     build.check(err, "decode_rows")
     if codec.kind == "log":
@@ -582,6 +616,7 @@ def _decode_rows_cuda(payload_rows, scales, codec, c, out):
     return out
 
 
+@charged("K6 decode_rows")
 def decode_rows(payload_rows: torch.Tensor, scales: torch.Tensor, codec,
                 c: int, backend: Optional[str] = None, out=None):
     """K6: unpack ``(n_rows, codec.payload_nbytes(c))`` uint8 payload
@@ -649,6 +684,7 @@ def _blockwise_args(x: torch.Tensor, block: int, backend):
     return flat, -(-flat.numel() // block), bk
 
 
+@charged("#14 blockwise_quantize")
 def blockwise_quantize(x: torch.Tensor, block: int = BLOCK,
                        backend: Optional[str] = None):
     """#14: sign codes and per-block mean |x| over flat blocks of
@@ -672,6 +708,7 @@ def blockwise_quantize(x: torch.Tensor, block: int = BLOCK,
     return grids.blockwise_quantize(_blocks(flat, block))
 
 
+@charged("#8 blockwise_encode")
 def blockwise_encode(x: torch.Tensor, block: int = BLOCK,
                      backend: Optional[str] = None):
     """#8: #14's codes packed to 2-bit lanes in one pass: float32 x (any

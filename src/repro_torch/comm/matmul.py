@@ -52,6 +52,7 @@ import torch
 from repro_torch import build
 from repro_torch.comm import bits as B
 from repro_torch.comm.codec import resolve_backend
+from repro_torch.kernels.meta import charged
 from repro_torch.opt import grids
 
 launches = 0        # K1 launches, either route
@@ -144,6 +145,43 @@ class K1Plan:
         return self.grid[0] * self.grid[1] * self.grid[2]
 
 
+# tuned tensor-core plans (``perf.autotune.tune_mm_cols``): (row tile, K,
+# N, code bits) -> (tile_n, K slices). A launch geometry: a different
+# slice count changes the fp32 sum order, so a tuned K1 is held to K1's
+# tolerance, not bitwise. Install before any graph capture.
+_MM_COLS_OVERRIDE: dict = {}
+
+
+def mm_key(M: int, K: int, N: int, code_bits: int) -> tuple:
+    """The key a tuned plan is installed under: K1's row tile for M, K,
+    N and the code width."""
+    return (16 if M <= 16 else 32 if M <= 32 else TC_TILE_M, int(K),
+            int(N), int(code_bits))
+
+
+def set_mm_cols(value: Optional[Tuple[int, int]], *, key: tuple) -> None:
+    """Install ``(tile_n, slices)`` as K1's tensor-core plan for ``key``
+    (:func:`mm_key`), or remove the override with None."""
+    if value is None:
+        _MM_COLS_OVERRIDE.pop(key, None)
+        return
+    tile_n, slices = (int(v) for v in value)
+    if tile_n not in TC_TILE_N or not 1 <= slices <= TC_MAX_SLICES:
+        raise ValueError(f"tile_n {tile_n} not in {TC_TILE_N} or slices "
+                         f"{slices} outside [1, {TC_MAX_SLICES}]")
+    _MM_COLS_OVERRIDE[key] = (tile_n, slices)
+
+
+def _plan_of(M, K, N, m_tile, tile_n, slices) -> K1Plan:
+    units = -(-K // TC_SLICE_ROWS)
+    per = -(-units // max(1, min(slices, units)))
+    s_eff = -(-units // per)
+    return K1Plan(m_tile=m_tile, tile_n=tile_n,
+                  grid=(-(-N // tile_n), -(-M // m_tile), s_eff), k=K,
+                  k_slice=per * TC_SLICE_ROWS,
+                  workspace=s_eff * M * N if s_eff > 1 else 0)
+
+
 def k1_plan(M: int, K: int, N: int, code_bits: int) -> K1Plan:
     """The tensor-core route's grid, a pure function of the shapes and the
     code width (2, 3, 4, 6, 8 or 16 bits; a stage holds
@@ -154,11 +192,15 @@ def k1_plan(M: int, K: int, N: int, code_bits: int) -> K1Plan:
     folds in slice order. The count minimizes the waves of blocks over
     the SMs times a block's stages plus its fixed cost, plus the
     workspace's traffic, among the counts that give at least one block an
-    SM where K allows."""
+    SM where K allows. A plan that :func:`set_mm_cols` installed for
+    these shapes takes precedence."""
     if code_bits not in TC_CODE_BITS or min(M, K, N) <= 0:
         raise ValueError(f"no tensor-core plan for M={M} K={K} N={N} "
                          f"{code_bits}-bit codes")
     m_tile = 16 if M <= 16 else 32 if M <= 32 else TC_TILE_M
+    tuned = _MM_COLS_OVERRIDE.get(mm_key(M, K, N, code_bits))
+    if tuned is not None:     # a plan tune_mm_cols installed
+        return _plan_of(M, K, N, m_tile, *tuned)
     # 256 columns (wider rows of codes a copy) where that still gives a
     # quarter of the SMs a column tile each
     tile_n = TC_TILE_N[1] if -(-N // TC_TILE_N[1]) >= SMS // 4 \
@@ -380,6 +422,15 @@ def _matmul_cuda(x2, codes, scale, *, k_x, n, pack_bits, w_dtype,
     return out
 
 
+def _flops(x, codes, scale, *, n, transpose=False, **_):
+    """2 M K N: K1's (``x @ W``) or K1t's (``x @ W.T``) products (the
+    dry run's operation count)."""
+    M = x.numel() // x.shape[-1]
+    other = codes.shape[0] if transpose else n
+    return 2.0 * M * x.shape[-1] * other
+
+
+@charged("K1 dequant_matmul", flops=_flops)
 def dequant_matmul(x, codes, scale, *, k_x: int, n: int, pack_bits: int = 0,
                    w_dtype: str = "float32", cast_dtype: Optional[str] = None,
                    transpose: bool = False,

@@ -168,6 +168,7 @@ struct Encode {
   const float* table;    // log: the lane's levels (log_dequant_table)
   long long n, c, row_bytes;
   int n_rows, k, clip_abs, guard, half;
+  int blocks_per_sm;     // the grid's blocks an SM (a launch geometry)
 };
 
 // ---------------------------------------------------------------------------
@@ -503,6 +504,7 @@ struct DecodeArgs {
   long long rows;    // rows that reach out_n
   long long cpr;     // chunks a row
   int half, k;
+  int blocks_per_sm;
 };
 
 template <int KIND>
@@ -640,12 +642,14 @@ int sm_count() {
   return sms;
 }
 
-// K7, #5 and K6 alike: a grid of whole SMs (8 blocks of 256 threads
-// each), fewer where the chunks are fewer; warps walk the chunks with a
-// grid stride
-unsigned int chunk_blocks(long long chunks) {
-  return (unsigned int)std::min<long long>((chunks + kWarps - 1) / kWarps,
-                                           (long long)sm_count() * 8);
+// K7, #5 and K6 alike: a grid of whole SMs (blocks_per_sm blocks of 256
+// threads each, 8 by default, a run-time argument the codec tuner
+// sweeps), fewer where the chunks are fewer; warps walk the chunks with
+// a grid stride, so every grid writes the same bits
+unsigned int chunk_blocks(long long chunks, int blocks_per_sm) {
+  return (unsigned int)std::min<long long>(
+      (chunks + kWarps - 1) / kWarps,
+      (long long)sm_count() * blocks_per_sm);
 }
 
 template <int BITS, int KIND, bool EF>
@@ -655,7 +659,7 @@ int launch_encode(const Encode& a, cudaStream_t stream) {
   const long long chunks =
       a.n_rows * (1 + (c_pad + kEncCodes - 1) / kEncCodes);
   encode_kernel<BITS, KIND, EF>
-      <<<chunk_blocks(chunks), kThreads, 0, stream>>>(a);
+      <<<chunk_blocks(chunks, a.blocks_per_sm), kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -673,7 +677,8 @@ template <int BITS, int KIND>
 int launch_decode(const DecodeArgs& a, cudaStream_t stream) {
   if (sm_count() < 1) return (int)cudaErrorInvalidDevice;
   decode_kernel<BITS, KIND>
-      <<<chunk_blocks(a.rows * a.cpr), kThreads, 0, stream>>>(a);
+      <<<chunk_blocks(a.rows * a.cpr, a.blocks_per_sm), kThreads, 0,
+         stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -697,7 +702,8 @@ bool valid_geometry(int kind, int bits, int n_rows, long long c,
 
 int encode_rows(const Encode& a, int kind, int bits, bool ef,
                 cudaStream_t st) {
-  if (!valid_geometry(kind, bits, a.n_rows, a.c, a.row_bytes, a.k))
+  if (!valid_geometry(kind, bits, a.n_rows, a.c, a.row_bytes, a.k) ||
+      a.blocks_per_sm < 1 || a.blocks_per_sm > 32)
     return (int)cudaErrorInvalidValue;
   // the chunks' 16-byte payload vectors are found from the rows' offsets
   if ((uintptr_t)a.payload & 15) return (int)cudaErrorInvalidValue;
@@ -719,11 +725,11 @@ extern "C" int rt_ef_encode_rows(const void* x, const void* scale,
                                  int n_rows, long long c, long long row_bytes,
                                  int kind, int bits, int k, int clip_abs,
                                  const void* grid, const void* table, int half,
-                                 void* stream) {
+                                 int blocks_per_sm, void* stream) {
   const Encode a{(const float*)x, nullptr, (const float*)scale, nullptr,
                  (uint8_t*)payload, (float*)e_out, (const float*)grid,
                  (const float*)table, n, c, row_bytes, n_rows, k, clip_abs,
-                 0, half};
+                 0, half, blocks_per_sm};
   return encode_rows(a, kind, bits, true, (cudaStream_t)stream);
 }
 
@@ -732,12 +738,13 @@ extern "C" int rt_encode_rows(const void* x, const void* u, const void* scale,
                               long long n, int n_rows, long long c,
                               long long row_bytes, int kind, int bits, int k,
                               int clip_abs, const void* grid,
-                              const void* table, int half, void* stream) {
+                              const void* table, int half, int blocks_per_sm,
+                              void* stream) {
   if (kind == kTernary && u == nullptr) return (int)cudaErrorInvalidValue;
   const Encode a{(const float*)x, (const float*)u, (const float*)scale,
                  (float*)scale_out, (uint8_t*)payload, nullptr,
                  (const float*)grid, (const float*)table, n, c, row_bytes,
-                 n_rows, k, clip_abs, guard, half};
+                 n_rows, k, clip_abs, guard, half, blocks_per_sm};
   return encode_rows(a, kind, bits, false, (cudaStream_t)stream);
 }
 
@@ -745,8 +752,9 @@ extern "C" int rt_decode_rows(const void* payload, const void* scales,
                               const void* table, int half, void* out,
                               long long out_n, int n_rows, long long c,
                               long long row_bytes, int kind, int bits, int k,
-                              void* stream) {
-  if (!valid_geometry(kind, bits, n_rows, c, row_bytes, k))
+                              int blocks_per_sm, void* stream) {
+  if (!valid_geometry(kind, bits, n_rows, c, row_bytes, k) ||
+      blocks_per_sm < 1 || blocks_per_sm > 32)
     return (int)cudaErrorInvalidValue;
   if (kind == kLog && (half < 1 || 2 * half > kMaxTable))
     return (int)cudaErrorInvalidValue;
@@ -763,6 +771,7 @@ extern "C" int rt_decode_rows(const void* payload, const void* scales,
   a.cpr = 1;
   a.half = half;
   a.k = k;
+  a.blocks_per_sm = blocks_per_sm;
   cudaStream_t st = (cudaStream_t)stream;
 #define CASE(B) \
   if (bits == B) return launch_decode_kind<B>(a, kind, st);

@@ -50,12 +50,35 @@ sequence is split over the model shards when it divides by their number
 (shard m takes positions [m*S/Nm, (m+1)*S/Nm)), else every shard takes
 all of it.
 
-The reference's exchange buckets are XLA scheduling fences that change
-no number; the overlap of the exchange with the backward they allow is
-queued in ROADMAP.md.
+Exchange buckets (``TrainConfig.exchange_bucket_bytes``, the
+reference's per-bucket gradient fences; :func:`_exchange_buckets`): the
+leaves are grouped, in the reference's leaf order, into buckets of about
+that many exchange payload bytes, and each bucket's update and exchange
+(steps 3 and 4) is launched from a gradient hook as soon as every leaf
+of the bucket has its gradient, while the backward goes on. On the card
+the bucket runs on a side stream that forks from the backward's stream
+at the hook and joins the step's stream (event waits, which a CUDA graph
+captures) once the backward ends, before the loss's all-reduce, so no
+two streams carry collectives after the backward; on the CPU it runs in
+the hook.
+No number changes: each leaf's update is the same computation on the
+same gradient, whenever it runs. A leaf stacked over layers, ``(L,
+...)``, has its gradient only once the backward reaches layer 0, so the
+leaves that can overlap the backward are those outside the stack (the
+head, the final norm); a bucket holding a leaf that gets no gradient
+runs after the backward. ``<= 0`` keeps one pass after the backward.
+The buckets' updates take no phase marks: they run inside the backward,
+so a bucketed step marks "broadcast" and "forward_backward" (the
+backward with the updates and exchanges it overlapped) alone, and the
+per-leaf "update_exchange" / "master_update" marks come from the single
+pass. At ``Nm > 1`` the model axis's all-reduces (the step's stream) and
+a bucket's exchange (the side stream) are issued on two streams during
+the backward, in one order on every rank; NCCL has run them on one rank
+only.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
@@ -102,6 +125,10 @@ class TrainConfig:
     # kernels' implementation: "cuda" | "torch" (the plain versions) |
     # None = by the tensors' device
     backend: Optional[str] = None
+    # update-exchange buckets of about this many exchange payload bytes,
+    # each launched from a gradient hook as soon as its leaves have their
+    # gradients; <= 0: one pass after the whole backward
+    exchange_bucket_bytes: int = 4 << 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,6 +200,51 @@ class StepArtifacts(NamedTuple):
     # the process grid (launch.mesh.Grid): its model axis and the group
     # over every rank
     grid: Any = None
+    # the exchange buckets (lists of leaf indices in layout order, in the
+    # reference's bucket order), and what the last bucketed step saw:
+    # {"order": buckets in the order they ran, "in_backward": how many
+    # ran from a gradient hook, "bytes": exchange bytes each}; with
+    # overlap["timing"] set (eager steps on the card, not in a graph
+    # capture) also "events": a CUDA event on the backward's stream at
+    # each bucket's launch and one at the backward's end
+    buckets: Any = None
+    overlap: Any = None
+
+
+def _exchange_buckets(metas_flat, mode, tc, n_workers, tiers=None):
+    """Group consecutive leaves into wire buckets of about
+    ``tc.exchange_bucket_bytes`` payload each (``metas_flat`` in the
+    reference's leaf order, which ``mode.leaf_tier_nbytes`` keys on):
+    the reference's buckets for the same layout, mode, topology and
+    worker count. ``<= 0`` collapses to one whole-tree bucket. Bucket
+    fill counts the payload that crosses the exchange (inter) tier, so
+    hierarchical topologies pack ~``devices_per_node`` times more leaves
+    a bucket."""
+    if tc.exchange_bucket_bytes <= 0 or len(metas_flat) <= 1:
+        return [list(range(len(metas_flat)))]
+    buckets, cur, cur_bytes = [], [], 0
+    for i, meta in enumerate(metas_flat):
+        cur.append(i)
+        cur_bytes += mode.leaf_tier_nbytes(tc, i, meta.c, meta.numel,
+                                           n_workers, tiers)["inter"]
+        if cur_bytes >= tc.exchange_bucket_bytes:
+            buckets.append(cur)
+            cur, cur_bytes = [], 0
+    if cur:
+        buckets.append(cur)
+    return buckets
+
+
+_SIDE_STREAMS: Dict[int, Any] = {}
+
+
+def _side_stream(device):
+    """The exchange buckets' side stream of a card (one a device)."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _SIDE_STREAMS:
+        _SIDE_STREAMS[idx] = torch.cuda.Stream(device=idx)
+    return _SIDE_STREAMS[idx]
 
 
 def weight_wire_codec(tc: TrainConfig, numel: int):
@@ -331,6 +403,15 @@ def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
         quant_k=tc.model_gather_quant, quant_absolute=False,
         quant_min_numel=2 ** 14, backend=tc.backend) for cp in (False, True)}
     replicated = [m.dim == SH.REPLICATED for m in metas_flat]
+    # buckets over the reference's leaf order, as layout indices
+    ref_order = sorted(range(len(metas_flat)), key=draw_index.__getitem__)
+    buckets = [[ref_order[j] for j in b] for b in _exchange_buckets(
+        [metas_flat[i] for i in ref_order], mode, tc, n_workers, tiers)]
+    bucket_bytes = [sum(mode.leaf_tier_nbytes(
+        tc, draw_index[i], metas_flat[i].c, metas_flat[i].numel, n_workers,
+        tiers)["inter"] for i in b) for b in buckets]
+    hooked = tc.exchange_bucket_bytes > 0 and len(buckets) > 1
+    overlap: Dict[str, Any] = {}
 
     def flat(tree):
         """A state tree's leaves in the layout's order."""
@@ -359,7 +440,10 @@ def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
     def init_state(seed: int = 0, device="cuda"):
         """Rank ``rank``'s state for ``model.init(seed=seed)``: its master
         chunks, zero moments, residuals and extra leaves, count 0."""
-        leaves = tree_leaves(model.init(seed=seed, device=device))
+        # the meta device (the dry run) takes no generator of its own
+        gen = torch.Generator() if torch.device(device).type == "meta" \
+            else None
+        leaves = tree_leaves(model.init(gen, seed=seed, device=device))
         master = []
         for i, meta in enumerate(metas_flat):
             p = SH.shard_of(leaves[i].to(torch.float32), meta.dim,
@@ -413,7 +497,7 @@ def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
         return [chunks_to_shard(ch, m, es) for ch, m, es in
                 zip(chunks, metas_flat, flat(state["es"]))]
 
-    def loss_and_grads(xs, batch):
+    def loss_and_grads(xs, batch, hook=None, after=None):
         """2. forward/backward at Q_x(x_t) on this rank's part of the
         batch: the gradients of its worker's mean loss on its model
         shards, and the global loss sum(s) / sum(n) over every rank (a
@@ -430,7 +514,13 @@ def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
         experts' owner, so each local expert leaf takes the gradient of
         the whole worker's loss through it, divided by psum(n), which
         is what ``jax.grad`` gives in the reference's ``cp_equiv`` run;
-        they take no all-reduce."""
+        they take no all-reduce.
+
+        ``hook(i, g)``, when given, is called from the backward with leaf
+        i's gradient as soon as it exists (its model-axis sum included
+        where the leaf is replicated), and ``after(grads)`` once the
+        backward ends, before the loss's all-reduce; the gradients are
+        returned all the same."""
         xs = [x.detach().requires_grad_() for x in xs]
         cp = _batch_geometry(batch, n_shards)
         mine = shard_batch(batch, rank, n_workers, shard, n_shards)
@@ -448,17 +538,29 @@ def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
                 # the worker's count over its model shards; the gathers'
                 # reduce-scatter sums the shards' gradients
                 den = C.all_reduce(n.detach().clone(), grid.model)
-            grads = list(torch.autograd.grad(s / den, xs,
-                                             allow_unused=True))
-        if n_shards > 1:
-            # whole leaves take no gather: their gradient misses the
-            # reduce-scatter's sum over the model shards
-            for i, g in enumerate(grads):
-                if replicated[i] and g is not None:
-                    C.all_reduce(g, grid.model)
+            handles = [] if hook is None else [
+                x.register_hook(lambda g, i=i: hook(i, model_sum(i, g)))
+                for i, x in enumerate(xs)]
+            try:
+                grads = list(torch.autograd.grad(s / den, xs,
+                                                 allow_unused=True))
+            finally:
+                for h in handles:
+                    h.remove()
+        if hook is None:
+            grads = [model_sum(i, g) for i, g in enumerate(grads)]
+        if after is not None:
+            after(grads)
         sn = torch.stack([s.detach(), n.detach().to(torch.float32)])
         C.all_reduce(sn, grid.world)
         return sn[0] / sn[1], grads
+
+    def model_sum(i, g):
+        """Whole leaves take no gather: their gradient misses the
+        reduce-scatter's sum over the model shards, summed here."""
+        if n_shards > 1 and replicated[i] and g is not None:
+            C.all_reduce(g, grid.model)
+        return g
 
     def update(state, grads, mark: Optional[Callable] = None, hp=None):
         """3+4. per-worker update and the mode's exchange, leaf by leaf,
@@ -469,9 +571,8 @@ def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
         not given."""
         return update_stats(state, grads, mark, hp)[0]
 
-    def update_stats(state, grads, mark=None, hp=None):
-        """``update``, and the local stats rows ((n_leaves, 3) in the
-        reference's leaf order) where the mode emits them, else None."""
+    def update_begin(state, hp=None):
+        """The per-step context the leaf updates share."""
         masters = flat(state["master"])
         ms, vs, es = (flat(state[k]) for k in ("m", "v", "e"))
         t = state["count"] + 1
@@ -479,34 +580,122 @@ def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
         if hp is None:
             hp = engine.hyperparams(*hp_row(t), dev)
         rows = [None] * len(metas_flat) if mode.emits_stats else None
-        for i, meta in enumerate(metas_flat):
+        return dict(masters=masters, ms=ms, vs=vs, es=es, t=t, dev=dev,
+                    hp=hp, rows=rows)
+
+    def update_leaf(u, i, g, mark=None):
+        """3+4 for leaf i (layout order) with its gradient g (None: no
+        gradient reached it, zeros)."""
+        meta, t, dev = metas_flat[i], u["t"], u["dev"]
+        g = (torch.zeros(meta.numel, dtype=torch.float32, device=dev)
+             if g is None else g.reshape(-1).to(torch.float32))
+
+        def draw(n, i=draw_index[i]):   # looked up at call time
+            return draw_uniform(tc.seed, t, i, draw_worker, n, dev)
+        out = updater(g, u["ms"][i], u["vs"][i], u["es"][i],
+                      u["masters"][i], meta, u["hp"], mark=mark, draw=draw,
+                      idx=draw_index[i])
+        if u["rows"] is not None:
+            u["rows"][draw_index[i]] = out[4]
+
+    def update_end(state, u):
+        rows = u["rows"]
+        return (dict(state, count=u["t"]),
+                None if rows is None else torch.stack(rows))
+
+    def update_stats(state, grads, mark=None, hp=None):
+        """``update``, and the local stats rows ((n_leaves, 3) in the
+        reference's leaf order) where the mode emits them, else None."""
+        u = update_begin(state, hp)
+        for i in range(len(metas_flat)):
             g = grads[i]
             grads[i] = None
-            g = (torch.zeros(meta.numel, dtype=torch.float32, device=dev)
-                 if g is None else g.reshape(-1).to(torch.float32))
+            update_leaf(u, i, g, mark)
+            del g
+        return update_end(state, u)
 
-            def draw(n, i=draw_index[i]):   # looked up at call time
-                return draw_uniform(tc.seed, t, i, draw_worker, n, dev)
-            out = updater(g, ms[i], vs[i], es[i], masters[i], meta, hp,
-                          mark=mark, draw=draw, idx=draw_index[i])
-            if rows is not None:
-                rows[draw_index[i]] = out[4]
-            del g, out
-        return (dict(state, count=t),
-                None if rows is None else torch.stack(rows))
+    def bucketed_step(state, xs, batch, hp=None):
+        """2-4 with the update and exchange launched a bucket at a time
+        from the backward's gradient hooks (see the module docstring);
+        returns ``(loss, state', stats rows)``."""
+        u = update_begin(state, hp)
+        on_card = u["dev"].type == "cuda"
+        side = _side_stream(u["dev"]) if on_card else None
+        main = torch.cuda.current_stream(u["dev"]) if on_card else None
+        owner = {i: k for k, b in enumerate(buckets) for i in b}
+        got: Dict[int, Any] = {}
+        left = [len(b) for b in buckets]
+        ran, keep = [], []
+        timing = on_card and bool(overlap.get("timing"))
+        events = []
+
+        def mark_event():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(u["dev"]))
+            events.append(ev)
+
+        def run(k, in_backward):
+            gs = [got.get(i) for i in buckets[k]]
+            keep.extend(g for g in gs if g is not None)
+            if timing:
+                mark_event()
+            if side is not None:
+                side.wait_stream(torch.cuda.current_stream(u["dev"]))
+            with (torch.cuda.stream(side) if side is not None
+                  else contextlib.nullcontext()):
+                for i, g in zip(buckets[k], gs):
+                    update_leaf(u, i, g)
+            ran.append((k, in_backward))
+
+        def hook(i, g):
+            got[i] = g
+            k = owner[i]
+            left[k] -= 1
+            if left[k] == 0:
+                run(k, True)
+
+        def after(grads):
+            if timing:
+                mark_event()                # the backward's end
+            for k in range(len(buckets)):   # buckets a leaf was missing
+                if left[k] > 0:
+                    for i in buckets[k]:
+                        got.setdefault(i, grads[i])
+                    run(k, False)
+            if side is not None:
+                main.wait_stream(side)
+
+        loss, grads = loss_and_grads(xs, batch, hook=hook, after=after)
+        del xs, grads
+        keep.clear()
+        got.clear()
+        overlap.update(order=[k for k, _ in ran],
+                       in_backward=sum(b for _, b in ran),
+                       bytes=[bucket_bytes[k] for k, _ in ran])
+        if timing:
+            overlap["events"] = events
+        state, rows = update_end(state, u)
+        return loss, state, rows
 
     def step_fn(state, batch, mark: Optional[Callable] = None, hp=None):
         """One step; ``mark(name)`` (optional) is called at the end of
-        "broadcast" and "forward_backward" and within ``update``; ``hp``
-        as in ``update``."""
+        "broadcast" and "forward_backward" and, in the single pass,
+        within ``update`` (with buckets "forward_backward" ends after
+        the updates the backward overlapped); ``hp`` as in ``update``."""
         xs = broadcast(state)
         if mark:
             mark("broadcast")
-        loss, grads = loss_and_grads(xs, batch)
-        del xs
-        if mark:
-            mark("forward_backward")
-        state, rows = update_stats(state, grads, mark, hp)
+        if hooked:
+            loss, state, rows = bucketed_step(state, xs, batch, hp)
+            del xs
+            if mark:
+                mark("forward_backward")
+        else:
+            loss, grads = loss_and_grads(xs, batch)
+            del xs
+            if mark:
+                mark("forward_backward")
+            state, rows = update_stats(state, grads, mark, hp)
         metrics = {"loss": loss}
         if rows is not None:
             metrics["gstats"] = astats.reduce_stats(
@@ -518,7 +707,7 @@ def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
                          group=group, config=tc, tiers=tiers,
                          broadcast=broadcast, loss_and_grads=loss_and_grads,
                          update=update, hp_row=hp_row, prepare=prepare,
-                         grid=grid)
+                         grid=grid, buckets=buckets, overlap=overlap)
 
 
 def __getattr__(name):

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch import build
 from repro_torch.comm.codec import resolve_backend
+from repro_torch.kernels.meta import charged
 from repro_torch.opt import grids
 
 moments_launches = 0       # K15 kernel launches
@@ -63,6 +64,7 @@ def _check_out(out, like: torch.Tensor, n: int):
             raise ValueError("out tensors must be contiguous")
 
 
+@charged("K15 adam_moments")
 def adam_moments(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                  e: torch.Tensor, hp: torch.Tensor,
                  backend: Optional[str] = None, out=None):
@@ -104,6 +106,7 @@ def _ef_quantize_cuda(de, scale, k_g, out):
     return codes, e_new
 
 
+@charged("K16 ef_quantize")
 def ef_quantize(de: torch.Tensor, scale: torch.Tensor, k_g: int,
                 backend: Optional[str] = None, out=None):
     """Log-grid int8 codes of Delta+e against ``scale`` (a 0-d float32

@@ -40,6 +40,7 @@ import torch
 
 from repro_torch import build
 from repro_torch.comm.codec import resolve_backend
+from repro_torch.kernels.meta import charged
 
 launches = 0        # #17 launches, either route
 launches_tc = 0     # #17 on tensor cores in bfloat16 (route "tc")
@@ -123,6 +124,15 @@ def _flash_cuda(q, k, v, *, causal, window, softcap, q_offset):
     return out
 
 
+def _flops(q, k, v, *, causal=True, window=0, **_):
+    """Attention's products: 4 B H Sq Skv hd, about half where causal
+    (the dry run's operation count)."""
+    B, Sq, H, hd = q.shape
+    full = 4.0 * B * H * Sq * k.shape[1] * hd
+    return full / 2 if causal else full
+
+
+@charged("#17 flash_attention", flops=_flops)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: Optional[float] = None, q_offset: int = 0,

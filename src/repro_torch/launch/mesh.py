@@ -209,3 +209,33 @@ def _unravel(rank: int, sizes) -> Tuple[int, ...]:
         out.append(rank % s)
         rank //= s
     return tuple(reversed(out))
+
+
+# ---------------------------------------------------------------------------
+# the dry run's production grids and hardware model (launch.dryrun)
+# ---------------------------------------------------------------------------
+
+def production_grid_shape(*, multi_pod: bool = False):
+    """The reference's production mesh by rank count: (data 16, model 16)
+    = 256 ranks, or (pod 2, data 16, model 16) = 512; (sizes, axes)."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+# hardware model for the dry run's roofline, per card: the NVIDIA H100
+# SXM5 80GB data sheet at its 700 W limit (dense rates). A model, not a
+# measurement: the dry run runs no kernel.
+PEAK_FLOPS_BF16 = 989e12      # FLOP/s, bf16 tensor cores
+HBM_BW = 3.35e12              # B/s
+NVLINK_BW = 450e9             # B/s a direction, NVLink within a node
+NIC_BW = 50e9                 # B/s a card across nodes (one 400 Gb/s NIC)
+CARDS_PER_NODE = 8            # an HGX H100 node
+
+
+def link_bw(ranks) -> float:
+    """The slowest link a group of global ranks crosses: NVLink when
+    every rank is on one node of CARDS_PER_NODE cards (ranks numbered
+    node by node), else the NIC."""
+    nodes = {int(r) // CARDS_PER_NODE for r in ranks}
+    return NVLINK_BW if len(nodes) <= 1 else NIC_BW

@@ -93,21 +93,23 @@ K/V, e.g.
 
 ``--layers N`` cuts the configuration's depth at full width.
 
-Bucket tuning and AOT artifacts are not ported (ROADMAP.md queue 1):
-``--tune-buckets`` and ``--aot-dir`` raise ``NotImplementedError``. The
-reference's multi-host flags are known and refused by name: the port
-runs one process per card under ``torchrun``, which sets the process
-group from its environment, where the reference runs one process per
-host.
+The kernel build cache (``repro_torch.perf.cache``) is on by default:
+``--compile-cache DIR`` places it (default ``$REPRO_COMPILE_CACHE`` or
+the repository's ``build/``), ``--no-compile-cache`` builds into a
+private temporary directory. ``--aot-dir DIR`` keeps the step's kernel
+library as an AOT artifact (``repro_torch.perf.aot``): a restart loads
+it without ``nvcc``. ``--tune-buckets`` times the exchange bucket sizes
+on the card before training (``perf.autotune.tune_exchange_buckets``)
+and trains with the fastest. The reference's multi-host flags are known
+and refused by name: the port runs one process per card under
+``torchrun``, which sets the process group from its environment, where
+the reference runs one process per host.
 """
 from __future__ import annotations
 
 import argparse
 import json
 
-# flags of the reference that the port does not run yet, with the value
-# that leaves them off
-NOT_PORTED = {"tune_buckets": False, "aot_dir": None}
 # the reference's jax.distributed flags (one process per host), with the
 # value that leaves them off
 MULTIHOST = {"multihost": False, "coordinator": None, "num_processes": None,
@@ -182,9 +184,17 @@ def parse_args(argv=None):
     ap.add_argument("--model-gather-quant", type=int, default=0,
                     help="int8 gather of the model shards at this k_x, "
                          "0 = float32")
-    # not ported (ROADMAP.md queue 1)
-    ap.add_argument("--tune-buckets", action="store_true")
-    ap.add_argument("--aot-dir", default=None)
+    ap.add_argument("--tune-buckets", action="store_true",
+                    help="time the exchange bucket sizes on the card before "
+                         "training and train with the fastest "
+                         "(perf.autotune.tune_exchange_buckets)")
+    ap.add_argument("--compile-cache", default=None, metavar="DIR",
+                    help="kernel build cache dir (default "
+                         "$REPRO_COMPILE_CACHE or the repository's build/)")
+    ap.add_argument("--no-compile-cache", action="store_true")
+    ap.add_argument("--aot-dir", default=None, metavar="DIR",
+                    help="AOT artifact dir: a restart loads the step's "
+                         "kernel library without nvcc (repro_torch.perf.aot)")
     # the reference's multi-host flags: refused (see the module docstring)
     ap.add_argument("--multihost", action="store_true")
     ap.add_argument("--coordinator", default=None)
@@ -194,11 +204,6 @@ def parse_args(argv=None):
     if args.resume and not args.ckpt_dir:
         ap.error("--resume requires --ckpt-dir")
     args.adaptive = args.adaptive or args.mode == "adaptive"
-    for name, off in NOT_PORTED.items():
-        if getattr(args, name) != off:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported yet (ROADMAP.md "
-                "queue 1)")
     for name, off in MULTIHOST.items():
         if getattr(args, name) != off:
             raise NotImplementedError(
@@ -246,7 +251,8 @@ def _run_adaptive(args, model, grid, tc, cfg, lead):
     sc = SessionConfig(log_every=args.log_every,
                        ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
                        ckpt_keep=args.ckpt_keep, ckpt_codec=args.ckpt_codec,
-                       scan_chunk=args.scan_chunk, prefetch=args.prefetch)
+                       scan_chunk=args.scan_chunk, prefetch=args.prefetch,
+                       aot_dir=args.aot_dir)
     acfg = AdaptConfig(budget_ratio=args.adapt_budget,
                        replan_every=args.replan_every,
                        ema_decay=args.adapt_ema)
@@ -302,6 +308,48 @@ def _run_adaptive(args, model, grid, tc, cfg, lead):
         say("final loss:", losses[-1]["loss"])
 
 
+def setup_build_cache(args) -> None:
+    """``--compile-cache`` / ``--no-compile-cache`` (both launchers): the
+    build cache on by default, as the reference's compile cache; with
+    ``--aot-dir`` an artifact built from this checkout for this card is
+    loaded before anything launches a kernel."""
+    from repro_torch import perf
+    if args.no_compile_cache:
+        perf.disable_persistent_cache()
+    else:
+        cache_dir = perf.enable_persistent_cache(args.compile_cache)
+        if cache_dir:
+            print(f"compile cache: {cache_dir}")
+    if args.aot_dir and args.device != "cpu" and \
+            perf.aot.preload(args.aot_dir):
+        print(f"kernel library loaded from {args.aot_dir}")
+
+
+def tune_buckets(args, model, grid, tc, cfg, lead):
+    """--tune-buckets: the exchange bucket sweep on a probe batch from a
+    fresh same-seed stream (the training stream's position untouched),
+    on the card; returns the config with the fastest size, the same on
+    every rank (the slowest rank's time a size decides)."""
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.launch.mesh import rank_device
+    from repro_torch.perf.autotune import tune_exchange_buckets
+    from repro_torch.train.session import stage_batch
+    dev = rank_device(args.device)
+    probe = stage_batch(next(batch_for_model(cfg, args.seq,
+                                             args.global_batch,
+                                             seed=args.seed)), dev)
+    rep = tune_exchange_buckets(model, grid, tc, probe, device=dev,
+                                seed=args.seed)
+    if lead:
+        print(f"tuned exchange bucket: {rep['best']} B (speedup "
+              f"{rep['speedup']:.2f}x vs default {rep['default']} B); "
+              + ", ".join(f"{b} B {t * 1e3:.3f} ms (this rank "
+                          f"{rep['spread_s'][b][0] * 1e3:.3f}-"
+                          f"{rep['spread_s'][b][1] * 1e3:.3f})"
+                          for b, t in rep["timings_s"].items()))
+    return rep["config"]
+
+
 def main(argv=None):
     """Run the launcher on ``argv``; returns ``{"art", "comm", "history",
     "stats", "state"}`` of the session (None for ``--adaptive`` and where
@@ -324,6 +372,7 @@ def main(argv=None):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    setup_build_cache(args)
     tc = TrainConfig(alpha=args.alpha, beta=args.beta, theta=args.theta,
                      schedule=args.schedule,
                      grad_k=args.grad_bits or None,
@@ -343,6 +392,8 @@ def main(argv=None):
         grid = make_grid(pod=args.pod, data=args.data, model=args.model,
                          device=args.device)
         lead = grid.rank == 0
+        if args.tune_buckets:
+            tc = tune_buckets(args, model, grid, tc, cfg, lead)
         if args.adaptive:
             _run_adaptive(args, model, grid, tc, cfg, lead)
             return None
@@ -364,7 +415,8 @@ def main(argv=None):
                            ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
                            ckpt_keep=args.ckpt_keep,
                            ckpt_codec=args.ckpt_codec,
-                           scan_chunk=args.scan_chunk, prefetch=args.prefetch)
+                           scan_chunk=args.scan_chunk, prefetch=args.prefetch,
+                           aot_dir=args.aot_dir)
         sess = TrainSession.from_artifacts(
             art, batches, sc, seed=args.seed,
             device=rank_device(args.device),

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch import build
 from repro_torch.comm.codec import resolve_backend
+from repro_torch.kernels.meta import charged
 
 launches = 0        # K2 kernel launches (either entry point)
 launches_kv = 0     # ... of them by gather_pages_kv (K and V in one)
@@ -66,6 +67,7 @@ def _trivial(pool, ptab) -> bool:
     return pool.shape[0] == 0 or ptab.shape[1] == 0
 
 
+@charged("K2 gather_pages")
 def gather_pages(pool: torch.Tensor, ptab: torch.Tensor, *,
                  backend: Optional[str] = None) -> torch.Tensor:
     """Contiguous cache view of each slot's pages.
@@ -86,6 +88,7 @@ def gather_pages(pool: torch.Tensor, ptab: torch.Tensor, *,
     return _gather_torch(pool, ptab)
 
 
+@charged("K2 gather_pages_kv")
 def gather_pages_kv(pk: torch.Tensor, pv: torch.Tensor, ptab: torch.Tensor,
                     *, backend: Optional[str] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -65,6 +65,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.perf import aot
+from repro_torch.perf import cache as perf_cache
 from repro_torch.serve.paged import PagePool
 from repro_torch.serve.quantized import is_quantized, make_dequant_gather
 
@@ -158,6 +160,13 @@ class ServeSession:
         this rank's model shards; where it has ``init_cache`` and
         ``rows`` (a ``dist.serve.ServeStep``), the session holds the
         rank's part of the cache they give.
+    aot_dir: AOT artifact directory (``repro_torch.perf.aot``) for the
+        kernel library the decode step launches, keyed on (model config,
+        slots, max_seq, paged geometry, quantization, arg signature, card,
+        sources). A warm dir loads it without ``nvcc`` or a link. ``stats``
+        records ``compilations`` vs ``aot_loads`` (and ``aot_saves``); on
+        the CPU they stay 0. The CUDA graph is still captured in each
+        process.
     """
 
     def __init__(self, model, params, *, slots: int = 8, max_seq: int = 256,
@@ -166,7 +175,8 @@ class ServeSession:
                  paged: bool = False, page_size: int = 16,
                  num_pages: Optional[int] = None, prefill: str = "auto",
                  prefill_chunk: int = 32, preempt_mode: str = "requeue",
-                 device="cuda", decode_fn=None):
+                 device="cuda", decode_fn=None,
+                 aot_dir: Optional[str] = None):
         cfg = model.cfg
         if cfg.input_mode != "tokens" or cfg.arch_type not in (
                 "dense", "moe", "ssm", "hybrid"):
@@ -233,8 +243,20 @@ class ServeSession:
         self._admit_seq = 0
         self._steps = 0
         self.stats = {"dispatches": 0, "syncs": 0, "admitted": 0,
+                      "compilations": 0, "aot_loads": 0, "aot_saves": 0,
                       "preemptions": 0, "chunk_dispatches": 0,
                       "max_inflight": 0, "captures": 0, "replays": 0}
+        perf_cache.ensure_persistent_cache()   # opt-in via the env
+        self._aot_dir = aot_dir if self._local else None
+        facts = {"program": "serve_decode", "model_cfg": cfg,
+                 "slots": slots, "max_seq": max_seq, "eos": eos_id,
+                 "quantized": is_quantized(params),
+                 "fused_matmul": fused_matmul, "paged": self.paged,
+                 "page_size": self.page_size, "num_pages": self.num_pages,
+                 "prefill": prefill, "prefill_chunk": self.prefill_chunk}
+        aot.load_or_compile(self._dispatch, (params, self._state),
+                            aot_dir=self._aot_dir, facts=facts,
+                            stats=self.stats, device=self.device)
 
     # ------------------------------------------------------------------
     # device-side state and the programs that update it

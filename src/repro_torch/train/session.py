@@ -76,8 +76,15 @@ The hot loop does not wait on the device in steady state:
     captures the new plan and replays it. A plan met again is captured
     again.
 
-The reference's AOT artifacts (``aot_dir``) wait for ROADMAP.md queue 1
-item 8.
+  * **AOT artifacts** - with ``aot_dir`` the session makes the kernel
+    library its step launches ready at construction through
+    ``repro_torch.perf.aot.load_or_compile``: a matching artifact is
+    loaded with ``ctypes`` (no ``nvcc``, no link), else the library is
+    built (the build cache first) and exported. ``stats`` counts
+    ``compilations`` (this process ran ``nvcc`` for it), ``aot_loads``
+    and ``aot_saves``; on the CPU there is no library and they stay 0.
+    The build cache is enabled here only when ``REPRO_COMPILE_CACHE``
+    names a directory (``perf.cache.ensure_persistent_cache``).
 """
 from __future__ import annotations
 
@@ -96,6 +103,8 @@ from repro_torch.checkpoint import store
 from repro_torch.comm.codec import WireBuffer, get_codec
 from repro_torch.core.qadam import QAdamState, apply_updates_
 from repro_torch.opt import engine
+from repro_torch.perf import aot
+from repro_torch.perf import cache as perf_cache
 from repro_torch.tree import (tree_flatten_with_path, tree_leaves, tree_map,
                               tree_map_with_path, tree_unflatten)
 
@@ -121,6 +130,10 @@ class SessionConfig:
     # on the device for at least this many steps between
     # ``harvest_stats()`` calls; 0 sizes the ring off log_every alone
     stats_ring: int = 0
+    # AOT step artifacts (repro_torch.perf.aot): the kernel library the
+    # step launches, keyed on (config digest, grid, mode, codec, state
+    # signature, card, sources); a warm dir loads it without nvcc
+    aot_dir: Optional[str] = None
 
 
 def stage_batch(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -310,6 +323,13 @@ class _SingleProgram:
         self.hp_row = opt.hp_row
         self.name = "the optimizer"
 
+    def aot_facts(self):
+        return {"program": "single",
+                "opt": type(self.opt).__name__,
+                "opt_cfg": getattr(self.opt, "cfg", None),
+                "loss_fn": getattr(self.loss_fn, "__qualname__",
+                                   repr(self.loss_fn))}
+
     def stats_shape(self):
         return None
 
@@ -393,6 +413,13 @@ class _DistProgram:
                                        "stochastic", False))
         self.hp_row = art.hp_row
         self.name = f"mode {art.config.mode!r}"
+
+    def aot_facts(self):
+        grid = self.art.grid
+        return {"program": "dist", "config": self.art.config,
+                "grid": None if grid is None else
+                dict(zip(grid.axes, grid.sizes)),
+                "n_workers": self.art.n_workers}
 
     def init_state(self, seed):
         return self.art.init_state(seed=seed, device=self._device)
@@ -557,7 +584,8 @@ class TrainSession:
     and ``{"step", "eval"}`` entries at eval boundaries. ``stats``:
     ``dispatches`` (step or chunk calls), ``syncs`` (host reads of the
     device on the critical path, zero in steady state), ``steps``,
-    ``ckpts``, ``graph_captures``, ``graph_replays``.
+    ``ckpts``, ``graph_captures``, ``graph_replays``, ``compilations``,
+    ``aot_loads``, ``aot_saves``.
     """
 
     def __init__(self, program, batches: Iterator,
@@ -602,7 +630,14 @@ class TrainSession:
         self._step = 0                     # optimizer steps executed
         self._prefetch: Optional[_Prefetcher] = None
         self.stats = {"dispatches": 0, "syncs": 0, "steps": 0, "ckpts": 0,
-                      "graph_captures": 0, "graph_replays": 0}
+                      "graph_captures": 0, "graph_replays": 0,
+                      "compilations": 0, "aot_loads": 0, "aot_saves": 0}
+        perf_cache.ensure_persistent_cache()   # opt-in via the env
+        aot.load_or_compile(
+            program.step, (self._state,), aot_dir=self.cfg.aot_dir,
+            facts=dict(program.aot_facts(), chunk=self.chunk,
+                       ring_len=self._ring_len),
+            stats=self.stats, device=self._device)
         self._chunks = None
         if self.chunk > 1:
             self._chunks = _Chunks(

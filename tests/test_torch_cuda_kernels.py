@@ -2281,3 +2281,102 @@ def test_dequant_matmul_t_ssm_heads(dev, V, d, M):
     norm = (x.float() ** 2 @ (w ** 2).T).sqrt()
     tol = _bf16_ulp(b.float()) + K1_FLOOR * d ** 0.5 * 2.0 ** -24 * norm
     assert bool(((a.float() - b.float()).abs() <= tol).all())
+
+
+# ---------------------------------------------------------------------------
+# the performance tooling's launch geometries (repro_torch.perf)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("spec", ["log:6", "uniform_amax:7:w8", "log:2"])
+@pytest.mark.parametrize("n_rows,numel", [(1, 4096 * 9 + 3), (2, 1),
+                                          (3, 1100), (4, 513 * 7),
+                                          (5, 11008 * 3 + 1)])
+def test_codec_blocks_per_sm_bitwise(dev, spec, n_rows, numel):
+    """K7, #5 and K6 write the same bits at every blocks-an-SM value
+    (``set_enc_rows``): payloads, residuals and decodes, ragged chunks
+    and n_rows 1-5, against the default grid and the plain versions."""
+    from repro_torch.comm import codec as CD
+    from repro_torch.comm import kernels as K
+    codec = CD.get_codec(spec)
+    g = torch.Generator(device=dev).manual_seed(n_rows * 7 + numel)
+    x = torch.randn(numel, generator=g, device=dev)
+    c = -(-numel // n_rows)
+
+    def run():
+        payload, scale = K.encode_rows(x, codec, n_rows)
+        e = torch.empty_like(x)
+        ef, _ = K.ef_encode_rows(x, scale.reshape(1), codec, n_rows, out=e)
+        scales = scale.reshape(1).expand(n_rows).contiguous()
+        return payload, ef, e, K.decode_rows(payload, scales, codec, c)
+
+    want = run()
+    plain_payload, _ = K.encode_rows(x, codec, n_rows, backend="torch")
+    assert torch.equal(want[0], plain_payload)
+    try:
+        for b in (1, 2, 4, 8, 16):
+            K.set_enc_rows(b)
+            for a, w in zip(run(), want):
+                assert a.dtype == w.dtype and torch.equal(
+                    a.view(torch.uint8), w.view(torch.uint8)), b
+    finally:
+        K.set_enc_rows(None)
+
+
+@pytest.mark.parametrize("plan", [(128, 1), (256, 2), (128, 8), (256, 40)])
+def test_dequant_matmul_tuned_plan_tier(dev, plan):
+    """K1 on tensor cores under an installed plan (``set_mm_cols``) within
+    one bf16 ulp plus the K1_FLOOR term of the plain version; a dropped K
+    row still fails that tier."""
+    from repro_torch.comm import matmul as MM
+    from repro_torch.perf.autotune import k1_operands
+    m, k, n = 4, 4096, 6482
+    x, codes, scale = k1_operands(m, k, n, 6, dev, seed=sum(plan))
+    kw = dict(k_x=6, n=n, pack_bits=0, w_dtype="float32",
+              cast_dtype="bfloat16")
+    key = MM.mm_key(m, k, n, 8)
+    MM.set_mm_cols(plan, key=key)
+    try:
+        assert MM.k1_plan(m, k, n, 8).tile_n == plan[0]
+        got = MM.dequant_matmul(x, codes, scale, **kw).float()
+    finally:
+        MM.set_mm_cols(None, key=key)
+    want = MM.dequant_matmul(x, codes, scale, backend="torch", **kw).float()
+    w = MM.dequant_codes(codes, scale, k_x=6, n=n, pack_bits=0,
+                         w_dtype="float32", cast_dtype="bfloat16").float()
+    unit = k ** 0.5 * 2.0 ** -24 * (x.float() ** 2 @ w ** 2).sqrt()
+    tol = _bf16_ulp(want) + K1_FLOOR * unit
+    assert bool(((got - want).abs() <= tol).all())
+    dropped = codes.clone()
+    dropped[k // 2] = 0
+    bad = MM.dequant_matmul(x, dropped, scale, backend="torch", **kw).float()
+    assert not bool(((bad - want).abs() <= tol).all())
+
+
+def test_aot_library_round_trip(dev, tmp_path):
+    """The kernel library saved as an AOT artifact loads with ctypes in
+    place of the built one and launches the same bits; a torn artifact is
+    a miss."""
+    from repro_torch import build
+    from repro_torch.comm import kernels as K
+    from repro_torch.perf import aot
+    build.library()
+    x = torch.randn(3, 1000, device=dev)
+    want = K.amax_rows(x)
+    stats = {}
+    aot.load_or_compile(len, (x,), aot_dir=str(tmp_path), facts="t",
+                        stats=stats, device=dev)
+    assert stats.get("aot_saves") == 1
+    saved = (build._lib, build._lib_path, build.origin)
+    build._lib = None
+    try:
+        stats = {}
+        aot.load_or_compile(len, (x,), aot_dir=str(tmp_path), facts="t",
+                            stats=stats, device=dev)
+        assert stats == {"aot_loads": 1} and build.origin == "aot"
+        assert torch.equal(K.amax_rows(x), want)
+        key = aot.step_key("t", (x,))
+        with open(aot.artifact_path(str(tmp_path), key), "wb") as f:
+            f.write(b"torn")
+        assert aot.load(str(tmp_path), key) is None
+    finally:
+        build._lib, build._lib_path, build.origin = saved

@@ -236,7 +236,9 @@ def test_quantized_paged_session_matches_reference(arch):
     tr = ts.drain()
     assert [tr[h].tokens for h in th] == [jr[h].tokens for h in jh]
     assert ts.free_pages == ts.num_pages
-    shared = set(ts.stats) & set(js.stats)
+    # the scheduler's counters (the compile counters count XLA compiles
+    # there and nvcc builds here)
+    shared = set(ts.stats) & set(js.stats) - {"compilations", "aot_loads"}
     assert {"dispatches", "syncs", "admitted", "chunk_dispatches"} <= shared
     assert {k: ts.stats[k] for k in shared} == {k: js.stats[k] for k in shared}
     assert ts.stats["captures"] == ts.stats["replays"] == 0   # the CPU

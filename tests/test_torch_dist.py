@@ -369,8 +369,7 @@ def test_swap_between_flat_and_hierarchical_is_bitwise(models, group):
 
 
 def test_out_of_scope_raises(models, group):
-    """What the port still refuses: the launcher's ``--tune-buckets`` and
-    ``--aot-dir`` (ROADMAP.md), and the reference's four multi-host flags,
+    """What the port still refuses: the reference's four multi-host flags,
     each by name (torchrun's environment stands in their place). The
     rest parses and builds: hierarchical topologies, the model axis, the
     int8 gather, the baselines and the adaptive mode (the trajectories:
@@ -392,9 +391,12 @@ def test_out_of_scope_raises(models, group):
     with pytest.raises(ValueError, match="needs 4 workers"):
         t_make_train_step(tm, group, TTC(topology=T.HierarchicalTopology(
             2, 2)))
-    for flag in (["--tune-buckets"], ["--aot-dir", "x"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            launch.parse_args(["--arch", "yi-6b"] + flag)
+    # the performance flags parse (the sweep and the artifacts run on
+    # the card: tests/test_torch_perf.py)
+    a = launch.parse_args(["--arch", "yi-6b", "--tune-buckets", "--aot-dir",
+                           "x", "--compile-cache", "c", "--no-compile-cache"])
+    assert (a.tune_buckets, a.aot_dir, a.compile_cache,
+            a.no_compile_cache) == (True, "x", "c", True)
     for flag in (["--multihost"], ["--coordinator", "h:1"],
                  ["--num-processes", "2"], ["--process-id", "0"]):
         with pytest.raises(NotImplementedError,

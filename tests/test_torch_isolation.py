@@ -25,9 +25,8 @@ def _imported_roots(path: Path):
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "examples" /
-                                         "paper_repro_torch.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "examples").glob("*_torch.py"))
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -50,7 +49,8 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.core.quantizers, repro_torch.core.packing, "
             "repro_torch.core.uniforms, repro_torch.kernels.ops, "
             "repro_torch.kernels.pack, repro_torch.kernels.quantize, "
-            "repro_torch.kernels.ref; "
+            "repro_torch.kernels.ref, repro_torch.perf, "
+            "repro_torch.launch.dryrun, repro_torch.kernels.meta; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -87,8 +87,9 @@ def test_entry_points_default_to_cuda():
     assert launch_train.parse_args(["--arch", "yi-6b"]).device == "cuda"
     from repro_torch.data import pipeline
     assert _default(pipeline.classification_dataset, "device") == "cuda"
-    example = (ROOT / "examples" / "paper_repro_torch.py").read_text()
-    assert 'ap.add_argument("--device", default="cuda")' in example
+    for example in sorted((ROOT / "examples").glob("*_torch.py")):
+        assert 'ap.add_argument("--device", default="cuda")' in \
+            example.read_text(), example.name
 
 
 def test_kernel_wrappers_refuse_cuda_backend_on_cpu():

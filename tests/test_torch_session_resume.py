@@ -471,9 +471,12 @@ def test_launcher_checkpoints_and_resumes(tmp_path, model, group):
 
 def test_launcher_flags_still_refused():
     from repro_torch.launch import train as launch
-    for flag in (["--tune-buckets"], ["--aot-dir", "x"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            launch.parse_args(["--arch", "yi-6b"] + flag)
+    # the performance flags parse (the sweep and the artifacts run on
+    # the card: tests/test_torch_perf.py)
+    a = launch.parse_args(["--arch", "yi-6b", "--tune-buckets", "--aot-dir",
+                           "x", "--compile-cache", "c", "--no-compile-cache"])
+    assert (a.tune_buckets, a.aot_dir, a.compile_cache,
+            a.no_compile_cache) == (True, "x", "c", True)
     with pytest.raises(SystemExit):
         launch.parse_args(["--arch", "yi-6b", "--resume"])
     a = launch.parse_args(["--arch", "yi-6b", "--ckpt-dir", "x", "--resume",

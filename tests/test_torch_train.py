@@ -305,7 +305,8 @@ def test_session_syncs_and_loss_ring(models):
     quiet = _session_losses(OPT, jp, tm, TSC(log_every=0))
     assert quiet.stats == {"dispatches": STEPS, "syncs": 0, "steps": STEPS,
                            "ckpts": 0, "graph_captures": 0,
-                           "graph_replays": 0}
+                           "graph_replays": 0, "compilations": 0,
+                           "aot_loads": 0, "aot_saves": 0}
     ring = quiet.harvest_losses()   # one read; a 2-slot ring at log_every 0
     assert quiet.stats["syncs"] == 1
     assert ring == [(h["step"], h["loss"]) for h in per_step.history[-2:]]
