@@ -85,6 +85,13 @@ Phases, each raising on failure (exit code nonzero, no result line):
      one code off by one in the last vector of a chunk on 6-bit lanes)
      must fail those gates; time each kernel, its plain version and a one-call
      PyTorch yardstick where there is one (none for #9, #10, #13); then
+     the reference's threefry draws (no Pallas kernel: XLA's threefry
+     behind jax.random): rt_threefry_uniform bitwise its plain version at
+     n 1, 3, 4099, 2^20 + 7, at an offset output and a start past 2^32,
+     rt_threefry_keys bitwise at 1, 12 and 300 leaves for both chains,
+     then the uniforms bitwise and timed at the w_gate stack (360.7 M
+     elements; torch.rand, Philox, beside it for information) and both
+     key launches timed at the cell's 12 leaves; then
      the MoE family's shapes: K12 through ``QuantizedLeaf.dequantize`` on
      a code-resident (2, 64, 2048, 1408) int8 stack (a sliced layer's
      184,549,376 codes one row, a view of the 4-D codes), alone and with
@@ -216,10 +223,16 @@ Phases, each raising on failure (exit code nonzero, no result line):
      5b. the Algorithm 1 baselines on the same cut and batches, 8 steps
      each through ``TrainSession.from_optimizer``: ``ef_sgdm(alpha=1e-3,
      beta=0.9, grad_q="blockwise:256")`` (#14) and
-     ``terngrad_sgd(alpha=1e-3)`` (K3, #13), with the phase-5 gates and a
-     captured-gradient update bitwise through the kernels and the plain
-     versions (the same uniforms), then ``wquan(k_x=7, absolute=False)``
-     of the trained parameters (K3, K4, K12, bitwise);
+     ``terngrad_sgd(alpha=1e-3)`` (K3, #13, the threefry keys and
+     uniforms), with the phase-5 gates and a captured-gradient update
+     bitwise through the kernels and the plain versions (the same key),
+     then ``wquan(k_x=7, absolute=False)`` of the trained parameters
+     (K3, K4, K12, bitwise); then ``terngrad_sgd`` with
+     ``scan_chunk=4`` (one capture, one replay) bitwise the step-by-step
+     session under deterministic algorithms (losses and every state
+     tensor), the threefry kernels launched and no plain version on the
+     card, its graphed step timed with the draws' share and its peak
+     (yi-6b cut to CUT_LAYERS layers, as phase 7);
      5c. the phase-5 session with ``scan_chunk=4``: the first chunk
      eager, the next captured as one CUDA graph and replayed, 12 steps
      (3 dispatches, 1 capture, 2 replays), against the same session step
@@ -253,7 +266,9 @@ Phases, each raising on failure (exit code nonzero, no result line):
      broadcast, alpha 1e-3; #5 ternary with K3 and K6 ternary, #14 and
      #9 for ef_sgd's exchange rows), with
      the gates of phase 6 (the captured-gradient update through the
-     kernels and the plain versions, TernGrad on the same uniforms); then
+     kernels and the plain versions, TernGrad on the same uniforms), and
+     ``terngrad`` with ``scan_chunk=4`` as in 5b (each step's t from the
+     session's device step table); then
      ``dp_adam`` bitwise ``qadam`` with both channels in float32 and
      ``efadam`` with a float32 broadcast bitwise ``qadam``, under
      deterministic algorithms;
@@ -1434,6 +1449,131 @@ def check_training_kernels(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, the reference's threefry draws (no Pallas kernel: XLA's threefry
+# behind jax.random.uniform and jax.random.fold_in / split)
+# ---------------------------------------------------------------------------
+
+# H100 SXM: the dispatch ceiling, one warp instruction a clock on each of an
+# SM's 4 schedulers (128 lanes an SM, the float32 datapath's width) on 132
+# SMs at the 1.98 GHz that gives the data sheet's 67 TFLOP/s of float32.
+# No instruction of any type issues faster; the 64 int32 ALU lanes an SM
+# alone would give half this rate, but ptxas moves integer adds onto the
+# FMA pipe (IMAD), so the kernel can run past that half rate
+DISPATCH_OPS_PER_S = 132 * 4 * 32 * 1.98e9
+# operations a uniform: threefry2x32-20 (2 key adds, 20 rounds of add,
+# rotate and xor, five injections of two adds: 72 int32), the 64-bit
+# counter's add (2), the fold, the shift and the or (3), the float
+# subtraction and max (2)
+THREEFRY_UNIFORM_OPS = 79
+THREEFRY = dict(source="src/repro_torch/csrc/threefry.cu", route="cuda")
+
+
+def train_leaves(torch) -> int:
+    """The leaves of the training cell's model (yi-6b x TRAIN_LAYERS)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=TRAIN_LAYERS)
+    return len(tree_leaves(Model(cfg).init(torch.Generator(),
+                                           device="meta")))
+
+
+def int_bound_ms(nbytes: float, ops: float):
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / DISPATCH_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def check_threefry(torch, dev, n_leaves: int):
+    """rt_threefry_uniform and rt_threefry_keys bitwise against their
+    plain versions (``core.threefry``): the uniforms at n 1, 3, 4099 and
+    2^20 + 7, aligned and at an offset output, from leaf 1 of a table and
+    at a start past 2^32; the keys of both chains at 1, ``n_leaves`` and
+    300 leaves (Algorithm 1's key advanced in place three times); then the
+    uniforms at the 8-layer w_gate stack's 360.7 M elements, bitwise and
+    timed beside the plain version and ``torch.rand`` (Philox: not the
+    same function, for information), and both key launches timed at
+    ``n_leaves``. Returns the two kernel rows."""
+    from repro_torch.core import threefry as TF
+    from repro_torch.kernels import prng as P
+    table = torch.stack([TF.prng_key(s, dev) for s in (0, 7, 2 ** 31 - 1)])
+    for n in (1, 3, 4099, 2 ** 20 + 7):
+        buf = torch.empty(n + 1, device=dev)
+        for leaf, start in ((0, 0), (1, 0), (2, 2 ** 32 - 3)):
+            want = P.uniform(table, leaf, n, start, backend="torch")
+            for got in (P.uniform(table, leaf, n, start, backend="cuda"),
+                        P.uniform(table, leaf, n, start, backend="cuda",
+                                  out=buf[1:])):
+                if not bits_equal(torch, got, want):
+                    raise AssertionError(f"threefry uniform differs from "
+                                         f"its plain version (n {n}, leaf "
+                                         f"{leaf}, start {start})")
+    for L in (1, n_leaves, 300):
+        for t in (1, 2 ** 31 + 5):
+            tt = torch.tensor([t], dtype=torch.int64, device=dev)
+            for worker in (0, 3):
+                if not bits_equal(torch, P.step_keys(9, tt, L, worker,
+                                                     backend="cuda"),
+                                  P.step_keys(9, tt, L, worker,
+                                              backend="torch")):
+                    raise AssertionError(f"threefry keys (distributed "
+                                         f"chain) differ at L {L}, t {t}")
+        ka, kb = TF.prng_key(11, dev), TF.prng_key(11, dev)
+        for _ in range(3):
+            if not (bits_equal(torch, P.advance_keys(ka, L, backend="cuda"),
+                               P.advance_keys(kb, L, backend="torch"))
+                    and bits_equal(torch, ka, kb)):
+                raise AssertionError(f"threefry keys (Algorithm 1's chain) "
+                                     f"differ at L {L}")
+    # the w_gate stack: bitwise, then timed
+    n = TRAIN_LAYERS * YI["d"] * YI["f"]
+    keys = P.step_keys(0, torch.tensor([3], dtype=torch.int64, device=dev),
+                       n_leaves, 0)
+    got = P.uniform(keys, 1, n, backend="cuda")
+    want = P.uniform(keys, 1, n, backend="torch")
+    if not bits_equal(torch, got, want):
+        raise AssertionError("threefry uniform differs from its plain "
+                             "version at the w_gate stack")
+    del want
+    torch.cuda.empty_cache()
+    ms = cuda_ms(torch, lambda i: P.uniform(keys, 1, n, backend="cuda",
+                                            out=got), 10, 2)
+    plain = cuda_ms(torch, lambda i: P.uniform(keys, 1, n, backend="torch",
+                                               out=got), 2, 1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lib = cuda_ms(torch, lambda i: torch.rand(n, generator=gen, device=dev,
+                                              out=got), 10, 2)
+    bnd, by = int_bound_ms(4 * n, THREEFRY_UNIFORM_OPS * n)
+    rows = [dict(name="threefry_uniform", replaces=(
+        "src/repro/core/quantizers.py:132"), max_abs_err=0.0, ms=ms,
+        plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+        shape=[n], **THREEFRY)]
+    del got
+    torch.cuda.empty_cache()
+    tt = torch.tensor([3], dtype=torch.int64, device=dev)
+    key = TF.prng_key(0, dev)
+    # the key launches' device time in a CUDA graph (one launch is far
+    # shorter than its host call); the plain versions eagerly
+    k_ms = {
+        "dist": (graph_ms(torch, lambda i: P.step_keys(
+            0, tt, n_leaves, 0, backend="cuda")),
+            cuda_ms(torch, lambda i: P.step_keys(
+                0, tt, n_leaves, 0, backend="torch"), 5, 1)),
+        "alg1": (graph_ms(torch, lambda i: P.advance_keys(
+            key, n_leaves, backend="cuda")),
+            cuda_ms(torch, lambda i: P.advance_keys(
+                key, n_leaves, backend="torch"), 5, 1))}
+    # the distributed chain: three threefry a leaf, 8 B a leaf written, t
+    # read; each a 72-operation threefry
+    bnd, by = int_bound_ms(8 * n_leaves + 8, 3 * 72 * n_leaves)
+    rows.append(dict(name="threefry_keys", replaces=(
+        "src/repro/dist/step.py:517"), max_abs_err=0.0, ms=k_ms["dist"][0],
+        plain_ms=k_ms["dist"][1], bound_ms=bnd, bound_by=by,
+        library_ms=None, shape=[n_leaves, 2],
+        alg1_ms=k_ms["alg1"][0], alg1_plain_ms=k_ms["alg1"][1], **THREEFRY))
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 3, the MoE family's shapes: K12 on an expert stack, K1 at routers
 # ---------------------------------------------------------------------------
 
@@ -2260,7 +2400,8 @@ def clear_by_spec(K):
 # phase 5: Algorithm 1 training of full-width yi-6b cut to 8 layers
 # ---------------------------------------------------------------------------
 
-TRAIN_COUNTERS = {"amax_rows": ("K", "amax_launches"),
+TRAIN_COUNTERS = {"threefry_keys": ("P", "keys_launches"),
+                  "amax_rows": ("K", "amax_launches"),
                   "uniform_quantize_rows": ("K", "quantize_launches"),
                   "uniform_dequantize_rows": ("K", "dequantize_launches"),
                   "log_dequantize": ("K", "log_dequantize_launches"),
@@ -2285,9 +2426,9 @@ def run_watched(torch, sess, steps: int):
 
     program_step, program_harvest = sess._program.step, sess.harvest_losses
 
-    def step(state, batch, hp=None):
+    def step(state, batch, hp=None, t=None):
         starts.append(nsync())
-        state, metrics = program_step(state, batch, hp)
+        state, metrics = program_step(state, batch, hp, t)
         losses.append(metrics["loss"])
         return state, metrics
 
@@ -2353,7 +2494,7 @@ def step_phases(torch, opt, p, s, grads_at, fields=("m", "v", "e")):
     def flat(tree):     # a tree's leaves as a flat dict, in one order
         return dict(enumerate(tree_leaves(tree)))
 
-    s = s._replace(**{f: {k: t.clone() for k, t in flat(
+    s = s._replace(key=s.key.clone(), **{f: {k: t.clone() for k, t in flat(
         getattr(s, f)).items()} for f in fields})
     phases = {"forward_params": 0.0, "forward_backward": 0.0, "update": 0.0,
               "apply_updates": 0.0}
@@ -2403,7 +2544,7 @@ def train(torch, dev, mods):
     # the main path, with every count at 0 just before it
     for mod, attr in TRAIN_COUNTERS.values():
         setattr(mods[mod], attr, 0)
-    K.plain_on_cuda = A.plain_on_cuda = 0
+    K.plain_on_cuda = A.plain_on_cuda = mods["P"].plain_on_cuda = 0
     params = model.init(seed=0, device=dev)
     n_params = sum(p.numel() for p in tree_leaves(params))
     sess = TrainSession.from_optimizer(
@@ -2415,7 +2556,7 @@ def train(torch, dev, mods):
     peak = torch.cuda.max_memory_allocated()
     launches = {name: getattr(mods[mod], attr)
                 for name, (mod, attr) in TRAIN_COUNTERS.items()}
-    plain = K.plain_on_cuda + A.plain_on_cuda
+    plain = K.plain_on_cuda + A.plain_on_cuda + mods["P"].plain_on_cuda
     stats = dict(sess.stats)
     vals = w["losses"]
     check_run(w, stats, launches, plain, "training", TRAIN_STEPS)
@@ -2462,7 +2603,8 @@ def train(torch, dev, mods):
         for backend in ("cuda", "torch"):
             # update consumes its state (in place): each side gets a copy
             sub = QAdamState(count=s.count, m={"x": m.clone()},
-                             v={"x": v.clone()}, e={"x": e.clone()})
+                             v={"x": v.clone()}, e={"x": e.clone()},
+                             key=s.key.clone())
             u, s2 = qadam(dataclasses.replace(ocfg, backend=backend)).update(
                 {"x": g}, sub)
             outs.append((apply_updates({"x": pl}, u)["x"], s2.m["x"],
@@ -2503,13 +2645,16 @@ ALG1_BASELINES = {
     # its update kernels' names in the profile)
     "ef_sgdm": (lambda Q, b=None: Q.ef_sgdm(
         alpha=EF_SGDM_ALPHA, beta=0.9, grad_q="blockwise:256", backend=b),
-        {"blockwise_quantize": ("K", "blockwise_quantize_launches")},
+        {"blockwise_quantize": ("K", "blockwise_quantize_launches"),
+         "threefry_keys": ("P", "keys_launches")},
         ("blockwise_kernel",)),
     "terngrad_sgd": (lambda Q, b=None: Q.terngrad_sgd(
         alpha=TERNGRAD_SGD_ALPHA, backend=b),
         {"amax_rows": ("K", "amax_launches"),
-         "ternary_quantize": ("K", "ternary_quantize_launches")},
-        ("amax_rows_kernel", "ternary_quantize_kernel")),
+         "ternary_quantize": ("K", "ternary_quantize_launches"),
+         "threefry_keys": ("P", "keys_launches"),
+         "threefry_uniform": ("P", "uniform_launches")},
+        ("amax_rows_kernel", "ternary_quantize_kernel", "threefry")),
 }
 WQUAN_COUNTERS = {"amax_rows": ("K", "amax_launches"),
                   "uniform_quantize_rows": ("K", "quantize_launches"),
@@ -2551,7 +2696,7 @@ def alg1_baselines(torch, dev, mods):
         # the main path, with every count at 0 just before it
         for mod, attr in counters.values():
             setattr(mods[mod], attr, 0)
-        K.plain_on_cuda = A.plain_on_cuda = 0
+        K.plain_on_cuda = A.plain_on_cuda = mods["P"].plain_on_cuda = 0
         opt = make(Q)
         sess = TrainSession.from_optimizer(
             opt, loss_fn, model.init(seed=0, device=dev),
@@ -2561,7 +2706,7 @@ def alg1_baselines(torch, dev, mods):
         peak = torch.cuda.max_memory_allocated()
         launches = {k: getattr(mods[mod], attr)
                     for k, (mod, attr) in counters.items()}
-        plain = K.plain_on_cuda + A.plain_on_cuda
+        plain = K.plain_on_cuda + A.plain_on_cuda + mods["P"].plain_on_cuda
         stats = dict(sess.stats)
         check_run(w, stats, launches, plain, name, BASELINE_STEPS)
         res = dict(launches=launches, losses=w["losses"], stats=stats,
@@ -2598,7 +2743,7 @@ def alg1_baselines(torch, dev, mods):
             outs = []
             for backend in ("cuda", "torch"):
                 sub = s._replace(m={"x": m.clone()}, v={"x": v.clone()},
-                                 e={"x": e.clone()})
+                                 e={"x": e.clone()}, key=s.key.clone())
                 u, s2 = make(Q, backend).update({"x": g}, sub)
                 outs.append((u["x"], s2.m["x"], s2.v["x"], s2.e["x"]))
             for what, a, b in zip(("update", "m", "v", "e"), *outs):
@@ -2649,6 +2794,21 @@ def alg1_baselines(torch, dev, mods):
         del sess, p, s, opt
     gc.collect()
     torch.cuda.empty_cache()
+    # the graphed run at phase 7's depth, for the script's seconds
+    # (tools/terngrad_probe.py times it at TRAIN_LAYERS)
+    cut = Model(dataclasses.replace(cfg, n_layers=CUT_LAYERS))
+
+    def cut_loss(p, b):
+        ls, nt = cut.loss(p, b)
+        return ls / nt
+    out["terngrad_sgd"]["graph"] = terngrad_graph(
+        torch, dev, mods, lambda chunk: TrainSession.from_optimizer(
+            ALG1_BASELINES["terngrad_sgd"][0](Q), cut_loss,
+            cut.init(seed=0, device=dev),
+            batch_for_model(cut.cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+            SessionConfig(log_every=BASELINE_STEPS, scan_chunk=chunk),
+            log=lambda *_: None), BASELINE_STEPS,
+        f"terngrad_sgd x {CUT_LAYERS} layers")
     return out
 
 
@@ -2690,6 +2850,72 @@ def trajectory(torch, la, lb, pa, pb):
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(la, lb))
     return dict(bitwise=bitwise, loss_rel=loss_rel,
                 param_rel_l2=(num / den) ** 0.5)
+
+
+def terngrad_graph(torch, dev, mods, make, steps: int, what: str):
+    """TernGrad under CUDA graphs: ``make(chunk)``'s session ``steps``
+    steps step by step and with ``scan_chunk=GRAPH_CHUNK`` (one eager
+    chunk, one capture, replays), both under deterministic algorithms:
+    every loss and every state tensor bitwise (the eager run's state held
+    on the host); one capture; the threefry kernels launched in the
+    graphed run (counts at 0 just before it: the captured launches count
+    once, replays not at all) and no plain version on the card; then the
+    graphed step's wall and device ms over whole replays, its draws'
+    device ms (the threefry kernels) and the run's peak bytes."""
+    import gc
+    from repro_torch.train.session import _tensor_leaves
+    K, A, P = mods["K"], mods["A"], mods["P"]
+    with deterministic(torch):
+        ref = make(1)
+        ref_losses = all_losses(ref, steps)
+        ref_state = [(k, x.cpu()) for k, x in _tensor_leaves(ref.state)]
+        ref.close()
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        P.keys_launches = P.uniform_launches = 0
+        K.plain_on_cuda = A.plain_on_cuda = P.plain_on_cuda = 0
+        sess = make(GRAPH_CHUNK)
+        losses = all_losses(sess, steps)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"threefry_keys": P.keys_launches,
+                "threefry_uniform": P.uniform_launches}
+    plain = K.plain_on_cuda + A.plain_on_cuda + P.plain_on_cuda
+    got = _tensor_leaves(sess.state)
+    bitwise = losses == ref_losses and [k for k, _ in got] == [
+        k for k, _ in ref_state] and all(
+        bits_equal(torch, x.cpu(), y) for (_, x), (_, y) in
+        zip(got, ref_state))
+    del ref_state, got
+    stats = dict(sess.stats)
+    if not bitwise or stats["graph_captures"] != 1 or \
+            stats["graph_replays"] != steps // GRAPH_CHUNK - 1 or \
+            min(launches.values()) == 0 or plain:
+        raise AssertionError(f"{what} with scan_chunk={GRAPH_CHUNK}: "
+                             f"bitwise the step-by-step run {bitwise} "
+                             f"(losses {losses} vs {ref_losses}), stats "
+                             f"{stats}, launches {launches}, plain {plain}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.run(2 * GRAPH_CHUNK)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / (2 * GRAPH_CHUNK) * 1e3
+    dev_ms, by_kernel = profile_ms(torch, lambda: sess.run(GRAPH_CHUNK),
+                                   steps=2)
+    dev_ms /= GRAPH_CHUNK
+    draw_ms = sum(t for k, t in by_kernel if "threefry" in k) / GRAPH_CHUNK
+    sess.close()
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(chunk=GRAPH_CHUNK, steps=steps, losses=losses,
+                bitwise=bitwise, stats=stats, launches=launches,
+                peak_bytes=peak, step_wall_ms=wall, step_device_ms=dev_ms,
+                device_idle=1 - dev_ms / wall, draw_ms=draw_ms,
+                step_kernels=[(k, t / GRAPH_CHUNK) for k, t in
+                              by_kernel[:8]])
 
 
 def graph_train(torch, dev, mods):
@@ -2741,7 +2967,7 @@ def graph_train(torch, dev, mods):
         # the main path, with every count at 0 just before it
         for mod, attr in TRAIN_COUNTERS.values():
             setattr(mods[mod], attr, 0)
-        K.plain_on_cuda = A.plain_on_cuda = 0
+        K.plain_on_cuda = A.plain_on_cuda = mods["P"].plain_on_cuda = 0
         sess = session(GRAPH_CHUNK)
         t0 = time.perf_counter()
         losses = all_losses(sess, TRAIN_STEPS)
@@ -2749,7 +2975,7 @@ def graph_train(torch, dev, mods):
         run_s = time.perf_counter() - t0
     launches = {name: getattr(mods[mod], attr)
                 for name, (mod, attr) in TRAIN_COUNTERS.items()}
-    plain = K.plain_on_cuda + A.plain_on_cuda
+    plain = K.plain_on_cuda + A.plain_on_cuda + mods["P"].plain_on_cuda
     stats = dict(sess.stats)
     peak = torch.cuda.max_memory_allocated()
     tr = trajectory(torch, losses, ref_losses,
@@ -2860,6 +3086,7 @@ def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
     readings."""
     import gc
     import torch.distributed as dist
+    from repro_torch.core import threefry
     from repro_torch.core.qadam import (QAdamConfig, QAdamState, _alpha_t,
                                         _theta_t, apply_updates, qadam)
     from repro_torch.data.pipeline import batch_for_model
@@ -2885,7 +3112,7 @@ def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
     # the main path, with every count at 0 just before it
     for mod, attr in counters.values():
         setattr(mods[mod], attr, 0)
-    K.plain_on_cuda = A.plain_on_cuda = 0
+    K.plain_on_cuda = A.plain_on_cuda = mods["P"].plain_on_cuda = 0
     sess = TrainSession.from_artifacts(
         art, batch_for_model(cfg, seq, TRAIN_BATCH, seed=0),
         SessionConfig(log_every=steps), seed=0, device=dev,
@@ -2896,7 +3123,8 @@ def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
                 for name, (mod, attr) in counters.items()}
     res.update(launches=launches, amax_launches=K.amax_launches)
     check_run(w, dict(sess.stats), launches,
-              K.plain_on_cuda + A.plain_on_cuda, what, steps, falling)
+              K.plain_on_cuda + A.plain_on_cuda + mods["P"].plain_on_cuda,
+              what, steps, falling)
     res.update(losses=w["losses"], stats=dict(sess.stats),
                syncs_at_step_starts=w["starts"],
                syncs_by_harvest=w["harvests"], sync_warnings=w["syncs"],
@@ -2935,9 +3163,9 @@ def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
         tc, exchange_bucket_bytes=0))
     one_pass.prepare(dev)
 
-    def marked_step(state, batch, hp=None):
+    def marked_step(state, batch, hp=None, t=None):
         mark("start")
-        return one_pass.step_fn(state, batch, mark=mark, hp=hp)
+        return one_pass.step_fn(state, batch, mark=mark, hp=hp, t=t)
     sess._program.step = marked_step
     try:
         sess.run(1)
@@ -3036,7 +3264,8 @@ def dist_run(torch, dev, mods, group, model, cfg, tc, counters, steps,
         if alg1 is not None:
             sub = QAdamState(count=state["count"],
                              m={"x": ms_[i].clone()}, v={"x": vs_[i].clone()},
-                             e={"x": es_[i].clone()})
+                             e={"x": es_[i].clone()},
+                             key=threefry.prng_key(0, dev))
             u, s2 = qadam(alg1).update({"x": g}, sub)
             ref = (apply_updates({"x": masters[i]}, u)["x"], s2.m["x"],
                    s2.v["x"], s2.e["x"])
@@ -3297,7 +3526,7 @@ def adaptive_train(torch, dev, mods, group, model, cfg):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = _counts(mods, ADAPT_COUNTERS)
-    plain = K.plain_on_cuda + A.plain_on_cuda
+    plain = K.plain_on_cuda + A.plain_on_cuda + mods["P"].plain_on_cuda
     stats = dict(ctl.stats)            # before the losses' own harvest
     losses = [v for _, v in sess.harvest_losses()]
     plans = [e["bit_plan"] for e in ctl.plan_log]
@@ -3397,7 +3626,7 @@ def _launch(torch, mods, counters, *flags, arch="yi-6b",
     K, A = mods["K"], mods["A"]
     for mod, attr in counters.values():
         setattr(mods[mod], attr, 0)
-    K.plain_on_cuda = A.plain_on_cuda = 0
+    K.plain_on_cuda = A.plain_on_cuda = mods["P"].plain_on_cuda = 0
     argv = ["--arch", arch, "--layers", str(layers), "--seq",
             str(seq), "--global-batch", str(TRAIN_BATCH),
             "--grad-bits", "6", "--weight-bits", "7", "--weight-absolute",
@@ -3740,7 +3969,9 @@ MODE_RUNS = {
                       mode="terngrad"),
                  {"amax_rows": ("K", "amax_launches"),
                   "encode_rows_ternary": ("K", "encode_ternary_launches"),
-                  "decode_rows_ternary": ("K", "decode_ternary_launches")}),
+                  "decode_rows_ternary": ("K", "decode_ternary_launches"),
+                  "threefry_keys": ("P", "keys_launches"),
+                  "threefry_uniform": ("P", "uniform_launches")}),
     "ef_sgd": (dict(alpha=EF_SGD_ALPHA, beta=0.9, grad_k=None, weight_k=None,
                     mode="ef_sgd"),
                {"blockwise_quantize": ("K", "blockwise_quantize_launches"),
@@ -3762,12 +3993,24 @@ MODE_EQUIV = (("dp_adam", dict(_ADAM, grad_k=None, weight_k=None,
 def modes_train(torch, dev, mods, group, model, cfg):
     """Phase 7: each baseline of MODE_RUNS through ``dist_run`` (its
     gates), then MODE_EQUIV's two equivalences."""
-    from repro_torch.dist.step import TrainConfig
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.dist.step import TrainConfig, make_train_step
+    from repro_torch.train.session import SessionConfig, TrainSession
     out = {}
     for name, (kw, counters) in MODE_RUNS.items():
         out[name] = dist_run(torch, dev, mods, group, model, cfg,
                              TrainConfig(**kw), counters, MODE_STEPS, name)
         r = out[name]
+        if name == "terngrad":
+            art = make_train_step(model, group, TrainConfig(**kw))
+            r["graph"] = terngrad_graph(
+                torch, dev, mods, lambda chunk: TrainSession.from_artifacts(
+                    art, batch_for_model(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+                    SessionConfig(log_every=MODE_STEPS, scan_chunk=chunk),
+                    seed=0, device=dev, log=lambda *_: None), MODE_STEPS,
+                name)
+            del art
+            print_terngrad_graph(name, r["graph"])
         print(f"{name}: losses {', '.join(f'{x:.4f}' for x in r['losses'])}; "
               f"wall {r['step_wall_ms']:.3f} ms, device "
               f"{r['step_device_ms']:.3f} ms (idle {r['device_idle']:.1%}), "
@@ -3797,6 +4040,18 @@ def modes_train(torch, dev, mods, group, model, cfg):
         print(f"{name} ({a}) vs qadam ({b}), {eq['steps']} steps: bitwise "
               f"{eq['bitwise']}; losses {eq['losses']}", flush=True)
     return out
+
+
+def print_terngrad_graph(name, g):
+    print(f"{name} with scan_chunk={g['chunk']} on the card ({g['steps']} "
+          f"steps): bitwise the step-by-step run {g['bitwise']}; stats "
+          f"{g['stats']}; launches {g['launches']}; graphed step wall "
+          f"{g['step_wall_ms']:.3f} ms, device {g['step_device_ms']:.3f} ms "
+          f"(idle {g['device_idle']:.1%}), the draws (threefry kernels) "
+          f"{g['draw_ms']:.3f} ms ({g['draw_ms'] / g['step_device_ms']:.1%} "
+          f"of the device step); peak {g['peak_bytes']} B", flush=True)
+    for kname, t in g["step_kernels"]:
+        print(f"  {t:9.4f} ms  {kname[:90]}")
 
 
 def _session_run(torch, dev, group, model, cfg, tc, steps):
@@ -4024,6 +4279,7 @@ def paper_parity(torch, dev, ex):
     ``compute_scale``/``quantize``/``dequantize`` on the update it would
     broadcast, bitwise; WQuan after training, bitwise. Returns the
     tensors compared per method."""
+    from repro_torch.core import threefry
     data = ex.classification_dataset(ex.ClsDataConfig(seed=1), device=dev)
     xtr, ytr = data[0], data[1]
     p0 = ex.mlp_init(0, xtr.shape[1], ex.HIDDEN, int(ytr.max()) + 1, dev)
@@ -4044,7 +4300,9 @@ def paper_parity(torch, dev, ex):
             opts = {b: ex.build(kind, dict(kw, backend=b)) for b in backends}
             codec = ex.get_codec(srv_q) if srv_q else None
             params = clone(p0)
-            state = opts["cuda"].init(params)._replace(worker=3)
+            state = opts["cuda"].init(params)
+            state = state._replace(key=threefry.fold_in(
+                state.key.cpu(), 3).to(dev))
             batches = ex.classification_batches(xtr, ytr, 128, seed=3)
             n = 0
             for _ in range(PARITY_STEPS):
@@ -4057,7 +4315,8 @@ def paper_parity(torch, dev, ex):
                 outs = {}
                 for b in backends:
                     st = state._replace(m=clone(state.m), v=clone(state.v),
-                                        e=clone(state.e))
+                                        e=clone(state.e),
+                                        key=state.key.clone())
                     outs[b] = opts[b].update(g, st, params)
                 (uc, sc), (ut, st) = outs["cuda"], outs["torch"]
                 for k in params:
@@ -4109,7 +4368,7 @@ def paper_protocol(torch, dev, mods):
     for mode in ("qadam", "efadam"):
         for mod, attr in PAPER_COUNTERS.values():
             setattr(mods[mod], attr, 0)
-        K.plain_on_cuda = A.plain_on_cuda = 0
+        K.plain_on_cuda = A.plain_on_cuda = mods["P"].plain_on_cuda = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rows = ex.compare(mode, steps=PAPER_STEPS, seeds=1, workers=8,
@@ -4119,7 +4378,7 @@ def paper_protocol(torch, dev, mods):
         run_s = time.perf_counter() - t0
         launches = {k: getattr(mods[mod], attr)
                     for k, (mod, attr) in PAPER_COUNTERS.items()}
-        plain = K.plain_on_cuda + A.plain_on_cuda
+        plain = K.plain_on_cuda + A.plain_on_cuda + mods["P"].plain_on_cuda
         if not all(math.isfinite(a) for _, a, _ in rows):
             raise AssertionError(f"paper {mode}: an accuracy is not finite: "
                                  f"{rows}")
@@ -4147,7 +4406,7 @@ def paper_adaptive(torch, dev, mods, ex):
     K, A = mods["K"], mods["A"]
     for mod, attr in PAPER_COUNTERS.values():
         setattr(mods[mod], attr, 0)
-    K.plain_on_cuda = A.plain_on_cuda = 0
+    K.plain_on_cuda = A.plain_on_cuda = mods["P"].plain_on_cuda = 0
     clear_by_spec(K)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4169,7 +4428,7 @@ def paper_adaptive(torch, dev, mods, ex):
     launches = {k: getattr(mods[mod], attr)
                 for k, (mod, attr) in PAPER_COUNTERS.items()}
     launches.update(by_spec_launches(K))
-    plain = K.plain_on_cuda + A.plain_on_cuda
+    plain = K.plain_on_cuda + A.plain_on_cuda + mods["P"].plain_on_cuda
     need = [lane_row(n, s) for n in ("log_quantize", "log_dequantize")
             for s in ("log:30", "log:126")]
     losses = [r["loss"] for r in results.values()] + [
@@ -7189,6 +7448,7 @@ def main() -> int:
     from repro_torch.comm import matmul as MM
     from repro_torch.kernels import adam_ef as A
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import prng
     from repro_torch.serve import paged
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7345,6 +7605,18 @@ def main() -> int:
                   f"pack plain {t['pack_plain_ms']:.4f}, bound each way "
                   f"{t['bound_ms']:.4f} (bytes)", flush=True)
 
+    tf_rows = check_threefry(torch, dev, train_leaves(torch))
+    tu, tk = tf_rows
+    print(f"threefry (the reference's draws; no Pallas kernel): uniforms and "
+          f"both key chains bitwise against their plain versions; uniforms "
+          f"at {tu['shape'][0]} elements {tu['ms']:.4f} ms "
+          f"({tu['bound_ms'] / tu['ms']:.1%} of its {tu['bound_ms']:.4f} ms "
+          f"bound, {tu['bound_by']}) plain {tu['plain_ms']:.4f} torch.rand "
+          f"(Philox, not the same function) {tu['library_ms']:.4f}; keys at "
+          f"{tk['shape'][0]} leaves: distributed chain {tk['ms']:.4f} ms "
+          f"(plain {tk['plain_ms']:.4f}), Algorithm 1's {tk['alg1_ms']:.4f} "
+          f"(plain {tk['alg1_plain_ms']:.4f}), bound {tk['bound_ms']:.6f}",
+          flush=True)
     moe_table = check_moe_shapes(torch, dev, MM)
     print("the MoE family's shapes: K12 on a code-resident deepseek-moe-16b "
           "expert stack (a sliced layer's codes a view, bitwise its plain "
@@ -7377,7 +7649,7 @@ def main() -> int:
     phase_s["3"] = time.perf_counter() - t3
     print(f"phase 3: {phase_s['3']:.1f} s", flush=True)
 
-    mods = {"K": K, "A": A}
+    mods = {"K": K, "A": A, "P": prng}
     smods = {"MM": MM, "paged": paged, "K": K}
     res = timed("4", serve, torch, dev, smods)
     torch.cuda.empty_cache()
@@ -7479,7 +7751,7 @@ def main() -> int:
     perf_res = timed("perf", perf_phase, torch, dev, dict(mods, MM=MM),
                      build, model8, cfg8)
     print_perf(perf_res, card)
-    rows += t_rows + w_rows + dl_rows + e_rows + s_rows
+    rows += t_rows + w_rows + dl_rows + e_rows + s_rows + tf_rows
     for r in rows:
         by_path = {"serve": res["launches"].get(r["name"], 0),
                    "serve_gemma2": gem["launches"].get(r["name"], 0),
@@ -7511,6 +7783,10 @@ def main() -> int:
         by_path.update({f"alg1_{m}": bl[m]["launches"].get(r["name"], 0)
                         for m in ALG1_BASELINES})
         by_path["wquan"] = bl["wquan"]["launches"].get(r["name"], 0)
+        by_path["alg1_terngrad_sgd_graph"] = bl["terngrad_sgd"]["graph"][
+            "launches"].get(r["name"], 0)
+        by_path["terngrad_graph"] = md["terngrad"]["graph"][
+            "launches"].get(r["name"], 0)
         by_path.update({m: md[m]["launches"].get(r["name"], 0)
                         for m in MODE_RUNS})
         by_path["wire"] = wb["launches"].get(r["name"], 0)
@@ -7634,6 +7910,8 @@ def main() -> int:
               flush=True)
         for kname, t in b["step_kernels"][:6]:
             print(f"  {t:9.4f} ms  {kname[:90]}")
+    print_terngrad_graph(f"terngrad_sgd (yi-6b x {CUT_LAYERS} layers)",
+                         bl["terngrad_sgd"]["graph"])
     wq = bl["wquan"]
     print(f"wquan(k_x=7, amax) of the trained parameters: {wq['ms']:.3f} ms; "
           f"launches {wq['launches']}; rel L2 to the trained weights "

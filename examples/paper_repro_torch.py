@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.comm.codec import get_codec
+from repro_torch.core import threefry
 from repro_torch.core.qadam import (QAdamConfig, apply_updates, ef_sgdm,
                                     qadam, terngrad_sgd, wquan)
 from repro_torch.data.pipeline import (ClsDataConfig, classification_batches,
@@ -82,11 +83,22 @@ def _grads(p, x, y):
     return dict(zip(leaves, gs))
 
 
+def _worker_states(opt, params, n_workers: int):
+    """Each worker's own optimizer state, its PRNG key the optimizer's
+    folded with the worker index (``fold_in(key, w)``), as the
+    reference's protocol keys its workers."""
+    states = [opt.init(params) for _ in range(n_workers)]
+    return [s._replace(key=threefry.fold_in(s.key.cpu(), w).to(s.key.device))
+            for w, s in enumerate(states)]
+
+
 @torch.no_grad()
 def run(opt, steps, data, params, batch=128, seed=0, n_workers=8,
         server_q=None, server_ef=True):
     """The multi-worker protocol: each worker takes its own minibatch and
-    its own optimizer state (``worker`` keys its draws); the server
+    its own optimizer state (its key the optimizer's folded with the
+    worker index, so TernGrad's draws are independent across workers and
+    the reference's); the server
     applies the mean of the workers' (quantized) updates, Algorithm 2.
     The workers run one after another, in a loop.
 
@@ -96,7 +108,7 @@ def run(opt, steps, data, params, batch=128, seed=0, n_workers=8,
     protocol, Chen et al. '22). Returns the final parameters."""
     xtr, ytr = data[0], data[1]
     params = {k: v.clone() for k, v in params.items()}
-    states = [opt.init(params)._replace(worker=w) for w in range(n_workers)]
+    states = _worker_states(opt, params, n_workers)
     codec = get_codec(server_q) if server_q else None
     es = {k: torch.zeros_like(v) for k, v in params.items()}
     its = [classification_batches(xtr, ytr, batch, seed=seed + w)
@@ -176,7 +188,7 @@ def run_quantized(steps, data, params, *, batch=128, seed=0, n_workers=8,
     device = xtr.device
     params = {k: v.clone() for k, v in params.items()}
     opt = qadam(QAdamConfig(alpha=2e-3, grad_q=None, weight_q=None))
-    states = [opt.init(params)._replace(worker=w) for w in range(n_workers)]
+    states = _worker_states(opt, params, n_workers)
     es = [{k: torch.zeros_like(v) for k, v in params.items()}
           for _ in range(n_workers)]
     names = sorted(params)

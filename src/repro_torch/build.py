@@ -14,9 +14,9 @@ object's key); a host without the toolkit starts from an AOT artifact
 
 Flags keep IEEE division, square root and rounding (no
 ``--use_fast_math``): the quantize, dequantize, Adam+EF, wire codec,
-blockwise, lane pack and gather kernels are held bitwise against their plain
-versions; the two products (K1 and K1t dequant-matmul) and flash
-attention (#17) sum in fp32 in orders of their own. The grids and lanes
+blockwise, lane pack, gather and threefry kernels are held bitwise against
+their plain versions; the two products (K1 and K1t dequant-matmul) and
+flash attention (#17) sum in fp32 in orders of their own. The grids and lanes
 they share live in ``csrc/grids.cuh``, the tensor-core and copy
 primitives of the tensor-core routes (K1, K1t, #17) in ``csrc/mma.cuh``;
 the hash covers both.
@@ -49,6 +49,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # every C entry point returns cudaGetLastError() after its launch
 SIGNATURES = {
     # x, codes, scale, out, ws, M, K, N, code_bits, k_x, x_bf16, w_bf16,
@@ -106,6 +107,10 @@ SIGNATURES = {
     # bits, k, blocks_per_sm, stream
     "rt_decode_rows": [_P, _P, _P, _I, _P, _L, _I, _L, _L, _I, _I, _I, _I,
                        _P],
+    # keys_out, key, seed_hi, seed_lo, t, n_leaves, worker, mode, stream
+    "rt_threefry_keys": [_P, _P, _U, _U, _P, _I, _U, _I, _P],
+    # out, n, start, keys, leaf, stream
+    "rt_threefry_uniform": [_P, _L, _L, _P, _I, _P],
     # x, codes, scales, n, nb, log2 block, stream
     "rt_blockwise_quantize": [_P, _P, _P, _L, _L, _I, _P],
     # x, payload, scales, n, nb, payload_bytes, log2 block, stream

@@ -49,7 +49,8 @@ _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16, "float64": torch.float64,
                  "int8": torch.int8, "int16": torch.int16,
                  "int32": torch.int32, "int64": torch.int64,
-                 "uint8": torch.uint8, "bool": torch.bool}
+                 "uint8": torch.uint8, "uint32": torch.uint32,
+                 "bool": torch.bool}
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -77,11 +78,7 @@ def _from_bytes(raw: np.ndarray, dtype: str, shape) -> torch.Tensor:
     raw = np.ascontiguousarray(raw).view(np.uint8)
     if not raw.flags.writeable:
         raw = raw.copy()
-    t = torch.from_numpy(raw)
-    if dtype == "uint32":   # the reference's PRNG key; held as int64
-        vals = raw.view(np.uint32).astype(np.int64)
-        return torch.from_numpy(vals).reshape(shape)
-    return t.view(_TORCH_DTYPES[dtype]).reshape(shape)
+    return torch.from_numpy(raw).view(_TORCH_DTYPES[dtype]).reshape(shape)
 
 
 def _step_dirname(step: int) -> str:

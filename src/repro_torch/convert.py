@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import threefry
 from repro_torch.core.qadam import QAdamState
 from repro_torch.serve.quantized import QuantizedLeaf
 
@@ -57,13 +58,15 @@ def params_from_numpy(tree, device="cuda", *, layout=None, index: int = 0):
 
 
 def qadam_state_from_numpy(state, device="cuda") -> QAdamState:
-    """A reference ``QAdamState`` with numpy leaves (count, m, v, e; its
-    PRNG key feeds only the stochastic quantizers, which the port does
-    not have) -> the port's, with the step count on the host."""
+    """A reference ``QAdamState`` with numpy leaves (count, m, v, e, and
+    the PRNG key the stochastic quantizers draw under, uint32 (2,)) ->
+    the port's, with the step count on the host and the key as the port
+    holds it (``core.threefry``: int32 bit patterns on ``device``)."""
     return QAdamState(count=int(np.asarray(state.count)),
                       m=params_from_numpy(state.m, device),
                       v=params_from_numpy(state.v, device),
-                      e=params_from_numpy(state.e, device))
+                      e=params_from_numpy(state.e, device),
+                      key=threefry.key_from_uint32(state.key, device))
 
 
 def dist_state_from_numpy(state, rank: int, n_workers: int, device="cuda",

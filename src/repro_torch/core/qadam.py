@@ -23,10 +23,16 @@ step; a full-width model's state would not fit twice on one card).
 
 The baselines: ``ef_sgdm`` (blockwise-compressed momentum SGD with error
 feedback, Zheng et al. '19), ``terngrad_sgd`` (Wen et al. '17) and
-``wquan`` (the weights quantized once, after training). A stochastic
-quantizer's uniforms come from ``core.uniforms.draw_uniform`` keyed by
-(seed, step, leaf, the state's ``worker``): the reference splits a key
-per step and leaf instead, which torch cannot reproduce.
+``wquan`` (the weights quantized once, after training).
+
+The state holds the reference's PRNG key (``key``, a (2,) int32 tensor on
+the device, ``core.threefry``), initialised to ``PRNGKey(seed)``. Every
+update does the reference's ``key, sub = split(key)``, the key written
+over in place (one launch on the card, ``core.uniforms.advance_keys``),
+and a stochastic quantizer (TernGrad) draws leaf l's uniforms under
+``split(sub, L)[l]``, l the leaf's index in the reference's sorted leaf
+order: the reference's draws, bitwise. Nothing of it reads the host, so
+a CUDA graph of K steps replays with each step's own draws.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import uniforms
+from repro_torch.core import threefry, uniforms
 from repro_torch.core.quantizers import (IdentityQuantizer, LogGradQuantizer,
                                          Quantizer, get_quantizer)
 from repro_torch.opt import engine
@@ -73,8 +79,8 @@ class QAdamState(NamedTuple):
     m: Any        # first moment, per param
     v: Any        # second moment, per param
     e: Any        # error-feedback residual, per param
-    worker: int = 0   # keys the stochastic quantizers' draws (the
-    #                   reference's per-worker PRNG key)
+    key: torch.Tensor   # the stochastic quantizers' PRNG key: (2,) int32
+    #                     on the device, the reference's two uint32 words
 
 
 class Optimizer(NamedTuple):
@@ -86,8 +92,6 @@ class Optimizer(NamedTuple):
     # row when no ``hp`` is given; a K-step dispatch fills a static table
     # from it and passes the rows (train.session)
     hp_row: Optional[Callable] = None
-    stochastic: bool = False   # the update draws uniforms (TernGrad)
-    seed: int = 0              # keys the draws; checkpoints write it
 
 
 def _alpha_t(cfg: QAdamConfig, t: int) -> np.float32:
@@ -113,19 +117,27 @@ def _zeros_like_tree(params):
                     params)
 
 
-def _init_state(params) -> QAdamState:
-    return QAdamState(count=0, m=_zeros_like_tree(params),
-                      v=_zeros_like_tree(params), e=_zeros_like_tree(params))
+def _state_init(seed: int):
+    def init(params) -> QAdamState:
+        dev = tree_leaves(params)[0].device
+        return QAdamState(count=0, m=_zeros_like_tree(params),
+                          v=_zeros_like_tree(params),
+                          e=_zeros_like_tree(params),
+                          key=threefry.prng_key(seed, dev))
+    return init
 
 
-def _leaf_draws(grads, seed: int, t: int, worker: int):
-    """An iterator over the leaves in ``tree_map`` order of functions
-    ``draw(n)``: the leaf's uniforms of this step and worker, keyed by
-    its index in the reference's (sorted) leaf order."""
-    dev = tree_leaves(grads)[0].device
-    for i in sorted_leaf_index(grads):
-        yield lambda n, i=i: uniforms.draw_uniform(seed, t, i, worker, n,
-                                                   dev)
+def _leaf_draws(grads, state: QAdamState, stochastic: bool, backend):
+    """The step's key split, the state key advanced in place now; an
+    iterator over the leaves in ``tree_map`` order of functions
+    ``draw(n)``: the leaf's uniforms under its subkey, keyed by its index
+    in the reference's (sorted) leaf order (no table where nothing is
+    drawn)."""
+    order = sorted_leaf_index(grads)
+    keys = uniforms.advance_keys(state.key, len(order) if stochastic else 0,
+                                 backend=backend)
+    return iter([lambda n, i=i: uniforms.draw(keys, i, n, backend=backend)
+                 for i in order])
 
 
 def _quantize(gq: Quantizer, x: torch.Tensor, draw, backend):
@@ -160,7 +172,7 @@ def qadam(cfg: QAdamConfig, seed: int = 0) -> Optimizer:
         if hp is None:
             hp = engine.hyperparams(*hp_row(t), tree_leaves(grads)[0].device)
         bk = cfg.backend
-        draws = _leaf_draws(grads, seed, t, state.worker)
+        draws = _leaf_draws(grads, state, gq.codec.stochastic, bk)
 
         def leaf(g, m, v, e):
             draw = next(draws)
@@ -182,9 +194,8 @@ def qadam(cfg: QAdamConfig, seed: int = 0) -> Optimizer:
         upd = tree_map(leaf, grads, state.m, state.v, state.e)
         return upd, state._replace(count=t)
 
-    return Optimizer(init=_init_state, update=update,
-                     forward_params=forward_params, hp_row=hp_row,
-                     stochastic=gq.codec.stochastic, seed=seed)
+    return Optimizer(init=_state_init(seed), update=update,
+                     forward_params=forward_params, hp_row=hp_row)
 
 
 def _unquantized(params, state=None):
@@ -211,7 +222,7 @@ def ef_sgdm(alpha: float = 0.1, beta: float = 0.9,
         if hp is None:
             hp = engine.hyperparams(*hp_row(t), tree_leaves(grads)[0].device)
         a_t = hp[0]
-        draws = _leaf_draws(grads, seed, t, state.worker)
+        draws = _leaf_draws(grads, state, gq.codec.stochastic, backend)
 
         def leaf(g, m, e):
             draw = next(draws)
@@ -224,9 +235,8 @@ def ef_sgdm(alpha: float = 0.1, beta: float = 0.9,
         upd = tree_map(leaf, grads, state.m, state.e)
         return upd, state._replace(count=t)
 
-    return Optimizer(init=_init_state, update=update,
-                     forward_params=_unquantized, hp_row=hp_row,
-                     stochastic=gq.codec.stochastic, seed=seed)
+    return Optimizer(init=_state_init(seed), update=update,
+                     forward_params=_unquantized, hp_row=hp_row)
 
 
 def terngrad_sgd(alpha: float = 0.1, schedule: str = "constant",
@@ -245,7 +255,7 @@ def terngrad_sgd(alpha: float = 0.1, schedule: str = "constant",
         if hp is None:
             hp = engine.hyperparams(*hp_row(t), tree_leaves(grads)[0].device)
         a_t = hp[0]
-        draws = _leaf_draws(grads, seed, t, state.worker)
+        draws = _leaf_draws(grads, state, True, backend)
 
         def leaf(g):
             # -(Q(g) a_t) is Q(g) (-a_t) bit for bit
@@ -254,9 +264,8 @@ def terngrad_sgd(alpha: float = 0.1, schedule: str = "constant",
 
         return tree_map(leaf, grads), state._replace(count=t)
 
-    return Optimizer(init=_init_state, update=update,
-                     forward_params=_unquantized, hp_row=hp_row,
-                     stochastic=True, seed=seed)
+    return Optimizer(init=_state_init(seed), update=update,
+                     forward_params=_unquantized, hp_row=hp_row)
 
 
 def apply_updates(params, updates):

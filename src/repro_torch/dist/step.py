@@ -23,7 +23,11 @@ One step on each rank (worker):
      token count), reduce-scattered onto its shards;
   3. the mode's update (``repro_torch.dist.modes``; the paper's
      ``qadam``: K15 Adam+EF, K7 log codes to payload rows; stochastic
-     codecs draw their uniforms from :func:`draw_uniform`);
+     codecs draw the reference's threefry uniforms, leaf l's under
+     ``fold_in(fold_in(fold_in(PRNGKey(seed), t), l), worker)``: one
+     launch makes the step's key table from t in device memory at the
+     first draw, ``core.uniforms``; :func:`draw_uniform` is the same
+     draw for one (step, leaf, worker));
   4. the update exchange: all-to-all of the payload rows, K6 decode of
      every worker's codes for this server's chunk with that worker's
      scale, and ``chunk - worker_mean(rows)`` into the master chunk;
@@ -33,7 +37,9 @@ and the global loss as sum(s) / sum(n) over every rank, one
 (``adaptive``) also return ``gstats``: one ``adapt.stats`` row per
 leaf, stacked in the reference's leaf order and reduced over every rank
 (two ``all_reduce``s), on the device. No step reads the device on the host: the
-step count, alpha_t and theta_t live on the host.
+step count, alpha_t and theta_t live on the host (a session's K-step
+dispatch hands each step its t and its hyperparameters as rows of
+device tables).
 
 State per rank (the reference's chunked layout, this rank's slice, each
 leaf flat): ``master`` this worker's float32 chunk (c elements) of its
@@ -88,7 +94,8 @@ import torch
 from repro_torch.adapt import stats as astats
 from repro_torch.comm import codec as CD
 from repro_torch.core.qadam import QAdamConfig, _alpha_t, _theta_t
-from repro_torch.core.uniforms import draw_uniform
+from repro_torch.core import uniforms
+from repro_torch.core.uniforms import draw_uniform  # noqa: F401
 from repro_torch.dist import collectives as C
 from repro_torch.dist import sharding as SH
 from repro_torch.dist import topology as T
@@ -562,16 +569,18 @@ def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
             C.all_reduce(g, grid.model)
         return g
 
-    def update(state, grads, mark: Optional[Callable] = None, hp=None):
+    def update(state, grads, mark: Optional[Callable] = None, hp=None,
+               t=None):
         """3+4. per-worker update and the mode's exchange, leaf by leaf,
         into the state's tensors; consumes ``grads`` (each entry freed
         after use). ``mark(name)``, when given, is called at the end of
         each leaf's "update_exchange" and "master_update". ``hp``: the
-        step's (4,) device row of ``hp_row(count + 1)``, made here when
-        not given."""
-        return update_stats(state, grads, mark, hp)[0]
+        step's (4,) device row of ``hp_row(count + 1)``, and ``t``: count
+        + 1 as a (1,) int64 device tensor, each made here when not
+        given."""
+        return update_stats(state, grads, mark, hp, t)[0]
 
-    def update_begin(state, hp=None):
+    def update_begin(state, hp=None, t_dev=None):
         """The per-step context the leaf updates share."""
         masters = flat(state["master"])
         ms, vs, es = (flat(state[k]) for k in ("m", "v", "e"))
@@ -581,17 +590,27 @@ def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
             hp = engine.hyperparams(*hp_row(t), dev)
         rows = [None] * len(metas_flat) if mode.emits_stats else None
         return dict(masters=masters, ms=ms, vs=vs, es=es, t=t, dev=dev,
-                    hp=hp, rows=rows)
+                    hp=hp, rows=rows, t_dev=t_dev, keys=None)
+
+    def draw_keys(u):
+        """The step's (L, 2) key table, made at the step's first draw."""
+        if u["keys"] is None:
+            if u["t_dev"] is None:
+                u["t_dev"] = uniforms.step_tensor(u["t"], u["dev"])
+            u["keys"] = uniforms.step_keys(tc.seed, u["t_dev"],
+                                           len(metas_flat), draw_worker,
+                                           backend=tc.backend)
+        return u["keys"]
 
     def update_leaf(u, i, g, mark=None):
         """3+4 for leaf i (layout order) with its gradient g (None: no
         gradient reached it, zeros)."""
-        meta, t, dev = metas_flat[i], u["t"], u["dev"]
+        meta, dev = metas_flat[i], u["dev"]
         g = (torch.zeros(meta.numel, dtype=torch.float32, device=dev)
              if g is None else g.reshape(-1).to(torch.float32))
 
-        def draw(n, i=draw_index[i]):   # looked up at call time
-            return draw_uniform(tc.seed, t, i, draw_worker, n, dev)
+        def draw(n, i=draw_index[i]):
+            return uniforms.draw(draw_keys(u), i, n, backend=tc.backend)
         out = updater(g, u["ms"][i], u["vs"][i], u["es"][i],
                       u["masters"][i], meta, u["hp"], mark=mark, draw=draw,
                       idx=draw_index[i])
@@ -603,10 +622,10 @@ def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
         return (dict(state, count=u["t"]),
                 None if rows is None else torch.stack(rows))
 
-    def update_stats(state, grads, mark=None, hp=None):
+    def update_stats(state, grads, mark=None, hp=None, t=None):
         """``update``, and the local stats rows ((n_leaves, 3) in the
         reference's leaf order) where the mode emits them, else None."""
-        u = update_begin(state, hp)
+        u = update_begin(state, hp, t)
         for i in range(len(metas_flat)):
             g = grads[i]
             grads[i] = None
@@ -614,11 +633,11 @@ def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
             del g
         return update_end(state, u)
 
-    def bucketed_step(state, xs, batch, hp=None):
+    def bucketed_step(state, xs, batch, hp=None, t=None):
         """2-4 with the update and exchange launched a bucket at a time
         from the backward's gradient hooks (see the module docstring);
         returns ``(loss, state', stats rows)``."""
-        u = update_begin(state, hp)
+        u = update_begin(state, hp, t)
         on_card = u["dev"].type == "cuda"
         side = _side_stream(u["dev"]) if on_card else None
         main = torch.cuda.current_stream(u["dev"]) if on_card else None
@@ -677,16 +696,18 @@ def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
         state, rows = update_end(state, u)
         return loss, state, rows
 
-    def step_fn(state, batch, mark: Optional[Callable] = None, hp=None):
+    def step_fn(state, batch, mark: Optional[Callable] = None, hp=None,
+                t=None):
         """One step; ``mark(name)`` (optional) is called at the end of
         "broadcast" and "forward_backward" and, in the single pass,
         within ``update`` (with buckets "forward_backward" ends after
-        the updates the backward overlapped); ``hp`` as in ``update``."""
+        the updates the backward overlapped); ``hp`` and ``t`` as in
+        ``update``."""
         xs = broadcast(state)
         if mark:
             mark("broadcast")
         if hooked:
-            loss, state, rows = bucketed_step(state, xs, batch, hp)
+            loss, state, rows = bucketed_step(state, xs, batch, hp, t)
             del xs
             if mark:
                 mark("forward_backward")
@@ -695,7 +716,7 @@ def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
             del xs
             if mark:
                 mark("forward_backward")
-            state, rows = update_stats(state, grads, mark, hp)
+            state, rows = update_stats(state, grads, mark, hp, t)
         metrics = {"loss": loss}
         if rows is not None:
             metrics["gstats"] = astats.reduce_stats(

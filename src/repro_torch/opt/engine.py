@@ -75,8 +75,8 @@ def quantize_ternary(x: torch.Tensor, u: torch.Tensor,
     """Unbiased stochastic ternary codes + amax scale -> (int8 codes,
     scale): the scale ``where(amax > 0, amax, 1)`` (K3's amax), then #13
     on the uniforms ``u`` (x's numel, in [0, 1)), drawn outside the kernel
-    as the reference draws them outside its kernel (here by the caller:
-    torch has no threefry)."""
+    as the reference draws them outside its kernel (here by the caller,
+    ``core.uniforms``: the reference's threefry draws)."""
     x32 = x.to(torch.float32)
     scale = amax_scale(K.amax_rows(x32.reshape(1, -1), backend=backend)[0])
     return K.ternary_quantize(x32, u, scale, backend=backend), scale
@@ -103,28 +103,38 @@ def _host_rows(rows) -> torch.Tensor:
 
 class HyperparamTable:
     """A static (K, 4) float32 table of [alpha_t, beta, theta_t, eps] rows
-    on the device, for K steps in one dispatch: the host fills the rows
-    of the next steps before the dispatch (a non-blocking copy from
-    pinned memory on the current stream, outside any graph), and step i
-    of the dispatch is given ``table[i]`` as its ``hp``. A CUDA graph of
-    the K steps captures the rows' addresses, never their values, so
-    each replay reads the values the host filled for it."""
+    on the device, for K steps in one dispatch, and beside it a (K,)
+    int64 table of the steps' counts t: the host fills the rows and
+    counts of the next steps before the dispatch (non-blocking copies
+    from pinned memory on the current stream, outside any graph), and
+    step i of the dispatch is given ``table[i]`` as its ``hp`` and
+    ``table.step(i)`` as its device t (what the distributed chain's
+    threefry keys fold, ``core.uniforms.step_keys``). A CUDA graph of the
+    K steps captures the addresses, never the values, so each replay
+    reads the values the host filled for it."""
 
     def __init__(self, k: int, device):
         self.device = torch.device(device)
         self.table = torch.zeros((k, 4), dtype=torch.float32,
                                  device=self.device)
+        self.steps = torch.zeros((k,), dtype=torch.int64, device=self.device)
 
-    def fill(self, rows) -> None:
+    def fill(self, rows, steps) -> None:
         """Rows 0 .. len(rows)-1 from the host, the same float32 roundings
-        as :func:`hyperparams`."""
+        as :func:`hyperparams`, and their steps' counts."""
         hp = _host_rows(rows)
+        ts = torch.tensor(steps, dtype=torch.int64)
         if self.device.type == "cuda":
-            hp = hp.pin_memory()
+            hp, ts = hp.pin_memory(), ts.pin_memory()
         self.table[:len(rows)].copy_(hp, non_blocking=True)
+        self.steps[:len(ts)].copy_(ts, non_blocking=True)
 
     def __getitem__(self, i: int) -> torch.Tensor:
         return self.table[i]
+
+    def step(self, i: int) -> torch.Tensor:
+        """Step i's count t, a (1,) int64 view on the device."""
+        return self.steps[i:i + 1]
 
 
 def hyperparams(alpha_t, beta, theta_t, eps, device) -> torch.Tensor:

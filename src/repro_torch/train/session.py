@@ -25,22 +25,24 @@ The hot loop does not wait on the device in steady state:
     boundary (and after the first and last dispatch of a run), never per
     step. ``stats`` counts ``dispatches`` and ``syncs`` as the reference
     does, so a test can assert that steady-state steps make zero host
-    syncs. The step count, alpha_t and theta_t live on the host.
+    syncs. The step count, alpha_t and theta_t live on the host; a
+    dispatch copies its steps' counts to the device beside their
+    hyperparameters.
   * **scan chunks** - ``scan_chunk = K > 1`` runs K steps a dispatch. On
     a CUDA device a dispatch of K steps is one ``torch.cuda.CUDAGraph``
     replay: the first runs eagerly (the warm-up: real training that
     initializes cuBLAS, NCCL and the kernels' tables), then the K steps
     are captured (capture executes nothing) and every later K-step
     dispatch replays them. The graph's inputs are static: the batch is
-    copied into a (K, ...) buffer, the hyperparameters come from a (K, 4)
-    table the host fills before each replay
-    (``opt.engine.HyperparamTable``), the K losses land in a (K,)
-    buffer, and the state is updated in place. On the CPU a dispatch is
-    the K steps in a loop. A tail of fewer steps runs eagerly.
-    ``stats["graph_captures"]`` and ``stats["graph_replays"]`` count
-    them. Modes whose quantizer draws uniforms from a host-seeded
-    generator (``terngrad``, ``terngrad_sgd``) are refused with K > 1 on
-    CUDA (ROADMAP.md queue 2: a counter-based generator in the kernel).
+    copied into a (K, ...) buffer, the hyperparameters and the steps'
+    counts come from a (K, 4) and a (K,) table the host fills before
+    each replay (``opt.engine.HyperparamTable``), the K losses land in a
+    (K,) buffer, and the state is updated in place. On the CPU a
+    dispatch is the K steps in a loop. A tail of fewer steps runs
+    eagerly. ``stats["graph_captures"]`` and ``stats["graph_replays"]``
+    count them. TernGrad's draws run in the graph too: their threefry
+    keys come from the state key (Algorithm 1, advanced in place) or
+    from the step's count in the device table (Algorithms 2+3).
   * **checkpoints** - at a ``ckpt_every`` boundary the state is copied to
     pinned host buffers on a side stream (the compute stream waits for
     that copy before the next step's in-place writes; a device copy of a
@@ -188,12 +190,12 @@ def _replaced(before: List[tuple], after) -> List[str]:
 
 
 class _Chunks:
-    """K steps of ``step(state, batch_i, hp_i) -> (state, outs or None)``
-    a dispatch (``outs`` a tuple of device tensors: the loss, and the
-    stats rows where the mode emits them), state updated in place, the
-    step count read and set through ``get_count`` / ``set_count`` (a
-    host int). Step t's hyperparameters ``hp_row(t)`` reach it as row i
-    of a static table.
+    """K steps of ``step(state, batch_i, hp_i, t_i) -> (state, outs or
+    None)`` a dispatch (``outs`` a tuple of device tensors: the loss, and
+    the stats rows where the mode emits them), state updated in place,
+    the step count read and set through ``get_count`` / ``set_count`` (a
+    host int). Step t's hyperparameters ``hp_row(t)`` and t itself reach
+    it as row i of two static tables on the device.
 
     On a CUDA device the first K-step dispatch runs eagerly (the warm-up),
     the second captures the K steps in one CUDA graph and replays it, and
@@ -224,12 +226,14 @@ class _Chunks:
         self._batch = self._outs = None
 
     def _fill(self, t0: int, k: int) -> None:
-        self.table.fill([self._hp_row(t0 + 1 + i) for i in range(k)])
+        self.table.fill([self._hp_row(t0 + 1 + i) for i in range(k)],
+                        [t0 + 1 + i for i in range(k)])
 
     def _eager(self, state, batch, k: int):
         outs = []
         for i in range(k):
-            state, out = self._step(state, _row(batch, i), self.table[i])
+            state, out = self._step(state, _row(batch, i), self.table[i],
+                                    self.table.step(i))
             outs.append(out)
         if outs[0] is None:
             return state, None
@@ -254,7 +258,7 @@ class _Chunks:
                 st = state
                 for i in range(self.k):
                     st, out = self._step(st, _row(self._batch, i),
-                                         self.table[i])
+                                         self.table[i], self.table.step(i))
                     if self._outs is not None:
                         for buf, o in zip(self._outs, out):
                             buf[i].copy_(o)
@@ -314,12 +318,13 @@ class _SingleProgram:
     ``loss_fn(forward_params, batch) -> 0-d tensor``. State is
     ``{"params": ..., "opt": QAdamState}``; its checkpoint is the
     reference's ``{"params", "opt": QAdamState._asdict()}``, the count an
-    int32 and the PRNG key ``[0, seed]`` (the port's draws are not
-    threefry; the key is written for the reference and not read back)."""
+    int32 and the PRNG key the state holds, uint32 (2,) (its
+    ``torch.uint32`` view), read back into the state's key: a resumed
+    TernGrad run draws what the unbroken one would, across the two
+    packages too."""
 
     def __init__(self, opt, loss_fn):
         self.opt, self.loss_fn = opt, loss_fn
-        self.stochastic = opt.stochastic
         self.hp_row = opt.hp_row
         self.name = "the optimizer"
 
@@ -341,7 +346,8 @@ class _SingleProgram:
     def device(self, state):
         return tree_leaves(state["params"])[0].device
 
-    def step(self, state, batch, hp=None):
+    def step(self, state, batch, hp=None, t=None):
+        # t: unused, the draws' keys come from the state key
         p, s = state["params"], state["opt"]
         fp = self.opt.forward_params(p, s)
         leaves = [l.detach().requires_grad_() for l in tree_leaves(fp)]
@@ -368,8 +374,7 @@ class _SingleProgram:
         s = state["opt"]
         return {"params": state["params"],
                 "opt": {"count": np.int32(s.count), "m": s.m, "v": s.v,
-                        "e": s.e,
-                        "key": np.array([0, self.opt.seed], np.uint32)}}
+                        "e": s.e, "key": s.key.view(torch.uint32)}}
 
     def gather(self, x):
         return x, False
@@ -406,11 +411,7 @@ class _DistProgram:
     array; rank 0 gathers the rows leaf by leaf and writes."""
 
     def __init__(self, art, device):
-        from repro_torch.dist.modes import get_mode
         self.art, self._device = art, device
-        mode = get_mode(art.config.mode)
-        self.stochastic = bool(getattr(mode.wire_codec(art.config.grad_k),
-                                       "stochastic", False))
         self.hp_row = art.hp_row
         self.name = f"mode {art.config.mode!r}"
 
@@ -427,8 +428,8 @@ class _DistProgram:
     def device(self, state):
         return tree_leaves(state["master"])[0].device
 
-    def step(self, state, batch, hp=None):
-        return self.art.step_fn(state, batch, hp=hp)
+    def step(self, state, batch, hp=None, t=None):
+        return self.art.step_fn(state, batch, hp=hp, t=t)
 
     def stats_shape(self):
         """(n_leaves, N_FIELDS) where the mode emits stats rows, else
@@ -606,14 +607,6 @@ class TrainSession:
         self._state = state if state is not None \
             else program.init_state(init_arg)
         self._device = program.device(self._state)
-        if self.chunk > 1 and self._device.type == "cuda" and \
-                program.stochastic:
-            raise NotImplementedError(
-                f"scan_chunk={self.chunk} on CUDA: {program.name} draws "
-                "TernGrad's uniforms from a generator seeded on the host "
-                "each step, which a CUDA graph would freeze; it runs with "
-                "scan_chunk=1 until its kernel draws from a counter-based "
-                "generator (ROADMAP.md queue 2)")
         # every unharvested step since the last log boundary (or stats
         # harvest) stays resident, plus one chunk of slack
         cover = max(self.cfg.log_every, self.cfg.stats_ring, 1)
@@ -678,8 +671,8 @@ class TrainSession:
         return cls(_SingleProgram(opt, loss_fn), batches, cfg,
                    init_arg=params, log=log)
 
-    def _one(self, state, batch, hp=None):
-        state, metrics = self._program.step(state, batch, hp)
+    def _one(self, state, batch, hp=None, t=None):
+        state, metrics = self._program.step(state, batch, hp, t)
         if "gstats" in metrics:
             return state, (metrics["loss"], metrics["gstats"])
         return state, (metrics["loss"],)
@@ -1062,7 +1055,7 @@ def _chunked(opt, step: Callable, donate: bool) -> Callable:
         st[1] = st[1]._replace(count=count)
         return st
 
-    def one(st, row, hp):
+    def one(st, row, hp, t=None):
         (p, s), loss = step((st[0], st[1]), row, hp)
         st[0], st[1] = p, s
         return st, None if loss is None else (loss,)
@@ -1072,11 +1065,11 @@ def _chunked(opt, step: Callable, donate: bool) -> Callable:
             params = tree_map(lambda p: p.detach().clone(), params)
             state = state._replace(**{f: tree_map(torch.clone,
                                                   getattr(state, f))
-                                      for f in ("m", "v", "e")})
+                                      for f in ("m", "v", "e", "key")})
         k = tree_leaves(stacked)[0].shape[0]
         dev = tree_leaves(params)[0].device
-        tensors = [t for tr in (params, state.m, state.v, state.e)
-                   for t in tree_leaves(tr)]
+        tensors = [t for tr in (params, state.m, state.v, state.e,
+                                state.key) for t in tree_leaves(tr)]
         key = (k, donate, tuple(t.data_ptr() for t in tensors))
         run = runners.get(key)
         if run is None:

@@ -185,11 +185,11 @@ def test_session_against_reference(models, references, name, monkeypatch):
 
 
 def test_gate_fails_on_planted_faults(models, references, monkeypatch):
-    """The port's own draws are not the reference's; a momentum of 0.89
-    is not 0.9."""
+    """Draws under another seed's key are not the reference's; a momentum
+    of 0.89 is not 0.9."""
     _, tm, jp = models
-    own = _port_session(tm, jp, TQA.terngrad_sgd(alpha=1e-2))
-    assert _gate(references["terngrad_sgd"], own, "own draws") != \
+    other = _port_session(tm, jp, TQA.terngrad_sgd(alpha=1e-2, seed=1))
+    assert _gate(references["terngrad_sgd"], other, "seed 1's draws") != \
         (True, True)
     fault = _port_session(tm, jp, TQA.ef_sgdm(alpha=1e-2, beta=0.89))
     assert _gate(references["ef_sgdm"], fault, "beta 0.89") != (True, True)
@@ -197,16 +197,20 @@ def test_gate_fails_on_planted_faults(models, references, monkeypatch):
 
 def test_state_layout_and_in_place(models):
     """The baselines keep the reference's state (m, v, e for every leaf,
-    v unused); m and e are updated in place."""
+    v unused, and the PRNG key split once a step); m, e and the key are
+    updated in place."""
     _, tm, jp = models
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     grads = jax.tree.map(lambda p: np.ones(p.shape, np.float32), jp)
     grads = params_from_numpy(grads, "cpu")
     opt = TQA.ef_sgdm(alpha=1e-2)
     s = opt.init(tp)
-    m0 = s.m["embed"]
+    m0, k0 = s.m["embed"], s.key
     _, s2 = opt.update(grads, s)
-    assert s2.m["embed"] is m0 and s2.count == 1 and s2.worker == 0
+    assert s2.m["embed"] is m0 and s2.count == 1 and s2.key is k0
+    np.testing.assert_array_equal(
+        s2.key.numpy().view(np.uint32),
+        np.asarray(jax.random.split(jax.random.PRNGKey(0))[0]))
     assert not any(t.any() for _, t in _paths(s2.v))
     assert any(t.any() for _, t in _paths(s2.e))
     assert opt.forward_params(tp) is tp

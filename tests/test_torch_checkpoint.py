@@ -8,9 +8,9 @@ restores in the reference, for Algorithm 1's state (``{"params", "opt":
 QAdamState}``) and for the distributed state at one worker (``master``,
 ``m``, ``v``, ``e``, ``count``): params, count, m, v and e equal, and
 the two packages' manifests list the same keys, names, shapes and
-dtypes. The reference's threefry key is written by the port as
-``[0, seed]`` (``jax.random.PRNGKey(seed)``) and not read back: the
-port's stochastic draws are not threefry.
+dtypes. Algorithm 1's threefry key is the state's own, written as
+uint32 and read back (``tests/test_torch_threefry_train.py`` resumes
+TernGrad runs across the packages on it).
 """
 import itertools
 import json
@@ -315,8 +315,11 @@ def test_alg1_port_checkpoint_restores_in_the_reference(tmp_path, models):
     assert jsess.resume() == 2 and jsess.step == 2
     js = jsess.state
     assert int(js["opt"].count) == 2
+    key = jax.random.PRNGKey(0)     # the port's state key, split twice
+    for _ in range(2):
+        key = jax.random.split(key)[0]
     np.testing.assert_array_equal(np.asarray(js["opt"].key),
-                                  np.asarray(jax.random.PRNGKey(0)))
+                                  np.asarray(key))
     for name, want in (("params", st["params"]), ("m", st["opt"].m),
                        ("v", st["opt"].v), ("e", st["opt"].e)):
         tree = js["params"] if name == "params" else getattr(js["opt"],

@@ -436,7 +436,8 @@ def test_training_runs_through_kernels(dev):
     outs = []
     for backend in ("cuda", "torch"):
         # update consumes its state (in place): each backend gets a copy
-        sub = type(st["opt"])(count=st["opt"].count, **{
+        sub = type(st["opt"])(count=st["opt"].count,
+                              key=st["opt"].key.clone(), **{
             f: {"embed": getattr(st["opt"], f)["embed"].clone()}
             for f in ("m", "v", "e")})
         upd, s2 = qadam(dataclasses.replace(cfg, backend=backend)).update(
@@ -735,6 +736,52 @@ def test_log_quantize_bitwise(dev, k_g, n):
                 K.log_quantize(base, s, k_g, backend="torch"))
 
 
+@pytest.mark.parametrize("n", [1, 3, 5, 4099, 2 ** 20 + 7])
+def test_threefry_uniform_bitwise(dev, n):
+    """rt_threefry_uniform against its plain version
+    (``core.threefry.uniform``): aligned (float4 stores and a tail) and
+    at an offset output (scalar stores), at a start whose counters cross
+    into the high word, and leaf 2 of a key table; one launch a call."""
+    from repro_torch.core import threefry as TF
+    from repro_torch.kernels import prng
+    keys = torch.stack([TF.prng_key(s, dev) for s in (0, 7, 2 ** 31 - 1)])
+    buf = torch.full((n + 1,), -1.0, device=dev)
+    for leaf, start in ((0, 0), (2, 0), (1, 2 ** 32 - 3)):
+        want = prng.uniform(keys, leaf, n, start, backend="torch")
+        before = prng.uniform_launches
+        got = prng.uniform(keys, leaf, n, start, backend="cuda")
+        assert prng.uniform_launches == before + 1
+        _bits_equal(got, want)
+        off = prng.uniform(keys, leaf, n, start, backend="cuda",
+                           out=buf[1:])
+        _bits_equal(off, want)
+    assert float(buf[0]) == -1.0
+    assert float(want.min()) >= 0.0 and float(want.max()) < 1.0
+
+
+@pytest.mark.parametrize("n_leaves", [0, 1, 7, 300])
+def test_threefry_keys_bitwise(dev, n_leaves):
+    """rt_threefry_keys against its plain versions: the distributed chain
+    (t read from device memory, t past 2^31, workers 0 and 3) and
+    Algorithm 1's (the table and the state key advanced in place; 300
+    leaves run past one pass of the block's threads)."""
+    from repro_torch.core import threefry as TF
+    from repro_torch.kernels import prng
+    if n_leaves:
+        for t in (1, 2 ** 31 + 5):
+            tt = torch.tensor([t], dtype=torch.int64, device=dev)
+            for worker in (0, 3):
+                _bits_equal(prng.step_keys(9, tt, n_leaves, worker,
+                                           backend="cuda"),
+                            prng.step_keys(9, tt, n_leaves, worker,
+                                           backend="torch"))
+    ka, kb = TF.prng_key(11, dev), TF.prng_key(11, dev)
+    for _ in range(3):
+        _bits_equal(prng.advance_keys(ka, n_leaves, backend="cuda"),
+                    prng.advance_keys(kb, n_leaves, backend="torch"))
+        _bits_equal(ka, kb)
+
+
 @pytest.mark.parametrize("n", [1, 3, 4099, 1000003])
 def test_ternary_quantize_bitwise(dev, n):
     """#13 against its plain version: u exactly at p = |x| / s (code 0),
@@ -827,14 +874,16 @@ def test_blockwise_any_power_of_two_on_cuda(dev):
                                   "ef_sgdm_blockwise64"])
 def test_algorithm1_baselines_run_through_kernels(dev, name):
     """Three steps of each baseline of Algorithm 1 on the smoke model on
-    the card: its kernels launch, no plain version runs, the session reads
-    the device only at its harvests; one update on the trained state
-    through the kernels equals the plain versions' (the same draws)."""
+    the card: its kernels launch (the threefry keys every step), no plain
+    version runs, the session reads the device only at its harvests; one
+    update on the trained state through the kernels equals the plain
+    versions' (the same draws: each from a copy of the state key)."""
     from repro_torch.comm import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.core import qadam as Q
     from repro_torch.data.pipeline import batch_for_model
     from repro_torch.kernels import adam_ef as A
+    from repro_torch.kernels import prng
     from repro_torch.models.model import Model
     from repro_torch.train.session import SessionConfig, TrainSession
     build = {"ef_sgdm": lambda b: Q.ef_sgdm(alpha=1e-2, backend=b),
@@ -856,7 +905,8 @@ def test_algorithm1_baselines_run_through_kernels(dev, name):
         return ls / nt
     for c in counters:
         setattr(K, c, 0)
-    K.plain_on_cuda = A.plain_on_cuda = 0
+    K.plain_on_cuda = A.plain_on_cuda = prng.plain_on_cuda = 0
+    prng.keys_launches = 0
     sess = TrainSession.from_optimizer(
         build(None), loss_fn, model.init(seed=0, device=dev),
         batch_for_model(model.cfg, 32, 2), SessionConfig(log_every=3),
@@ -865,16 +915,17 @@ def test_algorithm1_baselines_run_through_kernels(dev, name):
         sess.run(3)
     assert sess.stats["syncs"] == 2
     assert all(getattr(K, c) > 0 for c in counters)
-    assert K.plain_on_cuda == A.plain_on_cuda == 0
+    assert prng.keys_launches == 3
+    assert K.plain_on_cuda == A.plain_on_cuda == prng.plain_on_cuda == 0
     st = sess.state
     grads = {"embed": st["params"]["embed"] * 0.01 + 1e-3}
     outs = []
     for backend in ("cuda", "torch"):
         s = st["opt"]
         sub = s._replace(**{f: {"embed": getattr(s, f)["embed"].clone()}
-                            for f in ("m", "v", "e")})
+                            for f in ("m", "v", "e")}, key=s.key.clone())
         upd, s2 = build(backend).update(grads, sub)
-        outs.append((upd["embed"], s2.m["embed"], s2.e["embed"]))
+        outs.append((upd["embed"], s2.m["embed"], s2.e["embed"], s2.key))
     for x, y in zip(*outs):
         _bits_equal(x, y)
 
@@ -1700,19 +1751,61 @@ def test_chunked_train_step_graph_equals_eager(dev, deterministic):
         assert torch.equal(a, b)
 
 
-def test_session_refuses_terngrad_under_graphs(dev):
-    """A quantizer that draws uniforms from a host-seeded generator each
-    step cannot be captured: scan_chunk > 1 on CUDA is refused by name."""
+@pytest.mark.parametrize("name", ["terngrad_sgd", "qadam-terngrad"])
+def test_session_graph_equals_eager_for_terngrad(dev, deterministic, name):
+    """TernGrad under CUDA graphs: the draws' keys come from the state key,
+    split in place on the device, so one eager chunk, one capture and two
+    replays give the step-by-step session's losses and every state tensor
+    (the key too) bitwise; the threefry kernels launch and no plain
+    version runs."""
     from repro_torch.core.qadam import QAdamConfig, qadam, terngrad_sgd
     from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.kernels import prng
     from repro_torch.train.session import SessionConfig, TrainSession
     cfg, model, _, loss_fn = _smoke_training(dev)
-    for opt in (terngrad_sgd(alpha=1e-3),
-                qadam(QAdamConfig(grad_q="terngrad"))):
-        with pytest.raises(NotImplementedError, match="counter-based"):
-            TrainSession.from_optimizer(
-                opt, loss_fn, model.init(seed=0, device=dev),
-                batch_for_model(cfg, 32, 4), SessionConfig(scan_chunk=2))
+    make_opt = {"terngrad_sgd": lambda: terngrad_sgd(alpha=1e-3, seed=3),
+                "qadam-terngrad": lambda: qadam(QAdamConfig(
+                    alpha=1e-3, grad_q="terngrad"), seed=3)}[name]
+    k0, u0, p0 = prng.keys_launches, prng.uniform_launches, \
+        prng.plain_on_cuda
+    _graph_vs_eager(lambda k: TrainSession.from_optimizer(
+        make_opt(), loss_fn, model.init(seed=0, device=dev),
+        batch_for_model(cfg, 32, 4),
+        SessionConfig(log_every=2, scan_chunk=k), log=lambda *_: None))
+    assert prng.keys_launches > k0 and prng.uniform_launches > u0
+    assert prng.plain_on_cuda == p0
+
+
+def test_terngrad_checkpoint_resume_on_the_card(dev, tmp_path):
+    """An Algorithm 1 TernGrad session checkpointed after 2 steps (its
+    state key as uint32) and resumed in a new session for 2 more is
+    bitwise 4 unbroken steps, the key included."""
+    from repro_torch.core.qadam import terngrad_sgd
+    from repro_torch.data.pipeline import batch_for_model
+    from repro_torch.train.session import (SessionConfig, TrainSession,
+                                           _tensor_leaves)
+    cfg, model, _, loss_fn = _smoke_training(dev)
+
+    def sess(**kw):
+        return TrainSession.from_optimizer(
+            terngrad_sgd(alpha=1e-3, seed=5), loss_fn,
+            model.init(seed=0, device=dev), batch_for_model(cfg, 32, 4),
+            SessionConfig(log_every=0, ckpt_dir=str(tmp_path), **kw),
+            log=lambda *_: None)
+    whole = sess()
+    whole.run(4)
+    first = sess(ckpt_every=2)
+    first.run(2)
+    first.wait_for_checkpoints()
+    first.close()
+    second = sess()
+    assert second.resume() == 2
+    second.run(2)
+    for (k, x), (_, y) in zip(_tensor_leaves(whole.state),
+                              _tensor_leaves(second.state)):
+        assert torch.equal(x, y), k
+    whole.close()
+    second.close()
 
 
 def _graph_vs_eager(make, runs=(6,), chunk=2):
@@ -1786,18 +1879,21 @@ def nccl_group(dev):
     ("dp_adam", dict(grad_k=None, weight_k=None)),
     ("efadam", dict(grad_k=6, weight_k=7, weight_absolute=False)),
     ("ef_sgd", dict(beta=0.9, grad_k=None, weight_k=None)),
+    ("terngrad", dict(alpha=2e-2, grad_k=None, weight_k=None)),
 ])
 def test_distributed_session_graph_equals_eager(dev, deterministic,
                                                 nccl_group, mode, kw):
-    """Each distributed mode allowed under graphs on one NCCL rank (the
-    collectives in the graph): losses and every state tensor bitwise the
-    step-by-step session's."""
+    """Each distributed mode under graphs on one NCCL rank (the
+    collectives in the graph; TernGrad's threefry keys folded from each
+    step's t in the device step table): losses and every state tensor
+    bitwise the step-by-step session's."""
     from repro_torch.data.pipeline import batch_for_model
     from repro_torch.dist.step import TrainConfig, make_train_step
     from repro_torch.train.session import SessionConfig, TrainSession
     cfg, model, _, _ = _smoke_training(dev)
     art = make_train_step(model, nccl_group,
-                          TrainConfig(alpha=1e-3, mode=mode, **kw))
+                          TrainConfig(**dict(dict(alpha=1e-3, mode=mode),
+                                             **kw)))
     _graph_vs_eager(lambda k: TrainSession.from_artifacts(
         art, batch_for_model(cfg, 32, 4),
         SessionConfig(log_every=2, scan_chunk=k), device=dev,
