@@ -91,18 +91,34 @@ Phases, each raising on failure (exit code nonzero, no result line):
      rt_threefry_keys bitwise at 1, 12 and 300 leaves for both chains,
      then the uniforms bitwise and timed at the w_gate stack (360.7 M
      elements; torch.rand, Philox, beside it for information) and both
-     key launches timed at the cell's 12 leaves; then
+     key launches timed at the cell's 12 leaves; then Model.init's and
+     the sampling step's draws: rt_threefry_trunc_normal over the w_gate
+     stack's 8 layer keys in one launch (slabs of the first and last
+     4096 elements of layers 0 and 7 bitwise the plain version, as for
+     a 32-layer wq stack and the embedding under one key; timed beside
+     it and trunc_normal_) and rt_threefry_categorical with its fold at
+     yi-6b's (4, 64000) and (1, 64000) (phase 4's decode step and first
+     tokens), (4, 262144) and (4, 152064), greedy and sampled tokens and
+     the keys written back bitwise the plain step over 64 seeded steps
+     (ties planted), timed in a CUDA graph beside the plain step and
+     argmax(logits / t - log(-log(rand))); then
      the MoE family's shapes: K12 through ``QuantizedLeaf.dequantize`` on
      a code-resident (2, 64, 2048, 1408) int8 stack (a sliced layer's
      184,549,376 codes one row, a view of the 4-D codes), alone and with
      the pending bf16 cast, bitwise its plain version; K1 at the routers'
      shapes ((4 or 128) x 2048 x 64, x 5120 x 16) on tensor cores; timed;
-  4. serve full-width yi-6b (random weights from a seed): Model.init,
+  4. serve full-width yi-6b (random weights from a seed): Model.init
+     (the reference's key tree, each stacked leaf one truncated-normal
+     launch; its seconds beside a trunc_normal_ init of the same tree),
      quantize_params(k_x=6), a paged ServeSession (page 16, 4 slots,
      chunked prefill 32) answering 8 requests of 64-token prompts with
-     16 new tokens each; the kernels' launch counts are read around this
-     run and every one must be > 0, with no plain version on the card
-     (every K2 launch gathering a layer's K and V); the decode step's and
+     16 new tokens each, half of them sampled at temperature 0.8 (the
+     sampling step eager, captured and replayed; the tokens equal an
+     eager session's; the kernel bitwise its plain step on the session's
+     own logits, temperatures and keys); the kernels' launch counts are read around this
+     run and every one must be > 0 (the categorical kernel's among them),
+     with no plain version on the card (every K2 launch gathering a
+     layer's K and V; the Gumbel draw never plain); the decode step's and
      the chunk's wall and device time and device operations;
      then one decode step on identical state through the kernels and
      through the plain versions: relative L2 of the logits within
@@ -114,7 +130,8 @@ Phases, each raising on failure (exit code nonzero, no result line):
      replays); then, in a session of 4 slots past 32-token prompts, one
      greedy step eager and through a fresh capture and replay from
      identical state, bitwise in logits, tokens and cache, and each way's
-     wall time, device time, operations and idle share;
+     wall time, device time, operations and idle share, and the same for
+     the sampled step (every slot at temperature 0.8, the keys too);
      4b. the same for full-width gemma2-2b (26 layers, tied head, k_x = 6),
      in slots of 4224 positions, with a ninth request of 4200 prompt
      tokens: K1, K1t (on tensor cores only), K2, K3 and K4 launched, no
@@ -332,7 +349,7 @@ Phases, each raising on failure (exit code nonzero, no result line):
      reference's rtol 1e-5, both times (bf16 and float32); the aux
      loss's share of the loss; a ``--model 1`` step through the
      launcher, where no token exchange runs;
-     6g. mamba2-2.7b cut to 16 layers and hymba-1.5b cut to 4, widths
+     6g. mamba2-2.7b cut to 8 layers and hymba-1.5b cut to 4, widths
      unchanged, through phase 6f's gates (SSM_TRAIN_STEPS steps each);
      the SSD scan's device ms alone at the forward's shapes beside the
      step's phases; ``launch.train`` at mamba2 x 2 layers flat and with
@@ -341,6 +358,11 @@ Phases, each raising on failure (exit code nonzero, no result line):
      ENCDEC_TRAIN_STEPS steps of 2 x 448 tokens and 2 x 1500 frames;
      ``launch.train`` flat and with ``--data 1 --model 1``, 2 steps each,
      bitwise equal;
+     6i. (after the NCCL rank closes) ``launch.train`` with the
+     reference's multi-host flags, ``--multihost --coordinator
+     127.0.0.1:<free port> --num-processes 1 --process-id 0`` (its own
+     NCCL group over a TCP rendezvous), one step of yi-6b x 2 layers
+     bitwise the flat one-rank run (losses and state);
      4o. (on the same NCCL rank, after 6h) sharded serving
      (``dist.serve.make_serve_step`` over ``make_grid(data=1,
      model=1)``, ``ServeConfig(weight_k=8)``): gemma2-2b at full width
@@ -369,7 +391,9 @@ Phases, each raising on failure (exit code nonzero, no result line):
      in ``--mode efadam``: every accuracy finite, #13 and #14 (and in
      efadam mode #10) launched, no plain version on the card; print the
      accuracy table; then ``--adaptive`` (the fixed log:6 arm against
-     the adaptive arm, PAPER_ADAPT_STEPS steps, a replan every 25) and the fixed arm on log:30 and log:126 (20 steps each,
+     the adaptive arm, PAPER_ADAPT_STEPS steps, a replan every
+     PAPER_ADAPT_EVERY) and the fixed arm on log:30 and log:126
+     (PAPER_DEEP_STEPS steps each,
      #10 and K11 at the deep grids launched);
   perf. the performance tooling (``repro_torch.perf``): (a) the tuners:
      ``tune_mm_cols`` at yi-6b's (4, 4096, 11008) and hymba-1.5b's (4,
@@ -1474,8 +1498,7 @@ def train_leaves(torch) -> int:
     from repro_torch.models.model import Model
     from repro_torch.tree import tree_leaves
     cfg = dataclasses.replace(get_config("yi-6b"), n_layers=TRAIN_LAYERS)
-    return len(tree_leaves(Model(cfg).init(torch.Generator(),
-                                           device="meta")))
+    return len(tree_leaves(Model(cfg).init(device="meta")))
 
 
 def int_bound_ms(nbytes: float, ops: float):
@@ -1570,6 +1593,123 @@ def check_threefry(torch, dev, n_leaves: int):
         plain_ms=k_ms["dist"][1], bound_ms=bnd, bound_by=by,
         library_ms=None, shape=[n_leaves, 2],
         alg1_ms=k_ms["alg1"][0], alg1_plain_ms=k_ms["alg1"][1], **THREEFRY))
+    return rows
+
+
+# operations a truncated normal: the uniform's 77 (threefry 72, the
+# counter's 2, the shift, or and subtraction 3), the affine and its max
+# (3), u*u (1), log1pf (20, libdevice's), the branch's compare, select,
+# subtraction and sqrtf (4), the polynomial's 8 multiplies and 8 adds with
+# the coefficients' select (17), and p*u, sqrt2, the two clamps and the std
+# (5)
+TRUNC_NORMAL_OPS = 127
+# operations a scored logit of the sampling step: the threefry (72), the
+# counter (1), the float (3), u's add and max (2), two logf (2 x 14), two
+# negations (2), the IEEE division (9), the add (1), the two running
+# argmaxes (6)
+CATEGORICAL_OPS = 124
+# the sampling step at yi-6b's shapes first (phase 4's decode step of 4
+# slots and its first tokens, one slot), then the widest vocabularies
+CATEGORICAL_SHAPES = [(4, 64000), (1, 64000), (4, 262144), (4, 152064)]
+CATEGORICAL_STEPS = 64
+SLAB = 4096
+
+
+def trunc_normal_slabs(torch, P, keys, n, got, what):
+    """The first and last SLAB elements of the first and last row of
+    ``got``, drawn by the kernel under ``keys`` ((2,) or (L, 2)), bitwise
+    the plain version's draws of the same elements."""
+    table = keys.reshape(-1, 2)
+    rows = got.reshape(table.shape[0], n)
+    for l in sorted({0, table.shape[0] - 1}):
+        for start in (0, n - SLAB):
+            want = P.trunc_normal(table[l:l + 1], (SLAB,), 0.02, start,
+                                  backend="torch")
+            if not bits_equal(torch, rows[l, start:start + SLAB], want[0]):
+                raise AssertionError(f"threefry trunc_normal differs from "
+                                     f"its plain version ({what}, row {l}, "
+                                     f"elements {start}..)")
+    if not bool(torch.isfinite(got).all()) or \
+            float(got.abs().max()) >= 0.04:
+        raise AssertionError(f"threefry trunc_normal out of its range "
+                             f"({what})")
+
+
+def check_prng_draws(torch, dev):
+    """rt_threefry_trunc_normal at yi-6b's leaf forms: the 8-layer w_gate
+    stack (one launch over 8 layer keys), a 32-layer wq stack and the
+    embedding under its one key ((2,), one row); slabs of the first and
+    last SLAB elements of the first and last row bitwise the plain
+    version; the w_gate stack timed beside the plain version and
+    ``torch.nn.init.trunc_normal_`` (Philox: another function, the
+    yardstick). rt_threefry_categorical at CATEGORICAL_SHAPES over
+    CATEGORICAL_STEPS seeded steps: greedy tokens, sampled tokens and the
+    keys written back bitwise the plain step; timed (a CUDA graph of the
+    two launches) beside the plain step and ``argmax(logits / t -
+    log(-log(rand)))``. Returns the two kernel rows, the sampling step's
+    at yi-6b's decode shape (4, 64000)."""
+    from repro_torch.core import threefry as TF
+    from repro_torch.kernels import prng as P
+    for what, keys, n in (
+            ("wq, 32 layers", TF.split(TF.prng_key(1), YI["L"]),
+             YI["d"] * YI["H"] * YI["hd"]),
+            ("embed, one key", TF.prng_key(2), YI["V"] * YI["d"])):
+        keys = keys.to(dev)
+        got = P.trunc_normal(keys, (n,), 0.02, backend="cuda")
+        trunc_normal_slabs(torch, P, keys, n, got, what)
+        del got
+    L, n = TRAIN_LAYERS, YI["d"] * YI["f"]
+    keys = TF.split(TF.prng_key(0), L).to(dev)
+    got = P.trunc_normal(keys, (n,), 0.02, backend="cuda")
+    trunc_normal_slabs(torch, P, keys, n, got, "w_gate, 8 layers")
+    ms = cuda_ms(torch, lambda i: P.trunc_normal(keys, (n,), 0.02,
+                                                 backend="cuda", out=got),
+                 5, 1)
+    plain = cuda_ms(torch, lambda i: P.trunc_normal(
+        keys, (n,), 0.02, backend="torch", out=got), 1, 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lib = cuda_ms(torch, lambda i: torch.nn.init.trunc_normal_(
+        got, 0.0, 0.02, -0.04, 0.04, generator=gen), 5, 1)
+    bnd, by = int_bound_ms(4 * L * n, TRUNC_NORMAL_OPS * L * n)
+    rows = [dict(name="threefry_trunc_normal", replaces=(
+        "src/repro/models/model.py:44"), max_abs_err=0.0, ms=ms,
+        plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+        shape=[L, n], **THREEFRY)]
+    del got
+    torch.cuda.empty_cache()
+
+    cat = []
+    for B, V in CATEGORICAL_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(V)
+        temp = torch.tensor([0.8, 0.0, 1.0, 0.5][:B], device=dev)
+        ka = TF.split(TF.prng_key(V), B).to(dev)
+        kb = ka.clone()
+        for step in range(CATEGORICAL_STEPS):
+            lg = 4 * torch.randn(B, V, generator=gen, device=dev)
+            lg[:, V // 3] = lg[:, V - 5] = float(lg.max()) + 1.0
+            ga, sa = P.categorical_step(lg, temp, ka, backend="cuda")
+            gb, sb = P.categorical_step(lg, temp, kb, backend="torch")
+            if not (bits_equal(torch, ga, gb) and bits_equal(torch, sa, sb)
+                    and bits_equal(torch, ka, kb)):
+                raise AssertionError(f"threefry categorical differs from "
+                                     f"its plain step at ({B}, {V}), step "
+                                     f"{step}")
+        ms = graph_ms(torch, lambda i: P.categorical_step(
+            lg, temp, ka, backend="cuda"))
+        plain = cuda_ms(torch, lambda i: P.categorical_step(
+            lg, temp, kb, backend="torch"), 5, 1)
+        lib = graph_ms(torch, lambda i: torch.argmax(
+            lg / temp.clamp_min(1e-6)[:, None]
+            - torch.log(-torch.log(torch.rand(B, V, device=dev))), -1))
+        bnd, by = int_bound_ms(4 * B * V + 40 * B, CATEGORICAL_OPS * B * V)
+        cat.append(dict(shape=[B, V], ms=ms, plain_ms=plain,
+                        library_ms=lib, bound_ms=bnd, bound_by=by))
+    top = cat[0]
+    rows.append(dict(name="threefry_categorical", replaces=(
+        "src/repro/serve/session.py:480"), max_abs_err=0.0, ms=top["ms"],
+        plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by=top["bound_by"], library_ms=top["library_ms"],
+        shape=top["shape"], shapes=cat, **THREEFRY))
     return rows
 
 
@@ -3751,6 +3891,54 @@ def hier_train(torch, dev, mods):
     return res
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def multihost_train(torch, dev, mods):
+    """Phase 6i: ``launch.train`` with the reference's multi-host flags
+    (``--multihost --coordinator 127.0.0.1:<free port> --num-processes 1
+    --process-id 0``: its own NCCL group over a TCP rendezvous) for one
+    step of yi-6b cut to HIER_LAYERS layers, bitwise the flat one-rank run
+    (its losses and its state), under deterministic algorithms; no
+    process group exists before either run."""
+    from repro_torch.tree import tree_leaves
+    import torch.distributed as dist
+    if dist.is_initialized():
+        raise AssertionError("6i needs no process group before it")
+    keys = ("master", "m", "v", "e")
+    with deterministic(torch):
+        flat, _, _, _ = _launch(torch, mods, DIST_COUNTERS, "--steps", "1")
+        host = {k: [x.to("cpu", copy=True) for x in tree_leaves(
+            flat["state"][k])] for k in keys}
+        fl = [h["loss"] for h in flat["history"]]
+        del flat
+        torch.cuda.empty_cache()
+        port = free_port()
+        mh, launches, plain, log = _launch(
+            torch, mods, DIST_COUNTERS, "--steps", "1", "--multihost",
+            "--coordinator", f"127.0.0.1:{port}", "--num-processes", "1",
+            "--process-id", "0")
+    ml = [h["loss"] for h in mh["history"]]
+    same = ml == fl and all(
+        bits_equal(torch, x.cpu(), y) for k in keys
+        for x, y in zip(tree_leaves(mh["state"][k]), host[k]))
+    if not same or plain or min(launches.values()) == 0 or \
+            not all(math.isfinite(x) for x in ml):
+        raise AssertionError(f"--multihost is not bitwise the flat run: "
+                             f"{ml} vs {fl}; launches {launches}, plain "
+                             f"{plain}")
+    if dist.is_initialized():
+        raise AssertionError("the launcher left its process group open")
+    del mh, host
+    torch.cuda.empty_cache()
+    return dict(losses=ml, flat_losses=fl, bitwise=same, port=port,
+                layers=HIER_LAYERS, log=log.splitlines()[:2])
+
+
 # ---------------------------------------------------------------------------
 # phase 6b: the distributed session's checkpoints and resume
 # ---------------------------------------------------------------------------
@@ -4247,8 +4435,9 @@ def wire_buffers(torch, dev, mods, model):
 # phase 9: the paper's comparison protocol on the card
 # ---------------------------------------------------------------------------
 
-# 50 (was 300, then 150): the time phases 6d, 4l, 4m and 6g take
-PAPER_STEPS = 50
+# 25 (was 300, then 150 for phases 6d, 4l, 4m and 6g, then 50 until
+# phases 4 and 6i needed the time)
+PAPER_STEPS = 25
 PAPER_COUNTERS = {"amax_rows": ("K", "amax_launches"),
                   "uniform_quantize_rows": ("K", "quantize_launches"),
                   "uniform_dequantize_rows": ("K", "dequantize_launches"),
@@ -4391,7 +4580,9 @@ def paper_protocol(torch, dev, mods):
     return out
 
 
-PAPER_ADAPT_STEPS, PAPER_ADAPT_EVERY, PAPER_DEEP_STEPS = 50, 25, 20
+# 24 steps in two plans, 10 on the deep lanes (50, 25, 20 until phases 4
+# and 6i needed the time)
+PAPER_ADAPT_STEPS, PAPER_ADAPT_EVERY, PAPER_DEEP_STEPS = 24, 12, 10
 
 
 def paper_adaptive(torch, dev, mods, ex):
@@ -4533,6 +4724,7 @@ def window_live(torch, dev, model, qparams, gather, prompt, max_seq):
 def zero_serving_counts(MM, paged, K):
     """Every count of the serving paths' kernels, and of their plain
     versions on the card, at 0."""
+    from repro_torch.kernels import prng as P
     from repro_torch.serve import quantized as Q
     MM.launches = MM.launches_tc = MM.launches_tc_packed = 0
     MM.launches_fma = MM.t_launches = MM.t_launches_tc = 0
@@ -4541,14 +4733,17 @@ def zero_serving_counts(MM, paged, K):
     K.amax_launches = K.quantize_launches = K.dequantize_launches = 0
     MM.plain_on_cuda = paged.plain_on_cuda = K.plain_on_cuda = 0
     Q.plain_on_cuda = 0
+    P.trunc_normal_launches = P.categorical_launches = P.plain_on_cuda = 0
 
 
 def serving_plain(MM, paged, K) -> int:
     """Plain-version calls on the card since the counts were zeroed: the
-    serving kernels' and the at-use dequantize's (K12 bypassed)."""
+    serving kernels', the at-use dequantize's (K12 bypassed) and the
+    threefry draws' (the weights' truncated normal, the sampling step)."""
+    from repro_torch.kernels import prng as P
     from repro_torch.serve import quantized as Q
     return (MM.plain_on_cuda + paged.plain_on_cuda + K.plain_on_cuda
-            + Q.plain_on_cuda)
+            + Q.plain_on_cuda + P.plain_on_cuda)
 
 
 # profiled calls of a serving phase's decode step and chunk: one, since
@@ -4637,21 +4832,26 @@ class LogitsTap:
 
 
 def decode_graph_vs_eager(torch, dev, model, qparams, prompts, max_new=64,
-                          paged=True, max_seq=128, chunk=32):
+                          paged=True, max_seq=128, chunk=32, sample=False):
     """The session's decode step eager and as its CUDA graph: a session
     of len(prompts) slots (``max_seq`` positions each, paged with page 16
     or fixed lanes, prefill chunk ``chunk``) past its prompts' chunks; from identical state one greedy step eager
     and one through a fresh capture and replay must give bitwise the same
     logits, tokens and state (cache included); then each way's wall
     (CUDA events around the host's calls), device time and operations
-    (profiler), and idle share, the slots decoding throughout."""
+    (profiler), and idle share, the slots decoding throughout. With
+    ``sample`` the sampling step (every slot at temperature 0.8, the
+    categorical kernel and its fold) in place of the greedy one, and that
+    kernel bitwise its plain step on the session's own logits,
+    temperatures and keys."""
     from repro_torch.serve.session import Request, ServeSession
     slots = len(prompts)
     sess = ServeSession(model, qparams, slots=slots, max_seq=max_seq,
                         paged=paged, page_size=16, prefill_chunk=chunk,
                         seed=0, device=dev)
     for p in prompts:
-        sess.submit(Request(prompt=p, max_new_tokens=max_new))
+        sess.submit(Request(prompt=p, max_new_tokens=max_new,
+                            temperature=0.8 if sample else 0.0))
     while sess._prefill_q:
         sess.step()
     buf = torch.empty((slots, model.cfg.vocab_size), dtype=torch.float32,
@@ -4660,13 +4860,13 @@ def decode_graph_vs_eager(torch, dev, model, qparams, prompts, max_new=64,
     sess._graphs.clear()              # the next capture records the tap
     tensors = [t for _, t in sess._state_tensors()]
     snap = [t.clone() for t in tensors]
-    sess._decode(False)
+    sess._decode(sample)
     eager = [t.clone() for t in tensors] + [buf.clone()]
     for t, v in zip(tensors, snap):
         t.copy_(v)
     del snap
-    sess._warm.add(False)
-    sess._dispatch(False)             # capture, then replay
+    sess._warm.add(sample)
+    sess._dispatch(sample)             # capture, then replay
     got = tensors + [buf]
     bad = [name for (name, _), a, b in zip(
         sess._state_tensors() + [("logits", None)], got, eager)
@@ -4675,10 +4875,21 @@ def decode_graph_vs_eager(torch, dev, model, qparams, prompts, max_new=64,
         raise AssertionError(f"{model.cfg.name}: the graphed decode step "
                              f"differs from the eager one in {bad}")
     del eager
-    graph = sess._graphs[False]
-    e_ms = cuda_ms(torch, lambda i: sess._decode(False), 8, 1)
+    if sample:      # the kernel on the session's own logits, temps, keys
+        from repro_torch.kernels import prng as P
+        st = sess._state
+        ka, kb = st["rng"].clone(), st["rng"].clone()
+        ga, sa = P.categorical_step(buf, st["temp"], ka, backend="cuda")
+        gb, sb = P.categorical_step(buf, st["temp"], kb, backend="torch")
+        if not (torch.equal(ga, gb) and torch.equal(sa, sb)
+                and torch.equal(ka, kb)):
+            raise AssertionError(f"{model.cfg.name}: the sampling kernel "
+                                 f"differs from its plain step on the "
+                                 f"session's logits {tuple(buf.shape)}")
+    graph = sess._graphs[sample]
+    e_ms = cuda_ms(torch, lambda i: sess._decode(sample), 8, 1)
     g_ms = cuda_ms(torch, lambda i: graph.replay(), 8, 1)
-    e_dev, e_kernels, e_ops = profile_ms(torch, lambda: sess._decode(False),
+    e_dev, e_kernels, e_ops = profile_ms(torch, lambda: sess._decode(sample),
                                          PROFILED_CALLS, with_launches=True)
     g_dev, _, g_ops = profile_ms(torch, graph.replay, PROFILED_CALLS,
                                  with_launches=True)
@@ -4696,14 +4907,42 @@ def decode_graph_vs_eager(torch, dev, model, qparams, prompts, max_new=64,
     return out
 
 
-def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
+def init_yardstick_s(torch, dev, model) -> float:
+    """Seconds of the yardstick init: ``model``'s tree with every weight
+    drawn by ``torch.nn.init.trunc_normal_`` (Philox) times its std,
+    ones and zeros as ``Model.init`` has them; the tree dropped after."""
+    from repro_torch.tree import tree_leaves
+    shapes = tree_leaves(model.init(device="meta"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = []
+    for m in shapes:
+        t = torch.empty(m.shape, dtype=torch.float32, device=dev)
+        torch.nn.init.trunc_normal_(t, 0.0, 0.02, -0.04, 0.04, generator=gen)
+        tree.append(t)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    del tree
+    torch.cuda.empty_cache()
+    return dt
+
+
+def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0,
+          sampled=False):
     """Serve full-width ``arch`` (phase 4: yi-6b; phase 4b: gemma2-2b with
     one ``long_plen``-token request past its window, in a session of
     ``max_seq`` positions a slot; 4g: gemma3-4b likewise, its local RoPE
     base checked too; 4h: qwen2.5-14b), the weights quantized leaf by leaf
     as the launcher does (each float32 leaf dropped once its codes
     exist), random QKV biases and qk-norm weights where the model has
-    them; then the decode gates and the decode step eager and graphed."""
+    them; then the decode gates and the decode step eager and graphed.
+    ``sampled`` (phase 4): half the requests at temperature 0.8, so the
+    sampling step runs eager, then captured and replayed (the categorical
+    kernel and its fold), the tokens equal an eager session's, and the
+    sampled step is timed beside the greedy one; ``Model.init``'s seconds
+    through the truncated-normal kernel beside a ``trunc_normal_`` init
+    of the same tree."""
     MM, paged, K = mods["MM"], mods["paged"], mods["K"]
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import quantize_in_place
@@ -4712,13 +4951,16 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
     from repro_torch.serve.session import Request, ServeSession
     import numpy as np
 
+    from repro_torch.kernels import prng as P
     cfg = get_config(arch)
     model = Model(cfg)
     slots, n_req, plen, max_new = 4, 8, 64, 16
     rng = np.random.default_rng(0)
     reqs = [Request(prompt=[int(t) for t in rng.integers(
-        1, cfg.vocab_size, size=plen)], max_new_tokens=max_new)
-        for _ in range(n_req)]
+        1, cfg.vocab_size, size=plen)], max_new_tokens=max_new,
+        temperature=0.8 if sampled and i % 2 else 0.0)
+        for i in range(n_req)]
+    yard_s = init_yardstick_s(torch, dev, model) if sampled else None
     if long_plen:
         reqs.append(Request(prompt=[int(t) for t in rng.integers(
             1, cfg.vocab_size, size=long_plen)], max_new_tokens=max_new))
@@ -4729,6 +4971,8 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
     zero_serving_counts(MM, paged, K)
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
     randomize_extras(torch, params, dev)
     fp_bytes = params_nbytes(params)
     qparams = quantize_in_place(params, k_x=6, pack=True)
@@ -4753,7 +4997,13 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
                 "gather_pages": paged.launches,
                 "gather_pages_kv": paged.launches_kv,
                 "amax_rows": K.amax_launches,
-                "uniform_quantize_rows": K.quantize_launches}
+                "uniform_quantize_rows": K.quantize_launches,
+                "threefry_trunc_normal": P.trunc_normal_launches}
+    if sampled:
+        launches["threefry_categorical"] = P.categorical_launches
+        if not sess._graphs.get(True):
+            raise AssertionError(f"{arch}: the sampling step was not "
+                                 f"graphed: {sess.stats}")
     if MM.launches_fma or MM.launches_tc_packed:
         raise AssertionError(f"{arch}: K1's CUDA-core route launched "
                              f"{MM.launches_fma} times, its packed-lane "
@@ -4786,6 +5036,20 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
     n_tok = sum(len(results[h].tokens) for h in handles)
     gather = make_dequant_gather()
     out = {}
+    if sampled:
+        # the same requests through an eager session: the same tokens
+        eager = ServeSession(model, qparams, slots=slots, max_seq=max_seq,
+                             paged=True, page_size=16, prefill_chunk=32,
+                             seed=0, device=dev)
+        eager._dispatch = eager._decode
+        hs = [eager.submit(r) for r in reqs]
+        er = eager.drain()
+        if [er[h].tokens for h in hs] != [results[h].tokens for h in handles]:
+            raise AssertionError(f"{arch}: the graphed session's sampled "
+                                 f"tokens differ from the eager session's")
+        del eager, er
+        out.update(init_s=t_init, init_yardstick_s=yard_s,
+                   sampled_requests=sum(r.temperature > 0 for r in reqs))
     if long_plen:
         out.update(window_live(torch, dev, model, qparams, gather,
                                reqs[-1].prompt, max_seq))
@@ -4808,6 +5072,23 @@ def serve(torch, dev, mods, arch="yi-6b", max_seq=128, long_plen=0):
           f"{dg['graph_idle']:.1%}, {dg['graph_device_ops']:.0f} "
           f"operations); one step bitwise eager vs graphed (logits, tokens, "
           f"cache)", flush=True)
+    if sampled:
+        ds = decode_graph_vs_eager(torch, dev, model, qparams,
+                                   [reqs[i].prompt[:32] for i in
+                                    range(slots)], sample=True)
+        out["decode_graph_sampled"] = ds
+        print(f"{arch} session sampled decode step (every slot at "
+              f"temperature 0.8): eager {ds['eager_ms']:.3f} ms wall, "
+              f"{ds['eager_device_ms']:.3f} ms device; CUDA graph "
+              f"{ds['graph_ms']:.3f} ms wall, {ds['graph_device_ms']:.3f} ms "
+              f"device (idle {ds['graph_idle']:.1%}); greedy step graphed "
+              f"{dg['graph_ms']:.3f} / {dg['graph_device_ms']:.3f}; one step "
+              f"bitwise eager vs graphed (keys too); Model.init "
+              f"{t_init:.3f} s through the truncated-normal kernel, a "
+              f"trunc_normal_ init of the same tree {yard_s:.3f} s; graphed "
+              f"session tokens equal the eager session's "
+              f"({out['sampled_requests']} of {len(reqs)} requests "
+              f"sampled)", flush=True)
 
     # identical state through the kernels and through the plain versions
     def rel_l2(a, b):
@@ -5980,12 +6261,13 @@ def serve_ssm(torch, dev, mods, arch):
     return res
 
 
-SSM_TRAIN = (("mamba2-2.7b", 16), ("hymba-1.5b", 4))
+# mamba2 at 8 layers (16 until phases 4 and 6i needed the time)
+SSM_TRAIN = (("mamba2-2.7b", 8), ("hymba-1.5b", 4))
 SSM_TRAIN_STEPS = 4
 
 
 def ssm_train(torch, dev, mods, group):
-    """Phase 6g: mamba2-2.7b cut to 16 layers and hymba-1.5b cut to 4
+    """Phase 6g: mamba2-2.7b cut to 8 layers and hymba-1.5b cut to 4
     (``_pattern(4)``), widths unchanged, Algorithms 2+3 ``qadam`` on the
     one NCCL rank, 2 x 1024 tokens a step, SSM_TRAIN_STEPS steps each
     through ``dist_run`` (6f's gates); the SSD scan's own device ms at
@@ -7617,6 +7899,25 @@ def main() -> int:
           f"(plain {tk['plain_ms']:.4f}), Algorithm 1's {tk['alg1_ms']:.4f} "
           f"(plain {tk['alg1_plain_ms']:.4f}), bound {tk['bound_ms']:.6f}",
           flush=True)
+    pd_rows = check_prng_draws(torch, dev)
+    tn, tc_ = pd_rows
+    print(f"threefry draws of Model.init and of sampling (no Pallas kernel: "
+          f"XLA's truncated_normal and categorical): trunc normal at "
+          f"{tn['shape']} bitwise its plain version on slabs (and a "
+          f"32-layer wq stack, the embedding under one key), "
+          f"{tn['ms']:.4f} ms ({tn['bound_ms'] / tn['ms']:.1%} of its "
+          f"{tn['bound_ms']:.4f} ms bound, {tn['bound_by']}) plain "
+          f"{tn['plain_ms']:.4f} trunc_normal_ (Philox, not the same "
+          f"function) {tn['library_ms']:.4f}; categorical bitwise its plain "
+          f"step over {CATEGORICAL_STEPS} steps:", flush=True)
+    for t in tc_["shapes"]:
+        print(f"  categorical {t['shape']}: {t['ms']:.4f} ms (graphed; "
+              f"{t['bound_ms'] / t['ms']:.1%} of its {t['bound_ms']:.4f} ms "
+              f"bound, {t['bound_by']}) plain {t['plain_ms']:.4f} "
+              f"argmax(logits / t - log(-log(rand))) {t['library_ms']:.4f}",
+              flush=True)
+    tf_rows += pd_rows
+    torch.cuda.empty_cache()
     moe_table = check_moe_shapes(torch, dev, MM)
     print("the MoE family's shapes: K12 on a code-resident deepseek-moe-16b "
           "expert stack (a sliced layer's codes a view, bitwise its plain "
@@ -7651,7 +7952,7 @@ def main() -> int:
 
     mods = {"K": K, "A": A, "P": prng}
     smods = {"MM": MM, "paged": paged, "K": K}
-    res = timed("4", serve, torch, dev, smods)
+    res = timed("4", serve, torch, dev, smods, sampled=True)
     torch.cuda.empty_cache()
     gem = timed("4b", serve, torch, dev, smods, arch="gemma2-2b",
                 max_seq=GEMMA_MAX_SEQ, long_plen=GEMMA_LONG_PROMPT)
@@ -7722,6 +8023,12 @@ def main() -> int:
         torch.cuda.empty_cache()
     finally:
         close_process_group()
+    mh = timed("6i", multihost_train, torch, dev, mods)
+    print(f"multi-host flags (6i, yi-6b x {mh['layers']} layers, "
+          f"--multihost --coordinator 127.0.0.1:{mh['port']} "
+          f"--num-processes 1 --process-id 0): one step bitwise the flat "
+          f"one-rank run (loss {mh['losses']} vs {mh['flat_losses']}, "
+          f"state bitwise)", flush=True)
     wb = timed("8", wire_buffers, torch, dev, mods, model8)
     print(f"wire buffers: {wb['leaves']} leaves x {len(WIRE_SPECS)} codecs "
           f"through Codec.encode/decode, bitwise the plain versions; bytes "
@@ -8128,6 +8435,7 @@ def main() -> int:
                        serve_hymba=hy, train_ssm=g6,
                        encdec_shapes=encdec_table, serve_whisper=wh,
                        train_whisper=w6, serve_mesh=so, perf=perf_res,
+                       multihost=mh,
                        phase_s=phase_s),
                   fh, indent=1)
     print("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in

@@ -111,6 +111,10 @@ SIGNATURES = {
     "rt_threefry_keys": [_P, _P, _U, _U, _P, _I, _U, _I, _P],
     # out, n, start, keys, leaf, stream
     "rt_threefry_uniform": [_P, _L, _L, _P, _I, _P],
+    # out, n, start, keys, n_rows, a, span, std, stream
+    "rt_threefry_trunc_normal": [_P, _L, _L, _P, _I, _F, _F, _F, _P],
+    # logits, temp, rng, B, V, partials, greedy, sampled, stream
+    "rt_threefry_categorical": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     # x, codes, scales, n, nb, log2 block, stream
     "rt_blockwise_quantize": [_P, _P, _P, _L, _L, _I, _P],
     # x, payload, scales, n, nb, payload_bytes, log2 block, stream

@@ -111,7 +111,7 @@ class ServeStep:
         self.n_shards, self.shard = grid.n_shards, grid.model_index
         Nm = self.n_shards
         self.layout = SH.build_layout(
-            model.init(torch.Generator(), device="meta"), Nm)
+            model.init(device="meta"), Nm)
         self.param_specs = self.layout.shard_axes()
         self.batch_sharded = bool(sc.batch_dim_shardable and
                                   self.worker_axes)

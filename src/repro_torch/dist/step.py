@@ -376,7 +376,7 @@ def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
     group = grid.workers
     n_workers, rank = grid.n_workers, grid.worker_index
     n_shards, shard = grid.n_shards, grid.model_index
-    shapes = model.init(torch.Generator(), device="meta")
+    shapes = model.init(device="meta")
     layout = SH.build_layout(shapes, n_shards)
     metas_flat = tree_leaves(_leaf_meta(layout, n_workers))
     if tc.bit_plan is not None and len(tc.bit_plan) != len(metas_flat):
@@ -444,13 +444,11 @@ def make_train_step(model, grid, tc: TrainConfig) -> StepArtifacts:
                 grids.log_grid_on(device)
 
     # ---------------- init ----------------
-    def init_state(seed: int = 0, device="cuda"):
-        """Rank ``rank``'s state for ``model.init(seed=seed)``: its master
-        chunks, zero moments, residuals and extra leaves, count 0."""
-        # the meta device (the dry run) takes no generator of its own
-        gen = torch.Generator() if torch.device(device).type == "meta" \
-            else None
-        leaves = tree_leaves(model.init(gen, seed=seed, device=device))
+    def init_state(seed: int = 0, device="cuda", key=None):
+        """Rank ``rank``'s state for ``model.init(key, seed=seed)`` (the
+        reference's ``init_state(PRNGKey(seed))``, or its ``key``): its
+        master chunks, zero moments, residuals and extra leaves, count 0."""
+        leaves = tree_leaves(model.init(key, seed=seed, device=device))
         master = []
         for i, meta in enumerate(metas_flat):
             p = SH.shard_of(leaves[i].to(torch.float32), meta.dim,

@@ -7,10 +7,17 @@
   * ``advance_keys(key, n_leaves)``: Algorithm 1's chain, ``key, sub =
     split(key)`` with the state key written over in place, and the (L, 2)
     table ``split(sub, L)`` (``repro/core/qadam.py``);
-  * ``uniform(keys, leaf, n)``: ``jax.random.uniform(keys[leaf], (n,))``.
+  * ``uniform(keys, leaf, n)``: ``jax.random.uniform(keys[leaf], (n,))``;
+  * ``trunc_normal(keys, shape, std)``: ``Model.init``'s draw of a stacked
+    leaf, ``vmap(lambda k: truncated_normal(k, -2, 2, shape) * std)`` over
+    an (L, 2) key table, in one launch (``repro/models/model.py``
+    ``_dense``);
+  * ``categorical_step(logits, temp, rng)``: the serving session's
+    sampling step, the greedy and the sampled token of each slot and its
+    key advanced where it samples (``repro/serve/session.py``), graph-safe.
 
 Replace no Pallas kernel: the reference draws with XLA's threefry behind
-``jax.random.uniform``. Beside each kernel its plain version
+``jax.random``. Beside each kernel its plain version
 (``repro_torch.core.threefry``), which a wrapper runs only for CPU (or
 meta) tensors or when asked with ``backend="torch"``, and plain-int
 launch counters. A key is a (2,) int32 tensor of the two words' bit
@@ -18,6 +25,7 @@ patterns, a key table (L, 2) int32.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -29,7 +37,11 @@ from repro_torch.kernels.meta import charged
 
 keys_launches = 0       # rt_threefry_keys launches (both chains)
 uniform_launches = 0    # rt_threefry_uniform launches
+trunc_normal_launches = 0   # rt_threefry_trunc_normal launches
+categorical_launches = 0    # rt_threefry_categorical launches (and its fold)
 plain_on_cuda = 0       # plain versions run on CUDA tensors
+# elements of V one block of rt_threefry_categorical scores (kCatChunk)
+CAT_CHUNK = 4096
 
 
 def _launch_keys(out, key, seed, t, n_leaves, worker, mode, dev):
@@ -128,3 +140,91 @@ def uniform(keys: torch.Tensor, leaf: int, n: int, start: int = 0,
         return out
     plain_on_cuda += keys.is_cuda
     return out.copy_(TF.uniform(keys[leaf], out.shape, start))
+
+
+@charged("threefry trunc_normal")
+def trunc_normal(keys: torch.Tensor, shape, std: float = 0.02,
+                 start: int = 0, backend: Optional[str] = None,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``jax.random.truncated_normal(key, -2, 2, shape) * std`` in float32
+    under a (2,) int32 key (-> ``shape``) or each row of an (L, 2) table
+    (-> (L, *shape), row l under key l: the reference's ``vmap`` of
+    ``_dense`` over a layer stack), elements ``start`` onwards of each
+    row's draw. ``out``, a contiguous float32 tensor of that shape on the
+    keys' device, receives it."""
+    global plain_on_cuda, trunc_normal_launches
+    if keys.dtype != torch.int32 or keys.shape[-1:] != (2,) or \
+            keys.dim() > 2:
+        raise ValueError(f"need a (2,) or (L, 2) int32 key table, got "
+                         f"{keys.dtype} {tuple(keys.shape)}")
+    shape = TF._shape(shape)
+    full = tuple(keys.shape[:-1]) + shape
+    n = math.prod(shape)
+    if n < 1 or start < 0:
+        raise ValueError(f"shape {shape}, start={start}")
+    if out is None:
+        out = torch.empty(full, dtype=torch.float32, device=keys.device)
+    elif out.dtype != torch.float32 or tuple(out.shape) != full or \
+            not out.is_contiguous() or out.device != keys.device:
+        raise ValueError(f"out must be a contiguous float32 {full} tensor "
+                         f"on the keys' device")
+    if resolve_backend(backend, keys, out) == "cuda":
+        keys = keys.reshape(-1, 2).contiguous()
+        a, b = (TF._f32(x) for x in TF.TRUNC_ERF_BITS[(-2.0, 2.0)])
+        err = build.library().rt_threefry_trunc_normal(
+            build.ptr(out), n, start, build.ptr(keys), keys.shape[0], a,
+            b - a, std, build.stream_ptr(keys.device))
+        build.check(err, "threefry_trunc_normal")
+        trunc_normal_launches += 1
+        return out
+    plain_on_cuda += keys.is_cuda
+    return out.copy_(TF.truncated_normal(keys, -2.0, 2.0, shape, start)
+                     .mul_(std))
+
+
+def _categorical_torch(logits, temp, rng):
+    k0, k1 = TF._words(rng)
+    nxt = TF._key(*TF.threefry2x32(k0, k1, 0, 0))
+    draw = TF._key(*TF.threefry2x32(k0, k1, 0, 1))
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    scaled = logits / torch.clamp_min(temp, 1e-6)[:, None]
+    sampled = TF.categorical(draw, scaled).to(torch.int32)
+    rng.copy_(torch.where((temp > 0.0)[:, None], nxt, rng))
+    return greedy, sampled
+
+
+@charged("threefry categorical")
+def categorical_step(logits: torch.Tensor, temp: torch.Tensor,
+                     rng: torch.Tensor, backend: Optional[str] = None):
+    """One sampling step of B slots, the reference's: ``keys =
+    vmap(split)(rng)``; ``greedy = argmax(logits)``; ``sampled =
+    vmap(categorical)(keys[:, 1], logits / max(temp, 1e-6))``; and
+    ``rng[b] = keys[b, 0]`` where ``temp[b] > 0``, written in place.
+    ``logits`` (B, V) float32, ``temp`` (B,) float32, ``rng`` (B, 2)
+    int32, all on one device and read there (graph-safe). Returns the
+    (B,) int32 greedy and sampled tokens."""
+    global plain_on_cuda, categorical_launches
+    if logits.dtype != torch.float32 or logits.dim() != 2:
+        raise ValueError(f"logits must be (B, V) float32, got "
+                         f"{logits.dtype} {tuple(logits.shape)}")
+    B, V = logits.shape
+    if temp.dtype != torch.float32 or tuple(temp.shape) != (B,):
+        raise ValueError(f"temp must be ({B},) float32")
+    if rng.dtype != torch.int32 or tuple(rng.shape) != (B, 2) or \
+            not rng.is_contiguous():
+        raise ValueError(f"rng must be a contiguous ({B}, 2) int32 tensor")
+    if resolve_backend(backend, logits, temp, rng) == "cuda":
+        logits, temp = logits.contiguous(), temp.contiguous()
+        chunks = -(-V // CAT_CHUNK)
+        partials = torch.empty((B, chunks, 4), dtype=torch.int32,
+                               device=logits.device)
+        tokens = torch.empty((2, B), dtype=torch.int32, device=logits.device)
+        err = build.library().rt_threefry_categorical(
+            build.ptr(logits), build.ptr(temp), build.ptr(rng), B, V,
+            build.ptr(partials), build.ptr(tokens[0]), build.ptr(tokens[1]),
+            build.stream_ptr(logits.device))
+        build.check(err, "threefry_categorical")
+        categorical_launches += 1
+        return tokens[0], tokens[1]
+    plain_on_cuda += logits.is_cuda
+    return _categorical_torch(logits, temp, rng)

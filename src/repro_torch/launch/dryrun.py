@@ -419,7 +419,7 @@ def _serve_run(model, grid, kind, gbatch, seq, enc_seq, W, shardable,
     from repro_torch.dist.step import ServeConfig
     sc = ServeConfig(worker_axes=W, batch_dim_shardable=shardable)
     step, _, _ = make_serve_step(model, grid, sc, kind=kind)
-    params = step.shard_params(model.init(torch.Generator(), device="meta"))
+    params = step.shard_params(model.init(device="meta"))
     if kind == "prefill":
         rows = step.rows(gbatch) if step.batch_sharded and \
             gbatch % step.n_workers == 0 else slice(0, gbatch)

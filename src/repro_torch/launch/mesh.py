@@ -8,7 +8,9 @@ of axes a collective spans.
 NCCL for ``device="cuda"`` (one rank per card), gloo for
 ``device="cpu"``. Under ``torchrun`` the group comes from its
 ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``/``MASTER_ADDR``/``MASTER_PORT``;
-without them it is one rank over a local ``HashStore``. Nothing falls
+given an ``init_method`` (``tcp://host:port``, the training launcher's
+``--multihost --coordinator``), a rank and a world size, from those;
+without either it is one rank over a local ``HashStore``. Nothing falls
 back: a failing NCCL raises.
 """
 from __future__ import annotations
@@ -25,16 +27,27 @@ import torch.distributed as dist
 
 def make_process_group(device="cuda", *, store=None,
                        rank: Optional[int] = None,
-                       world_size: Optional[int] = None):
+                       world_size: Optional[int] = None,
+                       init_method: Optional[str] = None):
     """Initialize the default process group and return it.
 
-    ``store``/``rank``/``world_size`` given: that group (tests pass a
-    ``FileStore`` or ``HashStore``); else ``torchrun``'s environment;
-    else one rank over a ``HashStore``. On CUDA the rank's card is
-    ``LOCAL_RANK`` (0 alone) and becomes the current device."""
+    ``init_method``, ``rank`` and ``world_size`` given: that rendezvous
+    (one process a card; on CUDA the card is ``LOCAL_RANK`` where it is
+    set, else ``rank % device_count``). ``store``/``rank``/``world_size``
+    given: that group (tests pass a ``FileStore`` or ``HashStore``); else
+    ``torchrun``'s environment; else one rank over a ``HashStore``. On
+    CUDA the rank's card is ``LOCAL_RANK`` (0 alone) and becomes the
+    current device."""
     device = torch.device(device)
     backend = "nccl" if device.type == "cuda" else "gloo"
-    if store is None and rank is None and "RANK" in os.environ:
+    if init_method is not None:
+        if rank is None or world_size is None:
+            raise ValueError("init_method needs a rank and a world size")
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        if device.type == "cuda" and "LOCAL_RANK" not in os.environ:
+            local = rank % torch.cuda.device_count()
+        kw = dict(init_method=init_method)
+    elif store is None and rank is None and "RANK" in os.environ:
         rank = int(os.environ["RANK"])
         world_size = int(os.environ["WORLD_SIZE"])
         local = int(os.environ.get("LOCAL_RANK", rank))

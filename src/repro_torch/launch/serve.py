@@ -22,8 +22,10 @@ message) and hymba-1.5b:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --smoke --device cpu --quantized --paged
 
- Weights are random, drawn from
-``--seed``; with ``--quantized`` each float32 leaf is dropped as soon
+Weights are random: ``--seed s`` draws the reference's weights for
+``PRNGKey(s)`` (``Model.init``) and seeds the sampling streams as the
+reference's session does, so ``--temperature`` runs emit the reference's
+tokens; with ``--quantized`` each float32 leaf is dropped as soon
 as its codes exist, so the start-up peak stays near the float32 tree
 (qwen2.5-14b's 59 GB, deepseek-moe-16b's 67.5 GB, the largest leaf's
 codes beside it). gemma2-2b's and gemma3-4b's heads are tied to their embedding:

@@ -12,8 +12,9 @@ configuration on gloo through the kernels' plain versions, e.g.
   torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch yi-6b \\
       --smoke --device cpu --data 2 --steps 5 --seq 32 --global-batch 4
 
-Weights are random, drawn from ``--seed``; batches are the synthetic
-token stream of ``data.pipeline`` (embeddings in place of tokens for
+Weights are random, the reference's for ``--seed`` (below); batches
+are the synthetic token stream of ``data.pipeline`` (embeddings in
+place of tokens for
 llava-next-mistral-7b, its vision tower's stub; audio frames beside the
 tokens for whisper-small, its mel and conv front-end's stub), every
 rank taking its rows of one global batch, e.g.
@@ -100,20 +101,31 @@ private temporary directory. ``--aot-dir DIR`` keeps the step's kernel
 library as an AOT artifact (``repro_torch.perf.aot``): a restart loads
 it without ``nvcc``. ``--tune-buckets`` times the exchange bucket sizes
 on the card before training (``perf.autotune.tune_exchange_buckets``)
-and trains with the fastest. The reference's multi-host flags are known
-and refused by name: the port runs one process per card under
-``torchrun``, which sets the process group from its environment, where
-the reference runs one process per host.
+and trains with the fastest.
+
+``--seed s`` is the reference's ``PRNGKey(s)``: the same weights
+(``Model.init``) and the same synthetic batches as
+``repro.launch.train --seed s``.
+
+The reference's multi-host flags start the ranks without ``torchrun``:
+``--multihost --coordinator HOST:PORT --num-processes N --process-id
+R`` joins process R of N at ``tcp://HOST:PORT`` (NCCL on the card, gloo
+on the CPU). In the port ``--num-processes`` counts cards, not hosts: a
+process drives one card (``LOCAL_RANK`` where it is set, else card
+``R % cards``), so a host with four cards runs four processes, e.g. two
+ranks on one machine's CPU:
+
+  python -m repro_torch.launch.train --arch yi-6b --smoke --device cpu \
+      --data 2 --multihost --coordinator 127.0.0.1:29511 \
+      --num-processes 2 --process-id 0 &
+  python -m repro_torch.launch.train --arch yi-6b --smoke --device cpu \
+      --data 2 --multihost --coordinator 127.0.0.1:29511 \
+      --num-processes 2 --process-id 1
 """
 from __future__ import annotations
 
 import argparse
 import json
-
-# the reference's jax.distributed flags (one process per host), with the
-# value that leaves them off
-MULTIHOST = {"multihost": False, "coordinator": None, "num_processes": None,
-             "process_id": None}
 
 
 def parse_args(argv=None):
@@ -195,23 +207,25 @@ def parse_args(argv=None):
     ap.add_argument("--aot-dir", default=None, metavar="DIR",
                     help="AOT artifact dir: a restart loads the step's "
                          "kernel library without nvcc (repro_torch.perf.aot)")
-    # the reference's multi-host flags: refused (see the module docstring)
-    ap.add_argument("--multihost", action="store_true")
-    ap.add_argument("--coordinator", default=None)
-    ap.add_argument("--num-processes", type=int, default=None)
-    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--multihost", action="store_true",
+                    help="join the ranks at --coordinator without torchrun "
+                         "(one process a card)")
+    ap.add_argument("--coordinator", default=None, metavar="ADDR",
+                    help="--multihost rendezvous address host:port")
+    ap.add_argument("--num-processes", type=int, default=None,
+                    help="--multihost process count (cards, one process "
+                         "each)")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="--multihost rank of this process")
     args = ap.parse_args(argv)
     if args.resume and not args.ckpt_dir:
         ap.error("--resume requires --ckpt-dir")
     args.adaptive = args.adaptive or args.mode == "adaptive"
-    for name, off in MULTIHOST.items():
-        if getattr(args, name) != off:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')}: the port runs one process per "
-                "card under torchrun, which sets the process group from its "
-                "environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT); "
-                "the reference's jax.distributed flags name one process "
-                "per host and have no counterpart")
+    if args.multihost and not (args.coordinator
+                               and args.num_processes is not None
+                               and args.process_id is not None):
+        ap.error("--multihost requires --coordinator, "
+                 "--num-processes and --process-id")
     from repro_torch.dist import topology as T
     topo = T.parse_topology(args.topology)
     if isinstance(topo, T.HierarchicalTopology):
@@ -365,7 +379,7 @@ def main(argv=None):
     from repro_torch.data.pipeline import batch_for_model
     from repro_torch.dist.step import TrainConfig, make_train_step
     from repro_torch.launch.mesh import (close_process_group, make_grid,
-                                         rank_device)
+                                         make_process_group, rank_device)
     from repro_torch.models.model import Model
     from repro_torch.train.loop import comm_bytes_per_step
     from repro_torch.train.session import SessionConfig, TrainSession
@@ -389,6 +403,11 @@ def main(argv=None):
     model = Model(cfg)
     owned = not torch.distributed.is_initialized()
     try:
+        if args.multihost and owned:
+            make_process_group(args.device,
+                               init_method=f"tcp://{args.coordinator}",
+                               rank=args.process_id,
+                               world_size=args.num_processes)
         grid = make_grid(pod=args.pod, data=args.data, model=args.model,
                          device=args.device)
         lead = grid.rank == 0

@@ -49,6 +49,7 @@ import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -124,133 +125,171 @@ class Model:
                 "architecture families are queued in ROADMAP.md")
 
     # ---------------- init ----------------
-    def init(self, generator: Optional[torch.Generator] = None, *,
-             seed: int = 0, device="cuda") -> Dict[str, Any]:
-        """Random float32 parameters with the reference's leaf names and
-        shapes: truncated normal in [-2, 2] times 0.02 for weights, ones
-        for norms (qk-norm's too), zeros for QKV biases and layernorm
-        biases. Draws come from
-        ``generator`` (default: a generator on ``device`` seeded with
-        ``seed``); the numbers differ from ``jax.random``'s, so tests
-        convert the reference's tree instead (``repro_torch.convert``)."""
+    def init(self, key=None, *, seed: int = 0,
+             device="cuda") -> Dict[str, Any]:
+        """The reference's parameters for ``key`` (default
+        ``PRNGKey(seed)``; either form ``core.threefry.as_key`` takes):
+        ``Model(cfg).init(key)``'s leaf names, shapes and values, drawn
+        through the reference's key tree (``split`` into 6 at the root, one
+        ``split`` a layer stack, each family's parameter functions' splits and
+        hymba's meta tokens by ``fold_in(key, 7 / 8)``). Weights are
+        ``truncated_normal(-2, 2) * 0.02`` (``conv_w`` * 0.2) by
+        ``kernels.prng.trunc_normal``, one launch a stacked leaf on the card;
+        mamba's ``dt`` is the reference's log-uniform in float32; norms and
+        qk-norm weights ones, biases zeros. The weights equal the
+        reference's to float32 rounding (XLA's CPU build rounds its
+        ``log1p`` and ``erf_inv`` its own way: within 2e-6 times the std).
+        The key algebra runs on the host. ``device="meta"`` draws nothing
+        and keeps the shapes."""
+        from repro_torch.core import threefry as TF
+        from repro_torch.kernels import prng
         self._check_family()
         cfg = self.cfg
         dev = torch.device(device)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(seed)
+        meta = dev.type == "meta"
+        key = TF.prng_key(seed) if key is None else TF.as_key(key,
+                                                              "Model.init")
 
-        def dense(*shape):
-            t = torch.empty(shape, dtype=torch.float32, device=dev)
-            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
-                                        generator=generator)
-            return t.mul_(0.02)
+        def dense(k, *shape, std=0.02):
+            """``_dense``: k a (2,) key or an (L, 2) stack of layer keys."""
+            if meta:
+                return torch.empty(tuple(k.shape[:-1]) + shape,
+                                   dtype=torch.float32, device=dev)
+            return prng.trunc_normal(k.to(dev), shape, std)
 
-        def ones(*shape):
-            return torch.ones(shape, dtype=torch.float32, device=dev)
-
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=torch.float32, device=dev)
+        def full(k, value, *shape):
+            return torch.full(tuple(k.shape[:-1]) + shape, value,
+                              dtype=torch.float32, device=dev)
 
         d, H, K, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                           cfg.head_dim_, cfg.d_ff)
-        n = cfg.n_layers
 
-        def norm(*lead):
-            """A norm's leaves (the reference's ``_norm_param``)."""
-            p = {"w": ones(*lead, d)}
+        def norm(k):
+            """``_norm_param`` (k gives the leading layer dims)."""
+            p = {"w": full(k, 1.0, d)}
             if cfg.norm == "layernorm":
-                p["b"] = zeros(*lead, d)
+                p["b"] = full(k, 0.0, d)
             return p
 
-        def attention(n):
-            attn = {"q": dense(n, d, H * hd), "k": dense(n, d, K * hd),
-                    "v": dense(n, d, K * hd), "o": dense(n, H * hd, d)}
+        def attention(k):
+            ks = TF.split(k, 4)
+            p = {"q": dense(ks[..., 0, :], d, H * hd),
+                 "k": dense(ks[..., 1, :], d, K * hd),
+                 "v": dense(ks[..., 2, :], d, K * hd),
+                 "o": dense(ks[..., 3, :], H * hd, d)}
             if cfg.qkv_bias:
                 for name, width in (("bq", H * hd), ("bk", K * hd),
                                     ("bv", K * hd)):
-                    attn[name] = zeros(n, width)
+                    p[name] = full(k, 0.0, width)
             if cfg.qk_norm:
-                attn["q_norm"], attn["k_norm"] = ones(n, hd), ones(n, hd)
+                p["q_norm"], p["k_norm"] = full(k, 1.0, hd), full(k, 1.0, hd)
             if cfg.meta_tokens:
-                attn["meta_k"] = dense(n, cfg.meta_tokens, K, hd)
-                attn["meta_v"] = dense(n, cfg.meta_tokens, K, hd)
-            return attn
+                p["meta_k"] = dense(TF.fold_in(k, 7), cfg.meta_tokens, K, hd)
+                p["meta_v"] = dense(TF.fold_in(k, 8), cfg.meta_tokens, K, hd)
+            return p
 
-        def mlp(n):
+        def mlp(k, d_in=d, d_ff=f):
+            ks = TF.split(k, 3)
             if cfg.act == "gelu":
-                return {"w_up": dense(n, d, f), "w_down": dense(n, f, d)}
-            return {"w_gate": dense(n, d, f), "w_up": dense(n, d, f),
-                    "w_down": dense(n, f, d)}
+                return {"w_up": dense(ks[..., 0, :], d_in, d_ff),
+                        "w_down": dense(ks[..., 1, :], d_ff, d_in)}
+            return {"w_gate": dense(ks[..., 0, :], d_in, d_ff),
+                    "w_up": dense(ks[..., 1, :], d_in, d_ff),
+                    "w_down": dense(ks[..., 2, :], d_ff, d_in)}
 
-        params = {"embed": dense(cfg.vocab_size, d), "final_norm": norm()}
-        if not cfg.tie_embeddings:
-            params["unembed"] = dense(d, cfg.vocab_size)
-        if cfg.arch_type == "ssm":
-            params["blocks"] = {"ln1": norm(n),
-                                "ssm": self._ssm_init(dense, ones, generator,
-                                                      dev)}
-            return params
-        if cfg.arch_type == "encdec":
-            ne = cfg.encoder_layers
-            params["enc_blocks"] = {"ln1": norm(ne), "attn": attention(ne),
-                                    "ln2": norm(ne), "mlp": mlp(ne)}
-            params["enc_norm"] = norm()
-            params["blocks"] = {"ln1": norm(n), "attn": attention(n),
-                                "ln2": norm(n), "mlp": mlp(n),
-                                "ln_x": norm(n), "xattn": attention(n)}
-            return params
-        blocks = {"ln1": norm(n), "attn": attention(n), "ln2": norm(n)}
-        if cfg.post_norm:
-            blocks["ln1_post"] = norm(n)
-            blocks["ln2_post"] = norm(n)
-        if cfg.arch_type == "hybrid":
-            blocks["ssm"] = self._ssm_init(dense, ones, generator, dev)
-            blocks["attn_out_norm"] = norm(n)
-            blocks["ssm_out_norm"] = norm(n)
-        if cfg.moe is None:
-            blocks["mlp"] = mlp(n)
-        else:
+        def moe(k):
             m = cfg.moe
             E, fe = m.n_experts, m.d_ff_expert or f
-            blocks["moe"] = {"router": dense(n, d, E),
-                             "w_gate": dense(n, E, d, fe),
-                             "w_up": dense(n, E, d, fe),
-                             "w_down": dense(n, E, fe, d)}
+            ks = TF.split(k, 5)
+            p = {"router": dense(ks[..., 0, :], d, E),
+                 "w_gate": dense(ks[..., 1, :], E, d, fe),
+                 "w_up": dense(ks[..., 2, :], E, d, fe),
+                 "w_down": dense(ks[..., 3, :], E, fe, d)}
             if m.n_shared:
-                fs = m.n_shared * fe
-                blocks["moe"]["shared"] = {"w_gate": dense(n, d, fs),
-                                           "w_up": dense(n, d, fs),
-                                           "w_down": dense(n, fs, d)}
-        params["blocks"] = blocks
+                p["shared"] = mlp(ks[..., 4, :], d, m.n_shared * fe)
+            return p
+
+        def block(k):
+            ks = TF.split(k, 8)
+            if cfg.arch_type == "ssm":
+                return {"ln1": norm(k), "ssm": self._ssm_init(
+                    ks[..., 0, :], dense, full, dev)}
+            p = {"ln1": norm(k), "attn": attention(ks[..., 0, :]),
+                 "ln2": norm(k)}
+            if cfg.post_norm:
+                p["ln1_post"] = norm(k)
+                p["ln2_post"] = norm(k)
+            if cfg.arch_type == "hybrid":
+                p["ssm"] = self._ssm_init(ks[..., 1, :], dense, full, dev)
+                p["attn_out_norm"] = norm(k)
+                p["ssm_out_norm"] = norm(k)
+            if cfg.moe is not None:
+                p["moe"] = moe(ks[..., 2, :])
+            else:
+                p["mlp"] = mlp(ks[..., 3, :])
+            return p
+
+        def encdec_block(k, cross):
+            ks = TF.split(k, 4)
+            p = {"ln1": norm(k), "attn": attention(ks[..., 0, :]),
+                 "ln2": norm(k), "mlp": mlp(ks[..., 1, :])}
+            if cross:
+                p["ln_x"] = norm(k)
+                p["xattn"] = attention(ks[..., 2, :])
+            return p
+
+        ks = TF.split(key, 6)
+        params = {"embed": dense(ks[0], cfg.vocab_size, d),
+                  "final_norm": norm(key)}
+        if not cfg.tie_embeddings:
+            params["unembed"] = dense(ks[4], d, cfg.vocab_size)
+        if cfg.arch_type == "encdec":
+            params["enc_blocks"] = encdec_block(
+                TF.split(ks[1], cfg.encoder_layers), cross=False)
+            params["enc_norm"] = norm(key)
+            params["blocks"] = encdec_block(TF.split(ks[2], cfg.n_layers),
+                                            cross=True)
+        else:
+            params["blocks"] = block(TF.split(ks[1], cfg.n_layers))
         return params
 
-    def _ssm_init(self, dense, ones, generator, dev):
-        """One SSD mixer's stacked leaves (the reference's ``_ssm_params``):
-        ``dt_bias`` the inverse softplus of dt, log-uniform in [1e-3,
-        0.1]; ``A_log = log(h % 15 + 1)`` for heads h = 1..H; ``conv_w``
-        a truncated normal times 0.2; ``D`` and ``norm_w`` ones; with
-        meta tokens, ``init_state`` zeros. ``init_state`` is carried so
-        the tree, checkpoints and the converter match the reference's,
-        but, as there, neither the forward nor the decode reads it."""
+    def _ssm_init(self, k, dense, full, dev):
+        """One SSD mixer's stacked leaves under the (L, 2) layer keys ``k``
+        (the reference's ``_ssm_params``): ``dt_bias`` the inverse softplus
+        of dt, log-uniform in [1e-3, 0.1] in float32; ``A_log = log(h % 15
+        + 1)`` for heads h = 1..H; ``conv_w`` a truncated normal times 0.2;
+        ``D`` and ``norm_w`` ones; with meta tokens, ``init_state`` zeros.
+        ``init_state`` is carried so the tree, checkpoints and the
+        converter match the reference's, but, as there, neither the
+        forward nor the decode reads it."""
+        from repro_torch.core import threefry as TF
         cfg = self.cfg
-        s, d, n = cfg.ssm, cfg.d_model, cfg.n_layers
+        s, d = cfg.ssm, cfg.d_model
         di, H = cfg.d_inner, cfg.n_ssm_heads
         conv_dim = di + 2 * s.n_groups * s.d_state
-        u = torch.rand((n, H), dtype=torch.float32, device=dev,
-                       generator=generator)
-        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3))
-                       + math.log(1e-3))
+        ks = TF.split(k, 4)
+        lead = tuple(k.shape[:-1])
+        if dev.type == "meta":
+            dt_bias = torch.empty(lead + (H,), device=dev)
+        else:
+            # the reference's float32 constants (numpy float64 scalars
+            # folded into float32 by jax's promotion without x64)
+            c = [torch.tensor(float(np.float32(v)), dtype=torch.float32)
+                 for v in (np.log(0.1) - np.log(1e-3), np.log(1e-3))]
+            dt = torch.exp(TF.uniform(ks[..., 2, :], (H,)) * c[0] + c[1])
+            dt_bias = (dt + torch.log(-torch.expm1(-dt))).to(dev)
         heads = torch.arange(1, H + 1, dtype=torch.float32, device=dev)
-        p = {"in_proj": dense(n, d, 2 * di + 2 * s.n_groups * s.d_state + H),
-             "conv_w": dense(n, s.d_conv, conv_dim).mul_(10.0),
-             "dt_bias": dt + torch.log(-torch.expm1(-dt)),
-             "A_log": torch.log(heads % 15 + 1.0).expand(n, H).clone(),
-             "D": ones(n, H),
-             "norm_w": ones(n, di),
-             "out_proj": dense(n, di, d)}
+        p = {"in_proj": dense(ks[..., 0, :], d,
+                              2 * di + 2 * s.n_groups * s.d_state + H),
+             "conv_w": dense(ks[..., 1, :], s.d_conv, conv_dim, std=0.2),
+             "dt_bias": dt_bias,
+             "A_log": torch.log(heads % 15 + 1.0).expand(lead + (H,))
+             .clone(),
+             "D": full(k, 1.0, H),
+             "norm_w": full(k, 1.0, di),
+             "out_proj": dense(ks[..., 3, :], di, d)}
         if cfg.meta_tokens:
-            p["init_state"] = torch.zeros((n, H, s.head_dim, s.d_state),
-                                          dtype=torch.float32, device=dev)
+            p["init_state"] = full(k, 0.0, H, s.head_dim, s.d_state)
         return p
 
     # ---------------- embed / head ----------------

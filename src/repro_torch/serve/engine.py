@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import List, Optional
 
+from repro_torch.core import threefry as TF
 from repro_torch.serve.quantized import quantize_params
 from repro_torch.serve.session import Request, Result, ServeSession
 
@@ -24,8 +25,7 @@ class Engine:
                        else params)
         self._session: Optional[ServeSession] = None
 
-    def generate(self, requests: List[Request],
-                 seed: Optional[int] = None) -> List[Result]:
+    def generate(self, requests: List[Request], key=None) -> List[Result]:
         # one session, grown only when a larger batch arrives; smaller
         # batches ride idle slots
         if self._session is None or self._session.slots < len(requests):
@@ -34,8 +34,8 @@ class Engine:
                                          max_seq=self.max_seq, seed=0,
                                          device=self.device)
         session = self._session
-        # identical (requests, seed) -> identical draws
-        session.reseed(seed if seed is not None else 0)
+        # identical (requests, key) -> identical draws, the reference's
+        session.reseed(key if key is not None else TF.prng_key(0))
         handles = [session.submit(r) for r in requests]
         results = session.drain()
         return [results[h] for h in handles]

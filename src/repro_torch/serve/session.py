@@ -46,14 +46,21 @@ returns the whole batch's logits on every rank, so every rank picks the
 same tokens. Mesh sessions admit by injection, and refuse a paged cache
 and ``QuantizedParams`` with the reference's messages.
 
+Sampling is the reference's, key for key: a request's key is
+``fold_in(base_key, admission ordinal)`` (``base_key`` default
+``PRNGKey(seed)``; ``reseed(key)`` restarts the ordinals), its first
+token of a chunked or whole admission draws with ``split(key)[1]`` and
+the slot keeps ``split(key)[0]``, an injected prompt stores the key
+itself, and every sampling step splits each hot slot's key (in-prompt
+steps too) and draws ``categorical`` with the second half
+(``kernels.prng.categorical_step``, one kernel and its fold on the
+card). Greedy and sampled tokens are the reference's for the same key
+(a sampled token may differ only where the reference's top two scores
+lie within float32 rounding of each other).
+
 Differences from the reference, all inside the session: the cache is
 updated in place (inactive slots' writes drop, where the reference
-reverts them on fixed lanes and rewrites identical bytes on pages);
-sampling draws Gumbel noise from a
-counter-based hash of (request key, draw count), so a request's stream
-is reproducible from ``seed``, independent of its batch mates, of
-preemption and of the admission mode, but not the reference's
-``jax.random`` stream. Greedy tokens are the reference's.
+reverts them on fixed lanes and rewrites identical bytes on pages).
 """
 from __future__ import annotations
 
@@ -65,54 +72,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import threefry as TF
+from repro_torch.kernels import prng
 from repro_torch.perf import aot
 from repro_torch.perf import cache as perf_cache
 from repro_torch.serve.paged import PagePool
 from repro_torch.serve.quantized import is_quantized, make_dequant_gather
 
 SLO_PRIORITY = {"batch": 0, "standard": 1, "interactive": 2}
-
-_M64 = (1 << 64) - 1
-
-
-def _signed64(v: int) -> int:
-    v &= _M64
-    return v - (1 << 64) if v >> 63 else v
-
-
-_C1 = _signed64(0xBF58476D1CE4E5B9)
-_C2 = _signed64(0x94D049BB133111EB)
-_GOLD = _signed64(0x9E3779B97F4A7C15)
-
-
-def _mix64_int(z: int) -> int:
-    """splitmix64's finalizer on a Python int (mod 2^64)."""
-    z &= _M64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
-    return _signed64(z ^ (z >> 31))
-
-
-def _mix64(z: torch.Tensor) -> torch.Tensor:
-    """The same finalizer on int64 tensors (wrapping multiply, logical
-    shifts by masking)."""
-    z = (z ^ ((z >> 30) & ((1 << 34) - 1))) * _C1
-    z = (z ^ ((z >> 27) & ((1 << 37) - 1))) * _C2
-    return z ^ ((z >> 31) & ((1 << 33) - 1))
-
-
-def request_key(seed: int, ordinal: int) -> int:
-    """The sampling key of the ``ordinal``-th submission under ``seed``."""
-    return _mix64_int(_mix64_int(seed) + ordinal * 0x9E3779B97F4A7C15)
-
-
-def gumbel_noise(key: torch.Tensor, ctr: torch.Tensor, n: int) -> torch.Tensor:
-    """(B, n) standard Gumbel noise from per-row (key, draw counter)
-    int64 pairs: a pure function of its inputs on any device."""
-    idx = torch.arange(n, dtype=torch.int64, device=key.device)
-    z = _mix64(key[:, None] + _mix64(ctr[:, None] * _GOLD + idx[None, :]))
-    u = (((z >> 40) & ((1 << 24) - 1)).to(torch.float32) + 0.5) / (1 << 24)
-    return -torch.log(-torch.log(u))
 
 
 @dataclasses.dataclass
@@ -150,10 +117,13 @@ class ServeSession:
         lanes only, a prompt shorter than 2 tokens is injected) or
         "inject" (the prompt through the decode step, one token a step).
         The first generated token of a chunked or whole admission is the
-        greedy argmax of the last prompt position's logits, or draw 0 of
-        the request's Gumbel stream when sampling; an injected prompt's
-        first token is the decode step's, with the same draw 0.
+        greedy argmax of the last prompt position's logits, or, when
+        sampling, a draw under the second half of the request key's
+        split; an injected prompt's first token is the decode step's.
         A mesh session admits every prompt by injection.
+    base_key: the sampling streams' base key (a (2,) threefry key, the
+        reference's uint32 words or the port's int32 key); default
+        ``PRNGKey(seed)``.
     decode_fn: a ``(params, inputs, cache, pos, write=) -> (logits,
         cache)`` step in place of ``model.decode_step``, e.g.
         ``dist.serve.make_serve_step(..., "decode")``'s, with ``params``
@@ -170,10 +140,10 @@ class ServeSession:
     """
 
     def __init__(self, model, params, *, slots: int = 8, max_seq: int = 256,
-                 eos_id: Optional[int] = None, seed: int = 0,
-                 sync_interval: int = 8, fused_matmul: bool = True,
-                 paged: bool = False, page_size: int = 16,
-                 num_pages: Optional[int] = None, prefill: str = "auto",
+                 eos_id: Optional[int] = None, base_key=None,
+                 seed: int = 0, sync_interval: int = 8,
+                 fused_matmul: bool = True, paged: bool = False,
+                 page_size: int = 16, num_pages: Optional[int] = None, prefill: str = "auto",
                  prefill_chunk: int = 32, preempt_mode: str = "requeue",
                  device="cuda", decode_fn=None,
                  aot_dir: Optional[str] = None):
@@ -226,7 +196,8 @@ class ServeSession:
         self._state = self._init_state()
         self._graphs: Dict[bool, torch.cuda.CUDAGraph] = {}  # sample ->
         self._warm: set = set()         # step kinds run once eagerly
-        self._seed = int(seed)
+        self._base_key = TF.as_key(base_key if base_key is not None
+                                   else TF.prng_key(seed), "ServeSession")
         self._hot: set = set()          # handles in slots with temp > 0
         self._slot_handle: List[Optional[int]] = [None] * slots
         self._slot_done_step = [0] * slots   # earliest possible finish
@@ -235,7 +206,7 @@ class ServeSession:
             collections.OrderedDict()   # slot -> chunked-admission progress
         self._pending: List[int] = []   # handles, (priority, arrival) order
         self._requests: Dict[int, Request] = {}
-        self._req_key: Dict[int, int] = {}   # stable across preemption
+        self._req_key: Dict[int, torch.Tensor] = {}  # kept over preemption
         self._results: Dict[int, Result] = {}
         self._submit_t: Dict[int, float] = {}
         self.ttft_s: Dict[int, float] = {}  # submit -> first-token dispatch
@@ -278,7 +249,7 @@ class ServeSession:
                     plen=z(torch.int32), gen=z(torch.int32),
                     max_new=z(torch.int32), active=z(torch.bool),
                     temp=z(torch.float32),
-                    rng=torch.zeros((B, 2), dtype=torch.int64, device=dev),
+                    rng=torch.zeros((B, 2), dtype=torch.int32, device=dev),
                     prompt=torch.zeros((B, S), dtype=torch.int32, device=dev),
                     out=torch.zeros((B, S), dtype=torch.int32, device=dev))
 
@@ -324,21 +295,22 @@ class ServeSession:
             st["cache"]["ptab"][slot] = self.num_pages
 
     def _first_token(self, slot: int, lg: torch.Tensor, plen: int,
-                     max_new: int, temp: float, key: int):
+                     max_new: int, temp: float, key: torch.Tensor):
         """Activate ``slot`` after its prompt of ``plen`` tokens filled
         the cache: the first generated token from the last prompt
-        position's logits ``lg`` (V,), greedy or draw 0 of the request's
-        stream when sampling (chunked and whole admission alike)."""
+        position's logits ``lg`` (V,), greedy, or when sampling the
+        reference's draw (``split(key)``: draw with the second half, the
+        slot keeps the first), chunked and whole admission alike."""
         st = self._state
-        lgf = lg.to(torch.float32)
-        hot = temp > 0.0
-        if hot:
-            rk = self._to_dev([key], torch.int64)
-            noise = gumbel_noise(rk, torch.zeros_like(rk), lgf.shape[-1])[0]
-            t0 = torch.argmax(lgf / max(temp, 1e-6) + noise)
+        lgf = lg.to(torch.float32).reshape(1, -1)
+        rng = key.to(self.device).reshape(1, 2).clone()   # drawn in place
+        if temp > 0.0:
+            t = torch.full((1,), temp, dtype=torch.float32,
+                           device=self.device)
+            _, t0 = prng.categorical_step(lgf, t, rng)
         else:
-            t0 = torch.argmax(lgf)
-        t0 = t0.to(torch.int32)
+            t0 = torch.argmax(lgf, dim=-1).to(torch.int32)
+        t0 = t0[0]
         st["cur"][slot] = t0
         st["pos"][slot] = plen
         st["plen"][slot] = plen
@@ -350,7 +322,7 @@ class ServeSession:
             done = done | (t0 == self.eos_id)
         st["active"][slot] = ~done
         st["temp"][slot] = temp
-        st["rng"][slot] = self._to_dev([key, int(hot)], torch.int64)
+        st["rng"][slot] = rng[0]
 
     def _run_chunk(self, slot, tokens, start, nvalid, max_new, temp, key,
                    is_last):
@@ -369,7 +341,7 @@ class ServeSession:
             self._first_token(slot, lg[0], start + nvalid, max_new, temp, key)
 
     def _prefill_whole(self, slot: int, prompt: np.ndarray, max_new: int,
-                       temp: float, key: int):
+                       temp: float, key: torch.Tensor):
         """Whole-prompt admission: one ``Model.prefill`` over the prompt
         writes the slot's fixed lanes (zeros past the prompt, as the
         reference's padded cache; the SSM state and conv tail at the
@@ -391,7 +363,7 @@ class ServeSession:
         self._state["prompt"][slot] = self._to_dev(row, torch.int32)
 
     def _inject(self, slot: int, prompt: np.ndarray, max_new: int,
-                temp: float, key: int, ptab_row):
+                temp: float, key: torch.Tensor, ptab_row):
         """Injected admission: the slot starts active at position 0 on
         its first prompt token; the decode step feeds the rest of the
         prompt and emits from the last prompt position on."""
@@ -404,7 +376,7 @@ class ServeSession:
         st["max_new"][slot] = max_new
         st["active"][slot] = True
         st["temp"][slot] = temp
-        st["rng"][slot] = self._to_dev([key, 0], torch.int64)
+        st["rng"][slot] = key.to(self.device)
         self._claim_cache(slot, ptab_row)
 
     def _decode(self, sample: bool):
@@ -425,20 +397,15 @@ class ServeSession:
             logits, _ = self._decode_fn(self.params, inputs, st["cache"],
                                         pos, write=active)
         logits = logits.to(torch.float32)
-        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        if sample:       # every hot slot's key advances, as the reference's
+            greedy, sampled = prng.categorical_step(logits, st["temp"],
+                                                    st["rng"])
+            tok = torch.where(st["temp"] > 0.0, sampled, greedy)
+        else:
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
         nxt = pos + 1
         in_prompt = nxt < st["plen"]
         emit = active & ~in_prompt                 # tok was generated
-        if sample:
-            rng = st["rng"]
-            hot = st["temp"] > 0.0
-            scaled = logits / torch.clamp_min(st["temp"], 1e-6)[:, None]
-            noise = gumbel_noise(rng[:, 0], rng[:, 1], logits.shape[-1])
-            sampled = torch.argmax(scaled + noise, dim=-1).to(torch.int32)
-            tok = torch.where(hot, sampled, greedy)
-            rng[:, 1] += (hot & emit).to(torch.int64)
-        else:
-            tok = greedy
         prompt_next = torch.gather(
             st["prompt"], 1, torch.clamp(nxt, 0, S - 1).long()[:, None])[:, 0]
         rows = torch.arange(B, device=self.device)
@@ -544,7 +511,7 @@ class ServeSession:
         self._requests[h] = req
         # keyed on the submission ordinal since the last (re)seed; the key
         # survives preemption, so a requeued request replays its draws
-        self._req_key[h] = request_key(self._seed, self._admit_seq)
+        self._req_key[h] = TF.fold_in(self._base_key, self._admit_seq)
         self._admit_seq += 1
         self._submit_t[h] = time.perf_counter()
         self._enqueue(h)
@@ -819,10 +786,11 @@ class ServeSession:
         out, self._results = self._results, {}
         return out
 
-    def reseed(self, seed: int):
-        """Set the base sampling seed for requests submitted from now on
-        (restarting the per-submission key sequence)."""
-        self._seed = int(seed)
+    def reseed(self, key):
+        """Set the base sampling key (a (2,) threefry key) for requests
+        submitted from now on, restarting the per-submission key
+        sequence."""
+        self._base_key = TF.as_key(key, "ServeSession")
         self._admit_seq = 0
 
     def result(self, handle: int) -> Optional[Result]:

@@ -422,8 +422,9 @@ class _DistProgram:
                 dict(zip(grid.axes, grid.sizes)),
                 "n_workers": self.art.n_workers}
 
-    def init_state(self, seed):
-        return self.art.init_state(seed=seed, device=self._device)
+    def init_state(self, arg):
+        seed, key = arg
+        return self.art.init_state(seed=seed, device=self._device, key=key)
 
     def device(self, state):
         return tree_leaves(state["master"])[0].device
@@ -650,15 +651,16 @@ class TrainSession:
     @classmethod
     def from_artifacts(cls, art, batches: Iterator,
                        cfg: Optional[SessionConfig] = None, *, seed: int = 0,
-                       state=None, device="cuda",
+                       key=None, state=None, device="cuda",
                        log: Callable = print) -> "TrainSession":
         """Distributed session over ``dist.step.make_train_step``
         artifacts, one per rank: this rank's state from
-        ``art.init_state(seed, device)``, or ``state`` as given (e.g.
-        ``convert.dist_state_from_numpy``). Every rank pulls the same
-        global batches; the step takes its own rows."""
-        return cls(_DistProgram(art, device), batches, cfg, init_arg=seed,
-                   state=state, log=log)
+        ``art.init_state(seed, device, key=key)`` (the reference's
+        ``init_state(key)``, ``key`` by default ``PRNGKey(seed)``), or
+        ``state`` as given (e.g. ``convert.dist_state_from_numpy``). Every
+        rank pulls the same global batches; the step takes its own rows."""
+        return cls(_DistProgram(art, device), batches, cfg,
+                   init_arg=(seed, key), state=state, log=log)
 
     @classmethod
     def from_optimizer(cls, opt, loss_fn: Callable, params,

@@ -130,7 +130,7 @@ def test_step_bitwise_for_every_bucket_size(group, mode):  # noqa: F811
     model = TModel(tget("yi-6b", smoke=True))
     extra = {}
     if mode == "adaptive":
-        n = len(tree_leaves(model.init(torch.Generator(), device="meta")))
+        n = len(tree_leaves(model.init(device="meta")))
         extra = {"bit_plan": _plan(n)}
     runs = {}
     for size in (0, 1, 1 << 10, 4 << 20):

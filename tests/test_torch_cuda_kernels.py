@@ -25,7 +25,10 @@ with no garbage collection. The SSM and hybrid family: K1 at mamba2's
 and hymba's projection shapes (int8 and 3/4/6-bit lanes, #9's packing
 bitwise on the 6,482-wide rows that fill no whole 3- or 6-bit group),
 K1t over their 50,280- and 32,001-row heads, and their sessions' decode
-step graphed (in the session test above).
+step graphed (in the session test above). The reference's random
+streams: the threefry kernels (uniform, keys, truncated normal, the
+sampling step and its fold) bitwise their plain versions, and the
+sampled decode step graphed bitwise eager.
 """
 import dataclasses
 
@@ -780,6 +783,98 @@ def test_threefry_keys_bitwise(dev, n_leaves):
         _bits_equal(prng.advance_keys(ka, n_leaves, backend="cuda"),
                     prng.advance_keys(kb, n_leaves, backend="torch"))
         _bits_equal(ka, kb)
+
+
+@pytest.mark.parametrize("L", [1, 3, 64])
+@pytest.mark.parametrize("n", [1, 3, 4099, 65536])
+def test_threefry_trunc_normal_bitwise(dev, L, n):
+    """rt_threefry_trunc_normal against its plain version
+    (``core.threefry.truncated_normal`` times std): an (L, 2) key table
+    drawn in one launch (float4 rows where every row is aligned, scalar
+    rows where n is not a multiple of 4 or the output sits at an offset),
+    a start past 2^32, both stds of ``Model.init``."""
+    from repro_torch.core import threefry as TF
+    from repro_torch.kernels import prng
+    keys = TF.split(TF.prng_key(L * n, dev), L)
+    buf = torch.full((L * n + 1,), -1.0, device=dev)
+    for start, std in ((0, 0.02), (2 ** 32 - 5, 0.2)):
+        want = prng.trunc_normal(keys, (n,), std, start, backend="torch")
+        before = prng.trunc_normal_launches
+        got = prng.trunc_normal(keys, (n,), std, start, backend="cuda")
+        assert prng.trunc_normal_launches == before + 1
+        _bits_equal(got, want)
+        off = prng.trunc_normal(keys, (n,), std, start, backend="cuda",
+                                out=buf[1:].view(L, n))
+        _bits_equal(off, want)
+        assert float(want.abs().max()) < 2 * std
+    assert float(buf[0]) == -1.0
+    one = prng.trunc_normal(keys[0], (n,), 0.02, backend="cuda")
+    _bits_equal(one, prng.trunc_normal(keys[:1], (n,), 0.02,
+                                       backend="cuda")[0])
+
+
+@pytest.mark.parametrize("B,V", [(1, 7), (4, 4099), (1, 64000),
+                                 (4, 64000), (3, 152064), (4, 262144),
+                                 (9, 50280)])
+def test_threefry_categorical_bitwise(dev, B, V):
+    """rt_threefry_categorical and its fold against the plain sampling
+    step over 8 steps: greedy and sampled tokens and the keys written
+    back bitwise, greedy temperatures (0) beside hot ones, V not a
+    multiple of the 4096-element chunk, ties planted across chunks (the
+    lower index wins), and a row of equal logits."""
+    from repro_torch.core import threefry as TF
+    from repro_torch.kernels import prng
+    gen = torch.Generator(device=dev).manual_seed(B * V)
+    temp = torch.tensor([(0.0, 0.8, 1.3, 1e-9)[b % 4] for b in range(B)],
+                        device=dev)
+    ka = TF.split(TF.prng_key(V, dev), B)
+    kb = ka.clone()
+    for step in range(8):
+        lg = 3 * torch.randn(B, V, generator=gen, device=dev)
+        top = float(lg.max()) + 1.0
+        lg[:, V // 2] = top
+        lg[:, V - 1] = top
+        if step == 3:
+            lg[0] = 0.5
+        before = prng.categorical_launches
+        ga, sa = prng.categorical_step(lg, temp, ka, backend="cuda")
+        assert prng.categorical_launches == before + 1
+        gb, sb = prng.categorical_step(lg, temp, kb, backend="torch")
+        _bits_equal(ga, gb)
+        _bits_equal(sa, sb)
+        _bits_equal(ka, kb)
+        flat = B == 1 and step == 3
+        assert int(ga[-1]) == (0 if flat else V // 2)
+        assert step != 3 or int(ga[0]) == 0
+
+
+def test_session_sampled_step_graph_equals_eager(dev, monkeypatch):
+    """Every request hot: the sampled decode step as its CUDA graph gives
+    the eager session's tokens and keys bitwise; the categorical kernel
+    launched and no plain version ran on the card."""
+    from repro_torch.kernels import prng
+    from repro_torch.serve.session import Request, ServeSession
+    model, params = _served_smoke(dev, "yi-6b")
+
+    def run():
+        sess = ServeSession(model, params, slots=3, max_seq=48, seed=6,
+                            prefill_chunk=4, device=dev)
+        hs = [sess.submit(Request(prompt=list(range(2 + i, 9 + i)),
+                                  max_new_tokens=12, temperature=0.6 + i / 4))
+              for i in range(5)]
+        res = sess.drain()
+        return sess, [res[h].tokens for h in hs]
+    plain = prng.plain_on_cuda
+    before = prng.categorical_launches
+    graphed, tokens = run()
+    assert True in graphed._graphs and graphed.stats["replays"] > 0
+    assert prng.categorical_launches > before
+    assert prng.plain_on_cuda == plain
+    monkeypatch.setattr(ServeSession, "_dispatch",
+                        lambda self, sample: self._decode(sample))
+    eager, want = run()
+    assert tokens == want
+    assert torch.equal(graphed._state["rng"], eager._state["rng"])
 
 
 @pytest.mark.parametrize("n", [1, 3, 4099, 1000003])

@@ -397,12 +397,19 @@ def test_out_of_scope_raises(models, group):
                            "x", "--compile-cache", "c", "--no-compile-cache"])
     assert (a.tune_buckets, a.aot_dir, a.compile_cache,
             a.no_compile_cache) == (True, "x", "c", True)
-    for flag in (["--multihost"], ["--coordinator", "h:1"],
-                 ["--num-processes", "2"], ["--process-id", "0"]):
-        with pytest.raises(NotImplementedError,
-                           match=f"{flag[0]}: the port runs one process "
-                                 "per card under torchrun"):
-            launch.parse_args(["--arch", "yi-6b"] + flag)
+    # the reference's multi-host flags: all four or the reference's error
+    # (tests/test_torch_sampling.py runs two ranks through them)
+    full = ["--multihost", "--coordinator", "h:1", "--num-processes", "2",
+            "--process-id", "0"]
+    a = launch.parse_args(["--arch", "yi-6b"] + full)
+    assert (a.multihost, a.coordinator, a.num_processes, a.process_id) == \
+        (True, "h:1", 2, 0)
+    for i in (1, 3, 5):             # one of the three values missing
+        with pytest.raises(SystemExit):
+            launch.parse_args(["--arch", "yi-6b"] + full[:i] + full[i + 2:])
+    for flag in (["--coordinator", "h:1"], ["--num-processes", "2"],
+                 ["--process-id", "0"]):
+        assert not launch.parse_args(["--arch", "yi-6b"] + flag).multihost
     for flag, want in ((["--model", "2"], dict(model=2)),
                        (["--topology", "2x2"], dict(pod=2, data=2)),
                        (["--topology", "2x2", "--pod", "2", "--data", "2"],

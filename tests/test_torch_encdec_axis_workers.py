@@ -207,7 +207,7 @@ def _whole(ranks, tag, geo, frames=None):
     from repro_torch.dist import sharding as SH
     from repro_torch.models.model import Model
     _, data, model = geo
-    shapes = Model(_cfg(tget, frames)).init(torch.Generator(), device="meta")
+    shapes = Model(_cfg(tget, frames)).init(device="meta")
     layout = SH.build_layout(shapes, model)
     dims = SH.dims_by_path(layout)
     out = {}

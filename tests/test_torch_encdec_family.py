@@ -349,7 +349,7 @@ def test_quantized_leaf_kinds():
                                    "enc_blocks")
     assert TQ.is_qleaf(one["attn"]["q"]) and TQ.is_qleaf(one["mlp"]["w_up"])
     assert isinstance(one["ln1"]["w"], torch.Tensor)
-    full = TModel(tget(ARCH)).init(torch.Generator(), device="meta")
+    full = TModel(tget(ARCH)).init(device="meta")
     big = {p for p, t in _flat(full) if t.numel() >= 2 ** 14}
     assert big == {p for p, _ in _flat(full)
                    if p[-1] in TQ._MATMUL_KEYS}

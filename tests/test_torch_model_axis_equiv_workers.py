@@ -117,8 +117,7 @@ def _whole(ranks, tag, geo, arch):
     from repro_torch.dist import sharding as SH
     from repro_torch.models.model import Model as TModel
     _, data, model = geo
-    shapes = TModel(H.tget(arch, smoke=True)).init(torch.Generator(),
-                                                   device="meta")
+    shapes = TModel(H.tget(arch, smoke=True)).init(device="meta")
     layout = SH.build_layout(shapes, model)
     dims = SH.dims_by_path(layout)
     out = {}

@@ -189,8 +189,7 @@ def _whole(ranks, tag, geo):
     from repro_torch.dist import sharding as SH
     from repro_torch.models.model import Model
     _, data, model = geo
-    shapes = Model(tget(ARCH, smoke=True)).init(torch.Generator(),
-                                                device="meta")
+    shapes = Model(tget(ARCH, smoke=True)).init(device="meta")
     layout = SH.build_layout(shapes, model)
     dims = SH.dims_by_path(layout)
     out = {}

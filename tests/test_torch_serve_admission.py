@@ -4,12 +4,13 @@
 give the reference's greedy tokens for the mixed prompts, on yi-6b and
 gemma3-4b (window 16 at smoke size, which the longest prompt crosses;
 tied head from codes). Also the reference's refusals and fallbacks, the
-port's sampling stream across admission modes, and the package surface
+sampled tokens of every admission mode against the reference's same
+mode, and the package surface
 (``repro_torch.serve.__all__``, ``comm.dequant_matmul``,
 ``repro_torch.dist``'s submodules).
 
-Tier: greedy tokens identical (the reference's session runs the same
-converted, quantized weights).
+Tier: greedy and sampled tokens identical (the reference's session runs
+the same converted, quantized weights and the same keys).
 """
 import jax
 import numpy as np
@@ -105,19 +106,23 @@ def test_whole_refusals_and_fallback():
 
 
 def test_sampling_stream_is_independent_of_admission():
-    """A sampled request draws the same Gumbel stream (draw 0 for its
-    first token) whichever way its prompt was admitted, so its tokens
-    agree across chunked, whole and injected admission."""
-    _, tm, _, tp = _setup("gemma3-4b")
-    reqs = [Request(prompt=p, max_new_tokens=6,
-                    temperature=0.0 if i % 2 else 0.8)
+    """Each admission mode samples the reference's tokens in the same
+    mode: a request's key is the reference's, its first token of a chunked
+    or whole admission draws with ``split(key)[1]``, and an injected
+    prompt's key advances on its in-prompt steps as the reference's does
+    (so injected and chunked admission draw different streams, in both
+    packages alike)."""
+    jm, tm, jp, tp = _setup("gemma3-4b")
+    reqs = [dict(prompt=p, max_new_tokens=6,
+                 temperature=0.0 if i % 2 else 0.8)
             for i, p in enumerate(MIXED)]
-    runs = []
     for mode in (dict(prefill="chunked"), *MODES):
-        s = ServeSession(tm, tp, slots=3, max_seq=48, seed=3, device="cpu",
-                         **mode)
-        runs.append([r.tokens for r in _run(s, reqs)])
-    assert all(r == runs[0] for r in runs[1:])
+        js = JSession(jm, jp, slots=3, max_seq=48, seed=3, **mode)
+        want = _run(js, [JRequest(**r) for r in reqs])
+        ts = ServeSession(tm, tp, slots=3, max_seq=48, seed=3,
+                          device="cpu", **mode)
+        got = _run(ts, [Request(**r) for r in reqs])
+        assert [r.tokens for r in got] == [r.tokens for r in want], mode
 
 
 def test_package_surface_matches_reference():

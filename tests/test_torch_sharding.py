@@ -38,8 +38,7 @@ from repro_torch.models.model import Model as TModel
 
 def _leaves(arch):
     """[(path, shape)] of the smoke model, in the port's tree order."""
-    shapes = TModel(tget(arch, smoke=True)).init(torch.Generator(),
-                                                 device="meta")
+    shapes = TModel(tget(arch, smoke=True)).init(device="meta")
     out = []
 
     def walk(t, path):

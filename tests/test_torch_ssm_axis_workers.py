@@ -229,8 +229,7 @@ def _whole(ranks, tag, geo, arch):
     from repro_torch.dist import sharding as SH
     from repro_torch.models.model import Model
     _, data, model = geo
-    shapes = Model(tget(arch, smoke=True)).init(torch.Generator(),
-                                                device="meta")
+    shapes = Model(tget(arch, smoke=True)).init(device="meta")
     layout = SH.build_layout(shapes, model)
     dims = SH.dims_by_path(layout)
     out = {}

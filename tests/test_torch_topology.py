@@ -192,8 +192,7 @@ def _arts(arch, geo, n_shards, mode, kw):
     ``comm_bytes_per_step``."""
     axes, sizes, topo = GEOMETRIES[geo]
     n = sizes[0] * sizes[1]
-    tshapes = TModel(tget(arch, smoke=True)).init(torch.Generator(),
-                                                  device="meta")
+    tshapes = TModel(tget(arch, smoke=True)).init(device="meta")
     jm = JModel(jget(arch, smoke=True))
     jshapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
     tiered = get_mode(mode).tiered
